@@ -1,0 +1,26 @@
+"""pymgrit_tpu_torch — Multigrid-Reduction-in-Time on PyTorch, with
+hand-written CUDA and Triton kernels for NVIDIA Hopper.
+
+A port of ``pymgrit_tpu`` (JAX), which stays the reference.  This package
+imports ``torch`` and never ``jax``; it sets no global torch state (default
+dtype, TF32 flags) when imported.  Tubes are float64.
+"""
+
+from pymgrit_tpu_torch.core import vector
+from pymgrit_tpu_torch.core.application import Application
+from pymgrit_tpu_torch.core.grid_transfer import GridTransfer, GridTransferCopy
+from pymgrit_tpu_torch.core.hierarchy import simple_setup_problem
+from pymgrit_tpu_torch.core.solver import Mgrit
+from pymgrit_tpu_torch.models.dahlquist import Dahlquist
+from pymgrit_tpu_torch.models.heat_2d import Heat2D
+
+__all__ = [
+    "Mgrit",
+    "Application",
+    "GridTransfer",
+    "GridTransferCopy",
+    "simple_setup_problem",
+    "vector",
+    "Dahlquist",
+    "Heat2D",
+]

@@ -1,0 +1,676 @@
+"""MGRIT solver in FAS formulation, on torch tensors.
+
+Counterpart of ``pymgrit_tpu/core/solver.py``.  The iteration structure
+(V-/F-cycles, FCF-relaxation, nested iteration, convergence criteria 0-3,
+C-relaxation weight) and the condensed level-0 carry are the JAX
+package's; the execution differs:
+
+* Solution state per level is a *tube*: one tensor with a leading time
+  axis.  The JAX code is functional; here every phase updates the tubes in
+  place through strided row views (C-rows ``m::m``, F-blocks), which the
+  kernels read and write directly.  Where a phase reads rows it also
+  writes, it writes a fresh buffer first (Jacobi C-relaxation).
+* F-relaxation hands all intervals of a level to the application's
+  ``step_chain`` (Heat2D: kernel K2 ``theta_chain``), or loops over the
+  intra-interval position with a batched step.
+* ``solve_compiled`` is a Python loop over device tensors that reads one
+  scalar per iteration to decide whether to stop.
+
+States are single tensors (no tuple states) in this port.  Non-uniform
+coarsening, the device mesh, the parallel-prefix coarsest solve and the
+lazy level-0 F-relaxation are not ported and raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import inspect
+import logging
+import sys
+import time
+from typing import Callable, List
+
+import numpy as np
+import torch
+
+from pymgrit_tpu_torch.core import vector
+from pymgrit_tpu_torch.core.application import Application
+from pymgrit_tpu_torch.core.grid_transfer import GridTransfer, GridTransferCopy
+from pymgrit_tpu_torch.core.levels import LevelInfo, build_level_infos, validate_hierarchy
+from pymgrit_tpu_torch.ops import DISPATCH
+
+
+def hook_accepts_kwarg(hook, name: str) -> bool:
+    """True iff `hook` declares `name` as an explicit keyword parameter."""
+    try:
+        sig = inspect.signature(hook)
+    except (TypeError, ValueError):
+        return False
+    return name in sig.parameters
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """(R, ...) tube rows as an (R, N) view (never a copy)."""
+    return t.view(t.shape[0], -1)
+
+
+class Mgrit:
+    """MGRIT solver; constructor parameters mirror ``pymgrit_tpu.Mgrit``."""
+
+    def __init__(self, problem: List[Application], transfer: List[GridTransfer] = None,
+                 weight_c: float = 1.0, max_iter: int = 100, tol: float = 1e-7,
+                 nested_iteration: bool = True, cf_iter=1, cycle_type: str = 'V',
+                 mesh=None, logging_lvl: int = logging.INFO, output_fcn=None,
+                 output_lvl: int = 1, t_norm: int = 2, random_init_guess: bool = False,
+                 conv_crit: int = 0, rng_seed: int = 0,
+                 lazy_f_relax: bool = False, condensed: bool = True,
+                 coarsest_prefix: bool = False) -> None:
+        logging.basicConfig(format='%(levelname)s - %(asctime)s - %(message)s',
+                            datefmt='%d-%m-%y %H:%M:%S', level=logging_lvl, stream=sys.stdout)
+
+        if transfer is None:
+            transfer = [GridTransferCopy() for _ in range(len(problem) - 1)]
+
+        # ---- validation (messages mirror the JAX package) ----
+        if len(problem) != (len(transfer) + 1):
+            raise Exception('There should be exactly one transfer operator for each level except the coarsest grid')
+        validate_hierarchy([p.t for p in problem])
+        if cycle_type not in ('V', 'F'):
+            raise Exception("Cycle-type " + str(cycle_type) + " is not implemented. Choose 'V' or 'F'")
+        if output_lvl not in [0, 1, 2]:
+            raise Exception("Unknown output level. Choose 0, 1 or 2.")
+        if t_norm not in [1, 2, 3]:
+            raise Exception('Unknown norm. Please choose 1 (one norm), 2 (two-norm) or 3 (inf-norm)')
+        if conv_crit not in [0, 1, 2, 3]:
+            raise Exception(
+                'Unknown convergence criterion. Please choose: '
+                '0 (global space-time residual), '
+                '1 (global jump)'
+                '2 (local space-time residual)'
+                '3 (local jump)')
+        if isinstance(cf_iter, int):
+            cf_iter = [cf_iter for _ in range(len(problem))]
+        elif isinstance(cf_iter, list):
+            if len(cf_iter) < len(problem) - 1:
+                raise Exception(
+                    'Too few cf_iter. '
+                    'Specify a list of values for all but the coarsest level or an integer (used for all levels).')
+        else:
+            raise Exception(
+                'Incorrect datatype cf_iter. '
+                'Specify a list of values for all but the coarsest level or an integer ( used for all levels).')
+        if mesh is not None:
+            raise NotImplementedError("mesh= (time-sharded execution) is not ported yet (ROADMAP A12)")
+        if coarsest_prefix:
+            raise NotImplementedError(
+                "coarsest_prefix=True (parallel-prefix coarsest solve) is not ported yet (ROADMAP A9)")
+        if lazy_f_relax:
+            raise NotImplementedError(
+                "lazy_f_relax=True is not ported (ROADMAP: not to port; the condensed carry replaces it)")
+
+        self.problem = problem
+        self.transfer = transfer
+        self.weight_c = weight_c
+        self.lvl_max = len(problem)
+        self.tol = tol
+        self.cf_iter = cf_iter
+        self.cycle_type = cycle_type
+        self.random_init_guess = random_init_guess
+        self.iter_max = max_iter
+        self.nes_it = nested_iteration
+        self.conv = np.zeros(max_iter + 1)
+        self.conv_crit = conv_crit
+        self.global_conv_crit = conv_crit in (0, 1)
+        self.t_norm_ord = {1: 1, 2: 2, 3: float('inf')}[t_norm]
+        self.output_lvl = output_lvl
+        self.output_fcn = output_fcn if (output_fcn is not None and callable(output_fcn)) else None
+        self.solve_iter = 0
+        self.runtime_solve = 0.0
+        self.runtime_setup = 0.0
+        self.ops = getattr(problem[0], "ops", DISPATCH)
+
+        # ---- static level structure ----
+        runtime_setup_start = time.time()
+        self.log_info("Start setup")
+        self.levels: List[LevelInfo] = build_level_infos([p.t for p in problem])
+        self.m = [li.m for li in self.levels]
+        for lvl in range(self.lvl_max - 1):
+            if not self.levels[lvl].uniform:
+                raise NotImplementedError(
+                    'Non-uniform coarsening between level ' + str(lvl) + ' and ' + str(lvl + 1) +
+                    ' is not ported yet (ROADMAP A8)')
+        self.step_fns: List[Callable] = [p.step for p in problem]
+        self.restrict_fns: List[Callable] = [tr.restriction for tr in transfer]
+        self.interp_fns: List[Callable] = [tr.interpolation for tr in transfer]
+        self._block_cache = {}
+
+        # ---- condensed level-0 carry: keep only the level-0 C-points; every
+        # F-row consumer (C-relaxation, FAS restriction, residual) reads the
+        # closed-form step to the next C-point through the fine
+        # application's relax_interval hook; the full tube is materialized
+        # once after convergence.  Same decision and decline reasons as the
+        # JAX package, logged as one INFO line. ----
+        self._condensed0 = False
+        custom_criteria = type(self).convergence_criterion is not Mgrit.convergence_criterion
+        self._cnd_decline_reason = None
+        if condensed and self.lvl_max > 1:
+            if custom_criteria:
+                self._cnd_decline_reason = (
+                    "a custom convergence criterion reads the raw level-0 state "
+                    "and needs the full fine tube")
+            elif self.output_fcn is not None and output_lvl == 2:
+                self._cnd_decline_reason = (
+                    "output_lvl=2 hands the full level-0 tube to output_fcn "
+                    "every iteration")
+            elif not self.levels[0].uniform:
+                self._cnd_decline_reason = (
+                    "level-0 C-points are not uniformly spaced "
+                    "(index-non-uniform coarsening)")
+            elif self.levels[0].m <= 1:
+                self._cnd_decline_reason = "level-0 coarsening factor is 1"
+            elif getattr(problem[0], "relax_interval", None) is None:
+                self._cnd_decline_reason = (
+                    "the fine application provides no relax_interval hook")
+            else:
+                self._condensed0 = self._probe_condensed0()
+            if not self._condensed0 and self._cnd_decline_reason is not None:
+                self.log_info(
+                    "MGRIT: condensed level-0 fast path DISABLED: "
+                    + self._cnd_decline_reason
+                    + " (full-tube executor used; see docs/performance.md)")
+        self._nc_store0 = self.levels[0].cpts.size if self._condensed0 else 0
+
+        # ---- allocate tubes (float64, on the device of the templates) ----
+        self.u: List = []
+        self.v: List = []
+        self.g: List = []
+        for lvl in range(self.lvl_max):
+            nt = self._nc_store0 if (lvl == 0 and self._condensed0) else self.levels[lvl].nt
+            template = vector.as_f64(problem[lvl].vector_template)
+            if lvl == 0 and random_init_guess:
+                gen = torch.Generator(device=template.device).manual_seed(rng_seed)
+                tube = torch.rand((nt,) + tuple(template.shape), generator=gen,
+                                  dtype=torch.float64, device=template.device)
+            else:
+                tube = vector.tube_of(template, nt)
+            tube[0] = vector.as_f64(problem[lvl].vector_t_start)
+            self.u.append(tube)
+            self.v.append(None if lvl == 0 else torch.zeros_like(tube))
+            self.g.append(None if lvl == 0 else torch.zeros_like(tube))
+        self.device = self.u[0].device
+
+        for lvl, p in enumerate(problem):
+            p.prepare_runtime(self.levels[lvl])
+
+        if nested_iteration:
+            self._nested_iteration()
+
+        self.save_values_last_iter = None
+        if conv_crit in (1, 3):
+            self.save_values_last_iter = self._c_points(self.u[0])
+
+        self._all_below = False
+        self.t = [li.t for li in self.levels]
+        self.index_local = [np.arange(li.nt) for li in self.levels]
+
+        self.runtime_setup = time.time() - runtime_setup_start
+        if self.output_fcn is not None and self.output_lvl == 2:
+            self.output_fcn(self)
+        self.log_info(f"Setup took {self.runtime_setup} s")
+
+    def log_info(self, message: str) -> None:
+        logging.info(message)
+
+    # ------------------------------------------------------------------
+    # level-0 condensed structure
+    # ------------------------------------------------------------------
+
+    def _block_times(self, lvl: int, rows: int):
+        """Cached (rows, J) intra-interval step times of a uniform level:
+        rows = m-1 (F-relaxation sweep) or m (step to the next C-point)."""
+        key = (lvl, rows)
+        if key not in self._block_cache:
+            info = self.levels[lvl]
+            nt, m, t = info.nt, info.m, info.t
+            J = (nt - 1) // m
+            tp = np.stack([t[j * m:j * m + rows] for j in range(J)], 1)
+            tc = np.stack([t[j * m + 1:j * m + rows + 1] for j in range(J)], 1)
+            self._block_cache[key] = (tp, tc)
+        return self._block_cache[key]
+
+    def _cnd_block_times(self, rows: int):
+        return self._block_times(0, rows)
+
+    def _probe_condensed0(self) -> bool:
+        """Check with a one-interval dummy seed that the level-0 hook
+        accepts this grid (it declines for non-uniform dt, a
+        time-dependent rhs or an unsupported method)."""
+        info = self.levels[0]
+        m, t = info.m, info.t
+        if len(t) < m + 1:
+            self._cnd_decline_reason = "level-0 grid shorter than one interval"
+            return False
+        dts = np.diff(np.asarray(t, dtype=np.float64))
+        if not np.allclose(dts, dts[0], rtol=1e-12, atol=0.0):
+            self._cnd_decline_reason = (
+                "level-0 dt is not globally uniform to rtol=1e-12 "
+                f"(max |dt - dt0|/dt0 = {float(np.max(np.abs(dts / dts[0] - 1.0))):.2e}); "
+                "regenerate t_interval with np.linspace to recover the fast path")
+            return False
+        tp = t[0:m][:, None]
+        tc = t[1:m + 1][:, None]
+        seed = vector.tube_of(vector.as_f64(self.problem[0].vector_template), 1)
+        hook = self.problem[0].relax_interval
+        if not hook_accepts_kwarg(hook, "only_last"):
+            self._cnd_decline_reason = (
+                "relax_interval hook does not accept only_last=")
+            return False
+        if not hook_accepts_kwarg(hook, "out"):
+            self._cnd_decline_reason = "relax_interval hook does not accept out="
+            return False
+        ys = hook(seed, tp, tc, only_last=True)
+        if ys is None:
+            self._cnd_decline_reason = (
+                "relax_interval hook declined this configuration "
+                "(time-dependent rhs, or unsupported precision/method "
+                "for the closed form)")
+            return False
+        return True
+
+    def _cnd_c_step(self, u_c):
+        """Closed-form Phi^m of every owning C-seed (K1 with one table row):
+        a fresh (nc-1, ...) tensor."""
+        nc = self.levels[0].cpts.size
+        tp, tc = self._cnd_block_times(self.levels[0].m)
+        return self.problem[0].relax_interval(u_c[:nc - 1], tp, tc, only_last=True)[0]
+
+    def _sync_condensed0(self) -> None:
+        """Re-condense self.u[0] to its C-rows if a previous solve left it
+        materialized (the C rows of the full tube ARE the state)."""
+        if not self._condensed0 or self.u[0].shape[0] == self._nc_store0:
+            return
+        self.u[0] = self.u[0][0:self.levels[0].nt:self.levels[0].m].clone()
+
+    def _cnd_materialize_expr(self, u_c):
+        """Condensed C-rows -> full (nt, ...) level-0 tube.  K1 writes every
+        F-row and copies every seed straight into the preallocated tube
+        (no concat or transpose temporaries); the last row is the last
+        C-point."""
+        info = self.levels[0]
+        m, nt = info.m, info.nt
+        J = info.cpts.size - 1
+        tp, tc = self._cnd_block_times(m - 1)
+        out = torch.empty((nt,) + tuple(u_c.shape[1:]), dtype=u_c.dtype, device=u_c.device)
+        blocks = out[:J * m].view((J, m) + tuple(u_c.shape[1:]))
+        if self.problem[0].relax_interval(u_c[:J], tp, tc, out=blocks[:, 1:],
+                                          seed_out=blocks[:, 0]) is None:
+            raise RuntimeError("relax_interval declined the materialization it accepted at setup")
+        out[nt - 1].copy_(u_c[J])
+        return out
+
+    def _materialize_condensed0(self) -> None:
+        if self._condensed0 and self.u[0].shape[0] == self._nc_store0:
+            self.u[0] = self._cnd_materialize_expr(self.u[0])
+
+    # ------------------------------------------------------------------
+    # batched steps and row views
+    # ------------------------------------------------------------------
+
+    def _vstep(self, lvl):
+        """Batched one-step map: the application's step_batched, else a
+        vmap of its step."""
+        batched = getattr(self.problem[lvl], "step_batched", None)
+        if batched is not None:
+            return batched
+        return torch.vmap(self.step_fns[lvl])
+
+    def _chain(self, lvl, seed, tp, tc, out, g=None):
+        """J chains of L steps: out[:, k] = [g[:, k] +] Phi(out[:, k-1]) with
+        out[:, -1] = seed; tp, tc: (L, J) numpy times; out, g: (J, L, ...)
+        views that must not overlap seed.  Uses the application's
+        step_chain (Heat2D: kernel K2) when it has one."""
+        chain = getattr(self.problem[lvl], "step_chain", None)
+        if chain is not None:
+            chain(seed, tp, tc, out, g)
+            return
+        vstep = self._vstep(lvl)
+        x = seed
+        for k in range(tp.shape[0]):
+            x = vstep(x, self._t(tp[k]), self._t(tc[k]))
+            if g is not None:
+                x = g[:, k] + x
+            out[:, k] = x
+
+    def _t(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, dtype=np.float64), device=self.device)
+
+    def _step_rows(self, lvl, prev, t_prev, t_curr):
+        """One step of every row of prev: a fresh tensor."""
+        out = torch.empty(prev.shape, dtype=prev.dtype, device=prev.device)
+        self._chain(lvl, prev, np.asarray(t_prev)[None], np.asarray(t_curr)[None], out[:, None])
+        return out
+
+    def _c_rows(self, lvl, tube):
+        """View of the C-point rows 1..nc-1 of a level tube."""
+        if lvl == 0 and self._condensed0:
+            return tube[1:self._nc_store0]
+        info = self.levels[lvl]
+        return tube[info.m:info.nt:info.m]
+
+    def _c_points(self, tube):
+        """Copy of all level-0 C-point rows (every row on a single level)."""
+        if self._condensed0:
+            return tube.clone()
+        info = self.levels[0]
+        return tube[0:info.nt:info.m].clone()
+
+    def _combine(self, out, terms, coeffs):
+        """out = sum_k coeffs[k] * terms[k] over row views (kernel K4)."""
+        self.ops.cpoint_combine(_rows(out), [_rows(t) for t in terms], coeffs)
+
+    def _weighted_into(self, dst, stepped):
+        """dst <- w*stepped + (1-w)*dst (weighted-Jacobi C update)."""
+        if self.weight_c == 1.0:
+            dst.copy_(stepped)
+        else:
+            self._combine(dst, [stepped, dst], [self.weight_c, 1.0 - self.weight_c])
+
+    # ------------------------------------------------------------------
+    # relaxation, FAS, correction (in place on self.u / v / g)
+    # ------------------------------------------------------------------
+
+    def _f_relax(self, lvl, u, g):
+        """All F-intervals of a level relax at once (sequential within an
+        interval)."""
+        if lvl == 0 and self._condensed0:
+            return u          # F-rows are implicit functions of the C-seeds
+        info = self.levels[lvl]
+        if info.chains is None or info.chains.lmax == 0:
+            return u
+        return self._f_relax_uniform(lvl, u, g)
+
+    def _f_relax_uniform(self, lvl, u, g):
+        info = self.levels[lvl]
+        nt, m = info.nt, info.m
+        J = (nt - 1) // m
+        shape = (J, m) + tuple(u.shape[1:])
+        x = u[0:nt - 1:m]                                  # owning C-points
+        tp, tc = self._block_times(lvl, m - 1)
+        out = u[1:nt].view(shape)[:, :m - 1]               # the F-rows
+        if lvl == 0:
+            hook = getattr(self.problem[0], "relax_interval", None)
+            if hook is not None and hook_accepts_kwarg(hook, "out") \
+                    and hook(x, tp, tc, out=out) is not None:
+                return u
+            self._chain(0, x, tp, tc, out)
+            return u
+        self._chain(lvl, x, tp, tc, out, g[1:nt].view(shape)[:, :m - 1])
+        return u
+
+    def _c_relax(self, lvl, u, g):
+        """Weighted C-relaxation.  Jacobi: the new C values are computed
+        into a fresh buffer before they are written."""
+        if lvl == 0 and self._condensed0:
+            self._weighted_into(u[1:self._nc_store0], self._cnd_c_step(u))
+            return u
+        info = self.levels[lvl]
+        nt, m, t = info.nt, info.m, info.t
+        prev = u[m - 1:nt - 1:m]
+        stepped = torch.empty(prev.shape, dtype=u.dtype, device=u.device)
+        self._chain(lvl, prev, t[m - 1:nt - 1:m][None], t[m:nt:m][None], stepped[:, None],
+                    g[m:nt:m][:, None] if lvl > 0 else None)
+        self._weighted_into(u[m:nt:m], stepped)
+        return u
+
+    def _forward_solve(self, lvl, u, g):
+        """Sequential time stepping on the coarsest level (one chain)."""
+        info = self.levels[lvl]
+        nt, t = info.nt, info.t
+        if nt <= 1:
+            return u
+        self._chain(lvl, u[0:1], t[:-1][:, None], t[1:][:, None], u[1:nt][None],
+                    g[1:nt][None] if lvl > 0 else None)
+        return u
+
+    def _fas_residual(self, lvl):
+        """Restriction + FAS right-hand side into u, v, g of level lvl+1."""
+        info = self.levels[lvl]
+        nc = info.cpts.size
+        nt, m, t_f = info.nt, info.m, info.t
+        t_c = self.levels[lvl + 1].t
+        u_f, g_f = self.u[lvl], self.g[lvl]
+        u_c, v_c, g_c = self.u[lvl + 1], self.v[lvl + 1], self.g[lvl + 1]
+        restrict = self.restrict_fns[lvl]
+
+        if lvl == 0 and self._condensed0:
+            u_c.copy_(restrict(u_f[:nc]))
+            stepped_f = self._cnd_c_step(u_f)
+        else:
+            u_c.copy_(restrict(u_f[0:nt:m]))
+            stepped_f = self._step_rows(lvl, u_f[m - 1:nt - 1:m], t_f[m - 1:nt - 1:m], t_f[m:nt:m])
+        # the saved FAS iterate is a copy: the coarse cycle updates u_c in place
+        v_c.copy_(u_c)
+        u_ci = self._c_rows(lvl, u_f)
+        if lvl == 0:
+            self._combine(stepped_f, [stepped_f, u_ci], [1.0, -1.0])
+        else:
+            self._combine(stepped_f, [self._c_rows(lvl, g_f), u_ci, stepped_f], [1.0, -1.0, 1.0])
+        r = restrict(stepped_f)
+        stepped_c = self._step_rows(lvl + 1, v_c[:nc - 1], t_c[:-1], t_c[1:])
+        # g_c[1:] = r + (v_c[1:] - Phi_c(v_c[:-1])); g_c[0] is never written
+        self._combine(g_c[1:nc], [v_c[1:nc], stepped_c, r], [1.0, -1.0, 1.0])
+
+    def _error_correction(self, lvl):
+        """Coarse-grid correction at the C-points: u_f += P(u_c - v_c)."""
+        nc = self.levels[lvl].cpts.size
+        if nc <= 1:
+            return
+        u_c, v_c = self.u[lvl + 1], self.v[lvl + 1]
+        diff = torch.empty(u_c[1:nc].shape, dtype=u_c.dtype, device=u_c.device)
+        self._combine(diff, [u_c[1:nc], v_c[1:nc]], [1.0, -1.0])
+        dst = self._c_rows(lvl, self.u[lvl])
+        self._combine(dst, [dst, self.interp_fns[lvl](diff)], [1.0, 1.0])
+
+    # ------------------------------------------------------------------
+    # cycles
+    # ------------------------------------------------------------------
+
+    def _cycle(self, lvl, cycle_type, first_f, lvl0_first_f):
+        """One recursive MGRIT cycle."""
+        u, g = self.u, self.g
+        if lvl == self.lvl_max - 1:
+            self._forward_solve(lvl, u[lvl], g[lvl])
+            return
+        if (lvl > 0 or lvl0_first_f) and first_f:
+            self._f_relax(lvl, u[lvl], g[lvl])
+        for _ in range(self.cf_iter[lvl]):
+            self._c_relax(lvl, u[lvl], g[lvl])
+            self._f_relax(lvl, u[lvl], g[lvl])
+        self._fas_residual(lvl)
+        self._cycle(lvl + 1, cycle_type, True, lvl0_first_f)
+        self._error_correction(lvl)
+        self._f_relax(lvl, u[lvl], g[lvl])
+        if lvl != 0 and cycle_type == 'F':
+            self._cycle(lvl, 'V', False, lvl0_first_f)
+
+    def _iteration(self, lvl0_first_f):
+        self._cycle(0, self.cycle_type, True, lvl0_first_f)
+
+    def _nested_iteration(self):
+        """Nested iteration initialization: coarsest forward solve, then
+        interpolate upward with a V-cycle on every intermediate level."""
+        top = self.lvl_max - 1
+        self._forward_solve(top, self.u[top], self.g[top])
+        for lvl in range(self.lvl_max - 2, -1, -1):
+            nc = self.levels[lvl].cpts.size
+            self._c_rows(lvl, self.u[lvl]).copy_(self.interp_fns[lvl](self.u[lvl + 1][1:nc]))
+            if lvl > 0:
+                self._cycle(lvl, 'V', True, True)
+
+    # ------------------------------------------------------------------
+    # convergence criteria
+    # ------------------------------------------------------------------
+
+    def _point_residual_norms(self, u0):
+        """Per-C-point 2-norm of Phi(u_{c-1}) - u_c (kernel K3)."""
+        if self._condensed0:
+            stepped = self._cnd_c_step(u0)
+        else:
+            info = self.levels[0]
+            nt, m, t = info.nt, info.m, info.t
+            stepped = self._step_rows(0, u0[m - 1:nt - 1:m], t[m - 1:nt - 1:m], t[m:nt:m])
+        return self.ops.residual_row_norms(_rows(stepped), _rows(self._c_rows(0, u0)))
+
+    def _reduce(self, norms):
+        conv = torch.linalg.vector_norm(norms, ord=self.t_norm_ord)
+        return conv, torch.all(norms < self.tol)
+
+    def _residual_conv_fn(self):
+        return self._reduce(self._point_residual_norms(self.u[0]))
+
+    def _jump_conv_fn(self, u_save):
+        u_c = self._c_points(self.u[0])
+        norms = self.ops.residual_row_norms(_rows(u_c[1:]), _rows(u_save[1:]))
+        conv, all_below = self._reduce(norms)
+        return conv, all_below, u_c
+
+    # ------------------------------------------------------------------
+    # solve loops
+    # ------------------------------------------------------------------
+
+    def convergence_criterion(self, iteration: int) -> None:
+        """Compute self.conv[iteration].  Overridable."""
+        if self.conv_crit in (0, 2):
+            conv, all_below = self._residual_conv_fn()
+        else:
+            conv, all_below, self.save_values_last_iter = self._jump_conv_fn(
+                self.save_values_last_iter)
+        self.conv[iteration] = float(conv)
+        self._all_below = bool(all_below)
+
+    def solve(self) -> dict:
+        self.log_info("Start solve")
+        self._sync_condensed0()
+        runtime_solve_start = time.time()
+        for iteration in range(self.iter_max):
+            self.solve_iter = iteration + 1
+            time_it_start = time.time()
+            self._iteration(lvl0_first_f=iteration == 0)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            time_it_stop = time.time()
+
+            self.convergence_criterion(iteration + 1)
+
+            if iteration == 0:
+                self.log_info('{0: <7}'.format(f"iter {iteration + 1}") +
+                              '{0: <32}'.format(f" | conv: {self.conv[iteration + 1]}") +
+                              '{0: <37}'.format(" | conv factor: -") +
+                              '{0: <35}'.format(f" | runtime: {time_it_stop - time_it_start} s"))
+            else:
+                self.log_info('{0: <7}'.format(f"iter {iteration + 1}") +
+                              '{0: <32}'.format(f" | conv: {self.conv[iteration + 1]}") +
+                              '{0: <37}'.format(
+                                  f" | conv factor: {self.conv[iteration + 1] / self.conv[iteration]}") +
+                              '{0: <35}'.format(f" | runtime: {time_it_stop - time_it_start} s"))
+
+            if self.output_fcn is not None and self.output_lvl == 2:
+                self.output_fcn(self)
+
+            if self.global_conv_crit:
+                if self.conv[iteration + 1] < self.tol or iteration == self.iter_max - 1:
+                    break
+            else:
+                if self._all_below or iteration == self.iter_max - 1:
+                    break
+
+        self._materialize_condensed0()
+        self.runtime_solve = time.time() - runtime_solve_start
+        self.log_info(f"Solve took {self.runtime_solve} s")
+        if self.output_fcn is not None and self.output_lvl == 1:
+            self.output_fcn(self)
+        self.ouput_run_information()
+        return {'conv': self.conv[np.where(self.conv != 0)], 'time_setup': self.runtime_setup,
+                'time_solve': self.runtime_solve}
+
+    def solve_compiled(self) -> dict:
+        """Solve with the iteration loop kept on the device: the history
+        stays in device tensors and the loop reads one scalar (the stop
+        flag) per iteration."""
+        self.log_info("Start solve (compiled loop)")
+        self._sync_condensed0()
+        use_jump = self.conv_crit in (1, 3)
+        u_save = self.save_values_last_iter
+        runtime_solve_start = time.time()
+        hist = []
+        for it in range(self.iter_max):
+            if it == 0:
+                self._f_relax(0, self.u[0], self.g[0])
+            self._iteration(lvl0_first_f=False)
+            if use_jump:
+                conv, all_below, u_save = self._jump_conv_fn(u_save)
+            else:
+                conv, all_below = self._residual_conv_fn()
+            hist.append(conv)
+            done = conv < self.tol if self.global_conv_crit else all_below
+            if bool(done):
+                break
+        self._materialize_condensed0()
+        hist = torch.stack(hist).cpu().numpy()
+        it = hist.shape[0]
+        if use_jump:
+            self.save_values_last_iter = u_save
+        self.conv = np.zeros(self.iter_max + 1)
+        self.conv[1:it + 1] = hist
+        self.solve_iter = it
+        self.runtime_solve = time.time() - runtime_solve_start
+        for k in range(it):
+            self.log_info('{0: <7}'.format(f"iter {k + 1}") +
+                          '{0: <32}'.format(f" | conv: {hist[k]}"))
+        self.log_info(f"Solve took {self.runtime_solve} s")
+        if self.output_fcn is not None and self.output_lvl in (1, 2):
+            self.output_fcn(self)
+        self.ouput_run_information()
+        return {'conv': self.conv[np.where(self.conv != 0)], 'time_setup': self.runtime_setup,
+                'time_solve': self.runtime_solve}
+
+    # ------------------------------------------------------------------
+    # checkpoint / resume: the JAX package's .npz layout (leaves u[0..L-1],
+    # v[1..L-1], g[1..L-1], then conv and solve_iter)
+    # ------------------------------------------------------------------
+
+    def save_checkpoint(self, path: str) -> None:
+        """Save all level tubes + convergence history to an .npz file."""
+        leaves = self.u + self.v[1:] + self.g[1:]
+        arrays = {f"leaf_{i}": x.detach().cpu().numpy() for i, x in enumerate(leaves)}
+        arrays["conv"] = self.conv
+        arrays["solve_iter"] = np.asarray(self.solve_iter)
+        np.savez(path, **arrays)
+
+    def load_checkpoint(self, path: str) -> None:
+        """Restore solver state saved by save_checkpoint (either package)."""
+        from pymgrit_tpu_torch.interop import state_from_numpy
+        with np.load(path) as data:
+            state_from_numpy(self, [data[f"leaf_{i}"] for i in range(3 * self.lvl_max - 2)])
+            self.conv = data["conv"]
+            self.solve_iter = int(data["solve_iter"])
+
+    # ------------------------------------------------------------------
+    # reporting (the reference's spelling: ouput_run_information)
+    # ------------------------------------------------------------------
+
+    def ouput_run_information(self) -> None:
+        msg = ['Run parameter overview',
+               '  ' + '{0: <25}'.format('time interval') + ' : ' + '[' + str(self.problem[0].t[0]) + ', ' + str(
+                   self.problem[0].t[-1]) + ']',
+               '  ' + '{0: <25}'.format('number of time points ') + ' : ' + str(len(self.problem[0].t)),
+               '  ' + '{0: <25}'.format('max dt ') + ' : ' + str(
+                   np.max(self.problem[0].t[1:] - self.problem[0].t[:-1])),
+               '  ' + '{0: <25}'.format('number of levels') + ' : ' + str(self.lvl_max),
+               '  ' + '{0: <25}'.format('coarsening factors') + ' : ' + str(self.m[:-1]),
+               '  ' + '{0: <25}'.format('relaxation weight') + ' : ' + str(self.weight_c),
+               '  ' + '{0: <25}'.format('cf_iter') + ' : ' + str(self.cf_iter[:self.lvl_max - 1]),
+               '  ' + '{0: <25}'.format('nested iteration') + ' : ' + str(self.nes_it),
+               '  ' + '{0: <25}'.format('cycle type') + ' : ' + str(self.cycle_type),
+               '  ' + '{0: <25}'.format('stopping tolerance') + ' : ' + str(self.tol),
+               '  ' + '{0: <25}'.format('convergence criterion') + ' : ' + str(self.conv_crit)]
+        self.log_info(message='\n'.join(msg))

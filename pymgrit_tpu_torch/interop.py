@@ -1,0 +1,39 @@
+"""Carry solver state across from the JAX package.
+
+The JAX package's ``Mgrit`` state is the pytree ``(u, v, g)`` of per-level
+tubes with ``v[0] = g[0] = None``; ``jax.tree_util.tree_flatten`` orders
+its leaves ``u[0..L-1]``, then ``v[1..L-1]``, then ``g[1..L-1]``.  Its
+``save_checkpoint`` writes them as ``leaf_<i>`` into an ``.npz`` file.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+
+def state_from_numpy(mgrit, leaves: Sequence[np.ndarray]) -> None:
+    """Replace the port solver's ``(u, v, g)`` with numpy arrays given in
+    the JAX package's leaf order (copied to the solver's device as
+    float64).  Level 0 may hold the full tube or the condensed C-rows; the
+    next solve re-condenses it."""
+    L = mgrit.lvl_max
+    if len(leaves) != 3 * L - 2:
+        raise ValueError(f"expected {3 * L - 2} leaves for {L} levels, got {len(leaves)}")
+
+    def tensor(a, like):
+        t = torch.tensor(np.asarray(a), dtype=torch.float64, device=mgrit.device)
+        if like is not None and t.shape[1:] != like.shape[1:]:
+            raise ValueError(f"state shape {tuple(t.shape)} does not match {tuple(like.shape)}")
+        return t
+
+    u = [tensor(a, x) for a, x in zip(leaves[:L], mgrit.u)]
+    for lvl in range(1, L):
+        if u[lvl].shape != mgrit.u[lvl].shape:
+            raise ValueError(f"level {lvl} tube has shape {tuple(u[lvl].shape)}, "
+                             f"expected {tuple(mgrit.u[lvl].shape)}")
+    mgrit.u = u
+    mgrit.v = [None] + [tensor(a, x) for a, x in zip(leaves[L:2 * L - 1], mgrit.v[1:])]
+    mgrit.g = [None] + [tensor(a, x) for a, x in zip(leaves[2 * L - 1:], mgrit.g[1:])]

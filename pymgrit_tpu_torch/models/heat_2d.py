@@ -1,0 +1,345 @@
+"""2D heat equation with Dirichlet BCs in the sine eigenbasis (spectral).
+
+Counterpart of ``pymgrit_tpu/models/heat_2d.py`` with ``basis='spectral'``
+and the methods BE and CN.  The state is the (nx-2, ny-2) array of
+sine-eigenbasis coefficients of the interior, so every theta-step is
+elementwise:
+
+    u'^ = (u^ (1 - th'*dt*Lam) + (th+th')*dt*lift^ + dt*rhs^) / (1 + th*dt*Lam)
+
+with th' = theta for CN and 0 for BE (derivation in the JAX module).  The
+solver's batched sweeps go through two hand-written kernels: ``step_chain``
+and ``step_batched`` through K2 ``theta_chain``, and the closed-form
+interval relaxation ``relax_interval`` through K1 ``interval_affine``.
+All tables are built in float64 on the host once and copied to the device.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Union
+
+import numpy as np
+import torch
+
+from pymgrit_tpu_torch.core.application import Application
+from pymgrit_tpu_torch.ops import DISPATCH, Ops
+from pymgrit_tpu_torch.ops.dirichlet_spectral import sine_eigenbasis
+
+_RHS_CHUNK = 1024      # time samples per batched rhs evaluation on the host
+
+
+class Heat2D(Application):
+    """u_t - a*(u_xx + u_yy) = b(x,y,t) with Dirichlet BCs.
+
+    ``rhs(x, y, t)`` and ``init_cond(x, y)`` are numpy callables (they are
+    evaluated once on the host).  ``device`` places the state and tables;
+    ``ops`` selects the kernel set (``pymgrit_tpu_torch.ops.DISPATCH`` by
+    default; ``ops.PLAIN`` runs the plain versions on any device).
+    """
+
+    def __init__(self, x_start: float, x_end: float, y_start: float, y_end: float,
+                 nx: int, ny: int, a: float,
+                 rhs: Callable = lambda x, y, t: 0 * x * y,
+                 init_cond: Callable = lambda x, y: x * y * 0, method: str = 'BE',
+                 bc_left: Union[int, float, Callable] = 0,
+                 bc_right: Union[int, float, Callable] = 0,
+                 bc_bottom: Union[int, float, Callable] = 0,
+                 bc_top: Union[int, float, Callable] = 0,
+                 precision: str = None, basis: str = 'physical',
+                 *args, device=None, ops: Ops = DISPATCH, **kwargs):
+        super().__init__(*args, **kwargs)
+        if basis not in ('physical', 'spectral'):
+            raise Exception("basis must be 'physical' or 'spectral'")
+        if basis == 'physical':
+            raise NotImplementedError(
+                "basis='physical' is not ported yet (ROADMAP B8); use basis='spectral'")
+        if precision == 'dd':
+            raise NotImplementedError("precision='dd' is not ported yet (ROADMAP A10)")
+        if method == 'BE':
+            self.theta = 1.0
+        elif method == 'CN':
+            self.theta = 0.5
+        elif method == 'FE':
+            raise NotImplementedError(
+                "method='FE' needs the physical basis, not ported yet (ROADMAP B8)")
+        else:
+            raise Exception("Unknown method. Choose BE (Backward Euler), FE (Forward Euler) or CN (Crank-Nicolson")
+        self.device = torch.device(device or "cpu")
+        self.ops = ops
+        self.x = np.linspace(x_start, x_end, nx)
+        self.y = np.linspace(y_start, y_end, ny)
+        self.x_2d = self.x[:, np.newaxis]
+        self.y_2d = self.y[np.newaxis, :]
+        self.nx = nx
+        self.ny = ny
+        self.dx = self.x[1] - self.x[0]
+        self.dy = self.y[1] - self.y[0]
+        self.a = a
+        self.rhs = rhs
+
+        def _bc_arr(bc, coords, name):
+            if isinstance(bc, (float, int)):
+                return np.full(len(coords), float(bc))
+            if callable(bc):
+                return np.asarray(bc(coords), dtype=np.float64) * np.ones(len(coords))
+            raise Exception("Choose float, int or function for boundary condition " + name)
+
+        # edge conventions of the JAX package: values[:, 0]=left(x),
+        # values[:, -1]=right(x), values[-1, :]=bottom(y), values[0, :]=top(y)
+        self.bc_left_arr = _bc_arr(bc_left, self.x, 'bc_left')
+        self.bc_right_arr = _bc_arr(bc_right, self.x, 'bc_right')
+        self.bc_bottom_arr = _bc_arr(bc_bottom, self.y, 'bc_bottom')
+        self.bc_top_arr = _bc_arr(bc_top, self.y, 'bc_top')
+
+        self.fx = a / self.dx ** 2
+        self.fy = a / self.dy ** 2
+        self._Sx_np, lamx = sine_eigenbasis(nx - 2, self.fx)
+        self._Sy_np, lamy = sine_eigenbasis(ny - 2, self.fy)
+        self._xi = self.x_2d[1:-1]       # (nx-2, 1)
+        self._yi = self.y_2d[:, 1:-1]    # (1, ny-2)
+        self._shape = (nx - 2, ny - 2)
+        self._N = (nx - 2) * (ny - 2)
+
+        init = np.asarray(init_cond(self.x_2d, self.y_2d), dtype=np.float64) * np.ones((nx, ny))
+        init[:, 0] = self.bc_left_arr
+        init[:, -1] = self.bc_right_arr
+        init[-1, :] = self.bc_bottom_arr
+        init[0, :] = self.bc_top_arr
+
+        lift = np.zeros(self._shape)
+        lift[:, 0] += self.fy * self.bc_left_arr[1:-1]
+        lift[:, -1] += self.fy * self.bc_right_arr[1:-1]
+        lift[0, :] += self.fx * self.bc_top_arr[1:-1]
+        lift[-1, :] += self.fx * self.bc_bottom_arr[1:-1]
+        self._lift_hat_np = self._Sx_np @ lift @ self._Sy_np
+        self._Lam_np = lamx[:, None] + lamy[None, :]
+        self._lift_hat = self._tensor(self._lift_hat_np)
+        self._Lam = self._tensor(self._Lam_np)
+        self._Sx = self._tensor(self._Sx_np)
+        self._Sy = self._tensor(self._Sy_np)
+        self._itbl_cache = {}       # (dt, m1) -> (A_k, G_k) numpy float64
+        self._itbl_dev = {}         # (dt, m1) -> (A_k, G_k) (m1, N) device tensors
+
+        self.vector_template = torch.zeros(self._shape, dtype=torch.float64, device=self.device)
+        self.vector_t_start = self._tensor(self._Sx_np @ init[1:-1, 1:-1] @ self._Sy_np)
+        self._build_rhs_table()
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64, device=self.device)
+
+    # ------------------------------------------------------------------
+    # tables
+    # ------------------------------------------------------------------
+
+    def prepare_runtime(self, level_info) -> None:
+        """Pre-build the closed-form interval tables of level 0 (m-1 rows
+        for the F-sweep, m rows for the condensed C-step) on the device."""
+        if getattr(level_info, "lvl", 0) != 0:
+            return
+        if not getattr(level_info, "uniform", False) or level_info.m <= 1:
+            return
+        t = np.asarray(level_info.t, dtype=np.float64)
+        if t.size < 2:
+            return
+        dts = np.diff(t)
+        if not np.allclose(dts, dts[0], rtol=1e-12, atol=0.0):
+            return
+        if self._rhs_tbl.shape[0] != 1:
+            return                      # time-dependent rhs: hook declines
+        for m1 in (level_info.m - 1, level_info.m):
+            if m1 >= 1:
+                self._interval_tables_dev(float(dts.flat[0]), m1)
+
+    def _build_rhs_table(self):
+        """Tabulate the transformed rhs^ = Sx rhs Sy over this level's grid
+        times in batched numpy evaluations.  A time-independent rhs keeps
+        one row; the raw samples are compared, so only one is transformed."""
+        ts = np.asarray(self.t, dtype=np.float64)
+        one = np.ones((1,) + self._shape)
+        s0, chunks, n_same = None, [], 0
+        for lo in range(0, ts.shape[0], _RHS_CHUNK):
+            tt = ts[lo:lo + _RHS_CHUNK, None, None]
+            part = np.asarray(self.rhs(x=self._xi, y=self._yi, t=tt), dtype=np.float64) * one
+            part = np.broadcast_to(part, (tt.shape[0],) + self._shape)
+            if s0 is None:
+                s0 = part[0].copy()
+            if not chunks and np.all(part == s0[None]):
+                n_same += part.shape[0]        # keep no copy while constant
+                continue
+            if not chunks:
+                chunks.append(np.broadcast_to(s0, (n_same,) + self._shape))
+            chunks.append(part)
+        if chunks:
+            raw = np.concatenate(chunks)
+            self._rhs_tbl, self._rhs_tbl_times = self._Sx_np @ raw @ self._Sy_np, ts
+        else:
+            self._rhs_tbl, self._rhs_tbl_times = (self._Sx_np @ s0 @ self._Sy_np)[None], ts[:1]
+        self._rhs_tbl0_hat_np = self._rhs_tbl[0]
+        self._rhs_tbl_t = self._tensor(self._rhs_tbl.reshape(self._rhs_tbl.shape[0], -1))
+        self._rhs_times_t = torch.as_tensor(self._rhs_tbl_times, dtype=torch.float64)
+
+    def _rhs_rows(self, ts) -> torch.Tensor:
+        """rhs^ at the times ts (numpy, any shape S) as an S + (N,) view.
+
+        A time-independent table is expanded with stride 0; grid times hit
+        the table (nearest entry, torch.searchsorted); off-grid times are
+        evaluated from the callable and transformed."""
+        ts = np.asarray(ts, dtype=np.float64)
+        tbl = self._rhs_tbl_t
+        if tbl.shape[0] == 1:
+            return tbl[0].expand(ts.shape + (self._N,))
+        times = self._rhs_times_t
+        tv = torch.as_tensor(ts.reshape(-1), dtype=torch.float64)
+        idx = torch.clamp(torch.searchsorted(times, tv), 0, times.shape[0] - 1)
+        prev = torch.clamp(idx - 1, min=0)
+        idx = torch.where((idx > 0) & (torch.abs(times[prev] - tv) < torch.abs(times[idx] - tv)),
+                          prev, idx)
+        rows = tbl[idx.to(tbl.device)]
+        off = torch.nonzero(times[idx] != tv).flatten().tolist()
+        for i in off:
+            r = np.asarray(self.rhs(x=self._xi, y=self._yi, t=float(tv[i])),
+                           dtype=np.float64) * np.ones(self._shape)
+            rows[i] = self._tensor((self._Sx_np @ r @ self._Sy_np).reshape(-1))
+        return rows.reshape(ts.shape + (self._N,))
+
+    def _rhs_at(self, t) -> torch.Tensor:
+        """rhs^(t) as a state-shaped tensor."""
+        return self._rhs_rows(np.asarray(float(t))).reshape(self._shape)
+
+    def _interval_tables(self, dt, m1):
+        """Closed-form relaxation tables: the spectral theta-step is the
+        elementwise affine map u -> A*u + c, so the k-th F-point of an
+        interval is A^k * seed + G_k with G_k = A*G_{k-1} + c.  Built in
+        float64 numpy (the recurrence is cancellation-prone in float32),
+        cached per (dt, m1); rows k = 0..m1-1 hold A^(k+1) and G_(k+1)."""
+        key = (float(dt), int(m1))
+        if key in self._itbl_cache:
+            return self._itbl_cache[key]
+        th = self.theta
+        thp = 0.0 if th == 1.0 else th           # explicit half (CN)
+        Lam = self._Lam_np
+        denom = 1.0 + th * dt * Lam
+        A = (1.0 - thp * dt * Lam) / denom
+        rhs0 = self._rhs_tbl0_hat_np
+        c = ((th + thp) * dt * self._lift_hat_np + dt * rhs0) / denom
+        A_k = np.empty((m1,) + Lam.shape)
+        G_k = np.empty((m1,) + Lam.shape)
+        A_k[0], G_k[0] = A, c
+        for k in range(1, m1):
+            A_k[k] = A_k[k - 1] * A
+            G_k[k] = A * G_k[k - 1] + c
+        self._itbl_cache[key] = (A_k, G_k)
+        return A_k, G_k
+
+    def _interval_tables_dev(self, dt, m1):
+        """_interval_tables as contiguous (m1, N) device tensors."""
+        key = (float(dt), int(m1))
+        if key not in self._itbl_dev:
+            A_k, G_k = self._interval_tables(dt, m1)
+            self._itbl_dev[key] = (self._tensor(A_k.reshape(m1, -1)),
+                                   self._tensor(G_k.reshape(m1, -1)))
+        return self._itbl_dev[key]
+
+    # ------------------------------------------------------------------
+    # stepping
+    # ------------------------------------------------------------------
+
+    def _step_spectral(self, u, t_start, t_stop):
+        """One theta-step in coefficient space (plain tensor ops)."""
+        t_start, t_stop = float(t_start), float(t_stop)
+        dt = t_stop - t_start
+        shift = dt * self.theta
+        lift_hat, Lam = self._lift_hat, self._Lam
+        if self.theta == 1.0:
+            b = u + dt * self._rhs_at(t_stop) + shift * lift_hat
+        else:
+            b = (u - shift * (u * Lam)) \
+                + (shift * 2.0) * lift_hat \
+                + dt * (self.theta * self._rhs_at(t_stop)
+                        + (1 - self.theta) * self._rhs_at(t_start))
+        return b / (1.0 + shift * Lam)
+
+    def step(self, u_start, t_start, t_stop):
+        return self._step_spectral(u_start, t_start, t_stop)
+
+    def step_chain(self, seed, t_prev, t_curr, out, g=None):
+        """J chains of L steps through K2: out[:, k] = [g[:, k] +]
+        Phi(out[:, k-1]) with out[:, -1] = seed.
+
+        seed: (J, ...) states; t_prev, t_curr: (L, J) numpy step times;
+        out, g: (J, L, ...) views (g optional).  Returns out."""
+        tp = np.asarray(t_prev, dtype=np.float64)
+        tc = np.asarray(t_curr, dtype=np.float64)
+        L, J = tp.shape
+        N = self._N
+        dt = torch.as_tensor(tc - tp, dtype=seed.dtype, device=seed.device)
+        rhs1 = self._rhs_rows(tc)
+        rhs0 = rhs1 if self.theta == 1.0 else self._rhs_rows(tp)
+        self.ops.theta_chain(seed.view(J, N), out.view(J, L, N), dt,
+                             self._Lam.view(N), self._lift_hat.view(N), rhs1, rhs0,
+                             self.theta, None if g is None else g.view(J, L, N))
+        return out
+
+    def step_batched(self, u_tube, t_starts, t_stops):
+        """One step of each of B states: K2 with L = 1."""
+        out = torch.empty_like(u_tube)
+        tp = np.asarray(t_starts, dtype=np.float64).reshape(1, -1)
+        tc = np.asarray(t_stops, dtype=np.float64).reshape(1, -1)
+        self.step_chain(u_tube, tp, tc, out[:, None])
+        return out
+
+    def relax_interval(self, seed, t_prev, t_curr, only_last=False,
+                       interval_major=False, out=None, seed_out=None):
+        """Closed-form F-values of J intervals through K1.
+
+        t_prev, t_curr: (rows, J) numpy step times.  Returns the
+        (rows, J, ...) F-values, or (J, rows, ...) with interval_major;
+        only_last keeps just row rows-1.  With ``out`` (a (J, R, ...) view,
+        R = 1 with only_last, else rows) the values are written there and
+        out is returned; ``seed_out`` optionally receives a copy of the
+        seeds (the tube's C-rows).  Declines (None) for non-uniform dt or a
+        time-dependent rhs."""
+        dts = np.asarray(t_curr, np.float64) - np.asarray(t_prev, np.float64)
+        if dts.size == 0:
+            return None
+        dt = float(dts.flat[0])
+        if not np.allclose(dts, dt, rtol=1e-12, atol=0.0):
+            return None
+        if self._rhs_tbl.shape[0] != 1:
+            return None                           # time-dependent rhs
+        m1 = t_prev.shape[0]
+        A_t, G_t = self._interval_tables_dev(dt, m1)
+        r0, R = (m1 - 1, 1) if only_last else (0, m1)
+        J, N = seed.shape[0], self._N
+        result = out
+        if out is None:
+            if interval_major:
+                result = out = torch.empty((J, R) + self._shape, dtype=seed.dtype,
+                                           device=seed.device)
+            else:
+                result = torch.empty((R, J) + self._shape, dtype=seed.dtype,
+                                     device=seed.device)
+                out = result.transpose(0, 1)
+        self.ops.interval_affine(seed.view(J, N), A_t, G_t, out.view(J, R, N), r0,
+                                 None if seed_out is None else seed_out.view(J, N))
+        return result
+
+    def to_physical(self, u_hat):
+        """Spectral coefficients -> full (..., nx, ny) field with the
+        Dirichlet boundary ring."""
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        Sx, Sy = self._Sx.to(u_hat.device), self._Sy.to(u_hat.device)
+        interior = torch.matmul(torch.matmul(Sx, u_hat), Sy)
+        out = torch.zeros(u_hat.shape[:-2] + (self.nx, self.ny), dtype=interior.dtype,
+                          device=interior.device)
+
+        def edge(a):
+            return torch.as_tensor(a, dtype=interior.dtype, device=interior.device)
+
+        out[..., 1:-1, 1:-1] = interior
+        out[..., :, 0] = edge(self.bc_left_arr)
+        out[..., :, -1] = edge(self.bc_right_arr)
+        out[..., -1, :] = edge(self.bc_bottom_arr)
+        out[..., 0, :] = edge(self.bc_top_arr)
+        return out

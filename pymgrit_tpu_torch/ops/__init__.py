@@ -1,0 +1,43 @@
+"""Hand-written GPU kernels of the port and their plain PyTorch versions.
+
+Four kernels carry the main path (Heat2D spectral, condensed level 0):
+
+* K1 ``interval_affine`` (CUDA C++, ``csrc/interval_affine.cu``)
+* K2 ``theta_chain`` (CUDA C++, ``csrc/theta_chain.cu``)
+* K3 ``residual_row_norms`` (Triton)
+* K4 ``cpoint_combine`` (Triton)
+
+``DISPATCH`` holds the wrappers (CPU tensors: plain version; CUDA tensors:
+the kernel).  ``PLAIN`` holds the plain versions with the same signatures;
+an application built with ``ops=PLAIN`` runs the plain versions on any
+device, which is how the kernels are checked end to end on the card.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+from pymgrit_tpu_torch.ops import heat_kernels, triton_kernels
+
+
+class Ops(NamedTuple):
+    interval_affine: Callable
+    theta_chain: Callable
+    residual_row_norms: Callable
+    cpoint_combine: Callable
+
+
+DISPATCH = Ops(heat_kernels.interval_affine, heat_kernels.theta_chain,
+               triton_kernels.residual_row_norms, triton_kernels.cpoint_combine)
+PLAIN = Ops(heat_kernels.interval_affine_plain, heat_kernels.theta_chain_plain,
+            triton_kernels.residual_row_norms_plain, triton_kernels.cpoint_combine_plain)
+
+
+def launch_counts() -> dict:
+    """Kernel launches counted by each wrapper since the last reset."""
+    return {name: fn.launches for name, fn in DISPATCH._asdict().items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in DISPATCH:
+        fn.launches = 0

@@ -1,0 +1,24 @@
+"""Orthonormal sine eigenbasis of the 1D Dirichlet Laplacian.
+
+Counterpart of ``pymgrit_tpu/ops/dirichlet_spectral.py::sine_eigenbasis``.
+The n-point stencil fac*[-1, 2, -1] has the analytically known basis
+
+    S[j, k] = sqrt(2/(n+1)) * sin((j+1)(k+1) pi / (n+1)),
+    lam_k   = fac * (2 - 2 cos((k+1) pi/(n+1))),
+
+so an implicit heat step is elementwise in coefficient space.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def sine_eigenbasis(n: int, fac: float):
+    """Orthonormal eigenbasis (S, lam) of the n-point Dirichlet stencil
+    fac * [-1, 2, -1], as float64 numpy arrays.  S is symmetric and
+    orthogonal: S @ S == I."""
+    j = np.arange(1, n + 1)
+    S = np.sqrt(2.0 / (n + 1)) * np.sin(np.outer(j, j) * np.pi / (n + 1))
+    lam = fac * (2.0 - 2.0 * np.cos(j * np.pi / (n + 1)))
+    return S, lam
