@@ -3,21 +3,32 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path -- TOMS example 3: Heat2D 129x129, backward
-Euler, spectral basis, nt = 16385, five levels with coarsening 32/16/4/4,
+Drives the port's two main paths -- TOMS example 3: Heat2D 129x129,
+backward Euler, nt = 16385, five levels with coarsening 32/16/4/4,
 FCF-relaxation, V-cycles, nested iteration, condensed level-0 carry,
-``Mgrit.solve_compiled()`` -- in float64 on the card, in phases:
+``Mgrit.solve_compiled()`` -- in float64 on the card, in the spectral basis
+and in the physical basis (``bench.py``'s ``toms129_physical`` row), in
+phases:
 
-1. device   the card's name and power limit (nvidia-smi); a CUDA device is
-            required, there is no CPU carry-on;
-2. build    nvcc builds the CUDA C++ kernels (K1, K2) from ``csrc/``;
-3. kernels  K1-K4 against their plain PyTorch versions at the main path's
-            shapes, float32 and float64, with timings;
-4. small    Heat2D nx=17, nt=129, ms=(4, 4): the port on the CPU (plain
-            versions) against the port on the GPU (kernels);
-5. main     the full TOMS solve through the kernels: launch counts, history,
-            agreement with the plain versions on the GPU, the materialized
-            tube against a sequential time march, wall times, steps/s.
+1. device    the card's name and power limit (nvidia-smi); a CUDA device is
+             required, there is no CPU carry-on;
+2. build     nvcc builds the CUDA C++ kernels (K1, K2, K5, K6) from
+             ``csrc/``, one process per source, all started together;
+3. kernels   K1-K7 against their plain PyTorch versions at the main paths'
+             shapes, float32 and float64, with timings;
+4. small     Heat2D nx=17, nt=129, ms=(4, 4): the port on the CPU (plain
+             versions) against the port on the GPU (kernels);
+5. main      the full spectral TOMS solve through K1-K4: launch counts,
+             history, agreement with the plain versions on the GPU, the
+             materialized tube against a sequential time march, wall times,
+             steps/s;
+6. physical  the full physical TOMS solve through K3-K7: launch counts,
+             history against the plain versions and against the spectral
+             path, the materialized tube against the spectral tube brought
+             to the physical basis, wall times, steps/s, peak memory;
+7. cn, fe    CN at the TOMS width and a smaller depth (kernels against
+             plain and against the spectral basis), and FE on a grid stable
+             on every level (GPU against CPU, the full-tube executor).
 
 Each phase prints one line (phase 3 one per case); any failure raises and
 exits non-zero.  The line before the last is the card again; the last line
@@ -39,8 +50,12 @@ DEVICE = "cuda"     # every tensor of phases 3-5 lives here
 
 TOMS = dict(nx=129, nt=2 ** 14 + 1, ms=(32, 16, 4, 4))
 SMALL = dict(nx=17, nt=129, ms=(4, 4))
+CN_CFG = dict(nx=129, nt=2 ** 11 + 1, ms=(32, 16, 4))
+# FE is stable on every level of this grid: coarsest dt = 4/1024 = dx^2/(4a)
+FE_CFG = dict(nx=9, nt=65, ms=(2, 2), t_end=1.0 / 16)
 MAIN_TOL, MAIN_MAX_ITER = 1e-10, 30
 SMALL_MAX_ITER = 5
+FE_MAX_ITER = 8
 
 # Kernel against plain version, normwise: max|k - p| / max|p|.  The kernels
 # contract a*b + c into one FMA (nvcc's default --fmad=true, Triton's fp
@@ -55,6 +70,16 @@ SMALL_RTOL = 1e-10
 # floor as atol.
 MAIN_RTOL = 1e-9
 FLOOR_OPS = 8      # rounded operations per residual entry in the floor bound
+# The physical basis rounds through four length-n products per step (n =
+# nx - 2), each adding ~sqrt(n) roundings of independent sign to an entry:
+# its floor counts 4 sqrt(n) + 8 operations.  Against the spectral history
+# the physical one is held to the JAX package's own physical-vs-spectral
+# tolerance, rtol 1e-6 (tests/models/test_heat2d_spectral.py), plus that
+# floor.
+PHYS_SPEC_RTOL = 1e-6
+PHYSICAL_KERNELS = ("sine_solve2d", "sine_affine2d", "theta_rhs2d", "residual_row_norms",
+                    "cpoint_combine")
+SPECTRAL_KERNELS = ("interval_affine", "theta_chain", "residual_row_norms", "cpoint_combine")
 
 
 def fail(msg):
@@ -78,13 +103,13 @@ def init_cond(x, y):
     return np.sin(np.pi * x) * np.sin(np.pi * y)
 
 
-def build_problem(P, nx, nt, ms, device, ops, method="BE"):
-    t = np.linspace(0, 1, nt)
+def build_problem(P, nx, nt, ms, device, ops, method="BE", basis="spectral", t_end=1.0):
+    t = np.linspace(0, t_end, nt)
     problem, stride = [], 1
     for lvl in range(len(ms) + 1):
         problem.append(P.Heat2D(x_start=0, x_end=1, y_start=0, y_end=1, nx=nx, ny=nx,
                                 a=1.0, rhs=rhs, init_cond=init_cond, t_interval=t[::stride],
-                                basis="spectral", method=method, device=device, ops=ops))
+                                basis=basis, method=method, device=device, ops=ops))
         if lvl < len(ms):
             stride *= ms[lvl]
     return problem
@@ -100,13 +125,25 @@ def count_fine_steps_per_iter(mgrit, first):
     return steps + nc1 + nf + nc1
 
 
-def residual_floor(mgrit):
-    """float64 floor of the residual history: FLOOR_OPS roundings of every
+def residual_floor(mgrit, ops=FLOOR_OPS):
+    """float64 floor of the residual history: ``ops`` roundings of every
     C-point value, in the 2-norm over C-points and coefficients."""
     import torch
     info = mgrit.levels[0]
     u_c = mgrit.u[0][0:info.nt:info.m]
-    return FLOOR_OPS * float(torch.finfo(torch.float64).eps) * float(torch.linalg.vector_norm(u_c))
+    return ops * float(torch.finfo(torch.float64).eps) * float(torch.linalg.vector_norm(u_c))
+
+
+def physical_floor(mgrit):
+    return residual_floor(mgrit, 4 * math.sqrt(mgrit.problem[0].nx - 2) + FLOOR_OPS)
+
+
+def histories_agree(h, ref, atol, rtol):
+    """(ok, max abs diff): same length and |h - ref| <= atol + rtol |ref|."""
+    if h.shape != ref.shape:
+        return False, float("inf")
+    err = np.abs(h - ref)
+    return bool(np.all(err <= atol + rtol * np.abs(ref))), float(err.max())
 
 
 # ---------------------------------------------------------------------------
@@ -161,10 +198,13 @@ def cuda_ms(fn, reps=20):
 
 
 def kernel_cases(dtype, dev):
-    """(kernel, case, run(ops) -> output tensor) at the main path's shapes:
+    """(kernel, case, run(ops) -> output tensor) at the main paths' shapes:
     N = 127^2 coefficients and J = 512 level-0 intervals (K1), level-1
     F-relaxation J = 32, L = 15 and the coarsest solve J = 1, L = 2 (K2),
-    512 C-rows (K3, K4)."""
+    512 C-rows (K3, K4); physical 129^2 states with their ring: the 512
+    level-0 C-rows and the level-1 F-step with g (K5, K7), the seed
+    transform (K5), the condensed C-step and the 16384-row materialization
+    of the level-0 tube (K6)."""
     import torch
     from pymgrit_tpu_torch.ops.dirichlet_spectral import sine_eigenbasis
     rng = np.random.default_rng(SEED)
@@ -264,6 +304,76 @@ def kernel_cases(dtype, dev):
         return k.cpoint_combine(dst, [dst, b[:J]], [1.0, 1.0])
 
     cases.append(("cpoint_combine", "correction in place", in_place))
+
+    # K5 sine_solve2d, K6 sine_affine2d, K7 theta_rhs2d on physical states:
+    # C-rows of a level tube with random rings (the kernels must carry a
+    # ring that is not the bc data), a bc ring template, dt of levels 0/1.
+    nx, fx = n + 2, (n + 1.0) ** 2
+    S = t(sine_eigenbasis(n, fx)[0])
+    lam2 = lam.view(n, n)
+    ring_np = rng.uniform(-1, 1, (nx, nx))
+    ring_np[1:-1, 1:-1] = 0.0
+    ring = t(ring_np)
+    lift2 = t(rng.uniform(-1, 1, (n, n)))
+    ptube = t(rng.uniform(-1, 1, (J + 1, nx, nx)))
+    pg = t(rng.uniform(-1e-3, 1e-3, (J1 * m1 + 1, nx, nx)))
+    dt0 = 1.0 / (nt0 - 1)
+    shifts = t(rng.uniform(0.5, 1.0, J) * dt0)
+    rows_a, rows_b = (t(rng.uniform(-1, 1, N)).expand(J, N) for _ in range(2))
+
+    def k5(B, shift, with_g=False, solve=True, into_tube=True):
+        def run(k):
+            tube = torch.empty((B * m1 + 1, nx, nx), dtype=dtype, device=dev)
+            out = tube[1:].view(B, m1, nx, nx)[:, 0] if into_tube else tube[:B, 1:-1, 1:-1]
+            g = pg[1:B * m1 + 1].view(B, m1, nx, nx)[:, 0] if with_g else None
+            k.sine_solve2d(ptube[:B, 1:-1, 1:-1], out, S, S, lam2 if solve else None,
+                           shift if solve else None, ring if into_tube else None, g)
+            return out.clone()
+        return run
+
+    cases += [("sine_solve2d", f"solve B={J}", k5(J, dt0)),
+              ("sine_solve2d", f"level-1 F-step B={J1} +g", k5(J1, m0 * dt0, with_g=True)),
+              ("sine_solve2d", f"solve B={J} shift tensor", k5(J, shifts)),
+              ("sine_solve2d", f"transform B={J}", k5(J, None, solve=False, into_tube=False))]
+
+    xhat, dhat = (t(rng.uniform(-1, 1, (J, N))) for _ in range(2))
+    dscale = t(rng.uniform(0, 1e-4, N))
+    for T in (m0 - 1, m0):
+        A, G = t(rng.uniform(0, 1, (T, N))), t(rng.uniform(-1, 1, (T, N)))
+        if T == m0:
+            def c_step(k, A=A, G=G, cn=False):
+                out = torch.empty((1, J, nx, nx), dtype=dtype, device=dev)
+                k.sine_affine2d(xhat, A, G, out.transpose(0, 1), S, S, m0 - 1, ring,
+                                dhat if cn else None, dscale if cn else None)
+                return out
+
+            cases += [("sine_affine2d", f"C-step J={J} only_last", c_step),
+                      ("sine_affine2d", f"C-step J={J} only_last CN",
+                       lambda k, f=c_step: f(k, cn=True))]
+        else:
+            def materialize_phys(k, A=A, G=G):
+                tube = torch.empty((nt0, nx, nx), dtype=dtype, device=dev)
+                blocks = tube[:J * m0].view(J, m0, nx, nx)
+                k.sine_affine2d(xhat, A, G, blocks[:, 1:], S, S, 0, ring, seed=ptube[:J],
+                                seed_out=blocks[:, 0])
+                tube[nt0 - 1].copy_(ptube[J])
+                return tube
+
+            cases.append(("sine_affine2d", "materialize", materialize_phys))
+
+    def k7(theta, dt):
+        def run(k):
+            if theta == 0.0:
+                out = torch.empty((J, nx, nx), dtype=dtype, device=dev)
+                return k.theta_rhs2d(ptube[:J], out, dt, 0.0, fx, fx, rows_a, rows_b,
+                                     ring=ring, g=pg[:J])
+            out = torch.empty((J, n, n), dtype=dtype, device=dev)
+            return k.theta_rhs2d(ptube[1:], out, dt, theta, fx, fx, rows_a, rows_b, lift=lift2)
+        return run
+
+    cases += [("theta_rhs2d", f"BE B={J}", k7(1.0, dt0)), ("theta_rhs2d", f"CN B={J}", k7(0.5, dt0)),
+              ("theta_rhs2d", f"FE B={J} +g", k7(0.0, dt0)),
+              ("theta_rhs2d", f"CN B={J} dt tensor", k7(0.5, shifts))]
     return cases
 
 
@@ -276,7 +386,9 @@ def phase_kernels():
     # the case whose time the summary reports: the kernel's largest call on
     # the main path
     headline = {"interval_affine": "materialize", "theta_chain": "level-1 F-relax",
-                "residual_row_norms": "C-rows", "cpoint_combine": "FAS g_tail"}
+                "residual_row_norms": "C-rows", "cpoint_combine": "FAS g_tail",
+                "sine_solve2d": "solve B=512", "sine_affine2d": "materialize",
+                "theta_rhs2d": "BE B=512"}
     rows = {}
     for dtype in (torch.float64, torch.float32):
         dname = str(dtype).split(".")[-1]
@@ -295,7 +407,7 @@ def phase_kernels():
                   f"(tol {KERNEL_RTOL[dname]:.0e}) abs {abs_err:.3e} | kernel {ms_k:.4f} ms "
                   f"plain {ms_p:.4f} ms | {'ok' if ok else 'FAIL'}")
             check(ok, f"{kernel} {case} {dname}: rel err {rel:.3e} > {KERNEL_RTOL[dname]:.0e}")
-            if dtype == torch.float64 and case.startswith(headline[kernel]):
+            if dtype == torch.float64 and kernel not in rows and case.startswith(headline[kernel]):
                 rows[kernel] = dict(max_abs_err=abs_err, ms=ms_k, plain_ms=ms_p)
         torch.cuda.empty_cache()
     return rows
@@ -337,19 +449,6 @@ def sequential_march(problem0, nt):
     return ref
 
 
-def timed_solve(P, ops, device):
-    import torch
-    mg = P.Mgrit(problem=build_problem(P, device=device, ops=ops, **TOMS), tol=MAIN_TOL,
-                 max_iter=MAIN_MAX_ITER, logging_lvl=30)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    conv = mg.solve_compiled()["conv"]
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    steps = sum(count_fine_steps_per_iter(mg, it == 0) for it in range(conv.size))
-    return seconds, steps
-
-
 def phase_main(card):
     import torch
     import pymgrit_tpu_torch as P
@@ -367,7 +466,8 @@ def phase_main(card):
     print(f"[main] launches on the main path: {json.dumps(counts)} "
           f"(setup + first solve {first_seconds:.2f} s)")
     check(mk._condensed0, "main: the condensed carry was declined")
-    check(all(n > 0 for n in counts.values()), f"main: a kernel was never launched: {counts}")
+    check(all(counts[k] > 0 for k in SPECTRAL_KERNELS),
+          f"main: a kernel of the path was never launched: {counts}")
     check(hk.size >= 2 and bool(np.all(np.diff(hk) < 0)), f"main: history not decreasing: {hk}")
     check(hk[-1] < MAIN_TOL, f"main: history ends at {hk[-1]:.3e}, not below {MAIN_TOL:.0e}")
 
@@ -409,16 +509,10 @@ def phase_main(card):
           f"{err:.3e}, physical last row max err {perr:.3e}, bound {bound:.3e} | "
           f"{'ok' if max(err, perr) <= bound else 'FAIL'}")
     check(max(err, perr) <= bound, f"main: tube error {max(err, perr):.3e} above {bound:.3e}")
-    del mk, tube, ref, row_err
+    del mk, ref, row_err
     torch.cuda.empty_cache()
 
-    # wall time of fresh solves (setup excluded), in turns plain, kernel,
-    # kernel, plain
-    runs = {"plain": [], "kernel": []}
-    for name in ("plain", "kernel", "kernel", "plain"):
-        seconds, steps = timed_solve(P, PLAIN if name == "plain" else DISPATCH, dev)
-        runs[name].append(seconds)
-        torch.cuda.empty_cache()
+    runs, steps = timed_runs(P, dev, **TOMS)
     tk, tp = float(np.median(runs["kernel"])), float(np.median(runs["plain"]))
     print(f"[main] TOMS {nx}x{nx} nt={nt} ms={TOMS['ms']} f64 BE spectral condensed: "
           f"{hk.size} iterations, "
@@ -426,7 +520,162 @@ def phase_main(card):
           f"(runs {runs['kernel']}), plain {tp:.4f} s (runs {runs['plain']}) | "
           f"{steps} fine steps: {steps / tk:.1f} steps/s kernel, {steps / tp:.1f} steps/s plain | "
           f"{card}")
+    return counts, hk, tube
+
+
+def timed_runs(P, device, **cfg):
+    """Wall times of fresh solves (setup excluded), in turns plain, kernel,
+    kernel, plain; returns ({path: [s, s]}, fine steps of one solve)."""
+    import torch
+    from pymgrit_tpu_torch.ops import DISPATCH, PLAIN
+    runs = {"plain": [], "kernel": []}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        ops = PLAIN if name == "plain" else DISPATCH
+        mg = P.Mgrit(problem=build_problem(P, device=device, ops=ops, **cfg), tol=MAIN_TOL,
+                     max_iter=MAIN_MAX_ITER, logging_lvl=30)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        conv = mg.solve_compiled()["conv"]
+        torch.cuda.synchronize()
+        runs[name].append(time.perf_counter() - t0)
+        steps = sum(count_fine_steps_per_iter(mg, it == 0) for it in range(conv.size))
+        del mg
+        torch.cuda.empty_cache()
+    return runs, steps
+
+
+def phase_physical(card, h_spec, tube_spec):
+    """The main configuration in the physical basis (K3-K7)."""
+    import torch
+    import pymgrit_tpu_torch as P
+    from pymgrit_tpu_torch.ops import DISPATCH, PLAIN, launch_counts, reset_launch_counts
+    from pymgrit_tpu_torch.ops.heat_kernels import sine_solve2d_plain
+    dev = DEVICE
+    cfg = dict(TOMS, basis="physical")
+
+    problem = build_problem(P, device=dev, ops=DISPATCH, **cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    mk = P.Mgrit(problem=problem, tol=MAIN_TOL, max_iter=MAIN_MAX_ITER, logging_lvl=30)
+    hk = mk.solve_compiled()["conv"]
+    torch.cuda.synchronize()
+    first_seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[physical] launches on the physical path: {json.dumps(counts)} "
+          f"(setup + first solve {first_seconds:.2f} s); peak device memory {peak:.3f} GiB "
+          f"({mem0 / 2 ** 30:.3f} GiB before setup)")
+    check(mk._condensed0, "physical: the condensed carry was declined")
+    check(all(counts[k] > 0 for k in PHYSICAL_KERNELS),
+          f"physical: a kernel of the path was never launched: {counts}")
+    check(counts["interval_affine"] == 0 and counts["theta_chain"] == 0,
+          f"physical: a spectral kernel ran on the physical path: {counts}")
+    check(hk.size >= 2 and bool(np.all(np.diff(hk) < 0)), f"physical: history not decreasing: {hk}")
+    check(hk[-1] < MAIN_TOL, f"physical: history ends at {hk[-1]:.3e}, not below {MAIN_TOL:.0e}")
+
+    mp = P.Mgrit(problem=build_problem(P, device=dev, ops=PLAIN, **cfg), tol=MAIN_TOL,
+                 max_iter=MAIN_MAX_ITER, logging_lvl=30)
+    hp = mp.solve_compiled()["conv"]
+    atol = physical_floor(mk)
+    ok_p, err_p = histories_agree(hk, hp, atol, MAIN_RTOL)
+    du_plain = float((mk.u[0] - mp.u[0]).abs().max())
+    del mp
+    torch.cuda.empty_cache()
+    ok_s, err_s = histories_agree(hk, h_spec, atol, PHYS_SPEC_RTOL)
+    print(f"[physical] history kernels vs plain (GPU): max diff {err_p:.3e} (rtol {MAIN_RTOL:.0e}); "
+          f"vs the spectral path: max diff {err_s:.3e} (rtol {PHYS_SPEC_RTOL:.0e}); atol floor "
+          f"{atol:.2e}; tube kernels vs plain max diff {du_plain:.3e} | "
+          f"{'ok' if ok_p and ok_s else 'FAIL'}")
+    check(ok_p, f"physical: kernel history {hk} differs from the plain history {hp}")
+    check(ok_s, f"physical: history {hk} differs from the spectral history {h_spec}")
+
+    # the materialized tube against the spectral tube brought to the
+    # physical basis (plain transform): each tube lies within
+    # sqrt(nc-1) * (its last residual) of the exact solution (see phase
+    # main), plus the rounding of a march
+    tube = mk.u[0]
+    nt, nx, nc = TOMS["nt"], TOMS["nx"], mk.levels[0].cpts.size
+    check(tuple(tube.shape) == (nt, nx, nx), f"physical: tube shape {tuple(tube.shape)}")
+    check(bool(torch.isfinite(tube).all()), "physical: non-finite values in the tube")
+    ring = problem[0]._ring
+    row_err = torch.empty(nt, dtype=torch.float64, device=tube.device)
+    for lo in range(0, nt, 4096):
+        hi = min(lo + 4096, nt)
+        ref = sine_solve2d_plain(tube_spec[lo:hi], torch.empty_like(tube[lo:hi]),
+                                 problem[0]._Sx, problem[0]._Sy, ring=ring)
+        row_err[lo:hi] = torch.linalg.vector_norm((tube[lo:hi] - ref).view(hi - lo, -1), dim=1)
+    err = float(row_err.max())
+    bound = math.sqrt(nc - 1) * (hk[-1] + h_spec[-1]) \
+        + nt * float(torch.finfo(torch.float64).eps) * float(tube.abs().max())
+    print(f"[physical] tube {tuple(tube.shape)} vs the spectral tube in the physical basis: "
+          f"max row 2-norm err {err:.3e}, bound {bound:.3e} | {'ok' if err <= bound else 'FAIL'}")
+    check(err <= bound, f"physical: tube error {err:.3e} above {bound:.3e}")
+    del mk, tube, row_err, problem
+    torch.cuda.empty_cache()
+
+    runs, steps = timed_runs(P, dev, **cfg)
+    tk, tp = float(np.median(runs["kernel"])), float(np.median(runs["plain"]))
+    print(f"[physical] TOMS {nx}x{nx} nt={nt} ms={TOMS['ms']} f64 BE physical condensed: "
+          f"{hk.size} iterations, history {[float(f'{h:.6e}') for h in hk]} | solve wall kernel "
+          f"{tk:.4f} s (runs {runs['kernel']}), plain {tp:.4f} s (runs {runs['plain']}) | "
+          f"{steps} fine steps: {steps / tk:.1f} steps/s kernel, {steps / tp:.1f} steps/s plain | "
+          f"{card}")
     return counts
+
+
+def phase_cn_fe():
+    """CN at the TOMS width and a smaller depth; FE on a stable small grid
+    (it declines the condensed carry and runs the full-tube executor)."""
+    import torch
+    import pymgrit_tpu_torch as P
+    from pymgrit_tpu_torch.ops import DISPATCH, PLAIN, launch_counts, reset_launch_counts
+
+    hist = {}
+    for name, ops, basis in (("kernel", DISPATCH, "physical"), ("plain", PLAIN, "physical"),
+                             ("spectral", DISPATCH, "spectral")):
+        reset_launch_counts()
+        mg = P.Mgrit(problem=build_problem(P, device=DEVICE, ops=ops, method="CN", basis=basis,
+                                           **CN_CFG), tol=MAIN_TOL, max_iter=MAIN_MAX_ITER,
+                     logging_lvl=30)
+        hist[name] = mg.solve_compiled()["conv"]
+        if name == "kernel":
+            counts, atol = launch_counts(), physical_floor(mg)
+            check(mg._condensed0, "cn: the condensed carry was declined")
+        del mg
+        torch.cuda.empty_cache()
+    ok_p, err_p = histories_agree(hist["kernel"], hist["plain"], atol, MAIN_RTOL)
+    ok_s, err_s = histories_agree(hist["kernel"], hist["spectral"], atol, PHYS_SPEC_RTOL)
+    print(f"[cn] {CN_CFG} f64 CN physical: {hist['kernel'].size} iterations, last "
+          f"{hist['kernel'][-1]:.6e}; vs plain max diff {err_p:.3e}, vs spectral {err_s:.3e} "
+          f"(atol floor {atol:.2e}); launches {json.dumps(counts)} | "
+          f"{'ok' if ok_p and ok_s else 'FAIL'}")
+    check(all(counts[k] > 0 for k in PHYSICAL_KERNELS), f"cn: a kernel was never launched: {counts}")
+    check(hist["kernel"][-1] < MAIN_TOL, "cn: did not converge")
+    check(ok_p and ok_s, f"cn: histories differ: {hist}")
+
+    runs = {}
+    for device in ("cpu", DEVICE):
+        reset_launch_counts()
+        mg = P.Mgrit(problem=build_problem(P, device=device, ops=DISPATCH, method="FE",
+                                           basis="physical", **FE_CFG),
+                     tol=MAIN_TOL, max_iter=FE_MAX_ITER, logging_lvl=30)
+        runs[device] = (mg, mg.solve_compiled()["conv"], launch_counts())
+    (mc, hc, _), (mg, hg, counts) = runs["cpu"], runs[DEVICE]
+    atol = max(1e-14, residual_floor(mc))
+    ok, err = histories_agree(hg, hc, atol, SMALL_RTOL)
+    du = float((mg.u[0].cpu() - mc.u[0]).abs().max())
+    print(f"[fe] {FE_CFG} f64 FE physical, full tube ({mg._cnd_decline_reason}): "
+          f"{hg.size} iterations, last {hg[-1]:.6e}; GPU vs CPU max diff {err:.3e} "
+          f"(rtol {SMALL_RTOL:.0e}, atol {atol:.2e}), tube {du:.3e}; launches {json.dumps(counts)} "
+          f"| {'ok' if ok and du <= 1e-10 else 'FAIL'}")
+    check(not mg._condensed0 and "declined" in str(mg._cnd_decline_reason),
+          "fe: the condensed carry was not declined by the hook")
+    check(counts["theta_rhs2d"] > 0 and counts["sine_solve2d"] == 0,
+          f"fe: expected K7 steps only: {counts}")
+    check(ok and du <= 1e-10, "fe: GPU and CPU disagree")
 
 
 REPLACES = {
@@ -438,6 +687,12 @@ REPLACES = {
                            "pymgrit_tpu/core/solver.py:1056"),
     "cpoint_combine": ("triton", "pymgrit_tpu_torch/ops/triton_kernels.py",
                        "pymgrit_tpu/core/solver.py:914"),
+    "sine_solve2d": ("cuda", "pymgrit_tpu_torch/ops/csrc/sine_solve2d.cu",
+                     "pymgrit_tpu/models/heat_2d.py:372"),
+    "sine_affine2d": ("cuda", "pymgrit_tpu_torch/ops/csrc/sine_affine2d.cu",
+                      "pymgrit_tpu/models/heat_2d.py:543"),
+    "theta_rhs2d": ("triton", "pymgrit_tpu_torch/ops/triton_kernels.py",
+                    "pymgrit_tpu/models/heat_2d.py:382"),
 }
 
 
@@ -447,9 +702,15 @@ def main():
     phase_build()
     rows = phase_kernels()
     phase_small()
-    counts = phase_main(card)
+    counts, h_spec, tube_spec = phase_main(card)
+    counts_phys = phase_physical(card, h_spec, tube_spec)
+    del tube_spec
+    phase_cn_fe()
+    # launches: each kernel's count on the main path it belongs to (K3, K4
+    # run on both; the spectral run's count is reported)
     kernels = [dict(name=name, route=route, source=source, replaces=replaces,
-                    launches=counts[name], **rows[name])
+                    launches=(counts if name in SPECTRAL_KERNELS else counts_phys)[name],
+                    **rows[name])
                for name, (route, source, replaces) in REPLACES.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,17 +1,28 @@
-"""2D heat equation with Dirichlet BCs in the sine eigenbasis (spectral).
+"""2D heat equation with Dirichlet BCs, in the physical or the sine
+eigenbasis.
 
-Counterpart of ``pymgrit_tpu/models/heat_2d.py`` with ``basis='spectral'``
-and the methods BE and CN.  The state is the (nx-2, ny-2) array of
-sine-eigenbasis coefficients of the interior, so every theta-step is
-elementwise:
+Counterpart of ``pymgrit_tpu/models/heat_2d.py`` (methods BE, CN and, in
+the physical basis, FE).
 
-    u'^ = (u^ (1 - th'*dt*Lam) + (th+th')*dt*lift^ + dt*rhs^) / (1 + th*dt*Lam)
+* ``basis='physical'`` (the default): the state is the full (nx, ny) field
+  with its Dirichlet ring.  A BE/CN step is one stencil pass that assembles
+  the right-hand side (K7 ``theta_rhs2d``) and the two-sided sine solve of
+  the interior, which writes the ring too (K5 ``sine_solve2d``); an FE step
+  is K7 alone.  The closed-form interval relaxation ``relax_interval``
+  transforms the seeds (K5) and writes the back-transformed F-values with
+  their ring (K6 ``sine_affine2d``).
+* ``basis='spectral'``: the state is the (nx-2, ny-2) array of sine
+  coefficients of the interior, so every theta-step is elementwise:
 
-with th' = theta for CN and 0 for BE (derivation in the JAX module).  The
-solver's batched sweeps go through two hand-written kernels: ``step_chain``
-and ``step_batched`` through K2 ``theta_chain``, and the closed-form
-interval relaxation ``relax_interval`` through K1 ``interval_affine``.
-All tables are built in float64 on the host once and copied to the device.
+      u'^ = (u^ (1 - th'*dt*Lam) + (th+th')*dt*lift^ + dt*rhs^) / (1 + th*dt*Lam)
+
+  with th' = theta for CN and 0 for BE (derivation in the JAX module);
+  ``step_chain`` and ``step_batched`` go through K2 ``theta_chain`` and
+  ``relax_interval`` through K1 ``interval_affine``.
+
+Both bases share the closed-form tables (the physical BE/CN step is the
+spectral affine map conjugated by the orthogonal sine basis).  All tables
+are built in float64 on the host once and copied to the device.
 """
 
 from __future__ import annotations
@@ -50,18 +61,19 @@ class Heat2D(Application):
         super().__init__(*args, **kwargs)
         if basis not in ('physical', 'spectral'):
             raise Exception("basis must be 'physical' or 'spectral'")
-        if basis == 'physical':
-            raise NotImplementedError(
-                "basis='physical' is not ported yet (ROADMAP B8); use basis='spectral'")
+        self._spectral = basis == 'spectral'
+        if self._spectral and method == 'FE':
+            # the FE quirk accumulates bc data onto the carried boundary
+            # ring, which coefficient space does not have
+            raise Exception("basis='spectral' supports BE/CN (theta > 0) only")
         if precision == 'dd':
             raise NotImplementedError("precision='dd' is not ported yet (ROADMAP A10)")
         if method == 'BE':
             self.theta = 1.0
+        elif method == 'FE':
+            self.theta = 0.0
         elif method == 'CN':
             self.theta = 0.5
-        elif method == 'FE':
-            raise NotImplementedError(
-                "method='FE' needs the physical basis, not ported yet (ROADMAP B8)")
         else:
             raise Exception("Unknown method. Choose BE (Backward Euler), FE (Forward Euler) or CN (Crank-Nicolson")
         self.device = torch.device(device or "cpu")
@@ -97,8 +109,8 @@ class Heat2D(Application):
         self._Sy_np, lamy = sine_eigenbasis(ny - 2, self.fy)
         self._xi = self.x_2d[1:-1]       # (nx-2, 1)
         self._yi = self.y_2d[:, 1:-1]    # (1, ny-2)
-        self._shape = (nx - 2, ny - 2)
-        self._N = (nx - 2) * (ny - 2)
+        self._int_shape = (nx - 2, ny - 2)
+        self._N = (nx - 2) * (ny - 2)    # interior points = coefficients
 
         init = np.asarray(init_cond(self.x_2d, self.y_2d), dtype=np.float64) * np.ones((nx, ny))
         init[:, 0] = self.bc_left_arr
@@ -106,22 +118,38 @@ class Heat2D(Application):
         init[-1, :] = self.bc_bottom_arr
         init[0, :] = self.bc_top_arr
 
-        lift = np.zeros(self._shape)
+        # interior coupling to the Dirichlet data, and the data as a field
+        # (the ring template the physical kernels copy)
+        lift = np.zeros(self._int_shape)
         lift[:, 0] += self.fy * self.bc_left_arr[1:-1]
         lift[:, -1] += self.fy * self.bc_right_arr[1:-1]
         lift[0, :] += self.fx * self.bc_top_arr[1:-1]
         lift[-1, :] += self.fx * self.bc_bottom_arr[1:-1]
+        ring = np.zeros((nx, ny))
+        ring[:, 0] = self.bc_left_arr
+        ring[:, -1] = self.bc_right_arr
+        ring[-1, :] = self.bc_bottom_arr
+        ring[0, :] = self.bc_top_arr
         self._lift_hat_np = self._Sx_np @ lift @ self._Sy_np
         self._Lam_np = lamx[:, None] + lamy[None, :]
+        self._lift = self._tensor(lift)
         self._lift_hat = self._tensor(self._lift_hat_np)
+        self._ring = self._tensor(ring)
         self._Lam = self._tensor(self._Lam_np)
         self._Sx = self._tensor(self._Sx_np)
         self._Sy = self._tensor(self._Sy_np)
         self._itbl_cache = {}       # (dt, m1) -> (A_k, G_k) numpy float64
         self._itbl_dev = {}         # (dt, m1) -> (A_k, G_k) (m1, N) device tensors
+        self._dt_dev = {}           # step-size row -> (dt, theta*dt) device tensors
+        self._dscale_dev = {}       # dt -> CN ring-correction scale (N,) on the device
 
+        if self._spectral:
+            self._shape = self._int_shape
+            self.vector_t_start = self._tensor(self._Sx_np @ init[1:-1, 1:-1] @ self._Sy_np)
+        else:
+            self._shape = (nx, ny)
+            self.vector_t_start = self._tensor(init)
         self.vector_template = torch.zeros(self._shape, dtype=torch.float64, device=self.device)
-        self.vector_t_start = self._tensor(self._Sx_np @ init[1:-1, 1:-1] @ self._Sy_np)
         self._build_rhs_table()
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
@@ -136,6 +164,8 @@ class Heat2D(Application):
         for the F-sweep, m rows for the condensed C-step) on the device."""
         if getattr(level_info, "lvl", 0) != 0:
             return
+        if self.theta == 0.0:
+            return                      # FE: the hook declines
         if not getattr(level_info, "uniform", False) or level_info.m <= 1:
             return
         t = np.asarray(level_info.t, dtype=np.float64)
@@ -151,45 +181,51 @@ class Heat2D(Application):
                 self._interval_tables_dev(float(dts.flat[0]), m1)
 
     def _build_rhs_table(self):
-        """Tabulate the transformed rhs^ = Sx rhs Sy over this level's grid
-        times in batched numpy evaluations.  A time-independent rhs keeps
-        one row; the raw samples are compared, so only one is transformed."""
+        """Tabulate the rhs over this level's grid times in batched numpy
+        evaluations, so every phase reads samples of one evaluation
+        context: raw interior samples in the physical basis, transformed
+        ones (rhs^ = Sx rhs Sy) in the spectral basis.  A time-independent
+        rhs keeps one row (the raw samples are compared, so only one is
+        transformed)."""
         ts = np.asarray(self.t, dtype=np.float64)
-        one = np.ones((1,) + self._shape)
+        one = np.ones((1,) + self._int_shape)
         s0, chunks, n_same = None, [], 0
         for lo in range(0, ts.shape[0], _RHS_CHUNK):
             tt = ts[lo:lo + _RHS_CHUNK, None, None]
             part = np.asarray(self.rhs(x=self._xi, y=self._yi, t=tt), dtype=np.float64) * one
-            part = np.broadcast_to(part, (tt.shape[0],) + self._shape)
+            part = np.broadcast_to(part, (tt.shape[0],) + self._int_shape)
             if s0 is None:
                 s0 = part[0].copy()
             if not chunks and np.all(part == s0[None]):
                 n_same += part.shape[0]        # keep no copy while constant
                 continue
             if not chunks:
-                chunks.append(np.broadcast_to(s0, (n_same,) + self._shape))
+                chunks.append(np.broadcast_to(s0, (n_same,) + self._int_shape))
             chunks.append(part)
-        if chunks:
-            raw = np.concatenate(chunks)
-            self._rhs_tbl, self._rhs_tbl_times = self._Sx_np @ raw @ self._Sy_np, ts
+        raw, self._rhs_tbl_times = (np.concatenate(chunks), ts) if chunks else (s0[None], ts[:1])
+        if self._spectral:
+            self._rhs_tbl = self._Sx_np @ raw @ self._Sy_np
+            self._rhs_tbl0_hat_np = self._rhs_tbl[0]
         else:
-            self._rhs_tbl, self._rhs_tbl_times = (self._Sx_np @ s0 @ self._Sy_np)[None], ts[:1]
-        self._rhs_tbl0_hat_np = self._rhs_tbl[0]
+            self._rhs_tbl = raw
+            self._rhs_tbl0_hat_np = self._Sx_np @ s0 @ self._Sy_np
         self._rhs_tbl_t = self._tensor(self._rhs_tbl.reshape(self._rhs_tbl.shape[0], -1))
-        self._rhs_times_t = torch.as_tensor(self._rhs_tbl_times, dtype=torch.float64)
+        self._rhs_times_t = torch.as_tensor(np.ascontiguousarray(self._rhs_tbl_times),
+                                            dtype=torch.float64)
 
     def _rhs_rows(self, ts) -> torch.Tensor:
-        """rhs^ at the times ts (numpy, any shape S) as an S + (N,) view.
+        """Table rows (rhs, or rhs^ in the spectral basis) at the times ts
+        (numpy, any shape S) as an S + (N,) view.
 
         A time-independent table is expanded with stride 0; grid times hit
         the table (nearest entry, torch.searchsorted); off-grid times are
-        evaluated from the callable and transformed."""
+        evaluated from the callable (and transformed)."""
         ts = np.asarray(ts, dtype=np.float64)
         tbl = self._rhs_tbl_t
         if tbl.shape[0] == 1:
             return tbl[0].expand(ts.shape + (self._N,))
         times = self._rhs_times_t
-        tv = torch.as_tensor(ts.reshape(-1), dtype=torch.float64)
+        tv = torch.as_tensor(np.ascontiguousarray(ts.reshape(-1)), dtype=torch.float64)
         idx = torch.clamp(torch.searchsorted(times, tv), 0, times.shape[0] - 1)
         prev = torch.clamp(idx - 1, min=0)
         idx = torch.where((idx > 0) & (torch.abs(times[prev] - tv) < torch.abs(times[idx] - tv)),
@@ -198,13 +234,15 @@ class Heat2D(Application):
         off = torch.nonzero(times[idx] != tv).flatten().tolist()
         for i in off:
             r = np.asarray(self.rhs(x=self._xi, y=self._yi, t=float(tv[i])),
-                           dtype=np.float64) * np.ones(self._shape)
-            rows[i] = self._tensor((self._Sx_np @ r @ self._Sy_np).reshape(-1))
+                           dtype=np.float64) * np.ones(self._int_shape)
+            if self._spectral:
+                r = self._Sx_np @ r @ self._Sy_np
+            rows[i] = self._tensor(r.reshape(-1))
         return rows.reshape(ts.shape + (self._N,))
 
     def _rhs_at(self, t) -> torch.Tensor:
-        """rhs^(t) as a state-shaped tensor."""
-        return self._rhs_rows(np.asarray(float(t))).reshape(self._shape)
+        """The table row at time t as an interior-shaped tensor."""
+        return self._rhs_rows(np.asarray(float(t))).reshape(self._int_shape)
 
     def _interval_tables(self, dt, m1):
         """Closed-form relaxation tables: the spectral theta-step is the
@@ -240,6 +278,27 @@ class Heat2D(Application):
                                    self._tensor(G_k.reshape(m1, -1)))
         return self._itbl_dev[key]
 
+    def _step_sizes(self, dts):
+        """(dt, theta*dt) of one step of J chains: floats when the J step
+        sizes agree, else (J,) device tensors, built once per distinct row
+        (so a solve copies no step sizes to the device per call)."""
+        dt0 = float(dts[0])
+        if np.all(dts == dt0):
+            return dt0, self.theta * dt0
+        key = dts.tobytes()
+        if key not in self._dt_dev:
+            self._dt_dev[key] = (self._tensor(dts), self._tensor(self.theta * dts))
+        return self._dt_dev[key]
+
+    def _ring_scale(self, dt):
+        """theta*dt / (1 + theta*dt*Lam) as an (N,) device tensor: the scale
+        of CN's ring correction in relax_interval."""
+        key = float(dt)
+        if key not in self._dscale_dev:
+            shift = self.theta * dt
+            self._dscale_dev[key] = self._tensor((shift / (1.0 + shift * self._Lam_np)).reshape(-1))
+        return self._dscale_dev[key]
+
     # ------------------------------------------------------------------
     # stepping
     # ------------------------------------------------------------------
@@ -260,45 +319,85 @@ class Heat2D(Application):
         return b / (1.0 + shift * Lam)
 
     def step(self, u_start, t_start, t_stop):
-        return self._step_spectral(u_start, t_start, t_stop)
+        if self._spectral:
+            return self._step_spectral(u_start, t_start, t_stop)
+        return self.step_batched(u_start[None], [float(t_start)], [float(t_stop)])[0]
 
     def step_chain(self, seed, t_prev, t_curr, out, g=None):
-        """J chains of L steps through K2: out[:, k] = [g[:, k] +]
-        Phi(out[:, k-1]) with out[:, -1] = seed.
+        """J chains of L steps: out[:, k] = [g[:, k] +] Phi(out[:, k-1]) with
+        out[:, -1] = seed.  Spectral: one K2 launch.  Physical: per step,
+        K7 assembles the right-hand side and K5 solves and writes the state
+        with its ring and g (BE, CN), or K7 writes the whole step (FE).
 
         seed: (J, ...) states; t_prev, t_curr: (L, J) numpy step times;
-        out, g: (J, L, ...) views (g optional).  Returns out."""
+        out, g: (J, L, ...) views (g optional) that must not overlap seed.
+        Returns out."""
         tp = np.asarray(t_prev, dtype=np.float64)
         tc = np.asarray(t_curr, dtype=np.float64)
         L, J = tp.shape
         N = self._N
-        dt = torch.as_tensor(tc - tp, dtype=seed.dtype, device=seed.device)
-        rhs1 = self._rhs_rows(tc)
+        rhs1 = self._rhs_rows(tc) if self.theta > 0.0 else None
         rhs0 = rhs1 if self.theta == 1.0 else self._rhs_rows(tp)
-        self.ops.theta_chain(seed.view(J, N), out.view(J, L, N), dt,
-                             self._Lam.view(N), self._lift_hat.view(N), rhs1, rhs0,
-                             self.theta, None if g is None else g.view(J, L, N))
+        if self._spectral:
+            dt = torch.as_tensor(tc - tp, dtype=seed.dtype, device=seed.device)
+            self.ops.theta_chain(seed.view(J, N), out.view(J, L, N), dt,
+                                 self._Lam.view(N), self._lift_hat.view(N), rhs1, rhs0,
+                                 self.theta, None if g is None else g.view(J, L, N))
+            return out
+        if rhs1 is None:
+            rhs1 = rhs0                     # FE reads the rhs at the step's start only
+        b = None if self.theta == 0.0 else torch.empty(
+            (J,) + self._int_shape, dtype=seed.dtype, device=seed.device)
+        x = seed
+        for k in range(L):
+            dt, shift = self._step_sizes(tc[k] - tp[k])
+            gk = None if g is None else g[:, k]
+            if b is None:
+                self.ops.theta_rhs2d(x, out[:, k], dt, 0.0, self.fx, self.fy, rhs1[k],
+                                     rhs0[k], ring=self._ring, g=gk)
+            else:
+                self.ops.theta_rhs2d(x, b, dt, self.theta, self.fx, self.fy, rhs1[k],
+                                     rhs0[k], lift=self._lift)
+                self.ops.sine_solve2d(b, out[:, k], self._Sx, self._Sy, self._Lam, shift,
+                                      self._ring, gk)
+            x = out[:, k]
         return out
 
     def step_batched(self, u_tube, t_starts, t_stops):
-        """One step of each of B states: K2 with L = 1."""
+        """One step of each of B states: step_chain with L = 1."""
         out = torch.empty_like(u_tube)
         tp = np.asarray(t_starts, dtype=np.float64).reshape(1, -1)
         tc = np.asarray(t_stops, dtype=np.float64).reshape(1, -1)
         self.step_chain(u_tube, tp, tc, out[:, None])
         return out
 
+    def _ring_lift(self, seed):
+        """lift(ring of each seed) - lift(bc data), (J, nx-2, ny-2): what
+        CN's explicit half reads from a carried ring that the closed-form
+        tables (which assume ring == bc data) miss."""
+        dl = torch.zeros((seed.shape[0],) + self._int_shape, dtype=seed.dtype,
+                         device=seed.device)
+        dl[:, :, 0] += self.fy * seed[:, 1:-1, 0]
+        dl[:, :, -1] += self.fy * seed[:, 1:-1, -1]
+        dl[:, 0, :] += self.fx * seed[:, 0, 1:-1]
+        dl[:, -1, :] += self.fx * seed[:, -1, 1:-1]
+        return dl - self._lift
+
     def relax_interval(self, seed, t_prev, t_curr, only_last=False,
                        interval_major=False, out=None, seed_out=None):
-        """Closed-form F-values of J intervals through K1.
+        """Closed-form F-values of J intervals: K1 (spectral), or K5
+        forward transforms of the seeds (and of CN's ring correction) and
+        K6 (physical).
 
         t_prev, t_curr: (rows, J) numpy step times.  Returns the
         (rows, J, ...) F-values, or (J, rows, ...) with interval_major;
         only_last keeps just row rows-1.  With ``out`` (a (J, R, ...) view,
         R = 1 with only_last, else rows) the values are written there and
         out is returned; ``seed_out`` optionally receives a copy of the
-        seeds (the tube's C-rows).  Declines (None) for non-uniform dt or a
-        time-dependent rhs."""
+        seeds (the tube's C-rows).  Declines (None) for FE, non-uniform dt
+        or a time-dependent rhs."""
+        if self.theta == 0.0:
+            return None
         dts = np.asarray(t_curr, np.float64) - np.asarray(t_prev, np.float64)
         if dts.size == 0:
             return None
@@ -320,26 +419,30 @@ class Heat2D(Application):
                 result = torch.empty((R, J) + self._shape, dtype=seed.dtype,
                                      device=seed.device)
                 out = result.transpose(0, 1)
-        self.ops.interval_affine(seed.view(J, N), A_t, G_t, out.view(J, R, N), r0,
-                                 None if seed_out is None else seed_out.view(J, N))
+        if self._spectral:
+            self.ops.interval_affine(seed.view(J, N), A_t, G_t, out.view(J, R, N), r0,
+                                     None if seed_out is None else seed_out.view(J, N))
+            return result
+        xhat = torch.empty((J,) + self._int_shape, dtype=seed.dtype, device=seed.device)
+        self.ops.sine_solve2d(seed[:, 1:-1, 1:-1], xhat, self._Sx, self._Sy)
+        dhat = dscale = None
+        if self.theta < 1.0:
+            dl = self._ring_lift(seed)
+            dhat = self.ops.sine_solve2d(dl, torch.empty_like(dl), self._Sx, self._Sy).view(J, N)
+            dscale = self._ring_scale(dt)
+        self.ops.sine_affine2d(xhat.view(J, N), A_t, G_t, out, self._Sx, self._Sy, r0,
+                               self._ring, dhat, dscale,
+                               None if seed_out is None else seed, seed_out)
         return result
 
     def to_physical(self, u_hat):
-        """Spectral coefficients -> full (..., nx, ny) field with the
-        Dirichlet boundary ring."""
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        Sx, Sy = self._Sx.to(u_hat.device), self._Sy.to(u_hat.device)
-        interior = torch.matmul(torch.matmul(Sx, u_hat), Sy)
-        out = torch.zeros(u_hat.shape[:-2] + (self.nx, self.ny), dtype=interior.dtype,
-                          device=interior.device)
-
-        def edge(a):
-            return torch.as_tensor(a, dtype=interior.dtype, device=interior.device)
-
-        out[..., 1:-1, 1:-1] = interior
-        out[..., :, 0] = edge(self.bc_left_arr)
-        out[..., :, -1] = edge(self.bc_right_arr)
-        out[..., -1, :] = edge(self.bc_bottom_arr)
-        out[..., 0, :] = edge(self.bc_top_arr)
+        """Spectral coefficients (..., nx-2, ny-2) -> full (..., nx, ny)
+        fields with the Dirichlet boundary ring (K5's transform mode)."""
+        lead = tuple(u_hat.shape[:-2])
+        B = int(np.prod(lead, dtype=np.int64))
+        dev, dtype = u_hat.device, u_hat.dtype
+        out = torch.empty(lead + (self.nx, self.ny), dtype=dtype, device=dev)
+        self.ops.sine_solve2d(u_hat.reshape((B,) + self._int_shape),
+                              out.view((B, self.nx, self.ny)), self._Sx.to(dev, dtype),
+                              self._Sy.to(dev, dtype), ring=self._ring.to(dev, dtype))
         return out

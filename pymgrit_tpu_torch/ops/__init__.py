@@ -1,16 +1,20 @@
 """Hand-written GPU kernels of the port and their plain PyTorch versions.
 
-Four kernels carry the main path (Heat2D spectral, condensed level 0):
+Seven kernels carry the Heat2D paths (condensed level 0):
 
 * K1 ``interval_affine`` (CUDA C++, ``csrc/interval_affine.cu``)
 * K2 ``theta_chain`` (CUDA C++, ``csrc/theta_chain.cu``)
 * K3 ``residual_row_norms`` (Triton)
 * K4 ``cpoint_combine`` (Triton)
+* K5 ``sine_solve2d`` (CUDA C++, ``csrc/sine_solve2d.cu``)
+* K6 ``sine_affine2d`` (CUDA C++, ``csrc/sine_affine2d.cu``)
+* K7 ``theta_rhs2d`` (Triton)
 
-``DISPATCH`` holds the wrappers (CPU tensors: plain version; CUDA tensors:
-the kernel).  ``PLAIN`` holds the plain versions with the same signatures;
-an application built with ``ops=PLAIN`` runs the plain versions on any
-device, which is how the kernels are checked end to end on the card.
+The spectral basis runs K1-K4; the physical basis K3-K7.  ``DISPATCH``
+holds the wrappers (CPU tensors: plain version; CUDA tensors: the kernel).
+``PLAIN`` holds the plain versions with the same signatures; an application
+built with ``ops=PLAIN`` runs the plain versions on any device, which is
+how the kernels are checked end to end on the card.
 """
 
 from __future__ import annotations
@@ -25,12 +29,19 @@ class Ops(NamedTuple):
     theta_chain: Callable
     residual_row_norms: Callable
     cpoint_combine: Callable
+    sine_solve2d: Callable
+    sine_affine2d: Callable
+    theta_rhs2d: Callable
 
 
 DISPATCH = Ops(heat_kernels.interval_affine, heat_kernels.theta_chain,
-               triton_kernels.residual_row_norms, triton_kernels.cpoint_combine)
+               triton_kernels.residual_row_norms, triton_kernels.cpoint_combine,
+               heat_kernels.sine_solve2d, heat_kernels.sine_affine2d,
+               triton_kernels.theta_rhs2d)
 PLAIN = Ops(heat_kernels.interval_affine_plain, heat_kernels.theta_chain_plain,
-            triton_kernels.residual_row_norms_plain, triton_kernels.cpoint_combine_plain)
+            triton_kernels.residual_row_norms_plain, triton_kernels.cpoint_combine_plain,
+            heat_kernels.sine_solve2d_plain, heat_kernels.sine_affine2d_plain,
+            triton_kernels.theta_rhs2d_plain)
 
 
 def launch_counts() -> dict:

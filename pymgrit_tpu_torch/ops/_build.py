@@ -1,10 +1,13 @@
-"""Build and load the CUDA C++ kernels (K1 interval_affine, K2 theta_chain).
+"""Build and load the CUDA C++ kernels (K1 interval_affine, K2 theta_chain,
+K5 sine_solve2d, K6 sine_affine2d).
 
-The sources under ``csrc/`` have a plain C interface.  On first use they
-are compiled by ``nvcc`` for Hopper (``sm_90a``) into one shared library,
-``build/kernels/<hash>/libpymgrit_kernels.so`` under the repository root,
-keyed by a hash of the sources and flags, and loaded with ``ctypes``.
-A missing ``nvcc`` or a failed build raises: there is no other route.
+The sources under ``csrc/`` have a plain C interface.  On first use each
+``.cu`` file is compiled by its own ``nvcc`` process for Hopper
+(``sm_90a``), all started together, and the objects are linked into one
+shared library, ``build/kernels/<hash>/libpymgrit_kernels.so`` under the
+repository root, keyed by a hash of the sources, headers and flags, and
+loaded with ``ctypes``.  A missing ``nvcc`` or a failed build raises: there
+is no other route.
 """
 
 from __future__ import annotations
@@ -20,14 +23,18 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int64
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
 # argtypes of the exported launchers (f32 and f64 share one signature shape)
 _SIGNATURES = {
     "pm_interval_affine": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _I, _P],
     "pm_theta_chain": [_P, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I,
-                       ctypes.c_double, _I, _I, _I, _P],
+                       _D, _I, _I, _I, _P],
+    "pm_sine_solve2d": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _D, _P, _P, _I, _I,
+                        _I, _I, _I, _P],
+    "pm_sine_affine2d": [_P, _I, _P, _P, _I, _I, _I, _P, _I, _P, _P, _I, _I, _I, _P, _I,
+                         _I, _P, _I, _I, _P, _P, _P, _I, _I, _P],
 }
 
 _lib = None
@@ -49,21 +56,36 @@ def library() -> ctypes.CDLL:
         return _lib
     sources = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources:
+    for s in sorted(CSRC.glob("*.cu*")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     out_dir = BUILD_ROOT / h.hexdigest()[:16]
     so = out_dir / "libpymgrit_kernels.so"
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"libpymgrit_kernels.{os.getpid()}.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        nvcc, pid = _nvcc(), os.getpid()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        objs = [out_dir / f"{s.stem}.{pid}.o" for s in sources]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(sources, objs)]
+        logs = [(s.name, p.communicate()[0], p.returncode) for s, p in zip(sources, procs)]
+        tmp = out_dir / f"libpymgrit_kernels.{pid}.so"
+        failed = [(name, log) for name, log, rc in logs if rc != 0]
+        link = None
+        if not failed:
+            link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                                  capture_output=True, text=True)
+            if link.returncode != 0:
+                failed.append(("link", link.stdout + link.stderr))
         build_seconds = time.perf_counter() - t0
-        (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError("nvcc failed (%d):\n%s" % (proc.returncode, proc.stderr))
+        (out_dir / "build.log").write_text(
+            "".join(f"== {name}\n{log}" for name, log, _ in logs)
+            + (f"== link\n{link.stdout}{link.stderr}" if link is not None else ""))
+        for o in objs:
+            o.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(f"{n}:\n{log}" for n, log in failed))
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, args in _SIGNATURES.items():

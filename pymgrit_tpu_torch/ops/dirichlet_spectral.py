@@ -1,6 +1,7 @@
 """Orthonormal sine eigenbasis of the 1D Dirichlet Laplacian.
 
-Counterpart of ``pymgrit_tpu/ops/dirichlet_spectral.py::sine_eigenbasis``.
+Counterpart of ``sine_eigenbasis`` and ``solve_shifted_2d`` in
+``pymgrit_tpu/ops/dirichlet_spectral.py``.
 The n-point stencil fac*[-1, 2, -1] has the analytically known basis
 
     S[j, k] = sqrt(2/(n+1)) * sin((j+1)(k+1) pi / (n+1)),
@@ -22,3 +23,11 @@ def sine_eigenbasis(n: int, fac: float):
     S = np.sqrt(2.0 / (n + 1)) * np.sin(np.outer(j, j) * np.pi / (n + 1))
     lam = fac * (2.0 - 2.0 * np.cos(j * np.pi / (n + 1)))
     return S, lam
+
+
+def solve_shifted_2d(Sx, lamx, Sy, lamy, shift_scale, b):
+    """Solve (I + shift_scale * (Lx (x) I + I (x) Ly)) x = b for b of shape
+    (nx, ny) (tensors): two-sided diagonalization, all matmuls."""
+    bh = Sx @ b @ Sy
+    denom = 1.0 + shift_scale * (lamx[:, None] + lamy[None, :])
+    return Sx @ (bh / denom) @ Sy

@@ -1,5 +1,5 @@
-"""Kernels K1 ``interval_affine`` and K2 ``theta_chain`` (CUDA C++), each
-beside its plain PyTorch version.
+"""Kernels K1 ``interval_affine``, K2 ``theta_chain``, K5 ``sine_solve2d``
+and K6 ``sine_affine2d`` (CUDA C++), each beside its plain PyTorch version.
 
 Dispatch: a tensor on the CPU goes to the plain version; a CUDA tensor
 launches the kernel from ``csrc/`` (built on first use by ``_build``) or
@@ -7,8 +7,11 @@ raises.  Each wrapper checks device, dtype, shape and strides first and
 counts its launches in ``<wrapper>.launches``.
 
 All rows are addressed with strides, so the solver passes strided views of
-its level tubes and the kernels write straight into them.  In every 2-D or
-3-D operand the last axis (the N state coefficients) must be contiguous.
+its level tubes and the kernels write straight into them.  In every
+operand the last axis must be contiguous.  K1 and K2 see a state as a row of
+N spectral coefficients; K5 and K6 see a physical state as an (r, c)
+interior, or the full (r + 2, c + 2) field with its Dirichlet ring, whose
+rows may have any stride.
 """
 
 from __future__ import annotations
@@ -167,3 +170,186 @@ def theta_chain(x0, out, dt, lam, lift, rhs1, rhs0, theta, g=None):
 
 
 theta_chain.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5 sine_solve2d, K6 sine_affine2d: physical-basis two-sided sine products
+# ---------------------------------------------------------------------------
+
+MAX_SIDE = 128       # largest interior side the kernels' shared-memory tile holds
+
+
+def _with_ring(interior, out, ring):
+    """out <- the full states: ring template outside, interior inside."""
+    full = ring.expand(out.shape).clone()
+    full[..., 1:-1, 1:-1] = interior
+    return full
+
+
+def sine_solve2d_plain(b, out, Sx, Sy, lam=None, shift=None, ring=None, g=None):
+    """out = [g +] Sx ((Sx b Sy) / (1 + shift * lam)) Sy, or Sx b Sy without
+    lam; with ring, out is the full state around that interior."""
+    x = torch.matmul(torch.matmul(Sx, b), Sy)
+    if lam is not None:
+        s = shift.view(-1, 1, 1) if isinstance(shift, torch.Tensor) else shift
+        x = x / (1.0 + s * lam)
+        x = torch.matmul(torch.matmul(Sx, x), Sy)
+    if ring is not None:
+        x = _with_ring(x, out, ring)
+    out.copy_(x if g is None else g + x)
+    return out
+
+
+def _state_view(name, key, t, B, P, Q):
+    _require(t.dim() == 3 and tuple(t.shape) == (B, P, Q), name,
+             f"{key} has shape {tuple(t.shape)}, expected ({B}, {P}, {Q})")
+
+
+def sine_solve2d(b, out, Sx, Sy, lam=None, shift=None, ring=None, g=None):
+    """Batched implicit solve (lam and shift given) or two-sided transform
+    (neither) of B states.
+
+    b: (B, r, c) view; out: (B, r, c) view, or (B, r + 2, c + 2) with ring,
+    an (r + 2, c + 2) field whose boundary ring out receives; Sx (r, r),
+    Sy (c, c) symmetric bases; lam: (r, c) eigenvalue sums; shift: a float
+    or a (B,) tensor; g: optional view of out's shape added to the result.
+    Contiguous tables, r, c <= 128.  out must not overlap b.  Returns out.
+    """
+    name = "sine_solve2d"
+    ops = dict(b=b, out=out, Sx=Sx, Sy=Sy)
+    for key, t in dict(lam=lam, ring=ring, g=g).items():
+        if t is not None:
+            ops[key] = t
+    if isinstance(shift, torch.Tensor):
+        ops["shift"] = shift
+    _check_operands(name, ops)
+    _require(b.dim() == 3, name, f"b has shape {tuple(b.shape)}, expected (B, r, c)")
+    B, r, c = b.shape
+    P, Q = (r + 2, c + 2) if ring is not None else (r, c)
+    _state_view(name, "out", out, B, P, Q)
+    if g is not None:
+        _state_view(name, "g", g, B, P, Q)
+    _require(tuple(Sx.shape) == (r, r) and tuple(Sy.shape) == (c, c)
+             and Sx.is_contiguous() and Sy.is_contiguous(), name,
+             f"Sx and Sy must be contiguous ({r}, {r}) and ({c}, {c}) bases")
+    _require((lam is None) == (shift is None), name, "lam and shift go together")
+    _require(lam is None or (tuple(lam.shape) == (r, c) and lam.is_contiguous()), name,
+             f"lam must be a contiguous ({r}, {c}) table")
+    _require(not isinstance(shift, torch.Tensor)
+             or (tuple(shift.shape) == (B,) and shift.is_contiguous()), name,
+             f"a shift tensor must be a contiguous ({B},) vector")
+    _require(ring is None or (tuple(ring.shape) == (P, Q) and ring.is_contiguous()), name,
+             f"ring must be a contiguous ({P}, {Q}) field")
+    if b.device.type == "cpu":
+        return sine_solve2d_plain(b, out, Sx, Sy, lam, shift, ring, g)
+    _require(max(r, c) <= MAX_SIDE, name, f"interior sides {r}, {c} exceed {MAX_SIDE}")
+    if B == 0:
+        return out
+    shift_t = shift if isinstance(shift, torch.Tensor) else None
+    fn = _launcher("pm_sine_solve2d", b.dtype)
+    stream = torch.cuda.current_stream(b.device).cuda_stream
+    status = fn(b.data_ptr(), b.stride(0), b.stride(1), out.data_ptr(), out.stride(0),
+                out.stride(1), Sx.data_ptr(), Sy.data_ptr(),
+                lam.data_ptr() if lam is not None else None,
+                shift_t.data_ptr() if shift_t is not None else None,
+                float(shift) if shift is not None and shift_t is None else 0.0,
+                ring.data_ptr() if ring is not None else None,
+                g.data_ptr() if g is not None else None,
+                g.stride(0) if g is not None else 0, g.stride(1) if g is not None else 0,
+                B, r, c, stream)
+    _build.check(status, name)
+    sine_solve2d.launches += 1
+    return out
+
+
+sine_solve2d.launches = 0
+
+
+def sine_affine2d_plain(xhat, A, G, out, Sx, Sy, r0=0, ring=None, dhat=None, dscale=None,
+                        seed=None, seed_out=None):
+    """out[j, r] = Sx (xhat_j A[r0+r] + G[r0+r] [+ (dhat_j dscale) A[r0+r-1]]) Sy
+    (A[-1] = 1), with the ring; seed_out[j] = seed[j]."""
+    J, R = out.shape[:2]
+    r, c = Sx.shape[0], Sy.shape[0]
+    yhat = xhat[:, None] * A[None, r0:r0 + R] + G[None, r0:r0 + R]
+    if dhat is not None:
+        A_km1 = torch.cat([torch.ones_like(A[:1]), A[:-1]])[r0:r0 + R]
+        yhat = yhat + (dhat * dscale)[:, None] * A_km1[None]
+    y = torch.matmul(torch.matmul(Sx, yhat.view(J, R, r, c)), Sy)
+    out.copy_(y if ring is None else _with_ring(y, out, ring))
+    if seed_out is not None:
+        seed_out.copy_(seed)
+    return out
+
+
+def sine_affine2d(xhat, A, G, out, Sx, Sy, r0=0, ring=None, dhat=None, dscale=None,
+                  seed=None, seed_out=None):
+    """Physical closed-form interval relaxation into ``out``.
+
+    xhat: (J, N) transformed seed interiors, N = r * c; A, G: (T, N)
+    contiguous tables; out: (J, R, r, c) view, or (J, R, r + 2, c + 2) with
+    ring, with any interval and row strides; rows r0..r0+R-1 of the tables;
+    dhat: optional (J, N) transformed ring corrections with dscale (N,), the
+    CN correction (dhat * dscale) * A[k-1]; seed, seed_out: optional (J, P, Q)
+    views, seed_out receives a copy of seed.  Returns out.
+    """
+    name = "sine_affine2d"
+    ops = dict(xhat=xhat, A=A, G=G, out=out, Sx=Sx, Sy=Sy)
+    for key, t in dict(ring=ring, dhat=dhat, dscale=dscale, seed=seed,
+                       seed_out=seed_out).items():
+        if t is not None:
+            ops[key] = t
+    _check_operands(name, ops)
+    r, c = Sx.shape[0], Sy.shape[0]
+    N = r * c
+    _require(xhat.dim() == 2 and xhat.shape[1] == N, name,
+             f"xhat has shape {tuple(xhat.shape)}, expected (J, {N})")
+    J = xhat.shape[0]
+    _require(Sx.dim() == 2 and Sy.dim() == 2 and Sx.shape[1] == r and Sy.shape[1] == c
+             and Sx.is_contiguous() and Sy.is_contiguous(), name,
+             "Sx and Sy must be contiguous square bases")
+    _require(A.dim() == 2 and A.shape == G.shape and A.shape[1] == N
+             and A.is_contiguous() and G.is_contiguous(), name,
+             "A and G must be contiguous (T, N) tables")
+    P, Q = (r + 2, c + 2) if ring is not None else (r, c)
+    _require(out.dim() == 4 and out.shape[0] == J and tuple(out.shape[2:]) == (P, Q), name,
+             f"out has shape {tuple(out.shape)}, expected ({J}, R, {P}, {Q})")
+    R = out.shape[1]
+    _require(0 <= r0 and r0 + R <= A.shape[0], name,
+             f"rows {r0}..{r0 + R - 1} outside the {A.shape[0]}-row table")
+    _require(ring is None or (tuple(ring.shape) == (P, Q) and ring.is_contiguous()), name,
+             f"ring must be a contiguous ({P}, {Q}) field")
+    _require((dhat is None) == (dscale is None), name, "dhat and dscale go together")
+    _require(dhat is None or (tuple(dhat.shape) == (J, N) and tuple(dscale.shape) == (N,)),
+             name, f"dhat must be ({J}, {N}) and dscale ({N},)")
+    _require((seed is None) == (seed_out is None), name, "seed and seed_out go together")
+    if seed is not None:
+        _state_view(name, "seed", seed, J, P, Q)
+        _state_view(name, "seed_out", seed_out, J, P, Q)
+    if xhat.device.type == "cpu":
+        return sine_affine2d_plain(xhat, A, G, out, Sx, Sy, r0, ring, dhat, dscale, seed,
+                                   seed_out)
+    _require(max(r, c) <= MAX_SIDE, name, f"interior sides {r}, {c} exceed {MAX_SIDE}")
+    if J == 0 or R == 0:
+        return out
+    fn = _launcher("pm_sine_affine2d", xhat.dtype)
+    stream = torch.cuda.current_stream(xhat.device).cuda_stream
+    status = fn(xhat.data_ptr(), xhat.stride(0), A.data_ptr(), G.data_ptr(), r0, R, J,
+                dhat.data_ptr() if dhat is not None else None,
+                dhat.stride(0) if dhat is not None else 0,
+                dscale.data_ptr() if dscale is not None else None,
+                out.data_ptr(), out.stride(0), out.stride(1), out.stride(2),
+                seed.data_ptr() if seed is not None else None,
+                seed.stride(0) if seed is not None else 0,
+                seed.stride(1) if seed is not None else 0,
+                seed_out.data_ptr() if seed_out is not None else None,
+                seed_out.stride(0) if seed_out is not None else 0,
+                seed_out.stride(1) if seed_out is not None else 0,
+                Sx.data_ptr(), Sy.data_ptr(), ring.data_ptr() if ring is not None else None,
+                r, c, stream)
+    _build.check(status, name)
+    sine_affine2d.launches += 1
+    return out
+
+
+sine_affine2d.launches = 0

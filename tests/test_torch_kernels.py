@@ -9,7 +9,9 @@ Tests marked ``cuda`` need an NVIDIA GPU (sm_90a) with ``nvcc`` and
 Tolerance on the card: normwise, max|kernel - plain| <= RTOL * max|plain|
 with RTOL = 1e-13 (float64) and 1e-5 (float32).  The kernels contract
 a*b + c into FMAs and K3 sums in another order, so they agree with the plain
-versions to rounding (a few ulp per operation, at most L sequential steps).
+versions to rounding (a few ulp per operation, at most L sequential steps);
+K5 and K6 sum their length-n products in another order than cuBLAS, which
+adds ~sqrt(n) ulp per product (n <= 15 here, 127 in chip_smoke.py).
 
 The remaining tests run on the CPU: a CPU tensor goes to the plain version
 without counting a launch, and every wrapper raises on operands its kernel
@@ -23,11 +25,13 @@ import torch
 import pymgrit_tpu_torch as P
 from pymgrit_tpu_torch.ops import (DISPATCH, PLAIN, _build, heat_kernels, launch_counts,
                                    reset_launch_counts, triton_kernels)
+from pymgrit_tpu_torch.ops.dirichlet_spectral import sine_eigenbasis
 
 torch.set_num_threads(1)
 
 RTOL = {torch.float64: 1e-13, torch.float32: 1e-5}
-N = 15 * 15
+NI = 15                 # interior side of the physical states (17 x 17 with the ring)
+N = NI * NI
 
 
 @pytest.fixture
@@ -85,10 +89,88 @@ def _cases(dtype, dev):
         ops.cpoint_combine(out[1:19:2], [out[1:19:2], tube[0:18:2], x], [0.5, -1.0, 2.0])
         return out
 
+    # physical states: (n + 2)^2 with a ring, tables over the n^2 interior
+    n, nx = NI, NI + 2
+    S = torch.as_tensor(sine_eigenbasis(n, 256.0)[0], dtype=dtype, device=dev)
+    lam2 = lam.view(n, n)
+    ring = _rand((nx, nx), dtype, dev, 8)
+    ring[1:-1, 1:-1] = 0.0
+    lift2 = _rand((n, n), dtype, dev, 9)
+    ptube = _rand((19, nx, nx), dtype, dev, 10)
+    shifts = torch.linspace(1e-3, 4e-3, 3, dtype=dtype, device=dev)
+
+    def k5(solve, with_g, shift):
+        def run(ops):
+            out = torch.zeros_like(ptube)
+            dst = out[1:16].view(3, 5, nx, nx)[:, 0] if solve else out[:3, 1:-1, 1:-1]
+            g = ptube[1:16].view(3, 5, nx, nx)[:, 1] * 1e-2 if with_g else None
+            ops.sine_solve2d(ptube[0:15:5, 1:-1, 1:-1], dst, S, S, lam2 if solve else None,
+                             shift if solve else None, ring if solve else None, g)
+            return out
+        return run
+
+    def k6(cn, with_seed):
+        def run(ops):
+            out = torch.zeros_like(ptube)
+            blocks = out[:15].view(3, 5, nx, nx)
+            ops.sine_affine2d(x[:3], A, G, blocks[:, 1:], S, S, 0, ring,
+                              x[3:6] if cn else None, lam * 1e-4 if cn else None,
+                              ptube[0:3] if with_seed else None,
+                              blocks[:, 0] if with_seed else None)
+            return out
+        return run
+
+    rows = _rand((12, N), dtype, dev, 11)
+
+    def k7(theta, dt, with_g):
+        def run(ops):
+            # time-dependent rhs rows for CN and FE, one row (stride 0) for BE
+            r1, r0 = (rows[:6], rows[6:]) if theta < 1.0 else (rows[0].expand(6, N),) * 2
+            if theta == 0.0:
+                out = torch.zeros((6, nx, nx), dtype=dtype, device=dev)
+                return ops.theta_rhs2d(ptube[0:18:3], out, dt, 0.0, 256.0, 100.0, r1, r0,
+                                       ring=ring, g=ptube[1:7] if with_g else None)
+            out = torch.zeros((6, n, n), dtype=dtype, device=dev)
+            return ops.theta_rhs2d(ptube[0:18:3], out, dt, theta, 256.0, 100.0, r1, r0,
+                                   lift=lift2)
+        return run
+
+    dts = torch.linspace(1e-3, 2e-3, 6, dtype=dtype, device=dev)
+
+    # rectangular states (ny != nx): the kernels' row and column roles differ
+    nr, nc_ = 11, 14
+    Sr = torch.as_tensor(sine_eigenbasis(nr, 144.0)[0], dtype=dtype, device=dev)
+    Sc = torch.as_tensor(sine_eigenbasis(nc_, 225.0)[0], dtype=dtype, device=dev)
+    lam_rc = _rand((nr, nc_), dtype, dev, 12).abs() * 500
+    ring_rc = _rand((nr + 2, nc_ + 2), dtype, dev, 13)
+    ring_rc[1:-1, 1:-1] = 0.0
+    rect = _rand((4, nr + 2, nc_ + 2), dtype, dev, 14)
+    rows_rc = _rand((2, nr * nc_), dtype, dev, 15)
+
+    def k5_rect(ops):
+        out = torch.zeros_like(rect)
+        return ops.sine_solve2d(rect[:, 1:-1, 1:-1], out, Sr, Sc, lam_rc, 2e-3, ring_rc)
+
+    def k6_rect(ops):
+        out = torch.zeros((4, 2, nr + 2, nc_ + 2), dtype=dtype, device=dev)
+        A_rc, G_rc = rows_rc.abs(), rows_rc.flip(0)
+        return ops.sine_affine2d(rows_rc[[0, 1, 0, 1]], A_rc, G_rc, out, Sr, Sc, 0, ring_rc)
+
+    def k7_rect(ops):
+        out = torch.zeros((4, nr, nc_), dtype=dtype, device=dev)
+        return ops.theta_rhs2d(rect, out, 1e-3, 0.5, 144.0, 225.0, rows_rc[0].expand(4, -1),
+                               rows_rc[1].expand(4, -1), lift=_rand((nr, nc_), dtype, dev, 16))
+
     return [("interval_affine", k1_rows), ("interval_affine", k1_tube),
             ("theta_chain", k2(1.0, True, False)), ("theta_chain", k2(0.5, True, True)),
             ("theta_chain", k2(1.0, False, True)), ("residual_row_norms", k3),
-            ("cpoint_combine", k4)]
+            ("cpoint_combine", k4),
+            ("sine_solve2d", k5(True, True, 2e-3)), ("sine_solve2d", k5(True, False, shifts)),
+            ("sine_solve2d", k5(False, False, None)),
+            ("sine_affine2d", k6(False, True)), ("sine_affine2d", k6(True, False)),
+            ("theta_rhs2d", k7(1.0, 1e-3, False)), ("theta_rhs2d", k7(0.5, dts, False)),
+            ("theta_rhs2d", k7(0.0, 1e-4, True)),
+            ("sine_solve2d", k5_rect), ("sine_affine2d", k6_rect), ("theta_rhs2d", k7_rect)]
 
 
 @pytest.mark.cuda
@@ -102,23 +184,48 @@ def test_kernels_match_plain_on_card(cuda, dtype):
         _agree(out_k, run(PLAIN), dtype)
 
 
+_PATH_KERNELS = {
+    "spectral": ("interval_affine", "theta_chain", "residual_row_norms", "cpoint_combine"),
+    "physical": ("sine_solve2d", "sine_affine2d", "theta_rhs2d", "residual_row_norms",
+                 "cpoint_combine"),
+}
+
+
+def _small_solve(device, basis, method="BE"):
+    t = np.linspace(0, 1, 129)
+    problem = [P.Heat2D(x_start=0, x_end=1, y_start=0, y_end=1, nx=17, ny=17, a=1.0,
+                        rhs=lambda x, y, t: np.sin(np.pi * x) * np.sin(np.pi * y) + 0 * t,
+                        init_cond=lambda x, y: np.sin(np.pi * x) * np.sin(np.pi * y),
+                        t_interval=t[::s], basis=basis, method=method, device=device,
+                        bc_left=0.5)
+               for s in (1, 4, 16)]
+    reset_launch_counts()
+    mgrit = P.Mgrit(problem=problem, tol=1e-10, max_iter=5, logging_lvl=40)
+    return mgrit.solve_compiled()["conv"], mgrit.u[0].cpu(), launch_counts()
+
+
 @pytest.mark.cuda
 def test_small_solve_on_card_matches_cpu(cuda):
     histories, tubes = [], []
     for device in ("cpu", cuda):
-        t = np.linspace(0, 1, 129)
-        problem = [P.Heat2D(x_start=0, x_end=1, y_start=0, y_end=1, nx=17, ny=17, a=1.0,
-                            rhs=lambda x, y, t: np.sin(np.pi * x) * np.sin(np.pi * y) + 0 * t,
-                            init_cond=lambda x, y: np.sin(np.pi * x) * np.sin(np.pi * y),
-                            t_interval=t[::s], basis="spectral", device=device)
-                   for s in (1, 4, 16)]
-        reset_launch_counts()
-        mgrit = P.Mgrit(problem=problem, tol=1e-10, max_iter=5, logging_lvl=40)
-        histories.append(mgrit.solve_compiled()["conv"])
-        tubes.append(mgrit.u[0].cpu())
-        assert all(n > 0 for n in launch_counts().values()) == (device != "cpu")
+        hist, tube, counts = _small_solve(device, "spectral")
+        histories.append(hist)
+        tubes.append(tube)
+        assert all(counts[k] > 0 for k in _PATH_KERNELS["spectral"]) == (device != "cpu")
     np.testing.assert_allclose(histories[1], histories[0], rtol=1e-10, atol=1e-14)
     assert float((tubes[1] - tubes[0]).abs().max()) <= 1e-10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["BE", "CN"])
+def test_small_physical_solve_on_card_matches_cpu(cuda, method):
+    """The physical path on the card runs K3-K7 and no spectral kernel."""
+    (hc, tc, cc), (hg, tg, cg) = (_small_solve(d, "physical", method) for d in ("cpu", cuda))
+    assert not any(cc.values())
+    assert all(cg[k] > 0 for k in _PATH_KERNELS["physical"])
+    assert cg["interval_affine"] == cg["theta_chain"] == 0
+    np.testing.assert_allclose(hg, hc, rtol=1e-10, atol=1e-14)
+    assert float((tg - tc).abs().max()) <= 1e-10
 
 
 # ---------------------------------------------------------------------------
@@ -126,7 +233,7 @@ def test_small_solve_on_card_matches_cpu(cuda):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("case", range(7))
+@pytest.mark.parametrize("case", range(18))
 def test_cpu_tensors_take_the_plain_version(case):
     name, run = _cases(torch.float64, torch.device("cpu"))[case]
     reset_launch_counts()
@@ -178,6 +285,77 @@ def _k2_args(**over):
 def test_theta_chain_rejects(over, match):
     with pytest.raises(ValueError, match=match):
         heat_kernels.theta_chain(**_k2_args(**over))
+
+
+def _k5_args(**over):
+    f = dict(dtype=torch.float64)
+    args = dict(b=torch.zeros((3, NI, NI), **f), out=torch.empty((3, NI + 2, NI + 2), **f),
+                Sx=torch.zeros((NI, NI), **f), Sy=torch.zeros((NI, NI), **f),
+                lam=torch.zeros((NI, NI), **f), shift=1e-3,
+                ring=torch.zeros((NI + 2, NI + 2), **f))
+    args.update(over)
+    return args
+
+
+@pytest.mark.parametrize("over,match", [
+    (dict(out=torch.empty((3, NI, NI), dtype=torch.float64)), "out has shape"),
+    (dict(shift=None), "lam and shift"),
+    (dict(lam=torch.zeros((NI, NI + 1), dtype=torch.float64)), "lam must be"),
+    (dict(shift=torch.zeros(2, dtype=torch.float64)), "shift tensor"),
+    (dict(ring=torch.zeros((NI, NI), dtype=torch.float64)), "ring must be"),
+    (dict(Sy=torch.zeros((NI + 1, NI + 1), dtype=torch.float64)), "Sx and Sy"),
+    (dict(g=torch.zeros((3, NI, NI), dtype=torch.float64)), "g has shape"),
+    (dict(b=torch.zeros((3, NI, NI), dtype=torch.float32)), "dtype"),
+])
+def test_sine_solve2d_rejects(over, match):
+    with pytest.raises(ValueError, match=match):
+        heat_kernels.sine_solve2d(**_k5_args(**over))
+
+
+def _k6_args(**over):
+    f = dict(dtype=torch.float64)
+    args = dict(xhat=torch.zeros((3, N), **f), A=torch.zeros((4, N), **f),
+                G=torch.zeros((4, N), **f), out=torch.empty((3, 4, NI + 2, NI + 2), **f),
+                Sx=torch.zeros((NI, NI), **f), Sy=torch.zeros((NI, NI), **f), r0=0,
+                ring=torch.zeros((NI + 2, NI + 2), **f))
+    args.update(over)
+    return args
+
+
+@pytest.mark.parametrize("over,match", [
+    (dict(r0=1), "outside"),
+    (dict(xhat=torch.zeros((3, N + 1), dtype=torch.float64)), "xhat has shape"),
+    (dict(out=torch.empty((3, 4, NI, NI), dtype=torch.float64)), "out has shape"),
+    (dict(dhat=torch.zeros((3, N), dtype=torch.float64)), "dhat and dscale"),
+    (dict(seed=torch.zeros((3, NI + 2, NI + 2), dtype=torch.float64)), "seed and seed_out"),
+    (dict(A=torch.zeros((N, 4), dtype=torch.float64).t()), "contiguous"),
+])
+def test_sine_affine2d_rejects(over, match):
+    with pytest.raises(ValueError, match=match):
+        heat_kernels.sine_affine2d(**_k6_args(**over))
+
+
+def _k7_args(**over):
+    f = dict(dtype=torch.float64)
+    args = dict(u=torch.zeros((3, NI + 2, NI + 2), **f), out=torch.empty((3, NI, NI), **f),
+                dt=1e-3, theta=1.0, fx=1.0, fy=1.0, rhs1=torch.zeros(N, **f).expand(3, N),
+                rhs0=torch.zeros(N, **f).expand(3, N), lift=torch.zeros((NI, NI), **f))
+    args.update(over)
+    return args
+
+
+@pytest.mark.parametrize("over,match", [
+    (dict(out=torch.empty((3, NI + 2, NI + 2), dtype=torch.float64)), "out has shape"),
+    (dict(theta=0.0, out=torch.empty((3, NI + 2, NI + 2), dtype=torch.float64)), "ring field"),
+    (dict(lift=None), "lift"),
+    (dict(rhs0=torch.zeros((3, N), dtype=torch.float64)), "equal strides"),
+    (dict(theta=1.5), "theta"),
+    (dict(dt=torch.zeros(2, dtype=torch.float64)), "dt tensor"),
+    (dict(g=torch.zeros((3, NI, NI), dtype=torch.float64)), "FE steps only"),
+])
+def test_theta_rhs2d_rejects(over, match):
+    with pytest.raises(ValueError, match=match):
+        triton_kernels.theta_rhs2d(**_k7_args(**over))
 
 
 def test_triton_wrappers_reject():
