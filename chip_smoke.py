@@ -12,9 +12,9 @@ phases:
 
 1. device    the card's name and power limit (nvidia-smi); a CUDA device is
              required, there is no CPU carry-on;
-2. build     nvcc builds the CUDA C++ kernels (K1, K2, K5, K6) from
-             ``csrc/``, one process per source, all started together;
-3. kernels   K1-K7 against their plain PyTorch versions at the main paths'
+2. build     nvcc builds the CUDA C++ kernels (K1, K2, K5, K6, K8, K9)
+             from ``csrc/``, one process per source, all started together;
+3. kernels   K1-K9 against their plain PyTorch versions at the main paths'
              shapes, float32 and float64, with timings;
 4. small     Heat2D nx=17, nt=129, ms=(4, 4): the port on the CPU (plain
              versions) against the port on the GPU (kernels);
@@ -28,7 +28,12 @@ phases:
              to the physical basis, wall times, steps/s, peak memory;
 7. cn, fe    CN at the TOMS width and a smaller depth (kernels against
              plain and against the spectral basis), and FE on a grid stable
-             on every level (GPU against CPU, the full-tube executor).
+             on every level (GPU against CPU, the full-tube executor);
+8. coarsest  the coarsest-level strategies: the sequential scan,
+             ``AtMgrit`` (K9) and ``Mgrit(coarsest_prefix=True)`` (K8) on
+             ``bench.py``'s Dahlquist row (coarsest nt = 65537) and on the
+             TOMS width with two levels (coarsest 2049 x 16129), and the
+             Heat1D AT-MGRIT golden history.
 
 Each phase prints one line (phase 3 one per case); any failure raises and
 exits non-zero.  The line before the last is the card again; the last line
@@ -56,6 +61,17 @@ FE_CFG = dict(nx=9, nt=65, ms=(2, 2), t_end=1.0 / 16)
 MAIN_TOL, MAIN_MAX_ITER = 1e-10, 30
 SMALL_MAX_ITER = 5
 FE_MAX_ITER = 8
+# bench.py's run_atmgrit_equal_accuracy_row: Dahlquist BE, lambda = -1, two
+# levels with m = 8, coarsest dt 0.2, AT window k = 128, three iterations
+DAHLQUIST = dict(nt=2 ** 19 + 1, t_end=13107.2, m=8, k=128, max_iter=3)
+# bench.py's run_atmgrit_coarsest_row at the TOMS width: two levels, m = 8
+TOMS2 = dict(nx=129, nt=2 ** 14 + 1, ms=(8,))
+TOMS2_AT_K, TOMS2_AT_ITERS = 64, 3
+# AT against the scan on Dahlquist: the bench's own check (bench.py:698-700);
+# the window truncation is (1/1.2)^128 ~ 7e-11 relative
+AT_SCAN_RTOL = 1e-3
+# tests/core/test_solver_goldens_2.py::test_at_mgrit_golden, at its rtol
+AT_GOLDEN, AT_GOLDEN_RTOL = np.array([0.1767778, 0.01223507]), 1e-3
 
 # Kernel against plain version, normwise: max|k - p| / max|p|.  The kernels
 # contract a*b + c into one FMA (nvcc's default --fmad=true, Triton's fp
@@ -80,6 +96,7 @@ PHYS_SPEC_RTOL = 1e-6
 PHYSICAL_KERNELS = ("sine_solve2d", "sine_affine2d", "theta_rhs2d", "residual_row_norms",
                     "cpoint_combine")
 SPECTRAL_KERNELS = ("interval_affine", "theta_chain", "residual_row_norms", "cpoint_combine")
+COARSEST_KERNELS = ("affine_prefix", "affine_windows")
 
 
 def fail(msg):
@@ -204,7 +221,8 @@ def kernel_cases(dtype, dev):
     512 C-rows (K3, K4); physical 129^2 states with their ring: the 512
     level-0 C-rows and the level-1 F-step with g (K5, K7), the seed
     transform (K5), the condensed C-step and the 16384-row materialization
-    of the level-0 tube (K6)."""
+    of the level-0 tube (K6); K8 and K9 at the coarsest levels of the
+    [coarsest] phase (``coarsest_cases``)."""
     import torch
     from pymgrit_tpu_torch.ops.dirichlet_spectral import sine_eigenbasis
     rng = np.random.default_rng(SEED)
@@ -374,6 +392,48 @@ def kernel_cases(dtype, dev):
     cases += [("theta_rhs2d", f"BE B={J}", k7(1.0, dt0)), ("theta_rhs2d", f"CN B={J}", k7(0.5, dt0)),
               ("theta_rhs2d", f"FE B={J} +g", k7(0.0, dt0)),
               ("theta_rhs2d", f"CN B={J} dt tensor", k7(0.5, shifts))]
+    return cases + coarsest_cases(dtype, dev, rng, lam)
+
+
+def coarsest_cases(dtype, dev, rng, lam):
+    """K8 and K9 at the coarsest levels of the [coarsest] phase: the
+    Dahlquist row (65537 points of one value, A = 1/1.2 per step, b = 0 with
+    stride 0) and the TOMS width with two levels (2049 points of 16129
+    coefficients, the BE step's A = 1/(1 + dt lam) and its b as rows with
+    stride 0); g is a coarse tube's rows 1..nt-1, out its rows 1..nt (K8)
+    or a fresh tube (K9)."""
+    import torch
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+
+    nt_d = (DAHLQUIST["nt"] - 1) // DAHLQUIST["m"] + 1
+    nt_h = (TOMS2["nt"] - 1) // TOMS2["ms"][0] + 1
+    dt_h = TOMS2["ms"][0] / (TOMS2["nt"] - 1)
+    N = lam.shape[0]
+    shapes = {
+        "Dahlquist": (nt_d, t(np.full((nt_d - 1, 1), 1 / 1.2)),
+                      t(np.zeros((1, 1))).expand(nt_d - 1, 1), DAHLQUIST["k"]),
+        "TOMS": (nt_h, (1.0 / (1.0 + dt_h * lam))[None].expand(nt_h - 1, N),
+                 t(rng.uniform(0, dt_h, (1, N))).expand(nt_h - 1, N), TOMS2_AT_K),
+    }
+    cases = []
+    for label, (nt, A, b, k) in shapes.items():
+        width = A.shape[1]
+        u = t(rng.uniform(-1, 1, (nt, width)))
+        g = t(rng.uniform(-1e-3, 1e-3, (nt, width)))
+
+        def prefix(ops, u=u, g=g, A=A, b=b):
+            out = torch.empty_like(u)
+            out[0] = u[0]
+            ops.affine_prefix(A, b, u[0], out[1:], g[1:])
+            return out
+
+        def windows(ops, u=u, g=g, A=A, b=b, k=k):
+            return ops.affine_windows(u, A, b, g[1:], torch.empty_like(u), k)
+
+        cases += [("affine_prefix", f"{label} n={nt - 1} N={width} +g", prefix),
+                  ("affine_windows", f"{label} nt={nt} N={width} k={k}", windows)]
     return cases
 
 
@@ -388,7 +448,8 @@ def phase_kernels():
     headline = {"interval_affine": "materialize", "theta_chain": "level-1 F-relax",
                 "residual_row_norms": "C-rows", "cpoint_combine": "FAS g_tail",
                 "sine_solve2d": "solve B=512", "sine_affine2d": "materialize",
-                "theta_rhs2d": "BE B=512"}
+                "theta_rhs2d": "BE B=512", "affine_prefix": "TOMS",
+                "affine_windows": "TOMS"}
     rows = {}
     for dtype in (torch.float64, torch.float32):
         dname = str(dtype).split(".")[-1]
@@ -526,22 +587,11 @@ def phase_main(card):
 def timed_runs(P, device, **cfg):
     """Wall times of fresh solves (setup excluded), in turns plain, kernel,
     kernel, plain; returns ({path: [s, s]}, fine steps of one solve)."""
-    import torch
-    from pymgrit_tpu_torch.ops import DISPATCH, PLAIN
-    runs = {"plain": [], "kernel": []}
-    for name in ("plain", "kernel", "kernel", "plain"):
-        ops = PLAIN if name == "plain" else DISPATCH
-        mg = P.Mgrit(problem=build_problem(P, device=device, ops=ops, **cfg), tol=MAIN_TOL,
-                     max_iter=MAIN_MAX_ITER, logging_lvl=30)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        conv = mg.solve_compiled()["conv"]
-        torch.cuda.synchronize()
-        runs[name].append(time.perf_counter() - t0)
-        steps = sum(count_fine_steps_per_iter(mg, it == 0) for it in range(conv.size))
-        del mg
-        torch.cuda.empty_cache()
-    return runs, steps
+    walls, hists, _, _, mg = strategy_runs(
+        P, lambda ops: build_problem(P, device=device, ops=ops, **cfg), "scan", 0,
+        tol=MAIN_TOL, max_iter=MAIN_MAX_ITER)
+    steps = sum(count_fine_steps_per_iter(mg, it == 0) for it in range(hists["kernel"].size))
+    return walls, steps
 
 
 def phase_physical(card, h_spec, tube_spec):
@@ -678,6 +728,220 @@ def phase_cn_fe():
     check(ok and du <= 1e-10, "fe: GPU and CPU disagree")
 
 
+def dahlquist_problem(P, ops):
+    d0 = P.Dahlquist(t_start=0, t_stop=DAHLQUIST["t_end"], nt=DAHLQUIST["nt"], device=DEVICE,
+                     ops=ops)
+    return [d0, P.Dahlquist(t_interval=d0.t[::DAHLQUIST["m"]], device=DEVICE, ops=ops)]
+
+
+def strategy(P, name, problem, k, **kw):
+    """A solver with one coarsest-level strategy: 'scan' (the sequential
+    march), 'at' (AtMgrit(k)) or 'prefix' (coarsest_prefix=True)."""
+    if name == "at":
+        return P.AtMgrit(k, problem=problem, logging_lvl=30, **kw)
+    return P.Mgrit(problem=problem, logging_lvl=30, coarsest_prefix=name == "prefix", **kw)
+
+
+def strategy_runs(P, build, name, k, **kw):
+    """Fresh solves of one strategy in turns plain, kernel, kernel, plain
+    (setup excluded from the walls).  The first kernel run is the path's
+    run: the launch counts are set to 0 before its setup and read after its
+    solve, with its peak device memory above what was allocated before it;
+    its solver is kept.  Returns (walls {path: [s, s]}, histories {path:
+    first history}, counts, peak GiB, kept solver)."""
+    import torch
+    from pymgrit_tpu_torch.ops import DISPATCH, PLAIN, launch_counts, reset_launch_counts
+    walls, hists, counts, peak, kept = {"plain": [], "kernel": []}, {}, None, None, None
+    for path in ("plain", "kernel", "kernel", "plain"):
+        first = path == "kernel" and counts is None
+        torch.cuda.synchronize()
+        if first:
+            torch.cuda.reset_peak_memory_stats()
+            mem0 = torch.cuda.memory_allocated()
+            reset_launch_counts()
+        mg = strategy(P, name, build(DISPATCH if path == "kernel" else PLAIN), k, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = mg.solve_compiled()["conv"]
+        torch.cuda.synchronize()
+        walls[path].append(time.perf_counter() - t0)
+        check(bool(np.all(np.isfinite(h))), f"{name} {path}: non-finite history {h}")
+        hists.setdefault(path, h)
+        if first:
+            counts, kept = launch_counts(), mg
+            peak = (torch.cuda.max_memory_allocated() - mem0) / 2 ** 30
+        del mg
+        torch.cuda.empty_cache()
+    return walls, hists, counts, peak, kept
+
+
+def fmt_walls(walls):
+    return (f"kernel {np.median(walls['kernel']):.4f} s (runs {[round(w, 4) for w in walls['kernel']]}), "
+            f"plain {np.median(walls['plain']):.4f} s (runs {[round(w, 4) for w in walls['plain']]})")
+
+
+def check_coarsest_counts(label, counts, name):
+    """The prefix run launches K8 and not K9; the AT run K9 and not K8; the
+    scan neither."""
+    want = {"scan": (), "prefix": ("affine_prefix",), "at": ("affine_windows",)}[name]
+    for kern in COARSEST_KERNELS:
+        check((counts[kern] > 0) == (kern in want),
+              f"{label} {name}: launches {counts} (expected {want or 'none'} of {COARSEST_KERNELS})")
+
+
+def phase_coarsest_dahlquist(card):
+    """bench.py's equal-accuracy row: scan, AtMgrit(128) and the prefix on
+    Dahlquist, coarsest nt = 65537."""
+    import torch
+    import pymgrit_tpu_torch as P
+    from pymgrit_tpu_torch.ops import DISPATCH, launch_counts, reset_launch_counts
+    cfg = DAHLQUIST
+    kw = dict(tol=1e-300, max_iter=cfg["max_iter"])
+
+    def build(ops):
+        return dahlquist_problem(P, ops)
+
+    # the port's sequential scan is a Python loop of 65536 batched steps
+    # per forward solve: timed once
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    ms = strategy(P, "scan", build(DISPATCH), cfg["k"], **kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    hs = ms.solve_compiled()["conv"]
+    torch.cuda.synchronize()
+    scan_wall, scan_setup = time.perf_counter() - t1, t1 - t0
+    check_coarsest_counts("dahlquist", launch_counts(), "scan")
+    floor = residual_floor(ms)
+    del ms
+    torch.cuda.empty_cache()
+
+    res = {name: strategy_runs(P, build, name, cfg["k"], **kw) for name in ("prefix", "at")}
+    (wp, hp, cp, _, mp), (wa, ha, ca, _, ma) = res["prefix"], res["at"]
+    check_coarsest_counts("dahlquist", cp, "prefix")
+    check_coarsest_counts("dahlquist", ca, "at")
+    ok_ps, err_ps = histories_agree(hp["kernel"], hs, floor, MAIN_RTOL)
+    ok_pp, err_pp = histories_agree(hp["kernel"], hp["plain"], floor, MAIN_RTOL)
+    ok_ap, err_ap = histories_agree(ha["kernel"], ha["plain"], floor, MAIN_RTOL)
+    at_rel = float(np.max(np.abs(ha["kernel"] - hs) / np.abs(hs))) \
+        if ha["kernel"].shape == hs.shape else float("inf")
+    # the prefix tube against the exact BE march u_i = (1 + dt)^-i: with a
+    # contractive step every row errs by at most sqrt(nc-1) * ||r||_2 (see
+    # phase main), plus the rounding of a march
+    info = mp.levels[0]
+    dt = cfg["t_end"] / (cfg["nt"] - 1)
+    exact = torch.as_tensor((1.0 / (1.0 + dt)) ** np.arange(cfg["nt"]), device=mp.u[0].device)
+    terr = float((mp.u[0] - exact).abs().max())
+    bound = math.sqrt(info.cpts.size - 1) * hp["kernel"][-1] + cfg["nt"] * float(
+        torch.finfo(torch.float64).eps)
+    print(f"[coarsest] Dahlquist BE nt={cfg['nt']} m={cfg['m']} (coarsest nt="
+          f"{mp.levels[1].nt}) f64, {cfg['max_iter']} iterations: histories scan "
+          f"{[float(f'{h:.6e}') for h in hs]}, prefix {[float(f'{h:.6e}') for h in hp['kernel']]}, "
+          f"AT k={cfg['k']} {[float(f'{h:.6e}') for h in ha['kernel']]} | prefix vs scan max diff "
+          f"{err_ps:.3e} (rtol {MAIN_RTOL:.0e}, atol floor {floor:.2e}); AT vs scan max rel "
+          f"{at_rel:.3e} (tol {AT_SCAN_RTOL:.0e}); kernel vs plain (GPU) prefix {err_pp:.3e}, AT "
+          f"{err_ap:.3e}; prefix tube vs (1+dt)^-i max err {terr:.3e} (bound {bound:.3e}) | "
+          f"{'ok' if ok_ps and ok_pp and ok_ap and at_rel < AT_SCAN_RTOL and terr <= bound else 'FAIL'}")
+    print(f"[coarsest] Dahlquist solve walls: scan {scan_wall:.4f} s (kernel ops, once; setup with "
+          f"the nested-iteration march {scan_setup:.2f} s); prefix {fmt_walls(wp)}; AT "
+          f"{fmt_walls(wa)} | launches prefix run K8 {cp['affine_prefix']}, AT run K9 "
+          f"{ca['affine_windows']} | {card}")
+    check(hs.size == cfg["max_iter"] and bool(np.all(np.diff(hs) < 0)),
+          f"dahlquist: scan history {hs}")
+    check(ok_ps, f"dahlquist: prefix history {hp['kernel']} differs from the scan's {hs}")
+    check(ok_pp and ok_ap, "dahlquist: kernel and plain histories differ")
+    check(at_rel < AT_SCAN_RTOL, f"dahlquist: AT history {ha['kernel']} differs from the scan's")
+    check(terr <= bound, f"dahlquist: prefix tube error {terr:.3e} above {bound:.3e}")
+    del mp, ma, exact
+    torch.cuda.empty_cache()
+    return cp, ca
+
+
+def phase_coarsest_toms(card):
+    """The TOMS width with two levels (coarsest 2049 x 16129): the scan (K2)
+    and the prefix (K8) to 1e-10, AtMgrit(64) (K9) for three iterations."""
+    import torch
+    import pymgrit_tpu_torch as P
+    nt, nx = TOMS2["nt"], TOMS2["nx"]
+
+    def build(ops):
+        return build_problem(P, device=DEVICE, ops=ops, **TOMS2)
+
+    runs = {name: strategy_runs(P, build, name, TOMS2_AT_K, tol=MAIN_TOL, max_iter=MAIN_MAX_ITER)
+            for name in ("scan", "prefix")}
+    runs["at"] = strategy_runs(P, build, "at", TOMS2_AT_K, tol=1e-300, max_iter=TOMS2_AT_ITERS)
+    for name, r in runs.items():
+        check_coarsest_counts("toms", r[2], name)
+        check(r[4]._condensed0, f"toms {name}: the condensed carry was declined")
+    (ws, hs, cs, ps, ms), (wp, hp, cp, pp, mp), (wa, ha, ca, pa, ma) = (
+        runs["scan"], runs["prefix"], runs["at"])
+    floor = residual_floor(ms)
+    ok_ps, err_ps = histories_agree(hp["kernel"], hs["kernel"], floor, MAIN_RTOL)
+    agree = {name: histories_agree(r[1]["kernel"], r[1]["plain"], floor, MAIN_RTOL)
+             for name, r in runs.items()}
+    nc = ms.levels[0].cpts.size
+    row_err = torch.linalg.vector_norm((mp.u[0] - ms.u[0]).view(nt, -1), dim=1)
+    terr = float(row_err.max())
+    bound = math.sqrt(nc - 1) * (hs["kernel"][-1] + hp["kernel"][-1]) \
+        + nt * float(torch.finfo(torch.float64).eps) * float(ms.u[0].abs().max())
+    at_tube_ok = tuple(ma.u[0].shape) == (nt, nx - 2, nx - 2) and bool(torch.isfinite(ma.u[0]).all())
+    ok = ok_ps and all(a for a, _ in agree.values()) and terr <= bound and at_tube_ok
+    print(f"[coarsest] TOMS {nx}x{nx} nt={nt} ms={TOMS2['ms']} (coarsest {mp.levels[1].nt} x "
+          f"{(nx - 2) ** 2}) f64 BE spectral: scan {hs['kernel'].size} iterations "
+          f"{[float(f'{h:.6e}') for h in hs['kernel']]}; prefix {hp['kernel'].size} iterations, vs "
+          f"scan max diff {err_ps:.3e} (rtol {MAIN_RTOL:.0e}, atol floor {floor:.2e}), tube max row "
+          f"2-norm diff {terr:.3e} (bound {bound:.3e}); AT k={TOMS2_AT_K} {TOMS2_AT_ITERS} iterations "
+          f"{[float(f'{h:.6e}') for h in ha['kernel']]}; kernel vs plain (GPU) max diff "
+          + ", ".join(f"{name} {e:.3e}" for name, (_, e) in agree.items())
+          + f" | {'ok' if ok else 'FAIL'}")
+    print(f"[coarsest] TOMS solve walls: scan {fmt_walls(ws)}; prefix {fmt_walls(wp)}; AT "
+          f"{fmt_walls(wa)} | launches: scan run K2 {cs['theta_chain']}, prefix run K8 "
+          f"{cp['affine_prefix']}, AT run K9 {ca['affine_windows']} | peak device memory scan "
+          f"{ps:.3f} GiB, prefix {pp:.3f} GiB, AT {pa:.3f} GiB | {card}")
+    check(hs["kernel"][-1] < MAIN_TOL, f"toms: scan history ends at {hs['kernel'][-1]:.3e}")
+    check(ok_ps, f"toms: prefix history {hp['kernel']} differs from the scan's {hs['kernel']}")
+    check(all(a for a, _ in agree.values()), f"toms: kernel and plain histories differ: {agree}")
+    check(terr <= bound, f"toms: prefix tube differs from the scan tube by {terr:.3e}")
+    check(ha["kernel"].size == TOMS2_AT_ITERS and at_tube_ok, "toms: AT run incomplete")
+    del runs, ms, mp, ma, row_err
+    torch.cuda.empty_cache()
+    return cp, ca
+
+
+def heat1d_rhs(x, t):
+    return -np.sin(np.pi * x) * (np.sin(t) - 1 * np.pi ** 2 * np.cos(t))
+
+
+def phase_coarsest_golden():
+    """The Heat1D AT-MGRIT golden (3 levels, k = 2): the physical basis
+    (masked batched steps) and the spectral basis (K9), GPU against CPU."""
+    import pymgrit_tpu_torch as P
+    from pymgrit_tpu_torch.ops import launch_counts, reset_launch_counts
+    for basis in ("physical", "spectral"):
+        runs = {}
+        for device in ("cpu", DEVICE):
+            problem = [P.Heat1D(x_start=0, x_end=2, nx=5, a=1, rhs=heat1d_rhs,
+                                init_cond=lambda x: np.sin(np.pi * x), t_start=0, t_stop=2,
+                                nt=nt, basis=basis, device=device) for nt in (65, 17, 5)]
+            reset_launch_counts()
+            mg = P.AtMgrit(k=2, problem=problem, cf_iter=1, nested_iteration=False, max_iter=2,
+                           random_init_guess=False, logging_lvl=30)
+            runs[device] = (mg, mg.solve()["conv"], launch_counts())
+        (mc, hc, _), (mg, hg, counts) = runs["cpu"], runs[DEVICE]
+        atol = max(1e-14, residual_floor(mc))
+        ok, err = histories_agree(hg, hc, atol, SMALL_RTOL)
+        golden = hg.shape == AT_GOLDEN.shape and bool(
+            np.all(np.abs(hg - AT_GOLDEN) <= AT_GOLDEN_RTOL * AT_GOLDEN))
+        k9 = counts["affine_windows"]
+        print(f"[coarsest] Heat1D AT-MGRIT golden k=2, 3 levels, {basis}: GPU history "
+              f"{[float(f'{h:.7e}') for h in hg]}, CPU {[float(f'{h:.7e}') for h in hc]}, max diff "
+              f"{err:.3e} (rtol {SMALL_RTOL:.0e}, atol {atol:.2e}); golden {AT_GOLDEN.tolist()} "
+              f"(rtol {AT_GOLDEN_RTOL:.0e}); K9 launches {k9} | "
+              f"{'ok' if ok and golden else 'FAIL'}")
+        check(ok and golden, f"golden {basis}: GPU {hg}, CPU {hc}")
+        check((k9 > 0) == (basis == "spectral"), f"golden {basis}: K9 launches {k9}")
+
+
 REPLACES = {
     "interval_affine": ("cuda", "pymgrit_tpu_torch/ops/csrc/interval_affine.cu",
                         "pymgrit_tpu/models/heat_2d.py:538"),
@@ -693,6 +957,10 @@ REPLACES = {
                       "pymgrit_tpu/models/heat_2d.py:543"),
     "theta_rhs2d": ("triton", "pymgrit_tpu_torch/ops/triton_kernels.py",
                     "pymgrit_tpu/models/heat_2d.py:382"),
+    "affine_prefix": ("cuda", "pymgrit_tpu_torch/ops/csrc/affine_prefix.cu",
+                      "pymgrit_tpu/ops/prefix.py:41"),
+    "affine_windows": ("cuda", "pymgrit_tpu_torch/ops/csrc/affine_windows.cu",
+                       "pymgrit_tpu/core/at_mgrit.py:37"),
 }
 
 
@@ -706,11 +974,17 @@ def main():
     counts_phys = phase_physical(card, h_spec, tube_spec)
     del tube_spec
     phase_cn_fe()
+    phase_coarsest_dahlquist(card)
+    prefix_counts, at_counts = phase_coarsest_toms(card)
+    phase_coarsest_golden()
     # launches: each kernel's count on the main path it belongs to (K3, K4
-    # run on both; the spectral run's count is reported)
+    # run on both bases; the spectral run's count is reported; K8 and K9
+    # from the TOMS-width prefix and AT runs)
+    launches = {**counts_phys, **{k: counts[k] for k in SPECTRAL_KERNELS},
+                "affine_prefix": prefix_counts["affine_prefix"],
+                "affine_windows": at_counts["affine_windows"]}
     kernels = [dict(name=name, route=route, source=source, replaces=replaces,
-                    launches=(counts if name in SPECTRAL_KERNELS else counts_phys)[name],
-                    **rows[name])
+                    launches=launches[name], **rows[name])
                for name, (route, source, replaces) in REPLACES.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -11,16 +11,20 @@ from pymgrit_tpu_torch.core.application import Application
 from pymgrit_tpu_torch.core.grid_transfer import GridTransfer, GridTransferCopy
 from pymgrit_tpu_torch.core.hierarchy import simple_setup_problem
 from pymgrit_tpu_torch.core.solver import Mgrit
+from pymgrit_tpu_torch.core.at_mgrit import AtMgrit
 from pymgrit_tpu_torch.models.dahlquist import Dahlquist
+from pymgrit_tpu_torch.models.heat_1d import Heat1D
 from pymgrit_tpu_torch.models.heat_2d import Heat2D
 
 __all__ = [
     "Mgrit",
+    "AtMgrit",
     "Application",
     "GridTransfer",
     "GridTransferCopy",
     "simple_setup_problem",
     "vector",
     "Dahlquist",
+    "Heat1D",
     "Heat2D",
 ]

@@ -15,10 +15,14 @@ package's; the execution differs:
   intra-interval position with a batched step.
 * ``solve_compiled`` is a Python loop over device tensors that reads one
   scalar per iteration to decide whether to stop.
+* With ``coarsest_prefix=True`` the coarsest level is not marched step by
+  step: the application's ``affine_coeffs`` give every step as an
+  elementwise affine map and kernel K8 ``affine_prefix`` computes all
+  states in a chunked scan (``ops/prefix.py``).
 
 States are single tensors (no tuple states) in this port.  Non-uniform
-coarsening, the device mesh, the parallel-prefix coarsest solve and the
-lazy level-0 F-relaxation are not ported and raise NotImplementedError.
+coarsening, the device mesh and the lazy level-0 F-relaxation are not
+ported and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -100,9 +104,6 @@ class Mgrit:
                 'Specify a list of values for all but the coarsest level or an integer ( used for all levels).')
         if mesh is not None:
             raise NotImplementedError("mesh= (time-sharded execution) is not ported yet (ROADMAP A12)")
-        if coarsest_prefix:
-            raise NotImplementedError(
-                "coarsest_prefix=True (parallel-prefix coarsest solve) is not ported yet (ROADMAP A9)")
         if lazy_f_relax:
             raise NotImplementedError(
                 "lazy_f_relax=True is not ported (ROADMAP: not to port; the condensed carry replaces it)")
@@ -139,6 +140,20 @@ class Mgrit:
                     'Non-uniform coarsening between level ' + str(lvl) + ' and ' + str(lvl + 1) +
                     ' is not ported yet (ROADMAP A8)')
         self.step_fns: List[Callable] = [p.step for p in problem]
+        # ---- parallel-prefix coarsest solve (ops/prefix.py, kernel K8):
+        # opt-in; it requires the coarsest application to expose
+        # affine_coeffs(t0, t1) -> (A, b) with step(u) == A*u + b ----
+        self._coarsest_prefix = bool(coarsest_prefix)
+        if self._coarsest_prefix:
+            if getattr(problem[-1], "affine_coeffs", None) is None:
+                raise Exception(
+                    "coarsest_prefix=True requires the coarsest-level "
+                    "application to define affine_coeffs(t_start, t_stop) "
+                    "-> (A, b) with step(u, t_start, t_stop) == A*u + b "
+                    "(elementwise per state leaf); "
+                    + type(problem[-1]).__name__ + " does not")
+            logging.info("Coarsest level uses the parallel-prefix "
+                         "(associative-scan) forward solve")
         self.restrict_fns: List[Callable] = [tr.restriction for tr in transfer]
         self.interp_fns: List[Callable] = [tr.interpolation for tr in transfer]
         self._block_cache = {}
@@ -421,11 +436,26 @@ class Mgrit:
         self._weighted_into(u[m:nt:m], stepped)
         return u
 
+    def _affine_rows(self, lvl, shape):
+        """The coarsest application's affine steps t[i-1] -> t[i] as two
+        (nt-1, N) row views (row stride 0 where the application broadcasts
+        one row)."""
+        t = self.levels[lvl].t
+        A, b = self.problem[lvl].affine_coeffs(t[:-1], t[1:])
+        return tuple(torch.broadcast_to(x, shape).reshape(shape[0], -1) for x in (A, b))
+
     def _forward_solve(self, lvl, u, g):
-        """Sequential time stepping on the coarsest level (one chain)."""
+        """Time stepping on the coarsest level: one sequential chain, or all
+        states at once by the parallel-prefix scan (kernel K8)."""
         info = self.levels[lvl]
         nt, t = info.nt, info.t
         if nt <= 1:
+            return u
+        if self._coarsest_prefix and lvl == self.lvl_max - 1:
+            A, b = self._affine_rows(lvl, u[1:nt].shape)
+            rows = _rows(u)
+            self.ops.affine_prefix(A, b, rows[0], rows[1:nt],
+                                   _rows(g)[1:nt] if lvl > 0 else None)
             return u
         self._chain(lvl, u[0:1], t[:-1][:, None], t[1:][:, None], u[1:nt][None],
                     g[1:nt][None] if lvl > 0 else None)

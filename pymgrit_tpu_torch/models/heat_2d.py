@@ -18,7 +18,8 @@ the physical basis, FE).
 
   with th' = theta for CN and 0 for BE (derivation in the JAX module);
   ``step_chain`` and ``step_batched`` go through K2 ``theta_chain`` and
-  ``relax_interval`` through K1 ``interval_affine``.
+  ``relax_interval`` through K1 ``interval_affine``; ``affine_coeffs``
+  hands the step to the coarsest-level strategies (K8, K9).
 
 Both bases share the closed-form tables (the physical BE/CN step is the
 spectral affine map conjugated by the orthogonal sine basis).  All tables
@@ -33,6 +34,7 @@ import numpy as np
 import torch
 
 from pymgrit_tpu_torch.core.application import Application
+from pymgrit_tpu_torch.models.rhs_table import table_rows
 from pymgrit_tpu_torch.ops import DISPATCH, Ops
 from pymgrit_tpu_torch.ops.dirichlet_spectral import sine_eigenbasis
 
@@ -142,6 +144,7 @@ class Heat2D(Application):
         self._itbl_dev = {}         # (dt, m1) -> (A_k, G_k) (m1, N) device tensors
         self._dt_dev = {}           # step-size row -> (dt, theta*dt) device tensors
         self._dscale_dev = {}       # dt -> CN ring-correction scale (N,) on the device
+        self._affine_dev = {}       # dt -> affine step (A, c) rows (N,) on the device
 
         if self._spectral:
             self._shape = self._int_shape
@@ -151,6 +154,10 @@ class Heat2D(Application):
             self.vector_t_start = self._tensor(init)
         self.vector_template = torch.zeros(self._shape, dtype=torch.float64, device=self.device)
         self._build_rhs_table()
+        if self._spectral:
+            # the spectral theta-step is the elementwise affine map
+            # u -> A*u + c, so the coarsest-level strategies apply exactly
+            self.affine_coeffs = self._affine_coeffs_spectral
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64, device=self.device)
@@ -215,30 +222,17 @@ class Heat2D(Application):
 
     def _rhs_rows(self, ts) -> torch.Tensor:
         """Table rows (rhs, or rhs^ in the spectral basis) at the times ts
-        (numpy, any shape S) as an S + (N,) view.
+        (numpy, any shape S) as an S + (N,) view (``table_rows``)."""
+        return table_rows(self._rhs_tbl_t, self._rhs_times_t, ts, self._rhs_sample)
 
-        A time-independent table is expanded with stride 0; grid times hit
-        the table (nearest entry, torch.searchsorted); off-grid times are
-        evaluated from the callable (and transformed)."""
-        ts = np.asarray(ts, dtype=np.float64)
-        tbl = self._rhs_tbl_t
-        if tbl.shape[0] == 1:
-            return tbl[0].expand(ts.shape + (self._N,))
-        times = self._rhs_times_t
-        tv = torch.as_tensor(np.ascontiguousarray(ts.reshape(-1)), dtype=torch.float64)
-        idx = torch.clamp(torch.searchsorted(times, tv), 0, times.shape[0] - 1)
-        prev = torch.clamp(idx - 1, min=0)
-        idx = torch.where((idx > 0) & (torch.abs(times[prev] - tv) < torch.abs(times[idx] - tv)),
-                          prev, idx)
-        rows = tbl[idx.to(tbl.device)]
-        off = torch.nonzero(times[idx] != tv).flatten().tolist()
-        for i in off:
-            r = np.asarray(self.rhs(x=self._xi, y=self._yi, t=float(tv[i])),
-                           dtype=np.float64) * np.ones(self._int_shape)
-            if self._spectral:
-                r = self._Sx_np @ r @ self._Sy_np
-            rows[i] = self._tensor(r.reshape(-1))
-        return rows.reshape(ts.shape + (self._N,))
+    def _rhs_sample(self, t) -> torch.Tensor:
+        """The rhs callable at an off-grid time t (transformed in the
+        spectral basis), as an (N,) row."""
+        r = np.asarray(self.rhs(x=self._xi, y=self._yi, t=t), dtype=np.float64) \
+            * np.ones(self._int_shape)
+        if self._spectral:
+            r = self._Sx_np @ r @ self._Sy_np
+        return self._tensor(r.reshape(-1))
 
     def _rhs_at(self, t) -> torch.Tensor:
         """The table row at time t as an interior-shaped tensor."""
@@ -317,6 +311,40 @@ class Heat2D(Application):
                 + dt * (self.theta * self._rhs_at(t_stop)
                         + (1 - self.theta) * self._rhs_at(t_start))
         return b / (1.0 + shift * Lam)
+
+    def _affine_step(self, dt, rhs1, rhs0):
+        """(A, c) with _step_spectral(u) == A*u + c as (N,) rows (float dt)
+        or (n, N) tables ((n, 1) tensor dt); rhs0 is read by CN only."""
+        shift = dt * self.theta
+        Lam, lift_hat = self._Lam.view(-1), self._lift_hat.view(-1)
+        denom = 1.0 + shift * Lam
+        if self.theta == 1.0:
+            return 1.0 / denom, (dt * rhs1 + shift * lift_hat) / denom
+        A = (1.0 - shift * Lam) / denom
+        c = ((shift * 2.0) * lift_hat
+             + dt * (self.theta * rhs1 + (1 - self.theta) * rhs0)) / denom
+        return A, c
+
+    def _affine_coeffs_spectral(self, t_start, t_stop):
+        """(A, c) with _step_spectral(u, t0, t1) == A*u + c for every pair
+        of the (n,) step times: (n, nx-2, ny-2) tensors.  Where every dt is
+        the same and the rhs is time-independent, both are one row
+        broadcast over n (stride 0), built once per dt."""
+        tp = np.asarray(t_start, dtype=np.float64)
+        tc = np.asarray(t_stop, dtype=np.float64)
+        dts = tc - tp
+        shape = dts.shape + self._int_shape
+        dt0 = float(dts.flat[0]) if dts.size else 0.0
+        if self._rhs_tbl.shape[0] == 1 and np.all(dts == dt0):
+            if dt0 not in self._affine_dev:
+                row = self._rhs_tbl_t[0]
+                self._affine_dev[dt0] = self._affine_step(dt0, row, row)
+            return tuple(x.view(self._int_shape).expand(shape) for x in self._affine_dev[dt0])
+        dt = self._tensor(dts.reshape(-1, 1))
+        rhs1 = self._rhs_rows(tc).reshape(-1, self._N)
+        rhs0 = rhs1 if self.theta == 1.0 else self._rhs_rows(tp).reshape(-1, self._N)
+        A, c = self._affine_step(dt, rhs1, rhs0)
+        return A.view(shape), c.view(shape)
 
     def step(self, u_start, t_start, t_stop):
         if self._spectral:

@@ -1,5 +1,5 @@
 """Build and load the CUDA C++ kernels (K1 interval_affine, K2 theta_chain,
-K5 sine_solve2d, K6 sine_affine2d).
+K5 sine_solve2d, K6 sine_affine2d, K8 affine_prefix, K9 affine_windows).
 
 The sources under ``csrc/`` have a plain C interface.  On first use each
 ``.cu`` file is compiled by its own ``nvcc`` process for Hopper
@@ -35,6 +35,8 @@ _SIGNATURES = {
                         _I, _I, _I, _P],
     "pm_sine_affine2d": [_P, _I, _P, _P, _I, _I, _I, _P, _I, _P, _P, _I, _I, _I, _P, _I,
                          _I, _P, _I, _I, _P, _P, _P, _I, _I, _P],
+    "pm_affine_prefix": [_P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _P],
+    "pm_affine_windows": [_P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -1,6 +1,7 @@
 """Orthonormal sine eigenbasis of the 1D Dirichlet Laplacian.
 
-Counterpart of ``sine_eigenbasis`` and ``solve_shifted_2d`` in
+Counterpart of ``sine_eigenbasis``, ``solve_shifted_1d`` and
+``solve_shifted_2d`` in
 ``pymgrit_tpu/ops/dirichlet_spectral.py``.
 The n-point stencil fac*[-1, 2, -1] has the analytically known basis
 
@@ -23,6 +24,14 @@ def sine_eigenbasis(n: int, fac: float):
     S = np.sqrt(2.0 / (n + 1)) * np.sin(np.outer(j, j) * np.pi / (n + 1))
     lam = fac * (2.0 - 2.0 * np.cos(j * np.pi / (n + 1)))
     return S, lam
+
+
+def solve_shifted_1d(S, lam, shift_scale, b):
+    """Solve (I + shift_scale * L) x = b where L = S diag(lam) S, for b of
+    shape (n,) (tensors)."""
+    bh = S @ b
+    xh = bh / (1.0 + shift_scale * lam)
+    return S @ xh
 
 
 def solve_shifted_2d(Sx, lamx, Sy, lamy, shift_scale, b):

@@ -11,7 +11,10 @@ with RTOL = 1e-13 (float64) and 1e-5 (float32).  The kernels contract
 a*b + c into FMAs and K3 sums in another order, so they agree with the plain
 versions to rounding (a few ulp per operation, at most L sequential steps);
 K5 and K6 sum their length-n products in another order than cuBLAS, which
-adds ~sqrt(n) ulp per product (n <= 15 here, 127 in chip_smoke.py).
+adds ~sqrt(n) ulp per product (n <= 15 here, 127 in chip_smoke.py).  K8
+associates its scan in chunks, the plain version by doubling: with |A| < 1
+each rounding is damped, so the difference stays a few ulp of the largest
+state.
 
 The remaining tests run on the CPU: a CPU tensor goes to the plain version
 without counting a launch, and every wrapper raises on operands its kernel
@@ -24,7 +27,7 @@ import torch
 
 import pymgrit_tpu_torch as P
 from pymgrit_tpu_torch.ops import (DISPATCH, PLAIN, _build, heat_kernels, launch_counts,
-                                   reset_launch_counts, triton_kernels)
+                                   prefix, reset_launch_counts, triton_kernels)
 from pymgrit_tpu_torch.ops.dirichlet_spectral import sine_eigenbasis
 
 torch.set_num_threads(1)
@@ -161,6 +164,36 @@ def _cases(dtype, dev):
         return ops.theta_rhs2d(rect, out, 1e-3, 0.5, 144.0, 225.0, rows_rc[0].expand(4, -1),
                                rows_rc[1].expand(4, -1), lift=_rand((nr, nc_), dtype, dev, 16))
 
+    # K8, K9: odd row counts (not a multiple of K8's chunk), a strided out
+    # view into a tube, A and b rows with stride 0, g rows of a tube
+    u_tube = _rand((2 * 38, 7), dtype, dev, 17)[::2]
+    g_tube = _rand((38, 7), dtype, dev, 18) * 1e-2
+    A_rows, b_rows = _rand((37, 7), dtype, dev, 19).abs() / 4, _rand((1, 7), dtype, dev, 20)
+
+    def k8(with_g, broadcast):
+        def run(ops):
+            out = torch.zeros((2 * 38, 7), dtype=dtype, device=dev)[::2]
+            A_ = torch.sigmoid(A_rows[:1]).expand(37, 7) if broadcast else A_rows
+            ops.affine_prefix(A_, b_rows.expand(37, 7), u_tube[0], out[1:],
+                              g_tube[1:] if with_g else None)
+            return out
+        return run
+
+    scalar = _rand((1001,), dtype, dev, 21)
+
+    def k8_scalar(ops):
+        out = torch.zeros((1001, 1), dtype=dtype, device=dev)
+        A_ = torch.full((1000, 1), 1 / 1.2, dtype=dtype, device=dev)
+        return ops.affine_prefix(A_, torch.zeros((1, 1), dtype=dtype, device=dev).expand(1000, 1),
+                                 scalar[:1], out[1:], scalar[1:, None] * 1e-2)
+
+    def k9(k, broadcast):
+        def run(ops):
+            out = torch.zeros((2 * 38, 7), dtype=dtype, device=dev)[1::2]
+            A_ = torch.sigmoid(A_rows[:1]).expand(37, 7) if broadcast else A_rows
+            return ops.affine_windows(u_tube, A_, b_rows.expand(37, 7), g_tube[1:], out, k)
+        return run
+
     return [("interval_affine", k1_rows), ("interval_affine", k1_tube),
             ("theta_chain", k2(1.0, True, False)), ("theta_chain", k2(0.5, True, True)),
             ("theta_chain", k2(1.0, False, True)), ("residual_row_norms", k3),
@@ -170,7 +203,14 @@ def _cases(dtype, dev):
             ("sine_affine2d", k6(False, True)), ("sine_affine2d", k6(True, False)),
             ("theta_rhs2d", k7(1.0, 1e-3, False)), ("theta_rhs2d", k7(0.5, dts, False)),
             ("theta_rhs2d", k7(0.0, 1e-4, True)),
-            ("sine_solve2d", k5_rect), ("sine_affine2d", k6_rect), ("theta_rhs2d", k7_rect)]
+            ("sine_solve2d", k5_rect), ("sine_affine2d", k6_rect), ("theta_rhs2d", k7_rect),
+            ("affine_prefix", k8(True, True)), ("affine_prefix", k8(False, False)),
+            ("affine_prefix", k8_scalar),
+            ("affine_windows", k9(1, True)), ("affine_windows", k9(3, False)),
+            ("affine_windows", k9(8, True)), ("affine_windows", k9(50, False))]
+
+
+N_CASES = 25
 
 
 @pytest.mark.cuda
@@ -233,9 +273,11 @@ def test_small_physical_solve_on_card_matches_cpu(cuda, method):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("case", range(18))
+@pytest.mark.parametrize("case", range(N_CASES))
 def test_cpu_tensors_take_the_plain_version(case):
-    name, run = _cases(torch.float64, torch.device("cpu"))[case]
+    cases = _cases(torch.float64, torch.device("cpu"))
+    assert len(cases) == N_CASES
+    name, run = cases[case]
     reset_launch_counts()
     np.testing.assert_array_equal(run(DISPATCH).numpy(), run(PLAIN).numpy())
     assert launch_counts() == {k: 0 for k in launch_counts()}
@@ -356,6 +398,65 @@ def _k7_args(**over):
 def test_theta_rhs2d_rejects(over, match):
     with pytest.raises(ValueError, match=match):
         triton_kernels.theta_rhs2d(**_k7_args(**over))
+
+
+def _k8_args(**over):
+    f = dict(dtype=torch.float64)
+    args = dict(A=torch.zeros((5, 3), **f), b=torch.zeros((1, 3), **f).expand(5, 3),
+                x0=torch.zeros(3, **f), out=torch.empty((5, 3), **f))
+    args.update(over)
+    return args
+
+
+@pytest.mark.parametrize("over,match", [
+    (dict(A=torch.zeros((4, 3), dtype=torch.float64)), "A has shape"),
+    (dict(b=torch.zeros((5, 2), dtype=torch.float64)), "b has shape"),
+    (dict(g=torch.zeros((5, 4), dtype=torch.float64)), "g has shape"),
+    (dict(x0=torch.zeros((2, 3), dtype=torch.float64)[:, 0]), "x0 must be"),
+    (dict(out=torch.empty((3, 5), dtype=torch.float64).t()), "contiguous"),
+    (dict(out=torch.empty((5, 3), dtype=torch.float32)), "dtype"),
+    (dict(out=torch.empty(3, dtype=torch.float64).expand(5, 3)), "must not overlap"),
+    (dict(x0=torch.zeros(3, dtype=torch.float64, device="meta")), "is on meta"),
+])
+def test_affine_prefix_rejects(over, match):
+    with pytest.raises(ValueError, match=match):
+        prefix.affine_prefix(**_k8_args(**over))
+
+
+def _k9_args(**over):
+    f = dict(dtype=torch.float64)
+    args = dict(u=torch.zeros((6, 3), **f), A=torch.zeros((5, 3), **f),
+                b=torch.zeros((1, 3), **f).expand(5, 3), g=torch.zeros((5, 3), **f),
+                out=torch.empty((6, 3), **f), k=2)
+    args.update(over)
+    return args
+
+
+_TUBE = torch.zeros((12, 3), dtype=torch.float64)
+
+
+@pytest.mark.parametrize("over,match", [
+    (dict(out=torch.empty((5, 3), dtype=torch.float64)), "out has shape"),
+    (dict(g=torch.zeros((6, 3), dtype=torch.float64)), "g has shape"),
+    (dict(A=torch.zeros((5, 4), dtype=torch.float64)), "A has shape"),
+    (dict(k=0), "k = 0"),
+    (dict(u=_TUBE[:6], out=_TUBE[5:11]), "must not overlap u"),
+    (dict(u=_TUBE[:6], out=_TUBE[:6]), "must not overlap u"),
+    (dict(g=torch.zeros((5, 3), dtype=torch.float32)), "dtype"),
+    (dict(u=torch.zeros((6, 0), dtype=torch.float64)[:0]), "u has shape"),
+])
+def test_affine_windows_rejects(over, match):
+    with pytest.raises(ValueError, match=match):
+        prefix.affine_windows(**_k9_args(**over))
+
+
+def test_affine_windows_takes_disjoint_views_of_one_tube():
+    """Lane p starts at u[max(0, p-3)] and adds g = 1 once per step."""
+    tube = torch.arange(24, dtype=torch.float64).view(12, 2)
+    one = torch.ones((5, 2), dtype=torch.float64)
+    out = prefix.affine_windows(tube[:6], one, 0 * one, one, tube[6:], 4)
+    u = np.arange(12, dtype=np.float64).reshape(6, 2)
+    np.testing.assert_array_equal(out.numpy(), u[[0, 0, 0, 0, 1, 2]] + np.array([0, 1, 2, 3, 3, 3])[:, None])
 
 
 def test_triton_wrappers_reject():

@@ -101,8 +101,7 @@ def test_hierarchy_validation_messages_equal():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mesh=object()), "A12"), (dict(coarsest_prefix=True), "A9"),
-    (dict(lazy_f_relax=True), "not to port")])
+    (dict(mesh=object()), "A12"), (dict(lazy_f_relax=True), "not to port")])
 def test_unported_options_raise(kw, item):
     problem = P.simple_setup_problem(P.Dahlquist(t_start=0, t_stop=5, nt=101), 2, 2)
     with pytest.raises(NotImplementedError, match=item):
