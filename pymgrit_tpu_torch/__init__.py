@@ -12,6 +12,9 @@ from pymgrit_tpu_torch.core.grid_transfer import GridTransfer, GridTransferCopy
 from pymgrit_tpu_torch.core.hierarchy import simple_setup_problem
 from pymgrit_tpu_torch.core.solver import Mgrit
 from pymgrit_tpu_torch.core.at_mgrit import AtMgrit
+from pymgrit_tpu_torch.models.allen_cahn import AllenCahn
+from pymgrit_tpu_torch.models.arenstorf_orbit import ArenstorfOrbit
+from pymgrit_tpu_torch.models.brusselator import Brusselator
 from pymgrit_tpu_torch.models.dahlquist import Dahlquist
 from pymgrit_tpu_torch.models.heat_1d import Heat1D
 from pymgrit_tpu_torch.models.heat_2d import Heat2D
@@ -24,6 +27,9 @@ __all__ = [
     "GridTransferCopy",
     "simple_setup_problem",
     "vector",
+    "AllenCahn",
+    "ArenstorfOrbit",
+    "Brusselator",
     "Dahlquist",
     "Heat1D",
     "Heat2D",

@@ -1,7 +1,7 @@
 """Hand-written GPU kernels of the port and their plain PyTorch versions.
 
-Nine kernels carry the Heat2D paths (condensed level 0) and the
-coarsest-level strategies:
+Thirteen kernels carry the Heat2D paths (condensed level 0), the
+coarsest-level strategies and the nonlinear models:
 
 * K1 ``interval_affine`` (CUDA C++, ``csrc/interval_affine.cu``)
 * K2 ``theta_chain`` (CUDA C++, ``csrc/theta_chain.cu``)
@@ -12,9 +12,16 @@ coarsest-level strategies:
 * K7 ``theta_rhs2d`` (Triton)
 * K8 ``affine_prefix`` (CUDA C++, ``csrc/affine_prefix.cu``)
 * K9 ``affine_windows`` (CUDA C++, ``csrc/affine_windows.cu``)
+* K10 ``periodic_solve2d`` (CUDA C++, ``csrc/periodic_solve2d.cu``)
+* K11 ``allen_cahn_pointwise`` (Triton)
+* K12 ``dopri45_arenstorf`` (CUDA C++, ``csrc/dopri45_arenstorf.cu``)
+* K13 ``rk4_brusselator`` (Triton)
 
 The spectral basis runs K1-K4; the physical basis K3-K7; the coarsest
-level of ``Mgrit(coarsest_prefix=True)`` K8 and that of ``AtMgrit`` K9.  ``DISPATCH``
+level of ``Mgrit(coarsest_prefix=True)`` K8 and that of ``AtMgrit`` K9;
+Allen-Cahn K10 (IMEX) or K10 and K11 (IMPL, CN, with the Newton-CG control
+of ``cg.py``); the Arenstorf orbit K12; the Brusselator K13.  K3 and K4
+serve every solve.  ``DISPATCH``
 holds the wrappers (CPU tensors: plain version; CUDA tensors: the kernel).
 ``PLAIN`` holds the plain versions with the same signatures; an application
 built with ``ops=PLAIN`` runs the plain versions on any device, which is
@@ -25,7 +32,7 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
-from pymgrit_tpu_torch.ops import heat_kernels, prefix, triton_kernels
+from pymgrit_tpu_torch.ops import heat_kernels, periodic, prefix, runge_kutta, triton_kernels
 
 
 class Ops(NamedTuple):
@@ -38,17 +45,25 @@ class Ops(NamedTuple):
     theta_rhs2d: Callable
     affine_prefix: Callable
     affine_windows: Callable
+    periodic_solve2d: Callable
+    allen_cahn_pointwise: Callable
+    dopri45_arenstorf: Callable
+    rk4_brusselator: Callable
 
 
 DISPATCH = Ops(heat_kernels.interval_affine, heat_kernels.theta_chain,
                triton_kernels.residual_row_norms, triton_kernels.cpoint_combine,
                heat_kernels.sine_solve2d, heat_kernels.sine_affine2d,
-               triton_kernels.theta_rhs2d, prefix.affine_prefix, prefix.affine_windows)
+               triton_kernels.theta_rhs2d, prefix.affine_prefix, prefix.affine_windows,
+               periodic.periodic_solve2d, triton_kernels.allen_cahn_pointwise,
+               runge_kutta.dopri45_arenstorf, triton_kernels.rk4_brusselator)
 PLAIN = Ops(heat_kernels.interval_affine_plain, heat_kernels.theta_chain_plain,
             triton_kernels.residual_row_norms_plain, triton_kernels.cpoint_combine_plain,
             heat_kernels.sine_solve2d_plain, heat_kernels.sine_affine2d_plain,
             triton_kernels.theta_rhs2d_plain, prefix.affine_prefix_plain,
-            prefix.affine_windows_plain)
+            prefix.affine_windows_plain, periodic.periodic_solve2d_plain,
+            triton_kernels.allen_cahn_pointwise_plain, runge_kutta.dopri45_arenstorf_plain,
+            triton_kernels.rk4_brusselator_plain)
 
 
 def launch_counts() -> dict:

@@ -1,5 +1,6 @@
 """Build and load the CUDA C++ kernels (K1 interval_affine, K2 theta_chain,
-K5 sine_solve2d, K6 sine_affine2d, K8 affine_prefix, K9 affine_windows).
+K5 sine_solve2d, K6 sine_affine2d, K8 affine_prefix, K9 affine_windows,
+K10 periodic_solve2d, K12 dopri45_arenstorf).
 
 The sources under ``csrc/`` have a plain C interface.  On first use each
 ``.cu`` file is compiled by its own ``nvcc`` process for Hopper
@@ -37,6 +38,9 @@ _SIGNATURES = {
                          _I, _P, _I, _I, _P, _P, _P, _I, _I, _P],
     "pm_affine_prefix": [_P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _P],
     "pm_affine_windows": [_P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P],
+    "pm_periodic_solve2d": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _D, _P, _I, _I, _I, _I, _P],
+    "pm_dopri45_arenstorf": [_P, _I, _P, _P, _P, _I, _I, _P, _I, _I, _P, _D, _D, _D, _I, _I, _I,
+                             _P],
 }
 
 _lib = None

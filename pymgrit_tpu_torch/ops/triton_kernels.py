@@ -28,6 +28,8 @@ from __future__ import annotations
 import torch
 
 from pymgrit_tpu_torch.ops.heat_kernels import _check_operands, _require
+from pymgrit_tpu_torch.ops.periodic import ipow
+from pymgrit_tpu_torch.ops.runge_kutta import rk4_step
 
 tl = None            # triton.language, bound by _jit() on first launch
 _JIT = {}            # kernel name -> triton.JITFunction
@@ -119,6 +121,107 @@ def _theta_rhs_body(u_ptr, out_ptr, r1_ptr, r0_ptr, lift_ptr, ring_ptr, g_ptr, d
     tl.store(out_ptr + b * o_sb + i * o_sr + j, v, mask=mask)
 
 
+def _allen_cahn_body(u_ptr, x_ptr, r_ptr, out_ptr, max_ptr, fac_ptr, c_ptr,
+                     u_sb, u_sr, x_sb, x_sr, r_sb, r_sr, o_sb, o_sr, n, NBLK,
+                     MODE: tl.constexpr, NU: tl.constexpr, BLOCK: tl.constexpr):
+    # MODE 0: out = u + fac (L u + f(u))                (CN right-hand side)
+    # MODE 1: out = u - fac (L u + f(u)) - r, with each program's max |out|
+    #         (NaN if any entry is NaN) in max_ptr[b, block]
+    # MODE 2: out = x - fac (L x + (1 - (NU+1) u^NU) x / eps^2)  (Jacobian)
+    # f(u) = (u / eps^2)(1 - u^NU); L is the periodic 5-point Laplacian; c_ptr
+    # holds (1 / eps^2, dx^2) in the working dtype; fac is per state.
+    b = tl.program_id(0).to(tl.int64)
+    blk = tl.program_id(1)
+    idx = blk * BLOCK + tl.arange(0, BLOCK)
+    mask = idx < n * n
+    i = idx // n
+    j = idx - i * n
+    im = tl.where(i == 0, n - 1, i - 1)
+    ip = tl.where(i == n - 1, 0, i + 1)
+    jm = tl.where(j == 0, n - 1, j - 1)
+    jp = tl.where(j == n - 1, 0, j + 1)
+    fac = tl.load(fac_ptr + b)
+    inv_eps2 = tl.load(c_ptr)
+    dx2 = tl.load(c_ptr + 1)
+    ub = u_ptr + b * u_sb
+    u = tl.load(ub + i * u_sr + j, mask=mask, other=0.0)
+    if MODE == 2:
+        xb = x_ptr + b * x_sb
+        xs = x_sr
+        x = tl.load(xb + i * xs + j, mask=mask, other=0.0)
+    else:
+        xb = ub
+        xs = u_sr
+        x = u
+    lap = ((((tl.load(xb + im * xs + j, mask=mask, other=0.0)
+              + tl.load(xb + ip * xs + j, mask=mask, other=0.0))
+             + tl.load(xb + i * xs + jm, mask=mask, other=0.0))
+            + tl.load(xb + i * xs + jp, mask=mask, other=0.0)) - 4.0 * x) / dx2
+    p = u
+    for _ in tl.static_range(NU - 1):
+        p = p * u
+    if MODE == 2:
+        v = x - fac * (lap + (inv_eps2 * (1.0 - (NU + 1) * p)) * x)
+    else:
+        f = (inv_eps2 * u) * (1.0 - p)
+        if MODE == 0:
+            v = u + fac * (lap + f)
+        else:
+            r = tl.load(r_ptr + b * r_sb + i * r_sr + j, mask=mask, other=0.0)
+            v = (u - fac * (lap + f)) - r
+            a = tl.where(mask, tl.abs(v), 0.0)
+            # tl.max drops NaN; a sum of the NaN entries (0 where there are
+            # none) adds it back, so a NaN lane reports NaN as jnp.max does
+            nan = tl.sum(tl.where(mask & (v != v), v, 0.0), axis=0)
+            tl.store(max_ptr + b * NBLK + blk, tl.max(a, axis=0) + nan)
+    tl.store(out_ptr + b * o_sb + i * o_sr + j, v, mask=mask)
+
+
+def _rk4_brusselator_body(x_ptr, out_ptr, g_ptr, tp_ptr, tc_ptr, c_ptr, x_sj, o_sj, o_sk,
+                          g_sj, g_sk, J, L, HAS_G: tl.constexpr, BLOCK: tl.constexpr):
+    # J chains of L classic RK4 steps of the Brusselator, one lane per
+    # element: y' = (a + x^2 y - (b+1) x, b x - x^2 y); c_ptr holds (a, b,
+    # b+1); tp, tc: (L, J) step times.  out[:, k] = [g[:, k] +] step.
+    lane = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
+    mask = lane < J
+    ln = lane.to(tl.int64)
+    a = tl.load(c_ptr)
+    bb = tl.load(c_ptr + 1)
+    b1 = tl.load(c_ptr + 2)
+    y0 = tl.load(x_ptr + ln * x_sj, mask=mask, other=0.0)
+    y1 = tl.load(x_ptr + ln * x_sj + 1, mask=mask, other=0.0)
+    for k in range(L):
+        dt = (tl.load(tc_ptr + k * J + ln, mask=mask, other=0.0)
+              - tl.load(tp_ptr + k * J + ln, mask=mask, other=0.0))
+        h2 = dt / 2
+        q = y0 * y0
+        k1a = (a + q * y1) - b1 * y0
+        k1b = bb * y0 - q * y1
+        s0 = y0 + h2 * k1a
+        s1 = y1 + h2 * k1b
+        q = s0 * s0
+        k2a = (a + q * s1) - b1 * s0
+        k2b = bb * s0 - q * s1
+        s0 = y0 + h2 * k2a
+        s1 = y1 + h2 * k2b
+        q = s0 * s0
+        k3a = (a + q * s1) - b1 * s0
+        k3b = bb * s0 - q * s1
+        s0 = y0 + dt * k3a
+        s1 = y1 + dt * k3b
+        q = s0 * s0
+        k4a = (a + q * s1) - b1 * s0
+        k4b = bb * s0 - q * s1
+        h6 = dt / 6
+        y0 = y0 + h6 * (((k1a + 2 * k2a) + 2 * k3a) + k4a)
+        y1 = y1 + h6 * (((k1b + 2 * k2b) + 2 * k3b) + k4b)
+        if HAS_G:
+            y0 = tl.load(g_ptr + ln * g_sj + k * g_sk, mask=mask, other=0.0) + y0
+            y1 = tl.load(g_ptr + ln * g_sj + k * g_sk + 1, mask=mask, other=0.0) + y1
+        tl.store(out_ptr + ln * o_sj + k * o_sk, y0, mask=mask)
+        tl.store(out_ptr + ln * o_sj + k * o_sk + 1, y1, mask=mask)
+
+
 def _jit():
     """Import triton and compile-wrap the kernel bodies (once)."""
     global tl
@@ -130,6 +233,8 @@ def _jit():
         _JIT["row_norms"] = triton.jit(_row_norms_body)
         _JIT["combine"] = triton.jit(_combine_body)
         _JIT["theta_rhs"] = triton.jit(_theta_rhs_body)
+        _JIT["allen_cahn"] = triton.jit(_allen_cahn_body)
+        _JIT["rk4_brusselator"] = triton.jit(_rk4_brusselator_body)
     return _JIT
 
 
@@ -349,3 +454,153 @@ def theta_rhs2d(u, out, dt, theta, fx, fy, rhs1, rhs0, lift=None, ring=None, g=N
 
 
 theta_rhs2d.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K11 allen_cahn_pointwise
+# ---------------------------------------------------------------------------
+
+AC_MODES = ("rhs", "residual", "jacobian")
+
+
+def periodic_lap_plain(x, dx2):
+    """The periodic 5-point Laplacian of (B, n, n) states, summed in the
+    order of pymgrit_tpu/models/allen_cahn.py ``AllenCahn._lap``."""
+    return ((((torch.roll(x, 1, 1) + torch.roll(x, -1, 1)) + torch.roll(x, 1, 2))
+             + torch.roll(x, -1, 2)) - 4.0 * x) / dx2
+
+
+def allen_cahn_pointwise_plain(mode, u, out, fac, inv_eps2, dx2, nu, x=None, rhs=None):
+    """rhs: out = u + fac (L u + f(u)); residual: out = u - fac (L u + f(u))
+    - rhs, returns (out, max |out| per state, NaN-propagating as jnp.max);
+    jacobian: out = x - fac (L x + (inv_eps2 (1 - (nu+1) u^nu)) x)."""
+    f_ = fac.view(-1, 1, 1)
+    p = ipow(u, nu)
+    if mode == "jacobian":
+        out.copy_(x - f_ * (periodic_lap_plain(x, dx2) + (inv_eps2 * (1.0 - (nu + 1) * p)) * x))
+        return out
+    lap_f = periodic_lap_plain(u, dx2) + (inv_eps2 * u) * (1.0 - p)
+    if mode == "rhs":
+        out.copy_(u + f_ * lap_f)
+        return out
+    out.copy_((u - f_ * lap_f) - rhs)
+    return out, out.abs().amax(dim=(1, 2))
+
+
+def allen_cahn_pointwise(mode, u, out, fac, inv_eps2, dx2, nu, x=None, rhs=None):
+    """One fused stencil + reaction pass over B periodic (n, n) states.
+
+    mode "rhs" (CN's right-hand side), "residual" (the Newton residual
+    g = u - fac (L u + f(u)) - rhs; returns (out, (B,) max |g| with NaN
+    where g holds a NaN)) or "jacobian" (the Jacobian at u applied to x).
+    u, x, rhs, out: (B, n, n) views with contiguous rows; fac: contiguous
+    (B,) tensor; inv_eps2 = 1/eps^2 and dx2 = dx^2 are floats; nu >= 1 an
+    integer.  out must not overlap the inputs.  Returns out (or the pair).
+    """
+    name = "allen_cahn_pointwise"
+    _require(mode in AC_MODES, name, f"mode must be one of {AC_MODES}")
+    ops = dict(u=u, out=out, fac=fac)
+    if mode == "jacobian":
+        _require(x is not None, name, "the jacobian mode needs x")
+        ops["x"] = x
+    if mode == "residual":
+        _require(rhs is not None, name, "the residual mode needs rhs")
+        ops["rhs"] = rhs
+    _check_operands(name, ops)
+    _require(u.dim() == 3 and u.shape[1] == u.shape[2], name,
+             f"u has shape {tuple(u.shape)}, expected (B, n, n)")
+    B, n = u.shape[0], u.shape[1]
+    for key, t in ops.items():
+        if key != "fac":
+            _require(tuple(t.shape) == (B, n, n), name,
+                     f"{key} has shape {tuple(t.shape)}, expected ({B}, {n}, {n})")
+    _require(tuple(fac.shape) == (B,) and fac.is_contiguous(), name,
+             f"fac must be a contiguous ({B},) tensor")
+    _require(int(nu) >= 1, name, "nu must be >= 1")
+    if u.device.type == "cpu":
+        return allen_cahn_pointwise_plain(mode, u, out, fac, inv_eps2, dx2, nu, x, rhs)
+    nblk = -(-(n * n) // _BLOCK)
+    part = torch.empty((B, nblk), dtype=u.dtype, device=u.device) if mode == "residual" else None
+    if B:
+        c = _coefficients((inv_eps2, dx2), u.dtype, u.device)
+        xs = x if x is not None else u
+        rs = rhs if rhs is not None else u
+        with torch.cuda.device(u.device):
+            _jit()["allen_cahn"][(B, nblk)](
+                u, xs, rs, out, part if part is not None else out, fac, c,
+                u.stride(0), u.stride(1), xs.stride(0), xs.stride(1), rs.stride(0), rs.stride(1),
+                out.stride(0), out.stride(1), n, nblk, MODE=AC_MODES.index(mode), NU=int(nu),
+                BLOCK=_BLOCK, num_warps=4)
+        allen_cahn_pointwise.launches += 1
+    if mode == "residual":
+        # torch.amax keeps a NaN partial
+        return out, part.amax(dim=1)
+    return out
+
+
+allen_cahn_pointwise.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K13 rk4_brusselator
+# ---------------------------------------------------------------------------
+
+
+def brusselator_f(a, b):
+    """The Brusselator right-hand side on (B, 2) states (expression order
+    of pymgrit_tpu/models/brusselator.py ``Brusselator._f``)."""
+    def f(t, y):
+        q = y[:, 0] ** 2
+        return torch.stack([a + q * y[:, 1] - (b + 1) * y[:, 0], b * y[:, 0] - q * y[:, 1]], 1)
+    return f
+
+
+def rk4_brusselator_plain(seed, tp, tc, out, g=None, a=1.0, b=3.0):
+    """J chains of L classic RK4 steps (``ops.runge_kutta.rk4_step``)."""
+    f = brusselator_f(a, b)
+    x = seed
+    for k in range(out.shape[1]):
+        x = rk4_step(f, x, tp[k], tc[k])
+        if g is not None:
+            x = g[:, k] + x
+        out[:, k] = x
+    return out
+
+
+def rk4_brusselator(seed, tp, tc, out, g=None, a=1.0, b=3.0):
+    """Chained RK4 steps of the Brusselator, every step written.
+
+    seed: (J, 2) states; tp, tc: contiguous (L, J) step start and end
+    times; out, g: (J, L, 2) views (g optional, added after each step).
+    out must not overlap seed or g.  Returns out.
+    """
+    name = "rk4_brusselator"
+    ops = dict(seed=seed, tp=tp, tc=tc, out=out)
+    if g is not None:
+        ops["g"] = g
+    _check_operands(name, ops)
+    _require(seed.dim() == 2 and seed.shape[1] == 2, name,
+             f"seed has shape {tuple(seed.shape)}, expected (J, 2)")
+    J = seed.shape[0]
+    _require(out.dim() == 3 and out.shape[0] == J and out.shape[2] == 2, name,
+             f"out has shape {tuple(out.shape)}, expected ({J}, L, 2)")
+    L = out.shape[1]
+    _require(g is None or g.shape == out.shape, name, "g must have the shape of out")
+    _require(tuple(tp.shape) == (L, J) and tp.shape == tc.shape and tp.is_contiguous()
+             and tc.is_contiguous(), name, f"tp and tc must be contiguous ({L}, {J}) tensors")
+    if seed.device.type == "cpu":
+        return rk4_brusselator_plain(seed, tp, tc, out, g, a, b)
+    if J == 0 or L == 0:
+        return out
+    c = _coefficients((a, b, b + 1), seed.dtype, seed.device)
+    block = 128
+    with torch.cuda.device(seed.device):
+        _jit()["rk4_brusselator"][(-(-J // block),)](
+            seed, out, g if g is not None else out, tp, tc, c, seed.stride(0), out.stride(0),
+            out.stride(1), g.stride(0) if g is not None else 0, g.stride(1) if g is not None else 0,
+            J, L, HAS_G=g is not None, BLOCK=block, num_warps=4)
+    rk4_brusselator.launches += 1
+    return out
+
+
+rk4_brusselator.launches = 0

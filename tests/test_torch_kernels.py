@@ -14,7 +14,14 @@ K5 and K6 sum their length-n products in another order than cuBLAS, which
 adds ~sqrt(n) ulp per product (n <= 15 here, 127 in chip_smoke.py).  K8
 associates its scan in chunks, the plain version by doubling: with |A| < 1
 each rounding is damped, so the difference stays a few ulp of the largest
-state.
+state.  K10 sums its Hartley products in another order than cuBLAS (as
+K5).  K12 integrates adaptively: its accept decisions follow the plain
+version's (the time arithmetic is free of FMA contraction), the stage
+arithmetic contracts, and the orbit amplifies those ulps, so it is held at
+1e-10 in float64.  In float32 the error estimate at atol 1e-6 sits near
+float32 rounding and decisions flip; each flip moves a step's result by up
+to a few of the controller's rtol 1e-3, so three chained steps are held at
+1e-2.
 
 The remaining tests run on the CPU: a CPU tensor goes to the plain version
 without counting a launch, and every wrapper raises on operands its kernel
@@ -27,12 +34,14 @@ import torch
 
 import pymgrit_tpu_torch as P
 from pymgrit_tpu_torch.ops import (DISPATCH, PLAIN, _build, heat_kernels, launch_counts,
-                                   prefix, reset_launch_counts, triton_kernels)
+                                   periodic, prefix, reset_launch_counts, runge_kutta,
+                                   triton_kernels)
 from pymgrit_tpu_torch.ops.dirichlet_spectral import sine_eigenbasis
 
 torch.set_num_threads(1)
 
 RTOL = {torch.float64: 1e-13, torch.float32: 1e-5}
+KERNEL_RTOL = {"dopri45_arenstorf": {torch.float64: 1e-10, torch.float32: 1e-2}}
 NI = 15                 # interior side of the physical states (17 x 17 with the ring)
 N = NI * NI
 
@@ -49,9 +58,9 @@ def _rand(shape, dtype, device, seed):
     return torch.as_tensor(a, dtype=dtype, device=device)
 
 
-def _agree(k, p, dtype):
+def _agree(k, p, dtype, name=None):
     err = float((k - p).abs().max())
-    assert err <= RTOL[dtype] * float(p.abs().max()), err
+    assert err <= KERNEL_RTOL.get(name, RTOL)[dtype] * float(p.abs().max()), (name, err)
 
 
 def _cases(dtype, dev):
@@ -194,6 +203,55 @@ def _cases(dtype, dev):
             return ops.affine_windows(u_tube, A_, b_rows.expand(37, 7), g_tube[1:], out, k)
         return run
 
+    # K10, K11: periodic states of odd and even side read from strided tube
+    # rows; K12, K13: lanes of a tube, chains written into its rows
+    H17, H16 = (torch.as_tensor(periodic.hartley_basis(s), dtype=dtype, device=dev) for s in (17, 16))
+    lam17 = _rand((17, 17), dtype, dev, 22).abs() * 1e3
+    lam16 = _rand((16, 16), dtype, dev, 23).abs() * 1e3
+    ac_tube = _rand((10, 17, 17), dtype, dev, 24).clamp(-1, 1)
+    ac_shift = torch.tensor([1e-3, 2e-3, 5e-4], dtype=dtype, device=dev)
+
+    def k10(imex, with_g):
+        def run(ops):
+            out = torch.zeros_like(ac_tube)
+            g = ac_tube[1:10:3] * 1e-2 if with_g else None
+            return ops.periodic_solve2d(ac_tube[0:9:3], out[1:10:3], H17, lam17, ac_shift,
+                                        nu=2 if imex else 0, inv_eps2=625.0, g=g)
+        return run
+
+    def k10_even(ops):
+        b = _rand((1, 16, 16), dtype, dev, 25)
+        return ops.periodic_solve2d(b, torch.empty_like(b), H16, lam16, ac_shift[:1])
+
+    def k11(mode):
+        def run(ops):
+            out = torch.zeros((3, 17, 17), dtype=dtype, device=dev)
+            res = ops.allen_cahn_pointwise(mode, ac_tube[0:9:3], out, ac_shift, 625.0,
+                                           1.0 / 17 ** 2, 2, x=ac_tube[1:10:3],
+                                           rhs=ac_tube[2:10:3] if mode == "residual" else None)
+            return torch.cat([res[0].flatten(), res[1]]) if mode == "residual" else res
+        return run
+
+    orbit = torch.tensor([0.994, 0.0, 0.0, -2.00158510637908], dtype=dtype, device=dev)
+    ode_seed = orbit * (1 + 1e-6 * _rand((5, 4), dtype, dev, 26))
+    ode_t = torch.linspace(0, 1.5, 16, dtype=dtype, device=dev)
+    tp, tc = ode_t[:-1].view(3, 5).contiguous(), ode_t[1:].view(3, 5).contiguous()
+    bru_seed = _rand((5, 2), dtype, dev, 27).abs()
+
+    def k12(with_g):
+        def run(ops):
+            out = torch.zeros((5 * 4, 4), dtype=dtype, device=dev).view(5, 4, 4)
+            g = (ode_seed[:, None] * 1e-4).expand(5, 3, 4) if with_g else None
+            return ops.dopri45_arenstorf(ode_seed, tp, tc, out[:, 1:], g)
+        return run
+
+    def k13(with_g):
+        def run(ops):
+            out = torch.zeros((5 * 4, 2), dtype=dtype, device=dev).view(5, 4, 2)
+            g = (bru_seed[:, None] * 1e-3).expand(5, 3, 2) if with_g else None
+            return ops.rk4_brusselator(bru_seed, tp, tc, out[:, 1:], g)
+        return run
+
     return [("interval_affine", k1_rows), ("interval_affine", k1_tube),
             ("theta_chain", k2(1.0, True, False)), ("theta_chain", k2(0.5, True, True)),
             ("theta_chain", k2(1.0, False, True)), ("residual_row_norms", k3),
@@ -207,10 +265,16 @@ def _cases(dtype, dev):
             ("affine_prefix", k8(True, True)), ("affine_prefix", k8(False, False)),
             ("affine_prefix", k8_scalar),
             ("affine_windows", k9(1, True)), ("affine_windows", k9(3, False)),
-            ("affine_windows", k9(8, True)), ("affine_windows", k9(50, False))]
+            ("affine_windows", k9(8, True)), ("affine_windows", k9(50, False)),
+            ("periodic_solve2d", k10(True, True)), ("periodic_solve2d", k10(False, False)),
+            ("periodic_solve2d", k10_even),
+            ("allen_cahn_pointwise", k11("rhs")), ("allen_cahn_pointwise", k11("residual")),
+            ("allen_cahn_pointwise", k11("jacobian")),
+            ("dopri45_arenstorf", k12(True)), ("dopri45_arenstorf", k12(False)),
+            ("rk4_brusselator", k13(True)), ("rk4_brusselator", k13(False))]
 
 
-N_CASES = 25
+N_CASES = 35
 
 
 @pytest.mark.cuda
@@ -221,7 +285,7 @@ def test_kernels_match_plain_on_card(cuda, dtype):
         out_k = run(DISPATCH)
         torch.cuda.synchronize()
         assert launch_counts()[name] == before + 1
-        _agree(out_k, run(PLAIN), dtype)
+        _agree(out_k, run(PLAIN), dtype, name)
 
 
 _PATH_KERNELS = {
@@ -482,3 +546,169 @@ def test_build_without_nvcc_raises(monkeypatch):
     monkeypatch.setattr(_build.os.path, "exists", lambda path: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build._nvcc()
+
+
+# ---------------------------------------------------------------------------
+# K10-K13 and the NaN semantics of the reductions
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_dopri45_attempt_counts_on_card_match_plain(cuda):
+    """K12 takes the plain version's accept/reject decisions: equal attempt
+    counts lane by lane (the time arithmetic is free of FMA contraction)."""
+    orbit = torch.tensor([0.994, 0.0, 0.0, -2.00158510637908], dtype=torch.float64, device=cuda)
+    seed = orbit * (1 + 1e-6 * _rand((64, 4), torch.float64, cuda, 30))
+    t = torch.linspace(0, 17.06521656015796, 64 * 4 + 1, dtype=torch.float64, device=cuda)
+    tp, tc = t[:-1].view(4, 64).contiguous(), t[1:].view(4, 64).contiguous()
+    counts = []
+    for ops in (DISPATCH, PLAIN):
+        att = torch.zeros((4, 64), dtype=torch.int32, device=cuda)
+        ops.dopri45_arenstorf(seed, tp, tc, torch.empty((64, 4, 4), dtype=torch.float64,
+                                                        device=cuda), attempts=att)
+        counts.append(att.cpu())
+    assert torch.equal(counts[0], counts[1]) and int(counts[0].min()) >= 1
+
+
+@pytest.mark.cuda
+def test_reductions_keep_nan_on_card(cuda):
+    """K3's row norms and K11's per-lane max|g| give NaN for a row holding a
+    NaN (also beside an inf) and inf for an inf, as torch.amax and jnp.max:
+    Triton's max would drop the NaN."""
+    s = _rand((4, 300), torch.float64, cuda, 31)
+    u = torch.zeros_like(s)
+    s[1, 7], s[2, 250] = float("nan"), float("inf")
+    s[3, 5], s[3, 290] = float("inf"), float("nan")
+    k3 = DISPATCH.residual_row_norms(s, u)
+    assert torch.equal(torch.isnan(k3), torch.isnan(PLAIN.residual_row_norms(s, u)))
+    assert torch.isnan(k3[1]) and torch.isinf(k3[2]) and torch.isnan(k3[3])
+    x = _rand((4, 33, 33), torch.float64, cuda, 32).clamp(-1, 1)
+    rhs = torch.zeros_like(x)
+    rhs[1, 3, 4], rhs[2, 0, 0] = float("nan"), float("inf")
+    rhs[3, 1, 1], rhs[3, 32, 32] = float("inf"), float("nan")
+    fac = torch.full((4,), 1e-3, dtype=torch.float64, device=cuda)
+    _, gk = DISPATCH.allen_cahn_pointwise("residual", x, torch.empty_like(x), fac, 625.0,
+                                          1.0 / 33 ** 2, 2, rhs=rhs)
+    _, gp = PLAIN.allen_cahn_pointwise("residual", x, torch.empty_like(x), fac, 625.0,
+                                       1.0 / 33 ** 2, 2, rhs=rhs)
+    assert torch.isnan(gk[1]) and torch.isinf(gk[2]) and torch.isnan(gk[3])
+    assert float(gk[0]) == float(gp[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["IMEX", "CN", "IMPL"])
+def test_small_allen_cahn_solve_on_card_matches_cpu(cuda, method):
+    """Three levels at nx = 16: K10 (and K11) on the card against the plain
+    versions on the CPU, histories to rtol 1e-10 with an atol at the float64
+    floor."""
+    runs = []
+    for device in ("cpu", cuda):
+        a0 = P.AllenCahn(nx=16, method=method, t_start=0, t_stop=0.032, nt=65, device=device)
+        problem = [a0] + [P.AllenCahn(nx=16, method=method, t_interval=a0.t[::s], device=device)
+                          for s in (4, 16)]
+        reset_launch_counts()
+        mg = P.Mgrit(problem=problem, tol=1e-10, max_iter=10, logging_lvl=40)
+        runs.append((mg.solve()["conv"], mg.u[0].cpu(), launch_counts()))
+    (hc, uc, cc), (hg, ug, cg) = runs
+    assert cg["periodic_solve2d"] > 0 and (cg["allen_cahn_pointwise"] > 0) == (method != "IMEX")
+    fin = np.isfinite(hc)
+    np.testing.assert_array_equal(fin, np.isfinite(hg))
+    np.testing.assert_allclose(hg[fin], hc[fin], rtol=1e-10, atol=1e-13)
+    assert float((ug - uc).abs().max()) <= 1e-11
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["ArenstorfOrbit", "Brusselator"])
+def test_small_ode_solve_on_card_matches_cpu(cuda, model):
+    runs = []
+    for device in ("cpu", cuda):
+        p0 = getattr(P, model)(t_start=0, t_stop=12, nt=641, device=device)
+        reset_launch_counts()
+        mg = P.Mgrit(problem=[p0, getattr(P, model)(t_interval=p0.t[::20], device=device)],
+                     tol=1e-7, logging_lvl=40)
+        runs.append((mg.solve()["conv"], mg.u[0].cpu(), launch_counts()))
+    (hc, uc, _), (hg, ug, cg) = runs
+    kernel = "dopri45_arenstorf" if model == "ArenstorfOrbit" else "rk4_brusselator"
+    assert cg[kernel] > 0
+    # the chaotic orbit amplifies the kernels' contracted roundings
+    rtol = 1e-5 if model == "ArenstorfOrbit" else 1e-10
+    np.testing.assert_allclose(hg, hc, rtol=rtol, atol=1e-13)
+    assert float((ug - uc).abs().max()) <= (1e-8 if model == "ArenstorfOrbit" else 1e-12)
+
+
+def _k10_args(**over):
+    f = dict(dtype=torch.float64)
+    args = dict(b=torch.zeros((3, 8, 8), **f), out=torch.empty((3, 8, 8), **f),
+                H=torch.zeros((8, 8), **f), lam=torch.zeros((8, 8), **f),
+                shift=torch.zeros(3, **f))
+    args.update(over)
+    return args
+
+
+@pytest.mark.parametrize("over,match", [
+    (dict(b=torch.zeros((3, 8, 7), dtype=torch.float64)), "expected \\(B, n, n\\)"),
+    (dict(out=torch.empty((3, 9, 9), dtype=torch.float64)), "out has shape"),
+    (dict(g=torch.zeros((2, 8, 8), dtype=torch.float64)), "g has shape"),
+    (dict(H=torch.zeros((7, 7), dtype=torch.float64)), "H and lam"),
+    (dict(lam=torch.zeros((8, 16), dtype=torch.float64)[:, ::2]), "contiguous"),
+    (dict(shift=torch.zeros(2, dtype=torch.float64)), "shift must be"),
+    (dict(nu=-1), "nu must be"),
+    (dict(lam=torch.zeros((8, 8), dtype=torch.float32)), "dtype"),
+])
+def test_periodic_solve2d_rejects(over, match):
+    with pytest.raises(ValueError, match=match):
+        periodic.periodic_solve2d(**_k10_args(**over))
+
+
+def _k11_args(**over):
+    f = dict(dtype=torch.float64)
+    args = dict(mode="jacobian", u=torch.zeros((3, 8, 8), **f), out=torch.empty((3, 8, 8), **f),
+                fac=torch.zeros(3, **f), inv_eps2=625.0, dx2=1.0, nu=2,
+                x=torch.zeros((3, 8, 8), **f))
+    args.update(over)
+    return args
+
+
+@pytest.mark.parametrize("over,match", [
+    (dict(mode="lap"), "mode must be"),
+    (dict(x=None), "needs x"),
+    (dict(mode="residual"), "needs rhs"),
+    (dict(fac=torch.zeros(2, dtype=torch.float64)), "fac must be"),
+    (dict(nu=0), "nu must be"),
+    (dict(x=torch.zeros((3, 8, 9), dtype=torch.float64)), "x has shape"),
+    (dict(u=torch.zeros((3, 8, 9), dtype=torch.float64)), "expected \\(B, n, n\\)"),
+])
+def test_allen_cahn_pointwise_rejects(over, match):
+    with pytest.raises(ValueError, match=match):
+        triton_kernels.allen_cahn_pointwise(**_k11_args(**over))
+
+
+def _ode_args(d, **over):
+    f = dict(dtype=torch.float64)
+    args = dict(seed=torch.zeros((5, d), **f), tp=torch.zeros((3, 5), **f),
+                tc=torch.zeros((3, 5), **f), out=torch.empty((5, 3, d), **f))
+    args.update(over)
+    return args
+
+
+@pytest.mark.parametrize("over,match", [
+    (dict(seed=torch.zeros((5, 3), dtype=torch.float64)), "seed has shape"),
+    (dict(out=torch.empty((4, 3, 4), dtype=torch.float64)), "out has shape"),
+    (dict(tp=torch.zeros((5, 3), dtype=torch.float64)), "tp and tc"),
+    (dict(g=torch.zeros((5, 2, 4), dtype=torch.float64)), "g must have"),
+    (dict(attempts=torch.zeros((3, 5), dtype=torch.int64)), "attempts must be"),
+])
+def test_dopri45_arenstorf_rejects(over, match):
+    with pytest.raises(ValueError, match=match):
+        runge_kutta.dopri45_arenstorf(**_ode_args(4, **over))
+
+
+@pytest.mark.parametrize("over,match", [
+    (dict(seed=torch.zeros((5, 4), dtype=torch.float64)), "seed has shape"),
+    (dict(out=torch.empty((5, 3, 4), dtype=torch.float64)), "out has shape"),
+    (dict(tc=torch.zeros((3, 4), dtype=torch.float64)), "tp and tc"),
+    (dict(g=torch.zeros((5, 3, 2), dtype=torch.float32)), "dtype"),
+])
+def test_rk4_brusselator_rejects(over, match):
+    with pytest.raises(ValueError, match=match):
+        triton_kernels.rk4_brusselator(**_ode_args(2, **over))
