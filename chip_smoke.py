@@ -12,10 +12,14 @@ phases:
 
 1. device    the card's name and power limit (nvidia-smi); a CUDA device is
              required, there is no CPU carry-on;
-2. build     nvcc builds the CUDA C++ kernels (K1, K2, K5, K6, K8, K9, K10, K12)
-             from ``csrc/``, one process per source, all started together;
-3. kernels   K1-K13 against their plain PyTorch versions at the main paths'
-             shapes (and odd ones), float32 and float64, with timings;
+2. build     nvcc builds the CUDA C++ kernels (K1, K2, K5, K6, K8, K9, K10, K12,
+             K16, K17) from ``csrc/``, one process per source, all started
+             together;
+3. kernels   K1-K17 against their plain PyTorch versions at the main paths'
+             shapes (and odd ones), float32 and float64, with timings; for
+             each kernel's headline case its bound (bytes or FP64 operations
+             over the H100's peaks) and, where one PyTorch call computes the
+             same function, that call's time;
 4. small     Heat2D nx=17, nt=129, ms=(4, 4): the port on the CPU (plain
              versions) against the port on the GPU (kernels);
 5. main      the full spectral TOMS solve through K1-K4: launch counts,
@@ -44,7 +48,21 @@ phases:
              K12 against the plain path and the plain path on the CPU, the
              user-defined criterion of
              ``examples/example_convergence_criterion.py`` against its
-             golden, and the Brusselator (K13) against its golden.
+             golden, and the Brusselator (K13) against its golden;
+11. gray_scott ``examples/at_mgrit/example_at_mgrit_gray_scott.py`` at 128^2,
+             nt = 2^14 + 1 (AtMgrit(k=8) through K10 with its species axis and
+             Gray-Scott prologue), the demo's Parareal run against the
+             sequential fine march through K10, IMPL (K10 + K14 in
+             Newton-BiCGStab) and EXPL (K14), each against the plain path;
+12. burgers  ``examples/example_burgers.py`` (K16) against its JAX golden, a
+             deep Burgers1D grid (K16 on 256 lanes), Burgers2D at 64^2 (K15 +
+             K10), kernels against plain;
+13. advection ``examples/example_advection.py`` (K17) against its JAX golden,
+             a deep grid (K17 on 4096 lanes), kernels against plain.
+
+``python3 chip_smoke.py --profile`` runs phases 1-2 and then one profiled
+solve of each configuration of phases 11-13 (``torch.profiler``): device
+busy and idle share, the leading device ops, launches and syncs.
 
 Each phase prints one line (phase 3 one per case); any failure raises and
 exits non-zero.  The line before the last is the card again; the last line
@@ -138,6 +156,51 @@ AC_KERNELS = {"IMEX": ("periodic_solve2d",), "IMPL": ("periodic_solve2d", "allen
               "CN": ("periodic_solve2d", "allen_cahn_pointwise")}
 SPECTRAL_KERNELS = ("interval_affine", "theta_chain", "residual_row_norms", "cpoint_combine")
 COARSEST_KERNELS = ("affine_prefix", "affine_windows")
+# examples/at_mgrit/example_at_mgrit_gray_scott.py at the reference's width
+# and depth (its comments: NX 128, NT 2**14): IMEX on [0, 8], three levels
+# 16385 / 1025 / 257 (coarsening 16/4), AtMgrit(k=8), tol 1e-7, capped at
+# max_iter iterations; IMPL (Newton-BiCGStab) on a short horizon; EXPL on a
+# grid stable on every level (coarsest dt 0.25 <= dx^2 / (8 du) = 0.38)
+GS_AT = dict(nx=128, method="IMEX", t_stop=8.0, nt=2 ** 14 + 1, ms=(16, 4), k=8, tol=1e-7,
+             max_iter=12)
+GS_IMPL = dict(nx=128, method="IMPL", t_stop=8.0, nt=33, ms=(4,), tol=1e-7, max_iter=10)
+GS_EXPL = dict(nx=128, method="EXPL", t_stop=8.0, nt=513, ms=(4, 4), tol=1e-7, max_iter=10)
+GS_COEF = dict(du=8e-5, dv=4e-5, a=0.024, b=0.084)      # GrayScott2D's defaults
+# the demo's Parareal run (two levels, cf_iter = 0) at the same size, whose
+# C-points are held against the sequential march
+GS_PARAREAL = dict(GS_AT, ms=(16,), max_iter=10)
+# examples/example_burgers.py (Burgers1D nx = 128, nu = 0.02, nt = 65, m = 4,
+# tol 1e-8) and its history from the JAX package on the CPU (float64,
+# measured when this phase was written); a deeper Burgers1D grid whose level
+# 0 runs K16 on 256 lanes; Burgers2D at the JAX default nx = 64
+BURGERS_EX = dict(nx=128, nu=0.02, t_stop=1.0, nt=65, ms=(4,), tol=1e-8, max_iter=100)
+BURGERS_GOLDEN = np.array([0.026734549894857684, 0.001919905812316594, 0.00010347363345991814,
+                           4.867841252871992e-06, 2.929102166993383e-07, 1.0581693788509958e-08,
+                           1.164493119669576e-10])
+BURGERS_DEEP = dict(nx=128, nu=0.02, t_stop=1.0, nt=4097, ms=(16, 16), tol=1e-8, max_iter=10)
+BURGERS_2D = dict(nx=64, nu=0.05, t_stop=0.5, nt=17, ms=(4,), tol=1e-8, max_iter=10)
+# examples/example_advection.py (nx = 129, nt 129 / 65, FCF, no nested
+# iteration, tol 1e-7) and its JAX history (CPU, float64); a deeper grid
+# whose level 0 runs K17 on 4096 lanes
+ADVECTION_EX = dict(nx=129, nt=129, ms=(2,), tol=1e-7, max_iter=100)
+ADVECTION_GOLDEN = np.array([0.037335188578707254, 0.003945783784051717, 0.0006657546923948921,
+                             0.00014133471106459255, 3.1165050341693756e-05,
+                             6.834139864526759e-06, 1.4709941457482217e-06,
+                             3.0733746503941436e-07, 6.176127206792768e-08])
+ADVECTION_DEEP = dict(nx=129, nt=2 ** 14 + 1, ms=(4, 4, 4), tol=1e-7, max_iter=10)
+# a model's history against the JAX package's: rtol 1e-8 with the float64
+# floor (the two packages round their solves differently)
+GOLDEN_RTOL = 1e-8
+SLICE_KERNELS = {"gray_scott": {"IMEX": ("periodic_solve2d",),
+                                "IMPL": ("periodic_solve2d", "gray_scott_pointwise"),
+                                "EXPL": ("gray_scott_pointwise",)},
+                 "Burgers1D": ("burgers1d_newton",),
+                 "Burgers2D": ("periodic_solve2d", "burgers2d_pointwise"),
+                 "Advection1D": ("circulant_solve1d",)}
+# H100 SXM at 700 W (NVIDIA's data sheet): HBM bytes/s and the peak rates of
+# the units the kernels use (FP64 and FP32 outside the tensor cores)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"float64": 34e12, "float32": 67e12}
 
 
 def fail(msg):
@@ -259,7 +322,7 @@ def cuda_ms(fn, reps=20, budget_ms=1000.0):
     return float(np.median(times))
 
 
-def kernel_cases(dtype, dev):
+def kernel_cases(dtype, dev, stash):
     """(kernel, case, run(ops) -> output tensor) at the main paths' shapes:
     N = 127^2 coefficients and J = 512 level-0 intervals (K1), level-1
     F-relaxation J = 32, L = 15 and the coarsest solve J = 1, L = 2 (K2),
@@ -285,8 +348,10 @@ def kernel_cases(dtype, dev):
     # K1 interval_affine: tables (T, N), T = m-1 (F-sweep, materialize) and
     # T = m (condensed C-step); the seeds are the level-0 C-rows.
     seeds = t(rng.uniform(-1, 1, (J, N)))
+    A_by_T = {}
     for T in (m0 - 1, m0):
         A, G = t(rng.uniform(0, 1, (T, N))), t(rng.uniform(-1, 1, (T, N)))
+        A_by_T[T] = (A, G)
 
         def row_major(k, A=A, G=G, T=T):
             out = torch.empty((T, J, N), dtype=dtype, device=dev)
@@ -437,7 +502,14 @@ def kernel_cases(dtype, dev):
     cases += [("theta_rhs2d", f"BE B={J}", k7(1.0, dt0)), ("theta_rhs2d", f"CN B={J}", k7(0.5, dt0)),
               ("theta_rhs2d", f"FE B={J} +g", k7(0.0, dt0)),
               ("theta_rhs2d", f"CN B={J} dt tensor", k7(0.5, shifts))]
-    return cases + coarsest_cases(dtype, dev, rng, lam) + nonlinear_cases(dtype, dev, rng)
+    # one PyTorch call that computes the same function, timed beside K1's
+    # and K3's headline cases (no other kernel of the path has one)
+    A31, G31 = A_by_T[m0 - 1]
+    stash[("library", "interval_affine")] = lambda: torch.addcmul(G31, seeds_c[:J, None], A31)
+    stash[("library", "residual_row_norms")] = lambda: torch.linalg.vector_norm(a[1:] - b[:J],
+                                                                                dim=1)
+    return (cases + coarsest_cases(dtype, dev, rng, lam) + nonlinear_cases(dtype, dev, rng, stash)
+            + slice_cases(dtype, dev, rng, stash))
 
 
 def coarsest_cases(dtype, dev, rng, lam):
@@ -482,7 +554,7 @@ def coarsest_cases(dtype, dev, rng, lam):
     return cases
 
 
-def nonlinear_cases(dtype, dev, rng):
+def nonlinear_cases(dtype, dev, rng, stash):
     """K10-K13 at the shapes of phases 9 and 10, and odd ones.  K10: the
     bench row's level-0 IMEX step (512 states of 128^2 from C-rows into a
     strided tube view), its level-1 F-step (64 states, + g) and coarsest
@@ -565,7 +637,11 @@ def nonlinear_cases(dtype, dev, rng):
 
         def run(ops):
             out = torch.empty((J, L + 1, 4), dtype=dtype, device=dev)[:, 1:]
-            return ops.dopri45_arenstorf(seeds, tp, tc, out).clone()
+            att = torch.zeros((L, J), dtype=torch.int32, device=dev)
+            ops.dopri45_arenstorf(seeds, tp, tc, out, attempts=att)
+            if ops is DISPATCH:
+                stash[("dopri45_arenstorf", J, L)] = int(att.sum())
+            return out.clone()
         return run
 
     L8 = 8
@@ -599,6 +675,217 @@ def nonlinear_cases(dtype, dev, rng):
     return cases
 
 
+def slice_cases(dtype, dev, rng, stash):
+    """K10's species axis and K14-K17 at the shapes of the [gray_scott],
+    [burgers] and [advection] phases.  K10: the AT run's level-0 IMEX step
+    (1024 Gray-Scott pairs of 128^2 from C-rows into a strided tube view, the
+    Gray-Scott prologue, one coefficient per species), the IMPL
+    preconditioner (8 pairs) and Burgers2D's (4 pairs of 64^2, coefficient
+    nu on both).  K14: the IMPL level-0 lanes (8 pairs) in the residual and
+    Jacobian modes, the EXPL level-0 step (128 pairs + g).  K15: Burgers2D's
+    4 lanes of 64^2.  K16: the deep Burgers1D level-0 F-relaxation (256
+    lanes x 15 steps + g) and the example's (16 x 3).  K17: the deep
+    advection level-0 F-relaxation (4096 lanes x 3 steps + g), the example's
+    (64 x 1), and 4096 lanes with c < -1/2 (the kernel's second branch)."""
+    import torch
+    from pymgrit_tpu_torch.ops import DISPATCH
+    from pymgrit_tpu_torch.ops.periodic import hartley_basis, periodic_lap_eigs
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+
+    def table(n, dx):
+        return t(hartley_basis(n)), t(-periodic_lap_eigs(n, dx))
+
+    cases = []
+    n = GS_AT["nx"]
+    dx_gs = 2.0 / n
+    H, lam = table(n, dx_gs)
+    coef_gs = t([GS_COEF["du"], GS_COEF["dv"]])
+    J0 = (GS_AT["nt"] - 1) // GS_AT["ms"][0]
+    dt0 = GS_AT["t_stop"] / (GS_AT["nt"] - 1)
+    dt_impl = GS_IMPL["t_stop"] / (GS_IMPL["nt"] - 1)
+    nb = BURGERS_2D["nx"]
+    Hb, lamb = table(nb, 1.0 / nb)
+    dt_b2 = BURGERS_2D["t_stop"] / (BURGERS_2D["nt"] - 1)
+    B2 = (BURGERS_2D["nt"] - 1) // BURGERS_2D["ms"][0]
+
+    def pairs(B, side, lo=0.0, hi=1.0):
+        return t(rng.uniform(lo, hi, (B + 1, 2, side, side)))
+
+    def k10(B, side, step, gray_scott, H_, lam_, coef):
+        seeds = pairs(B, side)
+        shift = t(np.full(B, step))
+
+        def run(ops):
+            out = torch.empty((B, 2, 2, side, side), dtype=dtype, device=dev)[:, 1]
+            return ops.periodic_solve2d(seeds[:B], out, H_, lam_, shift, coef=coef,
+                                        gray_scott=gray_scott).clone()
+        return run
+
+    gs_ab = (GS_COEF["a"], GS_COEF["b"])
+    cases += [("periodic_solve2d", f"Gray-Scott IMEX B={J0} S=2 n={n}",
+               k10(J0, n, dt0, gs_ab, H, lam, coef_gs)),
+              ("periodic_solve2d", f"Gray-Scott precond B=8 S=2 n={n}",
+               k10(8, n, dt_impl, None, H, lam, coef_gs)),
+              ("periodic_solve2d", f"Burgers2D precond B={B2} S=2 n={nb}",
+               k10(B2, nb, dt_b2, None, Hb, lamb, t([BURGERS_2D["nu"]] * 2)))]
+
+    def k14(mode, B, step, with_g):
+        s_ = pairs(2 * B, n)[::2][:B]
+        w = pairs(B, n, -1.0, 1.0)[:B]
+        dt = t(np.full(B, step))
+
+        def run(ops):
+            out = torch.empty((B, 2, n, n), dtype=dtype, device=dev)
+            r = ops.gray_scott_pointwise(mode, s_, out, dt, GS_COEF["du"], GS_COEF["dv"],
+                                         GS_COEF["a"], GS_COEF["b"], dx_gs ** 2, w=w,
+                                         r=w if mode == "residual" else None,
+                                         g=w * 1e-3 if with_g else None)
+            return torch.cat([r[0].flatten(), r[1]]) if mode == "residual" else r
+        return run
+
+    J_expl = (GS_EXPL["nt"] - 1) // GS_EXPL["ms"][0]
+    dt_expl = GS_EXPL["t_stop"] / (GS_EXPL["nt"] - 1)
+    cases += [("gray_scott_pointwise", f"jacobian B=8 n={n}", k14("jacobian", 8, dt_impl, False)),
+              ("gray_scott_pointwise", f"residual B=8 n={n}", k14("residual", 8, dt_impl, False)),
+              ("gray_scott_pointwise", f"EXPL B={J_expl} n={n} +g",
+               k14("expl", J_expl, dt_expl, True))]
+
+    def k15(mode):
+        s_ = pairs(B2, nb, -1.0, 1.0)[:B2]
+        w = pairs(B2, nb, -1.0, 1.0)[1:]
+        dt = t(np.full(B2, dt_b2))
+
+        def run(ops):
+            out = torch.empty((B2, 2, nb, nb), dtype=dtype, device=dev)
+            r = ops.burgers2d_pointwise(mode, s_, out, dt, BURGERS_2D["nu"], 1.0 / nb, w=w,
+                                        r=w if mode == "residual" else None)
+            return torch.cat([r[0].flatten(), r[1]]) if mode == "residual" else r
+        return run
+
+    cases += [("burgers2d_pointwise", f"jacobian B={B2} n={nb}", k15("jacobian")),
+              ("burgers2d_pointwise", f"residual B={B2} n={nb}", k15("residual"))]
+
+    def k16(cfg, J, L, with_g):
+        x1 = np.linspace(0, 1, cfg["nx"], endpoint=False)
+        seeds = t(np.sin(2 * np.pi * x1) * rng.uniform(0.8, 1.2, (J, 1)))
+        g = t(rng.uniform(-1e-3, 1e-3, (J, L, cfg["nx"]))) if with_g else None
+        dts = t(np.full((L, J), cfg["t_stop"] / (cfg["nt"] - 1)))
+        # float32 cannot reach the float64 Newton tolerance: a fixed count
+        tol, maxiter = (1e-12, 30) if dtype == torch.float64 else (0.0, 4)
+
+        def run(ops):
+            out = torch.empty((J, L + 1, cfg["nx"]), dtype=dtype, device=dev)[:, 1:]
+            iters = torch.zeros((L, J), dtype=torch.int32, device=dev)
+            ops.burgers1d_newton(seeds, dts, out, g, cfg["nu"], 1.0 / cfg["nx"], tol, maxiter,
+                                 iters)
+            if ops is DISPATCH:
+                stash[("burgers1d_newton", J, L)] = int(iters.sum())
+            return torch.cat([out.flatten(), iters.flatten().to(dtype)])
+        return run
+
+    md, me = BURGERS_DEEP["ms"][0], BURGERS_EX["ms"][0]
+    Jd, Je = (BURGERS_DEEP["nt"] - 1) // md, (BURGERS_EX["nt"] - 1) // me
+    cases += [("burgers1d_newton", f"deep level-0 F-relax J={Jd} L={md - 1} +g",
+               k16(BURGERS_DEEP, Jd, md - 1, True)),
+              ("burgers1d_newton", f"example level-0 F-relax J={Je} L={me - 1}",
+               k16(BURGERS_EX, Je, me - 1, False))]
+
+    xa = np.linspace(-1, 1, ADVECTION_DEEP["nx"])[:-1]
+    fac = 1.0 / (xa[1] - xa[0])
+
+    def k17(J, L, step, sign, with_g):
+        seeds = t(np.exp(-xa ** 2) * rng.uniform(0.5, 1.5, (J, 1)))
+        g = t(rng.uniform(-1e-3, 1e-3, (J, L, xa.size))) if with_g else None
+        dts = t(np.full((L, J), step))
+
+        def run(ops):
+            out = torch.empty((J, L + 1, xa.size), dtype=dtype, device=dev)[:, 1:]
+            return ops.circulant_solve1d(seeds, dts, out, g, sign * fac).clone()
+        return run
+
+    ma = ADVECTION_DEEP["ms"][0]
+    Ja = (ADVECTION_DEEP["nt"] - 1) // ma
+    dta = 2.0 / (ADVECTION_DEEP["nt"] - 1)
+    cases += [("circulant_solve1d", f"deep level-0 F-relax J={Ja} L={ma - 1} +g",
+               k17(Ja, ma - 1, dta, 1.0, True)),
+              ("circulant_solve1d", "example level-0 F-relax J=64 L=1",
+               k17(64, 1, 2.0 / 128, 1.0, False)),
+              ("circulant_solve1d", f"c<-1/2 J={Ja} L={ma - 1}",
+               k17(Ja, ma - 1, 0.05, -1.0, False))]
+    return cases
+
+
+def headline_work(kernel, stash):
+    """(bytes, operations) of a kernel's headline case in float64: each
+    input read once and each output written once; the operations the
+    kernel's arithmetic does on these inputs (a multiply-add counts two;
+    K12's attempts and K16's Newton iterations are those of this run, which
+    the cases record in ``stash``)."""
+    n, m0 = TOMS["nx"] - 2, TOMS["ms"][0]
+    N, J, T = n * n, (TOMS["nt"] - 1) // m0, m0 - 1
+    J1, L1 = J // TOMS["ms"][1], TOMS["ms"][1] - 1
+    P2 = (n + 2) ** 2
+    if kernel == "interval_affine":        # materialize: seeds, A, G -> J x m0 rows
+        return 8 * (J * N + 2 * T * N + J * m0 * N), 2 * J * T * N
+    if kernel == "theta_chain":            # BE level-1 F-relax + g: 8 operations an entry
+        return 8 * (J1 * N + L1 * J1 + 3 * N + 2 * J1 * L1 * N), 8 * J1 * L1 * N
+    if kernel == "residual_row_norms":
+        return 8 * (2 * J * N + J), 3 * J * N + J
+    if kernel == "cpoint_combine":         # three terms
+        return 8 * 4 * J * N, 5 * J * N
+    if kernel == "sine_solve2d":           # four length-n products a state, the divide
+        return 8 * (J * N + J * P2 + 3 * N + P2), J * (8 * n ** 3 + 3 * N)
+    if kernel == "sine_affine2d":          # materialize: T transforms of J states
+        return 8 * (J * N + 2 * T * N + 2 * N + J * P2 + J * m0 * P2), J * T * (4 * n ** 3 + 2 * N)
+    if kernel == "theta_rhs2d":            # BE: u + dt r1 + dt lift
+        return 8 * (J * P2 + 2 * N + J * N), 5 * J * N
+    if kernel in ("affine_prefix", "affine_windows"):
+        nt_h = (TOMS2["nt"] - 1) // TOMS2["ms"][0] + 1
+        steps = nt_h - 1 if kernel == "affine_prefix" else sum(min(p, TOMS2_AT_K - 1)
+                                                               for p in range(nt_h))
+        return 8 * (2 * N + N + 2 * nt_h * N), 3 * steps * N
+    if kernel == "periodic_solve2d":       # Allen-Cahn IMEX B=512 n=128
+        nn, B = AC_BENCH["nx"], (AC_BENCH["nt"] - 1) // AC_BENCH["ms"][0]
+        return 8 * (2 * B * nn ** 2 + 2 * nn ** 2 + B), B * (8 * nn ** 3 + 10 * nn ** 2)
+    if kernel == "allen_cahn_pointwise":   # jacobian B=8 n=128
+        nn = AC_IMPL["nx"]
+        return 8 * (3 * 8 * nn ** 2 + 8), 15 * 8 * nn ** 2
+    if kernel == "dopri45_arenstorf":      # ~300 operations an attempt (7 stages)
+        Ja, L = (ARENSTORF["nt"] - 1) // ARENSTORF["m"], 8
+        return 8 * (Ja * 4 + 2 * L * Ja + Ja * L * 4), 300 * stash[(kernel, Ja, L)]
+    if kernel == "rk4_brusselator":        # four stages, ~70 operations a step
+        Jb, L = (BRUSSELATOR["nt"] - 1) // BRUSSELATOR["m"], BRUSSELATOR["m"] - 1
+        return 8 * (2 * Jb + 2 * L * Jb + 2 * 2 * Jb * L), 70 * Jb * L
+    if kernel == "gray_scott_pointwise":   # jacobian B=8 n=128: s, w in, out
+        nn = GS_IMPL["nx"]
+        return 8 * (3 * 8 * 2 * nn ** 2 + 8 + 5), 40 * 8 * nn ** 2
+    if kernel == "burgers2d_pointwise":    # jacobian B=4 n=64
+        nn, B = BURGERS_2D["nx"], (BURGERS_2D["nt"] - 1) // BURGERS_2D["ms"][0]
+        return 8 * (3 * B * 2 * nn ** 2 + B + 3), 50 * B * nn ** 2
+    if kernel == "burgers1d_newton":       # LU 2/3 n^3 + assembly, solve per iteration
+        nn, m = BURGERS_DEEP["nx"], BURGERS_DEEP["ms"][0]
+        Jd, L = (BURGERS_DEEP["nt"] - 1) // m, m - 1
+        its = stash[(kernel, Jd, L)]
+        return (8 * (Jd * nn + L * Jd + 2 * Jd * L * nn),
+                its * (2 * nn ** 3 // 3 + 6 * nn ** 2) + Jd * L * 12 * nn)
+    if kernel == "circulant_solve1d":      # n^2 multiply-adds and n powers a step
+        nn, m = ADVECTION_DEEP["nx"] - 1, ADVECTION_DEEP["ms"][0]
+        Ja, L = (ADVECTION_DEEP["nt"] - 1) // m, m - 1
+        return 8 * (Ja * nn + L * Ja + 2 * Ja * L * nn), Ja * L * (2 * nn ** 2 + 20 * nn)
+    raise KeyError(kernel)
+
+
+def bound_ms(kernel, stash):
+    """The least time the card could take for the headline case: the larger
+    of its bytes over the HBM rate and its operations over the FP64 peak
+    (outside the tensor cores, which no kernel here uses); (ms, which)."""
+    nbytes, ops = headline_work(kernel, stash)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S["float64"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def phase_kernels():
     """Every kernel against its plain version; returns the per-kernel rows
     of the JSON summary (float64, the main path's dtype)."""
@@ -613,11 +900,13 @@ def phase_kernels():
                 "theta_rhs2d": "BE B=512", "affine_prefix": "TOMS",
                 "affine_windows": "TOMS", "periodic_solve2d": "IMEX B=512 n=128",
                 "allen_cahn_pointwise": "jacobian B=8", "dopri45_arenstorf": "level-0 F-relax",
-                "rk4_brusselator": "level-0 F-relax"}
-    rows = {}
+                "rk4_brusselator": "level-0 F-relax", "gray_scott_pointwise": "jacobian B=8",
+                "burgers2d_pointwise": "jacobian B=4", "burgers1d_newton": "deep level-0",
+                "circulant_solve1d": "deep level-0"}
+    rows, stash = {}, {}
     for dtype in (torch.float64, torch.float32):
         dname = str(dtype).split(".")[-1]
-        for kernel, case, run in kernel_cases(dtype, dev):
+        for kernel, case, run in kernel_cases(dtype, dev, stash):
             out_k = run(DISPATCH)
             torch.cuda.synchronize()
             out_p = run(PLAIN)
@@ -634,7 +923,15 @@ def phase_kernels():
                   f"plain {ms_p:.4f} ms | {'ok' if ok else 'FAIL'}")
             check(ok, f"{kernel} {case} {dname}: rel err {rel:.3e} > {tol:.0e}")
             if dtype == torch.float64 and kernel not in rows and case.startswith(headline[kernel]):
-                rows[kernel] = dict(max_abs_err=abs_err, ms=ms_k, plain_ms=ms_p)
+                b_ms, b_by = bound_ms(kernel, stash)
+                lib = stash.get(("library", kernel))
+                lib_ms = cuda_ms(lib) if lib is not None else None
+                rows[kernel] = dict(max_abs_err=abs_err, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
+                                    bound_by=b_by, library_ms=lib_ms)
+                print(f"[kernels] {kernel:<20} headline: bound {b_ms:.4f} ms ({b_by}; "
+                      f"{headline_work(kernel, stash)[0] / 1e6:.3f} MB, "
+                      f"{headline_work(kernel, stash)[1] / 1e9:.4f} GFLOP) | library call "
+                      + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none"))
         torch.cuda.empty_cache()
     return rows
 
@@ -907,10 +1204,12 @@ def strategy(P, name, problem, k, **kw):
     return P.Mgrit(problem=problem, logging_lvl=30, coarsest_prefix=name == "prefix", **kw)
 
 
-def strategy_runs(P, build, name, k, warm=False, **kw):
+def strategy_runs(P, build, name, k, warm=False, order=("plain", "kernel", "kernel", "plain"),
+                  **kw):
     """Fresh solves of one strategy in turns plain, kernel, kernel, plain
-    (setup excluded from the walls), after one untimed kernel solve if warm
-    (Triton specialises its kernels on new shapes at their first launch).
+    (or the given order; setup excluded from the walls), after one untimed
+    kernel solve if warm (Triton specialises its kernels on new shapes at
+    their first launch).
     The first timed kernel run is the path's run: the launch counts are set
     to 0 before its setup and read after its solve, with its peak device
     memory above what was allocated before it; its solver is kept.  Returns
@@ -922,7 +1221,7 @@ def strategy_runs(P, build, name, k, warm=False, **kw):
     if warm:
         strategy(P, name, build(DISPATCH), k, **kw).solve_compiled()
         torch.cuda.empty_cache()
-    for path in ("plain", "kernel", "kernel", "plain"):
+    for path in order:
         first = path == "kernel" and counts is None
         torch.cuda.synchronize()
         if first:
@@ -1294,6 +1593,270 @@ def phase_ode(card):
     return counts, counts_b
 
 
+def level_problems(P, model, cfg, ops, device=None, **model_kw):
+    """A model's hierarchy: level 0 on [0, t_stop] with nt points, each
+    coarser level every ms[l]-th point of the one above."""
+    cls, device = getattr(P, model), device or DEVICE
+    p0 = cls(t_start=0, t_stop=cfg["t_stop"], nt=cfg["nt"], device=device, ops=ops, **model_kw)
+    problem, stride = [p0], 1
+    for m in cfg["ms"]:
+        stride *= m
+        problem.append(cls(t_interval=p0.t[::stride], device=device, ops=ops, **model_kw))
+    return problem
+
+
+def slice_run(P, card, label, model, cfg, want, name="scan", k=0, order=None, solver_kw=None,
+              **model_kw):
+    """One configuration of the slice's models, kernels against plain on the
+    card: launches of the first kernel run (every kernel of ``want``
+    launched), the history against the plain path at rtol 1e-9 with the
+    floor of four length-n products per step, walls, peak memory.  Returns
+    (kernel history, launch counts, kept kernel solver)."""
+    import torch
+    kw = dict(tol=cfg["tol"], max_iter=cfg["max_iter"], **(solver_kw or {}))
+    walls, hists, counts, peak, mg = strategy_runs(
+        P, lambda ops: level_problems(P, model, cfg, ops, **model_kw), name, k,
+        order=order or ("plain", "kernel", "kernel", "plain"), **kw)
+    hk, hp = hists["kernel"], hists["plain"]
+    floor = residual_floor(mg, 4 * math.sqrt(cfg.get("nx", 128)) + FLOOR_OPS)
+    ok, err = histories_agree(hk, hp, floor, MAIN_RTOL)
+    tube = mg.u[0]
+    phase, what = label.split(" ", 1)
+    print(f"[{phase}] {what} nt={cfg['nt']} ms={cfg['ms']} f64: {hk.size} iterations, "
+          f"history {[float(f'{h:.6e}') for h in hk]} | kernel vs plain (GPU) max diff {err:.3e} "
+          f"(rtol {MAIN_RTOL:.0e}, atol floor {floor:.2e}) | launches "
+          f"{json.dumps({c: counts[c] for c in counts if counts[c]})} | solve wall "
+          f"{fmt_walls(walls)} "
+          f"| peak device memory {peak:.3f} GiB | {'ok' if ok else 'FAIL'} | {card}")
+    check(all(counts[c] > 0 for c in want), f"{label}: a kernel of the path never ran: {counts}")
+    check(bool(torch.isfinite(tube).all()), f"{label}: non-finite values in the tube")
+    check(ok, f"{label}: kernel history {hk} differs from the plain history {hp}")
+    return hk, counts, mg
+
+
+def newton_stats(mg):
+    """Newton (and BiCGStab) counts per level of a kept solver's problems."""
+    out = []
+    for p in mg.problem:
+        if hasattr(p, "stats"):
+            out.append({k: p.stats[k] for k in ("steps", "newton", "bicgstab", "newton_max",
+                                                "bicgstab_max")})
+        else:
+            out.append(dict(steps=p.steps, newton=int(p.newton_iters),
+                            newton_max=int(p.newton_max)))
+    return out
+
+
+def phase_gray_scott(card):
+    """The AT-MGRIT Gray-Scott demo at the reference's size (K10 with the
+    species axis and the Gray-Scott prologue) and the demo's Parareal run,
+    whose C-points are held against the sequential fine march through K10;
+    IMPL (K10 + K14 in Newton-BiCGStab) and EXPL (K14)."""
+    import torch
+    import pymgrit_tpu_torch as P
+    cfg = GS_AT
+    gs = dict(nx=cfg["nx"], method="IMEX")
+    want = SLICE_KERNELS["gray_scott"]["IMEX"]
+    h_at, counts_at, mg = slice_run(P, card, f"gray_scott AtMgrit(k={cfg['k']}) {cfg['nx']}^2 IMEX",
+                                    "GrayScott2D", cfg, want, name="at", k=cfg["k"], **gs)
+    check(counts_at["gray_scott_pointwise"] == 0,
+          f"gray_scott: K14 ran on the IMEX path: {counts_at}")
+    check(bool(np.all(np.diff(h_at) < 0)), f"gray_scott: AT history not decreasing: {h_at}")
+    u_at = mg.u[0]
+    del mg
+    h_pr, _, mg = slice_run(P, card, f"gray_scott Parareal {cfg['nx']}^2 IMEX", "GrayScott2D",
+                            dict(GS_PARAREAL), want, order=("plain", "kernel"),
+                            solver_kw=dict(cf_iter=0), **gs)
+    # the sequential march (the example's run_ts) through K10, one launch a step
+    p0, nt = mg.problem[0], cfg["nt"]
+    march = torch.empty((1, nt - 1) + tuple(p0.vector_t_start.shape), dtype=torch.float64,
+                        device=p0.vector_t_start.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p0.step_chain(p0.vector_t_start[None], p0.t[:-1, None], p0.t[1:, None], march)
+    torch.cuda.synchronize()
+    march_wall = time.perf_counter() - t0
+    cpts = torch.as_tensor(mg.levels[0].cpts[1:], device=march.device)
+    err = float((mg.u[0][cpts] - march[0, cpts - 1]).abs().max())
+    err_at = float((u_at[cpts] - march[0, cpts - 1]).abs().max())
+    # a C-point's error is at most the sum of the residuals of the C-points
+    # before it, each amplified by the steps after it: the sum is at most
+    # sqrt(nc - 1) ||r||_2; the implicit diffusion does not amplify, the
+    # reaction by at most e^(lip t_end), lip the row-sum norm of its Jacobian
+    # [[-v^2 - a, -2uv], [v^2, 2uv - b]] on the march's C-point states
+    nc = cpts.numel() + 1
+    uc, vc = march[0, cpts - 1, 0], march[0, cpts - 1, 1]
+    lip = float((vc * vc + 2 * (uc * vc).abs()).max()) + GS_COEF["a"] + GS_COEF["b"]
+    bound = math.sqrt(nc - 1) * h_pr[-1] * math.exp(lip * cfg["t_stop"]) \
+        + nt * float(torch.finfo(torch.float64).eps)
+    print(f"[gray_scott] C-points vs the sequential {nt - 1}-step march (K10, {march_wall:.2f} s): "
+          f"Parareal max err {err:.3e} (bound {bound:.3e}); AtMgrit after {h_at.size} iterations "
+          f"max err {err_at:.3e} | {'ok' if err <= bound else 'FAIL'}")
+    check(h_pr[-1] < cfg["tol"], f"gray_scott: Parareal history {h_pr}")
+    check(err <= bound, f"gray_scott: C-points differ from the march by {err:.3e} > {bound:.3e}")
+    del mg, march, u_at
+    torch.cuda.empty_cache()
+    out = {"IMEX": counts_at}
+    for cfg_m in (GS_IMPL, GS_EXPL):
+        method = cfg_m["method"]
+        h, out[method], mg = slice_run(
+            P, card, f"gray_scott {method} {cfg_m['nx']}^2", "GrayScott2D", cfg_m,
+            SLICE_KERNELS["gray_scott"][method], order=("plain", "kernel"), nx=cfg_m["nx"],
+            method=method)
+        if method == "IMPL":
+            print(f"[gray_scott] IMPL Newton-BiCGStab per level (first kernel solve): "
+                  f"{json.dumps(newton_stats(mg))}")
+        check(method != "EXPL" or out[method]["periodic_solve2d"] == 0,
+              f"gray_scott: K10 ran on the EXPL path: {out[method]}")
+        check(mg.conv[mg.solve_iter] < cfg_m["tol"], f"gray_scott {method}: history {h}")
+        del mg
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_burgers(card):
+    """examples/example_burgers.py against its JAX golden, a deeper
+    Burgers1D grid (K16 on 256 lanes a launch), Burgers2D at nx = 64."""
+    import torch
+    import pymgrit_tpu_torch as P
+    from pymgrit_tpu_torch.ops import DISPATCH, launch_counts, reset_launch_counts
+    cfg = BURGERS_EX
+    reset_launch_counts()
+    mg = P.Mgrit(problem=level_problems(P, "Burgers1D", cfg, DISPATCH, nx=cfg["nx"], nu=cfg["nu"]),
+                 tol=cfg["tol"], logging_lvl=30)
+    h = mg.solve()["conv"]
+    counts = launch_counts()
+    floor = residual_floor(mg)
+    ok, err = histories_agree(h, BURGERS_GOLDEN, floor, GOLDEN_RTOL)
+    print(f"[burgers] example Burgers1D nx={cfg['nx']} nu={cfg['nu']} nt={cfg['nt']} m=4 f64: "
+          f"history {[float(x) for x in h]}; vs the JAX golden max diff {err:.3e} "
+          f"(rtol {GOLDEN_RTOL:.0e}, atol "
+          f"floor {floor:.2e}); Newton per level {json.dumps(newton_stats(mg))}; K16 launches "
+          f"{counts['burgers1d_newton']} | {'ok' if ok else 'FAIL'}")
+    check(counts["burgers1d_newton"] > 0, f"burgers: K16 never ran: {counts}")
+    check(ok, f"burgers: example history {h} differs from the golden {BURGERS_GOLDEN}")
+    del mg
+    cfg = BURGERS_DEEP
+    _, counts_1d, mg = slice_run(P, card, f"burgers Burgers1D nx={cfg['nx']}", "Burgers1D", cfg,
+                                 SLICE_KERNELS["Burgers1D"], nx=cfg["nx"], nu=cfg["nu"])
+    print(f"[burgers] Burgers1D deep Newton per level (first kernel solve): "
+          f"{json.dumps(newton_stats(mg))}")
+    del mg
+    cfg = BURGERS_2D
+    h2, counts_2d, mg = slice_run(P, card, f"burgers Burgers2D nx={cfg['nx']}", "Burgers2D", cfg,
+                                  SLICE_KERNELS["Burgers2D"], order=("plain", "kernel"),
+                                  nx=cfg["nx"], nu=cfg["nu"])
+    print(f"[burgers] Burgers2D Newton-BiCGStab per level (first kernel solve): "
+          f"{json.dumps(newton_stats(mg))}")
+    check(mg.conv[mg.solve_iter] < cfg["tol"], f"burgers 2D: history {h2}")
+    del mg
+    torch.cuda.empty_cache()
+    return counts_1d, counts_2d
+
+
+def phase_advection(card):
+    """examples/example_advection.py against its JAX golden, and a deeper
+    grid whose level 0 runs K17 on 4096 lanes a launch."""
+    import torch
+    import pymgrit_tpu_torch as P
+    from pymgrit_tpu_torch.ops import DISPATCH, launch_counts, reset_launch_counts
+    cfg = ADVECTION_EX
+    reset_launch_counts()
+    problem = [P.Advection1D(c=1, x_start=-1, x_end=1, nx=cfg["nx"], t_start=0, t_stop=2, nt=nt,
+                             device=DEVICE, ops=DISPATCH)
+               for nt in (cfg["nt"], (cfg["nt"] + 1) // 2)]
+    mg = P.Mgrit(problem=problem, cf_iter=1, nested_iteration=False, logging_lvl=30)
+    h = mg.solve()["conv"]
+    counts = launch_counts()
+    floor = residual_floor(mg)
+    ok, err = histories_agree(h, ADVECTION_GOLDEN, floor, GOLDEN_RTOL)
+    print(f"[advection] example nx={cfg['nx']} nt={cfg['nt']}/65 FCF f64: history "
+          f"{[float(x) for x in h]}; vs the "
+          f"JAX golden max diff {err:.3e} (rtol {GOLDEN_RTOL:.0e}, atol floor {floor:.2e}); K17 "
+          f"launches {counts['circulant_solve1d']} | {'ok' if ok else 'FAIL'}")
+    check(counts["circulant_solve1d"] > 0, f"advection: K17 never ran: {counts}")
+    check(ok, f"advection: example history {h} differs from the golden {ADVECTION_GOLDEN}")
+    del mg
+    cfg = dict(ADVECTION_DEEP, t_stop=2.0)
+    _, counts_deep, mg = slice_run(P, card, f"advection nx={cfg['nx']}", "Advection1D", cfg,
+                                   SLICE_KERNELS["Advection1D"], c=1, x_start=-1, x_end=1,
+                                   nx=cfg["nx"])
+    del mg
+    torch.cuda.empty_cache()
+    return counts_deep
+
+
+def profile_cells(card):
+    """``--profile``: one profiled kernel-path solve of each cell of the
+    periodic models (after one untimed solve of the same configuration),
+    torch.profiler with CPU and CUDA activities: the profiled wall, the
+    card's busy time (the kernels' device time summed; one stream, so they
+    do not overlap) and idle share, the three device ops that took longest,
+    and the host's kernel launches and stream synchronisations."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import pymgrit_tpu_torch as P
+    from pymgrit_tpu_torch.ops import DISPATCH
+
+    def solver(model, cfg, name="scan", k=0, **kw):
+        def run():
+            problem = level_problems(P, model, cfg, DISPATCH, **kw)
+            return strategy(P, name, problem, k, tol=cfg["tol"], max_iter=cfg["max_iter"])
+        return run
+
+    def advection_example():
+        problem = [P.Advection1D(c=1, x_start=-1, x_end=1, nx=129, t_start=0, t_stop=2, nt=nt,
+                                 device=DEVICE) for nt in (129, 65)]
+        return P.Mgrit(problem=problem, cf_iter=1, nested_iteration=False, logging_lvl=30)
+
+    gs = dict(nx=GS_AT["nx"], method="IMEX")
+    cells = [
+        ("gray_scott AtMgrit(k=8)", solver("GrayScott2D", GS_AT, "at", GS_AT["k"], **gs)),
+        ("gray_scott Parareal", lambda: P.Mgrit(
+            problem=level_problems(P, "GrayScott2D", GS_PARAREAL, DISPATCH, **gs), cf_iter=0,
+            tol=GS_PARAREAL["tol"], max_iter=GS_PARAREAL["max_iter"], logging_lvl=30)),
+        ("gray_scott IMPL", solver("GrayScott2D", GS_IMPL, nx=GS_IMPL["nx"], method="IMPL")),
+        ("gray_scott EXPL", solver("GrayScott2D", GS_EXPL, nx=GS_EXPL["nx"], method="EXPL")),
+        ("burgers example", solver("Burgers1D", BURGERS_EX, nx=BURGERS_EX["nx"],
+                                   nu=BURGERS_EX["nu"])),
+        ("burgers Burgers1D deep", solver("Burgers1D", BURGERS_DEEP, nx=BURGERS_DEEP["nx"],
+                                          nu=BURGERS_DEEP["nu"])),
+        ("burgers Burgers2D", solver("Burgers2D", BURGERS_2D, nx=BURGERS_2D["nx"],
+                                     nu=BURGERS_2D["nu"])),
+        ("advection example", advection_example),
+        ("advection deep", solver("Advection1D", dict(ADVECTION_DEEP, t_stop=2.0), c=1,
+                                  x_start=-1, x_end=1, nx=ADVECTION_DEEP["nx"])),
+    ]
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    for label, build in cells:
+        build().solve()
+        mg = build()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            h = mg.solve()["conv"]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = prof.key_averages()
+        dev = [e for e in events if device_us(e) > 0 and "Memcpy" not in e.key
+               and "Memset" not in e.key]
+        busy = sum(device_us(e) for e in dev) / 1e3
+        top = sorted(dev, key=device_us, reverse=True)[:3]
+        launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                                            "cuLaunchKernelEx"))
+        syncs = sum(e.count for e in events if "Synchronize" in e.key)
+        print(f"[profile] {label}: {h.size} iterations, profiled solve {wall * 1e3:.1f} ms, device "
+              f"busy {busy:.1f} ms, idle {100 * (1 - busy / (wall * 1e3)):.1f} % | leading device "
+              "time " + "; ".join(f"{e.key[:48]} {device_us(e) / 1e3:.2f} ms ({e.count})"
+                                  for e in top)
+              + f" | host: {launches} kernel launches, {syncs} synchronisations | {card}")
+        del mg, prof
+        torch.cuda.empty_cache()
+
+
 REPLACES = {
     "interval_affine": ("cuda", "pymgrit_tpu_torch/ops/csrc/interval_affine.cu",
                         "pymgrit_tpu/models/heat_2d.py:538"),
@@ -1321,6 +1884,14 @@ REPLACES = {
                           "pymgrit_tpu/ops/runge_kutta.py:67"),
     "rk4_brusselator": ("triton", "pymgrit_tpu_torch/ops/triton_kernels.py",
                         "pymgrit_tpu/ops/runge_kutta.py:38"),
+    "gray_scott_pointwise": ("triton", "pymgrit_tpu_torch/ops/triton_kernels.py",
+                             "pymgrit_tpu/models/gray_scott_2d.py:102"),
+    "burgers2d_pointwise": ("triton", "pymgrit_tpu_torch/ops/triton_kernels.py",
+                            "pymgrit_tpu/models/burgers.py:121"),
+    "burgers1d_newton": ("cuda", "pymgrit_tpu_torch/ops/csrc/burgers1d_newton.cu",
+                         "pymgrit_tpu/models/burgers.py:53"),
+    "circulant_solve1d": ("cuda", "pymgrit_tpu_torch/ops/csrc/circulant_solve1d.cu",
+                          "pymgrit_tpu/models/advection_1d.py:41"),
 }
 
 
@@ -1328,6 +1899,13 @@ def main():
     card = phase_device()
     import torch
     phase_build()
+    if "--profile" in sys.argv[1:]:
+        profile_cells(card)
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return
     rows = phase_kernels()
     phase_small()
     counts, h_spec, tube_spec = phase_main(card)
@@ -1339,18 +1917,27 @@ def main():
     phase_coarsest_golden()
     counts_imex, counts_impl = phase_allen_cahn(card)
     counts_orbit, counts_bruss = phase_ode(card)
+    counts_gs = phase_gray_scott(card)
+    counts_b1, counts_b2 = phase_burgers(card)
+    counts_adv = phase_advection(card)
     # launches: each kernel's count on the main path it belongs to (K3, K4
     # run on both bases; the spectral run's count is reported; K8 and K9
     # from the TOMS-width prefix and AT runs; K10 from the Allen-Cahn bench
     # row, K11 from the IMPL run, K12 from the Arenstorf run, K13 from the
-    # Brusselator run)
+    # Brusselator run, K14 from the Gray-Scott IMPL run, K15 from the
+    # Burgers2D run, K16 from the deep Burgers1D run, K17 from the deep
+    # advection run)
     launches = {**counts_phys, **{k: counts[k] for k in SPECTRAL_KERNELS},
                 "affine_prefix": prefix_counts["affine_prefix"],
                 "affine_windows": at_counts["affine_windows"],
                 "periodic_solve2d": counts_imex["periodic_solve2d"],
                 "allen_cahn_pointwise": counts_impl["allen_cahn_pointwise"],
                 "dopri45_arenstorf": counts_orbit["dopri45_arenstorf"],
-                "rk4_brusselator": counts_bruss["rk4_brusselator"]}
+                "rk4_brusselator": counts_bruss["rk4_brusselator"],
+                "gray_scott_pointwise": counts_gs["IMPL"]["gray_scott_pointwise"],
+                "burgers2d_pointwise": counts_b2["burgers2d_pointwise"],
+                "burgers1d_newton": counts_b1["burgers1d_newton"],
+                "circulant_solve1d": counts_adv["circulant_solve1d"]}
     kernels = [dict(name=name, route=route, source=source, replaces=replaces,
                     launches=launches[name], **rows[name])
                for name, (route, source, replaces) in REPLACES.items()]

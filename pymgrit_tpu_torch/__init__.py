@@ -12,10 +12,13 @@ from pymgrit_tpu_torch.core.grid_transfer import GridTransfer, GridTransferCopy
 from pymgrit_tpu_torch.core.hierarchy import simple_setup_problem
 from pymgrit_tpu_torch.core.solver import Mgrit
 from pymgrit_tpu_torch.core.at_mgrit import AtMgrit
+from pymgrit_tpu_torch.models.advection_1d import Advection1D
 from pymgrit_tpu_torch.models.allen_cahn import AllenCahn
 from pymgrit_tpu_torch.models.arenstorf_orbit import ArenstorfOrbit
 from pymgrit_tpu_torch.models.brusselator import Brusselator
+from pymgrit_tpu_torch.models.burgers import Burgers1D, Burgers2D
 from pymgrit_tpu_torch.models.dahlquist import Dahlquist
+from pymgrit_tpu_torch.models.gray_scott_2d import GrayScott2D
 from pymgrit_tpu_torch.models.heat_1d import Heat1D
 from pymgrit_tpu_torch.models.heat_2d import Heat2D
 
@@ -27,10 +30,14 @@ __all__ = [
     "GridTransferCopy",
     "simple_setup_problem",
     "vector",
+    "Advection1D",
     "AllenCahn",
     "ArenstorfOrbit",
     "Brusselator",
+    "Burgers1D",
+    "Burgers2D",
     "Dahlquist",
+    "GrayScott2D",
     "Heat1D",
     "Heat2D",
 ]

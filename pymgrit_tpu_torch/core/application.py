@@ -16,8 +16,22 @@ from __future__ import annotations
 import abc
 
 import numpy as np
+import torch
 
 from pymgrit_tpu_torch.core import vector
+
+
+def model_device(device=None) -> torch.device:
+    """The device a model places its state and tables on: ``device`` if
+    given (``"cpu"`` asks for the CPU), else the current CUDA device.  With
+    no device given and no CUDA device present it raises: a model never
+    moves to the CPU on its own."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available: pass device='cpu' to build the model "
+                           "on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 class MetaApplication(abc.ABCMeta):

@@ -26,18 +26,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pymgrit_tpu_torch.core.application import Application
-from pymgrit_tpu_torch.models.step_times import StepTimes
+from pymgrit_tpu_torch.core.application import Application, model_device
+from pymgrit_tpu_torch.models.step_times import ChainSteps, StepTimes
 from pymgrit_tpu_torch.ops import DISPATCH, Ops
-from pymgrit_tpu_torch.ops.cg import newton, pcg
-from pymgrit_tpu_torch.ops.periodic import hartley_basis, ipow
+from pymgrit_tpu_torch.ops.cg import newton, newton_stats, pcg, tally
+from pymgrit_tpu_torch.ops.periodic import hartley_basis, ipow, periodic_lap_eigs
 from pymgrit_tpu_torch.ops.triton_kernels import periodic_lap_plain
 
 
-class AllenCahn(Application):
+class AllenCahn(ChainSteps, Application):
     """u_t = Lap(u) + 1/eps^2 u(1-u^nu), periodic BCs on [-0.5, 0.5]^2.
 
-    ``device`` places the state and tables; ``ops`` selects the kernel set
+    ``device`` (the CUDA card unless ``"cpu"`` is asked for) places the
+    state and tables; ``ops`` selects the kernel set
     (``pymgrit_tpu_torch.ops.DISPATCH`` by default; ``ops.PLAIN`` runs the
     plain versions on any device).  ``stats`` counts the Newton and CG
     iterations of the IMPL and CN steps."""
@@ -60,14 +61,12 @@ class AllenCahn(Application):
         if method not in ('IMPL', 'IMEX', 'CN'):
             raise Exception("Unknown method. Choose IMPL (implicit), IMEX (implicit-explicit) or CN (Crank-Nicolson")
         self.method = method
-        self.device = torch.device(device or "cpu")
+        self.device = model_device(device)
         self.ops = ops
 
         self.dx = 1.0 / nx
         self.x = np.linspace(start=-0.5, stop=0.5, num=nx)
-        k = np.arange(nx)
-        lam1d = (2.0 * np.cos(2.0 * np.pi * k / nx) - 2.0) / self.dx ** 2
-        self.lap_eigs = lam1d[:, None] + lam1d[None, :]
+        self.lap_eigs = periodic_lap_eigs(nx, self.dx)
         self._H = self._tensor(hartley_basis(nx))
         self._lam = self._tensor(-self.lap_eigs)       # (I - sL) has 1 + s*lam
         self._inv_eps2 = 1.0 / eps ** 2
@@ -134,30 +133,14 @@ class AllenCahn(Application):
             fac, rhs = dt, u
         x, n, k = self._newton_solve(rhs, fac, u)
         out.copy_(x if g is None else g + x)
-        s = self.stats
-        s["steps"] += u.shape[0]
-        s["newton"] += int(n.sum())
-        s["cg"] += int(k.sum())
-        s["newton_max"] = max(s["newton_max"], int(n.max()))
-        s["cg_max"] = max(s["cg_max"], int(k.max()))
+        tally(self.stats, n, k, "cg")
 
     def reset_stats(self) -> None:
-        self.stats = dict(steps=0, newton=0, cg=0, newton_max=0, cg_max=0)
+        self.stats = newton_stats("cg")
 
     # ------------------------------------------------------------------
     # stepping
     # ------------------------------------------------------------------
-
-    def step(self, u_start, t_start, t_stop):
-        return self.step_batched(u_start[None], [float(t_start)], [float(t_stop)])[0]
-
-    def step_batched(self, u_tube, t_starts, t_stops):
-        """One step of each of B states: step_chain with L = 1."""
-        out = torch.empty_like(u_tube)
-        tp = np.asarray(t_starts, dtype=np.float64).reshape(1, -1)
-        tc = np.asarray(t_stops, dtype=np.float64).reshape(1, -1)
-        self.step_chain(u_tube, tp, tc, out[:, None])
-        return out
 
     def step_chain(self, seed, t_prev, t_curr, out, g=None):
         """J chains of L steps: out[:, k] = [g[:, k] +] Phi(out[:, k-1]) with

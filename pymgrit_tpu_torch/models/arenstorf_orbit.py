@@ -11,21 +11,20 @@ adaptive loop in registers); ``attempts`` counts the controller's attempts.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from pymgrit_tpu_torch.core.application import Application
-from pymgrit_tpu_torch.models.step_times import StepTimes
+from pymgrit_tpu_torch.core.application import Application, model_device
+from pymgrit_tpu_torch.models.step_times import ChainSteps, StepTimes
 from pymgrit_tpu_torch.ops import DISPATCH, Ops
 from pymgrit_tpu_torch.ops.runge_kutta import ARENSTORF_A, arenstorf_f
 
 
-class ArenstorfOrbit(Application):
+class ArenstorfOrbit(ChainSteps, Application):
     """Restricted three-body problem integrated with adaptive DOPRI45.
 
-    ``device`` places the state; ``ops`` selects the kernel set
-    (``pymgrit_tpu_torch.ops.DISPATCH`` by default, ``ops.PLAIN`` runs the
-    plain version on any device)."""
+    ``device`` (the CUDA card unless ``"cpu"`` is asked for) places the
+    state; ``ops`` selects the kernel set (``pymgrit_tpu_torch.ops.DISPATCH``
+    by default, ``ops.PLAIN`` runs the plain version on any device)."""
 
     def __init__(self, rtol: float = 1e-3, atol: float = 1e-6, *args, device=None,
                  ops: Ops = DISPATCH, **kwargs):
@@ -34,7 +33,7 @@ class ArenstorfOrbit(Application):
         self.b = 1 - self.a
         self.rtol = rtol
         self.atol = atol
-        self.device = torch.device(device or "cpu")
+        self.device = model_device(device)
         self.ops = ops
         self._times = StepTimes(self.device)
         self.vector_template = torch.zeros(4, dtype=torch.float64, device=self.device)
@@ -51,17 +50,6 @@ class ArenstorfOrbit(Application):
         self.attempts = torch.zeros((), dtype=torch.int64, device=self.device)
         self.attempts_max = torch.zeros((), dtype=torch.int32, device=self.device)
         self.steps = 0
-
-    def step(self, u_start, t_start, t_stop):
-        return self.step_batched(u_start[None], [float(t_start)], [float(t_stop)])[0]
-
-    def step_batched(self, u_tube, t_starts, t_stops):
-        """One step of each of B states: step_chain with L = 1."""
-        out = torch.empty_like(u_tube)
-        tp = np.asarray(t_starts, dtype=np.float64).reshape(1, -1)
-        tc = np.asarray(t_stops, dtype=np.float64).reshape(1, -1)
-        self.step_chain(u_tube, tp, tc, out[:, None])
-        return out
 
     def step_chain(self, seed, t_prev, t_curr, out, g=None):
         """J chains of L steps in one K12 launch: out[:, k] = [g[:, k] +]

@@ -8,27 +8,26 @@ one launch.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from pymgrit_tpu_torch.core.application import Application
-from pymgrit_tpu_torch.models.step_times import StepTimes
+from pymgrit_tpu_torch.core.application import Application, model_device
+from pymgrit_tpu_torch.models.step_times import ChainSteps, StepTimes
 from pymgrit_tpu_torch.ops import DISPATCH, Ops
 from pymgrit_tpu_torch.ops.triton_kernels import brusselator_f
 
 
-class Brusselator(Application):
+class Brusselator(ChainSteps, Application):
     """Brusselator system with RK4 time integration.
 
-    ``device`` places the state; ``ops`` selects the kernel set
-    (``pymgrit_tpu_torch.ops.DISPATCH`` by default, ``ops.PLAIN`` runs the
-    plain version on any device)."""
+    ``device`` (the CUDA card unless ``"cpu"`` is asked for) places the
+    state; ``ops`` selects the kernel set (``pymgrit_tpu_torch.ops.DISPATCH``
+    by default, ``ops.PLAIN`` runs the plain version on any device)."""
 
     def __init__(self, *args, device=None, ops: Ops = DISPATCH, **kwargs):
         super().__init__(*args, **kwargs)
         self.a = 1.0
         self.b = 3.0
-        self.device = torch.device(device or "cpu")
+        self.device = model_device(device)
         self.ops = ops
         self._times = StepTimes(self.device)
         self.vector_template = torch.zeros(2, dtype=torch.float64, device=self.device)
@@ -37,17 +36,6 @@ class Brusselator(Application):
     def _f(self, t, y):
         """The right-hand side of (B, 2) states (plain)."""
         return brusselator_f(self.a, self.b)(t, y)
-
-    def step(self, u_start, t_start, t_stop):
-        return self.step_batched(u_start[None], [float(t_start)], [float(t_stop)])[0]
-
-    def step_batched(self, u_tube, t_starts, t_stops):
-        """One step of each of B states: step_chain with L = 1."""
-        out = torch.empty_like(u_tube)
-        tp = np.asarray(t_starts, dtype=np.float64).reshape(1, -1)
-        tc = np.asarray(t_stops, dtype=np.float64).reshape(1, -1)
-        self.step_chain(u_tube, tp, tc, out[:, None])
-        return out
 
     def step_chain(self, seed, t_prev, t_curr, out, g=None):
         """J chains of L RK4 steps in one K13 launch: out[:, k] = [g[:, k] +]

@@ -13,16 +13,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pymgrit_tpu_torch.core.application import Application
+from pymgrit_tpu_torch.core.application import Application, model_device
 from pymgrit_tpu_torch.ops import DISPATCH, Ops
 
 
 class Dahlquist(Application):
     """u' = lambda*u with lambda = -1 (default) and u(0) = 1.
 
-    ``device`` places the state; ``ops`` selects the kernel set of the
-    solver (``pymgrit_tpu_torch.ops.DISPATCH`` by default; ``ops.PLAIN``
-    runs the plain versions on any device)."""
+    ``device`` (the CUDA card unless ``"cpu"`` is asked for) places the
+    state; ``ops`` selects the kernel set of the solver
+    (``pymgrit_tpu_torch.ops.DISPATCH`` by default; ``ops.PLAIN`` runs the
+    plain versions on any device)."""
 
     def __init__(self, constant_lambda: float = -1, method: str = 'BE',
                  precision: str = None, *args, device=None, ops: Ops = DISPATCH, **kwargs):
@@ -37,7 +38,7 @@ class Dahlquist(Application):
         if precision == 'dd':
             raise NotImplementedError(
                 "precision='dd' is not ported yet (ROADMAP A10)")
-        self.device = torch.device(device or "cpu")
+        self.device = model_device(device)
         self.ops = ops
         self.vector_template = torch.zeros((), dtype=torch.float64, device=self.device)
         self.vector_t_start = torch.ones((), dtype=torch.float64, device=self.device)

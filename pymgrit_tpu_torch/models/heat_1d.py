@@ -28,7 +28,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from pymgrit_tpu_torch.core.application import Application
+from pymgrit_tpu_torch.core.application import Application, model_device
 from pymgrit_tpu_torch.models.rhs_table import table_rows
 from pymgrit_tpu_torch.ops import DISPATCH, Ops
 from pymgrit_tpu_torch.ops.dirichlet_spectral import sine_eigenbasis, solve_shifted_1d
@@ -38,9 +38,10 @@ class Heat1D(Application):
     """u_t - a*u_xx = b(x,t) on [x_start, x_end], homogeneous Dirichlet BCs.
 
     ``rhs(x, t)`` and ``init_cond(x)`` are numpy callables (evaluated once on
-    the host).  ``device`` places the state and tables; ``ops`` selects the
-    kernel set (``pymgrit_tpu_torch.ops.DISPATCH`` by default;
-    ``ops.PLAIN`` runs the plain versions on any device).
+    the host).  ``device`` (the CUDA card unless ``"cpu"`` is asked for)
+    places the state and tables; ``ops`` selects the kernel set
+    (``pymgrit_tpu_torch.ops.DISPATCH`` by default; ``ops.PLAIN`` runs the
+    plain versions on any device).
     """
 
     def __init__(self, x_start: float, x_end: float, nx: int, a: float,
@@ -53,7 +54,7 @@ class Heat1D(Application):
         if precision == 'dd':
             raise NotImplementedError("precision='dd' is not ported yet (ROADMAP A10)")
         self._spectral = basis == 'spectral'
-        self.device = torch.device(device or "cpu")
+        self.device = model_device(device)
         self.ops = ops
         self.x_start = x_start
         self.x_end = x_end

@@ -33,7 +33,7 @@ from typing import Callable, Union
 import numpy as np
 import torch
 
-from pymgrit_tpu_torch.core.application import Application
+from pymgrit_tpu_torch.core.application import Application, model_device
 from pymgrit_tpu_torch.models.rhs_table import table_rows
 from pymgrit_tpu_torch.ops import DISPATCH, Ops
 from pymgrit_tpu_torch.ops.dirichlet_spectral import sine_eigenbasis
@@ -45,9 +45,10 @@ class Heat2D(Application):
     """u_t - a*(u_xx + u_yy) = b(x,y,t) with Dirichlet BCs.
 
     ``rhs(x, y, t)`` and ``init_cond(x, y)`` are numpy callables (they are
-    evaluated once on the host).  ``device`` places the state and tables;
-    ``ops`` selects the kernel set (``pymgrit_tpu_torch.ops.DISPATCH`` by
-    default; ``ops.PLAIN`` runs the plain versions on any device).
+    evaluated once on the host).  ``device`` (the CUDA card unless ``"cpu"``
+    is asked for) places the state and tables; ``ops`` selects the kernel
+    set (``pymgrit_tpu_torch.ops.DISPATCH`` by default; ``ops.PLAIN`` runs
+    the plain versions on any device).
     """
 
     def __init__(self, x_start: float, x_end: float, y_start: float, y_end: float,
@@ -78,7 +79,7 @@ class Heat2D(Application):
             self.theta = 0.5
         else:
             raise Exception("Unknown method. Choose BE (Backward Euler), FE (Forward Euler) or CN (Crank-Nicolson")
-        self.device = torch.device(device or "cpu")
+        self.device = model_device(device)
         self.ops = ops
         self.x = np.linspace(x_start, x_end, nx)
         self.y = np.linspace(y_start, y_end, ny)

@@ -1,4 +1,5 @@
-"""Device copies of the solver's step-time tables, cached by value.
+"""Device copies of the solver's step-time tables, cached by value, and
+the single and batched steps of a model that steps in chains.
 
 The solver hands ``step_chain`` its (L, J) step times as numpy arrays (the
 same arrays every iteration, see ``Mgrit._block_times``).  A model whose
@@ -43,3 +44,20 @@ class StepTimes:
         tp = np.asarray(tp, dtype=np.float64)
         tc = np.asarray(tc, dtype=np.float64)
         return self._get("dt", (tp, tc), dtype, lambda: tc - tp)
+
+
+class ChainSteps:
+    """``step`` and ``step_batched`` of a model whose stepper is
+    ``step_chain`` (J chains of L steps): a step is a chain with L = 1.
+    Comes before ``Application`` among a model's bases."""
+
+    def step(self, u_start, t_start, t_stop):
+        return self.step_batched(u_start[None], [float(t_start)], [float(t_stop)])[0]
+
+    def step_batched(self, u_tube, t_starts, t_stops):
+        """One step of each of B states."""
+        out = torch.empty_like(u_tube)
+        tp = np.asarray(t_starts, dtype=np.float64).reshape(1, -1)
+        tc = np.asarray(t_stops, dtype=np.float64).reshape(1, -1)
+        self.step_chain(u_tube, tp, tc, out[:, None])
+        return out

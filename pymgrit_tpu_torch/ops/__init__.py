@@ -1,6 +1,6 @@
 """Hand-written GPU kernels of the port and their plain PyTorch versions.
 
-Thirteen kernels carry the Heat2D paths (condensed level 0), the
+Seventeen kernels carry the Heat2D paths (condensed level 0), the
 coarsest-level strategies and the nonlinear models:
 
 * K1 ``interval_affine`` (CUDA C++, ``csrc/interval_affine.cu``)
@@ -16,12 +16,18 @@ coarsest-level strategies and the nonlinear models:
 * K11 ``allen_cahn_pointwise`` (Triton)
 * K12 ``dopri45_arenstorf`` (CUDA C++, ``csrc/dopri45_arenstorf.cu``)
 * K13 ``rk4_brusselator`` (Triton)
+* K14 ``gray_scott_pointwise`` (Triton)
+* K15 ``burgers2d_pointwise`` (Triton)
+* K16 ``burgers1d_newton`` (CUDA C++, ``csrc/burgers1d_newton.cu``)
+* K17 ``circulant_solve1d`` (CUDA C++, ``csrc/circulant_solve1d.cu``)
 
 The spectral basis runs K1-K4; the physical basis K3-K7; the coarsest
 level of ``Mgrit(coarsest_prefix=True)`` K8 and that of ``AtMgrit`` K9;
 Allen-Cahn K10 (IMEX) or K10 and K11 (IMPL, CN, with the Newton-CG control
-of ``cg.py``); the Arenstorf orbit K12; the Brusselator K13.  K3 and K4
-serve every solve.  ``DISPATCH``
+of ``cg.py``); the Arenstorf orbit K12; the Brusselator K13; Gray-Scott K10
+(IMEX, with its species axis and prologue), K14 (EXPL) or both (IMPL, with
+the Newton-BiCGStab control of ``cg.py``); Burgers 1D K16; Burgers 2D K15
+and K10 (Newton-BiCGStab); advection K17.  K3 and K4 serve every solve.  ``DISPATCH``
 holds the wrappers (CPU tensors: plain version; CUDA tensors: the kernel).
 ``PLAIN`` holds the plain versions with the same signatures; an application
 built with ``ops=PLAIN`` runs the plain versions on any device, which is
@@ -32,7 +38,8 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
-from pymgrit_tpu_torch.ops import heat_kernels, periodic, prefix, runge_kutta, triton_kernels
+from pymgrit_tpu_torch.ops import (dense_newton, heat_kernels, periodic, prefix, runge_kutta,
+                                   triton_kernels)
 
 
 class Ops(NamedTuple):
@@ -49,6 +56,10 @@ class Ops(NamedTuple):
     allen_cahn_pointwise: Callable
     dopri45_arenstorf: Callable
     rk4_brusselator: Callable
+    gray_scott_pointwise: Callable
+    burgers2d_pointwise: Callable
+    burgers1d_newton: Callable
+    circulant_solve1d: Callable
 
 
 DISPATCH = Ops(heat_kernels.interval_affine, heat_kernels.theta_chain,
@@ -56,14 +67,18 @@ DISPATCH = Ops(heat_kernels.interval_affine, heat_kernels.theta_chain,
                heat_kernels.sine_solve2d, heat_kernels.sine_affine2d,
                triton_kernels.theta_rhs2d, prefix.affine_prefix, prefix.affine_windows,
                periodic.periodic_solve2d, triton_kernels.allen_cahn_pointwise,
-               runge_kutta.dopri45_arenstorf, triton_kernels.rk4_brusselator)
+               runge_kutta.dopri45_arenstorf, triton_kernels.rk4_brusselator,
+               triton_kernels.gray_scott_pointwise, triton_kernels.burgers2d_pointwise,
+               dense_newton.burgers1d_newton, periodic.circulant_solve1d)
 PLAIN = Ops(heat_kernels.interval_affine_plain, heat_kernels.theta_chain_plain,
             triton_kernels.residual_row_norms_plain, triton_kernels.cpoint_combine_plain,
             heat_kernels.sine_solve2d_plain, heat_kernels.sine_affine2d_plain,
             triton_kernels.theta_rhs2d_plain, prefix.affine_prefix_plain,
             prefix.affine_windows_plain, periodic.periodic_solve2d_plain,
             triton_kernels.allen_cahn_pointwise_plain, runge_kutta.dopri45_arenstorf_plain,
-            triton_kernels.rk4_brusselator_plain)
+            triton_kernels.rk4_brusselator_plain, triton_kernels.gray_scott_pointwise_plain,
+            triton_kernels.burgers2d_pointwise_plain, dense_newton.burgers1d_newton_plain,
+            periodic.circulant_solve1d_plain)
 
 
 def launch_counts() -> dict:

@@ -30,6 +30,12 @@ from pymgrit_tpu_torch.ops import periodic, triton_kernels
 
 torch.set_num_threads(1)
 
+
+def _cpu(mod):
+    """Builds a port model on the CPU (the JAX package's models take no device)."""
+    return {"device": "cpu"} if mod is P else {}
+
+
 RTOL = 1e-12
 H_RTOL, FLOOR_OPS = 1e-9, 8
 METHODS = ["IMEX", "CN", "IMPL"]
@@ -52,7 +58,7 @@ def _t(a):
 
 def _pair(nx, method):
     return (J.AllenCahn(nx=nx, method=method, t_start=0, t_stop=T_STOP, nt=NT),
-            P.AllenCahn(nx=nx, method=method, t_start=0, t_stop=T_STOP, nt=NT))
+            P.AllenCahn(nx=nx, method=method, t_start=0, t_stop=T_STOP, nt=NT, device="cpu"))
 
 
 def _states(aj, seed):
@@ -65,11 +71,11 @@ def _states(aj, seed):
 
 
 def _build(mod, method, nx=16):
-    a0 = mod.AllenCahn(nx=nx, method=method, t_start=0, t_stop=T_STOP, nt=NT)
+    a0 = mod.AllenCahn(nx=nx, method=method, t_start=0, t_stop=T_STOP, nt=NT, **_cpu(mod))
     stride, problem = 1, [a0]
     for m in MS:
         stride *= m
-        problem.append(mod.AllenCahn(nx=nx, method=method, t_interval=a0.t[::stride]))
+        problem.append(mod.AllenCahn(nx=nx, method=method, t_interval=a0.t[::stride], **_cpu(mod)))
     return problem
 
 
@@ -98,7 +104,7 @@ def test_constructor_state(nx):
 
 def test_unknown_method_raises():
     with pytest.raises(Exception, match="Unknown method"):
-        P.AllenCahn(nx=8, method="RK4", t_start=0, t_stop=1, nt=3)
+        P.AllenCahn(nx=8, method="RK4", t_start=0, t_stop=1, nt=3, device="cpu")
 
 
 @pytest.mark.parametrize("nx", [16, 17])
@@ -106,7 +112,7 @@ def test_hartley_basis_is_symmetric_orthogonal_and_diagonalises_L(nx):
     H = periodic.hartley_basis(nx)
     np.testing.assert_array_equal(H, H.T)
     np.testing.assert_allclose(H @ H, np.eye(nx), atol=1e-14)
-    ap = P.AllenCahn(nx=nx, method="IMEX", t_start=0, t_stop=1, nt=3)
+    ap = P.AllenCahn(nx=nx, method="IMEX", t_start=0, t_stop=1, nt=3, device="cpu")
     L1 = (np.roll(np.eye(nx), 1, 0) + np.roll(np.eye(nx), -1, 0) - 2 * np.eye(nx)) * nx ** 2
     lam1 = np.diag(H @ L1 @ H)
     np.testing.assert_allclose(H @ L1 @ H, np.diag(lam1), atol=1e-10 * nx ** 2)
@@ -213,7 +219,7 @@ def test_newton_stops_at_maxiter_and_on_nan():
     iterations; a lane with a NaN stops at once (max|g| >= tol is False on
     NaN, as in JAX)."""
     ap = P.AllenCahn(nx=8, method="IMPL", t_start=0, t_stop=1, nt=3, newton_tol=0.0,
-                     newton_maxiter=3)
+                     newton_maxiter=3, device="cpu")
     u = ap.vector_t_start.expand(2, 8, 8).clone()
     u[1, 2, 3] = float("nan")
     x, n, k = ap._newton_solve(u, torch.tensor([1e-3, 1e-3], dtype=torch.float64), u)

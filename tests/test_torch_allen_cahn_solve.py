@@ -18,12 +18,19 @@ import pymgrit_tpu_torch as P
 
 torch.set_num_threads(1)
 
+
+def _cpu(mod):
+    """Builds a port model on the CPU (the JAX package's models take no device)."""
+    return {"device": "cpu"} if mod is P else {}
+
+
 H_RTOL, FLOOR_OPS, TUBE_ATOL = 1e-9, 8, 1e-12
 
 
 def _build(mod, method, nx=16):
-    a0 = mod.AllenCahn(nx=nx, method=method, t_start=0, t_stop=0.032, nt=65)
-    return [a0] + [mod.AllenCahn(nx=nx, method=method, t_interval=a0.t[::s]) for s in (4, 16)]
+    a0 = mod.AllenCahn(nx=nx, method=method, t_start=0, t_stop=0.032, nt=65, **_cpu(mod))
+    return [a0] + [mod.AllenCahn(nx=nx, method=method, t_interval=a0.t[::s], **_cpu(mod))
+                   for s in (4, 16)]
 
 
 @pytest.mark.parametrize("method,iterations", [("IMPL", 8)])

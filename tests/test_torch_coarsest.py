@@ -33,6 +33,12 @@ from pymgrit_tpu_torch.ops import prefix
 
 torch.set_num_threads(1)
 
+
+def _cpu(mod):
+    """Builds a port model on the CPU (the JAX package's models take no device)."""
+    return {"device": "cpu"} if mod is P else {}
+
+
 RTOL, ATOL = 1e-9, 1e-13
 AT_GOLDEN = np.array([0.1767778, 0.01223507])
 
@@ -141,7 +147,7 @@ _TIMES = (np.array([0.0, 1.25, 0.5, 4.0]), np.array([0.5, 1.3, 0.75, 4.1]))
 
 @pytest.mark.parametrize("method", ["BE", "FE", "TR", "MR"])
 def test_dahlquist_affine_coeffs_match_step(method):
-    app = P.Dahlquist(t_start=0, t_stop=5, nt=11, method=method)
+    app = P.Dahlquist(t_start=0, t_stop=5, nt=11, method=method, device="cpu")
     japp = J.Dahlquist(t_start=0, t_stop=5, nt=11, method=method)
     u = torch.tensor([0.7317, -1.5, 2.0, 0.1], dtype=torch.float64)
     A, b = app.affine_coeffs(*_TIMES)
@@ -165,7 +171,7 @@ def _heat2d(mod, nt, method, time_dependent=True, basis="spectral", nx=17, t_end
     return mod.Heat2D(x_start=0, x_end=1, y_start=0, y_end=1, nx=nx, ny=nx, a=1.0, rhs=rhs,
                       init_cond=lambda x, y: np.sin(np.pi * x) * np.sin(np.pi * y),
                       t_interval=np.linspace(0, t_end, nt), basis=basis, method=method,
-                      bc_left=0.25)
+                      bc_left=0.25, **_cpu(mod))
 
 
 def _heat1d(mod, nt, basis="spectral", time_dependent=True, nx=33):
@@ -177,7 +183,7 @@ def _heat1d(mod, nt, basis="spectral", time_dependent=True, nx=33):
         def rhs(x, t):
             return xp.sin(xp.pi * x / 2) * xp.ones_like(x * t)
     return mod.Heat1D(x_start=0, x_end=2, nx=nx, a=1.0, init_cond=lambda x: np.sin(np.pi * x / 2),
-                      rhs=rhs, basis=basis, t_interval=np.linspace(0, 2, nt))
+                      rhs=rhs, basis=basis, t_interval=np.linspace(0, 2, nt), **_cpu(mod))
 
 
 def _check_affine_against_step(app, t0, t1, shape):
@@ -259,8 +265,8 @@ def _check_prefix(runs, tube=True):
 @pytest.mark.parametrize("method", ["BE", "TR"])
 def test_dahlquist_prefix_matches_jax(method):
     def build(mod):
-        return [mod.Dahlquist(t_start=0, t_stop=5, nt=1025, method=method),
-                mod.Dahlquist(t_start=0, t_stop=5, nt=129, method=method)]
+        return [mod.Dahlquist(t_start=0, t_stop=5, nt=1025, method=method, **_cpu(mod)),
+                mod.Dahlquist(t_start=0, t_stop=5, nt=129, method=method, **_cpu(mod))]
     _check_prefix(_prefix_pair(build))
 
 
@@ -280,15 +286,15 @@ def test_heat1d_spectral_prefix_matches_jax():
                          ids=["F-cycle", "conv_crit=1"])
 def test_prefix_f_cycle_and_jump_criterion_match_jax(kw):
     def build(mod):
-        d0 = mod.Dahlquist(t_start=0, t_stop=5, nt=513)
-        d1 = mod.Dahlquist(t_interval=d0.t[::4])
-        return [d0, d1, mod.Dahlquist(t_interval=d1.t[::4])]
+        d0 = mod.Dahlquist(t_start=0, t_stop=5, nt=513, **_cpu(mod))
+        d1 = mod.Dahlquist(t_interval=d0.t[::4], **_cpu(mod))
+        return [d0, d1, mod.Dahlquist(t_interval=d1.t[::4], **_cpu(mod))]
     _check_prefix(_prefix_pair(build, max_iter=3, **kw))
 
 
 def test_prefix_one_level_is_the_sequential_march():
     """A one-level solve through the prefix is the time march, to rounding."""
-    app = P.Dahlquist(t_start=0, t_stop=2, nt=17, method="TR")
+    app = P.Dahlquist(t_start=0, t_stop=2, nt=17, method="TR", device="cpu")
     mgrit = P.Mgrit(problem=[app], nested_iteration=False, max_iter=1, logging_lvl=40,
                     coarsest_prefix=True)
     mgrit.solve()
@@ -310,8 +316,8 @@ def test_prefix_requires_affine_capability_alike(caplog):
     for mod in (J, P):
         caplog.clear()
         with caplog.at_level(logging.INFO):
-            mod.Mgrit(problem=[mod.Dahlquist(t_start=0, t_stop=1, nt=9)] * 1, max_iter=1,
-                      logging_lvl=logging.INFO, coarsest_prefix=True)
+            mod.Mgrit(problem=[mod.Dahlquist(t_start=0, t_stop=1, nt=9, **_cpu(mod))] * 1,
+                      max_iter=1, logging_lvl=logging.INFO, coarsest_prefix=True)
         lines.append([r.getMessage() for r in caplog.records if "parallel-prefix" in r.getMessage()])
     assert len(lines[0]) == 1 and lines[1] == lines[0]
 
@@ -342,7 +348,8 @@ def test_dahlquist_at_mgrit_matches_jax(k):
     """The cases of tests/core/test_cross_validation_2.py (through K9's
     plain version here)."""
     def build(mod):
-        return [mod.Dahlquist(t_start=0, t_stop=5, nt=101), mod.Dahlquist(t_start=0, t_stop=5, nt=51)]
+        return [mod.Dahlquist(t_start=0, t_stop=5, nt=101, **_cpu(mod)),
+                mod.Dahlquist(t_start=0, t_stop=5, nt=51, **_cpu(mod))]
     _check_at(_at_pair(k, build, tol=1e-10, max_iter=12))
 
 
@@ -372,7 +379,7 @@ def _golden_build(basis):
 
         return [mod.Heat1D(x_start=0, x_end=2, nx=5, a=1, rhs=rhs,
                            init_cond=lambda x: np.sin(np.pi * x), t_start=0, t_stop=2, nt=nt,
-                           basis=basis)
+                           basis=basis, **_cpu(mod))
                 for nt in (65, 17, 5)]
     return build
 
@@ -392,7 +399,8 @@ def test_at_mgrit_rejects_local_criteria_alike():
     for crit in (2, 3):
         errs = []
         for mod in (J, P):
-            problem = [mod.Dahlquist(t_start=0, t_stop=5, nt=101), mod.Dahlquist(t_start=0, t_stop=5, nt=51)]
+            problem = [mod.Dahlquist(t_start=0, t_stop=5, nt=101, **_cpu(mod)),
+                       mod.Dahlquist(t_start=0, t_stop=5, nt=51, **_cpu(mod))]
             with pytest.raises(Exception) as exc:
                 mod.AtMgrit(k=3, problem=problem, conv_crit=crit, logging_lvl=40)
             errs.append(str(exc.value))
@@ -401,8 +409,9 @@ def test_at_mgrit_rejects_local_criteria_alike():
 
 def test_at_mgrit_one_level_is_mgrit():
     """With one level there is no coarse grid to truncate."""
-    runs = [cls(**kw, problem=[P.Dahlquist(t_start=0, t_stop=2, nt=17)], nested_iteration=False,
-                max_iter=2, logging_lvl=40) for cls, kw in ((P.AtMgrit, dict(k=2)), (P.Mgrit, {}))]
+    runs = [cls(**kw, problem=[P.Dahlquist(t_start=0, t_stop=2, nt=17, device="cpu")],
+                nested_iteration=False, max_iter=2, logging_lvl=40)
+            for cls, kw in ((P.AtMgrit, dict(k=2)), (P.Mgrit, {}))]
     for mg in runs:
         mg.solve()
     np.testing.assert_array_equal(runs[0].u[0].numpy(), runs[1].u[0].numpy())

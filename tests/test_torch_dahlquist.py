@@ -20,6 +20,12 @@ import pymgrit_tpu_torch as P
 
 torch.set_num_threads(1)
 
+
+def _cpu(mod):
+    """Builds a port model on the CPU (the JAX package's models take no device)."""
+    return {"device": "cpu"} if mod is P else {}
+
+
 RTOL, ATOL = 1e-12, 1e-16
 README_GOLDEN = np.array([7.186185937031941e-05, 1.2461067076355103e-06,
                           2.1015566145245807e-08, 3.144127445017594e-10,
@@ -28,7 +34,7 @@ README_GOLDEN = np.array([7.186185937031941e-05, 1.2461067076355103e-06,
 
 def _solve(mod, levels=2, coarsening=2, entry="solve", method="BE", **kw):
     problem = mod.simple_setup_problem(
-        mod.Dahlquist(t_start=0, t_stop=5, nt=101, method=method), levels, coarsening)
+        mod.Dahlquist(t_start=0, t_stop=5, nt=101, method=method, **_cpu(mod)), levels, coarsening)
     mgrit = mod.Mgrit(problem=problem, logging_lvl=30, **{"tol": 1e-10, **kw})
     return mgrit, getattr(mgrit, entry)()["conv"]
 
@@ -78,8 +84,8 @@ def test_mixed_time_integrators():
     """MR on the fine level, BE on the coarse level."""
     convs = []
     for mod in (J, P):
-        problem = [mod.Dahlquist(t_start=0, t_stop=5, nt=101, method="MR"),
-                   mod.Dahlquist(t_start=0, t_stop=5, nt=51, method="BE")]
+        problem = [mod.Dahlquist(t_start=0, t_stop=5, nt=101, method="MR", **_cpu(mod)),
+                   mod.Dahlquist(t_start=0, t_stop=5, nt=51, method="BE", **_cpu(mod))]
         convs.append(mod.Mgrit(problem=problem, logging_lvl=30).solve()["conv"])
     assert len(convs[1]) == len(convs[0]) == 4
     np.testing.assert_allclose(convs[1], convs[0], rtol=RTOL, atol=ATOL)
@@ -87,7 +93,7 @@ def test_mixed_time_integrators():
 
 def test_one_level_equals_sequential():
     """A one-level solve is sequential time stepping, exactly."""
-    problem = [P.Dahlquist(t_start=0, t_stop=2, nt=17)]
+    problem = [P.Dahlquist(t_start=0, t_stop=2, nt=17, device="cpu")]
     mgrit = P.Mgrit(problem=problem, nested_iteration=False, max_iter=2, logging_lvl=30)
     mgrit.solve()
     app = problem[0]

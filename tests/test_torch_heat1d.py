@@ -21,6 +21,12 @@ import pymgrit_tpu_torch as P
 
 torch.set_num_threads(1)
 
+
+def _cpu(mod):
+    """Builds a port model on the CPU (the JAX package's models take no device)."""
+    return {"device": "cpu"} if mod is P else {}
+
+
 RTOL = 1e-12
 HIST_RTOL, HIST_ATOL = 1e-9, 1e-13
 NX, NT, M = 33, 129, 4
@@ -41,7 +47,7 @@ def _ic(x):
 def _app(mod, basis="spectral", time_dependent=False, t=None):
     t = np.linspace(0, 1, NT) if t is None else t
     return mod.Heat1D(x_start=0, x_end=2, nx=NX, a=0.5, init_cond=_ic,
-                      rhs=_rhs(mod, time_dependent), t_interval=t, basis=basis)
+                      rhs=_rhs(mod, time_dependent), t_interval=t, basis=basis, **_cpu(mod))
 
 
 def _pair(basis="spectral", time_dependent=False):
@@ -176,11 +182,13 @@ def test_relax_interval_declines_alike():
 
 def test_unported_and_invalid_options():
     with pytest.raises(NotImplementedError, match="A10"):
-        P.Heat1D(x_start=0, x_end=1, nx=9, a=1.0, precision="dd", t_start=0, t_stop=1, nt=9)
+        P.Heat1D(x_start=0, x_end=1, nx=9, a=1.0, precision="dd", t_start=0, t_stop=1, nt=9,
+                 device="cpu")
     msgs = []
     for mod in (J, P):
         with pytest.raises(Exception) as exc:
-            mod.Heat1D(x_start=0, x_end=1, nx=9, a=1.0, basis="fourier", t_start=0, t_stop=1, nt=9)
+            mod.Heat1D(x_start=0, x_end=1, nx=9, a=1.0, basis="fourier", t_start=0, t_stop=1, nt=9,
+                       **_cpu(mod))
         msgs.append(str(exc.value))
     assert msgs[0] == msgs[1]
 

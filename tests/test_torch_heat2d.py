@@ -28,6 +28,12 @@ from pymgrit_tpu_torch.ops import heat_kernels, triton_kernels
 
 torch.set_num_threads(1)
 
+
+def _cpu(mod):
+    """Builds a port model on the CPU (the JAX package's models take no device)."""
+    return {"device": "cpu"} if mod is P else {}
+
+
 RTOL = 1e-12
 NX, NT, M = 17, 129, 4
 N = (NX - 2) ** 2
@@ -58,7 +64,7 @@ def _pair(method="BE", time_dependent=False, nt=NT, bc=0.0):
     kw = dict(x_start=0, x_end=1, y_start=0, y_end=1, nx=NX, ny=NX, a=1.0, init_cond=_ic,
               t_interval=t, basis="spectral", method=method, bc_left=bc, bc_top=lambda x: bc * x)
     hj = J.Heat2D(rhs=_jrhs_t if time_dependent else _jrhs, **kw)
-    hp = P.Heat2D(rhs=_prhs_t if time_dependent else _prhs, **kw)
+    hp = P.Heat2D(rhs=_prhs_t if time_dependent else _prhs, **kw, device="cpu")
     return hj, hp
 
 
@@ -163,7 +169,7 @@ def test_unported_configurations_raise(kw, item):
     base = dict(x_start=0, x_end=1, y_start=0, y_end=1, nx=NX, ny=NX, a=1.0, rhs=_prhs,
                 t_interval=np.linspace(0, 1, NT), basis="spectral")
     with pytest.raises(NotImplementedError, match=item):
-        P.Heat2D(**{**base, **kw})
+        P.Heat2D(**{**base, **kw}, device="cpu")
 
 
 def test_spectral_fe_raises_alike():
@@ -173,7 +179,7 @@ def test_spectral_fe_raises_alike():
     msgs = []
     for mod, rhs in ((J, _jrhs), (P, _prhs)):
         with pytest.raises(Exception) as exc:
-            mod.Heat2D(rhs=rhs, **kw)
+            mod.Heat2D(rhs=rhs, **kw, **_cpu(mod))
         msgs.append(str(exc.value))
     assert msgs[0] == msgs[1] and "spectral" in msgs[0]
 
@@ -202,7 +208,8 @@ def _solvers(**kw):
     for mod, rhs in ((J, _jrhs), (P, _prhs)):
         t = np.linspace(0, 1, NT)
         problem = [mod.Heat2D(x_start=0, x_end=1, y_start=0, y_end=1, nx=NX, ny=NX, a=1.0,
-                              rhs=rhs, init_cond=_ic, t_interval=t[::s], basis="spectral")
+                              rhs=rhs, init_cond=_ic, t_interval=t[::s], basis="spectral",
+                              **_cpu(mod))
                    for s in (1, M, M * M)]
         built.append(mod.Mgrit(problem=problem, logging_lvl=40, nested_iteration=False, **kw))
     return built

@@ -41,6 +41,12 @@ from pymgrit_tpu_torch.ops import heat_kernels, triton_kernels
 
 torch.set_num_threads(1)
 
+
+def _cpu(mod):
+    """Builds a port model on the CPU (the JAX package's models take no device)."""
+    return {"device": "cpu"} if mod is P else {}
+
+
 RTOL = 1e-12
 H_RTOL, H_ATOL, TUBE_ATOL = 1e-9, 1e-14, 1e-10
 NX, NT, M = 17, 129, 4
@@ -75,7 +81,7 @@ def _pair(method="BE", time_dependent=False, nt=NT, bc=0.5):
               t_interval=t, method=method, bc_left=bc, bc_bottom=-bc,
               bc_top=lambda x: bc * x)
     hj = J.Heat2D(rhs=_jrhs_t if time_dependent else _jrhs, **kw)
-    hp = P.Heat2D(rhs=_prhs_t if time_dependent else _prhs, **kw)
+    hp = P.Heat2D(rhs=_prhs_t if time_dependent else _prhs, **kw, device="cpu")
     return hj, hp
 
 
@@ -117,7 +123,7 @@ def _ringed(hj, states):
 def test_default_heat2d_constructs(method):
     """basis='physical' is the default, for FE, BE and CN alike."""
     hp = P.Heat2D(x_start=0, x_end=1, y_start=0, y_end=1, nx=NX, ny=NX, a=1.0, nt=NT,
-                  t_start=0, t_stop=1, method=method)
+                  t_start=0, t_stop=1, method=method, device="cpu")
     assert not hp._spectral and hp.theta == {"BE": 1.0, "CN": 0.5, "FE": 0.0}[method]
     assert hp.vector_template.shape == (NX, NX) and hp.vector_template.dtype == torch.float64
     assert hp.vector_t_start.shape == (NX, NX)
@@ -370,7 +376,7 @@ def _build(mod, method="BE", nx=NX, nt=NT, ms=(M, M), t_end=1.0, time_dependent=
     for lvl in range(len(ms) + 1):
         out.append(mod.Heat2D(x_start=0, x_end=1, y_start=0, y_end=1, nx=nx, ny=nx, a=1.0,
                               rhs=rhs, init_cond=_ic, t_interval=t[::s], method=method,
-                              bc_left=0.5, bc_top=lambda x: 0.5 * x))
+                              bc_left=0.5, bc_top=lambda x: 0.5 * x, **_cpu(mod)))
         if lvl < len(ms):
             s *= ms[lvl]
     return out

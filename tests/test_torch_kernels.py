@@ -33,9 +33,9 @@ import pytest
 import torch
 
 import pymgrit_tpu_torch as P
-from pymgrit_tpu_torch.ops import (DISPATCH, PLAIN, _build, heat_kernels, launch_counts,
-                                   periodic, prefix, reset_launch_counts, runge_kutta,
-                                   triton_kernels)
+from pymgrit_tpu_torch.ops import (DISPATCH, PLAIN, _build, dense_newton, heat_kernels,
+                                   launch_counts, periodic, prefix, reset_launch_counts,
+                                   runge_kutta, triton_kernels)
 from pymgrit_tpu_torch.ops.dirichlet_spectral import sine_eigenbasis
 
 torch.set_num_threads(1)
@@ -252,6 +252,62 @@ def _cases(dtype, dev):
             return ops.rk4_brusselator(bru_seed, tp, tc, out[:, 1:], g)
         return run
 
+    # K10 with a species axis (Gray-Scott pairs from strided tube rows, one
+    # coefficient per species, the Gray-Scott prologue); K14, K15 on the
+    # same pairs; K16, K17: lanes of a tube, chains written into its rows
+    pair_tube = _rand((10, 2, 17, 17), dtype, dev, 33).clamp(-1, 1)
+    coef = torch.tensor([8e-3, 4e-3], dtype=dtype, device=dev)
+
+    def k10_pair(imex, with_g):
+        def run(ops):
+            out = torch.zeros_like(pair_tube)
+            g = pair_tube[1:10:3] * 1e-2 if with_g else None
+            return ops.periodic_solve2d(pair_tube[0:9:3], out[1:10:3], H17, lam17, ac_shift, g=g,
+                                        coef=coef, gray_scott=(0.024, 0.084) if imex else None)
+        return run
+
+    def k14(mode, with_g=False):
+        def run(ops):
+            out = torch.zeros((3, 2, 17, 17), dtype=dtype, device=dev)
+            res = ops.gray_scott_pointwise(mode, pair_tube[0:9:3], out, ac_shift * 100, 8e-3, 4e-3,
+                                           0.024, 0.084, (2.0 / 17) ** 2, w=pair_tube[1:10:3],
+                                           r=pair_tube[2:10:3] if mode == "residual" else None,
+                                           g=pair_tube[2:10:3] if with_g else None)
+            return torch.cat([res[0].flatten(), res[1]]) if mode == "residual" else res
+        return run
+
+    def k15(mode):
+        def run(ops):
+            out = torch.zeros((3, 2, 17, 17), dtype=dtype, device=dev)
+            res = ops.burgers2d_pointwise(mode, pair_tube[0:9:3], out, ac_shift, 0.05, 1.0 / 17,
+                                          w=pair_tube[1:10:3],
+                                          r=pair_tube[2:10:3] if mode == "residual" else None)
+            return torch.cat([res[0].flatten(), res[1]]) if mode == "residual" else res
+        return run
+
+    x1 = torch.linspace(0, 1, 33, dtype=torch.float64)[:32]
+    line_seed = (torch.sin(2 * np.pi * x1) * (1 + 0.1 * torch.arange(5)[:, None])).to(dev, dtype)
+    line_dt = torch.linspace(1e-2, 3e-2, 15, dtype=dtype, device=dev).view(3, 5)
+    line_g = _rand((5, 3, 32), dtype, dev, 34) * 1e-3
+
+    def k16(with_g):
+        tol, maxiter = (1e-10, 30) if dtype == torch.float64 else (0.0, 4)
+
+        def run(ops):
+            out = torch.zeros((5, 4, 32), dtype=dtype, device=dev)
+            iters = torch.zeros((3, 5), dtype=torch.int32, device=dev)
+            ops.burgers1d_newton(line_seed, line_dt, out[:, 1:], line_g if with_g else None,
+                                 0.01, 1.0 / 32, tol, maxiter, iters)
+            return torch.cat([out.flatten(), iters.flatten().to(dtype)])
+        return run
+
+    def k17(fac, with_g):
+        def run(ops):
+            out = torch.zeros((5, 4, 32), dtype=dtype, device=dev)
+            return ops.circulant_solve1d(line_seed, line_dt, out[:, 1:],
+                                         line_g if with_g else None, fac)
+        return run
+
     return [("interval_affine", k1_rows), ("interval_affine", k1_tube),
             ("theta_chain", k2(1.0, True, False)), ("theta_chain", k2(0.5, True, True)),
             ("theta_chain", k2(1.0, False, True)), ("residual_row_norms", k3),
@@ -271,10 +327,17 @@ def _cases(dtype, dev):
             ("allen_cahn_pointwise", k11("rhs")), ("allen_cahn_pointwise", k11("residual")),
             ("allen_cahn_pointwise", k11("jacobian")),
             ("dopri45_arenstorf", k12(True)), ("dopri45_arenstorf", k12(False)),
-            ("rk4_brusselator", k13(True)), ("rk4_brusselator", k13(False))]
+            ("rk4_brusselator", k13(True)), ("rk4_brusselator", k13(False)),
+            ("periodic_solve2d", k10_pair(True, True)),
+            ("periodic_solve2d", k10_pair(False, False)),
+            ("gray_scott_pointwise", k14("expl", True)), ("gray_scott_pointwise", k14("expl")),
+            ("gray_scott_pointwise", k14("residual")), ("gray_scott_pointwise", k14("jacobian")),
+            ("burgers2d_pointwise", k15("residual")), ("burgers2d_pointwise", k15("jacobian")),
+            ("burgers1d_newton", k16(True)), ("burgers1d_newton", k16(False)),
+            ("circulant_solve1d", k17(40.0, True)), ("circulant_solve1d", k17(-40.0, False))]
 
 
-N_CASES = 35
+N_CASES = 47
 
 
 @pytest.mark.cuda
@@ -712,3 +775,165 @@ def test_dopri45_arenstorf_rejects(over, match):
 def test_rk4_brusselator_rejects(over, match):
     with pytest.raises(ValueError, match=match):
         triton_kernels.rk4_brusselator(**_ode_args(2, **over))
+
+
+# ---------------------------------------------------------------------------
+# K14-K17 and K10's species axis
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_new_reductions_keep_nan_on_card(cuda):
+    """K14's and K15's per-lane max |g| give NaN for a lane holding a NaN
+    (also beside an inf) and inf for an inf; a K16 lane whose state holds a
+    NaN stops at once (max|g| >= tol is False on NaN), its neighbours run
+    on."""
+    s = _rand((4, 2, 33, 33), torch.float64, cuda, 35).clamp(-1, 1)
+    r = torch.zeros_like(s)
+    r[1, 0, 3, 4], r[2, 1, 0, 0] = float("nan"), float("inf")
+    r[3, 0, 1, 1], r[3, 1, 32, 32] = float("inf"), float("nan")
+    dt = torch.full((4,), 1e-3, dtype=torch.float64, device=cuda)
+    for name, args in (("gray_scott_pointwise", (8e-5, 4e-5, 0.024, 0.084, 1e-3)),
+                       ("burgers2d_pointwise", (0.05, 1.0 / 33))):
+        (_, gk), (_, gp) = (getattr(ops, name)("residual", s, torch.empty_like(s), dt, *args, r=r)
+                            for ops in (DISPATCH, PLAIN))
+        assert torch.isnan(gk[1]) and torch.isinf(gk[2]) and torch.isnan(gk[3]), name
+        assert float(gk[0]) == float(gp[0]), name
+    x = torch.arange(32, dtype=torch.float64, device=cuda) / 32
+    seed = torch.sin(2 * np.pi * x).repeat(3, 1)
+    seed[1, 5] = float("nan")
+    iters = torch.zeros((2, 3), dtype=torch.int32, device=cuda)
+    out = torch.empty((3, 2, 32), dtype=torch.float64, device=cuda)
+    DISPATCH.burgers1d_newton(seed, torch.full((2, 3), 0.05, dtype=torch.float64, device=cuda),
+                              out, nu=0.05, dx=1.0 / 32, iters=iters)
+    assert iters[:, 1].tolist() == [0, 0] and int(iters[0, 0]) >= 2
+    assert bool(torch.isnan(out[1]).any()) and bool(torch.isfinite(out[[0, 2]]).all())
+
+
+def _pair_problem(model, device):
+    if model == "GrayScott2D":
+        p0 = P.GrayScott2D(nx=16, method="IMPL", t_start=0, t_stop=4.0, nt=17, device=device)
+        return [p0, P.GrayScott2D(nx=16, method="IMPL", t_interval=p0.t[::4], device=device)]
+    if model == "Burgers2D":
+        p0 = P.Burgers2D(nx=16, nu=0.05, t_start=0, t_stop=0.5, nt=17, device=device)
+        return [p0, P.Burgers2D(nx=16, nu=0.05, t_interval=p0.t[::4], device=device)]
+    if model == "Burgers1D":
+        p0 = P.Burgers1D(nx=64, nu=0.05, t_start=0, t_stop=1, nt=33, device=device)
+        return [p0, P.Burgers1D(nx=64, nu=0.05, t_interval=p0.t[::4], device=device)]
+    return [P.Advection1D(c=1, x_start=-1, x_end=1, nx=65, t_start=0, t_stop=2, nt=nt,
+                          device=device) for nt in (65, 33)]
+
+
+_MODEL_KERNELS = {"GrayScott2D": ("periodic_solve2d", "gray_scott_pointwise"),
+                  "Burgers2D": ("periodic_solve2d", "burgers2d_pointwise"),
+                  "Burgers1D": ("burgers1d_newton",), "Advection1D": ("circulant_solve1d",)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", list(_MODEL_KERNELS))
+def test_small_new_model_solve_on_card_matches_cpu(cuda, model):
+    """Two-level solves of the new models: the kernels on the card against
+    the plain versions on the CPU, histories to rtol 1e-10 with an atol at
+    the float64 floor."""
+    runs = []
+    for device in ("cpu", cuda):
+        reset_launch_counts()
+        mg = P.Mgrit(problem=_pair_problem(model, device), tol=1e-9, max_iter=10, logging_lvl=40)
+        mg.solve()
+        # every iteration's residual (solve() drops an exact 0 at the end)
+        runs.append((mg.conv[1:mg.solve_iter + 1].copy(), mg.u[0].cpu(), launch_counts()))
+    (hc, uc, _), (hg, ug, cg) = runs
+    assert all(cg[k] > 0 for k in _MODEL_KERNELS[model]), cg
+    np.testing.assert_allclose(hg, hc, rtol=1e-10, atol=1e-13)
+    assert float((ug - uc).abs().max()) <= 1e-11
+
+
+def _pair_args(**over):
+    f = dict(dtype=torch.float64)
+    args = dict(mode="jacobian", s=torch.zeros((3, 2, 8, 8), **f),
+                out=torch.empty((3, 2, 8, 8), **f), dt=torch.zeros(3, **f),
+                w=torch.zeros((3, 2, 8, 8), **f))
+    args.update(over)
+    return args
+
+
+@pytest.mark.parametrize("over,match", [
+    (dict(mode="lap"), "mode must be"),
+    (dict(w=None), "needs w"),
+    (dict(mode="residual"), "needs r"),
+    (dict(dt=torch.zeros(2, dtype=torch.float64)), "dt must be"),
+    (dict(s=torch.zeros((3, 3, 8, 8), dtype=torch.float64)), "expected \\(B, 2, n, n\\)"),
+    (dict(w=torch.zeros((3, 2, 8, 9), dtype=torch.float64)), "w has shape"),
+    (dict(mode="expl", g=torch.zeros((3, 2, 8, 8), dtype=torch.float32)), "dtype"),
+])
+@pytest.mark.parametrize("kernel", ["gray_scott_pointwise", "burgers2d_pointwise"])
+def test_pair_pointwise_rejects(kernel, over, match):
+    args = _pair_args(**over)
+    if kernel == "gray_scott_pointwise":
+        args.update(du=1e-4, dv=1e-4, a=0.02, b=0.08, dx2=1.0)
+    else:
+        if args["mode"] == "expl":
+            args["mode"] = "lap"
+            match = "mode must be"
+        args.pop("g", None)
+        args.update(nu=0.05, dx=0.1)
+    with pytest.raises(ValueError, match=match):
+        getattr(triton_kernels, kernel)(**args)
+
+
+def test_gray_scott_g_is_for_expl_only():
+    z = torch.zeros((2, 2, 8, 8), dtype=torch.float64)
+    with pytest.raises(ValueError, match="EXPL steps only"):
+        triton_kernels.gray_scott_pointwise("jacobian", z, torch.empty_like(z),
+                                            torch.zeros(2, dtype=torch.float64), 1e-4, 1e-4,
+                                            0.02, 0.08, 1.0, w=z, g=z)
+
+
+@pytest.mark.parametrize("over,match", [
+    (dict(coef=torch.zeros(3, dtype=torch.float64)), "coef must be"),
+    (dict(gray_scott=(0.02, 0.08)), "Gray-Scott prologue"),
+    (dict(b=torch.zeros((3, 2, 8, 8), dtype=torch.float64)), "out has shape"),
+    (dict(b=torch.zeros((3, 2, 8, 8), dtype=torch.float64),
+          out=torch.empty((3, 2, 8, 8), dtype=torch.float64), gray_scott=(0.02, 0.08), nu=2),
+     "Gray-Scott prologue"),
+])
+def test_periodic_solve2d_species_rejects(over, match):
+    with pytest.raises(ValueError, match=match):
+        periodic.periodic_solve2d(**_k10_args(**over))
+
+
+def _line_args(**over):
+    f = dict(dtype=torch.float64)
+    args = dict(seed=torch.zeros((5, 8), **f), dt=torch.zeros((3, 5), **f),
+                out=torch.empty((5, 3, 8), **f))
+    args.update(over)
+    return args
+
+
+@pytest.mark.parametrize("over,match", [
+    (dict(seed=torch.zeros(5, dtype=torch.float64)), "seed has shape"),
+    (dict(out=torch.empty((4, 3, 8), dtype=torch.float64)), "out has shape"),
+    (dict(dt=torch.zeros((5, 3), dtype=torch.float64)), "dt must be"),
+    (dict(g=torch.zeros((5, 2, 8), dtype=torch.float64)), "g must have"),
+    (dict(dt=torch.zeros((3, 5), dtype=torch.float32)), "dtype"),
+])
+@pytest.mark.parametrize("kernel", ["burgers1d_newton", "circulant_solve1d"])
+def test_line_kernels_reject(kernel, over, match):
+    fn = (dense_newton.burgers1d_newton if kernel == "burgers1d_newton"
+          else periodic.circulant_solve1d)
+    with pytest.raises(ValueError, match=match):
+        fn(**_line_args(**over))
+
+
+def test_burgers1d_newton_rejects_iters_and_narrow_states():
+    with pytest.raises(ValueError, match="iters must be"):
+        dense_newton.burgers1d_newton(**_line_args(), iters=torch.zeros((3, 5), dtype=torch.int64))
+    with pytest.raises(ValueError, match="n >= 3"):
+        dense_newton.burgers1d_newton(**_line_args(seed=torch.zeros((5, 2), dtype=torch.float64),
+                                                   out=torch.empty((5, 3, 2), dtype=torch.float64)))
+
+
+def test_burgers1d_newton_shared_memory_limit():
+    """J of side 167 fits a block's shared memory in float64, 168 does not."""
+    assert dense_newton.smem_bytes(167, 8) <= dense_newton.SMEM_LIMIT
+    assert dense_newton.smem_bytes(168, 8) > dense_newton.SMEM_LIMIT

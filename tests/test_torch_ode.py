@@ -104,7 +104,7 @@ def test_step_chain_matches_a_scan_of_steps(model, with_g):
     """J chains of L steps plus g into strided views of a tube, and the
     single and batched steps, against vmap-ed JAX steps."""
     t = np.linspace(0, 2.0, 41)
-    mj, mp = getattr(J, model)(t_interval=t), getattr(P, model)(t_interval=t)
+    mj, mp = getattr(J, model)(t_interval=t), getattr(P, model)(t_interval=t, device="cpu")
     d = mp.vector_template.shape[0]
     rng = np.random.default_rng(4)
     x0 = np.asarray(mj.vector_t_start) * (1 + 1e-6 * rng.standard_normal((3, d)))
@@ -129,16 +129,18 @@ def test_step_chain_matches_a_scan_of_steps(model, with_g):
 
 
 def test_arenstorf_counts_attempts():
-    a = P.ArenstorfOrbit(t_start=0, t_stop=T_ORBIT, nt=11)
+    a = P.ArenstorfOrbit(t_start=0, t_stop=T_ORBIT, nt=11, device="cpu")
     out = torch.empty((1, 10, 4), dtype=torch.float64)
     a.step_chain(a.vector_t_start[None], a.t[:-1, None], a.t[1:, None], out)
     assert a.steps == 10 and int(a.attempts) >= 10 and int(a.attempts_max) >= 1
 
 
 def _solve(mod, model, nt, m, **kw):
+    cpu = {"device": "cpu"} if mod is P else {}
     p0 = getattr(mod, model)(t_start=0, t_stop=T_ORBIT if model == "ArenstorfOrbit" else 12,
-                             nt=nt)
-    mg = mod.Mgrit(problem=[p0, getattr(mod, model)(t_interval=p0.t[::m])], logging_lvl=40, **kw)
+                             nt=nt, **cpu)
+    mg = mod.Mgrit(problem=[p0, getattr(mod, model)(t_interval=p0.t[::m], **cpu)], logging_lvl=40,
+                   **kw)
     return mg, mg.solve()["conv"]
 
 
@@ -183,9 +185,9 @@ def test_custom_convergence_criterion_on_arenstorf():
     iteration matches the reference golden, the count (3) too; later
     iterations are the chaos-amplified observables that
     tests/models/test_arenstorf_parity.py bounds by order of magnitude."""
-    a0 = P.ArenstorfOrbit(t_start=0, t_stop=T_ORBIT, nt=10001)
-    mg = _RelativeChange(problem=[a0, P.ArenstorfOrbit(t_interval=a0.t[::100])], tol=1,
-                         logging_lvl=40)
+    a0 = P.ArenstorfOrbit(t_start=0, t_stop=T_ORBIT, nt=10001, device="cpu")
+    mg = _RelativeChange(problem=[a0, P.ArenstorfOrbit(t_interval=a0.t[::100], device="cpu")],
+                         tol=1, logging_lvl=40)
     assert not mg._condensed0
     conv = mg.solve()["conv"]
     assert len(conv) == 4, conv

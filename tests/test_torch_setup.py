@@ -20,6 +20,12 @@ from pymgrit_tpu_torch.core.levels import build_level_infos as p_build
 
 torch.set_num_threads(1)
 
+
+def _cpu(mod):
+    """Builds a port model on the CPU (the JAX package's models take no device)."""
+    return {"device": "cpu"} if mod is P else {}
+
+
 _GRIDS = {
     "uniform_2lvl": [np.linspace(0, 5, 101), np.linspace(0, 5, 101)[::2]],
     "uniform_3lvl": [np.linspace(0, 1, 129), np.linspace(0, 1, 129)[::4],
@@ -51,7 +57,8 @@ def test_build_level_infos_equal(name):
 @pytest.mark.parametrize("level,coarsening", [(2, 2), (3, 2), (4, 4)])
 def test_simple_setup_problem_equal(level, coarsening):
     pj = J.simple_setup_problem(J.Dahlquist(t_start=0, t_stop=5, nt=101), level, coarsening)
-    pp = P.simple_setup_problem(P.Dahlquist(t_start=0, t_stop=5, nt=101), level, coarsening)
+    pp = P.simple_setup_problem(P.Dahlquist(t_start=0, t_stop=5, nt=101, device="cpu"), level,
+                                coarsening)
     assert len(pj) == len(pp) == level
     for a, b in zip(pj, pp):
         np.testing.assert_array_equal(a.t, b.t)
@@ -63,7 +70,7 @@ def test_simple_setup_problem_warns_alike():
     for mod in (J, P):
         with warnings.catch_warnings(record=True) as rec:
             warnings.simplefilter("always")
-            mod.simple_setup_problem(mod.Dahlquist(t_start=0, t_stop=1, nt=5), 3, 4)
+            mod.simple_setup_problem(mod.Dahlquist(t_start=0, t_stop=1, nt=5, **_cpu(mod)), 3, 4)
         msgs.append([str(w.message) for w in rec])
     assert msgs[0] == msgs[1] and msgs[0]
 
@@ -81,7 +88,7 @@ def _error(fn):
 @pytest.mark.parametrize("kw", _BAD_KWARGS, ids=lambda kw: next(iter(kw)) + "=" + repr(next(iter(kw.values()))))
 def test_validation_messages_equal(kw):
     errs = [_error(lambda: mod.Mgrit(problem=mod.simple_setup_problem(
-        mod.Dahlquist(t_start=0, t_stop=5, nt=101), 2, 2), logging_lvl=30, **kw))
+        mod.Dahlquist(t_start=0, t_stop=5, nt=101, **_cpu(mod)), 2, 2), logging_lvl=30, **kw))
         for mod in (J, P)]
     assert errs[0] == errs[1]
 
@@ -91,11 +98,11 @@ def test_hierarchy_validation_messages_equal():
                   [np.linspace(0, 1, 5), np.linspace(0, 1, 9)]):
         errs = []
         for mod in (J, P):
-            problem = [mod.Dahlquist(t_interval=g) for g in grids]
+            problem = [mod.Dahlquist(t_interval=g, **_cpu(mod)) for g in grids]
             errs.append(_error(lambda: mod.Mgrit(problem=problem, logging_lvl=30)))
         assert errs[0] == errs[1]
     t = np.linspace(0, 1, 11)
-    errs = [_error(lambda: mod.Mgrit(problem=[mod.Dahlquist(t_interval=t)] * 2,
+    errs = [_error(lambda: mod.Mgrit(problem=[mod.Dahlquist(t_interval=t, **_cpu(mod))] * 2,
                                      transfer=[], logging_lvl=30)) for mod in (J, P)]
     assert errs[0] == errs[1]
 
@@ -103,7 +110,7 @@ def test_hierarchy_validation_messages_equal():
 @pytest.mark.parametrize("kw,item", [
     (dict(mesh=object()), "A12"), (dict(lazy_f_relax=True), "not to port")])
 def test_unported_options_raise(kw, item):
-    problem = P.simple_setup_problem(P.Dahlquist(t_start=0, t_stop=5, nt=101), 2, 2)
+    problem = P.simple_setup_problem(P.Dahlquist(t_start=0, t_stop=5, nt=101, device="cpu"), 2, 2)
     with pytest.raises(NotImplementedError, match=item):
         P.Mgrit(problem=problem, logging_lvl=30, **kw)
 
@@ -111,7 +118,7 @@ def test_unported_options_raise(kw, item):
 def test_nonuniform_coarsening_raises():
     g = _GRIDS["nonuniform"]
     with pytest.raises(NotImplementedError, match="A8"):
-        P.Mgrit(problem=[P.Dahlquist(t_interval=x) for x in g], logging_lvl=30)
+        P.Mgrit(problem=[P.Dahlquist(t_interval=x, device="cpu") for x in g], logging_lvl=30)
 
 
 def test_import_leaves_jax_out():
@@ -131,3 +138,31 @@ def test_import_leaves_jax_out():
                          cwd=str(__import__("pathlib").Path(__file__).resolve().parents[1]),
                          env={**env, "PYTHONPATH": ":".join(p for p in sys.path if p)})
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+_MODELS = {
+    "Heat2D": dict(x_start=0, x_end=1, y_start=0, y_end=1, nx=5, ny=5, a=1.0,
+                   rhs=lambda x, y, t: 0 * x * y * t),
+    "Heat1D": dict(x_start=0, x_end=1, nx=5, a=1.0, init_cond=lambda x: np.sin(np.pi * x)),
+    "Dahlquist": {},
+    "AllenCahn": dict(nx=8),
+    "ArenstorfOrbit": {},
+    "Brusselator": {},
+    "GrayScott2D": dict(nx=8),
+    "Burgers1D": dict(nx=8),
+    "Burgers2D": dict(nx=8),
+    "Advection1D": dict(c=1, x_start=-1, x_end=1, nx=9),
+}
+
+
+@pytest.mark.parametrize("model", sorted(_MODELS))
+def test_models_default_to_the_card_and_raise_without_one(model, monkeypatch):
+    """With no device given a model builds on the CUDA card; without a CUDA
+    device it raises instead of running on the CPU; device='cpu' asks for
+    the CPU."""
+    cls, kw = getattr(P, model), dict(_MODELS[model], t_start=0, t_stop=1, nt=5)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cls(**kw)
+    app = cls(**kw, device="cpu")
+    assert app.device == torch.device("cpu") and app.vector_t_start.device.type == "cpu"

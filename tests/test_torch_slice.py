@@ -21,6 +21,12 @@ import pymgrit_tpu_torch as P
 
 torch.set_num_threads(1)
 
+
+def _cpu(mod):
+    """Builds a port model on the CPU (the JAX package's models take no device)."""
+    return {"device": "cpu"} if mod is P else {}
+
+
 RTOL, ATOL, TUBE_ATOL = 1e-9, 1e-14, 1e-10
 DECLINE = "MGRIT: condensed level-0 fast path DISABLED"
 
@@ -39,7 +45,7 @@ def _build(mod, method="BE", nt=129, ms=(4, 4), t=None, time_dependent=False):
         out.append(mod.Heat2D(x_start=0, x_end=1, y_start=0, y_end=1, nx=17, ny=17, a=1.0,
                               rhs=_rhs(mod, time_dependent),
                               init_cond=lambda x, y: np.sin(np.pi * x) * np.sin(np.pi * y),
-                              t_interval=t[::s], basis="spectral", method=method))
+                              t_interval=t[::s], basis="spectral", method=method, **_cpu(mod)))
         if lvl < len(ms):
             s *= ms[lvl]
     return out
