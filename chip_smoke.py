@@ -62,7 +62,9 @@ phases:
 
 ``python3 chip_smoke.py --profile`` runs phases 1-2 and then one profiled
 solve of each configuration of phases 11-13 (``torch.profiler``): device
-busy and idle share, the leading device ops, launches and syncs.
+busy and idle share, the leading device ops, launches and syncs.  It
+compares and checks nothing, so its last line is
+``{"profile": true, ...}`` and never the ``"ok"`` of a checked run.
 
 Each phase prints one line (phase 3 one per case); any failure raises and
 exits non-zero.  The line before the last is the card again; the last line
@@ -864,17 +866,36 @@ def headline_work(kernel, stash):
     if kernel == "burgers2d_pointwise":    # jacobian B=4 n=64
         nn, B = BURGERS_2D["nx"], (BURGERS_2D["nt"] - 1) // BURGERS_2D["ms"][0]
         return 8 * (3 * B * 2 * nn ** 2 + B + 3), 50 * B * nn ** 2
-    if kernel == "burgers1d_newton":       # LU 2/3 n^3 + assembly, solve per iteration
+    if kernel == "burgers1d_newton":       # O(n) a Newton iteration (see below)
         nn, m = BURGERS_DEEP["nx"], BURGERS_DEEP["ms"][0]
         Jd, L = (BURGERS_DEEP["nt"] - 1) // m, m - 1
         its = stash[(kernel, Jd, L)]
-        return (8 * (Jd * nn + L * Jd + 2 * Jd * L * nn),
-                its * (2 * nn ** 3 // 3 + 6 * nn ** 2) + Jd * L * 12 * nn)
-    if kernel == "circulant_solve1d":      # n^2 multiply-adds and n powers a step
+        return 8 * (Jd * nn + L * Jd + 2 * Jd * L * nn), its * 60 * nn + Jd * L * nn
+    if kernel == "circulant_solve1d":      # a cyclic bidiagonal solve a step
         nn, m = ADVECTION_DEEP["nx"] - 1, ADVECTION_DEEP["ms"][0]
         Ja, L = (ADVECTION_DEEP["nt"] - 1) // m, m - 1
-        return 8 * (Ja * nn + L * Ja + 2 * Ja * L * nn), Ja * L * (2 * nn ** 2 + 20 * nn)
+        return 8 * (Ja * nn + L * Ja + 2 * Ja * L * nn), Ja * L * 6 * nn
     raise KeyError(kernel)
+
+
+def algorithm_ops(kernel, stash):
+    """Operations of the algorithm K16 and K17 run, where it does more than
+    the function needs (None for the other kernels).  K16's Jacobian is
+    periodic tridiagonal: an LU that skips its structural zeros picks
+    LAPACK's pivots and rounds exactly as the dense LU does (x - l * 0 and
+    x - 0 * y change nothing), in about 60 n operations a Newton iteration
+    with the residual, where the kernel's dense LU does 2/3 n^3.  K17's
+    matrix is cyclic bidiagonal: a recurrence solves it in about 6 n
+    operations, where the kernel's convolution does 2 n^2."""
+    if kernel == "burgers1d_newton":
+        nn, m = BURGERS_DEEP["nx"], BURGERS_DEEP["ms"][0]
+        Jd, L = (BURGERS_DEEP["nt"] - 1) // m, m - 1
+        return stash[(kernel, Jd, L)] * (2 * nn ** 3 // 3 + 6 * nn ** 2) + Jd * L * 12 * nn
+    if kernel == "circulant_solve1d":
+        nn, m = ADVECTION_DEEP["nx"] - 1, ADVECTION_DEEP["ms"][0]
+        Ja, L = (ADVECTION_DEEP["nt"] - 1) // m, m - 1
+        return Ja * L * (2 * nn ** 2 + 20 * nn)
+    return None
 
 
 def bound_ms(kernel, stash):
@@ -928,10 +949,13 @@ def phase_kernels():
                 lib_ms = cuda_ms(lib) if lib is not None else None
                 rows[kernel] = dict(max_abs_err=abs_err, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
                                     bound_by=b_by, library_ms=lib_ms)
+                nbytes, nops = headline_work(kernel, stash)
+                alg = algorithm_ops(kernel, stash)
                 print(f"[kernels] {kernel:<20} headline: bound {b_ms:.4f} ms ({b_by}; "
-                      f"{headline_work(kernel, stash)[0] / 1e6:.3f} MB, "
-                      f"{headline_work(kernel, stash)[1] / 1e9:.4f} GFLOP) | library call "
-                      + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none"))
+                      f"{nbytes / 1e6:.3f} MB, {nops / 1e9:.4f} GFLOP)"
+                      + (f" | the kernel's algorithm: {alg / 1e9:.4f} GFLOP, "
+                         f"{alg / PEAK_OPS_PER_S['float64'] * 1e3:.4f} ms" if alg else "")
+                      + " | library call " + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none"))
         torch.cuda.empty_cache()
     return rows
 
@@ -1900,11 +1924,12 @@ def main():
     import torch
     phase_build()
     if "--profile" in sys.argv[1:]:
+        # no checks ran: the last line says so and carries no "ok"
         profile_cells(card)
         print(card)
-        print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                                 "kind": torch.cuda.get_device_name(0),
-                                                 "count": torch.cuda.device_count()}}))
+        print(json.dumps({"profile": True, "device": {"platform": "gpu",
+                                                      "kind": torch.cuda.get_device_name(0),
+                                                      "count": torch.cuda.device_count()}}))
         return
     rows = phase_kernels()
     phase_small()

@@ -27,14 +27,13 @@ import numpy as np
 import torch
 
 from pymgrit_tpu_torch.core.application import Application, model_device
-from pymgrit_tpu_torch.models.step_times import ChainSteps, StepTimes
+from pymgrit_tpu_torch.models.periodic_newton import PeriodicNewtonKrylov
 from pymgrit_tpu_torch.ops import DISPATCH, Ops
-from pymgrit_tpu_torch.ops.cg import newton, newton_stats, pcg, tally
-from pymgrit_tpu_torch.ops.periodic import hartley_basis, ipow, periodic_lap_eigs
+from pymgrit_tpu_torch.ops.periodic import ipow
 from pymgrit_tpu_torch.ops.triton_kernels import periodic_lap_plain
 
 
-class AllenCahn(ChainSteps, Application):
+class AllenCahn(PeriodicNewtonKrylov, Application):
     """u_t = Lap(u) + 1/eps^2 u(1-u^nu), periodic BCs on [-0.5, 0.5]^2.
 
     ``device`` (the CUDA card unless ``"cpu"`` is asked for) places the
@@ -42,6 +41,8 @@ class AllenCahn(ChainSteps, Application):
     (``pymgrit_tpu_torch.ops.DISPATCH`` by default; ``ops.PLAIN`` runs the
     plain versions on any device).  ``stats`` counts the Newton and CG
     iterations of the IMPL and CN steps."""
+
+    krylov = "cg"
 
     def __init__(self, nx: int = 128, nu: int = 2, eps: float = 0.04,
                  newton_maxiter: int = 100, newton_tol: float = 1e-12,
@@ -66,20 +67,14 @@ class AllenCahn(ChainSteps, Application):
 
         self.dx = 1.0 / nx
         self.x = np.linspace(start=-0.5, stop=0.5, num=nx)
-        self.lap_eigs = periodic_lap_eigs(nx, self.dx)
-        self._H = self._tensor(hartley_basis(nx))
-        self._lam = self._tensor(-self.lap_eigs)       # (I - sL) has 1 + s*lam
+        self._periodic_tables(nx, self.dx)
         self._inv_eps2 = 1.0 / eps ** 2
         self._dx2 = self.dx ** 2
-        self._times = StepTimes(self.device)
 
         self.vector_template = torch.zeros((nx, nx), dtype=torch.float64, device=self.device)
         r2 = self.x[:, None] ** 2 + self.x[None, :] ** 2
         self.vector_t_start = self._tensor(np.tanh((radius - np.sqrt(r2)) / (np.sqrt(2) * eps)))
         self.reset_stats()
-
-    def _tensor(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64, device=self.device)
 
     # ------------------------------------------------------------------
     # the operators, on (B, nx, nx) batches
@@ -93,10 +88,6 @@ class AllenCahn(ChainSteps, Application):
         """The reaction u (1 - u^nu) / eps^2 (plain)."""
         return self._inv_eps2 * u * (1.0 - ipow(u, self.nu))
 
-    def _fft_solve(self, shift, b):
-        """(I - shift_b L)^-1 b_b; shift: (B,) tensor (K10)."""
-        return self.ops.periodic_solve2d(b, torch.empty_like(b), self._H, self._lam, shift)
-
     def g_of(self, u, rhs, fac):
         """Newton residual u - fac (L u + f(u)) - rhs and its per-lane max
         |.| (K11)."""
@@ -107,16 +98,6 @@ class AllenCahn(ChainSteps, Application):
         """Jacobian of g at u applied to v (K11)."""
         return self.ops.allen_cahn_pointwise("jacobian", u, torch.empty_like(u), fac,
                                              self._inv_eps2, self._dx2, self.nu, x=v)
-
-    def _newton_solve(self, rhs, fac, u0):
-        """Solve u - fac (L u + f(u)) = rhs per lane from u0; returns (u,
-        Newton iterations, CG iterations) with (B,) counts."""
-        def linear_solve(u, g):
-            return pcg(lambda v: self.jac_mv(u, v, fac), g, lambda v: self._fft_solve(fac, v),
-                       self.lin_tol, self.lin_maxiter)
-
-        return newton(lambda u: self.g_of(u, rhs, fac), linear_solve, u0, self.newton_tol,
-                      self.newton_maxiter)
 
     def _step_into(self, u, dt, out, g=None):
         """One step of every state of u with (B,) step sizes dt into out
@@ -131,28 +112,7 @@ class AllenCahn(ChainSteps, Application):
                                                 self._inv_eps2, self._dx2, self.nu)
         else:
             fac, rhs = dt, u
-        x, n, k = self._newton_solve(rhs, fac, u)
-        out.copy_(x if g is None else g + x)
-        tally(self.stats, n, k, "cg")
-
-    def reset_stats(self) -> None:
-        self.stats = newton_stats("cg")
-
-    # ------------------------------------------------------------------
-    # stepping
-    # ------------------------------------------------------------------
-
-    def step_chain(self, seed, t_prev, t_curr, out, g=None):
-        """J chains of L steps: out[:, k] = [g[:, k] +] Phi(out[:, k-1]) with
-        out[:, -1] = seed.  seed: (J, nx, nx); t_prev, t_curr: (L, J) numpy
-        step times; out, g: (J, L, nx, nx) views (g optional) that must not
-        overlap seed.  Returns out."""
-        dts = self._times.steps(t_prev, t_curr, seed.dtype)
-        x = seed
-        for k in range(dts.shape[0]):
-            self._step_into(x, dts[k], out[:, k], None if g is None else g[:, k])
-            x = out[:, k]
-        return out
+        self._newton_into(rhs, fac, u, out, g)
 
     # ------------------------------------------------------------------
     # diagnostics (reference allen_cahn.py:246-260)

@@ -19,11 +19,9 @@ import numpy as np
 import torch
 
 from pymgrit_tpu_torch.core.application import Application, model_device
+from pymgrit_tpu_torch.models.periodic_newton import PeriodicNewtonKrylov
 from pymgrit_tpu_torch.models.step_times import ChainSteps, StepTimes
 from pymgrit_tpu_torch.ops import DISPATCH, Ops
-from pymgrit_tpu_torch.ops.cg import bicgstab, newton, newton_stats, tally
-from pymgrit_tpu_torch.ops.dense_newton import periodic_differences
-from pymgrit_tpu_torch.ops.periodic import hartley_basis, periodic_lap_eigs
 
 
 class Burgers1D(ChainSteps, Application):
@@ -47,7 +45,6 @@ class Burgers1D(ChainSteps, Application):
         self.newton_maxiter = newton_maxiter
         self.device = model_device(device)
         self.ops = ops
-        self.D1, self.D2 = periodic_differences(nx, self.dx)
         self._times = StepTimes(self.device)
         self.vector_template = torch.zeros(nx, dtype=torch.float64, device=self.device)
         self.vector_t_start = torch.as_tensor(np.sin(2 * np.pi * self.x), dtype=torch.float64,
@@ -73,7 +70,7 @@ class Burgers1D(ChainSteps, Application):
         return out
 
 
-class Burgers2D(ChainSteps, Application):
+class Burgers2D(PeriodicNewtonKrylov, Application):
     """2D viscous Burgers velocity field, periodic, BE + Newton-Krylov.
 
     ``device`` and ``ops`` as for ``Burgers1D``; ``stats`` counts the Newton
@@ -93,25 +90,13 @@ class Burgers2D(ChainSteps, Application):
         self.device = model_device(device)
         self.ops = ops
 
-        self.lap_eigs = periodic_lap_eigs(nx, self.dx)
-        self._H = self._tensor(hartley_basis(nx))
-        self._lam = self._tensor(-self.lap_eigs)
-        self._coef = self._tensor([nu, nu])
-        self._times = StepTimes(self.device)
+        self._periodic_tables(nx, self.dx, coef=[nu, nu])
 
         x = np.linspace(0, 1, nx, endpoint=False)
         X, _ = np.meshgrid(x, x, indexing='ij')
         self.vector_template = torch.zeros((2, nx, nx), dtype=torch.float64, device=self.device)
         self.vector_t_start = self._tensor(np.stack([np.sin(np.pi * X), np.zeros((nx, nx))]))
         self.reset_stats()
-
-    def _tensor(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64, device=self.device)
-
-    def _fft_visc_solve(self, dt, rhs):
-        """(I - dt nu Lap)^-1 rhs per lane and component (K10)."""
-        return self.ops.periodic_solve2d(rhs, torch.empty_like(rhs), self._H, self._lam, dt,
-                                         coef=self._coef)
 
     def g_of(self, s, s0, dt):
         """Newton residual s - s0 + dt (C(s) - nu Lap s) and its per-lane
@@ -124,28 +109,7 @@ class Burgers2D(ChainSteps, Application):
         return self.ops.burgers2d_pointwise("jacobian", s, torch.empty_like(s), dt, self.nu,
                                             self.dx, w=w)
 
-    def _newton(self, s0, dt):
-        """Newton-BiCGStab solve per lane from s0; returns (s, Newton
-        iterations, BiCGStab iterations) with (B,) counts."""
-        def linear_solve(s, g):
-            return bicgstab(lambda w: self.jac_mv(s, w, dt), g,
-                            lambda w: self._fft_visc_solve(dt, w), self.lin_tol, self.lin_maxiter)
-
-        return newton(lambda s: self.g_of(s, s0, dt), linear_solve, s0, self.newton_tol,
-                      self.newton_maxiter)
-
-    def reset_stats(self) -> None:
-        self.stats = newton_stats("bicgstab")
-
-    def step_chain(self, seed, t_prev, t_curr, out, g=None):
-        """J chains of L steps: out[:, k] = [g[:, k] +] Phi(out[:, k-1]) with
-        out[:, -1] = seed.  seed: (J, 2, nx, nx); t_prev, t_curr: (L, J)
-        numpy step times; out, g: (J, L, 2, nx, nx) views.  Returns out."""
-        dts = self._times.steps(t_prev, t_curr, seed.dtype)
-        x = seed
-        for k in range(dts.shape[0]):
-            s, n, lin = self._newton(x, dts[k])
-            out[:, k] = s if g is None else g[:, k] + s
-            x = out[:, k]
-            tally(self.stats, n, lin, "bicgstab")
-        return out
+    def _step_into(self, s, dt, out, g=None):
+        """One backward-Euler Newton-BiCGStab step of every state of s with
+        (B,) step sizes dt into out [+ g]."""
+        self._newton_into(s, dt, s, out, g)

@@ -27,13 +27,11 @@ import numpy as np
 import torch
 
 from pymgrit_tpu_torch.core.application import Application, model_device
-from pymgrit_tpu_torch.models.step_times import ChainSteps, StepTimes
+from pymgrit_tpu_torch.models.periodic_newton import PeriodicNewtonKrylov
 from pymgrit_tpu_torch.ops import DISPATCH, Ops
-from pymgrit_tpu_torch.ops.cg import bicgstab, newton, newton_stats, tally
-from pymgrit_tpu_torch.ops.periodic import hartley_basis, periodic_lap_eigs
 
 
-class GrayScott2D(ChainSteps, Application):
+class GrayScott2D(PeriodicNewtonKrylov, Application):
     """Gray-Scott reaction-diffusion with IMEX / IMPL / EXPL steppers.
 
     ``device`` (the CUDA card unless ``"cpu"`` is asked for) places the
@@ -66,11 +64,7 @@ class GrayScott2D(ChainSteps, Application):
         self.device = model_device(device)
         self.ops = ops
 
-        self.lap_eigs = periodic_lap_eigs(nx, self.dx)
-        self._H = self._tensor(hartley_basis(nx))
-        self._lam = self._tensor(-self.lap_eigs)       # (I - sL) has 1 + s*lam
-        self._coef = self._tensor([du, dv])
-        self._times = StepTimes(self.device)
+        self._periodic_tables(nx, self.dx, coef=[du, dv])
 
         self.vector_template = torch.zeros((2, nx, nx), dtype=torch.float64, device=self.device)
         x = np.linspace(-L / 2, L / 2, nx, endpoint=False)
@@ -83,17 +77,9 @@ class GrayScott2D(ChainSteps, Application):
         self.vector_t_start = self._tensor(np.stack([u0, v0]))
         self.reset_stats()
 
-    def _tensor(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64, device=self.device)
-
     # ------------------------------------------------------------------
     # the operators, on (B, 2, nx, nx) batches with (B,) step sizes dt
     # ------------------------------------------------------------------
-
-    def _fft_solve_diffusion(self, dt, rhs):
-        """(I - dt diag(du, dv) Lap)^-1 rhs per lane and species (K10)."""
-        return self.ops.periodic_solve2d(rhs, torch.empty_like(rhs), self._H, self._lam, dt,
-                                         coef=self._coef)
 
     def _pointwise(self, mode, s, dt, **kw):
         return self.ops.gray_scott_pointwise(mode, s, torch.empty_like(s), dt, self.du, self.dv,
@@ -108,16 +94,8 @@ class GrayScott2D(ChainSteps, Application):
         """Jacobian of g at s applied to w (K14)."""
         return self._pointwise("jacobian", s, dt, w=w)
 
-    def _newton(self, s0, dt):
-        """Backward-Euler Newton-BiCGStab solve per lane from s0; returns
-        (s, Newton iterations, BiCGStab iterations) with (B,) counts."""
-        def linear_solve(s, g):
-            return bicgstab(lambda w: self.jac_mv(s, w, dt), g,
-                            lambda w: self._fft_solve_diffusion(dt, w), self.lsol_tol,
-                            self.lsol_maxiter)
-
-        return newton(lambda s: self.g_of(s, s0, dt), linear_solve, s0, self.nlsol_tol,
-                      self.nlsol_maxiter)
+    def _newton_tols(self):
+        return self.nlsol_tol, self.nlsol_maxiter, self.lsol_tol, self.lsol_maxiter
 
     def _step_into(self, s, dt, out, g=None):
         """One step of every state of s with (B,) step sizes dt into out
@@ -130,21 +108,4 @@ class GrayScott2D(ChainSteps, Application):
             self.ops.periodic_solve2d(s, out, self._H, self._lam, dt, g=g, coef=self._coef,
                                       gray_scott=(self.a, self.b))
             return
-        x, n, k = self._newton(s, dt)
-        out.copy_(x if g is None else g + x)
-        tally(self.stats, n, k, "bicgstab")
-
-    def reset_stats(self) -> None:
-        self.stats = newton_stats("bicgstab")
-
-    def step_chain(self, seed, t_prev, t_curr, out, g=None):
-        """J chains of L steps: out[:, k] = [g[:, k] +] Phi(out[:, k-1]) with
-        out[:, -1] = seed.  seed: (J, 2, nx, nx); t_prev, t_curr: (L, J)
-        numpy step times; out, g: (J, L, 2, nx, nx) views (g optional) that
-        must not overlap seed.  Returns out."""
-        dts = self._times.steps(t_prev, t_curr, seed.dtype)
-        x = seed
-        for k in range(dts.shape[0]):
-            self._step_into(x, dts[k], out[:, k], None if g is None else g[:, k])
-            x = out[:, k]
-        return out
+        self._newton_into(s, dt, s, out, g)

@@ -126,7 +126,7 @@ def test_operators_match_jax(nx):
     b = np.random.default_rng(nx + 1).standard_normal(us.shape)
     shifts = np.array([1e-3, 2e-3, 5e-4])
     facs = np.array([5e-4, 1e-3, 2.5e-4])
-    _close(ap._fft_solve(_t(shifts), _t(b)),
+    _close(ap._diffusion_solve(_t(shifts), _t(b)),
            np.stack([aj._fft_solve(s, jnp.asarray(x)) for s, x in zip(shifts, b)]))
     _close(ap._lap(_t(us)), np.stack([aj._lap(jnp.asarray(u)) for u in us]))
     _close(ap._nonlin(_t(us)), np.stack([aj._nonlin(jnp.asarray(u)) for u in us]))
@@ -206,7 +206,7 @@ def test_newton_and_cg_counts_per_lane_match_jax(method):
     us = _states(aj, 11)
     facs = np.array([5e-4, 2e-3, 1e-3])
     rhs = us if method == "IMPL" else us + 1e-3 * np.random.default_rng(1).standard_normal(us.shape)
-    u, n, k = ap._newton_solve(_t(rhs), _t(facs), _t(us))
+    u, n, k = ap._newton_krylov(_t(rhs), _t(facs), _t(us))
     for i in range(3):
         uj, nj, kj = _jax_counts(aj, rhs[i], facs[i], us[i])
         assert (int(n[i]), int(k[i])) == (nj, kj)
@@ -222,7 +222,7 @@ def test_newton_stops_at_maxiter_and_on_nan():
                      newton_maxiter=3, device="cpu")
     u = ap.vector_t_start.expand(2, 8, 8).clone()
     u[1, 2, 3] = float("nan")
-    x, n, k = ap._newton_solve(u, torch.tensor([1e-3, 1e-3], dtype=torch.float64), u)
+    x, n, k = ap._newton_krylov(u, torch.tensor([1e-3, 1e-3], dtype=torch.float64), u)
     assert n.tolist() == [3, 0]
     assert bool(torch.isnan(x[1]).any()) and bool(torch.isfinite(x[0]).all())
 

@@ -119,7 +119,7 @@ def test_operators_match_jax(nx):
     ss = _states(gj, nx)
     w = np.random.default_rng(nx + 1).standard_normal(ss.shape)
     dts = np.array([0.5, 1.0, 0.25])
-    _close(gp._fft_solve_diffusion(_t(dts), _t(w)),
+    _close(gp._diffusion_solve(_t(dts), _t(w)),
            np.stack([gj._fft_solve_diffusion(d, jnp.asarray(x)) for d, x in zip(dts, w)]))
     g, gmax = gp.g_of(_t(ss), _t(w), _t(dts))
     gjx = np.stack([s - d * (gj._diffuse(jnp.asarray(s)) + gj._reaction(jnp.asarray(s))) - s0
@@ -201,7 +201,7 @@ def test_newton_and_bicgstab_counts_per_lane_match_jax():
     gj, gp = _pair(12, "IMPL")
     ss = _states(gj, 11)
     dts = np.array([0.5, 2.0, 1.0])
-    s, n, k = gp._newton(_t(ss), _t(dts))
+    s, n, k = gp._newton_krylov(_t(ss), _t(dts), _t(ss))
     for i in range(3):
         sj, nj, kj = _jax_counts(gj, ss[i], dts[i])
         assert (int(n[i]), int(k[i])) == (nj, kj)
@@ -217,7 +217,7 @@ def test_newton_stops_at_maxiter_and_on_nan():
                        nlsol_maxiter=2, **CPU)
     s = gp.vector_t_start.expand(2, 2, 8, 8).clone()
     s[1, 1, 2, 3] = float("nan")
-    x, n, k = gp._newton(s, torch.tensor([0.5, 0.5], dtype=torch.float64))
+    x, n, k = gp._newton_krylov(s, torch.tensor([0.5, 0.5], dtype=torch.float64), s)
     assert n.tolist() == [2, 0] and int(k[1]) == 0
     assert bool(torch.isnan(x[1]).any()) and bool(torch.isfinite(x[0]).all())
 
@@ -290,3 +290,36 @@ def test_checkpoint_continuation(tmp_path):
     hj, hp = mj.solve()["conv"][:2], mp.solve()["conv"]
     assert np.all(np.isfinite(hj))
     _check_history(hp, hj, mp)
+
+
+def demo_at_history(mod, nx, nt, iters):
+    """``examples/at_mgrit/example_at_mgrit_gray_scott.py``'s solver --
+    IMEX, AtMgrit(k=8), coarsening 16/4, tol 1e-7 -- at the demo's fine step
+    8 / 2^14 on t in [0, 8 (nt - 1) / 2^14]: (solver, history)."""
+    problem = _build(mod, "IMEX", nx=nx, nt=nt, ms=(16, 4), t_stop=8.0 * (nt - 1) / 2 ** 14)
+    mg = mod.AtMgrit(k=8, problem=problem, tol=1e-7, max_iter=iters, logging_lvl=40)
+    return mg, np.asarray(mg.solve()["conv"])
+
+
+# the demo's AT(8) reduces its residual by this factor an iteration from the
+# first (the JAX package on the CPU, nx = 16, nt = 4097)
+DEMO_AT_RATE = 0.993246
+
+
+def test_demo_at_mgrit_stalls_as_in_jax():
+    """On [0, 2] at the demo's fine step both packages stall alike: the same
+    history, reduced by DEMO_AT_RATE an iteration (rtol 1e-5)."""
+    (mj, hj), (mp, hp) = (demo_at_history(mod, 16, 4097, 3) for mod in (J, P))
+    _check_history(hp, hj, mp)
+    np.testing.assert_allclose(hj[1:] / hj[:-1], DEMO_AT_RATE, rtol=1e-5)
+
+
+if __name__ == "__main__":
+    # JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_gray_scott.py NX NT ITERS jax|torch
+    # prints the demo's AT history and its reduction per iteration in one
+    # package on the CPU (nx = 128, nt = 4097 takes about 7 GB)
+    import sys
+    nx_, nt_, iters_ = (int(a) for a in sys.argv[1:4])
+    _, h = demo_at_history(J if sys.argv[4] == "jax" else P, nx_, nt_, iters_)
+    print(sys.argv[4], f"nx={nx_} nt={nt_}", "history", h.tolist(), "per iteration",
+          (h[1:] / h[:-1]).tolist())
