@@ -13,13 +13,15 @@ phases:
 1. device    the card's name and power limit (nvidia-smi); a CUDA device is
              required, there is no CPU carry-on;
 2. build     nvcc builds the CUDA C++ kernels (K1, K2, K5, K6, K8, K9, K10, K12,
-             K16, K17) from ``csrc/``, one process per source, all started
+             K16, K17, K20) from ``csrc/``, one process per source, all started
              together;
-3. kernels   K1-K17 against their plain PyTorch versions at the main paths'
-             shapes (and odd ones), float32 and float64, with timings; for
-             each kernel's headline case its bound (bytes or FP64 operations
-             over the H100's peaks) and, where one PyTorch call computes the
-             same function, that call's time;
+3. kernels   K1-K20 against their plain PyTorch versions at the main paths'
+             shapes (and odd ones, and K5/K6/K10/K16/K17 past the sizes
+             their wrappers once refused), float32 and float64, with
+             timings; for each kernel's headline case (and each case that
+             records its work) its bound (bytes or FP64 operations over the
+             H100's peaks) and, where one PyTorch call computes the same
+             function, that call's time;
 4. small     Heat2D nx=17, nt=129, ms=(4, 4): the port on the CPU (plain
              versions) against the port on the GPU (kernels);
 5. main      the full spectral TOMS solve through K1-K4: launch counts,
@@ -58,7 +60,17 @@ phases:
              deep Burgers1D grid (K16 on 256 lanes), Burgers2D at 64^2 (K15 +
              K10), kernels against plain;
 13. advection ``examples/example_advection.py`` (K17) against its JAX golden,
-             a deep grid (K17 on 4096 lanes), kernels against plain.
+             a deep grid (K17 on 4096 lanes), kernels against plain;
+14. spatial  ``bench.py``'s ``spatial65`` row: Heat2D (physical) 65^2 -> 33^2
+             -> 17^2 -> 9^2 through ``GridTransferHeat2D`` (K18, K19), nt =
+             4097, coarsening 4/4/4, condensed level 0, kernels against
+             plain in alternating pairs and against the JAX package's
+             history; then ``examples/example_spatial_coarsening.py``
+             (Heat1D physical through K20, ``GridTransferHeat``) against
+             its golden and its JAX history (``[spatial1d]``);
+15. c2       ``bench.py``'s toms257 physical row (257^2, nt = 4097, 32/16/4,
+             two iterations): K5 and K6 past their one-tile side, kernels
+             against plain.
 
 ``python3 chip_smoke.py --profile`` runs phases 1-2 and then one profiled
 solve of each configuration of phases 11-13 (``torch.profiler``): device
@@ -93,8 +105,10 @@ MAIN_TOL, MAIN_MAX_ITER = 1e-10, 30
 SMALL_MAX_ITER = 5
 FE_MAX_ITER = 8
 # bench.py's run_atmgrit_equal_accuracy_row: Dahlquist BE, lambda = -1, two
-# levels with m = 8, coarsest dt 0.2, AT window k = 128, three iterations
-DAHLQUIST = dict(nt=2 ** 19 + 1, t_end=13107.2, m=8, k=128, max_iter=3)
+# levels with m = 8, coarsest dt 0.2, AT window k = 128, three iterations;
+# cut in depth from the row's nt = 2^19 + 1 to 2^17 + 1 (same dt): the
+# port's sequential scan is a Python loop of one batched step a point
+DAHLQUIST = dict(nt=2 ** 17 + 1, t_end=3276.8, m=8, k=128, max_iter=3)
 # bench.py's run_atmgrit_coarsest_row at the TOMS width: two levels, m = 8
 TOMS2 = dict(nx=129, nt=2 ** 14 + 1, ms=(8,))
 TOMS2_AT_K, TOMS2_AT_ITERS = 64, 3
@@ -193,6 +207,31 @@ ADVECTION_DEEP = dict(nx=129, nt=2 ** 14 + 1, ms=(4, 4, 4), tol=1e-7, max_iter=1
 # a model's history against the JAX package's: rtol 1e-8 with the float64
 # floor (the two packages round their solves differently)
 GOLDEN_RTOL = 1e-8
+# bench.py's spatial65 row (run_spatial_row, CONFIGS["base65"]): Heat2D
+# physical, spatial sizes 65/33/17/9, nt = 4097, coarsening 4/4/4, FCF,
+# condensed level 0, tol 1e-300 (five iterations); its history from the
+# JAX package on the CPU (float64, measured when this phase was written)
+SPATIAL = dict(sizes=(65, 33, 17, 9), nt=4097, ms=(4, 4, 4), tol=1e-300, max_iter=5)
+SPATIAL_JAX = np.array([0.002975422173066239, 0.00021810992106929722, 1.4544992642190462e-05,
+                        9.954000009896153e-07, 6.922021547896727e-08])
+# examples/example_spatial_coarsening.py: Heat1D 17/9/5/5 points on [0, 2],
+# nt = 129, coarsening 2/2/2, GridTransferHeat on the first two pairs;
+# tests/core/test_solver_goldens_2.py::test_spatial_coarsening's golden
+# (rtol 2e-3) and the JAX package's history (CPU, float64)
+SPATIAL1D_GOLDEN, SPATIAL1D_GOLDEN_RTOL = np.array([3.3795e-2, 2.9794e-3, 3.2555e-4, 4.0429e-5,
+                                                    4.9316e-6, 6.1785e-7, 7.7088e-8]), 2e-3
+SPATIAL1D_JAX = np.array([0.03379534189415516, 0.0029793978719819237, 0.0003255502806465037,
+                          4.042946916027581e-05, 4.931580578188496e-06, 6.178527942871324e-07,
+                          7.708784684451865e-08])
+# bench.py's toms257 physical row in its nt = 4097 fallback (run_xl_row:
+# 257^2, coarsening 32/16/4), cut to two iterations: K5 and K6 run past the
+# one-tile side (interior 255 > 128)
+TOMS257 = dict(nx=257, nt=4097, ms=(32, 16, 4), tol=1e-300, max_iter=2)
+TRANSFER_KERNELS = ("restrict_combine", "interpolate_combine")
+SPATIAL_AB_PAIRS = 6      # fused hooks against the unfused route on spatial65
+SPATIAL_KERNELS = ("sine_solve2d", "sine_affine2d", "theta_rhs2d", "residual_row_norms")
+SPATIAL1D_KERNELS = ("restrict_combine", "interpolate_combine", "sine_solve1d",
+                     "residual_row_norms", "cpoint_combine")
 SLICE_KERNELS = {"gray_scott": {"IMEX": ("periodic_solve2d",),
                                 "IMPL": ("periodic_solve2d", "gray_scott_pointwise"),
                                 "EXPL": ("gray_scott_pointwise",)},
@@ -511,7 +550,8 @@ def kernel_cases(dtype, dev, stash):
     stash[("library", "residual_row_norms")] = lambda: torch.linalg.vector_norm(a[1:] - b[:J],
                                                                                 dim=1)
     return (cases + coarsest_cases(dtype, dev, rng, lam) + nonlinear_cases(dtype, dev, rng, stash)
-            + slice_cases(dtype, dev, rng, stash))
+            + slice_cases(dtype, dev, rng, stash) + transfer_cases(dtype, dev, rng, stash)
+            + heat1d_cases(dtype, dev, rng, stash) + past_cap_cases(dtype, dev, rng, stash))
 
 
 def coarsest_cases(dtype, dev, rng, lam):
@@ -819,6 +859,221 @@ def slice_cases(dtype, dev, rng, stash):
     return cases
 
 
+def transfer_cases(dtype, dev, rng, stash):
+    """K18 and K19 at the shapes of the [spatial] and [spatial1d] phases.
+    2D: spatial65's level 0, 1024 C-rows of 65^2 (strided rows of the
+    condensed tube) <-> 33^2: the FAS right-hand side (two terms, two adds),
+    the restriction of the C-rows (one term), the correction and nested
+    iteration's interpolation.  1D: the example's level 0, 64 C-rows of 15
+    <-> 7 interior points, the same four calls.  Each case's one PyTorch
+    call for the transfer alone (the strided slice copy for injection,
+    F.conv1d with stride 2 for full weighting, F.interpolate bilinear with
+    aligned corners, F.conv_transpose1d with stride 2 for 1D linear
+    interpolation) is timed beside it, and its bytes are recorded."""
+    import torch
+    import torch.nn.functional as F
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+
+    cases = []
+    for dim, fine, coarse, rows in ((2, (65, 65), (33, 33), 1024), (1, (15,), (7,), 64)):
+        tube_f = t(rng.uniform(-1, 1, (rows + 1,) + fine))
+        step_f = t(rng.uniform(-1, 1, (rows,) + fine))
+        tube_c, step_c = (t(rng.uniform(-1, 1, (rows + 1,) + coarse)) for _ in range(2))
+        label = f"{'spatial65' if dim == 2 else 'example'} {dim}D R={rows}"
+        nf, ncs = int(np.prod(fine)), int(np.prod(coarse))
+
+        def fas(ops, tube_f=tube_f, step_f=step_f, tube_c=tube_c, step_c=step_c, dim=dim):
+            out = torch.empty_like(tube_c)[1:]
+            return ops.restrict_combine(out, [step_f, tube_f[1:]], [1.0, -1.0],
+                                        [tube_c[1:], step_c[1:]], [1.0, -1.0], dim)
+
+        def restrict(ops, tube_f=tube_f, tube_c=tube_c, dim=dim):
+            return ops.restrict_combine(torch.empty_like(tube_c), [tube_f], [1.0], dim=dim)
+
+        def correct(ops, tube_f=tube_f, tube_c=tube_c, step_c=step_c, dim=dim):
+            dst = tube_f.clone()
+            ops.interpolate_combine(dst[1:], tube_c[1:], step_c[1:], dim)
+            return dst
+
+        def nested(ops, tube_f=tube_f, tube_c=tube_c, dim=dim):
+            dst = torch.empty_like(tube_f)
+            return ops.interpolate_combine(dst[1:], tube_c[1:], None, dim)[1:]
+
+        cases += [("restrict_combine", f"FAS {label}", fas),
+                  ("restrict_combine", f"restrict C-rows {label}", restrict),
+                  ("interpolate_combine", f"correction {label}", correct),
+                  ("interpolate_combine", f"nested {label}", nested)]
+        # the bytes each function needs: injection reads the coincident fine
+        # points only, full weighting every fine point; the correction reads
+        # and writes dst
+        need = ncs if dim == 2 else nf
+        stash[("work", "restrict_combine", f"FAS {label}")] = (8 * rows * (2 * need + 3 * ncs), 0)
+        stash[("work", "restrict_combine", f"restrict C-rows {label}")] = (
+            8 * (rows + 1) * (need + ncs), 0)
+        stash[("work", "interpolate_combine", f"correction {label}")] = (
+            8 * rows * (2 * ncs + 2 * nf), 0)
+        stash[("work", "interpolate_combine", f"nested {label}")] = (8 * rows * (ncs + nf), 0)
+        if dim == 2:
+            inj_out = torch.empty_like(tube_c)
+            stash[("library", "restrict_combine", f"FAS {label}")] = \
+                lambda f=tube_f, o=inj_out: o.copy_(f[:, ::2, ::2])
+            stash[("library", "interpolate_combine", f"correction {label}")] = \
+                lambda c=tube_c, size=fine: F.interpolate(c[1:, None], size=size, mode="bilinear",
+                                                          align_corners=True)
+        else:
+            w_r = t([[[0.25, 0.5, 0.25]]])
+            w_p = t([[[0.5, 1.0, 0.5]]])
+            stash[("library", "restrict_combine", f"FAS {label}")] = \
+                lambda f=tube_f, w=w_r: F.conv1d(f[:, None], w, stride=2)
+            stash[("library", "interpolate_combine", f"correction {label}")] = \
+                lambda c=tube_c, w=w_p: F.conv_transpose1d(c[1:, None], w, stride=2)
+    for kernel in TRANSFER_KERNELS:
+        case = ("FAS" if kernel == "restrict_combine" else "correction") + " spatial65 2D R=1024"
+        stash[("library", kernel)] = stash[("library", kernel, case)]
+    return cases
+
+
+def heat1d_cases(dtype, dev, rng, stash):
+    """K20 at the [spatial1d] phase's level-0 shape: the physical Heat1D
+    step of 64 rows of 15 interior points (the F- and C-relaxation's
+    step_batched, a time-dependent rhs row per state), the sine transform
+    of those rows (relax_interval's), and a wide step (1024 rows of 1023
+    points, 32 x 32 tiles in both directions); each with the bytes and
+    operations its function needs, the transform with torch.matmul beside
+    it."""
+    import torch
+    from pymgrit_tpu_torch.ops.dirichlet_spectral import sine_eigenbasis
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+
+    cases = []
+    for label, B, n, fac in (("example", 64, 15, 64.0), ("wide", 1024, 1023, 1024.0 ** 2)):
+        S_np, lam_np = sine_eigenbasis(n, fac)
+        S, lam = t(S_np), t(lam_np)
+        tube = t(rng.uniform(-1, 1, (B + 1, n)))
+        rhs_rows = t(rng.uniform(-1, 1, (B, n)))
+        dt = t(np.full(B, 2.0 / 128 if label == "example" else 1.0 / 4096))
+
+        def step(ops, tube=tube, rhs_rows=rhs_rows, dt=dt, S=S, lam=lam, B=B, n=n):
+            out = torch.empty((B, n), dtype=dtype, device=dev)
+            return ops.sine_solve1d(tube[:B], out, S, lam, dt, rhs_rows)
+
+        case = f"{label} step B={B} n={n}"
+        cases.append(("sine_solve1d", case, step))
+        stash[("work", "sine_solve1d", case)] = (8 * (3 * B * n + n * n + n + B),
+                                                 4 * B * n * n + 5 * B * n)
+        if label == "example":
+            def transform(ops, tube=tube, S=S, B=B, n=n):
+                out = torch.empty((B, n), dtype=dtype, device=dev)
+                return ops.sine_solve1d(tube[1:], out, S)
+
+            case = f"{label} transform B={B} n={n}"
+            cases.append(("sine_solve1d", case, transform))
+            stash[("work", "sine_solve1d", case)] = (8 * (2 * B * n + n * n), 2 * B * n * n)
+            stash[("library", "sine_solve1d", case)] = lambda x=tube[1:], S=S: x @ S
+    return cases
+
+
+def past_cap_cases(dtype, dev, rng, stash):
+    """K5, K6, K10, K16 and K17 past the sizes at which their wrappers
+    raised before: K5 and K6 at the toms257 interior 255 (K5: the
+    level-0 seed solve of 128 states with the ring; K6: the condensed
+    C-step of 128 intervals), K10 at n = 256 (64 Allen-Cahn IMEX states),
+    K16 at n = 512 (32 lanes x 3 steps), K17 at n = 4096 (256 lanes x 3
+    steps, both branches); each with the bytes and operations its function
+    needs."""
+    import torch
+    from pymgrit_tpu_torch.ops import DISPATCH
+    from pymgrit_tpu_torch.ops.dirichlet_spectral import sine_eigenbasis
+    from pymgrit_tpu_torch.ops.periodic import hartley_basis, periodic_lap_eigs
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+
+    cases = []
+    n = TOMS257["nx"] - 2
+    B, P2, N = (TOMS257["nt"] - 1) // TOMS257["ms"][0], (n + 2) ** 2, n * n
+    S = t(sine_eigenbasis(n, (n + 1.0) ** 2)[0])
+    lam = t(rng.uniform(0, 4e5, (n, n)))
+    ring_np = rng.uniform(-1, 1, (n + 2, n + 2))
+    ring_np[1:-1, 1:-1] = 0.0
+    ring = t(ring_np)
+    tube = t(rng.uniform(-1, 1, (B + 1, n + 2, n + 2)))
+    dt0 = 1.0 / (TOMS257["nt"] - 1)
+
+    def k5(ops):
+        out = torch.empty_like(tube)
+        return ops.sine_solve2d(tube[:B, 1:-1, 1:-1], out[1:], S, S, lam, dt0, ring)
+
+    xhat = t(rng.uniform(-1, 1, (B, N)))
+    A, G = t(rng.uniform(0, 1, (32, N))), t(rng.uniform(-1, 1, (32, N)))
+
+    def k6(ops):
+        out = torch.empty((1, B, n + 2, n + 2), dtype=dtype, device=dev)
+        ops.sine_affine2d(xhat, A, G, out.transpose(0, 1), S, S, 31, ring)
+        return out
+
+    cases += [("sine_solve2d", f"toms257 solve B={B} n={n}", k5),
+              ("sine_affine2d", f"toms257 C-step J={B} n={n}", k6)]
+    stash[("work", "sine_solve2d", f"toms257 solve B={B} n={n}")] = (
+        8 * (B * N + B * P2 + 3 * N + P2), B * (8 * n ** 3 + 3 * N))
+    stash[("work", "sine_affine2d", f"toms257 C-step J={B} n={n}")] = (
+        8 * (B * N + 2 * N + B * P2 + P2), B * (4 * n ** 3 + 2 * N))
+
+    nh, Bh = 256, 64
+    H, lam_h = t(hartley_basis(nh)), t(-periodic_lap_eigs(nh, 1.0 / nh))
+    states = t(rng.uniform(-1, 1, (Bh, nh, nh)))
+    shift = t(np.full(Bh, 1e-5))
+
+    def k10(ops):
+        return ops.periodic_solve2d(states, torch.empty_like(states), H, lam_h, shift, nu=2,
+                                    inv_eps2=625.0)
+
+    cases.append(("periodic_solve2d", f"IMEX B={Bh} n={nh}", k10))
+    stash[("work", "periodic_solve2d", f"IMEX B={Bh} n={nh}")] = (
+        8 * (2 * Bh * nh ** 2 + 2 * nh ** 2 + Bh), Bh * (8 * nh ** 3 + 10 * nh ** 2))
+
+    nb, Jb, Lb = 512, 32, 3
+    xb = np.linspace(0, 1, nb, endpoint=False)
+    seeds = t(np.sin(2 * np.pi * xb) * rng.uniform(0.8, 1.2, (Jb, 1)))
+    dts = t(np.full((Lb, Jb), 1.0 / 4096))
+    tol, maxiter = (1e-12, 30) if dtype == torch.float64 else (0.0, 4)
+
+    def k16(ops):
+        out = torch.empty((Jb, Lb, nb), dtype=dtype, device=dev)
+        iters = torch.zeros((Lb, Jb), dtype=torch.int32, device=dev)
+        ops.burgers1d_newton(seeds, dts, out, None, 0.02, 1.0 / nb, tol, maxiter, iters)
+        if ops is DISPATCH:
+            stash[("burgers1d_newton", Jb, Lb, nb)] = int(iters.sum())
+        return torch.cat([out.flatten(), iters.flatten().to(dtype)])
+
+    case16 = f"wide J={Jb} L={Lb} n={nb}"
+    cases.append(("burgers1d_newton", case16, k16))
+    stash[("work", "burgers1d_newton", case16)] = lambda: (
+        8 * (Jb * nb + Lb * Jb + Jb * Lb * nb),
+        stash[("burgers1d_newton", Jb, Lb, nb)] * 60 * nb + Jb * Lb * nb)
+
+    na, Ja, La = 4096, 256, 3
+    xa = np.linspace(-1, 1, na + 1)[:-1]
+    seeds_a = t(np.exp(-xa ** 2) * rng.uniform(0.5, 1.5, (Ja, 1)))
+    fac = 1.0 / (xa[1] - xa[0])
+    for sign, step in ((1.0, 2.0 / 16384), (-1.0, 0.05)):
+        dts_a = t(np.full((La, Ja), step))
+
+        def k17(ops, dts_a=dts_a, sign=sign):
+            out = torch.empty((Ja, La, na), dtype=dtype, device=dev)
+            return ops.circulant_solve1d(seeds_a, dts_a, out, None, sign * fac)
+
+        case17 = f"long J={Ja} L={La} n={na}" + (" c<-1/2" if sign < 0 else "")
+        cases.append(("circulant_solve1d", case17, k17))
+        stash[("work", "circulant_solve1d", case17)] = (
+            8 * (Ja * na + La * Ja + Ja * La * na), Ja * La * 6 * na)
+    return cases
+
+
 def headline_work(kernel, stash):
     """(bytes, operations) of a kernel's headline case in float64: each
     input read once and each output written once; the operations the
@@ -866,7 +1121,7 @@ def headline_work(kernel, stash):
     if kernel == "burgers2d_pointwise":    # jacobian B=4 n=64
         nn, B = BURGERS_2D["nx"], (BURGERS_2D["nt"] - 1) // BURGERS_2D["ms"][0]
         return 8 * (3 * B * 2 * nn ** 2 + B + 3), 50 * B * nn ** 2
-    if kernel == "burgers1d_newton":       # O(n) a Newton iteration (see below)
+    if kernel == "burgers1d_newton":       # about 60 n operations a Newton iteration
         nn, m = BURGERS_DEEP["nx"], BURGERS_DEEP["ms"][0]
         Jd, L = (BURGERS_DEEP["nt"] - 1) // m, m - 1
         its = stash[(kernel, Jd, L)]
@@ -875,34 +1130,20 @@ def headline_work(kernel, stash):
         nn, m = ADVECTION_DEEP["nx"] - 1, ADVECTION_DEEP["ms"][0]
         Ja, L = (ADVECTION_DEEP["nt"] - 1) // m, m - 1
         return 8 * (Ja * nn + L * Ja + 2 * Ja * L * nn), Ja * L * 6 * nn
+    if kernel == "sine_solve1d":           # the example's level-0 step: two products
+        return stash[("work", kernel, "example step B=64 n=15")]
+    if kernel in TRANSFER_KERNELS:         # spatial65 2D: FAS, correction (no products)
+        case = ("FAS" if kernel == "restrict_combine" else "correction") + " spatial65 2D R=1024"
+        return stash[("work", kernel, case)]
     raise KeyError(kernel)
 
 
-def algorithm_ops(kernel, stash):
-    """Operations of the algorithm K16 and K17 run, where it does more than
-    the function needs (None for the other kernels).  K16's Jacobian is
-    periodic tridiagonal: an LU that skips its structural zeros picks
-    LAPACK's pivots and rounds exactly as the dense LU does (x - l * 0 and
-    x - 0 * y change nothing), in about 60 n operations a Newton iteration
-    with the residual, where the kernel's dense LU does 2/3 n^3.  K17's
-    matrix is cyclic bidiagonal: a recurrence solves it in about 6 n
-    operations, where the kernel's convolution does 2 n^2."""
-    if kernel == "burgers1d_newton":
-        nn, m = BURGERS_DEEP["nx"], BURGERS_DEEP["ms"][0]
-        Jd, L = (BURGERS_DEEP["nt"] - 1) // m, m - 1
-        return stash[(kernel, Jd, L)] * (2 * nn ** 3 // 3 + 6 * nn ** 2) + Jd * L * 12 * nn
-    if kernel == "circulant_solve1d":
-        nn, m = ADVECTION_DEEP["nx"] - 1, ADVECTION_DEEP["ms"][0]
-        Ja, L = (ADVECTION_DEEP["nt"] - 1) // m, m - 1
-        return Ja * L * (2 * nn ** 2 + 20 * nn)
-    return None
-
-
-def bound_ms(kernel, stash):
-    """The least time the card could take for the headline case: the larger
-    of its bytes over the HBM rate and its operations over the FP64 peak
-    (outside the tensor cores, which no kernel here uses); (ms, which)."""
-    nbytes, ops = headline_work(kernel, stash)
+def bound_ms(kernel, stash, work=None):
+    """The least time the card could take for the headline case (or for
+    ``work`` = (bytes, operations)): the larger of its bytes over the HBM
+    rate and its operations over the FP64 peak (outside the tensor cores,
+    which no kernel here uses); (ms, which)."""
+    nbytes, ops = work if work is not None else headline_work(kernel, stash)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S["float64"] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -923,7 +1164,8 @@ def phase_kernels():
                 "allen_cahn_pointwise": "jacobian B=8", "dopri45_arenstorf": "level-0 F-relax",
                 "rk4_brusselator": "level-0 F-relax", "gray_scott_pointwise": "jacobian B=8",
                 "burgers2d_pointwise": "jacobian B=4", "burgers1d_newton": "deep level-0",
-                "circulant_solve1d": "deep level-0"}
+                "circulant_solve1d": "deep level-0", "restrict_combine": "FAS spatial65",
+                "interpolate_combine": "correction spatial65", "sine_solve1d": "example step"}
     rows, stash = {}, {}
     for dtype in (torch.float64, torch.float32):
         dname = str(dtype).split(".")[-1]
@@ -943,6 +1185,17 @@ def phase_kernels():
                   f"(tol {tol:.0e}) abs {abs_err:.3e} | kernel {ms_k:.4f} ms "
                   f"plain {ms_p:.4f} ms | {'ok' if ok else 'FAIL'}")
             check(ok, f"{kernel} {case} {dname}: rel err {rel:.3e} > {tol:.0e}")
+            work = stash.get(("work", kernel, case))
+            if dtype == torch.float64 and work is not None:
+                work = work() if callable(work) else work
+                c_ms, c_by = bound_ms(kernel, stash, work)
+                lib = stash.get(("library", kernel, case))
+                print(f"[kernels] {kernel:<20} {case}: bound {c_ms:.4f} ms ({c_by}): bytes "
+                      f"{work[0] / 1e6:.3f} MB / 3.35 TB/s = {work[0] / HBM_BYTES_PER_S * 1e3:.4f} ms, "
+                      f"{work[1] / 1e9:.4f} GFLOP / 34 TFLOP/s = "
+                      f"{work[1] / PEAK_OPS_PER_S['float64'] * 1e3:.4f} ms; kernel at "
+                      f"{ms_k / c_ms:.1f}x its bound | library call "
+                      + (f"{cuda_ms(lib):.4f} ms" if lib is not None else "none"))
             if dtype == torch.float64 and kernel not in rows and case.startswith(headline[kernel]):
                 b_ms, b_by = bound_ms(kernel, stash)
                 lib = stash.get(("library", kernel))
@@ -950,11 +1203,8 @@ def phase_kernels():
                 rows[kernel] = dict(max_abs_err=abs_err, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
                                     bound_by=b_by, library_ms=lib_ms)
                 nbytes, nops = headline_work(kernel, stash)
-                alg = algorithm_ops(kernel, stash)
                 print(f"[kernels] {kernel:<20} headline: bound {b_ms:.4f} ms ({b_by}; "
                       f"{nbytes / 1e6:.3f} MB, {nops / 1e9:.4f} GFLOP)"
-                      + (f" | the kernel's algorithm: {alg / 1e9:.4f} GFLOP, "
-                         f"{alg / PEAK_OPS_PER_S['float64'] * 1e3:.4f} ms" if alg else "")
                       + " | library call " + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none"))
         torch.cuda.empty_cache()
     return rows
@@ -1810,6 +2060,203 @@ def phase_advection(card):
     return counts_deep
 
 
+def spatial_problem(P, ops, device=None):
+    """bench.py's spatial65 hierarchy (build_problem with spatial sizes)."""
+    t = np.linspace(0, 1, SPATIAL["nt"])
+    problem, stride = [], 1
+    for lvl, n in enumerate(SPATIAL["sizes"]):
+        problem.append(P.Heat2D(x_start=0, x_end=1, y_start=0, y_end=1, nx=n, ny=n, a=1.0, rhs=rhs,
+                                init_cond=init_cond, t_interval=t[::stride],
+                                device=device or DEVICE, ops=ops))
+        if lvl < len(SPATIAL["ms"]):
+            stride *= SPATIAL["ms"][lvl]
+    return problem
+
+
+def spatial_hooks_ab(P, pairs=SPATIAL_AB_PAIRS):
+    """spatial65 on the kernel path with the heat transfers' fused hooks
+    (K18 / K19 fuse the FAS right-hand side and the correction) and without
+    them (a subclass that overrides restriction and interpolation with the
+    same batched K18 / K19 calls, so the solver takes its unfused route: the
+    transfer, then K4), after one untimed solve of each, in alternating
+    pairs (fused, unfused, then unfused, fused, ...; setup excluded from
+    the walls).  Returns (walls {kind: [s]}, per-pair unfused - fused
+    [s], first histories, launches of each kind's first timed run)."""
+    import torch
+    from pymgrit_tpu_torch.ops import DISPATCH, launch_counts, reset_launch_counts
+
+    class Unfused(P.GridTransferHeat2D):
+        def restriction(self, u, ops=DISPATCH):
+            return super().restriction(u, ops)
+
+        def interpolation(self, u, ops=DISPATCH):
+            return super().interpolation(u, ops)
+
+    kinds = {"fused": P.GridTransferHeat2D, "unfused": Unfused}
+
+    def solve(kind):
+        transfer = [kinds[kind](n, n) for n in SPATIAL["sizes"][:-1]]
+        mg = P.Mgrit(problem=spatial_problem(P, DISPATCH), transfer=transfer, tol=SPATIAL["tol"],
+                     max_iter=SPATIAL["max_iter"], logging_lvl=30)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = mg.solve_compiled()["conv"]
+        torch.cuda.synchronize()
+        return mg, h, time.perf_counter() - t0
+
+    for kind in kinds:
+        solve(kind)
+    walls, hists, counts, diffs = {k: [] for k in kinds}, {}, {}, []
+    for i in range(pairs):
+        pair = ("fused", "unfused") if i % 2 == 0 else ("unfused", "fused")
+        got = {}
+        for kind in pair:
+            first = kind not in hists
+            if first:
+                reset_launch_counts()
+            mg, h, wall = solve(kind)
+            if first:
+                counts[kind], hists[kind] = launch_counts(), h
+            walls[kind].append(wall)
+            got[kind] = wall
+            del mg
+            torch.cuda.empty_cache()
+        diffs.append(got["unfused"] - got["fused"])
+    return walls, diffs, hists, counts
+
+
+def phase_spatial(card):
+    """bench.py's spatial65 row on the card: K18 and K19 carry the
+    transfers; kernels against plain in alternating pairs, against the JAX
+    package's history; launches, walls, fine steps/s, peak memory."""
+    import torch
+    import pymgrit_tpu_torch as P
+    transfer = [P.GridTransferHeat2D(n, n) for n in SPATIAL["sizes"][:-1]]
+    walls, hists, counts, peak, mg = strategy_runs(
+        P, lambda ops: spatial_problem(P, ops), "scan", 0, warm=True, tol=SPATIAL["tol"],
+        max_iter=SPATIAL["max_iter"], transfer=transfer)
+    hk, hp = hists["kernel"], hists["plain"]
+    floor = physical_floor(mg)
+    ok_p, err_p = histories_agree(hk, hp, floor, MAIN_RTOL)
+    ok_j, err_j = histories_agree(hk, SPATIAL_JAX, floor, GOLDEN_RTOL)
+    steps = sum(count_fine_steps_per_iter(mg, it == 0) for it in range(hk.size))
+    tk, tp = float(np.median(walls["kernel"])), float(np.median(walls["plain"]))
+    tube = mg.u[0]
+    nt, n0 = SPATIAL["nt"], SPATIAL["sizes"][0]
+    print(f"[spatial] spatial65 {'/'.join(f'{n}^2' for n in SPATIAL['sizes'])} nt={nt} "
+          f"ms={SPATIAL['ms']} f64 BE physical condensed FCF: {hk.size} iterations, history "
+          f"{[float(f'{h:.6e}') for h in hk]} | kernel vs plain (GPU) max diff {err_p:.3e} (rtol "
+          f"{MAIN_RTOL:.0e}); vs the JAX history max diff {err_j:.3e} (rtol {GOLDEN_RTOL:.0e}); "
+          f"atol floor {floor:.2e} | K18 {counts['restrict_combine']} and K19 "
+          f"{counts['interpolate_combine']} launches; {json.dumps({c: counts[c] for c in counts if counts[c]})} "
+          f"| solve wall {fmt_walls(walls)} | {steps} fine steps: {steps / tk:.1f} steps/s kernel, "
+          f"{steps / tp:.1f} steps/s plain | peak device memory {peak:.3f} GiB | "
+          f"{'ok' if ok_p and ok_j else 'FAIL'} | {card}")
+    check(mg._condensed0, "spatial: the condensed carry was declined")
+    # the hooks take K4's place in the FAS residual and the correction
+    check(all(counts[k] > 0 for k in TRANSFER_KERNELS + SPATIAL_KERNELS)
+          and counts["cpoint_combine"] == 0,
+          f"spatial: launches {counts} (expected {TRANSFER_KERNELS + SPATIAL_KERNELS}, no K4)")
+    check(tuple(tube.shape) == (nt, n0, n0) and bool(torch.isfinite(tube).all()),
+          f"spatial: tube {tuple(tube.shape)} not a finite ({nt}, {n0}, {n0}) tube")
+    check(hk.size == SPATIAL["max_iter"] and bool(np.all(np.diff(hk) < 0)),
+          f"spatial: history {hk}")
+    check(ok_p, f"spatial: kernel history {hk} differs from the plain history {hp}")
+    check(ok_j, f"spatial: history {hk} differs from the JAX history {SPATIAL_JAX}")
+    del mg, tube
+    torch.cuda.empty_cache()
+    ab_walls, diffs, ab_hists, ab_counts = spatial_hooks_ab(P)
+    ok_ab, err_ab = histories_agree(ab_hists["unfused"], ab_hists["fused"], floor, MAIN_RTOL)
+    wins = sum(d > 0 for d in diffs)
+    print(f"[spatial] hooks A/B (kernel path, {len(diffs)} alternating pairs): fused "
+          f"{np.median(ab_walls['fused']):.4f} s (runs {[round(w, 4) for w in ab_walls['fused']]}), "
+          f"unfused {np.median(ab_walls['unfused']):.4f} s (runs "
+          f"{[round(w, 4) for w in ab_walls['unfused']]}); unfused - fused per pair "
+          f"{[round(d * 1e3, 2) for d in diffs]} ms (median {np.median(diffs) * 1e3:.2f} ms; fused "
+          f"faster in {wins} of {len(diffs)}) | launches K4/K18/K19 fused "
+          f"{[ab_counts['fused'][k] for k in ('cpoint_combine',) + TRANSFER_KERNELS]}, unfused "
+          f"{[ab_counts['unfused'][k] for k in ('cpoint_combine',) + TRANSFER_KERNELS]} | "
+          f"histories max diff {err_ab:.3e} | {'ok' if ok_ab else 'FAIL'} | {card}")
+    check(ab_counts["fused"]["cpoint_combine"] == 0 and ab_counts["unfused"]["cpoint_combine"] > 0
+          and all(ab_counts["unfused"][k] > 0 for k in TRANSFER_KERNELS),
+          f"spatial A/B: launches {ab_counts}")
+    check(ok_ab, f"spatial A/B: unfused history {ab_hists['unfused']} differs from "
+                 f"{ab_hists['fused']}")
+    return counts
+
+
+def heat1d_spatial_problem(P, ops, device=None):
+    """examples/example_spatial_coarsening.py's hierarchy."""
+    kw = dict(x_start=0, x_end=2, a=1, rhs=heat1d_rhs, init_cond=lambda x: np.sin(np.pi * x),
+              device=device or DEVICE, ops=ops)
+    h0 = P.Heat1D(nx=2 ** 4 + 1, t_start=0, t_stop=2, nt=2 ** 7 + 1, **kw)
+    h1 = P.Heat1D(nx=2 ** 3 + 1, t_interval=h0.t[::2], **kw)
+    h2 = P.Heat1D(nx=2 ** 2 + 1, t_interval=h1.t[::2], **kw)
+    h3 = P.Heat1D(nx=2 ** 2 + 1, t_interval=h2.t[::2], **kw)
+    return [h0, h1, h2, h3]
+
+
+def phase_spatial1d(card):
+    """examples/example_spatial_coarsening.py on the card (K18, K19 in 1D,
+    K20 for Heat1D's physical steps):
+    against the golden of test_solver_goldens_2.py, the JAX history and the
+    plain path."""
+    import pymgrit_tpu_torch as P
+    from pymgrit_tpu_torch.ops import DISPATCH, PLAIN, launch_counts, reset_launch_counts
+    runs = {}
+    for path, ops in (("kernel", DISPATCH), ("plain", PLAIN)):
+        transfer = [P.GridTransferHeat(), P.GridTransferHeat(), P.GridTransferCopy()]
+        reset_launch_counts()
+        mg = P.Mgrit(problem=heat1d_spatial_problem(P, ops), transfer=transfer, logging_lvl=30)
+        runs[path] = (mg, mg.solve()["conv"], launch_counts())
+    (mk, hk, counts), (_, hp, _) = runs["kernel"], runs["plain"]
+    floor = residual_floor(mk)
+    ok_p, err_p = histories_agree(hk, hp, floor, MAIN_RTOL)
+    ok_j, err_j = histories_agree(hk, SPATIAL1D_JAX, floor, GOLDEN_RTOL)
+    ok_g = hk.shape == SPATIAL1D_GOLDEN.shape and bool(
+        np.allclose(hk, SPATIAL1D_GOLDEN, rtol=SPATIAL1D_GOLDEN_RTOL))
+    print(f"[spatial1d] example Heat1D 17/9/5/5 nt=129 GridTransferHeat f64: history "
+          f"{[float(x) for x in hk]}; vs the golden (rtol {SPATIAL1D_GOLDEN_RTOL:.0e}) "
+          f"{'agrees' if ok_g else 'differs'}; vs the JAX history max diff {err_j:.3e} (rtol "
+          f"{GOLDEN_RTOL:.0e}); vs plain (GPU) {err_p:.3e}; atol floor {floor:.2e} | K18 "
+          f"{counts['restrict_combine']}, K19 {counts['interpolate_combine']}, K20 "
+          f"{counts['sine_solve1d']} launches; {json.dumps({c: counts[c] for c in counts if counts[c]})} | "
+          f"{'ok' if ok_g and ok_j and ok_p else 'FAIL'} | {card}")
+    check(all(counts[k] > 0 for k in SPATIAL1D_KERNELS),
+          f"spatial1d: launches {counts} (expected {SPATIAL1D_KERNELS})")
+    check(ok_g, f"spatial1d: history {hk} differs from the golden {SPATIAL1D_GOLDEN}")
+    check(ok_j and ok_p, f"spatial1d: history {hk} differs from JAX's or the plain path's")
+    return counts
+
+
+def phase_c2(card):
+    """bench.py's toms257 physical row (nt = 4097) for two iterations: K5
+    and K6 past their one-tile side, kernels against plain."""
+    import torch
+    import pymgrit_tpu_torch as P
+    cfg = dict(nx=TOMS257["nx"], nt=TOMS257["nt"], ms=TOMS257["ms"], basis="physical")
+    walls, hists, counts, peak, mg = strategy_runs(
+        P, lambda ops: build_problem(P, device=DEVICE, ops=ops, **cfg), "scan", 0,
+        order=("plain", "kernel"), tol=TOMS257["tol"], max_iter=TOMS257["max_iter"])
+    hk, hp = hists["kernel"], hists["plain"]
+    floor = physical_floor(mg)
+    ok, err = histories_agree(hk, hp, floor, MAIN_RTOL)
+    tube = mg.u[0]
+    nt, nx = TOMS257["nt"], TOMS257["nx"]
+    print(f"[c2] toms257 {nx}x{nx} nt={nt} ms={TOMS257['ms']} f64 BE physical condensed, "
+          f"{hk.size} iterations: history {[float(f'{h:.6e}') for h in hk]} | kernel vs plain (GPU) "
+          f"max diff {err:.3e} (rtol {MAIN_RTOL:.0e}, atol floor {floor:.2e}) | launches "
+          f"{json.dumps({c: counts[c] for c in counts if counts[c]})} | solve wall "
+          f"{fmt_walls(walls)} | peak device memory {peak:.3f} GiB | {'ok' if ok else 'FAIL'} | {card}")
+    check(mg._condensed0, "c2: the condensed carry was declined")
+    check(all(counts[k] > 0 for k in PHYSICAL_KERNELS), f"c2: a kernel never ran: {counts}")
+    check(tuple(tube.shape) == (nt, nx, nx) and bool(torch.isfinite(tube).all()),
+          f"c2: tube {tuple(tube.shape)} not a finite ({nt}, {nx}, {nx}) tube")
+    check(hk.size == TOMS257["max_iter"] and ok, f"c2: kernel history {hk} differs from {hp}")
+    del mg, tube
+    torch.cuda.empty_cache()
+
+
 def profile_cells(card):
     """``--profile``: one profiled kernel-path solve of each cell of the
     periodic models (after one untimed solve of the same configuration),
@@ -1916,6 +2363,12 @@ REPLACES = {
                          "pymgrit_tpu/models/burgers.py:53"),
     "circulant_solve1d": ("cuda", "pymgrit_tpu_torch/ops/csrc/circulant_solve1d.cu",
                           "pymgrit_tpu/models/advection_1d.py:41"),
+    "restrict_combine": ("triton", "pymgrit_tpu_torch/ops/triton_kernels.py",
+                         "pymgrit_tpu/models/grid_transfer_heat.py:94"),
+    "interpolate_combine": ("triton", "pymgrit_tpu_torch/ops/triton_kernels.py",
+                            "pymgrit_tpu/models/grid_transfer_heat.py:98"),
+    "sine_solve1d": ("cuda", "pymgrit_tpu_torch/ops/csrc/sine_solve1d.cu",
+                     "pymgrit_tpu/models/heat_1d.py:235"),
 }
 
 
@@ -1945,13 +2398,17 @@ def main():
     counts_gs = phase_gray_scott(card)
     counts_b1, counts_b2 = phase_burgers(card)
     counts_adv = phase_advection(card)
+    counts_spatial = phase_spatial(card)
+    counts_1d = phase_spatial1d(card)
+    phase_c2(card)
     # launches: each kernel's count on the main path it belongs to (K3, K4
     # run on both bases; the spectral run's count is reported; K8 and K9
     # from the TOMS-width prefix and AT runs; K10 from the Allen-Cahn bench
     # row, K11 from the IMPL run, K12 from the Arenstorf run, K13 from the
     # Brusselator run, K14 from the Gray-Scott IMPL run, K15 from the
     # Burgers2D run, K16 from the deep Burgers1D run, K17 from the deep
-    # advection run)
+    # advection run, K18 and K19 from the spatial65 run, K20 from the 1D
+    # example's run)
     launches = {**counts_phys, **{k: counts[k] for k in SPECTRAL_KERNELS},
                 "affine_prefix": prefix_counts["affine_prefix"],
                 "affine_windows": at_counts["affine_windows"],
@@ -1962,7 +2419,9 @@ def main():
                 "gray_scott_pointwise": counts_gs["IMPL"]["gray_scott_pointwise"],
                 "burgers2d_pointwise": counts_b2["burgers2d_pointwise"],
                 "burgers1d_newton": counts_b1["burgers1d_newton"],
-                "circulant_solve1d": counts_adv["circulant_solve1d"]}
+                "circulant_solve1d": counts_adv["circulant_solve1d"],
+                **{k: counts_spatial[k] for k in TRANSFER_KERNELS},
+                "sine_solve1d": counts_1d["sine_solve1d"]}
     kernels = [dict(name=name, route=route, source=source, replaces=replaces,
                     launches=launches[name], **rows[name])
                for name, (route, source, replaces) in REPLACES.items()]

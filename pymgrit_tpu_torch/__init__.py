@@ -19,6 +19,7 @@ from pymgrit_tpu_torch.models.brusselator import Brusselator
 from pymgrit_tpu_torch.models.burgers import Burgers1D, Burgers2D
 from pymgrit_tpu_torch.models.dahlquist import Dahlquist
 from pymgrit_tpu_torch.models.gray_scott_2d import GrayScott2D
+from pymgrit_tpu_torch.models.grid_transfer_heat import GridTransferHeat, GridTransferHeat2D
 from pymgrit_tpu_torch.models.heat_1d import Heat1D
 from pymgrit_tpu_torch.models.heat_2d import Heat2D
 
@@ -38,6 +39,8 @@ __all__ = [
     "Burgers2D",
     "Dahlquist",
     "GrayScott2D",
+    "GridTransferHeat",
+    "GridTransferHeat2D",
     "Heat1D",
     "Heat2D",
 ]

@@ -19,6 +19,11 @@ package's; the execution differs:
   step: the application's ``affine_coeffs`` give every step as an
   elementwise affine map and kernel K8 ``affine_prefix`` computes all
   states in a chunked scan (``ops/prefix.py``).
+* Spatial transfers keep the JAX contract (one state, vmapped over a
+  tube's rows); a ``batched`` transfer with the fused hooks of
+  ``core/grid_transfer.py`` computes the FAS right-hand side, the
+  correction and nested iteration's interpolation in one pass each (the
+  heat transfers: kernels K18 and K19).
 
 States are single tensors (no tuple states) in this port.  Non-uniform
 coarsening, the device mesh and the lazy level-0 F-relaxation are not
@@ -27,6 +32,7 @@ ported and raise NotImplementedError.
 
 from __future__ import annotations
 
+import functools
 import inspect
 import logging
 import sys
@@ -36,7 +42,7 @@ from typing import Callable, List
 import numpy as np
 import torch
 
-from pymgrit_tpu_torch.core import vector
+from pymgrit_tpu_torch.core import prng, vector
 from pymgrit_tpu_torch.core.application import Application
 from pymgrit_tpu_torch.core.grid_transfer import GridTransfer, GridTransferCopy
 from pymgrit_tpu_torch.core.levels import LevelInfo, build_level_infos, validate_hierarchy
@@ -50,6 +56,32 @@ def hook_accepts_kwarg(hook, name: str) -> bool:
     except (TypeError, ValueError):
         return False
     return name in sig.parameters
+
+
+def _over_rows(transfer: GridTransfer, fn: Callable, ops) -> Callable:
+    """A transfer method on a (rows, ...) batch: the method itself (given
+    the solver's kernel set where it takes ``ops``) if the transfer declares
+    ``batched = True``, else its vmap over the rows."""
+    if not getattr(transfer, "batched", False):
+        return torch.vmap(fn)
+    return functools.partial(fn, ops=ops) if hook_accepts_kwarg(fn, "ops") else fn
+
+
+def _owner(obj, name: str):
+    """The instance or class whose own attributes hold ``name``."""
+    if name in vars(obj):
+        return obj
+    return next((c for c in type(obj).__mro__ if name in vars(c)), None)
+
+
+def _fused_hook(transfer: GridTransfer, hook: str, method: str):
+    """A batched transfer's fused hook where the class that defines it also
+    defines the method it fuses, else None (an override of the method alone
+    must not be bypassed by an inherited hook)."""
+    fn = getattr(transfer, hook, None)
+    if fn is None or not getattr(transfer, "batched", False):
+        return None
+    return fn if _owner(transfer, hook) is _owner(transfer, method) else None
 
 
 def _rows(t: torch.Tensor) -> torch.Tensor:
@@ -154,8 +186,17 @@ class Mgrit:
                     + type(problem[-1]).__name__ + " does not")
             logging.info("Coarsest level uses the parallel-prefix "
                          "(associative-scan) forward solve")
-        self.restrict_fns: List[Callable] = [tr.restriction for tr in transfer]
-        self.interp_fns: List[Callable] = [tr.interpolation for tr in transfer]
+        # per-state transfers run over a tube's rows through torch.vmap (the
+        # JAX solver's jax.vmap); a batched transfer is called as it is
+        self.restrict_fns: List[Callable] = [_over_rows(tr, tr.restriction, self.ops)
+                                             for tr in transfer]
+        self.interp_fns: List[Callable] = [_over_rows(tr, tr.interpolation, self.ops)
+                                           for tr in transfer]
+        # fused transfer hooks (core/grid_transfer.py), None where absent
+        self._restrict_hooks = [_fused_hook(tr, "restrict_combine", "restriction")
+                                for tr in transfer]
+        self._interp_hooks = [_fused_hook(tr, "interpolate_combine", "interpolation")
+                              for tr in transfer]
         self._block_cache = {}
 
         # ---- condensed level-0 carry: keep only the level-0 C-points; every
@@ -202,9 +243,8 @@ class Mgrit:
             nt = self._nc_store0 if (lvl == 0 and self._condensed0) else self.levels[lvl].nt
             template = vector.as_f64(problem[lvl].vector_template)
             if lvl == 0 and random_init_guess:
-                gen = torch.Generator(device=template.device).manual_seed(rng_seed)
-                tube = torch.rand((nt,) + tuple(template.shape), generator=gen,
-                                  dtype=torch.float64, device=template.device)
+                # the JAX package's draw (threefry2x32 keys split per row)
+                tube = prng.random_tube(rng_seed, nt, tuple(template.shape), template.device)
             else:
                 tube = vector.tube_of(template, nt)
             tube[0] = vector.as_f64(problem[lvl].vector_t_start)
@@ -470,21 +510,30 @@ class Mgrit:
         u_f, g_f = self.u[lvl], self.g[lvl]
         u_c, v_c, g_c = self.u[lvl + 1], self.v[lvl + 1], self.g[lvl + 1]
         restrict = self.restrict_fns[lvl]
+        fused = self._restrict_hooks[lvl]
 
+        u_c.copy_(restrict(u_f[:nc] if lvl == 0 and self._condensed0 else u_f[0:nt:m]))
         if lvl == 0 and self._condensed0:
-            u_c.copy_(restrict(u_f[:nc]))
             stepped_f = self._cnd_c_step(u_f)
         else:
-            u_c.copy_(restrict(u_f[0:nt:m]))
             stepped_f = self._step_rows(lvl, u_f[m - 1:nt - 1:m], t_f[m - 1:nt - 1:m], t_f[m:nt:m])
         # the saved FAS iterate is a copy: the coarse cycle updates u_c in place
         v_c.copy_(u_c)
         u_ci = self._c_rows(lvl, u_f)
+        if fused is not None:
+            # g_c[1:] = R(inner) + (v_c[1:] - Phi_c(v_c[:-1])) in one pass, with
+            # inner = Phi(u_f[cm-1]) - u_f[cm] (level 0) or
+            # (g_f[cm] - u_f[cm]) + Phi(u_f[cm-1])
+            stepped_c = self._step_rows(lvl + 1, v_c[:nc - 1], t_c[:-1], t_c[1:])
+            terms, coeffs = (([stepped_f, u_ci], [1.0, -1.0]) if lvl == 0 else
+                             ([self._c_rows(lvl, g_f), u_ci, stepped_f], [1.0, -1.0, 1.0]))
+            fused(g_c[1:nc], terms, coeffs, [v_c[1:nc], stepped_c], [1.0, -1.0], ops=self.ops)
+            return
         if lvl == 0:
             self._combine(stepped_f, [stepped_f, u_ci], [1.0, -1.0])
         else:
             self._combine(stepped_f, [self._c_rows(lvl, g_f), u_ci, stepped_f], [1.0, -1.0, 1.0])
-        r = restrict(stepped_f)
+        r = restrict(stepped_f).contiguous()      # K4 takes rows with a contiguous last axis
         stepped_c = self._step_rows(lvl + 1, v_c[:nc - 1], t_c[:-1], t_c[1:])
         # g_c[1:] = r + (v_c[1:] - Phi_c(v_c[:-1])); g_c[0] is never written
         self._combine(g_c[1:nc], [v_c[1:nc], stepped_c, r], [1.0, -1.0, 1.0])
@@ -495,10 +544,14 @@ class Mgrit:
         if nc <= 1:
             return
         u_c, v_c = self.u[lvl + 1], self.v[lvl + 1]
+        fused = self._interp_hooks[lvl]
+        if fused is not None:
+            fused(self._c_rows(lvl, self.u[lvl]), u_c[1:nc], v_c[1:nc], ops=self.ops)
+            return
         diff = torch.empty(u_c[1:nc].shape, dtype=u_c.dtype, device=u_c.device)
         self._combine(diff, [u_c[1:nc], v_c[1:nc]], [1.0, -1.0])
         dst = self._c_rows(lvl, self.u[lvl])
-        self._combine(dst, [dst, self.interp_fns[lvl](diff)], [1.0, 1.0])
+        self._combine(dst, [dst, self.interp_fns[lvl](diff).contiguous()], [1.0, 1.0])
 
     # ------------------------------------------------------------------
     # cycles
@@ -532,7 +585,12 @@ class Mgrit:
         self._forward_solve(top, self.u[top], self.g[top])
         for lvl in range(self.lvl_max - 2, -1, -1):
             nc = self.levels[lvl].cpts.size
-            self._c_rows(lvl, self.u[lvl]).copy_(self.interp_fns[lvl](self.u[lvl + 1][1:nc]))
+            dst, coarse = self._c_rows(lvl, self.u[lvl]), self.u[lvl + 1][1:nc]
+            fused = self._interp_hooks[lvl]
+            if fused is not None:
+                fused(dst, coarse, ops=self.ops)
+            else:
+                dst.copy_(self.interp_fns[lvl](coarse))
             if lvl > 0:
                 self._cycle(lvl, 'V', True, True)
 

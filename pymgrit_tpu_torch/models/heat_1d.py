@@ -11,10 +11,11 @@ step is u' = (I + dt L)^-1 (u + dt b(x, t')) with the 3-point Laplacian L.
   expression), ``relax_interval`` kernel K1 ``interval_affine`` on the
   closed-form tables, and ``affine_coeffs`` hands the step to the
   coarsest-level strategies (K8, K9).
-* physical: a step is two products with the orthonormal sine basis
-  (``torch.matmul``: the JAX package leaves them to XLA as plain
-  einsums); ``relax_interval`` transforms the seeds, applies the
-  closed-form tables through K1 and transforms back.
+* physical: a batched step is two products with the orthonormal sine
+  basis around the diagonal solve, kernel K20 ``sine_solve1d`` (the JAX
+  package leaves them to XLA as plain einsums); ``relax_interval``
+  transforms the seeds (K20), applies the closed-form tables through K1
+  and transforms back (K20).
 
 The rhs is tabulated over the level's grid times in one numpy evaluation
 (raw samples in the physical basis, transformed ones in the spectral basis),
@@ -128,19 +129,17 @@ class Heat1D(Application):
 
     def step_batched(self, u_tube, t_starts, t_stops):
         """One step of each of B states (t_starts, t_stops: numpy (B,)).
-        Physical: two flat (B, nx) @ (nx, nx) products (S is symmetric, so
-        S @ b == b @ S).  Spectral: step_chain with L = 1 (K2)."""
+        Physical: K20, two flat (B, nx) @ (nx, nx) products around the
+        diagonal solve (S is symmetric, so S @ b == b @ S).  Spectral:
+        step_chain with L = 1 (K2)."""
         tp = np.asarray(t_starts, dtype=np.float64).reshape(-1)
         tc = np.asarray(t_stops, dtype=np.float64).reshape(-1)
+        out = torch.empty(u_tube.shape, dtype=u_tube.dtype, device=u_tube.device)
         if self._spectral:
-            out = torch.empty_like(u_tube)
             self.step_chain(u_tube, tp[None], tc[None], out[:, None])
             return out
-        dt = self._tensor((tc - tp)[:, None])
-        b = u_tube + dt * self._rhs_rows(tc)
-        bh = b @ self.S
-        xh = bh / (1.0 + dt * self.lam[None])
-        return xh @ self.S
+        return self.ops.sine_solve1d(u_tube, out, self.S, self.lam, self._tensor(tc - tp),
+                                     self._rhs_rows(tc))
 
     def step_chain(self, seed, t_prev, t_curr, out, g=None):
         """J chains of L steps: out[:, k] = [g[:, k] +] Phi(out[:, k-1]) with
@@ -201,7 +200,7 @@ class Heat1D(Application):
     def relax_interval(self, seed, t_prev, t_curr, only_last=False,
                        interval_major=False, out=None, seed_out=None):
         """Closed-form F-values of J intervals through K1 (the physical
-        basis transforms the seeds first and the values back).
+        basis transforms the seeds first and the values back, K20).
 
         t_prev, t_curr: (rows, J) numpy step times.  Returns the
         (rows, J, nx) F-values, or (J, rows, nx) with interval_major;
@@ -231,11 +230,13 @@ class Heat1D(Application):
         if self._spectral:
             self.ops.interval_affine(seed, A_t, G_t, out, r0, seed_out)
             return result
+        xhat = torch.empty((J, N), dtype=seed.dtype, device=seed.device)
         yhat = torch.empty((J, R, N), dtype=seed.dtype, device=seed.device)
-        self.ops.interval_affine(seed @ self.S, A_t, G_t, yhat, r0)
+        self.ops.sine_solve1d(seed, xhat, self.S)
+        self.ops.interval_affine(xhat, A_t, G_t, yhat, r0)
         if seed_out is not None:
             seed_out.copy_(seed)
-        out.copy_(yhat @ self.S)
+        self.ops.sine_solve1d(yhat.view(J * R, N), out, self.S)
         return result
 
     # ------------------------------------------------------------------

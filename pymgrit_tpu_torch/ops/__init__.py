@@ -1,7 +1,7 @@
 """Hand-written GPU kernels of the port and their plain PyTorch versions.
 
-Seventeen kernels carry the Heat2D paths (condensed level 0), the
-coarsest-level strategies and the nonlinear models:
+Twenty kernels carry the Heat2D paths (condensed level 0), the
+coarsest-level strategies, the nonlinear models and spatial coarsening:
 
 * K1 ``interval_affine`` (CUDA C++, ``csrc/interval_affine.cu``)
 * K2 ``theta_chain`` (CUDA C++, ``csrc/theta_chain.cu``)
@@ -20,6 +20,9 @@ coarsest-level strategies and the nonlinear models:
 * K15 ``burgers2d_pointwise`` (Triton)
 * K16 ``burgers1d_newton`` (CUDA C++, ``csrc/burgers1d_newton.cu``)
 * K17 ``circulant_solve1d`` (CUDA C++, ``csrc/circulant_solve1d.cu``)
+* K18 ``restrict_combine`` (Triton, wrapper in ``transfer``)
+* K19 ``interpolate_combine`` (Triton, wrapper in ``transfer``)
+* K20 ``sine_solve1d`` (CUDA C++, ``csrc/sine_solve1d.cu``)
 
 The spectral basis runs K1-K4; the physical basis K3-K7; the coarsest
 level of ``Mgrit(coarsest_prefix=True)`` K8 and that of ``AtMgrit`` K9;
@@ -27,7 +30,10 @@ Allen-Cahn K10 (IMEX) or K10 and K11 (IMPL, CN, with the Newton-CG control
 of ``cg.py``); the Arenstorf orbit K12; the Brusselator K13; Gray-Scott K10
 (IMEX, with its species axis and prologue), K14 (EXPL) or both (IMPL, with
 the Newton-BiCGStab control of ``cg.py``); Burgers 1D K16; Burgers 2D K15
-and K10 (Newton-BiCGStab); advection K17.  K3 and K4 serve every solve.  ``DISPATCH``
+and K10 (Newton-BiCGStab); advection K17; the heat grid transfers
+(``GridTransferHeat``, ``GridTransferHeat2D``) K18 and K19; Heat1D's
+physical basis K20 (and K1 in its interval relaxation).  K3 and K4
+serve every solve.  ``DISPATCH``
 holds the wrappers (CPU tensors: plain version; CUDA tensors: the kernel).
 ``PLAIN`` holds the plain versions with the same signatures; an application
 built with ``ops=PLAIN`` runs the plain versions on any device, which is
@@ -39,7 +45,7 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 from pymgrit_tpu_torch.ops import (dense_newton, heat_kernels, periodic, prefix, runge_kutta,
-                                   triton_kernels)
+                                   transfer, triton_kernels)
 
 
 class Ops(NamedTuple):
@@ -60,6 +66,9 @@ class Ops(NamedTuple):
     burgers2d_pointwise: Callable
     burgers1d_newton: Callable
     circulant_solve1d: Callable
+    restrict_combine: Callable
+    interpolate_combine: Callable
+    sine_solve1d: Callable
 
 
 DISPATCH = Ops(heat_kernels.interval_affine, heat_kernels.theta_chain,
@@ -69,7 +78,9 @@ DISPATCH = Ops(heat_kernels.interval_affine, heat_kernels.theta_chain,
                periodic.periodic_solve2d, triton_kernels.allen_cahn_pointwise,
                runge_kutta.dopri45_arenstorf, triton_kernels.rk4_brusselator,
                triton_kernels.gray_scott_pointwise, triton_kernels.burgers2d_pointwise,
-               dense_newton.burgers1d_newton, periodic.circulant_solve1d)
+               dense_newton.burgers1d_newton, periodic.circulant_solve1d,
+               transfer.restrict_combine, transfer.interpolate_combine,
+               heat_kernels.sine_solve1d)
 PLAIN = Ops(heat_kernels.interval_affine_plain, heat_kernels.theta_chain_plain,
             triton_kernels.residual_row_norms_plain, triton_kernels.cpoint_combine_plain,
             heat_kernels.sine_solve2d_plain, heat_kernels.sine_affine2d_plain,
@@ -78,7 +89,8 @@ PLAIN = Ops(heat_kernels.interval_affine_plain, heat_kernels.theta_chain_plain,
             triton_kernels.allen_cahn_pointwise_plain, runge_kutta.dopri45_arenstorf_plain,
             triton_kernels.rk4_brusselator_plain, triton_kernels.gray_scott_pointwise_plain,
             triton_kernels.burgers2d_pointwise_plain, dense_newton.burgers1d_newton_plain,
-            periodic.circulant_solve1d_plain)
+            periodic.circulant_solve1d_plain, transfer.restrict_combine_plain,
+            transfer.interpolate_combine_plain, heat_kernels.sine_solve1d_plain)
 
 
 def launch_counts() -> dict:

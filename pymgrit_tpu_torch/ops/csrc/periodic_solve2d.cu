@@ -30,11 +30,14 @@
 // in registers, the basis read through L1/L2, the product loops the block's
 // own (no library GEMM); the species of a lane are separate blocks.  The
 // real Hartley route needs no complex arithmetic and no second buffer.
-// n <= 128 (the tile); the wrapper raises above.  A radix-2 FFT in shared
-// memory would do O(n^2 log n) work instead of O(n^3); it is left for a
-// later change.
+// Sides above 128 (the one-tile core's limit) take the tiled path of
+// tiled2d.cuh: the right-hand side and the four products through a device
+// workspace, a chunk of states at a time.  A radix-2 FFT in shared memory
+// would do O(n^2 log n) work instead of O(n^3); it is left for a later
+// change.
 
 #include "sine2d.cuh"
+#include "tiled2d.cuh"
 
 namespace {
 
@@ -91,15 +94,92 @@ __global__ void __launch_bounds__(kThreads, 1)
               g != nullptr ? g + lane * g_sb + sp * g_ss : nullptr, g_sr);
 }
 
+// Tiled path: the right-hand side of flat state b0 + blockIdx.x (lane,
+// species) into the workspace, as the kernel above forms it.
+template <typename T>
+__global__ void rhs_tile(const T* __restrict__ b, int64_t b_sb, int64_t b_ss, int64_t b_sr,
+                         const T* __restrict__ shift, int S, int mode, int nu, T p0, T p1,
+                         T* __restrict__ w, int64_t b0, int n) {
+  const int64_t bg = b0 + blockIdx.x;
+  const int64_t lane = bg / S;
+  const int sp = (int)(bg - lane * S);
+  const T dt = shift[lane];
+  const T* src = b + lane * b_sb + sp * b_ss;
+  const T* su = b + lane * b_sb;
+  const T* sv = su + b_ss;
+  T* dst = w + (int64_t)blockIdx.x * n * n;
+  for (int idx = threadIdx.x; idx < n * n; idx += blockDim.x) {
+    const int i = idx / n;
+    const int j = idx - i * n;
+    T v;
+    if (mode == kGrayScott) {
+      const T uu = su[i * b_sr + j];
+      const T vv = sv[i * b_sr + j];
+      const T uv2 = uu * (vv * vv);
+      v = sp == 0 ? uu + dt * (-uv2 + p0 * (T(1) - uu)) : vv + dt * (uv2 - p1 * vv);
+    } else {
+      v = src[i * b_sr + j];
+      if (mode == kAllenCahn) v = v + dt * ((p0 * v) * (T(1) - ipow(v, nu)));
+    }
+    dst[idx] = v;
+  }
+}
+
+template <typename T>
+int launch_tiled(const T* b, int64_t b_sb, int64_t b_ss, int64_t b_sr, T* out, int64_t o_sb,
+                 int64_t o_ss, int64_t o_sr, const T* H, const T* lam, const T* shift,
+                 const T* coef, int64_t S, int mode, int nu, T p0, T p1, const T* g, int64_t g_sb,
+                 int64_t g_ss, int64_t g_sr, T* ws, int64_t chunk, int64_t B, int n,
+                 cudaStream_t st) {
+  if (ws == nullptr || chunk < 1) return (int)cudaErrorInvalidValue;
+  const int64_t nn = (int64_t)n * n;
+  const int64_t total = B * S;
+  for (int64_t b0 = 0; b0 < total; b0 += chunk) {
+    const int64_t nb = total - b0 < chunk ? total - b0 : chunk;
+    rhs_tile<T><<<(unsigned)nb, 256, 0, st>>>(b, b_sb, b_ss, b_sr, shift, (int)S, mode, nu, p0, p1,
+                                               ws, b0, n);
+    cudaError_t e = cudaGetLastError();
+    tiled2d::Epilogue<T> div{};
+    div.lam = lam;
+    div.shift = shift;
+    div.coef = coef;
+    div.D = S;
+    div.b0 = b0;
+    tiled2d::Epilogue<T> last{};
+    last.out = out;
+    last.o_hi = o_sb;
+    last.o_lo = o_ss;
+    last.o_row = o_sr;
+    last.g = g;
+    last.g_hi = g_sb;
+    last.g_lo = g_ss;
+    last.g_row = g_sr;
+    last.D = S;
+    last.b0 = b0;
+    if (e == cudaSuccess) {
+      e = tiled2d::sandwich<T>({ws, nn, n}, n, n, H, H, ws, ws + chunk * nn, nb, div, last, true,
+                               st);
+    }
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
 template <typename T>
 int launch(const T* b, int64_t b_sb, int64_t b_ss, int64_t b_sr, T* out, int64_t o_sb,
            int64_t o_ss, int64_t o_sr, const T* H, const T* lam, const T* shift, const T* coef,
            int64_t S, int64_t mode, int64_t nu, double p0, double p1, const T* g, int64_t g_sb,
-           int64_t g_ss, int64_t g_sr, int64_t B, int64_t n, void* stream) {
+           int64_t g_ss, int64_t g_sr, T* ws, int64_t chunk, int64_t B, int64_t n,
+           void* stream) {
   if (B == 0) return 0;
-  if (n < 1 || n > kMaxN || S < 1 || B * S > 0x7fffffff || nu < 0 || mode < 0 ||
+  if (n < 1 || n > 46340 || S < 1 || B * S > 0x7fffffff || nu < 0 || mode < 0 ||
       mode > kGrayScott || (mode == kGrayScott && S != 2)) {
     return (int)cudaErrorInvalidValue;
+  }
+  if (n > kMaxN) {
+    return launch_tiled<T>(b, b_sb, b_ss, b_sr, out, o_sb, o_ss, o_sr, H, lam, shift, coef, S,
+                           (int)mode, (int)nu, (T)p0, (T)p1, g, g_sb, g_ss, g_sr, ws, chunk, B,
+                           (int)n, (cudaStream_t)stream);
   }
   const size_t smem = smem_bytes<T>();
   cudaError_t e = allow_smem(periodic_solve2d_kernel<T>, smem);
@@ -119,19 +199,19 @@ int pm_periodic_solve2d_f64(const double* b, int64_t b_sb, int64_t b_ss, int64_t
                             const double* H, const double* lam, const double* shift,
                             const double* coef, int64_t S, int64_t mode, int64_t nu, double p0,
                             double p1, const double* g, int64_t g_sb, int64_t g_ss, int64_t g_sr,
-                            int64_t B, int64_t n, void* stream) {
+                            double* ws, int64_t chunk, int64_t B, int64_t n, void* stream) {
   return launch<double>(b, b_sb, b_ss, b_sr, out, o_sb, o_ss, o_sr, H, lam, shift, coef, S, mode,
-                        nu, p0, p1, g, g_sb, g_ss, g_sr, B, n, stream);
+                        nu, p0, p1, g, g_sb, g_ss, g_sr, ws, chunk, B, n, stream);
 }
 
 int pm_periodic_solve2d_f32(const float* b, int64_t b_sb, int64_t b_ss, int64_t b_sr,
                             float* out, int64_t o_sb, int64_t o_ss, int64_t o_sr, const float* H,
                             const float* lam, const float* shift, const float* coef, int64_t S,
                             int64_t mode, int64_t nu, double p0, double p1, const float* g,
-                            int64_t g_sb, int64_t g_ss, int64_t g_sr, int64_t B, int64_t n,
-                            void* stream) {
+                            int64_t g_sb, int64_t g_ss, int64_t g_sr, float* ws, int64_t chunk,
+                            int64_t B, int64_t n, void* stream) {
   return launch<float>(b, b_sb, b_ss, b_sr, out, o_sb, o_ss, o_sr, H, lam, shift, coef, S, mode,
-                       nu, p0, p1, g, g_sb, g_ss, g_sr, B, n, stream);
+                       nu, p0, p1, g, g_sb, g_ss, g_sr, ws, chunk, B, n, stream);
 }
 
 }  // extern "C"

@@ -1,7 +1,7 @@
 // Shared core of K5 sine_solve2d and K6 sine_affine2d: two-sided products
-// Sx * X * Sy of one (r x c) interior state (r, c <= 128) with the
-// symmetric orthogonal sine bases Sx (r x r) and Sy (c x c), one thread
-// block per state.
+// Sx * X * Sy of one (r x c) interior state (r, c <= 128; wider states
+// take the tiled path of tiled2d.cuh) with the symmetric orthogonal sine
+// bases Sx (r x r) and Sy (c x c), one thread block per state.
 //
 // Layout.  The state lives in shared memory with an odd leading dimension
 // (kLd = 129), so a store down a column hits 32 distinct banks.  A thread

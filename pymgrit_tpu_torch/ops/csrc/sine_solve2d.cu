@@ -20,8 +20,12 @@
 // device memory; b and the output are strided views (batch stride and row
 // stride) of the level tubes, so no copy precedes or follows the kernel.
 // The products are the block's own loops: no library GEMM is called.
+// Sides above 128 (the one-tile core's limit) take the tiled path of
+// tiled2d.cuh: the four products through a device workspace, a chunk of
+// states at a time.
 
 #include "sine2d.cuh"
+#include "tiled2d.cuh"
 
 namespace {
 
@@ -54,11 +58,39 @@ __global__ void __launch_bounds__(kThreads, 1)
 template <typename T>
 int launch(const T* b, int64_t b_sb, int64_t b_sr, T* out, int64_t o_sb, int64_t o_sr,
            const T* Sx, const T* Sy, const T* lam, const T* shift, double shift0,
-           const T* ring, const T* g, int64_t g_sb, int64_t g_sr, int64_t B, int64_t r,
-           int64_t c, void* stream) {
+           const T* ring, const T* g, int64_t g_sb, int64_t g_sr, T* ws, int64_t chunk,
+           int64_t B, int64_t r, int64_t c, void* stream) {
   if (B == 0) return 0;
-  if (r < 1 || c < 1 || r > kMaxN || c > kMaxN || B > 0x7fffffff) {
-    return (int)cudaErrorInvalidValue;
+  if (r < 1 || c < 1 || r > 0x7fffffff / c || B > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  if (r > kMaxN || c > kMaxN) {
+    if (ws == nullptr || chunk < 1) return (int)cudaErrorInvalidValue;
+    const cudaStream_t st = (cudaStream_t)stream;
+    for (int64_t b0 = 0; b0 < B; b0 += chunk) {
+      const int64_t nb = B - b0 < chunk ? B - b0 : chunk;
+      tiled2d::Epilogue<T> div{};
+      div.lam = lam;
+      div.shift = shift;
+      div.shift0 = (T)shift0;
+      div.D = 1;
+      div.b0 = b0;
+      tiled2d::Epilogue<T> last{};
+      last.out = out;
+      last.o_hi = o_sb;
+      last.o_row = o_sr;
+      last.g = g;
+      last.g_hi = g_sb;
+      last.g_row = g_sr;
+      last.off = ring != nullptr ? 1 : 0;
+      last.D = 1;
+      last.b0 = b0;
+      cudaError_t e = tiled2d::sandwich<T>({b + b0 * b_sb, b_sb, b_sr}, (int)r, (int)c, Sx, Sy, ws,
+                                           ws + chunk * r * c, nb, div, last, lam != nullptr, st);
+      if (e == cudaSuccess && ring != nullptr) {
+        e = tiled2d::ring<T>(ring, (int)r + 2, (int)c + 2, nb, last, st);
+      }
+      if (e != cudaSuccess) return (int)e;
+    }
+    return 0;
   }
   const size_t smem = smem_bytes<T>();
   cudaError_t e = allow_smem(sine_solve2d_kernel<T>, smem);
@@ -77,18 +109,20 @@ int pm_sine_solve2d_f64(const double* b, int64_t b_sb, int64_t b_sr, double* out
                         int64_t o_sb, int64_t o_sr, const double* Sx, const double* Sy,
                         const double* lam, const double* shift, double shift0,
                         const double* ring, const double* g, int64_t g_sb, int64_t g_sr,
-                        int64_t B, int64_t r, int64_t c, void* stream) {
+                        double* ws, int64_t chunk, int64_t B, int64_t r, int64_t c,
+                        void* stream) {
   return launch<double>(b, b_sb, b_sr, out, o_sb, o_sr, Sx, Sy, lam, shift, shift0, ring,
-                        g, g_sb, g_sr, B, r, c, stream);
+                        g, g_sb, g_sr, ws, chunk, B, r, c, stream);
 }
 
 int pm_sine_solve2d_f32(const float* b, int64_t b_sb, int64_t b_sr, float* out,
                         int64_t o_sb, int64_t o_sr, const float* Sx, const float* Sy,
                         const float* lam, const float* shift, double shift0,
                         const float* ring, const float* g, int64_t g_sb, int64_t g_sr,
-                        int64_t B, int64_t r, int64_t c, void* stream) {
+                        float* ws, int64_t chunk, int64_t B, int64_t r, int64_t c,
+                        void* stream) {
   return launch<float>(b, b_sb, b_sr, out, o_sb, o_sr, Sx, Sy, lam, shift, shift0, ring, g,
-                       g_sb, g_sr, B, r, c, stream);
+                       g_sb, g_sr, ws, chunk, B, r, c, stream);
 }
 
 }  // extern "C"

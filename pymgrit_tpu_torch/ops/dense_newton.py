@@ -8,8 +8,9 @@ J(u) = I + dt (diag(D1 u) + u D1 - nu D2), while max|g(u)| >= tol and fewer
 than maxiter iterations.  The JAX package runs that loop under ``vmap``;
 the plain version masks lanes as ``ops/cg.py`` does (one host read per
 iteration) and solves with ``torch.linalg.solve``.  K16 runs the whole loop
-of a lane in one block (LU with partial pivoting in shared memory), for J
-lanes of L chained steps in one launch.
+of a lane in one block (an LU with partial pivoting that visits only the
+entries of the periodic tridiagonal J that can be nonzero, O(n) a Newton
+iteration), for J lanes of L chained steps in one launch.
 
 Dispatch as in ``heat_kernels``: a CPU tensor goes to the plain version, a
 CUDA tensor launches the kernel or raises.
@@ -23,14 +24,13 @@ import torch
 from pymgrit_tpu_torch.ops import _build
 from pymgrit_tpu_torch.ops.heat_kernels import _check_operands, _launcher, _require
 
-SMEM_LIMIT = 232448      # bytes of shared memory a block may use (H100)
-_WARPS = 8               # the kernel's 256 threads
+WORKSPACE = 8            # a lane's device workspace, in values per grid point
 
 
-def smem_bytes(n: int, element_size: int) -> int:
-    """Shared memory of one K16 block: J (n x (n + 1)), four vectors, the
-    warps' partial maxima and the pivot index."""
-    return element_size * (n * (n + 1) + 4 * n + _WARPS) + 4
+def workspace(J: int, n: int, like: torch.Tensor) -> torch.Tensor:
+    """K16's per-lane workspace: the iterate, the step's start, the residual
+    and the five slots of U's rows, 8 n values a lane."""
+    return torch.empty((J, WORKSPACE * n), dtype=like.dtype, device=like.device)
 
 
 def periodic_differences(n: int, dx: float):
@@ -95,9 +95,7 @@ def burgers1d_newton(seed, dt, out, g=None, nu=0.01, dx=1.0 / 128, tol=1e-12, ma
     seed: (J, n) states with contiguous rows; dt: contiguous (L, J) step
     sizes; out, g: (J, L, n) views with contiguous rows (g optional); iters:
     optional contiguous (L, J) int32 tensor that receives every lane's and
-    step's Newton iterations.  On the card J (n x n) must fit in a block's
-    shared memory (n <= 167 in float64).  out must not overlap seed or g.
-    Returns out.
+    step's Newton iterations.  out must not overlap seed or g.  Returns out.
     """
     name = "burgers1d_newton"
     ops = dict(seed=seed, dt=dt, out=out)
@@ -118,17 +116,17 @@ def burgers1d_newton(seed, dt, out, g=None, nu=0.01, dx=1.0 / 128, tol=1e-12, ma
              name, f"iters must be a contiguous ({L}, {J}) int32 tensor on {seed.device}")
     if seed.device.type == "cpu":
         return burgers1d_newton_plain(seed, dt, out, g, nu, dx, tol, maxiter, iters)
-    _require(smem_bytes(n, seed.element_size()) <= SMEM_LIMIT, name,
-             f"side {n} does not fit the kernel's shared memory ({SMEM_LIMIT} bytes)")
     if J == 0 or L == 0:
         return out
+    ws = workspace(J, n, seed)
     fn = _launcher("pm_burgers1d_newton", seed.dtype)
     stream = torch.cuda.current_stream(seed.device).cuda_stream
     status = fn(seed.data_ptr(), seed.stride(0), dt.data_ptr(), out.data_ptr(), out.stride(0),
                 out.stride(1), g.data_ptr() if g is not None else None,
                 g.stride(0) if g is not None else 0, g.stride(1) if g is not None else 0,
-                iters.data_ptr() if iters is not None else None, float(nu), 1.0 / (2 * dx),
-                1.0 / dx ** 2, -2.0 / dx ** 2, float(tol), int(maxiter), J, L, n, stream)
+                iters.data_ptr() if iters is not None else None, ws.data_ptr(), float(nu),
+                1.0 / (2 * dx), 1.0 / dx ** 2, -2.0 / dx ** 2, float(tol), int(maxiter), J, L, n,
+                stream)
     _build.check(status, name)
     burgers1d_newton.launches += 1
     return out

@@ -1,5 +1,6 @@
-"""Kernels K1 ``interval_affine``, K2 ``theta_chain``, K5 ``sine_solve2d``
-and K6 ``sine_affine2d`` (CUDA C++), each beside its plain PyTorch version.
+"""Kernels K1 ``interval_affine``, K2 ``theta_chain``, K5 ``sine_solve2d``,
+K6 ``sine_affine2d`` and K20 ``sine_solve1d`` (CUDA C++), each beside its
+plain PyTorch version.
 
 Dispatch: a tensor on the CPU goes to the plain version; a CUDA tensor
 launches the kernel from ``csrc/`` (built on first use by ``_build``) or
@@ -11,7 +12,8 @@ its level tubes and the kernels write straight into them.  In every
 operand the last axis must be contiguous.  K1 and K2 see a state as a row of
 N spectral coefficients; K5 and K6 see a physical state as an (r, c)
 interior, or the full (r + 2, c + 2) field with its Dirichlet ring, whose
-rows may have any stride.
+rows may have any stride; K20 sees a 1D physical state as a row of n
+interior values.
 """
 
 from __future__ import annotations
@@ -176,7 +178,18 @@ theta_chain.launches = 0
 # K5 sine_solve2d, K6 sine_affine2d: physical-basis two-sided sine products
 # ---------------------------------------------------------------------------
 
-MAX_SIDE = 128       # largest interior side the kernels' shared-memory tile holds
+ONE_TILE = 128       # largest side of the one-tile core (csrc/sine2d.cuh)
+TILED_CHUNK = 512    # states the tiled path (csrc/tiled2d.cuh) stages at a time
+
+
+def tiled_workspace(states: int, r: int, c: int, like: torch.Tensor):
+    """(workspace, chunk) of the tiled path of K5, K6 and K10: two buffers
+    of a chunk of (r, c) states; (None, 0) where both sides fit the
+    one-tile core."""
+    if max(r, c) <= ONE_TILE:
+        return None, 0
+    chunk = min(states, TILED_CHUNK)
+    return torch.empty((2, chunk, r, c), dtype=like.dtype, device=like.device), chunk
 
 
 def _with_ring(interior, out, ring):
@@ -213,7 +226,7 @@ def sine_solve2d(b, out, Sx, Sy, lam=None, shift=None, ring=None, g=None):
     an (r + 2, c + 2) field whose boundary ring out receives; Sx (r, r),
     Sy (c, c) symmetric bases; lam: (r, c) eigenvalue sums; shift: a float
     or a (B,) tensor; g: optional view of out's shape added to the result.
-    Contiguous tables, r, c <= 128.  out must not overlap b.  Returns out.
+    Contiguous tables.  out must not overlap b.  Returns out.
     """
     name = "sine_solve2d"
     ops = dict(b=b, out=out, Sx=Sx, Sy=Sy)
@@ -242,10 +255,10 @@ def sine_solve2d(b, out, Sx, Sy, lam=None, shift=None, ring=None, g=None):
              f"ring must be a contiguous ({P}, {Q}) field")
     if b.device.type == "cpu":
         return sine_solve2d_plain(b, out, Sx, Sy, lam, shift, ring, g)
-    _require(max(r, c) <= MAX_SIDE, name, f"interior sides {r}, {c} exceed {MAX_SIDE}")
     if B == 0:
         return out
     shift_t = shift if isinstance(shift, torch.Tensor) else None
+    ws, chunk = tiled_workspace(B, r, c, b)
     fn = _launcher("pm_sine_solve2d", b.dtype)
     stream = torch.cuda.current_stream(b.device).cuda_stream
     status = fn(b.data_ptr(), b.stride(0), b.stride(1), out.data_ptr(), out.stride(0),
@@ -256,7 +269,7 @@ def sine_solve2d(b, out, Sx, Sy, lam=None, shift=None, ring=None, g=None):
                 ring.data_ptr() if ring is not None else None,
                 g.data_ptr() if g is not None else None,
                 g.stride(0) if g is not None else 0, g.stride(1) if g is not None else 0,
-                B, r, c, stream)
+                ws.data_ptr() if ws is not None else None, chunk, B, r, c, stream)
     _build.check(status, name)
     sine_solve2d.launches += 1
     return out
@@ -329,9 +342,9 @@ def sine_affine2d(xhat, A, G, out, Sx, Sy, r0=0, ring=None, dhat=None, dscale=No
     if xhat.device.type == "cpu":
         return sine_affine2d_plain(xhat, A, G, out, Sx, Sy, r0, ring, dhat, dscale, seed,
                                    seed_out)
-    _require(max(r, c) <= MAX_SIDE, name, f"interior sides {r}, {c} exceed {MAX_SIDE}")
     if J == 0 or R == 0:
         return out
+    ws, chunk = tiled_workspace(J * R, r, c, xhat)
     fn = _launcher("pm_sine_affine2d", xhat.dtype)
     stream = torch.cuda.current_stream(xhat.device).cuda_stream
     status = fn(xhat.data_ptr(), xhat.stride(0), A.data_ptr(), G.data_ptr(), r0, R, J,
@@ -346,10 +359,83 @@ def sine_affine2d(xhat, A, G, out, Sx, Sy, r0=0, ring=None, dhat=None, dscale=No
                 seed_out.stride(0) if seed_out is not None else 0,
                 seed_out.stride(1) if seed_out is not None else 0,
                 Sx.data_ptr(), Sy.data_ptr(), ring.data_ptr() if ring is not None else None,
-                r, c, stream)
+                ws.data_ptr() if ws is not None else None, chunk, r, c, stream)
     _build.check(status, name)
     sine_affine2d.launches += 1
     return out
 
 
 sine_affine2d.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K20 sine_solve1d: physical-basis Heat1D step and 1D sine transform
+# ---------------------------------------------------------------------------
+
+
+def sine_solve1d_plain(x, out, S, lam=None, dt=None, rhs=None):
+    """out = ((x + dt rhs) S / (1 + dt lam)) S row by row, or x S without
+    lam (the expressions of Heat1D.step_batched)."""
+    if lam is None:
+        y = x @ S
+    else:
+        d = dt[:, None]
+        b = x if rhs is None else x + d * rhs
+        y = ((b @ S) / (1.0 + d * lam[None])) @ S
+    out.copy_(y.view(out.shape))
+    return out
+
+
+def sine_solve1d(x, out, S, lam=None, dt=None, rhs=None):
+    """Batched physical Heat1D backward-Euler step (lam and dt given) or 1D
+    sine transform (neither) of B rows of n values (K20).
+
+    x: (B, n) view; out: a (B, n) view, or an (H, D, n) view with H * D = B
+    (row b at [b // D, b % D]); S: contiguous (n, n) symmetric basis; lam:
+    contiguous (n,) eigenvalues; dt: contiguous (B,) step sizes; rhs:
+    optional (B, n) view added as dt * rhs before the solve (row stride 0
+    for one shared row).  out must not share memory with x.  Returns out.
+    """
+    name = "sine_solve1d"
+    ops = dict(x=x, out=out, S=S)
+    for key, t in dict(lam=lam, dt=dt, rhs=rhs).items():
+        if t is not None:
+            ops[key] = t
+    _check_operands(name, ops)
+    _require(x.dim() == 2, name, f"x has shape {tuple(x.shape)}, expected (B, n)")
+    B, n = x.shape
+    _require(out.dim() in (2, 3) and out.shape[-1] == n and out[..., 0].numel() == B, name,
+             f"out has shape {tuple(out.shape)}, expected ({B}, {n}) or (H, D, {n}), H * D = {B}")
+    _require(tuple(S.shape) == (n, n) and S.is_contiguous(), name,
+             f"S must be a contiguous ({n}, {n}) basis")
+    _require((lam is None) == (dt is None), name, "lam and dt go together")
+    _require(rhs is None or lam is not None, name, "rhs needs lam and dt")
+    _require(lam is None or (tuple(lam.shape) == (n,) and lam.is_contiguous()), name,
+             f"lam must be a contiguous ({n},) vector")
+    _require(dt is None or (tuple(dt.shape) == (B,) and dt.is_contiguous()), name,
+             f"dt must be a contiguous ({B},) vector")
+    _require(rhs is None or tuple(rhs.shape) == (B, n), name,
+             f"rhs has shape {tuple(rhs.shape) if rhs is not None else None}, expected ({B}, {n})")
+    _require(out.untyped_storage().data_ptr() != x.untyped_storage().data_ptr(), name,
+             "out shares memory with x")
+    if x.device.type == "cpu":
+        return sine_solve1d_plain(x, out, S, lam, dt, rhs)
+    if B == 0 or n == 0:
+        return out
+    D, s_hi, s_lo = (1, out.stride(0), 0) if out.dim() == 2 else (
+        out.shape[1], out.stride(0), out.stride(1))
+    work = torch.empty((B, n), dtype=x.dtype, device=x.device) if lam is not None else None
+    fn = _launcher("pm_sine_solve1d", x.dtype)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    status = fn(x.data_ptr(), x.stride(0), rhs.data_ptr() if rhs is not None else None,
+                rhs.stride(0) if rhs is not None else 0,
+                dt.data_ptr() if dt is not None else None, S.data_ptr(),
+                lam.data_ptr() if lam is not None else None,
+                work.data_ptr() if work is not None else None, out.data_ptr(), D, s_hi, s_lo,
+                B, n, stream)
+    _build.check(status, name)
+    sine_solve1d.launches += 1
+    return out
+
+
+sine_solve1d.launches = 0

@@ -17,9 +17,9 @@ burgers.py ``Burgers2D._fft_visc_solve`` (one coefficient per species:
 length-n product), not bitwise.
 
 K17 replaces the Fourier solve of pymgrit_tpu/models/advection_1d.py
-``Advection1D.step``: the upwind backward-Euler matrix is circulant, and its
-inverse is a circular convolution with a closed-form first column (see the
-kernel's source); the plain version keeps the Fourier route.
+``Advection1D.step``: the upwind backward-Euler matrix is cyclic
+bidiagonal, and a recurrence with a closed-form cyclic closure solves it in
+O(n) (see the kernel's source); the plain version keeps the Fourier route.
 
 Dispatch as in ``heat_kernels``: a CPU tensor goes to the plain version, a
 CUDA tensor launches the kernel or raises.
@@ -31,9 +31,8 @@ import numpy as np
 import torch
 
 from pymgrit_tpu_torch.ops import _build
-from pymgrit_tpu_torch.ops.heat_kernels import MAX_SIDE, _check_operands, _launcher, _require
-
-MAX_CIRCULANT = 1024     # K17: the largest n (a thread keeps n / 128 sums)
+from pymgrit_tpu_torch.ops.heat_kernels import (_check_operands, _launcher, _require,
+                                                 tiled_workspace)
 
 
 def hartley_basis(n: int) -> np.ndarray:
@@ -99,9 +98,9 @@ def periodic_solve2d(b, out, H, lam, shift, nu=0, inv_eps2=0.0, g=None, coef=Non
     (S,) tensor of per-species coefficients (None: 1); a prologue turns b
     into an IMEX right-hand side: nu > 0 the Allen-Cahn one
     r = b + shift ((inv_eps2 b)(1 - b^nu)), gray_scott = (a, b) the
-    Gray-Scott one over the pair (u, v) (S = 2); else r = b.  n <= 128 on
-    the card.  out must not overlap b or g other than as the same view (and
-    not even so with the Gray-Scott prologue).  Returns out.
+    Gray-Scott one over the pair (u, v) (S = 2); else r = b.  out must not
+    overlap b or g other than as the same view (and not even so with the
+    Gray-Scott prologue).  Returns out.
     """
     name = "periodic_solve2d"
     ops = dict(b=b, out=out, H=H, lam=lam, shift=shift)
@@ -132,18 +131,19 @@ def periodic_solve2d(b, out, H, lam, shift, nu=0, inv_eps2=0.0, g=None, coef=Non
              "the Gray-Scott prologue reads both species: out must not be b")
     if b.device.type == "cpu":
         return periodic_solve2d_plain(b, out, H, lam, shift, nu, inv_eps2, g, coef, gray_scott)
-    _require(n <= MAX_SIDE, name, f"side {n} exceeds {MAX_SIDE} (the kernel's shared tile)")
     if B == 0:
         return out
     b4, out4, g4 = _species(b), _species(out), _species(g)
     mode, p0, p1 = (1, inv_eps2, 0.0) if nu else (2, *gray_scott) if gray_scott else (0, 0.0, 0.0)
+    ws, chunk = tiled_workspace(B * S, n, n, b)
     fn = _launcher("pm_periodic_solve2d", b.dtype)
     stream = torch.cuda.current_stream(b.device).cuda_stream
     status = fn(b4.data_ptr(), *b4.stride()[:3], out4.data_ptr(), *out4.stride()[:3],
                 H.data_ptr(), lam.data_ptr(), shift.data_ptr(),
                 coef.data_ptr() if coef is not None else None, S, mode, int(nu), float(p0),
                 float(p1), g4.data_ptr() if g4 is not None else None,
-                *(g4.stride()[:3] if g4 is not None else (0, 0, 0)), B, n, stream)
+                *(g4.stride()[:3] if g4 is not None else (0, 0, 0)),
+                ws.data_ptr() if ws is not None else None, chunk, B, n, stream)
     _build.check(status, name)
     periodic_solve2d.launches += 1
     return out
@@ -175,8 +175,8 @@ def circulant_solve1d(seed, dt, out, g=None, fac=1.0):
 
     seed: (J, n) states with contiguous rows; dt: contiguous (L, J) step
     sizes; out, g: (J, L, n) views with contiguous rows (g optional); fac:
-    the advection speed over dx.  n <= 1024 on the card.  out must not
-    overlap seed or g.  Returns out.
+    the advection speed over dx.  out must not overlap seed or g.  Returns
+    out.
     """
     name = "circulant_solve1d"
     ops = dict(seed=seed, dt=dt, out=out)
@@ -193,7 +193,6 @@ def circulant_solve1d(seed, dt, out, g=None, fac=1.0):
              f"dt must be a contiguous ({L}, {J}) tensor")
     if seed.device.type == "cpu":
         return circulant_solve1d_plain(seed, dt, out, g, fac)
-    _require(n <= MAX_CIRCULANT, name, f"n = {n} exceeds {MAX_CIRCULANT}")
     if J == 0 or L == 0 or n == 0:
         return out
     fn = _launcher("pm_circulant_solve1d", seed.dtype)

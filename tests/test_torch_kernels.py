@@ -308,6 +308,121 @@ def _cases(dtype, dev):
                                          line_g if with_g else None, fac)
         return run
 
+    # K18, K19: rows of fine and coarse tubes (strided), 1D (15 <-> 7 interior
+    # points) and 2D (9 x 11 <-> 5 x 6 vertices)
+    ftube1, ctube1 = _rand((12, 15), dtype, dev, 36), _rand((12, 7), dtype, dev, 37)
+    ftube2, ctube2 = _rand((12, 9, 11), dtype, dev, 38), _rand((12, 5, 6), dtype, dev, 39)
+
+    def k18(dim, nterms, nadds):
+        ft, ct = (ftube1, ctube1) if dim == 1 else (ftube2, ctube2)
+
+        def run(ops):
+            out = torch.zeros_like(ct)
+            ops.restrict_combine(out[1:11:2], [ft[k:10 + k:2] for k in range(nterms)],
+                                 [1.0, -1.0, 1.0][:nterms], [ct[k:10 + k:2] for k in range(nadds)],
+                                 [1.0, -1.0][:nadds], dim)
+            return out
+        return run
+
+    def k19(dim, with_b):
+        ft, ct = (ftube1, ctube1) if dim == 1 else (ftube2, ctube2)
+
+        def run(ops):
+            out = ft.clone()
+            ops.interpolate_combine(out[2:12:2], ct[0:10:2], ct[1:11:2] if with_b else None, dim)
+            return out
+        return run
+
+    # past the one-tile core's side (128): K5 and K6 (the tiled path, a
+    # rectangular state with partial tiles), K10 (pairs with the Gray-Scott
+    # prologue and g, Allen-Cahn's), K16 and K17 on wide lines
+    br, bc = 133, 40
+    Sbr = torch.as_tensor(sine_eigenbasis(br, 900.0)[0], dtype=dtype, device=dev)
+    Sbc = torch.as_tensor(sine_eigenbasis(bc, 400.0)[0], dtype=dtype, device=dev)
+    lam_big = _rand((br, bc), dtype, dev, 40).abs() * 500
+    ring_big = _rand((br + 2, bc + 2), dtype, dev, 41)
+    ring_big[1:-1, 1:-1] = 0.0
+    big = _rand((5, br + 2, bc + 2), dtype, dev, 42)
+    rows_big = _rand((3, br * bc), dtype, dev, 43)
+
+    def k5_big(ops):
+        out = torch.zeros_like(big)
+        return ops.sine_solve2d(big[0:4:2, 1:-1, 1:-1], out[1:5:2], Sbr, Sbc, lam_big,
+                                torch.tensor([1e-3, 3e-3], dtype=dtype, device=dev), ring_big,
+                                big[1:4:2] * 1e-2)
+
+    def k6_big(ops):
+        out = torch.zeros((2, 3, br + 2, bc + 2), dtype=dtype, device=dev)
+        A_b, G_b = rows_big.abs(), rows_big.flip(0)
+        ops.sine_affine2d(rows_big[[0, 2]], A_b, G_b, out[:, 1:], Sbr, Sbc, 1, ring_big,
+                          rows_big[[1, 0]], lam_big.view(-1) * 1e-4, big[:2], out[:, 0])
+        return out
+
+    Hb = torch.as_tensor(periodic.hartley_basis(130), dtype=dtype, device=dev)
+    lam_hb = _rand((130, 130), dtype, dev, 44).abs() * 1e3
+    pair_big = _rand((3, 2, 130, 130), dtype, dev, 45).clamp(-1, 1)
+
+    def k10_big(gray_scott):
+        def run(ops):
+            out = torch.zeros_like(pair_big)
+            if gray_scott:
+                return ops.periodic_solve2d(pair_big[:2], out[1:], Hb, lam_hb, ac_shift[:2],
+                                            g=pair_big[1:] * 1e-2, coef=coef, gray_scott=(0.024, 0.084))
+            return ops.periodic_solve2d(pair_big[:, 1], out[:, 0], Hb, lam_hb, ac_shift, nu=2,
+                                        inv_eps2=625.0)
+        return run
+
+    x_wide = torch.linspace(0, 1, 171, dtype=torch.float64)[:170]
+    wide_seed = (torch.sin(2 * np.pi * x_wide) * (1 + 0.1 * torch.arange(3)[:, None])).to(dev, dtype)
+    wide_dt = torch.full((2, 3), 2e-2, dtype=dtype, device=dev)
+
+    def k16_big(ops):
+        tol, maxiter = (1e-10, 30) if dtype == torch.float64 else (0.0, 4)
+        out = torch.zeros((3, 2, 170), dtype=dtype, device=dev)
+        iters = torch.zeros((2, 3), dtype=torch.int32, device=dev)
+        ops.burgers1d_newton(wide_seed, wide_dt, out, None, 0.01, 1.0 / 170, tol, maxiter, iters)
+        return torch.cat([out.flatten(), iters.flatten().to(dtype)])
+
+    long_seed = _rand((3, 1030), dtype, dev, 46)
+
+    def k17_big(fac):
+        def run(ops):
+            out = torch.zeros((3, 3, 1030), dtype=dtype, device=dev)
+            return ops.circulant_solve1d(long_seed, line_dt[:, :3].contiguous(), out,
+                                         (long_seed[:, None] * 1e-3).expand(3, 3, 1030), fac)
+        return run
+
+    # K20: 1D physical rows (strided), a shared or per-row rhs, the
+    # (interval, row) output layout of relax_interval, and a width past one
+    # 32-wide tile in both the rows and the columns
+    S1 = torch.as_tensor(sine_eigenbasis(NI, 256.0)[0], dtype=dtype, device=dev)
+    rows1 = _rand((11, NI), dtype, dev, 47)
+    dt1 = torch.linspace(1e-3, 5e-3, 5, dtype=dtype, device=dev)
+
+    def k20(solve, shared_rhs):
+        def run(ops):
+            out = torch.zeros((11, NI), dtype=dtype, device=dev)
+            r = rows1[0].expand(5, NI) if shared_rhs else rows1[1:10:2]
+            ops.sine_solve1d(rows1[0:10:2], out[1:11:2], S1, lam[:NI] if solve else None,
+                             dt1 if solve else None, r if solve else None)
+            return out
+        return run
+
+    def k20_blocks(ops):
+        out = torch.zeros((4, 3, NI), dtype=dtype, device=dev)
+        ops.sine_solve1d(rows1[:6], out.transpose(0, 1)[:, 1:3], S1)
+        return out
+
+    nw = 70
+    Sw = torch.as_tensor(sine_eigenbasis(nw, 900.0)[0], dtype=dtype, device=dev)
+    wide1 = _rand((40, nw), dtype, dev, 48)
+
+    def k20_wide(ops):
+        out = torch.zeros((37, nw), dtype=dtype, device=dev)
+        return ops.sine_solve1d(wide1[:37], out, Sw, wide1[0].abs() * 1e3,
+                                torch.linspace(1e-3, 2e-3, 37, dtype=dtype, device=dev),
+                                wide1[1:38] * 1e-2)
+
     return [("interval_affine", k1_rows), ("interval_affine", k1_tube),
             ("theta_chain", k2(1.0, True, False)), ("theta_chain", k2(0.5, True, True)),
             ("theta_chain", k2(1.0, False, True)), ("residual_row_norms", k3),
@@ -334,10 +449,21 @@ def _cases(dtype, dev):
             ("gray_scott_pointwise", k14("residual")), ("gray_scott_pointwise", k14("jacobian")),
             ("burgers2d_pointwise", k15("residual")), ("burgers2d_pointwise", k15("jacobian")),
             ("burgers1d_newton", k16(True)), ("burgers1d_newton", k16(False)),
-            ("circulant_solve1d", k17(40.0, True)), ("circulant_solve1d", k17(-40.0, False))]
+            ("circulant_solve1d", k17(40.0, True)), ("circulant_solve1d", k17(-40.0, False)),
+            ("restrict_combine", k18(1, 2, 2)), ("restrict_combine", k18(1, 1, 0)),
+            ("restrict_combine", k18(2, 3, 2)), ("restrict_combine", k18(2, 1, 0)),
+            ("interpolate_combine", k19(1, True)), ("interpolate_combine", k19(1, False)),
+            ("interpolate_combine", k19(2, True)), ("interpolate_combine", k19(2, False)),
+            ("sine_solve2d", k5_big), ("sine_affine2d", k6_big),
+            ("periodic_solve2d", k10_big(True)), ("periodic_solve2d", k10_big(False)),
+            ("burgers1d_newton", k16_big), ("circulant_solve1d", k17_big(40.0)),
+            ("circulant_solve1d", k17_big(-40.0)),
+            ("sine_solve1d", k20(True, True)), ("sine_solve1d", k20(True, False)),
+            ("sine_solve1d", k20(False, False)), ("sine_solve1d", k20_blocks),
+            ("sine_solve1d", k20_wide)]
 
 
-N_CASES = 47
+N_CASES = 67
 
 
 @pytest.mark.cuda
@@ -391,6 +517,32 @@ def test_small_physical_solve_on_card_matches_cpu(cuda, method):
     assert not any(cc.values())
     assert all(cg[k] > 0 for k in _PATH_KERNELS["physical"])
     assert cg["interval_affine"] == cg["theta_chain"] == 0
+    np.testing.assert_allclose(hg, hc, rtol=1e-10, atol=1e-14)
+    assert float((tg - tc).abs().max()) <= 1e-10
+
+
+def _heat1d_spatial_solve(device):
+    """examples/example_spatial_coarsening.py (Heat1D physical, 17/9/5/5,
+    GridTransferHeat): K18, K19 and K20 on the card."""
+    rhs = lambda x, t: -np.sin(np.pi * x) * (np.sin(t) - np.pi ** 2 * np.cos(t))
+    kw = dict(x_start=0, x_end=2, a=1, rhs=rhs, init_cond=lambda x: np.sin(np.pi * x),
+              device=device)
+    h0 = P.Heat1D(nx=17, t_start=0, t_stop=2, nt=129, **kw)
+    h1 = P.Heat1D(nx=9, t_interval=h0.t[::2], **kw)
+    h2 = P.Heat1D(nx=5, t_interval=h1.t[::2], **kw)
+    h3 = P.Heat1D(nx=5, t_interval=h2.t[::2], **kw)
+    reset_launch_counts()
+    mgrit = P.Mgrit(problem=[h0, h1, h2, h3],
+                    transfer=[P.GridTransferHeat(), P.GridTransferHeat(), P.GridTransferCopy()],
+                    logging_lvl=40)
+    return mgrit.solve()["conv"], mgrit.u[0].cpu(), launch_counts()
+
+
+@pytest.mark.cuda
+def test_small_heat1d_spatial_solve_on_card_matches_cpu(cuda):
+    (hc, tc, cc), (hg, tg, cg) = (_heat1d_spatial_solve(d) for d in ("cpu", cuda))
+    assert not any(cc.values())
+    assert all(cg[k] > 0 for k in ("sine_solve1d", "restrict_combine", "interpolate_combine"))
     np.testing.assert_allclose(hg, hc, rtol=1e-10, atol=1e-14)
     assert float((tg - tc).abs().max()) <= 1e-10
 
@@ -934,6 +1086,39 @@ def test_burgers1d_newton_rejects_iters_and_narrow_states():
 
 
 def test_burgers1d_newton_shared_memory_limit():
-    """J of side 167 fits a block's shared memory in float64, 168 does not."""
-    assert dense_newton.smem_bytes(167, 8) <= dense_newton.SMEM_LIMIT
-    assert dense_newton.smem_bytes(168, 8) > dense_newton.SMEM_LIMIT
+    """K16 keeps no n x n matrix in shared memory: its workspace is 8 n
+    values a lane in device memory, so sides past the old shared-memory cap
+    (n = 168 and wider) take the kernel."""
+    ws = dense_newton.workspace(3, 4096, torch.zeros(1, dtype=torch.float64))
+    assert tuple(ws.shape) == (3, dense_newton.WORKSPACE * 4096) and dense_newton.WORKSPACE == 8
+    assert not hasattr(dense_newton, "SMEM_LIMIT")
+
+
+def _k20_args(**over):
+    f64 = dict(dtype=torch.float64)
+    args = dict(x=torch.zeros((4, 5), **f64), out=torch.empty((4, 5), **f64),
+                S=torch.zeros((5, 5), **f64), lam=torch.zeros(5, **f64), dt=torch.zeros(4, **f64),
+                rhs=torch.zeros((4, 5), **f64))
+    args.update(over)
+    return args
+
+
+@pytest.mark.parametrize("over,match", [
+    (dict(x=torch.zeros((4, 5), dtype=torch.float32)), "dtype"),
+    (dict(out=torch.empty((4, 6), dtype=torch.float64)), "out has shape"),
+    (dict(out=torch.empty((3, 2, 5), dtype=torch.float64)), "out has shape"),
+    (dict(S=torch.zeros((5, 6), dtype=torch.float64)), "S must be"),
+    (dict(dt=None), "go together"),
+    (dict(lam=None, dt=None), "rhs needs"),
+    (dict(dt=torch.zeros(3, dtype=torch.float64)), "dt must be"),
+    (dict(rhs=torch.zeros((4, 6), dtype=torch.float64)), "rhs has shape"),
+])
+def test_sine_solve1d_rejects(over, match):
+    with pytest.raises(ValueError, match=match):
+        heat_kernels.sine_solve1d(**_k20_args(**over))
+
+
+def test_sine_solve1d_rejects_out_sharing_x():
+    tube = torch.zeros((8, 5), dtype=torch.float64)
+    with pytest.raises(ValueError, match="shares memory"):
+        heat_kernels.sine_solve1d(tube[:4], tube[4:], torch.zeros((5, 5), dtype=torch.float64))
