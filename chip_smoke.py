@@ -13,9 +13,9 @@ phases:
 1. device    the card's name and power limit (nvidia-smi); a CUDA device is
              required, there is no CPU carry-on;
 2. build     nvcc builds the CUDA C++ kernels (K1, K2, K5, K6, K8, K9, K10, K12,
-             K16, K17, K20) from ``csrc/``, one process per source, all started
-             together;
-3. kernels   K1-K20 against their plain PyTorch versions at the main paths'
+             K16, K17, K20, K22) from ``csrc/``, one process per source, all
+             started together; ``cuobjdump`` counts K22's DMMA instructions;
+3. kernels   K1-K22 against their plain PyTorch versions at the main paths'
              shapes (and odd ones, and K5/K6/K10/K16/K17 past the sizes
              their wrappers once refused), float32 and float64, with
              timings; for each kernel's headline case (and each case that
@@ -70,10 +70,22 @@ phases:
              its golden and its JAX history (``[spatial1d]``);
 15. c2       ``bench.py``'s toms257 physical row (257^2, nt = 4097, 32/16/4,
              two iterations): K5 and K6 past their one-tile side, kernels
-             against plain.
+             against plain;
+16. ragged   ``bench.py``'s ragged_nonuniform row (Heat2D physical 65^2,
+             nt = 4097, levels 4097/515/129/33, levels 0 and 1 non-uniform)
+             through K21 and K5/K7, kernels against plain in alternating
+             pairs and against the JAX history; the varying_coarsening
+             golden (Dahlquist, weight_c 1 and 0.5);
+17. bdf      ``examples/example_heat_1d_bdf2.py`` (nx = 1001, pair grids
+             257/129/65, BDF2/BDF1/BDF1) through K20's BE and BDF2 modes,
+             against the JAX history and the plain path;
+18. diffusion ``examples/example_diffusion_2d.py`` (n = 20, N = 2400, nt 17/9)
+             through K22 against its JAX history, then nt = 1025 with m = 8
+             (128 lanes), kernels against plain, mass conservation.
 
 ``python3 chip_smoke.py --profile`` runs phases 1-2 and then one profiled
-solve of each configuration of phases 11-13 (``torch.profiler``): device
+solve of each configuration of phases 11-13 and of the ragged row, the BDF
+example and the deep diffusion grid (``torch.profiler``): device
 busy and idle share, the leading device ops, launches and syncs.  It
 compares and checks nothing, so its last line is
 ``{"profile": true, ...}`` and never the ``"ok"`` of a checked run.
@@ -85,6 +97,7 @@ is the JSON result.  Numbers are measured in this run on this card.
 
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -238,10 +251,50 @@ SLICE_KERNELS = {"gray_scott": {"IMEX": ("periodic_solve2d",),
                  "Burgers1D": ("burgers1d_newton",),
                  "Burgers2D": ("periodic_solve2d", "burgers2d_pointwise"),
                  "Advection1D": ("circulant_solve1d",)}
+# bench.py's ragged_nonuniform row (run_ragged_row): Heat2D physical 65^2,
+# nt = 4097, level-1 C-points at stride 8 moved by up to +-3
+# (np.random.default_rng(0)), then [::4] and [::4]: levels 4097 / 515 / 129
+# / 33 (levels 0 and 1 non-uniform), zero initial condition, tol 1e-300,
+# three iterations; its history from the JAX package (CPU, float64;
+# tests/test_torch_chip_histories.py recomputes it)
+RAGGED = dict(nx=65, nt=4097, stride=8, jitter=3, seed=0, tol=1e-300, max_iter=3)
+RAGGED_JAX = np.array([0.0005997708663602085, 5.004357263633654e-05, 4.740011698572717e-06])
+RAGGED_KERNELS = ("indexed_combine", "sine_solve2d", "theta_rhs2d", "residual_row_norms")
+# tests/core/test_solver_goldens_2.py::test_varying_coarsening (Dahlquist,
+# a run of adjacent C-points on level 0) and its golden at the reference's rtol
+VARYING_IDX = [0, 3, 10, 12, 14, 17, 23, 27, 33, 34, 55, 57, 59, 61, 63, 64]
+VARYING_GOLDEN = np.array([3.7312e-2, 3.1242e-3, 3.1292e-5, 1.8515e-7, 4.9959e-10, 4.8216e-13])
+# examples/example_heat_1d_bdf2.py: Heat1DBDF2 / BDF1 / BDF1 pair states,
+# nx = 1001 (999 interior points), nt = 512 time points on [0, 2] grouped in
+# pairs: pair grids of 257 / 129 / 65 points (level 0: 128 lanes); tol 1e-7;
+# its history from the JAX package (CPU, float64; recomputed by
+# tests/test_torch_chip_histories.py)
+BDF = dict(nx=1001, nt=512, t_stop=2.0, tol=1e-7, max_iter=100)
+BDF_JAX = np.array([0.0010946421490864355, 7.547288987998757e-05, 5.233458803278994e-06,
+                    3.632980652140187e-07, 2.5073381705149255e-08])
+# examples/example_diffusion_2d.py: Diffusion2D n = 20 (N = 6 n^2 = 2400
+# degrees of freedom), nt 17 / 9, tol 1e-7, and its JAX history (CPU,
+# float64; recomputed by tests/test_torch_chip_histories.py); then a deeper two-level grid, nt = 1025 with m = 8 (128 lanes x 7
+# steps on level 0), kernels against plain
+DIFFUSION = dict(n=20, nts=(17, 9), tol=1e-7, max_iter=100)
+DIFFUSION_JAX = np.array([0.004854124361638421, 0.00015798615095824288, 2.7488539064243935e-06,
+                          1.7515845464831638e-14])
+DIFFUSION_DEEP = dict(n=20, nt=1025, m=8, tol=1e-9, max_iter=10)
+MASS_RTOL = 1e-10
+# K22 sums two length-2400 products per entry in another order than cuBLAS
+# (DMMA's k4 groups, or FFMA in f32): ~sqrt(N) roundings of independent sign
+KERNEL_RTOL_BY_NAME["eig_step"] = {"float64": 1e-12, "float32": 1e-4}
 # H100 SXM at 700 W (NVIDIA's data sheet): HBM bytes/s and the peak rates of
-# the units the kernels use (FP64 and FP32 outside the tensor cores)
+# the units that could do the kernels' operations (FP64 and FP32 outside the
+# tensor cores; FP64 on the tensor cores, DMMA, for dense products)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float64": 34e12, "float32": 67e12}
+PEAK_DMMA_OPS_PER_S = 67e12
+# the kernels whose operations are dense FP64 products, which the tensor
+# cores could run: the sine transforms of K5, K6 and K20, K10's Hartley
+# transforms and K22's eigenbasis products
+PRODUCT_KERNELS = ("sine_solve2d", "sine_affine2d", "periodic_solve2d", "sine_solve1d",
+                   "eig_step")
 
 
 def fail(msg):
@@ -289,10 +342,11 @@ def count_fine_steps_per_iter(mgrit, first):
 
 def residual_floor(mgrit, ops=FLOOR_OPS):
     """float64 floor of the residual history: ``ops`` roundings of every
-    C-point value, in the 2-norm over C-points and coefficients."""
+    C-point value, in the 2-norm over C-points and coefficients (read at the
+    level's C-points, evenly strided or not)."""
     import torch
-    info = mgrit.levels[0]
-    u_c = mgrit.u[0][0:info.nt:info.m]
+    u0 = mgrit.u[0]
+    u_c = u0[torch.as_tensor(mgrit.levels[0].cpts, device=u0.device)]
     return ops * float(torch.finfo(torch.float64).eps) * float(torch.linalg.vector_norm(u_c))
 
 
@@ -340,6 +394,16 @@ def phase_build():
     regs = [ln.strip() for ln in _build.build_log().splitlines() if "registers" in ln]
     print(f"[build] nvcc sm_90a libpymgrit_kernels.so in {seconds:.2f} s "
           f"(nvcc {_build.build_seconds}) | triton {triton.__version__} | ptxas: {' ; '.join(regs)}")
+    # K22 runs its f64 products on the FP64 tensor cores (DMMA); no kernel
+    # of the library uses the other tensor-core paths (HMMA: TF32 and below)
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(_build._lib_dir / "libpymgrit_kernels.so")],
+                          capture_output=True, text=True, timeout=300).stdout
+    dmma = sum("DMMA" in ln for ln in sass.splitlines())
+    hmma = sum("HMMA" in ln for ln in sass.splitlines())
+    print(f"[build] cuobjdump -sass: {dmma} DMMA instructions (K22 f64), {hmma} HMMA "
+          f"(TF32 and half precision: none expected)")
+    check(dmma > 0 and hmma == 0, f"build: {dmma} DMMA and {hmma} HMMA instructions in the SASS")
 
 
 def cuda_ms(fn, reps=20, budget_ms=1000.0):
@@ -551,7 +615,8 @@ def kernel_cases(dtype, dev, stash):
                                                                                 dim=1)
     return (cases + coarsest_cases(dtype, dev, rng, lam) + nonlinear_cases(dtype, dev, rng, stash)
             + slice_cases(dtype, dev, rng, stash) + transfer_cases(dtype, dev, rng, stash)
-            + heat1d_cases(dtype, dev, rng, stash) + past_cap_cases(dtype, dev, rng, stash))
+            + heat1d_cases(dtype, dev, rng, stash) + past_cap_cases(dtype, dev, rng, stash)
+            + slice7_cases(dtype, dev, rng, stash))
 
 
 def coarsest_cases(dtype, dev, rng, lam):
@@ -977,6 +1042,118 @@ def heat1d_cases(dtype, dev, rng, stash):
     return cases
 
 
+def ragged_grids():
+    """The [ragged] phase's four nested time grids (bench.py's construction)."""
+    nt = RAGGED["nt"]
+    rng = np.random.default_rng(RAGGED["seed"])
+    base = np.arange(0, nt, RAGGED["stride"])
+    jit = np.clip(base + rng.integers(-RAGGED["jitter"], RAGGED["jitter"] + 1, size=base.size),
+                  0, nt - 1)
+    idx1 = np.unique(np.concatenate([[0, nt - 1], jit]))
+    t = np.linspace(0, 1, nt)
+    return [t, t[idx1], t[idx1][::4], t[idx1][::4][::4]]
+
+
+def slice7_cases(dtype, dev, rng, stash):
+    """K20's BDF2 mode at [bdf]'s level-0 shape (128 pairs of 999 points,
+    the second solve of a step: first = the pair's second slot, second = the
+    new first slot of the same output tube); K21 at [ragged]'s level-0
+    shapes (65^2 states: the gather of the 515 C-rows, the drop-scatter of
+    the 514 x 13 chain slots into the 4097-row tube, the weighted C-update
+    of 514 rows in place); K22 at 8 and 128 lanes x 2400 (the diffusion
+    example's level-0 F-step and the deep grid's); each with the bytes and
+    operations its function needs and, where one exists, one PyTorch call
+    (index_select / index_copy_ for K21, the two cuBLAS GEMMs for K22)."""
+    import torch
+    from pymgrit_tpu_torch.core.levels import build_level_infos
+    from pymgrit_tpu_torch.ops.dirichlet_spectral import sine_eigenbasis
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+
+    def idx(a):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int64).reshape(-1), device=dev)
+
+    cases = []
+    # K20 BDF2: lanes of the level-0 pair tube (B, 2, n), per-lane coefficients
+    n, B = BDF["nx"] - 2, (BDF["nt"] // 2) // 2
+    S_np, lam_np = sine_eigenbasis(n, (n + 1.0) ** 2)
+    S, lam = t(S_np), t(lam_np)
+    pairs = t(rng.uniform(-1, 1, (B + 1, 2, n)))
+    rhs_row = t(rng.uniform(-1, 1, n)).expand(B, n)
+    coef = t(np.stack([rng.uniform(100, 300, B) for _ in range(3)]))
+
+    def bdf2(ops):
+        out = pairs[1:].clone()
+        return ops.sine_solve1d(pairs[:B, 1], out[:, 1], S, lam, rhs=rhs_row, second=out[:, 0],
+                                c2=coef[0], c1=coef[1], coeff=coef[2])
+
+    case = f"BDF2 B={B} n={n}"
+    cases.append(("sine_solve1d", case, bdf2))
+    stash[("work", "sine_solve1d", case)] = (8 * (4 * B * n + n * n + n + 3 * B),
+                                             4 * B * n * n + 6 * B * n)
+
+    # K21 at the ragged level 0 of [ragged]
+    info = build_level_infos(ragged_grids())[0]
+    nt, N = info.nt, (RAGGED["nx"]) ** 2
+    ch = info.chains
+    J, L = ch.seed.size, ch.lmax
+    valid = ch.f_idx[ch.mask]
+    tube = t(rng.uniform(-1, 1, (nt, N)))
+    slots = t(rng.uniform(-1, 1, (J * L, N)))
+    cpts, ci = idx(info.cpts), idx(info.cpts[1:])
+    f_out, valid_i = idx(ch.f_idx), idx(valid)
+    slots_valid = slots[torch.as_tensor(np.flatnonzero(ch.mask.reshape(-1)), device=dev)]
+    stepped = t(rng.uniform(-1, 1, (ci.shape[0], N)))
+    nc = cpts.shape[0]
+
+    def gather(ops):
+        out = torch.empty((nc, N), dtype=dtype, device=dev)
+        return ops.indexed_combine(out, [tube], [1.0], idx=[cpts])
+
+    def scatter(ops):
+        out = tube.clone()
+        return ops.indexed_combine(out, [slots], [1.0], io=f_out)
+
+    def weighted(ops):
+        out = tube.clone()
+        return ops.indexed_combine(out, [stepped, out], [0.5, 0.5], io=ci, idx=[None, ci])
+
+    kc = [(f"gather C-rows R={nc} N={N}", gather, 8 * (2 * nc * N + nc)),
+          (f"drop-scatter J={J} L={L} N={N}", scatter, 8 * (2 * valid.size * N + J * L)),
+          (f"weighted C-update R={nc - 1} N={N}", weighted, 8 * (3 * (nc - 1) * N + nc - 1))]
+    for label, run, nbytes in kc:
+        cases.append(("indexed_combine", label, run))
+        stash[("work", "indexed_combine", label)] = (nbytes, 3 * (nc - 1) * N
+                                                     if run is weighted else 0)
+    dst = tube.clone()
+    stash[("library", "indexed_combine", kc[0][0])] = lambda: torch.index_select(tube, 0, cpts)
+    stash[("library", "indexed_combine", kc[1][0])] = lambda: dst.index_copy_(0, valid_i,
+                                                                             slots_valid)
+    stash[("library", "indexed_combine")] = stash[("library", "indexed_combine", kc[1][0])]
+
+    # K22 at the diffusion example's N = 2400: random tables scaled so that
+    # every output is O(1)
+    Ne = 6 * DIFFUSION["n"] ** 2
+    W, V = (t(rng.uniform(-1, 1, (Ne, Ne)) / math.sqrt(Ne)) for _ in range(2))
+    lam_e = t(rng.uniform(0, 2, Ne))
+    xe = t(rng.uniform(-1, 1, (129, Ne)))
+    for Bl in (8, 128):
+        dt = t(np.full(Bl, 10.0 / 16))
+
+        def k22(ops, Bl=Bl, dt=dt):
+            out = torch.empty((Bl, Ne), dtype=dtype, device=dev)
+            return ops.eig_step(xe[1:Bl + 1], out, W, V, lam_e, dt)
+
+        case = f"{Bl} lanes N={Ne}"
+        cases.append(("eig_step", case, k22))
+        stash[("work", "eig_step", case)] = (8 * (2 * Ne * Ne + 2 * Bl * Ne + Ne + Bl),
+                                             4 * Bl * Ne * Ne + 3 * Bl * Ne)
+        stash[("library", "eig_step", case)] = lambda x=xe[1:Bl + 1]: (x @ W.T) @ V.T
+    stash[("library", "eig_step")] = stash[("library", "eig_step", f"128 lanes N={Ne}")]
+    return cases
+
+
 def past_cap_cases(dtype, dev, rng, stash):
     """K5, K6, K10, K16 and K17 past the sizes at which their wrappers
     raised before: K5 and K6 at the toms257 interior 255 (K5: the
@@ -1135,17 +1312,42 @@ def headline_work(kernel, stash):
     if kernel in TRANSFER_KERNELS:         # spatial65 2D: FAS, correction (no products)
         case = ("FAS" if kernel == "restrict_combine" else "correction") + " spatial65 2D R=1024"
         return stash[("work", kernel, case)]
+    if kernel in ("indexed_combine", "eig_step"):   # the recorded work of the headline case
+        return next(w for k, w in stash.items()
+                    if k[:2] == ("work", kernel) and k[2].startswith(HEADLINE[kernel]))
     raise KeyError(kernel)
+
+
+def op_peak(kernel):
+    """The FP64 peak the card could do a kernel's operations at: the tensor
+    cores' (DMMA) for the dense products of PRODUCT_KERNELS, whatever units
+    the kernel uses now; the CUDA cores' for every other kernel."""
+    return PEAK_DMMA_OPS_PER_S if kernel in PRODUCT_KERNELS else PEAK_OPS_PER_S["float64"]
 
 
 def bound_ms(kernel, stash, work=None):
     """The least time the card could take for the headline case (or for
     ``work`` = (bytes, operations)): the larger of its bytes over the HBM
-    rate and its operations over the FP64 peak (outside the tensor cores,
-    which no kernel here uses); (ms, which)."""
+    rate and its operations over the FP64 peak of the units that could do
+    them (``op_peak``); (ms, which)."""
     nbytes, ops = work if work is not None else headline_work(kernel, stash)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S["float64"] * 1e3
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / op_peak(kernel) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# the case whose time the summary reports: the kernel's largest call on the
+# main path
+HEADLINE = {"interval_affine": "materialize", "theta_chain": "level-1 F-relax",
+            "residual_row_norms": "C-rows", "cpoint_combine": "FAS g_tail",
+            "sine_solve2d": "solve B=512", "sine_affine2d": "materialize",
+            "theta_rhs2d": "BE B=512", "affine_prefix": "TOMS",
+            "affine_windows": "TOMS", "periodic_solve2d": "IMEX B=512 n=128",
+            "allen_cahn_pointwise": "jacobian B=8", "dopri45_arenstorf": "level-0 F-relax",
+            "rk4_brusselator": "level-0 F-relax", "gray_scott_pointwise": "jacobian B=8",
+            "burgers2d_pointwise": "jacobian B=4", "burgers1d_newton": "deep level-0",
+            "circulant_solve1d": "deep level-0", "restrict_combine": "FAS spatial65",
+            "interpolate_combine": "correction spatial65", "sine_solve1d": "example step",
+            "indexed_combine": "drop-scatter", "eig_step": "128 lanes"}
 
 
 def phase_kernels():
@@ -1154,18 +1356,7 @@ def phase_kernels():
     import torch
     from pymgrit_tpu_torch.ops import DISPATCH, PLAIN
     dev = torch.device(DEVICE)
-    # the case whose time the summary reports: the kernel's largest call on
-    # the main path
-    headline = {"interval_affine": "materialize", "theta_chain": "level-1 F-relax",
-                "residual_row_norms": "C-rows", "cpoint_combine": "FAS g_tail",
-                "sine_solve2d": "solve B=512", "sine_affine2d": "materialize",
-                "theta_rhs2d": "BE B=512", "affine_prefix": "TOMS",
-                "affine_windows": "TOMS", "periodic_solve2d": "IMEX B=512 n=128",
-                "allen_cahn_pointwise": "jacobian B=8", "dopri45_arenstorf": "level-0 F-relax",
-                "rk4_brusselator": "level-0 F-relax", "gray_scott_pointwise": "jacobian B=8",
-                "burgers2d_pointwise": "jacobian B=4", "burgers1d_newton": "deep level-0",
-                "circulant_solve1d": "deep level-0", "restrict_combine": "FAS spatial65",
-                "interpolate_combine": "correction spatial65", "sine_solve1d": "example step"}
+    headline = HEADLINE
     rows, stash = {}, {}
     for dtype in (torch.float64, torch.float32):
         dname = str(dtype).split(".")[-1]
@@ -1190,10 +1381,13 @@ def phase_kernels():
                 work = work() if callable(work) else work
                 c_ms, c_by = bound_ms(kernel, stash, work)
                 lib = stash.get(("library", kernel, case))
+                peak = op_peak(kernel)
                 print(f"[kernels] {kernel:<20} {case}: bound {c_ms:.4f} ms ({c_by}): bytes "
                       f"{work[0] / 1e6:.3f} MB / 3.35 TB/s = {work[0] / HBM_BYTES_PER_S * 1e3:.4f} ms, "
-                      f"{work[1] / 1e9:.4f} GFLOP / 34 TFLOP/s = "
-                      f"{work[1] / PEAK_OPS_PER_S['float64'] * 1e3:.4f} ms; kernel at "
+                      f"{work[1] / 1e9:.4f} GFLOP / {peak / 1e12:.0f} TFLOP/s = "
+                      f"{work[1] / peak * 1e3:.4f} ms"
+                      + (f" (at 34 TFLOP/s: {work[1] / PEAK_OPS_PER_S['float64'] * 1e3:.4f} ms)"
+                         if peak != PEAK_OPS_PER_S["float64"] else "") + "; kernel at "
                       f"{ms_k / c_ms:.1f}x its bound | library call "
                       + (f"{cuda_ms(lib):.4f} ms" if lib is not None else "none"))
             if dtype == torch.float64 and kernel not in rows and case.startswith(headline[kernel]):
@@ -2257,9 +2451,223 @@ def phase_c2(card):
     torch.cuda.empty_cache()
 
 
+def ragged_problem(P, ops):
+    """bench.py's ragged_nonuniform hierarchy in the port."""
+    return [P.Heat2D(x_start=0, x_end=1, y_start=0, y_end=1, nx=RAGGED["nx"], ny=RAGGED["nx"],
+                     a=1.0, rhs=rhs, init_cond=lambda x, y: 0 * x * y, t_interval=g.copy(),
+                     device=DEVICE, ops=ops) for g in ragged_grids()]
+
+
+def varying_problem(P, ops):
+    d0 = P.Dahlquist(t_start=0, t_stop=5, nt=65, device=DEVICE, ops=ops)
+    levels = [d0, P.Dahlquist(t_interval=d0.t[VARYING_IDX], device=DEVICE, ops=ops)]
+    for _ in range(3):
+        levels.append(P.Dahlquist(t_interval=levels[-1].t[::2], device=DEVICE, ops=ops))
+    return levels
+
+
+def phase_ragged(card):
+    """Non-uniform coarsening on the card: bench.py's ragged_nonuniform row
+    (K21 for every gather, drop-scatter and indexed sum; K5 / K7 for the
+    ragged chains' steps), kernels against plain in alternating pairs after
+    a warm solve and against the JAX history; then the varying_coarsening
+    golden (Dahlquist, a run of adjacent C-points, weight_c 1 and 0.5)."""
+    import torch
+    import pymgrit_tpu_torch as P
+    from pymgrit_tpu_torch.ops import DISPATCH, PLAIN
+    kw = dict(tol=RAGGED["tol"], max_iter=RAGGED["max_iter"])
+    walls, hists, counts, peak, mg = strategy_runs(P, lambda ops: ragged_problem(P, ops), "scan",
+                                                   0, warm=True, **kw)
+    hk, hp = hists["kernel"], hists["plain"]
+    floor = physical_floor(mg)
+    ok_p, err_p = histories_agree(hk, hp, floor, MAIN_RTOL)
+    ok_j, err_j = histories_agree(hk, RAGGED_JAX, floor, GOLDEN_RTOL)
+    info = mg.levels
+    tube = mg.u[0]
+    nt, nx = RAGGED["nt"], RAGGED["nx"]
+    steps = sum(count_fine_steps_per_iter(mg, it == 0) for it in range(hk.size))
+    tk = float(np.median(walls["kernel"]))
+    print(f"[ragged] ragged_nonuniform Heat2D physical {nx}^2 levels "
+          f"{'/'.join(str(li.nt) for li in info)} (uniform {[li.uniform for li in info]}; level 0 "
+          f"J={info[0].chains.seed.size} chains, Lmax={info[0].chains.lmax}) f64 FCF, "
+          f"{mg._cnd_decline_reason}: {hk.size} iterations, history "
+          f"{[float(f'{h:.6e}') for h in hk]} | kernel vs plain (GPU) max diff {err_p:.3e} (rtol "
+          f"{MAIN_RTOL:.0e}); vs the JAX history max diff {err_j:.3e} (rtol {GOLDEN_RTOL:.0e}); atol "
+          f"floor {floor:.2e} | launches K21 {counts['indexed_combine']}, K5 "
+          f"{counts['sine_solve2d']}, K7 {counts['theta_rhs2d']}; "
+          f"{json.dumps({c: counts[c] for c in counts if counts[c]})} | solve wall {fmt_walls(walls)} "
+          f"| {steps} fine steps: {steps / tk:.1f} steps/s kernel | peak device memory "
+          f"{peak:.3f} GiB | {'ok' if ok_p and ok_j else 'FAIL'} | {card}")
+    check(not info[0].uniform and not info[1].uniform and info[2].uniform,
+          f"ragged: levels uniform {[li.uniform for li in info]}")
+    check(all(counts[k] > 0 for k in RAGGED_KERNELS),
+          f"ragged: launches {counts} (expected {RAGGED_KERNELS})")
+    check(tuple(tube.shape) == (nt, nx, nx) and bool(torch.isfinite(tube).all()),
+          f"ragged: tube {tuple(tube.shape)} not a finite ({nt}, {nx}, {nx}) tube")
+    check(ok_p, f"ragged: kernel history {hk} differs from the plain history {hp}")
+    check(ok_j, f"ragged: history {hk} differs from the JAX history {RAGGED_JAX}")
+    del mg, tube
+    torch.cuda.empty_cache()
+
+    for weight_c in (1.0, 0.5):
+        runs = {}
+        for path, ops in (("kernel", DISPATCH), ("plain", PLAIN)):
+            m = P.Mgrit(problem=varying_problem(P, ops), tol=1e-10, nested_iteration=False,
+                        weight_c=weight_c, logging_lvl=30)
+            m.solve()
+            runs[path] = (m, m.conv[1:m.solve_iter + 1])
+        (mk, hk), (_, hp) = runs["kernel"], runs["plain"]
+        floor = residual_floor(mk)
+        ok_p, err_p = histories_agree(hk, hp, floor, 1e-12)
+        ok_g = weight_c != 1.0 or (hk.shape == VARYING_GOLDEN.shape
+                                   and bool(np.allclose(hk, VARYING_GOLDEN, rtol=2e-3)))
+        print(f"[ragged] varying_coarsening Dahlquist 65/16/8/4/2 weight_c {weight_c} (level-0 "
+              f"runs of adjacent C-points: Rmax {mk.levels[0].c_chains.rmax}): history "
+              f"{[float(f'{h:.6e}') for h in hk]}; vs plain (GPU) max diff {err_p:.3e} (rtol 1e-12, "
+              f"atol floor {floor:.2e})" + ("; vs the reference golden (rtol 2e-3) "
+                                           + ("agrees" if ok_g else "differs")
+                                           if weight_c == 1.0 else "")
+              + f" | {'ok' if ok_p and ok_g else 'FAIL'}")
+        check(ok_p and ok_g, f"ragged: varying_coarsening weight_c {weight_c}: {hk} vs {hp}")
+    return counts
+
+
+def bdf_problem(P, ops):
+    """examples/example_heat_1d_bdf2.py's hierarchy (numpy rhs)."""
+    nt, t_stop = BDF["nt"], BDF["t_stop"]
+    ti = np.linspace(0, t_stop, nt // 2 + 1)
+    kw = dict(x_start=0, x_end=1, nx=BDF["nx"], a=1, dtau=t_stop / nt, rhs=heat1d_rhs,
+              init_cond=lambda x: np.sin(np.pi * x), device=DEVICE, ops=ops)
+    return [P.Heat1DBDF2(t_interval=ti, **kw), P.Heat1DBDF1(t_interval=ti[::2], **kw),
+            P.Heat1DBDF1(t_interval=ti[::4], **kw)]
+
+
+def phase_bdf(card):
+    """The BDF pair-state example at its full width: K20 in its BE mode
+    (BDF1 levels) and its BDF2 mode (level 0), against the JAX history and
+    the plain path."""
+    import torch
+    import pymgrit_tpu_torch as P
+    from pymgrit_tpu_torch.ops import (DISPATCH, PLAIN, heat_kernels, launch_counts,
+                                       reset_launch_counts)
+    runs = {}
+    for path, ops in (("kernel", DISPATCH), ("plain", PLAIN)):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        mg = P.Mgrit(problem=bdf_problem(P, ops), tol=BDF["tol"], max_iter=BDF["max_iter"],
+                     logging_lvl=30)
+        t0 = time.perf_counter()
+        mg.solve()
+        torch.cuda.synchronize()
+        runs[path] = (mg, mg.conv[1:mg.solve_iter + 1], time.perf_counter() - t0,
+                      launch_counts(), dict(heat_kernels.sine_solve1d.mode_launches))
+    (mk, hk, wk, counts, modes), (mp, hp, wp, _, _) = runs["kernel"], runs["plain"]
+    floor = residual_floor(mk, 4 * math.sqrt(BDF["nx"] - 2) + FLOOR_OPS)
+    ok_p, err_p = histories_agree(hk, hp, floor, MAIN_RTOL)
+    ok_j, err_j = histories_agree(hk, BDF_JAX, floor, GOLDEN_RTOL)
+    tube = mk.u[0]
+    du = float((tube - mp.u[0]).abs().max())
+    print(f"[bdf] example_heat_1d_bdf2 nx={BDF['nx']} pair grids "
+          f"{'/'.join(str(li.nt) for li in mk.levels)} BDF2/BDF1/BDF1 f64: {hk.size} iterations, "
+          f"history {[float(f'{h:.6e}') for h in hk]} | vs the JAX history max diff {err_j:.3e} "
+          f"(rtol {GOLDEN_RTOL:.0e}); vs plain (GPU) {err_p:.3e}, tube {du:.3e}; atol floor "
+          f"{floor:.2e} | K20 launches {counts['sine_solve1d']} (by mode {json.dumps(modes)}) | "
+          f"solve wall kernel {wk:.4f} s, plain {wp:.4f} s | {'ok' if ok_p and ok_j else 'FAIL'} | "
+          f"{card}")
+    check(modes["bdf2"] > 0 and modes["be"] > 0, f"bdf: K20 launches by mode {modes}")
+    check(tuple(tube.shape) == (BDF["nt"] // 2 + 1, 2, BDF["nx"] - 2)
+          and bool(torch.isfinite(tube).all()), f"bdf: tube {tuple(tube.shape)}")
+    check(ok_p and ok_j, f"bdf: history {hk} differs from the plain {hp} or JAX {BDF_JAX}")
+    return counts, modes
+
+
+def phase_diffusion(card):
+    """examples/example_diffusion_2d.py at n = 20 through K22 against its
+    JAX history, then a deeper two-level grid (nt = 1025, m = 8), kernels
+    against plain on the same problem instances (no second eigh per
+    problem); mass conservation; setup (assembly and eigh) apart from the
+    solve walls."""
+    import torch
+    import pymgrit_tpu_torch as P
+    from pymgrit_tpu_torch.ops import DISPATCH, PLAIN, launch_counts, reset_launch_counts
+
+    def build(nts):
+        t0 = time.perf_counter()
+        problem = [P.Diffusion2D(n=DIFFUSION["n"], length=10.0, kappa=0.1, t_start=0, t_stop=10,
+                                 nt=nt, device=DEVICE) for nt in nts]
+        return problem, time.perf_counter() - t0
+
+    def solve(problem, ops, first=False, **kw):
+        for p in problem:
+            p.ops = ops
+        torch.cuda.synchronize()
+        if first:
+            reset_launch_counts()
+        mg = P.Mgrit(problem=problem, logging_lvl=30, **kw)
+        t0 = time.perf_counter()
+        mg.solve()
+        torch.cuda.synchronize()
+        return mg, mg.conv[1:mg.solve_iter + 1], time.perf_counter() - t0
+
+    problem, setup = build(DIFFUSION["nts"])
+    kw = dict(tol=DIFFUSION["tol"], max_iter=DIFFUSION["max_iter"])
+    mk, hk, wk = solve(problem, DISPATCH, first=True, **kw)
+    counts = launch_counts()
+    mp, hp, wp = solve(problem, PLAIN, **kw)
+    floor = residual_floor(mk, 4 * math.sqrt(6 * DIFFUSION["n"] ** 2) + FLOOR_OPS)
+    ok_p, err_p = histories_agree(hk, hp, floor, MAIN_RTOL)
+    ok_j, err_j = histories_agree(hk, DIFFUSION_JAX, floor, GOLDEN_RTOL)
+    print(f"[diffusion] example Diffusion2D n={DIFFUSION['n']} (N={6 * DIFFUSION['n'] ** 2}) "
+          f"nt {DIFFUSION['nts']} f64: setup (assembly + eigh, {len(problem)} models) {setup:.2f} s | "
+          f"history {[float(f'{h:.6e}') for h in hk]}; vs the JAX history max diff {err_j:.3e} (rtol "
+          f"{GOLDEN_RTOL:.0e}); vs plain (GPU) {err_p:.3e}; atol floor {floor:.2e} | K22 launches "
+          f"{counts['eig_step']} | solve wall kernel {wk:.4f} s, plain {wp:.4f} s | "
+          f"{'ok' if ok_p and ok_j else 'FAIL'} | {card}")
+    check(counts["eig_step"] > 0, f"diffusion: K22 never ran: {counts}")
+    check(ok_p and ok_j, f"diffusion: history {hk} differs from plain {hp} or JAX {DIFFUSION_JAX}")
+    del mk, mp, problem
+    torch.cuda.empty_cache()
+
+    cfg = DIFFUSION_DEEP
+    problem, setup = build((cfg["nt"], (cfg["nt"] - 1) // cfg["m"] + 1))
+    kw = dict(tol=cfg["tol"], max_iter=cfg["max_iter"])
+    walls = {"kernel": [], "plain": []}
+    hists, counts_deep = {}, None
+    for path in ("plain", "kernel", "kernel", "plain"):
+        mg, h, wall = solve(problem, DISPATCH if path == "kernel" else PLAIN,
+                            first=path == "kernel" and counts_deep is None, **kw)
+        if path == "kernel" and counts_deep is None:
+            counts_deep, kept = launch_counts(), mg
+        walls[path].append(wall)
+        hists.setdefault(path, h)
+    hk, hp = hists["kernel"], hists["plain"]
+    floor = residual_floor(kept, 4 * math.sqrt(6 * cfg["n"] ** 2) + FLOOR_OPS)
+    ok_p, err_p = histories_agree(hk, hp, floor, MAIN_RTOL)
+    tube = kept.u[0]
+    d0 = problem[0]
+    m0, m1 = float(d0.total_mass(tube[0])), float(d0.total_mass(tube[-1]))
+    ok_m = abs(m1 - m0) <= MASS_RTOL * abs(m0)
+    print(f"[diffusion] deep Diffusion2D n={cfg['n']} nt={cfg['nt']} m={cfg['m']} (level 0: "
+          f"{(cfg['nt'] - 1) // cfg['m']} lanes x {cfg['m'] - 1} steps) f64: setup {setup:.2f} s | "
+          f"history {[float(f'{h:.6e}') for h in hk]}; kernel vs plain (GPU) max diff {err_p:.3e} "
+          f"(rtol {MAIN_RTOL:.0e}, atol floor {floor:.2e}) | total mass first {m0:.15e}, last "
+          f"{m1:.15e} (rel diff {abs(m1 - m0) / abs(m0):.2e}, tol {MASS_RTOL:.0e}) | K22 launches "
+          f"{counts_deep['eig_step']} | solve wall {fmt_walls(walls)} | "
+          f"{'ok' if ok_p and ok_m else 'FAIL'} | {card}")
+    check(counts_deep["eig_step"] > 0, f"diffusion deep: K22 never ran: {counts_deep}")
+    check(tuple(tube.shape) == (cfg["nt"], 6 * cfg["n"] ** 2) and bool(torch.isfinite(tube).all()),
+          f"diffusion deep: tube {tuple(tube.shape)}")
+    check(ok_p, f"diffusion deep: kernel history {hk} differs from plain {hp}")
+    check(ok_m, f"diffusion deep: total mass {m0} -> {m1}")
+    del kept, tube, problem
+    torch.cuda.empty_cache()
+    return counts_deep
+
+
 def profile_cells(card):
     """``--profile``: one profiled kernel-path solve of each cell of the
-    periodic models (after one untimed solve of the same configuration),
+    periodic models, the ragged row, the BDF example and the deep diffusion
+    grid (after one untimed solve of the same configuration),
     torch.profiler with CPU and CUDA activities: the profiled wall, the
     card's busy time (the kernels' device time summed; one stream, so they
     do not overlap) and idle share, the three device ops that took longest,
@@ -2297,6 +2705,17 @@ def profile_cells(card):
         ("advection example", advection_example),
         ("advection deep", solver("Advection1D", dict(ADVECTION_DEEP, t_stop=2.0), c=1,
                                   x_start=-1, x_end=1, nx=ADVECTION_DEEP["nx"])),
+        ("ragged ragged65", lambda: P.Mgrit(problem=ragged_problem(P, DISPATCH),
+                                            tol=RAGGED["tol"], max_iter=RAGGED["max_iter"],
+                                            logging_lvl=40)),
+        ("bdf example", lambda: P.Mgrit(problem=bdf_problem(P, DISPATCH), tol=BDF["tol"],
+                                        max_iter=BDF["max_iter"], logging_lvl=30)),
+        ("diffusion deep", lambda: P.Mgrit(
+            problem=[P.Diffusion2D(n=DIFFUSION_DEEP["n"], length=10.0, kappa=0.1, t_start=0,
+                                   t_stop=10, nt=nt, device=DEVICE)
+                     for nt in (DIFFUSION_DEEP["nt"],
+                                (DIFFUSION_DEEP["nt"] - 1) // DIFFUSION_DEEP["m"] + 1)],
+            tol=DIFFUSION_DEEP["tol"], max_iter=DIFFUSION_DEEP["max_iter"], logging_lvl=30)),
     ]
 
     def device_us(e):
@@ -2369,6 +2788,10 @@ REPLACES = {
                             "pymgrit_tpu/models/grid_transfer_heat.py:98"),
     "sine_solve1d": ("cuda", "pymgrit_tpu_torch/ops/csrc/sine_solve1d.cu",
                      "pymgrit_tpu/models/heat_1d.py:235"),
+    "indexed_combine": ("triton", "pymgrit_tpu_torch/ops/triton_kernels.py",
+                        "pymgrit_tpu/core/solver.py:740"),
+    "eig_step": ("cuda", "pymgrit_tpu_torch/ops/csrc/eig_step.cu",
+                 "pymgrit_tpu/models/diffusion_2d.py:195"),
 }
 
 
@@ -2401,6 +2824,9 @@ def main():
     counts_spatial = phase_spatial(card)
     counts_1d = phase_spatial1d(card)
     phase_c2(card)
+    counts_ragged = phase_ragged(card)
+    phase_bdf(card)
+    counts_diffusion = phase_diffusion(card)
     # launches: each kernel's count on the main path it belongs to (K3, K4
     # run on both bases; the spectral run's count is reported; K8 and K9
     # from the TOMS-width prefix and AT runs; K10 from the Allen-Cahn bench
@@ -2408,7 +2834,8 @@ def main():
     # Brusselator run, K14 from the Gray-Scott IMPL run, K15 from the
     # Burgers2D run, K16 from the deep Burgers1D run, K17 from the deep
     # advection run, K18 and K19 from the spatial65 run, K20 from the 1D
-    # example's run)
+    # example's run, K21 from the ragged row, K22 from the deep diffusion
+    # grid)
     launches = {**counts_phys, **{k: counts[k] for k in SPECTRAL_KERNELS},
                 "affine_prefix": prefix_counts["affine_prefix"],
                 "affine_windows": at_counts["affine_windows"],
@@ -2421,7 +2848,9 @@ def main():
                 "burgers1d_newton": counts_b1["burgers1d_newton"],
                 "circulant_solve1d": counts_adv["circulant_solve1d"],
                 **{k: counts_spatial[k] for k in TRANSFER_KERNELS},
-                "sine_solve1d": counts_1d["sine_solve1d"]}
+                "sine_solve1d": counts_1d["sine_solve1d"],
+                "indexed_combine": counts_ragged["indexed_combine"],
+                "eig_step": counts_diffusion["eig_step"]}
     kernels = [dict(name=name, route=route, source=source, replaces=replaces,
                     launches=launches[name], **rows[name])
                for name, (route, source, replaces) in REPLACES.items()]

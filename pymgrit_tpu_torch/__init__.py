@@ -18,9 +18,11 @@ from pymgrit_tpu_torch.models.arenstorf_orbit import ArenstorfOrbit
 from pymgrit_tpu_torch.models.brusselator import Brusselator
 from pymgrit_tpu_torch.models.burgers import Burgers1D, Burgers2D
 from pymgrit_tpu_torch.models.dahlquist import Dahlquist
+from pymgrit_tpu_torch.models.diffusion_2d import Diffusion2D
 from pymgrit_tpu_torch.models.gray_scott_2d import GrayScott2D
 from pymgrit_tpu_torch.models.grid_transfer_heat import GridTransferHeat, GridTransferHeat2D
 from pymgrit_tpu_torch.models.heat_1d import Heat1D
+from pymgrit_tpu_torch.models.heat_1d_2pts import Heat1DBDF1, Heat1DBDF2, PairState
 from pymgrit_tpu_torch.models.heat_2d import Heat2D
 
 __all__ = [
@@ -38,9 +40,13 @@ __all__ = [
     "Burgers1D",
     "Burgers2D",
     "Dahlquist",
+    "Diffusion2D",
     "GrayScott2D",
     "GridTransferHeat",
     "GridTransferHeat2D",
     "Heat1D",
+    "Heat1DBDF1",
+    "Heat1DBDF2",
+    "PairState",
     "Heat2D",
 ]

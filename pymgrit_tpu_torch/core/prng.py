@@ -78,6 +78,22 @@ def uniform_f64(keys: np.ndarray, shape) -> np.ndarray:
     return floats.reshape(keys.shape[:-1] + tuple(shape))
 
 
+def uniform(key: np.ndarray, shape, dtype) -> np.ndarray:
+    """``jax.random.uniform(key, shape, dtype)`` for one (2,) key and a
+    float64 or float32 dtype (torch's or numpy's).  float32 takes the xor of
+    the two 32-bit words of the hash and keeps its top 23 bits."""
+    if dtype in (torch.float64, np.float64):
+        return uniform_f64(key, shape)
+    if dtype not in (torch.float32, np.float32):
+        raise NotImplementedError(f"uniform draws of dtype {dtype} are not ported")
+    n = int(np.prod(shape, dtype=np.int64))
+    hi, lo = _iota(n)
+    b1, b2 = threefry2x32(key[0], key[1], hi, lo)
+    one = np.array(1.0, dtype=np.float32).view(np.uint32)
+    floats = (((b1 ^ b2) >> np.uint32(9)) | one).view(np.float32) - np.float32(1.0)
+    return floats.reshape(tuple(shape))
+
+
 def random_tube_numpy(seed: int, nt: int, shape) -> np.ndarray:
     """The JAX package's ``random_init_guess`` level-0 tube in numpy:
     (nt, *shape) float64 for a one-leaf state of the given shape."""

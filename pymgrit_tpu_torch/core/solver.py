@@ -24,14 +24,22 @@ package's; the execution differs:
   ``core/grid_transfer.py`` computes the FAS right-hand side, the
   correction and nested iteration's interpolation in one pass each (the
   heat transfers: kernels K18 and K19).
+* A level whose C-points are not evenly strided (non-uniform coarsening,
+  ``LevelInfo.uniform`` False) takes the JAX package's index-based route:
+  the ragged F-chains run through ``step_chain`` over the padded times of
+  ``FChains`` into a scratch buffer, runs of adjacent C-points relax
+  Gauss-Seidel within a run, and every gather, drop-scatter and weighted
+  sum at the C-rows goes through kernel K21 ``indexed_combine`` with index
+  tensors cached on the device at setup (``_RaggedLevel``).
 
-States are single tensors (no tuple states) in this port.  Non-uniform
-coarsening, the device mesh and the lazy level-0 F-relaxation are not
-ported and raise NotImplementedError.
+States are single tensors (no tuple states) in this port.  The device
+mesh and the lazy level-0 F-relaxation are not ported and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import inspect
 import logging
@@ -89,6 +97,49 @@ def _rows(t: torch.Tensor) -> torch.Tensor:
     return t.view(t.shape[0], -1)
 
 
+@dataclasses.dataclass(frozen=True)
+class _RaggedLevel:
+    """Device index tensors and (L, J) step times of a non-uniform level:
+    built once at setup, so that a solve copies no index array to the
+    device.  Chain and run outputs are laid out (J, L) and (K, R), lane
+    major; padded slots carry the index nt (dropped by K21)."""
+
+    cpts: torch.Tensor          # (nc,) C-points
+    ci: torch.Tensor            # (nc-1,) C-points but the first
+    ci_prev: torch.Tensor       # (nc-1,) their predecessors
+    t_ci_prev: np.ndarray       # (nc-1,) times of ci_prev and ci
+    t_ci: np.ndarray
+    f_seed: torch.Tensor        # (J,) C-point seeding each F-chain
+    f_out: torch.Tensor         # (J*Lmax,) F-point of each chain slot, padded with nt
+    f_g: torch.Tensor           # (J*Lmax,) the same, clipped to nt-1 (g gather)
+    f_tp: np.ndarray            # (Lmax, J) chain step times
+    f_tc: np.ndarray
+    c_seed: torch.Tensor        # (K,) predecessor of each run of adjacent C-points
+    c_out: torch.Tensor         # (K*Rmax,) C-point of each run slot, padded with nt
+    c_old: torch.Tensor         # (K*Rmax,) the same, clipped (u_old and g gathers)
+    c_tp: np.ndarray            # (Rmax, K) run step times
+    c_tc: np.ndarray
+
+    @classmethod
+    def build(cls, info: LevelInfo, device) -> "_RaggedLevel":
+        def idx(a):
+            return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int64).reshape(-1),
+                                   device=device)
+
+        def times(a):
+            return np.ascontiguousarray(np.asarray(a, dtype=np.float64).T)
+
+        nt, ch, cc = info.nt, info.chains, info.c_chains
+        ci = info.cpts[1:]
+        return cls(cpts=idx(info.cpts), ci=idx(ci), ci_prev=idx(ci - 1),
+                   t_ci_prev=info.t[ci - 1], t_ci=info.t[ci],
+                   f_seed=idx(ch.seed), f_out=idx(ch.f_idx),
+                   f_g=idx(np.minimum(ch.f_idx, nt - 1)), f_tp=times(ch.t_prev),
+                   f_tc=times(ch.t_curr), c_seed=idx(cc.seed_prev), c_out=idx(cc.c_idx),
+                   c_old=idx(np.minimum(cc.c_idx, nt - 1)), c_tp=times(cc.t_prev),
+                   c_tc=times(cc.t_curr))
+
+
 class Mgrit:
     """MGRIT solver; constructor parameters mirror ``pymgrit_tpu.Mgrit``."""
 
@@ -135,7 +186,7 @@ class Mgrit:
                 'Incorrect datatype cf_iter. '
                 'Specify a list of values for all but the coarsest level or an integer ( used for all levels).')
         if mesh is not None:
-            raise NotImplementedError("mesh= (time-sharded execution) is not ported yet (ROADMAP A12)")
+            raise NotImplementedError("mesh= (time-sharded execution) is not ported yet (ROADMAP A7)")
         if lazy_f_relax:
             raise NotImplementedError(
                 "lazy_f_relax=True is not ported (ROADMAP: not to port; the condensed carry replaces it)")
@@ -166,11 +217,12 @@ class Mgrit:
         self.log_info("Start setup")
         self.levels: List[LevelInfo] = build_level_infos([p.t for p in problem])
         self.m = [li.m for li in self.levels]
+        # Warn on non-uniform coarsening (the JAX package's message)
         for lvl in range(self.lvl_max - 1):
-            if not self.levels[lvl].uniform:
-                raise NotImplementedError(
-                    'Non-uniform coarsening between level ' + str(lvl) + ' and ' + str(lvl + 1) +
-                    ' is not ported yet (ROADMAP A8)')
+            d = np.diff(self.levels[lvl].cpts)
+            if d.size and not np.all(d == d[0]):
+                logging.warning('Non-uniform coarsening between level ' + str(lvl) + ' and ' + str(lvl + 1) +
+                                '. Poorly tested.')
         self.step_fns: List[Callable] = [p.step for p in problem]
         # ---- parallel-prefix coarsest solve (ops/prefix.py, kernel K8):
         # opt-in; it requires the coarsest application to expose
@@ -252,6 +304,10 @@ class Mgrit:
             self.v.append(None if lvl == 0 else torch.zeros_like(tube))
             self.g.append(None if lvl == 0 else torch.zeros_like(tube))
         self.device = self.u[0].device
+        # index route of the levels whose C-points are not evenly strided
+        self._ragged = [_RaggedLevel.build(self.levels[lvl], self.device)
+                        if lvl < self.lvl_max - 1 and not self.levels[lvl].uniform else None
+                        for lvl in range(self.lvl_max)]
 
         for lvl, p in enumerate(problem):
             p.prepare_runtime(self.levels[lvl])
@@ -404,6 +460,18 @@ class Mgrit:
         self._chain(lvl, prev, np.asarray(t_prev)[None], np.asarray(t_curr)[None], out[:, None])
         return out
 
+    def _gather(self, tube, idx):
+        """Rows idx of a tube as a fresh contiguous tube (K21)."""
+        out = torch.empty((idx.shape[0],) + tuple(tube.shape[1:]), dtype=tube.dtype,
+                          device=tube.device)
+        self.ops.indexed_combine(_rows(out), [_rows(tube)], [1.0], idx=[idx])
+        return out
+
+    def _scatter(self, tube, idx, rows):
+        """tube[idx] = rows, dropping the slots whose index is the tube's
+        length (K21)."""
+        self.ops.indexed_combine(_rows(tube), [_rows(rows)], [1.0], io=idx)
+
     def _c_rows(self, lvl, tube):
         """View of the C-point rows 1..nc-1 of a level tube."""
         if lvl == 0 and self._condensed0:
@@ -415,6 +483,8 @@ class Mgrit:
         """Copy of all level-0 C-point rows (every row on a single level)."""
         if self._condensed0:
             return tube.clone()
+        if self._ragged[0] is not None:
+            return self._gather(tube, self._ragged[0].cpts)
         info = self.levels[0]
         return tube[0:info.nt:info.m].clone()
 
@@ -441,7 +511,23 @@ class Mgrit:
         info = self.levels[lvl]
         if info.chains is None or info.chains.lmax == 0:
             return u
+        if self._ragged[lvl] is not None:
+            return self._f_relax_ragged(lvl, u, g)
         return self._f_relax_uniform(lvl, u, g)
+
+    def _f_relax_ragged(self, lvl, u, g):
+        """The ragged F-chains of a non-uniform level: every chain steps
+        through the padded (Lmax, J) times into a (J, Lmax) scratch buffer
+        (the g rows gathered first on a coarse level); the valid slots are
+        scattered to their F-points and the padding, which lies after each
+        chain's last valid step, is dropped (JAX's masked carry)."""
+        rg, ch = self._ragged[lvl], self.levels[lvl].chains
+        J, L = ch.seed.size, ch.lmax
+        out = torch.empty((J, L) + tuple(u.shape[1:]), dtype=u.dtype, device=u.device)
+        gb = self._gather(g, rg.f_g).view(out.shape) if lvl > 0 else None
+        self._chain(lvl, self._gather(u, rg.f_seed), rg.f_tp, rg.f_tc, out, gb)
+        self._scatter(u, rg.f_out, out.view((J * L,) + tuple(u.shape[1:])))
+        return u
 
     def _f_relax_uniform(self, lvl, u, g):
         info = self.levels[lvl]
@@ -467,6 +553,8 @@ class Mgrit:
         if lvl == 0 and self._condensed0:
             self._weighted_into(u[1:self._nc_store0], self._cnd_c_step(u))
             return u
+        if self._ragged[lvl] is not None:
+            return self._c_relax_ragged(lvl, u, g)
         info = self.levels[lvl]
         nt, m, t = info.nt, info.m, info.t
         prev = u[m - 1:nt - 1:m]
@@ -474,6 +562,45 @@ class Mgrit:
         self._chain(lvl, prev, t[m - 1:nt - 1:m][None], t[m:nt:m][None], stepped[:, None],
                     g[m:nt:m][:, None] if lvl > 0 else None)
         self._weighted_into(u[m:nt:m], stepped)
+        return u
+
+    def _c_relax_ragged(self, lvl, u, g):
+        """C-relaxation of a non-uniform level.  Runs of adjacent C-points
+        relax Gauss-Seidel within a run (each point from the run's freshly
+        relaxed predecessor), distinct runs at once; the seeds, the g rows
+        and the u_old of the weighted update are read from the tube before
+        any write, and the new values are scattered once at the end.  With
+        no adjacent C-points this is one batched step (JAX's rmax == 1)."""
+        rg, cc = self._ragged[lvl], self.levels[lvl].c_chains
+        if cc is None or cc.c_idx.size == 0:
+            return u
+        w = self.weight_c
+        if cc.rmax == 1:
+            stepped = torch.empty((rg.ci.shape[0],) + tuple(u.shape[1:]), dtype=u.dtype,
+                                  device=u.device)
+            self._chain(lvl, self._gather(u, rg.ci_prev), rg.t_ci_prev[None], rg.t_ci[None],
+                        stepped[:, None], self._gather(g, rg.ci)[:, None] if lvl > 0 else None)
+            if w == 1.0:
+                self._scatter(u, rg.ci, stepped)
+            else:
+                self.ops.indexed_combine(_rows(u), [_rows(stepped), _rows(u)], [w, 1.0 - w],
+                                         io=rg.ci, idx=[None, rg.ci])
+            return u
+        K, R = cc.c_idx.shape
+        shape = tuple(u.shape[1:])
+        ys = torch.empty((K, R) + shape, dtype=u.dtype, device=u.device)
+        gb = self._gather(g, rg.c_old).view(ys.shape) if lvl > 0 else None
+        x = self._gather(u, rg.c_seed)
+        if w == 1.0:
+            self._chain(lvl, x, rg.c_tp, rg.c_tc, ys, gb)
+        else:
+            u_old = self._gather(u, rg.c_old).view((K, R) + shape)
+            for k in range(R):
+                self._chain(lvl, x, rg.c_tp[k:k + 1], rg.c_tc[k:k + 1], ys[:, k:k + 1],
+                            None if gb is None else gb[:, k:k + 1])
+                x = ys[:, k]
+                self._combine(x, [x, u_old[:, k]], [w, 1.0 - w])
+        self._scatter(u, rg.c_out, ys.view((K * R,) + shape))
         return u
 
     def _affine_rows(self, lvl, shape):
@@ -511,26 +638,43 @@ class Mgrit:
         u_c, v_c, g_c = self.u[lvl + 1], self.v[lvl + 1], self.g[lvl + 1]
         restrict = self.restrict_fns[lvl]
         fused = self._restrict_hooks[lvl]
+        rg = self._ragged[lvl]
 
-        u_c.copy_(restrict(u_f[:nc] if lvl == 0 and self._condensed0 else u_f[0:nt:m]))
-        if lvl == 0 and self._condensed0:
-            stepped_f = self._cnd_c_step(u_f)
+        if rg is not None:
+            # C-rows gathered into contiguous tubes (K21), which the fused
+            # hook and the transfer take as they take strided views
+            u_at_c = self._gather(u_f, rg.cpts)
+            u_c.copy_(restrict(u_at_c))
+            stepped_f = self._step_rows(lvl, self._gather(u_f, rg.ci_prev), rg.t_ci_prev,
+                                        rg.t_ci)
+            u_ci = u_at_c[1:]
         else:
-            stepped_f = self._step_rows(lvl, u_f[m - 1:nt - 1:m], t_f[m - 1:nt - 1:m], t_f[m:nt:m])
+            u_c.copy_(restrict(u_f[:nc] if lvl == 0 and self._condensed0 else u_f[0:nt:m]))
+            if lvl == 0 and self._condensed0:
+                stepped_f = self._cnd_c_step(u_f)
+            else:
+                stepped_f = self._step_rows(lvl, u_f[m - 1:nt - 1:m], t_f[m - 1:nt - 1:m],
+                                            t_f[m:nt:m])
+            u_ci = self._c_rows(lvl, u_f)
         # the saved FAS iterate is a copy: the coarse cycle updates u_c in place
         v_c.copy_(u_c)
-        u_ci = self._c_rows(lvl, u_f)
         if fused is not None:
             # g_c[1:] = R(inner) + (v_c[1:] - Phi_c(v_c[:-1])) in one pass, with
             # inner = Phi(u_f[cm-1]) - u_f[cm] (level 0) or
             # (g_f[cm] - u_f[cm]) + Phi(u_f[cm-1])
             stepped_c = self._step_rows(lvl + 1, v_c[:nc - 1], t_c[:-1], t_c[1:])
+            g_ci = None if lvl == 0 else (self._gather(g_f, rg.ci) if rg is not None
+                                          else self._c_rows(lvl, g_f))
             terms, coeffs = (([stepped_f, u_ci], [1.0, -1.0]) if lvl == 0 else
-                             ([self._c_rows(lvl, g_f), u_ci, stepped_f], [1.0, -1.0, 1.0]))
+                             ([g_ci, u_ci, stepped_f], [1.0, -1.0, 1.0]))
             fused(g_c[1:nc], terms, coeffs, [v_c[1:nc], stepped_c], [1.0, -1.0], ops=self.ops)
             return
         if lvl == 0:
             self._combine(stepped_f, [stepped_f, u_ci], [1.0, -1.0])
+        elif rg is not None:
+            # inner = (g_f[ci] - u_f[ci]) + Phi(u_f[ci-1]), g read at its C-rows
+            self.ops.indexed_combine(_rows(stepped_f), [_rows(g_f), _rows(u_ci), _rows(stepped_f)],
+                                     [1.0, -1.0, 1.0], idx=[rg.ci])
         else:
             self._combine(stepped_f, [self._c_rows(lvl, g_f), u_ci, stepped_f], [1.0, -1.0, 1.0])
         r = restrict(stepped_f).contiguous()      # K4 takes rows with a contiguous last axis
@@ -545,11 +689,18 @@ class Mgrit:
             return
         u_c, v_c = self.u[lvl + 1], self.v[lvl + 1]
         fused = self._interp_hooks[lvl]
-        if fused is not None:
+        rg = self._ragged[lvl]
+        if fused is not None and rg is None:
             fused(self._c_rows(lvl, self.u[lvl]), u_c[1:nc], v_c[1:nc], ops=self.ops)
             return
         diff = torch.empty(u_c[1:nc].shape, dtype=u_c.dtype, device=u_c.device)
         self._combine(diff, [u_c[1:nc], v_c[1:nc]], [1.0, -1.0])
+        if rg is not None:
+            # u_f[ci] = u_f[ci] + P(diff), an indexed add (K21)
+            u_f = _rows(self.u[lvl])
+            self.ops.indexed_combine(u_f, [u_f, _rows(self.interp_fns[lvl](diff).contiguous())],
+                                     [1.0, 1.0], io=rg.ci, idx=[rg.ci])
+            return
         dst = self._c_rows(lvl, self.u[lvl])
         self._combine(dst, [dst, self.interp_fns[lvl](diff).contiguous()], [1.0, 1.0])
 
@@ -585,12 +736,15 @@ class Mgrit:
         self._forward_solve(top, self.u[top], self.g[top])
         for lvl in range(self.lvl_max - 2, -1, -1):
             nc = self.levels[lvl].cpts.size
-            dst, coarse = self._c_rows(lvl, self.u[lvl]), self.u[lvl + 1][1:nc]
+            coarse = self.u[lvl + 1][1:nc]
             fused = self._interp_hooks[lvl]
-            if fused is not None:
-                fused(dst, coarse, ops=self.ops)
+            if self._ragged[lvl] is not None:
+                self._scatter(self.u[lvl], self._ragged[lvl].ci,
+                              self.interp_fns[lvl](coarse).contiguous())
+            elif fused is not None:
+                fused(self._c_rows(lvl, self.u[lvl]), coarse, ops=self.ops)
             else:
-                dst.copy_(self.interp_fns[lvl](coarse))
+                self._c_rows(lvl, self.u[lvl]).copy_(self.interp_fns[lvl](coarse))
             if lvl > 0:
                 self._cycle(lvl, 'V', True, True)
 
@@ -600,8 +754,12 @@ class Mgrit:
 
     def _point_residual_norms(self, u0):
         """Per-C-point 2-norm of Phi(u_{c-1}) - u_c (kernel K3)."""
+        rg = self._ragged[0]
         if self._condensed0:
             stepped = self._cnd_c_step(u0)
+        elif rg is not None:
+            stepped = self._step_rows(0, self._gather(u0, rg.ci_prev), rg.t_ci_prev, rg.t_ci)
+            return self.ops.residual_row_norms(_rows(stepped), _rows(self._gather(u0, rg.ci)))
         else:
             info = self.levels[0]
             nt, m, t = info.nt, info.m, info.t
@@ -738,7 +896,8 @@ class Mgrit:
         """Restore solver state saved by save_checkpoint (either package)."""
         from pymgrit_tpu_torch.interop import state_from_numpy
         with np.load(path) as data:
-            state_from_numpy(self, [data[f"leaf_{i}"] for i in range(3 * self.lvl_max - 2)])
+            n = sum(1 for key in data.files if key.startswith("leaf_"))
+            state_from_numpy(self, [data[f"leaf_{i}"] for i in range(n)])
             self.conv = data["conv"]
             self.solve_iter = int(data["solve_iter"])
 

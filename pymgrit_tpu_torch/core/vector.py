@@ -15,6 +15,8 @@ from typing import Any, Union
 import numpy as np
 import torch
 
+from pymgrit_tpu_torch.core import prng
+
 State = Union[torch.Tensor, tuple]
 
 
@@ -87,6 +89,42 @@ def add_at(tube: State, idx, values: State) -> State:
         out[i] = out[i] + v
         return out
     return _map(_add, tube, values)
+
+
+def dynamic_index(tube: State, i) -> State:
+    """tube[i] on every leaf (one index, axis dropped), with the JAX
+    package's ``lax.dynamic_index_in_dim`` rule: a negative index counts
+    from the end, then the index is clamped into range.  ``i`` may be an int
+    or a 0-d integer tensor (read without a host sync)."""
+    def _pick(x):
+        n = x.shape[0]
+        k = torch.as_tensor(i, dtype=torch.int64, device=x.device).reshape(1)
+        k = torch.clamp(torch.where(k < 0, k + n, k), 0, n - 1)
+        return torch.index_select(x, 0, k)[0]
+    return _map(_pick, tube)
+
+
+def where(mask, a: State, b: State) -> State:
+    """Select a where mask else b; mask broadcasts against leading axes."""
+    def _sel(x, y):
+        m = torch.as_tensor(mask, device=x.device)
+        return torch.where(m.reshape(tuple(m.shape) + (1,) * (x.dim() - m.dim())), x, y)
+    return _map(_sel, a, b)
+
+
+def stack(states) -> State:
+    """Stack a list of single states into a tube."""
+    return _map(lambda *xs: torch.stack(xs, dim=0), *states)
+
+
+def random_like(a: State, key) -> State:
+    """Uniform [0, 1) state with the structure, dtypes and devices of a: the
+    JAX package's ``random_like`` for the same (2,) uint32 key (the draw of
+    ``core/prng.py``; float64 and float32 leaves)."""
+    leaves_a = leaves(a)
+    keys = prng.split(np.asarray(key, dtype=np.uint32), len(leaves_a))
+    draws = iter([prng.uniform(k, tuple(x.shape), x.dtype) for k, x in zip(keys, leaves_a)])
+    return _map(lambda x: torch.as_tensor(next(draws), device=x.device), a)
 
 
 def concat(tubes) -> State:

@@ -3,7 +3,10 @@
 The JAX package's ``Mgrit`` state is the pytree ``(u, v, g)`` of per-level
 tubes with ``v[0] = g[0] = None``; ``jax.tree_util.tree_flatten`` orders
 its leaves ``u[0..L-1]``, then ``v[1..L-1]``, then ``g[1..L-1]``.  Its
-``save_checkpoint`` writes them as ``leaf_<i>`` into an ``.npz`` file.
+``save_checkpoint`` writes them as ``leaf_<i>`` into an ``.npz`` file.  A
+tube of pair states (``Heat1DBDF1`` / ``Heat1DBDF2``) is the dict
+{'first', 'second'} there, so it gives two leaves in that (key) order; the
+port's pair tube is one (nt, 2, n) tensor, so the two are stacked.
 """
 
 from __future__ import annotations
@@ -18,10 +21,15 @@ def state_from_numpy(mgrit, leaves: Sequence[np.ndarray]) -> None:
     """Replace the port solver's ``(u, v, g)`` with numpy arrays given in
     the JAX package's leaf order (copied to the solver's device as
     float64).  Level 0 may hold the full tube or the condensed C-rows; the
-    next solve re-condenses it."""
+    next solve re-condenses it.  With two leaves a tube (pair states, first
+    then second), each pair is stacked into one (nt, 2, n) tube."""
     L = mgrit.lvl_max
+    if len(leaves) == 2 * (3 * L - 2):
+        leaves = [np.stack([np.asarray(a), np.asarray(b)], axis=1)
+                  for a, b in zip(leaves[0::2], leaves[1::2])]
     if len(leaves) != 3 * L - 2:
-        raise ValueError(f"expected {3 * L - 2} leaves for {L} levels, got {len(leaves)}")
+        raise ValueError(f"expected {3 * L - 2} leaves (or two a tube) for {L} levels, "
+                         f"got {len(leaves)}")
 
     def tensor(a, like):
         t = torch.tensor(np.asarray(a), dtype=torch.float64, device=mgrit.device)

@@ -37,7 +37,7 @@ class Dahlquist(Application):
                 'or MR (implicit mid-point rule)')
         if precision == 'dd':
             raise NotImplementedError(
-                "precision='dd' is not ported yet (ROADMAP A10)")
+                "precision='dd' is not ported yet (ROADMAP A3)")
         self.device = model_device(device)
         self.ops = ops
         self.vector_template = torch.zeros((), dtype=torch.float64, device=self.device)

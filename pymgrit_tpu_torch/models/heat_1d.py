@@ -53,7 +53,7 @@ class Heat1D(Application):
         if basis not in ('physical', 'spectral'):
             raise Exception("basis must be 'physical' or 'spectral'")
         if precision == 'dd':
-            raise NotImplementedError("precision='dd' is not ported yet (ROADMAP A10)")
+            raise NotImplementedError("precision='dd' is not ported yet (ROADMAP A3)")
         self._spectral = basis == 'spectral'
         self.device = model_device(device)
         self.ops = ops

@@ -70,7 +70,7 @@ class Heat2D(Application):
             # ring, which coefficient space does not have
             raise Exception("basis='spectral' supports BE/CN (theta > 0) only")
         if precision == 'dd':
-            raise NotImplementedError("precision='dd' is not ported yet (ROADMAP A10)")
+            raise NotImplementedError("precision='dd' is not ported yet (ROADMAP A3)")
         if method == 'BE':
             self.theta = 1.0
         elif method == 'FE':

@@ -76,14 +76,7 @@ class PeriodicNewtonKrylov(ChainSteps):
     def reset_stats(self) -> None:
         self.stats = newton_stats(self.krylov)
 
-    def step_chain(self, seed, t_prev, t_curr, out, g=None):
-        """J chains of L steps: out[:, k] = [g[:, k] +] Phi(out[:, k-1]) with
-        out[:, -1] = seed.  seed: (J, ...) states; t_prev, t_curr: (L, J)
-        numpy step times; out, g: (J, L, ...) views (g optional) that must
-        not overlap seed.  Returns out."""
-        dts = self._times.steps(t_prev, t_curr, seed.dtype)
-        x = seed
-        for k in range(dts.shape[0]):
-            self._step_into(x, dts[k], out[:, k], None if g is None else g[:, k])
-            x = out[:, k]
-        return out
+    def _lane_step(self, x, k, dts, out, g):
+        """Step k of ``ChainSteps.step_chain``: ``_step_into`` with the
+        chain's step sizes dts[k]."""
+        self._step_into(x, dts[k], out, g)

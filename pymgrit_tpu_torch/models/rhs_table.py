@@ -3,7 +3,9 @@
 A heat model samples its rhs over the level's grid times once, in one
 batched numpy evaluation, so every solver phase reads samples of one
 evaluation context (transcendentals round differently in scalar and
-vectorized evaluations).  ``table_rows`` reads that table back.
+vectorized evaluations).  ``table_rows`` reads that table back;
+``grid_index`` finds the rows of grid times on the host, for a device index
+that a model makes once.
 """
 
 from __future__ import annotations
@@ -36,3 +38,10 @@ def table_rows(tbl: torch.Tensor, times: torch.Tensor, ts,
     for i in torch.nonzero(times[idx] != tv).flatten().tolist():
         rows[i] = evaluate(float(tv[i]))
     return rows.reshape(ts.shape + (N,))
+
+
+def grid_index(times: np.ndarray, ts: np.ndarray):
+    """Positions of the times ts (numpy) in the sorted sample times
+    ``times`` (numpy), or None when one of them is not a sample time."""
+    pos = np.clip(np.searchsorted(times, ts), 0, times.size - 1)
+    return pos if np.array_equal(times[pos], ts) else None

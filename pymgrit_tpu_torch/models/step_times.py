@@ -21,35 +21,64 @@ class StepTimes:
         self.device = device
         self._cache = {}
 
-    def _get(self, kind, arrays, dtype, make):
+    def cached(self, kind, arrays, dtype, make):
+        """make() (a numpy array computed from the numpy ``arrays``, or None)
+        as a contiguous device tensor (or None), made once per distinct
+        ``kind`` and values of ``arrays``."""
         key = (kind, dtype) + tuple((a.shape, a.tobytes()) for a in arrays)
-        t = self._cache.get(key)
-        if t is None:
+        if key not in self._cache:
             if len(self._cache) >= _LIMIT:
                 self._cache.clear()
-            t = self._cache[key] = torch.as_tensor(np.ascontiguousarray(make()), dtype=dtype,
-                                                   device=self.device)
-        return t
+            a = make()
+            self._cache[key] = None if a is None else torch.as_tensor(
+                np.ascontiguousarray(a), dtype=dtype, device=self.device)
+        return self._cache[key]
 
     def times(self, tp, tc, dtype=torch.float64):
         """(tp, tc) as contiguous device tensors."""
         tp = np.asarray(tp, dtype=np.float64)
         tc = np.asarray(tc, dtype=np.float64)
-        return (self._get("t", (tp,), dtype, lambda: tp),
-                self._get("t", (tc,), dtype, lambda: tc))
+        return (self.cached("t", (tp,), dtype, lambda: tp),
+                self.cached("t", (tc,), dtype, lambda: tc))
 
     def steps(self, tp, tc, dtype=torch.float64):
         """tc - tp, the step sizes (computed in float64 numpy, as the JAX
         package's traced t_stop - t_start), on the device."""
         tp = np.asarray(tp, dtype=np.float64)
         tc = np.asarray(tc, dtype=np.float64)
-        return self._get("dt", (tp, tc), dtype, lambda: tc - tp)
+        return self.cached("dt", (tp, tc), dtype, lambda: tc - tp)
 
 
 class ChainSteps:
     """``step`` and ``step_batched`` of a model whose stepper is
     ``step_chain`` (J chains of L steps): a step is a chain with L = 1.
-    Comes before ``Application`` among a model's bases."""
+    Comes before ``Application`` among a model's bases.
+
+    A model whose kernel steps all chains one step at a time keeps this
+    ``step_chain`` and supplies ``_lane_step(x, k, tables, out, g)`` (out =
+    [g +] Phi(x) of step k, for the J states x) and, where its step needs
+    more than the step sizes, ``_chain_tables(tp, tc, dtype)``; a model whose
+    kernel runs whole chains overrides ``step_chain``."""
+
+    def _chain_tables(self, tp, tc, dtype):
+        """What ``_lane_step`` reads for the (L, J) step times tp, tc: here
+        the step sizes tc - tp on the device (copied once per distinct
+        table, ``StepTimes``)."""
+        return self._times.steps(tp, tc, dtype)
+
+    def step_chain(self, seed, t_prev, t_curr, out, g=None):
+        """J chains of L steps: out[:, k] = [g[:, k] +] Phi(out[:, k-1]) with
+        out[:, -1] = seed.  seed: (J, ...) states; t_prev, t_curr: (L, J)
+        numpy step times; out, g: (J, L, ...) views (g optional) that must
+        not overlap seed.  Returns out."""
+        tp = np.asarray(t_prev, dtype=np.float64)
+        tc = np.asarray(t_curr, dtype=np.float64)
+        tables = self._chain_tables(tp, tc, seed.dtype)
+        x = seed
+        for k in range(tp.shape[0]):
+            self._lane_step(x, k, tables, out[:, k], None if g is None else g[:, k])
+            x = out[:, k]
+        return out
 
     def step(self, u_start, t_start, t_stop):
         return self.step_batched(u_start[None], [float(t_start)], [float(t_stop)])[0]

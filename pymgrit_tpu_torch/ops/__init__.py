@@ -1,7 +1,8 @@
 """Hand-written GPU kernels of the port and their plain PyTorch versions.
 
-Twenty kernels carry the Heat2D paths (condensed level 0), the
-coarsest-level strategies, the nonlinear models and spatial coarsening:
+Twenty-two kernels carry the Heat2D paths (condensed level 0), the
+coarsest-level strategies, the nonlinear models, spatial and non-uniform
+coarsening, and Diffusion2D:
 
 * K1 ``interval_affine`` (CUDA C++, ``csrc/interval_affine.cu``)
 * K2 ``theta_chain`` (CUDA C++, ``csrc/theta_chain.cu``)
@@ -22,7 +23,9 @@ coarsest-level strategies, the nonlinear models and spatial coarsening:
 * K17 ``circulant_solve1d`` (CUDA C++, ``csrc/circulant_solve1d.cu``)
 * K18 ``restrict_combine`` (Triton, wrapper in ``transfer``)
 * K19 ``interpolate_combine`` (Triton, wrapper in ``transfer``)
-* K20 ``sine_solve1d`` (CUDA C++, ``csrc/sine_solve1d.cu``)
+* K20 ``sine_solve1d`` (CUDA C++, ``csrc/sine_solve1d.cu``; BE and BDF2 modes)
+* K21 ``indexed_combine`` (Triton, wrapper in ``indexed``)
+* K22 ``eig_step`` (CUDA C++, ``csrc/eig_step.cu``, FP64 tensor cores)
 
 The spectral basis runs K1-K4; the physical basis K3-K7; the coarsest
 level of ``Mgrit(coarsest_prefix=True)`` K8 and that of ``AtMgrit`` K9;
@@ -32,7 +35,9 @@ of ``cg.py``); the Arenstorf orbit K12; the Brusselator K13; Gray-Scott K10
 the Newton-BiCGStab control of ``cg.py``); Burgers 1D K16; Burgers 2D K15
 and K10 (Newton-BiCGStab); advection K17; the heat grid transfers
 (``GridTransferHeat``, ``GridTransferHeat2D``) K18 and K19; Heat1D's
-physical basis K20 (and K1 in its interval relaxation).  K3 and K4
+physical basis K20 (and K1 in its interval relaxation); the BDF pair-state
+models ``Heat1DBDF1`` / ``Heat1DBDF2`` K20 (BE and BDF2 modes); Diffusion2D
+K22; every level whose C-points are not evenly strided K21.  K3 and K4
 serve every solve.  ``DISPATCH``
 holds the wrappers (CPU tensors: plain version; CUDA tensors: the kernel).
 ``PLAIN`` holds the plain versions with the same signatures; an application
@@ -44,8 +49,8 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
-from pymgrit_tpu_torch.ops import (dense_newton, heat_kernels, periodic, prefix, runge_kutta,
-                                   transfer, triton_kernels)
+from pymgrit_tpu_torch.ops import (dense_newton, eig_step, heat_kernels, indexed, periodic,
+                                   prefix, runge_kutta, transfer, triton_kernels)
 
 
 class Ops(NamedTuple):
@@ -69,6 +74,8 @@ class Ops(NamedTuple):
     restrict_combine: Callable
     interpolate_combine: Callable
     sine_solve1d: Callable
+    indexed_combine: Callable
+    eig_step: Callable
 
 
 DISPATCH = Ops(heat_kernels.interval_affine, heat_kernels.theta_chain,
@@ -80,7 +87,7 @@ DISPATCH = Ops(heat_kernels.interval_affine, heat_kernels.theta_chain,
                triton_kernels.gray_scott_pointwise, triton_kernels.burgers2d_pointwise,
                dense_newton.burgers1d_newton, periodic.circulant_solve1d,
                transfer.restrict_combine, transfer.interpolate_combine,
-               heat_kernels.sine_solve1d)
+               heat_kernels.sine_solve1d, indexed.indexed_combine, eig_step.eig_step)
 PLAIN = Ops(heat_kernels.interval_affine_plain, heat_kernels.theta_chain_plain,
             triton_kernels.residual_row_norms_plain, triton_kernels.cpoint_combine_plain,
             heat_kernels.sine_solve2d_plain, heat_kernels.sine_affine2d_plain,
@@ -90,7 +97,8 @@ PLAIN = Ops(heat_kernels.interval_affine_plain, heat_kernels.theta_chain_plain,
             triton_kernels.rk4_brusselator_plain, triton_kernels.gray_scott_pointwise_plain,
             triton_kernels.burgers2d_pointwise_plain, dense_newton.burgers1d_newton_plain,
             periodic.circulant_solve1d_plain, transfer.restrict_combine_plain,
-            transfer.interpolate_combine_plain, heat_kernels.sine_solve1d_plain)
+            transfer.interpolate_combine_plain, heat_kernels.sine_solve1d_plain,
+            indexed.indexed_combine_plain, eig_step.eig_step_plain)
 
 
 def launch_counts() -> dict:
@@ -101,3 +109,5 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in DISPATCH:
         fn.launches = 0
+        for mode in getattr(fn, "mode_launches", {}):
+            fn.mode_launches[mode] = 0

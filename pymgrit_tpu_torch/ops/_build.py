@@ -1,7 +1,7 @@
 """Build and load the CUDA C++ kernels (K1 interval_affine, K2 theta_chain,
 K5 sine_solve2d, K6 sine_affine2d, K8 affine_prefix, K9 affine_windows,
 K10 periodic_solve2d, K12 dopri45_arenstorf, K16 burgers1d_newton, K17
-circulant_solve1d, K20 sine_solve1d).
+circulant_solve1d, K20 sine_solve1d, K22 eig_step).
 
 The sources under ``csrc/`` have a plain C interface.  On first use each
 ``.cu`` file is compiled by its own ``nvcc`` process for Hopper
@@ -46,7 +46,9 @@ _SIGNATURES = {
     "pm_burgers1d_newton": [_P, _I, _P, _P, _I, _I, _P, _I, _I, _P, _P, _D, _D, _D, _D, _D, _I,
                             _I, _I, _I, _P],
     "pm_circulant_solve1d": [_P, _I, _P, _P, _I, _I, _P, _I, _I, _D, _I, _I, _I, _P],
-    "pm_sine_solve1d": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "pm_sine_solve1d": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                        _I, _I, _P],
+    "pm_eig_step": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -1,7 +1,7 @@
 """Orthonormal sine eigenbasis of the 1D Dirichlet Laplacian.
 
-Counterpart of ``sine_eigenbasis``, ``solve_shifted_1d`` and
-``solve_shifted_2d`` in
+Counterpart of ``sine_eigenbasis``, ``solve_shifted_1d``,
+``solve_helmholtz_1d`` and ``solve_shifted_2d`` in
 ``pymgrit_tpu/ops/dirichlet_spectral.py``.
 The n-point stencil fac*[-1, 2, -1] has the analytically known basis
 
@@ -28,10 +28,17 @@ def sine_eigenbasis(n: int, fac: float):
 
 def solve_shifted_1d(S, lam, shift_scale, b):
     """Solve (I + shift_scale * L) x = b where L = S diag(lam) S, for b of
-    shape (n,) (tensors)."""
+    shape (n,) (tensors or numpy arrays)."""
     bh = S @ b
     xh = bh / (1.0 + shift_scale * lam)
     return S @ xh
+
+
+def solve_helmholtz_1d(S, lam, coeff, b):
+    """Solve (L + coeff * I) x = b where L = S diag(lam) S, for b of shape
+    (n,) (tensors or numpy arrays; BDF2's solve)."""
+    bh = S @ b
+    return S @ (bh / (lam + coeff))
 
 
 def solve_shifted_2d(Sx, lamx, Sy, lamy, shift_scale, b):

@@ -12,8 +12,8 @@ its level tubes and the kernels write straight into them.  In every
 operand the last axis must be contiguous.  K1 and K2 see a state as a row of
 N spectral coefficients; K5 and K6 see a physical state as an (r, c)
 interior, or the full (r + 2, c + 2) field with its Dirichlet ring, whose
-rows may have any stride; K20 sees a 1D physical state as a row of n
-interior values.
+rows may have any stride; K20 sees a 1D physical state (one point of a
+BDF pair state) as a row of n interior values.
 """
 
 from __future__ import annotations
@@ -369,15 +369,20 @@ sine_affine2d.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K20 sine_solve1d: physical-basis Heat1D step and 1D sine transform
+# K20 sine_solve1d: physical-basis Heat1D step (BE, BDF2) and 1D sine transform
 # ---------------------------------------------------------------------------
 
 
-def sine_solve1d_plain(x, out, S, lam=None, dt=None, rhs=None):
-    """out = ((x + dt rhs) S / (1 + dt lam)) S row by row, or x S without
-    lam (the expressions of Heat1D.step_batched)."""
+def sine_solve1d_plain(x, out, S, lam=None, dt=None, rhs=None, second=None, c2=None, c1=None,
+                       coeff=None):
+    """out = ((x + dt rhs) S / (1 + dt lam)) S row by row (BE), or
+    (((rhs - c2 x) + c1 second) S / (lam + coeff)) S (BDF2), or x S without
+    lam (the expressions of Heat1D.step_batched, Heat1DBDF2.step)."""
     if lam is None:
         y = x @ S
+    elif coeff is not None:
+        b = (rhs - c2[:, None] * x) + c1[:, None] * second
+        y = ((b @ S) / (lam[None] + coeff[:, None])) @ S
     else:
         d = dt[:, None]
         b = x if rhs is None else x + d * rhs
@@ -386,19 +391,26 @@ def sine_solve1d_plain(x, out, S, lam=None, dt=None, rhs=None):
     return out
 
 
-def sine_solve1d(x, out, S, lam=None, dt=None, rhs=None):
-    """Batched physical Heat1D backward-Euler step (lam and dt given) or 1D
-    sine transform (neither) of B rows of n values (K20).
+def sine_solve1d(x, out, S, lam=None, dt=None, rhs=None, second=None, c2=None, c1=None,
+                 coeff=None):
+    """Batched physical Heat1D backward-Euler step (lam and dt given), BDF2
+    step (lam, rhs, second, c2, c1 and coeff given) or 1D sine transform
+    (none) of B rows of n values (K20).
 
     x: (B, n) view; out: a (B, n) view, or an (H, D, n) view with H * D = B
     (row b at [b // D, b % D]); S: contiguous (n, n) symmetric basis; lam:
     contiguous (n,) eigenvalues; dt: contiguous (B,) step sizes; rhs:
-    optional (B, n) view added as dt * rhs before the solve (row stride 0
-    for one shared row).  out must not share memory with x.  Returns out.
+    (B, n) view (row stride 0 for one shared row), added as dt * rhs before
+    the BE solve (optional there), or BDF2's right-hand side
+    (rhs - c2 x) + c1 second with second a (B, n) view and c2, c1, coeff
+    contiguous (B,) per-lane coefficients; BDF2 divides by lam + coeff.  A
+    solve may write over its inputs; a transform's out must not share memory
+    with x.  Returns out.
     """
     name = "sine_solve1d"
     ops = dict(x=x, out=out, S=S)
-    for key, t in dict(lam=lam, dt=dt, rhs=rhs).items():
+    for key, t in dict(lam=lam, dt=dt, rhs=rhs, second=second, c2=c2, c1=c1,
+                       coeff=coeff).items():
         if t is not None:
             ops[key] = t
     _check_operands(name, ops)
@@ -408,34 +420,47 @@ def sine_solve1d(x, out, S, lam=None, dt=None, rhs=None):
              f"out has shape {tuple(out.shape)}, expected ({B}, {n}) or (H, D, {n}), H * D = {B}")
     _require(tuple(S.shape) == (n, n) and S.is_contiguous(), name,
              f"S must be a contiguous ({n}, {n}) basis")
-    _require((lam is None) == (dt is None), name, "lam and dt go together")
+    bdf2 = coeff is not None
+    _require(not bdf2 or (lam is not None and dt is None and rhs is not None
+                          and second is not None and c2 is not None and c1 is not None), name,
+             "BDF2 takes lam, rhs, second, c2, c1 and coeff (and no dt)")
+    _require(bdf2 or (second is None and c2 is None and c1 is None), name,
+             "second, c2 and c1 belong to BDF2 (with coeff)")
+    _require(bdf2 or (lam is None) == (dt is None), name, "lam and dt go together")
     _require(rhs is None or lam is not None, name, "rhs needs lam and dt")
     _require(lam is None or (tuple(lam.shape) == (n,) and lam.is_contiguous()), name,
              f"lam must be a contiguous ({n},) vector")
-    _require(dt is None or (tuple(dt.shape) == (B,) and dt.is_contiguous()), name,
-             f"dt must be a contiguous ({B},) vector")
-    _require(rhs is None or tuple(rhs.shape) == (B, n), name,
-             f"rhs has shape {tuple(rhs.shape) if rhs is not None else None}, expected ({B}, {n})")
-    _require(out.untyped_storage().data_ptr() != x.untyped_storage().data_ptr(), name,
-             "out shares memory with x")
+    for key, t in dict(dt=dt, c2=c2, c1=c1, coeff=coeff).items():
+        _require(t is None or (tuple(t.shape) == (B,) and t.is_contiguous()), name,
+                 f"{key} must be a contiguous ({B},) vector")
+    for key, t in dict(rhs=rhs, second=second).items():
+        _require(t is None or tuple(t.shape) == (B, n), name,
+                 f"{key} has shape {tuple(t.shape) if t is not None else None}, "
+                 f"expected ({B}, {n})")
+    _require(lam is not None or out.untyped_storage().data_ptr() != x.untyped_storage().data_ptr(),
+             name, "a transform's out shares memory with x")
     if x.device.type == "cpu":
-        return sine_solve1d_plain(x, out, S, lam, dt, rhs)
+        return sine_solve1d_plain(x, out, S, lam, dt, rhs, second, c2, c1, coeff)
     if B == 0 or n == 0:
         return out
     D, s_hi, s_lo = (1, out.stride(0), 0) if out.dim() == 2 else (
         out.shape[1], out.stride(0), out.stride(1))
     work = torch.empty((B, n), dtype=x.dtype, device=x.device) if lam is not None else None
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
     fn = _launcher("pm_sine_solve1d", x.dtype)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = fn(x.data_ptr(), x.stride(0), rhs.data_ptr() if rhs is not None else None,
-                rhs.stride(0) if rhs is not None else 0,
-                dt.data_ptr() if dt is not None else None, S.data_ptr(),
-                lam.data_ptr() if lam is not None else None,
-                work.data_ptr() if work is not None else None, out.data_ptr(), D, s_hi, s_lo,
+    status = fn(x.data_ptr(), x.stride(0), ptr(second), second.stride(0) if bdf2 else 0,
+                ptr(rhs), rhs.stride(0) if rhs is not None else 0, ptr(dt), ptr(c2), ptr(c1),
+                S.data_ptr(), ptr(lam), ptr(coeff), ptr(work), out.data_ptr(), D, s_hi, s_lo,
                 B, n, stream)
     _build.check(status, name)
     sine_solve1d.launches += 1
+    sine_solve1d.mode_launches["bdf2" if bdf2 else "be" if lam is not None else "transform"] += 1
     return out
 
 
 sine_solve1d.launches = 0
+sine_solve1d.mode_launches = {"be": 0, "bdf2": 0, "transform": 0}   # launches by mode

@@ -3,7 +3,8 @@
 ``gray_scott_pointwise`` and K15 ``burgers2d_pointwise`` (Triton), each
 beside its plain PyTorch version, and the bodies of K18
 ``restrict_combine`` and K19 ``interpolate_combine``, whose wrappers and
-plain versions live in ``transfer``.
+plain versions live in ``transfer``, and of K21 ``indexed_combine``
+(wrapper and plain version in ``indexed``).
 
 K3 replaces pymgrit_tpu/core/solver.py ``_point_residual_norms`` with
 ``vector.batched_norm``: the per-C-point 2-norm of Phi(u_{c-1}) - u_c that
@@ -479,6 +480,42 @@ def _interpolate_body(dst_ptr, a_ptr, b_ptr, sd, sa, sb, Pc, Qc, Qf, Nf, DIM: tl
     tl.store(dp, v, mask=mask)
 
 
+def _indexed_combine_body(out_ptr, io_ptr, x0_ptr, x1_ptr, x2_ptr, i0_ptr, i1_ptr, i2_ptr, c_ptr,
+                          so, s0, s1, s2, T, N, NT: tl.constexpr, HAS_IO: tl.constexpr,
+                          HAS_I0: tl.constexpr, HAS_I1: tl.constexpr, HAS_I2: tl.constexpr,
+                          BLOCK: tl.constexpr):
+    # K21: out[io[r]] = sum_k c_k x_k[i_k[r]] at the columns idx of row r,
+    # summed left to right; a missing index is r itself; io[r] == T (the
+    # out tube's length) drops the row.  c_ptr holds the coefficients in
+    # the working dtype.
+    r = tl.program_id(0).to(tl.int64)
+    idx = tl.program_id(1) * BLOCK + tl.arange(0, BLOCK)
+    mask = idx < N
+    if HAS_I0:
+        r0 = tl.load(i0_ptr + r)
+    else:
+        r0 = r
+    acc = tl.load(c_ptr) * tl.load(x0_ptr + r0 * s0 + idx, mask=mask)
+    if NT > 1:
+        if HAS_I1:
+            r1 = tl.load(i1_ptr + r)
+        else:
+            r1 = r
+        acc = acc + tl.load(c_ptr + 1) * tl.load(x1_ptr + r1 * s1 + idx, mask=mask)
+    if NT > 2:
+        if HAS_I2:
+            r2 = tl.load(i2_ptr + r)
+        else:
+            r2 = r
+        acc = acc + tl.load(c_ptr + 2) * tl.load(x2_ptr + r2 * s2 + idx, mask=mask)
+    if HAS_IO:
+        dst = tl.load(io_ptr + r)
+        mask = mask & (dst < T)
+    else:
+        dst = r
+    tl.store(out_ptr + dst * so + idx, acc, mask=mask)
+
+
 def _jit():
     """Import triton and compile-wrap the kernel bodies (once)."""
     global tl
@@ -496,6 +533,7 @@ def _jit():
         _JIT["burgers2d"] = triton.jit(_burgers2d_body)
         _JIT["restrict"] = triton.jit(_restrict_body)
         _JIT["interpolate"] = triton.jit(_interpolate_body)
+        _JIT["indexed_combine"] = triton.jit(_indexed_combine_body)
     return _JIT
 
 

@@ -423,6 +423,56 @@ def _cases(dtype, dev):
                                 torch.linspace(1e-3, 2e-3, 37, dtype=dtype, device=dev),
                                 wide1[1:38] * 1e-2)
 
+    # K20's BDF2 mode: first and second are the slots of a pair tube, the
+    # second solve reads the first's output from the same tensor
+    pairs = _rand((6, 2, NI), dtype, dev, 49)
+    cf = _rand((6, 5), dtype, dev, 50).abs() * 100 + 1
+
+    def k20_bdf2(ops):
+        out = pairs[1:].clone()
+        ops.sine_solve1d(pairs[:5, 1], out[:, 1], S1, lam[:NI], rhs=rows1[0].expand(5, NI),
+                         second=out[:, 0], c2=cf[3], c1=cf[4], coeff=cf[5])
+        return out
+
+    # K21 indexed_combine: a gather, a drop-scatter (padding index = the
+    # tube's length), an in-place weighted update at index rows, a
+    # three-term sum with a gathered term
+    src = _rand((12, 2 * NI), dtype, dev, 51)
+    pick = torch.as_tensor([3, 0, 11, 3, 7], device=dev)
+    put = torch.as_tensor([1, 12, 4, 12, 9], device=dev)
+
+    def k21_gather(ops):
+        out = torch.zeros((5, 2 * NI), dtype=dtype, device=dev)
+        return ops.indexed_combine(out, [src], [1.0], idx=[pick])
+
+    def k21_scatter(ops):
+        out = src.clone()
+        return ops.indexed_combine(out, [src[2:7]], [1.0], io=put)
+
+    def k21_weighted(ops):
+        out = src.clone()
+        return ops.indexed_combine(out, [src[:3], out], [0.7, 0.3], io=pick[2:],
+                                   idx=[None, pick[2:]])
+
+    def k21_three(ops):
+        out = torch.zeros((5, 2 * NI), dtype=dtype, device=dev)
+        return ops.indexed_combine(out, [src, src[5:10], src[::2][:5]], [1.0, -1.0, 1.0],
+                                   idx=[pick])
+
+    # K22 eig_step: N and B not multiples of the tiles, strided lanes, a
+    # lane count below one row tile and one above
+    ne = 150
+    We, Ve = (_rand((ne, ne), dtype, dev, s) / ne ** 0.5 for s in (52, 53))
+    lam_e = _rand((ne,), dtype, dev, 54).abs() * 10
+    xe = _rand((140, ne), dtype, dev, 55)
+
+    def k22(B):
+        def run(ops):
+            out = torch.zeros((B, ne + 3), dtype=dtype, device=dev)
+            dt = torch.linspace(0.1, 0.5, B, dtype=dtype, device=dev)
+            return ops.eig_step(xe[:2 * B:2], out[:, 1:ne + 1], We, Ve, lam_e, dt)
+        return run
+
     return [("interval_affine", k1_rows), ("interval_affine", k1_tube),
             ("theta_chain", k2(1.0, True, False)), ("theta_chain", k2(0.5, True, True)),
             ("theta_chain", k2(1.0, False, True)), ("residual_row_norms", k3),
@@ -460,10 +510,13 @@ def _cases(dtype, dev):
             ("circulant_solve1d", k17_big(-40.0)),
             ("sine_solve1d", k20(True, True)), ("sine_solve1d", k20(True, False)),
             ("sine_solve1d", k20(False, False)), ("sine_solve1d", k20_blocks),
-            ("sine_solve1d", k20_wide)]
+            ("sine_solve1d", k20_wide), ("sine_solve1d", k20_bdf2),
+            ("indexed_combine", k21_gather), ("indexed_combine", k21_scatter),
+            ("indexed_combine", k21_weighted), ("indexed_combine", k21_three),
+            ("eig_step", k22(3)), ("eig_step", k22(70))]
 
 
-N_CASES = 67
+N_CASES = 74
 
 
 @pytest.mark.cuda
@@ -544,6 +597,43 @@ def test_small_heat1d_spatial_solve_on_card_matches_cpu(cuda):
     assert not any(cc.values())
     assert all(cg[k] > 0 for k in ("sine_solve1d", "restrict_combine", "interpolate_combine"))
     np.testing.assert_allclose(hg, hc, rtol=1e-10, atol=1e-14)
+    assert float((tg - tc).abs().max()) <= 1e-10
+
+
+def _slice7_solve(device, case):
+    """Small solves of the non-uniform route (Heat1D physical on a jittered
+    grid: K21, K20), the BDF pair hierarchy (K20's BE and BDF2 modes) and
+    Diffusion2D (K22)."""
+    rhs = lambda x, t: -np.sin(np.pi * x) * (np.sin(t) - np.pi ** 2 * np.cos(t))
+    ic = lambda x: np.sin(np.pi * x)
+    if case == "ragged":
+        t = np.linspace(0, 2, 65)
+        kw = dict(x_start=0, x_end=1, nx=17, a=1, rhs=rhs, init_cond=ic, device=device)
+        idx1 = np.array([0, 3, 5, 6, 12, 20, 21, 22, 30, 41, 50, 63, 64])
+        problem = [P.Heat1D(t_interval=g, **kw) for g in (t, t[idx1], t[idx1][::3])]
+    elif case == "bdf":
+        ti = np.linspace(0, 2, 33)
+        kw = dict(x_start=0, x_end=1, nx=17, a=1, dtau=2 / 64, rhs=rhs, init_cond=ic,
+                  device=device)
+        problem = [P.Heat1DBDF2(t_interval=ti, **kw), P.Heat1DBDF1(t_interval=ti[::2], **kw),
+                   P.Heat1DBDF1(t_interval=ti[::4], **kw)]
+    else:
+        problem = [P.Diffusion2D(n=4, t_start=0, t_stop=10, nt=nt, device=device)
+                   for nt in (17, 9)]
+    reset_launch_counts()
+    mgrit = P.Mgrit(problem=problem, tol=1e-10, max_iter=8, logging_lvl=40)
+    mgrit.solve()
+    # a two-level solve can end at an exact 0, which solve()'s history drops
+    return mgrit.conv[1:mgrit.solve_iter + 1], mgrit.u[0].cpu(), launch_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,kernel", [("ragged", "indexed_combine"), ("bdf", "sine_solve1d"),
+                                         ("diffusion", "eig_step")])
+def test_small_slice7_solve_on_card_matches_cpu(cuda, case, kernel):
+    (hc, tc, cc), (hg, tg, cg) = (_slice7_solve(d, case) for d in ("cpu", cuda))
+    assert not any(cc.values()) and cg[kernel] > 0
+    np.testing.assert_allclose(hg, hc, rtol=1e-9, atol=1e-14)
     assert float((tg - tc).abs().max()) <= 1e-10
 
 
@@ -1122,3 +1212,73 @@ def test_sine_solve1d_rejects_out_sharing_x():
     tube = torch.zeros((8, 5), dtype=torch.float64)
     with pytest.raises(ValueError, match="shares memory"):
         heat_kernels.sine_solve1d(tube[:4], tube[4:], torch.zeros((5, 5), dtype=torch.float64))
+
+
+def _k21_args(**over):
+    f = dict(dtype=torch.float64)
+    args = dict(out=torch.zeros((6, 4), **f), terms=[torch.zeros((3, 4), **f)], coeffs=[1.0],
+                io=torch.as_tensor([0, 6, 2]))
+    args.update(over)
+    return args
+
+
+@pytest.mark.parametrize("over,match", [
+    (dict(terms=[torch.zeros((3, 4), dtype=torch.float64)] * 4, coeffs=[1.0] * 4), "1..3 terms"),
+    (dict(coeffs=[1.0, 2.0]), "one coefficient"),
+    (dict(terms=[torch.zeros((3, 5), dtype=torch.float64)]), "one N"),
+    (dict(terms=[torch.zeros((2, 4), dtype=torch.float64)]), "term0 has 2 rows"),
+    (dict(io=torch.as_tensor([0, 1, 2], dtype=torch.int32)), "int64"),
+    (dict(io=torch.as_tensor([0, 1])), "term0 has 3 rows, expected 2"),
+    (dict(idx=[torch.as_tensor([0, 1])]), "idx0 has 2 rows"),
+    (dict(terms=[torch.zeros((3, 4), dtype=torch.float32)]), "dtype"),
+])
+def test_indexed_combine_rejects(over, match):
+    from pymgrit_tpu_torch.ops import indexed
+    with pytest.raises(ValueError, match=match):
+        indexed.indexed_combine(**_k21_args(**over))
+
+
+def _k22_args(**over):
+    f = dict(dtype=torch.float64)
+    args = dict(x=torch.zeros((3, 5), **f), out=torch.empty((3, 5), **f),
+                W=torch.zeros((5, 5), **f), V=torch.zeros((5, 5), **f), lam=torch.zeros(5, **f),
+                dt=torch.zeros(3, **f))
+    args.update(over)
+    return args
+
+
+@pytest.mark.parametrize("over,match", [
+    (dict(out=torch.empty((3, 4), dtype=torch.float64)), "equal"),
+    (dict(W=torch.zeros((5, 4), dtype=torch.float64)), "tables"),
+    (dict(V=torch.zeros((5, 5), dtype=torch.float64).t()), "contiguous"),
+    (dict(lam=torch.zeros(4, dtype=torch.float64)), "lam"),
+    (dict(dt=torch.zeros(2, dtype=torch.float64)), "dt"),
+    (dict(x=torch.zeros((3, 5), dtype=torch.float32)), "dtype"),
+])
+def test_eig_step_rejects(over, match):
+    from pymgrit_tpu_torch.ops import eig_step
+    with pytest.raises(ValueError, match=match):
+        eig_step.eig_step(**_k22_args(**over))
+
+
+def _k20_bdf2_args(**over):
+    f = dict(dtype=torch.float64)
+    v = torch.zeros(3, **f)
+    args = dict(x=torch.zeros((3, NI), **f), out=torch.empty((3, NI), **f),
+                S=torch.zeros((NI, NI), **f), lam=torch.zeros(NI, **f),
+                rhs=torch.zeros((3, NI), **f), second=torch.zeros((3, NI), **f), c2=v, c1=v,
+                coeff=v)
+    args.update(over)
+    return args
+
+
+@pytest.mark.parametrize("over,match", [
+    (dict(dt=torch.zeros(3, dtype=torch.float64)), "no dt"),
+    (dict(second=None), "BDF2 takes"),
+    (dict(coeff=None), "belong to BDF2"),
+    (dict(c1=torch.zeros(2, dtype=torch.float64)), "c1 must be"),
+    (dict(second=torch.zeros((2, NI), dtype=torch.float64)), "second has shape"),
+])
+def test_sine_solve1d_bdf2_rejects(over, match):
+    with pytest.raises(ValueError, match=match):
+        heat_kernels.sine_solve1d(**_k20_bdf2_args(**over))

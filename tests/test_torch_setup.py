@@ -108,17 +108,11 @@ def test_hierarchy_validation_messages_equal():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mesh=object()), "A12"), (dict(lazy_f_relax=True), "not to port")])
+    (dict(mesh=object()), "A7"), (dict(lazy_f_relax=True), "not to port")])
 def test_unported_options_raise(kw, item):
     problem = P.simple_setup_problem(P.Dahlquist(t_start=0, t_stop=5, nt=101, device="cpu"), 2, 2)
     with pytest.raises(NotImplementedError, match=item):
         P.Mgrit(problem=problem, logging_lvl=30, **kw)
-
-
-def test_nonuniform_coarsening_raises():
-    g = _GRIDS["nonuniform"]
-    with pytest.raises(NotImplementedError, match="A8"):
-        P.Mgrit(problem=[P.Dahlquist(t_interval=x, device="cpu") for x in g], logging_lvl=30)
 
 
 def test_import_leaves_jax_out():
