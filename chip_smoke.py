@@ -13,15 +13,18 @@ phases:
 1. device    the card's name and power limit (nvidia-smi); a CUDA device is
              required, there is no CPU carry-on;
 2. build     nvcc builds the CUDA C++ kernels (K1, K2, K5, K6, K8, K9, K10, K12,
-             K16, K17, K20, K22) from ``csrc/``, one process per source, all
-             started together; ``cuobjdump`` counts K22's DMMA instructions;
+             K16, K17, K20, K22-K26) from ``csrc/``, one process per source,
+             all started together; ``cuobjdump`` counts the DMMA instructions
+             of K22 and K26;
 3. kernels   K1-K22 against their plain PyTorch versions at the main paths'
              shapes (and odd ones, and K5/K6/K10/K16/K17 past the sizes
              their wrappers once refused), float32 and float64, with
              timings; for each kernel's headline case (and each case that
              records its work) its bound (bytes or FP64 operations over the
              H100's peaks) and, where one PyTorch call computes the same
-             function, that call's time;
+             function, that call's time; then the double-double K23-K26
+             (``[dd-kernels]``) at the [dd] phase's shapes, K23-K25 bit for
+             bit and K26 within 1e-14 of max(|A| |B|);
 4. small     Heat2D nx=17, nt=129, ms=(4, 4): the port on the CPU (plain
              versions) against the port on the GPU (kernels);
 5. main      the full spectral TOMS solve through K1-K4: launch counts,
@@ -81,11 +84,19 @@ phases:
              against the JAX history and the plain path;
 18. diffusion ``examples/example_diffusion_2d.py`` (n = 20, N = 2400, nt 17/9)
              through K22 against its JAX history, then nt = 1025 with m = 8
-             (128 lanes), kernels against plain, mass conservation.
+             (128 lanes), kernels against plain, mass conservation;
+19. dd       ``precision='dd'`` (float32 pairs): bench.py's dd_toms129 row
+             (the TOMS configuration in the spectral basis, 14 iterations:
+             K23-K25 and K3) and dd65 row (Heat2D physical 65^2, nt =
+             4097, 4/4/4, tol 1e-10: K25, K26 and K3), kernels against
+             plain in alternating pairs after a warm solve and against the
+             JAX package's histories (the DD floor included), with no
+             float64 kernel launched; the Dahlquist README golden and
+             Diffusion2D (n = 8) against the float64 history, in DD.
 
 ``python3 chip_smoke.py --profile`` runs phases 1-2 and then one profiled
 solve of each configuration of phases 11-13 and of the ragged row, the BDF
-example and the deep diffusion grid (``torch.profiler``): device
+example, the two DD rows and the deep diffusion grid (``torch.profiler``): device
 busy and idle share, the leading device ops, launches and syncs.  It
 compares and checks nothing, so its last line is
 ``{"profile": true, ...}`` and never the ``"ok"`` of a checked run.
@@ -284,6 +295,39 @@ MASS_RTOL = 1e-10
 # K22 sums two length-2400 products per entry in another order than cuBLAS
 # (DMMA's k4 groups, or FFMA in f32): ~sqrt(N) roundings of independent sign
 KERNEL_RTOL_BY_NAME["eig_step"] = {"float64": 1e-12, "float32": 1e-4}
+# precision='dd' ([dd]): bench.py's dd_toms129 row (Heat2D 129^2 spectral,
+# nt = 16385, 32/16/4/4, 14 iterations) and its dd65 row (physical 65^2,
+# nt = 4097, 4/4/4, tol 1e-10)
+DD_TOMS = dict(nx=129, nt=2 ** 14 + 1, ms=(32, 16, 4, 4), tol=0.0, max_iter=14)
+DD65 = dict(nx=65, nt=4097, ms=(4, 4, 4), tol=1e-10, max_iter=14)
+# their histories in the JAX package on the CPU (recomputed by
+# tests/test_torch_chip_histories.py): 1e-10 at iteration 9, then the DD floor
+DD_TOMS_JAX = np.array([0.03031408041715622, 0.0014784247614443302, 9.209801646647975e-05,
+                        6.1574983192258514e-06, 4.144012279994058e-07, 2.885895789006554e-08,
+                        2.1798611804513257e-09, 1.5679567366699843e-10, 9.348763950478567e-12,
+                        5.361147723675908e-13, 2.7546264965219724e-13, 2.794933609637923e-13,
+                        2.6562655070297425e-13, 2.7688271055266445e-13])
+DD65_JAX = np.array([0.0029827668331563473, 0.00019982218509539962, 1.4706996807944961e-05,
+                     1.122591470448242e-06, 8.738655310480681e-08, 6.885314984828028e-09,
+                     5.46690359648494e-10, 4.356228919255578e-11])
+# a DD history is a float32 norm of a residual that carries rounding noise
+# at the DD floor: held to JAX at rtol 1e-5 plus a quarter of JAX's
+# dd_toms129 floor, 6.6e-14 (the port's CPU runs differ by 2.7e-14 at
+# dd_toms129's iteration 8, 1.568e-10, and by 2.1e-14 at dd65's last); floor iterations (10-14 of dd_toms129) within 10x of JAX's,
+# never below 1e-14 (a lower floor is a float64 state, not DD)
+DD_RTOL, DD_FLOOR_FACTOR, DD_FLOOR_MIN = 1e-5, 10.0, 1e-14
+DD_ATOL = 0.25 * DD_TOMS_JAX[9:].min()
+DD_TOMS_FLOOR_FROM = 9          # iterations 10-14 sit at the floor
+DD_DAHLQUIST_GOLDEN = np.array([7.186185937e-05, 1.2461067e-06, 2.1015566e-08, 3.1441273e-10,
+                                3.975e-12])
+DD_DIFFUSION = dict(n=8, nts=(17, 9), tol=1e-11, max_iter=10)
+# kernels a DD solve must not launch (the float64 paths' kernels)
+DD_FORBIDDEN = ("interval_affine", "theta_chain", "cpoint_combine", "sine_solve2d",
+                "sine_affine2d", "theta_rhs2d", "restrict_combine", "interpolate_combine",
+                "eig_step")
+# K26 sums float64 products in DMMA's k4 groups, torch.matmul in cuBLAS's
+# order: within 1e-14 of the largest |A| |B| entry
+DD_MATMUL_RTOL = 1e-14
 # H100 SXM at 700 W (NVIDIA's data sheet): HBM bytes/s and the peak rates of
 # the units that could do the kernels' operations (FP64 and FP32 outside the
 # tensor cores; FP64 on the tensor cores, DMMA, for dense products)
@@ -292,9 +336,10 @@ PEAK_OPS_PER_S = {"float64": 34e12, "float32": 67e12}
 PEAK_DMMA_OPS_PER_S = 67e12
 # the kernels whose operations are dense FP64 products, which the tensor
 # cores could run: the sine transforms of K5, K6 and K20, K10's Hartley
-# transforms and K22's eigenbasis products
+# transforms, K22's eigenbasis products and K26's DD products
 PRODUCT_KERNELS = ("sine_solve2d", "sine_affine2d", "periodic_solve2d", "sine_solve1d",
-                   "eig_step")
+                   "eig_step", "dd_matmul")
+DD_FP32_KERNELS = ("dd_interval_affine", "dd_theta_chain", "dd_arith")
 
 
 def fail(msg):
@@ -318,13 +363,15 @@ def init_cond(x, y):
     return np.sin(np.pi * x) * np.sin(np.pi * y)
 
 
-def build_problem(P, nx, nt, ms, device, ops, method="BE", basis="spectral", t_end=1.0):
+def build_problem(P, nx, nt, ms, device, ops, method="BE", basis="spectral", t_end=1.0,
+                  precision=None):
     t = np.linspace(0, t_end, nt)
     problem, stride = [], 1
     for lvl in range(len(ms) + 1):
         problem.append(P.Heat2D(x_start=0, x_end=1, y_start=0, y_end=1, nx=nx, ny=nx,
                                 a=1.0, rhs=rhs, init_cond=init_cond, t_interval=t[::stride],
-                                basis=basis, method=method, device=device, ops=ops))
+                                basis=basis, method=method, device=device, ops=ops,
+                                precision=precision))
         if lvl < len(ms):
             stride *= ms[lvl]
     return problem
@@ -399,11 +446,18 @@ def phase_build():
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(_build._lib_dir / "libpymgrit_kernels.so")],
                           capture_output=True, text=True, timeout=300).stdout
-    dmma = sum("DMMA" in ln for ln in sass.splitlines())
-    hmma = sum("HMMA" in ln for ln in sass.splitlines())
-    print(f"[build] cuobjdump -sass: {dmma} DMMA instructions (K22 f64), {hmma} HMMA "
-          f"(TF32 and half precision: none expected)")
-    check(dmma > 0 and hmma == 0, f"build: {dmma} DMMA and {hmma} HMMA instructions in the SASS")
+    dmma, hmma, fn = {}, 0, ""
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :")[1].strip()
+        elif "DMMA" in ln:
+            key = next((k for k in ("eig_step", "dd_matmul") if k in fn), fn)
+            dmma[key] = dmma.get(key, 0) + 1
+        hmma += "HMMA" in ln
+    print(f"[build] cuobjdump -sass: DMMA instructions by kernel {dmma} (K22 f64, K26 DD "
+          f"products), {hmma} HMMA (TF32 and half precision: none expected)")
+    check(dmma.get("eig_step", 0) > 0 and dmma.get("dd_matmul", 0) > 0 and hmma == 0,
+          f"build: DMMA {dmma} (K22 and K26 must have some) and {hmma} HMMA in the SASS")
 
 
 def cuda_ms(fn, reps=20, budget_ms=1000.0):
@@ -1154,6 +1208,177 @@ def slice7_cases(dtype, dev, rng, stash):
     return cases
 
 
+# float32 operations of one double-double operation of csrc/dd.cuh (split
+# 4, two_prod 17, two_sum 6, quick_two_sum 3): what K23-K25 execute an element
+DD_FLOPS = {"add": 20, "sub": 20, "mul": 24, "div": 114, "sqrt": 67, "neg": 2, "resid": 21}
+
+
+def dd_cases(dev, rng, stash):
+    """K23-K26 at the shapes of the [dd] phase, each run(ops) returning a DD
+    (or K25's float32 residual): K23 the materialization of [dd]'s TOMS
+    level-0 tube (512 intervals x 31 F-rows of 127^2 DD coefficients, the
+    seeds copied to the C-rows) and the condensed C-step (the last row);
+    K24 level 1's F-relaxation (32 chains x 15 steps with g), BE and CN;
+    K25 the FAS combine, the weighted C-update and the residual difference
+    over 512 packed C-rows of 127^2, each elementwise op on wild-scale
+    inputs of that size (magnitudes 1e-8 .. 1e8), the cancellation case of
+    tests/ops/test_dd.py and Dahlquist's 0-d steps with immediate scalars;
+    K26 [dd65]'s two-sided 63 x 63 sine products on 1024 lanes of the
+    65^2 states and Diffusion2D's (8, 2400) @ (2400, 2400) table product.
+    Records each case's bytes (8 a DD value, 4 a float32 one) and float32
+    operations (K26: FP64 tensor-core operations) in stash, and K26's
+    torch.matmul on the float64 hi + lo operands as its library call."""
+    import torch
+    from pymgrit_tpu_torch.ops import dd
+    from pymgrit_tpu_torch.ops.dirichlet_spectral import sine_eigenbasis
+    F, A_ = DD_FLOPS, "add"
+
+    def pair(a):
+        return dd.from_f64(np.ascontiguousarray(a), dev)
+
+    def packed(a):
+        """(rows, 2, ...) float32 tube rows holding the DD split of a."""
+        x = pair(a)
+        return torch.stack([x.hi, x.lo], 1)
+
+    n = DD_TOMS["nx"] - 2
+    N, m0 = n * n, DD_TOMS["ms"][0]
+    J = (DD_TOMS["nt"] - 1) // m0
+    cases = []
+
+    # K23: the materialization into the (nt, 2, N) tube and the C-step
+    tube = torch.empty((J * m0 + 1, 2, N), dtype=torch.float32, device=dev)
+    seeds = packed(rng.uniform(-1, 1, (J, N)))
+    A, G = pair(rng.uniform(0, 1, (m0, N))), pair(rng.uniform(-1, 1, (m0, N)))
+    A31, G31 = A[:m0 - 1], G[:m0 - 1]
+
+    def materialize(ops):
+        out = dd.pair(tube[:J * m0].view(J, m0, 2, N)[:, 1:], ops, 2)
+        ops.dd_interval_affine(dd.pair(seeds, ops), A31, G31, out, 0,
+                               dd.pair(tube[0:J * m0:m0], ops))
+        return dd.pair(tube[:J * m0], ops)
+
+    def c_step(ops):
+        out = torch.empty((J, 1, 2, N), dtype=torch.float32, device=dev)
+        ops.dd_interval_affine(dd.pair(seeds, ops), A, G, dd.pair(out, ops, 2), m0 - 1)
+        return dd.pair(out[:, 0], ops)
+
+    case = f"materialize J={J} R={m0 - 1} N={N}"
+    cases.append(("dd_interval_affine", case, materialize))
+    stash[("work", "dd_interval_affine", case)] = (8 * (J * N + 2 * (m0 - 1) * N + J * m0 * N),
+                                                   (F["mul"] + F[A_]) * J * (m0 - 1) * N)
+    case = f"C-step J={J} N={N}"
+    cases.append(("dd_interval_affine", case, c_step))
+    stash[("work", "dd_interval_affine", case)] = (8 * (2 * J * N + 2 * N),
+                                                   (F["mul"] + F[A_]) * J * N)
+
+    # K24: level 1's F-relaxation, 32 chains of 15 steps with g
+    J1, L1 = J // DD_TOMS["ms"][1], DD_TOMS["ms"][1] - 1
+    _, lam1 = sine_eigenbasis(n, (n + 1.0) ** 2)
+    lam = pair((lam1[:, None] + lam1[None, :]).reshape(-1))
+    lift = pair(rng.uniform(-1, 1, N))
+    x0 = packed(rng.uniform(-1, 1, (J1, N)))
+    g = torch.stack([packed(rng.uniform(-1e-3, 1e-3, (J1, N))) for _ in range(L1)], 1)
+    dt = pair(np.full((L1, J1), 1.0 / (DD_TOMS["nt"] - 1) * m0))
+    r1 = torch.as_tensor(rng.uniform(-1, 1, N).astype(np.float32), device=dev).expand(L1, J1, N)
+    for theta, label in ((1.0, "BE"), (0.5, "CN")):
+        def chain(ops, theta=theta):
+            out = torch.empty((J1, L1, 2, N), dtype=torch.float32, device=dev)
+            ops.dd_theta_chain(dd.pair(x0, ops), dd.pair(out, ops, 2), dt, lam, lift, r1, r1,
+                               theta, dd.pair(g, ops, 2))
+            return dd.pair(out, ops, 2)
+
+        per = 4 * F["mul"] + 3 * F[A_] + F["div"] + F[A_] + (0 if theta == 1.0 else F["mul"] + 3)
+        case = f"level-1 F-relax {label} J={J1} L={L1} N={N}"
+        cases.append(("dd_theta_chain", case, chain))
+        stash[("work", "dd_theta_chain", case)] = (
+            8 * (J1 * N + 2 * J1 * L1 * N + 2 * N + L1 * J1) + 4 * N, per * J1 * L1 * N)
+
+    # K25: the solver's combines over 512 packed C-rows, then each op
+    R = J
+    terms = [packed(rng.uniform(-1, 1, (R, N))) for _ in range(3)]
+
+    def combine(ops, coeffs, k):
+        out = torch.empty((R, 2, N), dtype=torch.float32, device=dev)
+        return ops.dd_arith("combine", *[dd.pair(t, ops) for t in terms[:k]], coeffs=coeffs,
+                            out=dd.pair(out, ops))
+
+    case = f"FAS combine R={R} N={N}"
+    cases.append(("dd_arith", case, lambda ops: combine(ops, [1.0, -1.0, 1.0], 3)))
+    stash[("work", "dd_arith", case)] = (8 * 4 * R * N, (2 * F[A_] + F["neg"]) * R * N)
+    case = f"weighted C-update w=1.3 R={R} N={N}"
+    cases.append(("dd_arith", case, lambda ops: combine(ops, [1.3, 1.0 - 1.3], 2)))
+    stash[("work", "dd_arith", case)] = (8 * 3 * R * N, (2 * F["mul"] + F[A_]) * R * N)
+    case = f"resid R={R} N={N}"
+    cases.append(("dd_arith", case, lambda ops: ops.dd_arith(
+        "resid", dd.pair(terms[0], ops), dd.pair(terms[1], ops))))
+    stash[("work", "dd_arith", case)] = (8 * 2 * R * N + 4 * R * N, F["resid"] * R * N)
+
+    def wild(shape):
+        mag = 10.0 ** rng.uniform(-8, 8, shape)
+        return rng.standard_normal(shape) * mag
+
+    xw = pair(wild((R, N)))
+    yw = pair(np.abs(wild((R, N))) + 1e-8)
+    for op in ("add", "sub", "mul", "div", "sqrt", "neg"):
+        args = (yw,) if op == "sqrt" else (xw,) if op == "neg" else (xw, yw)
+        case = f"{op} wild R={R} N={N}"
+        cases.append(("dd_arith", case, lambda ops, op=op, args=args: ops.dd_arith(op, *args)))
+        stash[("work", "dd_arith", case)] = (8 * (len(args) + 1) * R * N, F[op] * R * N)
+    base = 1.0 + 3.975e-12 * rng.uniform(0.5, 1.5, N)
+    xc = pair(base)
+    case = f"cancellation (1 + tiny) - 1 N={N}"
+    cases.append(("dd_arith", case, lambda ops: ops.dd_arith("sub", xc, dd.from_f64(1.0))))
+    stash[("work", "dd_arith", case)] = (8 * 2 * N, F["sub"] * N)
+    u0, lam_d = pair(np.float64(0.7371)), pair(np.float64(-1.0))
+    t0, t1 = pair(np.float64(0.1)), pair(np.float64(0.15))
+
+    def dahlquist(ops):
+        d = ops.dd_arith("sub", t1, t0)
+        den = ops.dd_arith("sub", dd.from_f64(1.0), ops.dd_arith("mul", d, lam_d))
+        return ops.dd_arith("div", u0, den)
+
+    cases.append(("dd_arith", "Dahlquist BE step 0-d", dahlquist))
+    stash[("work", "dd_arith", "Dahlquist BE step 0-d")] = (8 * 9, F["sub"] * 2 + F["mul"]
+                                                            + F["div"])
+
+    # K26: [dd65]'s physical step products and Diffusion2D's table product
+    n2, B = DD65["nx"] - 2, (DD65["nt"] - 1) // DD65["ms"][0]
+    S_np, _ = sine_eigenbasis(n2, (n2 + 1.0) ** 2)
+    S = pair(S_np)
+    states = pair(rng.uniform(-1, 1, (B, n2 + 2, n2 + 2)))
+    b = states[:, 1:-1, 1:-1]
+    Sb = S.expand(B, n2, n2)
+
+    def two_sided(ops):
+        return ops.dd_matmul(ops.dd_matmul(Sb, b), Sb)
+
+    case = f"Heat2D physical two-sided B={B} n={n2}"
+    cases.append(("dd_matmul", case, two_sided))
+    stash[("work", "dd_matmul", case)] = (8 * (n2 * n2 + 2 * B * n2 * n2), 4 * B * n2 ** 3)
+    S64 = S_np.copy()
+    b64 = states.hi.double()[:, 1:-1, 1:-1] + states.lo.double()[:, 1:-1, 1:-1]
+    S64t = torch.as_tensor(S64, device=dev)
+    stash[("library", "dd_matmul", case)] = lambda: torch.matmul(torch.matmul(S64t, b64), S64t)
+    stash[("bound_scale", "dd_matmul", case)] = lambda: float(
+        (torch.matmul(torch.matmul(S64t.abs(), b64.abs()), S64t.abs())).max())
+    Ne, Bd = 6 * DIFFUSION["n"] ** 2, 8
+    W = pair(rng.uniform(-1, 1, (Ne, Ne)) / math.sqrt(Ne))
+    xe = pair(rng.uniform(-1, 1, (Bd, Ne)))
+
+    def table(ops):
+        return ops.dd_matmul(xe[None], W.T[None])
+
+    case = f"Diffusion2D table B={Bd} N={Ne}"
+    cases.append(("dd_matmul", case, table))
+    stash[("work", "dd_matmul", case)] = (8 * (Ne * Ne + 2 * Bd * Ne), 2 * Bd * Ne * Ne)
+    W64 = W.hi.double() + W.lo.double()
+    x64 = xe.hi.double() + xe.lo.double()
+    stash[("library", "dd_matmul", case)] = lambda: torch.matmul(x64, W64.T)
+    stash[("bound_scale", "dd_matmul", case)] = lambda: float((x64.abs() @ W64.abs().T).max())
+    return cases
+
+
 def past_cap_cases(dtype, dev, rng, stash):
     """K5, K6, K10, K16 and K17 past the sizes at which their wrappers
     raised before: K5 and K6 at the toms257 interior 255 (K5: the
@@ -1321,8 +1546,11 @@ def headline_work(kernel, stash):
 def op_peak(kernel):
     """The FP64 peak the card could do a kernel's operations at: the tensor
     cores' (DMMA) for the dense products of PRODUCT_KERNELS, whatever units
-    the kernel uses now; the CUDA cores' for every other kernel."""
-    return PEAK_DMMA_OPS_PER_S if kernel in PRODUCT_KERNELS else PEAK_OPS_PER_S["float64"]
+    the kernel uses now; the CUDA cores' for every other kernel (their FP32
+    rate for the float32-pair kernels K23-K25)."""
+    if kernel in PRODUCT_KERNELS:
+        return PEAK_DMMA_OPS_PER_S
+    return PEAK_OPS_PER_S["float32" if kernel in DD_FP32_KERNELS else "float64"]
 
 
 def bound_ms(kernel, stash, work=None):
@@ -1347,7 +1575,9 @@ HEADLINE = {"interval_affine": "materialize", "theta_chain": "level-1 F-relax",
             "burgers2d_pointwise": "jacobian B=4", "burgers1d_newton": "deep level-0",
             "circulant_solve1d": "deep level-0", "restrict_combine": "FAS spatial65",
             "interpolate_combine": "correction spatial65", "sine_solve1d": "example step",
-            "indexed_combine": "drop-scatter", "eig_step": "128 lanes"}
+            "indexed_combine": "drop-scatter", "eig_step": "128 lanes",
+            "dd_interval_affine": "materialize", "dd_theta_chain": "level-1 F-relax BE",
+            "dd_arith": "FAS combine", "dd_matmul": "Heat2D physical"}
 
 
 def phase_kernels():
@@ -1401,6 +1631,61 @@ def phase_kernels():
                       f"{nbytes / 1e6:.3f} MB, {nops / 1e9:.4f} GFLOP)"
                       + " | library call " + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none"))
         torch.cuda.empty_cache()
+    return rows
+
+
+def phase_dd_kernels():
+    """K23-K26 against their plain versions on the card (``dd_cases``): K23,
+    K24 and K25 bit for bit in hi and lo (the same float32 operations in
+    the same order, each rounded once), K26 within DD_MATMUL_RTOL of
+    max(|A| |B|) (float64 sums in another order); times, bounds (bytes at
+    8 bytes a DD value over the HBM rate, or float32 operations over the
+    FP32 rate; K26's FP64 tensor-core operations over the DMMA rate) and
+    K26's torch.matmul.  Returns the per-kernel summary rows."""
+    import torch
+    from pymgrit_tpu_torch.ops import DISPATCH, PLAIN, dd
+    dev = torch.device(DEVICE)
+    rows, stash = {}, {}
+    rng = np.random.default_rng(SEED + 8)
+
+    def parts(o):
+        return (o.hi, o.lo) if isinstance(o, dd.DD) else (o,)
+
+    for kernel, case, run in dd_cases(dev, rng, stash):
+        out_k = parts(run(DISPATCH))
+        torch.cuda.synchronize()
+        out_p = parts(run(PLAIN))
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(x).all()) for x in out_k), f"{kernel} {case}: non-finite")
+        val_k, val_p = (sum(x.double() for x in o) for o in (out_k, out_p))
+        abs_err = float((val_k - val_p).abs().max())
+        if kernel == "dd_matmul":
+            scale = stash[("bound_scale", kernel, case)]()
+            tol = DD_MATMUL_RTOL * scale
+            ok, how = abs_err <= tol, f"tol {tol:.2e} = {DD_MATMUL_RTOL:.0e} max(|A||B|)"
+        else:
+            same = [torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+                    for a, b in zip(out_k, out_p)]
+            ok, how = all(same), "bitwise hi, lo: " + ", ".join(map(str, same))
+        del out_k, out_p, val_k, val_p
+        ms_k, ms_p = cuda_ms(lambda: run(DISPATCH)), cuda_ms(lambda: run(PLAIN))
+        work = stash[("work", kernel, case)]
+        c_ms, c_by = bound_ms(kernel, stash, work)
+        lib = stash.get(("library", kernel, case))
+        lib_ms = cuda_ms(lib) if lib is not None else None
+        peak = op_peak(kernel)
+        print(f"[dd-kernels] {kernel:<18} {case:<44} abs {abs_err:.3e} ({how}) | kernel "
+              f"{ms_k:.4f} ms plain {ms_p:.4f} ms | bound {c_ms:.4f} ms ({c_by}: "
+              f"{work[0] / 1e6:.3f} MB, {work[1] / 1e9:.4f} GFLOP at {peak / 1e12:.0f} TFLOP/s), "
+              f"kernel at {ms_k / c_ms:.1f}x | library call "
+              + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none")
+              + f" | {'ok' if ok else 'FAIL'}")
+        check(ok, f"{kernel} {case}: kernel differs from its plain version ({how}, abs {abs_err})")
+        if kernel not in rows and case.startswith(HEADLINE[kernel]):
+            rows[kernel] = dict(max_abs_err=abs_err, ms=ms_k, plain_ms=ms_p, bound_ms=c_ms,
+                                bound_by=c_by, library_ms=lib_ms)
+    del stash
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -2664,9 +2949,159 @@ def phase_diffusion(card):
     return counts_deep
 
 
+def dd_runs(P, build, max_iter, tol, warm=True):
+    """Fresh DD solves in turns plain, kernel, kernel, plain after one
+    untimed kernel solve: walls (setup excluded), the first history and
+    level-0 tube of each path, the kernel run's launch counts and peak
+    device memory (as strategy_runs)."""
+    import torch
+    from pymgrit_tpu_torch.ops import DISPATCH, PLAIN, launch_counts, reset_launch_counts
+    walls, hists, tubes, counts, peak, kept = {"plain": [], "kernel": []}, {}, {}, None, None, None
+    if warm:
+        P.Mgrit(problem=build(DISPATCH), tol=tol, max_iter=max_iter, logging_lvl=30).solve()
+        torch.cuda.empty_cache()
+    for path in ("plain", "kernel", "kernel", "plain"):
+        first = path == "kernel" and counts is None
+        torch.cuda.synchronize()
+        if first:
+            torch.cuda.reset_peak_memory_stats()
+            mem0 = torch.cuda.memory_allocated()
+            reset_launch_counts()
+        mg = P.Mgrit(problem=build(DISPATCH if path == "kernel" else PLAIN), tol=tol,
+                     max_iter=max_iter, logging_lvl=30)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mg.solve()
+        torch.cuda.synchronize()
+        walls[path].append(time.perf_counter() - t0)
+        h = mg.conv[1:mg.solve_iter + 1]
+        check(bool(np.all(np.isfinite(h))), f"dd {path}: non-finite history {h}")
+        if path not in hists:
+            hists[path], tubes[path] = h, mg.u[0]
+        if first:
+            counts, kept = launch_counts(), mg
+            peak = (torch.cuda.max_memory_allocated() - mem0) / 2 ** 30
+        del mg
+        torch.cuda.empty_cache()
+    return walls, hists, tubes, counts, peak, kept
+
+
+def check_dd_counts(label, counts, needed):
+    check(all(counts[k] > 0 for k in needed),
+          f"{label}: a DD kernel of the path never ran: {counts}")
+    check(all(counts[k] == 0 for k in DD_FORBIDDEN),
+          f"{label}: a float64 kernel ran on the DD path: {counts}")
+
+
+def phase_dd(card):
+    """precision='dd' on the card.  bench.py's dd_toms129 row (spectral,
+    condensed level 0: K23-K25 and K3) and dd65 row (physical: K25, K26
+    and K3), each kernels against plain in alternating pairs after a warm
+    solve and against the JAX package's history; then the Dahlquist README
+    golden in DD and Diffusion2D in DD against the port's float64 history.
+    Returns the launch counts of dd_toms129 and of dd65."""
+    import torch
+    import pymgrit_tpu_torch as P
+    from pymgrit_tpu_torch.ops import DISPATCH, PLAIN, launch_counts, reset_launch_counts
+    out = {}
+    for label, cfg, basis, ref, needed in (
+            ("dd_toms129", DD_TOMS, "spectral", DD_TOMS_JAX,
+             ("dd_interval_affine", "dd_theta_chain", "dd_arith", "residual_row_norms")),
+            ("dd65", DD65, "physical", DD65_JAX, ("dd_matmul", "dd_arith", "residual_row_norms"))):
+        def build(ops, cfg=cfg, basis=basis):
+            return build_problem(P, cfg["nx"], cfg["nt"], cfg["ms"], DEVICE, ops, basis=basis,
+                                 precision="dd")
+        walls, hists, tubes, counts, peak, mg = dd_runs(P, build, cfg["max_iter"], cfg["tol"])
+        hk, hp = hists["kernel"], hists["plain"]
+        nt, n = cfg["nt"], cfg["nx"] - 2 if basis == "spectral" else cfg["nx"]
+        tube = tubes["kernel"]
+        same_tube = bool(torch.equal(tube.view(torch.int32), tubes["plain"].view(torch.int32)))
+        del tubes
+        ok_p, err_p = histories_agree(hk, hp, 0.0, DD_RTOL)
+        above = hk.size if label == "dd65" else DD_TOMS_FLOOR_FROM
+        floor, floor_j = hk[above:], ref[above:]
+        ok_j, err_j = histories_agree(hk[:above], ref[:above], DD_ATOL, DD_RTOL)
+        ok_floor = hk.size == ref.size and (floor.size == 0 or bool(
+            np.all(floor >= DD_FLOOR_MIN) and np.all(floor <= DD_FLOOR_FACTOR * floor_j.max())
+            and np.all(floor >= floor_j.min() / DD_FLOOR_FACTOR)))
+        it10 = int(np.argmax(hk <= 1e-10)) + 1 if np.any(hk <= 1e-10) else None
+        it10_j = int(np.argmax(ref <= 1e-10)) + 1
+        steps = sum(count_fine_steps_per_iter(mg, it == 0) for it in range(hk.size))
+        tk, tp = float(np.median(walls["kernel"])), float(np.median(walls["plain"]))
+        shape = (nt, 2, n, n)
+        print(f"[dd] {label} {cfg['nx']}^2 nt={nt} ms={cfg['ms']} BE {basis} precision='dd'"
+              f"{' condensed' if mg._condensed0 else ''}: {hk.size} iterations, 1e-10 at "
+              f"iteration {it10} (JAX {it10_j}), history {[float(f'{h:.6e}') for h in hk]} | vs "
+              f"JAX max diff {err_j:.3e} above the floor (rtol {DD_RTOL:.0e}); floor "
+              f"{[float(f'{h:.4e}') for h in floor]} vs JAX's {[float(f'{h:.4e}') for h in floor_j]} "
+              f"(within {DD_FLOOR_FACTOR:.0f}x, above {DD_FLOOR_MIN:.0e}) | kernel vs plain (GPU) "
+              f"history max diff {err_p:.3e}, tube bit for bit: {same_tube} | launches "
+              f"{json.dumps({k: v for k, v in counts.items() if v})} | solve wall "
+              f"{fmt_walls(walls)} | {steps} fine steps: {steps / tk:.1f} steps/s kernel, "
+              f"{steps / tp:.1f} steps/s plain | peak device memory {peak:.3f} GiB | "
+              f"{'ok' if ok_p and ok_j and ok_floor else 'FAIL'} | {card}")
+        check_dd_counts(label, counts, needed)
+        check(tuple(tube.shape) == shape and tube.dtype == torch.float32
+              and bool(torch.isfinite(tube).all()), f"{label}: tube {tuple(tube.shape)} "
+              f"{tube.dtype} is not a finite float32 pair tube {shape}")
+        check(ok_j and it10 == it10_j, f"{label}: history {hk} against JAX's {ref}")
+        check(ok_floor, f"{label}: floor {floor} against JAX's {floor_j}")
+        check(ok_p, f"{label}: kernel history {hk} differs from the plain {hp}")
+        if label == "dd_toms129":
+            check(mg._condensed0, "dd_toms129: the condensed carry was declined")
+            check(same_tube, "dd_toms129: the kernel tube differs from the plain tube")
+        out[label] = counts
+        del mg, tube
+        torch.cuda.empty_cache()
+
+    # the Dahlquist README golden in DD
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    d = P.Dahlquist(t_start=0, t_stop=5, nt=101, precision="dd", device=DEVICE)
+    mg = P.Mgrit(problem=P.simple_setup_problem(problem=d, level=2, coarsening=2), tol=1e-10,
+                 logging_lvl=30)
+    t0 = time.perf_counter()
+    mg.solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    h = mg.conv[1:mg.solve_iter + 1]
+    counts = launch_counts()
+    ok = h.size == DD_DAHLQUIST_GOLDEN.size and bool(
+        np.all(np.abs(h - DD_DAHLQUIST_GOLDEN) <= 2e-3 * DD_DAHLQUIST_GOLDEN)) and h[-1] < 1e-11
+    print(f"[dd] Dahlquist nt=101 two levels precision='dd': history "
+          f"{[float(f'{x:.6e}') for x in h]} vs the README golden (rtol 2e-3, tail below 1e-11) | "
+          f"K25 launches {counts['dd_arith']} | solve wall {wall:.4f} s | "
+          f"{'ok' if ok else 'FAIL'} | {card}")
+    check_dd_counts("dd Dahlquist", counts, ("dd_arith",))
+    check(ok, f"dd Dahlquist: history {h} against the golden {DD_DAHLQUIST_GOLDEN}")
+
+    # Diffusion2D in DD (K26 + K25) against the port's float64 history
+    cfg = DD_DIFFUSION
+    hists = {}
+    for prec in (None, "dd"):
+        problem = [P.Diffusion2D(n=cfg["n"], length=10.0, kappa=0.1, t_start=0, t_stop=10,
+                                 nt=nt, precision=prec, device=DEVICE) for nt in cfg["nts"]]
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        mg = P.Mgrit(problem=problem, tol=cfg["tol"], max_iter=cfg["max_iter"], logging_lvl=30)
+        mg.solve()
+        torch.cuda.synchronize()
+        hists[prec], counts = mg.conv[1:mg.solve_iter + 1], launch_counts()
+    h, h64 = hists["dd"], hists[None]
+    ok = h.size == h64.size and bool(np.all(np.abs(h[:-1] - h64[:-1]) <= 1e-4 * h64[:-1])) \
+        and h[-1] < cfg["tol"]
+    print(f"[dd] Diffusion2D n={cfg['n']} nt {cfg['nts']} precision='dd': history "
+          f"{[float(f'{x:.6e}') for x in h]} vs float64 {[float(f'{x:.6e}') for x in h64]} (rtol "
+          f"1e-4, the last below {cfg['tol']:.0e}) | K26 {counts['dd_matmul']}, K25 "
+          f"{counts['dd_arith']} launches | {'ok' if ok else 'FAIL'} | {card}")
+    check_dd_counts("dd Diffusion2D", counts, ("dd_matmul", "dd_arith"))
+    check(ok, f"dd Diffusion2D: history {h} against float64 {h64}")
+    return out["dd_toms129"], out["dd65"]
+
+
 def profile_cells(card):
     """``--profile``: one profiled kernel-path solve of each cell of the
-    periodic models, the ragged row, the BDF example and the deep diffusion
+    periodic models, the ragged row, the BDF example, the two DD rows and the deep diffusion
     grid (after one untimed solve of the same configuration),
     torch.profiler with CPU and CUDA activities: the profiled wall, the
     card's busy time (the kernels' device time summed; one stream, so they
@@ -2710,6 +3145,14 @@ def profile_cells(card):
                                             logging_lvl=40)),
         ("bdf example", lambda: P.Mgrit(problem=bdf_problem(P, DISPATCH), tol=BDF["tol"],
                                         max_iter=BDF["max_iter"], logging_lvl=30)),
+        ("dd dd_toms129", lambda: P.Mgrit(
+            problem=build_problem(P, DD_TOMS["nx"], DD_TOMS["nt"], DD_TOMS["ms"], DEVICE, DISPATCH,
+                                  precision="dd"),
+            tol=DD_TOMS["tol"], max_iter=DD_TOMS["max_iter"], logging_lvl=30)),
+        ("dd dd65", lambda: P.Mgrit(
+            problem=build_problem(P, DD65["nx"], DD65["nt"], DD65["ms"], DEVICE, DISPATCH,
+                                  basis="physical", precision="dd"),
+            tol=DD65["tol"], max_iter=DD65["max_iter"], logging_lvl=30)),
         ("diffusion deep", lambda: P.Mgrit(
             problem=[P.Diffusion2D(n=DIFFUSION_DEEP["n"], length=10.0, kappa=0.1, t_start=0,
                                    t_stop=10, nt=nt, device=DEVICE)
@@ -2792,6 +3235,13 @@ REPLACES = {
                         "pymgrit_tpu/core/solver.py:740"),
     "eig_step": ("cuda", "pymgrit_tpu_torch/ops/csrc/eig_step.cu",
                  "pymgrit_tpu/models/diffusion_2d.py:195"),
+    "dd_interval_affine": ("cuda", "pymgrit_tpu_torch/ops/csrc/dd_interval_affine.cu",
+                           "pymgrit_tpu/models/heat_2d.py:533"),
+    "dd_theta_chain": ("cuda", "pymgrit_tpu_torch/ops/csrc/dd_theta_chain.cu",
+                       "pymgrit_tpu/models/heat_2d.py:419"),
+    "dd_arith": ("cuda", "pymgrit_tpu_torch/ops/csrc/dd_arith.cu", "pymgrit_tpu/ops/dd.py:270"),
+    "dd_matmul": ("cuda", "pymgrit_tpu_torch/ops/csrc/dd_matmul.cu",
+                  "pymgrit_tpu/ops/ozaki.py:129"),
 }
 
 
@@ -2808,6 +3258,7 @@ def main():
                                                       "count": torch.cuda.device_count()}}))
         return
     rows = phase_kernels()
+    rows.update(phase_dd_kernels())
     phase_small()
     counts, h_spec, tube_spec = phase_main(card)
     counts_phys = phase_physical(card, h_spec, tube_spec)
@@ -2827,6 +3278,7 @@ def main():
     counts_ragged = phase_ragged(card)
     phase_bdf(card)
     counts_diffusion = phase_diffusion(card)
+    counts_dd_toms, counts_dd65 = phase_dd(card)
     # launches: each kernel's count on the main path it belongs to (K3, K4
     # run on both bases; the spectral run's count is reported; K8 and K9
     # from the TOMS-width prefix and AT runs; K10 from the Allen-Cahn bench
@@ -2835,7 +3287,7 @@ def main():
     # Burgers2D run, K16 from the deep Burgers1D run, K17 from the deep
     # advection run, K18 and K19 from the spatial65 run, K20 from the 1D
     # example's run, K21 from the ragged row, K22 from the deep diffusion
-    # grid)
+    # grid, K23-K25 from dd_toms129, K26 from dd65)
     launches = {**counts_phys, **{k: counts[k] for k in SPECTRAL_KERNELS},
                 "affine_prefix": prefix_counts["affine_prefix"],
                 "affine_windows": at_counts["affine_windows"],
@@ -2850,7 +3302,10 @@ def main():
                 **{k: counts_spatial[k] for k in TRANSFER_KERNELS},
                 "sine_solve1d": counts_1d["sine_solve1d"],
                 "indexed_combine": counts_ragged["indexed_combine"],
-                "eig_step": counts_diffusion["eig_step"]}
+                "eig_step": counts_diffusion["eig_step"],
+                **{k: counts_dd_toms[k] for k in ("dd_interval_affine", "dd_theta_chain",
+                                                  "dd_arith")},
+                "dd_matmul": counts_dd65["dd_matmul"]}
     kernels = [dict(name=name, route=route, source=source, replaces=replaces,
                     launches=launches[name], **rows[name])
                for name, (route, source, replaces) in REPLACES.items()]

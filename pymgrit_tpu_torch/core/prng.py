@@ -135,3 +135,20 @@ def random_tube(seed: int, nt: int, shape, device=None) -> torch.Tensor:
         # the top 52 of the 64 bits b1:b2, as m * 2^-52 = (1 + m 2^-52) - 1
         tube[r0:r0 + chunk] = ((b1 << 20) | (b2 >> 12)).to(torch.float64) * 2.0 ** -52
     return tube.view((nt,) + tuple(shape))
+
+
+def random_dd_tube(seed: int, nt: int, shape, device=None) -> torch.Tensor:
+    """The JAX package's ``random_init_guess`` level-0 tube of a DD state:
+    each row's hi drawn as ``jax.random.uniform(k, shape, float32)`` with
+    the row key of ``random_tube``, lo = 0; the packed (nt, 2, *shape)
+    float32 tube the solver stores (drawn on the host)."""
+    _, sub = split(key(seed), 2)
+    rows = split(split(sub, nt), 1)[:, 0]
+    tube = torch.zeros((nt, 2) + tuple(shape), dtype=torch.float32, device=device)
+    for r0 in range(0, nt, _CHUNK_ROWS):
+        hi = np.stack([uniform(k, shape, np.float32) for k in rows[r0:r0 + _CHUNK_ROWS]])
+        tube[r0:r0 + hi.shape[0], 0] = torch.as_tensor(hi, device=device)
+    return tube
+
+
+_CHUNK_ROWS = 256

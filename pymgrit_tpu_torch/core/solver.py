@@ -32,8 +32,21 @@ package's; the execution differs:
   sum at the C-rows goes through kernel K21 ``indexed_combine`` with index
   tensors cached on the device at setup (``_RaggedLevel``).
 
-States are single tensors (no tuple states) in this port.  The device
-mesh and the lazy level-0 F-relaxation are not ported and raise
+* ``precision='dd'`` (the application's template is a ``DD`` pair of
+  float32 tensors, ``ops/dd.py``): every tube is one packed float32 tensor
+  (nt, 2, ...), hi then lo on axis 1, so row views, gathers and copies
+  work unchanged; every time value a stepper sees is split exactly from
+  float64 (the models split their own step times), and every combine, the
+  weighted C-update, the FAS right-hand side, the correction and the
+  residual difference go through kernel K25 ``dd_arith`` (the residual as
+  the float32 value of the DD difference, reduced by K3), never K4.  The
+  models' ``step_chain`` and ``relax_interval`` take packed views; their
+  ``step`` / ``step_batched`` take and return ``DD`` pairs; transfers get
+  ``DD`` pairs (a per-state transfer through ``torch.vmap``, on CPU
+  tensors) and the fused transfer hooks are not used.
+
+States are single tensors or DD pairs (no tuple states) in this port.  The
+device mesh and the lazy level-0 F-relaxation are not ported and raise
 NotImplementedError.
 """
 
@@ -55,6 +68,7 @@ from pymgrit_tpu_torch.core.application import Application
 from pymgrit_tpu_torch.core.grid_transfer import GridTransfer, GridTransferCopy
 from pymgrit_tpu_torch.core.levels import LevelInfo, build_level_infos, validate_hierarchy
 from pymgrit_tpu_torch.ops import DISPATCH
+from pymgrit_tpu_torch.ops import dd as _dd
 
 
 def hook_accepts_kwarg(hook, name: str) -> bool:
@@ -211,6 +225,8 @@ class Mgrit:
         self.runtime_solve = 0.0
         self.runtime_setup = 0.0
         self.ops = getattr(problem[0], "ops", DISPATCH)
+        # precision='dd': float32-pair states, packed tubes (see above)
+        self._dd = vector.contains_dd(problem[0].vector_template)
 
         # ---- static level structure ----
         runtime_setup_start = time.time()
@@ -240,14 +256,17 @@ class Mgrit:
                          "(associative-scan) forward solve")
         # per-state transfers run over a tube's rows through torch.vmap (the
         # JAX solver's jax.vmap); a batched transfer is called as it is
-        self.restrict_fns: List[Callable] = [_over_rows(tr, tr.restriction, self.ops)
+        self.restrict_fns: List[Callable] = [self._transfer_fn(tr, tr.restriction)
                                              for tr in transfer]
-        self.interp_fns: List[Callable] = [_over_rows(tr, tr.interpolation, self.ops)
+        self.interp_fns: List[Callable] = [self._transfer_fn(tr, tr.interpolation)
                                            for tr in transfer]
         # fused transfer hooks (core/grid_transfer.py), None where absent
-        self._restrict_hooks = [_fused_hook(tr, "restrict_combine", "restriction")
+        # (and for DD states, which the float64 hooks do not take)
+        self._restrict_hooks = [None if self._dd else
+                                _fused_hook(tr, "restrict_combine", "restriction")
                                 for tr in transfer]
-        self._interp_hooks = [_fused_hook(tr, "interpolate_combine", "interpolation")
+        self._interp_hooks = [None if self._dd else
+                              _fused_hook(tr, "interpolate_combine", "interpolation")
                               for tr in transfer]
         self._block_cache = {}
 
@@ -287,19 +306,22 @@ class Mgrit:
                     + " (full-tube executor used; see docs/performance.md)")
         self._nc_store0 = self.levels[0].cpts.size if self._condensed0 else 0
 
-        # ---- allocate tubes (float64, on the device of the templates) ----
+        # ---- allocate tubes (float64, or packed float32 pairs for DD, on
+        # the device of the templates) ----
         self.u: List = []
         self.v: List = []
         self.g: List = []
         for lvl in range(self.lvl_max):
             nt = self._nc_store0 if (lvl == 0 and self._condensed0) else self.levels[lvl].nt
-            template = vector.as_f64(problem[lvl].vector_template)
+            template = self._state(problem[lvl].vector_template)
             if lvl == 0 and random_init_guess:
                 # the JAX package's draw (threefry2x32 keys split per row)
-                tube = prng.random_tube(rng_seed, nt, tuple(template.shape), template.device)
+                tube = prng.random_tube(rng_seed, nt, tuple(template.shape), template.device) \
+                    if not self._dd else prng.random_dd_tube(rng_seed, nt, tuple(template.shape[1:]),
+                                                             template.device)
             else:
                 tube = vector.tube_of(template, nt)
-            tube[0] = vector.as_f64(problem[lvl].vector_t_start)
+            tube[0] = self._state(problem[lvl].vector_t_start)
             self.u.append(tube)
             self.v.append(None if lvl == 0 else torch.zeros_like(tube))
             self.g.append(None if lvl == 0 else torch.zeros_like(tube))
@@ -330,6 +352,29 @@ class Mgrit:
 
     def log_info(self, message: str) -> None:
         logging.info(message)
+
+    # ------------------------------------------------------------------
+    # states: float64 tensors, or packed DD pairs
+    # ------------------------------------------------------------------
+
+    def _state(self, x) -> torch.Tensor:
+        """An application's state as a tube row: float64, or a DD pair
+        packed (2, ...) float32."""
+        if self._dd:
+            return torch.stack([x.hi, x.lo])
+        return vector.as_f64(x)
+
+    def _pair(self, t: torch.Tensor, axis: int = 1):
+        """The DD view of packed tube rows (the solver's kernel set)."""
+        return _dd.pair(t, self.ops, axis)
+
+    def _transfer_fn(self, transfer: GridTransfer, fn: Callable) -> Callable:
+        """A transfer method on tube rows; in DD the rows are handed over as
+        a DD pair and the result packed again."""
+        rows_fn = _over_rows(transfer, fn, self.ops)
+        if not self._dd:
+            return rows_fn
+        return lambda rows: _dd.packed(rows_fn(self._pair(rows)))
 
     # ------------------------------------------------------------------
     # level-0 condensed structure
@@ -369,7 +414,7 @@ class Mgrit:
             return False
         tp = t[0:m][:, None]
         tc = t[1:m + 1][:, None]
-        seed = vector.tube_of(vector.as_f64(self.problem[0].vector_template), 1)
+        seed = vector.tube_of(self._state(self.problem[0].vector_template), 1)
         hook = self.problem[0].relax_interval
         if not hook_accepts_kwarg(hook, "only_last"):
             self._cnd_decline_reason = (
@@ -446,12 +491,24 @@ class Mgrit:
         vstep = self._vstep(lvl)
         x = seed
         for k in range(tp.shape[0]):
+            if self._dd:
+                y = vstep(self._pair(x), self._t(tp[k]), self._t(tc[k]))
+                if g is not None:
+                    y = _dd.add(self._pair(g[:, k]), y)
+                out[:, k, 0].copy_(y.hi)
+                out[:, k, 1].copy_(y.lo)
+                x = out[:, k]
+                continue
             x = vstep(x, self._t(tp[k]), self._t(tc[k]))
             if g is not None:
                 x = g[:, k] + x
             out[:, k] = x
 
-    def _t(self, a) -> torch.Tensor:
+    def _t(self, a):
+        """Step times on the device: float64, or split exactly into DD
+        pairs (the JAX package's ``_as_t``)."""
+        if self._dd:
+            return _dd.from_f64(np.asarray(a, dtype=np.float64), self.device, self.ops)
         return torch.as_tensor(np.asarray(a, dtype=np.float64), device=self.device)
 
     def _step_rows(self, lvl, prev, t_prev, t_curr):
@@ -489,8 +546,39 @@ class Mgrit:
         return tube[0:info.nt:info.m].clone()
 
     def _combine(self, out, terms, coeffs):
-        """out = sum_k coeffs[k] * terms[k] over row views (kernel K4)."""
+        """out = sum_k coeffs[k] * terms[k] over row views (kernel K4; in DD
+        the left-to-right DD sum, kernel K25)."""
+        if self._dd:
+            self.ops.dd_arith("combine", *[self._pair(t) for t in terms], coeffs=coeffs,
+                              out=self._pair(out))
+            return
         self.ops.cpoint_combine(_rows(out), [_rows(t) for t in terms], coeffs)
+
+    def _icombine(self, out, terms, coeffs, io=None, idx=()):
+        """out[io] = sum_k coeffs[k] * terms[k][idx[k]] over tube rows (K21;
+        in DD the rows are gathered, combined by K25 and scattered)."""
+        if not self._dd:
+            self.ops.indexed_combine(_rows(out), [_rows(t) for t in terms], coeffs, io=io, idx=idx)
+            return
+        idx = list(idx) + [None] * (len(terms) - len(idx))
+        rows = [t if i is None else self._gather(t, i) for t, i in zip(terms, idx)]
+        if io is None:
+            self._combine(out, rows, coeffs)
+            return
+        res = torch.empty(rows[0].shape, dtype=out.dtype, device=out.device)
+        self._combine(res, rows, coeffs)
+        self._scatter(out, io, res)
+
+    def _row_norms(self, a, b):
+        """Per-row 2-norm of a - b over two tube views (K3; in DD of the
+        float32 value of the DD difference, which K25 writes)."""
+        if not self._dd:
+            return self.ops.residual_row_norms(_rows(a), _rows(b))
+        diff = torch.empty((a.shape[0],) + tuple(a.shape[2:]), dtype=a.dtype, device=a.device)
+        self.ops.dd_arith("resid", self._pair(a), self._pair(b), out=diff)
+        d = _rows(diff)
+        zero = torch.zeros(d.shape[1], dtype=d.dtype, device=d.device).expand(d.shape)
+        return self.ops.residual_row_norms(d, zero)
 
     def _weighted_into(self, dst, stepped):
         """dst <- w*stepped + (1-w)*dst (weighted-Jacobi C update)."""
@@ -583,8 +671,7 @@ class Mgrit:
             if w == 1.0:
                 self._scatter(u, rg.ci, stepped)
             else:
-                self.ops.indexed_combine(_rows(u), [_rows(stepped), _rows(u)], [w, 1.0 - w],
-                                         io=rg.ci, idx=[None, rg.ci])
+                self._icombine(u, [stepped, u], [w, 1.0 - w], io=rg.ci, idx=[None, rg.ci])
             return u
         K, R = cc.c_idx.shape
         shape = tuple(u.shape[1:])
@@ -673,8 +760,7 @@ class Mgrit:
             self._combine(stepped_f, [stepped_f, u_ci], [1.0, -1.0])
         elif rg is not None:
             # inner = (g_f[ci] - u_f[ci]) + Phi(u_f[ci-1]), g read at its C-rows
-            self.ops.indexed_combine(_rows(stepped_f), [_rows(g_f), _rows(u_ci), _rows(stepped_f)],
-                                     [1.0, -1.0, 1.0], idx=[rg.ci])
+            self._icombine(stepped_f, [g_f, u_ci, stepped_f], [1.0, -1.0, 1.0], idx=[rg.ci])
         else:
             self._combine(stepped_f, [self._c_rows(lvl, g_f), u_ci, stepped_f], [1.0, -1.0, 1.0])
         r = restrict(stepped_f).contiguous()      # K4 takes rows with a contiguous last axis
@@ -697,9 +783,9 @@ class Mgrit:
         self._combine(diff, [u_c[1:nc], v_c[1:nc]], [1.0, -1.0])
         if rg is not None:
             # u_f[ci] = u_f[ci] + P(diff), an indexed add (K21)
-            u_f = _rows(self.u[lvl])
-            self.ops.indexed_combine(u_f, [u_f, _rows(self.interp_fns[lvl](diff).contiguous())],
-                                     [1.0, 1.0], io=rg.ci, idx=[rg.ci])
+            u_f = self.u[lvl]
+            self._icombine(u_f, [u_f, self.interp_fns[lvl](diff).contiguous()], [1.0, 1.0],
+                           io=rg.ci, idx=[rg.ci])
             return
         dst = self._c_rows(lvl, self.u[lvl])
         self._combine(dst, [dst, self.interp_fns[lvl](diff).contiguous()], [1.0, 1.0])
@@ -759,12 +845,12 @@ class Mgrit:
             stepped = self._cnd_c_step(u0)
         elif rg is not None:
             stepped = self._step_rows(0, self._gather(u0, rg.ci_prev), rg.t_ci_prev, rg.t_ci)
-            return self.ops.residual_row_norms(_rows(stepped), _rows(self._gather(u0, rg.ci)))
+            return self._row_norms(stepped, self._gather(u0, rg.ci))
         else:
             info = self.levels[0]
             nt, m, t = info.nt, info.m, info.t
             stepped = self._step_rows(0, u0[m - 1:nt - 1:m], t[m - 1:nt - 1:m], t[m:nt:m])
-        return self.ops.residual_row_norms(_rows(stepped), _rows(self._c_rows(0, u0)))
+        return self._row_norms(stepped, self._c_rows(0, u0))
 
     def _reduce(self, norms):
         conv = torch.linalg.vector_norm(norms, ord=self.t_norm_ord)
@@ -775,7 +861,7 @@ class Mgrit:
 
     def _jump_conv_fn(self, u_save):
         u_c = self._c_points(self.u[0])
-        norms = self.ops.residual_row_norms(_rows(u_c[1:]), _rows(u_save[1:]))
+        norms = self._row_norms(u_c[1:], u_save[1:])
         conv, all_below = self._reduce(norms)
         return conv, all_below, u_c
 
@@ -885,8 +971,10 @@ class Mgrit:
     # ------------------------------------------------------------------
 
     def save_checkpoint(self, path: str) -> None:
-        """Save all level tubes + convergence history to an .npz file."""
-        leaves = self.u + self.v[1:] + self.g[1:]
+        """Save all level tubes + convergence history to an .npz file (a DD
+        tube as two leaves, hi then lo, as the JAX package flattens it)."""
+        leaves = [x for t in self.u + self.v[1:] + self.g[1:]
+                  for x in ((t[:, 0], t[:, 1]) if self._dd else (t,))]
         arrays = {f"leaf_{i}": x.detach().cpu().numpy() for i, x in enumerate(leaves)}
         arrays["conv"] = self.conv
         arrays["solve_iter"] = np.asarray(self.solve_iter)

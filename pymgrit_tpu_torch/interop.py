@@ -6,7 +6,10 @@ its leaves ``u[0..L-1]``, then ``v[1..L-1]``, then ``g[1..L-1]``.  Its
 ``save_checkpoint`` writes them as ``leaf_<i>`` into an ``.npz`` file.  A
 tube of pair states (``Heat1DBDF1`` / ``Heat1DBDF2``) is the dict
 {'first', 'second'} there, so it gives two leaves in that (key) order; the
-port's pair tube is one (nt, 2, n) tensor, so the two are stacked.
+port's pair tube is one (nt, 2, n) tensor, so the two are stacked.  A
+double-double tube (``precision='dd'``) is a ``DD`` pytree there, whose two
+leaves are hi then lo; the port stores it as one packed (nt, 2, ...)
+float32 tensor, so it is stacked the same way (in the tube's dtype).
 """
 
 from __future__ import annotations
@@ -20,9 +23,10 @@ import torch
 def state_from_numpy(mgrit, leaves: Sequence[np.ndarray]) -> None:
     """Replace the port solver's ``(u, v, g)`` with numpy arrays given in
     the JAX package's leaf order (copied to the solver's device as
-    float64).  Level 0 may hold the full tube or the condensed C-rows; the
-    next solve re-condenses it.  With two leaves a tube (pair states, first
-    then second), each pair is stacked into one (nt, 2, n) tube."""
+    float64, or float32 for a DD solver).  Level 0 may hold the full tube or
+    the condensed C-rows; the next solve re-condenses it.  With two leaves a
+    tube (pair states, first then second; DD pairs, hi then lo), each pair
+    is stacked into one (nt, 2, ...) tube."""
     L = mgrit.lvl_max
     if len(leaves) == 2 * (3 * L - 2):
         leaves = [np.stack([np.asarray(a), np.asarray(b)], axis=1)
@@ -32,7 +36,8 @@ def state_from_numpy(mgrit, leaves: Sequence[np.ndarray]) -> None:
                          f"got {len(leaves)}")
 
     def tensor(a, like):
-        t = torch.tensor(np.asarray(a), dtype=torch.float64, device=mgrit.device)
+        t = torch.tensor(np.asarray(a), dtype=like.dtype if like is not None else torch.float64,
+                         device=mgrit.device)
         if like is not None and t.shape[1:] != like.shape[1:]:
             raise ValueError(f"state shape {tuple(t.shape)} does not match {tuple(like.shape)}")
         return t

@@ -6,6 +6,11 @@ closed-form scalar update, so the solver's batched sweeps are elementwise
 tensor ops.  It proves the solver skeleton against the README golden
 history.  Every integrator is linear in the state, so ``affine_coeffs``
 hands the step to the coarsest-level strategies (kernels K8, K9).
+
+``precision='dd'``: the state is a 0-d double-double pair (``ops/dd.py``)
+and the same step body runs through the DD operators (each one K25
+launch on the card); the step is elementwise, so it is also the batched
+step.  DD states define no ``affine_coeffs``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import torch
 
 from pymgrit_tpu_torch.core.application import Application, model_device
 from pymgrit_tpu_torch.ops import DISPATCH, Ops
+from pymgrit_tpu_torch.ops import dd
 
 
 class Dahlquist(Application):
@@ -35,11 +41,14 @@ class Dahlquist(Application):
             raise Exception(
                 'Unknown method. Choose BE (Backward Euler), FE (Forward Euler), TR (Trapezoidal rule) ' +
                 'or MR (implicit mid-point rule)')
-        if precision == 'dd':
-            raise NotImplementedError(
-                "precision='dd' is not ported yet (ROADMAP A3)")
         self.device = model_device(device)
         self.ops = ops
+        if precision == 'dd':
+            self.vector_template = dd.from_f64(np.zeros(()), self.device, ops)
+            self.vector_t_start = dd.from_f64(np.ones(()), self.device, ops)
+            # the step is elementwise: it steps a batch of DD states as it is
+            self.step_batched = self.step
+            return
         self.vector_template = torch.zeros((), dtype=torch.float64, device=self.device)
         self.vector_t_start = torch.ones((), dtype=torch.float64, device=self.device)
         self.affine_coeffs = self._affine_coeffs

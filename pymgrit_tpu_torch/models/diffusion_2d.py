@@ -26,6 +26,7 @@ import torch
 from pymgrit_tpu_torch.core.application import Application, model_device
 from pymgrit_tpu_torch.models.step_times import ChainSteps, StepTimes
 from pymgrit_tpu_torch.ops import DISPATCH, Ops
+from pymgrit_tpu_torch.ops import dd
 
 
 def _assemble_p1dg_sipg(n: int, length: float, kappa, mu: float):
@@ -159,8 +160,7 @@ class Diffusion2D(ChainSteps, Application):
                  init_cond: Callable = None, precision: str = None,
                  *args, device=None, ops: Ops = DISPATCH, **kwargs):
         super().__init__(*args, **kwargs)
-        if precision == 'dd':
-            raise NotImplementedError("precision='dd' is not ported yet (ROADMAP A3)")
+        self._dd = precision == 'dd'
         self.n = n
         self.length = length
         self.kappa = kappa
@@ -183,21 +183,61 @@ class Diffusion2D(ChainSteps, Application):
             init_cond = lambda x, y: np.exp(-((x - c) ** 2 + (y - c) ** 2))
         u0 = np.asarray(init_cond(xy[:, 0], xy[:, 1]), dtype=np.float64)
 
-        self._V_t, self._W_t, self._lam_t = (self._tensor(a) for a in (V, W, lam))
         self._mass_ones = self._tensor(M @ np.ones(M.shape[0]))
         self._times = StepTimes(self.device)
+        if self._dd:
+            # V, W and lam split exactly into float32 pairs (the JAX package's DD
+            # tables); the step's products run on K26, its scale on K25
+            self._V_dd, self._W_dd, self._lam_dd = (
+                dd.from_f64(np.ascontiguousarray(a), self.device, ops) for a in (V, W, lam))
+            self.vector_template = dd.from_f64(np.zeros(3 * 2 * n * n), self.device, ops)
+            self.vector_t_start = dd.from_f64(u0, self.device, ops)
+            return
+        self._V_t, self._W_t, self._lam_t = (self._tensor(a) for a in (V, W, lam))
         self.vector_template = torch.zeros(3 * 2 * n * n, dtype=torch.float64, device=self.device)
         self.vector_t_start = self._tensor(u0)
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64, device=self.device)
 
+    def _chain_tables(self, tp, tc, dtype):
+        """The step sizes tc - tp on the device (a DD subtraction of the
+        split times in DD)."""
+        if self._dd:
+            return self._times.dd_steps(tp, tc, self.ops)
+        return super()._chain_tables(tp, tc, dtype)
+
     def _lane_step(self, x, k, dts, out, g):
         """Step k of ``ChainSteps.step_chain`` for the (J, N) states x: one
-        K22 launch pair with the chain's step sizes dts[k], then [+ g]."""
+        K22 launch pair with the chain's step sizes dts[k], then [+ g].  In
+        DD (packed (J, 2, N) views): the JAX package's V ((W u) / (1 + dt
+        lam)), the products on K26 and the rest on K25."""
+        if self._dd:
+            ops = self.ops
+            u, y = dd.pair(x, ops), dd.pair(out, ops)
+            uh = ops.dd_matmul(u[None], self._W_dd.T[None])[0]
+            v = uh / (dts[k][:, None] * self._lam_dd + 1.0)
+            ops.dd_matmul(v[None], self._V_dd.T[None], out=y[None])
+            if g is not None:
+                ops.dd_arith("add", dd.pair(g, ops), y, out=y)
+            return
         self.ops.eig_step(x, out, self._W_t, self._V_t, self._lam_t, dts[k])
         if g is not None:
             out.add_(g)
+
+    def step(self, u_start, t_start, t_stop):
+        if self._dd:
+            return self.step_batched(u_start[None], t_start.reshape(1), t_stop.reshape(1))[0]
+        return super().step(u_start, t_start, t_stop)
+
+    def step_batched(self, u_tube, t_starts, t_stops):
+        """One step of each of B states (DD states and DD times in DD)."""
+        if not self._dd:
+            return super().step_batched(u_tube, t_starts, t_stops)
+        out = torch.empty((u_tube.shape[0], 2) + tuple(u_tube.shape[1:]), dtype=torch.float32,
+                          device=self.device)
+        self._lane_step(dd.packed(u_tube), 0, dd.sub(t_stops, t_starts).reshape(1, -1), out, None)
+        return dd.pair(out, self.ops)
 
     def total_mass(self, u):
         """int u dx (conserved by periodic diffusion): a diagnostic."""

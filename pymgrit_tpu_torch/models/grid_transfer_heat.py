@@ -17,6 +17,14 @@ states; both classes declare ``batched = True`` and the solver hands them
 whole tube views.  Both methods and the fused hooks ``restrict_combine`` /
 ``interpolate_combine`` (``core/grid_transfer.py``) run kernels K18 / K19
 (``ops/transfer.py``) through the solver's kernel set.
+
+A double-double state (``precision='dd'``, a ``DD`` pair) takes the DD
+route, the JAX package's DD expressions through K25 ``dd_arith`` (the
+kernel set of the state): restriction u[:-2:2]/4 + u[1:-1:2]/2 + u[2::2]/4
+as one DD combine; interpolation's scatter-adds (ret[2i] += u[i]/2,
+ret[2i+2] += u[i]/2) as DD sums of u[i]/2 and u[i-1]/2.  K18 and K19
+take no DD state, and ``GridTransferHeat2D`` none at all, as the JAX
+package's takes none.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import torch
 
 from pymgrit_tpu_torch.core.grid_transfer import GridTransfer
 from pymgrit_tpu_torch.ops import DISPATCH, Ops
+from pymgrit_tpu_torch.ops import dd as _dd
 from pymgrit_tpu_torch.ops import transfer as _transfer
 
 
@@ -43,14 +52,23 @@ class _HeatTransfer(GridTransfer):
         return out[0] if one else out
 
     def restriction(self, u, ops: Ops = DISPATCH):
-        """R(u) of one state or a (rows, ...) batch (K18)."""
+        """R(u) of one state or a (rows, ...) batch (K18; a DD state: K25)."""
+        if isinstance(u, _dd.DD):
+            return self._dd_restriction(u)
         return self._apply(u, _transfer.coarse_shape,
                            lambda out, x: ops.restrict_combine(out, [x], [1.0], dim=self._dim))
 
     def interpolation(self, u, ops: Ops = DISPATCH):
-        """P(u) of one state or a (rows, ...) batch (K19)."""
+        """P(u) of one state or a (rows, ...) batch (K19; a DD state: K25)."""
+        if isinstance(u, _dd.DD):
+            return self._dd_interpolation(u)
         return self._apply(u, _transfer.fine_shape,
                            lambda out, x: ops.interpolate_combine(out, x, None, self._dim))
+
+    def _dd_restriction(self, u):
+        raise TypeError(f"{type(self).__name__} takes no double-double state")
+
+    _dd_interpolation = _dd_restriction
 
     def restrict_combine(self, out, terms, coeffs, adds=(), add_coeffs=(), ops: Ops = DISPATCH):
         """out = R(sum_k coeffs[k] terms[k]) + sum_j add_coeffs[j] adds[j] (K18)."""
@@ -67,6 +85,25 @@ class GridTransferHeat(_HeatTransfer):
     scatter-adds ret[2i] += u[i]/2, ret[2i+1] = u[i], ret[2i+2] += u[i]/2."""
 
     _dim = 1
+
+    @staticmethod
+    def _dd_restriction(u):
+        return u.ops.dd_arith("combine", u[..., :-2:2], u[..., 1:-1:2], u[..., 2::2],
+                              coeffs=[0.25, 0.5, 0.25])
+
+    @staticmethod
+    def _dd_interpolation(u):
+        n = u.shape[-1]
+        lead = tuple(u.shape[:-1])
+        out = _dd._raw(torch.empty(lead + (2 * n + 1,), dtype=u.dtype, device=u.device),
+                       torch.empty(lead + (2 * n + 1,), dtype=u.dtype, device=u.device), u.ops)
+        out.hi[..., 1::2] = u.hi
+        out.lo[..., 1::2] = u.lo
+        comb = u.ops.dd_arith
+        comb("combine", u[..., :1], coeffs=[0.5], out=out[..., :1])
+        comb("combine", u[..., 1:], u[..., :-1], coeffs=[0.5, 0.5], out=out[..., 2:-1:2])
+        comb("combine", u[..., -1:], coeffs=[0.5], out=out[..., -1:])
+        return out
 
 
 class GridTransferHeat2D(_HeatTransfer):

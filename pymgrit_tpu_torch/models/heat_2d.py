@@ -24,6 +24,17 @@ the physical basis, FE).
 Both bases share the closed-form tables (the physical BE/CN step is the
 spectral affine map conjugated by the orthogonal sine basis).  All tables
 are built in float64 on the host once and copied to the device.
+
+``precision='dd'`` (the JAX package's double-double mode, ``ops/dd.py``):
+the state and the tables are float32 pairs split exactly from float64, the
+rhs table is float32 (looked up at each time's float32 value), and every
+operation is the JAX package's DD operation in its order.  Spectral:
+``step_chain`` runs K24 ``dd_theta_chain`` and ``relax_interval`` K23
+``dd_interval_affine``, so the condensed level-0 carry works in DD.
+Physical: every step is K25 ``dd_arith`` (stencil, right-hand side,
+boundary lift, diagonal solve) around four K26 ``dd_matmul`` sine products
+on all lanes at once; its ``relax_interval`` declines, as the JAX
+package's does.  DD models define no ``affine_coeffs``.
 """
 
 from __future__ import annotations
@@ -34,8 +45,10 @@ import numpy as np
 import torch
 
 from pymgrit_tpu_torch.core.application import Application, model_device
-from pymgrit_tpu_torch.models.rhs_table import table_rows
+from pymgrit_tpu_torch.models.rhs_table import dd_time_keys, table_rows
+from pymgrit_tpu_torch.models.step_times import StepTimes
 from pymgrit_tpu_torch.ops import DISPATCH, Ops
+from pymgrit_tpu_torch.ops import dd
 from pymgrit_tpu_torch.ops.dirichlet_spectral import sine_eigenbasis
 
 _RHS_CHUNK = 1024      # time samples per batched rhs evaluation on the host
@@ -69,8 +82,7 @@ class Heat2D(Application):
             # the FE quirk accumulates bc data onto the carried boundary
             # ring, which coefficient space does not have
             raise Exception("basis='spectral' supports BE/CN (theta > 0) only")
-        if precision == 'dd':
-            raise NotImplementedError("precision='dd' is not ported yet (ROADMAP A3)")
+        self._dd = precision == 'dd'
         if method == 'BE':
             self.theta = 1.0
         elif method == 'FE':
@@ -142,26 +154,46 @@ class Heat2D(Application):
         self._Sx = self._tensor(self._Sx_np)
         self._Sy = self._tensor(self._Sy_np)
         self._itbl_cache = {}       # (dt, m1) -> (A_k, G_k) numpy float64
-        self._itbl_dev = {}         # (dt, m1) -> (A_k, G_k) (m1, N) device tensors
+        self._itbl_dev = {}         # (dt, m1) -> (A_k, G_k) (m1, N) device tensors (DD: pairs)
         self._dt_dev = {}           # step-size row -> (dt, theta*dt) device tensors
         self._dscale_dev = {}       # dt -> CN ring-correction scale (N,) on the device
         self._affine_dev = {}       # dt -> affine step (A, c) rows (N,) on the device
 
-        if self._spectral:
-            self._shape = self._int_shape
-            self.vector_t_start = self._tensor(self._Sx_np @ init[1:-1, 1:-1] @ self._Sy_np)
+        self._shape = self._int_shape if self._spectral else (nx, ny)
+        start = self._Sx_np @ init[1:-1, 1:-1] @ self._Sy_np if self._spectral else init
+        if self._dd:
+            self._init_dd(lamx, lamy, ring, start)
         else:
-            self._shape = (nx, ny)
-            self.vector_t_start = self._tensor(init)
-        self.vector_template = torch.zeros(self._shape, dtype=torch.float64, device=self.device)
+            self.vector_t_start = self._tensor(start)
+            self.vector_template = torch.zeros(self._shape, dtype=torch.float64, device=self.device)
         self._build_rhs_table()
-        if self._spectral:
+        if self._spectral and not self._dd:
             # the spectral theta-step is the elementwise affine map
             # u -> A*u + c, so the coarsest-level strategies apply exactly
             self.affine_coeffs = self._affine_coeffs_spectral
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64, device=self.device)
+
+    def _split(self, a) -> dd.DD:
+        """float64 values split exactly into a DD pair on the device."""
+        return dd.from_f64(np.ascontiguousarray(a), self.device, self.ops)
+
+    def _init_dd(self, lamx, lamy, ring, start):
+        """DD state and tables (the JAX package splits the same arrays)."""
+        self.vector_template = self._split(np.zeros(self._shape))
+        self.vector_t_start = self._split(start)
+        self._times = StepTimes(self.device)
+        if self._spectral:
+            self._lift_hat_dd = self._split(self._lift_hat_np.reshape(-1))
+            self._Lam_dd = self._split(self._Lam_np.reshape(-1))
+            return
+        self._Sx_dd, self._Sy_dd = self._split(self._Sx_np), self._split(self._Sy_np)
+        # lamx[:, None] + lamy[None, :], the DD add of every step's denominator
+        self._lam2_dd = dd.add(self._split(lamx)[:, None], self._split(lamy)[None, :])
+        self._ring_dd = self._split(ring)
+        self._edges_dd = [self._split(a) for a in (self.bc_left_arr[1:-1], self.bc_right_arr[1:-1],
+                                                    self.bc_top_arr[1:-1], self.bc_bottom_arr[1:-1])]
 
     # ------------------------------------------------------------------
     # tables
@@ -172,8 +204,8 @@ class Heat2D(Application):
         for the F-sweep, m rows for the condensed C-step) on the device."""
         if getattr(level_info, "lvl", 0) != 0:
             return
-        if self.theta == 0.0:
-            return                      # FE: the hook declines
+        if self.theta == 0.0 or (self._dd and not self._spectral):
+            return                      # FE and DD-physical: the hook declines
         if not getattr(level_info, "uniform", False) or level_info.m <= 1:
             return
         t = np.asarray(level_info.t, dtype=np.float64)
@@ -194,8 +226,11 @@ class Heat2D(Application):
         context: raw interior samples in the physical basis, transformed
         ones (rhs^ = Sx rhs Sy) in the spectral basis.  A time-independent
         rhs keeps one row (the raw samples are compared, so only one is
-        transformed)."""
+        transformed).  In DD the rhs is evaluated at the float32 times and
+        the table holds float32 samples (the JAX package's DD table)."""
         ts = np.asarray(self.t, dtype=np.float64)
+        if self._dd:
+            ts = ts.astype(np.float32)
         one = np.ones((1,) + self._int_shape)
         s0, chunks, n_same = None, [], 0
         for lo in range(0, ts.shape[0], _RHS_CHUNK):
@@ -217,22 +252,37 @@ class Heat2D(Application):
         else:
             self._rhs_tbl = raw
             self._rhs_tbl0_hat_np = self._Sx_np @ s0 @ self._Sy_np
-        self._rhs_tbl_t = self._tensor(self._rhs_tbl.reshape(self._rhs_tbl.shape[0], -1))
+        rows = self._rhs_tbl.reshape(self._rhs_tbl.shape[0], -1)
+        if self._dd:
+            self._rhs_tbl = self._rhs_tbl.astype(np.float32)
+            self._rhs_tbl0_hat_np = self._rhs_tbl[0].astype(np.float64) if self._spectral \
+                else self._Sx_np @ s0.astype(np.float32) @ self._Sy_np
+            self._rhs_tbl_t = torch.as_tensor(rows.astype(np.float32), device=self.device)
+        else:
+            self._rhs_tbl_t = self._tensor(rows)
         self._rhs_times_t = torch.as_tensor(np.ascontiguousarray(self._rhs_tbl_times),
                                             dtype=torch.float64)
 
     def _rhs_rows(self, ts) -> torch.Tensor:
         """Table rows (rhs, or rhs^ in the spectral basis) at the times ts
-        (numpy, any shape S) as an S + (N,) view (``table_rows``)."""
+        (numpy, any shape S; in DD also DD times) as an S + (N,) view
+        (``table_rows``).  In DD the rows are looked up at each time's
+        float32 value."""
+        if self._dd:
+            ts = dd_time_keys(ts)
         return table_rows(self._rhs_tbl_t, self._rhs_times_t, ts, self._rhs_sample)
 
     def _rhs_sample(self, t) -> torch.Tensor:
         """The rhs callable at an off-grid time t (transformed in the
         spectral basis), as an (N,) row."""
+        if self._dd:
+            t = np.float32(t)
         r = np.asarray(self.rhs(x=self._xi, y=self._yi, t=t), dtype=np.float64) \
             * np.ones(self._int_shape)
         if self._spectral:
             r = self._Sx_np @ r @ self._Sy_np
+        if self._dd:
+            return torch.as_tensor(r.reshape(-1).astype(np.float32), device=self.device)
         return self._tensor(r.reshape(-1))
 
     def _rhs_at(self, t) -> torch.Tensor:
@@ -265,12 +315,13 @@ class Heat2D(Application):
         return A_k, G_k
 
     def _interval_tables_dev(self, dt, m1):
-        """_interval_tables as contiguous (m1, N) device tensors."""
+        """_interval_tables as contiguous (m1, N) device tensors (DD pairs,
+        split from float64, in DD)."""
         key = (float(dt), int(m1))
         if key not in self._itbl_dev:
+            make = self._split if self._dd else self._tensor
             A_k, G_k = self._interval_tables(dt, m1)
-            self._itbl_dev[key] = (self._tensor(A_k.reshape(m1, -1)),
-                                   self._tensor(G_k.reshape(m1, -1)))
+            self._itbl_dev[key] = (make(A_k.reshape(m1, -1)), make(G_k.reshape(m1, -1)))
         return self._itbl_dev[key]
 
     def _step_sizes(self, dts):
@@ -348,6 +399,8 @@ class Heat2D(Application):
         return A.view(shape), c.view(shape)
 
     def step(self, u_start, t_start, t_stop):
+        if self._dd:
+            return self.step_batched(u_start[None], t_start.reshape(1), t_stop.reshape(1))[0]
         if self._spectral:
             return self._step_spectral(u_start, t_start, t_stop)
         return self.step_batched(u_start[None], [float(t_start)], [float(t_stop)])[0]
@@ -365,6 +418,9 @@ class Heat2D(Application):
         tc = np.asarray(t_curr, dtype=np.float64)
         L, J = tp.shape
         N = self._N
+        if self._dd:
+            return self._dd_chain(seed, self._times.dd_steps(tp, tc, self.ops), self._rhs_rows(tc),
+                                  self._rhs_rows(tp), out, g)
         rhs1 = self._rhs_rows(tc) if self.theta > 0.0 else None
         rhs0 = rhs1 if self.theta == 1.0 else self._rhs_rows(tp)
         if self._spectral:
@@ -393,7 +449,15 @@ class Heat2D(Application):
         return out
 
     def step_batched(self, u_tube, t_starts, t_stops):
-        """One step of each of B states: step_chain with L = 1."""
+        """One step of each of B states: step_chain with L = 1 (in DD: B DD
+        states and DD times in, B DD states out)."""
+        if self._dd:
+            dt = dd.sub(t_stops, t_starts).reshape(1, -1)
+            out = torch.empty((u_tube.shape[0], 1, 2) + self._shape, dtype=torch.float32,
+                              device=self.device)
+            self._dd_chain(dd.packed(u_tube), dt, self._rhs_rows(t_stops)[None],
+                           self._rhs_rows(t_starts)[None], out)
+            return dd.pair(out[:, 0], self.ops)
         out = torch.empty_like(u_tube)
         tp = np.asarray(t_starts, dtype=np.float64).reshape(1, -1)
         tc = np.asarray(t_stops, dtype=np.float64).reshape(1, -1)
@@ -424,8 +488,10 @@ class Heat2D(Application):
         R = 1 with only_last, else rows) the values are written there and
         out is returned; ``seed_out`` optionally receives a copy of the
         seeds (the tube's C-rows).  Declines (None) for FE, non-uniform dt
-        or a time-dependent rhs."""
-        if self.theta == 0.0:
+        or a time-dependent rhs; in DD also for the physical basis.  In DD,
+        seed, out and seed_out are packed (…, 2, ...) float32 views and K23
+        runs."""
+        if self.theta == 0.0 or (self._dd and not self._spectral):
             return None
         dts = np.asarray(t_curr, np.float64) - np.asarray(t_prev, np.float64)
         if dts.size == 0:
@@ -441,13 +507,20 @@ class Heat2D(Application):
         J, N = seed.shape[0], self._N
         result = out
         if out is None:
+            pair_axis = (2,) if self._dd else ()
             if interval_major:
-                result = out = torch.empty((J, R) + self._shape, dtype=seed.dtype,
+                result = out = torch.empty((J, R) + pair_axis + self._shape, dtype=seed.dtype,
                                            device=seed.device)
             else:
-                result = torch.empty((R, J) + self._shape, dtype=seed.dtype,
+                result = torch.empty((R, J) + pair_axis + self._shape, dtype=seed.dtype,
                                      device=seed.device)
                 out = result.transpose(0, 1)
+        if self._dd:
+            self.ops.dd_interval_affine(self._pair_of(seed.view(J, 2, N)), A_t, G_t,
+                                        self._pair_of(out.view(J, R, 2, N), 2), r0,
+                                        None if seed_out is None else
+                                        self._pair_of(seed_out.view(J, 2, N)))
+            return result
         if self._spectral:
             self.ops.interval_affine(seed.view(J, N), A_t, G_t, out.view(J, R, N), r0,
                                      None if seed_out is None else seed_out.view(J, N))
@@ -466,7 +539,11 @@ class Heat2D(Application):
 
     def to_physical(self, u_hat):
         """Spectral coefficients (..., nx-2, ny-2) -> full (..., nx, ny)
-        fields with the Dirichlet boundary ring (K5's transform mode)."""
+        fields with the Dirichlet boundary ring (K5's transform mode); a DD
+        state counts with its float32 value hi + lo, transformed in
+        float64 (as the JAX package's einsum promotes it)."""
+        if isinstance(u_hat, dd.DD):
+            u_hat = u_hat.to_float().double()
         lead = tuple(u_hat.shape[:-2])
         B = int(np.prod(lead, dtype=np.int64))
         dev, dtype = u_hat.device, u_hat.dtype
@@ -475,3 +552,83 @@ class Heat2D(Application):
                               out.view((B, self.nx, self.ny)), self._Sx.to(dev, dtype),
                               self._Sy.to(dev, dtype), ring=self._ring.to(dev, dtype))
         return out
+
+    # ------------------------------------------------------------------
+    # precision='dd': chains of steps on packed (…, 2, ...) float32 views
+    # ------------------------------------------------------------------
+
+    def _pair_of(self, t, axis=1):
+        return dd.pair(t, self.ops, axis)
+
+    def _dd_chain(self, seed, dt, rhs1, rhs0, out, g=None):
+        """J chains of L DD steps into out (the layout of ``step_chain``):
+        K24 in the spectral basis; a K25/K26 step on all lanes per step in
+        the physical one.  dt: (L, J) DD step sizes; rhs1, rhs0: (L, J, N)
+        float32 table rows at the steps' ends and starts."""
+        J, L, N = out.shape[0], out.shape[1], self._N
+        pair = self._pair_of
+        if self._spectral:
+            self.ops.dd_theta_chain(pair(seed.view(J, 2, N)), pair(out.view(J, L, 2, N), 2), dt,
+                                    self._Lam_dd, self._lift_hat_dd, rhs1, rhs0, self.theta,
+                                    None if g is None else pair(g.view(J, L, 2, N), 2))
+            return out
+        x = seed
+        for k in range(L):
+            y = pair(out[:, k])
+            self._dd_physical_step(pair(x), dt[k], rhs1[k], rhs0[k], y)
+            if g is not None:
+                self.ops.dd_arith("add", pair(g[:, k]), y, out=y)
+            x = out[:, k]
+        return out
+
+    def _dd_apply_L(self, u):
+        """The interior of the zeroed-ring 5-point operator of B DD states,
+        in the JAX package's order: 2(fx+fy) u_c - fy u_w - fy u_e - fx u_n
+        - fx u_s (one K25 combine)."""
+        fx, fy = self.fx, self.fy
+        return self.ops.dd_arith("combine", u[:, 1:-1, 1:-1], u[:, 1:-1, :-2], u[:, 1:-1, 2:],
+                                 u[:, :-2, 1:-1], u[:, 2:, 1:-1],
+                                 coeffs=[2 * (fx + fy), -fy, -fy, -fx, -fx])
+
+    def _dd_physical_step(self, u, dt, rhs1, rhs0, out):
+        """The JAX package's physical DD step (``Heat2D.step``, BE/CN/FE) of
+        B lanes, operation for operation, into the DD view out (B, nx, ny).
+        u: (B, nx, ny) DD; dt: (B,) DD; rhs1, rhs0: (B, N) float32 rows at
+        the step's end and start."""
+        ops, th = self.ops, self.theta
+        B = u.shape[0]
+        d = dt.reshape(B, 1, 1)
+        r1, r0 = (r.reshape((B,) + self._int_shape) for r in (rhs1, rhs0))
+        ring = self._ring_dd.expand(B, self.nx, self.ny)
+        if th == 0.0:
+            # FE: new = (bc ring + u) - dt L(u), then + dt rhs(t_start) inside
+            Lu = dd.zeros_like(ring)
+            inner = self._dd_apply_L(u)
+            Lu.hi[:, 1:-1, 1:-1] = inner.hi
+            Lu.lo[:, 1:-1, 1:-1] = inner.lo
+            ops.dd_arith("sub", ring + u, d * Lu, out=out)
+            inner = out[:, 1:-1, 1:-1]
+            ops.dd_arith("add", inner, d * r0, out=inner)
+            return out
+        if th == 1.0:
+            b = u[:, 1:-1, 1:-1] + d * r1
+        else:
+            b = u[:, 1:-1, 1:-1] - (d * th) * self._dd_apply_L(u)
+            b = b + ((d * th) * r1 + (d * (1 - th)) * r0)
+        # boundary lift b[:, :, 0] += shift fy bc_left, ... edge by edge (the
+        # ring of the JAX package's b is the Dirichlet data)
+        shift = d * th
+        sy, sx = shift.reshape(B, 1) * self.fy, shift.reshape(B, 1) * self.fx
+        left, right, top, bottom = self._edges_dd
+        for view, s, edge in ((b[:, :, 0], sy, left), (b[:, :, -1], sy, right),
+                              (b[:, 0, :], sx, top), (b[:, -1, :], sx, bottom)):
+            ops.dd_arith("add", view, s * edge, out=view)
+        n1, n2 = self._int_shape
+        Sx, Sy = self._Sx_dd.expand(B, n1, n1), self._Sy_dd.expand(B, n2, n2)
+        bh = ops.dd_matmul(ops.dd_matmul(Sx, b), Sy)
+        x = bh / (shift * self._lam2_dd + 1.0)
+        out.hi.copy_(ring.hi)
+        out.lo.copy_(ring.lo)
+        ops.dd_matmul(ops.dd_matmul(Sx, x), Sy, out=out[:, 1:-1, 1:-1])
+        return out
+

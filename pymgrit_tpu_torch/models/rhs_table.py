@@ -5,7 +5,9 @@ batched numpy evaluation, so every solver phase reads samples of one
 evaluation context (transcendentals round differently in scalar and
 vectorized evaluations).  ``table_rows`` reads that table back;
 ``grid_index`` finds the rows of grid times on the host, for a device index
-that a model makes once.
+that a model makes once.  In double-double precision the table is float32
+and is read at each time's float32 value (``dd_time_keys``), as the JAX
+package's DD tables are.
 """
 
 from __future__ import annotations
@@ -45,3 +47,15 @@ def grid_index(times: np.ndarray, ts: np.ndarray):
     ``times`` (numpy), or None when one of them is not a sample time."""
     pos = np.clip(np.searchsorted(times, ts), 0, times.size - 1)
     return pos if np.array_equal(times[pos], ts) else None
+
+
+def dd_time_keys(ts) -> np.ndarray:
+    """The float32 value hi + lo of each time's exact double-double split
+    (the JAX package's DD rhs-table key ``t.to_float()``), as float64 numpy
+    values; ``ts`` is numpy float64 times or a ``DD`` of times (read back
+    from its device).  Keys map to themselves."""
+    if hasattr(ts, "hi"):
+        return ts.to_float().double().cpu().numpy()
+    ts = np.asarray(ts, dtype=np.float64)
+    hi = ts.astype(np.float32)
+    return (hi + (ts - hi).astype(np.float32)).astype(np.float64)

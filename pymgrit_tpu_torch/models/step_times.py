@@ -25,13 +25,20 @@ class StepTimes:
         """make() (a numpy array computed from the numpy ``arrays``, or None)
         as a contiguous device tensor (or None), made once per distinct
         ``kind`` and values of ``arrays``."""
-        key = (kind, dtype) + tuple((a.shape, a.tobytes()) for a in arrays)
+        def to_device():
+            a = make()
+            return None if a is None else torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                                          device=self.device)
+        return self._memo((kind, dtype), arrays, to_device)
+
+    def _memo(self, head, arrays, make):
+        """make(), made once per distinct ``head`` (a tuple) and values of
+        ``arrays``."""
+        key = head + tuple((a.shape, a.tobytes()) for a in arrays)
         if key not in self._cache:
             if len(self._cache) >= _LIMIT:
                 self._cache.clear()
-            a = make()
-            self._cache[key] = None if a is None else torch.as_tensor(
-                np.ascontiguousarray(a), dtype=dtype, device=self.device)
+            self._cache[key] = make()
         return self._cache[key]
 
     def times(self, tp, tc, dtype=torch.float64):
@@ -40,6 +47,16 @@ class StepTimes:
         tc = np.asarray(tc, dtype=np.float64)
         return (self.cached("t", (tp,), dtype, lambda: tp),
                 self.cached("t", (tc,), dtype, lambda: tc))
+
+    def dd_steps(self, tp, tc, ops):
+        """tc - tp in double-double: a DD subtraction of the exactly split
+        times (the JAX package's DD ``t_stop - t_start``, one ``ops.dd_arith``
+        call), a contiguous DD on the device made once per distinct table."""
+        from pymgrit_tpu_torch.ops import dd
+        tp = np.asarray(tp, dtype=np.float64)
+        tc = np.asarray(tc, dtype=np.float64)
+        return self._memo(("dd", ops), (tp, tc), lambda: ops.dd_arith(
+            "sub", dd.from_f64(tc, self.device, ops), dd.from_f64(tp, self.device, ops)))
 
     def steps(self, tp, tc, dtype=torch.float64):
         """tc - tp, the step sizes (computed in float64 numpy, as the JAX

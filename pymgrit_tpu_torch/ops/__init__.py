@@ -1,8 +1,8 @@
 """Hand-written GPU kernels of the port and their plain PyTorch versions.
 
-Twenty-two kernels carry the Heat2D paths (condensed level 0), the
+Twenty-six kernels carry the Heat2D paths (condensed level 0), the
 coarsest-level strategies, the nonlinear models, spatial and non-uniform
-coarsening, and Diffusion2D:
+coarsening, Diffusion2D, and the double-double precision mode:
 
 * K1 ``interval_affine`` (CUDA C++, ``csrc/interval_affine.cu``)
 * K2 ``theta_chain`` (CUDA C++, ``csrc/theta_chain.cu``)
@@ -26,6 +26,11 @@ coarsening, and Diffusion2D:
 * K20 ``sine_solve1d`` (CUDA C++, ``csrc/sine_solve1d.cu``; BE and BDF2 modes)
 * K21 ``indexed_combine`` (Triton, wrapper in ``indexed``)
 * K22 ``eig_step`` (CUDA C++, ``csrc/eig_step.cu``, FP64 tensor cores)
+* K23 ``dd_interval_affine`` (CUDA C++, ``csrc/dd_interval_affine.cu``)
+* K24 ``dd_theta_chain`` (CUDA C++, ``csrc/dd_theta_chain.cu``)
+* K25 ``dd_arith`` (CUDA C++, ``csrc/dd_arith.cu``, wrapper in ``dd``)
+* K26 ``dd_matmul`` (CUDA C++, ``csrc/dd_matmul.cu``, FP64 tensor cores,
+  wrapper in ``dd_matmul``)
 
 The spectral basis runs K1-K4; the physical basis K3-K7; the coarsest
 level of ``Mgrit(coarsest_prefix=True)`` K8 and that of ``AtMgrit`` K9;
@@ -37,8 +42,13 @@ and K10 (Newton-BiCGStab); advection K17; the heat grid transfers
 (``GridTransferHeat``, ``GridTransferHeat2D``) K18 and K19; Heat1D's
 physical basis K20 (and K1 in its interval relaxation); the BDF pair-state
 models ``Heat1DBDF1`` / ``Heat1DBDF2`` K20 (BE and BDF2 modes); Diffusion2D
-K22; every level whose C-points are not evenly strided K21.  K3 and K4
-serve every solve.  ``DISPATCH``
+K22; every level whose C-points are not evenly strided K21;
+``precision='dd'`` (float32 pairs, ``dd``) K23 and K24 (the spectral heat
+models' closed form and chains), K25 (every other DD operation, the
+solver's combines and residual differences among them) and K26 (DD
+products: physical Heat1D/Heat2D, Diffusion2D).  K3 and K4 serve every
+float64 solve; a DD solve launches K3 on the float32 residual rows K25
+writes, and no K4.  ``DISPATCH``
 holds the wrappers (CPU tensors: plain version; CUDA tensors: the kernel).
 ``PLAIN`` holds the plain versions with the same signatures; an application
 built with ``ops=PLAIN`` runs the plain versions on any device, which is
@@ -49,8 +59,8 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
-from pymgrit_tpu_torch.ops import (dense_newton, eig_step, heat_kernels, indexed, periodic,
-                                   prefix, runge_kutta, transfer, triton_kernels)
+from pymgrit_tpu_torch.ops import (dd, dd_matmul, dense_newton, eig_step, heat_kernels, indexed,
+                                   periodic, prefix, runge_kutta, transfer, triton_kernels)
 
 
 class Ops(NamedTuple):
@@ -76,6 +86,10 @@ class Ops(NamedTuple):
     sine_solve1d: Callable
     indexed_combine: Callable
     eig_step: Callable
+    dd_interval_affine: Callable
+    dd_theta_chain: Callable
+    dd_arith: Callable
+    dd_matmul: Callable
 
 
 DISPATCH = Ops(heat_kernels.interval_affine, heat_kernels.theta_chain,
@@ -87,7 +101,9 @@ DISPATCH = Ops(heat_kernels.interval_affine, heat_kernels.theta_chain,
                triton_kernels.gray_scott_pointwise, triton_kernels.burgers2d_pointwise,
                dense_newton.burgers1d_newton, periodic.circulant_solve1d,
                transfer.restrict_combine, transfer.interpolate_combine,
-               heat_kernels.sine_solve1d, indexed.indexed_combine, eig_step.eig_step)
+               heat_kernels.sine_solve1d, indexed.indexed_combine, eig_step.eig_step,
+               heat_kernels.dd_interval_affine, heat_kernels.dd_theta_chain, dd.dd_arith,
+               dd_matmul.dd_matmul)
 PLAIN = Ops(heat_kernels.interval_affine_plain, heat_kernels.theta_chain_plain,
             triton_kernels.residual_row_norms_plain, triton_kernels.cpoint_combine_plain,
             heat_kernels.sine_solve2d_plain, heat_kernels.sine_affine2d_plain,
@@ -98,7 +114,9 @@ PLAIN = Ops(heat_kernels.interval_affine_plain, heat_kernels.theta_chain_plain,
             triton_kernels.burgers2d_pointwise_plain, dense_newton.burgers1d_newton_plain,
             periodic.circulant_solve1d_plain, transfer.restrict_combine_plain,
             transfer.interpolate_combine_plain, heat_kernels.sine_solve1d_plain,
-            indexed.indexed_combine_plain, eig_step.eig_step_plain)
+            indexed.indexed_combine_plain, eig_step.eig_step_plain,
+            heat_kernels.dd_interval_affine_plain, heat_kernels.dd_theta_chain_plain,
+            dd.dd_arith_plain, dd_matmul.dd_matmul_plain)
 
 
 def launch_counts() -> dict:

@@ -1,7 +1,8 @@
 """Build and load the CUDA C++ kernels (K1 interval_affine, K2 theta_chain,
 K5 sine_solve2d, K6 sine_affine2d, K8 affine_prefix, K9 affine_windows,
 K10 periodic_solve2d, K12 dopri45_arenstorf, K16 burgers1d_newton, K17
-circulant_solve1d, K20 sine_solve1d, K22 eig_step).
+circulant_solve1d, K20 sine_solve1d, K22 eig_step, K23 dd_interval_affine,
+K24 dd_theta_chain, K25 dd_arith, K26 dd_matmul).
 
 The sources under ``csrc/`` have a plain C interface.  On first use each
 ``.cu`` file is compiled by its own ``nvcc`` process for Hopper
@@ -49,6 +50,14 @@ _SIGNATURES = {
     "pm_sine_solve1d": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                         _I, _I, _P],
     "pm_eig_step": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+}
+# the float32-pair (double-double) launchers: one symbol each, no dtype suffix
+_DD_SIGNATURES = {
+    "pm_dd_arith": [ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P, _P],
+    "pm_dd_interval_affine": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P,
+                              _I, _P],
+    "pm_dd_theta_chain": [_P, _P, _D, _P, _P],
+    "pm_dd_matmul": [_P, _P, _P, _P],
 }
 
 _lib = None
@@ -102,11 +111,12 @@ def library() -> ctypes.CDLL:
             raise RuntimeError("nvcc failed:\n" + "\n".join(f"{n}:\n{log}" for n, log in failed))
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
-    for name, args in _SIGNATURES.items():
-        for suffix in ("f32", "f64"):
-            fn = getattr(lib, f"{name}_{suffix}")
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
+    symbols = {f"{name}_{suffix}": args for name, args in _SIGNATURES.items()
+               for suffix in ("f32", "f64")}
+    for name, args in {**symbols, **_DD_SIGNATURES}.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
     _lib, _lib_dir = lib, out_dir
     return lib
 

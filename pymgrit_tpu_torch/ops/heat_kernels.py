@@ -1,6 +1,7 @@
 """Kernels K1 ``interval_affine``, K2 ``theta_chain``, K5 ``sine_solve2d``,
-K6 ``sine_affine2d`` and K20 ``sine_solve1d`` (CUDA C++), each beside its
-plain PyTorch version.
+K6 ``sine_affine2d``, K20 ``sine_solve1d`` and the double-double K23
+``dd_interval_affine`` and K24 ``dd_theta_chain`` (CUDA C++), each beside
+its plain PyTorch version.
 
 Dispatch: a tensor on the CPU goes to the plain version; a CUDA tensor
 launches the kernel from ``csrc/`` (built on first use by ``_build``) or
@@ -17,6 +18,8 @@ BDF pair state) as a row of n interior values.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -464,3 +467,182 @@ def sine_solve1d(x, out, S, lam=None, dt=None, rhs=None, second=None, c2=None, c
 
 sine_solve1d.launches = 0
 sine_solve1d.mode_launches = {"be": 0, "bdf2": 0, "transform": 0}   # launches by mode
+
+
+# ---------------------------------------------------------------------------
+# K23 dd_interval_affine, K24 dd_theta_chain: K1 and K2 in double-double
+# ---------------------------------------------------------------------------
+
+# elements of a plain DD expression evaluated at once (its ~20 float32
+# temporaries then take ~1.3 GB)
+_DD_PLAIN_CHUNK = 1 << 24
+
+
+def _check_dd(name: str, operands: dict) -> None:
+    """DD operands: float32 pairs on one device, hi and lo strided alike,
+    contiguous in the last axis."""
+    for key, x in operands.items():
+        _require(hasattr(x, "hi") and hasattr(x, "lo"), name, f"{key} must be a DD pair")
+    ref = next(iter(operands.values())).hi
+    _require(ref.device.type in ("cpu", "cuda"), name, f"unsupported device {ref.device}")
+    for key, x in operands.items():
+        for t in (x.hi, x.lo):
+            _require(t.dtype == torch.float32, name, f"{key} must be float32 pairs")
+            _require(t.device == ref.device, name, f"{key} is on {t.device}, expected {ref.device}")
+        _require(x.hi.shape == x.lo.shape and x.hi.stride() == x.lo.stride(), name,
+                 f"{key}: hi and lo must have one shape and one set of strides")
+        _require(x.hi.shape[-1] <= 1 or x.hi.stride(-1) == 1, name,
+                 f"{key} must be contiguous in its last axis")
+
+
+def dd_interval_affine_plain(x, A, G, out, r0=0, seed_out=None):
+    """out[j, r] = A[r0 + r] (x) x[j] (+) G[r0 + r] in DD; seed_out[j] = x[j]
+    (a chunk of intervals at a time)."""
+    from pymgrit_tpu_torch.ops import dd as _dd
+    J, R, N = out.shape
+    a = (A.hi[None, r0:r0 + R], A.lo[None, r0:r0 + R])
+    g = (G.hi[None, r0:r0 + R], G.lo[None, r0:r0 + R])
+    step = max(1, _DD_PLAIN_CHUNK // max(1, R * N))
+    for j0 in range(0, J, step):
+        s = slice(j0, min(J, j0 + step))
+        hi, lo = _dd._add(_dd._mul(a, (x.hi[s, None], x.lo[s, None])), g)
+        out.hi[s].copy_(hi)
+        out.lo[s].copy_(lo)
+    if seed_out is not None:
+        seed_out.hi.copy_(x.hi)
+        seed_out.lo.copy_(x.lo)
+    return out
+
+
+def dd_interval_affine(x, A, G, out, r0=0, seed_out=None):
+    """K1's closed-form interval relaxation in double-double, into ``out``
+    (K23).
+
+    x: (J, N) DD seeds; A, G: (T, N) contiguous DD tables; out: (J, R, N) DD
+    view with any interval and row strides, rows r0..r0+R-1 of the tables;
+    seed_out: optional (J, N) DD view that receives a copy of x.  hi and lo
+    of each operand share strides (a packed tube, lo = hi + N, or separate
+    tensors).  Returns out.
+    """
+    name = "dd_interval_affine"
+    ops = dict(x=x, A=A, G=G, out=out)
+    if seed_out is not None:
+        ops["seed_out"] = seed_out
+    _check_dd(name, ops)
+    J, N = x.shape
+    R = out.shape[1]
+    _require(A.ndim == 2 and A.shape == G.shape and A.shape[1] == N
+             and all(t.is_contiguous() for t in (A.hi, A.lo, G.hi, G.lo)), name,
+             "A and G must be contiguous (T, N) DD tables")
+    _require(out.ndim == 3 and out.shape[0] == J and out.shape[2] == N, name,
+             f"out has shape {tuple(out.shape)}, expected ({J}, R, {N})")
+    _require(0 <= r0 and r0 + R <= A.shape[0], name,
+             f"rows {r0}..{r0 + R - 1} outside the {A.shape[0]}-row table")
+    _require(seed_out is None or tuple(seed_out.shape) == (J, N), name,
+             "seed_out must have the shape of x")
+    if x.hi.device.type == "cpu":
+        return dd_interval_affine_plain(x, A, G, out, r0, seed_out)
+    if J == 0 or N == 0:
+        return out
+    lib = _build.library()
+    stream = torch.cuda.current_stream(x.hi.device).cuda_stream
+    so = seed_out
+    status = lib.pm_dd_interval_affine(
+        x.hi.data_ptr(), x.lo.data_ptr(), x.hi.stride(0), A.hi.data_ptr(), A.lo.data_ptr(),
+        G.hi.data_ptr(), G.lo.data_ptr(), r0, R, J, N, out.hi.data_ptr(), out.lo.data_ptr(),
+        out.hi.stride(0), out.hi.stride(1), so.hi.data_ptr() if so is not None else None,
+        so.lo.data_ptr() if so is not None else None, so.hi.stride(0) if so is not None else 0,
+        stream)
+    _build.check(status, name)
+    dd_interval_affine.launches += 1
+    return out
+
+
+dd_interval_affine.launches = 0
+
+
+def dd_theta_chain_plain(x0, out, dt, lam, lift, rhs1, rhs0, theta, g=None):
+    """J chains of L spectral theta-steps in DD, in the expression order of
+    the JAX package's ``Heat2D._step_spectral`` (see csrc/dd_theta_chain.cu)."""
+    from pymgrit_tpu_torch.ops import dd as _dd
+    f32 = torch.float32
+    th = tuple(torch.tensor(v, dtype=f32) for v in _dd._split_f64(theta))
+    two, one = (torch.tensor(2.0, dtype=f32), torch.tensor(0.0, dtype=f32)), \
+        (torch.tensor(1.0, dtype=f32), torch.tensor(0.0, dtype=f32))
+    lm, lf = (lam.hi, lam.lo), (lift.hi, lift.lo)
+    x = (x0.hi, x0.lo)
+    for k in range(out.shape[1]):
+        d = (dt.hi[k][:, None], dt.lo[k][:, None])
+        shift = _dd._mul(d, th)
+        zero = torch.zeros((), dtype=f32)
+        if theta == 1.0:
+            b = _dd._add(_dd._add(x, _dd._mul(d, (rhs1[k], zero))), _dd._mul(shift, lf))
+        else:
+            r = torch.tensor(float(theta), dtype=f32) * rhs1[k] \
+                + torch.tensor(1.0 - float(theta), dtype=f32) * rhs0[k]
+            b = _dd._add(x, _dd._neg(_dd._mul(shift, _dd._mul(x, lm))))
+            b = _dd._add(b, _dd._mul(_dd._mul(shift, two), lf))
+            b = _dd._add(b, _dd._mul(d, (r, zero)))
+        x = _dd._div(b, _dd._add(_dd._mul(shift, lm), one))
+        if g is not None:
+            x = _dd._add((g.hi[:, k], g.lo[:, k]), x)
+        out.hi[:, k] = x[0]
+        out.lo[:, k] = x[1]
+    return out
+
+
+def dd_theta_chain(x0, out, dt, lam, lift, rhs1, rhs0, theta, g=None):
+    """K2's sequential spectral theta-steps of J chains in double-double,
+    every step written (K24).
+
+    x0: (J, N) DD seeds; out: (J, L, N) DD view; g: optional (J, L, N) DD
+    view added after each step; dt: (L, J) contiguous DD step sizes; lam,
+    lift: (N,) contiguous DD eigenvalues and lifted boundary data; rhs1,
+    rhs0: (L, J, N) float32 views of the rhs at the step's end and start
+    (strides 0 for a time-independent rhs; rhs0 is read only when theta !=
+    1); theta: 1 (BE) or 0.5 (CN).  out must not overlap x0 or g.  Returns
+    out.
+    """
+    name = "dd_theta_chain"
+    ops = dict(x0=x0, out=out, dt=dt, lam=lam, lift=lift)
+    if g is not None:
+        ops["g"] = g
+    _check_dd(name, ops)
+    J, N = x0.shape
+    L = out.shape[1]
+    _require(out.ndim == 3 and out.shape[0] == J and out.shape[2] == N, name,
+             f"out has shape {tuple(out.shape)}, expected ({J}, L, {N})")
+    _require(g is None or g.shape == out.shape, name, "g must have the shape of out")
+    _require(tuple(dt.shape) == (L, J) and dt.hi.is_contiguous(), name,
+             f"dt must be a contiguous ({L}, {J}) DD table")
+    _require(tuple(lam.shape) == (N,) and tuple(lift.shape) == (N,), name,
+             "lam and lift must have shape (N,)")
+    for key, r in (("rhs1", rhs1), ("rhs0", rhs0)):
+        _require(r.dtype == torch.float32 and r.device == x0.hi.device, name,
+                 f"{key} must be a float32 tensor on {x0.hi.device}")
+        _require(r.shape[-1] <= 1 or r.stride(-1) == 1, name,
+                 f"{key} must be contiguous in its last axis")
+    _require(rhs1.shape == (L, J, N) and rhs0.shape == rhs1.shape
+             and rhs0.stride() == rhs1.stride(), name,
+             "rhs1 and rhs0 must be (L, J, N) views with equal strides")
+    _require(float(theta) > 0.0, name, "theta must be > 0 (BE or CN)")
+    if x0.hi.device.type == "cpu":
+        return dd_theta_chain_plain(x0, out, dt, lam, lift, rhs1, rhs0, theta, g)
+    if J == 0 or L == 0 or N == 0:
+        return out
+    ptrs = [x0.hi.data_ptr(), x0.lo.data_ptr(), out.hi.data_ptr(), out.lo.data_ptr(),
+            g.hi.data_ptr() if g is not None else None, g.lo.data_ptr() if g is not None else None,
+            dt.hi.data_ptr(), dt.lo.data_ptr(), lam.hi.data_ptr(), lam.lo.data_ptr(),
+            lift.hi.data_ptr(), lift.lo.data_ptr(), rhs1.data_ptr(), rhs0.data_ptr()]
+    strides = [x0.hi.stride(0), out.hi.stride(0), out.hi.stride(1),
+               g.hi.stride(0) if g is not None else 0, g.hi.stride(1) if g is not None else 0,
+               rhs1.stride(0), rhs1.stride(1)]
+    status = _build.library().pm_dd_theta_chain(
+        (ctypes.c_void_p * 14)(*ptrs), (ctypes.c_int64 * 7)(*strides), float(theta),
+        (ctypes.c_int64 * 3)(J, L, N), torch.cuda.current_stream(x0.hi.device).cuda_stream)
+    _build.check(status, name)
+    dd_theta_chain.launches += 1
+    return out
+
+
+dd_theta_chain.launches = 0

@@ -45,11 +45,6 @@ def test_tables_equal_jax_bit_for_bit(kappa):
     assert tuple(dp.vector_template.shape) == (6 * 8 * 8,)
 
 
-def test_dd_raises_with_its_roadmap_label():
-    with pytest.raises(NotImplementedError, match="A3"):
-        P.Diffusion2D(n=4, precision="dd", t_start=0, t_stop=1, nt=3, device="cpu")
-
-
 def test_batched_step_matches_jax():
     """Lanes of different dt through step_batched (the plain K22) against
     JAX's vmapped step."""

@@ -181,9 +181,6 @@ def test_relax_interval_declines_alike():
 
 
 def test_unported_and_invalid_options():
-    with pytest.raises(NotImplementedError, match="A3"):
-        P.Heat1D(x_start=0, x_end=1, nx=9, a=1.0, precision="dd", t_start=0, t_stop=1, nt=9,
-                 device="cpu")
     msgs = []
     for mod in (J, P):
         with pytest.raises(Exception) as exc:

@@ -161,17 +161,6 @@ def test_relax_interval_declines_alike():
     assert hp.relax_interval(_t(seeds), tp, tc) is None
 
 
-@pytest.mark.parametrize("kw,item", [(dict(precision="dd", basis="physical"), "A3"),
-                                     (dict(precision="dd"), "A3"),
-                                     (dict(precision="dd", basis="physical", method="FE"), "A3")])
-def test_unported_configurations_raise(kw, item):
-    """Only precision='dd' is left unported, in either basis and any method."""
-    base = dict(x_start=0, x_end=1, y_start=0, y_end=1, nx=NX, ny=NX, a=1.0, rhs=_prhs,
-                t_interval=np.linspace(0, 1, NT), basis="spectral")
-    with pytest.raises(NotImplementedError, match=item):
-        P.Heat2D(**{**base, **kw}, device="cpu")
-
-
 def test_spectral_fe_raises_alike():
     """FE has no spectral form in either package (the ring quirk)."""
     kw = dict(x_start=0, x_end=1, y_start=0, y_end=1, nx=NX, ny=NX, a=1.0,

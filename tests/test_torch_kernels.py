@@ -1282,3 +1282,220 @@ def _k20_bdf2_args(**over):
 def test_sine_solve1d_bdf2_rejects(over, match):
     with pytest.raises(ValueError, match=match):
         heat_kernels.sine_solve1d(**_k20_bdf2_args(**over))
+
+
+# ---------------------------------------------------------------------------
+# K23-K26: the double-double kernels (float32 pairs)
+# ---------------------------------------------------------------------------
+#
+# K23-K25 execute the plain versions' float32 operations in their order,
+# each rounded once (__fadd_rn & co., never contracted), so the card holds
+# them bit for bit in hi and lo.  K26 accumulates float64 products in
+# DMMA's k4 groups: within 1e-14 of max(|A| |B|) of the plain float64
+# product.
+
+
+def _dd(a, device):
+    from pymgrit_tpu_torch.ops import dd
+    return dd.from_f64(np.ascontiguousarray(a), device)
+
+
+def _packed(a, device):
+    x = _dd(a, device)
+    return torch.stack([x.hi, x.lo], 1)
+
+
+def _dd_cases(dev):
+    """(kernel, run(ops) -> DD or float32 tensor) at small shapes, with the
+    solver's packed (rows, 2, ...) views, wild scales and broadcasts."""
+    from pymgrit_tpu_torch.ops import dd
+    rng = np.random.default_rng(40)
+    J, R, T = 3, 4, 5
+    seeds = _packed(rng.standard_normal((J, N)), dev)
+    A, G = _dd(rng.uniform(0, 1, (T, N)), dev), _dd(rng.standard_normal((T, N)), dev)
+    tube = torch.zeros((J * R + 1, 2, N), dtype=torch.float32, device=dev)
+
+    def k23(ops):
+        out = dd.pair(tube[:J * R].view(J, R, 2, N), ops, 2)
+        ops.dd_interval_affine(dd.pair(seeds, ops), A, G, out, 1, dd.pair(tube[0:J * R:R], ops))
+        return dd.pair(tube, ops)
+
+    L = 3
+    x0 = _packed(rng.standard_normal((J, N)), dev)
+    g = torch.stack([_packed(1e-3 * rng.standard_normal((J, N)), dev) for _ in range(L)], 1)
+    dt = _dd(rng.uniform(0.01, 0.1, (L, J)), dev)
+    lam, lift = _dd(rng.uniform(1, 1e3, N), dev), _dd(rng.standard_normal(N), dev)
+    r1 = torch.as_tensor(rng.standard_normal((L, 1, N)), dtype=torch.float32,
+                         device=dev).expand(L, J, N)
+    r0 = torch.as_tensor(rng.standard_normal((L, 1, N)), dtype=torch.float32,
+                         device=dev).expand(L, J, N)
+
+    def k24(theta, with_g):
+        def run(ops):
+            out = torch.empty((J, L, 2, N), dtype=torch.float32, device=dev)
+            ops.dd_theta_chain(dd.pair(x0, ops), dd.pair(out, ops, 2), dt, lam, lift, r1, r0,
+                               theta, dd.pair(g, ops, 2) if with_g else None)
+            return dd.pair(out, ops, 2)
+        return run
+
+    wild = rng.standard_normal((J, N)) * 10.0 ** rng.uniform(-20, 20, (J, N))
+    xw, yw = _dd(wild, dev), _dd(np.abs(wild[::-1]) + 1e-30, dev)
+    near = _dd(1.0 + 3.975e-12 * rng.uniform(0.5, 1.5, N), dev)
+    rows = [_packed(rng.standard_normal((J, N)), dev) for _ in range(3)]
+
+    def k25(op, *args, **kw):
+        return lambda ops: ops.dd_arith(op, *args, **kw)
+
+    def k25_packed(coeffs):
+        def run(ops):
+            out = torch.empty((J, 2, N), dtype=torch.float32, device=dev)
+            return ops.dd_arith("combine", *[dd.pair(r, ops) for r in rows[:len(coeffs)]],
+                                coeffs=coeffs, out=dd.pair(out, ops))
+        return run
+
+    def k25_scalar(ops):
+        return ops.dd_arith("div", _dd(np.float64(0.7371), dev), dd.from_f64(1.0 + 0.05))
+
+    S, _ = sine_eigenbasis(NI, (NI + 1.0) ** 2)
+    Sd = _dd(S, dev)
+    states = _dd(rng.standard_normal((7, NI + 2, NI + 2)), dev)
+
+    def k26_two_sided(ops):
+        Sb = Sd.expand(7, NI, NI)
+        return ops.dd_matmul(ops.dd_matmul(Sb, states[:, 1:-1, 1:-1]), Sb)
+
+    W = _dd(rng.standard_normal((70, 70)) / 8, dev)
+    xe = _dd(rng.standard_normal((5, 70)), dev)
+    return [("dd_interval_affine", k23),
+            ("dd_theta_chain", k24(1.0, True)), ("dd_theta_chain", k24(0.5, False)),
+            ("dd_arith", k25("add", xw, yw)), ("dd_arith", k25("sub", xw, yw)),
+            ("dd_arith", k25("mul", xw, yw)), ("dd_arith", k25("div", xw, yw)),
+            ("dd_arith", k25("sqrt", yw)), ("dd_arith", k25("neg", xw)),
+            ("dd_arith", k25("sub", near, dd.from_f64(1.0))),
+            ("dd_arith", k25("resid", xw, yw)), ("dd_arith", k25_packed([1.0, -1.0, 1.0])),
+            ("dd_arith", k25_packed([1.3, 1.0 - 1.3])), ("dd_arith", k25_scalar),
+            ("dd_matmul", k26_two_sided),
+            ("dd_matmul", lambda ops: ops.dd_matmul(xe[None], W.T[None]))]
+
+
+N_DD_CASES = 16
+
+
+def _dd_parts(out):
+    return (out.hi, out.lo) if hasattr(out, "hi") else (out,)
+
+
+@pytest.mark.cuda
+def test_dd_kernels_match_plain_on_card(cuda):
+    for i, (name, run) in enumerate(_dd_cases(cuda)):
+        reset_launch_counts()
+        out_k = _dd_parts(run(DISPATCH))
+        torch.cuda.synchronize()
+        assert launch_counts()[name] >= 1, (i, name)
+        out_p = _dd_parts(run(PLAIN))
+        if name == "dd_matmul":
+            k, p = (sum(t.double() for t in o) for o in (out_k, out_p))
+            assert float((k - p).abs().max()) <= 1e-14 * float(p.abs().max()) * 8, (i, name)
+            continue
+        for a, b in zip(out_k, out_p):
+            assert torch.equal(a.contiguous().view(torch.int32),
+                               b.contiguous().view(torch.int32)), (i, name)
+
+
+@pytest.mark.parametrize("case", range(N_DD_CASES))
+def test_dd_cpu_tensors_take_the_plain_version(case):
+    cases = _dd_cases(torch.device("cpu"))
+    assert len(cases) == N_DD_CASES
+    name, run = cases[case]
+    reset_launch_counts()
+    for a, b in zip(_dd_parts(run(DISPATCH)), _dd_parts(run(PLAIN))):
+        np.testing.assert_array_equal(a.numpy().view(np.int32), b.numpy().view(np.int32))
+    assert launch_counts() == {k: 0 for k in launch_counts()}
+
+
+def _dd_kernel_args(kernel, **over):
+    from pymgrit_tpu_torch.ops import dd
+    z = lambda *shape: dd.from_f64(np.zeros(shape))
+    f32 = torch.zeros((2, 3, N), dtype=torch.float32)
+    args = {"dd_interval_affine": dict(x=z(3, N), A=z(4, N), G=z(4, N), out=z(3, 4, N), r0=0),
+            "dd_theta_chain": dict(x0=z(3, N), out=z(3, 2, N), dt=z(2, 3), lam=z(N), lift=z(N),
+                                   rhs1=f32, rhs0=f32, theta=1.0),
+            "dd_matmul": dict(a=z(2, 3, 4), b=z(2, 4, 5))}[kernel]
+    args.update(over)
+    return args
+
+
+def _dd_swap(key):
+    from pymgrit_tpu_torch.ops import dd
+    z = lambda *shape: dd.from_f64(np.zeros(shape))
+    return {"narrow": z(2, 4, N), "dt": z(3, 2), "b": z(2, 3, 5), "2-D": z(3, 4),
+            "f64": dd._raw(torch.zeros((4, N), dtype=torch.float64),
+                           torch.zeros((4, N), dtype=torch.float64))}[key]
+
+
+@pytest.mark.parametrize("kernel,over,match", [
+    ("dd_interval_affine", dict(x=torch.zeros((3, N))), "DD pair"),
+    ("dd_interval_affine", dict(r0=1), "outside"),
+    ("dd_interval_affine", dict(out="narrow"), "expected"),
+    ("dd_interval_affine", dict(A="f64"), "float32"),
+    ("dd_theta_chain", dict(dt="dt"), "dt must be"),
+    ("dd_theta_chain", dict(theta=0.0), "theta"),
+    ("dd_theta_chain", dict(rhs1=torch.zeros((2, 3, N), dtype=torch.float64)), "float32"),
+    ("dd_matmul", dict(b="b"), "do not chain"),
+    ("dd_matmul", dict(a="2-D"), "3-D"),
+])
+def test_dd_wrappers_reject(kernel, over, match):
+    from pymgrit_tpu_torch.ops import dd_matmul
+    over = {k: _dd_swap(v) if isinstance(v, str) else v for k, v in over.items()}
+    fn = dd_matmul.dd_matmul if kernel == "dd_matmul" else getattr(heat_kernels, kernel)
+    with pytest.raises(ValueError, match=match):
+        fn(**_dd_kernel_args(kernel, **over))
+
+
+def test_dd_arith_rejects():
+    from pymgrit_tpu_torch.ops import dd
+    x = dd.from_f64(np.zeros((3, 4)))
+    with pytest.raises(ValueError, match="unknown op"):
+        dd.dd_arith("pow", x, x)
+    with pytest.raises(ValueError, match="takes 2"):
+        dd.dd_arith("add", x)
+    with pytest.raises(ValueError, match="1-8 operands"):
+        dd.dd_arith("combine", *[x] * 9, coeffs=[1.0] * 9)
+    with pytest.raises(ValueError, match="DD pairs"):
+        dd.dd_arith("add", x, torch.zeros((3, 4)))
+    with pytest.raises(ValueError, match="out has shape"):
+        dd.dd_arith("add", x, x, out=dd.from_f64(np.zeros((3, 5))))
+    with pytest.raises(ValueError, match="must lie on"):
+        dd.dd_arith("add", x, dd.from_f64(np.zeros((3, 4)), "meta"))
+
+
+def _small_dd_solve(device, basis):
+    t = np.linspace(0, 1, 129)
+    problem = [P.Heat2D(x_start=0, x_end=1, y_start=0, y_end=1, nx=17, ny=17, a=1.0,
+                        rhs=lambda x, y, t: np.sin(np.pi * x) * np.sin(np.pi * y) + 0 * t,
+                        init_cond=lambda x, y: np.sin(np.pi * x) * np.sin(np.pi * y),
+                        t_interval=t[::s], basis=basis, device=device, precision="dd")
+               for s in (1, 4, 16)]
+    reset_launch_counts()
+    mgrit = P.Mgrit(problem=problem, tol=1e-11, max_iter=8, logging_lvl=40)
+    mgrit.solve()
+    return mgrit.conv[1:mgrit.solve_iter + 1], mgrit.u[0].cpu(), launch_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("basis", ["spectral", "physical"])
+def test_small_dd_solve_on_card_matches_cpu(cuda, basis):
+    """Heat2D 17^2 in DD on the card against the CPU: the spectral path
+    (K23-K25, bit for bit with the plain versions, which round as the
+    CPU's float32 ops do) gives the CPU's tube bit for bit; the physical
+    one (K25, K26) agrees to 1e-12.  No float64 kernel runs."""
+    (hc, tc, _), (hg, tg, cg) = (_small_dd_solve(d, basis) for d in ("cpu", cuda))
+    np.testing.assert_allclose(hg, hc, rtol=1e-5)
+    needed = ("dd_interval_affine", "dd_theta_chain") if basis == "spectral" else ("dd_matmul",)
+    assert all(cg[k] > 0 for k in needed + ("dd_arith", "residual_row_norms")), cg
+    assert all(cg[k] == 0 for k in ("interval_affine", "theta_chain", "cpoint_combine",
+                                    "sine_solve2d", "sine_affine2d", "theta_rhs2d")), cg
+    if basis == "spectral":
+        assert torch.equal(tg.view(torch.int32), tc.view(torch.int32))
+    else:
+        assert float((tg.double() - tc.double()).abs().max()) <= 1e-12
