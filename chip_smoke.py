@@ -15,7 +15,9 @@ phases:
 2. build     nvcc builds the CUDA C++ kernels (K1, K2, K5, K6, K8, K9, K10, K12,
              K16, K17, K20, K22-K26) from ``csrc/``, one process per source,
              all started together; ``cuobjdump`` counts the DMMA instructions
-             of K22 and K26;
+             of K22 and K26, and ptxas's log gives the registers, spills and
+             static shared memory of the FP64 product tile they share
+             (``csrc/dmma_tile.cuh``);
 3. kernels   K1-K22 against their plain PyTorch versions at the main paths'
              shapes (and odd ones, and K5/K6/K10/K16/K17 past the sizes
              their wrappers once refused), float32 and float64, with
@@ -24,7 +26,10 @@ phases:
              H100's peaks) and, where one PyTorch call computes the same
              function, that call's time; then the double-double K23-K26
              (``[dd-kernels]``) at the [dd] phase's shapes, K23-K25 bit for
-             bit and K26 within 1e-14 of max(|A| |B|);
+             bit and K26 within 1e-14 of max(|A| |B|); K22 (1, 8 and 128
+             lanes) and K26 print each case's product plan and repeat bit
+             for bit on a second launch (``product_sweep.py`` times both
+             at 1-256 lanes on each regime);
 4. small     Heat2D nx=17, nt=129, ms=(4, 4): the port on the CPU (plain
              versions) against the port on the GPU (kernels);
 5. main      the full spectral TOMS solve through K1-K4: launch counts,
@@ -108,6 +113,7 @@ is the JSON result.  Numbers are measured in this run on this card.
 
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -441,8 +447,13 @@ def phase_build():
     regs = [ln.strip() for ln in _build.build_log().splitlines() if "registers" in ln]
     print(f"[build] nvcc sm_90a libpymgrit_kernels.so in {seconds:.2f} s "
           f"(nvcc {_build.build_seconds}) | triton {triton.__version__} | ptxas: {' ; '.join(regs)}")
-    # K22 runs its f64 products on the FP64 tensor cores (DMMA); no kernel
-    # of the library uses the other tensor-core paths (HMMA: TF32 and below)
+    print("[build] product tile (csrc/dmma_tile.cuh), ptxas: " + " ; ".join(
+        f"{name}: {regs} registers, spill stores/loads {st}/{ld} B, static smem {sm} B"
+        for name, (regs, st, ld, sm) in tile_ptxas(_build.build_log()).items())
+          + " (dynamic smem: each case's plan)")
+    # K22 and K26 run their f64 products on the FP64 tensor cores (DMMA); no
+    # kernel of the library uses the other tensor-core paths (HMMA: TF32 and
+    # below)
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(_build._lib_dir / "libpymgrit_kernels.so")],
                           capture_output=True, text=True, timeout=300).stdout
@@ -451,13 +462,53 @@ def phase_build():
         if "Function :" in ln:
             fn = ln.split("Function :")[1].strip()
         elif "DMMA" in ln:
-            key = next((k for k in ("eig_step", "dd_matmul") if k in fn), fn)
+            key = tile_owner(fn)
             dmma[key] = dmma.get(key, 0) + 1
         hmma += "HMMA" in ln
     print(f"[build] cuobjdump -sass: DMMA instructions by kernel {dmma} (K22 f64, K26 DD "
           f"products), {hmma} HMMA (TF32 and half precision: none expected)")
     check(dmma.get("eig_step", 0) > 0 and dmma.get("dd_matmul", 0) > 0 and hmma == 0,
           f"build: DMMA {dmma} (K22 and K26 must have some) and {hmma} HMMA in the SASS")
+
+
+# tile_product<E, pair, BM, BN, BK, stages, min blocks> as mangled by nvcc
+TILE_NAME = re.compile(r"tile_productI([df])Lb([01])ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E")
+
+
+def tile_owner(fn):
+    """The kernel a SASS function belongs to: the product tile's float64
+    instantiations are K22's, its double-double ones K26's."""
+    m = TILE_NAME.search(fn)
+    if m is None:
+        return fn
+    return "dd_matmul" if m.group(2) == "1" else "eig_step"
+
+
+def tile_ptxas(log):
+    """{label: (registers, spill store bytes, spill load bytes, static smem
+    bytes)} of the product tile's kernels in the ptxas log."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            m = TILE_NAME.search(ln)
+            r = "reduce_slicesI" in ln
+            if m:
+                e, pair, bm, bn, bk, st, mb = m.groups()
+                kind = "K26 dd" if pair == "1" else f"K22 {'f64' if e == 'd' else 'f32'}"
+                name = f"{kind} {bm}x{bn}x{bk}x{st}"
+            elif r:
+                name = "reduce " + ("dd" if "IdLb1" in ln else "f64" if "IdLb0" in ln else "f32")
+            else:
+                name = None
+        elif name and "spill stores" in ln:
+            nums = re.findall(r"(\d+) bytes", ln)
+            out[name] = [None, int(nums[1]), int(nums[2]), 0]
+        elif name and "Used" in ln and "registers" in ln and name in out:
+            out[name][0] = int(re.search(r"Used (\d+) registers", ln).group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            out[name][3] = int(sm.group(1)) if sm else 0
+            name = None
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def cuda_ms(fn, reps=20, budget_ms=1000.0):
@@ -1114,8 +1165,9 @@ def slice7_cases(dtype, dev, rng, stash):
     new first slot of the same output tube); K21 at [ragged]'s level-0
     shapes (65^2 states: the gather of the 515 C-rows, the drop-scatter of
     the 514 x 13 chain slots into the 4097-row tube, the weighted C-update
-    of 514 rows in place); K22 at 8 and 128 lanes x 2400 (the diffusion
-    example's level-0 F-step and the deep grid's); each with the bytes and
+    of 514 rows in place); K22 at 1, 8 and 128 lanes x 2400 (the deep
+    grid's coarsest march, the diffusion example's level-0 F-step and the
+    deep grid's level 0; each with its product plan); each with the bytes and
     operations its function needs and, where one exists, one PyTorch call
     (index_select / index_copy_ for K21, the two cuBLAS GEMMs for K22)."""
     import torch
@@ -1187,12 +1239,14 @@ def slice7_cases(dtype, dev, rng, stash):
     stash[("library", "indexed_combine")] = stash[("library", "indexed_combine", kc[1][0])]
 
     # K22 at the diffusion example's N = 2400: random tables scaled so that
-    # every output is O(1)
+    # every output is O(1); 1 lane (the deep grid's coarsest march), 8 (the
+    # example's level-0 F-step) and 128 (the deep grid's level 0)
+    from pymgrit_tpu_torch.ops import eig_step as k22_mod
     Ne = 6 * DIFFUSION["n"] ** 2
     W, V = (t(rng.uniform(-1, 1, (Ne, Ne)) / math.sqrt(Ne)) for _ in range(2))
     lam_e = t(rng.uniform(0, 2, Ne))
     xe = t(rng.uniform(-1, 1, (129, Ne)))
-    for Bl in (8, 128):
+    for Bl in (1, 8, 128):
         dt = t(np.full(Bl, 10.0 / 16))
 
         def k22(ops, Bl=Bl, dt=dt):
@@ -1204,6 +1258,7 @@ def slice7_cases(dtype, dev, rng, stash):
         stash[("work", "eig_step", case)] = (8 * (2 * Ne * Ne + 2 * Bl * Ne + Ne + Bl),
                                              4 * Bl * Ne * Ne + 3 * Bl * Ne)
         stash[("library", "eig_step", case)] = lambda x=xe[1:Bl + 1]: (x @ W.T) @ V.T
+        stash[("plan", "eig_step", case)] = k22_mod.plan(xe[1:Bl + 1], W, V)
     stash[("library", "eig_step")] = stash[("library", "eig_step", f"128 lanes N={Ne}")]
     return cases
 
@@ -1224,12 +1279,14 @@ def dd_cases(dev, rng, stash):
     inputs of that size (magnitudes 1e-8 .. 1e8), the cancellation case of
     tests/ops/test_dd.py and Dahlquist's 0-d steps with immediate scalars;
     K26 [dd65]'s two-sided 63 x 63 sine products on 1024 lanes of the
-    65^2 states and Diffusion2D's (8, 2400) @ (2400, 2400) table product.
+    65^2 states and Diffusion2D's (8, 2400) @ (2400, 2400) table product
+    (and the same at 1 and 128 rows), each with its product plan.
     Records each case's bytes (8 a DD value, 4 a float32 one) and float32
     operations (K26: FP64 tensor-core operations) in stash, and K26's
     torch.matmul on the float64 hi + lo operands as its library call."""
     import torch
     from pymgrit_tpu_torch.ops import dd
+    from pymgrit_tpu_torch.ops import dd_matmul as dd_matmul_mod
     from pymgrit_tpu_torch.ops.dirichlet_spectral import sine_eigenbasis
     F, A_ = DD_FLOPS, "add"
 
@@ -1362,20 +1419,25 @@ def dd_cases(dev, rng, stash):
     stash[("library", "dd_matmul", case)] = lambda: torch.matmul(torch.matmul(S64t, b64), S64t)
     stash[("bound_scale", "dd_matmul", case)] = lambda: float(
         (torch.matmul(torch.matmul(S64t.abs(), b64.abs()), S64t.abs())).max())
-    Ne, Bd = 6 * DIFFUSION["n"] ** 2, 8
+    stash[("plan", "dd_matmul", case)] = dd_matmul_mod.plan(Sb, b)
+    # Diffusion2D's DD table product at its 8 rows, and at 1 and 128
+    Ne = 6 * DIFFUSION["n"] ** 2
     W = pair(rng.uniform(-1, 1, (Ne, Ne)) / math.sqrt(Ne))
-    xe = pair(rng.uniform(-1, 1, (Bd, Ne)))
-
-    def table(ops):
-        return ops.dd_matmul(xe[None], W.T[None])
-
-    case = f"Diffusion2D table B={Bd} N={Ne}"
-    cases.append(("dd_matmul", case, table))
-    stash[("work", "dd_matmul", case)] = (8 * (Ne * Ne + 2 * Bd * Ne), 2 * Bd * Ne * Ne)
     W64 = W.hi.double() + W.lo.double()
-    x64 = xe.hi.double() + xe.lo.double()
-    stash[("library", "dd_matmul", case)] = lambda: torch.matmul(x64, W64.T)
-    stash[("bound_scale", "dd_matmul", case)] = lambda: float((x64.abs() @ W64.abs().T).max())
+    for Bd in (8, 1, 128):
+        xe = pair(rng.uniform(-1, 1, (Bd, Ne)))
+
+        def table(ops, xe=xe):
+            return ops.dd_matmul(xe[None], W.T[None])
+
+        case = f"Diffusion2D table B={Bd} N={Ne}"
+        cases.append(("dd_matmul", case, table))
+        stash[("work", "dd_matmul", case)] = (8 * (Ne * Ne + 2 * Bd * Ne), 2 * Bd * Ne * Ne)
+        x64 = xe.hi.double() + xe.lo.double()
+        stash[("library", "dd_matmul", case)] = lambda x64=x64: torch.matmul(x64, W64.T)
+        stash[("bound_scale", "dd_matmul", case)] = lambda x64=x64: float(
+            (x64.abs() @ W64.abs().T).max())
+        stash[("plan", "dd_matmul", case)] = dd_matmul_mod.plan(xe[None], W.T[None])
     return cases
 
 
@@ -1598,6 +1660,12 @@ def phase_kernels():
             check(bool(torch.isfinite(out_k).all()), f"{kernel} {case} {dname}: non-finite output")
             abs_err = float((out_k - out_p).abs().max())
             rel = abs_err / max(float(out_p.abs().max()), 1e-300)
+            plan = stash.get(("plan", kernel, case))
+            if plan is not None:        # the product tile: a second launch gives the same bits
+                same = torch.equal(out_k, run(DISPATCH))
+                print(f"[kernels] {kernel:<20} {case} {dname}: plan {plan.describe()} | "
+                      f"second launch bit for bit: {same}")
+                check(same, f"{kernel} {case} {dname}: a second launch differs")
             del out_k, out_p
             ms_k, ms_p = cuda_ms(lambda: run(DISPATCH)), cuda_ms(lambda: run(PLAIN))
             tol = KERNEL_RTOL_BY_NAME.get(kernel, KERNEL_RTOL)[dname]
@@ -1667,6 +1735,14 @@ def phase_dd_kernels():
             same = [torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
                     for a, b in zip(out_k, out_p)]
             ok, how = all(same), "bitwise hi, lo: " + ", ".join(map(str, same))
+        plan = stash.get(("plan", kernel, case))
+        if plan is not None:            # the product tile: a second launch gives the same bits
+            again = parts(run(DISPATCH))
+            same = all(torch.equal(a, b) for a, b in zip(out_k, again))
+            print(f"[dd-kernels] {kernel:<18} {case}: plan {plan.describe()} | second launch bit "
+                  f"for bit: {same}")
+            check(same, f"{kernel} {case}: a second launch differs")
+            del again
         del out_k, out_p, val_k, val_p
         ms_k, ms_p = cuda_ms(lambda: run(DISPATCH)), cuda_ms(lambda: run(PLAIN))
         work = stash[("work", kernel, case)]
@@ -2883,22 +2959,27 @@ def phase_diffusion(card):
         return problem, time.perf_counter() - t0
 
     def solve(problem, ops, first=False, **kw):
+        """(solver, history, solve wall, K22 calls of the constructor, of
+        the solve)."""
         for p in problem:
             p.ops = ops
         torch.cuda.synchronize()
         if first:
             reset_launch_counts()
+        c0 = launch_counts()["eig_step"]
         mg = P.Mgrit(problem=problem, logging_lvl=30, **kw)
+        c1 = launch_counts()["eig_step"]
         t0 = time.perf_counter()
         mg.solve()
         torch.cuda.synchronize()
-        return mg, mg.conv[1:mg.solve_iter + 1], time.perf_counter() - t0
+        wall = time.perf_counter() - t0
+        return mg, mg.conv[1:mg.solve_iter + 1], wall, c1 - c0, launch_counts()["eig_step"] - c1
 
     problem, setup = build(DIFFUSION["nts"])
     kw = dict(tol=DIFFUSION["tol"], max_iter=DIFFUSION["max_iter"])
-    mk, hk, wk = solve(problem, DISPATCH, first=True, **kw)
+    mk, hk, wk, *calls = solve(problem, DISPATCH, first=True, **kw)
     counts = launch_counts()
-    mp, hp, wp = solve(problem, PLAIN, **kw)
+    mp, hp, wp, *_ = solve(problem, PLAIN, **kw)
     floor = residual_floor(mk, 4 * math.sqrt(6 * DIFFUSION["n"] ** 2) + FLOOR_OPS)
     ok_p, err_p = histories_agree(hk, hp, floor, MAIN_RTOL)
     ok_j, err_j = histories_agree(hk, DIFFUSION_JAX, floor, GOLDEN_RTOL)
@@ -2906,7 +2987,8 @@ def phase_diffusion(card):
           f"nt {DIFFUSION['nts']} f64: setup (assembly + eigh, {len(problem)} models) {setup:.2f} s | "
           f"history {[float(f'{h:.6e}') for h in hk]}; vs the JAX history max diff {err_j:.3e} (rtol "
           f"{GOLDEN_RTOL:.0e}); vs plain (GPU) {err_p:.3e}; atol floor {floor:.2e} | K22 launches "
-          f"{counts['eig_step']} | solve wall kernel {wk:.4f} s, plain {wp:.4f} s | "
+          f"{counts['eig_step']} (constructor {calls[0]}, solve {calls[1]}) | solve wall kernel "
+          f"{wk:.4f} s, plain {wp:.4f} s | "
           f"{'ok' if ok_p and ok_j else 'FAIL'} | {card}")
     check(counts["eig_step"] > 0, f"diffusion: K22 never ran: {counts}")
     check(ok_p and ok_j, f"diffusion: history {hk} differs from plain {hp} or JAX {DIFFUSION_JAX}")
@@ -2919,10 +3001,10 @@ def phase_diffusion(card):
     walls = {"kernel": [], "plain": []}
     hists, counts_deep = {}, None
     for path in ("plain", "kernel", "kernel", "plain"):
-        mg, h, wall = solve(problem, DISPATCH if path == "kernel" else PLAIN,
-                            first=path == "kernel" and counts_deep is None, **kw)
+        mg, h, wall, *c = solve(problem, DISPATCH if path == "kernel" else PLAIN,
+                                first=path == "kernel" and counts_deep is None, **kw)
         if path == "kernel" and counts_deep is None:
-            counts_deep, kept = launch_counts(), mg
+            counts_deep, kept, calls = launch_counts(), mg, c
         walls[path].append(wall)
         hists.setdefault(path, h)
     hk, hp = hists["kernel"], hists["plain"]
@@ -2937,7 +3019,8 @@ def phase_diffusion(card):
           f"history {[float(f'{h:.6e}') for h in hk]}; kernel vs plain (GPU) max diff {err_p:.3e} "
           f"(rtol {MAIN_RTOL:.0e}, atol floor {floor:.2e}) | total mass first {m0:.15e}, last "
           f"{m1:.15e} (rel diff {abs(m1 - m0) / abs(m0):.2e}, tol {MASS_RTOL:.0e}) | K22 launches "
-          f"{counts_deep['eig_step']} | solve wall {fmt_walls(walls)} | "
+          f"{counts_deep['eig_step']} (constructor {calls[0]}, solve {calls[1]}) | solve wall "
+          f"{fmt_walls(walls)} | "
           f"{'ok' if ok_p and ok_m else 'FAIL'} | {card}")
     check(counts_deep["eig_step"] > 0, f"diffusion deep: K22 never ran: {counts_deep}")
     check(tuple(tube.shape) == (cfg["nt"], 6 * cfg["n"] ** 2) and bool(torch.isfinite(tube).all()),
@@ -3110,7 +3193,7 @@ def profile_cells(card):
     import torch
     from torch.profiler import ProfilerActivity, profile
     import pymgrit_tpu_torch as P
-    from pymgrit_tpu_torch.ops import DISPATCH
+    from pymgrit_tpu_torch.ops import DISPATCH, launch_counts, reset_launch_counts
 
     def solver(model, cfg, name="scan", k=0, **kw):
         def run():
@@ -3168,6 +3251,7 @@ def profile_cells(card):
         build().solve()
         mg = build()
         torch.cuda.synchronize()
+        reset_launch_counts()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             h = mg.solve()["conv"]
@@ -3181,11 +3265,22 @@ def profile_cells(card):
         launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                                             "cuLaunchKernelEx"))
         syncs = sum(e.count for e in events if "Synchronize" in e.key)
+        calls = launch_counts()
+        # K22 and K26 calls against the product tile's device kernels they
+        # launched in the same window (a call: one or two products, each
+        # with a reduction pass where its plan splits the inner index)
+        tile = {k: (sum(e.count for e in dev if k in e.key),
+                    sum(device_us(e) for e in dev if k in e.key) / 1e3)
+                for k in ("tile_product", "reduce_slices")}
         print(f"[profile] {label}: {h.size} iterations, profiled solve {wall * 1e3:.1f} ms, device "
               f"busy {busy:.1f} ms, idle {100 * (1 - busy / (wall * 1e3)):.1f} % | leading device "
               "time " + "; ".join(f"{e.key[:48]} {device_us(e) / 1e3:.2f} ms ({e.count})"
                                   for e in top)
-              + f" | host: {launches} kernel launches, {syncs} synchronisations | {card}")
+              + f" | host: {launches} kernel launches, {syncs} synchronisations"
+              + (f" | product tile: {calls['eig_step']} K22 and {calls['dd_matmul']} K26 calls, "
+                 f"{tile['tile_product'][0]} product kernels {tile['tile_product'][1]:.2f} ms, "
+                 f"{tile['reduce_slices'][0]} reductions {tile['reduce_slices'][1]:.2f} ms"
+                 if calls["eig_step"] + calls["dd_matmul"] else "") + f" | {card}")
         del mg, prof
         torch.cuda.empty_cache()
 

@@ -49,7 +49,7 @@ _SIGNATURES = {
     "pm_circulant_solve1d": [_P, _I, _P, _P, _I, _I, _P, _I, _I, _D, _I, _I, _I, _P],
     "pm_sine_solve1d": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                         _I, _I, _P],
-    "pm_eig_step": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "pm_eig_step": [_P, _P],
 }
 # the float32-pair (double-double) launchers: one symbol each, no dtype suffix
 _DD_SIGNATURES = {
@@ -57,7 +57,7 @@ _DD_SIGNATURES = {
     "pm_dd_interval_affine": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P,
                               _I, _P],
     "pm_dd_theta_chain": [_P, _P, _D, _P, _P],
-    "pm_dd_matmul": [_P, _P, _P, _P],
+    "pm_dd_matmul": [_P, _P],
 }
 
 _lib = None
@@ -126,6 +126,14 @@ def build_log() -> str:
     library()
     log = _lib_dir / "build.log"
     return log.read_text() if log.exists() else ""
+
+
+def stream(index: int) -> int:
+    """The raw cudaStream_t of the current stream of CUDA device ``index``
+    (what ``torch.cuda.current_stream(d).cuda_stream`` gives, without
+    building a Stream object on every launch)."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check(status: int, name: str) -> None:

@@ -1,9 +1,10 @@
 // K26 dd_matmul: batched products C_b = A_b B_b of double-double operands
 // (float32 pairs hi + lo) on the FP64 tensor cores.  Each operand value is
-// formed as the exact float64 hi + lo while it is staged, the products
-// accumulate in float64 with mma.sync.aligned.m8n8k4.row.col.f64 (DMMA, K22's
-// tile), and the epilogue splits each float64 sum into its DD pair
-// (hi = fl32(c), lo = fl32(c - hi), the JAX package's from_f64).
+// formed as the exact float64 hi + lo when its fragment is read from shared
+// memory, the products accumulate in float64 with
+// mma.sync.aligned.m16n8k4.row.col.f64 (DMMA), and the epilogue splits each
+// float64 sum into its DD pair (hi = fl32(c), lo = fl32(c - hi), the JAX
+// package's from_f64).
 //
 // Replaces: pymgrit_tpu/ops/ozaki.py matmul_dd (:84-162), the Ozaki-scheme
 // DD product the JAX package runs on the TPU's bf16 MXU because that chip
@@ -16,136 +17,63 @@
 //
 // Bound: operations, 2 M N K a product at the tensor cores' 67 TFLOP/s, or
 // the bytes of the operands (8 a DD value) where the batch is small.
-// Design: K22's plain block tile, no TMA or pipelining: 128 threads (2 x 2
-// warps) own a 64 x 64 tile of one product (blockIdx.z walks the batch),
-// walk the contraction in k-tiles of 16 staged through shared memory as
-// float64 (rows padded to 20 values), and each warp holds 32 x 32 outputs as
-// 4 x 4 m8n8 accumulators.  Every operand is addressed by element strides
-// (batch, row, column; 0 for a broadcast batch), so a transposed table or a
-// strided tube view needs no copy; B stages along whichever of its axes is
-// contiguous.  Rows, columns and contraction indices past the edge stage as
-// zeros and are not written.
+// Design: the shared FP64 product tile (dmma_tile.cuh) with the plan the
+// wrapper picks (ops/product_tile.py::product_plan): hi and lo staged side
+// by side through one cp.async ring; a few-row product (Diffusion2D's 8
+// lanes against its table) puts its long axis on the tile's M side and is
+// split along the inner index into float64 partials, summed in slice order
+// by a second pass that also splits the sums into pairs; the batched small
+// products take one 64 x 64 tile each (blockIdx.z walks the batch) with no
+// split.  Every operand is addressed by element strides (batch, row,
+// column; 0 for a broadcast batch), so a transposed table or a strided tube
+// view needs no copy: each stages along whichever of its axes is
+// contiguous, with 16-byte copies where its rows are 16-byte aligned and
+// 4-byte copies otherwise (the 63-wide rows of the Heat2D products).  Rows,
+// columns and contraction indices past the edge stage as zeros and are not
+// written.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-namespace {
-
-constexpr int kBM = 64;
-constexpr int kBN = 64;
-constexpr int kBK = 16;
-constexpr int kLd = kBK + 4;
-constexpr int kThreads = 128;
-
-struct Mat {
-  const float *hi, *lo;
-  int64_t sb, sr, sc;     // batch, row, column strides (elements)
-};
-
-struct Args {
-  Mat a, b;
-  float *ch, *cl;
-  int64_t scb, scr, scc;
-  int64_t batch, M, N, K;
-};
-
-__device__ __forceinline__ void dmma(double (&d)[2], double a, double b) {
-  asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};\n"
-               : "+d"(d[0]), "+d"(d[1])
-               : "d"(a), "d"(b));
-}
-
-__device__ __forceinline__ double value(const Mat& m, int64_t off) {
-  return __dadd_rn((double)m.hi[off], (double)m.lo[off]);
-}
-
-__global__ void __launch_bounds__(kThreads) dd_matmul_kernel(const Args p) {
-  __shared__ double As[kBM][kLd];
-  __shared__ double Bs[kBN][kLd];
-  const int64_t row0 = (int64_t)blockIdx.y * kBM;
-  const int64_t col0 = (int64_t)blockIdx.x * kBN;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
-  const int g = lane >> 2, q = lane & 3;
-  const bool b_k_fast = p.b.sr == 1;
-  for (int64_t z = blockIdx.z; z < p.batch; z += gridDim.z) {
-    const int64_t abase = z * p.a.sb, bbase = z * p.b.sb;
-    double acc[4][4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = 0.0;
-    for (int64_t k0 = 0; k0 < p.K; k0 += kBK) {
-      for (int e = threadIdx.x; e < kBM * kBK; e += kThreads) {
-        const int r = e / kBK, k = e % kBK;
-        const int64_t row = row0 + r, kk = k0 + k;
-        As[r][k] = (row < p.M && kk < p.K) ? value(p.a, abase + row * p.a.sr + kk * p.a.sc) : 0.0;
-        const int c = b_k_fast ? e / kBK : e % kBN;
-        const int kb = b_k_fast ? e % kBK : e / kBN;
-        const int64_t col = col0 + c, kkb = k0 + kb;
-        Bs[c][kb] = (col < p.N && kkb < p.K) ? value(p.b, bbase + kkb * p.b.sr + col * p.b.sc) : 0.0;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int ks = 0; ks < kBK; ks += 4) {
-        double a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = As[wm + i * 8 + g][ks + q];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = Bs[wn + j * 8 + g][ks + q];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) dmma(acc[i][j], a[i], b[j]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int64_t row = row0 + wm + i * 8 + g, col = col0 + wn + j * 8 + 2 * q + h;
-          if (row < p.M && col < p.N) {
-            const double v = acc[i][j][h];
-            const float hi = __double2float_rn(v);
-            const int64_t o = z * p.scb + row * p.scr + col * p.scc;
-            p.ch[o] = hi;
-            p.cl[o] = __double2float_rn(__dsub_rn(v, (double)hi));
-          }
-        }
-  }
-}
-
-}  // namespace
+#include "dmma_tile.cuh"
 
 extern "C" {
 
-// ptrs: A hi, lo; B hi, lo; C hi, lo.  strides: A (batch, row, column),
-// B (...), C (...).  dims: batch, M, N, K.
-int pm_dd_matmul(void* const* ptrs, const int64_t* strides, const int64_t* dims, void* stream) {
-  Args p;
-  p.a = Mat{static_cast<const float*>(ptrs[0]), static_cast<const float*>(ptrs[1]), strides[0],
-            strides[1], strides[2]};
-  p.b = Mat{static_cast<const float*>(ptrs[2]), static_cast<const float*>(ptrs[3]), strides[3],
-            strides[4], strides[5]};
-  p.ch = static_cast<float*>(ptrs[4]);
-  p.cl = static_cast<float*>(ptrs[5]);
-  p.scb = strides[6];
-  p.scr = strides[7];
-  p.scc = strides[8];
-  p.batch = dims[0];
-  p.M = dims[1];
-  p.N = dims[2];
-  p.K = dims[3];
-  if (p.batch == 0 || p.M == 0 || p.N == 0) return 0;
-  const int64_t col_tiles = (p.N + kBN - 1) / kBN, row_tiles = (p.M + kBM - 1) / kBM;
-  if (col_tiles > 0x7fffffff || row_tiles > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)col_tiles, (unsigned)row_tiles,
-                  (unsigned)(p.batch < 65535 ? p.batch : 65535));
-  dd_matmul_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+// args (int64): the pointers A hi, lo, B hi, lo, C hi, lo, workspace; the
+// strides A (batch, row, column), B (...), C (...); batch, M, N, K; then the
+// plan: swap, bm, bn, bk, stages, splits, kps, copy bytes of the tile's A
+// side and of its B side, blocks walking the batch.
+int pm_dd_matmul(const int64_t* args, void* stream) {
+  void* ptrs[7];
+  for (int i = 0; i < 7; ++i) ptrs[i] = reinterpret_cast<void*>(args[i]);
+  const int64_t* strides = args + 7;
+  const int64_t batch = args[16], M = args[17], N = args[18], K = args[19];
+  const int64_t* plan = args + 20;
+  if (batch == 0 || M == 0 || N == 0) return 0;
+  const bool swap = plan[0] != 0;
+  const pm_tile::Plan pl{(int)plan[1], (int)plan[2], (int)plan[3], (int)plan[4], (int)plan[5],
+                         plan[6], (int)plan[9]};
+  const int chunk_a = (int)(plan[7] / 4), chunk_b = (int)(plan[8] / 4);
+  // A as (M x K) rows; B as B^T, (N x K) rows
+  const pm_tile::Operand a{ptrs[0], ptrs[1], strides[0], strides[1], strides[2], M, 0};
+  const pm_tile::Operand bt{ptrs[2], ptrs[3], strides[3], strides[5], strides[4], N, 0};
+  pm_tile::Args p{};
+  // with swap the tile computes C^T = B^T A^T, the long axis N on its M side
+  p.a = swap ? bt : a;
+  p.b = swap ? a : bt;
+  p.a.chunk = chunk_a;
+  p.b.chunk = chunk_b;
+  p.batch = batch;
+  p.M = swap ? N : M;
+  p.N = swap ? M : N;
+  p.K = K;
+  p.ws = ptrs[6];
+  p.epi.c0 = ptrs[4];
+  p.epi.c1 = ptrs[5];
+  p.epi.sb = strides[6];
+  p.epi.sr = swap ? strides[8] : strides[7];
+  p.epi.sc = swap ? strides[7] : strides[8];
+  return (int)pm_tile::product<float, true>(p, pl, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -9,204 +9,96 @@
 // dense products around the diagonal scale, lines 195-198), which the JAX
 // package vmaps over the C-points and F-chains and leaves to XLA's dot.
 //
-// Bound: at 8 lanes the bytes of the two tables (2 N^2 values, 92 MB at
-// N = 2400) over the memory rate; at 128 lanes the 4 B N^2 operations over
-// the FP64 tensor-core rate.  Design: each product C = A M^T (A the (B x N)
-// lanes, M a row-major table) runs on the FP64 tensor cores with
-// mma.sync.aligned.m8n8k4.row.col.f64 (DMMA): M^T is M read column-major,
-// the layout the instruction's B operand takes, so both operands stage
-// along the contiguous inner index.  A block of 128 threads (2 x 2 warps)
-// owns a 64 x 64 output tile and walks the inner index in k-tiles of 16
-// staged through shared memory (rows padded to 20 values: a half-warp's
-// fragment loads hit 16 distinct 8-byte banks); each warp holds a 32 x 32
-// tile as 4 x 4 m8n8 accumulators.  Any B, N and lane stride: rows, columns
-// and inner indices past the edge stage as zeros and are not written.  The
-// first launch divides by 1 + dt_b lam_j in its epilogue (explicitly
-// rounded, as the plain version rounds it) into a (B x N) workspace; the
-// second writes the output.  No TMA, no pipelining: a plain block tile.
-// The float32 instantiation runs the same tiles on the CUDA cores (FFMA,
-// 4 x 8 outputs a thread); it never uses TF32.
+// Bound: below about 80 lanes the bytes of the two tables (2 N^2 values,
+// 92 MB at N = 2400) over the memory rate (a product of B lanes does B / 4
+// operations a table byte, the FP64 tensor cores' ridge is ~20); above, the
+// 4 B N^2 operations over the FP64 tensor-core rate.  Design: the two
+// products work = (x W^T) / (1 + dt lam) and y = work V^T run on the shared
+// FP64 product tile (dmma_tile.cuh) with the plan the wrapper picks
+// (ops/product_tile.py::product_plan): the table on the tile's M side and
+// the lanes on its N side (8 wide at few lanes: the table is streamed once
+// through a cp.async ring, split along the inner index so that every SM
+// holds two blocks; 64 wide above), float64 partials summed in slice
+// order by a second pass that also applies the scale, explicitly rounded as
+// the plain version rounds it.  The float32 instantiation runs the same plan
+// on the CUDA cores (FFMA); it never uses TF32.  x is read by the first
+// product before the second writes y, so out may be x.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "dmma_tile.cuh"
+
 namespace {
 
-constexpr int kBM = 64;        // lanes a block
-constexpr int kBN = 64;        // output columns a block
-constexpr int kBK = 16;        // inner index a stage
-constexpr int kThreads = 128;
+using pm_tile::Args;
+using pm_tile::Operand;
+using pm_tile::Plan;
 
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-
-// d += a b for one m8n8k4 f64 fragment: a = A[g][q], b = B[q][g] (B = M^T,
-// so b = M[g][q]), d = C[g][2q], C[g][2q + 1], with g = lane / 4, q = lane % 4
-__device__ __forceinline__ void dmma(double (&d)[2], double a, double b) {
-  asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};\n"
-               : "+d"(d[0]), "+d"(d[1])
-               : "d"(a), "d"(b));
-}
-
-// Stage A[row0 .. row0+63][k0 .. k0+15] and M[col0 .. col0+63][k0 .. k0+15]
-// (zeros past the edges).
-template <typename T, int kLd>
-__device__ __forceinline__ void stage(T (*As)[kLd], T (*Ms)[kLd], const T* __restrict__ A,
-                                      int64_t sa, const T* __restrict__ M, int64_t N,
-                                      int64_t B, int64_t row0, int64_t col0, int64_t k0) {
-  for (int e = threadIdx.x; e < kBM * kBK; e += kThreads) {
-    const int r = e / kBK, k = e % kBK;
-    const int64_t kk = k0 + k;
-    const int64_t b = row0 + r, j = col0 + r;
-    As[r][k] = (b < B && kk < N) ? A[b * sa + kk] : T(0);
-    Ms[r][k] = (j < N && kk < N) ? M[j * N + kk] : T(0);
-  }
-}
-
-template <typename T, bool kScale>
-__device__ __forceinline__ void emit(T v, int64_t b, int64_t j, int64_t B, int64_t N,
-                                     const T* __restrict__ dt, const T* __restrict__ lam,
-                                     T* __restrict__ C, int64_t sc) {
-  if (b >= B || j >= N) return;
-  if (kScale) v = v / add_rn(T(1), mul_rn(dt[b], lam[j]));
-  C[b * sc + j] = v;
-}
-
-// C = A M^T [/ (1 + dt lam)] in double on the FP64 tensor cores.
-template <bool kScale>
-__global__ void __launch_bounds__(kThreads)
-    dmma_product(const double* __restrict__ A, int64_t sa, const double* __restrict__ M,
-                 int64_t N, int64_t B, const double* __restrict__ dt,
-                 const double* __restrict__ lam, double* __restrict__ C, int64_t sc) {
-  constexpr int kLd = kBK + 4;
-  __shared__ double As[kBM][kLd];
-  __shared__ double Ms[kBN][kLd];
-  const int64_t row0 = (int64_t)blockIdx.y * kBM;
-  const int64_t col0 = (int64_t)blockIdx.x * kBN;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
-  const int g = lane >> 2, q = lane & 3;
-  double acc[4][4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = 0.0;
-  for (int64_t k0 = 0; k0 < N; k0 += kBK) {
-    stage<double, kLd>(As, Ms, A, sa, M, N, B, row0, col0, k0);
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < kBK; ks += 4) {
-      double a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[wm + i * 8 + g][ks + q];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Ms[wn + j * 8 + g][ks + q];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) dmma(acc[i][j], a[i], b[j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        emit<double, kScale>(acc[i][j][h], row0 + wm + i * 8 + g, col0 + wn + j * 8 + 2 * q + h,
-                             B, N, dt, lam, C, sc);
-}
-
-// C = A M^T [/ (1 + dt lam)] in float on the CUDA cores (FFMA; no TF32):
-// thread (ty, tx) owns rows ty + 8 i and columns tx + 16 j.
-template <bool kScale>
-__global__ void __launch_bounds__(kThreads)
-    ffma_product(const float* __restrict__ A, int64_t sa, const float* __restrict__ M,
-                 int64_t N, int64_t B, const float* __restrict__ dt,
-                 const float* __restrict__ lam, float* __restrict__ C, int64_t sc) {
-  constexpr int kLd = kBK + 1;
-  __shared__ float As[kBM][kLd];
-  __shared__ float Ms[kBN][kLd];
-  const int64_t row0 = (int64_t)blockIdx.y * kBM;
-  const int64_t col0 = (int64_t)blockIdx.x * kBN;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float acc[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-  for (int64_t k0 = 0; k0 < N; k0 += kBK) {
-    stage<float, kLd>(As, Ms, A, sa, M, N, B, row0, col0, k0);
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      float a[8], b[4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = As[ty + 8 * i][k];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Ms[tx + 16 * j][k];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      emit<float, kScale>(acc[i][j], row0 + ty + 8 * i, col0 + tx + 16 * j, B, N, dt, lam, C,
-                          sc);
-}
-
-template <bool kScale>
-void product(const double* A, int64_t sa, const double* M, int64_t N, int64_t B,
-             const double* dt, const double* lam, double* C, int64_t sc, dim3 grid,
-             cudaStream_t s) {
-  dmma_product<kScale><<<grid, kThreads, 0, s>>>(A, sa, M, N, B, dt, lam, C, sc);
-}
-
-template <bool kScale>
-void product(const float* A, int64_t sa, const float* M, int64_t N, int64_t B, const float* dt,
-             const float* lam, float* C, int64_t sc, dim3 grid, cudaStream_t s) {
-  ffma_product<kScale><<<grid, kThreads, 0, s>>>(A, sa, M, N, B, dt, lam, C, sc);
-}
-
+// args (int64): x, its lane stride, W, V, lam, dt, work, workspace, y, its
+// lane stride, B, N, then the plan: swap, bm, bn, bk, stages, splits, kps,
+// copy bytes of the tile's A side and of its B side (with swap the table's
+// and the lanes', else the lanes' and the table's), batch walkers (1)
 template <typename T>
-int launch(const T* x, int64_t sx, const T* W, const T* V, const T* lam, const T* dt, T* work,
-           T* y, int64_t sy, int64_t B, int64_t N, void* stream) {
+int launch(const int64_t* args, void* stream) {
+  const T* x = reinterpret_cast<const T*>(args[0]);
+  const int64_t sx = args[1];
+  const T* W = reinterpret_cast<const T*>(args[2]);
+  const T* V = reinterpret_cast<const T*>(args[3]);
+  const T* lam = reinterpret_cast<const T*>(args[4]);
+  const T* dt = reinterpret_cast<const T*>(args[5]);
+  T* work = reinterpret_cast<T*>(args[6]);
+  T* ws = reinterpret_cast<T*>(args[7]);
+  T* y = reinterpret_cast<T*>(args[8]);
+  const int64_t sy = args[9], B = args[10], N = args[11];
+  const int64_t* plan = args + 12;
   if (B == 0 || N == 0) return 0;
-  const int64_t col_tiles = (N + kBN - 1) / kBN;
-  const int64_t row_tiles = (B + kBM - 1) / kBM;
-  if (col_tiles > 0x7fffffff || row_tiles > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)col_tiles, (unsigned)row_tiles);
+  const bool swap = plan[0] != 0;
+  const Plan pl{(int)plan[1], (int)plan[2], (int)plan[3], (int)plan[4], (int)plan[5], plan[6],
+                (int)plan[9]};
+  const int chunk_a = (int)(plan[7] / (int64_t)sizeof(T));
+  const int chunk_b = (int)(plan[8] / (int64_t)sizeof(T));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // work = (x W^T) / (1 + dt lam), then y = work V^T
-  product<true>(x, sx, W, N, B, dt, lam, work, N, grid, s);
-  cudaError_t e = cudaGetLastError();
+  // one product C = L M^T of the (B x N) lanes L and a table M; with swap
+  // the tile computes C^T = M L^T, the table on its M side
+  auto product = [&](const T* L, int64_t sl, const T* M, T* C, int64_t sc,
+                     bool scale) -> cudaError_t {
+    const Operand lanes{L, nullptr, 0, sl, 1, B, 0};
+    const Operand table{M, nullptr, 0, N, 1, N, 0};
+    Args p{};
+    p.a = swap ? table : lanes;
+    p.b = swap ? lanes : table;
+    p.a.chunk = chunk_a;
+    p.b.chunk = chunk_b;
+    p.batch = 1;
+    p.M = swap ? N : B;
+    p.N = swap ? B : N;
+    p.K = N;
+    p.ws = ws;
+    p.epi.c0 = C;
+    p.epi.sr = swap ? 1 : sc;
+    p.epi.sc = swap ? sc : 1;
+    if (scale) {
+      p.epi.dt = dt;
+      p.epi.lam = lam;
+      p.epi.dt_r = swap ? 0 : 1;
+      p.epi.dt_c = swap ? 1 : 0;
+      p.epi.lam_r = swap ? 1 : 0;
+      p.epi.lam_c = swap ? 0 : 1;
+    }
+    return pm_tile::product<T, false>(p, pl, s);
+  };
+  cudaError_t e = product(x, sx, W, work, N, true);
   if (e != cudaSuccess) return (int)e;
-  product<false>(work, N, V, N, B, (const T*)nullptr, (const T*)nullptr, y, sy, grid, s);
-  return (int)cudaGetLastError();
+  return (int)product(work, N, V, y, sy, false);
 }
 
 }  // namespace
 
 extern "C" {
 
-int pm_eig_step_f64(const double* x, int64_t sx, const double* W, const double* V,
-                    const double* lam, const double* dt, double* work, double* y, int64_t sy,
-                    int64_t B, int64_t N, void* stream) {
-  return launch<double>(x, sx, W, V, lam, dt, work, y, sy, B, N, stream);
-}
+int pm_eig_step_f64(const int64_t* args, void* stream) { return launch<double>(args, stream); }
 
-int pm_eig_step_f32(const float* x, int64_t sx, const float* W, const float* V,
-                    const float* lam, const float* dt, float* work, float* y, int64_t sy,
-                    int64_t B, int64_t N, void* stream) {
-  return launch<float>(x, sx, W, V, lam, dt, work, y, sy, B, N, stream);
-}
+int pm_eig_step_f32(const int64_t* args, void* stream) { return launch<float>(args, stream); }
 
 }  // extern "C"

@@ -34,15 +34,20 @@ def _require(cond: bool, name: str, msg: str) -> None:
 
 
 def _check_operands(name: str, tensors: dict) -> None:
-    """Common checks against the first tensor's dtype and device."""
+    """Common checks against the first tensor's dtype and device (each
+    message is formatted only when its check fails: this runs on every
+    launch)."""
     ref = next(iter(tensors.values()))
-    _require(ref.dtype in _FLOATS, name, f"dtype {ref.dtype} is not float32/float64")
+    dtype, device, index = ref.dtype, ref.device, ref.get_device()
+    _require(dtype in _FLOATS, name, f"dtype {dtype} is not float32/float64")
     for key, t in tensors.items():
-        _require(t.dtype == ref.dtype, name, f"{key} has dtype {t.dtype}, expected {ref.dtype}")
-        _require(t.device == ref.device, name, f"{key} is on {t.device}, expected {ref.device}")
-        _require(t.shape[-1] <= 1 or t.stride(-1) == 1, name,
-                 f"{key} must be contiguous in its last axis")
-    _require(ref.device.type in ("cpu", "cuda"), name, f"unsupported device {ref.device}")
+        if t.dtype != dtype:
+            _require(False, name, f"{key} has dtype {t.dtype}, expected {dtype}")
+        if t.get_device() != index or t.device.type != device.type:
+            _require(False, name, f"{key} is on {t.device}, expected {device}")
+        if t.shape[-1] > 1 and t.stride(-1) != 1:
+            _require(False, name, f"{key} must be contiguous in its last axis")
+    _require(device.type in ("cpu", "cuda"), name, f"unsupported device {device}")
 
 
 def _launcher(name: str, dtype: torch.dtype):

@@ -1499,3 +1499,141 @@ def test_small_dd_solve_on_card_matches_cpu(cuda, basis):
         assert torch.equal(tg.view(torch.int32), tc.view(torch.int32))
     else:
         assert float((tg.double() - tc.double()).abs().max()) <= 1e-12
+
+
+# ---------------------------------------------------------------------------
+# K22 and K26 on each regime of the shared FP64 product tile
+# (ops/product_tile.py::product_plan): the skinny tiles with their split of
+# the inner index, the wide tile with and without one, aligned (16-byte) and
+# unaligned (8- and 4-byte) copies, K-major and row-major operands.  Held
+# to K22's tolerance (normwise 1e-12 in float64, 1e-4 in float32: the
+# products sum ~sqrt(N) roundings in another order than cuBLAS) and to
+# K26's (1e-14 of max |A| |B|); a second launch of the same call gives the
+# same bits (the slices are summed in order, no atomics).
+
+EIG_RTOL = {torch.float64: 1e-12, torch.float32: 1e-4}
+NE = 600               # table side: wide enough to split the inner index
+
+
+def _eig_operands(dtype, dev, lanes, aligned):
+    rng = np.random.default_rng(90 + lanes)
+    W, V = (torch.as_tensor(rng.uniform(-1, 1, (NE, NE)) / NE ** 0.5, dtype=dtype, device=dev)
+            for _ in range(2))
+    lam = torch.as_tensor(rng.uniform(0, 2, NE), dtype=dtype, device=dev)
+    dt = torch.as_tensor(rng.uniform(0.1, 1.0, lanes), dtype=dtype, device=dev)
+    # strided lanes: every other row of a wider buffer; unaligned: an odd
+    # row stride and a one-element offset (8-byte, float32 4-byte copies)
+    buf = torch.as_tensor(rng.uniform(-1, 1, (2 * lanes, NE + 3)), dtype=dtype, device=dev)
+    x = buf[::2, :NE] if aligned else buf[::2, 1:NE + 1]
+    return x, W, V, lam, dt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("lanes", [1, 3, 8, 16, 70, 128, 257])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_eig_step_plans_on_card(cuda, dtype, lanes, aligned):
+    from pymgrit_tpu_torch.ops import eig_step
+    x, W, V, lam, dt = _eig_operands(dtype, cuda, lanes, aligned)
+    plan = eig_step.plan(x, W, V)
+    # the lanes' copies: 16 bytes where every lane row starts 16-byte aligned
+    # (a float32 row stride of 1206 elements is only 8-byte aligned; one
+    # lane has no stride), one element where the rows start off by one
+    es = x.element_size()
+    want_copy = (16 if lanes == 1 or es == 8 else 8) if aligned else es
+    assert plan.swap and plan.copy[1] == want_copy, plan.describe()
+    want = eig_step.eig_step_plain(x, torch.empty_like(x), W, V, lam, dt)
+    before = eig_step.eig_step.launches
+    got = eig_step.eig_step(x, torch.empty_like(x), W, V, lam, dt)
+    again = eig_step.eig_step(x, torch.empty_like(x), W, V, lam, dt)
+    x_in = x.clone()
+    inplace = eig_step.eig_step(x, x, W, V, lam, dt)          # out = x
+    torch.cuda.synchronize()
+    assert eig_step.eig_step.launches == before + 3
+    err = float((got - want).abs().max())
+    assert err <= EIG_RTOL[dtype] * float(want.abs().max()), (plan.describe(), err)
+    assert torch.equal(got, again), plan.describe()
+    assert torch.equal(inplace, got), plan.describe()
+    assert not torch.equal(x, x_in)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("ne", [6, 24])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_eig_step_lanes_past_the_table_on_card(cuda, dtype, ne, aligned):
+    """64 lanes of a table 6 or 24 wide: the lanes are the long axis (no
+    swap), so the tile's A side is the lanes and its B side the table, each
+    copied at its own width (lanes off by one element: element copies)."""
+    from pymgrit_tpu_torch.ops import eig_step
+    lanes = 64
+    rng = np.random.default_rng(92 + ne)
+    W, V = (torch.as_tensor(rng.uniform(-1, 1, (ne, ne)) / ne ** 0.5, dtype=dtype, device=cuda)
+            for _ in range(2))
+    lam = torch.as_tensor(rng.uniform(0, 2, ne), dtype=dtype, device=cuda)
+    dt = torch.as_tensor(rng.uniform(0.1, 1.0, lanes), dtype=dtype, device=cuda)
+    buf = torch.as_tensor(rng.uniform(-1, 1, (lanes, ne + 2)), dtype=dtype, device=cuda)
+    x = buf[:, :ne] if aligned else buf[:, 1:ne + 1]
+    plan = eig_step.plan(x, W, V)
+    assert not plan.swap and (aligned or plan.copy[0] == x.element_size()), plan.describe()
+    want = eig_step.eig_step_plain(x, torch.empty_like(x), W, V, lam, dt)
+    got = eig_step.eig_step(x, torch.empty_like(x), W, V, lam, dt)
+    again = eig_step.eig_step(x, torch.empty_like(x), W, V, lam, dt)
+    inplace = eig_step.eig_step(x, x, W, V, lam, dt)          # out = x
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    assert err <= EIG_RTOL[dtype] * float(want.abs().max()), (plan.describe(), err)
+    assert torch.equal(got, again) and torch.equal(inplace, got), plan.describe()
+
+
+def _dd_product_cases(dev):
+    """(label, a, b) DD operands: the 63-wide Heat2D products (rows 252 B,
+    4-byte copies; S broadcast over the batch with stride 0; each block
+    walks several entries; B row-major,
+    b.sr != 1), Diffusion2D's table product at 1, 8 and 128 rows (b = W^T,
+    b.sr == 1, split inner index), an inner length that is no multiple of a
+    k-tile or of the ring, a row-major A and an operand with no unit
+    stride (element copies)."""
+    from pymgrit_tpu_torch.ops import dd
+    rng = np.random.default_rng(91)
+
+    def pair(a):
+        return dd.from_f64(np.ascontiguousarray(a), dev)
+
+    n2, Bn = 63, 900      # more entries than a wave of blocks: each block walks several
+    S = pair(sine_eigenbasis(n2, (n2 + 1.0) ** 2)[0])
+    states = pair(rng.uniform(-1, 1, (Bn, n2 + 2, n2 + 2)))
+    W = pair(rng.uniform(-1, 1, (NE, NE)) / NE ** 0.5)
+    cases = [("63-wide S @ states", S.expand(Bn, n2, n2), states[:, 1:-1, 1:-1]),
+             ("63-wide states @ S", states[:, 1:-1, 1:-1], S.expand(Bn, n2, n2))]
+    for rows in (1, 8, 128):
+        cases.append((f"table {rows} rows", pair(rng.uniform(-1, 1, (1, rows, NE))), W.T[None]))
+    odd = pair(rng.uniform(-1, 1, (3, 70, 37)))
+    cases.append(("K = 37", odd, pair(rng.uniform(-1, 1, (3, 37, 50)))))
+    at = pair(rng.uniform(-1, 1, (2, 300, 90)))
+    cases.append(("row-major A", dd._raw(at.hi.transpose(1, 2), at.lo.transpose(1, 2)),
+                  pair(rng.uniform(-1, 1, (2, 300, 20)))))
+    wide = pair(rng.uniform(-1, 1, (2, 45, 2 * 33)))
+    cases.append(("no unit stride", pair(rng.uniform(-1, 1, (2, 17, 45))), wide[:, :, ::2]))
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(8))
+def test_dd_matmul_plans_on_card(cuda, case):
+    from pymgrit_tpu_torch.ops import dd_matmul
+    label, a, b = _dd_product_cases(cuda)[case]
+    plan = dd_matmul.plan(a, b)
+    a64, b64 = (x.hi.double() + x.lo.double() for x in (a, b))
+    scale = float(torch.matmul(a64.abs(), b64.abs()).max())
+    want = dd_matmul.dd_matmul_plain(a, b)
+    before = dd_matmul.dd_matmul.launches
+    got, again = dd_matmul.dd_matmul(a, b), dd_matmul.dd_matmul(a, b)
+    torch.cuda.synchronize()
+    assert dd_matmul.dd_matmul.launches == before + 2
+    k, p = (x.hi.double() + x.lo.double() for x in (got, want))
+    err = float((k - p).abs().max())
+    assert err <= 1e-14 * scale, (label, plan.describe(), err)
+    assert torch.equal(got.hi, again.hi) and torch.equal(got.lo, again.lo), label
+    if label.startswith("63-wide"):
+        assert plan.copy == (4, 4) and plan.zblocks < 900, plan.describe()
