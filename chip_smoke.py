@@ -447,6 +447,9 @@ def phase_build():
     regs = [ln.strip() for ln in _build.build_log().splitlines() if "registers" in ln]
     print(f"[build] nvcc sm_90a libpymgrit_kernels.so in {seconds:.2f} s "
           f"(nvcc {_build.build_seconds}) | triton {triton.__version__} | ptxas: {' ; '.join(regs)}")
+    print("[build] K18 / K21 (csrc/restrict_combine.cu, csrc/indexed_combine.cu), ptxas: "
+          + " ; ".join(f"{name}: {regs} registers, spill stores/loads {st}/{ld} B"
+                       for name, (regs, st, ld) in row_ptxas(_build.build_log()).items()))
     print("[build] product tile (csrc/dmma_tile.cuh), ptxas: " + " ; ".join(
         f"{name}: {regs} registers, spill stores/loads {st}/{ld} B, static smem {sm} B"
         for name, (regs, st, ld, sm) in tile_ptxas(_build.build_log()).items())
@@ -482,6 +485,33 @@ def tile_owner(fn):
     if m is None:
         return fn
     return "dd_matmul" if m.group(2) == "1" else "eig_step"
+
+
+# restrict_combine_kernel<T, DIM, NT, NA> / indexed_combine_kernel<T, NT, V>
+ROW_NAME = re.compile(r"(restrict|indexed)_combine_kernelI([df])((?:Li\d+E)+)E")
+
+
+def row_ptxas(log):
+    """{label: (registers, spill store bytes, spill load bytes)} of K18's
+    and K21's instantiations in the ptxas log."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            m = ROW_NAME.search(ln)
+            name = None
+            if m:
+                kind, e, params = m.groups()
+                p = re.findall(r"Li(\d+)E", params)
+                name = (f"K18 {'f64' if e == 'd' else 'f32'} dim {p[0]} terms {p[1]} adds {p[2]}"
+                        if kind == "restrict" else
+                        f"K21 {'f64' if e == 'd' else 'f32'} terms {p[0]} vec {p[1]}")
+        elif name and "spill stores" in ln:
+            nums = re.findall(r"(\d+) bytes", ln)
+            out[name] = [None, int(nums[1]), int(nums[2])]
+        elif name and "Used" in ln and "registers" in ln and name in out:
+            out[name][0] = int(re.search(r"Used (\d+) registers", ln).group(1))
+            name = None
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def tile_ptxas(log):
@@ -530,6 +560,49 @@ def cuda_ms(fn, reps=20, budget_ms=1000.0):
         if len(times) == 1:
             reps = max(3, min(reps, int(budget_ms / max(times[0], 1e-3))))
     return float(np.median(times))
+
+
+def device_ms(fn, kernel, count=20, reps=10):
+    """Device time of one call: ``count`` calls on fixed arguments captured
+    in one CUDA graph and replayed (median of ``reps`` replays, divided by
+    the count; no host time between the launches).  Where capture fails,
+    torch.profiler's device time of the kernel's launches over ``count``
+    calls.  Returns (ms, "graph" or "profiler")."""
+    import torch
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(count):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            stop.record()
+            stop.synchronize()
+            times.append(start.elapsed_time(stop) / count)
+        del graph
+        return float(np.median(times)), "graph"
+    except Exception as exc:            # noqa: BLE001 -- any capture failure: say so, use the profiler
+        torch.cuda.synchronize()
+        print(f"[kernels] {kernel}: CUDA graph capture failed ({exc!r}); device time from "
+              "torch.profiler")
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(count):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+                 for e in prof.key_averages() if f"{kernel}_kernel" in e.key)
+        return us / 1e3 / count, "profiler"
 
 
 def kernel_cases(dtype, dev, stash):
@@ -1029,17 +1102,33 @@ def slice_cases(dtype, dev, rng, stash):
     return cases
 
 
+class RowCase:
+    """A K18 or K21 case in two steps: ``prepare()`` makes what the call
+    writes into where the call updates a tube in place or into a given out
+    (untimed: the fresh copy of a tube), ``launch(ops, state)`` makes the
+    call and returns its output.  ``run(ops)`` does both: the correctness
+    comparison's fresh operands."""
+
+    def __init__(self, prepare, launch):
+        self.prepare, self.launch = prepare, launch
+
+    def __call__(self, ops):
+        return self.launch(ops, self.prepare())
+
+
 def transfer_cases(dtype, dev, rng, stash):
     """K18 and K19 at the shapes of the [spatial] and [spatial1d] phases.
     2D: spatial65's level 0, 1024 C-rows of 65^2 (strided rows of the
     condensed tube) <-> 33^2: the FAS right-hand side (two terms, two adds),
-    the restriction of the C-rows (one term), the correction and nested
-    iteration's interpolation.  1D: the example's level 0, 64 C-rows of 15
-    <-> 7 interior points, the same four calls.  Each case's one PyTorch
-    call for the transfer alone (the strided slice copy for injection,
-    F.conv1d with stride 2 for full weighting, F.interpolate bilinear with
-    aligned corners, F.conv_transpose1d with stride 2 for 1D linear
-    interpolation) is timed beside it, and its bytes are recorded."""
+    the restriction of the C-rows (one term, into a given out), the
+    correction and nested iteration's interpolation.  1D: the example's
+    level 0, 64 C-rows of 15 <-> 7 interior points, the same four calls.
+    The bytes of each are recorded, and one PyTorch call for the function a
+    case computes where there is one: the strided slice copy (injection)
+    and F.conv1d with stride 2 (full weighting) beside the restriction of
+    the C-rows; F.interpolate bilinear with aligned corners and
+    F.conv_transpose1d with stride 2 beside K19's correction (the
+    interpolation alone)."""
     import torch
     import torch.nn.functional as F
 
@@ -1054,13 +1143,13 @@ def transfer_cases(dtype, dev, rng, stash):
         label = f"{'spatial65' if dim == 2 else 'example'} {dim}D R={rows}"
         nf, ncs = int(np.prod(fine)), int(np.prod(coarse))
 
-        def fas(ops, tube_f=tube_f, step_f=step_f, tube_c=tube_c, step_c=step_c, dim=dim):
+        def fas(ops, _, tube_f=tube_f, step_f=step_f, tube_c=tube_c, step_c=step_c, dim=dim):
             out = torch.empty_like(tube_c)[1:]
             return ops.restrict_combine(out, [step_f, tube_f[1:]], [1.0, -1.0],
                                         [tube_c[1:], step_c[1:]], [1.0, -1.0], dim)
 
-        def restrict(ops, tube_f=tube_f, tube_c=tube_c, dim=dim):
-            return ops.restrict_combine(torch.empty_like(tube_c), [tube_f], [1.0], dim=dim)
+        def restrict(ops, out, tube_f=tube_f, dim=dim):
+            return ops.restrict_combine(out, [tube_f], [1.0], dim=dim)
 
         def correct(ops, tube_f=tube_f, tube_c=tube_c, step_c=step_c, dim=dim):
             dst = tube_f.clone()
@@ -1071,8 +1160,9 @@ def transfer_cases(dtype, dev, rng, stash):
             dst = torch.empty_like(tube_f)
             return ops.interpolate_combine(dst[1:], tube_c[1:], None, dim)[1:]
 
-        cases += [("restrict_combine", f"FAS {label}", fas),
-                  ("restrict_combine", f"restrict C-rows {label}", restrict),
+        cases += [("restrict_combine", f"FAS {label}", RowCase(lambda: None, fas)),
+                  ("restrict_combine", f"restrict C-rows {label}",
+                   RowCase(lambda tube_c=tube_c: torch.empty_like(tube_c), restrict)),
                   ("interpolate_combine", f"correction {label}", correct),
                   ("interpolate_combine", f"nested {label}", nested)]
         # the bytes each function needs: injection reads the coincident fine
@@ -1087,7 +1177,7 @@ def transfer_cases(dtype, dev, rng, stash):
         stash[("work", "interpolate_combine", f"nested {label}")] = (8 * rows * (ncs + nf), 0)
         if dim == 2:
             inj_out = torch.empty_like(tube_c)
-            stash[("library", "restrict_combine", f"FAS {label}")] = \
+            stash[("library", "restrict_combine", f"restrict C-rows {label}")] = \
                 lambda f=tube_f, o=inj_out: o.copy_(f[:, ::2, ::2])
             stash[("library", "interpolate_combine", f"correction {label}")] = \
                 lambda c=tube_c, size=fine: F.interpolate(c[1:, None], size=size, mode="bilinear",
@@ -1095,13 +1185,15 @@ def transfer_cases(dtype, dev, rng, stash):
         else:
             w_r = t([[[0.25, 0.5, 0.25]]])
             w_p = t([[[0.5, 1.0, 0.5]]])
-            stash[("library", "restrict_combine", f"FAS {label}")] = \
+            stash[("library", "restrict_combine", f"restrict C-rows {label}")] = \
                 lambda f=tube_f, w=w_r: F.conv1d(f[:, None], w, stride=2)
             stash[("library", "interpolate_combine", f"correction {label}")] = \
                 lambda c=tube_c, w=w_p: F.conv_transpose1d(c[1:, None], w, stride=2)
-    for kernel in TRANSFER_KERNELS:
-        case = ("FAS" if kernel == "restrict_combine" else "correction") + " spatial65 2D R=1024"
-        stash[("library", kernel)] = stash[("library", kernel, case)]
+    # the headline cases: K18's FAS call has no one-call counterpart (the
+    # summary's library_ms is null); K19's correction is held against the
+    # interpolation alone
+    stash[("library", "interpolate_combine")] = stash[
+        ("library", "interpolate_combine", "correction spatial65 2D R=1024")]
     return cases
 
 
@@ -1213,25 +1305,26 @@ def slice7_cases(dtype, dev, rng, stash):
     stepped = t(rng.uniform(-1, 1, (ci.shape[0], N)))
     nc = cpts.shape[0]
 
-    def gather(ops):
+    def gather(ops, _):
         out = torch.empty((nc, N), dtype=dtype, device=dev)
         return ops.indexed_combine(out, [tube], [1.0], idx=[cpts])
 
-    def scatter(ops):
-        out = tube.clone()
+    def scatter(ops, out):
         return ops.indexed_combine(out, [slots], [1.0], io=f_out)
 
-    def weighted(ops):
-        out = tube.clone()
+    def weighted(ops, out):
         return ops.indexed_combine(out, [stepped, out], [0.5, 0.5], io=ci, idx=[None, ci])
 
-    kc = [(f"gather C-rows R={nc} N={N}", gather, 8 * (2 * nc * N + nc)),
-          (f"drop-scatter J={J} L={L} N={N}", scatter, 8 * (2 * valid.size * N + J * L)),
-          (f"weighted C-update R={nc - 1} N={N}", weighted, 8 * (3 * (nc - 1) * N + nc - 1))]
-    for label, run, nbytes in kc:
+    # the drop-scatter and the weighted update write into a fresh copy of
+    # the tube, made outside the timed call (RowCase.prepare)
+    kc = [(f"gather C-rows R={nc} N={N}", RowCase(lambda: None, gather), 8 * (2 * nc * N + nc), 0),
+          (f"drop-scatter J={J} L={L} N={N}", RowCase(tube.clone, scatter),
+           8 * (2 * valid.size * N + J * L), 0),
+          (f"weighted C-update R={nc - 1} N={N}", RowCase(tube.clone, weighted),
+           8 * (3 * (nc - 1) * N + nc - 1), 3 * (nc - 1) * N)]
+    for label, run, nbytes, nops in kc:
         cases.append(("indexed_combine", label, run))
-        stash[("work", "indexed_combine", label)] = (nbytes, 3 * (nc - 1) * N
-                                                     if run is weighted else 0)
+        stash[("work", "indexed_combine", label)] = (nbytes, nops)
     dst = tube.clone()
     stash[("library", "indexed_combine", kc[0][0])] = lambda: torch.index_select(tube, 0, cpts)
     stash[("library", "indexed_combine", kc[1][0])] = lambda: dst.index_copy_(0, valid_i,
@@ -1660,6 +1753,11 @@ def phase_kernels():
             check(bool(torch.isfinite(out_k).all()), f"{kernel} {case} {dname}: non-finite output")
             abs_err = float((out_k - out_p).abs().max())
             rel = abs_err / max(float(out_p.abs().max()), 1e-300)
+            row_case = isinstance(run, RowCase)
+            if row_case:                # K18, K21: the plain version's operations, each rounded once
+                same = torch.equal(out_k, out_p)
+                print(f"[kernels] {kernel:<20} {case} {dname}: bit for bit: {same}")
+                check(same, f"{kernel} {case} {dname}: the kernel differs from its plain version")
             plan = stash.get(("plan", kernel, case))
             if plan is not None:        # the product tile: a second launch gives the same bits
                 same = torch.equal(out_k, run(DISPATCH))
@@ -1667,11 +1765,20 @@ def phase_kernels():
                       f"second launch bit for bit: {same}")
                 check(same, f"{kernel} {case} {dname}: a second launch differs")
             del out_k, out_p
-            ms_k, ms_p = cuda_ms(lambda: run(DISPATCH)), cuda_ms(lambda: run(PLAIN))
+            dev_txt, dev_ms = "", None
+            if row_case:                # the fresh copy a call writes into is made untimed
+                st_k, st_p = run.prepare(), run.prepare()
+                ms_k = cuda_ms(lambda: run.launch(DISPATCH, st_k))
+                ms_p = cuda_ms(lambda: run.launch(PLAIN, st_p))
+                dev_ms, how = device_ms(lambda: run.launch(DISPATCH, st_k), kernel)
+                dev_txt = f" device {dev_ms:.4f} ms ({how})"
+                del st_k, st_p
+            else:
+                ms_k, ms_p = cuda_ms(lambda: run(DISPATCH)), cuda_ms(lambda: run(PLAIN))
             tol = KERNEL_RTOL_BY_NAME.get(kernel, KERNEL_RTOL)[dname]
             ok = rel <= tol
             print(f"[kernels] {kernel:<20} {case:<34} {dname} rel {rel:.3e} "
-                  f"(tol {tol:.0e}) abs {abs_err:.3e} | kernel {ms_k:.4f} ms "
+                  f"(tol {tol:.0e}) abs {abs_err:.3e} | kernel {ms_k:.4f} ms{dev_txt} "
                   f"plain {ms_p:.4f} ms | {'ok' if ok else 'FAIL'}")
             check(ok, f"{kernel} {case} {dname}: rel err {rel:.3e} > {tol:.0e}")
             work = stash.get(("work", kernel, case))
@@ -1679,6 +1786,7 @@ def phase_kernels():
                 work = work() if callable(work) else work
                 c_ms, c_by = bound_ms(kernel, stash, work)
                 lib = stash.get(("library", kernel, case))
+                lib_ms = cuda_ms(lib) if lib is not None else None
                 peak = op_peak(kernel)
                 print(f"[kernels] {kernel:<20} {case}: bound {c_ms:.4f} ms ({c_by}): bytes "
                       f"{work[0] / 1e6:.3f} MB / 3.35 TB/s = {work[0] / HBM_BYTES_PER_S * 1e3:.4f} ms, "
@@ -1686,8 +1794,11 @@ def phase_kernels():
                       f"{work[1] / peak * 1e3:.4f} ms"
                       + (f" (at 34 TFLOP/s: {work[1] / PEAK_OPS_PER_S['float64'] * 1e3:.4f} ms)"
                          if peak != PEAK_OPS_PER_S["float64"] else "") + "; kernel at "
-                      f"{ms_k / c_ms:.1f}x its bound | library call "
-                      + (f"{cuda_ms(lib):.4f} ms" if lib is not None else "none"))
+                      f"{ms_k / c_ms:.1f}x its bound"
+                      + (f" (device {dev_ms / c_ms:.1f}x)" if dev_ms is not None else "")
+                      + " | library call "
+                      + (f"{lib_ms:.4f} ms (kernel {ms_k / lib_ms:.2f}x)" if lib is not None
+                         else "none"))
             if dtype == torch.float64 and kernel not in rows and case.startswith(headline[kernel]):
                 b_ms, b_by = bound_ms(kernel, stash)
                 lib = stash.get(("library", kernel))
@@ -3182,14 +3293,17 @@ def phase_dd(card):
     return out["dd_toms129"], out["dd65"]
 
 
-def profile_cells(card):
+def profile_cells(card, only=()):
     """``--profile``: one profiled kernel-path solve of each cell of the
-    periodic models, the ragged row, the BDF example, the two DD rows and the deep diffusion
-    grid (after one untimed solve of the same configuration),
-    torch.profiler with CPU and CUDA activities: the profiled wall, the
-    card's busy time (the kernels' device time summed; one stream, so they
-    do not overlap) and idle share, the three device ops that took longest,
-    and the host's kernel launches and stream synchronisations."""
+    periodic models, the ragged row, the spatial65 row, the BDF example,
+    the two DD rows and the deep diffusion grid (after one untimed solve of
+    the same configuration; ``only``: the cells whose label contains one of
+    these words, all without), torch.profiler with CPU and CUDA activities:
+    the profiled wall, the card's busy time (the kernels' device time
+    summed; one stream, so they do not overlap) and idle share, the three
+    device ops that took longest, K18's, K19's and K21's device time and
+    launches, and the host's kernel launches and stream
+    synchronisations."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     import pymgrit_tpu_torch as P
@@ -3226,6 +3340,10 @@ def profile_cells(card):
         ("ragged ragged65", lambda: P.Mgrit(problem=ragged_problem(P, DISPATCH),
                                             tol=RAGGED["tol"], max_iter=RAGGED["max_iter"],
                                             logging_lvl=40)),
+        ("spatial spatial65", lambda: P.Mgrit(
+            problem=spatial_problem(P, DISPATCH),
+            transfer=[P.GridTransferHeat2D(n, n) for n in SPATIAL["sizes"][:-1]],
+            tol=SPATIAL["tol"], max_iter=SPATIAL["max_iter"], logging_lvl=30)),
         ("bdf example", lambda: P.Mgrit(problem=bdf_problem(P, DISPATCH), tol=BDF["tol"],
                                         max_iter=BDF["max_iter"], logging_lvl=30)),
         ("dd dd_toms129", lambda: P.Mgrit(
@@ -3248,6 +3366,8 @@ def profile_cells(card):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
     for label, build in cells:
+        if only and not any(word in label for word in only):
+            continue
         build().solve()
         mg = build()
         torch.cuda.synchronize()
@@ -3272,10 +3392,15 @@ def profile_cells(card):
         tile = {k: (sum(e.count for e in dev if k in e.key),
                     sum(device_us(e) for e in dev if k in e.key) / 1e3)
                 for k in ("tile_product", "reduce_slices")}
+        # the row kernels' device kernels: K18, K21 (CUDA C++), K19 (Triton)
+        row = {k: (sum(e.count for e in dev if k in e.key),
+                   sum(device_us(e) for e in dev if k in e.key) / 1e3)
+               for k in ("restrict_combine", "interpolate", "indexed_combine")}
         print(f"[profile] {label}: {h.size} iterations, profiled solve {wall * 1e3:.1f} ms, device "
               f"busy {busy:.1f} ms, idle {100 * (1 - busy / (wall * 1e3)):.1f} % | leading device "
               "time " + "; ".join(f"{e.key[:48]} {device_us(e) / 1e3:.2f} ms ({e.count})"
                                   for e in top)
+              + "".join(f" | {k} {n} launches {ms:.2f} ms" for k, (n, ms) in row.items() if n)
               + f" | host: {launches} kernel launches, {syncs} synchronisations"
               + (f" | product tile: {calls['eig_step']} K22 and {calls['dd_matmul']} K26 calls, "
                  f"{tile['tile_product'][0]} product kernels {tile['tile_product'][1]:.2f} ms, "
@@ -3320,13 +3445,13 @@ REPLACES = {
                          "pymgrit_tpu/models/burgers.py:53"),
     "circulant_solve1d": ("cuda", "pymgrit_tpu_torch/ops/csrc/circulant_solve1d.cu",
                           "pymgrit_tpu/models/advection_1d.py:41"),
-    "restrict_combine": ("triton", "pymgrit_tpu_torch/ops/triton_kernels.py",
+    "restrict_combine": ("cuda", "pymgrit_tpu_torch/ops/csrc/restrict_combine.cu",
                          "pymgrit_tpu/models/grid_transfer_heat.py:94"),
     "interpolate_combine": ("triton", "pymgrit_tpu_torch/ops/triton_kernels.py",
                             "pymgrit_tpu/models/grid_transfer_heat.py:98"),
     "sine_solve1d": ("cuda", "pymgrit_tpu_torch/ops/csrc/sine_solve1d.cu",
                      "pymgrit_tpu/models/heat_1d.py:235"),
-    "indexed_combine": ("triton", "pymgrit_tpu_torch/ops/triton_kernels.py",
+    "indexed_combine": ("cuda", "pymgrit_tpu_torch/ops/csrc/indexed_combine.cu",
                         "pymgrit_tpu/core/solver.py:740"),
     "eig_step": ("cuda", "pymgrit_tpu_torch/ops/csrc/eig_step.cu",
                  "pymgrit_tpu/models/diffusion_2d.py:195"),
@@ -3346,7 +3471,7 @@ def main():
     phase_build()
     if "--profile" in sys.argv[1:]:
         # no checks ran: the last line says so and carries no "ok"
-        profile_cells(card)
+        profile_cells(card, [a for a in sys.argv[1:] if a != "--profile"])
         print(card)
         print(json.dumps({"profile": True, "device": {"platform": "gpu",
                                                       "kind": torch.cuda.get_device_name(0),

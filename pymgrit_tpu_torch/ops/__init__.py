@@ -21,10 +21,12 @@ coarsening, Diffusion2D, and the double-double precision mode:
 * K15 ``burgers2d_pointwise`` (Triton)
 * K16 ``burgers1d_newton`` (CUDA C++, ``csrc/burgers1d_newton.cu``)
 * K17 ``circulant_solve1d`` (CUDA C++, ``csrc/circulant_solve1d.cu``)
-* K18 ``restrict_combine`` (Triton, wrapper in ``transfer``)
+* K18 ``restrict_combine`` (CUDA C++, ``csrc/restrict_combine.cu``, wrapper in
+  ``transfer``)
 * K19 ``interpolate_combine`` (Triton, wrapper in ``transfer``)
 * K20 ``sine_solve1d`` (CUDA C++, ``csrc/sine_solve1d.cu``; BE and BDF2 modes)
-* K21 ``indexed_combine`` (Triton, wrapper in ``indexed``)
+* K21 ``indexed_combine`` (CUDA C++, ``csrc/indexed_combine.cu``, wrapper in
+  ``indexed``)
 * K22 ``eig_step`` (CUDA C++, ``csrc/eig_step.cu``, FP64 tensor cores)
 * K23 ``dd_interval_affine`` (CUDA C++, ``csrc/dd_interval_affine.cu``)
 * K24 ``dd_theta_chain`` (CUDA C++, ``csrc/dd_theta_chain.cu``)

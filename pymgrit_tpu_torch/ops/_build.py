@@ -1,8 +1,9 @@
 """Build and load the CUDA C++ kernels (K1 interval_affine, K2 theta_chain,
 K5 sine_solve2d, K6 sine_affine2d, K8 affine_prefix, K9 affine_windows,
 K10 periodic_solve2d, K12 dopri45_arenstorf, K16 burgers1d_newton, K17
-circulant_solve1d, K20 sine_solve1d, K22 eig_step, K23 dd_interval_affine,
-K24 dd_theta_chain, K25 dd_arith, K26 dd_matmul).
+circulant_solve1d, K18 restrict_combine, K20 sine_solve1d, K21
+indexed_combine, K22 eig_step, K23 dd_interval_affine, K24 dd_theta_chain,
+K25 dd_arith, K26 dd_matmul).
 
 The sources under ``csrc/`` have a plain C interface.  On first use each
 ``.cu`` file is compiled by its own ``nvcc`` process for Hopper
@@ -16,6 +17,7 @@ is no other route.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -50,6 +52,9 @@ _SIGNATURES = {
     "pm_sine_solve1d": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                         _I, _I, _P],
     "pm_eig_step": [_P, _P],
+    # one packed int64 argument array, the coefficients by value, the stream
+    "pm_restrict_combine": [_P, _D, _D, _D, _D, _D, _P],
+    "pm_indexed_combine": [_P, _D, _D, _D, _P],
 }
 # the float32-pair (double-double) launchers: one symbol each, no dtype suffix
 _DD_SIGNATURES = {
@@ -134,6 +139,13 @@ def stream(index: int) -> int:
     building a Stream object on every launch)."""
     import torch
     return torch._C._cuda_getCurrentRawStream(index)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (read once)."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(status: int, name: str) -> None:

@@ -34,20 +34,32 @@ def _require(cond: bool, name: str, msg: str) -> None:
 
 
 def _check_operands(name: str, tensors: dict) -> None:
-    """Common checks against the first tensor's dtype and device (each
-    message is formatted only when its check fails: this runs on every
-    launch)."""
-    ref = next(iter(tensors.values()))
-    dtype, device, index = ref.dtype, ref.device, ref.get_device()
-    _require(dtype in _FLOATS, name, f"dtype {dtype} is not float32/float64")
-    for key, t in tensors.items():
-        if t.dtype != dtype:
-            _require(False, name, f"{key} has dtype {t.dtype}, expected {dtype}")
-        if t.get_device() != index or t.device.type != device.type:
-            _require(False, name, f"{key} is on {t.device}, expected {device}")
-        if t.shape[-1] > 1 and t.stride(-1) != 1:
-            _require(False, name, f"{key} must be contiguous in its last axis")
-    _require(device.type in ("cpu", "cuda"), name, f"unsupported device {device}")
+    """Common checks against the first tensor's dtype and device."""
+    _check_facts(name, [fact(t) for t in tensors.values()], list(tensors).__getitem__)
+
+
+def fact(t):
+    """What the wrappers check of a tensor: (dtype, device, shape, strides)
+    (hashable, so that a wrapper can cache its checks by it)."""
+    return t.dtype, t.device, t.shape, t.stride()
+
+
+def _check_facts(name: str, facts, key) -> None:
+    """The common checks on ``fact``s, against the first one's dtype and
+    device.  Each message (and its key) is formatted only when its check
+    fails: this runs on every launch."""
+    dtype, device = facts[0][0], facts[0][1]
+    if dtype not in _FLOATS:
+        _require(False, name, f"dtype {dtype} is not float32/float64")
+    for k, (dt, dev, shape, stride) in enumerate(facts):
+        if dt != dtype:
+            _require(False, name, f"{key(k)} has dtype {dt}, expected {dtype}")
+        if dev != device:
+            _require(False, name, f"{key(k)} is on {dev}, expected {device}")
+        if shape[-1] > 1 and stride[-1] != 1:
+            _require(False, name, f"{key(k)} must be contiguous in its last axis")
+    if device.type not in ("cpu", "cuda"):
+        _require(False, name, f"unsupported device {device}")
 
 
 def _launcher(name: str, dtype: torch.dtype):

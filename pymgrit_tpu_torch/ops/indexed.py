@@ -1,6 +1,6 @@
-"""Kernel K21 ``indexed_combine`` (Triton, body in ``triton_kernels``) beside
-its plain PyTorch version: the row gathers, drop-scatters and weighted sums
-of non-uniform coarsening.
+"""Kernel K21 ``indexed_combine`` (CUDA C++, ``csrc/indexed_combine.cu``)
+beside its plain PyTorch version: the row gathers, drop-scatters and
+weighted sums of non-uniform coarsening.
 
 Replaces the index-based phases of pymgrit_tpu/core/solver.py on a level
 whose C-points are not evenly strided (``LevelInfo.uniform`` False): the
@@ -14,25 +14,37 @@ ragged F-chains' g gather and drop-scatter (``_f_relax``, ``vector.take`` /
 
 where each row index is optional (rows in order) and an output index equal
 to the out tube's length drops the row (the padding of the ragged chains).
-It is a fused elementwise pass with row gathers, bound by the bytes of the
-rows it reads and writes: Triton serves it as well as CUDA C++ would (one
-program per (row, block of columns); each program loads its row indices
-itself).  The coefficients ride in a device tensor of the working dtype
-(Triton types a Python float as float32), and the sum runs left to right,
-so it rounds as the plain version does; NaN propagates.
+It is bound by the bytes of the rows it reads and writes, and a call is
+small (a ragged65 gather moves 35 MB in about 0.01 ms), so the wrapper's
+host time counts as much as the kernel: the checks are cached by the
+operands' dtype, device, shapes and strides (``_checked``) and format no
+message unless they fail, the launch plan (``plan``: vector width,
+segments a row, grid) and the argument array (``pack``) by those and the
+pointers' offsets from 16-byte alignment (``_template``), and the launch
+is one ctypes call with the array, this call's pointers filled in, and the
+coefficients as doubles, which the kernel takes by value.  The sum runs left to right with each
+product and sum rounded once, so the kernel equals the plain version bit
+for bit; NaN propagates.
 
 Dispatch as in ``heat_kernels``: CPU tensors go to the plain version, CUDA
-tensors launch the Triton kernel or raise.
+tensors launch the kernel or raise.
 """
 
 from __future__ import annotations
 
+import array
+import functools
+
 import torch
 
-from pymgrit_tpu_torch.ops import triton_kernels
-from pymgrit_tpu_torch.ops.heat_kernels import _check_operands, _require
+from pymgrit_tpu_torch.ops import _build
+from pymgrit_tpu_torch.ops.heat_kernels import _check_facts, _launcher, _require, fact
 
 MAX_TERMS = 3
+# the kernel's launch shape (csrc/indexed_combine.cu: kThreads, kMinBlocks,
+# kUnroll): a warp item is one segment of 32 x UNROLL[terms] vectors
+THREADS, BLOCKS_PER_SM = 256, 4
+UNROLL = {1: 4, 2: 2, 3: 2}
 
 
 def indexed_combine_plain(out, terms, coeffs, io=None, idx=()):
@@ -52,10 +64,42 @@ def indexed_combine_plain(out, terms, coeffs, io=None, idx=()):
 
 
 def _check_index(name, key, i, R, device):
-    _require(i.dtype == torch.int64 and i.dim() == 1 and i.is_contiguous(), name,
-             f"{key} must be a contiguous 1-D int64 tensor")
-    _require(i.shape[0] == R, name, f"{key} has {i.shape[0]} rows, expected {R}")
-    _require(i.device == device, name, f"{key} is on {i.device}, expected {device}")
+    """Checks of an index tensor's ``fact``."""
+    dtype, dev, shape, stride = i
+    if not (dtype == torch.int64 and len(shape) == 1 and (shape[0] <= 1 or stride[0] == 1)):
+        _require(False, name, f"{key} must be a contiguous 1-D int64 tensor")
+    if shape[0] != R:
+        _require(False, name, f"{key} has {shape[0]} rows, expected {R}")
+    if dev != device:
+        _require(False, name, f"{key} is on {dev}, expected {device}")
+
+
+def _key(k):
+    return "out" if k == 0 else f"term{k - 1}"
+
+
+@functools.lru_cache(maxsize=1024)
+def _checked(facts, io, idx):
+    """Every check of a call on the ``fact``s of out and the terms, of io
+    (or None) and of each term's index (or None), cached by them; returns
+    (R, N, on the CPU, the launch's key for ``_template``)."""
+    name = "indexed_combine"
+    _check_facts(name, facts, _key)
+    dtype, device, shape = facts[0][:3]
+    N = shape[-1]
+    if not (len(shape) == 2 and all(len(f[2]) == 2 and f[2][1] == N for f in facts[1:])):
+        _require(False, name, "out and every term must be (rows, N) views of one N")
+    R = io[2][0] if io is not None else shape[0]
+    if io is not None:
+        _check_index(name, "io", io, R, device)
+    for k, (f, i) in enumerate(zip(facts[1:], idx)):
+        if i is None:
+            if f[2][0] != R:
+                _require(False, name, f"term{k} has {f[2][0]} rows, expected {R}")
+        else:
+            _check_index(name, f"idx{k}", i, R, device)
+    strides = tuple(f[3][0] for f in facts)
+    return R, N, device.type == "cpu", (R, N, dtype, strides, shape[0], device.index)
 
 
 def indexed_combine(out, terms, coeffs, io=None, idx=()):
@@ -70,40 +114,91 @@ def indexed_combine(out, terms, coeffs, io=None, idx=()):
     may share memory with out only where it is read at the rows it writes.
     Returns out.
     """
-    name = "indexed_combine"
-    terms, idx = list(terms), list(idx) + [None] * (len(terms) - len(idx))
-    _require(1 <= len(terms) <= MAX_TERMS and len(coeffs) == len(terms)
-             and len(idx) == len(terms), name,
-             f"needs 1..{MAX_TERMS} terms with one coefficient and at most one index each")
-    _check_operands(name, {"out": out, **{f"term{k}": t for k, t in enumerate(terms)}})
-    _require(out.dim() == 2 and all(t.dim() == 2 and t.shape[1] == out.shape[1] for t in terms),
-             name, "out and every term must be (rows, N) views of one N")
-    R = io.shape[0] if io is not None else out.shape[0]
-    if io is not None:
-        _check_index(name, "io", io, R, out.device)
-    for k, (t, i) in enumerate(zip(terms, idx)):
-        if i is None:
-            _require(t.shape[0] == R, name, f"term{k} has {t.shape[0]} rows, expected {R}")
-        else:
-            _check_index(name, f"idx{k}", i, R, out.device)
-    if out.device.type == "cpu":
+    nt = len(terms)
+    if not (1 <= nt <= MAX_TERMS and len(coeffs) == nt and len(idx) <= nt):
+        _require(False, "indexed_combine",
+                 f"needs 1..{MAX_TERMS} terms with one coefficient and at most one index each")
+    if len(idx) < nt:
+        idx = (*idx, *(None,) * (nt - len(idx)))
+    R, N, on_cpu, key = _checked(
+        (fact(out), *map(fact, terms)), None if io is None else fact(io),
+        tuple([None if i is None else fact(i) for i in idx]))
+    if on_cpu:
         return indexed_combine_plain(out, terms, coeffs, io, idx)
-    N = out.shape[1]
-    if R and N:
-        xs = terms + [terms[0]] * (MAX_TERMS - len(terms))
-        ii = [i if i is not None else out for i in idx] + [out] * (MAX_TERMS - len(idx))
-        c = triton_kernels._coefficients(coeffs, out.dtype, out.device)
-        grid = (R, -(-N // triton_kernels._BLOCK))
-        with torch.cuda.device(out.device):
-            triton_kernels._jit()["indexed_combine"][grid](
-                out, io if io is not None else out, *xs, *ii, c, out.stride(0),
-                *(x.stride(0) for x in xs), out.shape[0], N, NT=len(terms),
-                HAS_IO=io is not None, HAS_I0=idx[0] is not None,
-                HAS_I1=len(idx) > 1 and idx[1] is not None,
-                HAS_I2=len(idx) > 2 and idx[2] is not None,
-                BLOCK=triton_kernels._BLOCK, num_warps=4)
-        indexed_combine.launches += 1
+    if R == 0 or N == 0:
+        return out
+    _launch(key, out, terms, coeffs, io, idx)
+    indexed_combine.launches += 1
     return out
 
 
 indexed_combine.launches = 0
+
+
+def _launch(key, out, terms, coeffs, io, idx):
+    """One launch of K21 on checked operands (idx: one entry a term): the
+    cached argument array of the call's key and alignments, with this
+    call's pointers filled in."""
+    ptrs = [out.data_ptr()] + [t.data_ptr() for t in terms]
+    tmpl, fn, index = _template(key, tuple([a % 16 for a in ptrs]))
+    args = tmpl[:]
+    args[1] = ptrs[0]
+    if io is not None:
+        args[2] = io.data_ptr()
+    for k in range(len(terms)):
+        args[3 + k] = ptrs[1 + k]
+        if idx[k] is not None:
+            args[6 + k] = idx[k].data_ptr()
+    c = (*coeffs, 0.0, 0.0)
+    status = fn(args.buffer_info()[0], float(c[0]), float(c[1]), float(c[2]),
+                _build.stream(index))
+    _build.check(status, "indexed_combine")
+
+
+@functools.lru_cache(maxsize=1024)
+def _template(key, mods):
+    """(argument array without pointers, launcher, device index) of a
+    call's key (``_checked``) and its operands' offsets from 16-byte
+    alignment."""
+    R, N, dtype, strides, T, index = key
+    nt, es = len(strides) - 1, dtype.itemsize
+    p = plan(R, N, es, nt, mods, all(st * es % 16 == 0 for st in strides),
+             _build.sm_count(index))
+    return (pack(index, (0,) * (nt + 1), 0, (0,) * nt, strides, T, R, N, nt, p),
+            _launcher("pm_indexed_combine", dtype), index)
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(R, N, es, nt, mods, fixed, sms):
+    """(vector width, segments a row, grid) of one launch.
+
+    R rows of N elements of es bytes, nt terms; mods: out's and each
+    term's base pointer modulo 16; fixed: every row stride is a multiple of
+    16 bytes (each row keeps its base's offset from alignment); sms: the
+    card's SM count.  The kernel vectorizes a row (16 bytes a load) where
+    all its operands' row pointers share one offset from alignment; where
+    the strides are fixed and the bases differ no row can, and the plan
+    takes the scalar instantiation (vector width 1).  A segment is 32 x
+    UNROLL[nt] vectors; the grid is the card's resident blocks, or fewer
+    where the rows' segments do not fill them (a block holds THREADS / 32
+    warps, one item each).
+    """
+    vec = 16 // es
+    if fixed and len(set(mods)) > 1:
+        vec = 1
+    segs = -(-N // (32 * UNROLL[nt] * vec))
+    grid = max(1, min(sms * BLOCKS_PER_SM, -(-R * segs // (THREADS // 32))))
+    return vec, segs, grid
+
+
+def pack(index, ptrs, io, idx, strides, T, R, N, nt, plan):
+    """The launcher's int64 argument array (csrc/indexed_combine.cu
+    ``launch``): device, out, io, x0-x2, i0-i2 (0: none), out's and x0-x2's
+    row strides, T, R, N, segments a row, terms, vector width, grid.  ptrs
+    and strides: out's, then each term's.  (An ``array`` of int64: its
+    buffer's address is the launcher's argument; it builds faster than a
+    ctypes array.)"""
+    vec, segs, grid = plan
+    pad = (0,) * (MAX_TERMS - nt)
+    return array.array("q", (index, ptrs[0], io, *ptrs[1:], *pad, *idx, *pad, *strides, *pad,
+                             T, R, N, segs, nt, vec, grid))

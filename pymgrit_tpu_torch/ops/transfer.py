@@ -1,7 +1,8 @@
-"""Kernels K18 ``restrict_combine`` and K19 ``interpolate_combine`` (Triton,
-bodies in ``triton_kernels``) beside their plain PyTorch versions: the heat
-grid transfers of pymgrit_tpu/models/grid_transfer_heat.py fused with the
-solver phase around them.
+"""Kernels K18 ``restrict_combine`` (CUDA C++, ``csrc/restrict_combine.cu``)
+and K19 ``interpolate_combine`` (Triton, body in ``triton_kernels``) beside
+their plain PyTorch versions: the heat grid transfers of
+pymgrit_tpu/models/grid_transfer_heat.py fused with the solver phase around
+them.
 
 * Restriction R: 1D full weighting ``[1/4, 1/2, 1/4]`` between nested
   interior-point Dirichlet grids (fine n -> coarse (n - 1) / 2,
@@ -19,26 +20,42 @@ tube: the FAS right-hand side of ``Mgrit._fas_residual`` (terms
 ``Phi(u[cm-1]), u[cm](, g[cm])``, adds ``v_c, Phi_c(v_c)``), and with one
 term and no add the heat transfers' batched ``restriction``.  K19 computes
 ``dst += P(a - b)`` (the coarse-grid correction of ``_error_correction``) or
-``dst = P(a)`` (nested iteration, the batched ``interpolation``).  Both are passes of reads, stencil weights and sums,
-bound by the bytes they move; the combination and the transfer never meet
-device memory in between, where the unfused route writes the combined fine
-rows, reads them back to restrict, and runs K4 after.  The weights (1/4,
-1/2, 1) and the coefficients the solver passes (+-1) make every product
-exact, so the kernels round as the plain versions do.
+``dst = P(a)`` (nested iteration, the batched ``interpolation``).  Both
+are passes of reads, stencil weights and sums, bound by the bytes they
+move; the combination and the transfer never meet device memory in
+between, where the unfused route writes the combined fine rows, reads them
+back to restrict, and runs K4 after.  K18 rounds each product and sum once,
+in the plain version's order, so it equals the plain version bit for bit;
+K19's weights (1/2) and the solver's coefficients (+-1) make its products
+exact, so it rounds as its plain version does.  K18's calls are small
+(spatial65's FAS call moves 45 MB in about 0.013 ms), so its wrapper keeps
+host time down: every check but the overlaps, the launch plan
+(``restrict_plan``) and the argument array (``restrict_pack``) are cached
+by the operands' dtype, device, shapes and strides (``_restrict_checked``),
+messages are formatted only on failure, and the launch is one ctypes call
+with the array, this call's pointers filled in, and the coefficients as
+doubles.
 
 Dispatch as in ``heat_kernels``: CPU tensors go to the plain version, CUDA
-tensors launch the Triton kernel or raise.
+tensors launch the kernel or raise.
 """
 
 from __future__ import annotations
 
+import array
+import functools
+
 import torch
 
-from pymgrit_tpu_torch.ops import triton_kernels
-from pymgrit_tpu_torch.ops.heat_kernels import _check_operands, _require
+from pymgrit_tpu_torch.ops import _build, triton_kernels
+from pymgrit_tpu_torch.ops.heat_kernels import (_check_facts, _check_operands, _launcher,
+                                                _require, fact)
 
 MAX_TERMS, MAX_ADDS = 3, 2
-_WEIGHTS = {1: (0.25, 0.5, 0.25), 2: (1.0,)}
+# K18's launch shape (csrc/restrict_combine.cu: kThreads, kMinBlocks,
+# U): coarse points a thread handles a pass, by dim
+THREADS, BLOCKS_PER_SM = 256, 4
+UNROLL = {1: 2, 2: 4}
 
 
 # ---------------------------------------------------------------------------
@@ -122,8 +139,13 @@ def restrict_combine_plain(out, terms, coeffs, adds=(), add_coeffs=(), dim=1):
 
 def _states_contiguous(t):
     """True iff every state (row) of the (R, ...) batch t is contiguous."""
+    return _contiguous_states(t.shape, t.stride())
+
+
+@functools.lru_cache(maxsize=1024)
+def _contiguous_states(shape, stride):
     inner = 1
-    for n, st in zip(reversed(t.shape[1:]), reversed(t.stride()[1:])):
+    for n, st in zip(reversed(shape[1:]), reversed(stride[1:])):
         if n > 1 and st != inner:
             return False
         inner *= n
@@ -137,20 +159,57 @@ def contiguous_states(t):
 
 
 def _check_states(name, key, t, R, shape):
-    _require(tuple(t.shape) == (R,) + tuple(shape), name,
-             f"{key} has shape {tuple(t.shape)}, expected {(R,) + tuple(shape)}")
-    _require(_states_contiguous(t), name, f"{key} must hold each state contiguously")
+    _check_state_facts(name, key, t.shape, t.stride(), R, shape)
 
 
-def _disjoint(name, out, key, t):
-    """out may share memory with an input of its shape only as the same view
-    or as rows interleaved with it; with an input of another shape not at
-    all."""
-    if out.untyped_storage().data_ptr() != t.untyped_storage().data_ptr():
-        return
-    ok = out.shape == t.shape and not triton_kernels._overlaps_partially(
-        out.view(out.shape[0], -1), t.view(t.shape[0], -1))
-    _require(ok, name, f"out overlaps {key}")
+def _check_state_facts(name, key, shape, stride, R, want):
+    if shape != (R, *want):
+        _require(False, name, f"{key} has shape {tuple(shape)}, expected {(R,) + tuple(want)}")
+    if not _contiguous_states(shape, stride):
+        _require(False, name, f"{key} must hold each state contiguously")
+
+
+def _restrict_key(nt):
+    def key(k):
+        return "out" if k == 0 else f"term{k - 1}" if k <= nt else f"add{k - 1 - nt}"
+    return key
+
+
+@functools.lru_cache(maxsize=1024)
+def _restrict_checked(dim, nt, facts):
+    """Every check of a K18 call but the overlaps, on the ``fact``s of out,
+    the terms and the adds, cached by them; returns (R, on the CPU, the
+    element size, which operands are empty, the launch: the argument array
+    without pointers, the launcher and the device index; None on the CPU
+    or with no rows)."""
+    name = "restrict_combine"
+    _check_facts(name, facts, _restrict_key(nt))
+    (dtype, device, oshape, _), t0 = facts[0], facts[1]
+    if not (len(oshape) == dim + 1 and len(t0[2]) == dim + 1):
+        _require(False, name, f"out and the terms must be (R, ...) batches of {dim}D states")
+    R, fine = t0[2][0], tuple(t0[2][1:])
+    if dim == 2 and not (fine[0] % 2 == 1 and fine[1] % 2 == 1):
+        _require(False, name, f"2D fine states need odd sides, got {fine}")
+    if min(fine) < 3:
+        _require(False, name, f"fine states {fine} are too small")
+    coarse = coarse_shape(fine, dim)
+    for k, f in enumerate(facts[1:nt + 1]):
+        _check_state_facts(name, f"term{k}", f[2], f[3], R, fine)
+    for k, f in enumerate(facts[nt + 1:]):
+        _check_state_facts(name, f"add{k}", f[2], f[3], R, coarse)
+    _check_state_facts(name, "out", oshape, facts[0][3], R, coarse)
+    on_cpu, launch = device.type == "cpu", None
+    if not on_cpu and R:
+        nf = fine[0] if dim == 1 else fine[0] * fine[1]
+        if nf > 2 ** 31 - 1:
+            _require(False, name, f"fine states of {nf} points exceed 2^31 - 1")
+        index, na = device.index, len(facts) - 1 - nt
+        Pc, Qc = (1, coarse[0]) if dim == 1 else coarse
+        plan = restrict_plan(R, Pc, Qc, dim, _build.sm_count(index))
+        launch = (restrict_pack(index, (0,) * len(facts), tuple(f[3][0] for f in facts), nt, na,
+                                R, fine[-1], Pc, Qc, dim, plan),
+                  _launcher("pm_restrict_combine", dtype), index)
+    return R, on_cpu, dtype.itemsize, tuple(0 in f[2] for f in facts), launch
 
 
 def restrict_combine(out, terms, coeffs, adds=(), add_coeffs=(), dim=1):
@@ -165,53 +224,80 @@ def restrict_combine(out, terms, coeffs, adds=(), add_coeffs=(), dim=1):
     as the same view of an add.  Returns out.
     """
     name = "restrict_combine"
-    terms, adds = list(terms), list(adds)
-    _require(dim in (1, 2), name, "dim must be 1 or 2")
-    _require(1 <= len(terms) <= MAX_TERMS and len(coeffs) == len(terms), name,
-             f"needs 1..{MAX_TERMS} terms with one coefficient each")
-    _require(len(adds) <= MAX_ADDS and len(add_coeffs) == len(adds), name,
-             f"takes 0..{MAX_ADDS} adds with one coefficient each")
-    _check_operands(name, {"out": out, **{f"term{k}": t for k, t in enumerate(terms)},
-                           **{f"add{k}": t for k, t in enumerate(adds)}})
-    _require(out.dim() == dim + 1 and terms[0].dim() == dim + 1, name,
-             f"out and the terms must be (R, ...) batches of {dim}D states")
-    R, fine = terms[0].shape[0], tuple(terms[0].shape[1:])
-    _require(dim == 1 or all(n % 2 == 1 for n in fine), name,
-             f"2D fine states need odd sides, got {fine}")
-    _require(all(n >= 3 for n in fine), name, f"fine states {fine} are too small")
-    coarse = coarse_shape(fine, dim)
-    for k, t in enumerate(terms):
-        _check_states(name, f"term{k}", t, R, fine)
-    for k, t in enumerate(adds):
-        _check_states(name, f"add{k}", t, R, coarse)
-    _check_states(name, "out", out, R, coarse)
-    for k, t in enumerate(terms):
-        _disjoint(name, out, f"term{k}", t)
-    for k, t in enumerate(adds):
-        _disjoint(name, out, f"add{k}", t)
-    if out.device.type == "cpu":
+    nt, na = len(terms), len(adds)
+    if dim not in (1, 2):
+        _require(False, name, "dim must be 1 or 2")
+    if not (1 <= nt <= MAX_TERMS and len(coeffs) == nt):
+        _require(False, name, f"needs 1..{MAX_TERMS} terms with one coefficient each")
+    if not (na <= MAX_ADDS and len(add_coeffs) == na):
+        _require(False, name, f"takes 0..{MAX_ADDS} adds with one coefficient each")
+    ops = (out, *terms, *adds)
+    R, on_cpu, es, empty, launch = _restrict_checked(dim, nt, tuple(map(fact, ops)))
+    # out may share memory with an input only as the same view or as rows
+    # interleaved with it, and with an input of another shape not at all;
+    # storages are told apart by their base pointers (no storage object),
+    # and an empty tensor overlaps nothing
+    ptrs = [t.data_ptr() for t in ops]
+    base = ptrs[0] - out.storage_offset() * es
+    for k in range(1, len(ops)):
+        t = ops[k]
+        if (ptrs[k] - t.storage_offset() * es == base and not (empty[0] or empty[k])
+                and not (out.shape == t.shape and not triton_kernels._overlaps_partially(
+                    out.view(out.shape[0], -1), t.view(t.shape[0], -1)))):
+            _require(False, name, f"out overlaps {_restrict_key(nt)(k)}")
+    if on_cpu:
         return restrict_combine_plain(out, terms, coeffs, adds, add_coeffs, dim)
-    Nc = 1
-    for n in coarse:
-        Nc *= n
-    if R and Nc:
-        xs = terms + [out] * (MAX_TERMS - len(terms))
-        ys = adds + [out] * (MAX_ADDS - len(adds))
-        weights = _WEIGHTS[dim]
-        c = triton_kernels._coefficients(
-            tuple(coeffs) + (0.0,) * (MAX_TERMS - len(terms)) + tuple(add_coeffs)
-            + (0.0,) * (MAX_ADDS - len(adds)) + weights, out.dtype, out.device)
-        grid = (R, -(-Nc // triton_kernels._BLOCK))
-        with torch.cuda.device(out.device):
-            triton_kernels._jit()["restrict"][grid](
-                out, *xs, *ys, c, out.stride(0), *(x.stride(0) for x in xs),
-                *(y.stride(0) for y in ys), fine[-1], coarse[-1], Nc, DIM=dim, NT=len(terms),
-                NA=len(adds), KP=len(weights), BLOCK=triton_kernels._BLOCK, num_warps=4)
+    if launch is not None:
+        _launch_restrict(launch, ptrs, coeffs, add_coeffs)
         restrict_combine.launches += 1
     return out
 
 
 restrict_combine.launches = 0
+
+
+def _launch_restrict(launch, ptrs, coeffs, add_coeffs):
+    """One launch of K18: the cached argument array (``_restrict_checked``)
+    with this call's pointers (out's, the terms', the adds') filled in."""
+    tmpl, fn, index = launch
+    nt = len(coeffs)
+    args = tmpl[:]
+    args[1] = ptrs[0]
+    for k in range(nt):
+        args[2 + k] = ptrs[1 + k]
+    for k in range(len(add_coeffs)):
+        args[5 + k] = ptrs[1 + nt + k]
+    c, d = (*coeffs, 0.0, 0.0), (*add_coeffs, 0.0, 0.0)
+    status = fn(args.buffer_info()[0], float(c[0]), float(c[1]), float(c[2]), float(d[0]),
+                float(d[1]), _build.stream(index))
+    _build.check(status, "restrict_combine")
+
+
+@functools.lru_cache(maxsize=256)
+def restrict_plan(R, Pc, Qc, dim, sms):
+    """(grid, dr, di, dj) of one K18 launch on R rows of Pc x Qc coarse
+    points (Pc = 1 in 1D) on a card of sms SMs: the card's resident blocks,
+    or fewer where the points do not fill them at UNROLL[dim] a thread; and
+    the grid's stride S = grid x THREADS points split as S = (dr Pc + di) Qc
+    + dj, which the kernel adds to a point's (row, coarse row, point) with
+    carries instead of dividing."""
+    grid = max(1, min(sms * BLOCKS_PER_SM, -(-R * Pc * Qc // (THREADS * UNROLL[dim]))))
+    dr, rem = divmod(grid * THREADS, Pc * Qc)
+    di, dj = divmod(rem, Qc)
+    return grid, dr, di, dj
+
+
+def restrict_pack(index, ptrs, strides, nt, na, R, Qf, Pc, Qc, dim, plan):
+    """The launcher's int64 argument array (csrc/restrict_combine.cu
+    ``launch``): device, out, x0-x2, y0-y1 (0: none), out's, x0-x2's and
+    y0-y1's row strides, R, Qf (a fine row's length, the fine n in 1D), Pc,
+    Qc, dim, terms, adds, then the plan: grid, dr, di, dj.  ptrs and
+    strides: out's, the nt terms', the na adds'.  (An ``array`` of int64:
+    its buffer's address is the launcher's argument.)"""
+    xp, yp = (0,) * (MAX_TERMS - nt), (0,) * (MAX_ADDS - na)
+    return array.array("q", (index, ptrs[0], *ptrs[1:nt + 1], *xp, *ptrs[nt + 1:], *yp,
+                             strides[0], *strides[1:nt + 1], *xp, *strides[nt + 1:], *yp,
+                             R, Qf, Pc, Qc, dim, nt, na, *plan))
 
 
 # ---------------------------------------------------------------------------

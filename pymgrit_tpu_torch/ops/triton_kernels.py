@@ -1,10 +1,10 @@
 """Kernels K3 ``residual_row_norms``, K4 ``cpoint_combine``, K7
 ``theta_rhs2d``, K11 ``allen_cahn_pointwise``, K13 ``rk4_brusselator``, K14
 ``gray_scott_pointwise`` and K15 ``burgers2d_pointwise`` (Triton), each
-beside its plain PyTorch version, and the bodies of K18
-``restrict_combine`` and K19 ``interpolate_combine``, whose wrappers and
-plain versions live in ``transfer``, and of K21 ``indexed_combine``
-(wrapper and plain version in ``indexed``).
+beside its plain PyTorch version, and the body of K19
+``interpolate_combine``, whose wrapper and plain version live in
+``transfer``.  (K18 ``restrict_combine`` and K21 ``indexed_combine`` are
+CUDA C++: ``csrc/restrict_combine.cu``, ``csrc/indexed_combine.cu``.)
 
 K3 replaces pymgrit_tpu/core/solver.py ``_point_residual_norms`` with
 ``vector.batched_norm``: the per-C-point 2-norm of Phi(u_{c-1}) - u_c that
@@ -394,42 +394,6 @@ def _rk4_brusselator_body(x_ptr, out_ptr, g_ptr, tp_ptr, tc_ptr, c_ptr, x_sj, o_
         tl.store(out_ptr + ln * o_sj + k * o_sk + 1, y1, mask=mask)
 
 
-def _restrict_body(out_ptr, x0_ptr, x1_ptr, x2_ptr, y0_ptr, y1_ptr, c_ptr, so, s0, s1, s2,
-                   t0, t1, Qf, Qc, Nc, DIM: tl.constexpr, NT: tl.constexpr, NA: tl.constexpr,
-                   KP: tl.constexpr, BLOCK: tl.constexpr):
-    # K18: out = R(sum_k c_k x_k) + (sum_j d_j y_j) at the coarse points idx
-    # of one row; c_ptr holds (c_0..c_2, d_0, d_1, w_0..w_{KP-1}) with R's
-    # weights w on the KP fine points it reads: DIM 1 full weighting (fine
-    # 2i, 2i+1, 2i+2; 1/4, 1/2, 1/4), DIM 2 injection (fine (2i, 2j); 1).
-    # x and y rows are contiguous states of the fine and coarse grid.
-    row = tl.program_id(0).to(tl.int64)
-    idx = tl.program_id(1) * BLOCK + tl.arange(0, BLOCK)
-    mask = idx < Nc
-    if DIM == 1:
-        base = 2 * idx
-    else:
-        i = idx // Qc
-        base = (2 * i) * Qf + 2 * (idx - i * Qc)
-    r = tl.zeros([BLOCK], dtype=out_ptr.dtype.element_ty)
-    for k in tl.static_range(KP):
-        q = base + k
-        v = tl.load(c_ptr) * tl.load(x0_ptr + row * s0 + q, mask=mask, other=0.0)
-        if NT > 1:
-            v = v + tl.load(c_ptr + 1) * tl.load(x1_ptr + row * s1 + q, mask=mask, other=0.0)
-        if NT > 2:
-            v = v + tl.load(c_ptr + 2) * tl.load(x2_ptr + row * s2 + q, mask=mask, other=0.0)
-        if k == 0:
-            r = v * tl.load(c_ptr + 5)
-        else:
-            r = r + v * tl.load(c_ptr + 5 + k)
-    if NA > 0:
-        s = tl.load(c_ptr + 3) * tl.load(y0_ptr + row * t0 + idx, mask=mask, other=0.0)
-        if NA > 1:
-            s = s + tl.load(c_ptr + 4) * tl.load(y1_ptr + row * t1 + idx, mask=mask, other=0.0)
-        r = r + s
-    tl.store(out_ptr + row * so + idx, r, mask=mask)
-
-
 def _interpolate_body(dst_ptr, a_ptr, b_ptr, sd, sa, sb, Pc, Qc, Qf, Nf, DIM: tl.constexpr,
                       HAS_B: tl.constexpr, BLOCK: tl.constexpr):
     # K19: dst = dst + P(a - b) (HAS_B) or dst = P(a) at the fine points idx
@@ -480,42 +444,6 @@ def _interpolate_body(dst_ptr, a_ptr, b_ptr, sd, sa, sb, Pc, Qc, Qf, Nf, DIM: tl
     tl.store(dp, v, mask=mask)
 
 
-def _indexed_combine_body(out_ptr, io_ptr, x0_ptr, x1_ptr, x2_ptr, i0_ptr, i1_ptr, i2_ptr, c_ptr,
-                          so, s0, s1, s2, T, N, NT: tl.constexpr, HAS_IO: tl.constexpr,
-                          HAS_I0: tl.constexpr, HAS_I1: tl.constexpr, HAS_I2: tl.constexpr,
-                          BLOCK: tl.constexpr):
-    # K21: out[io[r]] = sum_k c_k x_k[i_k[r]] at the columns idx of row r,
-    # summed left to right; a missing index is r itself; io[r] == T (the
-    # out tube's length) drops the row.  c_ptr holds the coefficients in
-    # the working dtype.
-    r = tl.program_id(0).to(tl.int64)
-    idx = tl.program_id(1) * BLOCK + tl.arange(0, BLOCK)
-    mask = idx < N
-    if HAS_I0:
-        r0 = tl.load(i0_ptr + r)
-    else:
-        r0 = r
-    acc = tl.load(c_ptr) * tl.load(x0_ptr + r0 * s0 + idx, mask=mask)
-    if NT > 1:
-        if HAS_I1:
-            r1 = tl.load(i1_ptr + r)
-        else:
-            r1 = r
-        acc = acc + tl.load(c_ptr + 1) * tl.load(x1_ptr + r1 * s1 + idx, mask=mask)
-    if NT > 2:
-        if HAS_I2:
-            r2 = tl.load(i2_ptr + r)
-        else:
-            r2 = r
-        acc = acc + tl.load(c_ptr + 2) * tl.load(x2_ptr + r2 * s2 + idx, mask=mask)
-    if HAS_IO:
-        dst = tl.load(io_ptr + r)
-        mask = mask & (dst < T)
-    else:
-        dst = r
-    tl.store(out_ptr + dst * so + idx, acc, mask=mask)
-
-
 def _jit():
     """Import triton and compile-wrap the kernel bodies (once)."""
     global tl
@@ -531,9 +459,7 @@ def _jit():
         _JIT["rk4_brusselator"] = triton.jit(_rk4_brusselator_body)
         _JIT["gray_scott"] = triton.jit(_gray_scott_body)
         _JIT["burgers2d"] = triton.jit(_burgers2d_body)
-        _JIT["restrict"] = triton.jit(_restrict_body)
         _JIT["interpolate"] = triton.jit(_interpolate_body)
-        _JIT["indexed_combine"] = triton.jit(_indexed_combine_body)
     return _JIT
 
 

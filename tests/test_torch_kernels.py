@@ -1238,6 +1238,226 @@ def test_indexed_combine_rejects(over, match):
         indexed.indexed_combine(**_k21_args(**over))
 
 
+# ---------------------------------------------------------------------------
+# K18 and K21 (CUDA C++ row kernels): bit for bit against the plain versions
+# at the layouts the main paths give them, and the launch plans the wrappers
+# compute
+# ---------------------------------------------------------------------------
+
+NF = 65 * 65            # a ragged65 / spatial65 fine state (4225 points)
+
+
+def _row_cases(dtype, dev):
+    """(label, kernel, launches, run(ops) -> tensor) of K18 and K21: rows
+    at an odd element offset (every other 4225-point float64 row off
+    16-byte alignment, every row of the offset tube off by 8 bytes from its
+    aligned neighbour), strided C-row views (tube[m::m]), dropped rows, out
+    as a term, float32-pair-shaped rows, R = 0 and N = 0, the 1D example's
+    15 -> 7 and spatial65's 65^2 -> 33^2."""
+    flat = _rand((9 * NF + 1,), dtype, dev, 60)
+    odd = flat[1:].view(9, NF)
+    src = _rand((9, NF), dtype, dev, 61)
+    tube = _rand((13, NF), dtype, dev, 62)
+    pick = torch.as_tensor([3, 0, 8, 3, 5, 2], device=dev)
+    put = torch.as_tensor([1, 9, 4, 0, 9, 7], device=dev)       # 9 = the row count: dropped
+    none = torch.zeros(0, dtype=torch.int64, device=dev)
+    pairs = _rand((8, 2, 127), dtype, dev, 63).view(8, 254)     # (rows, 2, n) pair states as rows
+
+    def k21_gather_odd(ops):
+        out = torch.zeros((6, NF), dtype=dtype, device=dev)
+        return ops.indexed_combine(out, [odd], [1.0], idx=[pick])
+
+    def k21_gather_into_odd(ops):
+        f = torch.zeros(6 * NF + 1, dtype=dtype, device=dev)
+        ops.indexed_combine(f[1:].view(6, NF), [src], [1.0], idx=[pick])
+        return f
+
+    def k21_scatter_drop(ops):
+        f = flat.clone()
+        ops.indexed_combine(f[1:].view(9, NF), [src[:6]], [1.0], io=put)
+        return f
+
+    def k21_weighted_in_place(ops):
+        f = flat.clone()
+        out = f[1:].view(9, NF)
+        ops.indexed_combine(out, [src[:4], out], [0.7, 0.3], io=pick[2:], idx=[None, pick[2:]])
+        return f
+
+    def k21_three(ops):
+        out = torch.zeros((5, NF), dtype=dtype, device=dev)
+        return ops.indexed_combine(out, [odd, src[4:9], odd[::2]], [1.0, -1.0, 0.25],
+                                   idx=[pick[:5]])
+
+    def k21_c_rows(ops):
+        t = tube.clone()
+        ops.indexed_combine(t[4::4], [src[:3], t[4::4]], [1.0, -1.0])
+        out = torch.zeros((4, NF), dtype=dtype, device=dev)
+        ops.indexed_combine(out, [t[2::3]], [0.5], idx=[pick[[0, 1, 3, 5]]])
+        return torch.cat([t.reshape(-1), out.reshape(-1)])
+
+    def k21_pairs(ops):
+        out = pairs.clone()
+        io = torch.as_tensor([7, 2, 8, 0, 5], device=dev)     # 8 = the row count: dropped
+        ops.indexed_combine(out, [pairs], [1.0], io=io, idx=[pick[1:] % 8])
+        return out
+
+    def k21_empty(ops):
+        out = src.clone()
+        ops.indexed_combine(out, [src[:0]], [1.0], io=none)
+        ops.indexed_combine(out[:, :0], [src[:, :0]], [1.0])
+        return out
+
+    ft1, ct1 = _rand((13, 15), dtype, dev, 64), _rand((13, 7), dtype, dev, 65)
+    ft2, ct2 = _rand((9, 65, 65), dtype, dev, 66), _rand((9, 33, 33), dtype, dev, 67)
+    fodd = _rand((4 * NF + 1,), dtype, dev, 68)[1:].view(4, 65, 65)
+
+    def k18(ft, ct, nterms, nadds, dim, m):
+        R = (ct.shape[0] - 1) // m
+
+        def run(ops):
+            out = ct.clone()
+            ops.restrict_combine(out[m::m][:R], [ft[k:k + R * m:m] for k in range(nterms)],
+                                 [1.0, -1.0, 0.5][:nterms],
+                                 [ct[k:k + R * m:m] for k in range(nadds)], [1.0, -1.0][:nadds],
+                                 dim)
+            return out
+        return run
+
+    def k18_odd(ops):
+        out = torch.zeros((4, 33, 33), dtype=dtype, device=dev)
+        return ops.restrict_combine(out, [fodd, ft2[1::2]], [1.0, -1.0], [out], [1.0], 2)
+
+    def k18_empty(ops):
+        out = ct2.clone()
+        ops.restrict_combine(out[:0], [ft2[:0]], [1.0], dim=2)
+        return out
+
+    return [("K21 gather from rows at an odd offset", "indexed_combine", 1, k21_gather_odd),
+            ("K21 gather into rows at an odd offset", "indexed_combine", 1, k21_gather_into_odd),
+            ("K21 drop-scatter", "indexed_combine", 1, k21_scatter_drop),
+            ("K21 weighted update, out as a term", "indexed_combine", 1, k21_weighted_in_place),
+            ("K21 three terms, one gathered", "indexed_combine", 1, k21_three),
+            ("K21 strided C-row views", "indexed_combine", 2, k21_c_rows),
+            ("K21 pair rows", "indexed_combine", 1, k21_pairs),
+            ("K21 R = 0 and N = 0", "indexed_combine", 0, k21_empty),
+            ("K18 1D 15 -> 7 FAS, C-rows m = 4", "restrict_combine", 1, k18(ft1, ct1, 2, 2, 1, 4)),
+            ("K18 1D 15 -> 7 restriction", "restrict_combine", 1, k18(ft1, ct1, 1, 0, 1, 1)),
+            ("K18 1D three terms, one add", "restrict_combine", 1, k18(ft1, ct1, 3, 1, 1, 3)),
+            ("K18 2D 65^2 -> 33^2 FAS, C-rows m = 2", "restrict_combine", 1,
+             k18(ft2, ct2, 2, 2, 2, 2)),
+            ("K18 2D restriction", "restrict_combine", 1, k18(ft2, ct2, 1, 0, 2, 1)),
+            ("K18 2D three terms, one add", "restrict_combine", 1, k18(ft2, ct2, 3, 1, 2, 2)),
+            ("K18 2D at an odd offset, out as its add", "restrict_combine", 1, k18_odd),
+            ("K18 R = 0", "restrict_combine", 0, k18_empty)]
+
+
+N_ROW_CASES = 16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", range(N_ROW_CASES))
+def test_row_kernels_match_plain_bit_for_bit_on_card(cuda, dtype, case):
+    label, name, launches, run = _row_cases(dtype, cuda)[case]
+    before = launch_counts()[name]
+    out_k = run(DISPATCH)
+    torch.cuda.synchronize()
+    assert launch_counts()[name] == before + launches, label
+    assert torch.equal(out_k, run(PLAIN)), label
+    assert torch.equal(out_k, run(DISPATCH)), label
+
+
+@pytest.mark.parametrize("case", range(N_ROW_CASES))
+def test_row_cases_take_the_plain_version_on_cpu(case):
+    cases = _row_cases(torch.float64, torch.device("cpu"))
+    assert len(cases) == N_ROW_CASES
+    label, name, _, run = cases[case]
+    reset_launch_counts()
+    assert torch.equal(run(DISPATCH), run(PLAIN)), label
+    assert launch_counts()[name] == 0
+
+
+@pytest.mark.parametrize("es,mods,fixed,vec", [
+    (8, (0, 0), True, 2),        # aligned rows, strides of whole 16 bytes: every row in vectors
+    (8, (8, 8), True, 2),        # both 8 bytes off: every row peels one element
+    (8, (0, 8), True, 1),        # no row of these can agree: the scalar instantiation
+    (8, (0, 8), False, 2),       # 4225-point rows (33800 bytes, 8 mod 16): decided row by row
+    (4, (0, 4, 8), True, 1),
+    (4, (4, 4, 4), True, 4),     # float32: four a vector
+])
+def test_indexed_plan_vector_width(es, mods, fixed, vec):
+    from pymgrit_tpu_torch.ops import indexed
+    assert indexed.plan(515, 4225, es, len(mods) - 1, mods, fixed, 132)[0] == vec
+
+
+@pytest.mark.parametrize("R,N,nt,es,segs,grid", [
+    (515, 4225, 1, 8, 17, 528),    # ragged65's gather: 8755 warp items, 132 SMs x 4 blocks
+    (515, 4225, 3, 8, 34, 528),    # two or three terms: 2 vectors a lane, segments of 128
+    (514, 8450, 1, 4, 17, 528),    # float32 pair rows: 4 a vector
+    (3, 7, 1, 8, 1, 1),
+    (40, 300, 2, 8, 3, 15),        # two terms: segments of 128; 120 items, 8 warps a block
+])
+def test_indexed_plan_segments_and_grid(R, N, nt, es, segs, grid):
+    from pymgrit_tpu_torch.ops import indexed
+    assert indexed.plan(R, N, es, nt, (0,) * (nt + 1), True, 132)[1:] == (segs, grid)
+
+
+def test_indexed_pack_layout():
+    from pymgrit_tpu_torch.ops import indexed
+    args = indexed.pack(1, (100, 200, 300), 400, (500, 0), (4225, 4225, 8450), 4097, 515, 4225,
+                        2, (2, 17, 528))
+    assert list(args) == [1, 100, 400, 200, 300, 0, 500, 0, 0, 4225, 4225, 8450, 0, 4097, 515,
+                          4225, 17, 2, 2, 528]
+
+
+@pytest.mark.parametrize("R,Pc,Qc,dim,sms", [
+    (1024, 33, 33, 2, 132), (1025, 33, 33, 2, 132), (64, 1, 7, 1, 132), (37, 5, 6, 2, 1),
+    (5, 1, 3, 1, 2),
+])
+def test_restrict_plan_walks_every_point_once(R, Pc, Qc, dim, sms):
+    from pymgrit_tpu_torch.ops import transfer
+    grid, dr, di, dj = transfer.restrict_plan(R, Pc, Qc, dim, sms)
+    per_block = transfer.THREADS * transfer.UNROLL[dim]
+    assert grid == max(1, min(sms * transfer.BLOCKS_PER_SM, -(-R * Pc * Qc // per_block)))
+    assert (dr * Pc + di) * Qc + dj == grid * transfer.THREADS and 0 <= di < Pc and 0 <= dj < Qc
+    # the kernel's walk (csrc/restrict_combine.cu): one division for a
+    # thread's first point, then the stride added with carries
+    t = np.arange(grid * transfer.THREADS)
+    r, rem = np.divmod(t, Pc * Qc)
+    i, j = np.divmod(rem, Qc)
+    seen = np.zeros(R * Pc * Qc, dtype=np.int64)
+    while (r < R).any():
+        m = r < R
+        np.add.at(seen, (r[m] * Pc + i[m]) * Qc + j[m], 1)
+        j = j + dj
+        i = i + (j >= Qc)
+        j = np.where(j >= Qc, j - Qc, j)
+        i = i + di
+        r = r + (i >= Pc) + dr
+        i = np.where(i >= Pc, i - Pc, i)
+    assert (seen == 1).all()
+
+
+def test_restrict_pack_layout():
+    from pymgrit_tpu_torch.ops import transfer
+    # out, two terms, one add: pointers and row strides in that order
+    args = transfer.restrict_pack(2, (10, 20, 30, 40), (12, 70, 35, 24), 2, 1, 4, 7, 3, 4, 2,
+                                  (5, 1, 2, 3))
+    assert list(args) == [2, 10, 20, 30, 0, 40, 0, 12, 70, 35, 0, 24, 0, 4, 7, 3, 4, 2, 2, 1,
+                          5, 1, 2, 3]
+
+
+def test_restrict_combine_out_as_the_same_view_of_an_add():
+    from pymgrit_tpu_torch.ops import transfer
+    ft, ct = _rand((8, 9, 11), torch.float64, "cpu", 69), _rand((8, 5, 6), torch.float64, "cpu", 70)
+    want = transfer.restrict_combine_plain(torch.empty_like(ct[1::2]), [ft[::2]], [1.0],
+                                           [ct[1::2]], [1.0], 2)
+    transfer.restrict_combine(ct[1::2], [ft[::2]], [1.0], [ct[1::2]], [1.0], 2)
+    assert torch.equal(ct[1::2], want)
+    with pytest.raises(ValueError, match="out overlaps add0"):
+        transfer.restrict_combine(ct[1:5], [ft[:4]], [1.0], [ct[2:6]], [1.0], 2)
+
+
 def _k22_args(**over):
     f = dict(dtype=torch.float64)
     args = dict(x=torch.zeros((3, 5), **f), out=torch.empty((3, 5), **f),
