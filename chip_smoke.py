@@ -338,6 +338,12 @@ DD_MATMUL_RTOL = 1e-14
 # the units that could do the kernels' operations (FP64 and FP32 outside the
 # tensor cores; FP64 on the tensor cores, DMMA, for dense products)
 HBM_BYTES_PER_S = 3.35e12
+# its L2 holds 50 MB: device_ms reads three times that before each timed
+# launch, so that the launch finds none of its operands there
+L2_FLUSH_BYTES = 3 * 50 * 2 ** 20
+_FLUSH = []
+# phase 3 times each K18 / K21 case in this many rounds
+ROW_ROUNDS = 5
 PEAK_OPS_PER_S = {"float64": 34e12, "float32": 67e12}
 PEAK_DMMA_OPS_PER_S = 67e12
 # the kernels whose operations are dense FP64 products, which the tensor
@@ -449,10 +455,12 @@ def phase_build():
           f"(nvcc {_build.build_seconds}) | triton {triton.__version__} | ptxas: {' ; '.join(regs)}")
     print("[build] K18 / K21 (csrc/restrict_combine.cu, csrc/indexed_combine.cu), ptxas: "
           + " ; ".join(f"{name}: {regs} registers, spill stores/loads {st}/{ld} B"
-                       for name, (regs, st, ld) in row_ptxas(_build.build_log()).items()))
+                       for name, (regs, st, ld, _) in ptxas(_build.build_log(), ROW_NAME,
+                                                            row_label).items()))
     print("[build] product tile (csrc/dmma_tile.cuh), ptxas: " + " ; ".join(
         f"{name}: {regs} registers, spill stores/loads {st}/{ld} B, static smem {sm} B"
-        for name, (regs, st, ld, sm) in tile_ptxas(_build.build_log()).items())
+        for name, (regs, st, ld, sm) in ptxas(_build.build_log(), TILE_OR_REDUCE,
+                                              tile_label).items())
           + " (dynamic smem: each case's plan)")
     # K22 and K26 run their f64 products on the FP64 tensor cores (DMMA); no
     # kernel of the library uses the other tensor-core paths (HMMA: TF32 and
@@ -487,57 +495,45 @@ def tile_owner(fn):
     return "dd_matmul" if m.group(2) == "1" else "eig_step"
 
 
-# restrict_combine_kernel<T, DIM, NT, NA> / indexed_combine_kernel<T, NT, V>
+# restrict_combine_kernel<T, DIM, NT, NA> / indexed_combine_kernel<T, NT>
 ROW_NAME = re.compile(r"(restrict|indexed)_combine_kernelI([df])((?:Li\d+E)+)E")
+# the product tile's kernels and its reduction of the split's partials
+TILE_OR_REDUCE = re.compile(TILE_NAME.pattern + "|reduce_slicesI")
 
 
-def row_ptxas(log):
-    """{label: (registers, spill store bytes, spill load bytes)} of K18's
-    and K21's instantiations in the ptxas log."""
-    out, name = {}, None
+def row_label(m, ln):
+    kind, e, params = m.groups()
+    p = re.findall(r"Li(\d+)E", params)
+    if kind == "restrict":
+        return f"K18 {'f64' if e == 'd' else 'f32'} dim {p[0]} terms {p[1]} adds {p[2]}"
+    return f"K21 {'f64' if e == 'd' else 'f32'} terms {p[0]}"
+
+
+def tile_label(m, ln):
+    if m.group(1) is None:              # reduce_slices<E, pair>
+        return "reduce " + ("dd" if "IdLb1" in ln else "f64" if "IdLb0" in ln else "f32")
+    e, pair, bm, bn, bk, st, mb = m.groups()
+    kind = "K26 dd" if pair == "1" else f"K22 {'f64' if e == 'd' else 'f32'}"
+    return f"{kind} {bm}x{bn}x{bk}x{st}"
+
+
+def ptxas(log, name, label):
+    """{label(match, line): (registers, spill store bytes, spill load bytes,
+    static smem bytes)} of the entry functions of the ptxas log whose
+    mangled name matches the regex ``name``."""
+    out, key = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            m = ROW_NAME.search(ln)
-            name = None
-            if m:
-                kind, e, params = m.groups()
-                p = re.findall(r"Li(\d+)E", params)
-                name = (f"K18 {'f64' if e == 'd' else 'f32'} dim {p[0]} terms {p[1]} adds {p[2]}"
-                        if kind == "restrict" else
-                        f"K21 {'f64' if e == 'd' else 'f32'} terms {p[0]} vec {p[1]}")
-        elif name and "spill stores" in ln:
+            m = name.search(ln)
+            key = label(m, ln) if m else None
+        elif key and "spill stores" in ln:
             nums = re.findall(r"(\d+) bytes", ln)
-            out[name] = [None, int(nums[1]), int(nums[2])]
-        elif name and "Used" in ln and "registers" in ln and name in out:
-            out[name][0] = int(re.search(r"Used (\d+) registers", ln).group(1))
-            name = None
-    return {k: tuple(v) for k, v in out.items()}
-
-
-def tile_ptxas(log):
-    """{label: (registers, spill store bytes, spill load bytes, static smem
-    bytes)} of the product tile's kernels in the ptxas log."""
-    out, name = {}, None
-    for ln in log.splitlines():
-        if "Compiling entry function" in ln:
-            m = TILE_NAME.search(ln)
-            r = "reduce_slicesI" in ln
-            if m:
-                e, pair, bm, bn, bk, st, mb = m.groups()
-                kind = "K26 dd" if pair == "1" else f"K22 {'f64' if e == 'd' else 'f32'}"
-                name = f"{kind} {bm}x{bn}x{bk}x{st}"
-            elif r:
-                name = "reduce " + ("dd" if "IdLb1" in ln else "f64" if "IdLb0" in ln else "f32")
-            else:
-                name = None
-        elif name and "spill stores" in ln:
-            nums = re.findall(r"(\d+) bytes", ln)
-            out[name] = [None, int(nums[1]), int(nums[2]), 0]
-        elif name and "Used" in ln and "registers" in ln and name in out:
-            out[name][0] = int(re.search(r"Used (\d+) registers", ln).group(1))
+            out[key] = [None, int(nums[1]), int(nums[2]), 0]
+        elif key and "Used" in ln and "registers" in ln and key in out:
+            out[key][0] = int(re.search(r"Used (\d+) registers", ln).group(1))
             sm = re.search(r"(\d+) bytes smem", ln)
-            out[name][3] = int(sm.group(1)) if sm else 0
-            name = None
+            out[key][3] = int(sm.group(1)) if sm else 0
+            key = None
     return {k: tuple(v) for k, v in out.items()}
 
 
@@ -563,34 +559,52 @@ def cuda_ms(fn, reps=20, budget_ms=1000.0):
 
 
 def device_ms(fn, kernel, count=20, reps=10):
-    """Device time of one call: ``count`` calls on fixed arguments captured
-    in one CUDA graph and replayed (median of ``reps`` replays, divided by
-    the count; no host time between the launches).  Where capture fails,
-    torch.profiler's device time of the kernel's launches over ``count``
-    calls.  Returns (ms, "graph" or "profiler")."""
+    """Device time of one call with a cold L2: ``count`` calls on fixed
+    arguments, each after a read of L2_FLUSH_BYTES that leaves none of its
+    operands in the L2, captured in one CUDA graph, and the same reads
+    alone in another; the two replayed in turns (median over ``reps`` turns
+    of their difference, divided by the count; no host time between the
+    launches).  Where capture fails, torch.profiler's device time of the
+    kernel's launches over ``count`` calls, each after a read.  Returns
+    (ms, "graph" or "profiler")."""
     import torch
+    if not _FLUSH:
+        _FLUSH.append(torch.zeros(L2_FLUSH_BYTES // 8, dtype=torch.float64, device=DEVICE))
+    flush = _FLUSH[0].sum
+
+    def flushed():
+        flush()
+        fn()
+
     try:
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
-            fn()
+            flushed()
         torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(count):
-                fn()
-        graph.replay()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
+        graphs = []
+        for body in (flushed, flush):
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                for _ in range(count):
+                    body()
             graph.replay()
-            stop.record()
-            stop.synchronize()
-            times.append(start.elapsed_time(stop) / count)
-        del graph
-        return float(np.median(times)), "graph"
+            graphs.append(graph)
+        torch.cuda.synchronize()
+        diffs = []
+        for _ in range(reps):
+            t = []
+            for graph in graphs:
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                graph.replay()
+                stop.record()
+                stop.synchronize()
+                t.append(start.elapsed_time(stop))
+            diffs.append((t[0] - t[1]) / count)
+        del graphs
+        return float(np.median(diffs)), "graph"
     except Exception as exc:            # noqa: BLE001 -- any capture failure: say so, use the profiler
         torch.cuda.synchronize()
         print(f"[kernels] {kernel}: CUDA graph capture failed ({exc!r}); device time from "
@@ -598,7 +612,7 @@ def device_ms(fn, kernel, count=20, reps=10):
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(count):
-                fn()
+                flushed()
             torch.cuda.synchronize()
         us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
                  for e in prof.key_averages() if f"{kernel}_kernel" in e.key)
@@ -1765,13 +1779,22 @@ def phase_kernels():
                       f"second launch bit for bit: {same}")
                 check(same, f"{kernel} {case} {dname}: a second launch differs")
             del out_k, out_p
-            dev_txt, dev_ms = "", None
+            dev_txt, dev_ms, lib_rounds = "", None, None
             if row_case:                # the fresh copy a call writes into is made untimed
+                # ROW_ROUNDS rounds of kernel, plain (and library) in
+                # turns: the full time is the median of the rounds'
+                # medians, and the rounds give its spread
                 st_k, st_p = run.prepare(), run.prepare()
-                ms_k = cuda_ms(lambda: run.launch(DISPATCH, st_k))
-                ms_p = cuda_ms(lambda: run.launch(PLAIN, st_p))
+                lib = stash.get(("library", kernel, case)) if dtype == torch.float64 else None
+                rounds = [(cuda_ms(lambda: run.launch(DISPATCH, st_k)),
+                           cuda_ms(lambda: run.launch(PLAIN, st_p)),
+                           cuda_ms(lib) if lib is not None else None) for _ in range(ROW_ROUNDS)]
+                ms_k, ms_p = (float(np.median([r[i] for r in rounds])) for i in (0, 1))
+                if lib is not None:
+                    lib_rounds = [r[2] for r in rounds]
                 dev_ms, how = device_ms(lambda: run.launch(DISPATCH, st_k), kernel)
-                dev_txt = f" device {dev_ms:.4f} ms ({how})"
+                dev_txt = (f" (rounds {', '.join(f'{r[0]:.4f}' for r in rounds)}) device "
+                           f"{dev_ms:.4f} ms ({how}, cold L2)")
                 del st_k, st_p
             else:
                 ms_k, ms_p = cuda_ms(lambda: run(DISPATCH)), cuda_ms(lambda: run(PLAIN))
@@ -1786,7 +1809,8 @@ def phase_kernels():
                 work = work() if callable(work) else work
                 c_ms, c_by = bound_ms(kernel, stash, work)
                 lib = stash.get(("library", kernel, case))
-                lib_ms = cuda_ms(lib) if lib is not None else None
+                lib_ms = (float(np.median(lib_rounds)) if lib_rounds is not None
+                          else cuda_ms(lib) if lib is not None else None)
                 peak = op_peak(kernel)
                 print(f"[kernels] {kernel:<20} {case}: bound {c_ms:.4f} ms ({c_by}): bytes "
                       f"{work[0] / 1e6:.3f} MB / 3.35 TB/s = {work[0] / HBM_BYTES_PER_S * 1e3:.4f} ms, "
@@ -1798,7 +1822,9 @@ def phase_kernels():
                       + (f" (device {dev_ms / c_ms:.1f}x)" if dev_ms is not None else "")
                       + " | library call "
                       + (f"{lib_ms:.4f} ms (kernel {ms_k / lib_ms:.2f}x)" if lib is not None
-                         else "none"))
+                         else "none")
+                      + (" (rounds " + ", ".join(f"{r:.4f}" for r in lib_rounds) + ")"
+                         if lib_rounds is not None else ""))
             if dtype == torch.float64 and kernel not in rows and case.startswith(headline[kernel]):
                 b_ms, b_by = bound_ms(kernel, stash)
                 lib = stash.get(("library", kernel))
@@ -3293,17 +3319,17 @@ def phase_dd(card):
     return out["dd_toms129"], out["dd65"]
 
 
-def profile_cells(card, only=()):
+def profile_cells(card):
     """``--profile``: one profiled kernel-path solve of each cell of the
     periodic models, the ragged row, the spatial65 row, the BDF example,
     the two DD rows and the deep diffusion grid (after one untimed solve of
-    the same configuration; ``only``: the cells whose label contains one of
-    these words, all without), torch.profiler with CPU and CUDA activities:
+    the same configuration), torch.profiler with CPU and CUDA activities:
     the profiled wall, the card's busy time (the kernels' device time
     summed; one stream, so they do not overlap) and idle share, the three
-    device ops that took longest, K18's, K19's and K21's device time and
-    launches, and the host's kernel launches and stream
-    synchronisations."""
+    device ops that took longest, K18's, K19's and K21's device time,
+    launches and device time a launch inside the solve (phase 3's "device"
+    column times one case with a cold L2), and the host's kernel launches
+    and stream synchronisations."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     import pymgrit_tpu_torch as P
@@ -3366,8 +3392,6 @@ def profile_cells(card, only=()):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
     for label, build in cells:
-        if only and not any(word in label for word in only):
-            continue
         build().solve()
         mg = build()
         torch.cuda.synchronize()
@@ -3400,7 +3424,8 @@ def profile_cells(card, only=()):
               f"busy {busy:.1f} ms, idle {100 * (1 - busy / (wall * 1e3)):.1f} % | leading device "
               "time " + "; ".join(f"{e.key[:48]} {device_us(e) / 1e3:.2f} ms ({e.count})"
                                   for e in top)
-              + "".join(f" | {k} {n} launches {ms:.2f} ms" for k, (n, ms) in row.items() if n)
+              + "".join(f" | {k} {n} launches {ms:.2f} ms ({ms / n:.4f} ms a launch)"
+                        for k, (n, ms) in row.items() if n)
               + f" | host: {launches} kernel launches, {syncs} synchronisations"
               + (f" | product tile: {calls['eig_step']} K22 and {calls['dd_matmul']} K26 calls, "
                  f"{tile['tile_product'][0]} product kernels {tile['tile_product'][1]:.2f} ms, "
@@ -3471,7 +3496,7 @@ def main():
     phase_build()
     if "--profile" in sys.argv[1:]:
         # no checks ran: the last line says so and carries no "ok"
-        profile_cells(card, [a for a in sys.argv[1:] if a != "--profile"])
+        profile_cells(card)
         print(card)
         print(json.dumps({"profile": True, "device": {"platform": "gpu",
                                                       "kind": torch.cuda.get_device_name(0),

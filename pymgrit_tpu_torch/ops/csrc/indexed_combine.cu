@@ -103,10 +103,9 @@ __device__ __forceinline__ void element(T* o, const T* const (&x)[NT], const T (
   o[e] = combine<T, NT>(c, v);
 }
 
-// V: the vector width in elements (16 bytes), or 1 where no row can be
-// vectorized (ops/indexed.py::plan decides from the bases and strides)
-template <typename T, int NT, int V>
+template <typename T, int NT>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) indexed_combine_kernel(const Params p) {
+  constexpr int V = Vec16<T>::n;  // elements a 16-byte vector
   // independent loads in flight a lane and term (ops/indexed.py UNROLL): 4
   // vectors (64 bytes) with one term, 2 with two or three, so that 64
   // registers hold them without spilling
@@ -132,15 +131,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) indexed_combine_kernel(c
       x[k] = static_cast<const T*>(p.x[k]) + src * p.sx[k];
     }
     const int64_t N = p.N;
-    bool vec = V > 1;
-    if (V > 1) {
-      const uintptr_t mo = reinterpret_cast<uintptr_t>(o) & 15;
+    const uintptr_t mo = reinterpret_cast<uintptr_t>(o) & 15;
+    bool vec = true;
 #pragma unroll
-      for (int k = 0; k < NT; ++k) vec &= (reinterpret_cast<uintptr_t>(x[k]) & 15) == mo;
-    }
+    for (int k = 0; k < NT; ++k) vec &= (reinterpret_cast<uintptr_t>(x[k]) & 15) == mo;
     if (vec) {
       using VT = typename Vec16<T>::type;
-      const uintptr_t mo = reinterpret_cast<uintptr_t>(o) & 15;
       int64_t head = (int64_t)(((16 - mo) & 15) / sizeof(T));
       head = head < N ? head : N;
       const int64_t nv = (N - head) / V;
@@ -201,7 +197,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) indexed_combine_kernel(c
 
 // args (int64): CUDA device, out, io, x0, x1, x2, i0, i1, i2 (0: none),
 // out's row stride, x0-x2's row strides, T, R, N, segments a row, terms,
-// vector width, grid (ops/indexed.py::pack)
+// vector width (16 bytes: the launcher refuses another), grid
+// (ops/indexed.py::pack)
 template <typename T>
 int launch(const int64_t* a, double c0, double c1, double c2, void* stream) {
   Params p{};
@@ -223,7 +220,7 @@ int launch(const int64_t* a, double c0, double c1, double c2, void* stream) {
   p.c[1] = c1;
   p.c[2] = c2;
   if (p.R == 0 || p.N == 0) return 0;
-  if (nt < 1 || nt > 3 || (vec != 1 && vec != Vec16<T>::n) || grid == 0) {
+  if (nt < 1 || nt > 3 || vec != Vec16<T>::n || grid == 0) {
     return (int)cudaErrorInvalidValue;
   }
   int current = 0;
@@ -231,16 +228,9 @@ int launch(const int64_t* a, double c0, double c1, double c2, void* stream) {
   const int device = (int)a[0];
   if (device != current) cudaSetDevice(device);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  constexpr int V = Vec16<T>::n;
-  if (vec == 1) {
-    if (nt == 1) indexed_combine_kernel<T, 1, 1><<<grid, kThreads, 0, s>>>(p);
-    if (nt == 2) indexed_combine_kernel<T, 2, 1><<<grid, kThreads, 0, s>>>(p);
-    if (nt == 3) indexed_combine_kernel<T, 3, 1><<<grid, kThreads, 0, s>>>(p);
-  } else {
-    if (nt == 1) indexed_combine_kernel<T, 1, V><<<grid, kThreads, 0, s>>>(p);
-    if (nt == 2) indexed_combine_kernel<T, 2, V><<<grid, kThreads, 0, s>>>(p);
-    if (nt == 3) indexed_combine_kernel<T, 3, V><<<grid, kThreads, 0, s>>>(p);
-  }
+  if (nt == 1) indexed_combine_kernel<T, 1><<<grid, kThreads, 0, s>>>(p);
+  if (nt == 2) indexed_combine_kernel<T, 2><<<grid, kThreads, 0, s>>>(p);
+  if (nt == 3) indexed_combine_kernel<T, 3><<<grid, kThreads, 0, s>>>(p);
   const cudaError_t e = cudaGetLastError();
   if (device != current) cudaSetDevice(current);
   return (int)e;

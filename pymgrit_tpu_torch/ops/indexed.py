@@ -16,15 +16,14 @@ where each row index is optional (rows in order) and an output index equal
 to the out tube's length drops the row (the padding of the ragged chains).
 It is bound by the bytes of the rows it reads and writes, and a call is
 small (a ragged65 gather moves 35 MB in about 0.01 ms), so the wrapper's
-host time counts as much as the kernel: the checks are cached by the
-operands' dtype, device, shapes and strides (``_checked``) and format no
-message unless they fail, the launch plan (``plan``: vector width,
-segments a row, grid) and the argument array (``pack``) by those and the
-pointers' offsets from 16-byte alignment (``_template``), and the launch
-is one ctypes call with the array, this call's pointers filled in, and the
-coefficients as doubles, which the kernel takes by value.  The sum runs left to right with each
-product and sum rounded once, so the kernel equals the plain version bit
-for bit; NaN propagates.
+host time counts as much as the kernel: the checks, the launch plan
+(``plan``: vector width, segments a row, grid) and the argument array
+(``pack``) are cached by the operands' dtype, device, shapes and strides
+(``_checked``), no message is formatted unless a check fails, and the
+launch is one ctypes call with the array, this call's pointers filled in,
+and the coefficients as doubles, which the kernel takes by value.  The sum
+runs left to right with each product and sum rounded once, so the kernel
+equals the plain version bit for bit; NaN propagates.
 
 Dispatch as in ``heat_kernels``: CPU tensors go to the plain version, CUDA
 tensors launch the kernel or raise.
@@ -82,7 +81,9 @@ def _key(k):
 def _checked(facts, io, idx):
     """Every check of a call on the ``fact``s of out and the terms, of io
     (or None) and of each term's index (or None), cached by them; returns
-    (R, N, on the CPU, the launch's key for ``_template``)."""
+    (R, on the CPU, the launch: the argument array without pointers, the
+    launcher and the device index; None on the CPU or with nothing to
+    do)."""
     name = "indexed_combine"
     _check_facts(name, facts, _key)
     dtype, device, shape = facts[0][:3]
@@ -98,8 +99,13 @@ def _checked(facts, io, idx):
                 _require(False, name, f"term{k} has {f[2][0]} rows, expected {R}")
         else:
             _check_index(name, f"idx{k}", i, R, device)
-    strides = tuple(f[3][0] for f in facts)
-    return R, N, device.type == "cpu", (R, N, dtype, strides, shape[0], device.index)
+    on_cpu, launch = device.type == "cpu", None
+    if not on_cpu and R and N:
+        nt, index, strides = len(facts) - 1, device.index, tuple(f[3][0] for f in facts)
+        p = plan(R, N, dtype.itemsize, nt, _build.sm_count(index))
+        launch = (pack(index, (0,) * (nt + 1), 0, (0,) * nt, strides, shape[0], R, N, nt, p),
+                  _launcher("pm_indexed_combine", dtype), index)
+    return R, on_cpu, launch
 
 
 def indexed_combine(out, terms, coeffs, io=None, idx=()):
@@ -120,33 +126,31 @@ def indexed_combine(out, terms, coeffs, io=None, idx=()):
                  f"needs 1..{MAX_TERMS} terms with one coefficient and at most one index each")
     if len(idx) < nt:
         idx = (*idx, *(None,) * (nt - len(idx)))
-    R, N, on_cpu, key = _checked(
+    R, on_cpu, launch = _checked(
         (fact(out), *map(fact, terms)), None if io is None else fact(io),
         tuple([None if i is None else fact(i) for i in idx]))
     if on_cpu:
         return indexed_combine_plain(out, terms, coeffs, io, idx)
-    if R == 0 or N == 0:
-        return out
-    _launch(key, out, terms, coeffs, io, idx)
-    indexed_combine.launches += 1
+    if launch is not None:
+        _launch(launch, out, terms, coeffs, io, idx)
+        indexed_combine.launches += 1
     return out
 
 
 indexed_combine.launches = 0
 
 
-def _launch(key, out, terms, coeffs, io, idx):
+def _launch(launch, out, terms, coeffs, io, idx):
     """One launch of K21 on checked operands (idx: one entry a term): the
-    cached argument array of the call's key and alignments, with this
-    call's pointers filled in."""
-    ptrs = [out.data_ptr()] + [t.data_ptr() for t in terms]
-    tmpl, fn, index = _template(key, tuple([a % 16 for a in ptrs]))
+    cached argument array (``_checked``) with this call's pointers filled
+    in."""
+    tmpl, fn, index = launch
     args = tmpl[:]
-    args[1] = ptrs[0]
+    args[1] = out.data_ptr()
     if io is not None:
         args[2] = io.data_ptr()
     for k in range(len(terms)):
-        args[3 + k] = ptrs[1 + k]
+        args[3 + k] = terms[k].data_ptr()
         if idx[k] is not None:
             args[6 + k] = idx[k].data_ptr()
     c = (*coeffs, 0.0, 0.0)
@@ -155,37 +159,18 @@ def _launch(key, out, terms, coeffs, io, idx):
     _build.check(status, "indexed_combine")
 
 
-@functools.lru_cache(maxsize=1024)
-def _template(key, mods):
-    """(argument array without pointers, launcher, device index) of a
-    call's key (``_checked``) and its operands' offsets from 16-byte
-    alignment."""
-    R, N, dtype, strides, T, index = key
-    nt, es = len(strides) - 1, dtype.itemsize
-    p = plan(R, N, es, nt, mods, all(st * es % 16 == 0 for st in strides),
-             _build.sm_count(index))
-    return (pack(index, (0,) * (nt + 1), 0, (0,) * nt, strides, T, R, N, nt, p),
-            _launcher("pm_indexed_combine", dtype), index)
-
-
-@functools.lru_cache(maxsize=1024)
-def plan(R, N, es, nt, mods, fixed, sms):
+def plan(R, N, es, nt, sms):
     """(vector width, segments a row, grid) of one launch.
 
-    R rows of N elements of es bytes, nt terms; mods: out's and each
-    term's base pointer modulo 16; fixed: every row stride is a multiple of
-    16 bytes (each row keeps its base's offset from alignment); sms: the
-    card's SM count.  The kernel vectorizes a row (16 bytes a load) where
-    all its operands' row pointers share one offset from alignment; where
-    the strides are fixed and the bases differ no row can, and the plan
-    takes the scalar instantiation (vector width 1).  A segment is 32 x
-    UNROLL[nt] vectors; the grid is the card's resident blocks, or fewer
-    where the rows' segments do not fill them (a block holds THREADS / 32
-    warps, one item each).
+    R rows of N elements of es bytes, nt terms, sms: the card's SM count.
+    The vector width is 16 bytes' worth of elements; the kernel decides row
+    by row whether a row takes it (every operand's row pointer at one offset
+    from 16-byte alignment) or scalar loads, with the same segments.  A
+    segment is 32 x UNROLL[nt] vectors; the grid is the card's resident
+    blocks, or fewer where the rows' segments do not fill them (a block
+    holds THREADS / 32 warps, one item each).
     """
     vec = 16 // es
-    if fixed and len(set(mods)) > 1:
-        vec = 1
     segs = -(-N // (32 * UNROLL[nt] * vec))
     grid = max(1, min(sms * BLOCKS_PER_SM, -(-R * segs // (THREADS // 32))))
     return vec, segs, grid

@@ -1377,17 +1377,15 @@ def test_row_cases_take_the_plain_version_on_cpu(case):
     assert launch_counts()[name] == 0
 
 
-@pytest.mark.parametrize("es,mods,fixed,vec", [
-    (8, (0, 0), True, 2),        # aligned rows, strides of whole 16 bytes: every row in vectors
-    (8, (8, 8), True, 2),        # both 8 bytes off: every row peels one element
-    (8, (0, 8), True, 1),        # no row of these can agree: the scalar instantiation
-    (8, (0, 8), False, 2),       # 4225-point rows (33800 bytes, 8 mod 16): decided row by row
-    (4, (0, 4, 8), True, 1),
-    (4, (4, 4, 4), True, 4),     # float32: four a vector
+@pytest.mark.parametrize("es,vec", [
+    (8, 2),      # float64: two a 16-byte vector
+    (4, 4),      # float32 (the DD pair rows): four
 ])
-def test_indexed_plan_vector_width(es, mods, fixed, vec):
+def test_indexed_plan_vector_width(es, vec):
+    # one width a dtype: the kernel decides row by row between it and
+    # scalar loads (every operand at one offset from 16-byte alignment)
     from pymgrit_tpu_torch.ops import indexed
-    assert indexed.plan(515, 4225, es, len(mods) - 1, mods, fixed, 132)[0] == vec
+    assert indexed.plan(515, 4225, es, 1, 132)[0] == vec
 
 
 @pytest.mark.parametrize("R,N,nt,es,segs,grid", [
@@ -1399,7 +1397,59 @@ def test_indexed_plan_vector_width(es, mods, fixed, vec):
 ])
 def test_indexed_plan_segments_and_grid(R, N, nt, es, segs, grid):
     from pymgrit_tpu_torch.ops import indexed
-    assert indexed.plan(R, N, es, nt, (0,) * (nt + 1), True, 132)[1:] == (segs, grid)
+    assert indexed.plan(R, N, es, nt, 132)[1:] == (segs, grid)
+
+
+def _ptxas_entry(mangled, regs, spills, smem=0):
+    return (f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'\n"
+            f"ptxas info    : Function properties for {mangled}\n"
+            f"    {spills[0]} bytes stack frame, {spills[0]} bytes spill stores, "
+            f"{spills[1]} bytes spill loads\n"
+            f"ptxas info    : Used {regs} registers, "
+            + (f"{smem} bytes smem, " if smem else "") + "560 bytes cmem[0]\n")
+
+
+@pytest.mark.parametrize("mangled,table,label,want", [
+    ("_ZN12_GLOBAL__N_122indexed_combine_kernelIdLi3EEEvNS_6ParamsE", "row",
+     "K21 f64 terms 3", (64, 64, 88, 0)),
+    ("_ZN12_GLOBAL__N_123restrict_combine_kernelIfLi1ELi2ELi0EEEvNS_6ParamsE", "row",
+     "K18 f32 dim 1 terms 2 adds 0", (36, 0, 0, 0)),
+    ("_Z12tile_productIdLb0ELi64ELi8ELi16ELi3ELi2EEvPKdS1_Pdll", "tile",
+     "K22 f64 64x8x16x3", (126, 0, 0, 8192)),
+    ("_Z13reduce_slicesIdLb1EEvPKdPdll", "tile", "reduce dd", (40, 0, 0, 0)),
+])
+def test_ptxas_log_parser(mangled, table, label, want):
+    # chip_smoke's [build] line: one parser of the ptxas log for K18 / K21
+    # and for the product tile; entries of other kernels are skipped
+    import importlib
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    chip_smoke = importlib.import_module("chip_smoke")
+    regs, st, ld, sm = want
+    log = (_ptxas_entry("_Z15theta_chain_f64PKdS0_Pdl", 40, (8, 8))
+           + _ptxas_entry(mangled, regs, (st, ld), sm))
+    name, lab = ((chip_smoke.ROW_NAME, chip_smoke.row_label) if table == "row"
+                 else (chip_smoke.TILE_OR_REDUCE, chip_smoke.tile_label))
+    assert chip_smoke.ptxas(log, name, lab) == {label: want}
+
+
+@pytest.mark.parametrize("wrapper", ["indexed", "restrict"])
+def test_row_wrappers_make_no_launch_on_cpu(wrapper):
+    # the cached checks of a CPU call carry no launch (no library, no SM
+    # count is asked for) and send the call to the plain version
+    from pymgrit_tpu_torch.ops import indexed, transfer
+    from pymgrit_tpu_torch.ops.heat_kernels import fact
+    x = _rand((5, 9, 9), torch.float64, "cpu", 71)
+    if wrapper == "indexed":
+        out = torch.empty(4, 81, dtype=torch.float64)
+        R, on_cpu, launch = indexed._checked((fact(out), fact(x.reshape(5, 81)[1:])), None,
+                                             (None,))
+        assert (R, on_cpu, launch) == (4, True, None)
+    else:
+        out = torch.empty(5, 5, 5, dtype=torch.float64)
+        R, on_cpu, _, _, launch = transfer._restrict_checked(2, 1, (fact(out), fact(x)))
+        assert (R, on_cpu, launch) == (5, True, None)
 
 
 def test_indexed_pack_layout():
