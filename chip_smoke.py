@@ -13,7 +13,7 @@ phases:
 1. device    the card's name and power limit (nvidia-smi); a CUDA device is
              required, there is no CPU carry-on;
 2. build     nvcc builds the CUDA C++ kernels (K1, K2, K5, K6, K8, K9, K10, K12,
-             K16, K17, K20, K22-K26) from ``csrc/``, one process per source,
+             K16-K26) from ``csrc/``, one process per source,
              all started together; ``cuobjdump`` counts the DMMA instructions
              of K22 and K26, and ptxas's log gives the registers, spills and
              static shared memory of the FP64 product tile they share
@@ -31,7 +31,12 @@ phases:
              for bit on a second launch (``product_sweep.py`` times both
              at 1-256 lanes on each regime);
 4. small     Heat2D nx=17, nt=129, ms=(4, 4): the port on the CPU (plain
-             versions) against the port on the GPU (kernels);
+             versions) against the port on the GPU (kernels); then
+             ``[pytree]``: multi-leaf states (a dict and a tuple of a (3,)
+             and a (2,) leaf, two levels with m = 4 and a ragged three-level
+             hierarchy) and ``Application.state_norm`` (max |x|), kernels
+             against the plain path and against the JAX package's
+             histories (``PYTREE_JAX``), K3 launched only without the hook;
 5. main      the full spectral TOMS solve through K1-K4: launch counts,
              history, agreement with the plain versions on the GPU, the
              materialized tube against a sequential time march, wall times,
@@ -98,6 +103,10 @@ phases:
              JAX package's histories (the DD floor included), with no
              float64 kernel launched; the Dahlquist README golden and
              Diffusion2D (n = 8) against the float64 history, in DD.
+
+``python3 chip_smoke.py --kernels=interval_affine,interpolate_combine`` runs
+phases 1-3 for the named kernels alone (float64 and float32) and ends in
+``{"kernels_only": true, ...}``, never the ``"ok"`` of a full run.
 
 ``python3 chip_smoke.py --profile`` runs phases 1-2 and then one profiled
 solve of each configuration of phases 11-13 and of the ragged row, the BDF
@@ -293,6 +302,24 @@ BDF_JAX = np.array([0.0010946421490864355, 7.547288987998757e-05, 5.233458803278
 # degrees of freedom), nt 17 / 9, tol 1e-7, and its JAX history (CPU,
 # float64; recomputed by tests/test_torch_chip_histories.py); then a deeper two-level grid, nt = 1025 with m = 8 (128 lanes x 7
 # steps on level 0), kernels against plain
+# [pytree] (C4, C5): the multi-leaf and state_norm applications of
+# pytree_app, each case (kind, grids, solve entry, conv_crit); PYTREE_JAX:
+# the JAX package's histories (tests/test_torch_chip_histories.py
+# recomputes them), held at PYTREE_RTOL with the float64 floor as atol
+PYTREE = dict(nt=33, m=4, tol=1e-13, max_iter=8)
+PYTREE_CASES = {"dict m=4": ("dict", "uniform", "solve_compiled", 0),
+                "tuple ragged": ("tuple", "ragged", "solve", 1),
+                "max-norm m=4": ("vector", "uniform", "solve_compiled", 2)}
+PYTREE_JAX = {
+    "dict m=4": np.array([0.003763578619013627, 0.0001650078773609116, 2.6995093246776345e-06,
+                          2.44389613438953e-16]),
+    "tuple ragged": np.array([0.11221888366157023, 0.007327793184304115, 0.0003285196032959578,
+                              8.830338297792439e-06, 1.333413088687199e-07,
+                              9.893412437313776e-10, 2.5455612295462345e-12,
+                              1.1658167788096346e-15]),
+    "max-norm m=4": np.array([0.00041355167584608907, 1.2876276710503649e-05,
+                              1.4259587424622235e-07, 1.9292121753525021e-16])}
+PYTREE_RTOL = 1e-12
 DIFFUSION = dict(n=20, nts=(17, 9), tol=1e-7, max_iter=100)
 DIFFUSION_JAX = np.array([0.004854124361638421, 0.00015798615095824288, 2.7488539064243935e-06,
                           1.7515845464831638e-14])
@@ -453,7 +480,8 @@ def phase_build():
     regs = [ln.strip() for ln in _build.build_log().splitlines() if "registers" in ln]
     print(f"[build] nvcc sm_90a libpymgrit_kernels.so in {seconds:.2f} s "
           f"(nvcc {_build.build_seconds}) | triton {triton.__version__} | ptxas: {' ; '.join(regs)}")
-    print("[build] K18 / K21 (csrc/restrict_combine.cu, csrc/indexed_combine.cu), ptxas: "
+    print("[build] K1 / K18 / K19 / K21 (csrc/interval_affine.cu, restrict_combine.cu, "
+          "interpolate_combine.cu, indexed_combine.cu), ptxas: "
           + " ; ".join(f"{name}: {regs} registers, spill stores/loads {st}/{ld} B"
                        for name, (regs, st, ld, _) in ptxas(_build.build_log(), ROW_NAME,
                                                             row_label).items()))
@@ -495,18 +523,25 @@ def tile_owner(fn):
     return "dd_matmul" if m.group(2) == "1" else "eig_step"
 
 
-# restrict_combine_kernel<T, DIM, NT, NA> / indexed_combine_kernel<T, NT>
-ROW_NAME = re.compile(r"(restrict|indexed)_combine_kernelI([df])((?:Li\d+E)+)E")
+# restrict_combine_kernel<T, DIM, NT, NA> / indexed_combine_kernel<T, NT> /
+# interpolate_combine_kernel<T, DIM, HAS_B> / interval_affine_kernel<T, JB>
+ROW_NAME = re.compile(r"(restrict|indexed|interpolate)_combine_kernelI([df])((?:L[ib]\d+E)+)E"
+                      r"|interval_affine_kernelI([df])Li(\d+)E")
 # the product tile's kernels and its reduction of the split's partials
 TILE_OR_REDUCE = re.compile(TILE_NAME.pattern + "|reduce_slicesI")
 
 
 def row_label(m, ln):
-    kind, e, params = m.groups()
-    p = re.findall(r"Li(\d+)E", params)
+    kind, e, params, e1, jb = m.groups()
+    if kind is None:
+        return f"K1 {'f64' if e1 == 'd' else 'f32'} intervals {jb}"
+    dt = "f64" if e == "d" else "f32"
+    p = re.findall(r"L[ib](\d+)E", params)
     if kind == "restrict":
-        return f"K18 {'f64' if e == 'd' else 'f32'} dim {p[0]} terms {p[1]} adds {p[2]}"
-    return f"K21 {'f64' if e == 'd' else 'f32'} terms {p[0]}"
+        return f"K18 {dt} dim {p[0]} terms {p[1]} adds {p[2]}"
+    if kind == "interpolate":
+        return f"K19 {dt} dim {p[0]} b {p[1]}"
+    return f"K21 {dt} terms {p[0]}"
 
 
 def tile_label(m, ln):
@@ -650,34 +685,43 @@ def kernel_cases(dtype, dev, stash):
         A, G = t(rng.uniform(0, 1, (T, N))), t(rng.uniform(-1, 1, (T, N)))
         A_by_T[T] = (A, G)
 
-        def row_major(k, A=A, G=G, T=T):
-            out = torch.empty((T, J, N), dtype=dtype, device=dev)
+        # each call writes into a fresh tensor made outside the timed call
+        # (RowCase.prepare)
+        def row_major(k, out, A=A, G=G):
             k.interval_affine(seeds, A, G, out.transpose(0, 1), 0)
             return out
 
-        def interval_major(k, A=A, G=G, T=T):
-            out = torch.empty((J, T, N), dtype=dtype, device=dev)
+        def interval_major(k, out, A=A, G=G):
             return k.interval_affine(seeds, A, G, out, 0)
 
-        def only_last(k, A=A, G=G, T=T):
-            out = torch.empty((1, J, N), dtype=dtype, device=dev)
+        def only_last(k, out, A=A, G=G, T=T):
             k.interval_affine(seeds, A, G, out.transpose(0, 1), T - 1)
             return out
 
-        cases += [("interval_affine", f"T={T} row-major", row_major),
-                  ("interval_affine", f"T={T} interval-major", interval_major),
-                  ("interval_affine", f"T={T} only_last", only_last)]
+        def empty(*shape):
+            return lambda: torch.empty(shape, dtype=dtype, device=dev)
+
+        cases += [("interval_affine", f"T={T} row-major",
+                   RowCase(empty(T, J, N), row_major)),
+                  ("interval_affine", f"T={T} interval-major",
+                   RowCase(empty(J, T, N), interval_major)),
+                  ("interval_affine", f"T={T} only_last",
+                   RowCase(empty(1, J, N), only_last))]
         if T == m0 - 1:
             seeds_c = t(rng.uniform(-1, 1, (J + 1, N)))
 
-            def materialize(k, A=A, G=G):
-                tube = torch.empty((nt0, N), dtype=dtype, device=dev)
+            def materialize(k, tube, A=A, G=G):
                 blocks = tube[:J * m0].view(J, m0, N)
                 k.interval_affine(seeds_c[:J], A, G, blocks[:, 1:], 0, blocks[:, 0])
                 tube[nt0 - 1].copy_(seeds_c[J])
                 return tube
 
-            cases.append(("interval_affine", "materialize", materialize))
+            cases.append(("interval_affine", "materialize",
+                          RowCase(empty(nt0, N), materialize)))
+            # the write-rate yardstick: fill_ of the same tube, which the
+            # port never calls
+            stash[("probe", "interval_affine", "materialize")] = (
+                "fill_", lambda tube: tube.fill_(0.0), 8 * nt0 * N)
 
     # K2 theta_chain: chains read their seeds from C-rows and write the
     # F-rows of a level tube (strided views); the rhs is time-independent.
@@ -802,7 +846,9 @@ def kernel_cases(dtype, dev, stash):
     # one PyTorch call that computes the same function, timed beside K1's
     # and K3's headline cases (no other kernel of the path has one)
     A31, G31 = A_by_T[m0 - 1]
-    stash[("library", "interval_affine")] = lambda: torch.addcmul(G31, seeds_c[:J, None], A31)
+    stash[("library", "interval_affine")] = stash[("library", "interval_affine", "materialize")] = \
+        lambda: torch.addcmul(G31, seeds_c[:J, None], A31)
+    stash[("work", "interval_affine", "materialize")] = headline_work("interval_affine", stash)
     stash[("library", "residual_row_norms")] = lambda: torch.linalg.vector_norm(a[1:] - b[:J],
                                                                                 dim=1)
     return (cases + coarsest_cases(dtype, dev, rng, lam) + nonlinear_cases(dtype, dev, rng, stash)
@@ -1117,11 +1163,12 @@ def slice_cases(dtype, dev, rng, stash):
 
 
 class RowCase:
-    """A K18 or K21 case in two steps: ``prepare()`` makes what the call
-    writes into where the call updates a tube in place or into a given out
-    (untimed: the fresh copy of a tube), ``launch(ops, state)`` makes the
-    call and returns its output.  ``run(ops)`` does both: the correctness
-    comparison's fresh operands."""
+    """A K1, K18, K19 or K21 case in two steps: ``prepare()`` makes what the
+    call writes into where the call updates a tube in place or into a given
+    out (untimed: the fresh copy of a tube, the empty tube),
+    ``launch(ops, state)`` makes the call and returns its output.
+    ``run(ops)`` does both: the correctness comparison's fresh operands.
+    These kernels equal their plain versions bit for bit."""
 
     def __init__(self, prepare, launch):
         self.prepare, self.launch = prepare, launch
@@ -1165,20 +1212,22 @@ def transfer_cases(dtype, dev, rng, stash):
         def restrict(ops, out, tube_f=tube_f, dim=dim):
             return ops.restrict_combine(out, [tube_f], [1.0], dim=dim)
 
-        def correct(ops, tube_f=tube_f, tube_c=tube_c, step_c=step_c, dim=dim):
-            dst = tube_f.clone()
+        # the correction updates a copy of the fine tube, made outside the
+        # timed call (RowCase.prepare), as the library call beside it copies
+        # nothing
+        def correct(ops, dst, tube_c=tube_c, step_c=step_c, dim=dim):
             ops.interpolate_combine(dst[1:], tube_c[1:], step_c[1:], dim)
             return dst
 
-        def nested(ops, tube_f=tube_f, tube_c=tube_c, dim=dim):
-            dst = torch.empty_like(tube_f)
+        def nested(ops, dst, tube_c=tube_c, dim=dim):
             return ops.interpolate_combine(dst[1:], tube_c[1:], None, dim)[1:]
 
         cases += [("restrict_combine", f"FAS {label}", RowCase(lambda: None, fas)),
                   ("restrict_combine", f"restrict C-rows {label}",
                    RowCase(lambda tube_c=tube_c: torch.empty_like(tube_c), restrict)),
-                  ("interpolate_combine", f"correction {label}", correct),
-                  ("interpolate_combine", f"nested {label}", nested)]
+                  ("interpolate_combine", f"correction {label}", RowCase(tube_f.clone, correct)),
+                  ("interpolate_combine", f"nested {label}",
+                   RowCase(lambda tube_f=tube_f: torch.empty_like(tube_f), nested))]
         # the bytes each function needs: injection reads the coincident fine
         # points only, full weighting every fine point; the correction reads
         # and writes dst
@@ -1749,9 +1798,10 @@ HEADLINE = {"interval_affine": "materialize", "theta_chain": "level-1 F-relax",
             "dd_arith": "FAS combine", "dd_matmul": "Heat2D physical"}
 
 
-def phase_kernels():
-    """Every kernel against its plain version; returns the per-kernel rows
-    of the JSON summary (float64, the main path's dtype)."""
+def phase_kernels(only=None):
+    """Every kernel (or those named in ``only``) against its plain version;
+    returns the per-kernel rows of the JSON summary (float64, the main
+    path's dtype)."""
     import torch
     from pymgrit_tpu_torch.ops import DISPATCH, PLAIN
     dev = torch.device(DEVICE)
@@ -1760,6 +1810,8 @@ def phase_kernels():
     for dtype in (torch.float64, torch.float32):
         dname = str(dtype).split(".")[-1]
         for kernel, case, run in kernel_cases(dtype, dev, stash):
+            if only is not None and kernel not in only:
+                continue
             out_k = run(DISPATCH)
             torch.cuda.synchronize()
             out_p = run(PLAIN)
@@ -1768,7 +1820,7 @@ def phase_kernels():
             abs_err = float((out_k - out_p).abs().max())
             rel = abs_err / max(float(out_p.abs().max()), 1e-300)
             row_case = isinstance(run, RowCase)
-            if row_case:                # K18, K21: the plain version's operations, each rounded once
+            if row_case:                # the plain version's operations, each rounded once
                 same = torch.equal(out_k, out_p)
                 print(f"[kernels] {kernel:<20} {case} {dname}: bit for bit: {same}")
                 check(same, f"{kernel} {case} {dname}: the kernel differs from its plain version")
@@ -1781,20 +1833,33 @@ def phase_kernels():
             del out_k, out_p
             dev_txt, dev_ms, lib_rounds = "", None, None
             if row_case:                # the fresh copy a call writes into is made untimed
-                # ROW_ROUNDS rounds of kernel, plain (and library) in
+                # ROW_ROUNDS rounds of kernel, plain (library, probe) in
                 # turns: the full time is the median of the rounds'
                 # medians, and the rounds give its spread
                 st_k, st_p = run.prepare(), run.prepare()
-                lib = stash.get(("library", kernel, case)) if dtype == torch.float64 else None
+                f64 = dtype == torch.float64
+                lib = stash.get(("library", kernel, case)) if f64 else None
+                probe = stash.get(("probe", kernel, case)) if f64 else None
                 rounds = [(cuda_ms(lambda: run.launch(DISPATCH, st_k)),
                            cuda_ms(lambda: run.launch(PLAIN, st_p)),
-                           cuda_ms(lib) if lib is not None else None) for _ in range(ROW_ROUNDS)]
+                           cuda_ms(lib) if lib is not None else None,
+                           cuda_ms(lambda: probe[1](st_p)) if probe is not None else None)
+                          for _ in range(ROW_ROUNDS)]
                 ms_k, ms_p = (float(np.median([r[i] for r in rounds])) for i in (0, 1))
                 if lib is not None:
                     lib_rounds = [r[2] for r in rounds]
                 dev_ms, how = device_ms(lambda: run.launch(DISPATCH, st_k), kernel)
                 dev_txt = (f" (rounds {', '.join(f'{r[0]:.4f}' for r in rounds)}) device "
                            f"{dev_ms:.4f} ms ({how}, cold L2)")
+                if probe is not None:
+                    label, fn, nbytes = probe
+                    p_ms = float(np.median([r[3] for r in rounds]))
+                    p_dev, p_how = device_ms(lambda: fn(st_p), label)
+                    print(f"[kernels] {kernel:<20} {case}: probe {label} of the same tube "
+                          f"{p_ms:.4f} ms (rounds {', '.join(f'{r[3]:.4f}' for r in rounds)}) "
+                          f"device {p_dev:.4f} ms ({p_how}, cold L2): "
+                          f"{nbytes / p_ms / 1e9:.3f} TB/s written; kernel at "
+                          f"{ms_k / p_ms:.2f}x (device {dev_ms / p_dev:.2f}x)")
                 del st_k, st_p
             else:
                 ms_k, ms_p = cuda_ms(lambda: run(DISPATCH)), cuda_ms(lambda: run(PLAIN))
@@ -1828,7 +1893,10 @@ def phase_kernels():
             if dtype == torch.float64 and kernel not in rows and case.startswith(headline[kernel]):
                 b_ms, b_by = bound_ms(kernel, stash)
                 lib = stash.get(("library", kernel))
-                lib_ms = cuda_ms(lib) if lib is not None else None
+                # the rounds' median where the case timed this library call
+                lib_ms = (float(np.median(lib_rounds))
+                          if lib_rounds is not None and lib is stash.get(("library", kernel, case))
+                          else cuda_ms(lib) if lib is not None else None)
                 rows[kernel] = dict(max_abs_err=abs_err, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
                                     bound_by=b_by, library_ms=lib_ms)
                 nbytes, nops = headline_work(kernel, stash)
@@ -3030,6 +3098,114 @@ def phase_ragged(card):
     return counts
 
 
+def pytree_app(P, xp, kind, device=None, ops=None, **grid):
+    """The [pytree] phase's backward-Euler application, in the package P
+    with the array module xp (the port and torch here; the JAX package and
+    jax.numpy in tests/test_torch_chip_histories.py, which recomputes
+    PYTREE_JAX): a (3,) leaf ``a`` decaying at rates 1..3 and forced by t;
+    kind "vector": a alone, with ``state_norm = max |a|``; "tuple" and
+    "dict": a beside a (2,) leaf ``b`` forced by the sum of a, as ``(a, b)``
+    or ``{"vel": b, "pos": a}`` (inserted out of key order)."""
+    dev = {} if device is None else {"device": device}
+
+    def arr(v):
+        return xp.asarray(np.asarray(v, dtype=np.float64), **dev)
+
+    lam, mu, c = arr([1.0, 2.0, 3.0]), arr([0.5, 4.0]), arr([0.2, -0.1, 0.4])
+
+    def pack(a, b):
+        return a if kind == "vector" else (a, b) if kind == "tuple" else {"vel": b, "pos": a}
+
+    class App(P.Application):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            a0, b0 = arr([1.0, 0.5, -0.25]), arr([0.3, -1.0])
+            self.vector_t_start = pack(a0, b0)
+            self.vector_template = pack(0 * a0, 0 * b0)
+            if kind == "vector":
+                self.state_norm = lambda u: xp.max(xp.abs(u))
+            if ops is not None:
+                self.ops = ops
+
+        def step(self, u, t_start, t_stop):
+            dt = t_stop - t_start
+            a = u if kind == "vector" else u[0] if kind == "tuple" else u["pos"]
+            a1 = (a + dt * t_stop * c) / (1 + dt * lam)
+            if kind == "vector":
+                return a1
+            b = u[1] if kind == "tuple" else u["vel"]
+            return pack(a1, (b + dt * (0.5 * xp.sum(a1))) / (1 + dt * mu))
+
+    return App(**grid)
+
+
+def pytree_grids(case):
+    """The time grids of a [pytree] case: nt = 33 with m = 4 on two levels,
+    or a three-level hierarchy whose level-0 C-points are not evenly
+    strided."""
+    t = np.linspace(0, 1, PYTREE["nt"])
+    if case != "ragged":
+        return [t, t[::PYTREE["m"]]]
+    t = np.linspace(0, 1, 65)
+    idx1 = np.array([0, 3, 7, 8, 13, 17, 22, 24, 29, 33, 36, 41, 44, 45, 50, 55, 58, 64])
+    return [t, t[idx1], t[idx1][::2]]
+
+
+def pytree_run(P, xp, case, device=None, ops=None):
+    """(solver, history) of a [pytree] case: (kind, grids, solve entry,
+    conv_crit) from PYTREE_CASES."""
+    kind, grids, entry, crit = PYTREE_CASES[case]
+    problem = [pytree_app(P, xp, kind, device, ops, t_interval=g) for g in pytree_grids(grids)]
+    mg = P.Mgrit(problem=problem, tol=PYTREE["tol"], max_iter=PYTREE["max_iter"],
+                 conv_crit=crit, logging_lvl=30)
+    getattr(mg, entry)()
+    return mg, mg.conv[1:mg.solve_iter + 1]
+
+
+def phase_pytree(card):
+    """C4 and C5 on the card: multi-leaf (dict, tuple) states and the
+    application's state_norm hook, kernels (K4, K3 or the hook, K21 on the
+    ragged level) against the plain path and against the JAX package's
+    histories (PYTREE_JAX)."""
+    import torch
+    import pymgrit_tpu_torch as P
+    from pymgrit_tpu_torch.core import vector
+    from pymgrit_tpu_torch.ops import PLAIN, launch_counts, reset_launch_counts
+    out = {}
+    for case in PYTREE_CASES:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        mk, hk = pytree_run(P, torch, case, DEVICE)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        mp, hp = pytree_run(P, torch, case, DEVICE, PLAIN)
+        leaves = vector.leaves(mk.u[0])
+        rows = torch.cat([x.reshape(x.shape[0], -1) for x in leaves], dim=1)
+        u_c = rows[torch.as_tensor(mk.levels[0].cpts, device=rows.device)]
+        floor = ((8 + 4 * math.sqrt(rows.shape[1])) * float(torch.finfo(torch.float64).eps)
+                 * float(torch.linalg.vector_norm(u_c)))
+        ok_j, err_j = histories_agree(hk, PYTREE_JAX[case], floor, PYTREE_RTOL)
+        ok_p, err_p = histories_agree(hk, hp, floor, PYTREE_RTOL)
+        du = max(float((x - y).abs().max()) for x, y in zip(leaves, vector.leaves(mp.u[0])))
+        kind, grids, entry, crit = PYTREE_CASES[case]
+        hook = mk.state_norm is not None
+        ok_k = (counts["residual_row_norms"] == 0) == hook
+        print(f"[pytree] {case}: {kind} state, levels {'/'.join(str(li.nt) for li in mk.levels)}, "
+              f"{entry}, conv_crit {crit}{', state_norm max |x|' if hook else ''}: history "
+              f"{[float(f'{h:.6e}') for h in hk]} | vs JAX max diff {err_j:.3e}, vs plain (GPU) "
+              f"{err_p:.3e}, tube {du:.3e} (rtol {PYTREE_RTOL:.0e}, atol floor {floor:.2e}) | "
+              f"tube leaves {[tuple(x.shape) for x in leaves]} | launches "
+              f"{json.dumps({c: counts[c] for c in counts if counts[c]})} | "
+              f"{'ok' if ok_j and ok_p and ok_k else 'FAIL'} | {card}")
+        check(ok_j and ok_p, f"pytree {case}: history {hk} differs from JAX's {PYTREE_JAX[case]} "
+                             f"or the plain path's {hp}")
+        check(ok_k, f"pytree {case}: K3 launches {counts['residual_row_norms']} with the hook "
+                    f"{'set' if hook else 'absent'}")
+        check(counts["cpoint_combine"] > 0, f"pytree {case}: K4 never ran")
+        out[case] = counts
+    return out
+
+
 def bdf_problem(P, ops):
     """examples/example_heat_1d_bdf2.py's hierarchy (numpy rhs)."""
     nt, t_stop = BDF["nt"], BDF["t_stop"]
@@ -3416,10 +3592,10 @@ def profile_cells(card):
         tile = {k: (sum(e.count for e in dev if k in e.key),
                     sum(device_us(e) for e in dev if k in e.key) / 1e3)
                 for k in ("tile_product", "reduce_slices")}
-        # the row kernels' device kernels: K18, K21 (CUDA C++), K19 (Triton)
+        # the row kernels' device kernels: K18, K19, K21
         row = {k: (sum(e.count for e in dev if k in e.key),
                    sum(device_us(e) for e in dev if k in e.key) / 1e3)
-               for k in ("restrict_combine", "interpolate", "indexed_combine")}
+               for k in ("restrict_combine", "interpolate_combine", "indexed_combine")}
         print(f"[profile] {label}: {h.size} iterations, profiled solve {wall * 1e3:.1f} ms, device "
               f"busy {busy:.1f} ms, idle {100 * (1 - busy / (wall * 1e3)):.1f} % | leading device "
               "time " + "; ".join(f"{e.key[:48]} {device_us(e) / 1e3:.2f} ms ({e.count})"
@@ -3472,7 +3648,7 @@ REPLACES = {
                           "pymgrit_tpu/models/advection_1d.py:41"),
     "restrict_combine": ("cuda", "pymgrit_tpu_torch/ops/csrc/restrict_combine.cu",
                          "pymgrit_tpu/models/grid_transfer_heat.py:94"),
-    "interpolate_combine": ("triton", "pymgrit_tpu_torch/ops/triton_kernels.py",
+    "interpolate_combine": ("cuda", "pymgrit_tpu_torch/ops/csrc/interpolate_combine.cu",
                             "pymgrit_tpu/models/grid_transfer_heat.py:98"),
     "sine_solve1d": ("cuda", "pymgrit_tpu_torch/ops/csrc/sine_solve1d.cu",
                      "pymgrit_tpu/models/heat_1d.py:235"),
@@ -3494,6 +3670,17 @@ def main():
     card = phase_device()
     import torch
     phase_build()
+    only = next((a.split("=", 1)[1].split(",") for a in sys.argv[1:]
+                 if a.startswith("--kernels=")), None)
+    if only is not None:
+        # phase 3 for the named kernels alone: no path ran, no "ok"
+        rows = phase_kernels(only)
+        print(json.dumps({"kernels": [dict(name=k, **rows[k]) for k in only if k in rows]}))
+        print(card)
+        print(json.dumps({"kernels_only": True, "device": {"platform": "gpu",
+                                                           "kind": torch.cuda.get_device_name(0),
+                                                           "count": torch.cuda.device_count()}}))
+        return
     if "--profile" in sys.argv[1:]:
         # no checks ran: the last line says so and carries no "ok"
         profile_cells(card)
@@ -3505,6 +3692,7 @@ def main():
     rows = phase_kernels()
     rows.update(phase_dd_kernels())
     phase_small()
+    phase_pytree(card)
     counts, h_spec, tube_spec = phase_main(card)
     counts_phys = phase_physical(card, h_spec, tube_spec)
     del tube_spec

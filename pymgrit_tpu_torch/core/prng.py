@@ -13,8 +13,8 @@ top 52 become the mantissa of a number in [1, 2), then 1 is subtracted).
 This module repeats that arithmetic on uint32 numpy arrays (the key
 splits, and the bit-for-bit reference of the draw) and draws the tube on
 its device in torch (int64 tensors holding 32-bit words), so the port's
-tube is the JAX package's tube for every seed.  States are single tensors
-in the port (one leaf).
+tube is the JAX package's tube for every seed, for states of one leaf or
+several (``random_leaves``).
 """
 
 from __future__ import annotations
@@ -121,8 +121,22 @@ def random_tube(seed: int, nt: int, shape, device=None) -> torch.Tensor:
     float64 on ``device`` for a one-leaf state of the given shape.  The nt
     row keys are split on the host; the bits are drawn on the device, a
     chunk of rows at a time."""
+    return random_leaves(seed, nt, [shape], device)[0]
+
+
+def random_leaves(seed: int, nt: int, shapes, device=None) -> list:
+    """The JAX package's ``random_init_guess`` level-0 tube of a state with
+    leaves of the given shapes (in its leaf order): one (nt, *shape)
+    float64 tensor a leaf, leaf i of row r drawn with key i of the row key
+    split once a leaf (``vector.random_like``)."""
     _, sub = split(key(seed), 2)
-    rows = split(split(sub, nt), 1)[:, 0]
+    keys = split(split(sub, nt), len(shapes))
+    return [_draw_f64(keys[:, i], nt, shape, device) for i, shape in enumerate(shapes)]
+
+
+def _draw_f64(rows: np.ndarray, nt: int, shape, device) -> torch.Tensor:
+    """(nt, *shape) float64: ``uniform_f64`` of the nt (2,) row keys, drawn
+    on the device."""
     n = int(np.prod(shape, dtype=np.int64))
     keys = torch.as_tensor(rows.astype(np.int64), device=device)
     tube = torch.empty((nt, n), dtype=torch.float64, device=device)

@@ -45,9 +45,23 @@ package's; the execution differs:
   ``DD`` pairs (a per-state transfer through ``torch.vmap``, on CPU
   tensors) and the fused transfer hooks are not used.
 
-States are single tensors or DD pairs (no tuple states) in this port.  The
-device mesh and the lazy level-0 F-relaxation are not ported and raise
-NotImplementedError.
+* A multi-leaf state (a pytree of tensors: tuples, lists, dicts, nested,
+  as the JAX package takes) is stored as one float64 row a state: its
+  leaves in the JAX package's order, flattened and concatenated
+  (``vector.Layout``, one per level, since a transfer may change a leaf's
+  size).  Tubes, row kernels and the condensed-carry probe see plain rows;
+  the application and the transfers are handed views of those rows in
+  the application's structure (a per-state transfer through
+  ``torch.vmap``), and ``u``, ``v``, ``g`` and checkpoints give tubes in
+  that structure, a leading time axis on every leaf.  The fused transfer
+  hooks take single-tensor states only.  A single-tensor state is stored
+  as it is.
+* ``Application.state_norm``, where the fine application defines it,
+  takes the place of K3's 2-norm in the residual and jump norms, applied
+  to each row's difference in the application's structure.
+
+A multi-leaf state with a DD leaf, the device mesh and the lazy level-0
+F-relaxation are not ported and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -227,6 +241,13 @@ class Mgrit:
         self.ops = getattr(problem[0], "ops", DISPATCH)
         # precision='dd': float32-pair states, packed tubes (see above)
         self._dd = vector.contains_dd(problem[0].vector_template)
+        # multi-leaf states: one row layout a level (None: a single tensor
+        # or DD pair, stored as it is)
+        self._layouts = [vector.layout(p.vector_template) for p in problem]
+        self._multi = any(lay is not None for lay in self._layouts)
+        # the JAX package's per-state norm hook; None: K3's 2-norm
+        self.state_norm = getattr(problem[0], "state_norm", None)
+        self._norm_rows = None
 
         # ---- static level structure ----
         runtime_setup_start = time.time()
@@ -256,16 +277,17 @@ class Mgrit:
                          "(associative-scan) forward solve")
         # per-state transfers run over a tube's rows through torch.vmap (the
         # JAX solver's jax.vmap); a batched transfer is called as it is
-        self.restrict_fns: List[Callable] = [self._transfer_fn(tr, tr.restriction)
-                                             for tr in transfer]
-        self.interp_fns: List[Callable] = [self._transfer_fn(tr, tr.interpolation)
-                                           for tr in transfer]
+        self.restrict_fns: List[Callable] = [self._transfer_fn(tr, tr.restriction, lvl, lvl + 1)
+                                             for lvl, tr in enumerate(transfer)]
+        self.interp_fns: List[Callable] = [self._transfer_fn(tr, tr.interpolation, lvl + 1, lvl)
+                                           for lvl, tr in enumerate(transfer)]
         # fused transfer hooks (core/grid_transfer.py), None where absent
-        # (and for DD states, which the float64 hooks do not take)
-        self._restrict_hooks = [None if self._dd else
+        # (and for DD and multi-leaf states, which the float64 hooks do not
+        # take)
+        self._restrict_hooks = [None if self._dd or self._multi else
                                 _fused_hook(tr, "restrict_combine", "restriction")
                                 for tr in transfer]
-        self._interp_hooks = [None if self._dd else
+        self._interp_hooks = [None if self._dd or self._multi else
                               _fused_hook(tr, "interpolate_combine", "interpolation")
                               for tr in transfer]
         self._block_cache = {}
@@ -308,24 +330,31 @@ class Mgrit:
 
         # ---- allocate tubes (float64, or packed float32 pairs for DD, on
         # the device of the templates) ----
-        self.u: List = []
-        self.v: List = []
-        self.g: List = []
+        self._u: List = []
+        self._v: List = []
+        self._g: List = []
         for lvl in range(self.lvl_max):
             nt = self._nc_store0 if (lvl == 0 and self._condensed0) else self.levels[lvl].nt
-            template = self._state(problem[lvl].vector_template)
+            template = self._state(problem[lvl].vector_template, lvl)
+            lay = self._layouts[lvl]
             if lvl == 0 and random_init_guess:
-                # the JAX package's draw (threefry2x32 keys split per row)
-                tube = prng.random_tube(rng_seed, nt, tuple(template.shape), template.device) \
-                    if not self._dd else prng.random_dd_tube(rng_seed, nt, tuple(template.shape[1:]),
-                                                             template.device)
+                # the JAX package's draw (threefry2x32 keys split per row,
+                # then per leaf)
+                if self._dd:
+                    tube = prng.random_dd_tube(rng_seed, nt, tuple(template.shape[1:]),
+                                               template.device)
+                elif lay is not None:
+                    tube = torch.cat([x.reshape(nt, -1) for x in prng.random_leaves(
+                        rng_seed, nt, lay.shapes, template.device)], dim=1)
+                else:
+                    tube = prng.random_tube(rng_seed, nt, tuple(template.shape), template.device)
             else:
                 tube = vector.tube_of(template, nt)
-            tube[0] = self._state(problem[lvl].vector_t_start)
-            self.u.append(tube)
-            self.v.append(None if lvl == 0 else torch.zeros_like(tube))
-            self.g.append(None if lvl == 0 else torch.zeros_like(tube))
-        self.device = self.u[0].device
+            tube[0] = self._state(problem[lvl].vector_t_start, lvl)
+            self._u.append(tube)
+            self._v.append(None if lvl == 0 else torch.zeros_like(tube))
+            self._g.append(None if lvl == 0 else torch.zeros_like(tube))
+        self.device = self._u[0].device
         # index route of the levels whose C-points are not evenly strided
         self._ragged = [_RaggedLevel.build(self.levels[lvl], self.device)
                         if lvl < self.lvl_max - 1 and not self.levels[lvl].uniform else None
@@ -339,7 +368,7 @@ class Mgrit:
 
         self.save_values_last_iter = None
         if conv_crit in (1, 3):
-            self.save_values_last_iter = self._c_points(self.u[0])
+            self.save_values_last_iter = self._c_points(self._u[0])
 
         self._all_below = False
         self.t = [li.t for li in self.levels]
@@ -353,24 +382,78 @@ class Mgrit:
     def log_info(self, message: str) -> None:
         logging.info(message)
 
+    # the level tubes as the JAX package exposes them: in the application's
+    # structure, a leading time axis on every leaf (views of the solver's
+    # rows); the lists themselves for single-tensor and DD states
+    @property
+    def u(self) -> List:
+        return self._structured(self._u)
+
+    @u.setter
+    def u(self, tubes) -> None:
+        self._u = self._packed(tubes)
+
+    @property
+    def v(self) -> List:
+        return self._structured(self._v)
+
+    @v.setter
+    def v(self, tubes) -> None:
+        self._v = self._packed(tubes)
+
+    @property
+    def g(self) -> List:
+        return self._structured(self._g)
+
+    @g.setter
+    def g(self, tubes) -> None:
+        self._g = self._packed(tubes)
+
+    def _structured(self, tubes: List) -> List:
+        return tubes if not self._multi else [self._tree(lvl, t) for lvl, t in enumerate(tubes)]
+
+    def _packed(self, tubes: List) -> List:
+        return tubes if not self._multi else [None if t is None else self._flat(lvl, t)
+                                              for lvl, t in enumerate(tubes)]
+
     # ------------------------------------------------------------------
     # states: float64 tensors, or packed DD pairs
     # ------------------------------------------------------------------
 
-    def _state(self, x) -> torch.Tensor:
-        """An application's state as a tube row: float64, or a DD pair
-        packed (2, ...) float32."""
+    def _state(self, x, lvl: int) -> torch.Tensor:
+        """An application's state as a tube row of level lvl: float64, a DD
+        pair packed (2, ...) float32, or a multi-leaf state's leaves
+        concatenated."""
         if self._dd:
             return torch.stack([x.hi, x.lo])
-        return vector.as_f64(x)
+        lay = self._layouts[lvl]
+        return vector.as_f64(x) if lay is None else lay.flat(vector.as_f64(x))
+
+    def _tree(self, lvl: int, t):
+        """Tube rows of level lvl as the application's states: the rows
+        themselves, or views of them in a multi-leaf structure."""
+        lay = self._layouts[lvl]
+        return t if lay is None or t is None else lay.tree(t)
+
+    def _flat(self, lvl: int, x):
+        """The inverse of ``_tree``: states of level lvl as rows."""
+        lay = self._layouts[lvl]
+        return x if lay is None else lay.flat(x)
 
     def _pair(self, t: torch.Tensor, axis: int = 1):
         """The DD view of packed tube rows (the solver's kernel set)."""
         return _dd.pair(t, self.ops, axis)
 
-    def _transfer_fn(self, transfer: GridTransfer, fn: Callable) -> Callable:
-        """A transfer method on tube rows; in DD the rows are handed over as
-        a DD pair and the result packed again."""
+    def _transfer_fn(self, transfer: GridTransfer, fn: Callable, src: int, dst: int) -> Callable:
+        """A transfer method from level src's tube rows to level dst's; in DD
+        the rows are handed over as a DD pair and the result packed again; a
+        multi-leaf state is handed over in the application's structure (each
+        state, under vmap, or the batch) and its result packed again."""
+        if self._layouts[src] is not None or self._layouts[dst] is not None:
+            if not getattr(transfer, "batched", False):
+                return torch.vmap(lambda row: self._flat(dst, fn(self._tree(src, row))))
+            batch_fn = _over_rows(transfer, fn, self.ops)
+            return lambda rows: self._flat(dst, batch_fn(self._tree(src, rows)))
         rows_fn = _over_rows(transfer, fn, self.ops)
         if not self._dd:
             return rows_fn
@@ -414,7 +497,7 @@ class Mgrit:
             return False
         tp = t[0:m][:, None]
         tc = t[1:m + 1][:, None]
-        seed = vector.tube_of(self._state(self.problem[0].vector_template), 1)
+        seed = self._tree(0, vector.tube_of(self._state(self.problem[0].vector_template, 0), 1))
         hook = self.problem[0].relax_interval
         if not hook_accepts_kwarg(hook, "only_last"):
             self._cnd_decline_reason = (
@@ -437,14 +520,15 @@ class Mgrit:
         a fresh (nc-1, ...) tensor."""
         nc = self.levels[0].cpts.size
         tp, tc = self._cnd_block_times(self.levels[0].m)
-        return self.problem[0].relax_interval(u_c[:nc - 1], tp, tc, only_last=True)[0]
+        return self._flat(0, self.problem[0].relax_interval(self._tree(0, u_c[:nc - 1]), tp, tc,
+                                                            only_last=True))[0]
 
     def _sync_condensed0(self) -> None:
-        """Re-condense self.u[0] to its C-rows if a previous solve left it
+        """Re-condense self._u[0] to its C-rows if a previous solve left it
         materialized (the C rows of the full tube ARE the state)."""
-        if not self._condensed0 or self.u[0].shape[0] == self._nc_store0:
+        if not self._condensed0 or self._u[0].shape[0] == self._nc_store0:
             return
-        self.u[0] = self.u[0][0:self.levels[0].nt:self.levels[0].m].clone()
+        self._u[0] = self._u[0][0:self.levels[0].nt:self.levels[0].m].clone()
 
     def _cnd_materialize_expr(self, u_c):
         """Condensed C-rows -> full (nt, ...) level-0 tube.  K1 writes every
@@ -457,15 +541,16 @@ class Mgrit:
         tp, tc = self._cnd_block_times(m - 1)
         out = torch.empty((nt,) + tuple(u_c.shape[1:]), dtype=u_c.dtype, device=u_c.device)
         blocks = out[:J * m].view((J, m) + tuple(u_c.shape[1:]))
-        if self.problem[0].relax_interval(u_c[:J], tp, tc, out=blocks[:, 1:],
-                                          seed_out=blocks[:, 0]) is None:
+        if self.problem[0].relax_interval(self._tree(0, u_c[:J]), tp, tc,
+                                          out=self._tree(0, blocks[:, 1:]),
+                                          seed_out=self._tree(0, blocks[:, 0])) is None:
             raise RuntimeError("relax_interval declined the materialization it accepted at setup")
         out[nt - 1].copy_(u_c[J])
         return out
 
     def _materialize_condensed0(self) -> None:
-        if self._condensed0 and self.u[0].shape[0] == self._nc_store0:
-            self.u[0] = self._cnd_materialize_expr(self.u[0])
+        if self._condensed0 and self._u[0].shape[0] == self._nc_store0:
+            self._u[0] = self._cnd_materialize_expr(self._u[0])
 
     # ------------------------------------------------------------------
     # batched steps and row views
@@ -473,11 +558,17 @@ class Mgrit:
 
     def _vstep(self, lvl):
         """Batched one-step map: the application's step_batched, else a
-        vmap of its step."""
+        vmap of its step (on a multi-leaf level: of rows, handing the
+        application its structure)."""
         batched = getattr(self.problem[lvl], "step_batched", None)
+        step = self.step_fns[lvl]
+        if self._layouts[lvl] is not None:
+            if batched is not None:
+                return lambda x, t0, t1: self._flat(lvl, batched(self._tree(lvl, x), t0, t1))
+            return torch.vmap(lambda x, t0, t1: self._flat(lvl, step(self._tree(lvl, x), t0, t1)))
         if batched is not None:
             return batched
-        return torch.vmap(self.step_fns[lvl])
+        return torch.vmap(step)
 
     def _chain(self, lvl, seed, tp, tc, out, g=None):
         """J chains of L steps: out[:, k] = [g[:, k] +] Phi(out[:, k-1]) with
@@ -486,7 +577,7 @@ class Mgrit:
         step_chain (Heat2D: kernel K2) when it has one."""
         chain = getattr(self.problem[lvl], "step_chain", None)
         if chain is not None:
-            chain(seed, tp, tc, out, g)
+            chain(self._tree(lvl, seed), tp, tc, self._tree(lvl, out), self._tree(lvl, g))
             return
         vstep = self._vstep(lvl)
         x = seed
@@ -570,8 +661,12 @@ class Mgrit:
         self._scatter(out, io, res)
 
     def _row_norms(self, a, b):
-        """Per-row 2-norm of a - b over two tube views (K3; in DD of the
-        float32 value of the DD difference, which K25 writes)."""
+        """Per-row norm of a - b over two level-0 tube views: the
+        application's ``state_norm`` where it has one, else the 2-norm (K3;
+        in DD of the float32 value of the DD difference, which K25
+        writes)."""
+        if self.state_norm is not None:
+            return self._hook_norms(a, b)
         if not self._dd:
             return self.ops.residual_row_norms(_rows(a), _rows(b))
         diff = torch.empty((a.shape[0],) + tuple(a.shape[2:]), dtype=a.dtype, device=a.device)
@@ -579,6 +674,26 @@ class Mgrit:
         d = _rows(diff)
         zero = torch.zeros(d.shape[1], dtype=d.dtype, device=d.device).expand(d.shape)
         return self.ops.residual_row_norms(d, zero)
+
+    def _hook_norms(self, a, b):
+        """``state_norm`` of each row of a - b, the difference handed over in
+        the application's structure (a DD pair in DD), as the JAX package's
+        vmap of the hook: through ``torch.vmap``; where the hook cannot be
+        vmapped (it reads a value on the host, or branches on one: vmap
+        raises), one call a row, decided at the first call."""
+        d = _dd.sub(self._pair(a), self._pair(b)) if self._dd else self._tree(0, a - b)
+        if self._norm_rows is None:
+            try:
+                norms = torch.vmap(self.state_norm)(d)
+                self._norm_rows = False
+                return norms
+            except RuntimeError:
+                self._norm_rows = True
+        if not self._norm_rows:
+            return torch.vmap(self.state_norm)(d)
+        return torch.stack([torch.as_tensor(self.state_norm(vector._map(lambda x: x[r], d)),
+                                            dtype=torch.float64, device=self.device)
+                            for r in range(a.shape[0])])
 
     def _weighted_into(self, dst, stepped):
         """dst <- w*stepped + (1-w)*dst (weighted-Jacobi C update)."""
@@ -588,7 +703,7 @@ class Mgrit:
             self._combine(dst, [stepped, dst], [self.weight_c, 1.0 - self.weight_c])
 
     # ------------------------------------------------------------------
-    # relaxation, FAS, correction (in place on self.u / v / g)
+    # relaxation, FAS, correction (in place on the tubes)
     # ------------------------------------------------------------------
 
     def _f_relax(self, lvl, u, g):
@@ -628,7 +743,7 @@ class Mgrit:
         if lvl == 0:
             hook = getattr(self.problem[0], "relax_interval", None)
             if hook is not None and hook_accepts_kwarg(hook, "out") \
-                    and hook(x, tp, tc, out=out) is not None:
+                    and hook(self._tree(0, x), tp, tc, out=self._tree(0, out)) is not None:
                 return u
             self._chain(0, x, tp, tc, out)
             return u
@@ -696,6 +811,12 @@ class Mgrit:
         one row)."""
         t = self.levels[lvl].t
         A, b = self.problem[lvl].affine_coeffs(t[:-1], t[1:])
+        lay = self._layouts[lvl]
+        if lay is not None:
+            # each leaf broadcast to its (nt-1, ...) shape, then packed
+            like = lay.tree(torch.empty(shape, dtype=torch.float64, device="meta"))
+            return tuple(lay.flat(vector._map(lambda a, z: torch.broadcast_to(a, z.shape), x, like))
+                         for x in (A, b))
         return tuple(torch.broadcast_to(x, shape).reshape(shape[0], -1) for x in (A, b))
 
     def _forward_solve(self, lvl, u, g):
@@ -721,8 +842,8 @@ class Mgrit:
         nc = info.cpts.size
         nt, m, t_f = info.nt, info.m, info.t
         t_c = self.levels[lvl + 1].t
-        u_f, g_f = self.u[lvl], self.g[lvl]
-        u_c, v_c, g_c = self.u[lvl + 1], self.v[lvl + 1], self.g[lvl + 1]
+        u_f, g_f = self._u[lvl], self._g[lvl]
+        u_c, v_c, g_c = self._u[lvl + 1], self._v[lvl + 1], self._g[lvl + 1]
         restrict = self.restrict_fns[lvl]
         fused = self._restrict_hooks[lvl]
         rg = self._ragged[lvl]
@@ -773,21 +894,21 @@ class Mgrit:
         nc = self.levels[lvl].cpts.size
         if nc <= 1:
             return
-        u_c, v_c = self.u[lvl + 1], self.v[lvl + 1]
+        u_c, v_c = self._u[lvl + 1], self._v[lvl + 1]
         fused = self._interp_hooks[lvl]
         rg = self._ragged[lvl]
         if fused is not None and rg is None:
-            fused(self._c_rows(lvl, self.u[lvl]), u_c[1:nc], v_c[1:nc], ops=self.ops)
+            fused(self._c_rows(lvl, self._u[lvl]), u_c[1:nc], v_c[1:nc], ops=self.ops)
             return
         diff = torch.empty(u_c[1:nc].shape, dtype=u_c.dtype, device=u_c.device)
         self._combine(diff, [u_c[1:nc], v_c[1:nc]], [1.0, -1.0])
         if rg is not None:
             # u_f[ci] = u_f[ci] + P(diff), an indexed add (K21)
-            u_f = self.u[lvl]
+            u_f = self._u[lvl]
             self._icombine(u_f, [u_f, self.interp_fns[lvl](diff).contiguous()], [1.0, 1.0],
                            io=rg.ci, idx=[rg.ci])
             return
-        dst = self._c_rows(lvl, self.u[lvl])
+        dst = self._c_rows(lvl, self._u[lvl])
         self._combine(dst, [dst, self.interp_fns[lvl](diff).contiguous()], [1.0, 1.0])
 
     # ------------------------------------------------------------------
@@ -796,7 +917,7 @@ class Mgrit:
 
     def _cycle(self, lvl, cycle_type, first_f, lvl0_first_f):
         """One recursive MGRIT cycle."""
-        u, g = self.u, self.g
+        u, g = self._u, self._g
         if lvl == self.lvl_max - 1:
             self._forward_solve(lvl, u[lvl], g[lvl])
             return
@@ -819,18 +940,18 @@ class Mgrit:
         """Nested iteration initialization: coarsest forward solve, then
         interpolate upward with a V-cycle on every intermediate level."""
         top = self.lvl_max - 1
-        self._forward_solve(top, self.u[top], self.g[top])
+        self._forward_solve(top, self._u[top], self._g[top])
         for lvl in range(self.lvl_max - 2, -1, -1):
             nc = self.levels[lvl].cpts.size
-            coarse = self.u[lvl + 1][1:nc]
+            coarse = self._u[lvl + 1][1:nc]
             fused = self._interp_hooks[lvl]
             if self._ragged[lvl] is not None:
-                self._scatter(self.u[lvl], self._ragged[lvl].ci,
+                self._scatter(self._u[lvl], self._ragged[lvl].ci,
                               self.interp_fns[lvl](coarse).contiguous())
             elif fused is not None:
-                fused(self._c_rows(lvl, self.u[lvl]), coarse, ops=self.ops)
+                fused(self._c_rows(lvl, self._u[lvl]), coarse, ops=self.ops)
             else:
-                self._c_rows(lvl, self.u[lvl]).copy_(self.interp_fns[lvl](coarse))
+                self._c_rows(lvl, self._u[lvl]).copy_(self.interp_fns[lvl](coarse))
             if lvl > 0:
                 self._cycle(lvl, 'V', True, True)
 
@@ -857,10 +978,10 @@ class Mgrit:
         return conv, torch.all(norms < self.tol)
 
     def _residual_conv_fn(self):
-        return self._reduce(self._point_residual_norms(self.u[0]))
+        return self._reduce(self._point_residual_norms(self._u[0]))
 
     def _jump_conv_fn(self, u_save):
-        u_c = self._c_points(self.u[0])
+        u_c = self._c_points(self._u[0])
         norms = self._row_norms(u_c[1:], u_save[1:])
         conv, all_below = self._reduce(norms)
         return conv, all_below, u_c
@@ -936,7 +1057,7 @@ class Mgrit:
         hist = []
         for it in range(self.iter_max):
             if it == 0:
-                self._f_relax(0, self.u[0], self.g[0])
+                self._f_relax(0, self._u[0], self._g[0])
             self._iteration(lvl0_first_f=False)
             if use_jump:
                 conv, all_below, u_save = self._jump_conv_fn(u_save)
@@ -972,9 +1093,11 @@ class Mgrit:
 
     def save_checkpoint(self, path: str) -> None:
         """Save all level tubes + convergence history to an .npz file (a DD
-        tube as two leaves, hi then lo, as the JAX package flattens it)."""
-        leaves = [x for t in self.u + self.v[1:] + self.g[1:]
-                  for x in ((t[:, 0], t[:, 1]) if self._dd else (t,))]
+        tube as two leaves, hi then lo, and a multi-leaf tube as its leaves,
+        as the JAX package flattens them)."""
+        tubes = list(enumerate(self._u)) + list(enumerate(self._v))[1:] + list(enumerate(self._g))[1:]
+        leaves = [x for lvl, t in tubes
+                  for x in ((t[:, 0], t[:, 1]) if self._dd else vector.leaves(self._tree(lvl, t)))]
         arrays = {f"leaf_{i}": x.detach().cpu().numpy() for i, x in enumerate(leaves)}
         arrays["conv"] = self.conv
         arrays["solve_iter"] = np.asarray(self.solve_iter)

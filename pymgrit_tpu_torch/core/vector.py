@@ -1,8 +1,11 @@
-"""State algebra over a tensor, a double-double pair or a tuple of them.
+"""State algebra over a pytree of tensors and double-double pairs.
 
 Counterpart of ``pymgrit_tpu/core/vector.py``.  A state at one time point
-is a tensor, a ``DD`` pair (``ops/dd.py``) or a tuple of them; a *tube* is
-the same structure with a leading time axis on every leaf.  The algebraic
+is a tensor, a ``DD`` pair (``ops/dd.py``) or a pytree of them (tuples,
+lists, dicts, nested); a *tube* is the same structure with a leading time
+axis on every leaf.  Leaves are visited in the JAX package's order
+(``jax.tree_util``: a dict's keys sorted), through ``torch.utils._pytree``
+with a DD pair as one leaf, as JAX's ``_is_dd`` treats it.  The algebraic
 operations (``add``, ``sub``, ``scale``, ``axpy``, ``add_at``, ``norm``)
 treat a DD pair as one leaf, so sums and scalings stay renormalized (a
 componentwise hi + hi, lo + lo would drop the rounding error of hi); the
@@ -10,47 +13,70 @@ structural ones (``take``, ``set_at``, ``where``, ``stack``, ``concat``,
 ``tube_of``, ``dynamic_index``) recurse into hi and lo.  All functions here
 are pure: they return new tensors and never write their arguments.  (The
 solver updates its tubes in place through its own row views; see
-``core/solver.py``, which stores a DD tube as one packed float32 tensor.)
+``core/solver.py``, which stores a DD tube as one packed float32 tensor and
+a multi-leaf tube as one float64 row a state, ``Layout``.)
 """
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Any, Union
 
 import numpy as np
 import torch
+from torch.utils import _pytree
 
 from pymgrit_tpu_torch.core import prng
 from pymgrit_tpu_torch.ops import dd as _dd
 from pymgrit_tpu_torch.ops.dd import DD
 
-State = Union[torch.Tensor, DD, tuple]
+State = Union[torch.Tensor, DD, tuple, list, dict]
 
 
 def _is_dd(x) -> bool:
     return isinstance(x, DD)
 
 
+def _canonical(a):
+    """a with every plain dict's keys in sorted order, so that torch's
+    pytree visits the leaves in the JAX package's order (tuples, lists,
+    named tuples and ordered dicts keep theirs, as in ``jax.tree_util``)."""
+    if type(a) is dict:
+        return {k: _canonical(a[k]) for k in sorted(a)}
+    if type(a) is OrderedDict:
+        return OrderedDict((k, _canonical(v)) for k, v in a.items())
+    if isinstance(a, (tuple, list)):
+        items = [_canonical(x) for x in a]
+        return type(a)(*items) if hasattr(a, "_fields") else type(a)(items)
+    return a
+
+
+def _flatten(a):
+    """(leaves in the JAX package's order, their spec); a DD pair is one leaf."""
+    return _pytree.tree_flatten(_canonical(a), is_leaf=_is_dd)
+
+
 def _map(fn, *trees: Any):
     """Structural map: a DD pair maps hi and lo alike."""
-    if isinstance(trees[0], tuple):
-        return tuple(_map(fn, *leaves) for leaves in zip(*trees))
-    if _is_dd(trees[0]):
-        return _dd._raw(fn(*(t.hi for t in trees)), fn(*(t.lo for t in trees)), trees[0].ops)
-    return fn(*trees)
+    if isinstance(trees[0], torch.Tensor):
+        return fn(*trees)
+
+    def leaf(*xs):
+        if _is_dd(xs[0]):
+            return _dd._raw(fn(*(t.hi for t in xs)), fn(*(t.lo for t in xs)), xs[0].ops)
+        return fn(*xs)
+    return _pytree.tree_map(leaf, *map(_canonical, trees), is_leaf=_is_dd)
 
 
 def _amap(fn, *trees: Any):
     """Algebraic map: a DD pair is one leaf."""
-    if isinstance(trees[0], tuple):
-        return tuple(_amap(fn, *leaves) for leaves in zip(*trees))
-    return fn(*trees)
+    if isinstance(trees[0], torch.Tensor):
+        return fn(*trees)
+    return _pytree.tree_map(fn, *map(_canonical, trees), is_leaf=_is_dd)
 
 
 def _algebra_leaves(a: State) -> list:
-    if isinstance(a, tuple):
-        return [x for leaf in a for x in _algebra_leaves(leaf)]
-    return [a]
+    return _flatten(a)[0]
 
 
 def leaves(a: State) -> list:
@@ -165,17 +191,16 @@ def stack(states) -> State:
 
 def random_like(a: State, key) -> State:
     """Uniform [0, 1) state with the structure, dtypes and devices of a: the
-    JAX package's ``random_like`` for the same (2,) uint32 key (the draw of
-    ``core/prng.py``; float64 and float32 leaves).  A DD pair gets a uniform
-    float32 hi and lo = 0."""
-    leaves_a = _algebra_leaves(a)
+    JAX package's ``random_like`` for the same (2,) uint32 key (one split
+    key a leaf, in its leaf order; the draw of ``core/prng.py``; float64
+    and float32 leaves).  A DD pair gets a uniform float32 hi and lo = 0."""
+    leaves_a, spec = _flatten(a)
     keys = prng.split(np.asarray(key, dtype=np.uint32), len(leaves_a))
-    draws = iter([prng.uniform(k, tuple(x.shape), x.dtype) for k, x in zip(keys, leaves_a)])
-
-    def _draw(x):
-        t = torch.as_tensor(next(draws), device=x.device)
-        return _dd._raw(t, torch.zeros_like(t), x.ops) if _is_dd(x) else t
-    return _amap(_draw, a)
+    new = []
+    for k, x in zip(keys, leaves_a):
+        t = torch.as_tensor(prng.uniform(k, tuple(x.shape), x.dtype), device=x.device)
+        new.append(_dd._raw(t, torch.zeros_like(t), x.ops) if _is_dd(x) else t)
+    return _pytree.tree_unflatten(new, spec)
 
 
 def concat(tubes) -> State:
@@ -205,3 +230,41 @@ def as_f64(a: State) -> State:
     """Cast every leaf to torch.float64 (device unchanged); DD pairs keep
     their float32 pairs."""
     return _amap(lambda x: x if _is_dd(x) else torch.as_tensor(x).to(torch.float64), a)
+
+
+class Layout:
+    """How the solver stores a multi-leaf float64 state: its leaves in the
+    JAX package's order, each flattened, concatenated into one row of
+    ``numel`` values.  ``flat`` packs a state (its leaves with any common
+    leading axes) into a (..., numel) tensor; ``tree`` unpacks a (..., numel)
+    tensor into the state's structure as views of it, so that a callee
+    that writes a leaf writes the row.  Both work under ``torch.vmap``."""
+
+    def __init__(self, template: State):
+        leaves_t, self.spec = _flatten(template)
+        if any(_is_dd(x) for x in leaves_t):
+            raise NotImplementedError(
+                "a multi-leaf state with a double-double leaf is not ported (ROADMAP C4: "
+                "precision='dd' takes one DD pair a state)")
+        self.shapes = [tuple(torch.as_tensor(x).shape) for x in leaves_t]
+        self.sizes = [int(np.prod(sh, dtype=np.int64)) for sh in self.shapes]
+        self.numel = sum(self.sizes)
+
+    def flat(self, state: State) -> torch.Tensor:
+        xs = [torch.as_tensor(x) for x in _flatten(state)[0]]
+        lead = tuple(xs[0].shape[:xs[0].dim() - len(self.shapes[0])])
+        return torch.cat([x.reshape(lead + (n,)) for x, n in zip(xs, self.sizes)], dim=-1)
+
+    def tree(self, rows: torch.Tensor) -> State:
+        lead = tuple(rows.shape[:-1])
+        parts = torch.split(rows, self.sizes, dim=-1)
+        return _pytree.tree_unflatten([p.view(lead + sh) for p, sh in zip(parts, self.shapes)],
+                                      self.spec)
+
+
+def layout(template: State):
+    """The solver's ``Layout`` of a state, or None for a single tensor or
+    DD pair (stored as it is)."""
+    if isinstance(template, torch.Tensor) or _is_dd(template):
+        return None
+    return Layout(template)

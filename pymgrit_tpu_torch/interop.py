@@ -9,7 +9,10 @@ tube of pair states (``Heat1DBDF1`` / ``Heat1DBDF2``) is the dict
 port's pair tube is one (nt, 2, n) tensor, so the two are stacked.  A
 double-double tube (``precision='dd'``) is a ``DD`` pytree there, whose two
 leaves are hi then lo; the port stores it as one packed (nt, 2, ...)
-float32 tensor, so it is stacked the same way (in the tube's dtype).
+float32 tensor, so it is stacked the same way (in the tube's dtype).  A
+multi-leaf tube (a pytree state) gives its leaves in the JAX package's
+order; the port stores it as one float64 row a state, so they are
+concatenated.
 """
 
 from __future__ import annotations
@@ -28,7 +31,22 @@ def state_from_numpy(mgrit, leaves: Sequence[np.ndarray]) -> None:
     tube (pair states, first then second; DD pairs, hi then lo), each pair
     is stacked into one (nt, 2, ...) tube."""
     L = mgrit.lvl_max
-    if len(leaves) == 2 * (3 * L - 2):
+    if mgrit._multi:
+        # a multi-leaf tube: its leaves (JAX's order) concatenated into the
+        # solver's rows
+        counts = [1 if lay is None else len(lay.sizes) for lay in mgrit._layouts]
+        order = list(range(L)) + list(range(1, L)) * 2
+        if len(leaves) != sum(counts[lvl] for lvl in order):
+            raise ValueError(f"expected {sum(counts[lvl] for lvl in order)} leaves for {L} levels "
+                             f"of {counts} leaves a state, got {len(leaves)}")
+        def rows(a):
+            a = np.asarray(a)
+            return a.reshape(a.shape[0], -1)
+
+        it = iter(leaves)
+        leaves = [np.concatenate([rows(next(it)) for _ in range(counts[lvl])], axis=1)
+                  for lvl in order]
+    elif len(leaves) == 2 * (3 * L - 2):
         leaves = [np.stack([np.asarray(a), np.asarray(b)], axis=1)
                   for a, b in zip(leaves[0::2], leaves[1::2])]
     if len(leaves) != 3 * L - 2:
@@ -42,11 +60,11 @@ def state_from_numpy(mgrit, leaves: Sequence[np.ndarray]) -> None:
             raise ValueError(f"state shape {tuple(t.shape)} does not match {tuple(like.shape)}")
         return t
 
-    u = [tensor(a, x) for a, x in zip(leaves[:L], mgrit.u)]
+    u = [tensor(a, x) for a, x in zip(leaves[:L], mgrit._u)]
     for lvl in range(1, L):
-        if u[lvl].shape != mgrit.u[lvl].shape:
+        if u[lvl].shape != mgrit._u[lvl].shape:
             raise ValueError(f"level {lvl} tube has shape {tuple(u[lvl].shape)}, "
-                             f"expected {tuple(mgrit.u[lvl].shape)}")
-    mgrit.u = u
-    mgrit.v = [None] + [tensor(a, x) for a, x in zip(leaves[L:2 * L - 1], mgrit.v[1:])]
-    mgrit.g = [None] + [tensor(a, x) for a, x in zip(leaves[2 * L - 1:], mgrit.g[1:])]
+                             f"expected {tuple(mgrit._u[lvl].shape)}")
+    mgrit._u = u
+    mgrit._v = [None] + [tensor(a, x) for a, x in zip(leaves[L:2 * L - 1], mgrit._v[1:])]
+    mgrit._g = [None] + [tensor(a, x) for a, x in zip(leaves[2 * L - 1:], mgrit._g[1:])]

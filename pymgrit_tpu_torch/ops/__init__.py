@@ -23,7 +23,8 @@ coarsening, Diffusion2D, and the double-double precision mode:
 * K17 ``circulant_solve1d`` (CUDA C++, ``csrc/circulant_solve1d.cu``)
 * K18 ``restrict_combine`` (CUDA C++, ``csrc/restrict_combine.cu``, wrapper in
   ``transfer``)
-* K19 ``interpolate_combine`` (Triton, wrapper in ``transfer``)
+* K19 ``interpolate_combine`` (CUDA C++, ``csrc/interpolate_combine.cu``, wrapper in
+  ``transfer``)
 * K20 ``sine_solve1d`` (CUDA C++, ``csrc/sine_solve1d.cu``; BE and BDF2 modes)
 * K21 ``indexed_combine`` (CUDA C++, ``csrc/indexed_combine.cu``, wrapper in
   ``indexed``)

@@ -20,6 +20,7 @@ BDF pair state) as a row of n interior values.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -80,6 +81,41 @@ def interval_affine_plain(x, A, G, out, r0=0, seed_out=None):
     return out
 
 
+def _contiguous(shape, stride) -> bool:
+    """True iff a tensor of this shape and these strides is contiguous."""
+    inner = 1
+    for n, st in zip(reversed(shape), reversed(stride)):
+        if n > 1 and st != inner:
+            return False
+        inner *= n
+    return True
+
+
+@functools.lru_cache(maxsize=1024)
+def _interval_checked(facts, r0):
+    """Every check of a K1 call, on the ``fact``s of x, A, G, out (and
+    seed_out) and r0, cached by them (K1 runs at every level-0 C-step and
+    F-sweep: the checks' host time is paid once a shape); returns (on the
+    CPU, the launcher's size and stride arguments, the launcher)."""
+    name = "interval_affine"
+    _check_facts(name, facts, ("x", "A", "G", "out", "seed_out").__getitem__)
+    (dtype, device, (J, N), xs), (_, _, ash, ast), (_, _, gsh, gst), (_, _, osh, ost) = facts[:4]
+    if not (len(ash) == 2 and ash == gsh and ash[1] == N and _contiguous(ash, ast)
+            and _contiguous(gsh, gst)):
+        _require(False, name, "A and G must be contiguous (T, N) tables")
+    if not (len(osh) == 3 and osh[0] == J and osh[2] == N):
+        _require(False, name, f"out has shape {tuple(osh)}, expected ({J}, R, {N})")
+    R = osh[1]
+    if not (0 <= r0 and r0 + R <= ash[0]):
+        _require(False, name, f"rows {r0}..{r0 + R - 1} outside the {ash[0]}-row table")
+    if len(facts) == 5 and tuple(facts[4][2]) != (J, N):
+        _require(False, name, "seed_out must have the shape of x")
+    if device.type == "cpu":
+        return True, None, None
+    sizes = (xs[0], r0, R, J, N, ost[0], ost[1], facts[4][3][0] if len(facts) == 5 else 0)
+    return False, sizes, _launcher("pm_interval_affine", dtype)
+
+
 def interval_affine(x, A, G, out, r0=0, seed_out=None):
     """Closed-form interval relaxation into ``out``.
 
@@ -88,33 +124,17 @@ def interval_affine(x, A, G, out, r0=0, seed_out=None):
     tube's own block view), rows r0..r0+R-1 of the tables; seed_out:
     optional (J, N) view that receives a copy of x.  Returns out.
     """
-    name = "interval_affine"
-    ops = dict(x=x, A=A, G=G, out=out)
-    if seed_out is not None:
-        ops["seed_out"] = seed_out
-    _check_operands(name, ops)
-    J, N = x.shape
-    R = out.shape[1]
-    _require(A.dim() == 2 and A.shape == G.shape and A.shape[1] == N
-             and A.is_contiguous() and G.is_contiguous(), name,
-             "A and G must be contiguous (T, N) tables")
-    _require(out.dim() == 3 and out.shape[0] == J and out.shape[2] == N, name,
-             f"out has shape {tuple(out.shape)}, expected ({J}, R, {N})")
-    _require(0 <= r0 and r0 + R <= A.shape[0], name,
-             f"rows {r0}..{r0 + R - 1} outside the {A.shape[0]}-row table")
-    _require(seed_out is None or tuple(seed_out.shape) == (J, N), name,
-             "seed_out must have the shape of x")
-    if x.device.type == "cpu":
+    ops = (x, A, G, out) if seed_out is None else (x, A, G, out, seed_out)
+    on_cpu, sizes, fn = _interval_checked(tuple(map(fact, ops)), r0)
+    if on_cpu:
         return interval_affine_plain(x, A, G, out, r0, seed_out)
+    x_sj, r0, R, J, N, out_sj, out_sr, seed_sj = sizes
     if J == 0 or N == 0:
         return out
-    fn = _launcher("pm_interval_affine", x.dtype)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = fn(x.data_ptr(), x.stride(0), A.data_ptr(), G.data_ptr(), r0, R, J, N,
-                out.data_ptr(), out.stride(0), out.stride(1),
-                seed_out.data_ptr() if seed_out is not None else None,
-                seed_out.stride(0) if seed_out is not None else 0, stream)
-    _build.check(status, name)
+    status = fn(x.data_ptr(), x_sj, A.data_ptr(), G.data_ptr(), r0, R, J, N, out.data_ptr(),
+                out_sj, out_sr, seed_out.data_ptr() if seed_out is not None else None, seed_sj,
+                _build.stream(x.device.index))
+    _build.check(status, "interval_affine")
     interval_affine.launches += 1
     return out
 

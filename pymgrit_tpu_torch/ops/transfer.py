@@ -1,6 +1,6 @@
 """Kernels K18 ``restrict_combine`` (CUDA C++, ``csrc/restrict_combine.cu``)
-and K19 ``interpolate_combine`` (Triton, body in ``triton_kernels``) beside
-their plain PyTorch versions: the heat grid transfers of
+and K19 ``interpolate_combine`` (CUDA C++, ``csrc/interpolate_combine.cu``)
+beside their plain PyTorch versions: the heat grid transfers of
 pymgrit_tpu/models/grid_transfer_heat.py fused with the solver phase around
 them.
 
@@ -24,17 +24,18 @@ term and no add the heat transfers' batched ``restriction``.  K19 computes
 are passes of reads, stencil weights and sums, bound by the bytes they
 move; the combination and the transfer never meet device memory in
 between, where the unfused route writes the combined fine rows, reads them
-back to restrict, and runs K4 after.  K18 rounds each product and sum once,
-in the plain version's order, so it equals the plain version bit for bit;
-K19's weights (1/2) and the solver's coefficients (+-1) make its products
-exact, so it rounds as its plain version does.  K18's calls are small
-(spatial65's FAS call moves 45 MB in about 0.013 ms), so its wrapper keeps
-host time down: every check but the overlaps, the launch plan
-(``restrict_plan``) and the argument array (``restrict_pack``) are cached
-by the operands' dtype, device, shapes and strides (``_restrict_checked``),
-messages are formatted only on failure, and the launch is one ctypes call
-with the array, this call's pointers filled in, and the coefficients as
-doubles.
+back to restrict, and runs K4 after.  Both round each difference, product
+and sum once, in the plain version's order, so they equal their plain
+versions bit for bit.  Their calls are small (spatial65's FAS call moves
+45 MB in about 0.013 ms, the 1D example's a few kB), so the wrappers keep
+host time down: every check but the overlaps, the launch plan (a grid and
+its stride through the flat range of points, ``restrict_plan`` /
+``interpolate_plan``) and the argument array (``restrict_pack`` /
+``interpolate_pack``) are cached by the operands' dtype, device, shapes
+and strides (``_restrict_checked`` / ``_interp_checked``), messages are
+formatted only on failure, and the launch is one ctypes call: K18's with
+the array, this call's pointers filled in, and the coefficients as
+doubles; K19's with the cached array and the three pointers.
 
 Dispatch as in ``heat_kernels``: CPU tensors go to the plain version, CUDA
 tensors launch the kernel or raise.
@@ -48,14 +49,17 @@ import functools
 import torch
 
 from pymgrit_tpu_torch.ops import _build, triton_kernels
-from pymgrit_tpu_torch.ops.heat_kernels import (_check_facts, _check_operands, _launcher,
-                                                _require, fact)
+from pymgrit_tpu_torch.ops.heat_kernels import (_check_facts, _contiguous, _launcher, _require,
+                                                fact)
 
 MAX_TERMS, MAX_ADDS = 3, 2
 # K18's launch shape (csrc/restrict_combine.cu: kThreads, kMinBlocks,
 # U): coarse points a thread handles a pass, by dim
 THREADS, BLOCKS_PER_SM = 256, 4
 UNROLL = {1: 2, 2: 4}
+# K19's (csrc/interpolate_combine.cu: kThreads, kMinBlocks, U): fine
+# points a thread handles a pass
+INTERP_THREADS, INTERP_BLOCKS_PER_SM, INTERP_UNROLL = 256, 4, 4
 
 
 # ---------------------------------------------------------------------------
@@ -144,22 +148,13 @@ def _states_contiguous(t):
 
 @functools.lru_cache(maxsize=1024)
 def _contiguous_states(shape, stride):
-    inner = 1
-    for n, st in zip(reversed(shape[1:]), reversed(stride[1:])):
-        if n > 1 and st != inner:
-            return False
-        inner *= n
-    return True
+    return _contiguous(shape[1:], stride[1:])
 
 
 def contiguous_states(t):
     """t, or a copy of it where its states are not contiguous (rows may
     keep any stride)."""
     return t if _states_contiguous(t) else t.contiguous()
-
-
-def _check_states(name, key, t, R, shape):
-    _check_state_facts(name, key, t.shape, t.stride(), R, shape)
 
 
 def _check_state_facts(name, key, shape, stride, R, want):
@@ -273,17 +268,23 @@ def _launch_restrict(launch, ptrs, coeffs, add_coeffs):
     _build.check(status, "restrict_combine")
 
 
-@functools.lru_cache(maxsize=256)
 def restrict_plan(R, Pc, Qc, dim, sms):
     """(grid, dr, di, dj) of one K18 launch on R rows of Pc x Qc coarse
-    points (Pc = 1 in 1D) on a card of sms SMs: the card's resident blocks,
-    or fewer where the points do not fill them at UNROLL[dim] a thread; and
-    the grid's stride S = grid x THREADS points split as S = (dr Pc + di) Qc
-    + dj, which the kernel adds to a point's (row, coarse row, point) with
-    carries instead of dividing."""
-    grid = max(1, min(sms * BLOCKS_PER_SM, -(-R * Pc * Qc // (THREADS * UNROLL[dim]))))
-    dr, rem = divmod(grid * THREADS, Pc * Qc)
-    di, dj = divmod(rem, Qc)
+    points (Pc = 1 in 1D) on a card of sms SMs (``stride_plan``)."""
+    return stride_plan(R, Pc, Qc, THREADS, UNROLL[dim], sms * BLOCKS_PER_SM)
+
+
+@functools.lru_cache(maxsize=256)
+def stride_plan(R, P, Q, threads, unroll, blocks):
+    """(grid, dr, di, dj) of a launch that walks R rows of P x Q points as one
+    flat range: ``blocks`` blocks of ``threads`` (the card's resident
+    blocks), or fewer where the points do not fill them at ``unroll`` a
+    thread; and the grid's stride S = grid x threads points split as
+    S = (dr P + di) Q + dj, which the kernel adds to a point's (row, point
+    row, point) with carries instead of dividing."""
+    grid = max(1, min(blocks, -(-R * P * Q // (threads * unroll))))
+    dr, rem = divmod(grid * threads, P * Q)
+    di, dj = divmod(rem, Q)
     return grid, dr, di, dj
 
 
@@ -314,6 +315,37 @@ def interpolate_combine_plain(dst, a, b=None, dim=1):
     return dst
 
 
+@functools.lru_cache(maxsize=1024)
+def _interp_checked(dim, facts):
+    """Every check of a K19 call but the overlaps, on the ``fact``s of dst,
+    a (and b), cached by them; returns (on the CPU, the element size, which
+    operands are empty, the launch: the argument array, its address, the
+    launcher and the device index; None on the CPU or with no rows)."""
+    name = "interpolate_combine"
+    _check_facts(name, facts, ("dst", "a", "b").__getitem__)
+    (dtype, device, dshape, dstride), (_, _, ashape, _) = facts[0], facts[1]
+    if not (len(ashape) == dim + 1 and len(dshape) == dim + 1):
+        _require(False, name, f"dst and a must be (R, ...) batches of {dim}D states")
+    R, coarse = ashape[0], tuple(ashape[1:])
+    if not all(n >= (1 if dim == 1 else 2) for n in coarse):
+        _require(False, name, f"coarse states {coarse} are too small")
+    fine = fine_shape(coarse, dim)
+    for key, f in zip(("a", "b"), facts[1:]):
+        _check_state_facts(name, key, f[2], f[3], R, coarse)
+    _check_state_facts(name, "dst", dshape, dstride, R, fine)
+    on_cpu, launch = device.type == "cpu", None
+    if not on_cpu and R:
+        (Pc, Qc), (Pf, Qf) = ((1, coarse[0]), (1, fine[0])) if dim == 1 else (coarse, fine)
+        if Pf * Qf > 2 ** 31 - 1:
+            _require(False, name, f"fine states of {Pf * Qf} points exceed 2^31 - 1")
+        index = device.index
+        plan = interpolate_plan(R, Pf, Qf, _build.sm_count(index))
+        args = interpolate_pack(index, tuple(f[3][0] for f in facts), R, Pc, Qc, Pf, Qf, dim,
+                                plan)
+        launch = (args, args.buffer_info()[0], _launcher("pm_interpolate_combine", dtype), index)
+    return on_cpu, dtype.itemsize, tuple(0 in f[2] for f in facts), launch
+
+
 def interpolate_combine(dst, a, b=None, dim=1):
     """dst_r += P(a_r - b_r), or dst_r = P(a_r) without b, for every row r
     (K19).
@@ -321,43 +353,42 @@ def interpolate_combine(dst, a, b=None, dim=1):
     a, b: (R, *coarse) views; dst: an (R, *fine) view; each state
     contiguous, rows at any stride.  dim 1: coarse (n,), fine (2n + 1,), P
     linear with zero ends; dim 2: coarse (P, Q), fine (2P - 1, 2Q - 1), P
-    bilinear.  dst must not overlap a or b.  Returns dst.
+    bilinear.  dst must not share memory with a or b.  Returns dst.
     """
     name = "interpolate_combine"
-    _require(dim in (1, 2), name, "dim must be 1 or 2")
-    ops = {"dst": dst, "a": a}
-    if b is not None:
-        ops["b"] = b
-    _check_operands(name, ops)
-    _require(a.dim() == dim + 1 and dst.dim() == dim + 1, name,
-             f"dst and a must be (R, ...) batches of {dim}D states")
-    R, coarse = a.shape[0], tuple(a.shape[1:])
-    _require(all(n >= (1 if dim == 1 else 2) for n in coarse), name,
-             f"coarse states {coarse} are too small")
-    fine = fine_shape(coarse, dim)
-    _check_states(name, "a", a, R, coarse)
-    if b is not None:
-        _check_states(name, "b", b, R, coarse)
-    _check_states(name, "dst", dst, R, fine)
-    for key in ("a", "b"):
-        _require(key not in ops
-                 or dst.untyped_storage().data_ptr() != ops[key].untyped_storage().data_ptr(),
-                 name, f"dst shares memory with {key}")
-    if dst.device.type == "cpu":
+    if dim not in (1, 2):
+        _require(False, name, "dim must be 1 or 2")
+    ops = (dst, a) if b is None else (dst, a, b)
+    on_cpu, es, empty, launch = _interp_checked(dim, tuple(map(fact, ops)))
+    # storages told apart by their base pointers; an empty tensor shares
+    # nothing
+    ptrs = [t.data_ptr() for t in ops]
+    base = ptrs[0] - dst.storage_offset() * es
+    for k in range(1, len(ops)):
+        if ptrs[k] - ops[k].storage_offset() * es == base and not (empty[0] or empty[k]):
+            _require(False, name, f"dst shares memory with {'a' if k == 1 else 'b'}")
+    if on_cpu:
         return interpolate_combine_plain(dst, a, b, dim)
-    Nf = 1
-    for n in fine:
-        Nf *= n
-    if R:
-        bb = b if b is not None else a
-        grid = (R, -(-Nf // triton_kernels._BLOCK))
-        with torch.cuda.device(dst.device):
-            triton_kernels._jit()["interpolate"][grid](
-                dst, a, bb, dst.stride(0), a.stride(0), bb.stride(0), coarse[0], coarse[-1],
-                fine[-1], Nf, DIM=dim, HAS_B=b is not None, BLOCK=triton_kernels._BLOCK,
-                num_warps=4)
+    if launch is not None:
+        _, addr, fn, index = launch
+        _build.check(fn(addr, ptrs[0], ptrs[1], ptrs[-1], _build.stream(index)), name)
         interpolate_combine.launches += 1
     return dst
 
 
 interpolate_combine.launches = 0
+
+
+def interpolate_plan(R, Pf, Qf, sms):
+    """(grid, dr, dp, dq) of one K19 launch on R rows of Pf x Qf fine points
+    (Pf = 1 in 1D) on a card of sms SMs (``stride_plan``)."""
+    return stride_plan(R, Pf, Qf, INTERP_THREADS, INTERP_UNROLL, sms * INTERP_BLOCKS_PER_SM)
+
+
+def interpolate_pack(index, strides, R, Pc, Qc, Pf, Qf, dim, plan):
+    """The launcher's int64 argument array (csrc/interpolate_combine.cu
+    ``launch``): device, dst's, a's and b's row strides (b: a's without b),
+    R, Pc, Qc, Pf, Qf, dim, whether b is given, then the plan: grid, dr, dp,
+    dq.  strides: dst's, a's (and b's)."""
+    return array.array("q", (index, strides[0], strides[1], strides[-1], R, Pc, Qc, Pf, Qf, dim,
+                             int(len(strides) == 3), *plan))

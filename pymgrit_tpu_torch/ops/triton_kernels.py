@@ -1,10 +1,10 @@
 """Kernels K3 ``residual_row_norms``, K4 ``cpoint_combine``, K7
 ``theta_rhs2d``, K11 ``allen_cahn_pointwise``, K13 ``rk4_brusselator``, K14
 ``gray_scott_pointwise`` and K15 ``burgers2d_pointwise`` (Triton), each
-beside its plain PyTorch version, and the body of K19
-``interpolate_combine``, whose wrapper and plain version live in
-``transfer``.  (K18 ``restrict_combine`` and K21 ``indexed_combine`` are
-CUDA C++: ``csrc/restrict_combine.cu``, ``csrc/indexed_combine.cu``.)
+beside its plain PyTorch version.  (K18 ``restrict_combine``, K19
+``interpolate_combine`` and K21 ``indexed_combine`` are CUDA C++:
+``csrc/restrict_combine.cu``, ``csrc/interpolate_combine.cu``,
+``csrc/indexed_combine.cu``.)
 
 K3 replaces pymgrit_tpu/core/solver.py ``_point_residual_norms`` with
 ``vector.batched_norm``: the per-C-point 2-norm of Phi(u_{c-1}) - u_c that
@@ -394,56 +394,6 @@ def _rk4_brusselator_body(x_ptr, out_ptr, g_ptr, tp_ptr, tc_ptr, c_ptr, x_sj, o_
         tl.store(out_ptr + ln * o_sj + k * o_sk + 1, y1, mask=mask)
 
 
-def _interpolate_body(dst_ptr, a_ptr, b_ptr, sd, sa, sb, Pc, Qc, Qf, Nf, DIM: tl.constexpr,
-                      HAS_B: tl.constexpr, BLOCK: tl.constexpr):
-    # K19: dst = dst + P(a - b) (HAS_B) or dst = P(a) at the fine points idx
-    # of one row.  DIM 1: coarse n = Pc points, fine 2n + 1: odd p copies
-    # d[(p-1)/2], even p = 2i is d[i-1]/2 + d[i]/2 (a missing end is 0).
-    # DIM 2: coarse (Pc, Qc), fine (2Pc - 1, 2Qc - 1): coincident points
-    # copy, edges take two-point means, cell centres the mean of the two
-    # row means (the axis-0-then-axis-1 order of the JAX version).
-    row = tl.program_id(0).to(tl.int64)
-    idx = tl.program_id(1) * BLOCK + tl.arange(0, BLOCK)
-    mask = idx < Nf
-    ab = a_ptr + row * sa
-    bb = b_ptr + row * sb
-    if DIM == 1:
-        i = idx // 2
-        odd = (idx - 2 * i) == 1
-        m_lo = mask & (idx == 2 * i) & (i >= 1)
-        m_hi = mask & (odd | (i < Pc))
-        lo = tl.load(ab + i - 1, mask=m_lo, other=0.0)
-        hi = tl.load(ab + i, mask=m_hi, other=0.0)
-        if HAS_B:
-            lo = lo - tl.load(bb + i - 1, mask=m_lo, other=0.0)
-            hi = hi - tl.load(bb + i, mask=m_hi, other=0.0)
-        v = tl.where(odd, hi, 0.5 * lo + 0.5 * hi)
-    else:
-        p = idx // Qf
-        q = idx - p * Qf
-        i = p // 2
-        j = q // 2
-        po = (p - 2 * i) == 1
-        qo = (q - 2 * j) == 1
-        o00 = i * Qc + j
-        d00 = tl.load(ab + o00, mask=mask, other=0.0)
-        d10 = tl.load(ab + o00 + Qc, mask=mask & po, other=0.0)
-        d01 = tl.load(ab + o00 + 1, mask=mask & qo, other=0.0)
-        d11 = tl.load(ab + o00 + Qc + 1, mask=mask & po & qo, other=0.0)
-        if HAS_B:
-            d00 = d00 - tl.load(bb + o00, mask=mask, other=0.0)
-            d10 = d10 - tl.load(bb + o00 + Qc, mask=mask & po, other=0.0)
-            d01 = d01 - tl.load(bb + o00 + 1, mask=mask & qo, other=0.0)
-            d11 = d11 - tl.load(bb + o00 + Qc + 1, mask=mask & po & qo, other=0.0)
-        e0 = 0.5 * (d00 + d10)
-        e1 = 0.5 * (d01 + d11)
-        v = tl.where(po, tl.where(qo, 0.5 * (e0 + e1), e0), tl.where(qo, 0.5 * (d00 + d01), d00))
-    dp = dst_ptr + row * sd + idx
-    if HAS_B:
-        v = tl.load(dp, mask=mask, other=0.0) + v
-    tl.store(dp, v, mask=mask)
-
-
 def _jit():
     """Import triton and compile-wrap the kernel bodies (once)."""
     global tl
@@ -459,7 +409,6 @@ def _jit():
         _JIT["rk4_brusselator"] = triton.jit(_rk4_brusselator_body)
         _JIT["gray_scott"] = triton.jit(_gray_scott_body)
         _JIT["burgers2d"] = triton.jit(_burgers2d_body)
-        _JIT["interpolate"] = triton.jit(_interpolate_body)
     return _JIT
 
 

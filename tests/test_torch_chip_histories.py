@@ -2,9 +2,10 @@
 card, recomputed with ``pymgrit_tpu`` on the CPU.
 
 ``chip_smoke.py`` imports nothing of JAX, so it carries the JAX package's
-residual histories of its ``[ragged]``, ``[bdf]``, ``[diffusion]`` and
-``[dd]`` configurations as constants (``RAGGED_JAX``, ``BDF_JAX``,
-``DIFFUSION_JAX``, ``DD_TOMS_JAX``, ``DD65_JAX``).  Each case here builds
+residual histories of its ``[ragged]``, ``[bdf]``, ``[diffusion]``,
+``[pytree]`` and ``[dd]`` configurations as constants (``RAGGED_JAX``,
+``BDF_JAX``, ``DIFFUSION_JAX``, ``PYTREE_JAX``, ``DD_TOMS_JAX``,
+``DD65_JAX``).  Each case here builds
 that configuration, at its full size, in the JAX package from the script's
 own settings and grids and holds the history against the constant at rtol
 1e-12 (on the CPU; the constants were printed by such a run).  The two DD
@@ -102,6 +103,15 @@ def test_committed_jax_history_is_jax_history(run):
     history = np.asarray(history)
     assert history.shape == committed.shape
     np.testing.assert_allclose(history, committed, rtol=RTOL, atol=0)
+
+
+@pytest.mark.parametrize("case", sorted(chip_smoke.PYTREE_CASES))
+def test_committed_pytree_history_is_jax_history(case):
+    # the [pytree] applications in the JAX package (chip_smoke.pytree_app
+    # with jax.numpy)
+    _, h = chip_smoke.pytree_run(J, jnp, case)
+    assert h.shape == chip_smoke.PYTREE_JAX[case].shape
+    np.testing.assert_allclose(h, chip_smoke.PYTREE_JAX[case], rtol=RTOL, atol=0)
 
 
 @pytest.mark.slow   # dd_toms129 about 70 s, dd65 about 7 minutes on the CPU

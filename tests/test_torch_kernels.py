@@ -1239,21 +1239,23 @@ def test_indexed_combine_rejects(over, match):
 
 
 # ---------------------------------------------------------------------------
-# K18 and K21 (CUDA C++ row kernels): bit for bit against the plain versions
-# at the layouts the main paths give them, and the launch plans the wrappers
-# compute
+# K1, K18, K19 and K21 (CUDA C++ row kernels): bit for bit against the plain
+# versions at the layouts the main paths give them, and the launch plans the
+# wrappers compute
 # ---------------------------------------------------------------------------
 
 NF = 65 * 65            # a ragged65 / spatial65 fine state (4225 points)
 
 
 def _row_cases(dtype, dev):
-    """(label, kernel, launches, run(ops) -> tensor) of K18 and K21: rows
-    at an odd element offset (every other 4225-point float64 row off
-    16-byte alignment, every row of the offset tube off by 8 bytes from its
-    aligned neighbour), strided C-row views (tube[m::m]), dropped rows, out
-    as a term, float32-pair-shaped rows, R = 0 and N = 0, the 1D example's
-    15 -> 7 and spatial65's 65^2 -> 33^2."""
+    """(label, kernel, launches, run(ops) -> tensor) of K1, K18, K19 and
+    K21: rows at an odd element offset (every other 4225-point float64 row
+    off 16-byte alignment, every row of the offset tube off by 8 bytes from
+    its aligned neighbour), strided C-row views (tube[m::m]), dropped rows,
+    out as a term, float32-pair-shaped rows, R = 0 and N = 0, the 1D
+    example's 15 -> 7 and spatial65's 65^2 -> 33^2; K1's four layouts of
+    phase 3 (groups of 16 and of 4 intervals with a partial last group, and
+    of 1 on few intervals)."""
     flat = _rand((9 * NF + 1,), dtype, dev, 60)
     odd = flat[1:].view(9, NF)
     src = _rand((9, NF), dtype, dev, 61)
@@ -1332,6 +1334,48 @@ def _row_cases(dtype, dev):
         ops.restrict_combine(out[:0], [ft2[:0]], [1.0], dim=2)
         return out
 
+    def k19(ft, ct, with_b, dim, m):
+        R = (ft.shape[0] - 1) // m
+
+        def run(ops):
+            out = ft.clone()
+            ops.interpolate_combine(out[m::m][:R], ct[1:R + 1], ct[2:R + 2] if with_b else None,
+                                    dim)
+            return out
+        return run
+
+    def k19_odd(ops):
+        out = torch.zeros(4 * NF + 1, dtype=dtype, device=dev)
+        ops.interpolate_combine(out[1:].view(4, 65, 65), ct2[:4], ct2[4:8], 2)
+        return out
+
+    def k19_empty(ops):
+        out = ft2.clone()
+        ops.interpolate_combine(out[:0], ct2[:0], None, 2)
+        return out
+
+    # K1: seeds (J, N) with N = 65^2 (odd: the tube's rows alternate in
+    # 16-byte alignment) and tables (T, N)
+    seeds, A, G = (_rand(shape, dtype, dev, 69 + k) for k, shape in
+                   enumerate([(250, NF), (6, NF), (6, NF)]))
+
+    def k1(J, T, layout, r0=0):
+        def run(ops):
+            x = seeds[:J]
+            if layout == "row-major":
+                out = torch.zeros((T, J, NF), dtype=dtype, device=dev)
+                ops.interval_affine(x, A, G, out.transpose(0, 1), r0)
+            elif layout == "interval-major":
+                out = torch.zeros((J, T, NF), dtype=dtype, device=dev)
+                ops.interval_affine(x, A, G, out, r0)
+            else:                       # the tube's blocks, seeds copied into the C-rows
+                m = T + 1
+                out = torch.zeros((J * m + 1, NF), dtype=dtype, device=dev)
+                blocks = out[:J * m].view(J, m, NF)
+                ops.interval_affine(x, A, G, blocks[:, 1:], r0, blocks[:, 0])
+            return out
+        return run
+
     return [("K21 gather from rows at an odd offset", "indexed_combine", 1, k21_gather_odd),
             ("K21 gather into rows at an odd offset", "indexed_combine", 1, k21_gather_into_odd),
             ("K21 drop-scatter", "indexed_combine", 1, k21_scatter_drop),
@@ -1348,10 +1392,26 @@ def _row_cases(dtype, dev):
             ("K18 2D restriction", "restrict_combine", 1, k18(ft2, ct2, 1, 0, 2, 1)),
             ("K18 2D three terms, one add", "restrict_combine", 1, k18(ft2, ct2, 3, 1, 2, 2)),
             ("K18 2D at an odd offset, out as its add", "restrict_combine", 1, k18_odd),
-            ("K18 R = 0", "restrict_combine", 0, k18_empty)]
+            ("K18 R = 0", "restrict_combine", 0, k18_empty),
+            ("K19 1D 7 -> 15 correction, C-rows m = 4", "interpolate_combine", 1,
+             k19(ft1, ct1, True, 1, 4)),
+            ("K19 1D interpolation", "interpolate_combine", 1, k19(ft1, ct1, False, 1, 1)),
+            ("K19 2D 33^2 -> 65^2 correction, C-rows m = 2", "interpolate_combine", 1,
+             k19(ft2, ct2, True, 2, 2)),
+            ("K19 2D interpolation", "interpolate_combine", 1, k19(ft2, ct2, False, 2, 1)),
+            ("K19 2D into rows at an odd offset", "interpolate_combine", 1, k19_odd),
+            ("K19 R = 0", "interpolate_combine", 0, k19_empty),
+            ("K1 materialize J = 250 (groups of 16, the last partial)", "interval_affine", 1,
+             k1(250, 5, "tube")),
+            ("K1 row-major J = 130 (groups of 4, the last partial)", "interval_affine", 1,
+             k1(130, 5, "row-major")),
+            ("K1 interval-major J = 131, rows 1..4", "interval_affine", 1,
+             k1(131, 4, "interval-major", 1)),
+            ("K1 only_last J = 3 (groups of 1)", "interval_affine", 1, k1(3, 1, "row-major", 5)),
+            ("K1 materialize J = 3", "interval_affine", 1, k1(3, 5, "tube"))]
 
 
-N_ROW_CASES = 16
+N_ROW_CASES = 27
 
 
 @pytest.mark.cuda
@@ -1414,6 +1474,10 @@ def _ptxas_entry(mangled, regs, spills, smem=0):
      "K21 f64 terms 3", (64, 64, 88, 0)),
     ("_ZN12_GLOBAL__N_123restrict_combine_kernelIfLi1ELi2ELi0EEEvNS_6ParamsE", "row",
      "K18 f32 dim 1 terms 2 adds 0", (36, 0, 0, 0)),
+    ("_ZN12_GLOBAL__N_126interpolate_combine_kernelIdLi2ELb1EEEvNS_6ParamsE", "row",
+     "K19 f64 dim 2 b 1", (40, 0, 0, 0)),
+    ("_ZN12_GLOBAL__N_122interval_affine_kernelIfLi16EEEvPKflS2_S2_lllllPflS3_l", "row",
+     "K1 f32 intervals 16", (40, 0, 0, 0)),
     ("_Z12tile_productIdLb0ELi64ELi8ELi16ELi3ELi2EEvPKdS1_Pdll", "tile",
      "K22 f64 64x8x16x3", (126, 0, 0, 8192)),
     ("_Z13reduce_slicesIdLb1EEvPKdPdll", "tile", "reduce dd", (40, 0, 0, 0)),
@@ -1434,7 +1498,7 @@ def test_ptxas_log_parser(mangled, table, label, want):
     assert chip_smoke.ptxas(log, name, lab) == {label: want}
 
 
-@pytest.mark.parametrize("wrapper", ["indexed", "restrict"])
+@pytest.mark.parametrize("wrapper", ["indexed", "restrict", "interpolate"])
 def test_row_wrappers_make_no_launch_on_cpu(wrapper):
     # the cached checks of a CPU call carry no launch (no library, no SM
     # count is asked for) and send the call to the plain version
@@ -1446,10 +1510,14 @@ def test_row_wrappers_make_no_launch_on_cpu(wrapper):
         R, on_cpu, launch = indexed._checked((fact(out), fact(x.reshape(5, 81)[1:])), None,
                                              (None,))
         assert (R, on_cpu, launch) == (4, True, None)
-    else:
+    elif wrapper == "restrict":
         out = torch.empty(5, 5, 5, dtype=torch.float64)
         R, on_cpu, _, _, launch = transfer._restrict_checked(2, 1, (fact(out), fact(x)))
         assert (R, on_cpu, launch) == (5, True, None)
+    else:
+        coarse = torch.empty(5, 5, 5, dtype=torch.float64)
+        on_cpu, es, empty, launch = transfer._interp_checked(2, (fact(x), fact(coarse)))
+        assert (on_cpu, es, empty, launch) == (True, 8, (False, False), None)
 
 
 def test_indexed_pack_layout():
@@ -1486,6 +1554,42 @@ def test_restrict_plan_walks_every_point_once(R, Pc, Qc, dim, sms):
         r = r + (i >= Pc) + dr
         i = np.where(i >= Pc, i - Pc, i)
     assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("R,Pf,Qf,sms", [
+    (1024, 65, 65, 132), (64, 1, 15, 132), (9, 17, 13, 1), (5, 1, 3, 2),
+])
+def test_interpolate_plan_walks_every_point_once(R, Pf, Qf, sms):
+    # K19's walk of the fine points (csrc/interpolate_combine.cu ``advance``)
+    from pymgrit_tpu_torch.ops import transfer
+    grid, dr, dp, dq = transfer.interpolate_plan(R, Pf, Qf, sms)
+    per_block = transfer.INTERP_THREADS * transfer.INTERP_UNROLL
+    assert grid == max(1, min(sms * transfer.INTERP_BLOCKS_PER_SM, -(-R * Pf * Qf // per_block)))
+    assert (dr * Pf + dp) * Qf + dq == grid * transfer.INTERP_THREADS
+    t = np.arange(grid * transfer.INTERP_THREADS)
+    r, rem = np.divmod(t, Pf * Qf)
+    p, q = np.divmod(rem, Qf)
+    seen = np.zeros(R * Pf * Qf, dtype=np.int64)
+    while (r < R).any():
+        m = r < R
+        np.add.at(seen, (r[m] * Pf + p[m]) * Qf + q[m], 1)
+        q = q + dq
+        p = p + (q >= Qf)
+        q = np.where(q >= Qf, q - Qf, q)
+        p = p + dp
+        r = r + (p >= Pf) + dr
+        p = np.where(p >= Pf, p - Pf, p)
+    assert (seen == 1).all()
+
+
+def test_interpolate_pack_layout():
+    from pymgrit_tpu_torch.ops import transfer
+    # dst's, a's and b's row strides, then the shapes, whether b is given, the plan
+    args = transfer.interpolate_pack(1, (8450, 1089, 2178), 1024, 33, 33, 65, 65, 2,
+                                     (1056, 64, 0, 64))
+    assert list(args) == [1, 8450, 1089, 2178, 1024, 33, 33, 65, 65, 2, 1, 1056, 64, 0, 64]
+    args = transfer.interpolate_pack(0, (15, 7), 64, 1, 7, 1, 15, 1, (4, 68, 0, 4))
+    assert list(args) == [0, 15, 7, 7, 64, 1, 7, 1, 15, 1, 0, 4, 68, 0, 4]
 
 
 def test_restrict_pack_layout():
