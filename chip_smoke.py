@@ -12,17 +12,19 @@ phases:
 
 1. device    the card's name and power limit (nvidia-smi); a CUDA device is
              required, there is no CPU carry-on;
-2. build     nvcc builds the CUDA C++ kernels (K1, K2, K5, K6, K8, K9, K10, K12,
-             K16-K26) from ``csrc/``, one process per source,
+2. build     nvcc builds the CUDA C++ kernels (K1, K2, K3, K5, K6, K8, K9, K10,
+             K12, K16-K26) from ``csrc/``, one process per source,
              all started together; ``cuobjdump`` counts the DMMA instructions
-             of K22 and K26, and ptxas's log gives the registers, spills and
-             static shared memory of the FP64 product tile they share
-             (``csrc/dmma_tile.cuh``);
+             of K5's float64 kernels (required in each, with no spills), K22
+             and K26, and ptxas's log gives the registers, spills and
+             static shared memory of K3, K5 and the FP64 product tile K22
+             and K26 share (``csrc/dmma_tile.cuh``);
 3. kernels   K1-K22 against their plain PyTorch versions at the main paths'
              shapes (and odd ones, and K5/K6/K10/K16/K17 past the sizes
              their wrappers once refused), float32 and float64, with
-             timings; for each kernel's headline case (and each case that
-             records its work) its bound (bytes or FP64 operations over the
+             timings (K1, K3, K5, K18, K19, K21 in rounds, with their device
+             time on a cold L2); for each kernel's headline case (and each
+             case that records its work) its bound (bytes or FP64 operations over the
              H100's peaks) and, where one PyTorch call computes the same
              function, that call's time; then the double-double K23-K26
              (``[dd-kernels]``) at the [dd] phase's shapes, K23-K25 bit for
@@ -109,9 +111,11 @@ phases 1-3 for the named kernels alone (float64 and float32) and ends in
 ``{"kernels_only": true, ...}``, never the ``"ok"`` of a full run.
 
 ``python3 chip_smoke.py --profile`` runs phases 1-2 and then one profiled
-solve of each configuration of phases 11-13 and of the ragged row, the BDF
-example, the two DD rows and the deep diffusion grid (``torch.profiler``): device
-busy and idle share, the leading device ops, launches and syncs.  It
+solve of each configuration of phases 11-13 and of the physical TOMS solve,
+the ragged row, the spatial row, the BDF example, the two DD rows and the
+deep diffusion grid (``torch.profiler``): device busy and idle share, the
+leading device ops, K5's and the row kernels' device time, launches and
+syncs.  It
 compares and checks nothing, so its last line is
 ``{"profile": true, ...}`` and never the ``"ok"`` of a checked run.
 
@@ -371,6 +375,9 @@ L2_FLUSH_BYTES = 3 * 50 * 2 ** 20
 _FLUSH = []
 # phase 3 times each K18 / K21 case in this many rounds
 ROW_ROUNDS = 5
+# the cells K5 carries ([physical], [ragged], [spatial], [c2]) time their
+# solve walls in six alternating plain / kernel pairs
+E2E_ORDER = ("plain", "kernel", "kernel", "plain") * 3
 PEAK_OPS_PER_S = {"float64": 34e12, "float32": 67e12}
 PEAK_DMMA_OPS_PER_S = 67e12
 # the kernels whose operations are dense FP64 products, which the tensor
@@ -485,14 +492,21 @@ def phase_build():
           + " ; ".join(f"{name}: {regs} registers, spill stores/loads {st}/{ld} B"
                        for name, (regs, st, ld, _) in ptxas(_build.build_log(), ROW_NAME,
                                                             row_label).items()))
+    k35 = ptxas(_build.build_log(), K3_K5_NAME, k3_k5_label)
+    print("[build] K3 / K5 (csrc/residual_row_norms.cu, sine_solve2d.cu on sine2d_dmma.cuh), "
+          "ptxas: " + " ; ".join(f"{name}: {regs} registers, spill stores/loads {st}/{ld} B"
+                                 for name, (regs, st, ld, _) in k35.items()))
+    k5_tiles = [k for k in k35 if k.startswith("K5 f64")]
+    check(len(k5_tiles) == 5 and all(k35[k][1] == 0 and k35[k][2] == 0 for k in k5_tiles),
+          f"build: K5's five f64 DMMA kernels must compile without spills: {k35}")
     print("[build] product tile (csrc/dmma_tile.cuh), ptxas: " + " ; ".join(
         f"{name}: {regs} registers, spill stores/loads {st}/{ld} B, static smem {sm} B"
         for name, (regs, st, ld, sm) in ptxas(_build.build_log(), TILE_OR_REDUCE,
                                               tile_label).items())
           + " (dynamic smem: each case's plan)")
-    # K22 and K26 run their f64 products on the FP64 tensor cores (DMMA); no
-    # kernel of the library uses the other tensor-core paths (HMMA: TF32 and
-    # below)
+    # K5 (float64), K22 and K26 run their f64 products on the FP64 tensor
+    # cores (DMMA); no kernel of the library uses the other tensor-core paths
+    # (HMMA: TF32 and below)
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(_build._lib_dir / "libpymgrit_kernels.so")],
                           capture_output=True, text=True, timeout=300).stdout
@@ -504,10 +518,14 @@ def phase_build():
             key = tile_owner(fn)
             dmma[key] = dmma.get(key, 0) + 1
         hmma += "HMMA" in ln
-    print(f"[build] cuobjdump -sass: DMMA instructions by kernel {dmma} (K22 f64, K26 DD "
-          f"products), {hmma} HMMA (TF32 and half precision: none expected)")
-    check(dmma.get("eig_step", 0) > 0 and dmma.get("dd_matmul", 0) > 0 and hmma == 0,
-          f"build: DMMA {dmma} (K22 and K26 must have some) and {hmma} HMMA in the SASS")
+    print(f"[build] cuobjdump -sass: DMMA instructions by kernel {dmma} (K5's f64 kernels: "
+          f"one-tile by side, band past 128; K22 f64, K26 DD products), {hmma} HMMA (TF32 and "
+          f"half precision: none expected)")
+    k5_dmma = [k for k in dmma if k.startswith("sine_solve2d")]
+    check(dmma.get("eig_step", 0) > 0 and dmma.get("dd_matmul", 0) > 0 and len(k5_dmma) == 5
+          and all(dmma[k] > 0 for k in k5_dmma) and hmma == 0,
+          f"build: DMMA {dmma} (K5's five f64 kernels, K22 and K26 must have some) and "
+          f"{hmma} HMMA in the SASS")
 
 
 # tile_product<E, pair, BM, BN, BK, stages, min blocks> as mangled by nvcc
@@ -516,11 +534,28 @@ TILE_NAME = re.compile(r"tile_productI([df])Lb([01])ELi(\d+)ELi(\d+)ELi(\d+)ELi(
 
 def tile_owner(fn):
     """The kernel a SASS function belongs to: the product tile's float64
-    instantiations are K22's, its double-double ones K26's."""
+    instantiations are K22's, its double-double ones K26's; K5's float64
+    kernels by their tile side (and its band kernel past 128)."""
+    k5 = K3_K5_NAME.search(fn)
+    if k5 is not None and k5.group(3) is None:
+        return f"sine_solve2d T={k5.group(1)}" if k5.group(1) else "sine_solve2d band"
     m = TILE_NAME.search(fn)
     if m is None:
         return fn
     return "dd_matmul" if m.group(2) == "1" else "eig_step"
+
+
+# sine_solve2d_dmma_kernel<T> (K5 float64, tile side T) / band_product (K5
+# float64 past 128) / residual_row_norms_kernel<T> (K3)
+K3_K5_NAME = re.compile(r"sine_solve2d_dmma_kernelILi(\d+)E|(band)_product|"
+                        r"residual_row_norms_kernelI([df])E")
+
+
+def k3_k5_label(m, ln):
+    side, band, e = m.groups()
+    if band is not None:
+        return "K5 f64 band"
+    return f"K5 f64 T={side}" if side is not None else f"K3 {'f64' if e == 'd' else 'f32'}"
 
 
 # restrict_combine_kernel<T, DIM, NT, NA> / indexed_combine_kernel<T, NT> /
@@ -758,8 +793,12 @@ def kernel_cases(dtype, dev, stash):
         cases.append(("theta_chain", label, chain))
 
     # K3 residual_row_norms / K4 cpoint_combine on 512 C-rows of a tube
+    # (K3: the solver's s = Phi(u_{c-1}) rows against u_c, of odd N: the two
+    # operands' rows disagree in 16-byte alignment)
     a, b, c = (t(rng.uniform(-1, 1, (J + 1, N))) for _ in range(3))
-    cases.append(("residual_row_norms", "C-rows", lambda k: k.residual_row_norms(a[1:], b[:J])))
+    cases.append(("residual_row_norms", "C-rows",
+                  RowCase(lambda: None, lambda k, _: k.residual_row_norms(a[1:], b[:J]),
+                          exact=False)))
     cases.append(("cpoint_combine", "FAS g_tail",
                   lambda k: k.cpoint_combine(torch.empty((J, N), dtype=dtype, device=dev),
                                              [a[1:], b[:J], c[1:]], [1.0, -1.0, 1.0])))
@@ -791,19 +830,29 @@ def kernel_cases(dtype, dev, stash):
     rows_a, rows_b = (t(rng.uniform(-1, 1, N)).expand(J, N) for _ in range(2))
 
     def k5(B, shift, with_g=False, solve=True, into_tube=True):
-        def run(k):
-            tube = torch.empty((B * m1 + 1, nx, nx), dtype=dtype, device=dev)
+        # each call writes into a fresh tube made outside the timed call
+        def launch(k, tube):
             out = tube[1:].view(B, m1, nx, nx)[:, 0] if into_tube else tube[:B, 1:-1, 1:-1]
             g = pg[1:B * m1 + 1].view(B, m1, nx, nx)[:, 0] if with_g else None
-            k.sine_solve2d(ptube[:B, 1:-1, 1:-1], out, S, S, lam2 if solve else None,
-                           shift if solve else None, ring if into_tube else None, g)
-            return out.clone()
-        return run
+            return k.sine_solve2d(ptube[:B, 1:-1, 1:-1], out, S, S, lam2 if solve else None,
+                                  shift if solve else None, ring if into_tube else None, g)
+        return RowCase(lambda: torch.empty((B * m1 + 1, nx, nx), dtype=dtype, device=dev),
+                       launch, exact=False)
 
     cases += [("sine_solve2d", f"solve B={J}", k5(J, dt0)),
               ("sine_solve2d", f"level-1 F-step B={J1} +g", k5(J1, m0 * dt0, with_g=True)),
               ("sine_solve2d", f"solve B={J} shift tensor", k5(J, shifts)),
               ("sine_solve2d", f"transform B={J}", k5(J, None, solve=False, into_tube=False))]
+    for case, B, nk, how in K5_SMALL:
+        cases.append(("sine_solve2d", case, k5_small(dtype, dev, rng, B, nk, how)))
+        stash[("work", "sine_solve2d", case)] = k5_work(B, nk, how)
+    nbytes, nops = k5_work(J, n, "solve")
+    stash.update({("work", "sine_solve2d", f"solve B={J}"): (nbytes, nops),
+                  ("work", "sine_solve2d", f"solve B={J} shift tensor"): (nbytes + 8 * J, nops),
+                  ("work", "sine_solve2d", f"level-1 F-step B={J1} +g"): k5_work(J1, n, "solve +g"),
+                  ("work", "sine_solve2d", f"transform B={J}"): k5_work(J, n, "transform"),
+                  ("work", "residual_row_norms", "C-rows"): headline_work("residual_row_norms",
+                                                                          stash)})
 
     xhat, dhat = (t(rng.uniform(-1, 1, (J, N))) for _ in range(2))
     dscale = t(rng.uniform(0, 1e-4, N))
@@ -849,8 +898,8 @@ def kernel_cases(dtype, dev, stash):
     stash[("library", "interval_affine")] = stash[("library", "interval_affine", "materialize")] = \
         lambda: torch.addcmul(G31, seeds_c[:J, None], A31)
     stash[("work", "interval_affine", "materialize")] = headline_work("interval_affine", stash)
-    stash[("library", "residual_row_norms")] = lambda: torch.linalg.vector_norm(a[1:] - b[:J],
-                                                                                dim=1)
+    stash[("library", "residual_row_norms")] = stash[("library", "residual_row_norms", "C-rows")] = \
+        lambda: torch.linalg.vector_norm(a[1:] - b[:J], dim=1)
     return (cases + coarsest_cases(dtype, dev, rng, lam) + nonlinear_cases(dtype, dev, rng, stash)
             + slice_cases(dtype, dev, rng, stash) + transfer_cases(dtype, dev, rng, stash)
             + heat1d_cases(dtype, dev, rng, stash) + past_cap_cases(dtype, dev, rng, stash)
@@ -1163,15 +1212,17 @@ def slice_cases(dtype, dev, rng, stash):
 
 
 class RowCase:
-    """A K1, K18, K19 or K21 case in two steps: ``prepare()`` makes what the
-    call writes into where the call updates a tube in place or into a given
-    out (untimed: the fresh copy of a tube, the empty tube),
+    """A K1, K3, K5, K18, K19 or K21 case in two steps: ``prepare()`` makes
+    what the call writes into where the call updates a tube in place or
+    into a given out (untimed: the fresh copy of a tube, the empty tube),
     ``launch(ops, state)`` makes the call and returns its output.
     ``run(ops)`` does both: the correctness comparison's fresh operands.
-    These kernels equal their plain versions bit for bit."""
+    With ``exact`` (K1, K18, K19, K21) the kernel equals its plain version
+    bit for bit; without (K3 and K5 sum in another order) it is held at
+    the kernel tolerance, and a second launch must give the same bits."""
 
-    def __init__(self, prepare, launch):
-        self.prepare, self.launch = prepare, launch
+    def __init__(self, prepare, launch, exact=True):
+        self.prepare, self.launch, self.exact = prepare, launch, exact
 
     def __call__(self, ops):
         return self.launch(ops, self.prepare())
@@ -1597,6 +1648,58 @@ def dd_cases(dev, rng, stash):
     return cases
 
 
+# K5 at the smaller sides of the spatial65 and ragged65 rows, at their
+# solves' batches (case, B, interior side, kind): ragged65's level-0
+# F-steps (514 chains of a 65^2 grid, dt 1/4096, the ring), spatial65's
+# level-1 F-steps (256 chains of 33^2, dt 4/4096, the ring and g) and its
+# seed transforms (1024 C-rows of 65^2, no ring)
+K5_SMALL = (("ragged65 F-step B=514 n=63", 514, 63, "solve"),
+            ("spatial65 level-1 F-step B=256 n=31 +g", 256, 31, "solve +g"),
+            ("spatial65 transform B=1024 n=63", 1024, 63, "transform"))
+
+
+def k5_work(B, n, how):
+    """(bytes, operations) of a K5 call on B states of interior side n
+    (``K5_SMALL``'s kinds): the states read, Sx, Sy (and lam) read, the ring
+    read and the output written (with g: read too); four length-n products a
+    state and the divide (a solve), two (the transform)."""
+    N, P2 = n * n, (n + 2) ** 2
+    if how == "transform":
+        return 8 * (B * N + 2 * N + B * N), B * 4 * n ** 3
+    return (8 * (B * N + 3 * N + P2 + B * P2 * (2 if "+g" in how else 1)),
+            B * (8 * n ** 3 + 3 * N))
+
+
+def k5_small(dtype, dev, rng, B, n, how):
+    """A K5 case of ``K5_SMALL``: states read from a tube's C-rows (strided),
+    written into the next rows of a fresh tube with the ring (or, the
+    transform, into its interiors)."""
+    import torch
+    from pymgrit_tpu_torch.ops.dirichlet_spectral import sine_eigenbasis
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+
+    nx = n + 2
+    S = t(sine_eigenbasis(n, (n + 1.0) ** 2)[0])
+    lam1 = sine_eigenbasis(n, (n + 1.0) ** 2)[1]
+    lam = t(lam1[:, None] + lam1[None, :])
+    ring_np = rng.uniform(-1, 1, (nx, nx))
+    ring_np[1:-1, 1:-1] = 0.0
+    ring = t(ring_np)
+    seeds = t(rng.uniform(-1, 1, (2 * B, nx, nx)))
+    g = t(rng.uniform(-1e-3, 1e-3, (2 * B, nx, nx))) if "+g" in how else None
+    dt = (4.0 if "+g" in how else 1.0) / 4096
+
+    def launch(k, tube):
+        if how == "transform":
+            return k.sine_solve2d(seeds[0::2, 1:-1, 1:-1], tube[:B, 1:-1, 1:-1], S, S)
+        return k.sine_solve2d(seeds[0::2, 1:-1, 1:-1], tube[1::2], S, S, lam, dt, ring,
+                              None if g is None else g[1::2])
+    return RowCase(lambda: torch.empty((2 * B, nx, nx), dtype=dtype, device=dev), launch,
+                   exact=False)
+
+
 def past_cap_cases(dtype, dev, rng, stash):
     """K5, K6, K10, K16 and K17 past the sizes at which their wrappers
     raised before: K5 and K6 at the toms257 interior 255 (K5: the
@@ -1624,8 +1727,7 @@ def past_cap_cases(dtype, dev, rng, stash):
     tube = t(rng.uniform(-1, 1, (B + 1, n + 2, n + 2)))
     dt0 = 1.0 / (TOMS257["nt"] - 1)
 
-    def k5(ops):
-        out = torch.empty_like(tube)
+    def k5(ops, out):
         return ops.sine_solve2d(tube[:B, 1:-1, 1:-1], out[1:], S, S, lam, dt0, ring)
 
     xhat = t(rng.uniform(-1, 1, (B, N)))
@@ -1636,7 +1738,8 @@ def past_cap_cases(dtype, dev, rng, stash):
         ops.sine_affine2d(xhat, A, G, out.transpose(0, 1), S, S, 31, ring)
         return out
 
-    cases += [("sine_solve2d", f"toms257 solve B={B} n={n}", k5),
+    cases += [("sine_solve2d", f"toms257 solve B={B} n={n}",
+               RowCase(lambda: torch.empty_like(tube), k5, exact=False)),
               ("sine_affine2d", f"toms257 C-step J={B} n={n}", k6)]
     stash[("work", "sine_solve2d", f"toms257 solve B={B} n={n}")] = (
         8 * (B * N + B * P2 + 3 * N + P2), B * (8 * n ** 3 + 3 * N))
@@ -1820,10 +1923,14 @@ def phase_kernels(only=None):
             abs_err = float((out_k - out_p).abs().max())
             rel = abs_err / max(float(out_p.abs().max()), 1e-300)
             row_case = isinstance(run, RowCase)
-            if row_case:                # the plain version's operations, each rounded once
+            if row_case and run.exact:  # the plain version's operations, each rounded once
                 same = torch.equal(out_k, out_p)
                 print(f"[kernels] {kernel:<20} {case} {dname}: bit for bit: {same}")
                 check(same, f"{kernel} {case} {dname}: the kernel differs from its plain version")
+            elif row_case:              # a fixed summation order: a call repeats bit for bit
+                same = torch.equal(out_k, run(DISPATCH))
+                print(f"[kernels] {kernel:<20} {case} {dname}: second launch bit for bit: {same}")
+                check(same, f"{kernel} {case} {dname}: a second launch differs")
             plan = stash.get(("plan", kernel, case))
             if plan is not None:        # the product tile: a second launch gives the same bits
                 same = torch.equal(out_k, run(DISPATCH))
@@ -2038,7 +2145,8 @@ def phase_main(card):
     du_plain = float((mk.u[0] - mp.u[0]).abs().max())
     print(f"[main] history kernels vs plain (GPU): max diff {herr.max():.3e}, max rel "
           f"{float(np.max(herr / hp)):.3e} (rtol {MAIN_RTOL:.0e}, atol floor {atol:.2e}); "
-          f"tube max diff {du_plain:.3e} | {'ok' if h_ok else 'FAIL'}")
+          f"tube max diff {du_plain:.3e}; bit for bit: history {np.array_equal(hk, hp)}, tube "
+          f"{torch.equal(mk.u[0], mp.u[0])} | {'ok' if h_ok else 'FAIL'}")
     check(h_ok, "main: kernel history differs from the plain history")
     del mp
     torch.cuda.empty_cache()
@@ -2080,11 +2188,12 @@ def phase_main(card):
     return counts, hk, tube
 
 
-def timed_runs(P, device, **cfg):
+def timed_runs(P, device, order=("plain", "kernel", "kernel", "plain"), **cfg):
     """Wall times of fresh solves (setup excluded), in turns plain, kernel,
-    kernel, plain; returns ({path: [s, s]}, fine steps of one solve)."""
+    kernel, plain (or ``order``); returns ({path: [s, ...]}, fine steps of
+    one solve)."""
     walls, hists, _, _, mg = strategy_runs(
-        P, lambda ops: build_problem(P, device=device, ops=ops, **cfg), "scan", 0,
+        P, lambda ops: build_problem(P, device=device, ops=ops, **cfg), "scan", 0, order=order,
         tol=MAIN_TOL, max_iter=MAIN_MAX_ITER)
     steps = sum(count_fine_steps_per_iter(mg, it == 0) for it in range(hists["kernel"].size))
     return walls, steps
@@ -2162,7 +2271,7 @@ def phase_physical(card, h_spec, tube_spec):
     del mk, tube, row_err, problem
     torch.cuda.empty_cache()
 
-    runs, steps = timed_runs(P, dev, **cfg)
+    runs, steps = timed_runs(P, dev, order=E2E_ORDER, **cfg)
     tk, tp = float(np.median(runs["kernel"])), float(np.median(runs["plain"]))
     print(f"[physical] TOMS {nx}x{nx} nt={nt} ms={TOMS['ms']} f64 BE physical condensed: "
           f"{hk.size} iterations, history {[float(f'{h:.6e}') for h in hk]} | solve wall kernel "
@@ -2893,8 +3002,8 @@ def phase_spatial(card):
     import pymgrit_tpu_torch as P
     transfer = [P.GridTransferHeat2D(n, n) for n in SPATIAL["sizes"][:-1]]
     walls, hists, counts, peak, mg = strategy_runs(
-        P, lambda ops: spatial_problem(P, ops), "scan", 0, warm=True, tol=SPATIAL["tol"],
-        max_iter=SPATIAL["max_iter"], transfer=transfer)
+        P, lambda ops: spatial_problem(P, ops), "scan", 0, warm=True, order=E2E_ORDER,
+        tol=SPATIAL["tol"], max_iter=SPATIAL["max_iter"], transfer=transfer)
     hk, hp = hists["kernel"], hists["plain"]
     floor = physical_floor(mg)
     ok_p, err_p = histories_agree(hk, hp, floor, MAIN_RTOL)
@@ -2997,7 +3106,7 @@ def phase_c2(card):
     cfg = dict(nx=TOMS257["nx"], nt=TOMS257["nt"], ms=TOMS257["ms"], basis="physical")
     walls, hists, counts, peak, mg = strategy_runs(
         P, lambda ops: build_problem(P, device=DEVICE, ops=ops, **cfg), "scan", 0,
-        order=("plain", "kernel"), tol=TOMS257["tol"], max_iter=TOMS257["max_iter"])
+        order=E2E_ORDER, tol=TOMS257["tol"], max_iter=TOMS257["max_iter"])
     hk, hp = hists["kernel"], hists["plain"]
     floor = physical_floor(mg)
     ok, err = histories_agree(hk, hp, floor, MAIN_RTOL)
@@ -3043,7 +3152,7 @@ def phase_ragged(card):
     from pymgrit_tpu_torch.ops import DISPATCH, PLAIN
     kw = dict(tol=RAGGED["tol"], max_iter=RAGGED["max_iter"])
     walls, hists, counts, peak, mg = strategy_runs(P, lambda ops: ragged_problem(P, ops), "scan",
-                                                   0, warm=True, **kw)
+                                                   0, warm=True, order=E2E_ORDER, **kw)
     hk, hp = hists["kernel"], hists["plain"]
     floor = physical_floor(mg)
     ok_p, err_p = histories_agree(hk, hp, floor, MAIN_RTOL)
@@ -3497,7 +3606,8 @@ def phase_dd(card):
 
 def profile_cells(card):
     """``--profile``: one profiled kernel-path solve of each cell of the
-    periodic models, the ragged row, the spatial65 row, the BDF example,
+    periodic models, the physical TOMS solve, the ragged row, the spatial65
+    row, the BDF example,
     the two DD rows and the deep diffusion grid (after one untimed solve of
     the same configuration), torch.profiler with CPU and CUDA activities:
     the profiled wall, the card's busy time (the kernels' device time
@@ -3539,6 +3649,9 @@ def profile_cells(card):
         ("advection example", advection_example),
         ("advection deep", solver("Advection1D", dict(ADVECTION_DEEP, t_stop=2.0), c=1,
                                   x_start=-1, x_end=1, nx=ADVECTION_DEEP["nx"])),
+        ("physical toms129", lambda: P.Mgrit(
+            problem=build_problem(P, device=DEVICE, ops=DISPATCH, basis="physical", **TOMS),
+            tol=MAIN_TOL, max_iter=MAIN_MAX_ITER, logging_lvl=30)),
         ("ragged ragged65", lambda: P.Mgrit(problem=ragged_problem(P, DISPATCH),
                                             tol=RAGGED["tol"], max_iter=RAGGED["max_iter"],
                                             logging_lvl=40)),
@@ -3592,16 +3705,19 @@ def profile_cells(card):
         tile = {k: (sum(e.count for e in dev if k in e.key),
                     sum(device_us(e) for e in dev if k in e.key) / 1e3)
                 for k in ("tile_product", "reduce_slices")}
-        # the row kernels' device kernels: K18, K19, K21
+        # the row kernels' device kernels: K18, K19, K21; K5's (the one-tile
+        # kernels, and the band kernel past 128) with its wrapper's calls
         row = {k: (sum(e.count for e in dev if k in e.key),
                    sum(device_us(e) for e in dev if k in e.key) / 1e3)
-               for k in ("restrict_combine", "interpolate_combine", "indexed_combine")}
+               for k in ("restrict_combine", "interpolate_combine", "indexed_combine",
+                         "sine_solve2d", "band_product")}
         print(f"[profile] {label}: {h.size} iterations, profiled solve {wall * 1e3:.1f} ms, device "
               f"busy {busy:.1f} ms, idle {100 * (1 - busy / (wall * 1e3)):.1f} % | leading device "
               "time " + "; ".join(f"{e.key[:48]} {device_us(e) / 1e3:.2f} ms ({e.count})"
                                   for e in top)
               + "".join(f" | {k} {n} launches {ms:.2f} ms ({ms / n:.4f} ms a launch)"
                         for k, (n, ms) in row.items() if n)
+              + (f" | K5 calls {calls['sine_solve2d']}" if calls["sine_solve2d"] else "")
               + f" | host: {launches} kernel launches, {syncs} synchronisations"
               + (f" | product tile: {calls['eig_step']} K22 and {calls['dd_matmul']} K26 calls, "
                  f"{tile['tile_product'][0]} product kernels {tile['tile_product'][1]:.2f} ms, "
@@ -3616,7 +3732,7 @@ REPLACES = {
                         "pymgrit_tpu/models/heat_2d.py:538"),
     "theta_chain": ("cuda", "pymgrit_tpu_torch/ops/csrc/theta_chain.cu",
                     "pymgrit_tpu/models/heat_2d.py:419"),
-    "residual_row_norms": ("triton", "pymgrit_tpu_torch/ops/triton_kernels.py",
+    "residual_row_norms": ("cuda", "pymgrit_tpu_torch/ops/csrc/residual_row_norms.cu",
                            "pymgrit_tpu/core/solver.py:1056"),
     "cpoint_combine": ("triton", "pymgrit_tpu_torch/ops/triton_kernels.py",
                        "pymgrit_tpu/core/solver.py:914"),

@@ -6,7 +6,8 @@ coarsening, Diffusion2D, and the double-double precision mode:
 
 * K1 ``interval_affine`` (CUDA C++, ``csrc/interval_affine.cu``)
 * K2 ``theta_chain`` (CUDA C++, ``csrc/theta_chain.cu``)
-* K3 ``residual_row_norms`` (Triton)
+* K3 ``residual_row_norms`` (CUDA C++, ``csrc/residual_row_norms.cu``, wrapper in
+  ``row_norms``)
 * K4 ``cpoint_combine`` (Triton)
 * K5 ``sine_solve2d`` (CUDA C++, ``csrc/sine_solve2d.cu``)
 * K6 ``sine_affine2d`` (CUDA C++, ``csrc/sine_affine2d.cu``)
@@ -63,7 +64,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 from pymgrit_tpu_torch.ops import (dd, dd_matmul, dense_newton, eig_step, heat_kernels, indexed,
-                                   periodic, prefix, runge_kutta, transfer, triton_kernels)
+                                   periodic, prefix, row_norms, runge_kutta, transfer,
+                                   triton_kernels)
 
 
 class Ops(NamedTuple):
@@ -96,7 +98,7 @@ class Ops(NamedTuple):
 
 
 DISPATCH = Ops(heat_kernels.interval_affine, heat_kernels.theta_chain,
-               triton_kernels.residual_row_norms, triton_kernels.cpoint_combine,
+               row_norms.residual_row_norms, triton_kernels.cpoint_combine,
                heat_kernels.sine_solve2d, heat_kernels.sine_affine2d,
                triton_kernels.theta_rhs2d, prefix.affine_prefix, prefix.affine_windows,
                periodic.periodic_solve2d, triton_kernels.allen_cahn_pointwise,
@@ -108,7 +110,7 @@ DISPATCH = Ops(heat_kernels.interval_affine, heat_kernels.theta_chain,
                heat_kernels.dd_interval_affine, heat_kernels.dd_theta_chain, dd.dd_arith,
                dd_matmul.dd_matmul)
 PLAIN = Ops(heat_kernels.interval_affine_plain, heat_kernels.theta_chain_plain,
-            triton_kernels.residual_row_norms_plain, triton_kernels.cpoint_combine_plain,
+            row_norms.residual_row_norms_plain, triton_kernels.cpoint_combine_plain,
             heat_kernels.sine_solve2d_plain, heat_kernels.sine_affine2d_plain,
             triton_kernels.theta_rhs2d_plain, prefix.affine_prefix_plain,
             prefix.affine_windows_plain, periodic.periodic_solve2d_plain,

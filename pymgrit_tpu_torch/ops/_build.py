@@ -1,9 +1,10 @@
 """Build and load the CUDA C++ kernels (K1 interval_affine, K2 theta_chain,
-K5 sine_solve2d, K6 sine_affine2d, K8 affine_prefix, K9 affine_windows,
-K10 periodic_solve2d, K12 dopri45_arenstorf, K16 burgers1d_newton, K17
-circulant_solve1d, K18 restrict_combine, K19 interpolate_combine, K20
-sine_solve1d, K21 indexed_combine, K22 eig_step, K23 dd_interval_affine,
-K24 dd_theta_chain, K25 dd_arith, K26 dd_matmul).
+K3 residual_row_norms, K5 sine_solve2d, K6 sine_affine2d, K8
+affine_prefix, K9 affine_windows, K10 periodic_solve2d, K12
+dopri45_arenstorf, K16 burgers1d_newton, K17 circulant_solve1d, K18
+restrict_combine, K19 interpolate_combine, K20 sine_solve1d, K21
+indexed_combine, K22 eig_step, K23 dd_interval_affine, K24 dd_theta_chain,
+K25 dd_arith, K26 dd_matmul).
 
 The sources under ``csrc/`` have a plain C interface.  On first use each
 ``.cu`` file is compiled by its own ``nvcc`` process for Hopper
@@ -36,8 +37,8 @@ _SIGNATURES = {
     "pm_interval_affine": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _I, _P],
     "pm_theta_chain": [_P, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I,
                        _D, _I, _I, _I, _P],
-    "pm_sine_solve2d": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _D, _P, _P, _I, _I,
-                        _P, _I, _I, _I, _I, _P],
+    # the packed argument array, the scalar shift, the stream
+    "pm_sine_solve2d": [_P, _D, _P],
     "pm_sine_affine2d": [_P, _I, _P, _P, _I, _I, _I, _P, _I, _P, _P, _I, _I, _I, _P, _I,
                          _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
     "pm_affine_prefix": [_P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _P],
@@ -57,6 +58,8 @@ _SIGNATURES = {
     # the packed argument array, dst, a, b, the stream
     "pm_interpolate_combine": [_P, _P, _P, _P, _P],
     "pm_indexed_combine": [_P, _D, _D, _D, _P],
+    # the packed argument array, s, u, out, the stream
+    "pm_residual_row_norms": [_P, _P, _P, _P, _P],
 }
 # the float32-pair (double-double) launchers: one symbol each, no dtype suffix
 _DD_SIGNATURES = {

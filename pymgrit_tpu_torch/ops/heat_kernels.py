@@ -19,6 +19,7 @@ BDF pair state) as a row of n interior values.
 
 from __future__ import annotations
 
+import array
 import ctypes
 import functools
 
@@ -218,8 +219,8 @@ theta_chain.launches = 0
 # K5 sine_solve2d, K6 sine_affine2d: physical-basis two-sided sine products
 # ---------------------------------------------------------------------------
 
-ONE_TILE = 128       # largest side of the one-tile core (csrc/sine2d.cuh)
-TILED_CHUNK = 512    # states the tiled path (csrc/tiled2d.cuh) stages at a time
+ONE_TILE = 128       # largest side of the one-tile cores (csrc/sine2d.cuh, sine2d_dmma.cuh)
+TILED_CHUNK = 512    # states the tiled paths stage at a time
 
 
 def tiled_workspace(states: int, r: int, c: int, like: torch.Tensor):
@@ -253,9 +254,80 @@ def sine_solve2d_plain(b, out, Sx, Sy, lam=None, shift=None, ring=None, g=None):
     return out
 
 
+def _state_facts(name, key, shape, B, P, Q):
+    if tuple(shape) != (B, P, Q):
+        _require(False, name, f"{key} has shape {tuple(shape)}, expected ({B}, {P}, {Q})")
+
+
 def _state_view(name, key, t, B, P, Q):
-    _require(t.dim() == 3 and tuple(t.shape) == (B, P, Q), name,
-             f"{key} has shape {tuple(t.shape)}, expected ({B}, {P}, {Q})")
+    _state_facts(name, key, t.shape, B, P, Q)
+
+
+# sine_solve2d's operands in the order of its argument array's pointer
+# slots 1-8 (csrc/sine_solve2d.cu ``launch``)
+_SOLVE_KEYS = ("b", "out", "Sx", "Sy", "lam", "ring", "g", "shift")
+
+
+@functools.lru_cache(maxsize=1024)
+def _solve_checked(facts, present, has_shift):
+    """Every check of a K5 call, on the ``fact``s of the operands given
+    (``present``: which of ``_SOLVE_KEYS``) and whether a shift is, cached
+    by them (K5 runs at every physical step: 820 times a TOMS solve);
+    returns (on the CPU, the launch: the argument array without pointers,
+    the launcher, the device index and the workspace's size in elements;
+    None on the CPU or with no states)."""
+    name = "sine_solve2d"
+    keys = [k for k, p in zip(_SOLVE_KEYS, present) if p]
+    _check_facts(name, facts, keys.__getitem__)
+    f = dict(zip(keys, facts))
+    dtype, device, bshape, bstride = f["b"]
+    if len(bshape) != 3:
+        _require(False, name, f"b has shape {tuple(bshape)}, expected (B, r, c)")
+    B, r, c = bshape
+    P, Q = (r + 2, c + 2) if "ring" in f else (r, c)
+    _state_facts(name, "out", f["out"][2], B, P, Q)
+    if "g" in f:
+        _state_facts(name, "g", f["g"][2], B, P, Q)
+    if not (tuple(f["Sx"][2]) == (r, r) and tuple(f["Sy"][2]) == (c, c)
+            and _contiguous(*f["Sx"][2:]) and _contiguous(*f["Sy"][2:])):
+        _require(False, name, f"Sx and Sy must be contiguous ({r}, {r}) and ({c}, {c}) bases")
+    if ("lam" in f) != has_shift:
+        _require(False, name, "lam and shift go together")
+    if "lam" in f and not (tuple(f["lam"][2]) == (r, c) and _contiguous(*f["lam"][2:])):
+        _require(False, name, f"lam must be a contiguous ({r}, {c}) table")
+    if "shift" in f and not (tuple(f["shift"][2]) == (B,) and _contiguous(*f["shift"][2:])):
+        _require(False, name, f"a shift tensor must be a contiguous ({B},) vector")
+    if "ring" in f and not (tuple(f["ring"][2]) == (P, Q) and _contiguous(*f["ring"][2:])):
+        _require(False, name, f"ring must be a contiguous ({P}, {Q}) field")
+    if device.type == "cpu" or B == 0:
+        return device.type == "cpu", None
+    chunk = min(B, TILED_CHUNK) if max(r, c) > ONE_TILE else 0
+    gs = f["g"][3][:2] if "g" in f else (0, 0)
+    args = solve_pack(device.index, bstride[:2], f["out"][3][:2], gs, B, r, c, chunk)
+    return False, (args, _launcher("pm_sine_solve2d", dtype), device.index,
+                   solve_workspace(dtype, r, c, chunk))
+
+
+def solve_workspace(dtype, r, c, chunk):
+    """Elements of K5's workspace past the one-tile side (0 within it):
+    float64, copies of Sx and Sy with rows of even length and the band
+    products' two buffers of a chunk of states, (c x r) and (r x c) with
+    rows of even length (csrc/sine_solve2d.cu ``band_dmma``); float32, the
+    tiled path's two (r x c) buffers."""
+    if not chunk:
+        return 0
+    if dtype == torch.float64:
+        ldr, ldc = r + r % 2, c + c % 2
+        return r * ldr + c * ldc + chunk * (c * ldr + r * ldc)
+    return 2 * chunk * r * c
+
+
+def solve_pack(index, bs, os, gs, B, r, c, chunk):
+    """The launcher's int64 argument array (csrc/sine_solve2d.cu
+    ``launch``): device, eight operand pointers and the workspace's (filled
+    in by each call), b's, out's and g's batch and row strides, B, r, c,
+    the workspace's chunk of states."""
+    return array.array("q", (index, *(0,) * 9, *bs, *os, *gs, B, r, c, chunk))
 
 
 def sine_solve2d(b, out, Sx, Sy, lam=None, shift=None, ring=None, g=None):
@@ -268,49 +340,25 @@ def sine_solve2d(b, out, Sx, Sy, lam=None, shift=None, ring=None, g=None):
     or a (B,) tensor; g: optional view of out's shape added to the result.
     Contiguous tables.  out must not overlap b.  Returns out.
     """
-    name = "sine_solve2d"
-    ops = dict(b=b, out=out, Sx=Sx, Sy=Sy)
-    for key, t in dict(lam=lam, ring=ring, g=g).items():
-        if t is not None:
-            ops[key] = t
-    if isinstance(shift, torch.Tensor):
-        ops["shift"] = shift
-    _check_operands(name, ops)
-    _require(b.dim() == 3, name, f"b has shape {tuple(b.shape)}, expected (B, r, c)")
-    B, r, c = b.shape
-    P, Q = (r + 2, c + 2) if ring is not None else (r, c)
-    _state_view(name, "out", out, B, P, Q)
-    if g is not None:
-        _state_view(name, "g", g, B, P, Q)
-    _require(tuple(Sx.shape) == (r, r) and tuple(Sy.shape) == (c, c)
-             and Sx.is_contiguous() and Sy.is_contiguous(), name,
-             f"Sx and Sy must be contiguous ({r}, {r}) and ({c}, {c}) bases")
-    _require((lam is None) == (shift is None), name, "lam and shift go together")
-    _require(lam is None or (tuple(lam.shape) == (r, c) and lam.is_contiguous()), name,
-             f"lam must be a contiguous ({r}, {c}) table")
-    _require(not isinstance(shift, torch.Tensor)
-             or (tuple(shift.shape) == (B,) and shift.is_contiguous()), name,
-             f"a shift tensor must be a contiguous ({B},) vector")
-    _require(ring is None or (tuple(ring.shape) == (P, Q) and ring.is_contiguous()), name,
-             f"ring must be a contiguous ({P}, {Q}) field")
-    if b.device.type == "cpu":
-        return sine_solve2d_plain(b, out, Sx, Sy, lam, shift, ring, g)
-    if B == 0:
-        return out
     shift_t = shift if isinstance(shift, torch.Tensor) else None
-    ws, chunk = tiled_workspace(B, r, c, b)
-    fn = _launcher("pm_sine_solve2d", b.dtype)
-    stream = torch.cuda.current_stream(b.device).cuda_stream
-    status = fn(b.data_ptr(), b.stride(0), b.stride(1), out.data_ptr(), out.stride(0),
-                out.stride(1), Sx.data_ptr(), Sy.data_ptr(),
-                lam.data_ptr() if lam is not None else None,
-                shift_t.data_ptr() if shift_t is not None else None,
-                float(shift) if shift is not None and shift_t is None else 0.0,
-                ring.data_ptr() if ring is not None else None,
-                g.data_ptr() if g is not None else None,
-                g.stride(0) if g is not None else 0, g.stride(1) if g is not None else 0,
-                ws.data_ptr() if ws is not None else None, chunk, B, r, c, stream)
-    _build.check(status, name)
+    ops = (b, out, Sx, Sy, lam, ring, g, shift_t)
+    on_cpu, launch = _solve_checked(tuple(fact(t) for t in ops if t is not None),
+                                    tuple(t is not None for t in ops), shift is not None)
+    if on_cpu:
+        return sine_solve2d_plain(b, out, Sx, Sy, lam, shift, ring, g)
+    if launch is None:
+        return out
+    tmpl, fn, index, ws_size = launch
+    args = tmpl[:]
+    for k, t in enumerate(ops):
+        if t is not None:
+            args[1 + k] = t.data_ptr()
+    ws = None
+    if ws_size:
+        ws = torch.empty(ws_size, dtype=b.dtype, device=b.device)
+        args[9] = ws.data_ptr()
+    shift0 = float(shift) if shift is not None and shift_t is None else 0.0
+    _build.check(fn(args.buffer_info()[0], shift0, _build.stream(index)), "sine_solve2d")
     sine_solve2d.launches += 1
     return out
 

@@ -1,20 +1,18 @@
-"""Kernels K3 ``residual_row_norms``, K4 ``cpoint_combine``, K7
-``theta_rhs2d``, K11 ``allen_cahn_pointwise``, K13 ``rk4_brusselator``, K14
+"""Kernels K4 ``cpoint_combine``, K7 ``theta_rhs2d``, K11
+``allen_cahn_pointwise``, K13 ``rk4_brusselator``, K14
 ``gray_scott_pointwise`` and K15 ``burgers2d_pointwise`` (Triton), each
-beside its plain PyTorch version.  (K18 ``restrict_combine``, K19
-``interpolate_combine`` and K21 ``indexed_combine`` are CUDA C++:
+beside its plain PyTorch version.  (K3 ``residual_row_norms``, K18
+``restrict_combine``, K19 ``interpolate_combine`` and K21
+``indexed_combine`` are CUDA C++: ``csrc/residual_row_norms.cu``,
 ``csrc/restrict_combine.cu``, ``csrc/interpolate_combine.cu``,
 ``csrc/indexed_combine.cu``.)
 
-K3 replaces pymgrit_tpu/core/solver.py ``_point_residual_norms`` with
-``vector.batched_norm``: the per-C-point 2-norm of Phi(u_{c-1}) - u_c that
-the convergence check reduces.  K4 replaces the elementwise parts of the
-C-point phases in the same file: the weighted C update (``_c_relax``), the
-FAS right-hand side ``g_tail`` (``_fas_residual``) and the coarse-grid
-correction (``_error_correction``).  Both are bound by the bytes they read
-(and, for K4, write): K3 reads two rows and writes one scalar per row, one
-program per row with a blocked sum; K4 reads up to four strided row views
-and writes one, one program per (row, block of N), fused into one pass.
+K4 replaces the elementwise parts of the C-point phases in
+pymgrit_tpu/core/solver.py: the weighted C update (``_c_relax``), the FAS
+right-hand side ``g_tail`` (``_fas_residual``) and the coarse-grid
+correction (``_error_correction``).  It is bound by the bytes it reads and
+writes: up to four strided row views read and one written, one program per
+(row, block of N), fused into one pass.
 K7 replaces the stencil part of the physical-basis heat step in
 pymgrit_tpu/models/heat_2d.py (``Heat2D.step`` and ``step_batched``): it
 assembles the right-hand side of the implicit solve (BE, CN), or computes
@@ -47,21 +45,6 @@ _COEF_CACHE = {}     # (coeffs, dtype, device) -> coefficient tensor
 
 _BLOCK = 1024
 MAX_TERMS = 4
-
-
-def _row_norms_body(s_ptr, u_ptr, out_ptr, N, s_stride, u_stride,
-                    BLOCK: tl.constexpr):
-    row = tl.program_id(0).to(tl.int64)
-    offs = tl.arange(0, BLOCK)
-    acc = tl.zeros([BLOCK], dtype=out_ptr.dtype.element_ty)
-    for start in range(0, N, BLOCK):
-        idx = start + offs
-        mask = idx < N
-        s = tl.load(s_ptr + row * s_stride + idx, mask=mask, other=0.0)
-        u = tl.load(u_ptr + row * u_stride + idx, mask=mask, other=0.0)
-        d = s - u
-        acc += d * d
-    tl.store(out_ptr + row, tl.sqrt(tl.sum(acc, axis=0)))
 
 
 def _combine_body(out_ptr, x0_ptr, x1_ptr, x2_ptr, x3_ptr, c_ptr, so, s0, s1, s2, s3,
@@ -402,7 +385,6 @@ def _jit():
         import triton.language
 
         tl = triton.language
-        _JIT["row_norms"] = triton.jit(_row_norms_body)
         _JIT["combine"] = triton.jit(_combine_body)
         _JIT["theta_rhs"] = triton.jit(_theta_rhs_body)
         _JIT["allen_cahn"] = triton.jit(_allen_cahn_body)
@@ -410,37 +392,6 @@ def _jit():
         _JIT["gray_scott"] = triton.jit(_gray_scott_body)
         _JIT["burgers2d"] = triton.jit(_burgers2d_body)
     return _JIT
-
-
-# ---------------------------------------------------------------------------
-# K3 residual_row_norms
-# ---------------------------------------------------------------------------
-
-
-def residual_row_norms_plain(s, u):
-    """Per-row 2-norm of s - u: (R, N), (R, N) -> (R,)."""
-    return torch.sqrt(torch.sum(torch.square(s - u), dim=1))
-
-
-def residual_row_norms(s, u):
-    """||s_i - u_i||_2 for every row i of two (R, N) row views."""
-    name = "residual_row_norms"
-    _check_operands(name, dict(s=s, u=u))
-    _require(s.dim() == 2 and s.shape == u.shape, name,
-             f"s {tuple(s.shape)} and u {tuple(u.shape)} must be equal (R, N) views")
-    if s.device.type == "cpu":
-        return residual_row_norms_plain(s, u)
-    R, N = s.shape
-    out = torch.empty(R, dtype=s.dtype, device=s.device)
-    if R:
-        with torch.cuda.device(s.device):
-            _jit()["row_norms"][(R,)](s, u, out, N, s.stride(0), u.stride(0),
-                                      BLOCK=_BLOCK, num_warps=4)
-        residual_row_norms.launches += 1
-    return out
-
-
-residual_row_norms.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -24,7 +24,7 @@ import torch
 import pymgrit_tpu as J
 import pymgrit_tpu_torch as P
 from pymgrit_tpu.core import vector as jv
-from pymgrit_tpu_torch.ops import heat_kernels, triton_kernels
+from pymgrit_tpu_torch.ops import heat_kernels, row_norms, triton_kernels
 
 torch.set_num_threads(1)
 
@@ -242,7 +242,7 @@ def test_k3_plain_matches_point_residual_norms():
     """B7: per-C-point 2-norm of Phi(u_{c-1}) - u_c."""
     s, u = _rand(9, NX - 2, NX - 2, seed=9), _rand(9, NX - 2, NX - 2, seed=10)
     ref = jax.vmap(jv.norm)(jv.sub(jnp.asarray(s), jnp.asarray(u)))
-    _close(triton_kernels.residual_row_norms_plain(_t(s).view(9, -1), _t(u).view(9, -1)), ref)
+    _close(row_norms.residual_row_norms_plain(_t(s).view(9, -1), _t(u).view(9, -1)), ref)
 
 
 def test_k4_plain_matches_cpoint_phases():

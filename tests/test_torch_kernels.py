@@ -35,7 +35,7 @@ import torch
 import pymgrit_tpu_torch as P
 from pymgrit_tpu_torch.ops import (DISPATCH, PLAIN, _build, dense_newton, heat_kernels,
                                    launch_counts, periodic, prefix, reset_launch_counts,
-                                   runge_kutta, triton_kernels)
+                                   row_norms, runge_kutta, triton_kernels)
 from pymgrit_tpu_torch.ops.dirichlet_spectral import sine_eigenbasis
 
 torch.set_num_threads(1)
@@ -831,7 +831,7 @@ def test_affine_windows_takes_disjoint_views_of_one_tube():
 def test_triton_wrappers_reject():
     a = torch.zeros((4, N), dtype=torch.float64)
     with pytest.raises(ValueError, match="must be equal"):
-        triton_kernels.residual_row_norms(a, a[:3])
+        row_norms.residual_row_norms(a, a[:3])
     with pytest.raises(ValueError, match="1..4 terms"):
         triton_kernels.cpoint_combine(a, [a] * 5, [1.0] * 5)
     with pytest.raises(ValueError, match="overlaps"):
@@ -839,7 +839,7 @@ def test_triton_wrappers_reject():
         triton_kernels.cpoint_combine(tube[1:5], [tube[0:4]], [1.0])
     with pytest.raises(ValueError, match="unsupported device"):
         m = torch.zeros((4, N), device="meta")
-        triton_kernels.residual_row_norms(m, m)
+        row_norms.residual_row_norms(m, m)
     # interleaved C- and F-rows of one tube do not overlap
     tube = torch.arange(9 * N, dtype=torch.float64).view(9, N)
     triton_kernels.cpoint_combine(tube[2:9:2], [tube[1:9:2]], [1.0])
@@ -1481,10 +1481,16 @@ def _ptxas_entry(mangled, regs, spills, smem=0):
     ("_Z12tile_productIdLb0ELi64ELi8ELi16ELi3ELi2EEvPKdS1_Pdll", "tile",
      "K22 f64 64x8x16x3", (126, 0, 0, 8192)),
     ("_Z13reduce_slicesIdLb1EEvPKdPdll", "tile", "reduce dd", (40, 0, 0, 0)),
+    ("_ZN11sine2d_dmma24sine_solve2d_dmma_kernelILi128EEEvNS_6ParamsE", "k35", "K5 f64 T=128",
+     (128, 0, 0, 0)),
+    ("_ZN12_GLOBAL__N_125residual_row_norms_kernelIfEEvPKT_S3_PS1_lll", "k35", "K3 f32",
+     (32, 0, 0, 64)),
+    ("_ZN11sine2d_dmma12band_productENS_8BandArgsE", "k35", "K5 f64 band", (126, 0, 0, 0)),
 ])
 def test_ptxas_log_parser(mangled, table, label, want):
-    # chip_smoke's [build] line: one parser of the ptxas log for K18 / K21
-    # and for the product tile; entries of other kernels are skipped
+    # chip_smoke's [build] line: one parser of the ptxas log for K1, K18,
+    # K19, K21, for the product tile and for K3 / K5; entries of other
+    # kernels are skipped
     import importlib
     import sys
     from pathlib import Path
@@ -1493,8 +1499,9 @@ def test_ptxas_log_parser(mangled, table, label, want):
     regs, st, ld, sm = want
     log = (_ptxas_entry("_Z15theta_chain_f64PKdS0_Pdl", 40, (8, 8))
            + _ptxas_entry(mangled, regs, (st, ld), sm))
-    name, lab = ((chip_smoke.ROW_NAME, chip_smoke.row_label) if table == "row"
-                 else (chip_smoke.TILE_OR_REDUCE, chip_smoke.tile_label))
+    name, lab = {"row": (chip_smoke.ROW_NAME, chip_smoke.row_label),
+                 "tile": (chip_smoke.TILE_OR_REDUCE, chip_smoke.tile_label),
+                 "k35": (chip_smoke.K3_K5_NAME, chip_smoke.k3_k5_label)}[table]
     assert chip_smoke.ptxas(log, name, lab) == {label: want}
 
 
