@@ -12,18 +12,19 @@ phases:
 
 1. device    the card's name and power limit (nvidia-smi); a CUDA device is
              required, there is no CPU carry-on;
-2. build     nvcc builds the CUDA C++ kernels (K1, K2, K3, K5, K6, K8, K9, K10,
+2. build     nvcc builds the CUDA C++ kernels (K1, K2, K3, K5-K10,
              K12, K16-K26) from ``csrc/``, one process per source,
              all started together; ``cuobjdump`` counts the DMMA instructions
-             of K5's float64 kernels (required in each, with no spills), K22
-             and K26, and ptxas's log gives the registers, spills and
-             static shared memory of K3, K5 and the FP64 product tile K22
-             and K26 share (``csrc/dmma_tile.cuh``);
+             of K5's and K6's float64 kernels (required in each, with no
+             spills, by instantiation), K22 and K26, and ptxas's log gives
+             the registers, spills and static shared memory of K3, K5, K6,
+             K7 (no spills) and the FP64 product tile K22 and K26 share
+             (``csrc/dmma_tile.cuh``);
 3. kernels   K1-K22 against their plain PyTorch versions at the main paths'
              shapes (and odd ones, and K5/K6/K10/K16/K17 past the sizes
              their wrappers once refused), float32 and float64, with
-             timings (K1, K3, K5, K18, K19, K21 in rounds, with their device
-             time on a cold L2); for each kernel's headline case (and each
+             timings (K1, K3, K5, K6, K7, K18, K19, K21 in rounds, with
+             their device time on a cold L2); for each kernel's headline case (and each
              case that records its work) its bound (bytes or FP64 operations over the
              H100's peaks) and, where one PyTorch call computes the same
              function, that call's time; then the double-double K23-K26
@@ -111,13 +112,13 @@ phases 1-3 for the named kernels alone (float64 and float32) and ends in
 ``{"kernels_only": true, ...}``, never the ``"ok"`` of a full run.
 
 ``python3 chip_smoke.py --profile`` runs phases 1-2 and then one profiled
-solve of each configuration of phases 11-13 and of the physical TOMS solve,
-the ragged row, the spatial row, the BDF example, the two DD rows and the
-deep diffusion grid (``torch.profiler``): device busy and idle share, the
-leading device ops, K5's and the row kernels' device time, launches and
-syncs.  It
-compares and checks nothing, so its last line is
-``{"profile": true, ...}`` and never the ``"ok"`` of a checked run.
+solve of each configuration of phases 11-13 and of the spectral and
+physical TOMS solves, the ragged row, the spatial row, the BDF example,
+the two DD rows and the deep diffusion grid (``torch.profiler``): device
+busy and idle share, the leading device ops, the device time of K1, K2,
+K4-K7 and the row kernels, launches and syncs.  It compares and checks
+nothing, so its last line is ``{"profile": true, ...}`` and never the
+``"ok"`` of a checked run.
 
 Each phase prints one line (phase 3 one per case); any failure raises and
 exits non-zero.  The line before the last is the card again; the last line
@@ -493,12 +494,17 @@ def phase_build():
                        for name, (regs, st, ld, _) in ptxas(_build.build_log(), ROW_NAME,
                                                             row_label).items()))
     k35 = ptxas(_build.build_log(), K3_K5_NAME, k3_k5_label)
-    print("[build] K3 / K5 (csrc/residual_row_norms.cu, sine_solve2d.cu on sine2d_dmma.cuh), "
-          "ptxas: " + " ; ".join(f"{name}: {regs} registers, spill stores/loads {st}/{ld} B"
-                                 for name, (regs, st, ld, _) in k35.items()))
-    k5_tiles = [k for k in k35 if k.startswith("K5 f64")]
-    check(len(k5_tiles) == 5 and all(k35[k][1] == 0 and k35[k][2] == 0 for k in k5_tiles),
-          f"build: K5's five f64 DMMA kernels must compile without spills: {k35}")
+    print("[build] K3 / K5 / K6 / K7 (csrc/residual_row_norms.cu, sine_solve2d.cu and "
+          "sine_affine2d.cu on sine2d_dmma.cuh, theta_rhs2d.cu), ptxas: "
+          + " ; ".join(f"{name}: {regs} registers, spill stores/loads {st}/{ld} B"
+                       for name, (regs, st, ld, _) in k35.items()))
+    # K5's five f64 kernels (one-tile T = 16-128, band), K6's five (one-tile
+    # T = 16-128, the split band store) and K7's six (f64 / f32 x three modes)
+    want = {"K5 f64": 5, "K6 f64": 5, "K7": 6}
+    for prefix, n in want.items():
+        ks = [k for k in k35 if k.startswith(prefix)]
+        check(len(ks) == n and all(k35[k][1] == 0 and k35[k][2] == 0 for k in ks),
+              f"build: {n} {prefix} kernels must compile without spills: {k35}")
     print("[build] product tile (csrc/dmma_tile.cuh), ptxas: " + " ; ".join(
         f"{name}: {regs} registers, spill stores/loads {st}/{ld} B, static smem {sm} B"
         for name, (regs, st, ld, sm) in ptxas(_build.build_log(), TILE_OR_REDUCE,
@@ -518,14 +524,16 @@ def phase_build():
             key = tile_owner(fn)
             dmma[key] = dmma.get(key, 0) + 1
         hmma += "HMMA" in ln
-    print(f"[build] cuobjdump -sass: DMMA instructions by kernel {dmma} (K5's f64 kernels: "
-          f"one-tile by side, band past 128; K22 f64, K26 DD products), {hmma} HMMA (TF32 and "
-          f"half precision: none expected)")
+    print(f"[build] cuobjdump -sass: DMMA instructions by kernel {dmma} (K5's and K6's f64 "
+          f"kernels: one-tile by side, band past 128 (K5's, which K6's first product shares; "
+          f"K6's split last product); K22 f64, K26 DD products), {hmma} HMMA (TF32 and half "
+          f"precision: none expected)")
     k5_dmma = [k for k in dmma if k.startswith("sine_solve2d")]
+    k6_dmma = [k for k in dmma if k.startswith("sine_affine2d")]
     check(dmma.get("eig_step", 0) > 0 and dmma.get("dd_matmul", 0) > 0 and len(k5_dmma) == 5
-          and all(dmma[k] > 0 for k in k5_dmma) and hmma == 0,
-          f"build: DMMA {dmma} (K5's five f64 kernels, K22 and K26 must have some) and "
-          f"{hmma} HMMA in the SASS")
+          and len(k6_dmma) == 5 and all(dmma[k] > 0 for k in k5_dmma + k6_dmma) and hmma == 0,
+          f"build: DMMA {dmma} (each of K5's and K6's five f64 kernels, K22 and K26 must have "
+          f"some) and {hmma} HMMA in the SASS")
 
 
 # tile_product<E, pair, BM, BN, BK, stages, min blocks> as mangled by nvcc
@@ -534,28 +542,40 @@ TILE_NAME = re.compile(r"tile_productI([df])Lb([01])ELi(\d+)ELi(\d+)ELi(\d+)ELi(
 
 def tile_owner(fn):
     """The kernel a SASS function belongs to: the product tile's float64
-    instantiations are K22's, its double-double ones K26's; K5's float64
-    kernels by their tile side (and its band kernel past 128)."""
-    k5 = K3_K5_NAME.search(fn)
-    if k5 is not None and k5.group(3) is None:
-        return f"sine_solve2d T={k5.group(1)}" if k5.group(1) else "sine_solve2d band"
+    instantiations are K22's, its double-double ones K26's; K5's and K6's
+    float64 kernels by their tile side, the band kernel past 128 by its
+    store (K5's, whose products K6's first one shares; K6's split store)."""
+    k = K3_K5_NAME.search(fn)
+    if k is not None and k.group(2) is not None:
+        return f"{k.group(1)} T={k.group(2)}"
+    if k is not None and k.group(3) is not None:
+        return "sine_affine2d band split" if k.group(4) == "1" else "sine_solve2d band"
     m = TILE_NAME.search(fn)
     if m is None:
         return fn
     return "dd_matmul" if m.group(2) == "1" else "eig_step"
 
 
-# sine_solve2d_dmma_kernel<T> (K5 float64, tile side T) / band_product (K5
-# float64 past 128) / residual_row_norms_kernel<T> (K3)
-K3_K5_NAME = re.compile(r"sine_solve2d_dmma_kernelILi(\d+)E|(band)_product|"
-                        r"residual_row_norms_kernelI([df])E")
+# sine_solve2d_dmma_kernel<T> (K5 float64, tile side T) /
+# sine_affine2d_dmma_kernel<T> (K6 float64) / band_product<SPLIT> (past 128:
+# K5's four products and K6's first, SPLIT = 0; K6's last, SPLIT = 1) /
+# residual_row_norms_kernel<T> (K3) / theta_rhs2d_kernel<T, MODE> (K7)
+# (a build before the split store named the band kernel without a template
+# argument: K5's)
+K3_K5_NAME = re.compile(r"(sine_solve2d|sine_affine2d)_dmma_kernelILi(\d+)E|"
+                        r"(band)_product(?:ILb([01])E)?|residual_row_norms_kernelI([df])E|"
+                        r"theta_rhs2d_kernelI([df])Li(\d)E")
 
 
 def k3_k5_label(m, ln):
-    side, band, e = m.groups()
+    name, side, band, split, e3, e7, mode = m.groups()
+    if side is not None:
+        return f"{'K5' if name == 'sine_solve2d' else 'K6'} f64 T={side}"
     if band is not None:
-        return "K5 f64 band"
-    return f"K5 f64 T={side}" if side is not None else f"K3 {'f64' if e == 'd' else 'f32'}"
+        return "K6 f64 band split" if split == "1" else "K5 f64 band"
+    if e3 is not None:
+        return f"K3 {'f64' if e3 == 'd' else 'f32'}"
+    return f"K7 {'f64' if e7 == 'd' else 'f32'} {('BE', 'CN', 'FE')[int(mode)]}"
 
 
 # restrict_combine_kernel<T, DIM, NT, NA> / indexed_combine_kernel<T, NT> /
@@ -854,44 +874,68 @@ def kernel_cases(dtype, dev, stash):
                   ("work", "residual_row_norms", "C-rows"): headline_work("residual_row_norms",
                                                                           stash)})
 
+    # K6 sine_affine2d (each call writes into a tensor made outside the
+    # timed call): the condensed C-step (BE and CN) and the 16384-row
+    # materialization of the level-0 tube; spatial65's level-0 C-step
+    # (K6_SMALL)
     xhat, dhat = (t(rng.uniform(-1, 1, (J, N))) for _ in range(2))
     dscale = t(rng.uniform(0, 1e-4, N))
     for T in (m0 - 1, m0):
         A, G = t(rng.uniform(0, 1, (T, N))), t(rng.uniform(-1, 1, (T, N)))
         if T == m0:
-            def c_step(k, A=A, G=G, cn=False):
-                out = torch.empty((1, J, nx, nx), dtype=dtype, device=dev)
+            def c_step(k, out, A=A, G=G, cn=False):
                 k.sine_affine2d(xhat, A, G, out.transpose(0, 1), S, S, m0 - 1, ring,
                                 dhat if cn else None, dscale if cn else None)
                 return out
 
-            cases += [("sine_affine2d", f"C-step J={J} only_last", c_step),
+            def one_row():
+                return torch.empty((1, J, nx, nx), dtype=dtype, device=dev)
+
+            cases += [("sine_affine2d", f"C-step J={J} only_last",
+                       RowCase(one_row, c_step, exact=False)),
                       ("sine_affine2d", f"C-step J={J} only_last CN",
-                       lambda k, f=c_step: f(k, cn=True))]
+                       RowCase(one_row, lambda k, out, f=c_step: f(k, out, cn=True), exact=False))]
+            for cn in (False, True):
+                stash[("work", "sine_affine2d", f"C-step J={J} only_last" + " CN" * cn)] = \
+                    k6_work(J, 1, n, cn)
         else:
-            def materialize_phys(k, A=A, G=G):
-                tube = torch.empty((nt0, nx, nx), dtype=dtype, device=dev)
+            def materialize_phys(k, tube, A=A, G=G):
                 blocks = tube[:J * m0].view(J, m0, nx, nx)
                 k.sine_affine2d(xhat, A, G, blocks[:, 1:], S, S, 0, ring, seed=ptube[:J],
                                 seed_out=blocks[:, 0])
                 tube[nt0 - 1].copy_(ptube[J])
                 return tube
 
-            cases.append(("sine_affine2d", "materialize", materialize_phys))
+            cases.append(("sine_affine2d", "materialize",
+                          RowCase(lambda: torch.empty((nt0, nx, nx), dtype=dtype, device=dev),
+                                  materialize_phys, exact=False)))
+            stash[("work", "sine_affine2d", "materialize")] = headline_work("sine_affine2d", stash)
+    for case, Jk, nk in K6_SMALL:
+        cases.append(("sine_affine2d", case, k6_small(dtype, dev, rng, Jk, nk)))
+        stash[("work", "sine_affine2d", case)] = k6_work(Jk, 1, nk, False)
 
-    def k7(theta, dt):
-        def run(k):
+    # K7 theta_rhs2d: the level-0 batch (512 states) in each mode and the
+    # level-1 batch of the solve's F-steps (32 states, dt of level 1); the
+    # kernel rounds the plain version's operations once each, in its order
+    # (float64: bit for bit; float32: held at the tolerance)
+    def k7(theta, dt, B=J):
+        # the views a call reads, made once outside the timed call
+        u, ra, rb, g = ptube[:B] if theta == 0.0 else ptube[1:B + 1], rows_a[:B], rows_b[:B], pg[:B]
+
+        def launch(k, out):
             if theta == 0.0:
-                out = torch.empty((J, nx, nx), dtype=dtype, device=dev)
-                return k.theta_rhs2d(ptube[:J], out, dt, 0.0, fx, fx, rows_a, rows_b,
-                                     ring=ring, g=pg[:J])
-            out = torch.empty((J, n, n), dtype=dtype, device=dev)
-            return k.theta_rhs2d(ptube[1:], out, dt, theta, fx, fx, rows_a, rows_b, lift=lift2)
-        return run
+                return k.theta_rhs2d(u, out, dt, 0.0, fx, fx, ra, rb, ring=ring, g=g)
+            return k.theta_rhs2d(u, out, dt, theta, fx, fx, ra, rb, lift=lift2)
+        shape = (B, nx, nx) if theta == 0.0 else (B, n, n)
+        return RowCase(lambda: torch.empty(shape, dtype=dtype, device=dev), launch,
+                       exact=dtype == torch.float64)
 
-    cases += [("theta_rhs2d", f"BE B={J}", k7(1.0, dt0)), ("theta_rhs2d", f"CN B={J}", k7(0.5, dt0)),
-              ("theta_rhs2d", f"FE B={J} +g", k7(0.0, dt0)),
-              ("theta_rhs2d", f"CN B={J} dt tensor", k7(0.5, shifts))]
+    for case, theta, dt, B in ((f"BE B={J}", 1.0, dt0, J), (f"CN B={J}", 0.5, dt0, J),
+                               (f"FE B={J} +g", 0.0, dt0, J), (f"CN B={J} dt tensor", 0.5, shifts, J),
+                               (f"level-1 BE B={J1}", 1.0, m0 * dt0, J1),
+                               (f"level-1 CN B={J1}", 0.5, m0 * dt0, J1)):
+        cases.append(("theta_rhs2d", case, k7(theta, dt, B)))
+        stash[("work", "theta_rhs2d", case)] = k7_work(B, n, theta, dt is shifts)
     # one PyTorch call that computes the same function, timed beside K1's
     # and K3's headline cases (no other kernel of the path has one)
     A31, G31 = A_by_T[m0 - 1]
@@ -1658,6 +1702,64 @@ K5_SMALL = (("ragged65 F-step B=514 n=63", 514, 63, "solve"),
             ("spatial65 transform B=1024 n=63", 1024, 63, "transform"))
 
 
+# K6 at spatial65's level-0 C-step (case, intervals, interior side): 1024
+# intervals of a 65^2 grid, the table's last row (only_last), the ring
+K6_SMALL = (("spatial65 C-step J=1024 n=63", 1024, 63),)
+
+
+def k6_work(J, R, n, cn):
+    """(bytes, operations) of a K6 call writing R rows of J intervals of
+    interior side n (with the ring): xhat (and dhat, dscale, the row
+    before) read, R rows of A and G, Sx, Sy and the ring read, the J R
+    states written; two length-n products a state and the prologue's
+    multiply-add (CN: three more operations)."""
+    N, P2 = n * n, (n + 2) ** 2
+    nbytes = 8 * (J * N + 2 * R * N + 2 * N + P2 + J * R * P2)
+    if cn:
+        nbytes += 8 * (J * N + 2 * N)
+    return nbytes, J * R * (4 * n ** 3 + (5 if cn else 2) * N)
+
+
+def k6_small(dtype, dev, rng, J, n):
+    """The K6 case of ``K6_SMALL``: the C-step of J intervals, written into a
+    row-major (1, J) output made outside the timed call."""
+    import torch
+    from pymgrit_tpu_torch.ops.dirichlet_spectral import sine_eigenbasis
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+
+    nx, N = n + 2, n * n
+    S = t(sine_eigenbasis(n, (n + 1.0) ** 2)[0])
+    ring_np = rng.uniform(-1, 1, (nx, nx))
+    ring_np[1:-1, 1:-1] = 0.0
+    ring = t(ring_np)
+    xhat = t(rng.uniform(-1, 1, (J, N)))
+    A, G = t(rng.uniform(0, 1, (4, N))), t(rng.uniform(-1, 1, (4, N)))
+
+    def launch(k, out):
+        k.sine_affine2d(xhat, A, G, out.transpose(0, 1), S, S, 3, ring)
+        return out
+    return RowCase(lambda: torch.empty((1, J, nx, nx), dtype=dtype, device=dev), launch,
+                   exact=False)
+
+
+def k7_work(B, n, theta, dt_tensor):
+    """(bytes, operations) of a K7 call on B states of interior side n, the
+    rhs rows of stride 0 (one row read): the states u (as the call hands
+    them: with their ring), the rows and the lift (BE, CN) or the ring and
+    g (FE) read, the output written (FE: whole states).  Operations a
+    point: BE 5 (as PR 2 counted them), CN 16, FE 13."""
+    N, P2 = n * n, (n + 2) ** 2
+    if theta == 1.0:
+        nbytes, ops = 8 * (B * P2 + 2 * N + B * N), 5 * B * N
+    elif theta > 0.0:
+        nbytes, ops = 8 * (B * P2 + 3 * N + B * N), 16 * B * N
+    else:
+        nbytes, ops = 8 * (B * P2 + N + P2 + 2 * B * P2), 13 * B * N
+    return nbytes + (8 * B if dt_tensor else 0), ops
+
+
 def k5_work(B, n, how):
     """(bytes, operations) of a K5 call on B states of interior side n
     (``K5_SMALL``'s kinds): the states read, Sx, Sy (and lam) read, the ring
@@ -1733,18 +1835,18 @@ def past_cap_cases(dtype, dev, rng, stash):
     xhat = t(rng.uniform(-1, 1, (B, N)))
     A, G = t(rng.uniform(0, 1, (32, N))), t(rng.uniform(-1, 1, (32, N)))
 
-    def k6(ops):
-        out = torch.empty((1, B, n + 2, n + 2), dtype=dtype, device=dev)
+    def k6(ops, out):
         ops.sine_affine2d(xhat, A, G, out.transpose(0, 1), S, S, 31, ring)
         return out
 
     cases += [("sine_solve2d", f"toms257 solve B={B} n={n}",
                RowCase(lambda: torch.empty_like(tube), k5, exact=False)),
-              ("sine_affine2d", f"toms257 C-step J={B} n={n}", k6)]
+              ("sine_affine2d", f"toms257 C-step J={B} n={n}",
+               RowCase(lambda: torch.empty((1, B, n + 2, n + 2), dtype=dtype, device=dev), k6,
+                       exact=False))]
     stash[("work", "sine_solve2d", f"toms257 solve B={B} n={n}")] = (
         8 * (B * N + B * P2 + 3 * N + P2), B * (8 * n ** 3 + 3 * N))
-    stash[("work", "sine_affine2d", f"toms257 C-step J={B} n={n}")] = (
-        8 * (B * N + 2 * N + B * P2 + P2), B * (4 * n ** 3 + 2 * N))
+    stash[("work", "sine_affine2d", f"toms257 C-step J={B} n={n}")] = k6_work(B, 1, n, False)
 
     nh, Bh = 256, 64
     H, lam_h = t(hartley_basis(nh)), t(-periodic_lap_eigs(nh, 1.0 / nh))
@@ -1819,8 +1921,8 @@ def headline_work(kernel, stash):
         return 8 * (J * N + J * P2 + 3 * N + P2), J * (8 * n ** 3 + 3 * N)
     if kernel == "sine_affine2d":          # materialize: T transforms of J states
         return 8 * (J * N + 2 * T * N + 2 * N + J * P2 + J * m0 * P2), J * T * (4 * n ** 3 + 2 * N)
-    if kernel == "theta_rhs2d":            # BE: u + dt r1 + dt lift
-        return 8 * (J * P2 + 2 * N + J * N), 5 * J * N
+    if kernel == "theta_rhs2d":            # BE: u_int + dt r1 + dt lift
+        return k7_work(J, n, 1.0, False)
     if kernel in ("affine_prefix", "affine_windows"):
         nt_h = (TOMS2["nt"] - 1) // TOMS2["ms"][0] + 1
         steps = nt_h - 1 if kernel == "affine_prefix" else sum(min(p, TOMS2_AT_K - 1)
@@ -3606,8 +3708,8 @@ def phase_dd(card):
 
 def profile_cells(card):
     """``--profile``: one profiled kernel-path solve of each cell of the
-    periodic models, the physical TOMS solve, the ragged row, the spatial65
-    row, the BDF example,
+    periodic models, the spectral and physical TOMS solves, the ragged row,
+    the spatial65 row, the BDF example,
     the two DD rows and the deep diffusion grid (after one untimed solve of
     the same configuration), torch.profiler with CPU and CUDA activities:
     the profiled wall, the card's busy time (the kernels' device time
@@ -3649,6 +3751,9 @@ def profile_cells(card):
         ("advection example", advection_example),
         ("advection deep", solver("Advection1D", dict(ADVECTION_DEEP, t_stop=2.0), c=1,
                                   x_start=-1, x_end=1, nx=ADVECTION_DEEP["nx"])),
+        ("spectral toms129", lambda: P.Mgrit(
+            problem=build_problem(P, device=DEVICE, ops=DISPATCH, **TOMS),
+            tol=MAIN_TOL, max_iter=MAIN_MAX_ITER, logging_lvl=30)),
         ("physical toms129", lambda: P.Mgrit(
             problem=build_problem(P, device=DEVICE, ops=DISPATCH, basis="physical", **TOMS),
             tol=MAIN_TOL, max_iter=MAIN_MAX_ITER, logging_lvl=30)),
@@ -3705,19 +3810,26 @@ def profile_cells(card):
         tile = {k: (sum(e.count for e in dev if k in e.key),
                     sum(device_us(e) for e in dev if k in e.key) / 1e3)
                 for k in ("tile_product", "reduce_slices")}
-        # the row kernels' device kernels: K18, K19, K21; K5's (the one-tile
-        # kernels, and the band kernel past 128) with its wrapper's calls
+        # the row kernels' device kernels: K18, K19, K21; K5's and K6's (the
+        # one-tile kernels, K6's coefficient pass and the band kernel past
+        # 128), K7's, and the spectral path's K1, K2 and K4 (Triton's
+        # _combine_body), with their wrappers' calls
         row = {k: (sum(e.count for e in dev if k in e.key),
                    sum(device_us(e) for e in dev if k in e.key) / 1e3)
                for k in ("restrict_combine", "interpolate_combine", "indexed_combine",
-                         "sine_solve2d", "band_product")}
+                         "sine_solve2d", "sine_affine2d", "affine_tile", "band_product",
+                         "theta_rhs", "theta_chain", "interval_affine", "_combine_body")}
         print(f"[profile] {label}: {h.size} iterations, profiled solve {wall * 1e3:.1f} ms, device "
               f"busy {busy:.1f} ms, idle {100 * (1 - busy / (wall * 1e3)):.1f} % | leading device "
               "time " + "; ".join(f"{e.key[:48]} {device_us(e) / 1e3:.2f} ms ({e.count})"
                                   for e in top)
               + "".join(f" | {k} {n} launches {ms:.2f} ms ({ms / n:.4f} ms a launch)"
                         for k, (n, ms) in row.items() if n)
-              + (f" | K5 calls {calls['sine_solve2d']}" if calls["sine_solve2d"] else "")
+              + "".join(f" | {name} calls {calls[key]}"
+                        for name, key in (("K1", "interval_affine"), ("K2", "theta_chain"),
+                                          ("K4", "cpoint_combine"), ("K5", "sine_solve2d"),
+                                          ("K6", "sine_affine2d"), ("K7", "theta_rhs2d"))
+                        if calls[key])
               + f" | host: {launches} kernel launches, {syncs} synchronisations"
               + (f" | product tile: {calls['eig_step']} K22 and {calls['dd_matmul']} K26 calls, "
                  f"{tile['tile_product'][0]} product kernels {tile['tile_product'][1]:.2f} ms, "
@@ -3740,7 +3852,7 @@ REPLACES = {
                      "pymgrit_tpu/models/heat_2d.py:372"),
     "sine_affine2d": ("cuda", "pymgrit_tpu_torch/ops/csrc/sine_affine2d.cu",
                       "pymgrit_tpu/models/heat_2d.py:543"),
-    "theta_rhs2d": ("triton", "pymgrit_tpu_torch/ops/triton_kernels.py",
+    "theta_rhs2d": ("cuda", "pymgrit_tpu_torch/ops/csrc/theta_rhs2d.cu",
                     "pymgrit_tpu/models/heat_2d.py:382"),
     "affine_prefix": ("cuda", "pymgrit_tpu_torch/ops/csrc/affine_prefix.cu",
                       "pymgrit_tpu/ops/prefix.py:41"),

@@ -10,8 +10,9 @@ coarsening, Diffusion2D, and the double-double precision mode:
   ``row_norms``)
 * K4 ``cpoint_combine`` (Triton)
 * K5 ``sine_solve2d`` (CUDA C++, ``csrc/sine_solve2d.cu``)
-* K6 ``sine_affine2d`` (CUDA C++, ``csrc/sine_affine2d.cu``)
-* K7 ``theta_rhs2d`` (Triton)
+* K6 ``sine_affine2d`` (CUDA C++, ``csrc/sine_affine2d.cu``; float64 on the FP64
+  tensor cores, ``csrc/sine2d_dmma.cuh``)
+* K7 ``theta_rhs2d`` (CUDA C++, ``csrc/theta_rhs2d.cu``, wrapper in ``theta_rhs``)
 * K8 ``affine_prefix`` (CUDA C++, ``csrc/affine_prefix.cu``)
 * K9 ``affine_windows`` (CUDA C++, ``csrc/affine_windows.cu``)
 * K10 ``periodic_solve2d`` (CUDA C++, ``csrc/periodic_solve2d.cu``)
@@ -64,7 +65,7 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 from pymgrit_tpu_torch.ops import (dd, dd_matmul, dense_newton, eig_step, heat_kernels, indexed,
-                                   periodic, prefix, row_norms, runge_kutta, transfer,
+                                   periodic, prefix, row_norms, runge_kutta, theta_rhs, transfer,
                                    triton_kernels)
 
 
@@ -100,7 +101,7 @@ class Ops(NamedTuple):
 DISPATCH = Ops(heat_kernels.interval_affine, heat_kernels.theta_chain,
                row_norms.residual_row_norms, triton_kernels.cpoint_combine,
                heat_kernels.sine_solve2d, heat_kernels.sine_affine2d,
-               triton_kernels.theta_rhs2d, prefix.affine_prefix, prefix.affine_windows,
+               theta_rhs.theta_rhs2d, prefix.affine_prefix, prefix.affine_windows,
                periodic.periodic_solve2d, triton_kernels.allen_cahn_pointwise,
                runge_kutta.dopri45_arenstorf, triton_kernels.rk4_brusselator,
                triton_kernels.gray_scott_pointwise, triton_kernels.burgers2d_pointwise,
@@ -112,7 +113,7 @@ DISPATCH = Ops(heat_kernels.interval_affine, heat_kernels.theta_chain,
 PLAIN = Ops(heat_kernels.interval_affine_plain, heat_kernels.theta_chain_plain,
             row_norms.residual_row_norms_plain, triton_kernels.cpoint_combine_plain,
             heat_kernels.sine_solve2d_plain, heat_kernels.sine_affine2d_plain,
-            triton_kernels.theta_rhs2d_plain, prefix.affine_prefix_plain,
+            theta_rhs.theta_rhs2d_plain, prefix.affine_prefix_plain,
             prefix.affine_windows_plain, periodic.periodic_solve2d_plain,
             triton_kernels.allen_cahn_pointwise_plain, runge_kutta.dopri45_arenstorf_plain,
             triton_kernels.rk4_brusselator_plain, triton_kernels.gray_scott_pointwise_plain,

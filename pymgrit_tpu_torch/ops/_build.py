@@ -1,6 +1,6 @@
 """Build and load the CUDA C++ kernels (K1 interval_affine, K2 theta_chain,
-K3 residual_row_norms, K5 sine_solve2d, K6 sine_affine2d, K8
-affine_prefix, K9 affine_windows, K10 periodic_solve2d, K12
+K3 residual_row_norms, K5 sine_solve2d, K6 sine_affine2d, K7 theta_rhs2d,
+K8 affine_prefix, K9 affine_windows, K10 periodic_solve2d, K12
 dopri45_arenstorf, K16 burgers1d_newton, K17 circulant_solve1d, K18
 restrict_combine, K19 interpolate_combine, K20 sine_solve1d, K21
 indexed_combine, K22 eig_step, K23 dd_interval_affine, K24 dd_theta_chain,
@@ -39,8 +39,10 @@ _SIGNATURES = {
                        _D, _I, _I, _I, _P],
     # the packed argument array, the scalar shift, the stream
     "pm_sine_solve2d": [_P, _D, _P],
-    "pm_sine_affine2d": [_P, _I, _P, _P, _I, _I, _I, _P, _I, _P, _P, _I, _I, _I, _P, _I,
-                         _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
+    # the packed argument array, the stream
+    "pm_sine_affine2d": [_P, _P],
+    # the packed argument array, dt, theta, fx, fy, the stream
+    "pm_theta_rhs2d": [_P, _D, _D, _D, _D, _P],
     "pm_affine_prefix": [_P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _P],
     "pm_affine_windows": [_P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P],
     "pm_periodic_solve2d": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _D, _D,

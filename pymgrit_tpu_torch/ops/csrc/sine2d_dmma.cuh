@@ -1,8 +1,13 @@
-// The float64 one-tile core of K5 sine_solve2d on Hopper's FP64 tensor
-// cores: the two-sided products Sx X Sy of (r x c) interior states with
-// r, c <= 128, each state held in shared memory by one block from its load
-// to its store (float32 keeps the FFMA core of sine2d.cuh: the tensor
-// cores have no full-float32 product, and TF32 is not used).
+// The float64 core of K5 sine_solve2d and K6 sine_affine2d on Hopper's
+// FP64 tensor cores: the two-sided products Sx X Sy of (r x c) interior
+// states with r, c <= 128, each state held in shared memory by one block
+// from its load to its store (float32 keeps the FFMA core of sine2d.cuh:
+// the tensor cores have no full-float32 product, and TF32 is not used).
+// One kernel body (one_tile) serves both: what it loads into the tiles and
+// how it stores them are compile-time policies (K5's SolveIO below: the
+// states by cp.async, the solve's divide, the ring and g; K6's AffineIO in
+// sine_affine2d.cu: the closed-form coefficient tile formed in place, the
+// (interval, row) output address and the seed copy).
 //
 // Layout.  A state lives in a T x T tile of shared memory, T the side
 // rounded up to 16, 32, 64 or 128, with leading dimension T + 4 (as
@@ -39,7 +44,8 @@
 // division a copy was a large share of what remained.
 //
 // Sides past 128 (band_product below) stream the state too: one product a
-// launch, through device memory.
+// launch, through device memory (K6's last one writes at the (interval,
+// row) address with the ring).
 
 #pragma once
 
@@ -113,34 +119,39 @@ __device__ __forceinline__ void copy_slab(double* slot, const double* __restrict
   }
 }
 
-template <int T>
-__global__ void __launch_bounds__(Cfg<T>::kThreads, Cfg<T>::kMinBlocks)
-    sine_solve2d_dmma_kernel(const Params p) {
+// The one-tile kernel's body, on what its caller loads and stores around
+// the products (IO: SolveIO below for K5; K6's AffineIO in
+// sine_affine2d.cu).  IO gives, at compile time:
+// * kSolve: four products with the divide (when p.lam is given), else the
+//   transform's two;
+// * kAsyncLoad: the states come in by cp.async in the first copy group,
+//   ahead of the basis (K5), else IO::load forms them with plain loads
+//   after the basis's first slabs are in flight (K6's prologue);
+// * load<T>(p, tiles, z0): the block's SPB states into their tiles, zeros
+//   outside r x c and for states past B;
+// * store<T>(p, tiles, z0, warp, lane): the results out of the tiles.
+// Every name the body reads from p (B, Sx, Sy, r, c, cx, cy, and lam,
+// shift, shift0 for a solve) is a field of IO::Params.
+template <int T, class IO>
+__device__ __forceinline__ void one_tile(const typename IO::Params& p) {
   using C = Cfg<T>;
   constexpr int LD = C::LD, WT = C::WT, FM = WT / 16, FN = WT / 8, KT = C::KT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   double* tiles = reinterpret_cast<double*>(smem_raw);  // SPB x T x LD
   double* ring = tiles + C::SPB * T * LD;               // kStages x kBK x LD
-  const int nprod = p.lam != nullptr ? 4 : 2;
+  int nprod = 2;
+  if constexpr (IO::kSolve) nprod = p.lam != nullptr ? 4 : 2;
   const int items = nprod * KT;
   const int64_t z0 = (int64_t)blockIdx.x * C::SPB;
 
-  // the states (zeros outside r x c, and for states past B), then the
-  // first slabs of the basis: products alternate Sy (even) and Sx (odd)
-  for (int i = threadIdx.x; i < C::SPB * T * T; i += C::kThreads) {
-    const int st = i / (T * T);
-    const int rem = i - st * T * T;
-    const int row = rem / T, col = rem % T;
-    const int64_t z = z0 + st;
-    const bool ok = z < p.B && row < p.r && col < p.c;
-    pm_tile::cp_async(tiles + (st * T + row) * LD + col,
-                      ok ? p.b + z * p.b_sb + row * p.b_sr + col : p.b, 8, ok ? 8 : 0);
-  }
+  // the states, then the first slabs of the basis: products alternate Sy
+  // (even) and Sx (odd)
+  if constexpr (IO::kAsyncLoad) IO::template load<T>(p, tiles, z0);
   auto load = [&](int q) {
     const int prod = q / KT;
     double* slot = ring + (q % kStages) * kBK * LD;
     const double* S = prod & 1 ? p.Sx : p.Sy;
-    const int n = prod & 1 ? p.r : p.c;
+    const int n = (int)(prod & 1 ? p.r : p.c);
     if ((prod & 1 ? p.cx : p.cy) == 2)
       copy_slab<T, 2>(slot, S, n, q - prod * KT);
     else
@@ -151,6 +162,8 @@ __global__ void __launch_bounds__(Cfg<T>::kThreads, Cfg<T>::kMinBlocks)
     if (s < items) load(s);
     pm_tile::cp_async_commit();
   }
+  // (plain stores into the tiles: the loop's first barrier publishes them)
+  if constexpr (!IO::kAsyncLoad) IO::template load<T>(p, tiles, z0);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
@@ -158,8 +171,11 @@ __global__ void __launch_bounds__(Cfg<T>::kThreads, Cfg<T>::kMinBlocks)
   const int wb = warp - st * C::TPS;
   const int m0 = (wb / (T / WT)) * WT, n0 = (wb % (T / WT)) * WT;
   double* M = tiles + st * T * LD;
-  const int64_t z = z0 + st;
-  const double sh = p.shift != nullptr && z < p.B ? p.shift[z] : p.shift0;
+  double sh = 0.0;
+  if constexpr (IO::kSolve) {
+    const int64_t z = z0 + st;
+    sh = p.shift != nullptr && z < p.B ? p.shift[z] : p.shift0;
+  }
 
   double acc[FM][FN][4];
 #pragma unroll
@@ -200,7 +216,8 @@ __global__ void __launch_bounds__(Cfg<T>::kThreads, Cfg<T>::kMinBlocks)
       // divided by 1 + shift Lam: element (m, n) of (Sx X Sy)^T is (n, m)
       // of Sx X Sy), and start the next from zero
       __syncthreads();
-      const bool divide = p.lam != nullptr && q / KT == 1;
+      bool divide = false;
+      if constexpr (IO::kSolve) divide = p.lam != nullptr && q / KT == 1;
 #pragma unroll
       for (int i = 0; i < FM; ++i)
 #pragma unroll
@@ -210,8 +227,10 @@ __global__ void __launch_bounds__(Cfg<T>::kThreads, Cfg<T>::kMinBlocks)
             const int m = m0 + 16 * i + 8 * (h >> 1) + g;
             const int n = n0 + 8 * j + 2 * t + (h & 1);
             double v = acc[i][j][h];
-            if (divide && m < p.c && n < p.r)
-              v = v / __dadd_rn(1.0, __dmul_rn(sh, p.lam[n * p.c + m]));
+            if constexpr (IO::kSolve) {
+              if (divide && m < p.c && n < p.r)
+                v = v / __dadd_rn(1.0, __dmul_rn(sh, p.lam[n * p.c + m]));
+            }
             M[n * LD + m] = v;
             acc[i][j][h] = 0.0;
           }
@@ -219,38 +238,74 @@ __global__ void __launch_bounds__(Cfg<T>::kThreads, Cfg<T>::kMinBlocks)
   }
   pm_tile::cp_async_wait<0>();
   __syncthreads();
+  IO::template store<T>(p, tiles, z0, warp, lane);
+}
+
+// K5's loads and stores: the states b by cp.async; the results into out
+// with the ring and g.
+struct SolveIO {
+  using Params = sine2d_dmma::Params;
+  static constexpr bool kSolve = true, kAsyncLoad = true;
+
+  template <int T>
+  static __device__ __forceinline__ void load(const Params& p, double* tiles, int64_t z0) {
+    using C = Cfg<T>;
+    constexpr int LD = C::LD;
+    for (int i = threadIdx.x; i < C::SPB * T * T; i += C::kThreads) {
+      const int st = i / (T * T);
+      const int rem = i - st * T * T;
+      const int row = rem / T, col = rem % T;
+      const int64_t z = z0 + st;
+      const bool ok = z < p.B && row < p.r && col < p.c;
+      pm_tile::cp_async(tiles + (st * T + row) * LD + col,
+                        ok ? p.b + z * p.b_sb + row * p.b_sr + col : p.b, 8, ok ? 8 : 0);
+    }
+  }
 
   // the states' (r x c) results into out, with the ring and g: a warp a
   // row, a lane a column (coalesced, no division)
-  const bool has_ring = p.ring != nullptr;
-  const int P = has_ring ? p.r + 2 : p.r;
-  const int Q = has_ring ? p.c + 2 : p.c;
-  const int off = has_ring ? 1 : 0;
-  for (int s = 0; s < C::SPB; ++s) {
-    const int64_t zs = z0 + s;
-    if (zs >= p.B) break;
-    const double* tile = tiles + s * T * LD;
-    double* o = p.out + zs * p.o_sb;
-    const double* gs = p.g != nullptr ? p.g + zs * p.g_sb : nullptr;
-    for (int row = warp; row < P; row += C::kWarps) {
-      const int ii = row - off;
-      const bool inner_row = ii >= 0 && ii < p.r;
-      for (int col = lane; col < Q; col += 32) {
-        const int jj = col - off;
-        double v = inner_row && jj >= 0 && jj < p.c ? tile[ii * LD + jj] : p.ring[row * Q + col];
-        if (gs != nullptr) v = gs[row * p.g_sr + col] + v;
-        o[row * p.o_sr + col] = v;
+  template <int T>
+  static __device__ __forceinline__ void store(const Params& p, const double* tiles, int64_t z0,
+                                               int warp, int lane) {
+    using C = Cfg<T>;
+    constexpr int LD = C::LD;
+    const bool has_ring = p.ring != nullptr;
+    const int P = has_ring ? p.r + 2 : p.r;
+    const int Q = has_ring ? p.c + 2 : p.c;
+    const int off = has_ring ? 1 : 0;
+    for (int s = 0; s < C::SPB; ++s) {
+      const int64_t zs = z0 + s;
+      if (zs >= p.B) break;
+      const double* tile = tiles + s * T * LD;
+      double* o = p.out + zs * p.o_sb;
+      const double* gs = p.g != nullptr ? p.g + zs * p.g_sb : nullptr;
+      for (int row = warp; row < P; row += C::kWarps) {
+        const int ii = row - off;
+        const bool inner_row = ii >= 0 && ii < p.r;
+        for (int col = lane; col < Q; col += 32) {
+          const int jj = col - off;
+          double v =
+              inner_row && jj >= 0 && jj < p.c ? tile[ii * LD + jj] : p.ring[row * Q + col];
+          if (gs != nullptr) v = gs[row * p.g_sr + col] + v;
+          o[row * p.o_sr + col] = v;
+        }
       }
     }
   }
+};
+
+template <int T>
+__global__ void __launch_bounds__(Cfg<T>::kThreads, Cfg<T>::kMinBlocks)
+    sine_solve2d_dmma_kernel(const Params p) {
+  one_tile<T, SolveIO>(p);
 }
 
-// Launch the one-tile kernel of side T for every state (r, c <= T).
-template <int T>
-cudaError_t run(const Params& p, cudaStream_t stream) {
+// Launch a one-tile kernel of side T on every state (r, c <= T); P holds B.
+template <int T, class P>
+cudaError_t run(void (*kernel)(P), const P& p, cudaStream_t stream) {
   using C = Cfg<T>;
-  auto kernel = sine_solve2d_dmma_kernel<T>;
-  // opt in to the ring and tiles' shared memory once a device
+  // opt in to the ring and tiles' shared memory once a device (a static
+  // flag for each instantiation: each kernel and side)
   static bool given[32] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -268,13 +323,13 @@ cudaError_t run(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The side's tile: 16, 32, 64 or 128 (r, c <= 128).
+// K5: the side's tile, 16, 32, 64 or 128 (r, c <= 128).
 inline cudaError_t solve(const Params& p, cudaStream_t stream) {
   const int n = p.r > p.c ? p.r : p.c;
-  if (n <= 16) return run<16>(p, stream);
-  if (n <= 32) return run<32>(p, stream);
-  if (n <= 64) return run<64>(p, stream);
-  return run<128>(p, stream);
+  if (n <= 16) return run<16>(sine_solve2d_dmma_kernel<16>, p, stream);
+  if (n <= 32) return run<32>(sine_solve2d_dmma_kernel<32>, p, stream);
+  if (n <= 64) return run<64>(sine_solve2d_dmma_kernel<64>, p, stream);
+  return run<128>(sine_solve2d_dmma_kernel<128>, p, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -285,7 +340,12 @@ inline cudaError_t solve(const Params& p, cudaStream_t stream) {
 // rows at s_ld) and writes it transposed, dst_z[n][m] = (A_z S)[m][n]
 // (divided by 1 + shift_z Lam[n][m] after the second product of a solve;
 // plus g at the same place after the last), so that four launches chain as
-// the one-tile kernel's four products do.  A block of 16 warps owns a
+// the one-tile kernel's four products do.  With SPLIT (K6's last product)
+// the chunk's flat state index b0 + z is split into (interval j, table row
+// rr) = divmod(b0 + z, D), the output state at dst + j d_hi + rr d_lo, and
+// the blocks of the state's first 64 x 256 block also write its Dirichlet
+// ring from the template field ring ((N + 2) x (R + 2), the state's rows at
+// d_sr, its interior at (1, 1)) when one is given.  A block of 16 warps owns a
 // 64 x 256 block of one state's product (a warp 32 x 32, the one-tile
 // kernel's fragments) and walks K in slabs of kBK through a ring of
 // kBandStages slots holding a slab of A (64 x kBK) and one of S (kBK x 256):
@@ -302,8 +362,10 @@ struct BandArgs {
   int64_t a_sb, a_sr;
   const double* s;            // S[k][n] = s[k s_ld + n]
   int64_t s_ld;
-  double* dst;                // dst[z d_sb + n d_sr + m]
+  double* dst;                // dst[z d_sb + n d_sr + m] (SPLIT: see band_product)
   int64_t d_sb, d_sr;
+  int64_t b0, D, d_hi, d_lo;  // SPLIT: the chunk's first state, rows an interval, strides
+  const double* ring;         // SPLIT: the ring template, or null
   const double* g;            // plus g[z g_sb + n g_sr + m], or null
   int64_t g_sb, g_sr;
   const double* lam;          // divide by 1 + sh lam[n lam_ld + m], or null
@@ -343,6 +405,7 @@ __device__ __forceinline__ void band_copy_s(double* ss, const BandArgs& p, int n
   }
 }
 
+template <bool SPLIT>
 __global__ void __launch_bounds__(kBandThreads, 1) band_product(const BandArgs p) {
   constexpr int FM = 2, FN = 4;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -402,6 +465,11 @@ __global__ void __launch_bounds__(kBandThreads, 1) band_product(const BandArgs p
   }
   pm_tile::cp_async_wait<0>();
   const double sh = p.shift != nullptr ? p.shift[z] : p.shift0;
+  double* dst = p.dst + z * p.d_sb;
+  if constexpr (SPLIT) {
+    const int64_t zg = p.b0 + z, j = zg / p.D;
+    dst = p.dst + j * p.d_hi + (zg - j * p.D) * p.d_lo;
+  }
 #pragma unroll
   for (int i = 0; i < FM; ++i)
 #pragma unroll
@@ -414,29 +482,49 @@ __global__ void __launch_bounds__(kBandThreads, 1) band_product(const BandArgs p
         double v = acc[i][j][h];
         if (p.lam != nullptr) v = v / __dadd_rn(1.0, __dmul_rn(sh, p.lam[n * p.lam_ld + m]));
         if (p.g != nullptr) v = p.g[z * p.g_sb + n * p.g_sr + m] + v;
-        p.dst[z * p.d_sb + n * p.d_sr + m] = v;
+        dst[n * p.d_sr + m] = v;
       }
+  if constexpr (SPLIT) {
+    if (p.ring != nullptr && blockIdx.x == 0 && blockIdx.z == 0) {
+      // the ring: rows 0 and P - 1 whole, then columns 0 and Q - 1
+      const int P = p.N + 2, Q = p.R + 2;
+      double* full = dst - p.d_sr - 1;
+      for (int i = threadIdx.x; i < 2 * Q + 2 * (P - 2); i += kBandThreads) {
+        int row, col;
+        if (i < 2 * Q) {
+          row = i < Q ? 0 : P - 1;
+          col = i < Q ? i : i - Q;
+        } else {
+          row = 1 + ((i - 2 * Q) >> 1);
+          col = (i & 1) ? Q - 1 : 0;
+        }
+        full[row * p.d_sr + col] = p.ring[row * Q + col];
+      }
+    }
+  }
 }
 
-// One band product over nb states.
-inline cudaError_t band(const BandArgs& p, int64_t nb, cudaStream_t stream) {
+// One band product over nb states (SPLIT: K6's last product, see
+// band_product).
+template <bool SPLIT = false>
+cudaError_t band(const BandArgs& p, int64_t nb, cudaStream_t stream) {
   constexpr size_t smem = sizeof(double) * kBandStages * kBandSlot;
   static bool given[32] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= 32 || !given[dev]) {
-    err = cudaFuncSetAttribute(band_product, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(band_product<SPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(band_product, cudaFuncAttributePreferredSharedMemoryCarveout,
-                                 100);
+      err = cudaFuncSetAttribute(band_product<SPLIT>,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout, 100);
     if (err != cudaSuccess) return err;
     if (dev < 32) given[dev] = true;
   }
   const dim3 grid((unsigned)((p.R + kBandRows - 1) / kBandRows), (unsigned)nb,
                   (unsigned)((p.N + kBandCols - 1) / kBandCols));
-  band_product<<<grid, kBandThreads, smem, stream>>>(p);
+  band_product<SPLIT><<<grid, kBandThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 

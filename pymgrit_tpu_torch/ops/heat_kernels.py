@@ -224,9 +224,8 @@ TILED_CHUNK = 512    # states the tiled paths stage at a time
 
 
 def tiled_workspace(states: int, r: int, c: int, like: torch.Tensor):
-    """(workspace, chunk) of the tiled path of K5, K6 and K10: two buffers
-    of a chunk of (r, c) states; (None, 0) where both sides fit the
-    one-tile core."""
+    """(workspace, chunk) of K10's tiled path: two buffers of a chunk of
+    (r, c) states; (None, 0) where both sides fit the one-tile core."""
     if max(r, c) <= ONE_TILE:
         return None, 0
     chunk = min(states, TILED_CHUNK)
@@ -257,10 +256,6 @@ def sine_solve2d_plain(b, out, Sx, Sy, lam=None, shift=None, ring=None, g=None):
 def _state_facts(name, key, shape, B, P, Q):
     if tuple(shape) != (B, P, Q):
         _require(False, name, f"{key} has shape {tuple(shape)}, expected ({B}, {P}, {Q})")
-
-
-def _state_view(name, key, t, B, P, Q):
-    _state_facts(name, key, t.shape, B, P, Q)
 
 
 # sine_solve2d's operands in the order of its argument array's pointer
@@ -309,7 +304,8 @@ def _solve_checked(facts, present, has_shift):
 
 
 def solve_workspace(dtype, r, c, chunk):
-    """Elements of K5's workspace past the one-tile side (0 within it):
+    """Elements of K5's and K6's workspace past the one-tile side (0 within
+    it):
     float64, copies of Sx and Sy with rows of even length and the band
     products' two buffers of a chunk of states, (c x r) and (r x c) with
     rows of even length (csrc/sine_solve2d.cu ``band_dmma``); float32, the
@@ -383,6 +379,75 @@ def sine_affine2d_plain(xhat, A, G, out, Sx, Sy, r0=0, ring=None, dhat=None, dsc
     return out
 
 
+# sine_affine2d's operands in the order of its argument array's pointer
+# slots 1-11 (csrc/sine_affine2d.cu ``launch``; slot 12 the workspace)
+_AFFINE_KEYS = ("xhat", "A", "G", "out", "Sx", "Sy", "ring", "dhat", "dscale", "seed",
+                "seed_out")
+
+
+@functools.lru_cache(maxsize=1024)
+def _affine_checked(facts, present, r0):
+    """Every check of a K6 call, on the ``fact``s of the operands given
+    (``present``: which of ``_AFFINE_KEYS``) and r0, cached by them;
+    returns (on the CPU, the launch: the argument array without pointers,
+    the launcher, the device index and the workspace's size in elements;
+    None on the CPU or with no states)."""
+    name = "sine_affine2d"
+    keys = [k for k, p in zip(_AFFINE_KEYS, present) if p]
+    _check_facts(name, facts, keys.__getitem__)
+    f = dict(zip(keys, facts))
+    dtype, device, xshape, xstride = f["xhat"]
+    (_, _, sxs, sxt), (_, _, sys_, syt) = f["Sx"], f["Sy"]
+    if not (len(sxs) == 2 and len(sys_) == 2 and sxs[0] == sxs[1] and sys_[0] == sys_[1]
+            and _contiguous(sxs, sxt) and _contiguous(sys_, syt)):
+        _require(False, name, "Sx and Sy must be contiguous square bases")
+    r, c = sxs[0], sys_[0]
+    N = r * c
+    if not (len(xshape) == 2 and xshape[1] == N):
+        _require(False, name, f"xhat has shape {tuple(xshape)}, expected (J, {N})")
+    J = xshape[0]
+    ash, gsh = f["A"][2], f["G"][2]
+    if not (len(ash) == 2 and ash == gsh and ash[1] == N and _contiguous(*f["A"][2:])
+            and _contiguous(*f["G"][2:])):
+        _require(False, name, "A and G must be contiguous (T, N) tables")
+    P, Q = (r + 2, c + 2) if "ring" in f else (r, c)
+    osh, ost = f["out"][2], f["out"][3]
+    if not (len(osh) == 4 and osh[0] == J and tuple(osh[2:]) == (P, Q)):
+        _require(False, name, f"out has shape {tuple(osh)}, expected ({J}, R, {P}, {Q})")
+    R = osh[1]
+    if not (0 <= r0 and r0 + R <= ash[0]):
+        _require(False, name, f"rows {r0}..{r0 + R - 1} outside the {ash[0]}-row table")
+    if "ring" in f and not (tuple(f["ring"][2]) == (P, Q) and _contiguous(*f["ring"][2:])):
+        _require(False, name, f"ring must be a contiguous ({P}, {Q}) field")
+    if ("dhat" in f) != ("dscale" in f):
+        _require(False, name, "dhat and dscale go together")
+    if "dhat" in f and not (tuple(f["dhat"][2]) == (J, N) and tuple(f["dscale"][2]) == (N,)):
+        _require(False, name, f"dhat must be ({J}, {N}) and dscale ({N},)")
+    if ("seed" in f) != ("seed_out" in f):
+        _require(False, name, "seed and seed_out go together")
+    if "seed" in f:
+        _state_facts(name, "seed", f["seed"][2], J, P, Q)
+        _state_facts(name, "seed_out", f["seed_out"][2], J, P, Q)
+    if device.type == "cpu" or J * R == 0:
+        return device.type == "cpu", None
+    chunk = min(J * R, TILED_CHUNK) if max(r, c) > ONE_TILE else 0
+    ds = f["dhat"][3][0] if "dhat" in f else 0
+    ss = f["seed"][3][:2] if "seed" in f else (0, 0)
+    sos = f["seed_out"][3][:2] if "seed" in f else (0, 0)
+    args = affine_pack(device.index, (xstride[0], ds), ost[:3], ss, sos, r0, R, J, r, c, chunk)
+    return False, (args, _launcher("pm_sine_affine2d", dtype), device.index,
+                   solve_workspace(dtype, r, c, chunk))
+
+
+def affine_pack(index, xds, os, ss, sos, r0, R, J, r, c, chunk):
+    """The launcher's int64 argument array (csrc/sine_affine2d.cu
+    ``launch``): device, eleven operand pointers and the workspace's
+    (filled in by each call), xhat's and dhat's interval strides, out's
+    interval, row and state-row strides, seed's and seed_out's interval and
+    state-row strides, r0, R, J, r, c, the workspace's chunk of states."""
+    return array.array("q", (index, *(0,) * 12, *xds, *os, *ss, *sos, r0, R, J, r, c, chunk))
+
+
 def sine_affine2d(xhat, A, G, out, Sx, Sy, r0=0, ring=None, dhat=None, dscale=None,
                   seed=None, seed_out=None):
     """Physical closed-form interval relaxation into ``out``.
@@ -394,61 +459,24 @@ def sine_affine2d(xhat, A, G, out, Sx, Sy, r0=0, ring=None, dhat=None, dscale=No
     CN correction (dhat * dscale) * A[k-1]; seed, seed_out: optional (J, P, Q)
     views, seed_out receives a copy of seed.  Returns out.
     """
-    name = "sine_affine2d"
-    ops = dict(xhat=xhat, A=A, G=G, out=out, Sx=Sx, Sy=Sy)
-    for key, t in dict(ring=ring, dhat=dhat, dscale=dscale, seed=seed,
-                       seed_out=seed_out).items():
-        if t is not None:
-            ops[key] = t
-    _check_operands(name, ops)
-    r, c = Sx.shape[0], Sy.shape[0]
-    N = r * c
-    _require(xhat.dim() == 2 and xhat.shape[1] == N, name,
-             f"xhat has shape {tuple(xhat.shape)}, expected (J, {N})")
-    J = xhat.shape[0]
-    _require(Sx.dim() == 2 and Sy.dim() == 2 and Sx.shape[1] == r and Sy.shape[1] == c
-             and Sx.is_contiguous() and Sy.is_contiguous(), name,
-             "Sx and Sy must be contiguous square bases")
-    _require(A.dim() == 2 and A.shape == G.shape and A.shape[1] == N
-             and A.is_contiguous() and G.is_contiguous(), name,
-             "A and G must be contiguous (T, N) tables")
-    P, Q = (r + 2, c + 2) if ring is not None else (r, c)
-    _require(out.dim() == 4 and out.shape[0] == J and tuple(out.shape[2:]) == (P, Q), name,
-             f"out has shape {tuple(out.shape)}, expected ({J}, R, {P}, {Q})")
-    R = out.shape[1]
-    _require(0 <= r0 and r0 + R <= A.shape[0], name,
-             f"rows {r0}..{r0 + R - 1} outside the {A.shape[0]}-row table")
-    _require(ring is None or (tuple(ring.shape) == (P, Q) and ring.is_contiguous()), name,
-             f"ring must be a contiguous ({P}, {Q}) field")
-    _require((dhat is None) == (dscale is None), name, "dhat and dscale go together")
-    _require(dhat is None or (tuple(dhat.shape) == (J, N) and tuple(dscale.shape) == (N,)),
-             name, f"dhat must be ({J}, {N}) and dscale ({N},)")
-    _require((seed is None) == (seed_out is None), name, "seed and seed_out go together")
-    if seed is not None:
-        _state_view(name, "seed", seed, J, P, Q)
-        _state_view(name, "seed_out", seed_out, J, P, Q)
-    if xhat.device.type == "cpu":
+    ops = (xhat, A, G, out, Sx, Sy, ring, dhat, dscale, seed, seed_out)
+    on_cpu, launch = _affine_checked(tuple(fact(t) for t in ops if t is not None),
+                                     tuple(t is not None for t in ops), r0)
+    if on_cpu:
         return sine_affine2d_plain(xhat, A, G, out, Sx, Sy, r0, ring, dhat, dscale, seed,
                                    seed_out)
-    if J == 0 or R == 0:
+    if launch is None:
         return out
-    ws, chunk = tiled_workspace(J * R, r, c, xhat)
-    fn = _launcher("pm_sine_affine2d", xhat.dtype)
-    stream = torch.cuda.current_stream(xhat.device).cuda_stream
-    status = fn(xhat.data_ptr(), xhat.stride(0), A.data_ptr(), G.data_ptr(), r0, R, J,
-                dhat.data_ptr() if dhat is not None else None,
-                dhat.stride(0) if dhat is not None else 0,
-                dscale.data_ptr() if dscale is not None else None,
-                out.data_ptr(), out.stride(0), out.stride(1), out.stride(2),
-                seed.data_ptr() if seed is not None else None,
-                seed.stride(0) if seed is not None else 0,
-                seed.stride(1) if seed is not None else 0,
-                seed_out.data_ptr() if seed_out is not None else None,
-                seed_out.stride(0) if seed_out is not None else 0,
-                seed_out.stride(1) if seed_out is not None else 0,
-                Sx.data_ptr(), Sy.data_ptr(), ring.data_ptr() if ring is not None else None,
-                ws.data_ptr() if ws is not None else None, chunk, r, c, stream)
-    _build.check(status, name)
+    tmpl, fn, index, ws_size = launch
+    args = tmpl[:]
+    for k, t in enumerate(ops):
+        if t is not None:
+            args[1 + k] = t.data_ptr()
+    ws = None
+    if ws_size:
+        ws = torch.empty(ws_size, dtype=xhat.dtype, device=xhat.device)
+        args[12] = ws.data_ptr()
+    _build.check(fn(args.buffer_info()[0], _build.stream(index)), "sine_affine2d")
     sine_affine2d.launches += 1
     return out
 

@@ -1,10 +1,10 @@
-"""Kernels K4 ``cpoint_combine``, K7 ``theta_rhs2d``, K11
-``allen_cahn_pointwise``, K13 ``rk4_brusselator``, K14
-``gray_scott_pointwise`` and K15 ``burgers2d_pointwise`` (Triton), each
-beside its plain PyTorch version.  (K3 ``residual_row_norms``, K18
-``restrict_combine``, K19 ``interpolate_combine`` and K21
-``indexed_combine`` are CUDA C++: ``csrc/residual_row_norms.cu``,
-``csrc/restrict_combine.cu``, ``csrc/interpolate_combine.cu``,
+"""Kernels K4 ``cpoint_combine``, K11 ``allen_cahn_pointwise``, K13
+``rk4_brusselator``, K14 ``gray_scott_pointwise`` and K15
+``burgers2d_pointwise`` (Triton), each beside its plain PyTorch version.
+(K3 ``residual_row_norms``, K7 ``theta_rhs2d``, K18 ``restrict_combine``,
+K19 ``interpolate_combine`` and K21 ``indexed_combine`` are CUDA C++:
+``csrc/residual_row_norms.cu``, ``csrc/theta_rhs2d.cu`` (wrapper in
+``theta_rhs``), ``csrc/restrict_combine.cu``, ``csrc/interpolate_combine.cu``,
 ``csrc/indexed_combine.cu``.)
 
 K4 replaces the elementwise parts of the C-point phases in
@@ -13,12 +13,7 @@ right-hand side ``g_tail`` (``_fas_residual``) and the coarse-grid
 correction (``_error_correction``).  It is bound by the bytes it reads and
 writes: up to four strided row views read and one written, one program per
 (row, block of N), fused into one pass.
-K7 replaces the stencil part of the physical-basis heat step in
-pymgrit_tpu/models/heat_2d.py (``Heat2D.step`` and ``step_batched``): it
-assembles the right-hand side of the implicit solve (BE, CN), or computes
-the whole explicit step (FE), in one pass over the state: a 5-point stencil
-and elementwise work, bound by the bytes of the state read and written.
-K11, K14 and K15 are the same kind of pass for the periodic nonlinear
+K11, K14 and K15 are stencil passes for the periodic nonlinear
 models (pymgrit_tpu/models/allen_cahn.py, gray_scott_2d.py, burgers.py):
 the Newton residual with its per-lane max, the Jacobian matvec, and
 (K14) the explicit Gray-Scott step; K14 and K15 hold both species of a
@@ -60,58 +55,6 @@ def _combine_body(out_ptr, x0_ptr, x1_ptr, x2_ptr, x3_ptr, c_ptr, so, s0, s1, s2
     if NT > 3:
         acc = acc + tl.load(c_ptr + 3) * tl.load(x3_ptr + row * s3 + idx, mask=mask)
     tl.store(out_ptr + row * so + idx, acc, mask=mask)
-
-
-def _theta_rhs_body(u_ptr, out_ptr, r1_ptr, r0_ptr, lift_ptr, ring_ptr, g_ptr, dt_ptr, c_ptr,
-                    u_sb, u_sr, o_sb, o_sr, r_sb, g_sb, g_sr, P, Q,
-                    MODE: tl.constexpr, HAS_G: tl.constexpr, DT_TENSOR: tl.constexpr,
-                    BLOCK: tl.constexpr):
-    # MODE 0: BE, 1: CN -- out is the (P, Q) interior; 2: FE -- out is the
-    # full (P, Q) state.  u is always the full state.  c_ptr holds
-    # (dt, theta, fx, fy) in the working dtype (a float argument would be
-    # rounded to float32).
-    b = tl.program_id(0).to(tl.int64)
-    idx = tl.program_id(1) * BLOCK + tl.arange(0, BLOCK)
-    mask = idx < P * Q
-    i = idx // Q
-    j = idx - i * Q
-    if DT_TENSOR:
-        d = tl.load(dt_ptr + b)
-    else:
-        d = tl.load(c_ptr)
-    theta = tl.load(c_ptr + 1)
-    fx = tl.load(c_ptr + 2)
-    fy = tl.load(c_ptr + 3)
-    if MODE == 2:
-        inner = mask & (i > 0) & (i < P - 1) & (j > 0) & (j < Q - 1)
-        uc_ptr = u_ptr + b * u_sb + i * u_sr + j
-        uc = tl.load(uc_ptr, mask=mask, other=0.0)
-        lu = (2 * (fx + fy) * uc - fy * tl.load(uc_ptr - 1, mask=inner, other=0.0)
-              - fy * tl.load(uc_ptr + 1, mask=inner, other=0.0)
-              - fx * tl.load(uc_ptr - u_sr, mask=inner, other=0.0)
-              - fx * tl.load(uc_ptr + u_sr, mask=inner, other=0.0))
-        r0 = tl.load(r0_ptr + b * r_sb + (i - 1) * (Q - 2) + (j - 1), mask=inner, other=0.0)
-        ring = tl.load(ring_ptr + idx, mask=mask, other=0.0)
-        # the reference adds the bc data onto the carried ring
-        v = tl.where(inner, (uc - d * lu) + d * r0, ring + uc)
-    else:
-        uc_ptr = u_ptr + b * u_sb + (i + 1) * u_sr + (j + 1)
-        uc = tl.load(uc_ptr, mask=mask, other=0.0)
-        r1 = tl.load(r1_ptr + b * r_sb + idx, mask=mask, other=0.0)
-        lift = tl.load(lift_ptr + idx, mask=mask, other=0.0)
-        shift = d * theta
-        if MODE == 0:
-            v = uc + d * r1 + shift * lift
-        else:
-            lu = (2 * (fx + fy) * uc - fy * tl.load(uc_ptr - 1, mask=mask, other=0.0)
-                  - fy * tl.load(uc_ptr + 1, mask=mask, other=0.0)
-                  - fx * tl.load(uc_ptr - u_sr, mask=mask, other=0.0)
-                  - fx * tl.load(uc_ptr + u_sr, mask=mask, other=0.0))
-            r0 = tl.load(r0_ptr + b * r_sb + idx, mask=mask, other=0.0)
-            v = (uc - shift * lu) + d * (theta * r1 + (1 - theta) * r0) + shift * lift
-    if HAS_G:
-        v = tl.load(g_ptr + b * g_sb + i * g_sr + j, mask=mask, other=0.0) + v
-    tl.store(out_ptr + b * o_sb + i * o_sr + j, v, mask=mask)
 
 
 def _allen_cahn_body(u_ptr, x_ptr, r_ptr, out_ptr, max_ptr, fac_ptr, c_ptr,
@@ -386,7 +329,6 @@ def _jit():
 
         tl = triton.language
         _JIT["combine"] = triton.jit(_combine_body)
-        _JIT["theta_rhs"] = triton.jit(_theta_rhs_body)
         _JIT["allen_cahn"] = triton.jit(_allen_cahn_body)
         _JIT["rk4_brusselator"] = triton.jit(_rk4_brusselator_body)
         _JIT["gray_scott"] = triton.jit(_gray_scott_body)
@@ -473,112 +415,6 @@ def cpoint_combine(out, terms, coeffs):
 
 
 cpoint_combine.launches = 0
-
-
-# ---------------------------------------------------------------------------
-# K7 theta_rhs2d
-# ---------------------------------------------------------------------------
-
-
-def _apply_L_interior(u, fx, fy):
-    """The 5-point operator on the interior rows of full states (..., P, Q)."""
-    return (2 * (fx + fy) * u[..., 1:-1, 1:-1]
-            - fy * u[..., 1:-1, :-2] - fy * u[..., 1:-1, 2:]
-            - fx * u[..., :-2, 1:-1] - fx * u[..., 2:, 1:-1])
-
-
-def theta_rhs2d_plain(u, out, dt, theta, fx, fy, rhs1, rhs0, lift=None, ring=None, g=None):
-    """BE / CN: out = the interior right-hand side of the implicit solve;
-    FE: out = the whole explicit step [+ g] (expression order of
-    ``pymgrit_tpu/models/heat_2d.py`` ``Heat2D.step`` / ``step_batched``)."""
-    B, P, Q = u.shape
-    d = dt if not isinstance(dt, torch.Tensor) else dt.view(B, 1, 1)
-    if theta == 0.0:
-        r0 = rhs0.reshape(B, P - 2, Q - 2)
-        lu = torch.zeros_like(u)
-        lu[:, 1:-1, 1:-1] = _apply_L_interior(u, fx, fy)
-        v = ring + u - d * lu
-        v[:, 1:-1, 1:-1] += d * r0
-    else:
-        u_int = u[:, 1:-1, 1:-1]
-        r1 = rhs1.reshape(B, P - 2, Q - 2)
-        shift = d * theta
-        if theta == 1.0:
-            v = u_int + d * r1 + shift * lift
-        else:
-            r0 = rhs0.reshape(B, P - 2, Q - 2)
-            v = (u_int - shift * _apply_L_interior(u, fx, fy)) \
-                + d * (theta * r1 + (1 - theta) * r0) + shift * lift
-    out.copy_(v if g is None else g + v)
-    return out
-
-
-def theta_rhs2d(u, out, dt, theta, fx, fy, rhs1, rhs0, lift=None, ring=None, g=None):
-    """The stencil pass of one physical theta-step of B states.
-
-    u: (B, P, Q) full states (views, last axis contiguous); theta 1 (BE) or
-    in (0, 1) (CN): out is the (B, P - 2, Q - 2) right-hand side
-    u_int - theta'*dt*(L u)_int + dt*(rhs mix) + theta*dt*lift, with lift the
-    (P - 2, Q - 2) bc coupling; theta 0 (FE): out is the (B, P, Q) step
-    ring + u - dt*L u + dt*rhs0 [+ g], ring the (P, Q) bc field.  rhs1, rhs0:
-    (B, (P - 2)(Q - 2)) row views of the rhs at the step's end and start
-    (batch stride 0 for a time-independent rhs); dt: float or (B,) tensor;
-    g: FE only (BE/CN add g after the solve).  out must not overlap u.
-    Returns out.
-    """
-    name = "theta_rhs2d"
-    fe = float(theta) == 0.0
-    ops = dict(u=u, out=out, rhs1=rhs1, rhs0=rhs0)
-    for key, t in dict(lift=lift, ring=ring, g=g).items():
-        if t is not None:
-            ops[key] = t
-    if isinstance(dt, torch.Tensor):
-        ops["dt"] = dt
-    _check_operands(name, ops)
-    _require(u.dim() == 3, name, f"u has shape {tuple(u.shape)}, expected (B, P, Q)")
-    B, P, Q = u.shape
-    _require(P >= 3 and Q >= 3, name, "states need an interior")
-    shape = (B, P, Q) if fe else (B, P - 2, Q - 2)
-    _require(tuple(out.shape) == shape, name,
-             f"out has shape {tuple(out.shape)}, expected {shape}")
-    _require(g is None or (fe and tuple(g.shape) == shape), name,
-             "g is added to FE steps only, and must have the shape of out")
-    N = (P - 2) * (Q - 2)
-    _require(tuple(rhs1.shape) == (B, N) and rhs0.shape == rhs1.shape
-             and rhs0.stride() == rhs1.stride(), name,
-             f"rhs1 and rhs0 must be ({B}, {N}) views with equal strides")
-    _require(0.0 <= float(theta) <= 1.0, name, "theta must lie in [0, 1]")
-    if fe:
-        _require(ring is not None and tuple(ring.shape) == (P, Q) and ring.is_contiguous(),
-                 name, f"FE needs a contiguous ({P}, {Q}) ring field")
-    else:
-        _require(lift is not None and tuple(lift.shape) == (P - 2, Q - 2)
-                 and lift.is_contiguous(), name,
-                 f"BE/CN need a contiguous ({P - 2}, {Q - 2}) lift")
-    _require(not isinstance(dt, torch.Tensor)
-             or (tuple(dt.shape) == (B,) and dt.is_contiguous()), name,
-             f"a dt tensor must be a contiguous ({B},) vector")
-    if u.device.type == "cpu":
-        return theta_rhs2d_plain(u, out, dt, theta, fx, fy, rhs1, rhs0, lift, ring, g)
-    if B == 0:
-        return out
-    mode = 2 if fe else (0 if float(theta) == 1.0 else 1)
-    dt_t = dt if isinstance(dt, torch.Tensor) else None
-    c = _coefficients((0.0 if dt_t is not None else dt, theta, fx, fy), u.dtype, u.device)
-    grid = (B, -(-(shape[1] * shape[2]) // _BLOCK))
-    with torch.cuda.device(u.device):
-        _jit()["theta_rhs"][grid](
-            u, out, rhs1, rhs0, lift if lift is not None else u, ring if ring is not None else u,
-            g if g is not None else out, dt_t if dt_t is not None else u, c,
-            u.stride(0), u.stride(1), out.stride(0), out.stride(1), rhs1.stride(0),
-            g.stride(0) if g is not None else 0, g.stride(1) if g is not None else 0,
-            shape[1], shape[2], MODE=mode, HAS_G=g is not None, DT_TENSOR=dt_t is not None,
-            BLOCK=_BLOCK, num_warps=4)
-    theta_rhs2d.launches += 1
-    return out
-
-
-theta_rhs2d.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -37,7 +37,7 @@ from pymgrit_tpu.core import vector as jv
 from pymgrit_tpu.ops import dirichlet_spectral as jds
 from pymgrit_tpu_torch.interop import state_from_numpy
 from pymgrit_tpu_torch.ops import dirichlet_spectral as pds
-from pymgrit_tpu_torch.ops import heat_kernels, triton_kernels
+from pymgrit_tpu_torch.ops import heat_kernels, theta_rhs
 
 torch.set_num_threads(1)
 
@@ -342,8 +342,8 @@ def test_k7_plain_matches_step_rhs(method):
             lambda x, r: (hj._set_bc(jnp.zeros((NX, NX))) + x - dt * hj._apply_L(x))
             .at[1:-1, 1:-1].add(dt * r))(jnp.asarray(u), jnp.asarray(r0).reshape(6, NX - 2, NX - 2))
         out = torch.empty((6, NX, NX), dtype=torch.float64)
-        triton_kernels.theta_rhs2d_plain(_t(u), out, dt, 0.0, hp.fx, hp.fy, _t(r1), _t(r0),
-                                         ring=hp._ring, g=_t(g))
+        theta_rhs.theta_rhs2d_plain(_t(u), out, dt, 0.0, hp.fx, hp.fy, _t(r1), _t(r0),
+                                    ring=hp._ring, g=_t(g))
         _close(out, ref)
         return
     ju, shift = jnp.asarray(u), theta * dt
@@ -358,8 +358,8 @@ def test_k7_plain_matches_step_rhs(method):
     b = b.at[:, 0, :].add(shift * hj.fx * hj.bc_top_arr[1:-1])
     b = b.at[:, -1, :].add(shift * hj.fx * hj.bc_bottom_arr[1:-1])
     out = torch.empty((6, NX - 2, NX - 2), dtype=torch.float64)
-    triton_kernels.theta_rhs2d_plain(_t(u), out, dt, theta, hp.fx, hp.fy, _t(r1), _t(r0),
-                                     lift=hp._lift)
+    theta_rhs.theta_rhs2d_plain(_t(u), out, dt, theta, hp.fx, hp.fy, _t(r1), _t(r0),
+                                lift=hp._lift)
     _close(out, b)
 
 

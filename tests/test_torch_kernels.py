@@ -35,7 +35,7 @@ import torch
 import pymgrit_tpu_torch as P
 from pymgrit_tpu_torch.ops import (DISPATCH, PLAIN, _build, dense_newton, heat_kernels,
                                    launch_counts, periodic, prefix, reset_launch_counts,
-                                   row_norms, runge_kutta, triton_kernels)
+                                   row_norms, runge_kutta, theta_rhs, triton_kernels)
 from pymgrit_tpu_torch.ops.dirichlet_spectral import sine_eigenbasis
 
 torch.set_num_threads(1)
@@ -766,7 +766,7 @@ def _k7_args(**over):
 ])
 def test_theta_rhs2d_rejects(over, match):
     with pytest.raises(ValueError, match=match):
-        triton_kernels.theta_rhs2d(**_k7_args(**over))
+        theta_rhs.theta_rhs2d(**_k7_args(**over))
 
 
 def _k8_args(**over):
@@ -1486,11 +1486,19 @@ def _ptxas_entry(mangled, regs, spills, smem=0):
     ("_ZN12_GLOBAL__N_125residual_row_norms_kernelIfEEvPKT_S3_PS1_lll", "k35", "K3 f32",
      (32, 0, 0, 64)),
     ("_ZN11sine2d_dmma12band_productENS_8BandArgsE", "k35", "K5 f64 band", (126, 0, 0, 0)),
+    ("_ZN11sine2d_dmma12band_productILb0EEEvNS_8BandArgsE", "k35", "K5 f64 band",
+     (124, 0, 0, 0)),
+    ("_ZN11sine2d_dmma12band_productILb1EEEvNS_8BandArgsE", "k35", "K6 f64 band split",
+     (124, 0, 0, 0)),
+    ("_ZN12_GLOBAL__N_125sine_affine2d_dmma_kernelILi64EEEvNS_4CallIdEE", "k35",
+     "K6 f64 T=64", (116, 0, 0, 0)),
+    ("_ZN12_GLOBAL__N_118theta_rhs2d_kernelIdLi1EEEvNS_4ArgsIT_EE", "k35", "K7 f64 CN",
+     (66, 0, 0, 0)),
 ])
 def test_ptxas_log_parser(mangled, table, label, want):
     # chip_smoke's [build] line: one parser of the ptxas log for K1, K18,
-    # K19, K21, for the product tile and for K3 / K5; entries of other
-    # kernels are skipped
+    # K19, K21, for the product tile and for K3 / K5 / K6 / K7; entries of
+    # other kernels are skipped
     import importlib
     import sys
     from pathlib import Path
@@ -1503,6 +1511,25 @@ def test_ptxas_log_parser(mangled, table, label, want):
                  "tile": (chip_smoke.TILE_OR_REDUCE, chip_smoke.tile_label),
                  "k35": (chip_smoke.K3_K5_NAME, chip_smoke.k3_k5_label)}[table]
     assert chip_smoke.ptxas(log, name, lab) == {label: want}
+
+
+@pytest.mark.parametrize("mangled,owner", [
+    ("_ZN11sine2d_dmma24sine_solve2d_dmma_kernelILi16EEEvNS_6ParamsE", "sine_solve2d T=16"),
+    ("_ZN12_GLOBAL__N_125sine_affine2d_dmma_kernelILi128EEEvNS_4CallIdEE",
+     "sine_affine2d T=128"),
+    ("_ZN11sine2d_dmma12band_productILb0EEEvNS_8BandArgsE", "sine_solve2d band"),
+    ("_ZN11sine2d_dmma12band_productILb1EEEvNS_8BandArgsE", "sine_affine2d band split"),
+    ("_Z12tile_productIdLb1ELi64ELi64ELi16ELi3ELi1EEvPKdS1_Pdll", "dd_matmul"),
+])
+def test_dmma_owner_by_instantiation(mangled, owner):
+    # chip_smoke's [build] counts DMMA instructions by kernel instantiation:
+    # K5's five and K6's five float64 kernels each need some
+    import importlib
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    chip_smoke = importlib.import_module("chip_smoke")
+    assert chip_smoke.tile_owner(mangled) == owner
 
 
 @pytest.mark.parametrize("wrapper", ["indexed", "restrict", "interpolate"])
