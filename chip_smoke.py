@@ -12,18 +12,18 @@ phases:
 
 1. device    the card's name and power limit (nvidia-smi); a CUDA device is
              required, there is no CPU carry-on;
-2. build     nvcc builds the CUDA C++ kernels (K1, K2, K3, K5-K10,
-             K12, K16-K26) from ``csrc/``, one process per source,
+2. build     nvcc builds the CUDA C++ kernels (K1-K10, K12, K16-K26)
+             from ``csrc/``, one process per source,
              all started together; ``cuobjdump`` counts the DMMA instructions
              of K5's and K6's float64 kernels (required in each, with no
              spills, by instantiation), K22 and K26, and ptxas's log gives
-             the registers, spills and static shared memory of K3, K5, K6,
-             K7 (no spills) and the FP64 product tile K22 and K26 share
+             the registers, spills and static shared memory of K2-K7 (no
+             spills) and the FP64 product tile K22 and K26 share
              (``csrc/dmma_tile.cuh``);
 3. kernels   K1-K22 against their plain PyTorch versions at the main paths'
              shapes (and odd ones, and K5/K6/K10/K16/K17 past the sizes
              their wrappers once refused), float32 and float64, with
-             timings (K1, K3, K5, K6, K7, K18, K19, K21 in rounds, with
+             timings (K1-K7, K18, K19, K21 in rounds, with
              their device time on a cold L2); for each kernel's headline case (and each
              case that records its work) its bound (bytes or FP64 operations over the
              H100's peaks) and, where one PyTorch call computes the same
@@ -162,11 +162,11 @@ AT_SCAN_RTOL = 1e-3
 # tests/core/test_solver_goldens_2.py::test_at_mgrit_golden, at its rtol
 AT_GOLDEN, AT_GOLDEN_RTOL = np.array([0.1767778, 0.01223507]), 1e-3
 
-# Kernel against plain version, normwise: max|k - p| / max|p|.  The kernels
+# Kernel against plain version, normwise: max|k - p| / max|p|.  Kernels that
 # contract a*b + c into one FMA (nvcc's default --fmad=true, Triton's fp
-# fusion) and K3 sums in another order, so they agree with the plain
-# versions to rounding, not bitwise: a few ulp per operation, at most L = 15
-# sequential steps (K2) or a blocked sum of 16129 terms (K3).
+# fusion) or sum in another order (K3) agree with the plain versions to
+# rounding, not bitwise: a few ulp per operation, or a blocked sum of 16129
+# terms (K3).
 KERNEL_RTOL = {"float64": 1e-13, "float32": 1e-5}
 # Small config, CPU plain against GPU kernels: histories to rtol 1e-10, with
 # an atol at the float64 residual floor (FMA moves each residual by ulps).
@@ -498,6 +498,16 @@ def phase_build():
           "sine_affine2d.cu on sine2d_dmma.cuh, theta_rhs2d.cu), ptxas: "
           + " ; ".join(f"{name}: {regs} registers, spill stores/loads {st}/{ld} B"
                        for name, (regs, st, ld, _) in k35.items()))
+    k24 = ptxas(_build.build_log(), K2_K4_NAME, k2_k4_label)
+    print("[build] K2 / K4 (csrc/theta_chain.cu, K4 on K21's row body in indexed_combine.cu), "
+          "ptxas: " + " ; ".join(f"{name}: {regs} registers, spill stores/loads {st}/{ld} B"
+                                 for name, (regs, st, ld, _) in k24.items()))
+    # K2's sixteen kernels (f64 / f32 x BE / CN x g or not x rhs time-independent
+    # or tabulated) and K4's six (f64 / f32 x 1-3 terms)
+    for prefix, n in {"K2": 16, "K4": 6}.items():
+        ks = [k for k in k24 if k.startswith(prefix)]
+        check(len(ks) == n and all(k24[k][1] == 0 and k24[k][2] == 0 for k in ks),
+              f"build: {n} {prefix} kernels must compile without spills: {k24}")
     # K5's five f64 kernels (one-tile T = 16-128, band), K6's five (one-tile
     # T = 16-128, the split band store) and K7's six (f64 / f32 x three modes)
     want = {"K5 f64": 5, "K6 f64": 5, "K7": 6}
@@ -576,6 +586,19 @@ def k3_k5_label(m, ln):
     if e3 is not None:
         return f"K3 {'f64' if e3 == 'd' else 'f32'}"
     return f"K7 {'f64' if e7 == 'd' else 'f32'} {('BE', 'CN', 'FE')[int(mode)]}"
+
+
+# theta_chain_kernel<T, CN, G, TAB> (K2) / cpoint_combine_kernel<T, NT> (K4)
+K2_K4_NAME = re.compile(r"theta_chain_kernelI([df])Lb([01])ELb([01])ELb([01])E"
+                        r"|cpoint_combine_kernelI([df])Li(\d)E")
+
+
+def k2_k4_label(m, ln):
+    e2, cn, g, tab, e4, nt = m.groups()
+    if e2 is not None:
+        return (f"K2 {'f64' if e2 == 'd' else 'f32'} {'CN' if cn == '1' else 'BE'}"
+                f"{' +g' if g == '1' else ''} rhs {'tabulated' if tab == '1' else 'constant'}")
+    return f"K4 {'f64' if e4 == 'd' else 'f32'} terms {nt}"
 
 
 # restrict_combine_kernel<T, DIM, NT, NA> / indexed_combine_kernel<T, NT> /
@@ -779,7 +802,8 @@ def kernel_cases(dtype, dev, stash):
                 "fill_", lambda tube: tube.fill_(0.0), 8 * nt0 * N)
 
     # K2 theta_chain: chains read their seeds from C-rows and write the
-    # F-rows of a level tube (strided views); the rhs is time-independent.
+    # F-rows of a level tube (strided views, into a tube made outside the
+    # timed call: RowCase.prepare); the rhs is time-independent.
     # (J, L, m, theta, g?, dt): level-1 F-relaxation in BE and CN, the
     # coarsest forward solve, a one-step Phi of the level-1 C-rows
     # (C-relaxation, FAS).
@@ -797,41 +821,57 @@ def kernel_cases(dtype, dev, stash):
         g_tube = t(rng.uniform(-1e-3, 1e-3, (nt, N)))
         dt = t(np.full((L, Jc), step))
         rhs1 = rhs_row.expand(L, Jc, N)
+        seeds2 = u_tube[0:nt - 1:m]
+        g = g_tube[1:nt].view(Jc, m, N)[:, :L] if with_g else None
 
-        def chain(k, Jc=Jc, L=L, m=m, theta=theta, with_g=with_g, u_tube=u_tube,
-                  g_tube=g_tube, dt=dt, rhs1=rhs1, nt=nt):
-            out_tube = torch.empty_like(u_tube)
-            out = out_tube[1:nt].view(Jc, m, N)[:, :L]
-            g = g_tube[1:nt].view(Jc, m, N)[:, :L] if with_g else None
-            k.theta_chain(u_tube[0:nt - 1:m], out, dt, lam, lift, rhs1, rhs1, theta, g)
-            return out.clone()
+        # the F-rows of a fresh tube, made outside the timed call
+        def f_rows(Jc=Jc, L=L, m=m, nt=nt):
+            return torch.empty((nt, N), dtype=dtype, device=dev)[1:].view(Jc, m, N)[:, :L]
+
+        def chain(k, out, theta=theta, g=g, seeds2=seeds2, dt=dt, rhs1=rhs1):
+            return k.theta_chain(seeds2, out, dt, lam, lift, rhs1, rhs1, theta, g)
 
         kind = "BE" if theta == 1.0 else "CN"
         label = f"J={Jc} L={L} {kind}{' +g' if with_g else ''}"
         if (Jc, L, theta, with_g) == (J1, m1 - 1, 1.0, True):
             label = "level-1 F-relax " + label
-        cases.append(("theta_chain", label, chain))
+        cases.append(("theta_chain", label, RowCase(f_rows, chain)))
+        if label.startswith("level-1"):
+            # the read-write yardstick: copy_ of g into the same rows (the
+            # bytes K2 moves, without its steps), which the port never calls
+            stash[("probe", "theta_chain", label)] = (
+                "copy_ of g", lambda out, g=g: out.copy_(g), 8 * Jc * L * N)
+        stash[("work", "theta_chain", label)] = k2_work(Jc, L, N, theta, with_g)
 
     # K3 residual_row_norms / K4 cpoint_combine on 512 C-rows of a tube
     # (K3: the solver's s = Phi(u_{c-1}) rows against u_c, of odd N: the two
-    # operands' rows disagree in 16-byte alignment)
+    # operands' rows disagree in 16-byte alignment); K4 writes into a
+    # tensor made outside the timed call (in place: a fresh copy)
     a, b, c = (t(rng.uniform(-1, 1, (J + 1, N))) for _ in range(3))
     cases.append(("residual_row_norms", "C-rows",
                   RowCase(lambda: None, lambda k, _: k.residual_row_norms(a[1:], b[:J]),
                           exact=False)))
-    cases.append(("cpoint_combine", "FAS g_tail",
-                  lambda k: k.cpoint_combine(torch.empty((J, N), dtype=dtype, device=dev),
-                                             [a[1:], b[:J], c[1:]], [1.0, -1.0, 1.0])))
+
+    def rows_out():
+        return torch.empty((J, N), dtype=dtype, device=dev)
+
     strided = t(rng.uniform(-1, 1, (2 * J, N)))
-    cases.append(("cpoint_combine", "weighted C strided",
-                  lambda k: k.cpoint_combine(torch.empty((J, N), dtype=dtype, device=dev),
-                                             [strided[1::2], strided[0::2]], [1.3, -0.3])))
+    lib_dst = a[1:].clone()
+    for case, prepare, terms, coeffs, library in (
+            ("FAS g_tail", rows_out, (a[1:], b[:J], c[1:]), (1.0, -1.0, 1.0), None),
+            # 1.3 s1 - 0.3 s0 = s0 + 1.3 (s1 - s0): torch.lerp, another rounding
+            ("weighted C strided", rows_out, (strided[1::2], strided[0::2]), (1.3, -0.3),
+             lambda: torch.lerp(strided[0::2], strided[1::2], 1.3)),
+            ("correction in place", lambda: a[1:].clone(), (None, b[:J]), (1.0, 1.0),
+             lambda: lib_dst.add_(b[:J]))):
+        def combine(k, out, terms=terms, coeffs=coeffs):
+            return k.cpoint_combine(out, [out if x is None else x for x in terms], list(coeffs))
 
-    def in_place(k):
-        dst = a[1:].clone()
-        return k.cpoint_combine(dst, [dst, b[:J]], [1.0, 1.0])
-
-    cases.append(("cpoint_combine", "correction in place", in_place))
+        cases.append(("cpoint_combine", case, RowCase(prepare, combine)))
+        stash[("work", "cpoint_combine", case)] = (8 * (len(terms) + 1) * J * N,
+                                                   (2 * len(terms) - 1) * J * N)
+        if library is not None:
+            stash[("library", "cpoint_combine", case)] = library
 
     # K5 sine_solve2d, K6 sine_affine2d, K7 theta_rhs2d on physical states:
     # C-rows of a level tube with random rings (the kernels must carry a
@@ -1256,14 +1296,15 @@ def slice_cases(dtype, dev, rng, stash):
 
 
 class RowCase:
-    """A K1, K3, K5, K18, K19 or K21 case in two steps: ``prepare()`` makes
+    """A K1-K7, K18, K19 or K21 case in two steps: ``prepare()`` makes
     what the call writes into where the call updates a tube in place or
     into a given out (untimed: the fresh copy of a tube, the empty tube),
     ``launch(ops, state)`` makes the call and returns its output.
     ``run(ops)`` does both: the correctness comparison's fresh operands.
-    With ``exact`` (K1, K18, K19, K21) the kernel equals its plain version
-    bit for bit; without (K3 and K5 sum in another order) it is held at
-    the kernel tolerance, and a second launch must give the same bits."""
+    With ``exact`` (K1, K2, K4, K7 in float64, K18, K19, K21) the kernel
+    equals its plain version bit for bit; without (K3, K5 and K6 sum in
+    another order) it is held at the kernel tolerance, and a second launch
+    must give the same bits."""
 
     def __init__(self, prepare, launch, exact=True):
         self.prepare, self.launch, self.exact = prepare, launch, exact
@@ -1760,6 +1801,17 @@ def k7_work(B, n, theta, dt_tensor):
     return nbytes + (8 * B if dt_tensor else 0), ops
 
 
+def k2_work(J, L, N, theta, with_g):
+    """(bytes, operations) of a K2 call of J chains of L steps on N
+    coefficients with a time-independent rhs: the seeds, the (L, J) step
+    sizes, lam, lift and the rhs row (CN: two) read, g read (with g) and
+    the J L rows written; operations an entry and step: BE 7 (d rhs, shift
+    lift, shift lam and three sums, the divide), CN 14, and the sum of g."""
+    nbytes = 8 * (J * N + L * J + (4 if theta != 1.0 else 3) * N
+                  + J * L * N * (2 if with_g else 1))
+    return nbytes, ((7 if theta == 1.0 else 14) + (1 if with_g else 0)) * J * L * N
+
+
 def k5_work(B, n, how):
     """(bytes, operations) of a K5 call on B states of interior side n
     (``K5_SMALL``'s kinds): the states read, Sx, Sy (and lam) read, the ring
@@ -1911,8 +1963,8 @@ def headline_work(kernel, stash):
     P2 = (n + 2) ** 2
     if kernel == "interval_affine":        # materialize: seeds, A, G -> J x m0 rows
         return 8 * (J * N + 2 * T * N + J * m0 * N), 2 * J * T * N
-    if kernel == "theta_chain":            # BE level-1 F-relax + g: 8 operations an entry
-        return 8 * (J1 * N + L1 * J1 + 3 * N + 2 * J1 * L1 * N), 8 * J1 * L1 * N
+    if kernel == "theta_chain":            # BE level-1 F-relax + g
+        return k2_work(J1, L1, N, 1.0, True)
     if kernel == "residual_row_norms":
         return 8 * (2 * J * N + J), 3 * J * N + J
     if kernel == "cpoint_combine":         # three terms
@@ -2060,6 +2112,9 @@ def phase_kernels(only=None):
                 dev_ms, how = device_ms(lambda: run.launch(DISPATCH, st_k), kernel)
                 dev_txt = (f" (rounds {', '.join(f'{r[0]:.4f}' for r in rounds)}) device "
                            f"{dev_ms:.4f} ms ({how}, cold L2)")
+                if lib is not None:         # the library call's device time, alike
+                    lib_dev, lib_how = device_ms(lib, "library")
+                    dev_txt += f"; library call device {lib_dev:.4f} ms ({lib_how}, cold L2)"
                 if probe is not None:
                     label, fn, nbytes = probe
                     p_ms = float(np.median([r[3] for r in rounds]))
@@ -2250,6 +2305,10 @@ def phase_main(card):
           f"tube max diff {du_plain:.3e}; bit for bit: history {np.array_equal(hk, hp)}, tube "
           f"{torch.equal(mk.u[0], mp.u[0])} | {'ok' if h_ok else 'FAIL'}")
     check(h_ok, "main: kernel history differs from the plain history")
+    # K1, K2 and K4 round the plain versions' operations once, in their
+    # order: the tube is the plain path's, bit for bit (K3's norms, in
+    # another summation order, move only the history)
+    check(torch.equal(mk.u[0], mp.u[0]), "main: the tube differs from the plain path's")
     del mp
     torch.cuda.empty_cache()
 
@@ -3812,13 +3871,13 @@ def profile_cells(card):
                 for k in ("tile_product", "reduce_slices")}
         # the row kernels' device kernels: K18, K19, K21; K5's and K6's (the
         # one-tile kernels, K6's coefficient pass and the band kernel past
-        # 128), K7's, and the spectral path's K1, K2 and K4 (Triton's
-        # _combine_body), with their wrappers' calls
+        # 128), K7's, and the spectral path's K1, K2 and K4, with their
+        # wrappers' calls
         row = {k: (sum(e.count for e in dev if k in e.key),
                    sum(device_us(e) for e in dev if k in e.key) / 1e3)
                for k in ("restrict_combine", "interpolate_combine", "indexed_combine",
                          "sine_solve2d", "sine_affine2d", "affine_tile", "band_product",
-                         "theta_rhs", "theta_chain", "interval_affine", "_combine_body")}
+                         "theta_rhs", "theta_chain", "interval_affine", "cpoint_combine")}
         print(f"[profile] {label}: {h.size} iterations, profiled solve {wall * 1e3:.1f} ms, device "
               f"busy {busy:.1f} ms, idle {100 * (1 - busy / (wall * 1e3)):.1f} % | leading device "
               "time " + "; ".join(f"{e.key[:48]} {device_us(e) / 1e3:.2f} ms ({e.count})"
@@ -3846,7 +3905,7 @@ REPLACES = {
                     "pymgrit_tpu/models/heat_2d.py:419"),
     "residual_row_norms": ("cuda", "pymgrit_tpu_torch/ops/csrc/residual_row_norms.cu",
                            "pymgrit_tpu/core/solver.py:1056"),
-    "cpoint_combine": ("triton", "pymgrit_tpu_torch/ops/triton_kernels.py",
+    "cpoint_combine": ("cuda", "pymgrit_tpu_torch/ops/csrc/indexed_combine.cu",
                        "pymgrit_tpu/core/solver.py:914"),
     "sine_solve2d": ("cuda", "pymgrit_tpu_torch/ops/csrc/sine_solve2d.cu",
                      "pymgrit_tpu/models/heat_2d.py:372"),

@@ -86,12 +86,12 @@ class Heat1D(Application):
         self._itbl_cache = {}       # (dt, m1) -> (A_k, G_k) numpy float64
         self._itbl_dev = {}         # (dt, m1) -> (A_k, G_k) (m1, nx) device tensors
         self._affine_dev = {}       # dt -> affine step (A, c) rows on the device
+        self._times = StepTimes(self.device)    # step-size tables on the device (K2, DD)
         if self._dd:
             self.vector_t_start = self._split(init)
             self.vector_template = self._split(np.zeros(self.nx))
             self._lam_dd, self._S_dd = self._split(self._lam_np), self._split(self._S_np)
             self._zero_lift_dd = self._split(np.zeros(self.nx))
-            self._times = StepTimes(self.device)
         self._build_rhs_table()
         if self._spectral and not self._dd:
             self.affine_coeffs = self._affine_coeffs_spectral
@@ -198,8 +198,8 @@ class Heat1D(Application):
                                   out, g)
         if self._spectral:
             rhs1 = self._rhs_rows(tc)
-            dt = torch.as_tensor(tc - tp, dtype=seed.dtype, device=seed.device)
-            self.ops.theta_chain(seed, out, dt, self.lam, self._zero_lift, rhs1, rhs1, 1.0, g)
+            self.ops.theta_chain(seed, out, self._times.steps(tp, tc, seed.dtype), self.lam,
+                                 self._zero_lift, rhs1, rhs1, 1.0, g)
             return out
         x = seed
         for k in range(tp.shape[0]):

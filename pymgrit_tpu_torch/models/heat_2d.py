@@ -158,6 +158,7 @@ class Heat2D(Application):
         self._dt_dev = {}           # step-size row -> (dt, theta*dt) device tensors
         self._dscale_dev = {}       # dt -> CN ring-correction scale (N,) on the device
         self._affine_dev = {}       # dt -> affine step (A, c) rows (N,) on the device
+        self._times = StepTimes(self.device)    # step-size tables on the device (K2, DD)
 
         self._shape = self._int_shape if self._spectral else (nx, ny)
         start = self._Sx_np @ init[1:-1, 1:-1] @ self._Sy_np if self._spectral else init
@@ -183,7 +184,6 @@ class Heat2D(Application):
         """DD state and tables (the JAX package splits the same arrays)."""
         self.vector_template = self._split(np.zeros(self._shape))
         self.vector_t_start = self._split(start)
-        self._times = StepTimes(self.device)
         if self._spectral:
             self._lift_hat_dd = self._split(self._lift_hat_np.reshape(-1))
             self._Lam_dd = self._split(self._Lam_np.reshape(-1))
@@ -424,8 +424,8 @@ class Heat2D(Application):
         rhs1 = self._rhs_rows(tc) if self.theta > 0.0 else None
         rhs0 = rhs1 if self.theta == 1.0 else self._rhs_rows(tp)
         if self._spectral:
-            dt = torch.as_tensor(tc - tp, dtype=seed.dtype, device=seed.device)
-            self.ops.theta_chain(seed.view(J, N), out.view(J, L, N), dt,
+            self.ops.theta_chain(seed.view(J, N), out.view(J, L, N),
+                                 self._times.steps(tp, tc, seed.dtype),
                                  self._Lam.view(N), self._lift_hat.view(N), rhs1, rhs0,
                                  self.theta, None if g is None else g.view(J, L, N))
             return out

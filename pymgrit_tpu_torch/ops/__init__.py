@@ -8,7 +8,8 @@ coarsening, Diffusion2D, and the double-double precision mode:
 * K2 ``theta_chain`` (CUDA C++, ``csrc/theta_chain.cu``)
 * K3 ``residual_row_norms`` (CUDA C++, ``csrc/residual_row_norms.cu``, wrapper in
   ``row_norms``)
-* K4 ``cpoint_combine`` (Triton)
+* K4 ``cpoint_combine`` (CUDA C++, K21's row body in ``csrc/indexed_combine.cu``,
+  wrapper in ``indexed``)
 * K5 ``sine_solve2d`` (CUDA C++, ``csrc/sine_solve2d.cu``)
 * K6 ``sine_affine2d`` (CUDA C++, ``csrc/sine_affine2d.cu``; float64 on the FP64
   tensor cores, ``csrc/sine2d_dmma.cuh``)
@@ -99,7 +100,7 @@ class Ops(NamedTuple):
 
 
 DISPATCH = Ops(heat_kernels.interval_affine, heat_kernels.theta_chain,
-               row_norms.residual_row_norms, triton_kernels.cpoint_combine,
+               row_norms.residual_row_norms, indexed.cpoint_combine,
                heat_kernels.sine_solve2d, heat_kernels.sine_affine2d,
                theta_rhs.theta_rhs2d, prefix.affine_prefix, prefix.affine_windows,
                periodic.periodic_solve2d, triton_kernels.allen_cahn_pointwise,
@@ -111,7 +112,7 @@ DISPATCH = Ops(heat_kernels.interval_affine, heat_kernels.theta_chain,
                heat_kernels.dd_interval_affine, heat_kernels.dd_theta_chain, dd.dd_arith,
                dd_matmul.dd_matmul)
 PLAIN = Ops(heat_kernels.interval_affine_plain, heat_kernels.theta_chain_plain,
-            row_norms.residual_row_norms_plain, triton_kernels.cpoint_combine_plain,
+            row_norms.residual_row_norms_plain, indexed.cpoint_combine_plain,
             heat_kernels.sine_solve2d_plain, heat_kernels.sine_affine2d_plain,
             theta_rhs.theta_rhs2d_plain, prefix.affine_prefix_plain,
             prefix.affine_windows_plain, periodic.periodic_solve2d_plain,

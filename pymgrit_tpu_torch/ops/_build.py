@@ -1,7 +1,7 @@
 """Build and load the CUDA C++ kernels (K1 interval_affine, K2 theta_chain,
-K3 residual_row_norms, K5 sine_solve2d, K6 sine_affine2d, K7 theta_rhs2d,
-K8 affine_prefix, K9 affine_windows, K10 periodic_solve2d, K12
-dopri45_arenstorf, K16 burgers1d_newton, K17 circulant_solve1d, K18
+K3 residual_row_norms, K4 cpoint_combine, K5 sine_solve2d, K6
+sine_affine2d, K7 theta_rhs2d, K8 affine_prefix, K9 affine_windows, K10
+periodic_solve2d, K12 dopri45_arenstorf, K16 burgers1d_newton, K17 circulant_solve1d, K18
 restrict_combine, K19 interpolate_combine, K20 sine_solve1d, K21
 indexed_combine, K22 eig_step, K23 dd_interval_affine, K24 dd_theta_chain,
 K25 dd_arith, K26 dd_matmul).
@@ -35,8 +35,8 @@ _P, _I, _D = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
 # argtypes of the exported launchers (f32 and f64 share one signature shape)
 _SIGNATURES = {
     "pm_interval_affine": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _I, _P],
-    "pm_theta_chain": [_P, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I,
-                       _D, _I, _I, _I, _P],
+    # the packed argument array, theta, 1 - theta, the stream
+    "pm_theta_chain": [_P, _D, _D, _P],
     # the packed argument array, the scalar shift, the stream
     "pm_sine_solve2d": [_P, _D, _P],
     # the packed argument array, the stream
@@ -60,6 +60,7 @@ _SIGNATURES = {
     # the packed argument array, dst, a, b, the stream
     "pm_interpolate_combine": [_P, _P, _P, _P, _P],
     "pm_indexed_combine": [_P, _D, _D, _D, _P],
+    "pm_cpoint_combine": [_P, _D, _D, _D, _P],
     # the packed argument array, s, u, out, the stream
     "pm_residual_row_norms": [_P, _P, _P, _P, _P],
 }

@@ -8,7 +8,21 @@
 // of the ragged chains).  A term may be out itself, read at the row it
 // writes (the weighted C-update).
 //
-// Replaces: the index-based phases of pymgrit_tpu/core/solver.py on a level
+// K4 cpoint_combine is the same row body with no index at all (a
+// compile-time policy, INDEXED = false: no index is read and no row is
+// dropped), out = sum_k c_k * x_k over R strided row views; its own entry
+// point keeps its launches apart from K21's in a profile.  It replaces the
+// elementwise C-point sums of pymgrit_tpu/core/solver.py on evenly strided
+// levels: _c_relax's weighted C update, _fas_residual's right-hand side
+// (g_tail) and _error_correction's correction (one pass fused by XLA), at
+// 1-3 terms of up to 512 rows of 16129 float64 on the TOMS path (3 terms:
+// 264 MB, 0.0789 ms at 3.35 TB/s).  One file for both: the body, its
+// alignment peeling and its unrolled loads are the same; a second file would
+// repeat them.  What held K4's Triton version back was its launcher (its
+// host time and a device tensor of coefficients) and scalar loads of rows of
+// odd length.
+//
+// Replaces (K21): the index-based phases of pymgrit_tpu/core/solver.py on a level
 // whose C-points are not evenly strided: Mgrit._f_relax's g gather and
 // drop-scatter (vector.take / vector.set_at(mode='drop')), _c_relax's
 // weighted update and scatter, the FAS right-hand side at gathered C-rows
@@ -21,14 +35,14 @@
 // was host time (≈ 0.1 ms a call against ≈ 0.02 ms on the device) and lanes:
 // one program a (row, 1024 columns), so a 4225-point row took five programs,
 // the last with 129 lanes busy.  Design:
-// * one ctypes call of pm_indexed_combine_*: one packed int64 argument
+// * one ctypes call of pm_indexed_combine_* (K4: pm_cpoint_combine_*): one packed int64 argument
 //   array, the coefficients as doubles; they reach the kernel by value, in
 //   the parameter (constant) bank, so no device tensor holds them;
 // * the work is one range of warp items, (row, segment of 32 x kUnroll
 //   vectors; kUnroll 4 with one term, else 2), and a grid sized to the
 //   card (SM count x kMinBlocks blocks, ops/indexed.py::plan) strides
-//   through it; a warp reads the item's row indices once (one broadcast
-//   load each);
+//   through it, a warp's (row, segment) advanced with a carry; a warp
+//   reads the item's row indices once (one broadcast load each);
 // * each lane keeps kUnroll independent 16-byte loads in flight a term
 //   where the row's pointers allow it: a row is vectorized when every
 //   operand's row pointer sits at the same offset from 16-byte alignment
@@ -49,6 +63,13 @@ namespace {
 
 constexpr int kThreads = 256;  // 8 warps a block
 constexpr int kMinBlocks = 4;  // blocks an SM holds (ops/indexed.py BLOCKS_PER_SM)
+// K4's: 4 with two terms (the corrections and weighted C updates), 3 (85
+// registers a thread) with one or three, whose float64 bodies spill at 64
+// (ops/indexed.py K4_BLOCKS_PER_SM)
+template <int NT>
+__host__ __device__ constexpr int k4_min_blocks() {
+  return NT == 2 ? 4 : 3;
+}
 
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
@@ -103,8 +124,21 @@ __device__ __forceinline__ void element(T* o, const T* const (&x)[NT], const T (
   o[e] = combine<T, NT>(c, v);
 }
 
-template <typename T, int NT>
-__global__ void __launch_bounds__(kThreads, kMinBlocks) indexed_combine_kernel(const Params p) {
+// the next item of a warp: (row r, segment s) advanced by the grid's warps,
+// (dr, ds) = divmod(warps, segs), with a carry (no 64-bit division an item)
+__device__ __forceinline__ void next_item(int64_t& r, int64_t& s, int64_t dr, int64_t ds,
+                                          int64_t segs) {
+  r += dr;
+  s += ds;
+  if (s >= segs) {
+    s -= segs;
+    ++r;
+  }
+}
+
+// the row body of K21 (INDEXED) and K4 (no index: rows in order)
+template <typename T, int NT, bool INDEXED>
+__device__ __forceinline__ void combine_rows(const Params& p) {
   constexpr int V = Vec16<T>::n;  // elements a 16-byte vector
   // independent loads in flight a lane and term (ops/indexed.py UNROLL): 4
   // vectors (64 bytes) with one term, 2 with two or three, so that 64
@@ -115,19 +149,18 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) indexed_combine_kernel(c
   T c[NT];
 #pragma unroll
   for (int k = 0; k < NT; ++k) c[k] = (T)p.c[k];
-  const int64_t items = p.R * p.segs;
   const int64_t warps = (int64_t)gridDim.x * (kThreads / 32);
-  for (int64_t it = (int64_t)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5); it < items;
-       it += warps) {
-    const int64_t r = it / p.segs;
-    const int64_t s = it - r * p.segs;
-    const int64_t dst = p.io != nullptr ? p.io[r] : r;
-    if (dst >= p.T) continue;  // a dropped row (uniform across the warp)
+  const int64_t it = (int64_t)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  const int64_t dr = warps / p.segs, ds = warps - dr * p.segs;
+  int64_t r = it / p.segs, s = it - r * p.segs;
+  for (; r < p.R; next_item(r, s, dr, ds, p.segs)) {
+    const int64_t dst = INDEXED && p.io != nullptr ? p.io[r] : r;
+    if (INDEXED && dst >= p.T) continue;  // a dropped row (uniform across the warp)
     T* o = static_cast<T*>(p.out) + dst * p.so;
     const T* x[NT];
 #pragma unroll
     for (int k = 0; k < NT; ++k) {
-      const int64_t src = p.idx[k] != nullptr ? p.idx[k][r] : r;
+      const int64_t src = INDEXED && p.idx[k] != nullptr ? p.idx[k][r] : r;
       x[k] = static_cast<const T*>(p.x[k]) + src * p.sx[k];
     }
     const int64_t N = p.N;
@@ -195,11 +228,21 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) indexed_combine_kernel(c
   }
 }
 
+template <typename T, int NT>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) indexed_combine_kernel(const Params p) {
+  combine_rows<T, NT, true>(p);
+}
+
+template <typename T, int NT>
+__global__ void __launch_bounds__(kThreads, (k4_min_blocks<NT>())) cpoint_combine_kernel(const Params p) {
+  combine_rows<T, NT, false>(p);
+}
+
 // args (int64): CUDA device, out, io, x0, x1, x2, i0, i1, i2 (0: none),
 // out's row stride, x0-x2's row strides, T, R, N, segments a row, terms,
 // vector width (16 bytes: the launcher refuses another), grid
-// (ops/indexed.py::pack)
-template <typename T>
+// (ops/indexed.py::pack); K4 (INDEXED false) reads no index slot
+template <typename T, bool INDEXED>
 int launch(const int64_t* a, double c0, double c1, double c2, void* stream) {
   Params p{};
   p.out = reinterpret_cast<void*>(a[1]);
@@ -228,9 +271,15 @@ int launch(const int64_t* a, double c0, double c1, double c2, void* stream) {
   const int device = (int)a[0];
   if (device != current) cudaSetDevice(device);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nt == 1) indexed_combine_kernel<T, 1><<<grid, kThreads, 0, s>>>(p);
-  if (nt == 2) indexed_combine_kernel<T, 2><<<grid, kThreads, 0, s>>>(p);
-  if (nt == 3) indexed_combine_kernel<T, 3><<<grid, kThreads, 0, s>>>(p);
+  if (INDEXED) {
+    if (nt == 1) indexed_combine_kernel<T, 1><<<grid, kThreads, 0, s>>>(p);
+    if (nt == 2) indexed_combine_kernel<T, 2><<<grid, kThreads, 0, s>>>(p);
+    if (nt == 3) indexed_combine_kernel<T, 3><<<grid, kThreads, 0, s>>>(p);
+  } else {
+    if (nt == 1) cpoint_combine_kernel<T, 1><<<grid, kThreads, 0, s>>>(p);
+    if (nt == 2) cpoint_combine_kernel<T, 2><<<grid, kThreads, 0, s>>>(p);
+    if (nt == 3) cpoint_combine_kernel<T, 3><<<grid, kThreads, 0, s>>>(p);
+  }
   const cudaError_t e = cudaGetLastError();
   if (device != current) cudaSetDevice(current);
   return (int)e;
@@ -241,11 +290,19 @@ int launch(const int64_t* a, double c0, double c1, double c2, void* stream) {
 extern "C" {
 
 int pm_indexed_combine_f64(const int64_t* args, double c0, double c1, double c2, void* stream) {
-  return launch<double>(args, c0, c1, c2, stream);
+  return launch<double, true>(args, c0, c1, c2, stream);
 }
 
 int pm_indexed_combine_f32(const int64_t* args, double c0, double c1, double c2, void* stream) {
-  return launch<float>(args, c0, c1, c2, stream);
+  return launch<float, true>(args, c0, c1, c2, stream);
+}
+
+int pm_cpoint_combine_f64(const int64_t* args, double c0, double c1, double c2, void* stream) {
+  return launch<double, false>(args, c0, c1, c2, stream);
+}
+
+int pm_cpoint_combine_f32(const int64_t* args, double c0, double c1, double c2, void* stream) {
+  return launch<float, false>(args, c0, c1, c2, stream);
 }
 
 }  // extern "C"

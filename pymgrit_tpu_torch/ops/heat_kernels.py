@@ -167,6 +167,75 @@ def theta_chain_plain(x0, out, dt, lam, lift, rhs1, rhs0, theta, g=None):
     return out
 
 
+# K2's block (csrc/theta_chain.cu: kThreads): an item is one chain's segment
+# of K2_THREADS x (16 bytes' worth) coefficients
+K2_THREADS = 256
+
+
+def theta_chain_plan(J, N, es):
+    """(vector width, segments a chain, grid) of one K2 launch: J chains of
+    N coefficients of es bytes.  A thread owns 16 bytes' worth of
+    coefficients; an item is one chain's segment of K2_THREADS threads; one
+    block an item (the hardware starts the next item's block as one
+    retires)."""
+    vec = 16 // es
+    segs = -(-N // (K2_THREADS * vec))
+    return vec, segs, max(1, min(J * segs, 2 ** 31 - 1))
+
+
+def theta_chain_pack(index, strides, J, L, N, cn, has_g, tab, plan):
+    """The launcher's int64 argument array (csrc/theta_chain.cu ``launch``):
+    device, eight operand pointers (filled in by each call: x0, out, g, dt,
+    lam, lift, rhs1, rhs0), the strides (x0's chain stride, out's chain and
+    step strides, g's chain and step strides, the rhs rows' step and chain
+    strides), J, L, N, segments a chain, grid, CN, g present, rhs
+    tabulated, vector width."""
+    vec, segs, grid = plan
+    return array.array("q", (index, *(0,) * 8, *strides, J, L, N, segs, grid, int(cn),
+                             int(has_g), int(tab), vec))
+
+
+@functools.lru_cache(maxsize=1024)
+def _chain_checked(facts, theta):
+    """Every check of a K2 call, on the ``fact``s of x0, out, dt, lam, lift,
+    rhs1, rhs0 (and g) and theta, cached by them (K2 runs at every
+    coarse-level F- and C-relaxation, FAS residual and coarsest solve: the
+    checks' host time is paid once a shape); returns (on the CPU, the
+    launch: the argument array without pointers, the launcher and the
+    device index; None on the CPU or with nothing to do)."""
+    name = "theta_chain"
+    keys = ("x0", "out", "dt", "lam", "lift", "rhs1", "rhs0", "g")
+    _check_facts(name, facts, keys.__getitem__)
+    f = dict(zip(keys, facts))
+    dtype, device, xshape, xstride = f["x0"]
+    if len(xshape) != 2:
+        _require(False, name, f"x0 has shape {tuple(xshape)}, expected (J, N)")
+    J, N = xshape
+    oshape, ostride = f["out"][2:]
+    if not (len(oshape) == 3 and oshape[0] == J and oshape[2] == N):
+        _require(False, name, f"out has shape {tuple(oshape)}, expected ({J}, L, {N})")
+    L = oshape[1]
+    if "g" in f and f["g"][2] != oshape:
+        _require(False, name, "g must have the shape of out")
+    if not (tuple(f["dt"][2]) == (L, J) and _contiguous(*f["dt"][2:])):
+        _require(False, name, f"dt must be a contiguous ({L}, {J}) tensor")
+    if not (tuple(f["lam"][2]) == (N,) and tuple(f["lift"][2]) == (N,)):
+        _require(False, name, "lam and lift must have shape (N,)")
+    r1, r0 = f["rhs1"], f["rhs0"]
+    if not (tuple(r1[2]) == (L, J, N) and r0[2] == r1[2] and r0[3] == r1[3]):
+        _require(False, name, "rhs1 and rhs0 must be (L, J, N) views with equal strides")
+    if not theta > 0.0:
+        _require(False, name, "theta must be > 0 (BE or CN)")
+    if device.type == "cpu" or J * L * N == 0:
+        return device.type == "cpu", None
+    gs = f["g"][3][:2] if "g" in f else (0, 0)
+    r_sk, r_sj = r1[3][0] if L > 1 else 0, r1[3][1] if J > 1 else 0
+    args = theta_chain_pack(device.index, (xstride[0], *ostride[:2], *gs, r_sk, r_sj), J, L, N,
+                            theta != 1.0, "g" in f, (r_sk, r_sj) != (0, 0),
+                            theta_chain_plan(J, N, dtype.itemsize))
+    return False, (args, _launcher("pm_theta_chain", dtype), device.index)
+
+
 def theta_chain(x0, out, dt, lam, lift, rhs1, rhs0, theta, g=None):
     """Sequential spectral theta-steps of J chains, every step written.
 
@@ -175,39 +244,25 @@ def theta_chain(x0, out, dt, lam, lift, rhs1, rhs0, theta, g=None):
     eigenvalues and lifted boundary data; rhs1, rhs0: (L, J, N) views of the
     rhs at the step's end and start (strides 0 for a time-independent rhs;
     rhs0 is read only when theta != 1).  out must not overlap x0 or g.
-    Returns out.
+    Every operand's last axis must be contiguous.  Returns out.
     """
-    name = "theta_chain"
-    ops = dict(x0=x0, out=out, dt=dt, lam=lam, lift=lift, rhs1=rhs1, rhs0=rhs0)
-    if g is not None:
-        ops["g"] = g
-    _check_operands(name, ops)
-    J, N = x0.shape
-    L = out.shape[1]
-    _require(out.dim() == 3 and out.shape[0] == J and out.shape[2] == N, name,
-             f"out has shape {tuple(out.shape)}, expected ({J}, L, {N})")
-    _require(g is None or g.shape == out.shape, name, "g must have the shape of out")
-    _require(tuple(dt.shape) == (L, J) and dt.is_contiguous(), name,
-             f"dt must be a contiguous ({L}, {J}) tensor")
-    _require(tuple(lam.shape) == (N,) and tuple(lift.shape) == (N,), name,
-             "lam and lift must have shape (N,)")
-    _require(rhs1.shape == out.shape[1:2] + (J, N) and rhs0.shape == rhs1.shape
-             and rhs0.stride() == rhs1.stride(), name,
-             "rhs1 and rhs0 must be (L, J, N) views with equal strides")
-    _require(float(theta) > 0.0, name, "theta must be > 0 (BE or CN)")
-    if x0.device.type == "cpu":
+    ops = (x0, out, dt, lam, lift, rhs1, rhs0) if g is None else \
+        (x0, out, dt, lam, lift, rhs1, rhs0, g)
+    theta = float(theta)
+    on_cpu, launch = _chain_checked(tuple(map(fact, ops)), theta)
+    if on_cpu:
         return theta_chain_plain(x0, out, dt, lam, lift, rhs1, rhs0, theta, g)
-    if J == 0 or L == 0 or N == 0:
+    if launch is None:
         return out
-    fn = _launcher("pm_theta_chain", x0.dtype)
-    stream = torch.cuda.current_stream(x0.device).cuda_stream
-    status = fn(x0.data_ptr(), x0.stride(0), out.data_ptr(), out.stride(0), out.stride(1),
-                g.data_ptr() if g is not None else None,
-                g.stride(0) if g is not None else 0, g.stride(1) if g is not None else 0,
-                dt.data_ptr(), lam.data_ptr(), lift.data_ptr(), rhs1.data_ptr(),
-                rhs0.data_ptr(), rhs1.stride(0), rhs1.stride(1), float(theta),
-                J, L, N, stream)
-    _build.check(status, name)
+    tmpl, fn, index = launch
+    args = tmpl[:]
+    args[1], args[2] = x0.data_ptr(), out.data_ptr()
+    if g is not None:
+        args[3] = g.data_ptr()
+    args[4], args[5], args[6] = dt.data_ptr(), lam.data_ptr(), lift.data_ptr()
+    args[7], args[8] = rhs1.data_ptr(), rhs0.data_ptr()
+    _build.check(fn(args.buffer_info()[0], theta, 1.0 - theta, _build.stream(index)),
+                 "theta_chain")
     theta_chain.launches += 1
     return out
 

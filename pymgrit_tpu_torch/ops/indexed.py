@@ -1,6 +1,7 @@
-"""Kernel K21 ``indexed_combine`` (CUDA C++, ``csrc/indexed_combine.cu``)
-beside its plain PyTorch version: the row gathers, drop-scatters and
-weighted sums of non-uniform coarsening.
+"""Kernels K21 ``indexed_combine`` and K4 ``cpoint_combine`` (CUDA C++, one
+row body in ``csrc/indexed_combine.cu``) beside their plain PyTorch
+versions: the row gathers, drop-scatters and weighted sums of non-uniform
+coarsening, and the C-point sums of evenly strided levels.
 
 Replaces the index-based phases of pymgrit_tpu/core/solver.py on a level
 whose C-points are not evenly strided (``LevelInfo.uniform`` False): the
@@ -25,6 +26,18 @@ and the coefficients as doubles, which the kernel takes by value.  The sum
 runs left to right with each product and sum rounded once, so the kernel
 equals the plain version bit for bit; NaN propagates.
 
+K4 replaces the elementwise parts of the C-point phases in
+pymgrit_tpu/core/solver.py on evenly strided levels: the weighted C update
+(``_c_relax``), the FAS right-hand side ``g_tail`` (``_fas_residual``) and
+the coarse-grid correction (``_error_correction``), out = sum_k c_k * x_k
+over 1-3 strided row views, out possibly term 0 itself.  It is K21's row
+body with no index (a compile-time policy) behind its own entry point and
+the same host recipe: checks and the argument array cached by the
+operands' facts (``_combine_checked``), one ctypes call a launch with the
+coefficients as doubles.  Its overlap check returns at once on the paths
+the solver takes (the same view, or another storage, told apart by base
+pointers without a storage object).
+
 Dispatch as in ``heat_kernels``: CPU tensors go to the plain version, CUDA
 tensors launch the kernel or raise.
 """
@@ -44,6 +57,10 @@ MAX_TERMS = 3
 # kUnroll): a warp item is one segment of 32 x UNROLL[terms] vectors
 THREADS, BLOCKS_PER_SM = 256, 4
 UNROLL = {1: 4, 2: 2, 3: 2}
+# K4 runs the same body with 4 blocks an SM with two terms, 3 with one or
+# three (cpoint_combine_kernel's k4_min_blocks: 85 registers, no spills
+# with three float64 terms)
+K4_BLOCKS_PER_SM = {1: 3, 2: 4, 3: 3}
 
 
 def indexed_combine_plain(out, terms, coeffs, io=None, idx=()):
@@ -140,6 +157,103 @@ def indexed_combine(out, terms, coeffs, io=None, idx=()):
 indexed_combine.launches = 0
 
 
+def cpoint_combine_plain(out, terms, coeffs):
+    """out = sum_k coeffs[k] * terms[k], summed left to right."""
+    acc = coeffs[0] * terms[0]
+    for c, x in zip(coeffs[1:], terms[1:]):
+        acc = acc + c * x
+    out.copy_(acc)
+    return out
+
+
+def _overlaps_partially(a, b) -> bool:
+    """True if a and b share memory without being the same view."""
+    if a.untyped_storage().data_ptr() != b.untyped_storage().data_ptr():
+        return False
+    if a.data_ptr() == b.data_ptr() and a.stride() == b.stride():
+        return False
+    size = a.element_size()
+
+    def span(t):
+        last = sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
+        return t.data_ptr(), t.data_ptr() + (last + 1) * size
+
+    (a0, a1), (b0, b1) = span(a), span(b)
+    if a1 <= b0 or b1 <= a0:
+        return False
+    # interleaved rows of one tube (e.g. rows m-1::m and m::m) are disjoint
+    # when both views step by the same row stride and their row offsets
+    # differ by at least one row length
+    if a.stride(0) == b.stride(0) and a.stride(0) >= a.shape[1]:
+        off = abs(a.data_ptr() - b.data_ptr()) // size
+        return off % a.stride(0) < a.shape[1] or a.stride(0) - off % a.stride(0) < a.shape[1]
+    return True
+
+
+@functools.lru_cache(maxsize=1024)
+def _combine_checked(facts):
+    """Every check of a K4 call on the ``fact``s of out and the terms,
+    cached by them (K4 runs at every C-relaxation, FAS residual and
+    correction); returns (on the CPU, the launch: the argument array
+    without pointers, the launcher and the device index; None on the CPU or
+    with nothing to do)."""
+    name = "cpoint_combine"
+    _check_facts(name, facts, _key)
+    dtype, device, shape = facts[0][:3]
+    if not (len(shape) == 2 and all(f[2] == shape for f in facts[1:])):
+        _require(False, name, "out and every term must be (R, N) views of one shape")
+    R, N = shape
+    if device.type == "cpu" or R * N == 0:
+        return device.type == "cpu", None
+    nt, index = len(facts) - 1, device.index
+    strides = tuple(f[3][0] for f in facts)
+    if all(st == N for st in strides):
+        # every operand is one contiguous block of rows (the condensed level
+        # 0's C-rows, fresh tensors): one row of R N elements, peeled once
+        R, N = 1, R * N
+    p = plan(R, N, dtype.itemsize, nt, _build.sm_count(index), K4_BLOCKS_PER_SM[nt])
+    return False, (pack(index, (0,) * (nt + 1), 0, (0,) * nt, strides, R, R, N, nt, p),
+                   _launcher("pm_cpoint_combine", dtype), index)
+
+
+def cpoint_combine(out, terms, coeffs):
+    """out = sum_k coeffs[k] * terms[k] for 1..3 (R, N) row views (K4).
+
+    out may be one of the terms (the same view: an in-place update) and may
+    hold rows interleaved with a term's (C- and F-rows of one tube); it must
+    not otherwise overlap a term.  coeffs are Python floats.  Returns out.
+    """
+    nt = len(terms)
+    if not (1 <= nt <= MAX_TERMS and len(coeffs) == nt):
+        _require(False, "cpoint_combine", f"needs 1..{MAX_TERMS} terms with one coefficient each")
+    on_cpu, launch = _combine_checked((fact(out), *map(fact, terms)))
+    optr, es = out.data_ptr(), out.element_size()
+    base = optr - out.storage_offset() * es
+    for k, t in enumerate(terms):
+        tptr = t.data_ptr()
+        if (t is out or (tptr == optr and t.stride() == out.stride())
+                or tptr - t.storage_offset() * es != base):
+            continue                 # in place, or another storage
+        if _overlaps_partially(out, t):
+            _require(False, "cpoint_combine", f"out overlaps term{k} without being the same view")
+    if on_cpu:
+        return cpoint_combine_plain(out, terms, coeffs)
+    if launch is not None:
+        tmpl, fn, index = launch
+        args = tmpl[:]
+        args[1] = optr
+        for k in range(nt):
+            args[3 + k] = terms[k].data_ptr()
+        c = (*coeffs, 0.0, 0.0)
+        _build.check(fn(args.buffer_info()[0], float(c[0]), float(c[1]), float(c[2]),
+                        _build.stream(index)), "cpoint_combine")
+        cpoint_combine.launches += 1
+    return out
+
+
+cpoint_combine.launches = 0
+
+
 def _launch(launch, out, terms, coeffs, io, idx):
     """One launch of K21 on checked operands (idx: one entry a term): the
     cached argument array (``_checked``) with this call's pointers filled
@@ -159,10 +273,11 @@ def _launch(launch, out, terms, coeffs, io, idx):
     _build.check(status, "indexed_combine")
 
 
-def plan(R, N, es, nt, sms):
+def plan(R, N, es, nt, sms, blocks=BLOCKS_PER_SM):
     """(vector width, segments a row, grid) of one launch.
 
-    R rows of N elements of es bytes, nt terms, sms: the card's SM count.
+    R rows of N elements of es bytes, nt terms, sms: the card's SM count,
+    blocks: the kernel's resident blocks an SM (K21's, or K4's).
     The vector width is 16 bytes' worth of elements; the kernel decides row
     by row whether a row takes it (every operand's row pointer at one offset
     from 16-byte alignment) or scalar loads, with the same segments.  A
@@ -172,7 +287,7 @@ def plan(R, N, es, nt, sms):
     """
     vec = 16 // es
     segs = -(-N // (32 * UNROLL[nt] * vec))
-    grid = max(1, min(sms * BLOCKS_PER_SM, -(-R * segs // (THREADS // 32))))
+    grid = max(1, min(sms * blocks, -(-R * segs // (THREADS // 32))))
     return vec, segs, grid
 
 

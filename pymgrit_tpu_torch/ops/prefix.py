@@ -28,7 +28,7 @@ import torch
 
 from pymgrit_tpu_torch.ops import _build
 from pymgrit_tpu_torch.ops.heat_kernels import _check_operands, _launcher, _require
-from pymgrit_tpu_torch.ops.triton_kernels import _overlaps_partially
+from pymgrit_tpu_torch.ops.indexed import _overlaps_partially
 
 
 def affine_prefix_states(A, c, x0):

@@ -48,9 +48,10 @@ import functools
 
 import torch
 
-from pymgrit_tpu_torch.ops import _build, triton_kernels
+from pymgrit_tpu_torch.ops import _build
 from pymgrit_tpu_torch.ops.heat_kernels import (_check_facts, _contiguous, _launcher, _require,
                                                 fact)
+from pymgrit_tpu_torch.ops.indexed import _overlaps_partially
 
 MAX_TERMS, MAX_ADDS = 3, 2
 # K18's launch shape (csrc/restrict_combine.cu: kThreads, kMinBlocks,
@@ -237,7 +238,7 @@ def restrict_combine(out, terms, coeffs, adds=(), add_coeffs=(), dim=1):
     for k in range(1, len(ops)):
         t = ops[k]
         if (ptrs[k] - t.storage_offset() * es == base and not (empty[0] or empty[k])
-                and not (out.shape == t.shape and not triton_kernels._overlaps_partially(
+                and not (out.shape == t.shape and not _overlaps_partially(
                     out.view(out.shape[0], -1), t.view(t.shape[0], -1)))):
             _require(False, name, f"out overlaps {_restrict_key(nt)(k)}")
     if on_cpu:

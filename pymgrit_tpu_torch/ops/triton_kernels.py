@@ -1,18 +1,12 @@
-"""Kernels K4 ``cpoint_combine``, K11 ``allen_cahn_pointwise``, K13
-``rk4_brusselator``, K14 ``gray_scott_pointwise`` and K15
-``burgers2d_pointwise`` (Triton), each beside its plain PyTorch version.
-(K3 ``residual_row_norms``, K7 ``theta_rhs2d``, K18 ``restrict_combine``,
-K19 ``interpolate_combine`` and K21 ``indexed_combine`` are CUDA C++:
-``csrc/residual_row_norms.cu``, ``csrc/theta_rhs2d.cu`` (wrapper in
-``theta_rhs``), ``csrc/restrict_combine.cu``, ``csrc/interpolate_combine.cu``,
-``csrc/indexed_combine.cu``.)
+"""Kernels K11 ``allen_cahn_pointwise``, K13 ``rk4_brusselator``, K14
+``gray_scott_pointwise`` and K15 ``burgers2d_pointwise`` (Triton), each
+beside its plain PyTorch version.  (K3 ``residual_row_norms``, K4
+``cpoint_combine``, K7 ``theta_rhs2d``, K18 ``restrict_combine``, K19
+``interpolate_combine`` and K21 ``indexed_combine`` are CUDA C++:
+``csrc/residual_row_norms.cu``, ``csrc/indexed_combine.cu`` (wrappers in
+``indexed``), ``csrc/theta_rhs2d.cu`` (wrapper in ``theta_rhs``),
+``csrc/restrict_combine.cu``, ``csrc/interpolate_combine.cu``.)
 
-K4 replaces the elementwise parts of the C-point phases in
-pymgrit_tpu/core/solver.py: the weighted C update (``_c_relax``), the FAS
-right-hand side ``g_tail`` (``_fas_residual``) and the coarse-grid
-correction (``_error_correction``).  It is bound by the bytes it reads and
-writes: up to four strided row views read and one written, one program per
-(row, block of N), fused into one pass.
 K11, K14 and K15 are stencil passes for the periodic nonlinear
 models (pymgrit_tpu/models/allen_cahn.py, gray_scott_2d.py, burgers.py):
 the Newton residual with its per-lane max, the Jacobian matvec, and
@@ -39,22 +33,6 @@ _JIT = {}            # kernel name -> triton.JITFunction
 _COEF_CACHE = {}     # (coeffs, dtype, device) -> coefficient tensor
 
 _BLOCK = 1024
-MAX_TERMS = 4
-
-
-def _combine_body(out_ptr, x0_ptr, x1_ptr, x2_ptr, x3_ptr, c_ptr, so, s0, s1, s2, s3,
-                  N, NT: tl.constexpr, BLOCK: tl.constexpr):
-    row = tl.program_id(0).to(tl.int64)
-    idx = tl.program_id(1) * BLOCK + tl.arange(0, BLOCK)
-    mask = idx < N
-    acc = tl.load(c_ptr) * tl.load(x0_ptr + row * s0 + idx, mask=mask)
-    if NT > 1:
-        acc = acc + tl.load(c_ptr + 1) * tl.load(x1_ptr + row * s1 + idx, mask=mask)
-    if NT > 2:
-        acc = acc + tl.load(c_ptr + 2) * tl.load(x2_ptr + row * s2 + idx, mask=mask)
-    if NT > 3:
-        acc = acc + tl.load(c_ptr + 3) * tl.load(x3_ptr + row * s3 + idx, mask=mask)
-    tl.store(out_ptr + row * so + idx, acc, mask=mask)
 
 
 def _allen_cahn_body(u_ptr, x_ptr, r_ptr, out_ptr, max_ptr, fac_ptr, c_ptr,
@@ -328,7 +306,6 @@ def _jit():
         import triton.language
 
         tl = triton.language
-        _JIT["combine"] = triton.jit(_combine_body)
         _JIT["allen_cahn"] = triton.jit(_allen_cahn_body)
         _JIT["rk4_brusselator"] = triton.jit(_rk4_brusselator_body)
         _JIT["gray_scott"] = triton.jit(_gray_scott_body)
@@ -336,85 +313,14 @@ def _jit():
     return _JIT
 
 
-# ---------------------------------------------------------------------------
-# K4 cpoint_combine
-# ---------------------------------------------------------------------------
-
-
-def cpoint_combine_plain(out, terms, coeffs):
-    """out = sum_k coeffs[k] * terms[k], summed left to right."""
-    acc = coeffs[0] * terms[0]
-    for c, x in zip(coeffs[1:], terms[1:]):
-        acc = acc + c * x
-    out.copy_(acc)
-    return out
-
-
-def _overlaps_partially(a, b) -> bool:
-    """True if a and b share memory without being the same view."""
-    if a.untyped_storage().data_ptr() != b.untyped_storage().data_ptr():
-        return False
-    if a.data_ptr() == b.data_ptr() and a.stride() == b.stride():
-        return False
-    size = a.element_size()
-
-    def span(t):
-        last = sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
-        return t.data_ptr(), t.data_ptr() + (last + 1) * size
-
-    (a0, a1), (b0, b1) = span(a), span(b)
-    if a1 <= b0 or b1 <= a0:
-        return False
-    # interleaved rows of one tube (e.g. rows m-1::m and m::m) are disjoint
-    # when both views step by the same row stride and their row offsets
-    # differ by at least one row length
-    if a.stride(0) == b.stride(0) and a.stride(0) >= a.shape[1]:
-        off = abs(a.data_ptr() - b.data_ptr()) // size
-        return off % a.stride(0) < a.shape[1] or a.stride(0) - off % a.stride(0) < a.shape[1]
-    return True
-
-
 def _coefficients(coeffs, dtype, device):
+    """The kernels' float scalars as a device tensor (Triton types a Python
+    float argument as float32), made once per values, dtype and device."""
     key = (tuple(float(c) for c in coeffs), dtype, device)
     c = _COEF_CACHE.get(key)
     if c is None:
         c = _COEF_CACHE[key] = torch.tensor(key[0], dtype=dtype, device=device)
     return c
-
-
-def cpoint_combine(out, terms, coeffs):
-    """out_rows = sum_k coeffs[k] * terms[k]_rows for 1..4 (R, N) row views.
-
-    out may be one of the terms (the same view: an in-place update); it
-    must not otherwise overlap a term.  coeffs are Python floats.  Returns
-    out.
-    """
-    name = "cpoint_combine"
-    _require(1 <= len(terms) <= MAX_TERMS and len(coeffs) == len(terms), name,
-             f"needs 1..{MAX_TERMS} terms with one coefficient each")
-    ops = {"out": out, **{f"term{k}": t for k, t in enumerate(terms)}}
-    _check_operands(name, ops)
-    _require(out.dim() == 2 and all(t.shape == out.shape for t in terms), name,
-             "out and every term must be (R, N) views of one shape")
-    for k, t in enumerate(terms):
-        _require(not _overlaps_partially(out, t), name,
-                 f"out overlaps term{k} without being the same view")
-    if out.device.type == "cpu":
-        return cpoint_combine_plain(out, terms, coeffs)
-    R, N = out.shape
-    if R and N:
-        xs = list(terms) + [terms[0]] * (MAX_TERMS - len(terms))
-        c = _coefficients(coeffs, out.dtype, out.device)
-        grid = (R, -(-N // _BLOCK))
-        with torch.cuda.device(out.device):
-            _jit()["combine"][grid](out, *xs, c, out.stride(0),
-                                    *(x.stride(0) for x in xs), N,
-                                    NT=len(terms), BLOCK=_BLOCK, num_warps=4)
-        cpoint_combine.launches += 1
-    return out
-
-
-cpoint_combine.launches = 0
 
 
 # ---------------------------------------------------------------------------

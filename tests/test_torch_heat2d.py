@@ -24,7 +24,7 @@ import torch
 import pymgrit_tpu as J
 import pymgrit_tpu_torch as P
 from pymgrit_tpu.core import vector as jv
-from pymgrit_tpu_torch.ops import heat_kernels, row_norms, triton_kernels
+from pymgrit_tpu_torch.ops import heat_kernels, indexed, row_norms
 
 torch.set_num_threads(1)
 
@@ -249,7 +249,7 @@ def test_k4_plain_matches_cpoint_phases():
     """B3/B5: FAS g_tail, uniform FAS inner term, correction, weighted C."""
     r, v, s, u, g = (jnp.asarray(_rand(6, N, seed=k)) for k in range(11, 16))
     p = {k: _t(np.asarray(a)) for k, a in dict(r=r, v=v, s=s, u=u, g=g).items()}
-    plain = triton_kernels.cpoint_combine_plain
+    plain = indexed.cpoint_combine_plain
 
     def run(terms, coeffs):
         return plain(torch.empty((6, N), dtype=torch.float64), [p[k] for k in terms], coeffs)

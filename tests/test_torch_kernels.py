@@ -34,8 +34,9 @@ import torch
 
 import pymgrit_tpu_torch as P
 from pymgrit_tpu_torch.ops import (DISPATCH, PLAIN, _build, dense_newton, heat_kernels,
-                                   launch_counts, periodic, prefix, reset_launch_counts,
-                                   row_norms, runge_kutta, theta_rhs, triton_kernels)
+                                   indexed, launch_counts, periodic, prefix,
+                                   reset_launch_counts, row_norms, runge_kutta, theta_rhs,
+                                   triton_kernels)
 from pymgrit_tpu_torch.ops.dirichlet_spectral import sine_eigenbasis
 
 torch.set_num_threads(1)
@@ -832,17 +833,18 @@ def test_triton_wrappers_reject():
     a = torch.zeros((4, N), dtype=torch.float64)
     with pytest.raises(ValueError, match="must be equal"):
         row_norms.residual_row_norms(a, a[:3])
-    with pytest.raises(ValueError, match="1..4 terms"):
-        triton_kernels.cpoint_combine(a, [a] * 5, [1.0] * 5)
+    for terms in (4, 5):        # K4 takes 1..3 terms (the solver's most), as K21
+        with pytest.raises(ValueError, match="1..3 terms"):
+            indexed.cpoint_combine(a, [a] * terms, [1.0] * terms)
     with pytest.raises(ValueError, match="overlaps"):
         tube = torch.zeros((9, N), dtype=torch.float64)
-        triton_kernels.cpoint_combine(tube[1:5], [tube[0:4]], [1.0])
+        indexed.cpoint_combine(tube[1:5], [tube[0:4]], [1.0])
     with pytest.raises(ValueError, match="unsupported device"):
         m = torch.zeros((4, N), device="meta")
         row_norms.residual_row_norms(m, m)
     # interleaved C- and F-rows of one tube do not overlap
     tube = torch.arange(9 * N, dtype=torch.float64).view(9, N)
-    triton_kernels.cpoint_combine(tube[2:9:2], [tube[1:9:2]], [1.0])
+    indexed.cpoint_combine(tube[2:9:2], [tube[1:9:2]], [1.0])
     np.testing.assert_array_equal(tube[2:9:2].numpy(), tube[1:9:2].numpy())
 
 
