@@ -12,18 +12,18 @@ phases:
 
 1. device    the card's name and power limit (nvidia-smi); a CUDA device is
              required, there is no CPU carry-on;
-2. build     nvcc builds the CUDA C++ kernels (K1-K10, K12, K16-K26)
+2. build     nvcc builds the CUDA C++ kernels (K1-K12, K16-K26)
              from ``csrc/``, one process per source,
              all started together; ``cuobjdump`` counts the DMMA instructions
-             of K5's and K6's float64 kernels (required in each, with no
-             spills, by instantiation), K22 and K26, and ptxas's log gives
-             the registers, spills and static shared memory of K2-K7 (no
-             spills) and the FP64 product tile K22 and K26 share
-             (``csrc/dmma_tile.cuh``);
+             of K5's, K6's and K10's float64 kernels (required in each, with
+             no spills, by instantiation), K22 and K26, and ptxas's log
+             gives the registers, spills and static shared memory of K2-K7,
+             K10, K11 (no spills) and the FP64 product tile K22 and K26
+             share (``csrc/dmma_tile.cuh``);
 3. kernels   K1-K22 against their plain PyTorch versions at the main paths'
              shapes (and odd ones, and K5/K6/K10/K16/K17 past the sizes
              their wrappers once refused), float32 and float64, with
-             timings (K1-K7, K18, K19, K21 in rounds, with
+             timings (K1-K7, K10, K11, K18, K19, K21 in rounds, with
              their device time on a cold L2); for each kernel's headline case (and each
              case that records its work) its bound (bytes or FP64 operations over the
              H100's peaks) and, where one PyTorch call computes the same
@@ -112,11 +112,12 @@ phases 1-3 for the named kernels alone (float64 and float32) and ends in
 ``{"kernels_only": true, ...}``, never the ``"ok"`` of a full run.
 
 ``python3 chip_smoke.py --profile`` runs phases 1-2 and then one profiled
-solve of each configuration of phases 11-13 and of the spectral and
-physical TOMS solves, the ragged row, the spatial row, the BDF example,
-the two DD rows and the deep diffusion grid (``torch.profiler``): device
-busy and idle share, the leading device ops, the device time of K1, K2,
-K4-K7 and the row kernels, launches and syncs.  It compares and checks
+solve of each configuration of phases 11-13, of Allen-Cahn's IMPL and CN
+runs (with K11's wrapper time a call) and of the spectral and physical
+TOMS solves, the ragged row, the spatial row, the BDF example, the two DD
+rows and the deep diffusion grid (``torch.profiler``): device busy and
+idle share, the leading device ops, the device time of K1, K2, K4-K7,
+K10, K11 and the row kernels, launches and syncs.  It compares and checks
 nothing, so its last line is ``{"profile": true, ...}`` and never the
 ``"ok"`` of a checked run.
 
@@ -498,6 +499,18 @@ def phase_build():
           "sine_affine2d.cu on sine2d_dmma.cuh, theta_rhs2d.cu), ptxas: "
           + " ; ".join(f"{name}: {regs} registers, spill stores/loads {st}/{ld} B"
                        for name, (regs, st, ld, _) in k35.items()))
+    k1011 = ptxas(_build.build_log(), K10_K11_NAME, k10_k11_label)
+    print("[build] K10 / K11 (csrc/periodic_solve2d.cu on sine2d_dmma.cuh, "
+          "allen_cahn_pointwise.cu), ptxas: "
+          + " ; ".join(f"{name}: {regs} registers, spill stores/loads {st}/{ld} B"
+                       for name, (regs, st, ld, _) in k1011.items()))
+    # K10's eight f64 one-tile kernels (T = 16-128, prologue by cp.async or
+    # formed), its rhs pass (three prologues) and its f32 FFMA kernel;
+    # K11's twelve (f64 / f32 x three modes x vectors or scalars)
+    for prefix, n in {"K10 f64": 11, "K10 f32": 1, "K11": 12}.items():
+        ks = [k for k in k1011 if k.startswith(prefix)]
+        check(len(ks) == n and all(k1011[k][1] == 0 and k1011[k][2] == 0 for k in ks),
+              f"build: {n} {prefix} kernels must compile without spills: {k1011}")
     k24 = ptxas(_build.build_log(), K2_K4_NAME, k2_k4_label)
     print("[build] K2 / K4 (csrc/theta_chain.cu, K4 on K21's row body in indexed_combine.cu), "
           "ptxas: " + " ; ".join(f"{name}: {regs} registers, spill stores/loads {st}/{ld} B"
@@ -534,16 +547,20 @@ def phase_build():
             key = tile_owner(fn)
             dmma[key] = dmma.get(key, 0) + 1
         hmma += "HMMA" in ln
-    print(f"[build] cuobjdump -sass: DMMA instructions by kernel {dmma} (K5's and K6's f64 "
-          f"kernels: one-tile by side, band past 128 (K5's, which K6's first product shares; "
-          f"K6's split last product); K22 f64, K26 DD products), {hmma} HMMA (TF32 and half "
-          f"precision: none expected)")
+    print(f"[build] cuobjdump -sass: DMMA instructions by kernel {dmma} (K5's, K6's and "
+          f"K10's f64 kernels: one-tile by side (K10's also by load: cp.async or the formed "
+          f"prologue), band past 128 (K5's, which K6's first product and K10's first three "
+          f"share; the split last product of K6 and K10); K22 f64, K26 DD products), {hmma} "
+          f"HMMA (TF32 and half precision: none expected)")
     k5_dmma = [k for k in dmma if k.startswith("sine_solve2d")]
     k6_dmma = [k for k in dmma if k.startswith("sine_affine2d")]
+    k10_dmma = [k for k in dmma if k.startswith("periodic_solve2d")]
     check(dmma.get("eig_step", 0) > 0 and dmma.get("dd_matmul", 0) > 0 and len(k5_dmma) == 5
-          and len(k6_dmma) == 5 and all(dmma[k] > 0 for k in k5_dmma + k6_dmma) and hmma == 0,
-          f"build: DMMA {dmma} (each of K5's and K6's five f64 kernels, K22 and K26 must have "
-          f"some) and {hmma} HMMA in the SASS")
+          and len(k6_dmma) == 5 and len(k10_dmma) == 8
+          and all(dmma[k] > 0 for k in k5_dmma + k6_dmma + k10_dmma) and hmma == 0,
+          f"build: DMMA {dmma} (each of K5's and K6's five f64 kernels, K10's eight one-tile "
+          f"kernels (its band products are K5's and K6's), K22 and K26 must have some) and "
+          f"{hmma} HMMA in the SASS")
 
 
 # tile_product<E, pair, BM, BN, BK, stages, min blocks> as mangled by nvcc
@@ -552,9 +569,13 @@ TILE_NAME = re.compile(r"tile_productI([df])Lb([01])ELi(\d+)ELi(\d+)ELi(\d+)ELi(
 
 def tile_owner(fn):
     """The kernel a SASS function belongs to: the product tile's float64
-    instantiations are K22's, its double-double ones K26's; K5's and K6's
-    float64 kernels by their tile side, the band kernel past 128 by its
-    store (K5's, whose products K6's first one shares; K6's split store)."""
+    instantiations are K22's, its double-double ones K26's; K5's, K6's and
+    K10's float64 kernels by their tile side (K10's by its load too), the
+    band kernel past 128 by its store (K5's, whose products K6's first one
+    and K10's first three share; the split store of K6 and K10)."""
+    k = K10_K11_NAME.search(fn)
+    if k is not None and k.group(1) is not None:
+        return f"periodic_solve2d T={k.group(1)} {'cp.async' if k.group(2) == '1' else 'formed'}"
     k = K3_K5_NAME.search(fn)
     if k is not None and k.group(2) is not None:
         return f"{k.group(1)} T={k.group(2)}"
@@ -586,6 +607,26 @@ def k3_k5_label(m, ln):
     if e3 is not None:
         return f"K3 {'f64' if e3 == 'd' else 'f32'}"
     return f"K7 {'f64' if e7 == 'd' else 'f32'} {('BE', 'CN', 'FE')[int(mode)]}"
+
+
+# periodic_solve2d_dmma_kernel<T, ASYNC> (K10 float64) / periodic_rhs (K10's
+# right-hand side pass) / periodic_solve2d_kernel<float> (K10 float32, FFMA)
+# / allen_cahn_pointwise_kernel<T, MODE, V> (K11)
+K10_K11_NAME = re.compile(r"periodic_solve2d_dmma_kernelILi(\d+)ELb([01])E|periodic_rhsILi(\d)E"
+                          r"|periodic_solve2d_kernelI(f)E"
+                          r"|allen_cahn_pointwise_kernelI([df])Li(\d)ELi(\d)E")
+
+
+def k10_k11_label(m, ln):
+    side, async_, rhs, f32, e11, mode, vec = m.groups()
+    if side is not None:
+        return f"K10 f64 T={side} {'cp.async' if async_ == '1' else 'formed'}"
+    if rhs is not None:
+        return f"K10 f64 rhs pass {('copy', 'Allen-Cahn', 'Gray-Scott')[int(rhs)]}"
+    if f32 is not None:
+        return "K10 f32 FFMA"
+    return (f"K11 {'f64' if e11 == 'd' else 'f32'} {('rhs', 'residual', 'jacobian')[int(mode)]} "
+            f"V={vec}")
 
 
 # theta_chain_kernel<T, CN, G, TAB> (K2) / cpoint_combine_kernel<T, NT> (K4)
@@ -1070,33 +1111,43 @@ def nonlinear_cases(dtype, dev, rng, stash):
         g_rows = t(rng.uniform(-1e-3, 1e-3, (B, side, side))) if with_g else None
         shift = t(np.full(B, step))
 
-        def run(ops):
-            out = torch.empty((B, 2, side, side), dtype=dtype, device=dev)[:, 1]
+        # into a strided view of a tensor made outside the timed call
+        def launch(ops, out):
             return ops.periodic_solve2d(seeds[:B], out, H, lam, shift, nu=nu, inv_eps2=inv_eps2,
-                                        g=g_rows).clone()
-        return run
+                                        g=g_rows)
+        return RowCase(lambda: torch.empty((B, 2, side, side), dtype=dtype, device=dev)[:, 1],
+                       launch, exact=False)
 
-    cases += [("periodic_solve2d", f"IMEX B={J0} n={n}", k10(J0, n, dt0, 2, False)),
-              ("periodic_solve2d", f"level-1 F-step B={J1} n={n} +g", k10(J1, n, m0 * dt0, 2, True)),
-              ("periodic_solve2d", f"coarsest step B=1 n={n} +g", k10(1, n, m0 * m1 * dt0, 2, True)),
-              ("periodic_solve2d", f"precond B=8 n={n}", k10(8, n, dt_impl, 0, False)),
-              ("periodic_solve2d", f"IMEX B={J0} n=17", k10(J0, 17, dt0, 2, False)),
-              ("periodic_solve2d", "precond B=1 n=17", k10(1, 17, dt_impl, 0, False))]
+    k10_cases = ((f"IMEX B={J0} n={n}", J0, n, dt0, 2, False),
+                 (f"level-1 F-step B={J1} n={n} +g", J1, n, m0 * dt0, 2, True),
+                 (f"coarsest step B=1 n={n} +g", 1, n, m0 * m1 * dt0, 2, True),
+                 (f"precond B=8 n={n}", 8, n, dt_impl, 0, False),
+                 (f"IMEX B={J0} n=17", J0, 17, dt0, 2, False),
+                 ("precond B=1 n=17", 1, 17, dt_impl, 0, False))
+    for case, B, side, step, nu, with_g in k10_cases:
+        cases.append(("periodic_solve2d", case, k10(B, side, step, nu, with_g)))
+        stash[("work", "periodic_solve2d", case)] = k10_work(B, 1, side, with_g)
 
     def k11(mode, B, side):
         u = t(rng.uniform(-1, 1, (2 * B, side, side)))[::2]
         x = t(rng.uniform(-1, 1, (B, side, side)))
         fac = t(np.full(B, dt_impl))
 
-        def run(ops):
-            out = torch.empty((B, side, side), dtype=dtype, device=dev)
-            r = ops.allen_cahn_pointwise(mode, u, out, fac, inv_eps2, 1.0 / side ** 2, 2, x=x, rhs=x)
-            return torch.cat([r[0].flatten(), r[1]]) if mode == "residual" else r
-        return run
+        def launch(ops, out):
+            return ops.allen_cahn_pointwise(mode, u, out, fac, inv_eps2, 1.0 / side ** 2, 2, x=x,
+                                            rhs=x)
 
-    cases += [("allen_cahn_pointwise", f"{mode} B=8 n={n}", k11(mode, 8, n))
-              for mode in ("jacobian", "residual", "rhs")]
-    cases.append(("allen_cahn_pointwise", f"residual B={J0} n=17", k11("residual", J0, 17)))
+        def view(r):                    # the residual and its per-lane max as one tensor
+            return torch.cat([r[0].flatten(), r[1]]) if mode == "residual" else r
+        # K11 rounds each operation of its plain version once, in its order
+        return RowCase(lambda: torch.empty((B, side, side), dtype=dtype, device=dev), launch,
+                       view=view)
+
+    for mode, B, side in (("jacobian", 8, n), ("residual", 8, n), ("rhs", 8, n),
+                          ("residual", J0, 17)):
+        case = f"{mode} B={B} n={side}"
+        cases.append(("allen_cahn_pointwise", case, k11(mode, B, side)))
+        stash[("work", "allen_cahn_pointwise", case)] = k11_work(mode, B, side)
 
     # Arenstorf: lanes start on the orbit (a K12 march of the coarse grid)
     nt_a, m_a = ARENSTORF["nt"], ARENSTORF["m"]
@@ -1195,19 +1246,21 @@ def slice_cases(dtype, dev, rng, stash):
         seeds = pairs(B, side)
         shift = t(np.full(B, step))
 
-        def run(ops):
-            out = torch.empty((B, 2, 2, side, side), dtype=dtype, device=dev)[:, 1]
+        # into a strided view of a tensor made outside the timed call
+        def launch(ops, out):
             return ops.periodic_solve2d(seeds[:B], out, H_, lam_, shift, coef=coef,
-                                        gray_scott=gray_scott).clone()
-        return run
+                                        gray_scott=gray_scott)
+        return RowCase(lambda: torch.empty((B, 2, 2, side, side), dtype=dtype, device=dev)[:, 1],
+                       launch, exact=False)
 
     gs_ab = (GS_COEF["a"], GS_COEF["b"])
-    cases += [("periodic_solve2d", f"Gray-Scott IMEX B={J0} S=2 n={n}",
-               k10(J0, n, dt0, gs_ab, H, lam, coef_gs)),
-              ("periodic_solve2d", f"Gray-Scott precond B=8 S=2 n={n}",
-               k10(8, n, dt_impl, None, H, lam, coef_gs)),
-              ("periodic_solve2d", f"Burgers2D precond B={B2} S=2 n={nb}",
-               k10(B2, nb, dt_b2, None, Hb, lamb, t([BURGERS_2D["nu"]] * 2)))]
+    for case, B, side, step, gs_, H_, lam_, coef in (
+            (f"Gray-Scott IMEX B={J0} S=2 n={n}", J0, n, dt0, gs_ab, H, lam, coef_gs),
+            (f"Gray-Scott precond B=8 S=2 n={n}", 8, n, dt_impl, None, H, lam, coef_gs),
+            (f"Burgers2D precond B={B2} S=2 n={nb}", B2, nb, dt_b2, None, Hb, lamb,
+             t([BURGERS_2D["nu"]] * 2))):
+        cases.append(("periodic_solve2d", case, k10(B, side, step, gs_, H_, lam_, coef)))
+        stash[("work", "periodic_solve2d", case)] = k10_work(B, 2, side, False)
 
     def k14(mode, B, step, with_g):
         s_ = pairs(2 * B, n)[::2][:B]
@@ -1296,21 +1349,24 @@ def slice_cases(dtype, dev, rng, stash):
 
 
 class RowCase:
-    """A K1-K7, K18, K19 or K21 case in two steps: ``prepare()`` makes
-    what the call writes into where the call updates a tube in place or
-    into a given out (untimed: the fresh copy of a tube, the empty tube),
-    ``launch(ops, state)`` makes the call and returns its output.
-    ``run(ops)`` does both: the correctness comparison's fresh operands.
-    With ``exact`` (K1, K2, K4, K7 in float64, K18, K19, K21) the kernel
-    equals its plain version bit for bit; without (K3, K5 and K6 sum in
-    another order) it is held at the kernel tolerance, and a second launch
-    must give the same bits."""
+    """A K1-K7, K10, K11, K18, K19 or K21 case in two steps: ``prepare()``
+    makes what the call writes into where the call updates a tube in place
+    or into a given out (untimed: the fresh copy of a tube, the empty
+    tube), ``launch(ops, state)`` makes the call and returns its output.
+    ``run(ops)`` does both: the correctness comparison's fresh operands
+    (``view`` turns what the call returns into one tensor: K11's residual
+    and its per-lane max).  With ``exact`` (K1, K2, K4, K7 in float64, K11,
+    K18, K19, K21) the kernel equals its plain version bit for bit;
+    without (K3, K5, K6 and K10 sum in another order) it is held at the
+    kernel tolerance, and a second launch must give the same bits."""
 
-    def __init__(self, prepare, launch, exact=True):
-        self.prepare, self.launch, self.exact = prepare, launch, exact
+    def __init__(self, prepare, launch, exact=True, view=None):
+        self.prepare, self.launch, self.exact, self.view = prepare, launch, exact, view
 
     def __call__(self, ops):
-        return self.launch(ops, self.prepare())
+        out = self.launch(ops, self.prepare())
+        return out if self.view is None else self.view(out)
+
 
 
 def transfer_cases(dtype, dev, rng, stash):
@@ -1854,6 +1910,26 @@ def k5_small(dtype, dev, rng, B, n, how):
                    exact=False)
 
 
+def k10_work(B, S, n, with_g):
+    """(bytes, operations) of a K10 call on B lanes of S species of n x n
+    states: the states read (g too, with g), H, lam, the steps and the
+    coefficients read, the results written; four length-n products a state,
+    the divide and the prologue (10 a point)."""
+    return (8 * (B * S * n * n * (3 if with_g else 2) + 2 * n * n + B + S),
+            B * S * (8 * n ** 3 + 10 * n * n))
+
+
+def k11_work(mode, B, n):
+    """(bytes, operations) of a K11 call on B states of n x n: u read (x
+    too for the Jacobian, rhs for the residual), the output written (and
+    the residual's per-lane max), fac read; operations a point: the
+    Laplacian's six, then the Jacobian's eight, the residual's nine (its
+    max included) or the right-hand side's seven."""
+    arrays = {"jacobian": 3, "residual": 3, "rhs": 2}[mode]
+    ops = {"jacobian": 14, "residual": 15, "rhs": 13}[mode]
+    return 8 * (arrays * B * n * n + B * (2 if mode == "residual" else 1)), ops * B * n * n
+
+
 def past_cap_cases(dtype, dev, rng, stash):
     """K5, K6, K10, K16 and K17 past the sizes at which their wrappers
     raised before: K5 and K6 at the toms257 interior 255 (K5: the
@@ -1905,13 +1981,12 @@ def past_cap_cases(dtype, dev, rng, stash):
     states = t(rng.uniform(-1, 1, (Bh, nh, nh)))
     shift = t(np.full(Bh, 1e-5))
 
-    def k10(ops):
-        return ops.periodic_solve2d(states, torch.empty_like(states), H, lam_h, shift, nu=2,
-                                    inv_eps2=625.0)
+    def k10(ops, out):
+        return ops.periodic_solve2d(states, out, H, lam_h, shift, nu=2, inv_eps2=625.0)
 
-    cases.append(("periodic_solve2d", f"IMEX B={Bh} n={nh}", k10))
-    stash[("work", "periodic_solve2d", f"IMEX B={Bh} n={nh}")] = (
-        8 * (2 * Bh * nh ** 2 + 2 * nh ** 2 + Bh), Bh * (8 * nh ** 3 + 10 * nh ** 2))
+    cases.append(("periodic_solve2d", f"IMEX B={Bh} n={nh}",
+                  RowCase(lambda: torch.empty_like(states), k10, exact=False)))
+    stash[("work", "periodic_solve2d", f"IMEX B={Bh} n={nh}")] = k10_work(Bh, 1, nh, False)
 
     nb, Jb, Lb = 512, 32, 3
     xb = np.linspace(0, 1, nb, endpoint=False)
@@ -1981,11 +2056,9 @@ def headline_work(kernel, stash):
                                                                for p in range(nt_h))
         return 8 * (2 * N + N + 2 * nt_h * N), 3 * steps * N
     if kernel == "periodic_solve2d":       # Allen-Cahn IMEX B=512 n=128
-        nn, B = AC_BENCH["nx"], (AC_BENCH["nt"] - 1) // AC_BENCH["ms"][0]
-        return 8 * (2 * B * nn ** 2 + 2 * nn ** 2 + B), B * (8 * nn ** 3 + 10 * nn ** 2)
+        return k10_work((AC_BENCH["nt"] - 1) // AC_BENCH["ms"][0], 1, AC_BENCH["nx"], False)
     if kernel == "allen_cahn_pointwise":   # jacobian B=8 n=128
-        nn = AC_IMPL["nx"]
-        return 8 * (3 * 8 * nn ** 2 + 8), 15 * 8 * nn ** 2
+        return k11_work("jacobian", 8, AC_IMPL["nx"])
     if kernel == "dopri45_arenstorf":      # ~300 operations an attempt (7 stages)
         Ja, L = (ARENSTORF["nt"] - 1) // ARENSTORF["m"], 8
         return 8 * (Ja * 4 + 2 * L * Ja + Ja * L * 4), 300 * stash[(kernel, Ja, L)]
@@ -3793,8 +3866,26 @@ def profile_cells(card):
                                  device=DEVICE) for nt in (129, 65)]
         return P.Mgrit(problem=problem, cf_iter=1, nested_iteration=False, logging_lvl=30)
 
+    # the K11 wrapper's host time a call (the wrapper's checks, its launch
+    # and what it allocates), timed around each call of the Allen-Cahn cells
+    host = {"calls": 0, "s": 0.0}
+
+    def timed_k11(*args, **kw):
+        t0 = time.perf_counter()
+        r = DISPATCH.allen_cahn_pointwise(*args, **kw)
+        host["s"] += time.perf_counter() - t0
+        host["calls"] += 1
+        return r
+
+    def allen_cahn(cfg):
+        return lambda: strategy(P, "scan", allen_cahn_problem(
+            P, DISPATCH._replace(allen_cahn_pointwise=timed_k11), **cfg), 0, tol=cfg["tol"],
+            max_iter=cfg["max_iter"])
+
     gs = dict(nx=GS_AT["nx"], method="IMEX")
     cells = [
+        ("allen_cahn IMPL", allen_cahn(AC_IMPL)),
+        ("allen_cahn CN", allen_cahn(AC_CN)),
         ("gray_scott AtMgrit(k=8)", solver("GrayScott2D", GS_AT, "at", GS_AT["k"], **gs)),
         ("gray_scott Parareal", lambda: P.Mgrit(
             problem=level_problems(P, "GrayScott2D", GS_PARAREAL, DISPATCH, **gs), cf_iter=0,
@@ -3849,6 +3940,7 @@ def profile_cells(card):
         mg = build()
         torch.cuda.synchronize()
         reset_launch_counts()
+        host.update(calls=0, s=0.0)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             h = mg.solve()["conv"]
@@ -3877,7 +3969,8 @@ def profile_cells(card):
                    sum(device_us(e) for e in dev if k in e.key) / 1e3)
                for k in ("restrict_combine", "interpolate_combine", "indexed_combine",
                          "sine_solve2d", "sine_affine2d", "affine_tile", "band_product",
-                         "theta_rhs", "theta_chain", "interval_affine", "cpoint_combine")}
+                         "theta_rhs", "theta_chain", "interval_affine", "cpoint_combine",
+                         "periodic_solve2d", "periodic_rhs", "allen_cahn")}
         print(f"[profile] {label}: {h.size} iterations, profiled solve {wall * 1e3:.1f} ms, device "
               f"busy {busy:.1f} ms, idle {100 * (1 - busy / (wall * 1e3)):.1f} % | leading device "
               "time " + "; ".join(f"{e.key[:48]} {device_us(e) / 1e3:.2f} ms ({e.count})"
@@ -3887,8 +3980,12 @@ def profile_cells(card):
               + "".join(f" | {name} calls {calls[key]}"
                         for name, key in (("K1", "interval_affine"), ("K2", "theta_chain"),
                                           ("K4", "cpoint_combine"), ("K5", "sine_solve2d"),
-                                          ("K6", "sine_affine2d"), ("K7", "theta_rhs2d"))
+                                          ("K6", "sine_affine2d"), ("K7", "theta_rhs2d"),
+                                          ("K10", "periodic_solve2d"),
+                                          ("K11", "allen_cahn_pointwise"))
                         if calls[key])
+              + (f" | K11 wrapper host time {host['s'] * 1e3 / host['calls']:.4f} ms a call "
+                 f"({host['calls']} calls)" if host["calls"] else "")
               + f" | host: {launches} kernel launches, {syncs} synchronisations"
               + (f" | product tile: {calls['eig_step']} K22 and {calls['dd_matmul']} K26 calls, "
                  f"{tile['tile_product'][0]} product kernels {tile['tile_product'][1]:.2f} ms, "
@@ -3919,7 +4016,7 @@ REPLACES = {
                        "pymgrit_tpu/core/at_mgrit.py:37"),
     "periodic_solve2d": ("cuda", "pymgrit_tpu_torch/ops/csrc/periodic_solve2d.cu",
                          "pymgrit_tpu/models/allen_cahn.py:82"),
-    "allen_cahn_pointwise": ("triton", "pymgrit_tpu_torch/ops/triton_kernels.py",
+    "allen_cahn_pointwise": ("cuda", "pymgrit_tpu_torch/ops/csrc/allen_cahn_pointwise.cu",
                              "pymgrit_tpu/models/allen_cahn.py:92"),
     "dopri45_arenstorf": ("cuda", "pymgrit_tpu_torch/ops/csrc/dopri45_arenstorf.cu",
                           "pymgrit_tpu/ops/runge_kutta.py:67"),

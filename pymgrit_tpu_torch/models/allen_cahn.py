@@ -30,7 +30,7 @@ from pymgrit_tpu_torch.core.application import Application, model_device
 from pymgrit_tpu_torch.models.periodic_newton import PeriodicNewtonKrylov
 from pymgrit_tpu_torch.ops import DISPATCH, Ops
 from pymgrit_tpu_torch.ops.periodic import ipow
-from pymgrit_tpu_torch.ops.triton_kernels import periodic_lap_plain
+from pymgrit_tpu_torch.ops.pointwise import periodic_lap_plain
 
 
 class AllenCahn(PeriodicNewtonKrylov, Application):

@@ -16,8 +16,10 @@ coarsening, Diffusion2D, and the double-double precision mode:
 * K7 ``theta_rhs2d`` (CUDA C++, ``csrc/theta_rhs2d.cu``, wrapper in ``theta_rhs``)
 * K8 ``affine_prefix`` (CUDA C++, ``csrc/affine_prefix.cu``)
 * K9 ``affine_windows`` (CUDA C++, ``csrc/affine_windows.cu``)
-* K10 ``periodic_solve2d`` (CUDA C++, ``csrc/periodic_solve2d.cu``)
-* K11 ``allen_cahn_pointwise`` (Triton)
+* K10 ``periodic_solve2d`` (CUDA C++, ``csrc/periodic_solve2d.cu``; float64 on the
+  FP64 tensor cores, ``csrc/sine2d_dmma.cuh``)
+* K11 ``allen_cahn_pointwise`` (CUDA C++, ``csrc/allen_cahn_pointwise.cu``, wrapper in
+  ``pointwise``)
 * K12 ``dopri45_arenstorf`` (CUDA C++, ``csrc/dopri45_arenstorf.cu``)
 * K13 ``rk4_brusselator`` (Triton)
 * K14 ``gray_scott_pointwise`` (Triton)
@@ -66,8 +68,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 from pymgrit_tpu_torch.ops import (dd, dd_matmul, dense_newton, eig_step, heat_kernels, indexed,
-                                   periodic, prefix, row_norms, runge_kutta, theta_rhs, transfer,
-                                   triton_kernels)
+                                   periodic, pointwise, prefix, row_norms, runge_kutta, theta_rhs,
+                                   transfer, triton_kernels)
 
 
 class Ops(NamedTuple):
@@ -103,7 +105,7 @@ DISPATCH = Ops(heat_kernels.interval_affine, heat_kernels.theta_chain,
                row_norms.residual_row_norms, indexed.cpoint_combine,
                heat_kernels.sine_solve2d, heat_kernels.sine_affine2d,
                theta_rhs.theta_rhs2d, prefix.affine_prefix, prefix.affine_windows,
-               periodic.periodic_solve2d, triton_kernels.allen_cahn_pointwise,
+               periodic.periodic_solve2d, pointwise.allen_cahn_pointwise,
                runge_kutta.dopri45_arenstorf, triton_kernels.rk4_brusselator,
                triton_kernels.gray_scott_pointwise, triton_kernels.burgers2d_pointwise,
                dense_newton.burgers1d_newton, periodic.circulant_solve1d,
@@ -116,7 +118,7 @@ PLAIN = Ops(heat_kernels.interval_affine_plain, heat_kernels.theta_chain_plain,
             heat_kernels.sine_solve2d_plain, heat_kernels.sine_affine2d_plain,
             theta_rhs.theta_rhs2d_plain, prefix.affine_prefix_plain,
             prefix.affine_windows_plain, periodic.periodic_solve2d_plain,
-            triton_kernels.allen_cahn_pointwise_plain, runge_kutta.dopri45_arenstorf_plain,
+            pointwise.allen_cahn_pointwise_plain, runge_kutta.dopri45_arenstorf_plain,
             triton_kernels.rk4_brusselator_plain, triton_kernels.gray_scott_pointwise_plain,
             triton_kernels.burgers2d_pointwise_plain, dense_newton.burgers1d_newton_plain,
             periodic.circulant_solve1d_plain, transfer.restrict_combine_plain,

@@ -1,10 +1,10 @@
 """Build and load the CUDA C++ kernels (K1 interval_affine, K2 theta_chain,
 K3 residual_row_norms, K4 cpoint_combine, K5 sine_solve2d, K6
 sine_affine2d, K7 theta_rhs2d, K8 affine_prefix, K9 affine_windows, K10
-periodic_solve2d, K12 dopri45_arenstorf, K16 burgers1d_newton, K17 circulant_solve1d, K18
-restrict_combine, K19 interpolate_combine, K20 sine_solve1d, K21
-indexed_combine, K22 eig_step, K23 dd_interval_affine, K24 dd_theta_chain,
-K25 dd_arith, K26 dd_matmul).
+periodic_solve2d, K11 allen_cahn_pointwise, K12 dopri45_arenstorf, K16
+burgers1d_newton, K17 circulant_solve1d, K18 restrict_combine, K19
+interpolate_combine, K20 sine_solve1d, K21 indexed_combine, K22 eig_step,
+K23 dd_interval_affine, K24 dd_theta_chain, K25 dd_arith, K26 dd_matmul).
 
 The sources under ``csrc/`` have a plain C interface.  On first use each
 ``.cu`` file is compiled by its own ``nvcc`` process for Hopper
@@ -45,8 +45,8 @@ _SIGNATURES = {
     "pm_theta_rhs2d": [_P, _D, _D, _D, _D, _P],
     "pm_affine_prefix": [_P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _P],
     "pm_affine_windows": [_P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P],
-    "pm_periodic_solve2d": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _D, _D,
-                            _P, _I, _I, _I, _P, _I, _I, _I, _P],
+    # the packed argument array, the prologue's two scalars, the stream
+    "pm_periodic_solve2d": [_P, _D, _D, _P],
     "pm_dopri45_arenstorf": [_P, _I, _P, _P, _P, _I, _I, _P, _I, _I, _P, _D, _D, _D, _I, _I, _I,
                              _P],
     "pm_burgers1d_newton": [_P, _I, _P, _P, _I, _I, _P, _I, _I, _P, _P, _D, _D, _D, _D, _D, _I,
@@ -63,6 +63,8 @@ _SIGNATURES = {
     "pm_cpoint_combine": [_P, _D, _D, _D, _P],
     # the packed argument array, s, u, out, the stream
     "pm_residual_row_norms": [_P, _P, _P, _P, _P],
+    # the packed argument array, 1/eps^2, dx^2, the stream
+    "pm_allen_cahn_pointwise": [_P, _D, _D, _P],
 }
 # the float32-pair (double-double) launchers: one symbol each, no dtype suffix
 _DD_SIGNATURES = {

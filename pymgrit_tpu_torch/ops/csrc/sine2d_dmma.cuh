@@ -3,11 +3,14 @@
 // states with r, c <= 128, each state held in shared memory by one block
 // from its load to its store (float32 keeps the FFMA core of sine2d.cuh:
 // the tensor cores have no full-float32 product, and TF32 is not used).
-// One kernel body (one_tile) serves both: what it loads into the tiles and
-// how it stores them are compile-time policies (K5's SolveIO below: the
-// states by cp.async, the solve's divide, the ring and g; K6's AffineIO in
-// sine_affine2d.cu: the closed-form coefficient tile formed in place, the
-// (interval, row) output address and the seed copy).
+// One kernel body (one_tile) serves them all: what it loads into the
+// tiles, the shift of each state's divide and how it stores the tiles are
+// compile-time policies (K5's SolveIO below: the states by cp.async, the
+// solve's divide, the ring and g; K6's AffineIO in sine_affine2d.cu: the
+// closed-form coefficient tile formed in place, the (interval, row) output
+// address and the seed copy; K10's PeriodicIO in periodic_solve2d.cu: the
+// (lane, species) states, the IMEX right-hand side formed in place, the
+// shift times the species' coefficient, g).
 //
 // Layout.  A state lives in a T x T tile of shared memory, T the side
 // rounded up to 16, 32, 64 or 128, with leading dimension T + 4 (as
@@ -129,9 +132,10 @@ __device__ __forceinline__ void copy_slab(double* slot, const double* __restrict
 //   after the basis's first slabs are in flight (K6's prologue);
 // * load<T>(p, tiles, z0): the block's SPB states into their tiles, zeros
 //   outside r x c and for states past B;
+// * shift(p, z) (a solve): the shift of state z's divide by 1 + shift Lam;
 // * store<T>(p, tiles, z0, warp, lane): the results out of the tiles.
-// Every name the body reads from p (B, Sx, Sy, r, c, cx, cy, and lam,
-// shift, shift0 for a solve) is a field of IO::Params.
+// Every name the body reads from p (B, Sx, Sy, r, c, cx, cy, and lam for a
+// solve) is a field of IO::Params.
 template <int T, class IO>
 __device__ __forceinline__ void one_tile(const typename IO::Params& p) {
   using C = Cfg<T>;
@@ -172,10 +176,7 @@ __device__ __forceinline__ void one_tile(const typename IO::Params& p) {
   const int m0 = (wb / (T / WT)) * WT, n0 = (wb % (T / WT)) * WT;
   double* M = tiles + st * T * LD;
   double sh = 0.0;
-  if constexpr (IO::kSolve) {
-    const int64_t z = z0 + st;
-    sh = p.shift != nullptr && z < p.B ? p.shift[z] : p.shift0;
-  }
+  if constexpr (IO::kSolve) sh = IO::shift(p, z0 + st);
 
   double acc[FM][FN][4];
 #pragma unroll
@@ -247,6 +248,11 @@ struct SolveIO {
   using Params = sine2d_dmma::Params;
   static constexpr bool kSolve = true, kAsyncLoad = true;
 
+  // the shift of state z: one a state, or shift0
+  static __device__ __forceinline__ double shift(const Params& p, int64_t z) {
+    return p.shift != nullptr && z < p.B ? p.shift[z] : p.shift0;
+  }
+
   template <int T>
   static __device__ __forceinline__ void load(const Params& p, double* tiles, int64_t z0) {
     using C = Cfg<T>;
@@ -301,7 +307,8 @@ __global__ void __launch_bounds__(Cfg<T>::kThreads, Cfg<T>::kMinBlocks)
 }
 
 // Launch a one-tile kernel of side T on every state (r, c <= T); P holds B.
-template <int T, class P>
+// Tag tells apart kernels of one side and parameter type (K10's two loads).
+template <int T, class P, class Tag = void>
 cudaError_t run(void (*kernel)(P), const P& p, cudaStream_t stream) {
   using C = Cfg<T>;
   // opt in to the ring and tiles' shared memory once a device (a static
@@ -342,10 +349,12 @@ inline cudaError_t solve(const Params& p, cudaStream_t stream) {
 // plus g at the same place after the last), so that four launches chain as
 // the one-tile kernel's four products do.  With SPLIT (K6's last product)
 // the chunk's flat state index b0 + z is split into (interval j, table row
-// rr) = divmod(b0 + z, D), the output state at dst + j d_hi + rr d_lo, and
-// the blocks of the state's first 64 x 256 block also write its Dirichlet
-// ring from the template field ring ((N + 2) x (R + 2), the state's rows at
-// d_sr, its interior at (1, 1)) when one is given.  A block of 16 warps owns a
+// rr) = divmod(b0 + z, D), the output state at dst + j d_hi + rr d_lo (and
+// g's at g + j g_hi + rr g_lo), and the blocks of the state's first 64 x
+// 256 block also write its Dirichlet ring from the template field ring ((N
+// + 2) x (R + 2), the state's rows at d_sr, its interior at (1, 1)) when
+// one is given (K10's last product splits (lane, species) so, with g and no
+// ring).  A block of 16 warps owns a
 // 64 x 256 block of one state's product (a warp 32 x 32, the one-tile
 // kernel's fragments) and walks K in slabs of kBK through a ring of
 // kBandStages slots holding a slab of A (64 x kBK) and one of S (kBK x 256):
@@ -368,6 +377,7 @@ struct BandArgs {
   const double* ring;         // SPLIT: the ring template, or null
   const double* g;            // plus g[z g_sb + n g_sr + m], or null
   int64_t g_sb, g_sr;
+  int64_t g_hi, g_lo;         // SPLIT: g's strides of j and rr
   const double* lam;          // divide by 1 + sh lam[n lam_ld + m], or null
   int64_t lam_ld;
   const double* shift;        // sh = shift[z], or shift0
@@ -466,9 +476,11 @@ __global__ void __launch_bounds__(kBandThreads, 1) band_product(const BandArgs p
   pm_tile::cp_async_wait<0>();
   const double sh = p.shift != nullptr ? p.shift[z] : p.shift0;
   double* dst = p.dst + z * p.d_sb;
+  const double* gz = p.g != nullptr ? p.g + z * p.g_sb : nullptr;
   if constexpr (SPLIT) {
     const int64_t zg = p.b0 + z, j = zg / p.D;
     dst = p.dst + j * p.d_hi + (zg - j * p.D) * p.d_lo;
+    if (gz != nullptr) gz = p.g + j * p.g_hi + (zg - j * p.D) * p.g_lo;
   }
 #pragma unroll
   for (int i = 0; i < FM; ++i)
@@ -481,7 +493,7 @@ __global__ void __launch_bounds__(kBandThreads, 1) band_product(const BandArgs p
         if (m >= p.R || n >= p.N) continue;
         double v = acc[i][j][h];
         if (p.lam != nullptr) v = v / __dadd_rn(1.0, __dmul_rn(sh, p.lam[n * p.lam_ld + m]));
-        if (p.g != nullptr) v = p.g[z * p.g_sb + n * p.g_sr + m] + v;
+        if (gz != nullptr) v = gz[n * p.g_sr + m] + v;
         dst[n * p.d_sr + m] = v;
       }
   if constexpr (SPLIT) {

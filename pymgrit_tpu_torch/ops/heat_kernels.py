@@ -278,15 +278,6 @@ ONE_TILE = 128       # largest side of the one-tile cores (csrc/sine2d.cuh, sine
 TILED_CHUNK = 512    # states the tiled paths stage at a time
 
 
-def tiled_workspace(states: int, r: int, c: int, like: torch.Tensor):
-    """(workspace, chunk) of K10's tiled path: two buffers of a chunk of
-    (r, c) states; (None, 0) where both sides fit the one-tile core."""
-    if max(r, c) <= ONE_TILE:
-        return None, 0
-    chunk = min(states, TILED_CHUNK)
-    return torch.empty((2, chunk, r, c), dtype=like.dtype, device=like.device), chunk
-
-
 def _with_ring(interior, out, ring):
     """out <- the full states: ring template outside, interior inside."""
     full = ring.expand(out.shape).clone()

@@ -14,7 +14,14 @@ pymgrit_tpu/models/allen_cahn.py ``AllenCahn._fft_solve`` and the FFT
 solves of pymgrit_tpu/models/gray_scott_2d.py ``_fft_solve_diffusion`` and
 burgers.py ``Burgers2D._fft_visc_solve`` (one coefficient per species:
 (du, dv) and (nu, nu)).  The two routes agree to rounding (a few ulp per
-length-n product), not bitwise.
+length-n product), not bitwise.  K10's float64 path runs K5's DMMA core
+(the one-tile kernel up to a side of 128, the band products past it); it
+is the Newton-Krylov models' preconditioner, once per Krylov iteration on
+8-16 states, so its wrapper keeps host time down as K5's does: the
+checks, the workspace's plan (``periodic_plan``) and the argument array
+(``periodic_pack``) are cached by the operands' facts (``_checked``), and a
+launch is one ctypes call with the array, the prologue's two scalars and
+the stream.
 
 K17 replaces the Fourier solve of pymgrit_tpu/models/advection_1d.py
 ``Advection1D.step``: the upwind backward-Euler matrix is cyclic
@@ -27,12 +34,16 @@ CUDA tensor launches the kernel or raises.
 
 from __future__ import annotations
 
+import array
+import functools
+
 import numpy as np
 import torch
 
 from pymgrit_tpu_torch.ops import _build
-from pymgrit_tpu_torch.ops.heat_kernels import (_check_operands, _launcher, _require,
-                                                 tiled_workspace)
+from pymgrit_tpu_torch.ops.heat_kernels import (ONE_TILE, TILED_CHUNK, _check_facts,
+                                                 _check_operands, _contiguous, _launcher,
+                                                 _require, fact)
 
 
 def hartley_basis(n: int) -> np.ndarray:
@@ -86,6 +97,93 @@ def periodic_solve2d_plain(b, out, H, lam, shift, nu=0, inv_eps2=0.0, g=None, co
     return out
 
 
+# periodic_solve2d's operands in the order of its argument array's pointer
+# slots 1-7 (csrc/periodic_solve2d.cu ``launch``; slot 8 the workspace)
+_KEYS = ("b", "out", "H", "lam", "shift", "coef", "g")
+
+
+def periodic_plan(B, S, n):
+    """The states a workspace pass of a K10 call on B lanes of S species
+    of side n holds: 0 up to a side of ONE_TILE, where the one-tile kernel
+    (float64 DMMA, float32 FFMA) needs no workspace; past it the launcher
+    runs the right-hand side pass and four band products (float64) or
+    tiled2d (float32) on chunks of this many states.  (The band products
+    split a state over blocks; at the preconditioner's small batches,
+    B S = 1-64 of 128^2, one block a state was the faster on an H100 at
+    every batch, so they serve wider states only: PERF.md.)"""
+    return min(B * S, TILED_CHUNK) if n > ONE_TILE else 0
+
+
+def periodic_workspace(dtype, n, chunk):
+    """Elements of K10's workspace: float64 (the band route), a copy of H
+    with rows of even length ld = n + n % 2, the two buffers of a chunk of
+    (n x ld) states and the chunk's shifts; float32 (past ONE_TILE), the
+    tiled path's two buffers of a chunk of (n x n) states."""
+    if not chunk:
+        return 0
+    if dtype == torch.float64:
+        ld = n + n % 2
+        return n * ld * (1 + 2 * chunk) + chunk
+    return 2 * chunk * n * n
+
+
+def periodic_pack(index, bs, os, gs, B, S, n, mode, nu, chunk):
+    """The launcher's int64 argument array (csrc/periodic_solve2d.cu
+    ``launch``): device, seven operand pointers and the workspace's (filled
+    in by each call), b's, out's and g's lane, species and row strides, the
+    lanes B, S, n, the prologue mode (0 none, 1 Allen-Cahn, 2 Gray-Scott),
+    nu, the workspace's chunk of states."""
+    return array.array("q", (index, *(0,) * 8, *bs, *os, *gs, B, S, n, mode, nu, chunk))
+
+
+def _species_strides(shape, stride):
+    """(lane, species, row) strides of a (B, n, n) or (B, S, n, n) view."""
+    return (stride[0], 0, stride[1]) if len(shape) == 3 else tuple(stride[:3])
+
+
+@functools.lru_cache(maxsize=1024)
+def _checked(facts, present, nu, gray_scott):
+    """Every check of a K10 call, on the ``fact``s of the operands given
+    (``present``: which of ``_KEYS``), nu and whether the Gray-Scott
+    prologue is asked for, cached by them (K10 is the preconditioner of
+    every Krylov iteration of the Newton-Krylov models); returns (on the
+    CPU, the launch: the argument array without pointers, the launcher, the
+    device index and the workspace's size in elements; None on the CPU or
+    with no states)."""
+    name = "periodic_solve2d"
+    keys = [k for k, p in zip(_KEYS, present) if p]
+    _check_facts(name, facts, keys.__getitem__)
+    f = dict(zip(keys, facts))
+    dtype, device, bshape, bstride = f["b"]
+    if not (len(bshape) in (3, 4) and bshape[-1] == bshape[-2]):
+        _require(False, name, f"b has shape {tuple(bshape)}, expected (B, n, n) or (B, S, n, n)")
+    B, n = bshape[0], bshape[-1]
+    S = bshape[1] if len(bshape) == 4 else 1
+    for key in ("out", "g"):
+        if key in f and f[key][2] != bshape:
+            _require(False, name, f"{key} has shape {tuple(f[key][2])}, expected {tuple(bshape)}")
+    if not (tuple(f["H"][2]) == (n, n) and tuple(f["lam"][2]) == (n, n)
+            and _contiguous(*f["H"][2:]) and _contiguous(*f["lam"][2:])):
+        _require(False, name, f"H and lam must be contiguous ({n}, {n}) tables")
+    if not (tuple(f["shift"][2]) == (B,) and _contiguous(*f["shift"][2:])):
+        _require(False, name, f"shift must be a contiguous ({B},) tensor")
+    if "coef" in f and not (tuple(f["coef"][2]) == (S,) and _contiguous(*f["coef"][2:])):
+        _require(False, name, f"coef must be a contiguous ({S},) tensor")
+    if nu < 0:
+        _require(False, name, "nu must be >= 0")
+    if gray_scott and not (S == 2 and not nu):
+        _require(False, name, "the Gray-Scott prologue takes (B, 2, n, n) pairs and no nu")
+    if device.type == "cpu" or B == 0:
+        return device.type == "cpu", None
+    chunk = periodic_plan(B, S, n)
+    mode = 1 if nu else 2 if gray_scott else 0
+    gs = _species_strides(*f["g"][2:]) if "g" in f else (0, 0, 0)
+    args = periodic_pack(device.index, _species_strides(bshape, bstride),
+                         _species_strides(*f["out"][2:]), gs, B, S, n, mode, nu, chunk)
+    return False, (args, _launcher("pm_periodic_solve2d", dtype), device.index,
+                   periodic_workspace(dtype, n, chunk))
+
+
 def periodic_solve2d(b, out, H, lam, shift, nu=0, inv_eps2=0.0, g=None, coef=None,
                      gray_scott=None):
     """Batched solve (I - shift_b coef_s L) x_bs = r_bs of B periodic lanes
@@ -99,52 +197,31 @@ def periodic_solve2d(b, out, H, lam, shift, nu=0, inv_eps2=0.0, g=None, coef=Non
     into an IMEX right-hand side: nu > 0 the Allen-Cahn one
     r = b + shift ((inv_eps2 b)(1 - b^nu)), gray_scott = (a, b) the
     Gray-Scott one over the pair (u, v) (S = 2); else r = b.  out must not
-    overlap b or g other than as the same view (and not even so with the
-    Gray-Scott prologue).  Returns out.
+    overlap b or g other than as the same view (and not even so
+    with the Gray-Scott prologue).  Returns out.
     """
-    name = "periodic_solve2d"
-    ops = dict(b=b, out=out, H=H, lam=lam, shift=shift)
-    if g is not None:
-        ops["g"] = g
-    if coef is not None:
-        ops["coef"] = coef
-    _check_operands(name, ops)
-    _require(b.dim() in (3, 4) and b.shape[-1] == b.shape[-2], name,
-             f"b has shape {tuple(b.shape)}, expected (B, n, n) or (B, S, n, n)")
-    B, n = b.shape[0], b.shape[-1]
-    S = b.shape[1] if b.dim() == 4 else 1
-    for key, t in (("out", out), ("g", g)):
-        _require(t is None or t.shape == b.shape, name,
-                 f"{key} has shape {tuple(t.shape) if t is not None else None}, "
-                 f"expected {tuple(b.shape)}")
-    _require(tuple(H.shape) == (n, n) and tuple(lam.shape) == (n, n)
-             and H.is_contiguous() and lam.is_contiguous(), name,
-             f"H and lam must be contiguous ({n}, {n}) tables")
-    _require(tuple(shift.shape) == (B,) and shift.is_contiguous(), name,
-             f"shift must be a contiguous ({B},) tensor")
-    _require(coef is None or (tuple(coef.shape) == (S,) and coef.is_contiguous()), name,
-             f"coef must be a contiguous ({S},) tensor")
-    _require(int(nu) >= 0, name, "nu must be >= 0")
-    _require(gray_scott is None or (S == 2 and not nu), name,
-             "the Gray-Scott prologue takes (B, 2, n, n) pairs and no nu")
-    _require(gray_scott is None or out.data_ptr() != b.data_ptr(), name,
-             "the Gray-Scott prologue reads both species: out must not be b")
-    if b.device.type == "cpu":
+    ops = (b, out, H, lam, shift, coef, g)
+    on_cpu, launch = _checked(tuple([fact(t) for t in ops if t is not None]),
+                              tuple(t is not None for t in ops), int(nu), gray_scott is not None)
+    if gray_scott is not None and b.numel() and out.data_ptr() == b.data_ptr():
+        _require(False, "periodic_solve2d",
+                 "the Gray-Scott prologue reads both species: out must not be b")
+    if on_cpu:
         return periodic_solve2d_plain(b, out, H, lam, shift, nu, inv_eps2, g, coef, gray_scott)
-    if B == 0:
+    if launch is None:
         return out
-    b4, out4, g4 = _species(b), _species(out), _species(g)
-    mode, p0, p1 = (1, inv_eps2, 0.0) if nu else (2, *gray_scott) if gray_scott else (0, 0.0, 0.0)
-    ws, chunk = tiled_workspace(B * S, n, n, b)
-    fn = _launcher("pm_periodic_solve2d", b.dtype)
-    stream = torch.cuda.current_stream(b.device).cuda_stream
-    status = fn(b4.data_ptr(), *b4.stride()[:3], out4.data_ptr(), *out4.stride()[:3],
-                H.data_ptr(), lam.data_ptr(), shift.data_ptr(),
-                coef.data_ptr() if coef is not None else None, S, mode, int(nu), float(p0),
-                float(p1), g4.data_ptr() if g4 is not None else None,
-                *(g4.stride()[:3] if g4 is not None else (0, 0, 0)),
-                ws.data_ptr() if ws is not None else None, chunk, B, n, stream)
-    _build.check(status, name)
+    tmpl, fn, index, ws_size = launch
+    args = tmpl[:]
+    for k, t in enumerate(ops):
+        if t is not None:
+            args[1 + k] = t.data_ptr()
+    ws = None
+    if ws_size:
+        ws = torch.empty(ws_size, dtype=b.dtype, device=b.device)
+        args[8] = ws.data_ptr()
+    p0, p1 = (inv_eps2, 0.0) if nu else gray_scott if gray_scott is not None else (0.0, 0.0)
+    _build.check(fn(args.buffer_info()[0], float(p0), float(p1), _build.stream(index)),
+                 "periodic_solve2d")
     periodic_solve2d.launches += 1
     return out
 

@@ -1,17 +1,18 @@
-"""Kernels K11 ``allen_cahn_pointwise``, K13 ``rk4_brusselator``, K14
-``gray_scott_pointwise`` and K15 ``burgers2d_pointwise`` (Triton), each
-beside its plain PyTorch version.  (K3 ``residual_row_norms``, K4
-``cpoint_combine``, K7 ``theta_rhs2d``, K18 ``restrict_combine``, K19
+"""Kernels K13 ``rk4_brusselator``, K14 ``gray_scott_pointwise`` and K15
+``burgers2d_pointwise`` (Triton), each beside its plain PyTorch version.
+(K3 ``residual_row_norms``, K4 ``cpoint_combine``, K7 ``theta_rhs2d``, K11
+``allen_cahn_pointwise``, K18 ``restrict_combine``, K19
 ``interpolate_combine`` and K21 ``indexed_combine`` are CUDA C++:
 ``csrc/residual_row_norms.cu``, ``csrc/indexed_combine.cu`` (wrappers in
 ``indexed``), ``csrc/theta_rhs2d.cu`` (wrapper in ``theta_rhs``),
+``csrc/allen_cahn_pointwise.cu`` (wrapper in ``pointwise``),
 ``csrc/restrict_combine.cu``, ``csrc/interpolate_combine.cu``.)
 
-K11, K14 and K15 are stencil passes for the periodic nonlinear
-models (pymgrit_tpu/models/allen_cahn.py, gray_scott_2d.py, burgers.py):
-the Newton residual with its per-lane max, the Jacobian matvec, and
-(K14) the explicit Gray-Scott step; K14 and K15 hold both species of a
-lane in one program.  K13 is the Brusselator's RK4 chain.
+K14 and K15 are stencil passes for the periodic nonlinear models
+(pymgrit_tpu/models/gray_scott_2d.py, burgers.py): the Newton residual
+with its per-lane max, the Jacobian matvec, and (K14) the explicit
+Gray-Scott step; each holds both species of a lane in one program.  K13
+is the Brusselator's RK4 chain.
 
 Dispatch as in ``heat_kernels``: CPU tensors go to the plain version, CUDA
 tensors launch the Triton kernel or raise.  ``triton`` is imported on the
@@ -25,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from pymgrit_tpu_torch.ops.heat_kernels import _check_operands, _require
-from pymgrit_tpu_torch.ops.periodic import ipow
+from pymgrit_tpu_torch.ops.pointwise import periodic_lap_plain
 from pymgrit_tpu_torch.ops.runge_kutta import rk4_step
 
 tl = None            # triton.language, bound by _jit() on first launch
@@ -33,62 +34,6 @@ _JIT = {}            # kernel name -> triton.JITFunction
 _COEF_CACHE = {}     # (coeffs, dtype, device) -> coefficient tensor
 
 _BLOCK = 1024
-
-
-def _allen_cahn_body(u_ptr, x_ptr, r_ptr, out_ptr, max_ptr, fac_ptr, c_ptr,
-                     u_sb, u_sr, x_sb, x_sr, r_sb, r_sr, o_sb, o_sr, n, NBLK,
-                     MODE: tl.constexpr, NU: tl.constexpr, BLOCK: tl.constexpr):
-    # MODE 0: out = u + fac (L u + f(u))                (CN right-hand side)
-    # MODE 1: out = u - fac (L u + f(u)) - r, with each program's max |out|
-    #         (NaN if any entry is NaN) in max_ptr[b, block]
-    # MODE 2: out = x - fac (L x + (1 - (NU+1) u^NU) x / eps^2)  (Jacobian)
-    # f(u) = (u / eps^2)(1 - u^NU); L is the periodic 5-point Laplacian; c_ptr
-    # holds (1 / eps^2, dx^2) in the working dtype; fac is per state.
-    b = tl.program_id(0).to(tl.int64)
-    blk = tl.program_id(1)
-    idx = blk * BLOCK + tl.arange(0, BLOCK)
-    mask = idx < n * n
-    i = idx // n
-    j = idx - i * n
-    im = tl.where(i == 0, n - 1, i - 1)
-    ip = tl.where(i == n - 1, 0, i + 1)
-    jm = tl.where(j == 0, n - 1, j - 1)
-    jp = tl.where(j == n - 1, 0, j + 1)
-    fac = tl.load(fac_ptr + b)
-    inv_eps2 = tl.load(c_ptr)
-    dx2 = tl.load(c_ptr + 1)
-    ub = u_ptr + b * u_sb
-    u = tl.load(ub + i * u_sr + j, mask=mask, other=0.0)
-    if MODE == 2:
-        xb = x_ptr + b * x_sb
-        xs = x_sr
-        x = tl.load(xb + i * xs + j, mask=mask, other=0.0)
-    else:
-        xb = ub
-        xs = u_sr
-        x = u
-    lap = ((((tl.load(xb + im * xs + j, mask=mask, other=0.0)
-              + tl.load(xb + ip * xs + j, mask=mask, other=0.0))
-             + tl.load(xb + i * xs + jm, mask=mask, other=0.0))
-            + tl.load(xb + i * xs + jp, mask=mask, other=0.0)) - 4.0 * x) / dx2
-    p = u
-    for _ in tl.static_range(NU - 1):
-        p = p * u
-    if MODE == 2:
-        v = x - fac * (lap + (inv_eps2 * (1.0 - (NU + 1) * p)) * x)
-    else:
-        f = (inv_eps2 * u) * (1.0 - p)
-        if MODE == 0:
-            v = u + fac * (lap + f)
-        else:
-            r = tl.load(r_ptr + b * r_sb + i * r_sr + j, mask=mask, other=0.0)
-            v = (u - fac * (lap + f)) - r
-            a = tl.where(mask, tl.abs(v), 0.0)
-            # tl.max drops NaN; a sum of the NaN entries (0 where there are
-            # none) adds it back, so a NaN lane reports NaN as jnp.max does
-            nan = tl.sum(tl.where(mask & (v != v), v, 0.0), axis=0)
-            tl.store(max_ptr + b * NBLK + blk, tl.max(a, axis=0) + nan)
-    tl.store(out_ptr + b * o_sb + i * o_sr + j, v, mask=mask)
 
 
 def _gray_scott_body(s_ptr, w_ptr, r_ptr, g_ptr, out_ptr, max_ptr, dt_ptr, c_ptr,
@@ -306,7 +251,6 @@ def _jit():
         import triton.language
 
         tl = triton.language
-        _JIT["allen_cahn"] = triton.jit(_allen_cahn_body)
         _JIT["rk4_brusselator"] = triton.jit(_rk4_brusselator_body)
         _JIT["gray_scott"] = triton.jit(_gray_scott_body)
         _JIT["burgers2d"] = triton.jit(_burgers2d_body)
@@ -321,91 +265,6 @@ def _coefficients(coeffs, dtype, device):
     if c is None:
         c = _COEF_CACHE[key] = torch.tensor(key[0], dtype=dtype, device=device)
     return c
-
-
-# ---------------------------------------------------------------------------
-# K11 allen_cahn_pointwise
-# ---------------------------------------------------------------------------
-
-AC_MODES = ("rhs", "residual", "jacobian")
-
-
-def periodic_lap_plain(x, dx2):
-    """The periodic 5-point Laplacian of (B, n, n) states, summed in the
-    order of pymgrit_tpu/models/allen_cahn.py ``AllenCahn._lap``."""
-    return ((((torch.roll(x, 1, 1) + torch.roll(x, -1, 1)) + torch.roll(x, 1, 2))
-             + torch.roll(x, -1, 2)) - 4.0 * x) / dx2
-
-
-def allen_cahn_pointwise_plain(mode, u, out, fac, inv_eps2, dx2, nu, x=None, rhs=None):
-    """rhs: out = u + fac (L u + f(u)); residual: out = u - fac (L u + f(u))
-    - rhs, returns (out, max |out| per state, NaN-propagating as jnp.max);
-    jacobian: out = x - fac (L x + (inv_eps2 (1 - (nu+1) u^nu)) x)."""
-    f_ = fac.view(-1, 1, 1)
-    p = ipow(u, nu)
-    if mode == "jacobian":
-        out.copy_(x - f_ * (periodic_lap_plain(x, dx2) + (inv_eps2 * (1.0 - (nu + 1) * p)) * x))
-        return out
-    lap_f = periodic_lap_plain(u, dx2) + (inv_eps2 * u) * (1.0 - p)
-    if mode == "rhs":
-        out.copy_(u + f_ * lap_f)
-        return out
-    out.copy_((u - f_ * lap_f) - rhs)
-    return out, out.abs().amax(dim=(1, 2))
-
-
-def allen_cahn_pointwise(mode, u, out, fac, inv_eps2, dx2, nu, x=None, rhs=None):
-    """One fused stencil + reaction pass over B periodic (n, n) states.
-
-    mode "rhs" (CN's right-hand side), "residual" (the Newton residual
-    g = u - fac (L u + f(u)) - rhs; returns (out, (B,) max |g| with NaN
-    where g holds a NaN)) or "jacobian" (the Jacobian at u applied to x).
-    u, x, rhs, out: (B, n, n) views with contiguous rows; fac: contiguous
-    (B,) tensor; inv_eps2 = 1/eps^2 and dx2 = dx^2 are floats; nu >= 1 an
-    integer.  out must not overlap the inputs.  Returns out (or the pair).
-    """
-    name = "allen_cahn_pointwise"
-    _require(mode in AC_MODES, name, f"mode must be one of {AC_MODES}")
-    ops = dict(u=u, out=out, fac=fac)
-    if mode == "jacobian":
-        _require(x is not None, name, "the jacobian mode needs x")
-        ops["x"] = x
-    if mode == "residual":
-        _require(rhs is not None, name, "the residual mode needs rhs")
-        ops["rhs"] = rhs
-    _check_operands(name, ops)
-    _require(u.dim() == 3 and u.shape[1] == u.shape[2], name,
-             f"u has shape {tuple(u.shape)}, expected (B, n, n)")
-    B, n = u.shape[0], u.shape[1]
-    for key, t in ops.items():
-        if key != "fac":
-            _require(tuple(t.shape) == (B, n, n), name,
-                     f"{key} has shape {tuple(t.shape)}, expected ({B}, {n}, {n})")
-    _require(tuple(fac.shape) == (B,) and fac.is_contiguous(), name,
-             f"fac must be a contiguous ({B},) tensor")
-    _require(int(nu) >= 1, name, "nu must be >= 1")
-    if u.device.type == "cpu":
-        return allen_cahn_pointwise_plain(mode, u, out, fac, inv_eps2, dx2, nu, x, rhs)
-    nblk = -(-(n * n) // _BLOCK)
-    part = torch.empty((B, nblk), dtype=u.dtype, device=u.device) if mode == "residual" else None
-    if B:
-        c = _coefficients((inv_eps2, dx2), u.dtype, u.device)
-        xs = x if x is not None else u
-        rs = rhs if rhs is not None else u
-        with torch.cuda.device(u.device):
-            _jit()["allen_cahn"][(B, nblk)](
-                u, xs, rs, out, part if part is not None else out, fac, c,
-                u.stride(0), u.stride(1), xs.stride(0), xs.stride(1), rs.stride(0), rs.stride(1),
-                out.stride(0), out.stride(1), n, nblk, MODE=AC_MODES.index(mode), NU=int(nu),
-                BLOCK=_BLOCK, num_warps=4)
-        allen_cahn_pointwise.launches += 1
-    if mode == "residual":
-        # torch.amax keeps a NaN partial
-        return out, part.amax(dim=1)
-    return out
-
-
-allen_cahn_pointwise.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -26,7 +26,7 @@ import torch
 import pymgrit_tpu as J
 import pymgrit_tpu_torch as P
 from pymgrit_tpu_torch.interop import state_from_numpy
-from pymgrit_tpu_torch.ops import periodic, row_norms, triton_kernels
+from pymgrit_tpu_torch.ops import periodic, pointwise, row_norms
 
 torch.set_num_threads(1)
 
@@ -237,8 +237,8 @@ def test_residual_max_keeps_nan_and_inf(nx):
     rhs[2, 0, 0] = np.inf
     rhs[3, 1, 1], rhs[3, 2, 2] = np.inf, np.nan
     fac = _t(np.full(4, 1e-3))
-    g, gmax = triton_kernels.allen_cahn_pointwise("residual", _t(u), torch.empty(u.shape, dtype=torch.float64),
-                                                  fac, 625.0, 1.0 / nx ** 2, 2, rhs=_t(rhs))
+    g, gmax = pointwise.allen_cahn_pointwise("residual", _t(u), torch.empty(u.shape, dtype=torch.float64),
+                                             fac, 625.0, 1.0 / nx ** 2, 2, rhs=_t(rhs))
     ref = np.asarray(jnp.max(jnp.abs(jnp.asarray(g.numpy())), axis=(1, 2)))
     np.testing.assert_array_equal(gmax.numpy(), ref)
     assert np.isfinite(ref[0]) and np.isnan(ref[1]) and ref[2] == np.inf and np.isnan(ref[3])

@@ -34,7 +34,7 @@ import torch
 
 import pymgrit_tpu_torch as P
 from pymgrit_tpu_torch.ops import (DISPATCH, PLAIN, _build, dense_newton, heat_kernels,
-                                   indexed, launch_counts, periodic, prefix,
+                                   indexed, launch_counts, periodic, pointwise, prefix,
                                    reset_launch_counts, row_norms, runge_kutta, theta_rhs,
                                    triton_kernels)
 from pymgrit_tpu_torch.ops.dirichlet_spectral import sine_eigenbasis
@@ -987,7 +987,7 @@ def _k11_args(**over):
 ])
 def test_allen_cahn_pointwise_rejects(over, match):
     with pytest.raises(ValueError, match=match):
-        triton_kernels.allen_cahn_pointwise(**_k11_args(**over))
+        pointwise.allen_cahn_pointwise(**_k11_args(**over))
 
 
 def _ode_args(d, **over):
