@@ -18,17 +18,21 @@ phases:
              of K5's, K6's and K10's float64 kernels (required in each, with
              no spills, by instantiation), K22 and K26, and ptxas's log
              gives the registers, spills and static shared memory of K2-K7,
-             K10, K11 (no spills) and the FP64 product tile K22 and K26
-             share (``csrc/dmma_tile.cuh``);
+             K10, K11, K16, K25 (no spills) and the FP64 product tile K22
+             and K26 share (``csrc/dmma_tile.cuh``);
 3. kernels   K1-K22 against their plain PyTorch versions at the main paths'
              shapes (and odd ones, and K5/K6/K10/K16/K17 past the sizes
-             their wrappers once refused), float32 and float64, with
-             timings (K1-K7, K10, K11, K18, K19, K21 in rounds, with
-             their device time on a cold L2); for each kernel's headline case (and each
+             their wrappers once refused, K16 on both of its routes),
+             float32 and float64, with timings (K1-K7, K10, K11, K16, K18,
+             K19, K21 and K25 in rounds, the output made untimed, with
+             their device time on a cold L2; K16's Newton iterations
+             equal to the plain version's); for each kernel's headline case (and each
              case that records its work) its bound (bytes or FP64 operations over the
              H100's peaks) and, where one PyTorch call computes the same
              function, that call's time; then the double-double K23-K26
-             (``[dd-kernels]``) at the [dd] phase's shapes, K23-K25 bit for
+             (``[dd-kernels]``) at the [dd] phase's shapes (K25 also at
+             dd65's: the 5-point combine on one lane and on the level-0
+             lane batch), K23-K25 bit for
              bit and K26 within 1e-14 of max(|A| |B|); K22 (1, 8 and 128
              lanes) and K26 print each case's product plan and repeat bit
              for bit on a second launch (``product_sweep.py`` times both
@@ -108,16 +112,18 @@ phases:
              Diffusion2D (n = 8) against the float64 history, in DD.
 
 ``python3 chip_smoke.py --kernels=interval_affine,interpolate_combine`` runs
-phases 1-3 for the named kernels alone (float64 and float32) and ends in
+phases 1-3 (and ``[dd-kernels]``) for the named kernels alone (float64 and
+float32) and ends in
 ``{"kernels_only": true, ...}``, never the ``"ok"`` of a full run.
 
 ``python3 chip_smoke.py --profile`` runs phases 1-2 and then one profiled
 solve of each configuration of phases 11-13, of Allen-Cahn's IMPL and CN
 runs (with K11's wrapper time a call) and of the spectral and physical
 TOMS solves, the ragged row, the spatial row, the BDF example, the two DD
-rows and the deep diffusion grid (``torch.profiler``): device busy and
-idle share, the leading device ops, the device time of K1, K2, K4-K7,
-K10, K11 and the row kernels, launches and syncs.  It compares and checks
+rows (with K25's wrapper time a call) and the deep diffusion grid
+(``torch.profiler``): device busy and idle share, the leading device ops,
+the device time of K1, K2, K4-K7, K10, K11, K16, K25 and the row kernels,
+launches and syncs.  It compares and checks
 nothing, so its last line is ``{"profile": true, ...}`` and never the
 ``"ok"`` of a checked run.
 
@@ -521,6 +527,22 @@ def phase_build():
         ks = [k for k in k24 if k.startswith(prefix)]
         check(len(ks) == n and all(k24[k][1] == 0 and k24[k][2] == 0 for k in ks),
               f"build: {n} {prefix} kernels must compile without spills: {k24}")
+    k1625 = ptxas(_build.build_log(), K16_K25_NAME, k16_k25_label)
+    print("[build] K16 / K25 (csrc/burgers1d_newton.cu, dd_arith.cu), ptxas: "
+          + " ; ".join(f"{name}: {regs} registers, spill stores/loads {st}/{ld} B, static "
+                       f"smem {sm} B" for name, (regs, st, ld, sm) in k1625.items())
+          + " (K16's shared route: 8 n values a lane in dynamic shared memory, "
+          + ", ".join(f"n = {n} {e}: {8 * n * b} B" for n, e, b in ((128, "f64", 8),
+                                                                      (512, "f64", 8),
+                                                                      (128, "f32", 4)))
+          + ")")
+    # K16's four kernels (f64 / f32 x shared memory or the device workspace)
+    # and K25's sixty (fifteen ops, combine by its term count, x V = 1 or 4
+    # x 32- or 64-bit indexing)
+    for prefix, n in {"K16": 4, "K25": 60}.items():
+        ks = [k for k in k1625 if k.startswith(prefix)]
+        check(len(ks) == n and all(k1625[k][1] == 0 and k1625[k][2] == 0 for k in ks),
+              f"build: {n} {prefix} kernels must compile without spills: {k1625}")
     # K5's five f64 kernels (one-tile T = 16-128, band), K6's five (one-tile
     # T = 16-128, the split band store) and K7's six (f64 / f32 x three modes)
     want = {"K5 f64": 5, "K6 f64": 5, "K7": 6}
@@ -640,6 +662,21 @@ def k2_k4_label(m, ln):
         return (f"K2 {'f64' if e2 == 'd' else 'f32'} {'CN' if cn == '1' else 'BE'}"
                 f"{' +g' if g == '1' else ''} rhs {'tabulated' if tab == '1' else 'constant'}")
     return f"K4 {'f64' if e4 == 'd' else 'f32'} terms {nt}"
+
+
+# burgers1d_newton_kernel<T, SHARED> (K16) / dd_arith_kernel<OP, NT, V, I> (K25)
+K16_K25_NAME = re.compile(r"burgers1d_newton_kernelI([df])Lb([01])E"
+                          r"|dd_arith_kernelILi(\d)ELi(\d)ELi(\d)E([ix])E")
+K25_OPS = ("add", "sub", "mul", "div", "sqrt", "neg", "combine", "resid")
+
+
+def k16_k25_label(m, ln):
+    e16, shared, op, nt, v, idx = m.groups()
+    if e16 is not None:
+        return (f"K16 {'f64' if e16 == 'd' else 'f32'} "
+                f"{'shared memory' if shared == '1' else 'device workspace'}")
+    name = K25_OPS[int(op)] + (f" {nt}" if K25_OPS[int(op)] == "combine" else "")
+    return f"K25 {name} V={v} {'32' if idx == 'i' else '64'}-bit"
 
 
 # restrict_combine_kernel<T, DIM, NT, NA> / indexed_combine_kernel<T, NT> /
@@ -1217,7 +1254,6 @@ def slice_cases(dtype, dev, rng, stash):
     advection level-0 F-relaxation (4096 lanes x 3 steps + g), the example's
     (64 x 1), and 4096 lanes with c < -1/2 (the kernel's second branch)."""
     import torch
-    from pymgrit_tpu_torch.ops import DISPATCH
     from pymgrit_tpu_torch.ops.periodic import hartley_basis, periodic_lap_eigs
 
     def t(a):
@@ -1303,25 +1339,15 @@ def slice_cases(dtype, dev, rng, stash):
         seeds = t(np.sin(2 * np.pi * x1) * rng.uniform(0.8, 1.2, (J, 1)))
         g = t(rng.uniform(-1e-3, 1e-3, (J, L, cfg["nx"]))) if with_g else None
         dts = t(np.full((L, J), cfg["t_stop"] / (cfg["nt"] - 1)))
-        # float32 cannot reach the float64 Newton tolerance: a fixed count
-        tol, maxiter = (1e-12, 30) if dtype == torch.float64 else (0.0, 4)
-
-        def run(ops):
-            out = torch.empty((J, L + 1, cfg["nx"]), dtype=dtype, device=dev)[:, 1:]
-            iters = torch.zeros((L, J), dtype=torch.int32, device=dev)
-            ops.burgers1d_newton(seeds, dts, out, g, cfg["nu"], 1.0 / cfg["nx"], tol, maxiter,
-                                 iters)
-            if ops is DISPATCH:
-                stash[("burgers1d_newton", J, L)] = int(iters.sum())
-            return torch.cat([out.flatten(), iters.flatten().to(dtype)])
-        return run
+        return k16_case(seeds, dts, g, cfg["nu"], 1.0 / cfg["nx"], dtype, stash)
 
     md, me = BURGERS_DEEP["ms"][0], BURGERS_EX["ms"][0]
     Jd, Je = (BURGERS_DEEP["nt"] - 1) // md, (BURGERS_EX["nt"] - 1) // me
-    cases += [("burgers1d_newton", f"deep level-0 F-relax J={Jd} L={md - 1} +g",
-               k16(BURGERS_DEEP, Jd, md - 1, True)),
-              ("burgers1d_newton", f"example level-0 F-relax J={Je} L={me - 1}",
-               k16(BURGERS_EX, Je, me - 1, False))]
+    for case, cfg, J, L, with_g in (
+            (f"deep level-0 F-relax J={Jd} L={md - 1} +g", BURGERS_DEEP, Jd, md - 1, True),
+            (f"example level-0 F-relax J={Je} L={me - 1}", BURGERS_EX, Je, me - 1, False)):
+        cases.append(("burgers1d_newton", case, k16(cfg, J, L, with_g)))
+        stash[("iters_len", "burgers1d_newton", case)] = L * J
 
     xa = np.linspace(-1, 1, ADVECTION_DEEP["nx"])[:-1]
     fac = 1.0 / (xa[1] - xa[0])
@@ -1348,17 +1374,46 @@ def slice_cases(dtype, dev, rng, stash):
     return cases
 
 
+def k16_case(seeds, dts, g, nu, dx, dtype, stash):
+    """A K16 RowCase: J lanes of L chained Newton steps from seeds into a
+    strided (J, L, n) view of a tube made untimed, with each lane's and
+    step's iterations; run(ops) returns out and the iterations (as dtype)
+    in one tensor and records the iterations' sum (stash[(kernel, J, L)]
+    and, for n other than the Burgers cells', stash[(kernel, J, L, n)]) for
+    the bound.  float32 cannot reach the float64 Newton tolerance: a fixed
+    count of 4."""
+    import torch
+    (L, J), n = dts.shape, seeds.shape[1]
+    tol, maxiter = (1e-12, 30) if dtype == torch.float64 else (0.0, 4)
+
+    def prepare():
+        return (torch.empty((J, L + 1, n), dtype=dtype, device=seeds.device)[:, 1:],
+                torch.zeros((L, J), dtype=torch.int32, device=seeds.device))
+
+    def launch(ops, state):
+        out, iters = state
+        ops.burgers1d_newton(seeds, dts, out, g, nu, dx, tol, maxiter, iters)
+        return out, iters
+
+    def view(result):
+        out, iters = result
+        stash[("burgers1d_newton", J, L)] = stash[("burgers1d_newton", J, L, n)] = int(iters.sum())
+        return torch.cat([out.flatten(), iters.flatten().to(dtype)])
+    return RowCase(prepare, launch, exact=False, view=view)
+
+
 class RowCase:
-    """A K1-K7, K10, K11, K18, K19 or K21 case in two steps: ``prepare()``
+    """A K1-K7, K10, K11, K16, K18, K19, K21 or K25 case in two steps: ``prepare()``
     makes what the call writes into where the call updates a tube in place
     or into a given out (untimed: the fresh copy of a tube, the empty
     tube), ``launch(ops, state)`` makes the call and returns its output.
     ``run(ops)`` does both: the correctness comparison's fresh operands
     (``view`` turns what the call returns into one tensor: K11's residual
-    and its per-lane max).  With ``exact`` (K1, K2, K4, K7 in float64, K11,
-    K18, K19, K21) the kernel equals its plain version bit for bit;
-    without (K3, K5, K6 and K10 sum in another order) it is held at the
-    kernel tolerance, and a second launch must give the same bits."""
+    and its per-lane max; K16's out and iterations).  With ``exact`` (K1,
+    K2, K4, K7 in float64, K11, K18, K19, K21, K25) the kernel equals its
+    plain version bit for bit; without (K3, K5, K6, K10 and K16 sum in
+    another order) it is held at the kernel tolerance, and a second launch
+    must give the same bits."""
 
     def __init__(self, prepare, launch, exact=True, view=None):
         self.prepare, self.launch, self.exact, self.view = prepare, launch, exact, view
@@ -1699,24 +1754,38 @@ def dd_cases(dev, rng, stash):
         stash[("work", "dd_theta_chain", case)] = (
             8 * (J1 * N + 2 * J1 * L1 * N + 2 * N + L1 * J1) + 4 * N, per * J1 * L1 * N)
 
-    # K25: the solver's combines over 512 packed C-rows, then each op
+    # K25: the solver's combines over 512 packed C-rows, then each op; every
+    # case writes into a buffer made untimed (packed rows, or a (2, ...)
+    # buffer viewed as hi and lo)
     R = J
     terms = [packed(rng.uniform(-1, 1, (R, N))) for _ in range(3)]
 
-    def combine(ops, coeffs, k):
-        out = torch.empty((R, 2, N), dtype=torch.float32, device=dev)
-        return ops.dd_arith("combine", *[dd.pair(t, ops) for t in terms[:k]], coeffs=coeffs,
-                            out=dd.pair(out, ops))
+    def k25(op, args, shape, coeffs=None, rows=False):
+        """A K25 RowCase: the operands' DD views made once (packed tensors
+        viewed as pairs), out made untimed by prepare (resid's float32
+        tensor, packed rows, or a (2, ...) buffer viewed as hi and lo)."""
+        args = [dd.pair(a) if isinstance(a, torch.Tensor) else a for a in args]
+
+        def prepare():
+            if op == "resid":
+                return torch.empty(shape, dtype=torch.float32, device=dev)
+            if rows:
+                return dd.pair(torch.empty((shape[0], 2, *shape[1:]), dtype=torch.float32,
+                                           device=dev))
+            return dd.pair(torch.empty((2, *shape), dtype=torch.float32, device=dev), None, 0)
+
+        def launch(ops, out):
+            return ops.dd_arith(op, *args, coeffs=coeffs, out=out)
+        return RowCase(prepare, launch)
 
     case = f"FAS combine R={R} N={N}"
-    cases.append(("dd_arith", case, lambda ops: combine(ops, [1.0, -1.0, 1.0], 3)))
+    cases.append(("dd_arith", case, k25("combine", terms, (R, N), [1.0, -1.0, 1.0], True)))
     stash[("work", "dd_arith", case)] = (8 * 4 * R * N, (2 * F[A_] + F["neg"]) * R * N)
     case = f"weighted C-update w=1.3 R={R} N={N}"
-    cases.append(("dd_arith", case, lambda ops: combine(ops, [1.3, 1.0 - 1.3], 2)))
+    cases.append(("dd_arith", case, k25("combine", terms[:2], (R, N), [1.3, 1.0 - 1.3], True)))
     stash[("work", "dd_arith", case)] = (8 * 3 * R * N, (2 * F["mul"] + F[A_]) * R * N)
     case = f"resid R={R} N={N}"
-    cases.append(("dd_arith", case, lambda ops: ops.dd_arith(
-        "resid", dd.pair(terms[0], ops), dd.pair(terms[1], ops))))
+    cases.append(("dd_arith", case, k25("resid", terms[:2], (R, N))))
     stash[("work", "dd_arith", case)] = (8 * 2 * R * N + 4 * R * N, F["resid"] * R * N)
 
     def wild(shape):
@@ -1728,24 +1797,42 @@ def dd_cases(dev, rng, stash):
     for op in ("add", "sub", "mul", "div", "sqrt", "neg"):
         args = (yw,) if op == "sqrt" else (xw,) if op == "neg" else (xw, yw)
         case = f"{op} wild R={R} N={N}"
-        cases.append(("dd_arith", case, lambda ops, op=op, args=args: ops.dd_arith(op, *args)))
+        cases.append(("dd_arith", case, k25(op, args, (R, N))))
         stash[("work", "dd_arith", case)] = (8 * (len(args) + 1) * R * N, F[op] * R * N)
     base = 1.0 + 3.975e-12 * rng.uniform(0.5, 1.5, N)
     xc = pair(base)
     case = f"cancellation (1 + tiny) - 1 N={N}"
-    cases.append(("dd_arith", case, lambda ops: ops.dd_arith("sub", xc, dd.from_f64(1.0))))
+    cases.append(("dd_arith", case, k25("sub", (xc, dd.from_f64(1.0)), (N,))))
     stash[("work", "dd_arith", case)] = (8 * 2 * N, F["sub"] * N)
     u0, lam_d = pair(np.float64(0.7371)), pair(np.float64(-1.0))
     t0, t1 = pair(np.float64(0.1)), pair(np.float64(0.15))
 
-    def dahlquist(ops):
-        d = ops.dd_arith("sub", t1, t0)
-        den = ops.dd_arith("sub", dd.from_f64(1.0), ops.dd_arith("mul", d, lam_d))
-        return ops.dd_arith("div", u0, den)
+    one = dd.from_f64(1.0)
 
-    cases.append(("dd_arith", "Dahlquist BE step 0-d", dahlquist))
+    def dahlquist(ops, out):
+        d = ops.dd_arith("sub", t1, t0)
+        den = ops.dd_arith("sub", one, ops.dd_arith("mul", d, lam_d))
+        return ops.dd_arith("div", u0, den, out=out)
+
+    cases.append(("dd_arith", "Dahlquist BE step 0-d", RowCase(lambda: dd.pair(
+        torch.empty((2, *u0.shape), dtype=torch.float32, device=dev), None, 0), dahlquist)))
     stash[("work", "dd_arith", "Dahlquist BE step 0-d")] = (8 * 9, F["sub"] * 2 + F["mul"]
                                                             + F["div"])
+    # [dd65]'s physical step: the 5-point operator (Heat2D._dd_apply_L, one
+    # five-term combine of shifted 63 x 63 interior views of the packed
+    # (B, 2, 65, 65) states) on one lane and on the level-0 lane batch
+    nx65 = DD65["nx"]
+    f65 = float((nx65 - 1) ** 2)
+    for B65 in (1, (DD65["nt"] - 1) // DD65["ms"][0]):
+        u65 = dd.pair(packed(rng.uniform(-1, 1, (B65, nx65, nx65))))
+        views = (u65[:, 1:-1, 1:-1], u65[:, 1:-1, :-2], u65[:, 1:-1, 2:], u65[:, :-2, 1:-1],
+                 u65[:, 2:, 1:-1])
+        case = f"dd65 5-point combine B={B65} of (B, 2, {nx65}, {nx65})"
+        cases.append(("dd_arith", case, k25("combine", views, (B65, nx65 - 2, nx65 - 2),
+                                           [2 * (f65 + f65), -f65, -f65, -f65, -f65])))
+        stash[("work", "dd_arith", case)] = (
+            8 * B65 * (nx65 * nx65 - 4 + (nx65 - 2) ** 2),
+            (5 * F["mul"] + 4 * F[A_]) * B65 * (nx65 - 2) ** 2)
 
     # K26: [dd65]'s physical step products and Diffusion2D's table product
     n2, B = DD65["nx"] - 2, (DD65["nt"] - 1) // DD65["ms"][0]
@@ -1935,11 +2022,11 @@ def past_cap_cases(dtype, dev, rng, stash):
     raised before: K5 and K6 at the toms257 interior 255 (K5: the
     level-0 seed solve of 128 states with the ring; K6: the condensed
     C-step of 128 intervals), K10 at n = 256 (64 Allen-Cahn IMEX states),
-    K16 at n = 512 (32 lanes x 3 steps), K17 at n = 4096 (256 lanes x 3
-    steps, both branches); each with the bytes and operations its function
-    needs."""
+    K16 at n = 512 (32 lanes x 3 steps) and n = 4096 (2 lanes x 1 step:
+    past the shared-memory opt-in in float64, the device workspace), K17 at
+    n = 4096 (256 lanes x 3 steps, both branches); each with the bytes and
+    operations its function needs."""
     import torch
-    from pymgrit_tpu_torch.ops import DISPATCH
     from pymgrit_tpu_torch.ops.dirichlet_spectral import sine_eigenbasis
     from pymgrit_tpu_torch.ops.periodic import hartley_basis, periodic_lap_eigs
 
@@ -1988,25 +2075,19 @@ def past_cap_cases(dtype, dev, rng, stash):
                   RowCase(lambda: torch.empty_like(states), k10, exact=False)))
     stash[("work", "periodic_solve2d", f"IMEX B={Bh} n={nh}")] = k10_work(Bh, 1, nh, False)
 
-    nb, Jb, Lb = 512, 32, 3
-    xb = np.linspace(0, 1, nb, endpoint=False)
-    seeds = t(np.sin(2 * np.pi * xb) * rng.uniform(0.8, 1.2, (Jb, 1)))
-    dts = t(np.full((Lb, Jb), 1.0 / 4096))
-    tol, maxiter = (1e-12, 30) if dtype == torch.float64 else (0.0, 4)
-
-    def k16(ops):
-        out = torch.empty((Jb, Lb, nb), dtype=dtype, device=dev)
-        iters = torch.zeros((Lb, Jb), dtype=torch.int32, device=dev)
-        ops.burgers1d_newton(seeds, dts, out, None, 0.02, 1.0 / nb, tol, maxiter, iters)
-        if ops is DISPATCH:
-            stash[("burgers1d_newton", Jb, Lb, nb)] = int(iters.sum())
-        return torch.cat([out.flatten(), iters.flatten().to(dtype)])
-
-    case16 = f"wide J={Jb} L={Lb} n={nb}"
-    cases.append(("burgers1d_newton", case16, k16))
-    stash[("work", "burgers1d_newton", case16)] = lambda: (
-        8 * (Jb * nb + Lb * Jb + Jb * Lb * nb),
-        stash[("burgers1d_newton", Jb, Lb, nb)] * 60 * nb + Jb * Lb * nb)
+    # K16 at n = 512 (shared memory) and past the card's shared-memory
+    # opt-in (n = 4096 in float64: the device workspace; float32 still fits)
+    for nb, Jb, Lb, route in ((512, 32, 3, "wide"), (4096, 2, 1, "long (f64 device route)")):
+        xb = np.linspace(0, 1, nb, endpoint=False)
+        seeds = t(np.sin(2 * np.pi * xb) * rng.uniform(0.8, 1.2, (Jb, 1)))
+        dts = t(np.full((Lb, Jb), 1.0 / 4096))
+        case16 = f"{route} J={Jb} L={Lb} n={nb}"
+        cases.append(("burgers1d_newton", case16,
+                      k16_case(seeds, dts, None, 0.02, 1.0 / nb, dtype, stash)))
+        stash[("iters_len", "burgers1d_newton", case16)] = Lb * Jb
+        stash[("work", "burgers1d_newton", case16)] = lambda Jb=Jb, Lb=Lb, nb=nb: (
+            8 * (Jb * nb + Lb * Jb + Jb * Lb * nb),
+            stash[("burgers1d_newton", Jb, Lb, nb)] * 60 * nb + Jb * Lb * nb)
 
     na, Ja, La = 4096, 256, 3
     xa = np.linspace(-1, 1, na + 1)[:-1]
@@ -2128,6 +2209,45 @@ HEADLINE = {"interval_affine": "materialize", "theta_chain": "level-1 F-relax",
             "dd_arith": "FAS combine", "dd_matmul": "Heat2D physical"}
 
 
+def row_times(kernel, case, run, stash, f64=True):
+    """Times of a RowCase: ROW_ROUNDS rounds of kernel, plain (library,
+    probe) in turns, each the median of its calls (the plain version's
+    calls within a budget of a fifth of a second a round), the full times
+    the medians of the rounds' medians; the kernel's device time with a cold
+    L2 (``device_ms``) and the library call's alike.  The fresh copy a call
+    writes into is made untimed (``prepare``).  Returns (kernel ms, plain
+    ms, device ms, the printed detail, the library call's rounds)."""
+    from pymgrit_tpu_torch.ops import DISPATCH, PLAIN
+    st_k, st_p = run.prepare(), run.prepare()
+    lib = stash.get(("library", kernel, case)) if f64 else None
+    probe = stash.get(("probe", kernel, case)) if f64 else None
+    budget = 1000.0 / ROW_ROUNDS
+    rounds = [(cuda_ms(lambda: run.launch(DISPATCH, st_k)),
+               cuda_ms(lambda: run.launch(PLAIN, st_p), budget_ms=budget),
+               cuda_ms(lib) if lib is not None else None,
+               cuda_ms(lambda: probe[1](st_p)) if probe is not None else None)
+              for _ in range(ROW_ROUNDS)]
+    ms_k, ms_p = (float(np.median([r[i] for r in rounds])) for i in (0, 1))
+    lib_rounds = [r[2] for r in rounds] if lib is not None else None
+    dev_ms, how = device_ms(lambda: run.launch(DISPATCH, st_k), kernel)
+    dev_txt = (f" (rounds {', '.join(f'{r[0]:.4f}' for r in rounds)}) device "
+               f"{dev_ms:.4f} ms ({how}, cold L2)")
+    if lib is not None:         # the library call's device time, alike
+        lib_dev, lib_how = device_ms(lib, "library")
+        dev_txt += f"; library call device {lib_dev:.4f} ms ({lib_how}, cold L2)"
+    if probe is not None:
+        label, fn, nbytes = probe
+        p_ms = float(np.median([r[3] for r in rounds]))
+        p_dev, p_how = device_ms(lambda: fn(st_p), label)
+        print(f"[kernels] {kernel:<20} {case}: probe {label} of the same tube "
+              f"{p_ms:.4f} ms (rounds {', '.join(f'{r[3]:.4f}' for r in rounds)}) "
+              f"device {p_dev:.4f} ms ({p_how}, cold L2): "
+              f"{nbytes / p_ms / 1e9:.3f} TB/s written; kernel at "
+              f"{ms_k / p_ms:.2f}x (device {dev_ms / p_dev:.2f}x)")
+    del st_k, st_p
+    return ms_k, ms_p, dev_ms, dev_txt, lib_rounds
+
+
 def phase_kernels(only=None):
     """Every kernel (or those named in ``only``) against its plain version;
     returns the per-kernel rows of the JSON summary (float64, the main
@@ -2158,6 +2278,12 @@ def phase_kernels(only=None):
                 same = torch.equal(out_k, run(DISPATCH))
                 print(f"[kernels] {kernel:<20} {case} {dname}: second launch bit for bit: {same}")
                 check(same, f"{kernel} {case} {dname}: a second launch differs")
+            n_it = stash.get(("iters_len", kernel, case))
+            if n_it:                    # K16: each lane and step took the plain version's iterations
+                same = torch.equal(out_k[-n_it:], out_p[-n_it:])
+                print(f"[kernels] {kernel:<20} {case} {dname}: Newton iterations equal: {same} "
+                      f"(sum {int(out_k[-n_it:].sum())})")
+                check(same, f"{kernel} {case} {dname}: the Newton iterations differ from plain")
             plan = stash.get(("plan", kernel, case))
             if plan is not None:        # the product tile: a second launch gives the same bits
                 same = torch.equal(out_k, run(DISPATCH))
@@ -2165,41 +2291,12 @@ def phase_kernels(only=None):
                       f"second launch bit for bit: {same}")
                 check(same, f"{kernel} {case} {dname}: a second launch differs")
             del out_k, out_p
-            dev_txt, dev_ms, lib_rounds = "", None, None
-            if row_case:                # the fresh copy a call writes into is made untimed
-                # ROW_ROUNDS rounds of kernel, plain (library, probe) in
-                # turns: the full time is the median of the rounds'
-                # medians, and the rounds give its spread
-                st_k, st_p = run.prepare(), run.prepare()
-                f64 = dtype == torch.float64
-                lib = stash.get(("library", kernel, case)) if f64 else None
-                probe = stash.get(("probe", kernel, case)) if f64 else None
-                rounds = [(cuda_ms(lambda: run.launch(DISPATCH, st_k)),
-                           cuda_ms(lambda: run.launch(PLAIN, st_p)),
-                           cuda_ms(lib) if lib is not None else None,
-                           cuda_ms(lambda: probe[1](st_p)) if probe is not None else None)
-                          for _ in range(ROW_ROUNDS)]
-                ms_k, ms_p = (float(np.median([r[i] for r in rounds])) for i in (0, 1))
-                if lib is not None:
-                    lib_rounds = [r[2] for r in rounds]
-                dev_ms, how = device_ms(lambda: run.launch(DISPATCH, st_k), kernel)
-                dev_txt = (f" (rounds {', '.join(f'{r[0]:.4f}' for r in rounds)}) device "
-                           f"{dev_ms:.4f} ms ({how}, cold L2)")
-                if lib is not None:         # the library call's device time, alike
-                    lib_dev, lib_how = device_ms(lib, "library")
-                    dev_txt += f"; library call device {lib_dev:.4f} ms ({lib_how}, cold L2)"
-                if probe is not None:
-                    label, fn, nbytes = probe
-                    p_ms = float(np.median([r[3] for r in rounds]))
-                    p_dev, p_how = device_ms(lambda: fn(st_p), label)
-                    print(f"[kernels] {kernel:<20} {case}: probe {label} of the same tube "
-                          f"{p_ms:.4f} ms (rounds {', '.join(f'{r[3]:.4f}' for r in rounds)}) "
-                          f"device {p_dev:.4f} ms ({p_how}, cold L2): "
-                          f"{nbytes / p_ms / 1e9:.3f} TB/s written; kernel at "
-                          f"{ms_k / p_ms:.2f}x (device {dev_ms / p_dev:.2f}x)")
-                del st_k, st_p
+            if row_case:
+                ms_k, ms_p, dev_ms, dev_txt, lib_rounds = row_times(kernel, case, run, stash,
+                                                                    dtype == torch.float64)
             else:
                 ms_k, ms_p = cuda_ms(lambda: run(DISPATCH)), cuda_ms(lambda: run(PLAIN))
+                dev_txt, dev_ms, lib_rounds = "", None, None
             tol = KERNEL_RTOL_BY_NAME.get(kernel, KERNEL_RTOL)[dname]
             ok = rel <= tol
             print(f"[kernels] {kernel:<20} {case:<34} {dname} rel {rel:.3e} "
@@ -2244,8 +2341,9 @@ def phase_kernels(only=None):
     return rows
 
 
-def phase_dd_kernels():
-    """K23-K26 against their plain versions on the card (``dd_cases``): K23,
+def phase_dd_kernels(only=None):
+    """K23-K26 (or those named in ``only``) against their plain versions on
+    the card (``dd_cases``): K23,
     K24 and K25 bit for bit in hi and lo (the same float32 operations in
     the same order, each rounded once), K26 within DD_MATMUL_RTOL of
     max(|A| |B|) (float64 sums in another order); times, bounds (bytes at
@@ -2262,6 +2360,8 @@ def phase_dd_kernels():
         return (o.hi, o.lo) if isinstance(o, dd.DD) else (o,)
 
     for kernel, case, run in dd_cases(dev, rng, stash):
+        if only is not None and kernel not in only:
+            continue
         out_k = parts(run(DISPATCH))
         torch.cuda.synchronize()
         out_p = parts(run(PLAIN))
@@ -2286,14 +2386,18 @@ def phase_dd_kernels():
             check(same, f"{kernel} {case}: a second launch differs")
             del again
         del out_k, out_p, val_k, val_p
-        ms_k, ms_p = cuda_ms(lambda: run(DISPATCH)), cuda_ms(lambda: run(PLAIN))
+        dev_txt = ""
+        if isinstance(run, RowCase):    # K25: the output made untimed, a cold-L2 device time
+            ms_k, ms_p, dev_ms, dev_txt, _ = row_times(kernel, case, run, stash)
+        else:
+            ms_k, ms_p = cuda_ms(lambda: run(DISPATCH)), cuda_ms(lambda: run(PLAIN))
         work = stash[("work", kernel, case)]
         c_ms, c_by = bound_ms(kernel, stash, work)
         lib = stash.get(("library", kernel, case))
         lib_ms = cuda_ms(lib) if lib is not None else None
         peak = op_peak(kernel)
         print(f"[dd-kernels] {kernel:<18} {case:<44} abs {abs_err:.3e} ({how}) | kernel "
-              f"{ms_k:.4f} ms plain {ms_p:.4f} ms | bound {c_ms:.4f} ms ({c_by}: "
+              f"{ms_k:.4f} ms{dev_txt} plain {ms_p:.4f} ms | bound {c_ms:.4f} ms ({c_by}: "
               f"{work[0] / 1e6:.3f} MB, {work[1] / 1e9:.4f} GFLOP at {peak / 1e12:.0f} TFLOP/s), "
               f"kernel at {ms_k / c_ms:.1f}x | library call "
               + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none")
@@ -3882,6 +3986,22 @@ def profile_cells(card):
             P, DISPATCH._replace(allen_cahn_pointwise=timed_k11), **cfg), 0, tol=cfg["tol"],
             max_iter=cfg["max_iter"])
 
+    # the K25 wrapper's host time a call, alike, in the DD cells (every DD
+    # operation of the solve reads the kernel set of the problem's states)
+    def timed_k25(*args, **kw):
+        t0 = time.perf_counter()
+        r = DISPATCH.dd_arith(*args, **kw)
+        host["s"] += time.perf_counter() - t0
+        host["calls"] += 1
+        return r
+
+    def dd_cell(cfg, basis):
+        return lambda: P.Mgrit(
+            problem=build_problem(P, cfg["nx"], cfg["nt"], cfg["ms"], DEVICE,
+                                  DISPATCH._replace(dd_arith=timed_k25), basis=basis,
+                                  precision="dd"),
+            tol=cfg["tol"], max_iter=cfg["max_iter"], logging_lvl=30)
+
     gs = dict(nx=GS_AT["nx"], method="IMEX")
     cells = [
         ("allen_cahn IMPL", allen_cahn(AC_IMPL)),
@@ -3916,14 +4036,8 @@ def profile_cells(card):
             tol=SPATIAL["tol"], max_iter=SPATIAL["max_iter"], logging_lvl=30)),
         ("bdf example", lambda: P.Mgrit(problem=bdf_problem(P, DISPATCH), tol=BDF["tol"],
                                         max_iter=BDF["max_iter"], logging_lvl=30)),
-        ("dd dd_toms129", lambda: P.Mgrit(
-            problem=build_problem(P, DD_TOMS["nx"], DD_TOMS["nt"], DD_TOMS["ms"], DEVICE, DISPATCH,
-                                  precision="dd"),
-            tol=DD_TOMS["tol"], max_iter=DD_TOMS["max_iter"], logging_lvl=30)),
-        ("dd dd65", lambda: P.Mgrit(
-            problem=build_problem(P, DD65["nx"], DD65["nt"], DD65["ms"], DEVICE, DISPATCH,
-                                  basis="physical", precision="dd"),
-            tol=DD65["tol"], max_iter=DD65["max_iter"], logging_lvl=30)),
+        ("dd dd_toms129", dd_cell(DD_TOMS, "spectral")),
+        ("dd dd65", dd_cell(DD65, "physical")),
         ("diffusion deep", lambda: P.Mgrit(
             problem=[P.Diffusion2D(n=DIFFUSION_DEEP["n"], length=10.0, kappa=0.1, t_start=0,
                                    t_stop=10, nt=nt, device=DEVICE)
@@ -3970,7 +4084,8 @@ def profile_cells(card):
                for k in ("restrict_combine", "interpolate_combine", "indexed_combine",
                          "sine_solve2d", "sine_affine2d", "affine_tile", "band_product",
                          "theta_rhs", "theta_chain", "interval_affine", "cpoint_combine",
-                         "periodic_solve2d", "periodic_rhs", "allen_cahn")}
+                         "periodic_solve2d", "periodic_rhs", "allen_cahn", "burgers1d_newton",
+                         "dd_arith")}
         print(f"[profile] {label}: {h.size} iterations, profiled solve {wall * 1e3:.1f} ms, device "
               f"busy {busy:.1f} ms, idle {100 * (1 - busy / (wall * 1e3)):.1f} % | leading device "
               "time " + "; ".join(f"{e.key[:48]} {device_us(e) / 1e3:.2f} ms ({e.count})"
@@ -3982,10 +4097,12 @@ def profile_cells(card):
                                           ("K4", "cpoint_combine"), ("K5", "sine_solve2d"),
                                           ("K6", "sine_affine2d"), ("K7", "theta_rhs2d"),
                                           ("K10", "periodic_solve2d"),
-                                          ("K11", "allen_cahn_pointwise"))
+                                          ("K11", "allen_cahn_pointwise"),
+                                          ("K16", "burgers1d_newton"), ("K25", "dd_arith"))
                         if calls[key])
-              + (f" | K11 wrapper host time {host['s'] * 1e3 / host['calls']:.4f} ms a call "
-                 f"({host['calls']} calls)" if host["calls"] else "")
+              + (f" | {'K25' if label.startswith('dd') else 'K11'} wrapper host time "
+                 f"{host['s'] * 1e3 / host['calls']:.4f} ms a call ({host['calls']} calls)"
+                 if host["calls"] else "")
               + f" | host: {launches} kernel launches, {syncs} synchronisations"
               + (f" | product tile: {calls['eig_step']} K22 and {calls['dd_matmul']} K26 calls, "
                  f"{tile['tile_product'][0]} product kernels {tile['tile_product'][1]:.2f} ms, "
@@ -4059,6 +4176,7 @@ def main():
     if only is not None:
         # phase 3 for the named kernels alone: no path ran, no "ok"
         rows = phase_kernels(only)
+        rows.update(phase_dd_kernels(only))
         print(json.dumps({"kernels": [dict(name=k, **rows[k]) for k in only if k in rows]}))
         print(card)
         print(json.dumps({"kernels_only": True, "device": {"platform": "gpu",

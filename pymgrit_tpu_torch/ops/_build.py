@@ -68,7 +68,9 @@ _SIGNATURES = {
 }
 # the float32-pair (double-double) launchers: one symbol each, no dtype suffix
 _DD_SIGNATURES = {
-    "pm_dd_arith": [ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P, _P],
+    # the packed argument array, the float arguments (immediates,
+    # coefficients), the stream
+    "pm_dd_arith": [_P, _P, _P],
     "pm_dd_interval_affine": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P,
                               _I, _P],
     "pm_dd_theta_chain": [_P, _P, _D, _P, _P],
@@ -156,6 +158,14 @@ def sm_count(index: int) -> int:
     """Streaming multiprocessors of CUDA device ``index`` (read once)."""
     import torch
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def smem_optin(index: int) -> int:
+    """The shared memory one block of CUDA device ``index`` may opt in to,
+    in bytes (read once)."""
+    import torch
+    return torch.cuda.get_device_properties(index).shared_memory_per_block_optin
 
 
 def check(status: int, name: str) -> None:

@@ -32,14 +32,37 @@
 // subtracts each row's terms in the order of the dense LU's column sweep
 // (columns n-1, n-2, k+2, k+1).
 //
-// Bound: bytes (the function needs O(n) operations a Newton iteration).
-// Design: the whole Newton loop of a step stays in the block, so the
-// per-lane stop test needs no host read and a chain of steps is one launch;
-// one warp per lane forms the residual and the update in parallel, and its
-// first thread runs the elimination, O(n) dependent stages.  The iterate,
-// the step's start, the residual and U live in a per-lane workspace of 8 n
-// values in device memory (L1/L2-resident at the sizes the models use), so
-// any n runs.
+// Bound: bytes (the function needs O(n) operations a Newton iteration);
+// what holds it is latency: each LU solve is a chain of 2 n - 1 dependent
+// stages (n - 1 eliminations, n back-substitution rows) on one thread.
+// Design:
+// * the whole Newton loop of a step stays in the block, so the per-lane
+//   stop test needs no host read and a chain of steps is one launch; one
+//   warp a lane forms the residual and the update in parallel;
+// * the lane lives on chip: its iterate, the step's start, the residual
+//   and U's five slots (8 n values) in dynamic shared memory where they fit
+//   the card's opt-in (n up to 3632 in float64); past that the same code
+//   runs on a per-lane workspace in device memory, which the wrapper
+//   allocates (ops/dense_newton.py plan);
+// * before each elimination the warp forms rows 1..n-2 of the Jacobian in
+//   parallel (three entries a row, jacobian_row's expressions) into U's
+//   band slots, which stage k overwrites only after row k has been read;
+//   rows 0 and n-1 are formed by the eliminating thread, as before;
+// * the eliminating thread reads row k+2 and r[k+2] into registers during
+//   stage k, and the back substitution its row i-1's slots during row i,
+//   so a stage's dependent path is the pivot's reciprocal and the row
+//   updates (an elimination) or one FMA and the division (a row of the
+//   back substitution), with no memory access on it;
+// * one thread issues every instruction of the chain in order, so a stage
+//   also pays for its branches and register moves: without a row exchange
+//   (every stage at the models' steps) the row at position k is the pivot
+//   row as it is, the multipliers take the reciprocal with one branch for
+//   dgetf2's sfmin rule, the loops run without per-stage conditions (the
+//   read-ahead stops one stage early; back-substitution rows n-5..1 have
+//   all four terms), and the elimination loop is unrolled by two.  The
+//   arithmetic is that of the earlier design (one thread's chain in a
+//   device-memory workspace), operation for operation: the outputs were
+//   held bit for bit against its build.
 
 #include <cfloat>
 #include <cstdint>
@@ -95,32 +118,21 @@ __device__ T residual(const Lane<T>& s, int n, T dt, T nu, T c1, T c2, T d2) {
 }
 
 // Row i of J(u) = I + dt (diag(D1 u) + u D1 - nu D2) in the slot form of
-// stage k, entry by entry as the JAX package sums it.
+// stage k, entry by entry as the JAX package sums it (the three columns
+// take distinct slots; each slot is picked by a compare, so the row stays
+// in registers).
 template <typename T>
 __device__ __forceinline__ void jacobian_row(const T* u, int i, int k, int n, T dt, T nu, T c1,
                                              T c2, T d2, T (&v)[5]) {
   const int im = i == 0 ? n - 1 : i - 1;
   const int ip = i == n - 1 ? 0 : i + 1;
-#pragma unroll
-  for (int q = 0; q < 5; ++q) v[q] = T(0);
   const T d1u = c1 * u[ip] - c1 * u[im];
-  v[slot(i, k, n)] = T(1) + dt * (d1u - nu * d2);
-  v[slot(ip, k, n)] = dt * (u[i] * c1 - nu * c2);
-  v[slot(im, k, n)] = dt * (u[i] * -c1 - nu * c2);
-}
-
-// R <- R - l P on the columns right of the pivot column (slot sk), and the
-// right-hand side alike, with l = R[sk] / pivot as dgetf2 forms it.
-template <typename T>
-__device__ __forceinline__ void eliminate(T (&R)[5], T& rR, const T (&P)[5], T rP, int sk,
-                                          T pivot, T rp, bool recip) {
-  const T a = R[sk];
-  const T l = recip ? a * rp : a / pivot;
+  const T diag = T(1) + dt * (d1u - nu * d2);
+  const T sup = dt * (u[i] * c1 - nu * c2);
+  const T sub = dt * (u[i] * -c1 - nu * c2);
+  const int si = slot(i, k, n), sp = slot(ip, k, n), sm = slot(im, k, n);
 #pragma unroll
-  for (int q = 0; q < 5; ++q) {
-    if (q != sk) R[q] -= l * P[q];
-  }
-  rR -= l * rP;
+  for (int q = 0; q < 5; ++q) v[q] = si == q ? diag : sp == q ? sup : sm == q ? sub : T(0);
 }
 
 // From the slot form of stage k to that of stage k+1: the band moves one
@@ -138,87 +150,194 @@ __device__ __forceinline__ void copy5(T (&d)[5], const T (&s)[5]) {
   for (int q = 0; q < 5; ++q) d[q] = s[q];
 }
 
-// Solve J(u) x = r in place (x in r) by LU with partial pivoting; one thread.
+// Row i (1 <= i <= n-2) of J(u) into U's band slots (U[i] column i-1,
+// U[n + i] column i, U[2 n + i] column i+1), by jacobian_row's expressions;
+// the warp forms rows 1..n-2 in parallel.
+template <typename T>
+__device__ __forceinline__ void form_rows(const Lane<T>& s, int n, T dt, T nu, T c1, T c2,
+                                          T d2) {
+  for (int i = 1 + threadIdx.x; i < n - 1; i += kThreads) {
+    const T d1u = c1 * s.u[i + 1] - c1 * s.u[i - 1];
+    s.U[n + i] = T(1) + dt * (d1u - nu * d2);
+    s.U[2 * n + i] = dt * (s.u[i] * c1 - nu * c2);
+    s.U[i] = dt * (s.u[i] * -c1 - nu * c2);
+  }
+}
+
+// Row i (1 <= i <= n-2) of J in the slot form of stage i-1, from the
+// formed rows (columns i-1, i, i+1 in slots 0, 1, 2; column n-2 and n-1 in
+// the tail slots 3 and 4), and its right-hand side entry.
+template <typename T>
+__device__ __forceinline__ void band_row(const Lane<T>& s, int i, int n, T (&v)[5], T& rv) {
+  const T sub = s.U[i], diag = s.U[n + i], sup = s.U[2 * n + i];
+  const bool last = i == n - 2, before = i == n - 3;
+  v[0] = sub;
+  v[1] = last ? T(0) : diag;
+  v[2] = last || before ? T(0) : sup;
+  v[3] = last ? diag : before ? sup : T(0);
+  v[4] = last ? sup : T(0);
+  rv = s.r[i];
+}
+
+// R <- R - l P on the columns right of the pivot column, and the
+// right-hand side alike, for a given multiplier l
+template <int SK, typename T>
+__device__ __forceinline__ void update(T (&R)[5], T& rR, const T (&P)[5], T rP, T l) {
+#pragma unroll
+  for (int q = 0; q < 5; ++q) {
+    if (q != SK) R[q] -= l * P[q];
+  }
+  rR -= l * rP;
+}
+
+// The elimination of stage k with the pivot row P (rP; rp = 1 / P[SK]):
+// the rows O (THREE) and Y lose column k with the multipliers l = R[SK] rp,
+// or R[SK] / pivot below sfmin (dgetf2's rule; a branch taken only then),
+// U's row k and r[k] are stored, and X, Y take the slot form of stage k+1.
+// P may be X itself.
+template <int SK, bool THREE, typename T>
+__device__ __forceinline__ void pivot_step(const Lane<T>& s, int k, int n, const T (&P)[5],
+                                           T rP, T rp, T (&X)[5], T& rX, T (&O)[5], T& rO,
+                                           T (&Y)[5], T& rY) {
+  const T pivot = P[SK];
+  T lO = THREE ? O[SK] * rp : T(0), lY = Y[SK] * rp;
+  if (!(fabs(pivot) >= sfmin<T>())) {
+    if (THREE) lO = O[SK] / pivot;
+    lY = Y[SK] / pivot;
+  }
+  if (THREE) update<SK>(O, rO, P, rP, lO);
+  update<SK>(Y, rY, P, rP, lY);
+#pragma unroll
+  for (int q = 0; q < 5; ++q) s.U[q * n + k] = P[q];
+  s.r[k] = rP;
+  if (THREE) {
+    copy5(X, O);
+    rX = rO;
+  } else {
+    copy5(X, Y);
+    rX = rY;
+  }
+  shift(X);
+  shift(Y);
+}
+
+// Stage k of the elimination: rows at positions k (X), k+1 (O, original;
+// Y itself when THREE is false, k+1 = n-1) and n-1 (Y); the pivot is the
+// first of largest magnitude in column k (slot SK: 0 below n-2, 3 at the
+// last stage).  Without a row exchange (the common case) X is the pivot
+// row as it is; an exchange selects the rows.
+template <int SK, bool THREE, typename T>
+__device__ __forceinline__ void stage(const Lane<T>& s, int k, int n, T (&X)[5], T& rX,
+                                      T (&O)[5], T& rO, T (&Y)[5], T& rY) {
+  int piv = 0;
+  T best = fabs(X[SK]);
+  if (THREE && fabs(O[SK]) > best) {
+    piv = 1;
+    best = fabs(O[SK]);
+  }
+  if (fabs(Y[SK]) > best) piv = 2;
+  if (piv == 0) {
+    pivot_step<SK, THREE>(s, k, n, X, rX, T(1) / X[SK], X, rX, O, rO, Y, rY);
+    return;
+  }
+  T P[5];
+#pragma unroll
+  for (int q = 0; q < 5; ++q) {
+    P[q] = piv == 1 ? O[q] : Y[q];
+    O[q] = piv == 1 ? X[q] : O[q];      // the row at position k moves to k+1
+    Y[q] = piv == 2 ? X[q] : Y[q];      // or to n-1
+  }
+  const T rP = piv == 1 ? rO : rY;
+  rO = piv == 1 ? rX : rO;
+  rY = piv == 2 ? rX : rY;
+  pivot_step<SK, THREE>(s, k, n, P, rP, T(1) / P[SK], X, rX, O, rO, Y, rY);
+}
+
+// One row of the back substitution, its terms in the dense column sweep's
+// order (ALL: every term exists, i <= n-5); x[n-1], x[n-2], x[i+2] and
+// x[i+1] in registers, row i-1's slots read during row i.
+template <bool ALL, typename T>
+__device__ __forceinline__ void back_row(const Lane<T>& s, int i, int n, T& xn1, T& xn2, T& x1,
+                                         T& x2, T& b, T& u4, T& u3, T& u2, T& u1, T& ud) {
+  T nb = T(0), n4 = T(0), n3 = T(0), n2 = T(0), n1 = T(0), nd = T(1);
+  if (ALL || i > 0) {
+    nb = s.r[i - 1];
+    n4 = s.U[4 * n + i - 1];
+    n3 = s.U[3 * n + i - 1];
+    n2 = s.U[2 * n + i - 1];
+    n1 = s.U[1 * n + i - 1];
+    nd = s.U[slot(i - 1, i - 1, n) * n + i - 1];
+  }
+  T acc = b;
+  if (ALL || n - 1 > i) acc -= xn1 * u4;
+  if (ALL || n - 2 > i) acc -= xn2 * u3;
+  if (ALL || i + 2 < n - 2) acc -= x2 * u2;
+  if (ALL || i + 1 < n - 2) acc -= x1 * u1;
+  const T x = acc / ud;
+  s.r[i] = x;
+  if (!ALL && i == n - 1) xn1 = x;
+  if (!ALL && i == n - 2) xn2 = x;
+  x2 = x1;
+  x1 = x;
+  b = nb;
+  u4 = n4;
+  u3 = n3;
+  u2 = n2;
+  u1 = n1;
+  ud = nd;
+}
+
+// Solve J(u) x = r in place (x in r) by LU with partial pivoting; one
+// thread, after the warp has formed rows 1..n-2 (form_rows).
 template <typename T>
 __device__ void lu_solve(const Lane<T>& s, int n, T dt, T nu, T c1, T c2, T d2) {
-  T X[5], Y[5], O[5], P[5];
-  T rX, rY, rO = T(0), rP;
+  T X[5], Y[5], O[5], N[5];
+  T rX, rY, rO = T(0), rN;
   jacobian_row(s.u, 0, 0, n, dt, nu, c1, c2, d2, X);
   jacobian_row(s.u, n - 1, 0, n, dt, nu, c1, c2, d2, Y);
   rX = s.r[0];
   rY = s.r[n - 1];
-  for (int k = 0; k < n - 1; ++k) {
-    // rows at positions k (X), k+1 (O, original; Y itself when k+1 = n-1)
-    // and n-1 (Y); the pivot is the first of largest magnitude in column k
-    const bool three = k + 1 < n - 1;
-    if (three) {
-      jacobian_row(s.u, k + 1, k, n, dt, nu, c1, c2, d2, O);
-      rO = s.r[k + 1];
-    }
-    const int sk = slot(k, k, n);
-    int piv = 0;
-    T best = fabs(X[sk]);
-    if (three && fabs(O[sk]) > best) {
-      piv = 1;
-      best = fabs(O[sk]);
-    }
-    if (fabs(Y[sk]) > best) piv = 2;
-    if (piv == 0) {
-      copy5(P, X);
-      rP = rX;
-    } else if (piv == 1) {
-      copy5(P, O);
-      rP = rO;
-      copy5(O, X);        // the row at position k moves to k+1
-      rO = rX;
-    } else {
-      copy5(P, Y);
-      rP = rY;
-      copy5(Y, X);        // the row at position k moves to n-1
-      rY = rX;
-    }
-    const T pivot = P[sk];
-    const bool recip = fabs(pivot) >= sfmin<T>();
-    const T rp = T(1) / pivot;
-    if (three) eliminate(O, rO, P, rP, sk, pivot, rp, recip);
-    eliminate(Y, rY, P, rP, sk, pivot, rp, recip);
-#pragma unroll
-    for (int q = 0; q < 5; ++q) s.U[q * n + k] = P[q];
-    s.r[k] = rP;
-    if (three) {
-      copy5(X, O);
-      rX = rO;
-    } else {
-      copy5(X, Y);
-      rX = rY;
-    }
-    shift(X);
-    shift(Y);
+  band_row(s, 1, n, N, rN);            // n >= 3: rows 1..n-2 exist
+  // stages 0..n-4 read the next stage's row ahead (row k+2 <= n-2 exists);
+  // unrolled by two, which spares the rows' register moves of every other
+  // stage
+#pragma unroll 2
+  for (int k = 0; k < n - 3; ++k) {
+    copy5(O, N);                       // the original row k+1
+    rO = rN;
+    band_row(s, k + 2, n, N, rN);
+    stage<0, true>(s, k, n, X, rX, O, rO, Y, rY);
   }
+  copy5(O, N);
+  rO = rN;
+  stage<0, true>(s, n - 3, n, X, rX, O, rO, Y, rY);
+  stage<3, false>(s, n - 2, n, X, rX, O, rO, Y, rY);
 #pragma unroll
   for (int q = 0; q < 5; ++q) s.U[q * n + n - 1] = X[q];
   s.r[n - 1] = rX;
-  // back substitution, row i's terms in the dense column sweep's order
-  for (int i = n - 1; i >= 0; --i) {
-    T acc = s.r[i];
-    if (n - 1 > i) acc -= s.r[n - 1] * s.U[4 * n + i];
-    if (n - 2 > i) acc -= s.r[n - 2] * s.U[3 * n + i];
-    if (i + 2 < n - 2) acc -= s.r[i + 2] * s.U[2 * n + i];
-    if (i + 1 < n - 2) acc -= s.r[i + 1] * s.U[1 * n + i];
-    s.r[i] = acc / s.U[slot(i, i, n) * n + i];
-  }
+  T xn1 = T(0), xn2 = T(0), x1 = T(0), x2 = T(0);
+  T b = s.r[n - 1], u4 = s.U[4 * n + n - 1], u3 = s.U[3 * n + n - 1];
+  T u2 = s.U[2 * n + n - 1], u1 = s.U[1 * n + n - 1], ud = s.U[slot(n - 1, n - 1, n) * n + n - 1];
+  // rows n-1..n-4 test which terms exist, rows n-5..1 have all four, row 0
+  // reads no row ahead
+  int i = n - 1;
+  for (; i >= 0 && i > n - 5; --i)
+    back_row<false>(s, i, n, xn1, xn2, x1, x2, b, u4, u3, u2, u1, ud);
+  for (; i >= 1; --i) back_row<true>(s, i, n, xn1, xn2, x1, x2, b, u4, u3, u2, u1, ud);
+  if (i == 0) back_row<false>(s, 0, n, xn1, xn2, x1, x2, b, u4, u3, u2, u1, ud);
 }
 
-template <typename T>
+template <typename T, bool SHARED>
 __global__ void __launch_bounds__(kThreads)
     burgers1d_newton_kernel(const T* __restrict__ seed, int64_t s_sj, const T* __restrict__ dt,
                             T* __restrict__ out, int64_t o_sj, int64_t o_sk,
                             const T* __restrict__ g, int64_t g_sj, int64_t g_sk,
                             int* __restrict__ iters, T* __restrict__ ws, T nu, T c1, T c2, T d2,
                             T tol, int maxiter, int64_t J, int64_t L, int n) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int64_t j = blockIdx.x;
   Lane<T> s;
-  s.u = ws + j * 8 * (int64_t)n;
+  s.u = SHARED ? reinterpret_cast<T*>(smem) : ws + j * 8 * (int64_t)n;
   s.u0 = s.u + n;
   s.r = s.u0 + n;
   s.U = s.r + n;
@@ -231,6 +350,8 @@ __global__ void __launch_bounds__(kThreads)
     int it = 0;
     T gmax = residual(s, n, h, nu, c1, c2, d2);
     while (gmax >= tol && it < maxiter) {
+      form_rows(s, n, h, nu, c1, c2, d2);
+      __syncwarp();
       if (threadIdx.x == 0) lu_solve(s, n, h, nu, c1, c2, d2);
       __syncwarp();
       for (int i = threadIdx.x; i < n; i += kThreads) s.u[i] = s.u[i] - s.r[i];
@@ -249,6 +370,8 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ws null: the shared-memory route (8 n values a lane in dynamic shared
+// memory, which must fit the opt-in); else ws holds 8 n values a lane
 template <typename T>
 int launch(const T* seed, int64_t s_sj, const T* dt, T* out, int64_t o_sj, int64_t o_sk,
            const T* g, int64_t g_sj, int64_t g_sk, int* iters, T* ws, double nu, double c1,
@@ -259,8 +382,27 @@ int launch(const T* seed, int64_t s_sj, const T* dt, T* out, int64_t o_sj, int64
       maxiter > 0x7fffffff) {
     return (int)cudaErrorInvalidValue;
   }
-  burgers1d_newton_kernel<T><<<(unsigned)J, kThreads, 0, (cudaStream_t)stream>>>(
-      seed, s_sj, dt, out, o_sj, o_sk, g, g_sj, g_sk, iters, ws, (T)nu, (T)c1, (T)c2, (T)d2,
+  cudaStream_t st = (cudaStream_t)stream;
+  if (ws != nullptr) {
+    burgers1d_newton_kernel<T, false><<<(unsigned)J, kThreads, 0, st>>>(
+        seed, s_sj, dt, out, o_sj, o_sk, g, g_sj, g_sk, iters, ws, (T)nu, (T)c1, (T)c2, (T)d2,
+        (T)tol, (int)maxiter, J, L, (int)n);
+    return (int)cudaGetLastError();
+  }
+  const int64_t bytes = 8 * n * (int64_t)sizeof(T);
+  int device = 0, optin = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (bytes > optin) return (int)cudaErrorInvalidValue;
+  static int64_t opted = 48 * 1024;   // the dynamic shared memory allowed so far
+  if (bytes > opted) {
+    cudaError_t e = cudaFuncSetAttribute(burgers1d_newton_kernel<T, true>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (e != cudaSuccess) return (int)e;
+    opted = optin;
+  }
+  burgers1d_newton_kernel<T, true><<<(unsigned)J, kThreads, (size_t)bytes, st>>>(
+      seed, s_sj, dt, out, o_sj, o_sk, g, g_sj, g_sk, iters, nullptr, (T)nu, (T)c1, (T)c2, (T)d2,
       (T)tol, (int)maxiter, J, L, (int)n);
   return (int)cudaGetLastError();
 }

@@ -27,9 +27,10 @@ as the JAX package's ``jnp`` ops round once each.
 
 from __future__ import annotations
 
-import ctypes
+import array
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -197,6 +198,169 @@ def _is_batched(t: torch.Tensor) -> bool:
     return torch._C._functorch.is_batchedtensor(t)
 
 
+def fact(t: torch.Tensor):
+    """What K25's checks read of a tensor: (dtype, device, shape, strides)."""
+    return t.dtype, t.device, t.shape, t.stride()
+
+
+# K25's launch (csrc/dd_arith.cu): blocks of THREADS threads, 16-byte
+# accesses of VEC floats, the components (out hi, out lo, then each
+# operand's hi and lo) and the packed array's layout (``pack``)
+THREADS, VEC, AXES = 256, 4, 4
+N_COMPONENTS = 2 + 2 * MAX_TERMS
+HEAD, SLOTS = 23, 5
+# the grid's cap before the launcher clamps it to the occupancy of the
+# instantiation times the SMs
+BLOCKS_PER_SM = 8
+# the float arguments of a call with no immediate and no coefficient (the
+# launcher reads them, never writes)
+_NO_VALUES = array.array("f", [0.0] * (N_COMPONENTS + 2 * MAX_TERMS))
+
+
+class Plan(NamedTuple):
+    """A K25 launch shape: TX threads across a row's segment of 4 TX
+    elements and TY rows a block (TX TY = THREADS), the segments a row, the
+    items (rows x segments), the blocks wanted, 32-bit indexing, and the
+    components that may take 16-byte accesses (a bitmask, by component)."""
+    tx: int
+    ty: int
+    segs: int
+    items: int
+    grid: int
+    index32: bool
+    vec: int
+
+
+def plan(size, strides, sm):
+    """The launch plan of a K25 call on the coalesced extents ``size`` (at
+    most AXES, the last the inner axis, already padded to AXES at the
+    front) with each component's element strides (``None`` for an
+    immediate), on a card of ``sm`` SMs.
+
+    A component may take 16-byte accesses where its inner stride is 1 and
+    every outer stride a multiple of VEC (the launcher also needs its
+    pointer on 16 bytes).  TX is the least power of two (1-THREADS) with
+    VEC TX covering the row, TY = THREADS / TX rows a block, so short rows
+    fill a block.  32-bit indexing where every element offset of every
+    component, the items and the row's last segment fit in 31 bits."""
+    W = size[-1]
+    rows = math.prod(size[:-1])
+    quads, tx = -(-W // VEC), 1
+    while tx < quads and tx < THREADS:
+        tx *= 2
+    ty = THREADS // tx
+    segs = max(1, -(-W // (VEC * tx)))
+    items = rows * segs
+    grid = max(1, min(-(-items // ty), BLOCKS_PER_SM * sm))
+    vec, reach = 0, 0
+    for k, st in enumerate(strides):
+        if st is None:
+            continue
+        reach = max(reach, sum(abs(s) * (n - 1) for s, n in zip(st, size)))
+        if st[-1] == 1 and all(s % VEC == 0 for s in st[:-1]):
+            vec |= 1 << k
+    index32 = max(reach, items, W + VEC * tx) < 2 ** 31
+    return Plan(tx, ty, segs, items, grid, index32, vec)
+
+
+def pack(index, op, n, size, p, sm, kinds, strides):
+    """K25's int64 argument array (csrc/dd_arith.cu ``pm_dd_arith``): the
+    CUDA device, the op, the term count, 32-bit indexing, TX, TY, the three
+    outer extents, the inner extent, segments a row, items, blocks wanted,
+    the SMs, the 16-byte-capable components, the eight coefficient kinds,
+    then SLOTS slots a component: its pointer (0 until a call fills it in,
+    and for an immediate), three outer strides and the inner stride."""
+    head = [index, OPS.index(op), n, int(p.index32), p.tx, p.ty, *size, p.segs, p.items,
+            p.grid, sm, p.vec, *kinds, *[1] * (MAX_TERMS - len(kinds))]
+    body = []
+    for st in strides + [None] * (N_COMPONENTS - len(strides)):
+        body += [0, *(st if st is not None else (0,) * AXES)]
+    return array.array("q", head + body)
+
+
+def _strides_to(shape, tshape, tstride):
+    """The element strides of a tensor of shape tshape broadcast to shape
+    (0 on the axes it broadcasts along); None where it does not broadcast."""
+    lead = len(shape) - len(tshape)
+    if lead < 0:
+        return None
+    out = [0] * lead
+    for n, tn, ts in zip(shape[lead:], tshape, tstride):
+        if tn == n:
+            out.append(ts if n != 1 else 0)
+        elif tn == 1:
+            out.append(0)
+        else:
+            return None
+    return out
+
+
+@functools.lru_cache(maxsize=1024)
+def _checked(op, comps, kinds, out_facts):
+    """Every check of a K25 call, on the op, the ``fact``s of the operands'
+    components (hi, lo of each), the coefficient kinds (None unless
+    combine) and out's facts ((hi, lo), or resid's one tensor; None: the
+    call allocates out), cached by them.  Returns (on the CPU, the launch:
+    the packed array without pointers, the pointer slots with their
+    components, the immediate components, the broadcast shape, its size,
+    the device; None on the CPU)."""
+    _require(op in OPS, f"unknown op {op!r}")
+    n = len(comps) // 2
+    if op == "combine":
+        _require(1 <= n <= MAX_TERMS and kinds is not None and len(kinds) == n,
+                 f"combine takes 1-{MAX_TERMS} operands, each with a coefficient")
+    else:
+        _require(n == _ARITY[op] and kinds is None, f"{op} takes {_ARITY[op]} operand(s)")
+    _require(all(f[0] == _F32 for f in comps), "DD components must be float32")
+    shape = _broadcast(*(f[2] for f in comps[::2]))
+    outs = None
+    if out_facts is not None:
+        outs = [out_facts] if op == "resid" else list(out_facts)
+        _require(all(f[0] == _F32 for f in outs), "out must be float32")
+        _require(tuple(outs[0][2]) == tuple(shape) and outs[-1][2] == outs[0][2],
+                 f"out has shape {tuple(outs[0][2])}, expected {tuple(shape)}")
+    immediate = [len(f[2]) == 0 and f[1].type == "cpu" for f in comps]
+    lead = [f for f, imm in zip(comps, immediate) if not imm]
+    device = outs[0][1] if outs is not None else lead[0][1] if lead else torch.device("cpu")
+    _require(all(f[1] == device for f in lead),
+             f"operands must lie on {device} (or be 0-d CPU scalars)")
+    if device.type == "cpu":
+        return True, None
+    _require(device.type == "cuda", f"unsupported device {device}")
+    numel = math.prod(shape)
+    if outs is None:        # a fresh (2, *shape) buffer (resid: one tensor)
+        contiguous = [0] * len(shape)
+        step = 1
+        for i in range(len(shape) - 1, -1, -1):
+            contiguous[i] = step
+            step *= shape[i]
+        out_strides = [contiguous] * (1 if op == "resid" else 2)
+    else:
+        out_strides = [list(f[3]) for f in outs]
+    strides = out_strides + [None] * (2 - len(out_strides))
+    for f, imm in zip(comps, immediate):
+        st = None if imm else _strides_to(shape, f[2], f[3])
+        _require(imm or st is not None,
+                 f"a component of shape {tuple(f[2])} does not broadcast to {tuple(shape)}")
+        strides.append(st)
+    live = [k for k, st in enumerate(strides) if st is not None]
+    size, merged = _coalesce(list(shape), [strides[k] for k in live])
+    _require(len(size) <= AXES,
+             f"shape {tuple(shape)} with these strides needs more than {AXES} axes")
+    if not size:
+        size, merged = [1], [[0] for _ in live]
+    pad = AXES - len(size)
+    size = [1] * pad + size
+    for k, st in zip(live, merged):
+        strides[k] = [0] * pad + st
+    sm = _build.sm_count(device.index)
+    p = plan(size, strides, sm)
+    args = pack(device.index, op, n, size, p, sm, kinds or (), strides)
+    slots = tuple((HEAD + SLOTS * k, k) for k in live)
+    imms = tuple(k for k, imm in enumerate(immediate, 2) if imm)
+    return False, (args, slots, imms, shape, numel, device)
+
+
 def dd_arith(op, *operands, coeffs=None, out=None):
     """Elementwise DD operation ``op`` on DD operands, broadcast to a common
     shape (K25).
@@ -211,39 +375,47 @@ def dd_arith(op, *operands, coeffs=None, out=None):
     the broadcast shape, with any strides; it may be one of the operands
     (the same view), not a shifted view of one.  Returns out, or a new DD
     (float32 tensor) without it.
+
+    The checks, the broadcast, the coalesced layout, the launch plan and the
+    packed argument array are cached by the operands' facts (``_checked``);
+    a call on the card fills in the pointers, the immediates and the
+    coefficients and makes one ctypes call.
     """
-    _require(op in OPS, f"unknown op {op!r}")
-    n = len(operands)
-    if op == "combine":
-        _require(1 <= n <= MAX_TERMS and coeffs is not None and len(coeffs) == n,
-                 f"combine takes 1-{MAX_TERMS} operands, each with a coefficient")
-    else:
-        _require(n == _ARITY[op] and coeffs is None, f"{op} takes {_ARITY[op]} operand(s)")
-    _require(all(isinstance(x, DD) for x in operands), "operands must be DD pairs")
+    for x in operands:
+        if not isinstance(x, DD):
+            _require(False, "operands must be DD pairs")
     tensors = [t for x in operands for t in (x.hi, x.lo)]
-    _require(all(t.dtype == _F32 for t in tensors), "DD components must be float32")
-    shape = _broadcast(*(x.shape for x in operands))
-    if out is not None:
-        outs = [out] if op == "resid" else [out.hi, out.lo]
-        _require(all(t.dtype == _F32 for t in outs), "out must be float32")
-        _require(tuple(outs[0].shape) == tuple(shape) and outs[-1].shape == outs[0].shape,
-                 f"out has shape {tuple(outs[0].shape)}, expected {tuple(shape)}")
-    lead = [t for t in tensors if not _immediate(t)]
-    device = (out if op == "resid" else out.hi).device if out is not None else (
-        lead[0].device if lead else torch.device("cpu"))
-    _require(all(t.device == device for t in lead),
-             f"operands must lie on {device} (or be 0-d CPU scalars)")
-    if device.type == "cpu" or any(_is_batched(t) for t in tensors):
-        _require(device.type == "cpu", "K25 takes no vmapped tensor on the card: write a "
-                 "per-state DD transfer batched (batched = True)")
+    on_cpu, launch = _checked(
+        op, tuple(map(fact, tensors)),
+        None if coeffs is None else tuple(map(_coefficient_kind, coeffs)),
+        None if out is None else fact(out) if op == "resid" else (fact(out.hi), fact(out.lo)))
+    if on_cpu:
         return dd_arith_plain(op, *operands, coeffs=coeffs, out=out)
+    if torch._C._functorch.maybe_current_level() is not None and any(map(_is_batched, tensors)):
+        _require(False, "K25 takes no vmapped tensor on the card: write a per-state DD "
+                 "transfer batched (batched = True)")
+    tmpl, slots, imms, shape, numel, device = launch
     if out is None:
-        out = torch.empty(shape, dtype=_F32, device=device)
-        if op != "resid":
-            out = _raw(out, torch.empty(shape, dtype=_F32, device=device))
-    if math.prod(shape) == 0:
+        if op == "resid":
+            out = torch.empty(shape, dtype=_F32, device=device)
+        else:
+            out = _raw(*torch.empty((2, *shape), dtype=_F32, device=device).unbind(0))
+    if numel == 0:
         return out
-    _launch_k25(op, operands, coeffs, out, shape, device)
+    tensors[:0] = (out, out) if op == "resid" else (out.hi, out.lo)
+    args = tmpl[:]
+    for slot, k in slots:
+        args[slot] = tensors[k].data_ptr()
+    vals = _NO_VALUES
+    if imms or coeffs is not None:
+        vals = _NO_VALUES[:]
+        for k in imms:
+            vals[k] = tensors[k].item()
+        for k, c in enumerate(coeffs or ()):
+            vals[N_COMPONENTS + 2 * k], vals[N_COMPONENTS + 2 * k + 1] = _split_f64(c)
+    status = _build.library().pm_dd_arith(args.buffer_info()[0], vals.buffer_info()[0],
+                                          _build.stream(device.index))
+    _build.check(status, "dd_arith")
     dd_arith.launches += 1
     dd_arith.mode_launches[op] += 1
     return out
@@ -277,53 +449,6 @@ def _store(value, op, out):
     out.hi.copy_(hi)
     out.lo.copy_(lo)
     return out
-
-
-def _launch_k25(op, operands, coeffs, out, shape, device):
-    outs = [out, out] if op == "resid" else [out.hi, out.lo]
-    views = []                                 # (hi, lo) broadcast views or None
-    for x in operands:
-        if _immediate(x.hi) and _immediate(x.lo):
-            views.append(None)
-        else:
-            views.append(tuple(t.expand(shape) if t.dim() or not _immediate(t) else
-                               t.to(device).expand(shape) for t in (x.hi, x.lo)))
-    strides = [list(outs[0].stride()), list(outs[1].stride())]
-    for v in views:
-        if v is not None:
-            strides += [list(v[0].stride()), list(v[1].stride())]
-    size, strides = _coalesce(list(shape), strides)
-    _require(len(size) <= 4, f"shape {tuple(shape)} with these strides needs more than 4 axes")
-    pad = 4 - len(size)
-    size = [1] * pad + size
-    strides = [[0] * pad + s for s in strides]
-    ptrs, flat, imm = [outs[0].data_ptr(), None if op == "resid" else outs[1].data_ptr()], \
-        strides[0] + strides[1], []
-    k = 2
-    for x, v in zip(operands, views):
-        if v is None:
-            ptrs += [None, None]
-            flat += [0] * 8
-            imm += [float(x.hi), float(x.lo)]
-        else:
-            ptrs += [v[0].data_ptr(), v[1].data_ptr()]
-            flat += strides[k] + strides[k + 1]
-            k += 2
-            imm += [0.0, 0.0]
-    coef, kind = [], []
-    for c in (coeffs if op == "combine" else [1.0] * len(operands)):
-        coef += list(_split_f64(c))
-        kind.append(_coefficient_kind(c))
-    lib = _build.library()
-    status = lib.pm_dd_arith(OPS.index(op), len(operands),
-                             (ctypes.c_void_p * len(ptrs))(*ptrs),
-                             (ctypes.c_int64 * len(flat))(*flat),
-                             (ctypes.c_float * len(imm))(*imm),
-                             (ctypes.c_float * len(coef))(*coef),
-                             (ctypes.c_int * len(kind))(*kind),
-                             (ctypes.c_int64 * 4)(*size),
-                             torch.cuda.current_stream(device).cuda_stream)
-    _build.check(status, "dd_arith")
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,10 @@ the plain version masks lanes as ``ops/cg.py`` does (one host read per
 iteration) and solves with ``torch.linalg.solve``.  K16 runs the whole loop
 of a lane in one block (an LU with partial pivoting that visits only the
 entries of the periodic tridiagonal J that can be nonzero, O(n) a Newton
-iteration), for J lanes of L chained steps in one launch.
+iteration), for J lanes of L chained steps in one launch.  A lane's 8 n
+values (iterate, the step's start, residual, U's five slots) live in
+shared memory where they fit the card's opt-in, else in a workspace in
+device memory that the wrapper allocates (``plan``).
 
 Dispatch as in ``heat_kernels``: a CPU tensor goes to the plain version, a
 CUDA tensor launches the kernel or raises.
@@ -24,13 +27,23 @@ import torch
 from pymgrit_tpu_torch.ops import _build
 from pymgrit_tpu_torch.ops.heat_kernels import _check_operands, _launcher, _require
 
-WORKSPACE = 8            # a lane's device workspace, in values per grid point
+WORKSPACE = 8            # a lane's values (shared memory or workspace), per grid point
 
 
 def workspace(J: int, n: int, like: torch.Tensor) -> torch.Tensor:
-    """K16's per-lane workspace: the iterate, the step's start, the residual
-    and the five slots of U's rows, 8 n values a lane."""
+    """K16's per-lane workspace in device memory: the iterate, the step's
+    start, the residual and the five slots of U's rows, 8 n values a lane
+    (the device route of ``plan``)."""
     return torch.empty((J, WORKSPACE * n), dtype=like.dtype, device=like.device)
+
+
+def plan(n: int, itemsize: int, optin: int):
+    """K16's route for states of n points of ``itemsize`` bytes on a card
+    whose blocks may opt in to ``optin`` bytes of shared memory: ("shared",
+    the 8 n values' bytes a block) where they fit, else ("device", 0), a
+    workspace in device memory (``workspace``) and no shared memory."""
+    nbytes = WORKSPACE * n * itemsize
+    return ("shared", nbytes) if nbytes <= optin else ("device", 0)
 
 
 def periodic_differences(n: int, dx: float):
@@ -118,13 +131,15 @@ def burgers1d_newton(seed, dt, out, g=None, nu=0.01, dx=1.0 / 128, tol=1e-12, ma
         return burgers1d_newton_plain(seed, dt, out, g, nu, dx, tol, maxiter, iters)
     if J == 0 or L == 0:
         return out
-    ws = workspace(J, n, seed)
+    route, _ = plan(n, seed.element_size(), _build.smem_optin(seed.device.index))
+    ws = workspace(J, n, seed) if route == "device" else None
     fn = _launcher("pm_burgers1d_newton", seed.dtype)
     stream = torch.cuda.current_stream(seed.device).cuda_stream
     status = fn(seed.data_ptr(), seed.stride(0), dt.data_ptr(), out.data_ptr(), out.stride(0),
                 out.stride(1), g.data_ptr() if g is not None else None,
                 g.stride(0) if g is not None else 0, g.stride(1) if g is not None else 0,
-                iters.data_ptr() if iters is not None else None, ws.data_ptr(), float(nu),
+                iters.data_ptr() if iters is not None else None,
+                ws.data_ptr() if ws is not None else None, float(nu),
                 1.0 / (2 * dx), 1.0 / dx ** 2, -2.0 / dx ** 2, float(tol), int(maxiter), J, L, n,
                 stream)
     _build.check(status, name)
