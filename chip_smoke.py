@@ -12,19 +12,19 @@ phases:
 
 1. device    the card's name and power limit (nvidia-smi); a CUDA device is
              required, there is no CPU carry-on;
-2. build     nvcc builds the CUDA C++ kernels (K1-K12, K16-K26)
+2. build     nvcc builds the CUDA C++ kernels (K1-K12, K14-K26)
              from ``csrc/``, one process per source,
              all started together; ``cuobjdump`` counts the DMMA instructions
              of K5's, K6's and K10's float64 kernels (required in each, with
              no spills, by instantiation), K22 and K26, and ptxas's log
              gives the registers, spills and static shared memory of K2-K7,
-             K10, K11, K16, K25 (no spills) and the FP64 product tile K22
-             and K26 share (``csrc/dmma_tile.cuh``);
+             K10, K11, K14-K16, K25 (no spills) and the FP64 product tile
+             K22 and K26 share (``csrc/dmma_tile.cuh``);
 3. kernels   K1-K22 against their plain PyTorch versions at the main paths'
              shapes (and odd ones, and K5/K6/K10/K16/K17 past the sizes
              their wrappers once refused, K16 on both of its routes),
-             float32 and float64, with timings (K1-K7, K10, K11, K16, K18,
-             K19, K21 and K25 in rounds, the output made untimed, with
+             float32 and float64, with timings (K1-K7, K10, K11, K14-K16,
+             K18, K19, K21 and K25 in rounds, the output made untimed, with
              their device time on a cold L2; K16's Newton iterations
              equal to the plain version's); for each kernel's headline case (and each
              case that records its work) its bound (bytes or FP64 operations over the
@@ -118,11 +118,12 @@ float32) and ends in
 
 ``python3 chip_smoke.py --profile`` runs phases 1-2 and then one profiled
 solve of each configuration of phases 11-13, of Allen-Cahn's IMPL and CN
-runs (with K11's wrapper time a call) and of the spectral and physical
-TOMS solves, the ragged row, the spatial row, the BDF example, the two DD
-rows (with K25's wrapper time a call) and the deep diffusion grid
-(``torch.profiler``): device busy and idle share, the leading device ops,
-the device time of K1, K2, K4-K7, K10, K11, K16, K25 and the row kernels,
+runs (with K11's wrapper time a call; K14's in Gray-Scott IMPL, K15's in
+Burgers2D) and of the spectral and physical TOMS solves, the ragged row,
+the spatial row, the BDF example, the two DD rows (with K25's wrapper
+time a call) and the deep diffusion grid (``torch.profiler``): device
+busy and idle share, the leading device ops, the device time of K1, K2,
+K4-K7, K10, K11, K14-K16, K25 and the row kernels,
 launches and syncs.  It compares and checks
 nothing, so its last line is ``{"profile": true, ...}`` and never the
 ``"ok"`` of a checked run.
@@ -517,6 +518,17 @@ def phase_build():
         ks = [k for k in k1011 if k.startswith(prefix)]
         check(len(ks) == n and all(k1011[k][1] == 0 and k1011[k][2] == 0 for k in ks),
               f"build: {n} {prefix} kernels must compile without spills: {k1011}")
+    k1415 = ptxas(_build.build_log(), K14_K15_NAME, k14_k15_label)
+    print("[build] K14 / K15 (csrc/gray_scott_pointwise.cu, burgers2d_pointwise.cu on "
+          "periodic_pointwise.cuh), ptxas: "
+          + " ; ".join(f"{name}: {regs} registers, spill stores/loads {st}/{ld} B"
+                       for name, (regs, st, ld, _) in k1415.items()))
+    # K14's sixteen (f64 / f32 x EXPL, EXPL + g, residual, jacobian x vectors
+    # or scalars) and K15's eight (f64 / f32 x two modes x vectors or scalars)
+    for prefix, n in {"K14": 16, "K15": 8}.items():
+        ks = [k for k in k1415 if k.startswith(prefix)]
+        check(len(ks) == n and all(k1415[k][1] == 0 and k1415[k][2] == 0 for k in ks),
+              f"build: {n} {prefix} kernels must compile without spills: {k1415}")
     k24 = ptxas(_build.build_log(), K2_K4_NAME, k2_k4_label)
     print("[build] K2 / K4 (csrc/theta_chain.cu, K4 on K21's row body in indexed_combine.cu), "
           "ptxas: " + " ; ".join(f"{name}: {regs} registers, spill stores/loads {st}/{ld} B"
@@ -649,6 +661,21 @@ def k10_k11_label(m, ln):
         return "K10 f32 FFMA"
     return (f"K11 {'f64' if e11 == 'd' else 'f32'} {('rhs', 'residual', 'jacobian')[int(mode)]} "
             f"V={vec}")
+
+
+# gray_scott_pointwise_kernel<T, MODE, G, V> (K14) /
+# burgers2d_pointwise_kernel<T, MODE, V> (K15)
+K14_K15_NAME = re.compile(r"(gray_scott|burgers2d)_pointwise_kernelI([df])Li(\d)E(?:Lb([01])E)?"
+                          r"Li(\d)E")
+
+
+def k14_k15_label(m, ln):
+    name, e, mode, g, vec = m.groups()
+    dt = "f64" if e == "d" else "f32"
+    if name == "gray_scott":
+        mode = ("EXPL + g" if g == "1" else "EXPL", "residual", "jacobian")[int(mode)]
+        return f"K14 {dt} {mode} V={vec}"
+    return f"K15 {dt} {('residual', 'jacobian')[int(mode)]} V={vec}"
 
 
 # theta_chain_kernel<T, CN, G, TAB> (K2) / cpoint_combine_kernel<T, NT> (K4)
@@ -1248,8 +1275,11 @@ def slice_cases(dtype, dev, rng, stash):
     Gray-Scott prologue, one coefficient per species), the IMPL
     preconditioner (8 pairs) and Burgers2D's (4 pairs of 64^2, coefficient
     nu on both).  K14: the IMPL level-0 lanes (8 pairs) in the residual and
-    Jacobian modes, the EXPL level-0 step (128 pairs + g).  K15: Burgers2D's
-    4 lanes of 64^2.  K16: the deep Burgers1D level-0 F-relaxation (256
+    Jacobian modes, the EXPL level-0 step (128 pairs + g), and the residual
+    at n = 17 on the AT run's 1024 level-0 lanes (scalar accesses).  K15:
+    Burgers2D's 4 lanes of 64^2 in both modes, and the residual at n = 17.
+    K14 and K15 are bit for bit ``RowCase``s.  K16: the deep Burgers1D
+    level-0 F-relaxation (256
     lanes x 15 steps + g) and the example's (16 x 3).  K17: the deep
     advection level-0 F-relaxation (4096 lanes x 3 steps + g), the example's
     (64 x 1), and 4096 lanes with c < -1/2 (the kernel's second branch)."""
@@ -1298,41 +1328,52 @@ def slice_cases(dtype, dev, rng, stash):
         cases.append(("periodic_solve2d", case, k10(B, side, step, gs_, H_, lam_, coef)))
         stash[("work", "periodic_solve2d", case)] = k10_work(B, 2, side, False)
 
-    def k14(mode, B, step, with_g):
-        s_ = pairs(2 * B, n)[::2][:B]
-        w = pairs(B, n, -1.0, 1.0)[:B]
+    def k14(mode, B, side, step, with_g):
+        s_ = pairs(2 * B, side)[::2][:B]
+        w = pairs(B, side, -1.0, 1.0)[:B]
+        g = w * 1e-3 if with_g else None
         dt = t(np.full(B, step))
 
-        def run(ops):
-            out = torch.empty((B, 2, n, n), dtype=dtype, device=dev)
-            r = ops.gray_scott_pointwise(mode, s_, out, dt, GS_COEF["du"], GS_COEF["dv"],
-                                         GS_COEF["a"], GS_COEF["b"], dx_gs ** 2, w=w,
-                                         r=w if mode == "residual" else None,
-                                         g=w * 1e-3 if with_g else None)
+        def launch(ops, out):
+            return ops.gray_scott_pointwise(mode, s_, out, dt, GS_COEF["du"], GS_COEF["dv"],
+                                            GS_COEF["a"], GS_COEF["b"], (2.0 / side) ** 2, w=w,
+                                            r=w if mode == "residual" else None, g=g)
+
+        def view(r):                    # the residual and its per-lane max as one tensor
             return torch.cat([r[0].flatten(), r[1]]) if mode == "residual" else r
-        return run
+        # K14 rounds each operation of its plain version once, in its order
+        return RowCase(lambda: torch.empty((B, 2, side, side), dtype=dtype, device=dev), launch,
+                       exact=True, view=view)
 
     J_expl = (GS_EXPL["nt"] - 1) // GS_EXPL["ms"][0]
     dt_expl = GS_EXPL["t_stop"] / (GS_EXPL["nt"] - 1)
-    cases += [("gray_scott_pointwise", f"jacobian B=8 n={n}", k14("jacobian", 8, dt_impl, False)),
-              ("gray_scott_pointwise", f"residual B=8 n={n}", k14("residual", 8, dt_impl, False)),
-              ("gray_scott_pointwise", f"EXPL B={J_expl} n={n} +g",
-               k14("expl", J_expl, dt_expl, True))]
+    for mode, B, side, step, with_g in (("jacobian", 8, n, dt_impl, False),
+                                        ("residual", 8, n, dt_impl, False),
+                                        ("expl", J_expl, n, dt_expl, True),
+                                        ("residual", J0, 17, dt_impl, False)):
+        case = f"{'EXPL' if mode == 'expl' else mode} B={B} n={side}" + (" +g" if with_g else "")
+        cases.append(("gray_scott_pointwise", case, k14(mode, B, side, step, with_g)))
+        stash[("work", "gray_scott_pointwise", case)] = k14_work(mode, B, side, with_g)
 
-    def k15(mode):
-        s_ = pairs(B2, nb, -1.0, 1.0)[:B2]
-        w = pairs(B2, nb, -1.0, 1.0)[1:]
+    def k15(mode, side):
+        s_ = pairs(B2, side, -1.0, 1.0)[:B2]
+        w = pairs(B2, side, -1.0, 1.0)[1:]
         dt = t(np.full(B2, dt_b2))
 
-        def run(ops):
-            out = torch.empty((B2, 2, nb, nb), dtype=dtype, device=dev)
-            r = ops.burgers2d_pointwise(mode, s_, out, dt, BURGERS_2D["nu"], 1.0 / nb, w=w,
-                                        r=w if mode == "residual" else None)
-            return torch.cat([r[0].flatten(), r[1]]) if mode == "residual" else r
-        return run
+        def launch(ops, out):
+            return ops.burgers2d_pointwise(mode, s_, out, dt, BURGERS_2D["nu"], 1.0 / side, w=w,
+                                           r=w if mode == "residual" else None)
 
-    cases += [("burgers2d_pointwise", f"jacobian B={B2} n={nb}", k15("jacobian")),
-              ("burgers2d_pointwise", f"residual B={B2} n={nb}", k15("residual"))]
+        def view(r):
+            return torch.cat([r[0].flatten(), r[1]]) if mode == "residual" else r
+        # K15 rounds each operation of its plain version once, in its order
+        return RowCase(lambda: torch.empty((B2, 2, side, side), dtype=dtype, device=dev), launch,
+                       exact=True, view=view)
+
+    for mode, side in (("jacobian", nb), ("residual", nb), ("residual", 17)):
+        case = f"{mode} B={B2} n={side}"
+        cases.append(("burgers2d_pointwise", case, k15(mode, side)))
+        stash[("work", "burgers2d_pointwise", case)] = k15_work(mode, B2, side)
 
     def k16(cfg, J, L, with_g):
         x1 = np.linspace(0, 1, cfg["nx"], endpoint=False)
@@ -1348,6 +1389,11 @@ def slice_cases(dtype, dev, rng, stash):
             (f"example level-0 F-relax J={Je} L={me - 1}", BURGERS_EX, Je, me - 1, False)):
         cases.append(("burgers1d_newton", case, k16(cfg, J, L, with_g)))
         stash[("iters_len", "burgers1d_newton", case)] = L * J
+        # the seeds, steps and out (and g) once; about 60 n operations a
+        # Newton iteration of this run (headline_work's count)
+        stash[("work", "burgers1d_newton", case)] = lambda J=J, L=L, n=cfg["nx"], gs=with_g: (
+            8 * (J * n + L * J + J * L * n * (2 if gs else 1)),
+            stash[("burgers1d_newton", J, L)] * 60 * n + J * L * n)
 
     xa = np.linspace(-1, 1, ADVECTION_DEEP["nx"])[:-1]
     fac = 1.0 / (xa[1] - xa[0])
@@ -1403,17 +1449,17 @@ def k16_case(seeds, dts, g, nu, dx, dtype, stash):
 
 
 class RowCase:
-    """A K1-K7, K10, K11, K16, K18, K19, K21 or K25 case in two steps: ``prepare()``
-    makes what the call writes into where the call updates a tube in place
-    or into a given out (untimed: the fresh copy of a tube, the empty
-    tube), ``launch(ops, state)`` makes the call and returns its output.
-    ``run(ops)`` does both: the correctness comparison's fresh operands
-    (``view`` turns what the call returns into one tensor: K11's residual
-    and its per-lane max; K16's out and iterations).  With ``exact`` (K1,
-    K2, K4, K7 in float64, K11, K18, K19, K21, K25) the kernel equals its
-    plain version bit for bit; without (K3, K5, K6, K10 and K16 sum in
-    another order) it is held at the kernel tolerance, and a second launch
-    must give the same bits."""
+    """A K1-K7, K10, K11, K14-K16, K18, K19, K21 or K25 case in two steps:
+    ``prepare()`` makes what the call writes into where the call updates a
+    tube in place or into a given out (untimed: the fresh copy of a tube,
+    the empty tube), ``launch(ops, state)`` makes the call and returns its
+    output.  ``run(ops)`` does both: the correctness comparison's fresh
+    operands (``view`` turns what the call returns into one tensor: K11's,
+    K14's and K15's residual and its per-lane max; K16's out and
+    iterations).  With ``exact`` (K1, K2, K4, K7 in float64, K11, K14, K15,
+    K18, K19, K21, K25) the kernel equals its plain version bit for bit;
+    without (K3, K5, K6, K10 and K16 sum in another order) it is held at
+    the kernel tolerance, and a second launch must give the same bits."""
 
     def __init__(self, prepare, launch, exact=True, view=None):
         self.prepare, self.launch, self.exact, self.view = prepare, launch, exact, view
@@ -2017,6 +2063,33 @@ def k11_work(mode, B, n):
     return 8 * (arrays * B * n * n + B * (2 if mode == "residual" else 1)), ops * B * n * n
 
 
+def k14_work(mode, B, n, with_g=False):
+    """(bytes, operations) of a K14 call on B Gray-Scott pairs of n x n:
+    s read (w too for the Jacobian, r for the residual, g for an EXPL step
+    with g), both species written (and the residual's per-lane max), dt
+    read; operations a point (both species): the two Laplacians' twelve,
+    then the Jacobian's 21, the residual's 21 (its max included) or the
+    EXPL step's 15 (17 with g)."""
+    arrays = {"jacobian": 3, "residual": 3, "expl": 3 if with_g else 2}[mode]
+    ops = 12 + {"jacobian": 21, "residual": 21, "expl": 17 if with_g else 15}[mode]
+    return (8 * (arrays * B * 2 * n * n + B * (2 if mode == "residual" else 1)),
+            ops * B * n * n)
+
+
+def k15_work(mode, B, n):
+    """(bytes, operations) of a K15 call on B Burgers2D velocity fields of
+    n x n: s read (w too for the Jacobian, r for the residual), both
+    components written (and the residual's per-lane max), dt read;
+    operations a point (both components): the Jacobian's eight central
+    differences (16), its two linearised convections (14), the two
+    Laplacians of w (12) and the update (8); the residual's four
+    differences (8), convections (6), Laplacians of s (12), update (10) and
+    max (4)."""
+    ops = {"jacobian": 50, "residual": 40}[mode]
+    return (8 * (3 * B * 2 * n * n + B * (2 if mode == "residual" else 1)),
+            ops * B * n * n)
+
+
 def past_cap_cases(dtype, dev, rng, stash):
     """K5, K6, K10, K16 and K17 past the sizes at which their wrappers
     raised before: K5 and K6 at the toms257 interior 255 (K5: the
@@ -2146,12 +2219,11 @@ def headline_work(kernel, stash):
     if kernel == "rk4_brusselator":        # four stages, ~70 operations a step
         Jb, L = (BRUSSELATOR["nt"] - 1) // BRUSSELATOR["m"], BRUSSELATOR["m"] - 1
         return 8 * (2 * Jb + 2 * L * Jb + 2 * 2 * Jb * L), 70 * Jb * L
-    if kernel == "gray_scott_pointwise":   # jacobian B=8 n=128: s, w in, out
-        nn = GS_IMPL["nx"]
-        return 8 * (3 * 8 * 2 * nn ** 2 + 8 + 5), 40 * 8 * nn ** 2
+    if kernel == "gray_scott_pointwise":   # jacobian B=8 n=128
+        return k14_work("jacobian", 8, GS_IMPL["nx"])
     if kernel == "burgers2d_pointwise":    # jacobian B=4 n=64
-        nn, B = BURGERS_2D["nx"], (BURGERS_2D["nt"] - 1) // BURGERS_2D["ms"][0]
-        return 8 * (3 * B * 2 * nn ** 2 + B + 3), 50 * B * nn ** 2
+        return k15_work("jacobian", (BURGERS_2D["nt"] - 1) // BURGERS_2D["ms"][0],
+                        BURGERS_2D["nx"])
     if kernel == "burgers1d_newton":       # about 60 n operations a Newton iteration
         nn, m = BURGERS_DEEP["nx"], BURGERS_DEEP["ms"][0]
         Jd, L = (BURGERS_DEEP["nt"] - 1) // m, m - 1
@@ -3959,9 +4031,9 @@ def profile_cells(card):
     import pymgrit_tpu_torch as P
     from pymgrit_tpu_torch.ops import DISPATCH, launch_counts, reset_launch_counts
 
-    def solver(model, cfg, name="scan", k=0, **kw):
+    def solver(model, cfg, name="scan", k=0, ops=DISPATCH, **kw):
         def run():
-            problem = level_problems(P, model, cfg, DISPATCH, **kw)
+            problem = level_problems(P, model, cfg, ops, **kw)
             return strategy(P, name, problem, k, tol=cfg["tol"], max_iter=cfg["max_iter"])
         return run
 
@@ -3970,36 +4042,32 @@ def profile_cells(card):
                                  device=DEVICE) for nt in (129, 65)]
         return P.Mgrit(problem=problem, cf_iter=1, nested_iteration=False, logging_lvl=30)
 
-    # the K11 wrapper's host time a call (the wrapper's checks, its launch
-    # and what it allocates), timed around each call of the Allen-Cahn cells
+    # a wrapper's host time a call (its checks, its launch and what it
+    # allocates), timed around each call: K11 in the Allen-Cahn cells, K14
+    # in Gray-Scott IMPL, K15 in Burgers2D, K25 in the DD cells (every DD
+    # operation of the solve reads the kernel set of the problem's states)
     host = {"calls": 0, "s": 0.0}
 
-    def timed_k11(*args, **kw):
-        t0 = time.perf_counter()
-        r = DISPATCH.allen_cahn_pointwise(*args, **kw)
-        host["s"] += time.perf_counter() - t0
-        host["calls"] += 1
-        return r
+    def timed(name):
+        fn = getattr(DISPATCH, name)
+
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            r = fn(*args, **kw)
+            host["s"] += time.perf_counter() - t0
+            host["calls"] += 1
+            return r
+        return DISPATCH._replace(**{name: call})
 
     def allen_cahn(cfg):
         return lambda: strategy(P, "scan", allen_cahn_problem(
-            P, DISPATCH._replace(allen_cahn_pointwise=timed_k11), **cfg), 0, tol=cfg["tol"],
+            P, timed("allen_cahn_pointwise"), **cfg), 0, tol=cfg["tol"],
             max_iter=cfg["max_iter"])
-
-    # the K25 wrapper's host time a call, alike, in the DD cells (every DD
-    # operation of the solve reads the kernel set of the problem's states)
-    def timed_k25(*args, **kw):
-        t0 = time.perf_counter()
-        r = DISPATCH.dd_arith(*args, **kw)
-        host["s"] += time.perf_counter() - t0
-        host["calls"] += 1
-        return r
 
     def dd_cell(cfg, basis):
         return lambda: P.Mgrit(
-            problem=build_problem(P, cfg["nx"], cfg["nt"], cfg["ms"], DEVICE,
-                                  DISPATCH._replace(dd_arith=timed_k25), basis=basis,
-                                  precision="dd"),
+            problem=build_problem(P, cfg["nx"], cfg["nt"], cfg["ms"], DEVICE, timed("dd_arith"),
+                                  basis=basis, precision="dd"),
             tol=cfg["tol"], max_iter=cfg["max_iter"], logging_lvl=30)
 
     gs = dict(nx=GS_AT["nx"], method="IMEX")
@@ -4010,14 +4078,15 @@ def profile_cells(card):
         ("gray_scott Parareal", lambda: P.Mgrit(
             problem=level_problems(P, "GrayScott2D", GS_PARAREAL, DISPATCH, **gs), cf_iter=0,
             tol=GS_PARAREAL["tol"], max_iter=GS_PARAREAL["max_iter"], logging_lvl=30)),
-        ("gray_scott IMPL", solver("GrayScott2D", GS_IMPL, nx=GS_IMPL["nx"], method="IMPL")),
+        ("gray_scott IMPL", solver("GrayScott2D", GS_IMPL, ops=timed("gray_scott_pointwise"),
+                                   nx=GS_IMPL["nx"], method="IMPL")),
         ("gray_scott EXPL", solver("GrayScott2D", GS_EXPL, nx=GS_EXPL["nx"], method="EXPL")),
         ("burgers example", solver("Burgers1D", BURGERS_EX, nx=BURGERS_EX["nx"],
                                    nu=BURGERS_EX["nu"])),
         ("burgers Burgers1D deep", solver("Burgers1D", BURGERS_DEEP, nx=BURGERS_DEEP["nx"],
                                           nu=BURGERS_DEEP["nu"])),
-        ("burgers Burgers2D", solver("Burgers2D", BURGERS_2D, nx=BURGERS_2D["nx"],
-                                     nu=BURGERS_2D["nu"])),
+        ("burgers Burgers2D", solver("Burgers2D", BURGERS_2D, ops=timed("burgers2d_pointwise"),
+                                     nx=BURGERS_2D["nx"], nu=BURGERS_2D["nu"])),
         ("advection example", advection_example),
         ("advection deep", solver("Advection1D", dict(ADVECTION_DEEP, t_stop=2.0), c=1,
                                   x_start=-1, x_end=1, nx=ADVECTION_DEEP["nx"])),
@@ -4084,8 +4153,8 @@ def profile_cells(card):
                for k in ("restrict_combine", "interpolate_combine", "indexed_combine",
                          "sine_solve2d", "sine_affine2d", "affine_tile", "band_product",
                          "theta_rhs", "theta_chain", "interval_affine", "cpoint_combine",
-                         "periodic_solve2d", "periodic_rhs", "allen_cahn", "burgers1d_newton",
-                         "dd_arith")}
+                         "periodic_solve2d", "periodic_rhs", "allen_cahn", "gray_scott",
+                         "burgers2d", "burgers1d_newton", "dd_arith")}
         print(f"[profile] {label}: {h.size} iterations, profiled solve {wall * 1e3:.1f} ms, device "
               f"busy {busy:.1f} ms, idle {100 * (1 - busy / (wall * 1e3)):.1f} % | leading device "
               "time " + "; ".join(f"{e.key[:48]} {device_us(e) / 1e3:.2f} ms ({e.count})"
@@ -4098,11 +4167,12 @@ def profile_cells(card):
                                           ("K6", "sine_affine2d"), ("K7", "theta_rhs2d"),
                                           ("K10", "periodic_solve2d"),
                                           ("K11", "allen_cahn_pointwise"),
+                                          ("K14", "gray_scott_pointwise"),
+                                          ("K15", "burgers2d_pointwise"),
                                           ("K16", "burgers1d_newton"), ("K25", "dd_arith"))
                         if calls[key])
-              + (f" | {'K25' if label.startswith('dd') else 'K11'} wrapper host time "
-                 f"{host['s'] * 1e3 / host['calls']:.4f} ms a call ({host['calls']} calls)"
-                 if host["calls"] else "")
+              + (f" | wrapper host time {host['s'] * 1e3 / host['calls']:.4f} ms a call "
+                 f"({host['calls']} calls)" if host["calls"] else "")
               + f" | host: {launches} kernel launches, {syncs} synchronisations"
               + (f" | product tile: {calls['eig_step']} K22 and {calls['dd_matmul']} K26 calls, "
                  f"{tile['tile_product'][0]} product kernels {tile['tile_product'][1]:.2f} ms, "
@@ -4139,9 +4209,9 @@ REPLACES = {
                           "pymgrit_tpu/ops/runge_kutta.py:67"),
     "rk4_brusselator": ("triton", "pymgrit_tpu_torch/ops/triton_kernels.py",
                         "pymgrit_tpu/ops/runge_kutta.py:38"),
-    "gray_scott_pointwise": ("triton", "pymgrit_tpu_torch/ops/triton_kernels.py",
+    "gray_scott_pointwise": ("cuda", "pymgrit_tpu_torch/ops/csrc/gray_scott_pointwise.cu",
                              "pymgrit_tpu/models/gray_scott_2d.py:102"),
-    "burgers2d_pointwise": ("triton", "pymgrit_tpu_torch/ops/triton_kernels.py",
+    "burgers2d_pointwise": ("cuda", "pymgrit_tpu_torch/ops/csrc/burgers2d_pointwise.cu",
                             "pymgrit_tpu/models/burgers.py:121"),
     "burgers1d_newton": ("cuda", "pymgrit_tpu_torch/ops/csrc/burgers1d_newton.cu",
                          "pymgrit_tpu/models/burgers.py:53"),

@@ -22,8 +22,10 @@ coarsening, Diffusion2D, and the double-double precision mode:
   ``pointwise``)
 * K12 ``dopri45_arenstorf`` (CUDA C++, ``csrc/dopri45_arenstorf.cu``)
 * K13 ``rk4_brusselator`` (Triton)
-* K14 ``gray_scott_pointwise`` (Triton)
-* K15 ``burgers2d_pointwise`` (Triton)
+* K14 ``gray_scott_pointwise`` (CUDA C++, ``csrc/gray_scott_pointwise.cu``, wrapper in
+  ``pointwise``)
+* K15 ``burgers2d_pointwise`` (CUDA C++, ``csrc/burgers2d_pointwise.cu``, wrapper in
+  ``pointwise``)
 * K16 ``burgers1d_newton`` (CUDA C++, ``csrc/burgers1d_newton.cu``)
 * K17 ``circulant_solve1d`` (CUDA C++, ``csrc/circulant_solve1d.cu``)
 * K18 ``restrict_combine`` (CUDA C++, ``csrc/restrict_combine.cu``, wrapper in
@@ -107,7 +109,7 @@ DISPATCH = Ops(heat_kernels.interval_affine, heat_kernels.theta_chain,
                theta_rhs.theta_rhs2d, prefix.affine_prefix, prefix.affine_windows,
                periodic.periodic_solve2d, pointwise.allen_cahn_pointwise,
                runge_kutta.dopri45_arenstorf, triton_kernels.rk4_brusselator,
-               triton_kernels.gray_scott_pointwise, triton_kernels.burgers2d_pointwise,
+               pointwise.gray_scott_pointwise, pointwise.burgers2d_pointwise,
                dense_newton.burgers1d_newton, periodic.circulant_solve1d,
                transfer.restrict_combine, transfer.interpolate_combine,
                heat_kernels.sine_solve1d, indexed.indexed_combine, eig_step.eig_step,
@@ -119,8 +121,8 @@ PLAIN = Ops(heat_kernels.interval_affine_plain, heat_kernels.theta_chain_plain,
             theta_rhs.theta_rhs2d_plain, prefix.affine_prefix_plain,
             prefix.affine_windows_plain, periodic.periodic_solve2d_plain,
             pointwise.allen_cahn_pointwise_plain, runge_kutta.dopri45_arenstorf_plain,
-            triton_kernels.rk4_brusselator_plain, triton_kernels.gray_scott_pointwise_plain,
-            triton_kernels.burgers2d_pointwise_plain, dense_newton.burgers1d_newton_plain,
+            triton_kernels.rk4_brusselator_plain, pointwise.gray_scott_pointwise_plain,
+            pointwise.burgers2d_pointwise_plain, dense_newton.burgers1d_newton_plain,
             periodic.circulant_solve1d_plain, transfer.restrict_combine_plain,
             transfer.interpolate_combine_plain, heat_kernels.sine_solve1d_plain,
             indexed.indexed_combine_plain, eig_step.eig_step_plain,

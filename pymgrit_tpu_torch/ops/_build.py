@@ -1,10 +1,11 @@
 """Build and load the CUDA C++ kernels (K1 interval_affine, K2 theta_chain,
 K3 residual_row_norms, K4 cpoint_combine, K5 sine_solve2d, K6
 sine_affine2d, K7 theta_rhs2d, K8 affine_prefix, K9 affine_windows, K10
-periodic_solve2d, K11 allen_cahn_pointwise, K12 dopri45_arenstorf, K16
-burgers1d_newton, K17 circulant_solve1d, K18 restrict_combine, K19
-interpolate_combine, K20 sine_solve1d, K21 indexed_combine, K22 eig_step,
-K23 dd_interval_affine, K24 dd_theta_chain, K25 dd_arith, K26 dd_matmul).
+periodic_solve2d, K11 allen_cahn_pointwise, K12 dopri45_arenstorf, K14
+gray_scott_pointwise, K15 burgers2d_pointwise, K16 burgers1d_newton, K17
+circulant_solve1d, K18 restrict_combine, K19 interpolate_combine, K20
+sine_solve1d, K21 indexed_combine, K22 eig_step, K23 dd_interval_affine,
+K24 dd_theta_chain, K25 dd_arith, K26 dd_matmul).
 
 The sources under ``csrc/`` have a plain C interface.  On first use each
 ``.cu`` file is compiled by its own ``nvcc`` process for Hopper
@@ -65,6 +66,10 @@ _SIGNATURES = {
     "pm_residual_row_norms": [_P, _P, _P, _P, _P],
     # the packed argument array, 1/eps^2, dx^2, the stream
     "pm_allen_cahn_pointwise": [_P, _D, _D, _P],
+    # the packed argument array, du, dv, a, b, dx^2, the stream
+    "pm_gray_scott_pointwise": [_P, _D, _D, _D, _D, _D, _P],
+    # the packed argument array, nu, 2 dx, dx^2, the stream
+    "pm_burgers2d_pointwise": [_P, _D, _D, _D, _P],
 }
 # the float32-pair (double-double) launchers: one symbol each, no dtype suffix
 _DD_SIGNATURES = {

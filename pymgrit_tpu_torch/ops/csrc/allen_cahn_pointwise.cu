@@ -35,48 +35,23 @@
 // TB/s; what a call costs there is the launch's host time.  Design:
 // * one ctypes call: a packed int64 argument array the wrapper caches with
 //   its checks (ops/pointwise.py), inv_eps2 and dx^2, the stream;
-// * a block of TX x TY threads covers TY rows of one state (an item), a
-//   thread V consecutive columns of its row: 16-byte vectors (V = 2 in
-//   float64, 4 in float32) where the side, the strides and the pointers
-//   allow, else V = 1; a row's north and south neighbours are the same
-//   columns of rows i - 1 and i + 1, its west and east halo one scalar
-//   each; the wrapped indices are a compare each, no division;
+// * a block of TX x TY threads covers TY rows of one state at a time (a
+//   unit), a thread V consecutive columns of its row: 16-byte vectors (V =
+//   2 in float64, 4 in float32) where the side, the strides and the
+//   pointers allow, else V = 1; a row's north and south neighbours are the
+//   same columns of rows i - 1 and i + 1, its west and east halo one
+//   scalar each; the wrapped indices are a compare each, no division;
 // * the grid is sized to the card (blocks an SM times the SMs, at most
-//   one block an item); a block walks its items, so no block is idle and
-//   each item folds its own maximum.
+//   one block a unit); a block walks consecutive units and folds each of
+//   its lanes' maxima once.
+// The rounding helpers, the row loads, the walk and the lane max are
+// csrc/periodic_pointwise.cuh's, which K14 and K15 share.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "periodic_pointwise.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-
-__device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
-__device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ double dvd(double a, double b) { return __ddiv_rn(a, b); }
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float dvd(float a, float b) { return __fdiv_rn(a, b); }
-
-__device__ __forceinline__ unsigned long long bits(double v) {
-  return (unsigned long long)__double_as_longlong(v);
-}
-__device__ __forceinline__ unsigned long long bits(float v) { return __float_as_uint(v); }
-__device__ __forceinline__ void from_bits(double* p, unsigned long long b) {
-  *p = __longlong_as_double((long long)b);
-}
-__device__ __forceinline__ void from_bits(float* p, unsigned long long b) {
-  *p = __uint_as_float((unsigned)b);
-}
-
-// the larger of a and b; NaN if either is
-template <typename T>
-__device__ __forceinline__ T nanmax(T a, T b) {
-  return (b > a || b != b) ? b : a;
-}
+using namespace pm_pointwise;
 
 template <typename T>
 struct Args {
@@ -84,47 +59,16 @@ struct Args {
   T *out, *gmax;
   unsigned long long* ws;     // residual: B max slots, then B counters
   int64_t u_sb, u_sr, x_sb, x_sr, r_sb, r_sr, o_sb, o_sr;
-  int B, n, nu, bands;
-  int64_t items;              // B bands
+  Walk walk;
+  int nu;
   T inv_eps2, dx2, nu1;       // the scalars in the working type; nu1 = nu + 1
 };
 
-// V consecutive values of a row, as one 16-byte vector where V > 1
-template <typename T, int V>
-__device__ __forceinline__ void load(T (&v)[V], const T* p) {
-  if constexpr (V == 1) {
-    v[0] = *p;
-  } else if constexpr (sizeof(T) == 8) {
-    const double2 w = *reinterpret_cast<const double2*>(p);
-    v[0] = w.x;
-    v[1] = w.y;
-  } else {
-    const float4 w = *reinterpret_cast<const float4*>(p);
-    v[0] = w.x;
-    v[1] = w.y;
-    v[2] = w.z;
-    v[3] = w.w;
-  }
-}
-
-template <typename T, int V>
-__device__ __forceinline__ void store(T* p, const T (&v)[V]) {
-  if constexpr (V == 1) {
-    *p = v[0];
-  } else if constexpr (sizeof(T) == 8) {
-    *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
-  } else {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-}
-
-// one point, from the centre uc of u (the reaction), the centre c of the
-// Laplacian's operand (x in the Jacobian, else u) and its neighbours
-// north, south, west, east, and r (the residual's rhs)
+// one point, from the centre uc of u (the reaction), the Laplacian lap of
+// its operand (x in the Jacobian, else u) and that operand's centre c, and
+// r (the residual's rhs)
 template <typename T, int MODE>
-__device__ __forceinline__ T point(const Args<T>& a, T f, T uc, T c, T nn, T ss, T ww, T ee,
-                                   T r) {
-  const T lap = dvd(sub(add(add(add(nn, ss), ww), ee), mul(T(4), c)), a.dx2);
+__device__ __forceinline__ T point(const Args<T>& a, T f, T uc, T lap, T c, T r) {
   T p = uc;
   for (int k = 1; k < a.nu; ++k) p = mul(p, uc);
   if constexpr (MODE == 2) {
@@ -138,67 +82,43 @@ __device__ __forceinline__ T point(const Args<T>& a, T f, T uc, T c, T nn, T ss,
 
 template <typename T, int MODE, int V>
 __global__ void __launch_bounds__(kThreads) allen_cahn_pointwise_kernel(const Args<T> a) {
-  __shared__ T warp_max[kThreads / 32];
-  const int n = a.n;
-  for (int64_t item = blockIdx.x; item < a.items; item += gridDim.x) {
-    const int64_t b = item / a.bands;
-    const int i = (int)(item - b * a.bands) * (int)blockDim.y + (int)threadIdx.y;
-    T m = T(0);   // the residual's max |g| over this thread's points
-    if (i < n) {
-      const int im = i == 0 ? n - 1 : i - 1, ip = i == n - 1 ? 0 : i + 1;
-      const T f = a.fac[b];
-      const T* __restrict__ u = a.u + b * a.u_sb;
-      const T* __restrict__ x = MODE == 2 ? a.x + b * a.x_sb : u;
-      const int64_t xs = MODE == 2 ? a.x_sr : a.u_sr;
-      const T* __restrict__ xrow = x + i * xs;
-      T* __restrict__ o = a.out + b * a.o_sb + i * a.o_sr;
-      for (int j = (int)threadIdx.x * V; j < n; j += (int)blockDim.x * V) {
-        T c[V], nv[V], sv[V], uc[V], rv[V];
-        load<T, V>(c, xrow + j);
-        load<T, V>(nv, x + im * xs + j);
-        load<T, V>(sv, x + ip * xs + j);
-        const T w0 = xrow[j == 0 ? n - 1 : j - 1];
-        const T e0 = xrow[j + V == n ? 0 : j + V];
-        if constexpr (MODE == 2) {
-          load<T, V>(uc, u + i * a.u_sr + j);
-        }
-        if constexpr (MODE == 1) {
-          load<T, V>(rv, a.rhs + b * a.r_sb + i * a.r_sr + j);
-        }
-        T v[V];
+  const int n = a.walk.n;
+  T m = T(0);   // the residual's max |g| over this thread's points since a fold
+  walk_units(
+      a.walk,
+      [&](int64_t b, int i) {
+        const Rows r = rows(n, i);
+        const T f = a.fac[b];
+        const T* __restrict__ u = a.u + b * a.u_sb;
+        const T* __restrict__ x = MODE == 2 ? a.x + b * a.x_sb : u;
+        const int64_t xs = MODE == 2 ? a.x_sr : a.u_sr;
+        T* __restrict__ o = a.out + b * a.o_sb + i * a.o_sr;
+        for (int j = (int)threadIdx.x * V; j < n; j += (int)blockDim.x * V) {
+          Cross<T, V> c;
+          T uc[V], rv[V];
+          c.load_at(x, xs, r, j);
+          if constexpr (MODE == 2) {
+            load<T, V>(uc, u + i * a.u_sr + j);
+          }
+          if constexpr (MODE == 1) {
+            load<T, V>(rv, a.rhs + b * a.r_sb + i * a.r_sr + j);
+          }
+          T v[V];
 #pragma unroll
-        for (int k = 0; k < V; ++k) {
-          const T ww = k == 0 ? w0 : c[k - 1];
-          const T ee = k == V - 1 ? e0 : c[k + 1];
-          v[k] = point<T, MODE>(a, f, MODE == 2 ? uc[k] : c[k], c[k], nv[k], sv[k], ww, ee,
-                                MODE == 1 ? rv[k] : T(0));
-          if constexpr (MODE == 1) m = nanmax(m, fabs(v[k]));   // sign bit cleared
+          for (int k = 0; k < V; ++k) {
+            v[k] = point<T, MODE>(a, f, MODE == 2 ? uc[k] : c.c[k], lap(c, k, a.dx2), c.c[k],
+                                  MODE == 1 ? rv[k] : T(0));
+            if constexpr (MODE == 1) m = nanmax(m, fabs(v[k]));   // sign bit cleared
+          }
+          store<T, V>(o + j, v);
         }
-        store<T, V>(o + j, v);
-      }
-    }
-    if constexpr (MODE == 1) {
-      // the item's max: the warps', then warp 0's, then the lane's slot
-      for (int off = 16; off > 0; off >>= 1) m = nanmax(m, __shfl_xor_sync(0xffffffffu, m, off));
-      const int t = (int)(threadIdx.y * blockDim.x + threadIdx.x);
-      const int nwarps = (int)(blockDim.x * blockDim.y) / 32;
-      if (t % 32 == 0) warp_max[t / 32] = m;
-      __syncthreads();
-      if (t == 0) {
-        for (int w = 1; w < nwarps; ++w) m = nanmax(m, warp_max[w]);
-        unsigned long long* slot = a.ws + b;
-        unsigned long long* count = a.ws + a.B + b;
-        // |g| >= 0 (or NaN with its sign bit clear): its bits order as it does
-        atomicMax(slot, bits(m));
-        __threadfence();
-        if (atomicAdd(count, 1ull) == (unsigned long long)(a.bands - 1)) {
-          from_bits(a.gmax + b, atomicExch(slot, 0ull));
-          atomicExch(count, 0ull);
+      },
+      [&](int64_t b, int k) {
+        if constexpr (MODE == 1) {
+          lane_max(m, b, k, a.walk, a.ws, a.gmax);
+          m = T(0);
         }
-      }
-      __syncthreads();   // warp_max is reused by the block's next item
-    }
-  }
+      });
 }
 
 template <typename T, int MODE>
@@ -213,7 +133,8 @@ cudaError_t run(const Args<T>& a, int vec, dim3 block, unsigned grid, cudaStream
 // args (int64): CUDA device, then the pointers u, x, rhs, fac, out, gmax,
 // workspace (0: none), u's, x's, rhs's and out's batch and row strides, B,
 // n, nu, the mode (0 rhs, 1 residual, 2 jacobian), then the plan: the
-// vector width (1, or 16 bytes), TX, TY, bands, grid (ops/pointwise.py::pack)
+// vector width (1, or 16 bytes), TX, TY, units a block, grid
+// (ops/pointwise.py::pack)
 template <typename T>
 int launch(const int64_t* g, double inv_eps2, double dx2, void* stream) {
   Args<T> a{};
@@ -234,43 +155,25 @@ int launch(const int64_t* g, double inv_eps2, double dx2, void* stream) {
   a.o_sr = g[15];
   const int64_t B = g[16], n = g[17], nu = g[18], mode = g[19];
   int64_t vec = g[20];
-  const int64_t tx = g[21], ty = g[22], bands = g[23], grid = g[24];
+  const int64_t tx = g[21], ty = g[22], per = g[23], grid = g[24];
   if (B == 0 || n == 0) return 0;
-  if (n < 1 || n > 0x7fffffff || B > 0x7fffffff || nu < 1 || nu > 64 || mode < 0 || mode > 2 ||
-      tx < 1 || ty < 1 || tx * ty != kThreads || bands * ty < n || grid < 1 ||
-      grid > 0x7fffffff || (mode == 1 && (a.ws == nullptr || a.gmax == nullptr)))
+  if (!walk_of(a.walk, B, n, tx, ty, per, grid) || nu < 1 || nu > 64 || mode < 0 ||
+      mode > 2 || (mode == 1 && (a.ws == nullptr || a.gmax == nullptr)))
     return (int)cudaErrorInvalidValue;
   // 16-byte vectors only where every row the call reads or writes starts
   // on 16 bytes (the plan checked the side and the strides)
-  if (vec > 1) {
-    uintptr_t any = reinterpret_cast<uintptr_t>(a.u) | reinterpret_cast<uintptr_t>(a.out);
-    if (mode == 2) any |= reinterpret_cast<uintptr_t>(a.x);
-    if (mode == 1) any |= reinterpret_cast<uintptr_t>(a.rhs);
-    if (any % 16 != 0) vec = 1;
-  }
-  a.B = (int)B;
-  a.n = (int)n;
+  if (vec > 1 && !aligned16({a.u, a.out, mode == 2 ? a.x : nullptr, mode == 1 ? a.rhs : nullptr}))
+    vec = 1;
   a.nu = (int)nu;
-  a.bands = (int)bands;
-  a.items = B * bands;
   a.inv_eps2 = (T)inv_eps2;
   a.dx2 = (T)dx2;
   a.nu1 = (T)(nu + 1);
-  int current = 0;
-  cudaGetDevice(&current);
-  const int device = (int)g[0];
-  if (device != current) cudaSetDevice(device);
+  const OnDevice on((int)g[0]);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 block((unsigned)tx, (unsigned)ty);
-  cudaError_t e;
-  if (mode == 0)
-    e = run<T, 0>(a, (int)vec, block, (unsigned)grid, st);
-  else if (mode == 1)
-    e = run<T, 1>(a, (int)vec, block, (unsigned)grid, st);
-  else
-    e = run<T, 2>(a, (int)vec, block, (unsigned)grid, st);
-  if (device != current) cudaSetDevice(current);
-  return (int)e;
+  if (mode == 0) return (int)run<T, 0>(a, (int)vec, block, (unsigned)grid, st);
+  if (mode == 1) return (int)run<T, 1>(a, (int)vec, block, (unsigned)grid, st);
+  return (int)run<T, 2>(a, (int)vec, block, (unsigned)grid, st);
 }
 
 }  // namespace

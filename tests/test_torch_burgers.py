@@ -22,7 +22,7 @@ import torch
 import pymgrit_tpu as J
 import pymgrit_tpu_torch as P
 from pymgrit_tpu.models.burgers import Burgers1D as JBurgers1D, Burgers2D as JBurgers2D
-from pymgrit_tpu_torch.ops import dense_newton, triton_kernels
+from pymgrit_tpu_torch.ops import dense_newton, pointwise
 from pymgrit_tpu_torch.ops.dense_newton import periodic_differences
 
 torch.set_num_threads(1)
@@ -233,8 +233,8 @@ def test_burgers2d_residual_max_keeps_nan():
     s = _t(np.random.default_rng(6).uniform(-1, 1, (3, 2, 8, 8)))
     r = torch.zeros_like(s)
     r[1, 0, 2, 2], r[2, 1, 0, 0] = float("nan"), float("inf")
-    _, gmax = triton_kernels.burgers2d_pointwise("residual", s, torch.empty_like(s),
-                                                 _t([0.01] * 3), 0.05, 1.0 / 8, r=r)
+    _, gmax = pointwise.burgers2d_pointwise("residual", s, torch.empty_like(s), _t([0.01] * 3),
+                                            0.05, 1.0 / 8, r=r)
     assert np.isfinite(float(gmax[0])) and np.isnan(float(gmax[1])) and float(gmax[2]) == np.inf
 
 

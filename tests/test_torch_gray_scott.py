@@ -26,7 +26,7 @@ import pymgrit_tpu as J
 import pymgrit_tpu_torch as P
 from pymgrit_tpu.models.gray_scott_2d import GrayScott2D as JGrayScott2D
 from pymgrit_tpu_torch.interop import state_from_numpy
-from pymgrit_tpu_torch.ops import periodic, triton_kernels
+from pymgrit_tpu_torch.ops import periodic, pointwise
 
 torch.set_num_threads(1)
 
@@ -232,8 +232,8 @@ def test_pointwise_wrapper_routes_cpu_tensors_to_plain(mode):
     kw = dict(r=tube[1:7:2]) if mode == "residual" else dict(w=tube[1:7:2])
     if mode == "expl":
         kw = dict(g=tube[1:7:2])
-    got = triton_kernels.gray_scott_pointwise(*args, **kw)
-    ref = triton_kernels.gray_scott_pointwise_plain(*args, **kw)
+    got = pointwise.gray_scott_pointwise(*args, **kw)
+    ref = pointwise.gray_scott_pointwise_plain(*args, **kw)
     for a, b in zip(got if mode == "residual" else [got], ref if mode == "residual" else [ref]):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
 

@@ -474,15 +474,16 @@ def test_k11_repeat_call_hits_the_cache():
 
 
 @pytest.mark.parametrize("B,n,itemsize,strides,want", [
-    # (vector width, TX, TY, bands, grid) on 132 SMs
-    (8, 128, 8, (32768, 128, 16384, 128, 0, 0, 16384, 128), (2, 64, 4, 32, 256)),
-    (512, 17, 8, (578, 17, 0, 0, 289, 17, 289, 17), (1, 32, 8, 3, 1056)),
-    (8, 128, 4, (32768, 128, 16384, 128, 0, 0, 16384, 128), (4, 32, 8, 16, 128)),
-    (2, 64, 8, (8192, 67, 4096, 64, 0, 0, 4096, 64), (1, 64, 4, 16, 32)),
-    (2, 1024, 8, (2 ** 20, 1024) * 4, (2, 256, 1, 1024, 1056)),
+    # (vector width, TX, TY, units a block, grid) on 132 SMs; past 1056
+    # units a block walks several (n = 17: two units of 8 rows)
+    (8, 128, 8, (32768, 128, 16384, 128, 0, 0, 16384, 128), (2, 64, 4, 1, 256)),
+    (512, 17, 8, (578, 17, 0, 0, 289, 17, 289, 17), (1, 32, 8, 2, 768)),
+    (8, 128, 4, (32768, 128, 16384, 128, 0, 0, 16384, 128), (4, 32, 8, 1, 128)),
+    (2, 64, 8, (8192, 67, 4096, 64, 0, 0, 4096, 64), (1, 64, 4, 1, 32)),
+    (2, 1024, 8, (2 ** 20, 1024) * 4, (2, 256, 1, 2, 1024)),
     (1, 1, 8, (1, 1) * 4, (1, 32, 8, 1, 1)),
-    (2, 300, 8, (180000, 300, 0, 0, 0, 0, 90000, 300), (2, 256, 1, 300, 600)),
-    (2, 300, 4, (180000, 300, 0, 0, 0, 0, 90000, 300), (4, 128, 2, 150, 300)),
+    (2, 300, 8, (180000, 300, 0, 0, 0, 0, 90000, 300), (2, 256, 1, 1, 600)),
+    (2, 300, 4, (180000, 300, 0, 0, 0, 0, 90000, 300), (4, 128, 2, 1, 300)),
 ])
 def test_k11_plan(B, n, itemsize, strides, want):
     assert pointwise.plan(B, n, itemsize, strides, 132) == want
@@ -490,9 +491,9 @@ def test_k11_plan(B, n, itemsize, strides, want):
 
 def test_k11_pack_layout():
     args = pointwise.pack(2, (32768, 128, 16384, 128, 0, 0, 16384, 128), 8, 128, 2, 2,
-                          (2, 64, 4, 32, 256))
+                          (2, 64, 4, 1, 256))
     assert list(args) == [2] + [0] * 7 + [32768, 128, 16384, 128, 0, 0, 16384, 128, 8, 128, 2,
-                                          2, 2, 64, 4, 32, 256]
+                                          2, 2, 64, 4, 1, 256]
 
 
 @pytest.mark.parametrize("mode", ["rhs", "residual", "jacobian"])
@@ -516,6 +517,6 @@ def test_k11_launch_the_checks_would_make(monkeypatch, mode):
         xs = (n * n, n) if mode == "jacobian" else (0, 0)
         rs = (n * n, n) if mode == "residual" else (0, 0)
         assert list(args[8:]) == [2 * n * n, n, *xs, *rs, n * n, n, B, n, 2,
-                                  pointwise.AC_MODES.index(mode), 2, 64, 4, 32, 256]
+                                  pointwise.AC_MODES.index(mode), 2, 64, 4, 1, 256]
     finally:
         pointwise._checked.cache_clear()

@@ -1122,15 +1122,15 @@ def test_pair_pointwise_rejects(kernel, over, match):
         args.pop("g", None)
         args.update(nu=0.05, dx=0.1)
     with pytest.raises(ValueError, match=match):
-        getattr(triton_kernels, kernel)(**args)
+        getattr(pointwise, kernel)(**args)
 
 
 def test_gray_scott_g_is_for_expl_only():
     z = torch.zeros((2, 2, 8, 8), dtype=torch.float64)
     with pytest.raises(ValueError, match="EXPL steps only"):
-        triton_kernels.gray_scott_pointwise("jacobian", z, torch.empty_like(z),
-                                            torch.zeros(2, dtype=torch.float64), 1e-4, 1e-4,
-                                            0.02, 0.08, 1.0, w=z, g=z)
+        pointwise.gray_scott_pointwise("jacobian", z, torch.empty_like(z),
+                                       torch.zeros(2, dtype=torch.float64), 1e-4, 1e-4, 0.02,
+                                       0.08, 1.0, w=z, g=z)
 
 
 @pytest.mark.parametrize("over,match", [
