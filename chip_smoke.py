@@ -562,11 +562,26 @@ def phase_build():
         ks = [k for k in k35 if k.startswith(prefix)]
         check(len(ks) == n and all(k35[k][1] == 0 and k35[k][2] == 0 for k in ks),
               f"build: {n} {prefix} kernels must compile without spills: {k35}")
-    print("[build] product tile (csrc/dmma_tile.cuh), ptxas: " + " ; ".join(
-        f"{name}: {regs} registers, spill stores/loads {st}/{ld} B, static smem {sm} B"
-        for name, (regs, st, ld, sm) in ptxas(_build.build_log(), TILE_OR_REDUCE,
-                                              tile_label).items())
+    tiles = ptxas(_build.build_log(), TILE_OR_REDUCE, tile_label)
+    print("[build] product tile (csrc/dmma_tile.cuh; K20 csrc/sine_solve1d.cu, K22, K26), "
+          "ptxas: " + " ; ".join(
+              f"{name}: {regs} registers, spill stores/loads {st}/{ld} B, static smem {sm} B"
+              for name, (regs, st, ld, sm) in tiles.items())
           + " (dynamic smem: each case's plan)")
+    # K20's eight tile instantiations (f64 / f32 x plain lanes on the skinny
+    # and wide tiles, BE and BDF2 lanes on the skinny tile) and its two
+    # reductions
+    k20 = [k for k in tiles if k.startswith("K20")]
+    check(len(k20) == 10 and all(tiles[k][1] == 0 and tiles[k][2] == 0 for k in k20),
+          f"build: K20's 10 tile kernels must compile without spills: {tiles}")
+    k17 = ptxas(_build.build_log(), K17_NAME, k17_label)
+    print("[build] K17 (csrc/circulant_solve1d.cu), ptxas: "
+          + " ; ".join(f"{name}: {regs} registers, spill stores/loads {st}/{ld} B"
+                       for name, (regs, st, ld, _) in k17.items()))
+    # K17's twelve kernels (f64 / f32 x the warp route's five register chunks
+    # and the block route)
+    check(len(k17) == 12 and all(v[1] == 0 and v[2] == 0 for v in k17.values()),
+          f"build: K17's 12 kernels must compile without spills: {k17}")
     # K5 (float64), K22 and K26 run their f64 products on the FP64 tensor
     # cores (DMMA); no kernel of the library uses the other tensor-core paths
     # (HMMA: TF32 and below)
@@ -584,26 +599,32 @@ def phase_build():
     print(f"[build] cuobjdump -sass: DMMA instructions by kernel {dmma} (K5's, K6's and "
           f"K10's f64 kernels: one-tile by side (K10's also by load: cp.async or the formed "
           f"prologue), band past 128 (K5's, which K6's first product and K10's first three "
-          f"share; the split last product of K6 and K10); K22 f64, K26 DD products), {hmma} "
-          f"HMMA (TF32 and half precision: none expected)")
+          f"share; the split last product of K6 and K10); K20 f64 by lanes and tile; K22 f64, "
+          f"K26 DD products), {hmma} HMMA (TF32 and half precision: none expected)")
     k5_dmma = [k for k in dmma if k.startswith("sine_solve2d")]
     k6_dmma = [k for k in dmma if k.startswith("sine_affine2d")]
     k10_dmma = [k for k in dmma if k.startswith("periodic_solve2d")]
+    k20_dmma = [k for k in dmma if k.startswith("sine_solve1d")]
     check(dmma.get("eig_step", 0) > 0 and dmma.get("dd_matmul", 0) > 0 and len(k5_dmma) == 5
-          and len(k6_dmma) == 5 and len(k10_dmma) == 8
-          and all(dmma[k] > 0 for k in k5_dmma + k6_dmma + k10_dmma) and hmma == 0,
+          and len(k6_dmma) == 5 and len(k10_dmma) == 8 and len(k20_dmma) == 4
+          and all(dmma[k] > 0 for k in k5_dmma + k6_dmma + k10_dmma + k20_dmma) and hmma == 0,
           f"build: DMMA {dmma} (each of K5's and K6's five f64 kernels, K10's eight one-tile "
-          f"kernels (its band products are K5's and K6's), K22 and K26 must have some) and "
-          f"{hmma} HMMA in the SASS")
+          f"kernels (its band products are K5's and K6's), K20's four f64 tile kernels, K22 and "
+          f"K26 must have some) and {hmma} HMMA in the SASS")
 
 
-# tile_product<E, pair, BM, BN, BK, stages, min blocks> as mangled by nvcc
-TILE_NAME = re.compile(r"tile_productI([df])Lb([01])ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E")
+# tile_product<E, pair, BM, BN, BK, stages, min blocks, lanes> as mangled by
+# nvcc (lanes: 0 K22 / K26, 1-3 K20's plain, BE and BDF2 lanes; a build
+# before K20 ran on the tile had no lanes argument)
+TILE_NAME = re.compile(r"tile_productI([df])Lb([01])ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E"
+                       r"(?:Li(\d)E)?")
+K20_LANES = ("plain", "rows", "BE", "BDF2")
 
 
 def tile_owner(fn):
     """The kernel a SASS function belongs to: the product tile's float64
-    instantiations are K22's, its double-double ones K26's; K5's, K6's and
+    instantiations are K22's or, by their lanes argument, K20's (by mode and
+    tile), its double-double ones K26's; K5's, K6's and
     K10's float64 kernels by their tile side (K10's by its load too), the
     band kernel past 128 by its store (K5's, whose products K6's first one
     and K10's first three share; the split store of K6 and K10)."""
@@ -618,6 +639,8 @@ def tile_owner(fn):
     m = TILE_NAME.search(fn)
     if m is None:
         return fn
+    if m.group(8) not in (None, "0"):
+        return f"sine_solve1d {K20_LANES[int(m.group(8))]} {m.group(3)}x{m.group(4)}"
     return "dd_matmul" if m.group(2) == "1" else "eig_step"
 
 
@@ -706,12 +729,24 @@ def k16_k25_label(m, ln):
     return f"K25 {name} V={v} {'32' if idx == 'i' else '64'}-bit"
 
 
+# circulant_warp<T, CH> (K17's warp route, CH register values a thread) /
+# circulant_block<T> (its block route)
+K17_NAME = re.compile(r"circulant_(warp|block)I([df])(?:Li(\d+)E)?E")
+
+
+def k17_label(m, ln):
+    route, e, ch = m.groups()
+    return f"K17 {'f64' if e == 'd' else 'f32'} " + (f"warp CH={ch}" if route == "warp"
+                                                     else "block")
+
+
 # restrict_combine_kernel<T, DIM, NT, NA> / indexed_combine_kernel<T, NT> /
 # interpolate_combine_kernel<T, DIM, HAS_B> / interval_affine_kernel<T, JB>
 ROW_NAME = re.compile(r"(restrict|indexed|interpolate)_combine_kernelI([df])((?:L[ib]\d+E)+)E"
                       r"|interval_affine_kernelI([df])Li(\d+)E")
-# the product tile's kernels and its reduction of the split's partials
-TILE_OR_REDUCE = re.compile(TILE_NAME.pattern + "|reduce_slicesI")
+# the product tile's kernels and its reductions of the split's partials
+# (reduce_lanes: K20's)
+TILE_OR_REDUCE = re.compile(TILE_NAME.pattern + "|reduce_slicesI|reduce_lanesI")
 
 
 def row_label(m, ln):
@@ -728,10 +763,14 @@ def row_label(m, ln):
 
 
 def tile_label(m, ln):
+    if m.group(1) is None and "reduce_lanesI" in ln:     # reduce_lanes<Acc>: K20's
+        return "K20 " + ("f64" if "reduce_lanesId" in ln else "f32") + " reduce"
     if m.group(1) is None:              # reduce_slices<E, pair>
         return "reduce " + ("dd" if "IdLb1" in ln else "f64" if "IdLb0" in ln else "f32")
-    e, pair, bm, bn, bk, st, mb = m.groups()
-    kind = "K26 dd" if pair == "1" else f"K22 {'f64' if e == 'd' else 'f32'}"
+    e, pair, bm, bn, bk, st, mb, lanes = m.groups()
+    kind = ("K26 dd" if pair == "1" else f"K22 {'f64' if e == 'd' else 'f32'}"
+            if lanes in (None, "0") else
+            f"K20 {'f64' if e == 'd' else 'f32'} {K20_LANES[int(lanes)]}")
     return f"{kind} {bm}x{bn}x{bk}x{st}"
 
 
@@ -1398,25 +1437,34 @@ def slice_cases(dtype, dev, rng, stash):
     xa = np.linspace(-1, 1, ADVECTION_DEEP["nx"])[:-1]
     fac = 1.0 / (xa[1] - xa[0])
 
-    def k17(J, L, step, sign, with_g):
-        seeds = t(np.exp(-xa ** 2) * rng.uniform(0.5, 1.5, (J, 1)))
-        g = t(rng.uniform(-1e-3, 1e-3, (J, L, xa.size))) if with_g else None
+    def k17(J, L, step, sign, with_g, r=rng):
+        seeds = t(np.exp(-xa ** 2) * r.uniform(0.5, 1.5, (J, 1)))
+        g = t(r.uniform(-1e-3, 1e-3, (J, L, xa.size))) if with_g else None
         dts = t(np.full((L, J), step))
 
-        def run(ops):
-            out = torch.empty((J, L + 1, xa.size), dtype=dtype, device=dev)[:, 1:]
-            return ops.circulant_solve1d(seeds, dts, out, g, sign * fac).clone()
-        return run
+        def launch(ops, out):
+            return ops.circulant_solve1d(seeds, dts, out, g, sign * fac)
+        # into a strided (J, L, n) view of a tube made outside the timed call
+        return RowCase(lambda: torch.empty((J, L + 1, xa.size), dtype=dtype, device=dev)[:, 1:],
+                       launch, exact=False)
 
     ma = ADVECTION_DEEP["ms"][0]
     Ja = (ADVECTION_DEEP["nt"] - 1) // ma
     dta = 2.0 / (ADVECTION_DEEP["nt"] - 1)
-    cases += [("circulant_solve1d", f"deep level-0 F-relax J={Ja} L={ma - 1} +g",
-               k17(Ja, ma - 1, dta, 1.0, True)),
-              ("circulant_solve1d", "example level-0 F-relax J=64 L=1",
-               k17(64, 1, 2.0 / 128, 1.0, False)),
-              ("circulant_solve1d", f"c<-1/2 J={Ja} L={ma - 1}",
-               k17(Ja, ma - 1, 0.05, -1.0, False))]
+    # the deep grid's coarsest level: nt = 257 points, one chain of 256 steps
+    Lc = (ADVECTION_DEEP["nt"] - 1) // ma ** len(ADVECTION_DEEP["ms"])
+    for case, J, L, step, sign, with_g in (
+            (f"deep level-0 F-relax J={Ja} L={ma - 1} +g", Ja, ma - 1, dta, 1.0, True),
+            ("example level-0 F-relax J=64 L=1", 64, 1, 2.0 / 128, 1.0, False),
+            (f"c<-1/2 J={Ja} L={ma - 1}", Ja, ma - 1, 0.05, -1.0, False),
+            (f"coarsest march J=1 L={Lc}", 1, Lc, dta * ma ** len(ADVECTION_DEEP["ms"]), 1.0,
+             False)):
+        # (the added coarsest march draws from its own generator)
+        cases.append(("circulant_solve1d", case, k17(
+            J, L, step, sign, with_g, rng if J > 1 else np.random.default_rng(SEED + 22))))
+        stash[("work", "circulant_solve1d", case)] = (
+            8 * (J * xa.size + L * J + J * L * xa.size * (2 if with_g else 1)),
+            J * L * 6 * xa.size)
     return cases
 
 
@@ -1448,8 +1496,16 @@ def k16_case(seeds, dts, g, nu, dx, dtype, stash):
     return RowCase(prepare, launch, exact=False, view=view)
 
 
+class ProductPlans(tuple):
+    """K20's two product plans (the second None for a transform), printed
+    beside its cases as K22's one plan is."""
+
+    def describe(self):
+        return " | then ".join(p.describe() for p in self if p is not None)
+
+
 class RowCase:
-    """A K1-K7, K10, K11, K14-K16, K18, K19, K21 or K25 case in two steps:
+    """A K1-K7, K10, K11, K14-K21 or K25 case in two steps:
     ``prepare()`` makes what the call writes into where the call updates a
     tube in place or into a given out (untimed: the fresh copy of a tube,
     the empty tube), ``launch(ops, state)`` makes the call and returns its
@@ -1458,8 +1514,9 @@ class RowCase:
     K14's and K15's residual and its per-lane max; K16's out and
     iterations).  With ``exact`` (K1, K2, K4, K7 in float64, K11, K14, K15,
     K18, K19, K21, K25) the kernel equals its plain version bit for bit;
-    without (K3, K5, K6, K10 and K16 sum in another order) it is held at
-    the kernel tolerance, and a second launch must give the same bits."""
+    without (K3, K5, K6, K10, K16, K17 and K20 sum in another order) it is
+    held at the kernel tolerance, and a second launch must give the same
+    bits."""
 
     def __init__(self, prepare, launch, exact=True, view=None):
         self.prepare, self.launch, self.exact, self.view = prepare, launch, exact, view
@@ -1557,41 +1614,58 @@ def heat1d_cases(dtype, dev, rng, stash):
     """K20 at the [spatial1d] phase's level-0 shape: the physical Heat1D
     step of 64 rows of 15 interior points (the F- and C-relaxation's
     step_batched, a time-dependent rhs row per state), the sine transform
-    of those rows (relax_interval's), and a wide step (1024 rows of 1023
-    points, 32 x 32 tiles in both directions); each with the bytes and
-    operations its function needs, the transform with torch.matmul beside
-    it."""
+    of those rows (relax_interval's), a wide step (1024 rows of 1023
+    points), and [bdf]'s coarsest march (one BE solve of one row of 999
+    points, a BDF1 sub-step: the skinny plan, the table streamed once) and
+    a transform of 8 rows of 999 points (skinny); each a ``RowCase`` (the
+    output made untimed, a fixed summation order: held at the kernel
+    tolerance, a second launch bit for bit) with the bytes and operations
+    its function needs, the transform with torch.matmul beside it."""
     import torch
+    from pymgrit_tpu_torch.ops import heat_kernels
     from pymgrit_tpu_torch.ops.dirichlet_spectral import sine_eigenbasis
 
     def t(a):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
 
+    def empty(B, n):
+        return lambda: torch.empty((B, n), dtype=dtype, device=dev)
+
     cases = []
-    for label, B, n, fac in (("example", 64, 15, 64.0), ("wide", 1024, 1023, 1024.0 ** 2)):
+    nb = BDF["nx"] - 2
+    for label, B, n, fac, step in (("example", 64, 15, 64.0, 2.0 / 128),
+                                   ("wide", 1024, 1023, 1024.0 ** 2, 1.0 / 4096),
+                                   ("coarsest march", 1, nb, (nb + 1.0) ** 2, 1.0 / 64)):
         S_np, lam_np = sine_eigenbasis(n, fac)
         S, lam = t(S_np), t(lam_np)
-        tube = t(rng.uniform(-1, 1, (B + 1, n)))
-        rhs_rows = t(rng.uniform(-1, 1, (B, n)))
-        dt = t(np.full(B, 2.0 / 128 if label == "example" else 1.0 / 4096))
+        # the cases added after the first two draw from a generator of their
+        # own, so that every other case keeps its inputs (kernel_digest.py)
+        r = rng if label != "coarsest march" else np.random.default_rng(SEED + 20)
+        tube = t(r.uniform(-1, 1, (max(B, 8) + 1, n)))
+        rhs_rows = t(r.uniform(-1, 1, (B, n)))
+        dt = t(np.full(B, step))
 
-        def step(ops, tube=tube, rhs_rows=rhs_rows, dt=dt, S=S, lam=lam, B=B, n=n):
-            out = torch.empty((B, n), dtype=dtype, device=dev)
+        def step_(ops, out, tube=tube, rhs_rows=rhs_rows, dt=dt, S=S, lam=lam, B=B):
             return ops.sine_solve1d(tube[:B], out, S, lam, dt, rhs_rows)
 
         case = f"{label} step B={B} n={n}"
-        cases.append(("sine_solve1d", case, step))
+        cases.append(("sine_solve1d", case, RowCase(empty(B, n), step_, exact=False)))
+        stash[("plan", "sine_solve1d", case)] = ProductPlans(
+            heat_kernels.sine_solve1d_plans(tube[:B], S, lam, rhs_rows))
         stash[("work", "sine_solve1d", case)] = (8 * (3 * B * n + n * n + n + B),
                                                  4 * B * n * n + 5 * B * n)
-        if label == "example":
-            def transform(ops, tube=tube, S=S, B=B, n=n):
-                out = torch.empty((B, n), dtype=dtype, device=dev)
-                return ops.sine_solve1d(tube[1:], out, S)
+        if label in ("example", "coarsest march"):
+            Bt = B if label == "example" else 8
 
-            case = f"{label} transform B={B} n={n}"
-            cases.append(("sine_solve1d", case, transform))
-            stash[("work", "sine_solve1d", case)] = (8 * (2 * B * n + n * n), 2 * B * n * n)
-            stash[("library", "sine_solve1d", case)] = lambda x=tube[1:], S=S: x @ S
+            def transform(ops, out, tube=tube, S=S, Bt=Bt):
+                return ops.sine_solve1d(tube[1:Bt + 1], out, S)
+
+            case = f"{label} transform B={Bt} n={n}"
+            cases.append(("sine_solve1d", case, RowCase(empty(Bt, n), transform, exact=False)))
+            stash[("plan", "sine_solve1d", case)] = ProductPlans(
+                heat_kernels.sine_solve1d_plans(tube[1:Bt + 1], S))
+            stash[("work", "sine_solve1d", case)] = (8 * (2 * Bt * n + n * n), 2 * Bt * n * n)
+            stash[("library", "sine_solve1d", case)] = lambda x=tube[1:Bt + 1], S=S: x @ S
     return cases
 
 
@@ -1620,6 +1694,7 @@ def slice7_cases(dtype, dev, rng, stash):
     (index_select / index_copy_ for K21, the two cuBLAS GEMMs for K22)."""
     import torch
     from pymgrit_tpu_torch.core.levels import build_level_infos
+    from pymgrit_tpu_torch.ops import heat_kernels
     from pymgrit_tpu_torch.ops.dirichlet_spectral import sine_eigenbasis
 
     def t(a):
@@ -1629,23 +1704,28 @@ def slice7_cases(dtype, dev, rng, stash):
         return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int64).reshape(-1), device=dev)
 
     cases = []
-    # K20 BDF2: lanes of the level-0 pair tube (B, 2, n), per-lane coefficients
-    n, B = BDF["nx"] - 2, (BDF["nt"] // 2) // 2
+    # K20 BDF2: lanes of the level-0 pair tube (B, 2, n), per-lane
+    # coefficients; and 4 lanes (the skinny plan)
+    n = BDF["nx"] - 2
     S_np, lam_np = sine_eigenbasis(n, (n + 1.0) ** 2)
     S, lam = t(S_np), t(lam_np)
-    pairs = t(rng.uniform(-1, 1, (B + 1, 2, n)))
-    rhs_row = t(rng.uniform(-1, 1, n)).expand(B, n)
-    coef = t(np.stack([rng.uniform(100, 300, B) for _ in range(3)]))
+    for B, r in (((BDF["nt"] // 2) // 2, rng), (4, np.random.default_rng(SEED + 21))):
+        pairs = t(r.uniform(-1, 1, (B + 1, 2, n)))
+        rhs_row = t(r.uniform(-1, 1, n)).expand(B, n)
+        coef = t(np.stack([r.uniform(100, 300, B) for _ in range(3)]))
 
-    def bdf2(ops):
-        out = pairs[1:].clone()
-        return ops.sine_solve1d(pairs[:B, 1], out[:, 1], S, lam, rhs=rhs_row, second=out[:, 0],
-                                c2=coef[0], c1=coef[1], coeff=coef[2])
+        def bdf2(ops, out, pairs=pairs, rhs_row=rhs_row, coef=coef, B=B):
+            return ops.sine_solve1d(pairs[:B, 1], out[:, 1], S, lam, rhs=rhs_row,
+                                    second=out[:, 0], c2=coef[0], c1=coef[1], coeff=coef[2])
 
-    case = f"BDF2 B={B} n={n}"
-    cases.append(("sine_solve1d", case, bdf2))
-    stash[("work", "sine_solve1d", case)] = (8 * (4 * B * n + n * n + n + 3 * B),
-                                             4 * B * n * n + 6 * B * n)
+        case = f"BDF2 B={B} n={n}"
+        cases.append(("sine_solve1d", case,
+                      RowCase(lambda pairs=pairs: pairs[1:].clone(), bdf2, exact=False)))
+        out = pairs[1:]       # the output's second slot, as bdf2 reads it (its alignment)
+        stash[("plan", "sine_solve1d", case)] = ProductPlans(heat_kernels.sine_solve1d_plans(
+            pairs[:B, 1], S, lam, rhs_row, out[:, 0], coef[2]))
+        stash[("work", "sine_solve1d", case)] = (8 * (4 * B * n + n * n + n + 3 * B),
+                                                 4 * B * n * n + 6 * B * n)
 
     # K21 at the ragged level 0 of [ragged]
     info = build_level_infos(ragged_grids())[0]
@@ -2169,12 +2249,13 @@ def past_cap_cases(dtype, dev, rng, stash):
     for sign, step in ((1.0, 2.0 / 16384), (-1.0, 0.05)):
         dts_a = t(np.full((La, Ja), step))
 
-        def k17(ops, dts_a=dts_a, sign=sign):
-            out = torch.empty((Ja, La, na), dtype=dtype, device=dev)
+        def k17(ops, out, dts_a=dts_a, sign=sign):
             return ops.circulant_solve1d(seeds_a, dts_a, out, None, sign * fac)
 
         case17 = f"long J={Ja} L={La} n={na}" + (" c<-1/2" if sign < 0 else "")
-        cases.append(("circulant_solve1d", case17, k17))
+        cases.append(("circulant_solve1d", case17,
+                      RowCase(lambda: torch.empty((Ja, La, na), dtype=dtype, device=dev), k17,
+                              exact=False)))
         stash[("work", "circulant_solve1d", case17)] = (
             8 * (Ja * na + La * Ja + Ja * La * na), Ja * La * 6 * na)
     return cases
@@ -2233,12 +2314,10 @@ def headline_work(kernel, stash):
         nn, m = ADVECTION_DEEP["nx"] - 1, ADVECTION_DEEP["ms"][0]
         Ja, L = (ADVECTION_DEEP["nt"] - 1) // m, m - 1
         return 8 * (Ja * nn + L * Ja + 2 * Ja * L * nn), Ja * L * 6 * nn
-    if kernel == "sine_solve1d":           # the example's level-0 step: two products
-        return stash[("work", kernel, "example step B=64 n=15")]
     if kernel in TRANSFER_KERNELS:         # spatial65 2D: FAS, correction (no products)
         case = ("FAS" if kernel == "restrict_combine" else "correction") + " spatial65 2D R=1024"
         return stash[("work", kernel, case)]
-    if kernel in ("indexed_combine", "eig_step"):   # the recorded work of the headline case
+    if kernel in ("indexed_combine", "eig_step", "sine_solve1d"):   # the headline's recorded work
         return next(w for k, w in stash.items()
                     if k[:2] == ("work", kernel) and k[2].startswith(HEADLINE[kernel]))
     raise KeyError(kernel)
@@ -2275,7 +2354,7 @@ HEADLINE = {"interval_affine": "materialize", "theta_chain": "level-1 F-relax",
             "rk4_brusselator": "level-0 F-relax", "gray_scott_pointwise": "jacobian B=8",
             "burgers2d_pointwise": "jacobian B=4", "burgers1d_newton": "deep level-0",
             "circulant_solve1d": "deep level-0", "restrict_combine": "FAS spatial65",
-            "interpolate_combine": "correction spatial65", "sine_solve1d": "example step",
+            "interpolate_combine": "correction spatial65", "sine_solve1d": "BDF2 B=128",
             "indexed_combine": "drop-scatter", "eig_step": "128 lanes",
             "dd_interval_affine": "materialize", "dd_theta_chain": "level-1 F-relax BE",
             "dd_arith": "FAS combine", "dd_matmul": "Heat2D physical"}
@@ -4138,12 +4217,13 @@ def profile_cells(card):
                                                             "cuLaunchKernelEx"))
         syncs = sum(e.count for e in events if "Synchronize" in e.key)
         calls = launch_counts()
-        # K22 and K26 calls against the product tile's device kernels they
-        # launched in the same window (a call: one or two products, each
-        # with a reduction pass where its plan splits the inner index)
+        # K20, K22 and K26 calls against the product tile's device kernels
+        # they launched in the same window (a call: one or two products, each
+        # with a reduction pass where its plan splits the inner index; K20's
+        # first pass forming its rhs on the wide tile)
         tile = {k: (sum(e.count for e in dev if k in e.key),
                     sum(device_us(e) for e in dev if k in e.key) / 1e3)
-                for k in ("tile_product", "reduce_slices")}
+                for k in ("tile_product", "reduce_", "form_rhs")}
         # the row kernels' device kernels: K18, K19, K21; K5's and K6's (the
         # one-tile kernels, K6's coefficient pass and the band kernel past
         # 128), K7's, and the spectral path's K1, K2 and K4, with their
@@ -4154,7 +4234,7 @@ def profile_cells(card):
                          "sine_solve2d", "sine_affine2d", "affine_tile", "band_product",
                          "theta_rhs", "theta_chain", "interval_affine", "cpoint_combine",
                          "periodic_solve2d", "periodic_rhs", "allen_cahn", "gray_scott",
-                         "burgers2d", "burgers1d_newton", "dd_arith")}
+                         "burgers2d", "burgers1d_newton", "dd_arith", "circulant_solve1d")}
         print(f"[profile] {label}: {h.size} iterations, profiled solve {wall * 1e3:.1f} ms, device "
               f"busy {busy:.1f} ms, idle {100 * (1 - busy / (wall * 1e3)):.1f} % | leading device "
               "time " + "; ".join(f"{e.key[:48]} {device_us(e) / 1e3:.2f} ms ({e.count})"
@@ -4169,15 +4249,20 @@ def profile_cells(card):
                                           ("K11", "allen_cahn_pointwise"),
                                           ("K14", "gray_scott_pointwise"),
                                           ("K15", "burgers2d_pointwise"),
-                                          ("K16", "burgers1d_newton"), ("K25", "dd_arith"))
+                                          ("K16", "burgers1d_newton"),
+                                          ("K17", "circulant_solve1d"), ("K20", "sine_solve1d"),
+                                          ("K25", "dd_arith"))
                         if calls[key])
               + (f" | wrapper host time {host['s'] * 1e3 / host['calls']:.4f} ms a call "
                  f"({host['calls']} calls)" if host["calls"] else "")
               + f" | host: {launches} kernel launches, {syncs} synchronisations"
-              + (f" | product tile: {calls['eig_step']} K22 and {calls['dd_matmul']} K26 calls, "
+              + (f" | product tile: {calls['sine_solve1d']} K20, {calls['eig_step']} K22 and "
+                 f"{calls['dd_matmul']} K26 calls, "
                  f"{tile['tile_product'][0]} product kernels {tile['tile_product'][1]:.2f} ms, "
-                 f"{tile['reduce_slices'][0]} reductions {tile['reduce_slices'][1]:.2f} ms"
-                 if calls["eig_step"] + calls["dd_matmul"] else "") + f" | {card}")
+                 f"{tile['reduce_'][0]} reductions {tile['reduce_'][1]:.2f} ms, "
+                 f"{tile['form_rhs'][0]} K20 rhs passes {tile['form_rhs'][1]:.2f} ms"
+                 if calls["eig_step"] + calls["dd_matmul"] + calls["sine_solve1d"] else "")
+              + f" | {card}")
         del mg, prof
         torch.cuda.empty_cache()
 
@@ -4278,10 +4363,10 @@ def main():
     counts_b1, counts_b2 = phase_burgers(card)
     counts_adv = phase_advection(card)
     counts_spatial = phase_spatial(card)
-    counts_1d = phase_spatial1d(card)
+    phase_spatial1d(card)
     phase_c2(card)
     counts_ragged = phase_ragged(card)
-    phase_bdf(card)
+    counts_bdf, _ = phase_bdf(card)
     counts_diffusion = phase_diffusion(card)
     counts_dd_toms, counts_dd65 = phase_dd(card)
     # launches: each kernel's count on the main path it belongs to (K3, K4
@@ -4290,7 +4375,7 @@ def main():
     # row, K11 from the IMPL run, K12 from the Arenstorf run, K13 from the
     # Brusselator run, K14 from the Gray-Scott IMPL run, K15 from the
     # Burgers2D run, K16 from the deep Burgers1D run, K17 from the deep
-    # advection run, K18 and K19 from the spatial65 run, K20 from the 1D
+    # advection run, K18 and K19 from the spatial65 run, K20 from the BDF
     # example's run, K21 from the ragged row, K22 from the deep diffusion
     # grid, K23-K25 from dd_toms129, K26 from dd65)
     launches = {**counts_phys, **{k: counts[k] for k in SPECTRAL_KERNELS},
@@ -4305,7 +4390,7 @@ def main():
                 "burgers1d_newton": counts_b1["burgers1d_newton"],
                 "circulant_solve1d": counts_adv["circulant_solve1d"],
                 **{k: counts_spatial[k] for k in TRANSFER_KERNELS},
-                "sine_solve1d": counts_1d["sine_solve1d"],
+                "sine_solve1d": counts_bdf["sine_solve1d"],
                 "indexed_combine": counts_ragged["indexed_combine"],
                 "eig_step": counts_diffusion["eig_step"],
                 **{k: counts_dd_toms[k] for k in ("dd_interval_affine", "dd_theta_chain",

@@ -165,8 +165,9 @@ class Heat1D(Application):
     def step_batched(self, u_tube, t_starts, t_stops):
         """One step of each of B states (t_starts, t_stops: numpy (B,)).
         Physical: K20, two flat (B, nx) @ (nx, nx) products around the
-        diagonal solve (S is symmetric, so S @ b == b @ S).  Spectral:
-        step_chain with L = 1 (K2)."""
+        diagonal solve (S is symmetric, so S @ b == b @ S), its step sizes
+        a device table made once per distinct set of step times
+        (``StepTimes``).  Spectral: step_chain with L = 1 (K2)."""
         if self._dd:
             out = torch.empty((u_tube.shape[0], 1, 2, self.nx), dtype=torch.float32,
                               device=self.device)
@@ -179,8 +180,8 @@ class Heat1D(Application):
         if self._spectral:
             self.step_chain(u_tube, tp[None], tc[None], out[:, None])
             return out
-        return self.ops.sine_solve1d(u_tube, out, self.S, self.lam, self._tensor(tc - tp),
-                                     self._rhs_rows(tc))
+        return self.ops.sine_solve1d(u_tube, out, self.S, self.lam,
+                                     self._times.steps(tp, tc, self.lam.dtype), self._rhs_rows(tc))
 
     def step_chain(self, seed, t_prev, t_curr, out, g=None):
         """J chains of L steps: out[:, k] = [g[:, k] +] Phi(out[:, k-1]) with

@@ -52,10 +52,11 @@ _SIGNATURES = {
                              _P],
     "pm_burgers1d_newton": [_P, _I, _P, _P, _I, _I, _P, _I, _I, _P, _P, _D, _D, _D, _D, _D, _I,
                             _I, _I, _I, _P],
-    "pm_circulant_solve1d": [_P, _I, _P, _P, _I, _I, _P, _I, _I, _D, _I, _I, _I, _P],
-    "pm_sine_solve1d": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                        _I, _I, _P],
+    # the packed argument array, fac, the stream
+    "pm_circulant_solve1d": [_P, _D, _P],
     "pm_eig_step": [_P, _P],
+    # the packed argument array, the stream
+    "pm_sine_solve1d": [_P, _P],
     # one packed int64 argument array, the coefficients by value, the stream
     "pm_restrict_combine": [_P, _D, _D, _D, _D, _D, _P],
     # the packed argument array, dst, a, b, the stream

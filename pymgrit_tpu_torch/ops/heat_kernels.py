@@ -14,7 +14,13 @@ operand the last axis must be contiguous.  K1 and K2 see a state as a row of
 N spectral coefficients; K5 and K6 see a physical state as an (r, c)
 interior, or the full (r + 2, c + 2) field with its Dirichlet ring, whose
 rows may have any stride; K20 sees a 1D physical state (one point of a
-BDF pair state) as a row of n interior values.
+BDF pair state) as a row of n interior values, and runs its two products
+on the FP64 product tile that K22 and K26 share (``csrc/dmma_tile.cuh``,
+plans from ``product_tile.lanes_plan``) through a device workspace it keeps
+per device, stream and dtype (``_solve1d_workspace``).  K1, K2, K5, K6
+and K20 take the one-call launch path: every check, the plan and the
+packed int64 argument array are cached by the operands' facts, and a
+launch is one ctypes call.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from __future__ import annotations
 import array
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -553,6 +560,153 @@ def sine_solve1d_plain(x, out, S, lam=None, dt=None, rhs=None, second=None, c2=N
     return out
 
 
+_K20_KEYS = ("x", "out", "S", "lam", "dt", "rhs", "second", "c2", "c1", "coeff")
+_K20_MODES = ("transform", "be", "be", "bdf2")      # mode_launches' key of each launcher mode
+
+
+def k20_prepass(B, n, mode):
+    """Whether a K20 call of B lanes of n values in this launcher mode forms
+    its right-hand side in a first pass into the workspace (else its first
+    product forms it as it stages the lanes): on the wide tile, where two or
+    three components in the ring leave one block an SM and the first
+    product ran far slower than a plain one."""
+    from pymgrit_tpu_torch.ops import product_tile
+    return mode >= 2 and product_tile.lanes_regime(B, n) == "wide"
+
+
+def k20_fused(n, mode):
+    """Whether a K20 solve (launcher mode >= 1) runs both products in one
+    launch: where one k-tile of the skinny tile holds the inner index (the
+    block then holds S's whole tile and its lanes' work rows)."""
+    from pymgrit_tpu_torch.ops import product_tile
+    return mode >= 1 and n <= product_tile.SKINNY[2]
+
+
+def sine_solve1d_plan(B, n, dtype, mode, mods):
+    """The two product plans of a K20 call (``product_tile.lanes_plan``):
+    the first product's (its lane components staged: 1, 2 with BE's dt r, 3
+    in BDF2; 1 where a first pass forms them, ``k20_prepass``) and the
+    second's, on the contiguous work rows (None for a transform).  mode as
+    the launcher takes it (0 transform, 1 BE, 2 BE + dt r, 3 BDF2); mods:
+    (x's, r's, second's, S's, x's row stride's) offsets from 16-byte
+    alignment in bytes (r's and second's None where absent; a row stride
+    of 0 for r shared by every row)."""
+    from pymgrit_tpu_torch.ops import product_tile
+    es = 8 if dtype == torch.float64 else 4
+    dname = str(dtype).split(".")[-1]
+    copy = product_tile.copy_bytes
+    x_mod, r_mod, x2_mod, s_mod, strides = mods
+    table = copy((s_mod,), (0, n, 1), (1, n, n), es)
+    work = copy((0,), (0, n, 1), (1, B, n), es)     # rows of the workspace
+    if k20_prepass(B, n, mode):
+        first = product_tile.lanes_plan(B, n, dname, table, work)
+    else:
+        lanes = min(copy((m,), (0, st, 1), (1, B, n), es)
+                    for m, st in zip((x_mod, r_mod, x2_mod), strides) if m is not None)
+        first = product_tile.lanes_plan(B, n, dname, table, lanes, (1, 1, 2, 3)[mode])
+    if mode == 0 or k20_fused(n, mode):
+        return first, None
+    return first, product_tile.lanes_plan(B, n, dname, table, work)
+
+
+def sine_solve1d_plans(x, S, lam=None, rhs=None, second=None, coeff=None):
+    """The two product plans (``sine_solve1d_plan``) a K20 call with these
+    operands launches (what chip_smoke prints beside its cases)."""
+    B, n = x.shape
+    mode = 3 if coeff is not None else 2 if rhs is not None else 1 if lam is not None else 0
+    strides = tuple(0 if t is None or B == 1 else t.stride(0) for t in (x, rhs, second))
+    mods = tuple(None if t is None else t.data_ptr() & 15 for t in (x, rhs, second, S))
+    return sine_solve1d_plan(B, n, x.dtype, mode, (*mods, strides))
+
+
+def sine_solve1d_pack(index, strides, rows, B, n, mode, plans):
+    """The launcher's int64 argument array (csrc/sine_solve1d.cu
+    ``launch``): device, twelve pointers (filled in by each call: x, r, x2,
+    dt, c2, c1, S, lam, coeff, work, partials, y), the row strides of x, r
+    and x2, the output's rows (D, s_hi, s_lo: row b = hi D + lo at hi s_hi
+    + lo s_lo), B, n, the mode (0 transform, 1 BE, 2 BE + dt r, 3 BDF2),
+    the two products' plans (ten values each; zeros for a transform's
+    second), whether a first pass forms the right-hand side
+    (``k20_prepass``), the pointer of the rows it writes (filled in by each
+    call) and whether one launch runs both products (``k20_fused``)."""
+    first, second = plans
+    return array.array("q", (index, *(0,) * 12, *strides, *rows, B, n, mode,
+                             *first.launch_args(),
+                             *(second.launch_args() if second is not None else (0,) * 10),
+                             int(k20_prepass(B, n, mode)), 0, int(k20_fused(n, mode))))
+
+
+@functools.lru_cache(maxsize=1024)
+def _solve1d_checked(facts, mods):
+    """Every check of a K20 call, on the ``fact``s of its operands (None
+    where absent, in ``_K20_KEYS`` order) and, for a CUDA call, the
+    operands' offsets from 16-byte alignment (``mods``: x, rhs, second, S),
+    cached by them (K20 runs twice a step of every BDF lane: the checks'
+    host time is paid once a shape); returns (on the CPU, the launch: the
+    argument array without pointers, the launcher, the device index, the
+    workspace's size in values and the launch-count key; None on the CPU
+    or with nothing to do)."""
+    name = "sine_solve1d"
+    f = {k: v for k, v in zip(_K20_KEYS, facts) if v is not None}
+    _check_facts(name, list(f.values()), list(f).__getitem__)
+    dtype, device, xshape, xstride = f["x"]
+    if len(xshape) != 2:
+        _require(False, name, f"x has shape {tuple(xshape)}, expected (B, n)")
+    B, n = xshape
+    oshape, ostride = f["out"][2:]
+    if not (len(oshape) in (2, 3) and oshape[-1] == n and math.prod(oshape[:-1]) == B):
+        _require(False, name, f"out has shape {tuple(oshape)}, expected ({B}, {n}) or "
+                              f"(H, D, {n}), H * D = {B}")
+    if not (tuple(f["S"][2]) == (n, n) and _contiguous(*f["S"][2:])):
+        _require(False, name, f"S must be a contiguous ({n}, {n}) basis")
+    has = f.__contains__
+    bdf2 = has("coeff")
+    if bdf2 and not (has("lam") and not has("dt") and has("rhs") and has("second")
+                     and has("c2") and has("c1")):
+        _require(False, name, "BDF2 takes lam, rhs, second, c2, c1 and coeff (and no dt)")
+    if not bdf2 and (has("second") or has("c2") or has("c1")):
+        _require(False, name, "second, c2 and c1 belong to BDF2 (with coeff)")
+    if not bdf2 and has("lam") != has("dt"):
+        _require(False, name, "lam and dt go together")
+    if has("rhs") and not has("lam"):
+        _require(False, name, "rhs needs lam and dt")
+    if has("lam") and not (tuple(f["lam"][2]) == (n,) and _contiguous(*f["lam"][2:])):
+        _require(False, name, f"lam must be a contiguous ({n},) vector")
+    for key in ("dt", "c2", "c1", "coeff"):
+        if has(key) and not (tuple(f[key][2]) == (B,) and _contiguous(*f[key][2:])):
+            _require(False, name, f"{key} must be a contiguous ({B},) vector")
+    for key in ("rhs", "second"):
+        if has(key) and tuple(f[key][2]) != (B, n):
+            _require(False, name, f"{key} has shape {tuple(f[key][2])}, expected ({B}, {n})")
+    if device.type == "cpu" or B == 0 or n == 0:
+        return device.type == "cpu", None
+    mode = 3 if bdf2 else 2 if has("rhs") else 1 if has("lam") else 0
+    strides = tuple(f[k][3][0] if has(k) and B > 1 else 0 for k in ("x", "rhs", "second"))
+    rows = (1, ostride[0], 0) if len(oshape) == 2 else (oshape[1], ostride[0], ostride[1])
+    plans = sine_solve1d_plan(B, n, dtype, mode, (*mods, strides))
+    work_rows = (2 if k20_prepass(B, n, mode) else 0 if k20_fused(n, mode) or not mode
+                 else 1)                                          # work [, rhs] rows
+    ws = work_rows * B * n + max(p.workspace for p in plans if p is not None)
+    args = sine_solve1d_pack(device.index, strides, rows, B, n, mode, plans)
+    return False, (args, _launcher("pm_sine_solve1d", dtype), device.index, ws, _K20_MODES[mode])
+
+
+_K20_WORK = {}   # (CUDA device index, stream, dtype) -> K20's work rows and partials
+
+
+def _solve1d_workspace(index, stream, dtype, size):
+    """K20's device workspace for launches on ``stream`` of CUDA device
+    ``index``: the work rows between a solve's two products (and the rows
+    of the right-hand side's first pass), then the split plans' partials;
+    grown to at least ``size`` values, kept for later calls."""
+    ws = _K20_WORK.get((index, stream, dtype))
+    if ws is None or ws.numel() < size:
+        ws = _K20_WORK[index, stream, dtype] = torch.empty(
+            max(size, 0 if ws is None else 2 * ws.numel()), dtype=dtype,
+            device=torch.device("cuda", index))
+    return ws
+
+
 def sine_solve1d(x, out, S, lam=None, dt=None, rhs=None, second=None, c2=None, c1=None,
                  coeff=None):
     """Batched physical Heat1D backward-Euler step (lam and dt given), BDF2
@@ -567,60 +721,35 @@ def sine_solve1d(x, out, S, lam=None, dt=None, rhs=None, second=None, c2=None, c
     (rhs - c2 x) + c1 second with second a (B, n) view and c2, c1, coeff
     contiguous (B,) per-lane coefficients; BDF2 divides by lam + coeff.  A
     solve may write over its inputs; a transform's out must not share memory
-    with x.  Returns out.
+    with x.  Every operand's last axis must be contiguous.  Returns out.
     """
-    name = "sine_solve1d"
-    ops = dict(x=x, out=out, S=S)
-    for key, t in dict(lam=lam, dt=dt, rhs=rhs, second=second, c2=c2, c1=c1,
-                       coeff=coeff).items():
-        if t is not None:
-            ops[key] = t
-    _check_operands(name, ops)
-    _require(x.dim() == 2, name, f"x has shape {tuple(x.shape)}, expected (B, n)")
-    B, n = x.shape
-    _require(out.dim() in (2, 3) and out.shape[-1] == n and out[..., 0].numel() == B, name,
-             f"out has shape {tuple(out.shape)}, expected ({B}, {n}) or (H, D, {n}), H * D = {B}")
-    _require(tuple(S.shape) == (n, n) and S.is_contiguous(), name,
-             f"S must be a contiguous ({n}, {n}) basis")
-    bdf2 = coeff is not None
-    _require(not bdf2 or (lam is not None and dt is None and rhs is not None
-                          and second is not None and c2 is not None and c1 is not None), name,
-             "BDF2 takes lam, rhs, second, c2, c1 and coeff (and no dt)")
-    _require(bdf2 or (second is None and c2 is None and c1 is None), name,
-             "second, c2 and c1 belong to BDF2 (with coeff)")
-    _require(bdf2 or (lam is None) == (dt is None), name, "lam and dt go together")
-    _require(rhs is None or lam is not None, name, "rhs needs lam and dt")
-    _require(lam is None or (tuple(lam.shape) == (n,) and lam.is_contiguous()), name,
-             f"lam must be a contiguous ({n},) vector")
-    for key, t in dict(dt=dt, c2=c2, c1=c1, coeff=coeff).items():
-        _require(t is None or (tuple(t.shape) == (B,) and t.is_contiguous()), name,
-                 f"{key} must be a contiguous ({B},) vector")
-    for key, t in dict(rhs=rhs, second=second).items():
-        _require(t is None or tuple(t.shape) == (B, n), name,
-                 f"{key} has shape {tuple(t.shape) if t is not None else None}, "
-                 f"expected ({B}, {n})")
-    _require(lam is not None or out.untyped_storage().data_ptr() != x.untyped_storage().data_ptr(),
-             name, "a transform's out shares memory with x")
-    if x.device.type == "cpu":
+    ops = (x, out, S, lam, dt, rhs, second, c2, c1, coeff)
+    mods = (x.data_ptr() & 15, None if rhs is None else rhs.data_ptr() & 15,
+            None if second is None else second.data_ptr() & 15, S.data_ptr() & 15) \
+        if x.is_cuda else ()
+    on_cpu, launch = _solve1d_checked(tuple(None if t is None else fact(t) for t in ops), mods)
+    if lam is None and out.untyped_storage().data_ptr() == x.untyped_storage().data_ptr():
+        _require(False, "sine_solve1d", "a transform's out shares memory with x")
+    if on_cpu:
         return sine_solve1d_plain(x, out, S, lam, dt, rhs, second, c2, c1, coeff)
-    if B == 0 or n == 0:
+    if launch is None:
         return out
-    D, s_hi, s_lo = (1, out.stride(0), 0) if out.dim() == 2 else (
-        out.shape[1], out.stride(0), out.stride(1))
-    work = torch.empty((B, n), dtype=x.dtype, device=x.device) if lam is not None else None
-
-    def ptr(t):
-        return t.data_ptr() if t is not None else None
-
-    fn = _launcher("pm_sine_solve1d", x.dtype)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = fn(x.data_ptr(), x.stride(0), ptr(second), second.stride(0) if bdf2 else 0,
-                ptr(rhs), rhs.stride(0) if rhs is not None else 0, ptr(dt), ptr(c2), ptr(c1),
-                S.data_ptr(), ptr(lam), ptr(coeff), ptr(work), out.data_ptr(), D, s_hi, s_lo,
-                B, n, stream)
-    _build.check(status, name)
+    tmpl, fn, index, size, mode = launch
+    args = tmpl[:]
+    for k, t in enumerate((x, rhs, second, dt, c2, c1, S, lam, coeff)):
+        if t is not None:
+            args[1 + k] = t.data_ptr()
+    stream = _build.stream(index)
+    if size:
+        work = _solve1d_workspace(index, stream, x.dtype, size).data_ptr()
+        rows = x.numel() * x.element_size()
+        args[10] = work
+        args[43] = work + rows if args[42] else 0          # the first pass's rows
+        args[11] = work + (rows * (2 if args[42] else 1) if lam is not None else 0)
+    args[12] = out.data_ptr()
+    _build.check(fn(args.buffer_info()[0], stream), "sine_solve1d")
     sine_solve1d.launches += 1
-    sine_solve1d.mode_launches["bdf2" if bdf2 else "be" if lam is not None else "transform"] += 1
+    sine_solve1d.mode_launches[mode] += 1
     return out
 
 

@@ -26,7 +26,13 @@ the stream.
 K17 replaces the Fourier solve of pymgrit_tpu/models/advection_1d.py
 ``Advection1D.step``: the upwind backward-Euler matrix is cyclic
 bidiagonal, and a recurrence with a closed-form cyclic closure solves it in
-O(n) (see the kernel's source); the plain version keeps the Fourier route.
+O(n), as one affine scan over threads' chunks (a warp a lane with the state
+in registers across a chain's steps up to n = 512, a block a lane past it;
+see the kernel's source); the plain version keeps the Fourier route.  Its
+wrapper takes the one-call path too: the checks and the argument array
+(``circulant_pack``, with ``circulant_plan``'s route) are cached by the
+operands' facts (``_circulant_checked``), a launch is one ctypes call with
+the array, fac and the stream.
 
 Dispatch as in ``heat_kernels``: a CPU tensor goes to the plain version, a
 CUDA tensor launches the kernel or raises.
@@ -246,6 +252,64 @@ def circulant_solve1d_plain(seed, dt, out, g=None, fac=1.0):
     return out
 
 
+# K17's routes (csrc/circulant_solve1d.cu): a warp a lane, four lanes a
+# block, the state in registers up to K17_WARP_CHUNK values a thread; past
+# that one block of K17_BLOCK threads a lane
+K17_WARP_CHUNK = 16
+K17_WARP_LANES = 4
+K17_BLOCK = 256
+
+
+def circulant_plan(J, n):
+    """(chunk, len, grid) of one K17 launch: on the warp route (n up to 32
+    K17_WARP_CHUNK) a thread's chunk is len = ceil(n / 32) values held in a
+    register array of ``chunk`` slots (a power of two); on the block route
+    (chunk 0) len = ceil(n / K17_BLOCK), read from the rows."""
+    per = -(-n // 32)
+    if per <= K17_WARP_CHUNK:
+        return 1 << (per - 1).bit_length(), per, -(-J // K17_WARP_LANES)
+    return 0, -(-n // K17_BLOCK), J
+
+
+def circulant_pack(index, strides, J, L, n, plan):
+    """The launcher's int64 argument array (csrc/circulant_solve1d.cu
+    ``launch``): device, four pointers (filled in by each call: seed, dt,
+    out, g), the strides (seed's lane stride, out's lane and step strides,
+    g's lane and step strides), J, L, n, a thread's chunk, the register
+    chunk (0: the block route), the grid."""
+    chunk, per, grid = plan
+    return array.array("q", (index, 0, 0, 0, 0, *strides, J, L, n, per, chunk, grid))
+
+
+@functools.lru_cache(maxsize=1024)
+def _circulant_checked(facts):
+    """Every check of a K17 call, on the ``fact``s of seed, dt, out (and
+    g), cached by them; returns (on the CPU, the launch: the argument array
+    without pointers, the launcher and the device index; None on the CPU
+    or with nothing to do)."""
+    name = "circulant_solve1d"
+    keys = ("seed", "dt", "out", "g")
+    _check_facts(name, facts, keys.__getitem__)
+    f = dict(zip(keys, facts))
+    dtype, device, sshape, sstride = f["seed"]
+    if len(sshape) != 2:
+        _require(False, name, f"seed has shape {tuple(sshape)}, expected (J, n)")
+    J, n = sshape
+    oshape, ostride = f["out"][2:]
+    if not (len(oshape) == 3 and oshape[0] == J and oshape[2] == n):
+        _require(False, name, f"out has shape {tuple(oshape)}, expected ({J}, L, {n})")
+    L = oshape[1]
+    if "g" in f and f["g"][2] != oshape:
+        _require(False, name, "g must have the shape of out")
+    if not (tuple(f["dt"][2]) == (L, J) and _contiguous(*f["dt"][2:])):
+        _require(False, name, f"dt must be a contiguous ({L}, {J}) tensor")
+    if device.type == "cpu" or J * L * n == 0:
+        return device.type == "cpu", None
+    strides = (sstride[0], *ostride[:2], *(f["g"][3][:2] if "g" in f else (0, 0)))
+    args = circulant_pack(device.index, strides, J, L, n, circulant_plan(J, n))
+    return False, (args, _launcher("pm_circulant_solve1d", dtype), device.index)
+
+
 def circulant_solve1d(seed, dt, out, g=None, fac=1.0):
     """Chained solves (1 + c) u_i - c u_{i-1} = b_i (periodic), c = dt fac,
     every step written: out[:, k] = [g[:, k] +] Phi_{dt[k]}(out[:, k-1]).
@@ -255,30 +319,19 @@ def circulant_solve1d(seed, dt, out, g=None, fac=1.0):
     the advection speed over dx.  out must not overlap seed or g.  Returns
     out.
     """
-    name = "circulant_solve1d"
-    ops = dict(seed=seed, dt=dt, out=out)
-    if g is not None:
-        ops["g"] = g
-    _check_operands(name, ops)
-    _require(seed.dim() == 2, name, f"seed has shape {tuple(seed.shape)}, expected (J, n)")
-    J, n = seed.shape
-    _require(out.dim() == 3 and out.shape[0] == J and out.shape[2] == n, name,
-             f"out has shape {tuple(out.shape)}, expected ({J}, L, {n})")
-    L = out.shape[1]
-    _require(g is None or g.shape == out.shape, name, "g must have the shape of out")
-    _require(tuple(dt.shape) == (L, J) and dt.is_contiguous(), name,
-             f"dt must be a contiguous ({L}, {J}) tensor")
-    if seed.device.type == "cpu":
+    ops = (seed, dt, out) if g is None else (seed, dt, out, g)
+    on_cpu, launch = _circulant_checked(tuple(map(fact, ops)))
+    if on_cpu:
         return circulant_solve1d_plain(seed, dt, out, g, fac)
-    if J == 0 or L == 0 or n == 0:
+    if launch is None:
         return out
-    fn = _launcher("pm_circulant_solve1d", seed.dtype)
-    stream = torch.cuda.current_stream(seed.device).cuda_stream
-    status = fn(seed.data_ptr(), seed.stride(0), dt.data_ptr(), out.data_ptr(), out.stride(0),
-                out.stride(1), g.data_ptr() if g is not None else None,
-                g.stride(0) if g is not None else 0, g.stride(1) if g is not None else 0,
-                float(fac), J, L, n, stream)
-    _build.check(status, name)
+    tmpl, fn, index = launch
+    args = tmpl[:]
+    args[1], args[2], args[3] = seed.data_ptr(), dt.data_ptr(), out.data_ptr()
+    if g is not None:
+        args[4] = g.data_ptr()
+    _build.check(fn(args.buffer_info()[0], float(fac), _build.stream(index)),
+                 "circulant_solve1d")
     circulant_solve1d.launches += 1
     return out
 

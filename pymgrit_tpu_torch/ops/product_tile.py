@@ -1,6 +1,7 @@
-"""The host side of the FP64 product tile (``csrc/dmma_tile.cuh``) that K22
-``eig_step`` and K26 ``dd_matmul`` share: the plan of one product launch,
-picked from its shapes alone, and the copy width an operand allows.
+"""The host side of the FP64 product tile (``csrc/dmma_tile.cuh``) that K20
+``sine_solve1d``, K22 ``eig_step`` and K26 ``dd_matmul`` share: the plan of
+one product launch, picked from its shapes alone, and the copy width an
+operand allows.
 
 A product ``C[z] = A[z] B[z]`` of (M x K) by (K x N) runs as a grid of
 ``BM x BN`` tiles, each walking its slice of the inner index through a ring
@@ -48,7 +49,11 @@ SMEM_PER_SM = 233472       # bytes; each block also takes 1024 of it
 # minimum), the instantiations of dmma_tile.cuh::product
 SKINNY = (64, 8, 32, 3, 3)
 WIDE = (64, 64, 16, 3, 3)
-TILES = (SKINNY, WIDE)
+# K20's wide tile: k-tiles of 32 (half the barriers and waits of 16; it was
+# the faster at 128 and 1024 lanes of 999 and 1023), two blocks an SM (its
+# ring's shared memory)
+K20_WIDE = (64, 64, 32, 3, 2)
+TILES = (SKINNY, WIDE, K20_WIDE)
 SKINNY_MAX = 16            # lanes; the crossover above
 MIN_SLICE_KTILES = 4
 ELEM_BYTES = {"float64": 8, "float32": 4, "dd": 4}
@@ -120,25 +125,54 @@ def product_plan(batch: int, M: int, N: int, K: int, dtype: str, a=(16, True),
     return _product_plan(batch, M, N, K, dtype, a, b, None)
 
 
+def lanes_regime(B: int, n: int) -> str:
+    """K20's regime: the skinny tile up to SKINNY_MAX lanes, and wherever
+    one skinny k-tile holds the whole inner index (n <= its BK: a 64 x 64
+    tile would be mostly empty and the product is launch latency); the wide
+    tile otherwise."""
+    return "skinny" if B <= SKINNY_MAX or n <= SKINNY[2] else "wide"
+
+
+def lanes_plan(B: int, n: int, dtype: str, table=(16, True), lanes=(16, True),
+               comps: int = 1) -> Plan:
+    """K20's plan of one product C^T = S L^T of B lanes of n values with the
+    (n x n) table S: S on the tile's M side and the lanes on its N side
+    whatever their counts (never swapped: the lanes' right-hand side is
+    formed on the tile's B operand), the regime ``lanes_regime``'s.  table
+    and lanes are ``copy_bytes`` of S and of the lanes (the narrowest of
+    their components'); comps is the lane components staged in a slot (1,
+    or 2 and 3 where the first product forms BE's and BDF2's right-hand
+    side)."""
+    return _product_plan(1, n, B, n, dtype, table, lanes, lanes_regime(B, n), False, comps,
+                         K20_WIDE)
+
+
 @lru_cache(maxsize=512)
-def _product_plan(batch, M, N, K, dtype, a, b, regime) -> Plan:
+def _product_plan(batch, M, N, K, dtype, a, b, regime, swap=None, bcomps=1,
+                  wide=WIDE) -> Plan:
     """product_plan() on the given regime ("skinny" or "wide"; None picks
-    it from the shapes): ``product_sweep.py`` times both."""
+    it from the shapes; ``product_sweep.py`` times both); swap None swaps
+    where M < N; bcomps: the components of B staged (K20's lanes); wide:
+    the wide tile (K20's compiled for fewer blocks an SM)."""
     elsize = ELEM_BYTES[dtype]
-    swap = M < N
+    if swap is None:
+        swap = M < N
     m, n = (N, M) if swap else (M, N)
     ca, cb = (b, a) if swap else (a, b)
     if regime is None:
         regime = "skinny" if n <= SKINNY_MAX else "wide"
-    bm, bn, bk, stages, minb = SKINNY if regime == "skinny" else WIDE
+    bm, bn, bk, stages, minb = SKINNY if regime == "skinny" else wide
     comps = 2 if dtype == "dd" else 1
     ta = comps * _tile_bytes(bm, bk, ca[1], elsize)      # one k-tile of each operand
-    tb = comps * _tile_bytes(bn, bk, cb[1], elsize)
+    tb = comps * bcomps * _tile_bytes(bn, bk, cb[1], elsize)
     tiles = math.ceil(m / bm) * math.ceil(n / bn)
     kt = math.ceil(K / bk)
 
+    # K20's lane coefficients (static shared memory) where it forms its rhs
+    fixed = 1024 + (2 * bn * elsize if bcomps > 1 else 0)
+
     def slots(smem):                  # one wave of resident blocks
-        return SMS * min(minb, SMEM_PER_SM // (smem + 1024))
+        return SMS * min(minb, SMEM_PER_SM // (smem + fixed))
 
     smem = stages * (ta + tb)
     splits, kps = 1, kt
@@ -156,6 +190,7 @@ def _product_plan(batch, M, N, K, dtype, a, b, regime) -> Plan:
     return Plan(regime, swap, (bm, bn, bk), stages, splits, kps, kslices, (ca[0], cb[0]),
                 (ca[1], cb[1]), zblocks, tiles * splits * zblocks,
                 splits * batch * m * n if splits > 1 else 0, smem)
+
 
 def workspace(plan: Plan, dtype: torch.dtype, device, lead: int = 0) -> torch.Tensor:
     """One buffer of ``lead`` values (a wrapper's own scratch) followed by
