@@ -539,6 +539,18 @@ def phase_build():
         ks = [k for k in k24 if k.startswith(prefix)]
         check(len(ks) == n and all(k24[k][1] == 0 and k24[k][2] == 0 for k in ks),
               f"build: {n} {prefix} kernels must compile without spills: {k24}")
+    k924 = ptxas(_build.build_log(), K9_K24_NAME, k9_k24_label)
+    print("[build] K9 / K24 (csrc/affine_windows.cu, dd_theta_chain.cu), "
+          "ptxas: " + " ; ".join(f"{name}: {regs} registers, spill stores/loads {st}/{ld} B, "
+                                 f"static smem {sm} B"
+                                 for name, (regs, st, ld, sm) in k924.items()))
+    # K9's eight kernels (f64 / f32 x Q = 1, 32 lanes a thread x A, b with
+    # rows or broadcast) and K24's twelve (chains of steps: BE / CN x g or
+    # not x rhs time-independent or tabulated; one step: BE / CN x g or not)
+    for prefix, n in {"K9": 8, "K24": 12}.items():
+        ks = [k for k in k924 if k.startswith(prefix)]
+        check(len(ks) == n and all(k924[k][1] == 0 and k924[k][2] == 0 for k in ks),
+              f"build: {n} {prefix} kernels must compile without spills: {k924}")
     k1625 = ptxas(_build.build_log(), K16_K25_NAME, k16_k25_label)
     print("[build] K16 / K25 (csrc/burgers1d_newton.cu, dd_arith.cu), ptxas: "
           + " ; ".join(f"{name}: {regs} registers, spill stores/loads {st}/{ld} B, static "
@@ -712,6 +724,20 @@ def k2_k4_label(m, ln):
         return (f"K2 {'f64' if e2 == 'd' else 'f32'} {'CN' if cn == '1' else 'BE'}"
                 f"{' +g' if g == '1' else ''} rhs {'tabulated' if tab == '1' else 'constant'}")
     return f"K4 {'f64' if e4 == 'd' else 'f32'} terms {nt}"
+
+
+# affine_windows_kernel<T, Q, ROWS> (K9) / dd_theta_chain_kernel<LONG, CN, G, TAB> (K24)
+K9_K24_NAME = re.compile(r"affine_windows_kernelI([df])Li(\d+)ELb([01])E"
+                         r"|dd_theta_chain_kernelILb([01])ELb([01])ELb([01])ELb([01])E")
+
+
+def k9_k24_label(m, ln):
+    e9, q, rows, lng, cn, g, tab = m.groups()
+    if e9 is not None:
+        return (f"K9 {'f64' if e9 == 'd' else 'f32'} Q={q} A, b "
+                f"{'with rows' if rows == '1' else 'broadcast'}")
+    return (f"K24 {'chains' if lng == '1' else 'one step'} {'CN' if cn == '1' else 'BE'}"
+            f"{' +g' if g == '1' else ''} rhs {'tabulated' if tab == '1' else 'constant'}")
 
 
 # burgers1d_newton_kernel<T, SHARED> (K16) / dd_arith_kernel<OP, NT, V, I> (K25)
@@ -1128,19 +1154,32 @@ def kernel_cases(dtype, dev, stash):
     stash[("work", "interval_affine", "materialize")] = headline_work("interval_affine", stash)
     stash[("library", "residual_row_norms")] = stash[("library", "residual_row_norms", "C-rows")] = \
         lambda: torch.linalg.vector_norm(a[1:] - b[:J], dim=1)
-    return (cases + coarsest_cases(dtype, dev, rng, lam) + nonlinear_cases(dtype, dev, rng, stash)
-            + slice_cases(dtype, dev, rng, stash) + transfer_cases(dtype, dev, rng, stash)
-            + heat1d_cases(dtype, dev, rng, stash) + past_cap_cases(dtype, dev, rng, stash)
-            + slice7_cases(dtype, dev, rng, stash))
+    return (cases + coarsest_cases(dtype, dev, rng, lam, stash)
+            + nonlinear_cases(dtype, dev, rng, stash) + slice_cases(dtype, dev, rng, stash)
+            + transfer_cases(dtype, dev, rng, stash) + heat1d_cases(dtype, dev, rng, stash)
+            + past_cap_cases(dtype, dev, rng, stash) + slice7_cases(dtype, dev, rng, stash))
 
 
-def coarsest_cases(dtype, dev, rng, lam):
+def coarsest_work(kernel, nt, N, k, A, b, es=8):
+    """(bytes, operations) of a K8 or K9 call on an (nt, N) coarse tube:
+    A and b read once (one row where their row stride is 0), g's nt - 1
+    rows read; K8 reads the seed row x0 and writes rows 1..nt-1, K9 reads
+    the nt rows of u and writes nt rows; a multiply and two sums an entry
+    and step (K8 nt - 1 steps, K9 min(p, k - 1) steps for lane p)."""
+    rows = sum(1 if t.stride(0) == 0 else nt - 1 for t in (A, b))
+    if kernel == "affine_prefix":
+        return es * N * (rows + 1 + 2 * (nt - 1)), 3 * (nt - 1) * N
+    steps = sum(min(p, k - 1) for p in range(nt))
+    return es * N * (rows + nt + (nt - 1) + nt), 3 * steps * N
+
+
+def coarsest_cases(dtype, dev, rng, lam, stash):
     """K8 and K9 at the coarsest levels of the [coarsest] phase: the
     Dahlquist row (65537 points of one value, A = 1/1.2 per step, b = 0 with
     stride 0) and the TOMS width with two levels (2049 points of 16129
     coefficients, the BE step's A = 1/(1 + dt lam) and its b as rows with
     stride 0); g is a coarse tube's rows 1..nt-1, out its rows 1..nt (K8)
-    or a fresh tube (K9)."""
+    or a fresh tube (K9), made untimed (``RowCase``)."""
     import torch
 
     def t(a):
@@ -1160,19 +1199,28 @@ def coarsest_cases(dtype, dev, rng, lam):
     for label, (nt, A, b, k) in shapes.items():
         width = A.shape[1]
         u = t(rng.uniform(-1, 1, (nt, width)))
-        g = t(rng.uniform(-1e-3, 1e-3, (nt, width)))
+        g = t(rng.uniform(-1e-3, 1e-3, (nt, width)))[1:]
 
-        def prefix(ops, u=u, g=g, A=A, b=b):
+        def prefix_out(u=u):
             out = torch.empty_like(u)
             out[0] = u[0]
-            ops.affine_prefix(A, b, u[0], out[1:], g[1:])
             return out
 
-        def windows(ops, u=u, g=g, A=A, b=b, k=k):
-            return ops.affine_windows(u, A, b, g[1:], torch.empty_like(u), k)
+        def prefix(ops, out, u=u, g=g, A=A, b=b):
+            ops.affine_prefix(A, b, u[0], out[1:], g)
+            return out
 
-        cases += [("affine_prefix", f"{label} n={nt - 1} N={width} +g", prefix),
-                  ("affine_windows", f"{label} nt={nt} N={width} k={k}", windows)]
+        def windows(ops, out, u=u, g=g, A=A, b=b, k=k):
+            return ops.affine_windows(u, A, b, g, out, k)
+
+        for kernel, case, run in (
+                ("affine_prefix", f"{label} n={nt - 1} N={width} +g",
+                 RowCase(prefix_out, prefix, exact=False)),
+                ("affine_windows", f"{label} nt={nt} N={width} k={k}",
+                 RowCase(lambda u=u: torch.empty_like(u), windows, exact=False))):
+            cases.append((kernel, case, run))
+            stash[("work", kernel, case)] = coarsest_work(kernel, nt, width, k, A, b,
+                                                          u.element_size())
     return cases
 
 
@@ -1505,7 +1553,7 @@ class ProductPlans(tuple):
 
 
 class RowCase:
-    """A K1-K7, K10, K11, K14-K21 or K25 case in two steps:
+    """A K1-K11, K14-K21, K24 or K25 case in two steps:
     ``prepare()`` makes what the call writes into where the call updates a
     tube in place or into a given out (untimed: the fresh copy of a tube,
     the empty tube), ``launch(ops, state)`` makes the call and returns its
@@ -1513,10 +1561,11 @@ class RowCase:
     operands (``view`` turns what the call returns into one tensor: K11's,
     K14's and K15's residual and its per-lane max; K16's out and
     iterations).  With ``exact`` (K1, K2, K4, K7 in float64, K11, K14, K15,
-    K18, K19, K21, K25) the kernel equals its plain version bit for bit;
-    without (K3, K5, K6, K10, K16, K17 and K20 sum in another order) it is
-    held at the kernel tolerance, and a second launch must give the same
-    bits."""
+    K18, K19, K21, K24, K25) the kernel equals its plain version bit for
+    bit; without (K3, K5, K6, K10, K16, K17 and K20 sum in another order,
+    K8 composes its steps in another order, K9 contracts a multiply and an
+    add into an FMA) it is held at the kernel tolerance; a second launch
+    must give the same bits."""
 
     def __init__(self, prepare, launch, exact=True, view=None):
         self.prepare, self.launch, self.exact, self.view = prepare, launch, exact, view
@@ -1802,7 +1851,9 @@ def dd_cases(dev, rng, stash):
     (or K25's float32 residual): K23 the materialization of [dd]'s TOMS
     level-0 tube (512 intervals x 31 F-rows of 127^2 DD coefficients, the
     seeds copied to the C-rows) and the condensed C-step (the last row);
-    K24 level 1's F-relaxation (32 chains x 15 steps with g), BE and CN;
+    K24 (``RowCase``s) dd_toms129's chains with g: level 1's F-relaxation
+    (32 chains x 15 steps), BE and CN, level 2's (8 x 3), a level-1 C-step
+    (32 x 1) and the coarsest march (1 x 2);
     K25 the FAS combine, the weighted C-update and the residual difference
     over 512 packed C-rows of 127^2, each elementwise op on wild-scale
     inputs of that size (magnitudes 1e-8 .. 1e8), the cancellation case of
@@ -1858,27 +1909,43 @@ def dd_cases(dev, rng, stash):
     stash[("work", "dd_interval_affine", case)] = (8 * (2 * J * N + 2 * N),
                                                    (F["mul"] + F[A_]) * J * N)
 
-    # K24: level 1's F-relaxation, 32 chains of 15 steps with g
-    J1, L1 = J // DD_TOMS["ms"][1], DD_TOMS["ms"][1] - 1
+    # K24: dd_toms129's chains, each with g: level 1's F-relaxation (32
+    # chains of 15 steps), BE and CN; level 2's (8 chains of 3 steps); a
+    # level-1 C-step (32 chains of one step); the coarsest march (one chain
+    # of 2 steps); each at its level's step size, out made untimed
     _, lam1 = sine_eigenbasis(n, (n + 1.0) ** 2)
     lam = pair((lam1[:, None] + lam1[None, :]).reshape(-1))
     lift = pair(rng.uniform(-1, 1, N))
-    x0 = packed(rng.uniform(-1, 1, (J1, N)))
-    g = torch.stack([packed(rng.uniform(-1e-3, 1e-3, (J1, N))) for _ in range(L1)], 1)
-    dt = pair(np.full((L1, J1), 1.0 / (DD_TOMS["nt"] - 1) * m0))
-    r1 = torch.as_tensor(rng.uniform(-1, 1, N).astype(np.float32), device=dev).expand(L1, J1, N)
-    for theta, label in ((1.0, "BE"), (0.5, "CN")):
-        def chain(ops, theta=theta):
-            out = torch.empty((J1, L1, 2, N), dtype=torch.float32, device=dev)
+    r1_row = torch.as_tensor(rng.uniform(-1, 1, N).astype(np.float32), device=dev)
+    m1, m2 = DD_TOMS["ms"][1], DD_TOMS["ms"][2]
+    m_all = int(np.prod(DD_TOMS["ms"]))
+    dt0 = 1.0 / (DD_TOMS["nt"] - 1)
+
+    def k24(Jc, Lc, theta, dtc):
+        x0 = packed(rng.uniform(-1, 1, (Jc, N)))
+        g = packed(rng.uniform(-1e-3, 1e-3, (Jc * Lc, N))).view(Jc, Lc, 2, N)
+        dt = pair(np.full((Lc, Jc), dtc))
+        r1 = r1_row.expand(Lc, Jc, N)
+
+        def launch(ops, out):
             ops.dd_theta_chain(dd.pair(x0, ops), dd.pair(out, ops, 2), dt, lam, lift, r1, r1,
                                theta, dd.pair(g, ops, 2))
             return dd.pair(out, ops, 2)
+        return RowCase(lambda: torch.empty((Jc, Lc, 2, N), dtype=torch.float32, device=dev),
+                       launch)
 
+    J1, J2 = J // m1, J // (m1 * m2)
+    for label, Jc, Lc, theta, dtc in (
+            ("level-1 F-relax BE", J1, m1 - 1, 1.0, m0 * dt0),
+            ("level-1 F-relax CN", J1, m1 - 1, 0.5, m0 * dt0),
+            ("level-2 F-relax BE", J2, m2 - 1, 1.0, m0 * m1 * dt0),
+            ("level-1 C-step BE", J1, 1, 1.0, m0 * dt0),
+            ("coarsest march BE", 1, 2, 1.0, m_all * dt0)):
         per = 4 * F["mul"] + 3 * F[A_] + F["div"] + F[A_] + (0 if theta == 1.0 else F["mul"] + 3)
-        case = f"level-1 F-relax {label} J={J1} L={L1} N={N}"
-        cases.append(("dd_theta_chain", case, chain))
+        case = f"{label} J={Jc} L={Lc} N={N}"
+        cases.append(("dd_theta_chain", case, k24(Jc, Lc, theta, dtc)))
         stash[("work", "dd_theta_chain", case)] = (
-            8 * (J1 * N + 2 * J1 * L1 * N + 2 * N + L1 * J1) + 4 * N, per * J1 * L1 * N)
+            8 * (Jc * N + 2 * Jc * Lc * N + 2 * N + Lc * Jc) + 4 * N, per * Jc * Lc * N)
 
     # K25: the solver's combines over 512 packed C-rows, then each op; every
     # case writes into a buffer made untimed (packed rows, or a (2, ...)
@@ -2285,11 +2352,6 @@ def headline_work(kernel, stash):
         return 8 * (J * N + 2 * T * N + 2 * N + J * P2 + J * m0 * P2), J * T * (4 * n ** 3 + 2 * N)
     if kernel == "theta_rhs2d":            # BE: u_int + dt r1 + dt lift
         return k7_work(J, n, 1.0, False)
-    if kernel in ("affine_prefix", "affine_windows"):
-        nt_h = (TOMS2["nt"] - 1) // TOMS2["ms"][0] + 1
-        steps = nt_h - 1 if kernel == "affine_prefix" else sum(min(p, TOMS2_AT_K - 1)
-                                                               for p in range(nt_h))
-        return 8 * (2 * N + N + 2 * nt_h * N), 3 * steps * N
     if kernel == "periodic_solve2d":       # Allen-Cahn IMEX B=512 n=128
         return k10_work((AC_BENCH["nt"] - 1) // AC_BENCH["ms"][0], 1, AC_BENCH["nx"], False)
     if kernel == "allen_cahn_pointwise":   # jacobian B=8 n=128
@@ -2317,7 +2379,8 @@ def headline_work(kernel, stash):
     if kernel in TRANSFER_KERNELS:         # spatial65 2D: FAS, correction (no products)
         case = ("FAS" if kernel == "restrict_combine" else "correction") + " spatial65 2D R=1024"
         return stash[("work", kernel, case)]
-    if kernel in ("indexed_combine", "eig_step", "sine_solve1d"):   # the headline's recorded work
+    if kernel in ("indexed_combine", "eig_step", "sine_solve1d", "affine_prefix",
+                  "affine_windows"):   # the headline's recorded work (K8, K9: coarsest_work)
         return next(w for k, w in stash.items()
                     if k[:2] == ("work", kernel) and k[2].startswith(HEADLINE[kernel]))
     raise KeyError(kernel)
@@ -2529,11 +2592,13 @@ def phase_dd_kernels(only=None):
                     for a, b in zip(out_k, out_p)]
             ok, how = all(same), "bitwise hi, lo: " + ", ".join(map(str, same))
         plan = stash.get(("plan", kernel, case))
-        if plan is not None:            # the product tile: a second launch gives the same bits
+        if plan is not None or isinstance(run, RowCase):   # a second launch gives the same bits
             again = parts(run(DISPATCH))
-            same = all(torch.equal(a, b) for a, b in zip(out_k, again))
-            print(f"[dd-kernels] {kernel:<18} {case}: plan {plan.describe()} | second launch bit "
-                  f"for bit: {same}")
+            same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                       for a, b in zip(out_k, again))
+            print(f"[dd-kernels] {kernel:<18} {case}: "
+                  + (f"plan {plan.describe()} | " if plan is not None else "")
+                  + f"second launch bit for bit: {same}")
             check(same, f"{kernel} {case}: a second launch differs")
             del again
         del out_k, out_p, val_k, val_p
@@ -4096,9 +4161,10 @@ def phase_dd(card):
 def profile_cells(card):
     """``--profile``: one profiled kernel-path solve of each cell of the
     periodic models, the spectral and physical TOMS solves, the ragged row,
-    the spatial65 row, the BDF example,
-    the two DD rows and the deep diffusion grid (after one untimed solve of
-    the same configuration), torch.profiler with CPU and CUDA activities:
+    the spatial65 row, the BDF example, the `[coarsest]` AtMgrit solve at
+    the TOMS width, the two DD rows and the deep diffusion grid (after one
+    untimed solve of the same configuration), torch.profiler with CPU and
+    CUDA activities:
     the profiled wall, the card's busy time (the kernels' device time
     summed; one stream, so they do not overlap) and idle share, the three
     device ops that took longest, K18's, K19's and K21's device time,
@@ -4123,20 +4189,24 @@ def profile_cells(card):
 
     # a wrapper's host time a call (its checks, its launch and what it
     # allocates), timed around each call: K11 in the Allen-Cahn cells, K14
-    # in Gray-Scott IMPL, K15 in Burgers2D, K25 in the DD cells (every DD
-    # operation of the solve reads the kernel set of the problem's states)
-    host = {"calls": 0, "s": 0.0}
+    # in Gray-Scott IMPL, K15 in Burgers2D, K24 and K25 in the DD cells
+    # (every DD operation of the solve reads the kernel set of the
+    # problem's states), K9 in the coarsest AT cell
+    host = {}
 
-    def timed(name):
-        fn = getattr(DISPATCH, name)
+    def timed(*names):
+        def wrap(name):
+            fn = getattr(DISPATCH, name)
 
-        def call(*args, **kw):
-            t0 = time.perf_counter()
-            r = fn(*args, **kw)
-            host["s"] += time.perf_counter() - t0
-            host["calls"] += 1
-            return r
-        return DISPATCH._replace(**{name: call})
+            def call(*args, **kw):
+                t0 = time.perf_counter()
+                r = fn(*args, **kw)
+                rec = host.setdefault(name, [0, 0.0])
+                rec[0] += 1
+                rec[1] += time.perf_counter() - t0
+                return r
+            return call
+        return DISPATCH._replace(**{name: wrap(name) for name in names})
 
     def allen_cahn(cfg):
         return lambda: strategy(P, "scan", allen_cahn_problem(
@@ -4145,8 +4215,9 @@ def profile_cells(card):
 
     def dd_cell(cfg, basis):
         return lambda: P.Mgrit(
-            problem=build_problem(P, cfg["nx"], cfg["nt"], cfg["ms"], DEVICE, timed("dd_arith"),
-                                  basis=basis, precision="dd"),
+            problem=build_problem(P, cfg["nx"], cfg["nt"], cfg["ms"], DEVICE,
+                                  timed("dd_arith", "dd_theta_chain"), basis=basis,
+                                  precision="dd"),
             tol=cfg["tol"], max_iter=cfg["max_iter"], logging_lvl=30)
 
     gs = dict(nx=GS_AT["nx"], method="IMEX")
@@ -4184,6 +4255,9 @@ def profile_cells(card):
             tol=SPATIAL["tol"], max_iter=SPATIAL["max_iter"], logging_lvl=30)),
         ("bdf example", lambda: P.Mgrit(problem=bdf_problem(P, DISPATCH), tol=BDF["tol"],
                                         max_iter=BDF["max_iter"], logging_lvl=30)),
+        (f"coarsest toms AtMgrit(k={TOMS2_AT_K})", lambda: strategy(
+            P, "at", build_problem(P, device=DEVICE, ops=timed("affine_windows"), **TOMS2),
+            TOMS2_AT_K, tol=1e-300, max_iter=TOMS2_AT_ITERS)),
         ("dd dd_toms129", dd_cell(DD_TOMS, "spectral")),
         ("dd dd65", dd_cell(DD65, "physical")),
         ("diffusion deep", lambda: P.Mgrit(
@@ -4202,7 +4276,7 @@ def profile_cells(card):
         mg = build()
         torch.cuda.synchronize()
         reset_launch_counts()
-        host.update(calls=0, s=0.0)
+        host.clear()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             h = mg.solve()["conv"]
@@ -4227,14 +4301,17 @@ def profile_cells(card):
         # the row kernels' device kernels: K18, K19, K21; K5's and K6's (the
         # one-tile kernels, K6's coefficient pass and the band kernel past
         # 128), K7's, and the spectral path's K1, K2 and K4, with their
-        # wrappers' calls
-        row = {k: (sum(e.count for e in dev if k in e.key),
-                   sum(device_us(e) for e in dev if k in e.key) / 1e3)
-               for k in ("restrict_combine", "interpolate_combine", "indexed_combine",
-                         "sine_solve2d", "sine_affine2d", "affine_tile", "band_product",
-                         "theta_rhs", "theta_chain", "interval_affine", "cpoint_combine",
-                         "periodic_solve2d", "periodic_rhs", "allen_cahn", "gray_scott",
-                         "burgers2d", "burgers1d_newton", "dd_arith", "circulant_solve1d")}
+        # wrappers' calls (a name matches where no letter or "_" precedes
+        # it: theta_chain is not dd_theta_chain)
+        names = ("restrict_combine", "interpolate_combine", "indexed_combine", "sine_solve2d",
+                 "sine_affine2d", "affine_tile", "band_product", "theta_rhs", "theta_chain",
+                 "interval_affine", "cpoint_combine", "periodic_solve2d", "periodic_rhs",
+                 "allen_cahn", "gray_scott", "burgers2d", "burgers1d_newton", "dd_arith",
+                 "circulant_solve1d", "dd_theta_chain", "dd_interval_affine", "affine_windows")
+        row = {}
+        for k in names:
+            mine = [e for e in dev if re.search(r"(?<![A-Za-z_])" + k, e.key)]
+            row[k] = (sum(e.count for e in mine), sum(device_us(e) for e in mine) / 1e3)
         print(f"[profile] {label}: {h.size} iterations, profiled solve {wall * 1e3:.1f} ms, device "
               f"busy {busy:.1f} ms, idle {100 * (1 - busy / (wall * 1e3)):.1f} % | leading device "
               "time " + "; ".join(f"{e.key[:48]} {device_us(e) / 1e3:.2f} ms ({e.count})"
@@ -4251,10 +4328,11 @@ def profile_cells(card):
                                           ("K15", "burgers2d_pointwise"),
                                           ("K16", "burgers1d_newton"),
                                           ("K17", "circulant_solve1d"), ("K20", "sine_solve1d"),
-                                          ("K25", "dd_arith"))
+                                          ("K9", "affine_windows"), ("K23", "dd_interval_affine"),
+                                          ("K24", "dd_theta_chain"), ("K25", "dd_arith"))
                         if calls[key])
-              + (f" | wrapper host time {host['s'] * 1e3 / host['calls']:.4f} ms a call "
-                 f"({host['calls']} calls)" if host["calls"] else "")
+              + "".join(f" | {name} wrapper host time {s * 1e3 / n:.4f} ms a call ({n} calls)"
+                        for name, (n, s) in host.items())
               + f" | host: {launches} kernel launches, {syncs} synchronisations"
               + (f" | product tile: {calls['sine_solve1d']} K20, {calls['eig_step']} K22 and "
                  f"{calls['dd_matmul']} K26 calls, "

@@ -45,7 +45,8 @@ _SIGNATURES = {
     # the packed argument array, dt, theta, fx, fy, the stream
     "pm_theta_rhs2d": [_P, _D, _D, _D, _D, _P],
     "pm_affine_prefix": [_P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _P],
-    "pm_affine_windows": [_P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P],
+    # the packed argument array, the stream
+    "pm_affine_windows": [_P, _P],
     # the packed argument array, the prologue's two scalars, the stream
     "pm_periodic_solve2d": [_P, _D, _D, _P],
     "pm_dopri45_arenstorf": [_P, _I, _P, _P, _P, _I, _I, _P, _I, _I, _P, _D, _D, _D, _I, _I, _I,
@@ -79,7 +80,8 @@ _DD_SIGNATURES = {
     "pm_dd_arith": [_P, _P, _P],
     "pm_dd_interval_affine": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P,
                               _I, _P],
-    "pm_dd_theta_chain": [_P, _P, _D, _P, _P],
+    # the packed argument array, theta, the stream
+    "pm_dd_theta_chain": [_P, _D, _P],
     "pm_dd_matmul": [_P, _P],
 }
 

@@ -18,12 +18,49 @@
 // the sequential coarsest _forward_solve), and Heat1D's spectral DD step
 // (pymgrit_tpu/models/heat_1d.py:228-231: BE with a zero lift).
 //
-// Bound: bytes.  Each step reads one g row and writes one out row a chain,
-// 8 + 8 bytes a coefficient, against ~150 float32 operations (one DD div,
-// four DD muls, three DD adds).  Design: K2's, one thread per (chain j,
-// coefficient n) carrying x in two registers across all L steps; lam and
-// lift loaded once a thread; hi and lo by separate pointers with shared
-// strides (the solver's packed tubes, or separate tensors).
+// Bound: bytes on paper, the float32 issue in fact.  Each step reads one g
+// row and writes one out row a chain, 8 + 8 bytes a coefficient (the
+// dd_toms129 level-1 F-relaxation, J = 32, L = 15, N = 16129, moves 128 MB:
+// 0.0383 ms at 3.35 TB/s), against ~290 float32 operations a coefficient
+// and step (one DD div with three true divisions, four DD muls, four DD
+// adds), ~180 where the step's invariants are formed once: the level-1
+// call's 2.2 G operations take ~0.067 ms at one a lane a clock on the
+// card's 16,896 FP32 lanes.  What held the first version back: every step re-formed its
+// invariants, loaded its g row after its arithmetic, and branched on BE/CN
+// and g at run time.  Design (ops/heat_kernels.py ``dd_theta_chain_plan``,
+// ``dd_theta_chain_pack``):
+// * one thread a coefficient of a chain, coalesced on any row.  K2's
+//   design, a thread owning 16 bytes (4 coefficients) with the rows through
+//   a cp.async ring, ran slower at every dd_toms129 shape (level-1 BE
+//   0.0960 ms of device time, chip_smoke.py phase 3 on an NVIDIA H100 80GB
+//   HBM3): 3 of 4 rows of the packed (J, L, 2, N) tube start off 16-byte
+//   alignment, where element copies and shuffled whole-sector stores cost
+//   more issue than the vectors saved, and 4 chains a thread left fewer
+//   threads to hide the DD operations' latency;
+// * each warp checks once whether the chain's step sizes are all equal (hi
+//   and lo, bit for bit; no block barrier); if so, the step's shift, the DD
+//   denominator shift (x) lam (+) 1, the lift term and, with a
+//   time-independent rhs, the rhs term dt (x) r (CN: its float32 mix
+//   first) are formed once: the same operations on the same operands as
+//   every step forms them, so the same bits;
+// * step k + 1's rows (g, a tabulated rhs) are loaded during step k, step
+//   0's with the seeds, so that no step waits on its rows;
+// * a one-step call (C-relaxation, the FAS residual) takes a leaner
+//   variant: no check, no invariants, no loop, every operand loaded up
+//   front, in 32-40 registers (through the chain code, in 40-48, these
+//   latency-bound calls held fewer threads and ran behind the first
+//   version);
+// * compile-time variants for BE / CN, with or without g, a
+//   time-independent (strides 0) or tabulated rhs, one step or more;
+// * every float32 operation is an intrinsic that rounds once (dd.cuh), in
+//   dd_theta_chain_plain's order: the kernel equals the plain version bit
+//   for bit;
+// * the work is a range of items (chain, segment of a block's threads),
+//   one block an item, so the coarse-level calls (J = 1-8, L = 1-3) launch
+//   no idle blocks; the block has 256, 128 or 64 threads, the largest that
+//   still gives 4 items an SM.
+// Launched by one ctypes call: a packed int64 argument array and theta as
+// a double.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -32,53 +69,173 @@
 
 namespace {
 
-struct Chain {
-  const float *xh, *xl;
-  int64_t x_sj;
-  float *oh, *ol;
-  int64_t out_sj, out_sk;
-  const float *gh, *gl;
-  int64_t g_sj, g_sk;
-  const float *dth, *dtl;                 // (L, J) step sizes
+constexpr int kThreads = 256;   // the largest block (8 warps)
+
+struct Params {
+  const float *xh, *xl;            // seeds (J rows, stride x_sj)
+  float *oh, *ol;                  // out rows at j * out_sj + k * out_sk
+  const float *gh, *gl;            // null: no g
+  const float *dth, *dtl;          // (L, J) contiguous step sizes
   const float *lamh, *laml, *lifth, *liftl;
-  const float *rhs1, *rhs0;               // float32 rows, strides r_sk, r_sj
-  int64_t r_sk, r_sj;
-  float th_hi, th_lo;                     // theta split
-  float th32, oth32;                      // float32 theta and 1 - theta
-  int be;
+  const float *rhs1, *rhs0;        // float32 rows at k * r_sk + j * r_sj
+  int64_t x_sj, out_sj, out_sk, g_sj, g_sk, r_sk, r_sj;  // strides (elements)
   int64_t J, L, N;
+  int64_t segs;                    // segments a chain (a block's threads each)
+  float th_hi, th_lo;              // theta split into a float32 pair
+  float th32, oth32;               // float32 theta and 1 - theta
 };
 
-__global__ void dd_theta_chain_kernel(const Chain c) {
-  const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= c.N) return;
-  const dd::F2 lm{c.lamh[n], c.laml[n]};
-  const dd::F2 lf{c.lifth[n], c.liftl[n]};
-  const dd::F2 theta{c.th_hi, c.th_lo};
-  for (int64_t j = blockIdx.y; j < c.J; j += gridDim.y) {
-    dd::F2 x{c.xh[j * c.x_sj + n], c.xl[j * c.x_sj + n]};
-    for (int64_t k = 0; k < c.L; ++k) {
-      const dd::F2 d{c.dth[k * c.J + j], c.dtl[k * c.J + j]};
-      const dd::F2 shift = dd::mul(d, theta);
-      const int64_t ri = k * c.r_sk + j * c.r_sj + n;
-      dd::F2 b;
-      if (c.be) {
-        b = dd::add(dd::add(x, dd::mul(d, dd::F2{c.rhs1[ri], 0.0f})), dd::mul(shift, lf));
-      } else {
-        const float r = __fadd_rn(__fmul_rn(c.th32, c.rhs1[ri]), __fmul_rn(c.oth32, c.rhs0[ri]));
-        b = dd::sub(x, dd::mul(shift, dd::mul(x, lm)));
-        b = dd::add(b, dd::mul(dd::mul(shift, dd::F2{2.0f, 0.0f}), lf));
-        b = dd::add(b, dd::mul(d, dd::F2{r, 0.0f}));
-      }
-      x = dd::div(b, dd::add(dd::mul(shift, lm), dd::F2{1.0f, 0.0f}));
-      if (c.gh != nullptr) {
-        const int64_t gi = j * c.g_sj + k * c.g_sk + n;
-        x = dd::add(dd::F2{c.gh[gi], c.gl[gi]}, x);
-      }
-      const int64_t oi = j * c.out_sj + k * c.out_sk + n;
-      c.oh[oi] = x.hi;
-      c.ol[oi] = x.lo;
+__device__ __forceinline__ dd::F2 f2(float hi) { return dd::F2{hi, 0.0f}; }
+
+__device__ __forceinline__ bool same_bits(float a, float b) {
+  return __float_as_int(a) == __float_as_int(b);
+}
+
+// chain j's L steps of coefficient n; UNI: the chain's step sizes are all
+// equal, and the step's invariants are formed once.  Step k + 1's rows (g,
+// a tabulated rhs) are loaded during step k, step 0's with the seeds.  CN:
+// theta != 1; G: g added after each step; TAB: the rhs rows change with
+// (k, j).
+template <bool UNI, bool CN, bool G, bool TAB>
+__device__ __forceinline__ void walk(const Params& p, int64_t j, int64_t n) {
+  const float* dth = p.dth + j;
+  const float* dtl = p.dtl + j;
+  const float* r1 = p.rhs1 + j * p.r_sj + n;
+  const float* r0 = p.rhs0 + j * p.r_sj + n;
+  const float* gh = G ? p.gh + j * p.g_sj + n : nullptr;
+  const float* gl = G ? p.gl + j * p.g_sj + n : nullptr;
+  float* oh = p.oh + j * p.out_sj + n;
+  float* ol = p.ol + j * p.out_sj + n;
+  const dd::F2 theta{p.th_hi, p.th_lo};
+  dd::F2 x{__ldg(p.xh + j * p.x_sj + n), __ldg(p.xl + j * p.x_sj + n)};
+  const dd::F2 lm{__ldg(p.lamh + n), __ldg(p.laml + n)};
+  const dd::F2 lf{__ldg(p.lifth + n), __ldg(p.liftl + n)};
+  // a time-independent rhs: r1 (BE) or the float32 mix theta r1 + (1 - theta) r0 (CN)
+  float mix = 0.0f;
+  if (!TAB) {
+    mix = CN ? __fadd_rn(__fmul_rn(p.th32, __ldg(r1)), __fmul_rn(p.oth32, __ldg(r0))) : __ldg(r1);
+  }
+  // step k's rows: g hi, lo, r1, r0
+  const auto rows = [&](int64_t k, float (&v)[4]) {
+    if (G) {
+      v[0] = __ldg(gh + k * p.g_sk);
+      v[1] = __ldg(gl + k * p.g_sk);
     }
+    if (TAB) {
+      v[2] = __ldg(r1 + k * p.r_sk);
+      if (CN) v[3] = __ldg(r0 + k * p.r_sk);
+    }
+  };
+  float next[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  rows(0, next);
+  dd::F2 d{__ldg(dth), __ldg(dtl)}, shift{0.0f, 0.0f}, den{0.0f, 0.0f}, sl{0.0f, 0.0f},
+      dr{0.0f, 0.0f};
+  if (UNI) {
+    shift = dd::mul(d, theta);
+    den = dd::add(dd::mul(shift, lm), f2(1.0f));
+    sl = dd::mul(CN ? dd::mul(shift, f2(2.0f)) : shift, lf);
+    if (!TAB) dr = dd::mul(d, f2(mix));
+  }
+#pragma unroll 1
+  for (int64_t k = 0; k < p.L; ++k) {
+    const float v[4] = {next[0], next[1], next[2], next[3]};
+    if (k + 1 < p.L) rows(k + 1, next);
+    const float m = !TAB ? mix
+                    : CN ? __fadd_rn(__fmul_rn(p.th32, v[2]), __fmul_rn(p.oth32, v[3])) : v[2];
+    const dd::F2 dk = d;
+    if (!UNI && k + 1 < p.L) d = dd::F2{__ldg(dth + (k + 1) * p.J), __ldg(dtl + (k + 1) * p.J)};
+    const dd::F2 sk = UNI ? shift : dd::mul(dk, theta);
+    const dd::F2 drk = UNI && !TAB ? dr : dd::mul(dk, f2(m));
+    const dd::F2 slk = UNI ? sl : dd::mul(CN ? dd::mul(sk, f2(2.0f)) : sk, lf);
+    const dd::F2 dn = UNI ? den : dd::add(dd::mul(sk, lm), f2(1.0f));
+    dd::F2 b;
+    if (CN) {
+      b = dd::sub(x, dd::mul(sk, dd::mul(x, lm)));
+      b = dd::add(b, slk);
+      b = dd::add(b, drk);
+    } else {
+      b = dd::add(dd::add(x, drk), slk);
+    }
+    x = dd::div(b, dn);
+    if (G) x = dd::add(dd::F2{v[0], v[1]}, x);
+    oh[k * p.out_sk] = x.hi;
+    ol[k * p.out_sk] = x.lo;
+  }
+}
+
+// one step of chain j's coefficient n (L = 1: C-relaxation, the FAS
+// residual): every operand loaded up front, no loop (fewer registers: more
+// threads in flight for these latency-bound calls)
+template <bool CN, bool G, bool TAB>
+__device__ __forceinline__ void step1(const Params& p, int64_t j, int64_t n) {
+  const dd::F2 theta{p.th_hi, p.th_lo};
+  const int64_t xi = j * p.x_sj + n, ri = j * p.r_sj + n;
+  const dd::F2 x{__ldg(p.xh + xi), __ldg(p.xl + xi)};
+  const dd::F2 lm{__ldg(p.lamh + n), __ldg(p.laml + n)};
+  const dd::F2 lf{__ldg(p.lifth + n), __ldg(p.liftl + n)};
+  const dd::F2 d{__ldg(p.dth + j), __ldg(p.dtl + j)};
+  const float r1 = __ldg(p.rhs1 + ri), r0 = CN ? __ldg(p.rhs0 + ri) : 0.0f;
+  float gh = 0.0f, gl = 0.0f;
+  if (G) {
+    gh = __ldg(p.gh + j * p.g_sj + n);
+    gl = __ldg(p.gl + j * p.g_sj + n);
+  }
+  const float m = CN ? __fadd_rn(__fmul_rn(p.th32, r1), __fmul_rn(p.oth32, r0)) : r1;
+  const dd::F2 sk = dd::mul(d, theta);
+  dd::F2 b;
+  if (CN) {
+    b = dd::sub(x, dd::mul(sk, dd::mul(x, lm)));
+    b = dd::add(b, dd::mul(dd::mul(sk, f2(2.0f)), lf));
+    b = dd::add(b, dd::mul(d, f2(m)));
+  } else {
+    b = dd::add(dd::add(x, dd::mul(d, f2(m))), dd::mul(sk, lf));
+  }
+  dd::F2 y = dd::div(b, dd::add(dd::mul(sk, lm), f2(1.0f)));
+  if (G) y = dd::add(dd::F2{gh, gl}, y);
+  const int64_t oi = j * p.out_sj + n;
+  p.oh[oi] = y.hi;
+  p.ol[oi] = y.lo;
+}
+
+// LONG: more than one step (the uniform check, the invariants, the rows a
+// step ahead); else the one-step calls (C-relaxation, the FAS residual)
+template <bool LONG, bool CN, bool G, bool TAB>
+__global__ void __launch_bounds__(kThreads) dd_theta_chain_kernel(const Params p) {
+  const int64_t items = p.J * p.segs;
+  for (int64_t it = blockIdx.x; it < items; it += gridDim.x) {
+    const int64_t j = (unsigned)it / (unsigned)p.segs;   // items < 2^31 (the launcher)
+    const int64_t n = (it - j * p.segs) * blockDim.x + threadIdx.x;
+    if (!LONG) {
+      if (n < p.N) step1<CN, G, TAB>(p, j, n);
+      continue;
+    }
+    // are chain j's step sizes all equal (hi and lo, bit for bit)?  Each
+    // warp's lanes split the column (a warp's answer: no block barrier)
+    const float h0 = p.dth[j], l0 = p.dtl[j];
+    int uniform = 1;
+    for (int64_t k = 1 + (threadIdx.x & 31); k < p.L; k += 32) {
+      uniform &= same_bits(p.dth[k * p.J + j], h0) && same_bits(p.dtl[k * p.J + j], l0);
+    }
+    uniform = __all_sync(0xffffffffu, uniform);
+    if (n >= p.N) continue;
+    if (uniform) {
+      walk<true, CN, G, TAB>(p, j, n);
+    } else {
+      walk<false, CN, G, TAB>(p, j, n);
+    }
+  }
+}
+
+// a one-step call reads its rhs row at k = 0 whatever its strides: one
+// variant serves a time-independent and a tabulated rhs
+template <bool CN, bool G>
+void dispatch_rhs(bool tab, unsigned grid, unsigned block, cudaStream_t s, const Params& p) {
+  if (p.L == 1) {
+    dd_theta_chain_kernel<false, CN, G, false><<<grid, block, 0, s>>>(p);
+  } else if (tab) {
+    dd_theta_chain_kernel<true, CN, G, true><<<grid, block, 0, s>>>(p);
+  } else {
+    dd_theta_chain_kernel<true, CN, G, false><<<grid, block, 0, s>>>(p);
   }
 }
 
@@ -86,46 +243,64 @@ __global__ void dd_theta_chain_kernel(const Chain c) {
 
 extern "C" {
 
-// ptrs: x0 hi, lo; out hi, lo; g hi, lo (null without g); dt hi, lo; lam
-// hi, lo; lift hi, lo; rhs1; rhs0 (14).  strides: x_sj, out_sj, out_sk,
-// g_sj, g_sk, r_sk, r_sj (7).  dims: J, L, N.
-int pm_dd_theta_chain(void* const* ptrs, const int64_t* strides, double theta,
-                      const int64_t* dims, void* stream) {
-  Chain c;
-  c.xh = static_cast<const float*>(ptrs[0]);
-  c.xl = static_cast<const float*>(ptrs[1]);
-  c.oh = static_cast<float*>(ptrs[2]);
-  c.ol = static_cast<float*>(ptrs[3]);
-  c.gh = static_cast<const float*>(ptrs[4]);
-  c.gl = static_cast<const float*>(ptrs[5]);
-  c.dth = static_cast<const float*>(ptrs[6]);
-  c.dtl = static_cast<const float*>(ptrs[7]);
-  c.lamh = static_cast<const float*>(ptrs[8]);
-  c.laml = static_cast<const float*>(ptrs[9]);
-  c.lifth = static_cast<const float*>(ptrs[10]);
-  c.liftl = static_cast<const float*>(ptrs[11]);
-  c.rhs1 = static_cast<const float*>(ptrs[12]);
-  c.rhs0 = static_cast<const float*>(ptrs[13]);
-  c.x_sj = strides[0];
-  c.out_sj = strides[1];
-  c.out_sk = strides[2];
-  c.g_sj = strides[3];
-  c.g_sk = strides[4];
-  c.r_sk = strides[5];
-  c.r_sj = strides[6];
-  c.th_hi = (float)theta;
-  c.th_lo = (float)(theta - (double)c.th_hi);
-  c.th32 = (float)theta;
-  c.oth32 = (float)(1.0 - theta);
-  c.be = theta == 1.0 ? 1 : 0;
-  c.J = dims[0];
-  c.L = dims[1];
-  c.N = dims[2];
-  if (c.J == 0 || c.L == 0 || c.N == 0) return 0;
-  const int threads = 256;
-  const dim3 grid((unsigned)((c.N + threads - 1) / threads), (unsigned)(c.J < 65535 ? c.J : 65535));
-  dd_theta_chain_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(c);
-  return (int)cudaGetLastError();
+// args (int64): CUDA device; x0 hi, lo; out hi, lo; g hi, lo (0: none); dt
+// hi, lo; lam hi, lo; lift hi, lo; rhs1; rhs0; x0's chain stride, out's
+// chain and step strides, g's chain and step strides, the rhs rows' step
+// and chain strides; J, L, N, segments a chain, grid, CN (0: BE), g
+// present, rhs tabulated, threads a block (a multiple of 32, at most
+// kThreads); fewer than 2^31 items (ops/heat_kernels.py::dd_theta_chain_pack)
+int pm_dd_theta_chain(const int64_t* a, double theta, void* stream) {
+  Params p{};
+  const auto in = [a](int i) { return reinterpret_cast<const float*>(a[i]); };
+  p.xh = in(1);
+  p.xl = in(2);
+  p.oh = reinterpret_cast<float*>(a[3]);
+  p.ol = reinterpret_cast<float*>(a[4]);
+  p.gh = in(5);
+  p.gl = in(6);
+  p.dth = in(7);
+  p.dtl = in(8);
+  p.lamh = in(9);
+  p.laml = in(10);
+  p.lifth = in(11);
+  p.liftl = in(12);
+  p.rhs1 = in(13);
+  p.rhs0 = in(14);
+  p.x_sj = a[15];
+  p.out_sj = a[16];
+  p.out_sk = a[17];
+  p.g_sj = a[18];
+  p.g_sk = a[19];
+  p.r_sk = a[20];
+  p.r_sj = a[21];
+  p.J = a[22];
+  p.L = a[23];
+  p.N = a[24];
+  p.segs = a[25];
+  const unsigned grid = (unsigned)a[26];
+  const bool cn = a[27] != 0, g = a[28] != 0, tab = a[29] != 0;
+  const unsigned block = (unsigned)a[30];
+  p.th_hi = (float)theta;
+  p.th_lo = (float)(theta - (double)p.th_hi);
+  p.th32 = (float)theta;
+  p.oth32 = (float)(1.0 - theta);
+  if (p.J == 0 || p.L == 0 || p.N == 0) return 0;
+  if (grid == 0 || block == 0 || block > kThreads || block % 32 != 0
+      || p.J * p.segs >= (int64_t{1} << 31) || g != (p.gh != nullptr && p.gl != nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int current = 0;
+  cudaGetDevice(&current);
+  const int device = (int)a[0];
+  if (device != current) cudaSetDevice(device);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cn && g) dispatch_rhs<true, true>(tab, grid, block, s, p);
+  if (cn && !g) dispatch_rhs<true, false>(tab, grid, block, s, p);
+  if (!cn && g) dispatch_rhs<false, true>(tab, grid, block, s, p);
+  if (!cn && !g) dispatch_rhs<false, false>(tab, grid, block, s, p);
+  const cudaError_t e = cudaGetLastError();
+  if (device != current) cudaSetDevice(current);
+  return (int)e;
 }
 
 }  // extern "C"

@@ -17,8 +17,8 @@ rows may have any stride; K20 sees a 1D physical state (one point of a
 BDF pair state) as a row of n interior values, and runs its two products
 on the FP64 product tile that K22 and K26 share (``csrc/dmma_tile.cuh``,
 plans from ``product_tile.lanes_plan``) through a device workspace it keeps
-per device, stream and dtype (``_solve1d_workspace``).  K1, K2, K5, K6
-and K20 take the one-call launch path: every check, the plan and the
+per device, stream and dtype (``_solve1d_workspace``).  K1, K2, K5, K6,
+K20 and K24 take the one-call launch path: every check, the plan and the
 packed int64 argument array are cached by the operands' facts, and a
 launch is one ctypes call.
 """
@@ -26,7 +26,6 @@ launch is one ctypes call.
 from __future__ import annotations
 
 import array
-import ctypes
 import functools
 import math
 
@@ -879,56 +878,140 @@ def dd_theta_chain_plain(x0, out, dt, lam, lift, rhs1, rhs0, theta, g=None):
     return out
 
 
+# K24's blocks (csrc/dd_theta_chain.cu: kThreads the largest), largest
+# first: an item is one chain's segment of a block's threads
+K24_THREADS = (256, 128, 64)
+
+
+def dd_theta_chain_plan(J, N, sms):
+    """(threads a block, segments a chain, grid) of one K24 launch on a card
+    of ``sms`` SMs: J chains of N DD coefficients, one thread a coefficient,
+    one block an item (a chain's segment); the largest block that still
+    gives 4 items an SM, else 64 threads."""
+    threads = next((t for t in K24_THREADS if J * -(-N // t) >= 4 * sms), K24_THREADS[-1])
+    segs = -(-N // threads)
+    return threads, segs, max(1, min(J * segs, 2 ** 31 - 1))
+
+
+def dd_theta_chain_pack(index, strides, J, L, N, cn, has_g, tab, plan):
+    """The launcher's int64 argument array (csrc/dd_theta_chain.cu
+    ``pm_dd_theta_chain``): device, fourteen pointers (filled in by each
+    call: x0 hi, lo; out hi, lo; g hi, lo; dt hi, lo; lam hi, lo; lift hi,
+    lo; rhs1; rhs0), the strides (x0's chain stride, out's chain and step
+    strides, g's chain and step strides, the rhs rows' step and chain
+    strides), J, L, N, segments a chain, grid, CN, g present, rhs
+    tabulated, threads a block."""
+    threads, segs, grid = plan
+    return array.array("q", (index, *(0,) * 14, *strides, J, L, N, segs, grid, int(cn),
+                             int(has_g), int(tab), threads))
+
+
+def _dd_launcher(name: str):
+    return getattr(_build.library(), name)
+
+
+# dd_theta_chain's DD operands in the order of their facts
+_DD_CHAIN_KEYS = ("x0", "out", "dt", "lam", "lift", "g")
+
+
+@functools.lru_cache(maxsize=1024)
+def _dd_chain_checked(facts, rfacts, theta):
+    """Every check of a K24 call, on the ``fact``s of the DD operands' hi
+    and lo ((hi, lo) of x0, out, dt, lam, lift and g if given), of rhs1 and
+    rhs0, and theta, cached by them (K24 runs at every coarse-level F- and
+    C-relaxation, FAS residual and coarsest solve of a DD solve); returns
+    (on the CPU, the launch: the argument array without pointers, the
+    launcher and the device index; None on the CPU or with nothing to
+    do)."""
+    name = "dd_theta_chain"
+    f = dict(zip(_DD_CHAIN_KEYS, facts))
+    device = f["x0"][0][1]
+    if device.type not in ("cpu", "cuda"):
+        _require(False, name, f"unsupported device {device}")
+    for key, (hi, lo) in f.items():
+        for dtype, dev, _, _ in (hi, lo):
+            if dtype != torch.float32:
+                _require(False, name, f"{key} must be float32 pairs")
+            if dev != device:
+                _require(False, name, f"{key} is on {dev}, expected {device}")
+        if hi[2:] != lo[2:]:
+            _require(False, name, f"{key}: hi and lo must have one shape and one set of strides")
+        if len(hi[2]) and hi[2][-1] > 1 and hi[3][-1] != 1:
+            _require(False, name, f"{key} must be contiguous in its last axis")
+    xshape, xstride = f["x0"][0][2:]
+    if len(xshape) != 2:
+        _require(False, name, f"x0 has shape {tuple(xshape)}, expected (J, N)")
+    J, N = xshape
+    oshape, ostride = f["out"][0][2:]
+    if not (len(oshape) == 3 and oshape[0] == J and oshape[2] == N):
+        _require(False, name, f"out has shape {tuple(oshape)}, expected ({J}, L, {N})")
+    L = oshape[1]
+    if "g" in f and f["g"][0][2] != oshape:
+        _require(False, name, "g must have the shape of out")
+    if not (tuple(f["dt"][0][2]) == (L, J) and _contiguous(*f["dt"][0][2:])):
+        _require(False, name, f"dt must be a contiguous ({L}, {J}) DD table")
+    if not (tuple(f["lam"][0][2]) == (N,) and tuple(f["lift"][0][2]) == (N,)):
+        _require(False, name, "lam and lift must have shape (N,)")
+    for key, (dtype, dev, shape, stride) in zip(("rhs1", "rhs0"), rfacts):
+        if dtype != torch.float32 or dev != device:
+            _require(False, name, f"{key} must be a float32 tensor on {device}")
+        if len(shape) and shape[-1] > 1 and stride[-1] != 1:
+            _require(False, name, f"{key} must be contiguous in its last axis")
+    r1, r0 = rfacts
+    if not (tuple(r1[2]) == (L, J, N) and r0[2] == r1[2] and r0[3] == r1[3]):
+        _require(False, name, "rhs1 and rhs0 must be (L, J, N) views with equal strides")
+    if not theta > 0.0:
+        _require(False, name, "theta must be > 0 (BE or CN)")
+    if device.type == "cpu" or J * L * N == 0:
+        return device.type == "cpu", None
+    gs = f["g"][0][3][:2] if "g" in f else (0, 0)
+    r_sk, r_sj = r1[3][0] if L > 1 else 0, r1[3][1] if J > 1 else 0
+    args = dd_theta_chain_pack(device.index, (xstride[0], *ostride[:2], *gs, r_sk, r_sj), J, L,
+                               N, theta != 1.0, "g" in f, (r_sk, r_sj) != (0, 0),
+                               dd_theta_chain_plan(J, N, _build.sm_count(device.index)))
+    return False, (args, _dd_launcher("pm_dd_theta_chain"), device.index)
+
+
 def dd_theta_chain(x0, out, dt, lam, lift, rhs1, rhs0, theta, g=None):
     """K2's sequential spectral theta-steps of J chains in double-double,
     every step written (K24).
 
     x0: (J, N) DD seeds; out: (J, L, N) DD view; g: optional (J, L, N) DD
     view added after each step; dt: (L, J) contiguous DD step sizes; lam,
-    lift: (N,) contiguous DD eigenvalues and lifted boundary data; rhs1,
-    rhs0: (L, J, N) float32 views of the rhs at the step's end and start
-    (strides 0 for a time-independent rhs; rhs0 is read only when theta !=
-    1); theta: 1 (BE) or 0.5 (CN).  out must not overlap x0 or g.  Returns
-    out.
+    lift: (N,) DD eigenvalues and lifted boundary data; rhs1, rhs0: (L, J,
+    N) float32 views of the rhs at the step's end and start (strides 0 for
+    a time-independent rhs; rhs0 is read only when theta != 1); theta: 1
+    (BE) or 0.5 (CN).  hi and lo of each DD operand share shape and strides
+    (a packed tube, lo = hi + N, or separate tensors), and every operand's
+    last axis is contiguous.  out must not overlap x0 or g.  Returns out.
+
+    The checks, the plan and the packed argument array are cached by the
+    operands' facts (``_dd_chain_checked``); a call on the card fills in
+    the pointers and makes one ctypes call.
     """
-    name = "dd_theta_chain"
-    ops = dict(x0=x0, out=out, dt=dt, lam=lam, lift=lift)
-    if g is not None:
-        ops["g"] = g
-    _check_dd(name, ops)
-    J, N = x0.shape
-    L = out.shape[1]
-    _require(out.ndim == 3 and out.shape[0] == J and out.shape[2] == N, name,
-             f"out has shape {tuple(out.shape)}, expected ({J}, L, {N})")
-    _require(g is None or g.shape == out.shape, name, "g must have the shape of out")
-    _require(tuple(dt.shape) == (L, J) and dt.hi.is_contiguous(), name,
-             f"dt must be a contiguous ({L}, {J}) DD table")
-    _require(tuple(lam.shape) == (N,) and tuple(lift.shape) == (N,), name,
-             "lam and lift must have shape (N,)")
-    for key, r in (("rhs1", rhs1), ("rhs0", rhs0)):
-        _require(r.dtype == torch.float32 and r.device == x0.hi.device, name,
-                 f"{key} must be a float32 tensor on {x0.hi.device}")
-        _require(r.shape[-1] <= 1 or r.stride(-1) == 1, name,
-                 f"{key} must be contiguous in its last axis")
-    _require(rhs1.shape == (L, J, N) and rhs0.shape == rhs1.shape
-             and rhs0.stride() == rhs1.stride(), name,
-             "rhs1 and rhs0 must be (L, J, N) views with equal strides")
-    _require(float(theta) > 0.0, name, "theta must be > 0 (BE or CN)")
-    if x0.hi.device.type == "cpu":
+    pairs = (x0, out, dt, lam, lift) if g is None else (x0, out, dt, lam, lift, g)
+    try:
+        facts = tuple((fact(x.hi), fact(x.lo)) for x in pairs)
+    except AttributeError:
+        key = next(k for k, x in zip(_DD_CHAIN_KEYS, pairs) if not hasattr(x, "lo"))
+        raise ValueError(f"dd_theta_chain: {key} must be a DD pair") from None
+    theta = float(theta)
+    on_cpu, launch = _dd_chain_checked(facts, (fact(rhs1), fact(rhs0)), theta)
+    if on_cpu:
         return dd_theta_chain_plain(x0, out, dt, lam, lift, rhs1, rhs0, theta, g)
-    if J == 0 or L == 0 or N == 0:
+    if launch is None:
         return out
-    ptrs = [x0.hi.data_ptr(), x0.lo.data_ptr(), out.hi.data_ptr(), out.lo.data_ptr(),
-            g.hi.data_ptr() if g is not None else None, g.lo.data_ptr() if g is not None else None,
-            dt.hi.data_ptr(), dt.lo.data_ptr(), lam.hi.data_ptr(), lam.lo.data_ptr(),
-            lift.hi.data_ptr(), lift.lo.data_ptr(), rhs1.data_ptr(), rhs0.data_ptr()]
-    strides = [x0.hi.stride(0), out.hi.stride(0), out.hi.stride(1),
-               g.hi.stride(0) if g is not None else 0, g.hi.stride(1) if g is not None else 0,
-               rhs1.stride(0), rhs1.stride(1)]
-    status = _build.library().pm_dd_theta_chain(
-        (ctypes.c_void_p * 14)(*ptrs), (ctypes.c_int64 * 7)(*strides), float(theta),
-        (ctypes.c_int64 * 3)(J, L, N), torch.cuda.current_stream(x0.hi.device).cuda_stream)
-    _build.check(status, name)
+    tmpl, fn, index = launch
+    args = tmpl[:]
+    args[1], args[2] = x0.hi.data_ptr(), x0.lo.data_ptr()
+    args[3], args[4] = out.hi.data_ptr(), out.lo.data_ptr()
+    if g is not None:
+        args[5], args[6] = g.hi.data_ptr(), g.lo.data_ptr()
+    args[7], args[8] = dt.hi.data_ptr(), dt.lo.data_ptr()
+    args[9], args[10] = lam.hi.data_ptr(), lam.lo.data_ptr()
+    args[11], args[12] = lift.hi.data_ptr(), lift.lo.data_ptr()
+    args[13], args[14] = rhs1.data_ptr(), rhs0.data_ptr()
+    _build.check(fn(args.buffer_info()[0], theta, _build.stream(index)), "dd_theta_chain")
     dd_theta_chain.launches += 1
     return out
 

@@ -17,17 +17,21 @@ point re-integrate only its last k-1 steps (``AtMgrit(k)``).
 Operands are (rows, N) views whose last axis is contiguous; A and b may
 have row stride 0 (one row broadcast over every step).  Dispatch as in
 ``heat_kernels``: CPU tensors go to the plain version, CUDA tensors launch
-the kernel or raise.
+the kernel or raise.  K9 takes the one-call launch path (its checks, plan
+and packed argument array cached by the operands' facts).
 """
 
 from __future__ import annotations
 
+import array
+import functools
 import math
 
 import torch
 
 from pymgrit_tpu_torch.ops import _build
-from pymgrit_tpu_torch.ops.heat_kernels import _check_operands, _launcher, _require
+from pymgrit_tpu_torch.ops.heat_kernels import (_check_facts, _check_operands, _launcher,
+                                                _require, fact)
 from pymgrit_tpu_torch.ops.indexed import _overlaps_partially
 
 
@@ -139,33 +143,92 @@ def affine_windows_plain(u, A, b, g, out, k):
     return out
 
 
+# K9's largest block (csrc/affine_windows.cu: kMaxThreads) and its run of
+# lanes a thread
+K9_THREADS = 256
+K9_LANES = 32
+
+
+def affine_windows_plan(nt, N, k, sms):
+    """(lanes a thread Q, runs a column, threads a block, grid) of one K9
+    launch on a card of ``sms`` SMs: a thread owns one column's run of Q =
+    K9_LANES consecutive lanes, so a row is loaded once for Q lanes, where
+    k > Q (a run then has its fixed shape) and the runs still fill 4 blocks
+    of K9_THREADS an SM (the TOMS width); else Q = 1 (the short or narrow
+    tubes, Dahlquist's one column: their rows stay in the caches, and the
+    lanes' parallelism is what counts); blocks of K9_THREADS where the
+    threads fill 2 blocks an SM, else of 64."""
+    wide = k > K9_LANES and N * -(-nt // K9_LANES) >= 4 * K9_THREADS * sms
+    Q = K9_LANES if wide else 1
+    runs = -(-nt // Q)
+    threads = N * runs
+    block = K9_THREADS if threads >= 2 * K9_THREADS * sms else 64
+    return Q, runs, block, max(1, -(-threads // block))
+
+
+def affine_windows_pack(index, strides, nt, N, k, rows, plan):
+    """The launcher's int64 argument array (csrc/affine_windows.cu
+    ``launch``): device, five pointers (filled in by each call: u, A, b, g,
+    out), the row strides of u, A, b, g, out, nt, N, k, Q, runs a column,
+    A or b with rows (a row stride that is not 0), threads a block,
+    grid."""
+    Q, runs, block, grid = plan
+    return array.array("q", (index, *(0,) * 5, *strides, nt, N, k, Q, runs, int(rows), block,
+                             grid))
+
+
+@functools.lru_cache(maxsize=256)
+def _windows_checked(facts, k):
+    """Every check of a K9 call that its operands' ``fact``s decide (u, A,
+    b, g, out) and k, cached by them (the overlap of out and u is checked
+    on every call); returns (on the CPU, the launch: the argument array
+    without pointers, the launcher and the device index; None on the CPU or
+    with nothing to do)."""
+    name = "affine_windows"
+    _check_facts(name, facts, ("u", "A", "b", "g", "out").__getitem__)
+    (dtype, device, ushape, ustride), fa, fb, fg, fo = facts
+    if not (len(ushape) == 2 and ushape[0] >= 1):
+        _require(False, name, f"u has shape {tuple(ushape)}, expected (nt, N)")
+    nt, N = ushape
+    for key, f, rows in (("out", fo, nt), ("A", fa, nt - 1), ("b", fb, nt - 1),
+                         ("g", fg, nt - 1)):
+        if tuple(f[2]) != (rows, N):
+            _require(False, name, f"{key} has shape {tuple(f[2])}, expected ({rows}, {N})")
+    if k < 1:
+        _require(False, name, f"k = {k} must be >= 1")
+    if device.type == "cpu" or N == 0:
+        return device.type == "cpu", None
+    strides = tuple(f[3][0] for f in (facts[0], fa, fb, fg, fo))
+    args = affine_windows_pack(device.index, strides, nt, N, k, fa[3][0] != 0 or fb[3][0] != 0,
+                               affine_windows_plan(nt, N, k, _build.sm_count(device.index)))
+    return False, (args, _launcher("pm_affine_windows", dtype), device.index)
+
+
 def affine_windows(u, A, b, g, out, k):
     """AT-MGRIT's truncated windows of an affine step, written into ``out``.
 
     u: (nt, N) view (the coarse tube); A, b, g: (nt-1, N) views, row i-1 the
     step into point i (A and b may have row stride 0); out: (nt, N) view that
     must not overlap u; k >= 1 the window length.  Returns out.
+
+    The checks, the plan and the packed argument array are cached by the
+    operands' facts and k (``_windows_checked``); a call on the card checks
+    the overlap of out and u, fills in the pointers and makes one ctypes
+    call.
     """
-    name = "affine_windows"
-    _check_operands(name, dict(u=u, A=A, b=b, g=g, out=out))
-    _require(u.dim() == 2 and u.shape[0] >= 1, name,
-             f"u has shape {tuple(u.shape)}, expected (nt, N)")
-    nt, N = u.shape
-    _rows_view(name, "out", out, nt, N)
-    for key, t in dict(A=A, b=b, g=g).items():
-        _rows_view(name, key, t, nt - 1, N)
-    _require(int(k) >= 1, name, f"k = {k} must be >= 1")
-    _require(out.data_ptr() != u.data_ptr() and not _overlaps_partially(out, u), name,
-             "out must not overlap u")
-    if u.device.type == "cpu":
-        return affine_windows_plain(u, A, b, g, out, int(k))
-    if N == 0:
+    k = int(k)
+    on_cpu, launch = _windows_checked((fact(u), fact(A), fact(b), fact(g), fact(out)), k)
+    if out.data_ptr() == u.data_ptr() or _overlaps_partially(out, u):
+        _require(False, "affine_windows", "out must not overlap u")
+    if on_cpu:
+        return affine_windows_plain(u, A, b, g, out, k)
+    if launch is None:
         return out
-    fn = _launcher("pm_affine_windows", u.dtype)
-    stream = torch.cuda.current_stream(u.device).cuda_stream
-    status = fn(u.data_ptr(), u.stride(0), A.data_ptr(), A.stride(0), b.data_ptr(), b.stride(0),
-                g.data_ptr(), g.stride(0), out.data_ptr(), out.stride(0), nt, N, int(k), stream)
-    _build.check(status, name)
+    tmpl, fn, index = launch
+    args = tmpl[:]
+    args[1], args[2], args[3] = u.data_ptr(), A.data_ptr(), b.data_ptr()
+    args[4], args[5] = g.data_ptr(), out.data_ptr()
+    _build.check(fn(args.buffer_info()[0], _build.stream(index)), "affine_windows")
     affine_windows.launches += 1
     return out
 
