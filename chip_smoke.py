@@ -1164,13 +1164,15 @@ def coarsest_work(kernel, nt, N, k, A, b, es=8):
     """(bytes, operations) of a K8 or K9 call on an (nt, N) coarse tube:
     A and b read once (one row where their row stride is 0), g's nt - 1
     rows read; K8 reads the seed row x0 and writes rows 1..nt-1, K9 reads
-    the nt rows of u and writes nt rows; a multiply and two sums an entry
-    and step (K8 nt - 1 steps, K9 min(p, k - 1) steps for lane p)."""
+    the rows of u that start a window (lane p starts from u[max(0, p - k +
+    1)]: rows 0..max(0, nt - k)) and writes nt rows; a multiply and two
+    sums an entry and step (K8 nt - 1 steps, K9 min(p, k - 1) steps for
+    lane p)."""
     rows = sum(1 if t.stride(0) == 0 else nt - 1 for t in (A, b))
     if kernel == "affine_prefix":
         return es * N * (rows + 1 + 2 * (nt - 1)), 3 * (nt - 1) * N
     steps = sum(min(p, k - 1) for p in range(nt))
-    return es * N * (rows + nt + (nt - 1) + nt), 3 * steps * N
+    return es * N * (rows + max(1, nt - k + 1) + (nt - 1) + nt), 3 * steps * N
 
 
 def coarsest_cases(dtype, dev, rng, lam, stash):
@@ -1913,17 +1915,27 @@ def dd_cases(dev, rng, stash):
     # chains of 15 steps), BE and CN; level 2's (8 chains of 3 steps); a
     # level-1 C-step (32 chains of one step); the coarsest march (one chain
     # of 2 steps); each at its level's step size, out made untimed
-    _, lam1 = sine_eigenbasis(n, (n + 1.0) ** 2)
-    lam = pair((lam1[:, None] + lam1[None, :]).reshape(-1))
-    lift = pair(rng.uniform(-1, 1, N))
-    r1_row = torch.as_tensor(rng.uniform(-1, 1, N).astype(np.float32), device=dev)
+    # (level 1's operands take the shared generator's draws in the order
+    # they always had, so that K25's inputs stay as they were; the other
+    # chains draw from a generator of their own)
     m1, m2 = DD_TOMS["ms"][1], DD_TOMS["ms"][2]
     m_all = int(np.prod(DD_TOMS["ms"]))
     dt0 = 1.0 / (DD_TOMS["nt"] - 1)
+    J1, J2 = J // m1, J // (m1 * m2)
+    _, lam1 = sine_eigenbasis(n, (n + 1.0) ** 2)
+    lam = pair((lam1[:, None] + lam1[None, :]).reshape(-1))
+    lift = pair(rng.uniform(-1, 1, N))
+    x0_1 = packed(rng.uniform(-1, 1, (J1, N)))
+    g_1 = torch.stack([packed(rng.uniform(-1e-3, 1e-3, (J1, N))) for _ in range(m1 - 1)], 1)
+    r1_row = torch.as_tensor(rng.uniform(-1, 1, N).astype(np.float32), device=dev)
+    rng24 = np.random.default_rng(24)
 
     def k24(Jc, Lc, theta, dtc):
-        x0 = packed(rng.uniform(-1, 1, (Jc, N)))
-        g = packed(rng.uniform(-1e-3, 1e-3, (Jc * Lc, N))).view(Jc, Lc, 2, N)
+        if (Jc, Lc) == (J1, m1 - 1):
+            x0, g = x0_1, g_1
+        else:
+            x0 = packed(rng24.uniform(-1, 1, (Jc, N)))
+            g = packed(rng24.uniform(-1e-3, 1e-3, (Jc * Lc, N))).view(Jc, Lc, 2, N)
         dt = pair(np.full((Lc, Jc), dtc))
         r1 = r1_row.expand(Lc, Jc, N)
 
@@ -1934,7 +1946,6 @@ def dd_cases(dev, rng, stash):
         return RowCase(lambda: torch.empty((Jc, Lc, 2, N), dtype=torch.float32, device=dev),
                        launch)
 
-    J1, J2 = J // m1, J // (m1 * m2)
     for label, Jc, Lc, theta, dtc in (
             ("level-1 F-relax BE", J1, m1 - 1, 1.0, m0 * dt0),
             ("level-1 F-relax CN", J1, m1 - 1, 0.5, m0 * dt0),

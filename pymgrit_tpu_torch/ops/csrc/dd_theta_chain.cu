@@ -91,6 +91,40 @@ __device__ __forceinline__ bool same_bits(float a, float b) {
   return __float_as_int(a) == __float_as_int(b);
 }
 
+// the float32 rhs term of a step: r1 (BE) or theta r1 + (1 - theta) r0 (CN)
+template <bool CN>
+__device__ __forceinline__ float rhs_mix(const Params& p, float r1, float r0) {
+  return CN ? __fadd_rn(__fmul_rn(p.th32, r1), __fmul_rn(p.oth32, r0)) : r1;
+}
+
+// the lift term of a step: shift (x) lift (BE) or (shift (x) 2) (x) lift (CN)
+template <bool CN>
+__device__ __forceinline__ dd::F2 lift_term(dd::F2 shift, dd::F2 lf) {
+  return dd::mul(CN ? dd::mul(shift, f2(2.0f)) : shift, lf);
+}
+
+// the step's DD denominator shift (x) lam (+) 1
+__device__ __forceinline__ dd::F2 denom(dd::F2 shift, dd::F2 lm) {
+  return dd::add(dd::mul(shift, lm), f2(1.0f));
+}
+
+// one theta-step of x from its terms (shift, the lift term sl, the rhs term
+// dr = dt (x) mix, the denominator den), g (hi, lo) added after it with G
+template <bool CN, bool G>
+__device__ __forceinline__ dd::F2 theta_step(dd::F2 x, dd::F2 shift, dd::F2 lm, dd::F2 sl,
+                                             dd::F2 dr, dd::F2 den, float gh, float gl) {
+  dd::F2 b;
+  if (CN) {
+    b = dd::sub(x, dd::mul(shift, dd::mul(x, lm)));
+    b = dd::add(b, sl);
+    b = dd::add(b, dr);
+  } else {
+    b = dd::add(dd::add(x, dr), sl);
+  }
+  x = dd::div(b, den);
+  return G ? dd::add(dd::F2{gh, gl}, x) : x;
+}
+
 // chain j's L steps of coefficient n; UNI: the chain's step sizes are all
 // equal, and the step's invariants are formed once.  Step k + 1's rows (g,
 // a tabulated rhs) are loaded during step k, step 0's with the seeds.  CN:
@@ -112,9 +146,7 @@ __device__ __forceinline__ void walk(const Params& p, int64_t j, int64_t n) {
   const dd::F2 lf{__ldg(p.lifth + n), __ldg(p.liftl + n)};
   // a time-independent rhs: r1 (BE) or the float32 mix theta r1 + (1 - theta) r0 (CN)
   float mix = 0.0f;
-  if (!TAB) {
-    mix = CN ? __fadd_rn(__fmul_rn(p.th32, __ldg(r1)), __fmul_rn(p.oth32, __ldg(r0))) : __ldg(r1);
-  }
+  if (!TAB) mix = rhs_mix<CN>(p, __ldg(r1), CN ? __ldg(r0) : 0.0f);
   // step k's rows: g hi, lo, r1, r0
   const auto rows = [&](int64_t k, float (&v)[4]) {
     if (G) {
@@ -132,32 +164,22 @@ __device__ __forceinline__ void walk(const Params& p, int64_t j, int64_t n) {
       dr{0.0f, 0.0f};
   if (UNI) {
     shift = dd::mul(d, theta);
-    den = dd::add(dd::mul(shift, lm), f2(1.0f));
-    sl = dd::mul(CN ? dd::mul(shift, f2(2.0f)) : shift, lf);
+    den = denom(shift, lm);
+    sl = lift_term<CN>(shift, lf);
     if (!TAB) dr = dd::mul(d, f2(mix));
   }
 #pragma unroll 1
   for (int64_t k = 0; k < p.L; ++k) {
     const float v[4] = {next[0], next[1], next[2], next[3]};
     if (k + 1 < p.L) rows(k + 1, next);
-    const float m = !TAB ? mix
-                    : CN ? __fadd_rn(__fmul_rn(p.th32, v[2]), __fmul_rn(p.oth32, v[3])) : v[2];
+    const float m = !TAB ? mix : rhs_mix<CN>(p, v[2], v[3]);
     const dd::F2 dk = d;
     if (!UNI && k + 1 < p.L) d = dd::F2{__ldg(dth + (k + 1) * p.J), __ldg(dtl + (k + 1) * p.J)};
     const dd::F2 sk = UNI ? shift : dd::mul(dk, theta);
     const dd::F2 drk = UNI && !TAB ? dr : dd::mul(dk, f2(m));
-    const dd::F2 slk = UNI ? sl : dd::mul(CN ? dd::mul(sk, f2(2.0f)) : sk, lf);
-    const dd::F2 dn = UNI ? den : dd::add(dd::mul(sk, lm), f2(1.0f));
-    dd::F2 b;
-    if (CN) {
-      b = dd::sub(x, dd::mul(sk, dd::mul(x, lm)));
-      b = dd::add(b, slk);
-      b = dd::add(b, drk);
-    } else {
-      b = dd::add(dd::add(x, drk), slk);
-    }
-    x = dd::div(b, dn);
-    if (G) x = dd::add(dd::F2{v[0], v[1]}, x);
+    const dd::F2 slk = UNI ? sl : lift_term<CN>(sk, lf);
+    const dd::F2 dn = UNI ? den : denom(sk, lm);
+    x = theta_step<CN, G>(x, sk, lm, slk, drk, dn, v[0], v[1]);
     oh[k * p.out_sk] = x.hi;
     ol[k * p.out_sk] = x.lo;
   }
@@ -180,18 +202,9 @@ __device__ __forceinline__ void step1(const Params& p, int64_t j, int64_t n) {
     gh = __ldg(p.gh + j * p.g_sj + n);
     gl = __ldg(p.gl + j * p.g_sj + n);
   }
-  const float m = CN ? __fadd_rn(__fmul_rn(p.th32, r1), __fmul_rn(p.oth32, r0)) : r1;
   const dd::F2 sk = dd::mul(d, theta);
-  dd::F2 b;
-  if (CN) {
-    b = dd::sub(x, dd::mul(sk, dd::mul(x, lm)));
-    b = dd::add(b, dd::mul(dd::mul(sk, f2(2.0f)), lf));
-    b = dd::add(b, dd::mul(d, f2(m)));
-  } else {
-    b = dd::add(dd::add(x, dd::mul(d, f2(m))), dd::mul(sk, lf));
-  }
-  dd::F2 y = dd::div(b, dd::add(dd::mul(sk, lm), f2(1.0f)));
-  if (G) y = dd::add(dd::F2{gh, gl}, y);
+  const dd::F2 y = theta_step<CN, G>(x, sk, lm, lift_term<CN>(sk, lf),
+                                     dd::mul(d, f2(rhs_mix<CN>(p, r1, r0))), denom(sk, lm), gh, gl);
   const int64_t oi = j * p.out_sj + n;
   p.oh[oi] = y.hi;
   p.ol[oi] = y.lo;
