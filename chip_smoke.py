@@ -12,20 +12,20 @@ phases:
 
 1. device    the card's name and power limit (nvidia-smi); a CUDA device is
              required, there is no CPU carry-on;
-2. build     nvcc builds the CUDA C++ kernels (K1-K12, K14-K26)
-             from ``csrc/``, one process per source,
+2. build     nvcc builds the CUDA C++ kernels (K1-K26, every kernel of
+             the port) from ``csrc/``, one process per source,
              all started together; ``cuobjdump`` counts the DMMA instructions
              of K5's, K6's and K10's float64 kernels (required in each, with
              no spills, by instantiation), K22 and K26, and ptxas's log
              gives the registers, spills and static shared memory of K2-K7,
-             K10, K11, K14-K16, K25 (no spills) and the FP64 product tile
+             K9-K11, K13-K17, K23-K25 (no spills) and the FP64 product tile
              K22 and K26 share (``csrc/dmma_tile.cuh``);
 3. kernels   K1-K22 against their plain PyTorch versions at the main paths'
              shapes (and odd ones, and K5/K6/K10/K16/K17 past the sizes
              their wrappers once refused, K16 on both of its routes),
-             float32 and float64, with timings (K1-K7, K10, K11, K14-K16,
-             K18, K19, K21 and K25 in rounds, the output made untimed, with
-             their device time on a cold L2; K16's Newton iterations
+             float32 and float64, with timings (K1-K11, K13-K21 and
+             K23-K25 in rounds, the output made untimed, with their device
+             time on a cold L2; the card's plain K13 against the CPU's; K16's Newton iterations
              equal to the plain version's); for each kernel's headline case (and each
              case that records its work) its bound (bytes or FP64 operations over the
              H100's peaks) and, where one PyTorch call computes the same
@@ -119,9 +119,10 @@ float32) and ends in
 ``python3 chip_smoke.py --profile`` runs phases 1-2 and then one profiled
 solve of each configuration of phases 11-13, of Allen-Cahn's IMPL and CN
 runs (with K11's wrapper time a call; K14's in Gray-Scott IMPL, K15's in
-Burgers2D) and of the spectral and physical TOMS solves, the ragged row,
-the spatial row, the BDF example, the two DD rows (with K25's wrapper
-time a call) and the deep diffusion grid (``torch.profiler``): device
+Burgers2D), of the Brusselator (K13's) and of the spectral and physical
+TOMS solves, the ragged row, the spatial row, the BDF example, the
+`[coarsest]` AtMgrit solve, the two DD rows (with K23's, K24's and K25's
+wrapper time a call) and the deep diffusion grid (``torch.profiler``): device
 busy and idle share, the leading device ops, the device time of K1, K2,
 K4-K7, K10, K11, K14-K16, K25 and the row kernels,
 launches and syncs.  It compares and checks
@@ -171,8 +172,8 @@ AT_SCAN_RTOL = 1e-3
 AT_GOLDEN, AT_GOLDEN_RTOL = np.array([0.1767778, 0.01223507]), 1e-3
 
 # Kernel against plain version, normwise: max|k - p| / max|p|.  Kernels that
-# contract a*b + c into one FMA (nvcc's default --fmad=true, Triton's fp
-# fusion) or sum in another order (K3) agree with the plain versions to
+# contract a*b + c into one FMA (nvcc's default --fmad=true) or sum in
+# another order (K3) agree with the plain versions to
 # rounding, not bitwise: a few ulp per operation, or a blocked sum of 16129
 # terms (K3).
 KERNEL_RTOL = {"float64": 1e-13, "float32": 1e-5}
@@ -488,14 +489,13 @@ def phase_device():
 
 
 def phase_build():
-    import triton
     from pymgrit_tpu_torch.ops import _build
     t0 = time.perf_counter()
     _build.library()
     seconds = time.perf_counter() - t0
     regs = [ln.strip() for ln in _build.build_log().splitlines() if "registers" in ln]
     print(f"[build] nvcc sm_90a libpymgrit_kernels.so in {seconds:.2f} s "
-          f"(nvcc {_build.build_seconds}) | triton {triton.__version__} | ptxas: {' ; '.join(regs)}")
+          f"(nvcc {_build.build_seconds}) | ptxas: {' ; '.join(regs)}")
     print("[build] K1 / K18 / K19 / K21 (csrc/interval_affine.cu, restrict_combine.cu, "
           "interpolate_combine.cu, indexed_combine.cu), ptxas: "
           + " ; ".join(f"{name}: {regs} registers, spill stores/loads {st}/{ld} B"
@@ -551,6 +551,17 @@ def phase_build():
         ks = [k for k in k924 if k.startswith(prefix)]
         check(len(ks) == n and all(k924[k][1] == 0 and k924[k][2] == 0 for k in ks),
               f"build: {n} {prefix} kernels must compile without spills: {k924}")
+    k1323 = ptxas(_build.build_log(), K13_K23_NAME, k13_k23_label)
+    print("[build] K13 / K23 (csrc/rk4_brusselator.cu, dd_interval_affine.cu), ptxas: "
+          + " ; ".join(f"{name}: {regs} registers, spill stores/loads {st}/{ld} B, static "
+                       f"smem {sm} B" for name, (regs, st, ld, sm) in k1323.items())
+          + " (K23's dynamic smem: JB x 4096 + 8192 B, 8192 B streamed)")
+    # K13's four kernels (f64 / f32 x g or not) and K23's six (JB = 4, 2, 1
+    # intervals a group x the seeds in shared memory or streamed)
+    for prefix, n in {"K13": 4, "K23": 6}.items():
+        ks = [k for k in k1323 if k.startswith(prefix)]
+        check(len(ks) == n and all(k1323[k][1] == 0 and k1323[k][2] == 0 for k in ks),
+              f"build: {n} {prefix} kernels must compile without spills: {k1323}")
     k1625 = ptxas(_build.build_log(), K16_K25_NAME, k16_k25_label)
     print("[build] K16 / K25 (csrc/burgers1d_newton.cu, dd_arith.cu), ptxas: "
           + " ; ".join(f"{name}: {regs} registers, spill stores/loads {st}/{ld} B, static "
@@ -738,6 +749,18 @@ def k9_k24_label(m, ln):
                 f"{'with rows' if rows == '1' else 'broadcast'}")
     return (f"K24 {'chains' if lng == '1' else 'one step'} {'CN' if cn == '1' else 'BE'}"
             f"{' +g' if g == '1' else ''} rhs {'tabulated' if tab == '1' else 'constant'}")
+
+
+# rk4_brusselator_kernel<T, G> (K13) / dd_interval_affine_kernel<JB> (K23)
+K13_K23_NAME = re.compile(r"rk4_brusselator_kernelI([df])Lb([01])E"
+                          r"|dd_interval_affine_kernelILi(\d+)ELb([01])E")
+
+
+def k13_k23_label(m, ln):
+    e13, g, jb, stream = m.groups()
+    if e13 is not None:
+        return f"K13 {'f64' if e13 == 'd' else 'f32'}{' +g' if g == '1' else ''}"
+    return f"K23 JB={jb}{' streamed' if stream == '1' else ''}"
 
 
 # burgers1d_newton_kernel<T, SHARED> (K16) / dd_arith_kernel<OP, NT, V, I> (K25)
@@ -1234,11 +1257,12 @@ def nonlinear_cases(dtype, dev, rng, stash):
     n = 17 at B = 512 and 1.  K11: the IMPL level-0 lanes (8 states of
     128^2) in its three modes, and n = 17 at B = 512.  K12: the Arenstorf
     level-0 F-relaxation (250 lanes; 8 of its 319 steps, so the plain loop
-    stays short), 16 steps of the coarsest chain, and J = 512 and 1.  K13:
+    stays short), 16 steps of the coarsest chain, and J = 512 and 1.  K13
+    (``RowCase``s, bit for bit; the card's plain version against the CPU's):
     the Brusselator level-0 F-relaxation (32 lanes x 19 steps, + g), the
     coarsest chain (1 x 32), and 512 lanes."""
     import torch
-    from pymgrit_tpu_torch.ops import DISPATCH
+    from pymgrit_tpu_torch.ops import DISPATCH, PLAIN
     from pymgrit_tpu_torch.ops.periodic import hartley_basis
 
     def t(a):
@@ -1340,20 +1364,33 @@ def nonlinear_cases(dtype, dev, rng, stash):
     nt_b, m_b = BRUSSELATOR["nt"], BRUSSELATOR["m"]
     J_b = (nt_b - 1) // m_b
 
-    def k13(J, L, m, with_g):
+    def k13(J, L, m, with_g, case):
+        """A K13 RowCase: the chain rows of a fresh (J, L + 1, 2) tube made
+        untimed; the plain version on the CPU, on the same inputs, recorded
+        beside it (the card's plain version must equal it)."""
         seeds = t(rng.uniform(0, 3, (J, 2)))
         g = t(rng.uniform(-1e-3, 1e-3, (J, L, 2))) if with_g else None
         tt = np.linspace(0, 12, J * m + 1)
         tp, tc = (t(np.stack([tt[j * m + o:j * m + o + L] for j in range(J)], 1)) for o in (0, 1))
 
-        def run(ops):
-            out = torch.empty((J, L + 1, 2), dtype=dtype, device=dev)[:, 1:]
-            return ops.rk4_brusselator(seeds, tp, tc, out, g).clone()
-        return run
+        def prepare():
+            return torch.empty((J, L + 1, 2), dtype=dtype, device=dev)[:, 1:]
 
-    cases += [("rk4_brusselator", f"level-0 F-relax J={J_b} L={m_b - 1} +g", k13(J_b, m_b - 1, m_b, True)),
-              ("rk4_brusselator", f"coarsest chain J=1 L={J_b}", k13(1, J_b, J_b, False)),
-              ("rk4_brusselator", f"J=512 L={m_b - 1}", k13(512, m_b - 1, m_b, False))]
+        def launch(ops, out):
+            return ops.rk4_brusselator(seeds, tp, tc, out, g)
+
+        def on_cpu():
+            out = torch.empty((J, L + 1, 2), dtype=dtype)[:, 1:]
+            return PLAIN.rk4_brusselator(seeds.cpu(), tp.cpu(), tc.cpu(), out,
+                                         None if g is None else g.cpu())
+        stash[("cpu plain", "rk4_brusselator", case)] = on_cpu
+        return case, RowCase(prepare, launch)
+
+    for J, L, m, with_g, label in ((J_b, m_b - 1, m_b, True, "level-0 F-relax"),
+                                   (1, J_b, J_b, False, "coarsest chain"),
+                                   (512, m_b - 1, m_b, False, "")):
+        case = f"{label + ' ' if label else ''}J={J} L={L}{' +g' if with_g else ''}"
+        cases.append(("rk4_brusselator", *k13(J, L, m, with_g, case)))
     return cases
 
 
@@ -1555,15 +1592,15 @@ class ProductPlans(tuple):
 
 
 class RowCase:
-    """A K1-K11, K14-K21, K24 or K25 case in two steps:
+    """A K1-K11, K13-K21 or K23-K25 case in two steps:
     ``prepare()`` makes what the call writes into where the call updates a
     tube in place or into a given out (untimed: the fresh copy of a tube,
     the empty tube), ``launch(ops, state)`` makes the call and returns its
     output.  ``run(ops)`` does both: the correctness comparison's fresh
     operands (``view`` turns what the call returns into one tensor: K11's,
     K14's and K15's residual and its per-lane max; K16's out and
-    iterations).  With ``exact`` (K1, K2, K4, K7 in float64, K11, K14, K15,
-    K18, K19, K21, K24, K25) the kernel equals its plain version bit for
+    iterations).  With ``exact`` (K1, K2, K4, K7 in float64, K11, K13, K14,
+    K15, K18, K19, K21, K23-K25) the kernel equals its plain version bit for
     bit; without (K3, K5, K6, K10, K16, K17 and K20 sum in another order,
     K8 composes its steps in another order, K9 contracts a multiply and an
     add into an FMA) it is held at the kernel tolerance; a second launch
@@ -1850,10 +1887,10 @@ DD_FLOPS = {"add": 20, "sub": 20, "mul": 24, "div": 114, "sqrt": 67, "neg": 2, "
 
 def dd_cases(dev, rng, stash):
     """K23-K26 at the shapes of the [dd] phase, each run(ops) returning a DD
-    (or K25's float32 residual): K23 the materialization of [dd]'s TOMS
-    level-0 tube (512 intervals x 31 F-rows of 127^2 DD coefficients, the
-    seeds copied to the C-rows) and the condensed C-step (the last row);
-    K24 (``RowCase``s) dd_toms129's chains with g: level 1's F-relaxation
+    (or K25's float32 residual): K23 (``RowCase``s) the materialization of
+    [dd]'s TOMS level-0 tube (512 intervals x 31 F-rows of 127^2 DD
+    coefficients, the seeds copied to the C-rows) and the condensed C-step
+    (the last row); K24 (``RowCase``s) dd_toms129's chains with g: level 1's F-relaxation
     (32 chains x 15 steps), BE and CN, level 2's (8 x 3), a level-1 C-step
     (32 x 1) and the coarsest march (1 x 2);
     K25 the FAS combine, the weighted C-update and the residual difference
@@ -1885,29 +1922,30 @@ def dd_cases(dev, rng, stash):
     J = (DD_TOMS["nt"] - 1) // m0
     cases = []
 
-    # K23: the materialization into the (nt, 2, N) tube and the C-step
-    tube = torch.empty((J * m0 + 1, 2, N), dtype=torch.float32, device=dev)
+    # K23 (RowCases): the materialization into the (nt, 2, N) tube and the
+    # C-step, each into a tube made untimed
     seeds = packed(rng.uniform(-1, 1, (J, N)))
     A, G = pair(rng.uniform(0, 1, (m0, N))), pair(rng.uniform(-1, 1, (m0, N)))
     A31, G31 = A[:m0 - 1], G[:m0 - 1]
 
-    def materialize(ops):
+    def materialize(ops, tube):
         out = dd.pair(tube[:J * m0].view(J, m0, 2, N)[:, 1:], ops, 2)
         ops.dd_interval_affine(dd.pair(seeds, ops), A31, G31, out, 0,
                                dd.pair(tube[0:J * m0:m0], ops))
         return dd.pair(tube[:J * m0], ops)
 
-    def c_step(ops):
-        out = torch.empty((J, 1, 2, N), dtype=torch.float32, device=dev)
+    def c_step(ops, out):
         ops.dd_interval_affine(dd.pair(seeds, ops), A, G, dd.pair(out, ops, 2), m0 - 1)
         return dd.pair(out[:, 0], ops)
 
     case = f"materialize J={J} R={m0 - 1} N={N}"
-    cases.append(("dd_interval_affine", case, materialize))
+    cases.append(("dd_interval_affine", case, RowCase(
+        lambda: torch.empty((J * m0 + 1, 2, N), dtype=torch.float32, device=dev), materialize)))
     stash[("work", "dd_interval_affine", case)] = (8 * (J * N + 2 * (m0 - 1) * N + J * m0 * N),
                                                    (F["mul"] + F[A_]) * J * (m0 - 1) * N)
     case = f"C-step J={J} N={N}"
-    cases.append(("dd_interval_affine", case, c_step))
+    cases.append(("dd_interval_affine", case, RowCase(
+        lambda: torch.empty((J, 1, 2, N), dtype=torch.float32, device=dev), c_step)))
     stash[("work", "dd_interval_affine", case)] = (8 * (2 * J * N + 2 * N),
                                                    (F["mul"] + F[A_]) * J * N)
 
@@ -2503,6 +2541,12 @@ def phase_kernels(only=None):
                 same = torch.equal(out_k, run(DISPATCH))
                 print(f"[kernels] {kernel:<20} {case} {dname}: second launch bit for bit: {same}")
                 check(same, f"{kernel} {case} {dname}: a second launch differs")
+            cpu = stash.get(("cpu plain", kernel, case))
+            if cpu is not None:         # K13: the card's plain version is the CPU's, bit for bit
+                same = torch.equal(out_p.cpu(), cpu())
+                print(f"[kernels] {kernel:<20} {case} {dname}: plain on the card equals plain "
+                      f"on the CPU: {same}")
+                check(same, f"{kernel} {case} {dname}: the plain version differs on the card")
             n_it = stash.get(("iters_len", kernel, case))
             if n_it:                    # K16: each lane and step took the plain version's iterations
                 same = torch.equal(out_k[-n_it:], out_p[-n_it:])
@@ -2916,8 +2960,8 @@ def strategy_runs(P, build, name, k, warm=False, order=("plain", "kernel", "kern
                   **kw):
     """Fresh solves of one strategy in turns plain, kernel, kernel, plain
     (or the given order; setup excluded from the walls), after one untimed
-    kernel solve if warm (Triton specialises its kernels on new shapes at
-    their first launch).
+    kernel solve if warm (the first solve pays the one-time costs: the
+    kernel library's load, the models' device tables).
     The first timed kernel run is the path's run: the launch counts are set
     to 0 before its setup and read after its solve, with its peak device
     memory above what was allocated before it; its solver is kept.  Returns
@@ -4171,7 +4215,7 @@ def phase_dd(card):
 
 def profile_cells(card):
     """``--profile``: one profiled kernel-path solve of each cell of the
-    periodic models, the spectral and physical TOMS solves, the ragged row,
+    periodic models, the Brusselator, the spectral and physical TOMS solves, the ragged row,
     the spatial65 row, the BDF example, the `[coarsest]` AtMgrit solve at
     the TOMS width, the two DD rows and the deep diffusion grid (after one
     untimed solve of the same configuration), torch.profiler with CPU and
@@ -4199,8 +4243,9 @@ def profile_cells(card):
         return P.Mgrit(problem=problem, cf_iter=1, nested_iteration=False, logging_lvl=30)
 
     # a wrapper's host time a call (its checks, its launch and what it
-    # allocates), timed around each call: K11 in the Allen-Cahn cells, K14
-    # in Gray-Scott IMPL, K15 in Burgers2D, K24 and K25 in the DD cells
+    # allocates), timed around each call: K11 in the Allen-Cahn cells, K13
+    # in the Brusselator, K14 in Gray-Scott IMPL, K15 in Burgers2D, K23-K25
+    # in the DD cells
     # (every DD operation of the solve reads the kernel set of the
     # problem's states), K9 in the coarsest AT cell
     host = {}
@@ -4227,8 +4272,8 @@ def profile_cells(card):
     def dd_cell(cfg, basis):
         return lambda: P.Mgrit(
             problem=build_problem(P, cfg["nx"], cfg["nt"], cfg["ms"], DEVICE,
-                                  timed("dd_arith", "dd_theta_chain"), basis=basis,
-                                  precision="dd"),
+                                  timed("dd_arith", "dd_theta_chain", "dd_interval_affine"),
+                                  basis=basis, precision="dd"),
             tol=cfg["tol"], max_iter=cfg["max_iter"], logging_lvl=30)
 
     gs = dict(nx=GS_AT["nx"], method="IMEX")
@@ -4249,6 +4294,9 @@ def profile_cells(card):
         ("burgers Burgers2D", solver("Burgers2D", BURGERS_2D, ops=timed("burgers2d_pointwise"),
                                      nx=BURGERS_2D["nx"], nu=BURGERS_2D["nu"])),
         ("advection example", advection_example),
+        ("ode Brusselator", lambda: P.Mgrit(
+            problem=ode_problem(P, "Brusselator", timed("rk4_brusselator"), **BRUSSELATOR),
+            tol=BRUSSELATOR["tol"], logging_lvl=30)),
         ("advection deep", solver("Advection1D", dict(ADVECTION_DEEP, t_stop=2.0), c=1,
                                   x_start=-1, x_end=1, nx=ADVECTION_DEEP["nx"])),
         ("spectral toms129", lambda: P.Mgrit(
@@ -4318,7 +4366,8 @@ def profile_cells(card):
                  "sine_affine2d", "affine_tile", "band_product", "theta_rhs", "theta_chain",
                  "interval_affine", "cpoint_combine", "periodic_solve2d", "periodic_rhs",
                  "allen_cahn", "gray_scott", "burgers2d", "burgers1d_newton", "dd_arith",
-                 "circulant_solve1d", "dd_theta_chain", "dd_interval_affine", "affine_windows")
+                 "circulant_solve1d", "dd_theta_chain", "dd_interval_affine", "affine_windows",
+                 "rk4_brusselator")
         row = {}
         for k in names:
             mine = [e for e in dev if re.search(r"(?<![A-Za-z_])" + k, e.key)]
@@ -4338,6 +4387,7 @@ def profile_cells(card):
                                           ("K14", "gray_scott_pointwise"),
                                           ("K15", "burgers2d_pointwise"),
                                           ("K16", "burgers1d_newton"),
+                                          ("K13", "rk4_brusselator"),
                                           ("K17", "circulant_solve1d"), ("K20", "sine_solve1d"),
                                           ("K9", "affine_windows"), ("K23", "dd_interval_affine"),
                                           ("K24", "dd_theta_chain"), ("K25", "dd_arith"))
@@ -4381,7 +4431,7 @@ REPLACES = {
                              "pymgrit_tpu/models/allen_cahn.py:92"),
     "dopri45_arenstorf": ("cuda", "pymgrit_tpu_torch/ops/csrc/dopri45_arenstorf.cu",
                           "pymgrit_tpu/ops/runge_kutta.py:67"),
-    "rk4_brusselator": ("triton", "pymgrit_tpu_torch/ops/triton_kernels.py",
+    "rk4_brusselator": ("cuda", "pymgrit_tpu_torch/ops/csrc/rk4_brusselator.cu",
                         "pymgrit_tpu/ops/runge_kutta.py:38"),
     "gray_scott_pointwise": ("cuda", "pymgrit_tpu_torch/ops/csrc/gray_scott_pointwise.cu",
                              "pymgrit_tpu/models/gray_scott_2d.py:102"),

@@ -13,7 +13,7 @@ import torch
 from pymgrit_tpu_torch.core.application import Application, model_device
 from pymgrit_tpu_torch.models.step_times import ChainSteps, StepTimes
 from pymgrit_tpu_torch.ops import DISPATCH, Ops
-from pymgrit_tpu_torch.ops.triton_kernels import brusselator_f
+from pymgrit_tpu_torch.ops.runge_kutta import brusselator_f
 
 
 class Brusselator(ChainSteps, Application):

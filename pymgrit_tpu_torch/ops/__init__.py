@@ -21,7 +21,8 @@ coarsening, Diffusion2D, and the double-double precision mode:
 * K11 ``allen_cahn_pointwise`` (CUDA C++, ``csrc/allen_cahn_pointwise.cu``, wrapper in
   ``pointwise``)
 * K12 ``dopri45_arenstorf`` (CUDA C++, ``csrc/dopri45_arenstorf.cu``)
-* K13 ``rk4_brusselator`` (Triton)
+* K13 ``rk4_brusselator`` (CUDA C++, ``csrc/rk4_brusselator.cu``, wrapper in
+  ``runge_kutta``)
 * K14 ``gray_scott_pointwise`` (CUDA C++, ``csrc/gray_scott_pointwise.cu``, wrapper in
   ``pointwise``)
 * K15 ``burgers2d_pointwise`` (CUDA C++, ``csrc/burgers2d_pointwise.cu``, wrapper in
@@ -74,7 +75,7 @@ from typing import Callable, NamedTuple
 
 from pymgrit_tpu_torch.ops import (dd, dd_matmul, dense_newton, eig_step, heat_kernels, indexed,
                                    periodic, pointwise, prefix, row_norms, runge_kutta, theta_rhs,
-                                   transfer, triton_kernels)
+                                   transfer)
 
 
 class Ops(NamedTuple):
@@ -111,7 +112,7 @@ DISPATCH = Ops(heat_kernels.interval_affine, heat_kernels.theta_chain,
                heat_kernels.sine_solve2d, heat_kernels.sine_affine2d,
                theta_rhs.theta_rhs2d, prefix.affine_prefix, prefix.affine_windows,
                periodic.periodic_solve2d, pointwise.allen_cahn_pointwise,
-               runge_kutta.dopri45_arenstorf, triton_kernels.rk4_brusselator,
+               runge_kutta.dopri45_arenstorf, runge_kutta.rk4_brusselator,
                pointwise.gray_scott_pointwise, pointwise.burgers2d_pointwise,
                dense_newton.burgers1d_newton, periodic.circulant_solve1d,
                transfer.restrict_combine, transfer.interpolate_combine,
@@ -124,7 +125,7 @@ PLAIN = Ops(heat_kernels.interval_affine_plain, heat_kernels.theta_chain_plain,
             theta_rhs.theta_rhs2d_plain, prefix.affine_prefix_plain,
             prefix.affine_windows_plain, periodic.periodic_solve2d_plain,
             pointwise.allen_cahn_pointwise_plain, runge_kutta.dopri45_arenstorf_plain,
-            triton_kernels.rk4_brusselator_plain, pointwise.gray_scott_pointwise_plain,
+            runge_kutta.rk4_brusselator_plain, pointwise.gray_scott_pointwise_plain,
             pointwise.burgers2d_pointwise_plain, dense_newton.burgers1d_newton_plain,
             periodic.circulant_solve1d_plain, transfer.restrict_combine_plain,
             transfer.interpolate_combine_plain, heat_kernels.sine_solve1d_plain,

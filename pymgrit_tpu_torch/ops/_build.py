@@ -1,11 +1,12 @@
 """Build and load the CUDA C++ kernels (K1 interval_affine, K2 theta_chain,
 K3 residual_row_norms, K4 cpoint_combine, K5 sine_solve2d, K6
 sine_affine2d, K7 theta_rhs2d, K8 affine_prefix, K9 affine_windows, K10
-periodic_solve2d, K11 allen_cahn_pointwise, K12 dopri45_arenstorf, K14
-gray_scott_pointwise, K15 burgers2d_pointwise, K16 burgers1d_newton, K17
-circulant_solve1d, K18 restrict_combine, K19 interpolate_combine, K20
-sine_solve1d, K21 indexed_combine, K22 eig_step, K23 dd_interval_affine,
-K24 dd_theta_chain, K25 dd_arith, K26 dd_matmul).
+periodic_solve2d, K11 allen_cahn_pointwise, K12 dopri45_arenstorf, K13
+rk4_brusselator, K14 gray_scott_pointwise, K15 burgers2d_pointwise, K16
+burgers1d_newton, K17 circulant_solve1d, K18 restrict_combine, K19
+interpolate_combine, K20 sine_solve1d, K21 indexed_combine, K22 eig_step,
+K23 dd_interval_affine, K24 dd_theta_chain, K25 dd_arith, K26 dd_matmul):
+every kernel of the port.
 
 The sources under ``csrc/`` have a plain C interface.  On first use each
 ``.cu`` file is compiled by its own ``nvcc`` process for Hopper
@@ -51,6 +52,8 @@ _SIGNATURES = {
     "pm_periodic_solve2d": [_P, _D, _D, _P],
     "pm_dopri45_arenstorf": [_P, _I, _P, _P, _P, _I, _I, _P, _I, _I, _P, _D, _D, _D, _I, _I, _I,
                              _P],
+    # the packed argument array, the stream
+    "pm_rk4_brusselator": [_P, _P],
     "pm_burgers1d_newton": [_P, _I, _P, _P, _I, _I, _P, _I, _I, _P, _P, _D, _D, _D, _D, _D, _I,
                             _I, _I, _I, _P],
     # the packed argument array, fac, the stream
@@ -78,8 +81,8 @@ _DD_SIGNATURES = {
     # the packed argument array, the float arguments (immediates,
     # coefficients), the stream
     "pm_dd_arith": [_P, _P, _P],
-    "pm_dd_interval_affine": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P,
-                              _I, _P],
+    # the packed argument array, the stream
+    "pm_dd_interval_affine": [_P, _P],
     # the packed argument array, theta, the stream
     "pm_dd_theta_chain": [_P, _D, _P],
     "pm_dd_matmul": [_P, _P],

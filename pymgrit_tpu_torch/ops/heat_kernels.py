@@ -18,7 +18,7 @@ BDF pair state) as a row of n interior values, and runs its two products
 on the FP64 product tile that K22 and K26 share (``csrc/dmma_tile.cuh``,
 plans from ``product_tile.lanes_plan``) through a device workspace it keeps
 per device, stream and dtype (``_solve1d_workspace``).  K1, K2, K5, K6,
-K20 and K24 take the one-call launch path: every check, the plan and the
+K20, K23 and K24 take the one-call launch path: every check, the plan and the
 packed int64 argument array are cached by the operands' facts, and a
 launch is one ctypes call.
 """
@@ -765,21 +765,8 @@ sine_solve1d.mode_launches = {"be": 0, "bdf2": 0, "transform": 0}   # launches b
 _DD_PLAIN_CHUNK = 1 << 24
 
 
-def _check_dd(name: str, operands: dict) -> None:
-    """DD operands: float32 pairs on one device, hi and lo strided alike,
-    contiguous in the last axis."""
-    for key, x in operands.items():
-        _require(hasattr(x, "hi") and hasattr(x, "lo"), name, f"{key} must be a DD pair")
-    ref = next(iter(operands.values())).hi
-    _require(ref.device.type in ("cpu", "cuda"), name, f"unsupported device {ref.device}")
-    for key, x in operands.items():
-        for t in (x.hi, x.lo):
-            _require(t.dtype == torch.float32, name, f"{key} must be float32 pairs")
-            _require(t.device == ref.device, name, f"{key} is on {t.device}, expected {ref.device}")
-        _require(x.hi.shape == x.lo.shape and x.hi.stride() == x.lo.stride(), name,
-                 f"{key}: hi and lo must have one shape and one set of strides")
-        _require(x.hi.shape[-1] <= 1 or x.hi.stride(-1) == 1, name,
-                 f"{key} must be contiguous in its last axis")
+def _dd_launcher(name: str):
+    return getattr(_build.library(), name)
 
 
 def dd_interval_affine_plain(x, A, G, out, r0=0, seed_out=None):
@@ -801,6 +788,87 @@ def dd_interval_affine_plain(x, A, G, out, r0=0, seed_out=None):
     return out
 
 
+# K23's block (csrc/dd_interval_affine.cu: kC): the coefficients one block
+# owns; its interval groups, largest first
+K23_C = 512
+K23_JB = (4, 2, 1)
+
+
+def dd_interval_affine_plan(J, R, N, seed_out, sms):
+    """(intervals a group JB, blocks along N, groups, the grid's y, seeds
+    streamed) of one K23 launch on a card of ``sms`` SMs: J intervals of R
+    rows of N DD coefficients, a block K23_C coefficients of a group of JB
+    intervals, JB the largest of K23_JB that still gives 8 blocks an SM
+    (else 1: more intervals a group left fewer blocks resident, 16 and 8
+    ran slower at dd_toms129's shapes).  The seeds are streamed through
+    registers where each is read once (R = 1 and no seed_out: the
+    condensed C-step), else held in shared memory for the group's rows."""
+    stream = R == 1 and not seed_out
+    bx = -(-N // K23_C)
+    jb = next((b for b in K23_JB if bx * -(-J // b) >= 8 * sms), 1)
+    groups = -(-J // jb)
+    return jb, bx, groups, min(groups, 65535), int(stream)
+
+
+def dd_interval_affine_pack(index, strides, r0, R, J, N, plan):
+    """The launcher's int64 argument array (csrc/dd_interval_affine.cu
+    ``pm_dd_interval_affine``): device, ten pointers (filled in by each
+    call: x hi, lo; A hi, lo; G hi, lo; out hi, lo; seed_out hi, lo), the
+    strides (x's interval stride, out's interval and row strides,
+    seed_out's interval stride), r0, R, J, N and the plan."""
+    return array.array("q", (index, *(0,) * 10, *strides, r0, R, J, N, *plan))
+
+
+# dd_interval_affine's DD operands in the order of their facts
+_DD_AFFINE_KEYS = ("x", "A", "G", "out", "seed_out")
+
+
+@functools.lru_cache(maxsize=1024)
+def _dd_interval_checked(facts, r0):
+    """Every check of a K23 call, on the ``fact``s of the DD operands' hi
+    and lo ((hi, lo) of x, A, G, out and seed_out if given) and r0, cached
+    by them (K23 runs at every condensed C-step of a DD solve); returns (on
+    the CPU, the launch: the argument array without pointers, the launcher
+    and the device index; None on the CPU or with nothing to do)."""
+    name = "dd_interval_affine"
+    device = facts[0][0][1]
+    if device.type not in ("cpu", "cuda"):
+        _require(False, name, f"unsupported device {device}")
+    for key, (hi, lo) in zip(_DD_AFFINE_KEYS, facts):
+        for dtype, dev, _, _ in (hi, lo):
+            if dtype != torch.float32:
+                _require(False, name, f"{key} must be float32 pairs")
+            if dev != device:
+                _require(False, name, f"{key} is on {dev}, expected {device}")
+        if hi[2:] != lo[2:]:
+            _require(False, name, f"{key}: hi and lo must have one shape and one set of strides")
+        if len(hi[2]) and hi[2][-1] > 1 and hi[3][-1] != 1:
+            _require(False, name, f"{key} must be contiguous in its last axis")
+    f = dict(zip(_DD_AFFINE_KEYS, facts))
+    xshape, xstride = f["x"][0][2:]
+    if len(xshape) != 2:
+        _require(False, name, f"x has shape {tuple(xshape)}, expected (J, N)")
+    J, N = xshape
+    tshape = f["A"][0][2]
+    if not (len(tshape) == 2 and f["G"][0][2] == tshape and tshape[1] == N
+            and all(_contiguous(*h[2:]) for pair in (f["A"], f["G"]) for h in pair)):
+        _require(False, name, "A and G must be contiguous (T, N) DD tables")
+    oshape, ostride = f["out"][0][2:]
+    if not (len(oshape) == 3 and oshape[0] == J and oshape[2] == N):
+        _require(False, name, f"out has shape {tuple(oshape)}, expected ({J}, R, {N})")
+    R = oshape[1]
+    if not (0 <= r0 and r0 + R <= tshape[0]):
+        _require(False, name, f"rows {r0}..{r0 + R - 1} outside the {tshape[0]}-row table")
+    if "seed_out" in f and tuple(f["seed_out"][0][2]) != (J, N):
+        _require(False, name, "seed_out must have the shape of x")
+    if device.type == "cpu" or J * N == 0:
+        return device.type == "cpu", None
+    strides = (xstride[0], *ostride[:2], f["seed_out"][0][3][0] if "seed_out" in f else 0)
+    plan = dd_interval_affine_plan(J, R, N, "seed_out" in f, _build.sm_count(device.index))
+    args = dd_interval_affine_pack(device.index, strides, r0, R, J, N, plan)
+    return False, (args, _dd_launcher("pm_dd_interval_affine"), device.index)
+
+
 def dd_interval_affine(x, A, G, out, r0=0, seed_out=None):
     """K1's closed-form interval relaxation in double-double, into ``out``
     (K23).
@@ -810,37 +878,32 @@ def dd_interval_affine(x, A, G, out, r0=0, seed_out=None):
     seed_out: optional (J, N) DD view that receives a copy of x.  hi and lo
     of each operand share strides (a packed tube, lo = hi + N, or separate
     tensors).  Returns out.
+
+    The checks, the plan and the packed argument array are cached by the
+    operands' facts (``_dd_interval_checked``); a call on the card fills in
+    the pointers and makes one ctypes call.
     """
-    name = "dd_interval_affine"
-    ops = dict(x=x, A=A, G=G, out=out)
-    if seed_out is not None:
-        ops["seed_out"] = seed_out
-    _check_dd(name, ops)
-    J, N = x.shape
-    R = out.shape[1]
-    _require(A.ndim == 2 and A.shape == G.shape and A.shape[1] == N
-             and all(t.is_contiguous() for t in (A.hi, A.lo, G.hi, G.lo)), name,
-             "A and G must be contiguous (T, N) DD tables")
-    _require(out.ndim == 3 and out.shape[0] == J and out.shape[2] == N, name,
-             f"out has shape {tuple(out.shape)}, expected ({J}, R, {N})")
-    _require(0 <= r0 and r0 + R <= A.shape[0], name,
-             f"rows {r0}..{r0 + R - 1} outside the {A.shape[0]}-row table")
-    _require(seed_out is None or tuple(seed_out.shape) == (J, N), name,
-             "seed_out must have the shape of x")
-    if x.hi.device.type == "cpu":
+    pairs = (x, A, G, out) if seed_out is None else (x, A, G, out, seed_out)
+    try:
+        facts = tuple((fact(p.hi), fact(p.lo)) for p in pairs)
+    except AttributeError:
+        key = next(k for k, p in zip(_DD_AFFINE_KEYS, pairs)
+                   if not (hasattr(p, "hi") and hasattr(p, "lo")))
+        raise ValueError(f"dd_interval_affine: {key} must be a DD pair") from None
+    on_cpu, launch = _dd_interval_checked(facts, int(r0))
+    if on_cpu:
         return dd_interval_affine_plain(x, A, G, out, r0, seed_out)
-    if J == 0 or N == 0:
+    if launch is None:
         return out
-    lib = _build.library()
-    stream = torch.cuda.current_stream(x.hi.device).cuda_stream
-    so = seed_out
-    status = lib.pm_dd_interval_affine(
-        x.hi.data_ptr(), x.lo.data_ptr(), x.hi.stride(0), A.hi.data_ptr(), A.lo.data_ptr(),
-        G.hi.data_ptr(), G.lo.data_ptr(), r0, R, J, N, out.hi.data_ptr(), out.lo.data_ptr(),
-        out.hi.stride(0), out.hi.stride(1), so.hi.data_ptr() if so is not None else None,
-        so.lo.data_ptr() if so is not None else None, so.hi.stride(0) if so is not None else 0,
-        stream)
-    _build.check(status, name)
+    tmpl, fn, index = launch
+    args = tmpl[:]
+    args[1], args[2] = x.hi.data_ptr(), x.lo.data_ptr()
+    args[3], args[4] = A.hi.data_ptr(), A.lo.data_ptr()
+    args[5], args[6] = G.hi.data_ptr(), G.lo.data_ptr()
+    args[7], args[8] = out.hi.data_ptr(), out.lo.data_ptr()
+    if seed_out is not None:
+        args[9], args[10] = seed_out.hi.data_ptr(), seed_out.lo.data_ptr()
+    _build.check(fn(args.buffer_info()[0], _build.stream(index)), "dd_interval_affine")
     dd_interval_affine.launches += 1
     return out
 
@@ -904,10 +967,6 @@ def dd_theta_chain_pack(index, strides, J, L, N, cn, has_g, tab, plan):
     threads, segs, grid = plan
     return array.array("q", (index, *(0,) * 14, *strides, J, L, N, segs, grid, int(cn),
                              int(has_g), int(tab), threads))
-
-
-def _dd_launcher(name: str):
-    return getattr(_build.library(), name)
 
 
 # dd_theta_chain's DD operands in the order of their facts

@@ -1,6 +1,7 @@
-"""Runge-Kutta integrators on batches of lanes, and kernel K12
-``dopri45_arenstorf`` (CUDA C++, ``csrc/dopri45_arenstorf.cu``) beside its
-plain version.
+"""Runge-Kutta integrators on batches of lanes, and kernels K12
+``dopri45_arenstorf`` (``csrc/dopri45_arenstorf.cu``) and K13
+``rk4_brusselator`` (``csrc/rk4_brusselator.cu``), both CUDA C++, beside
+their plain versions.
 
 Counterpart of ``pymgrit_tpu/ops/runge_kutta.py``: classic RK4 and the
 adaptive Dormand-Prince 5(4) pair with scipy's RK45 controller (safety 0.9,
@@ -15,15 +16,24 @@ controller with a fresh initial step; no step size carries over.
 K12 runs the whole adaptive loop of one Arenstorf lane in one thread
 (replaces ``dopri45_integrate`` composed with
 pymgrit_tpu/models/arenstorf_orbit.py ``ArenstorfOrbit._f``), for J lanes
-of L chained steps in one launch.
+of L chained steps in one launch.  K13 runs J chains of L classic RK4
+steps of the Brusselator (replaces ``rk4_step`` composed with
+pymgrit_tpu/models/brusselator.py ``Brusselator._f``), one thread a lane,
+on the one-call launch path: its checks and packed argument array are
+cached by the operands' facts (``_rk4_checked``).
 """
 
 from __future__ import annotations
 
+import array
+import functools
+import struct
+
 import torch
 
 from pymgrit_tpu_torch.ops import _build
-from pymgrit_tpu_torch.ops.heat_kernels import _check_operands, _launcher, _require
+from pymgrit_tpu_torch.ops.heat_kernels import (_check_facts, _check_operands, _contiguous,
+                                                _launcher, _require, fact)
 
 # Dormand-Prince 5(4) tableau (the pair of scipy.integrate.RK45)
 _C = (0.0, 1 / 5, 3 / 10, 4 / 5, 8 / 9, 1.0, 1.0)
@@ -46,6 +56,13 @@ _ERR_EXP = -1.0 / 5.0
 MAX_STEPS = 10_000
 
 
+def _sixth(dt):
+    """dt / 6, divided by a 0-d tensor on dt's device: PyTorch's CUDA
+    division by a Python scalar multiplies by its rounded reciprocal, where
+    the JAX package (and K13) divides."""
+    return dt / torch.full((), 6.0, dtype=dt.dtype, device=dt.device)
+
+
 def rk4_step(f, y, t0, t1):
     """One classic RK4 step of every lane: y (B, d), t0, t1 (B,)."""
     dt = (t1 - t0)[:, None]
@@ -53,7 +70,7 @@ def rk4_step(f, y, t0, t1):
     k2 = f(t0 + dt[:, 0] / 2, y + dt / 2 * k1)
     k3 = f(t0 + dt[:, 0] / 2, y + dt / 2 * k2)
     k4 = f(t0 + dt[:, 0], y + dt * k3)
-    return y + dt / 6 * (k1 + 2 * k2 + 2 * k3 + k4)
+    return y + _sixth(dt) * (k1 + 2 * k2 + 2 * k3 + k4)
 
 
 def _rms(x):
@@ -216,3 +233,106 @@ def dopri45_arenstorf(seed, tp, tc, out, g=None, rtol=1e-3, atol=1e-6, a=ARENSTO
 
 
 dopri45_arenstorf.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K13 rk4_brusselator
+# ---------------------------------------------------------------------------
+
+
+def brusselator_f(a, b):
+    """The Brusselator right-hand side on (B, 2) states (expression order
+    of pymgrit_tpu/models/brusselator.py ``Brusselator._f``)."""
+    def f(t, y):
+        q = y[:, 0] ** 2
+        return torch.stack([a + q * y[:, 1] - (b + 1) * y[:, 0], b * y[:, 0] - q * y[:, 1]], 1)
+    return f
+
+
+def rk4_brusselator_plain(seed, tp, tc, out, g=None, a=1.0, b=3.0):
+    """J chains of L classic RK4 steps (``rk4_step``)."""
+    f = brusselator_f(a, b)
+    x = seed
+    for k in range(out.shape[1]):
+        x = rk4_step(f, x, tp[k], tc[k])
+        if g is not None:
+            x = g[:, k] + x
+        out[:, k] = x
+    return out
+
+
+def _double_bits(v: float) -> int:
+    return struct.unpack("<q", struct.pack("<d", v))[0]
+
+
+def rk4_brusselator_pack(index, strides, J, L, a, b):
+    """The launcher's int64 argument array (csrc/rk4_brusselator.cu
+    ``launch``): device, five pointers (filled in by each call: seed, tp,
+    tc, out, g), the strides (seed's lane stride, out's lane and step
+    strides, g's lane and step strides), J, L and the bits of a, b and
+    b + 1 as doubles."""
+    return array.array("q", (index, *(0,) * 5, *strides, J, L,
+                             *map(_double_bits, (a, b, b + 1))))
+
+
+# rk4_brusselator's operands in the order of their facts
+_RK4_KEYS = ("seed", "tp", "tc", "out", "g")
+
+
+@functools.lru_cache(maxsize=1024)
+def _rk4_checked(facts, a, b):
+    """Every check of a K13 call, on the ``fact``s of seed, tp, tc, out (and
+    g), a and b, cached by them (K13 runs at every F- and C-relaxation and
+    coarsest march of a Brusselator solve); returns (on the CPU, the launch:
+    the argument array without pointers, the launcher and the device index;
+    None on the CPU or with nothing to do)."""
+    name = "rk4_brusselator"
+    _check_facts(name, facts, _RK4_KEYS.__getitem__)
+    (dtype, device, sshape, sstride), tpf, tcf, (_, _, oshape, ostride) = facts[:4]
+    if not (len(sshape) == 2 and sshape[1] == 2):
+        _require(False, name, f"seed has shape {tuple(sshape)}, expected (J, 2)")
+    J = sshape[0]
+    if not (len(oshape) == 3 and oshape[0] == J and oshape[2] == 2):
+        _require(False, name, f"out has shape {tuple(oshape)}, expected ({J}, L, 2)")
+    L = oshape[1]
+    if len(facts) == 5 and facts[4][2] != oshape:
+        _require(False, name, "g must have the shape of out")
+    if not (tuple(tpf[2]) == (L, J) and tcf[2] == tpf[2] and _contiguous(*tpf[2:])
+            and _contiguous(*tcf[2:])):
+        _require(False, name, f"tp and tc must be contiguous ({L}, {J}) tensors")
+    if device.type == "cpu" or J * L == 0:
+        return device.type == "cpu", None
+    gs = facts[4][3][:2] if len(facts) == 5 else (0, 0)
+    args = rk4_brusselator_pack(device.index, (sstride[0], *ostride[:2], *gs), J, L, a, b)
+    return False, (args, _launcher("pm_rk4_brusselator", dtype), device.index)
+
+
+def rk4_brusselator(seed, tp, tc, out, g=None, a=1.0, b=3.0):
+    """Chained RK4 steps of the Brusselator, every step written (K13).
+
+    seed: (J, 2) states; tp, tc: contiguous (L, J) step start and end
+    times; out, g: (J, L, 2) views (g optional, added after each step).
+    out must not overlap seed or g.  Returns out.
+
+    The checks and the packed argument array are cached by the operands'
+    facts (``_rk4_checked``); a call on the card fills in the pointers and
+    makes one ctypes call.
+    """
+    ops = (seed, tp, tc, out) if g is None else (seed, tp, tc, out, g)
+    on_cpu, launch = _rk4_checked(tuple(map(fact, ops)), float(a), float(b))
+    if on_cpu:
+        return rk4_brusselator_plain(seed, tp, tc, out, g, a, b)
+    if launch is None:
+        return out
+    tmpl, fn, index = launch
+    args = tmpl[:]
+    args[1], args[2], args[3], args[4] = seed.data_ptr(), tp.data_ptr(), tc.data_ptr(), \
+        out.data_ptr()
+    if g is not None:
+        args[5] = g.data_ptr()
+    _build.check(fn(args.buffer_info()[0], _build.stream(index)), "rk4_brusselator")
+    rk4_brusselator.launches += 1
+    return out
+
+
+rk4_brusselator.launches = 0

@@ -1,8 +1,8 @@
 """The port's kernels against their plain PyTorch versions, and the checks
 their wrappers make.
 
-Tests marked ``cuda`` need an NVIDIA GPU (sm_90a) with ``nvcc`` and
-``triton``; they skip without one.  Run them on the card with
+Tests marked ``cuda`` need an NVIDIA GPU (sm_90a) with ``nvcc``; they
+skip without one.  Run them on the card with
 
     python -m pytest tests/test_torch_kernels.py -q -m cuda
 
@@ -35,8 +35,7 @@ import torch
 import pymgrit_tpu_torch as P
 from pymgrit_tpu_torch.ops import (DISPATCH, PLAIN, _build, dense_newton, heat_kernels,
                                    indexed, launch_counts, periodic, pointwise, prefix,
-                                   reset_launch_counts, row_norms, runge_kutta, theta_rhs,
-                                   triton_kernels)
+                                   reset_launch_counts, row_norms, runge_kutta, theta_rhs)
 from pymgrit_tpu_torch.ops.dirichlet_spectral import sine_eigenbasis
 
 torch.set_num_threads(1)
@@ -1018,7 +1017,7 @@ def test_dopri45_arenstorf_rejects(over, match):
 ])
 def test_rk4_brusselator_rejects(over, match):
     with pytest.raises(ValueError, match=match):
-        triton_kernels.rk4_brusselator(**_ode_args(2, **over))
+        runge_kutta.rk4_brusselator(**_ode_args(2, **over))
 
 
 # ---------------------------------------------------------------------------

@@ -121,7 +121,7 @@ def test_import_leaves_jax_out():
     code = ("import sys, torch; d = torch.get_default_dtype(); "
             "t32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32); "
             "import pymgrit_tpu_torch, pymgrit_tpu_torch.interop; "
-            "import pymgrit_tpu_torch.ops.triton_kernels, pymgrit_tpu_torch.ops._build; "
+            "import pymgrit_tpu_torch.ops.runge_kutta, pymgrit_tpu_torch.ops._build; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'pymgrit_tpu.'))]; "
             "assert not bad, bad; assert 'triton' not in sys.modules; "
             "assert torch.get_default_dtype() == d; "
