@@ -17,16 +17,19 @@ phases:
              all started together; ``cuobjdump`` counts the DMMA instructions
              of K5's, K6's and K10's float64 kernels (required in each, with
              no spills, by instantiation), K22 and K26, and ptxas's log
-             gives the registers, spills and static shared memory of K2-K7,
-             K9-K11, K13-K17, K23-K25 (no spills) and the FP64 product tile
+             gives the registers, spills and static shared memory of K2-K17
+             and K23-K25 (no spills) and the FP64 product tile
              K22 and K26 share (``csrc/dmma_tile.cuh``);
 3. kernels   K1-K22 against their plain PyTorch versions at the main paths'
              shapes (and odd ones, and K5/K6/K10/K16/K17 past the sizes
              their wrappers once refused, K16 on both of its routes),
-             float32 and float64, with timings (K1-K11, K13-K21 and
-             K23-K25 in rounds, the output made untimed, with their device
-             time on a cold L2; the card's plain K13 against the CPU's; K16's Newton iterations
-             equal to the plain version's); for each kernel's headline case (and each
+             float32 and float64, with timings (K1-K21 and K23-K25 in
+             rounds, the output made untimed, with their device time on a
+             cold L2; the card's plain K13 against the CPU's; K16's Newton
+             iterations and K12's attempts (float64) equal to the plain
+             version's; K8's and K12's latency floors, at the FMA, shuffle,
+             division, root and pow latencies that ``csrc/latency_probe.cu``
+             measures); for each kernel's headline case (and each
              case that records its work) its bound (bytes or FP64 operations over the
              H100's peaks) and, where one PyTorch call computes the same
              function, that call's time; then the double-double K23-K26
@@ -57,7 +60,7 @@ phases:
              on every level (GPU against CPU, the full-tube executor);
 8. coarsest  the coarsest-level strategies: the sequential scan,
              ``AtMgrit`` (K9) and ``Mgrit(coarsest_prefix=True)`` (K8) on
-             ``bench.py``'s Dahlquist row (coarsest nt = 65537) and on the
+             ``bench.py``'s Dahlquist row (coarsest nt = 8193) and on the
              TOMS width with two levels (coarsest 2049 x 16129), and the
              Heat1D AT-MGRIT golden history;
 9. allen_cahn the nonlinear Allen-Cahn model: ``bench.py``'s row (128^2,
@@ -159,9 +162,13 @@ SMALL_MAX_ITER = 5
 FE_MAX_ITER = 8
 # bench.py's run_atmgrit_equal_accuracy_row: Dahlquist BE, lambda = -1, two
 # levels with m = 8, coarsest dt 0.2, AT window k = 128, three iterations;
-# cut in depth from the row's nt = 2^19 + 1 to 2^17 + 1 (same dt): the
-# port's sequential scan is a Python loop of one batched step a point
-DAHLQUIST = dict(nt=2 ** 17 + 1, t_end=3276.8, m=8, k=128, max_iter=3)
+# cut in depth from the row's nt = 2^19 + 1 to 2^16 + 1 (same dt), to keep
+# the run's time: the port's sequential scan is a Python loop of one
+# batched step a point
+DAHLQUIST = dict(nt=2 ** 16 + 1, t_end=1638.4, m=8, k=128, max_iter=3)
+# the coarse tube of phase 3's Dahlquist cases (K8, K9): the row's
+# coarsest level at nt = 2^17 + 1, whatever the phase's depth
+DAHLQUIST_CASE_NT = 2 ** 14 + 1
 # bench.py's run_atmgrit_coarsest_row at the TOMS width: two levels, m = 8
 TOMS2 = dict(nx=129, nt=2 ** 14 + 1, ms=(8,))
 TOMS2_AT_K, TOMS2_AT_ITERS = 64, 3
@@ -217,10 +224,22 @@ BRUSSELATOR_GOLDEN, BRUSSELATOR_RTOL = np.array([0.0142, 8.20e-5, 1.13e-7, 3.36e
 # the C-point states at rtol 1e-6 of the orbit's scale
 ORBIT_RTOL, ORBIT_STATE_RTOL = 1e-8, 1e-6
 # K12 integrates adaptively: its decisions follow the plain version's, but
-# the orbit amplifies the contracted roundings of the stages (f64); in f32
+# the orbit amplifies the contracted roundings of the stages (f64: up to
+# 1e-13 on phase 3's cases on an NVIDIA H100); in f32
 # the error estimate sits at float32 rounding and decisions flip, each flip
 # moving a step by up to a few of the controller's rtol 1e-3
-KERNEL_RTOL_BY_NAME = {"dopri45_arenstorf": {"float64": 1e-10, "float32": 1e-2}}
+KERNEL_RTOL_BY_NAME = {"dopri45_arenstorf": {"float64": 1e-12, "float32": 1e-2}}
+# K12's dependent chain, counted from csrc/dopri45_arenstorf.cu: the
+# operations on the longest path, by kind (an FMA, add or multiply; CUDA's
+# division, square root and pow, each timed by the latency probe).  An
+# attempt: six right-hand sides, each the stage's last FMA and y + h dy,
+# y1^2, s = p^2 + y1^2, sqrt(s), s sqrt(s), a division, two subtractions;
+# the error norm (the last weight, x h, a division, the sum of squares,
+# / 4, a root); the step factor (pow(err, -0.2), the product, the clamp,
+# h_abs x factor, min(h_abs, t1 - t)).  A step adds Hairer's initial step:
+# two right-hand sides, three norms, h0's and d2's divisions, a pow.
+K12_CHAIN_ATTEMPT = dict(fma=53, div=7, sqrt=7, pow=1)
+K12_CHAIN_STEP = dict(fma=30, div=6, sqrt=4, pow=1)
 AC_KERNELS = {"IMEX": ("periodic_solve2d",), "IMPL": ("periodic_solve2d", "allen_cahn_pointwise"),
               "CN": ("periodic_solve2d", "allen_cahn_pointwise")}
 SPECTRAL_KERNELS = ("interval_affine", "theta_chain", "residual_row_norms", "cpoint_combine")
@@ -562,6 +581,16 @@ def phase_build():
         ks = [k for k in k1323 if k.startswith(prefix)]
         check(len(ks) == n and all(k1323[k][1] == 0 and k1323[k][2] == 0 for k in ks),
               f"build: {n} {prefix} kernels must compile without spills: {k1323}")
+    k812 = ptxas(_build.build_log(), K8_K12_NAME, k8_k12_label)
+    print("[build] K8 / K12 (csrc/affine_prefix.cu, dopri45_arenstorf.cu), ptxas: "
+          + " ; ".join(f"{name}: {regs} registers, spill stores/loads {st}/{ld} B, static "
+                       f"smem {sm} B" for name, (regs, st, ld, sm) in k812.items()))
+    # K8's 32 kernels (f64 / f32 x wide / narrow x A with rows or broadcast
+    # x b alike x g or not) and K12's two (f64 / f32)
+    for prefix, n in {"K8 ": 32, "K12 ": 2}.items():
+        ks = [k for k in k812 if k.startswith(prefix)]
+        check(len(ks) == n and all(k812[k][1] == 0 and k812[k][2] == 0 for k in ks),
+              f"build: {n} {prefix}kernels must compile without spills: {k812}")
     k1625 = ptxas(_build.build_log(), K16_K25_NAME, k16_k25_label)
     print("[build] K16 / K25 (csrc/burgers1d_newton.cu, dd_arith.cu), ptxas: "
           + " ; ".join(f"{name}: {regs} registers, spill stores/loads {st}/{ld} B, static "
@@ -763,6 +792,21 @@ def k13_k23_label(m, ln):
     return f"K23 JB={jb}{' streamed' if stream == '1' else ''}"
 
 
+# prefix_wide / prefix_narrow<T, A rows, b rows, g> (K8) /
+# dopri45_arenstorf_kernel<T> (K12)
+K8_K12_NAME = re.compile(r"prefix_(wide|narrow)I([df])Lb([01])ELb([01])ELb([01])E"
+                         r"|dopri45_arenstorf_kernelI([df])E")
+
+
+def k8_k12_label(m, ln):
+    regime, e8, ar, br, g, e12 = m.groups()
+    if e8 is not None:
+        return (f"K8 {'f64' if e8 == 'd' else 'f32'} {regime} A "
+                f"{'rows' if ar == '1' else 'broadcast'}, b {'rows' if br == '1' else 'broadcast'}"
+                f"{' +g' if g == '1' else ''}")
+    return f"K12 {'f64' if e12 == 'd' else 'f32'}"
+
+
 # burgers1d_newton_kernel<T, SHARED> (K16) / dd_arith_kernel<OP, NT, V, I> (K25)
 K16_K25_NAME = re.compile(r"burgers1d_newton_kernelI([df])Lb([01])E"
                           r"|dd_arith_kernelILi(\d)ELi(\d)ELi(\d)E([ix])E")
@@ -923,6 +967,93 @@ def device_ms(fn, kernel, count=20, reps=10):
         us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
                  for e in prof.key_averages() if f"{kernel}_kernel" in e.key)
         return us / 1e3 / count, "profiler"
+
+
+_LATENCY = []
+
+
+def latency():
+    """{op: cycles of one dependent operation, "ghz": the SM clock} for the
+    FP64 FMA ("fma"), a warp shuffle of a double ("shfl"), and CUDA's FP64
+    division, square root and pow ("div", "sqrt", "pow"), measured once on
+    the card by csrc/latency_probe.cu (one warp; chains of 2^20 FMAs and
+    shuffles, 2^16 of the others), the clock from the cycles over the
+    launch's CUDA-event time; None where the kernel library has no probe."""
+    import torch
+    from pymgrit_tpu_torch.ops import _build
+    if not _LATENCY:
+        fn = getattr(_build.library(), "pm_latency_probe", None)
+        if fn is None:
+            _LATENCY.append(None)
+        else:
+            n = 2 ** 20
+            cycles = torch.zeros(5, dtype=torch.int64, device=DEVICE)
+            sink = torch.tensor([0.5, 1.0 - 2.0 ** -30, 2.0 ** -20] + [0.0] * 32,
+                                dtype=torch.float64, device=DEVICE)
+            stream = torch.cuda.current_stream().cuda_stream
+            _build.check(fn(cycles.data_ptr(), sink.data_ptr(), n, stream), "latency_probe")
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            _build.check(fn(cycles.data_ptr(), sink.data_ptr(), n, stream), "latency_probe")
+            stop.record()
+            stop.synchronize()
+            c = cycles.cpu().tolist()
+            lat = dict(zip(("fma", "shfl", "div", "sqrt", "pow"),
+                           (c[0] / n, c[1] / n, *(x / (n // 16) for x in c[2:]))))
+            lat["ghz"] = sum(c) / (start.elapsed_time(stop) * 1e6)
+            _LATENCY.append(lat)
+            print("[kernels] latency probe (one warp): a dependent "
+                  + ", ".join(f"{k} {v:.2f} cycles" for k, v in lat.items() if k != "ghz")
+                  + f"; SM clock {lat['ghz']:.3f} GHz")
+    return _LATENCY[0]
+
+
+def k8_floor(n, N, streamed, es=8):
+    """K8's latency floor (ms, how) at n rows of N columns with
+    ``streamed`` operands read by rows, from its plan: narrow, a tile's 2 R
+    dependent FMAs (compose, replay), one a scan level (log2(32 / W) in
+    the warp, 5 across the warps) and 2 for the carry-in, and its shuffle
+    levels (those, and the two exclusive shifts), times the tiles; wide,
+    the n FMAs of a column's chain; at the probe's latencies and clock.
+    None where the package has no plan or the library no probe."""
+    from pymgrit_tpu_torch.ops import prefix
+    lat, plan_fn = latency(), getattr(prefix, "affine_prefix_plan", None)
+    if lat is None or plan_fn is None:
+        return None
+    from pymgrit_tpu_torch.ops import _build
+    regime, _, W, S, R, _ = plan_fn(n, N, _build.sm_count(0), streamed, es)
+    fma, shfl, ghz = lat["fma"], lat["shfl"], lat["ghz"]
+    if regime == "wide":
+        return n * fma / ghz / 1e6, f"wide: {n} dependent FMAs x {fma:.2f} cycles at {ghz:.3f} GHz"
+    levels, tiles = int(math.log2(32 // W)), -(-n // (S * R))
+    fmas, shuffles = tiles * (2 * R + levels + 5 + 2), tiles * (levels + 5 + 2)
+    return ((fmas * fma + shuffles * shfl) / ghz / 1e6,
+            f"narrow W={W} R={R}, {tiles} tiles: {fmas} dependent FMAs x {fma:.2f} cycles + "
+            f"{shuffles} shuffle levels x {shfl:.2f} cycles at {ghz:.3f} GHz")
+
+
+def k12_floor(att):
+    """K12's latency floor (ms, how, the slowest warp's attempts) for the
+    (L, J) attempt counts of a launch: the warp (32 lanes) whose attempts,
+    summed over the steps of the slowest lane of each step, are most, times
+    K12_CHAIN_ATTEMPT, plus K12_CHAIN_STEP a step, each operation at the
+    probe's latency of its kind and clock.  None without a probe."""
+    lat = latency()
+    if lat is None:
+        return None
+    L, J = att.shape
+    pad = np.zeros((L, -(-J // 32) * 32), dtype=np.int64)
+    pad[:, :J] = att
+    warp = int(pad.reshape(L, -1, 32).max(axis=2).sum(axis=0).max())
+
+    def cycles(chain):
+        return sum(k * lat[op] for op, k in chain.items())
+
+    total = warp * cycles(K12_CHAIN_ATTEMPT) + L * cycles(K12_CHAIN_STEP)
+    kinds = " + ".join(f"{k} {op}" for op, k in K12_CHAIN_ATTEMPT.items())
+    return (total / lat["ghz"] / 1e6, f"{warp} attempts of the slowest warp x ({kinds}: "
+            f"{cycles(K12_CHAIN_ATTEMPT):.0f} cycles) + {L} steps x "
+            f"{cycles(K12_CHAIN_STEP):.0f} cycles at {lat['ghz']:.3f} GHz", warp)
 
 
 def kernel_cases(dtype, dev, stash):
@@ -1183,34 +1314,39 @@ def kernel_cases(dtype, dev, stash):
             + past_cap_cases(dtype, dev, rng, stash) + slice7_cases(dtype, dev, rng, stash))
 
 
-def coarsest_work(kernel, nt, N, k, A, b, es=8):
+def coarsest_work(kernel, nt, N, k, A, b, es=8, with_g=True):
     """(bytes, operations) of a K8 or K9 call on an (nt, N) coarse tube:
     A and b read once (one row where their row stride is 0), g's nt - 1
-    rows read; K8 reads the seed row x0 and writes rows 1..nt-1, K9 reads
-    the rows of u that start a window (lane p starts from u[max(0, p - k +
-    1)]: rows 0..max(0, nt - k)) and writes nt rows; a multiply and two
-    sums an entry and step (K8 nt - 1 steps, K9 min(p, k - 1) steps for
-    lane p)."""
+    rows read (K8 without g: none); K8 reads the seed row x0 and writes
+    rows 1..nt-1, K9 reads the rows of u that start a window (lane p starts
+    from u[max(0, p - k + 1)]: rows 0..max(0, nt - k)) and writes nt rows;
+    a multiply and two sums an entry and step (K8 nt - 1 steps, K9 min(p, k
+    - 1) steps for lane p; K8 without g: one sum)."""
     rows = sum(1 if t.stride(0) == 0 else nt - 1 for t in (A, b))
     if kernel == "affine_prefix":
-        return es * N * (rows + 1 + 2 * (nt - 1)), 3 * (nt - 1) * N
+        return (es * N * (rows + 1 + (1 + with_g) * (nt - 1)),
+                (2 + with_g) * (nt - 1) * N)
     steps = sum(min(p, k - 1) for p in range(nt))
     return es * N * (rows + max(1, nt - k + 1) + (nt - 1) + nt), 3 * steps * N
 
 
 def coarsest_cases(dtype, dev, rng, lam, stash):
     """K8 and K9 at the coarsest levels of the [coarsest] phase: the
-    Dahlquist row (65537 points of one value, A = 1/1.2 per step, b = 0 with
+    Dahlquist row (16385 points of one value, A = 1/1.2 per step, b = 0 with
     stride 0) and the TOMS width with two levels (2049 points of 16129
     coefficients, the BE step's A = 1/(1 + dt lam) and its b as rows with
     stride 0); g is a coarse tube's rows 1..nt-1, out its rows 1..nt (K8)
-    or a fresh tube (K9), made untimed (``RowCase``)."""
+    or a fresh tube (K9), made untimed (``RowCase``).  K8 also at a middle
+    width (2049 points of 999 columns, + g: its narrow regime with 8
+    columns a block) and without g with A and b as rows (4097 points of
+    300 columns), drawn from a generator of their own; each K8 case records
+    its latency floor (``k8_floor``)."""
     import torch
 
     def t(a):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
 
-    nt_d = (DAHLQUIST["nt"] - 1) // DAHLQUIST["m"] + 1
+    nt_d = DAHLQUIST_CASE_NT
     nt_h = (TOMS2["nt"] - 1) // TOMS2["ms"][0] + 1
     dt_h = TOMS2["ms"][0] / (TOMS2["nt"] - 1)
     N = lam.shape[0]
@@ -1223,6 +1359,9 @@ def coarsest_cases(dtype, dev, rng, lam, stash):
     cases = []
     for label, (nt, A, b, k) in shapes.items():
         width = A.shape[1]
+        stash[("floor", "affine_prefix", f"{label} n={nt - 1} N={width} +g")] = \
+            lambda n=nt - 1, N=width, k=(A.stride(0) != 0) + (b.stride(0) != 0) + 1: \
+            k8_floor(n, N, k)
         u = t(rng.uniform(-1, 1, (nt, width)))
         g = t(rng.uniform(-1e-3, 1e-3, (nt, width)))[1:]
 
@@ -1238,6 +1377,9 @@ def coarsest_cases(dtype, dev, rng, lam, stash):
         def windows(ops, out, u=u, g=g, A=A, b=b, k=k):
             return ops.affine_windows(u, A, b, g, out, k)
 
+        # K8's bytes without its steps: g copied into the same out rows
+        stash[("probe", "affine_prefix", f"{label} n={nt - 1} N={width} +g")] = (
+            "copy_ of g", lambda out, g=g: out[1:].copy_(g), g.numel() * g.element_size())
         for kernel, case, run in (
                 ("affine_prefix", f"{label} n={nt - 1} N={width} +g",
                  RowCase(prefix_out, prefix, exact=False)),
@@ -1246,6 +1388,29 @@ def coarsest_cases(dtype, dev, rng, lam, stash):
             cases.append((kernel, case, run))
             stash[("work", kernel, case)] = coarsest_work(kernel, nt, width, k, A, b,
                                                           u.element_size())
+    r8 = np.random.default_rng(SEED + 8)
+    for nt, width, with_g, rows in ((nt_h, 999, True, False), (4097, 300, False, True)):
+        A = t(r8.uniform(0.5, 1.0, (nt - 1 if rows else 1, width))).expand(nt - 1, width)
+        b = t(r8.uniform(-1e-3, 1e-3, (nt - 1 if rows else 1, width))).expand(nt - 1, width)
+        u = t(r8.uniform(-1, 1, (nt, width)))
+        g = t(r8.uniform(-1e-3, 1e-3, (nt, width)))[1:] if with_g else None
+
+        def prefix_out(u=u):
+            out = torch.empty_like(u)
+            out[0] = u[0]
+            return out
+
+        def prefix(ops, out, u=u, g=g, A=A, b=b):
+            ops.affine_prefix(A, b, u[0], out[1:], g)
+            return out
+
+        case = (f"{'narrow' if rows else 'middle'} n={nt - 1} N={width}"
+                + (" +g" if with_g else "") + (" A, b rows" if rows else ""))
+        cases.append(("affine_prefix", case, RowCase(prefix_out, prefix, exact=False)))
+        stash[("work", "affine_prefix", case)] = coarsest_work(
+            "affine_prefix", nt, width, 0, A, b, u.element_size(), with_g)
+        stash[("floor", "affine_prefix", case)] = \
+            lambda n=nt - 1, N=width, k=2 * rows + with_g: k8_floor(n, N, k)
     return cases
 
 
@@ -1255,7 +1420,8 @@ def nonlinear_cases(dtype, dev, rng, stash):
     strided tube view), its level-1 F-step (64 states, + g) and coarsest
     step (one state), the IMPL preconditioner (8 states, no prologue), and
     n = 17 at B = 512 and 1.  K11: the IMPL level-0 lanes (8 states of
-    128^2) in its three modes, and n = 17 at B = 512.  K12: the Arenstorf
+    128^2) in its three modes, and n = 17 at B = 512.  K12 (``RowCase``s,
+    their attempt counts held equal to the plain version's): the Arenstorf
     level-0 F-relaxation (250 lanes; 8 of its 319 steps, so the plain loop
     stays short), 16 steps of the coarsest chain, and J = 512 and 1.  K13
     (``RowCase``s, bit for bit; the card's plain version against the CPU's):
@@ -1337,29 +1503,38 @@ def nonlinear_cases(dtype, dev, rng, stash):
                                            for a in (tca[:-1, None], tca[1:, None])), march)
     orbit = torch.cat([x0[None], march[0, :-1]]).to(dtype)
 
-    def k12(seeds, tp, tc):
+    def k12(case, seeds, tp, tc):
+        """A K12 RowCase: the chain rows of a fresh (J, L + 1, 4) tube made
+        untimed; each launch leaves its attempt counts in ``att`` (by
+        whether the kernel ran), which phase 3 holds equal to the plain
+        version's and reads the latency floor from."""
         J, L = tp.shape[1], tp.shape[0]
         tp, tc = t(tp), t(tc)
+        att = {}
 
-        def run(ops):
-            out = torch.empty((J, L + 1, 4), dtype=dtype, device=dev)[:, 1:]
-            att = torch.zeros((L, J), dtype=torch.int32, device=dev)
-            ops.dopri45_arenstorf(seeds, tp, tc, out, attempts=att)
-            if ops is DISPATCH:
-                stash[("dopri45_arenstorf", J, L)] = int(att.sum())
-            return out.clone()
-        return run
+        def prepare():
+            return torch.empty((J, L + 1, 4), dtype=dtype, device=dev)[:, 1:]
+
+        def launch(ops, out):
+            a = torch.zeros((L, J), dtype=torch.int32, device=dev)
+            ops.dopri45_arenstorf(seeds, tp, tc, out, attempts=a)
+            att[ops is DISPATCH] = a
+            return out
+
+        stash[("attempts", "dopri45_arenstorf", case)] = att
+        return case, RowCase(prepare, launch, exact=False)
 
     L8 = 8
     tp0 = np.stack([ta[j * m_a:j * m_a + L8] for j in range(J_a)], 1)
     tc0 = np.stack([ta[j * m_a + 1:j * m_a + L8 + 1] for j in range(J_a)], 1)
     wide = orbit[torch.arange(512, device=dev) % J_a] * (1 + 1e-6 * t(rng.standard_normal((512, 4))))
-    cases += [("dopri45_arenstorf", f"level-0 F-relax J={J_a} L={L8}", k12(orbit, tp0, tc0)),
-              ("dopri45_arenstorf", "coarsest chain J=1 L=16",
-               k12(orbit[:1], tca[:16, None], tca[1:17, None])),
-              ("dopri45_arenstorf", "J=512 L=2", k12(wide, np.stack([tca[:2]] * 512, 1),
-                                                     np.stack([tca[1:3]] * 512, 1))),
-              ("dopri45_arenstorf", "J=1 L=2", k12(orbit[5:6], tca[5:7, None], tca[6:8, None]))]
+    cases += [("dopri45_arenstorf", *k12(f"level-0 F-relax J={J_a} L={L8}", orbit, tp0, tc0)),
+              ("dopri45_arenstorf", *k12("coarsest chain J=1 L=16", orbit[:1], tca[:16, None],
+                                         tca[1:17, None])),
+              ("dopri45_arenstorf", *k12("J=512 L=2", wide, np.stack([tca[:2]] * 512, 1),
+                                         np.stack([tca[1:3]] * 512, 1))),
+              ("dopri45_arenstorf", *k12("J=1 L=2", orbit[5:6], tca[5:7, None],
+                                         tca[6:8, None]))]
 
     nt_b, m_b = BRUSSELATOR["nt"], BRUSSELATOR["m"]
     J_b = (nt_b - 1) // m_b
@@ -1592,7 +1767,7 @@ class ProductPlans(tuple):
 
 
 class RowCase:
-    """A K1-K11, K13-K21 or K23-K25 case in two steps:
+    """A K1-K21 or K23-K25 case in two steps:
     ``prepare()`` makes what the call writes into where the call updates a
     tube in place or into a given out (untimed: the fresh copy of a tube,
     the empty tube), ``launch(ops, state)`` makes the call and returns its
@@ -1602,9 +1777,9 @@ class RowCase:
     iterations).  With ``exact`` (K1, K2, K4, K7 in float64, K11, K13, K14,
     K15, K18, K19, K21, K23-K25) the kernel equals its plain version bit for
     bit; without (K3, K5, K6, K10, K16, K17 and K20 sum in another order,
-    K8 composes its steps in another order, K9 contracts a multiply and an
-    add into an FMA) it is held at the kernel tolerance; a second launch
-    must give the same bits."""
+    K8 composes its steps in another order, K9 and K12 contract a multiply
+    and an add into an FMA) it is held at the kernel tolerance; a second
+    launch must give the same bits."""
 
     def __init__(self, prepare, launch, exact=True, view=None):
         self.prepare, self.launch, self.exact, self.view = prepare, launch, exact, view
@@ -2407,7 +2582,8 @@ def headline_work(kernel, stash):
         return k11_work("jacobian", 8, AC_IMPL["nx"])
     if kernel == "dopri45_arenstorf":      # ~300 operations an attempt (7 stages)
         Ja, L = (ARENSTORF["nt"] - 1) // ARENSTORF["m"], 8
-        return 8 * (Ja * 4 + 2 * L * Ja + Ja * L * 4), 300 * stash[(kernel, Ja, L)]
+        att = stash[("attempts", kernel, f"level-0 F-relax J={Ja} L={L}")][True]
+        return 8 * (Ja * 4 + 2 * L * Ja + Ja * L * 4), 300 * int(att.sum())
     if kernel == "rk4_brusselator":        # four stages, ~70 operations a step
         Jb, L = (BRUSSELATOR["nt"] - 1) // BRUSSELATOR["m"], BRUSSELATOR["m"] - 1
         return 8 * (2 * Jb + 2 * L * Jb + 2 * 2 * Jb * L), 70 * Jb * L
@@ -2473,10 +2649,11 @@ HEADLINE = {"interval_affine": "materialize", "theta_chain": "level-1 F-relax",
 
 
 def row_times(kernel, case, run, stash, f64=True):
-    """Times of a RowCase: ROW_ROUNDS rounds of kernel, plain (library,
-    probe) in turns, each the median of its calls (the plain version's
-    calls within a budget of a fifth of a second a round), the full times
-    the medians of the rounds' medians; the kernel's device time with a cold
+    """Times of a RowCase: ROW_ROUNDS rounds (one in float32, whose times
+    no summary reads) of kernel, plain (library, probe) in turns, each the
+    median of its calls (the plain version's calls within a budget of a
+    tenth of a second a round), the full times the medians of the rounds'
+    medians; the kernel's device time with a cold
     L2 (``device_ms``) and the library call's alike.  The fresh copy a call
     writes into is made untimed (``prepare``).  Returns (kernel ms, plain
     ms, device ms, the printed detail, the library call's rounds)."""
@@ -2484,12 +2661,11 @@ def row_times(kernel, case, run, stash, f64=True):
     st_k, st_p = run.prepare(), run.prepare()
     lib = stash.get(("library", kernel, case)) if f64 else None
     probe = stash.get(("probe", kernel, case)) if f64 else None
-    budget = 1000.0 / ROW_ROUNDS
     rounds = [(cuda_ms(lambda: run.launch(DISPATCH, st_k)),
-               cuda_ms(lambda: run.launch(PLAIN, st_p), budget_ms=budget),
+               cuda_ms(lambda: run.launch(PLAIN, st_p), budget_ms=100.0),
                cuda_ms(lib) if lib is not None else None,
                cuda_ms(lambda: probe[1](st_p)) if probe is not None else None)
-              for _ in range(ROW_ROUNDS)]
+              for _ in range(ROW_ROUNDS if f64 else 1)]
     ms_k, ms_p = (float(np.median([r[i] for r in rounds])) for i in (0, 1))
     lib_rounds = [r[2] for r in rounds] if lib is not None else None
     dev_ms, how = device_ms(lambda: run.launch(DISPATCH, st_k), kernel)
@@ -2553,6 +2729,14 @@ def phase_kernels(only=None):
                 print(f"[kernels] {kernel:<20} {case} {dname}: Newton iterations equal: {same} "
                       f"(sum {int(out_k[-n_it:].sum())})")
                 check(same, f"{kernel} {case} {dname}: the Newton iterations differ from plain")
+            att = stash.get(("attempts", kernel, case))
+            if att is not None:         # K12: each lane and step took the plain version's attempts
+                same = torch.equal(att[True], att[False])
+                print(f"[kernels] {kernel:<20} {case} {dname}: attempt counts equal: {same} "
+                      f"(kernel {int(att[True].sum())}, plain {int(att[False].sum())})")
+                # float32's error estimate sits at float32 rounding: decisions may flip
+                check(same or dtype == torch.float32,
+                      f"{kernel} {case} {dname}: the attempt counts differ from plain")
             plan = stash.get(("plan", kernel, case))
             if plan is not None:        # the product tile: a second launch gives the same bits
                 same = torch.equal(out_k, run(DISPATCH))
@@ -2572,6 +2756,17 @@ def phase_kernels(only=None):
                   f"(tol {tol:.0e}) abs {abs_err:.3e} | kernel {ms_k:.4f} ms{dev_txt} "
                   f"plain {ms_p:.4f} ms | {'ok' if ok else 'FAIL'}")
             check(ok, f"{kernel} {case} {dname}: rel err {rel:.3e} > {tol:.0e}")
+            floor = None
+            if dtype == torch.float64 and dev_ms is not None:
+                if att is not None:
+                    floor = k12_floor(att[True].cpu().numpy())
+                elif ("floor", kernel, case) in stash:
+                    floor = stash[("floor", kernel, case)]()
+            if floor is not None:       # K8, K12: the dependent chain's least time
+                per = (f"; {dev_ms * 1e6 * latency()['ghz'] / floor[2]:.0f} cycles an attempt of "
+                       "the slowest warp (device time)" if len(floor) > 2 else "")
+                print(f"[kernels] {kernel:<20} {case}: latency floor {floor[0]:.4f} ms ({floor[1]}); "
+                      f"device {dev_ms:.4f} ms, {dev_ms / floor[0]:.2f}x the floor{per}")
             work = stash.get(("work", kernel, case))
             if dtype == torch.float64 and work is not None:
                 work = work() if callable(work) else work
@@ -3012,7 +3207,7 @@ def check_coarsest_counts(label, counts, name):
 
 def phase_coarsest_dahlquist(card):
     """bench.py's equal-accuracy row: scan, AtMgrit(128) and the prefix on
-    Dahlquist, coarsest nt = 65537."""
+    Dahlquist, coarsest nt = 8193."""
     import torch
     import pymgrit_tpu_torch as P
     from pymgrit_tpu_torch.ops import DISPATCH, launch_counts, reset_launch_counts
@@ -4216,8 +4411,8 @@ def phase_dd(card):
 def profile_cells(card):
     """``--profile``: one profiled kernel-path solve of each cell of the
     periodic models, the Brusselator, the spectral and physical TOMS solves, the ragged row,
-    the spatial65 row, the BDF example, the `[coarsest]` AtMgrit solve at
-    the TOMS width, the two DD rows and the deep diffusion grid (after one
+    the spatial65 row, the BDF example, the `[coarsest]` prefix (K8) and
+    AtMgrit solves at the TOMS width, the `[ode]` Arenstorf solve (K12), the two DD rows and the deep diffusion grid (after one
     untimed solve of the same configuration), torch.profiler with CPU and
     CUDA activities:
     the profiled wall, the card's busy time (the kernels' device time
@@ -4244,10 +4439,10 @@ def profile_cells(card):
 
     # a wrapper's host time a call (its checks, its launch and what it
     # allocates), timed around each call: K11 in the Allen-Cahn cells, K13
-    # in the Brusselator, K14 in Gray-Scott IMPL, K15 in Burgers2D, K23-K25
-    # in the DD cells
-    # (every DD operation of the solve reads the kernel set of the
-    # problem's states), K9 in the coarsest AT cell
+    # in the Brusselator, K12 in Arenstorf, K14 in Gray-Scott IMPL, K15 in
+    # Burgers2D, K23-K25 in the DD cells (every DD operation of the solve
+    # reads the kernel set of the problem's states), K8 and K9 in the
+    # coarsest prefix and AT cells
     host = {}
 
     def timed(*names):
@@ -4314,6 +4509,12 @@ def profile_cells(card):
             tol=SPATIAL["tol"], max_iter=SPATIAL["max_iter"], logging_lvl=30)),
         ("bdf example", lambda: P.Mgrit(problem=bdf_problem(P, DISPATCH), tol=BDF["tol"],
                                         max_iter=BDF["max_iter"], logging_lvl=30)),
+        ("coarsest toms prefix", lambda: strategy(
+            P, "prefix", build_problem(P, device=DEVICE, ops=timed("affine_prefix"), **TOMS2),
+            0, tol=MAIN_TOL, max_iter=MAIN_MAX_ITER)),
+        ("ode Arenstorf", lambda: P.Mgrit(
+            problem=ode_problem(P, "ArenstorfOrbit", timed("dopri45_arenstorf"), **ARENSTORF),
+            cf_iter=ARENSTORF["cf_iter"], tol=ARENSTORF["tol"], logging_lvl=30)),
         (f"coarsest toms AtMgrit(k={TOMS2_AT_K})", lambda: strategy(
             P, "at", build_problem(P, device=DEVICE, ops=timed("affine_windows"), **TOMS2),
             TOMS2_AT_K, tol=1e-300, max_iter=TOMS2_AT_ITERS)),
@@ -4367,7 +4568,7 @@ def profile_cells(card):
                  "interval_affine", "cpoint_combine", "periodic_solve2d", "periodic_rhs",
                  "allen_cahn", "gray_scott", "burgers2d", "burgers1d_newton", "dd_arith",
                  "circulant_solve1d", "dd_theta_chain", "dd_interval_affine", "affine_windows",
-                 "rk4_brusselator")
+                 "rk4_brusselator", "prefix_wide", "prefix_narrow", "dopri45_arenstorf")
         row = {}
         for k in names:
             mine = [e for e in dev if re.search(r"(?<![A-Za-z_])" + k, e.key)]
@@ -4389,7 +4590,9 @@ def profile_cells(card):
                                           ("K16", "burgers1d_newton"),
                                           ("K13", "rk4_brusselator"),
                                           ("K17", "circulant_solve1d"), ("K20", "sine_solve1d"),
-                                          ("K9", "affine_windows"), ("K23", "dd_interval_affine"),
+                                          ("K8", "affine_prefix"), ("K9", "affine_windows"),
+                                          ("K12", "dopri45_arenstorf"),
+                                          ("K23", "dd_interval_affine"),
                                           ("K24", "dd_theta_chain"), ("K25", "dd_arith"))
                         if calls[key])
               + "".join(f" | {name} wrapper host time {s * 1e3 / n:.4f} ms a call ({n} calls)"
@@ -4485,29 +4688,47 @@ def main():
                                                       "kind": torch.cuda.get_device_name(0),
                                                       "count": torch.cuda.device_count()}}))
         return
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        """Print the seconds a phase took (the run has a time limit: a
+        later slice reads where it goes)."""
+        now = time.perf_counter()
+        print(f"[time] {name}: {now - clock[0]:.1f} s")
+        clock[0] = now
+
     rows = phase_kernels()
+    lap("kernels")
     rows.update(phase_dd_kernels())
+    lap("dd-kernels")
     phase_small()
     phase_pytree(card)
+    lap("small, pytree")
     counts, h_spec, tube_spec = phase_main(card)
     counts_phys = phase_physical(card, h_spec, tube_spec)
     del tube_spec
     phase_cn_fe()
+    lap("main, physical, cn, fe")
     phase_coarsest_dahlquist(card)
     prefix_counts, at_counts = phase_coarsest_toms(card)
     phase_coarsest_golden()
+    lap("coarsest")
     counts_imex, counts_impl = phase_allen_cahn(card)
     counts_orbit, counts_bruss = phase_ode(card)
+    lap("allen_cahn, ode")
     counts_gs = phase_gray_scott(card)
     counts_b1, counts_b2 = phase_burgers(card)
     counts_adv = phase_advection(card)
+    lap("gray_scott, burgers, advection")
     counts_spatial = phase_spatial(card)
     phase_spatial1d(card)
     phase_c2(card)
     counts_ragged = phase_ragged(card)
+    lap("spatial, spatial1d, c2, ragged")
     counts_bdf, _ = phase_bdf(card)
     counts_diffusion = phase_diffusion(card)
     counts_dd_toms, counts_dd65 = phase_dd(card)
+    lap("bdf, diffusion, dd")
     # launches: each kernel's count on the main path it belongs to (K3, K4
     # run on both bases; the spectral run's count is reported; K8 and K9
     # from the TOMS-width prefix and AT runs; K10 from the Allen-Cahn bench

@@ -29,6 +29,7 @@ from torch.utils import _pytree
 from pymgrit_tpu_torch.core import prng
 from pymgrit_tpu_torch.ops import dd as _dd
 from pymgrit_tpu_torch.ops.dd import DD
+from pymgrit_tpu_torch.ops.ieee_sqrt import sqrt_rn
 
 State = Union[torch.Tensor, DD, tuple, list, dict]
 
@@ -123,7 +124,7 @@ def norm(a: State) -> torch.Tensor:
     """2-norm over all leaves concatenated (0-d tensor).  A DD pair counts
     with its float32 value hi + lo: the inputs of a residual norm need the
     extended cancellation, the norm only reports a magnitude."""
-    return torch.sqrt(sum(torch.sum(torch.square(_float(x))) for x in _algebra_leaves(a)))
+    return sqrt_rn(sum(torch.sum(torch.square(_float(x))) for x in _algebra_leaves(a)))
 
 
 def zeros_like(a: State) -> State:
@@ -223,7 +224,7 @@ def batched_norm(tube: State) -> torch.Tensor:
     """Per-time-point 2-norm over all leaves: shape (length,)."""
     sq = sum(torch.sum(torch.square(_float(x).reshape(x.shape[0], -1)), dim=1)
              for x in _algebra_leaves(tube))
-    return torch.sqrt(sq)
+    return sqrt_rn(sq)
 
 
 def as_f64(a: State) -> State:

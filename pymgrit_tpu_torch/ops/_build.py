@@ -6,7 +6,8 @@ rk4_brusselator, K14 gray_scott_pointwise, K15 burgers2d_pointwise, K16
 burgers1d_newton, K17 circulant_solve1d, K18 restrict_combine, K19
 interpolate_combine, K20 sine_solve1d, K21 indexed_combine, K22 eig_step,
 K23 dd_interval_affine, K24 dd_theta_chain, K25 dd_arith, K26 dd_matmul):
-every kernel of the port.
+every kernel of the port, and a probe of the card's FP64 FMA and shuffle
+latencies (``csrc/latency_probe.cu``).
 
 The sources under ``csrc/`` have a plain C interface.  On first use each
 ``.cu`` file is compiled by its own ``nvcc`` process for Hopper
@@ -45,13 +46,14 @@ _SIGNATURES = {
     "pm_sine_affine2d": [_P, _P],
     # the packed argument array, dt, theta, fx, fy, the stream
     "pm_theta_rhs2d": [_P, _D, _D, _D, _D, _P],
-    "pm_affine_prefix": [_P, _I, _P, _I, _P, _I, _P, _P, _I, _P, _P, _I, _I, _I, _P],
+    # the packed argument array, the stream
+    "pm_affine_prefix": [_P, _P],
     # the packed argument array, the stream
     "pm_affine_windows": [_P, _P],
     # the packed argument array, the prologue's two scalars, the stream
     "pm_periodic_solve2d": [_P, _D, _D, _P],
-    "pm_dopri45_arenstorf": [_P, _I, _P, _P, _P, _I, _I, _P, _I, _I, _P, _D, _D, _D, _I, _I, _I,
-                             _P],
+    # the packed argument array, the stream
+    "pm_dopri45_arenstorf": [_P, _P],
     # the packed argument array, the stream
     "pm_rk4_brusselator": [_P, _P],
     "pm_burgers1d_newton": [_P, _I, _P, _P, _I, _I, _P, _I, _I, _P, _P, _D, _D, _D, _D, _D, _I,
@@ -76,8 +78,11 @@ _SIGNATURES = {
     # the packed argument array, nu, 2 dx, dx^2, the stream
     "pm_burgers2d_pointwise": [_P, _D, _D, _D, _P],
 }
-# the float32-pair (double-double) launchers: one symbol each, no dtype suffix
+# the launchers with one symbol each, no dtype suffix: the float32-pair
+# (double-double) kernels and the latency probe
 _DD_SIGNATURES = {
+    # cycles, sink, chain length, the stream (csrc/latency_probe.cu)
+    "pm_latency_probe": [_P, _P, _I, _P],
     # the packed argument array, the float arguments (immediates,
     # coefficients), the stream
     "pm_dd_arith": [_P, _P, _P],

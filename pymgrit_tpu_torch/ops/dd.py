@@ -21,8 +21,9 @@ with ``ops=PLAIN``), a product one call of ``ops.dd_matmul`` (K26,
 and the tube helpers of ``core/vector.py`` see ``(hi, lo)``.
 
 The plain version uses only single-rounding operations (``+ - * /``,
-``torch.sqrt``, ``torch.where``; never ``addcmul`` or another fused op),
-as the JAX package's ``jnp`` ops round once each.
+the correctly rounded ``ieee_sqrt.sqrt_rn``, ``torch.where``; never
+``addcmul`` or another fused op), as the JAX package's ``jnp`` ops round
+once each.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ import torch
 from torch.utils import _pytree
 
 from pymgrit_tpu_torch.ops import _build
+from pymgrit_tpu_torch.ops.ieee_sqrt import sqrt_rn
 
 _F32 = torch.float32
 SPLIT_FACTOR = 4097.0              # 2**12 + 1: Dekker's split of a 24-bit significand
@@ -107,7 +109,7 @@ def _div(x, y):
 def _sqrt(x):
     zero = torch.zeros((), dtype=_F32)
     pos = x[0] > 0
-    y = torch.sqrt(torch.where(pos, x[0], 1.0))
+    y = sqrt_rn(torch.where(pos, x[0], 1.0))
     e = _add((torch.where(pos, x[0], 0.0), torch.where(pos, x[1], 0.0)),
              _neg(_mul((y, zero), (y, zero))))
     # a true division: torch's ``0.5 / y`` is reciprocal(y) * 0.5

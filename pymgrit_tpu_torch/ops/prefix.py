@@ -17,7 +17,7 @@ point re-integrate only its last k-1 steps (``AtMgrit(k)``).
 Operands are (rows, N) views whose last axis is contiguous; A and b may
 have row stride 0 (one row broadcast over every step).  Dispatch as in
 ``heat_kernels``: CPU tensors go to the plain version, CUDA tensors launch
-the kernel or raise.  K9 takes the one-call launch path (its checks, plan
+the kernel or raise.  Both take the one-call launch path (the checks, plan
 and packed argument array cached by the operands' facts).
 """
 
@@ -25,13 +25,12 @@ from __future__ import annotations
 
 import array
 import functools
-import math
 
 import torch
 
 from pymgrit_tpu_torch.ops import _build
-from pymgrit_tpu_torch.ops.heat_kernels import (_check_facts, _check_operands, _launcher,
-                                                _require, fact)
+from pymgrit_tpu_torch.ops.heat_kernels import (_check_facts, _contiguous, _launcher, _require,
+                                                fact)
 from pymgrit_tpu_torch.ops.indexed import _overlaps_partially
 
 
@@ -69,9 +68,92 @@ def affine_prefix_plain(A, b, x0, out, g=None):
     return out
 
 
-def _rows_view(name, key, t, n, N):
-    _require(t.dim() == 2 and tuple(t.shape) == (n, N), name,
-             f"{key} has shape {tuple(t.shape)}, expected ({n}, {N})")
+# K8's blocks (csrc/affine_prefix.cu: kWide, kNarrow), a narrow block's
+# widest column group (kMaxW) and its tile buffers' shared memory at most
+# (kNarrowSmem)
+K8_WIDE_THREADS = 128
+K8_NARROW_THREADS = 1024
+K8_MAX_COLUMNS = 32
+K8_NARROW_SMEM = 192 * 1024
+
+
+def _tile_elements(R):
+    """Elements of one of a narrow tile's buffers (csrc/affine_prefix.cu
+    ``tile_elements``): 1024 R, with one element of padding every 32."""
+    return K8_NARROW_THREADS * R + (K8_NARROW_THREADS * R - 1) // 32 + 1
+
+
+def affine_prefix_plan(n, N, sms, streamed=1, es=8):
+    """(regime, threads a block, columns a block W, segments a column S,
+    rows a segment a tile R, grid) of one K8 launch on a card of ``sms``
+    SMs, for n rows of N columns, ``streamed`` operands read row by row (A
+    and b where their row stride is not 0, g where given) of ``es`` bytes
+    an element.  "wide" where blocks of K8_WIDE_THREADS columns fill three
+    quarters of the SMs (the TOMS width, 16129 columns: 127 blocks): a
+    thread a column walks all n rows (S = 1, R = n).  Else "narrow": blocks
+    of K8_NARROW_THREADS threads, W columns each (the least power of two up
+    to K8_MAX_COLUMNS that keeps the blocks to one wave: Dahlquist's one
+    column, W = 1), the rows walked in tiles of S = K8_NARROW_THREADS / W
+    segments of R rows, as few tiles as K8_NARROW_SMEM holds and as even
+    as they can be."""
+    fill = -(-3 * sms // 4)
+    if -(-N // K8_WIDE_THREADS) >= fill:
+        return "wide", K8_WIDE_THREADS, K8_WIDE_THREADS, 1, n, -(-N // K8_WIDE_THREADS)
+    W = 1
+    while W < K8_MAX_COLUMNS and -(-N // W) > sms:
+        W *= 2
+    S = K8_NARROW_THREADS // W
+    bufs = max(1, streamed)
+    R_max = 1
+    while bufs * _tile_elements(R_max + 1) * es <= K8_NARROW_SMEM:
+        R_max += 1
+    tiles = -(-n // (S * R_max))
+    tile_rows = -(-n // tiles)
+    return "narrow", K8_NARROW_THREADS, W, S, -(-tile_rows // S), -(-N // W)
+
+
+def affine_prefix_pack(index, strides, n, N, plan):
+    """The launcher's int64 argument array (csrc/affine_prefix.cu
+    ``launch``): device, five pointers (filled in by each call: A, b, g or
+    0, x0, out), the row strides of A, b, g, out, n, N, the regime (0 wide,
+    1 narrow), columns a block, segments a column, rows a segment, grid."""
+    regime, _, W, S, R, grid = plan
+    return array.array("q", (index, *(0,) * 5, *strides, n, N, int(regime == "narrow"), W, S, R,
+                             grid))
+
+
+# affine_prefix's operands in the order of their facts
+_PREFIX_KEYS = ("A", "b", "x0", "out", "g")
+
+
+@functools.lru_cache(maxsize=256)
+def _prefix_checked(facts):
+    """Every check of a K8 call, on the ``fact``s of A, b, x0, out (and g),
+    cached by them; returns (on the CPU, the launch: the argument array
+    without pointers, the launcher and the device index; None on the CPU
+    or with nothing to do)."""
+    name = "affine_prefix"
+    _check_facts(name, facts, _PREFIX_KEYS.__getitem__)
+    fa, fb, (_, _, xshape, xstride), (dtype, device, oshape, ostride) = facts[:4]
+    fg = facts[4] if len(facts) == 5 else None
+    if len(oshape) != 2:
+        _require(False, name, f"out has shape {tuple(oshape)}, expected (n, N)")
+    n, N = oshape
+    for key, f in (("A", fa), ("b", fb), ("g", fg)):
+        if f is not None and tuple(f[2]) != (n, N):
+            _require(False, name, f"{key} has shape {tuple(f[2])}, expected ({n}, {N})")
+    if not (tuple(xshape) == (N,) and _contiguous(xshape, xstride)):
+        _require(False, name, f"x0 must be a contiguous ({N},) row")
+    if not (n <= 1 or ostride[0] >= N):
+        _require(False, name, "out rows must not overlap")
+    if device.type == "cpu" or n * N == 0:
+        return device.type == "cpu", None
+    strides = tuple(f[3][0] if f is not None else 0 for f in (fa, fb, fg)) + (ostride[0],)
+    streamed = int(strides[0] != 0) + int(strides[1] != 0) + int(fg is not None)
+    plan = affine_prefix_plan(n, N, _build.sm_count(device.index), streamed,
+                              torch.finfo(dtype).bits // 8)
+    args = affine_prefix_pack(device.index, strides, n, N, plan)
+    return False, (args, _launcher("pm_affine_prefix", dtype), device.index)
 
 
 def affine_prefix(A, b, x0, out, g=None):
@@ -80,35 +162,23 @@ def affine_prefix(A, b, x0, out, g=None):
     A, b: (n, N) views (row stride 0 allowed); x0: (N,) contiguous; out:
     (n, N) view; g: optional (n, N) view added to b.  out must not overlap
     an input.  Returns out.
+
+    The checks, the plan and the packed argument array are cached by the
+    operands' facts (``_prefix_checked``); a call on the card fills in the
+    pointers and makes one ctypes call.
     """
-    name = "affine_prefix"
-    ops = dict(A=A, b=b, x0=x0, out=out)
-    if g is not None:
-        ops["g"] = g
-    _check_operands(name, ops)
-    _require(out.dim() == 2, name, f"out has shape {tuple(out.shape)}, expected (n, N)")
-    n, N = out.shape
-    for key, t in dict(A=A, b=b, g=g).items():
-        if t is not None:
-            _rows_view(name, key, t, n, N)
-    _require(tuple(x0.shape) == (N,) and x0.is_contiguous(), name,
-             f"x0 must be a contiguous ({N},) row")
-    _require(out.stride(0) >= N or n <= 1, name, "out rows must not overlap")
-    if out.device.type == "cpu":
+    ops = (A, b, x0, out) if g is None else (A, b, x0, out, g)
+    on_cpu, launch = _prefix_checked(tuple(map(fact, ops)))
+    if on_cpu:
         return affine_prefix_plain(A, b, x0, out, g)
-    if n == 0 or N == 0:
+    if launch is None:
         return out
-    chunk = math.isqrt(n - 1) + 1                     # ceil(sqrt(n))
-    nchunks = -(-n // chunk)
-    P = torch.empty((nchunks, N), dtype=out.dtype, device=out.device)
-    C = torch.empty_like(P)
-    fn = _launcher("pm_affine_prefix", out.dtype)
-    stream = torch.cuda.current_stream(out.device).cuda_stream
-    status = fn(A.data_ptr(), A.stride(0), b.data_ptr(), b.stride(0),
-                g.data_ptr() if g is not None else None, g.stride(0) if g is not None else 0,
-                x0.data_ptr(), out.data_ptr(), out.stride(0), P.data_ptr(), C.data_ptr(),
-                n, N, chunk, stream)
-    _build.check(status, name)
+    tmpl, fn, index = launch
+    args = tmpl[:]
+    args[1], args[2], args[4], args[5] = A.data_ptr(), b.data_ptr(), x0.data_ptr(), out.data_ptr()
+    if g is not None:
+        args[3] = g.data_ptr()
+    _build.check(fn(args.buffer_info()[0], _build.stream(index)), "affine_prefix")
     affine_prefix.launches += 1
     return out
 

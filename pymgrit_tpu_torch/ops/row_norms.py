@@ -23,11 +23,12 @@ import torch
 
 from pymgrit_tpu_torch.ops import _build
 from pymgrit_tpu_torch.ops.heat_kernels import _check_facts, _launcher, _require, fact
+from pymgrit_tpu_torch.ops.ieee_sqrt import sqrt_rn
 
 
 def residual_row_norms_plain(s, u):
     """Per-row 2-norm of s - u: (R, N), (R, N) -> (R,)."""
-    return torch.sqrt(torch.sum(torch.square(s - u), dim=1))
+    return sqrt_rn(torch.sum(torch.square(s - u), dim=1))
 
 
 def pack(index, R, N, s_stride, u_stride):

@@ -18,9 +18,15 @@ K12 runs the whole adaptive loop of one Arenstorf lane in one thread
 pymgrit_tpu/models/arenstorf_orbit.py ``ArenstorfOrbit._f``), for J lanes
 of L chained steps in one launch.  K13 runs J chains of L classic RK4
 steps of the Brusselator (replaces ``rk4_step`` composed with
-pymgrit_tpu/models/brusselator.py ``Brusselator._f``), one thread a lane,
-on the one-call launch path: its checks and packed argument array are
-cached by the operands' facts (``_rk4_checked``).
+pymgrit_tpu/models/brusselator.py ``Brusselator._f``), one thread a lane.
+Both take the one-call launch path: the checks and packed argument array
+are cached by the operands' facts (``_dopri_checked``, ``_rk4_checked``).
+
+The plain versions take the correctly rounded ``ieee_sqrt.sqrt_rn`` and
+divide by tensors where the JAX package divides (``_sixth``,
+``_initial_step``); ``**`` is PyTorch's pow, which differs from XLA's in
+the last bit or two (in 2.3 % of the float64 results of ``x ** 0.2`` on
+10^5 random x, on the CPU).
 """
 
 from __future__ import annotations
@@ -32,8 +38,9 @@ import struct
 import torch
 
 from pymgrit_tpu_torch.ops import _build
-from pymgrit_tpu_torch.ops.heat_kernels import (_check_facts, _check_operands, _contiguous,
-                                                _launcher, _require, fact)
+from pymgrit_tpu_torch.ops.heat_kernels import (_check_facts, _contiguous, _launcher, _require,
+                                                fact)
+from pymgrit_tpu_torch.ops.ieee_sqrt import sqrt_rn
 
 # Dormand-Prince 5(4) tableau (the pair of scipy.integrate.RK45)
 _C = (0.0, 1 / 5, 3 / 10, 4 / 5, 8 / 9, 1.0, 1.0)
@@ -74,7 +81,14 @@ def rk4_step(f, y, t0, t1):
 
 
 def _rms(x):
-    return torch.sqrt(torch.mean(torch.square(x), dim=1))
+    return sqrt_rn(torch.mean(torch.square(x), dim=1))
+
+
+def _hundredth_over(d):
+    """0.01 / d, divided by a 0-d tensor on d's device: PyTorch computes a
+    Python scalar over a tensor as reciprocal() * 0.01, where the JAX
+    package (and K12) divides."""
+    return torch.full((), 0.01, dtype=d.dtype, device=d.device) / d
 
 
 def _initial_step(f, t0, y0, f0, rtol, atol):
@@ -88,7 +102,7 @@ def _initial_step(f, t0, y0, f0, rtol, atol):
     d2 = _rms((f1 - f0) / scale) / h0
     h1 = torch.where((d1 <= 1e-15) & (d2 <= 1e-15),
                      torch.clamp_min(h0 * 1e-3, 1e-6),
-                     (0.01 / torch.maximum(d1, d2)) ** 0.2)
+                     _hundredth_over(torch.maximum(d1, d2)) ** 0.2)
     return torch.minimum(100 * h0, h1)
 
 
@@ -157,6 +171,10 @@ def dopri45_integrate(f, y0, t0, t1, rtol=1e-3, atol=1e-6, max_steps=MAX_STEPS):
 ARENSTORF_A = 0.012277471
 
 
+def _double_bits(v: float) -> int:
+    return struct.unpack("<q", struct.pack("<d", v))[0]
+
+
 def arenstorf_f(a=ARENSTORF_A):
     """The restricted three-body right-hand side on (B, 4) states
     (expression order of pymgrit_tpu/models/arenstorf_orbit.py ``_f``)."""
@@ -188,6 +206,58 @@ def dopri45_arenstorf_plain(seed, tp, tc, out, g=None, rtol=1e-3, atol=1e-6, a=A
     return out
 
 
+def dopri45_arenstorf_pack(index, strides, J, L, max_steps, rtol, atol, a):
+    """The launcher's int64 argument array (csrc/dopri45_arenstorf.cu
+    ``launch``): device, six pointers (filled in by each call: seed, tp,
+    tc, out, g, attempts; 0 for an absent g or attempts), the strides
+    (seed's lane stride, out's lane and step strides, g's lane and step
+    strides), J, L, max_steps and the bits of rtol, atol and a as doubles."""
+    return array.array("q", (index, *(0,) * 6, *strides, J, L, max_steps,
+                             *map(_double_bits, (rtol, atol, a))))
+
+
+# dopri45_arenstorf's operands in the order of their facts (g and attempts
+# are None where absent)
+_DOPRI_KEYS = ("seed", "tp", "tc", "out", "g", "attempts")
+
+
+@functools.lru_cache(maxsize=1024)
+def _dopri_checked(facts, rtol, atol, a, max_steps):
+    """Every check of a K12 call, on the ``fact``s of seed, tp, tc, out, g
+    and attempts (None where absent) and the scalars, cached by them (K12
+    runs at every F- and C-relaxation and coarsest march of an Arenstorf
+    solve); returns (on the CPU, the launch: the argument array without
+    pointers, the launcher and the device index; None on the CPU or with
+    nothing to do)."""
+    name = "dopri45_arenstorf"
+    *floats, fatt = facts
+    present = [(k, f) for k, f in zip(_DOPRI_KEYS, floats) if f is not None]
+    _check_facts(name, [f for _, f in present], [k for k, _ in present].__getitem__)
+    (dtype, device, sshape, sstride), tpf, tcf, (_, _, oshape, ostride), fg = floats
+    if not (len(sshape) == 2 and sshape[1] == 4):
+        _require(False, name, f"seed has shape {tuple(sshape)}, expected (J, 4)")
+    J = sshape[0]
+    if not (len(oshape) == 3 and oshape[0] == J and oshape[2] == 4):
+        _require(False, name, f"out has shape {tuple(oshape)}, expected ({J}, L, 4)")
+    L = oshape[1]
+    if fg is not None and fg[2] != oshape:
+        _require(False, name, "g must have the shape of out")
+    if not (tuple(tpf[2]) == (L, J) and tcf[2] == tpf[2] and _contiguous(*tpf[2:])
+            and _contiguous(*tcf[2:])):
+        _require(False, name, f"tp and tc must be contiguous ({L}, {J}) tensors")
+    if fatt is not None and not (tuple(fatt[2]) == (L, J) and _contiguous(*fatt[2:])
+                                 and fatt[0] == torch.int32 and fatt[1] == device):
+        _require(False, name, f"attempts must be a contiguous ({L}, {J}) int32 tensor on {device}")
+    if not 0 <= max_steps <= 0x7fffffff:
+        _require(False, name, f"max_steps = {max_steps} must lie in [0, 2^31)")
+    if device.type == "cpu" or J * L == 0:
+        return device.type == "cpu", None
+    gs = fg[3][:2] if fg is not None else (0, 0)
+    args = dopri45_arenstorf_pack(device.index, (sstride[0], *ostride[:2], *gs), J, L, max_steps,
+                                  rtol, atol, a)
+    return False, (args, _launcher("pm_dopri45_arenstorf", dtype), device.index)
+
+
 def dopri45_arenstorf(seed, tp, tc, out, g=None, rtol=1e-3, atol=1e-6, a=ARENSTORF_A,
                       max_steps=MAX_STEPS, attempts=None):
     """Chained adaptive DOPRI5(4) steps of the Arenstorf orbit, every step
@@ -197,37 +267,26 @@ def dopri45_arenstorf(seed, tp, tc, out, g=None, rtol=1e-3, atol=1e-6, a=ARENSTO
     (J, L, 4) views (g optional); attempts: optional contiguous (L, J) int32
     tensor that receives the attempt count of every lane and step.  out
     must not overlap seed or g.  Returns out.
+
+    The checks and the packed argument array are cached by the operands'
+    facts and the scalars (``_dopri_checked``); a call on the card fills in
+    the pointers and makes one ctypes call.
     """
-    name = "dopri45_arenstorf"
-    ops = dict(seed=seed, tp=tp, tc=tc, out=out)
-    if g is not None:
-        ops["g"] = g
-    _check_operands(name, ops)
-    _require(seed.dim() == 2 and seed.shape[1] == 4, name,
-             f"seed has shape {tuple(seed.shape)}, expected (J, 4)")
-    J = seed.shape[0]
-    _require(out.dim() == 3 and out.shape[0] == J and out.shape[2] == 4, name,
-             f"out has shape {tuple(out.shape)}, expected ({J}, L, 4)")
-    L = out.shape[1]
-    _require(g is None or g.shape == out.shape, name, "g must have the shape of out")
-    _require(tuple(tp.shape) == (L, J) and tp.shape == tc.shape and tp.is_contiguous()
-             and tc.is_contiguous(), name, f"tp and tc must be contiguous ({L}, {J}) tensors")
-    _require(attempts is None or (tuple(attempts.shape) == (L, J) and attempts.is_contiguous()
-                                  and attempts.dtype == torch.int32
-                                  and attempts.device == seed.device), name,
-             f"attempts must be a contiguous ({L}, {J}) int32 tensor on {seed.device}")
-    if seed.device.type == "cpu":
+    facts = tuple(None if t is None else fact(t) for t in (seed, tp, tc, out, g, attempts))
+    on_cpu, launch = _dopri_checked(facts, float(rtol), float(atol), float(a), int(max_steps))
+    if on_cpu:
         return dopri45_arenstorf_plain(seed, tp, tc, out, g, rtol, atol, a, max_steps, attempts)
-    if J == 0 or L == 0:
+    if launch is None:
         return out
-    fn = _launcher("pm_dopri45_arenstorf", seed.dtype)
-    stream = torch.cuda.current_stream(seed.device).cuda_stream
-    status = fn(seed.data_ptr(), seed.stride(0), tp.data_ptr(), tc.data_ptr(), out.data_ptr(),
-                out.stride(0), out.stride(1), g.data_ptr() if g is not None else None,
-                g.stride(0) if g is not None else 0, g.stride(1) if g is not None else 0,
-                attempts.data_ptr() if attempts is not None else None, float(rtol), float(atol),
-                float(a), int(max_steps), J, L, stream)
-    _build.check(status, name)
+    tmpl, fn, index = launch
+    args = tmpl[:]
+    args[1], args[2], args[3], args[4] = seed.data_ptr(), tp.data_ptr(), tc.data_ptr(), \
+        out.data_ptr()
+    if g is not None:
+        args[5] = g.data_ptr()
+    if attempts is not None:
+        args[6] = attempts.data_ptr()
+    _build.check(fn(args.buffer_info()[0], _build.stream(index)), "dopri45_arenstorf")
     dopri45_arenstorf.launches += 1
     return out
 
@@ -259,10 +318,6 @@ def rk4_brusselator_plain(seed, tp, tc, out, g=None, a=1.0, b=3.0):
             x = g[:, k] + x
         out[:, k] = x
     return out
-
-
-def _double_bits(v: float) -> int:
-    return struct.unpack("<q", struct.pack("<d", v))[0]
 
 
 def rk4_brusselator_pack(index, strides, J, L, a, b):

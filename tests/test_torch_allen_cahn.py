@@ -37,7 +37,7 @@ def _cpu(mod):
 
 
 RTOL = 1e-12
-H_RTOL, FLOOR_OPS = 1e-9, 8
+H_RTOL = 1e-9
 METHODS = ["IMEX", "CN", "IMPL"]
 T_STOP, NT, MS = 0.032, 65, (4, 4)     # levels 65 / 17 / 5
 
@@ -80,9 +80,15 @@ def _build(mod, method, nx=16):
 
 
 def _floor(mgrit):
+    """The repo's history floor (8 + 4 sqrt(n)) eps ||u_C||_2 of the port's
+    level-0 tube: n the state's size, u_C the C-point rows.  The JAX side
+    moves with the host's processor (XLA compiles for it): the IMEX
+    history's last entry is 2.51e-13 under AVX2 and AVX-512 and 7.77e-13
+    under SSE4.2, the port's 4.81e-13 under every ATen capability."""
     u0 = _np(mgrit.u[0])
     info = mgrit.levels[0]
-    return FLOOR_OPS * np.finfo(np.float64).eps * np.linalg.norm(u0[0:info.nt:info.m])
+    n = u0[0].size
+    return (8 + 4 * np.sqrt(n)) * np.finfo(np.float64).eps * np.linalg.norm(u0[0:info.nt:info.m])
 
 
 def _check_history(hp, hj, mp):

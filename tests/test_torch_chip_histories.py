@@ -7,8 +7,14 @@ residual histories of its ``[ragged]``, ``[bdf]``, ``[diffusion]``,
 ``BDF_JAX``, ``DIFFUSION_JAX``, ``PYTREE_JAX``, ``DD_TOMS_JAX``,
 ``DD65_JAX``).  Each case here builds
 that configuration, at its full size, in the JAX package from the script's
-own settings and grids and holds the history against the constant at rtol
-1e-12 (on the CPU; the constants were printed by such a run).  The two DD
+own settings and grids and holds the history against the constant at the
+repo's history floor: rtol 1e-9 with atol (8 + 4 sqrt(n)) eps ||u_C||_2,
+n the state's size and u_C the C-point rows of this solve's own level-0
+tube (``_floor``).  The constants were printed by such a run on another
+host, and XLA compiles the CPU code for the host's processor: the ragged
+history moved by 5.07e-15 (1.07e-9 relative) between the host that
+printed it and an AVX-512 host, and by 2.26e-15 under
+``XLA_FLAGS=--xla_cpu_max_isa=SSE4_2``, against its floor of 2.10e-12.  The two DD
 rows take minutes here (dd_toms129 about 70 s, dd65 about 7 minutes: the
 Ozaki products of the physical basis), so they are marked slow; regenerate
 a constant with ``python -m pytest tests/test_torch_chip_histories.py -m
@@ -20,6 +26,7 @@ and the JAX package on every run of the suite.
 import sys
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,7 +36,19 @@ import pymgrit_tpu as J
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
 
-RTOL = 1e-12
+RTOL = 1e-12                    # the slow DD rows, held as before
+H_RTOL = 1e-9                   # the float64 histories, with the floor as atol
+EPS = np.finfo(np.float64).eps
+
+
+def _floor(mgrit):
+    """(8 + 4 sqrt(n)) eps ||u_C||_2 of a JAX solve's level-0 tube: n the
+    state's size over every leaf, u_C the rows of the level's C-points."""
+    cpts = np.asarray(mgrit.levels[0].cpts)
+    leaves = [np.asarray(x) for x in jax.tree_util.tree_leaves(mgrit.u[0])]
+    n = sum(x[0].size for x in leaves)
+    norm = np.sqrt(sum(np.sum(np.square(x[cpts])) for x in leaves))
+    return (8 + 4 * np.sqrt(n)) * EPS * norm
 
 
 def _ragged():
@@ -42,7 +61,7 @@ def _ragged():
                         a=1.0, rhs=rhs, init_cond=lambda x, y: 0 * x * y, t_interval=g.copy())
                for g in chip_smoke.ragged_grids()]
     mgrit = J.Mgrit(problem=problem, tol=cfg["tol"], max_iter=cfg["max_iter"], logging_lvl=40)
-    return mgrit.solve_compiled()["conv"], chip_smoke.RAGGED_JAX
+    return mgrit.solve_compiled()["conv"], chip_smoke.RAGGED_JAX, _floor(mgrit)
 
 
 def _bdf():
@@ -57,7 +76,7 @@ def _bdf():
     problem = [J.Heat1DBDF2(t_interval=ti, **kw), J.Heat1DBDF1(t_interval=ti[::2], **kw),
                J.Heat1DBDF1(t_interval=ti[::4], **kw)]
     mgrit = J.Mgrit(problem=problem, tol=cfg["tol"], max_iter=cfg["max_iter"], logging_lvl=30)
-    return mgrit.solve()["conv"], chip_smoke.BDF_JAX
+    return mgrit.solve()["conv"], chip_smoke.BDF_JAX, _floor(mgrit)
 
 
 def _diffusion():
@@ -65,7 +84,7 @@ def _diffusion():
     problem = [J.Diffusion2D(n=cfg["n"], length=10.0, kappa=0.1, t_start=0, t_stop=10, nt=nt)
                for nt in cfg["nts"]]
     mgrit = J.Mgrit(problem=problem, tol=cfg["tol"], max_iter=cfg["max_iter"], logging_lvl=30)
-    return mgrit.solve()["conv"], chip_smoke.DIFFUSION_JAX
+    return mgrit.solve()["conv"], chip_smoke.DIFFUSION_JAX, _floor(mgrit)
 
 
 def _dd_problem(mod, cfg, basis, **kw):
@@ -93,25 +112,30 @@ def _dd_row(cfg, basis, committed):
                         max_iter=cfg["max_iter"], logging_lvl=30)
         history = mgrit.solve()["conv"]
         print(basis, repr(np.asarray(history).tolist()))
-        return history, committed
+        return history, committed, None
     return run
 
 
 @pytest.mark.parametrize("run", [_ragged, _bdf, _diffusion], ids=["ragged", "bdf", "diffusion"])
 def test_committed_jax_history_is_jax_history(run):
-    history, committed = run()
+    """The history at rtol 1e-9 and the solve's floor (a DD row, with no
+    floor: at rtol 1e-12)."""
+    history, committed, floor = run()
     history = np.asarray(history)
     assert history.shape == committed.shape
-    np.testing.assert_allclose(history, committed, rtol=RTOL, atol=0)
+    if floor is None:
+        np.testing.assert_allclose(history, committed, rtol=RTOL, atol=0)
+    else:
+        np.testing.assert_allclose(history, committed, rtol=H_RTOL, atol=floor)
 
 
 @pytest.mark.parametrize("case", sorted(chip_smoke.PYTREE_CASES))
 def test_committed_pytree_history_is_jax_history(case):
     # the [pytree] applications in the JAX package (chip_smoke.pytree_app
     # with jax.numpy)
-    _, h = chip_smoke.pytree_run(J, jnp, case)
+    mg, h = chip_smoke.pytree_run(J, jnp, case)
     assert h.shape == chip_smoke.PYTREE_JAX[case].shape
-    np.testing.assert_allclose(h, chip_smoke.PYTREE_JAX[case], rtol=RTOL, atol=0)
+    np.testing.assert_allclose(h, chip_smoke.PYTREE_JAX[case], rtol=H_RTOL, atol=_floor(mg))
 
 
 @pytest.mark.slow   # dd_toms129 about 70 s, dd65 about 7 minutes on the CPU
