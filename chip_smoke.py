@@ -112,7 +112,24 @@ phases:
              plain in alternating pairs after a warm solve and against the
              JAX package's histories (the DD floor included), with no
              float64 kernel launched; the Dahlquist README golden and
-             Diffusion2D (n = 8) against the float64 history, in DD.
+             Diffusion2D (n = 8) against the float64 history, in DD;
+20. observe  the solver's observability on the full spectral TOMS solve:
+             ``profile_phases`` (the JAX package's keys, every time
+             positive, the next solve bit for bit a solve's without it),
+             ``solve_profiled``'s trace (it must name K1-K4's kernels),
+             and a compiled max-C-point-jump criterion against ``solve()``
+             with the condensed carry declined, its wall and peak memory
+             against the condensed solve's;
+21. callback ``CallbackApplication`` stepping Heat1D (nx = 129, nt = 257,
+             4/4) on the host with scipy, against the port's Heat1D on
+             the card, one round trip each way a batched call;
+22. machine  the induction machine against a mock GetDP it writes into a
+             temporary directory (``MOCK_GETDP``): ``MgritMachineConvJl``
+             in ``solve`` and ``solve_compiled`` against each other,
+             ``MACHINE_JAX`` and the sequential march, ``MgritMachine``'s
+             PWM flag on the mock's argv log, and the machine on the two
+             fixture meshes through ``GridTransferMachine`` against
+             ``TWO_MESH_JAX``.
 
 ``python3 chip_smoke.py --kernels=interval_affine,interpolate_combine`` runs
 phases 1-3 (and ``[dd-kernels]``) for the named kernels alone (float64 and
@@ -139,10 +156,13 @@ is the JSON result.  Numbers are measured in this run on this card.
 
 import json
 import math
+import os
 import re
 import shutil
+import stat
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -394,6 +414,102 @@ DD_FORBIDDEN = ("interval_affine", "theta_chain", "cpoint_combine", "sine_solve2
 # K26 sums float64 products in DMMA's k4 groups, torch.matmul in cuBLAS's
 # order: within 1e-14 of the largest |A| |B| entry
 DD_MATMUL_RTOL = 1e-14
+# [observe]: profile_phases (the JAX package's keys), solve_profiled's trace
+# (which must name K1-K4) and a max-C-point-jump compiled criterion on the
+# full spectral TOMS solve (TOMS, MAIN_TOL, MAIN_MAX_ITER)
+OBSERVE_SYMBOLS = ("interval_affine_kernel", "theta_chain_kernel", "residual_row_norms_kernel",
+                   "cpoint_combine_kernel")
+OBSERVE_RTOL = 1e-10
+# [callback]: a CallbackApplication stepping Heat1D by backward Euler on
+# the host (a dense LU a step size), against the port's Heat1D (K20)
+CALLBACK = dict(nx=129, nt=257, ms=(4, 4), t_stop=2.0, tol=1e-9, max_iter=8)
+CALLBACK_RTOL = 1e-9
+# [machine]: the induction machine against a mock GetDP (backward Euler on
+# u' = -u + 1, one sub-step per dtime, the protocol of
+# tests/models/test_induction_machine_e2e.py); MACHINE_JAX: the JAX
+# package's MgritMachineConvJl history (tests/test_torch_induction_machine.py
+# recomputes it)
+MACHINE = dict(nts=(9, 3), t_stop=0.8, tol=1e-6, max_iter=6)
+MACHINE_PWM = dict(nts=(5, 3), t_stop=0.8, tol=1e-12, max_iter=1)
+MACHINE_JAX = np.array([100.0, 18.757691435941737, 0.0])
+# two meshes (tests/models/fixtures/im: the middle leaf 64 unknowns on level
+# 0, 32 on level 1, GridTransferMachine between them), two iterations of
+# Mgrit with the machine's state_norm: the JAX package's history
+# (tests/test_torch_induction_machine.py recomputes it)
+TWO_MESH_JAX = np.array([0.5835742134951456, 0.4900747706315435])
+MACHINE_RTOL = 1e-10
+MACHINE_MIDDLE = 5                          # unknowns in the mock's grid .pre
+MOCK_GETDP = '''#!{python} -S
+"""Mock GetDP: the CLI surface InductionMachine.run_getdp drives.
+Dynamics: backward Euler on u' = -u + 1, one sub-step per dtime."""
+import os
+import sys
+
+NUM_DOFS = {num_dofs}
+LOG = {log!r}
+
+with open(LOG, "a") as f:
+    f.write(" ".join(sys.argv[1:]) + chr(10))
+
+if "--version" in sys.argv:
+    sys.stdout.write("mock-getdp 2.10.0" + chr(10))
+    sys.exit(0)
+
+
+def opt(flag):
+    return sys.argv[sys.argv.index(flag) + 1]
+
+
+def setnum(name):
+    for i, a in enumerate(sys.argv):
+        if a == "-setnumber" and sys.argv[i + 1] == name:
+            return float(sys.argv[i + 2])
+    raise SystemExit("missing -setnumber " + name)
+
+
+name = opt("-name")
+res = opt("-res")
+timemax = setnum("timemax")
+dtime = setnum("dtime")
+
+if "-pre" in sys.argv:
+    # get_preresolution reads the 6th line after $DofData, last field
+    lines = ["$Resolution /* mock */", "1 1", "$EndResolution",
+             "$DofData  /* #0 */", "1 1", "0", "0", "0",
+             "1 %d" % NUM_DOFS, "$EndDofData"]
+    with open(name + ".pre", "w") as f:
+        f.write(chr(10).join(lines) + chr(10))
+    sys.exit(0)
+
+# -restart: read the step-0 seed written by set_resolution
+with open(res) as f:
+    content = f.readlines()
+i = next(k for k, s in enumerate(content) if "$Solution" in s)
+t0 = float(content[i + 1].split()[1])
+u = [float(s.split()[0]) for s in content[i + 2:i + 2 + NUM_DOFS]]
+
+n = max(1, int(round((timemax - t0) / dtime)))
+blocks = []
+t = t0
+for k in range(1, n + 1):
+    t = t0 + k * dtime
+    u = [(x + dtime) / (1.0 + dtime) for x in u]
+    blocks.append("$Solution  /* DofData #0 */")
+    blocks.append("0 %r 0 %d" % (t, k))
+    blocks += ["%r 0" % x for x in u]
+    blocks.append("$EndSolution")
+with open(res, "a") as f:
+    f.write(chr(10) + chr(10).join(blocks) + chr(10))
+
+jl = sum(x * x for x in u)
+outdir = os.path.dirname(name)
+scal = {{"JL": jl, "Ia": 1.0, "Ib": 2.0, "Ic": 3.0,
+         "Ua": 4.0, "Ub": 5.0, "Uc": 6.0, "Tr": 7.0}}
+for suffix, val in scal.items():
+    with open(os.path.join(outdir, "res%s.dat" % suffix), "w") as f:
+        f.write("0 %r %r" % (t, val) + chr(10))
+sys.exit(0)
+'''
 # H100 SXM at 700 W (NVIDIA's data sheet): HBM bytes/s and the peak rates of
 # the units that could do the kernels' operations (FP64 and FP32 outside the
 # tensor cores; FP64 on the tensor cores, DMMA, for dense products)
@@ -4609,8 +4725,395 @@ def profile_cells(card):
         torch.cuda.empty_cache()
 
 
+def max_jump_class(P):
+    """A solver whose criterion is the largest change of a C-point value
+    from the previous iterate, in solve() and in solve_compiled() (the
+    pattern of tests/core/test_compiled_solve.py:47-87)."""
+    import torch
+
+    class MaxJumpMgrit(P.Mgrit):
+        def _cpts(self):
+            return torch.as_tensor(self.levels[0].cpts, device=self.device)
+
+        def convergence_criterion(self, iteration):
+            u_c = self.u[0][self._cpts()].cpu().numpy()
+            prev = getattr(self, "_prev", None)
+            conv = np.max(np.abs(u_c - (np.zeros_like(u_c) if prev is None else prev)))
+            self.conv[iteration] = conv
+            self._all_below = conv < self.tol
+            self._prev = u_c
+
+        def compiled_convergence_criterion(self, state, aux):
+            u_c = state[0][0][self._cpts()]
+            conv = torch.max(torch.abs(u_c - aux))
+            return conv, conv < self.tol, u_c
+
+        def compiled_conv_aux_init(self):
+            return torch.zeros_like(self.u[0][self._cpts()])
+
+    return MaxJumpMgrit
+
+
+def profile_phase_keys(lvl_max):
+    """The keys of the JAX package's ``Mgrit.profile_phases``."""
+    keys = [f"{p}[{lvl}]" for lvl in range(lvl_max - 1)
+            for p in ("f_relax", "c_relax", "fas_residual")]
+    return set(keys + [f"forward_solve[{lvl_max - 1}]", "convergence", "full_iteration"])
+
+
+def reset_peak():
+    """Reset the card's peak-memory count; the bytes allocated now, which a
+    peak read later is taken from."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def synced_wall(fn):
+    """(fn's result, its wall in s), the card synchronised before and after."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_observe(card):
+    """The solver's observability on the full spectral TOMS solve:
+    ``profile_phases``, ``solve_profiled`` and a compiled custom criterion."""
+    import torch
+    import pymgrit_tpu_torch as P
+    from pymgrit_tpu_torch.ops import DISPATCH, launch_counts, reset_launch_counts
+
+    # one problem for every solver: its tables take seconds to build
+    problem = build_problem(P, device=DEVICE, ops=DISPATCH, **TOMS)
+
+    def solver(cls=P.Mgrit):
+        return cls(problem=problem, tol=MAIN_TOL, max_iter=MAIN_MAX_ITER, logging_lvl=30)
+
+    ma = solver()
+    phases = ma.profile_phases(repeats=2)
+    print("[observe] profile_phases(repeats=2), ms a call: "
+          + ", ".join(f"{k} {v * 1e3:.4f}" for k, v in phases.items()) + f" | {card}")
+    check(set(phases) == profile_phase_keys(ma.lvl_max),
+          f"observe: profile_phases keys {sorted(phases)} are not the JAX package's")
+    check(all(v > 0 for v in phases.values()), f"observe: a phase time is not positive: {phases}")
+    ha = ma.solve_compiled()["conv"]
+    base = reset_peak()
+    mb = solver()
+    hb, wall_cnd = synced_wall(lambda: mb.solve_compiled()["conv"])
+    peak_cnd = torch.cuda.max_memory_allocated() - base
+    same = np.array_equal(ha, hb) and torch.equal(ma.u[0], mb.u[0])
+    print(f"[observe] solve after profile_phases vs without: {ha.size} / {hb.size} iterations, "
+          f"history and tube bit for bit {same} | {'ok' if same else 'FAIL'}")
+    check(same, "observe: profile_phases changed the next solve")
+    del ma, mb
+    torch.cuda.empty_cache()
+
+    mc = solver()
+    hc, wall_solve = synced_wall(lambda: mc.solve()["conv"])
+    md = solver()
+    with tempfile.TemporaryDirectory() as trace_dir:
+        hd, wall_prof = synced_wall(lambda: md.solve_profiled(trace_dir)["conv"])
+        traces = sorted(Path(trace_dir).glob("*.json"))
+        text = traces[0].read_text() if traces else ""
+        size = traces[0].stat().st_size if traces else 0
+    named = {s: s in text for s in OBSERVE_SYMBOLS}
+    ok = bool(traces) and all(named.values()) and np.array_equal(hc, hd)
+    print(f"[observe] solve_profiled: trace {[t.name for t in traces]} ({size} bytes), kernels "
+          f"named {named}; history equals solve()'s {np.array_equal(hc, hd)} | solve wall "
+          f"{wall_solve:.4f} s, profiled {wall_prof:.4f} s | {'ok' if ok else 'FAIL'}")
+    check(ok, "observe: the profiled solve's trace is missing, lacks K1-K4, or its history moved")
+    del mc, md
+    torch.cuda.empty_cache()
+
+    MaxJump = max_jump_class(P)
+    base = reset_peak()
+    me = solver(MaxJump)
+    check(not me._condensed0 and me._cnd_decline_reason is not None,
+          "observe: the condensed carry was not declined under a custom criterion")
+    reset_launch_counts()
+    he, wall_custom = synced_wall(lambda: me.solve_compiled()["conv"])
+    counts = launch_counts()
+    peak_custom = torch.cuda.max_memory_allocated() - base
+    reason = me._cnd_decline_reason
+    del me
+    torch.cuda.empty_cache()
+    hf = solver(MaxJump).solve()["conv"]
+    ok = he.shape == hf.shape and bool(np.allclose(he, hf, rtol=OBSERVE_RTOL, atol=0.0))
+    print(f"[observe] max-C-point-jump criterion: condensed carry declined "
+          f"({reason}); solve_compiled {he.size} iterations "
+          f"{[float(f'{h:.6e}') for h in he]} vs solve() {hf.size}: max rel "
+          f"{float(np.max(np.abs(he - hf) / np.abs(hf))) if he.shape == hf.shape else 'n/a'} "
+          f"(rtol {OBSERVE_RTOL:.0e}); launches {json.dumps({k: counts[k] for k in SPECTRAL_KERNELS})} "
+          f"| wall {wall_custom:.4f} s, peak {peak_custom / 2 ** 30:.3f} GiB (setup and solve); "
+          f"condensed solve_compiled {wall_cnd:.4f} s, peak {peak_cnd / 2 ** 30:.3f} GiB | "
+          f"{'ok' if ok else 'FAIL'} | {card}")
+    check(ok, "observe: the compiled custom criterion's history differs from solve()'s")
+    # the criterion takes the place of the residual: K3 is not launched
+    check(all(counts[k] > 0 for k in ("interval_affine", "theta_chain", "cpoint_combine"))
+          and counts["residual_row_norms"] == 0,
+          f"observe: the custom-criterion solve's launches are not K1, K2, K4 alone: {counts}")
+
+
+def host_heat1d_step(nx, x_end):
+    """A backward-Euler Heat1D step on the host: (I + dt L) u' = u with the
+    3-point Laplacian of the nx - 2 interior points, one dense LU a step
+    size (scipy)."""
+    from scipy.linalg import lu_factor, lu_solve
+    n = nx - 2
+    fac = 1.0 / (x_end / (nx - 1)) ** 2
+    lap = fac * (2 * np.eye(n) - np.eye(n, k=1) - np.eye(n, k=-1))
+    lus = {}
+
+    def host_step(u, t_start, t_stop):
+        dt = t_stop - t_start
+        if dt not in lus:
+            lus[dt] = lu_factor(np.eye(n) + dt * lap)
+        return lu_solve(lus[dt], u)
+    return host_step
+
+
+class Counted:
+    """Counts the calls of a function, calling it unchanged."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, 0
+
+    def __call__(self, *args, **kw):
+        self.calls += 1
+        return self.fn(*args, **kw)
+
+
+def phase_callback(card):
+    """A ``CallbackApplication`` stepping Heat1D on the host, against the
+    port's Heat1D on the card."""
+    import torch
+    import pymgrit_tpu_torch as P
+    from pymgrit_tpu_torch.coupling import callback
+    from pymgrit_tpu_torch.ops import launch_counts, reset_launch_counts
+    cfg = CALLBACK
+    x = np.linspace(0, 2, cfg["nx"])[1:-1]
+    t, strides = np.linspace(0, cfg["t_stop"], cfg["nt"]), np.cumprod((1,) + cfg["ms"])
+    host_step = Counted(host_heat1d_step(cfg["nx"], 2.0))
+    apps = [callback.CallbackApplication(host_step=host_step, vector_template=np.zeros(x.size),
+                                         vector_t_start=np.sin(np.pi * x), t_interval=t[::s],
+                                         device=DEVICE) for s in strides]
+    for app in apps:
+        app.step_batched = Counted(app.step_batched)
+    moves = {name: Counted(getattr(callback, name)) for name in ("to_host", "to_device")}
+    saved = {name: getattr(callback, name) for name in moves}
+    kw = dict(tol=cfg["tol"], max_iter=cfg["max_iter"], logging_lvl=30)
+    try:
+        for name, fn in moves.items():
+            setattr(callback, name, fn)
+        mg = P.Mgrit(problem=apps, **kw)
+        setup_moves = {k: v.calls for k, v in moves.items()}
+        reset_launch_counts()
+        hc, wall_cb = synced_wall(lambda: mg.solve()["conv"])
+        counts = launch_counts()
+    finally:
+        for name, fn in saved.items():
+            setattr(callback, name, fn)
+    batched = sum(app.step_batched.calls for app in apps)
+    trips = {k: v.calls for k, v in moves.items()}
+    native = P.Mgrit(problem=[P.Heat1D(x_start=0, x_end=2, nx=cfg["nx"], a=1,
+                                       init_cond=lambda xx: np.sin(np.pi * xx), t_interval=t[::s],
+                                       device=DEVICE) for s in strides], **kw)
+    hn, wall_nat = synced_wall(lambda: native.solve()["conv"])
+    ok_h = hc.shape == hn.shape and bool(np.allclose(hc, hn, rtol=CALLBACK_RTOL, atol=0.0))
+    ok_trips = trips["to_host"] == trips["to_device"] == batched > 0
+    du = float((mg.u[0] - native.u[0]).abs().max())
+    print(f"[callback] Heat1D nx={cfg['nx']} nt={cfg['nt']} ms={cfg['ms']} on the host "
+          f"(scipy LU): {hc.size} iterations {[float(f'{h:.6e}') for h in hc]} vs the port's "
+          f"Heat1D {hn.size}: max rel {float(np.max(np.abs(hc - hn) / np.abs(hn))) if ok_h else 'n/a'} "
+          f"(rtol {CALLBACK_RTOL:.0e}), tube max diff {du:.3e} | solve: {batched} batched calls, "
+          f"{host_step.calls} host steps, round trips to host {trips['to_host']}, to the card "
+          f"{trips['to_device']} (setup: {setup_moves}); K3 {counts['residual_row_norms']}, "
+          f"K4 {counts['cpoint_combine']} launches | wall {wall_cb:.4f} s, native {wall_nat:.4f} s "
+          f"| {'ok' if ok_h and ok_trips else 'FAIL'} | {card}")
+    check(ok_h, "callback: the host-stepped history differs from the port's Heat1D")
+    check(ok_trips, f"callback: not one round trip each way a batched call: {trips}, {batched}")
+    check(counts["residual_row_norms"] > 0 and counts["cpoint_combine"] > 0,
+          f"callback: K3 or K4 was never launched: {counts}")
+
+
+def machine_env(directory):
+    """The mock GetDP (``MOCK_GETDP``), its problem file, grid files and an
+    empty argv log, written into directory; the InductionMachine keywords
+    that point at them, and the log's path."""
+    d = Path(directory)
+    log, mock = d / "argv.log", d / "mock_getdp"
+    mock.write_text(MOCK_GETDP.format(python=sys.executable, num_dofs=MACHINE_MIDDLE + 8 + 15,
+                                      log=str(log)))
+    mock.chmod(mock.stat().st_mode | stat.S_IEXEC)
+    (d / "im_3kW.pro").write_text("/* mock problem file */\n")
+    (d / "grid.msh").write_text("$MeshFormat\n4 0 8\n$EndMeshFormat\n")
+    # pre_file reads content[9:-35]: row[1] the node tag, row[4] the
+    # unknown (0/-1/1: a boundary node)
+    header = ["$Resolution /* fixture */", "1 1", "$EndResolution", "$DofData  /* #0 */", "1 1",
+              "0", "0", "1 %d" % MACHINE_MIDDLE, "dummy"]
+    rows = ["1 %d 0 0 %d" % (k + 1, 10 + k) for k in range(MACHINE_MIDDLE)]
+    rows += ["1 100 0 0 0", "1 101 0 0 0"]
+    footer = ["footer"] * 34 + ["$EndDofData"]
+    (d / "grid.pre").write_text("\n".join(header + rows + footer) + "\n")
+    log.write_text("")
+    return dict(grid="grid", path_im3kw=str(d) + os.sep, path_getdp=str(mock)), str(log)
+
+
+def two_mesh_env(directory):
+    """The committed im fixture meshes (tests/models/fixtures/im: 64
+    unknowns on the fine mesh, 32 on the coarse) copied into directory, a
+    mock GetDP a mesh (its DOF count) logging into one argv log: the
+    InductionMachine keywords of each grid, and the path of the meshes."""
+    d = Path(directory)
+    fixtures = ROOT / "tests" / "models" / "fixtures" / "im"
+    (d / "im_3kW.pro").write_text("/* mock problem file */\n")
+    kws = {}
+    for grid, middle in (("machine_fine", 64), ("machine_coarse", 32)):
+        for ext in (".pre", ".msh"):
+            shutil.copy(fixtures / (grid + ext), d / (grid + ext))
+        mock = d / f"getdp_{grid}"
+        mock.write_text(MOCK_GETDP.format(python=sys.executable, num_dofs=middle + 8 + 15,
+                                          log=str(d / "argv.log")))
+        mock.chmod(mock.stat().st_mode | stat.S_IEXEC)
+        kws[grid] = dict(grid=grid, path_im3kw=str(d) + os.sep, path_getdp=str(mock))
+    return kws, str(d) + os.sep
+
+
+def two_mesh_machine(mgrit, machine, transfer, kws, path, max_iter, **dev):
+    """A two-level machine solver (nt 17 and 9 on [0, 0.8]) whose levels
+    sit on the fine and the coarse mesh, a transfer between them; the
+    classes (``Mgrit``, ``InductionMachine``, ``GridTransferMachine``) of
+    either package."""
+    t = np.linspace(0, 0.8, 17)
+    apps = [machine(**kws[grid], t_interval=t[::s], **dev)
+            for grid, s in (("machine_fine", 1), ("machine_coarse", 2))]
+    return mgrit(problem=apps, transfer=[transfer("machine_coarse", "machine_fine", path)],
+                 tol=1e-14, max_iter=max_iter, logging_lvl=30, nested_iteration=True)
+
+
+def getdp_calls(log):
+    """The -restart lines of the mock's argv log, and its -pre count."""
+    lines = [ln for ln in Path(log).read_text().splitlines() if ln]
+    return [ln for ln in lines if "-restart" in ln], sum(" -pre " in ln for ln in lines)
+
+
+def machine_march(n_steps, dt):
+    """The sequential backward-Euler march of the mock's dynamics from 0."""
+    u = np.zeros(MACHINE_MIDDLE + 8 + 15)
+    for _ in range(n_steps):
+        u = (u + dt) / (1.0 + dt)
+    return u
+
+
+def phase_machine(card):
+    """The induction machine against a mock GetDP: ``MgritMachineConvJl``
+    in solve() and solve_compiled(), ``MgritMachine``'s PWM switch, and a
+    machine on two meshes with ``GridTransferMachine``."""
+    import torch
+    from pymgrit_tpu_torch import Mgrit
+    from pymgrit_tpu_torch.coupling import callback
+    from pymgrit_tpu_torch.models.induction_machine import (InductionMachine, MgritMachine,
+                                                            MgritMachineConvJl)
+    from pymgrit_tpu_torch.models.induction_machine.machine_state import get_values
+    from pymgrit_tpu_torch.ops import launch_counts, reset_launch_counts
+    cfg = MACHINE
+    with tempfile.TemporaryDirectory() as tmp:
+        env, log = machine_env(tmp)
+
+        def apps(c, **kw):
+            return [InductionMachine(**env, t_start=0.0, t_stop=c["t_stop"], nt=nt,
+                                     device=DEVICE, **kw) for nt in c["nts"]]
+
+        runs = {}
+        for method in ("solve", "solve_compiled"):
+            problem = apps(cfg)
+            Path(log).write_text("")
+            moves = Counted(callback.to_host)
+            callback.to_host = moves
+            try:
+                reset_launch_counts()
+                mg, wall = synced_wall(lambda: MgritMachineConvJl(
+                    problem=problem, tol=cfg["tol"], max_iter=cfg["max_iter"], logging_lvl=30,
+                    nested_iteration=True))
+                _, wall_solve = synced_wall(getattr(mg, method))
+                counts = launch_counts()
+            finally:
+                callback.to_host = moves.fn
+            restarts, pres = getdp_calls(log)
+            runs[method] = mg
+            print(f"[machine] MgritMachineConvJl nt {cfg['nts']} {method}: {mg.solve_iter} "
+                  f"iterations, history {mg.conv[:mg.solve_iter + 1].tolist()} | {len(restarts)} "
+                  f"GetDP round trips ({pres} -pre, {len(restarts)} -restart) in "
+                  f"{moves.calls} batched host round trips | K4 {counts['cpoint_combine']} "
+                  f"launches | setup {wall:.3f} s, solve {wall_solve:.3f} s")
+            check(counts["cpoint_combine"] > 0, f"machine: K4 was never launched: {counts}")
+        s, c = runs["solve"], runs["solve_compiled"]
+        hs, hc = s.conv[:s.solve_iter + 1], c.conv[:c.solve_iter + 1]
+        same = s.solve_iter == c.solve_iter and bool(np.allclose(hc, hs, rtol=MAIN_RTOL, atol=0))
+        jax_ok = hs.shape == MACHINE_JAX.shape and bool(
+            np.allclose(hs, MACHINE_JAX, rtol=MAIN_RTOL, atol=0))
+        ref = machine_march(cfg["nts"][0] - 1, cfg["t_stop"] / (cfg["nts"][0] - 1))
+        errs = []
+        for mg in (s, c):
+            last = {k: v[-1] for k, v in mg.u[0].items()}
+            u_last = get_values(last).cpu().numpy()
+            errs.append(float(np.max(np.abs(u_last - ref) / np.abs(ref))))
+            errs.append(abs(float(last["scalars"][0]) - float(np.sum(ref ** 2)))
+                        / float(np.sum(ref ** 2)))
+        march_ok = max(errs) <= MACHINE_RTOL
+        print(f"[machine] solve vs solve_compiled: iterations {s.solve_iter} / {c.solve_iter}, "
+              f"histories equal (rtol {MAIN_RTOL:.0e}) {same}, bit for bit {np.array_equal(hs, hc)}; "
+              f"vs MACHINE_JAX {jax_ok}; final state and joule losses vs the "
+              f"{cfg['nts'][0] - 1}-step march: max rel {max(errs):.3e} (rtol {MACHINE_RTOL:.0e}) | "
+              f"{'ok' if same and jax_ok and march_ok else 'FAIL'}")
+        check(same, "machine: solve and solve_compiled differ")
+        check(jax_ok, f"machine: history {hs.tolist()} is not the JAX package's")
+        check(march_ok, f"machine: final state off the sequential march by {max(errs):.3e}")
+        del runs, s, c
+
+        pc = MACHINE_PWM
+        problem = apps(pc, pwm=1)
+        Path(log).write_text("")
+        mg, wall = synced_wall(lambda: MgritMachine(problem=problem, tol=pc["tol"],
+                                                    max_iter=pc["max_iter"], logging_lvl=30,
+                                                    nested_iteration=True))
+        nested, _ = getdp_calls(log)
+        restored = [float(p.fopt[-1]) for p in problem]
+        Path(log).write_text("")
+        _, wall_solve = synced_wall(mg.solve)
+        cycle, _ = getdp_calls(log)
+        pwm_nested = [ln.split()[-1] for ln in nested]
+        pwm_cycle = [ln.split()[-1] for ln in cycle]
+        ok = (bool(nested) and all(v == "0" for v in pwm_nested) and bool(cycle)
+              and all(float(v) == 1.0 for v in pwm_cycle) and all(r == 1 for r in restored))
+        print(f"[machine] MgritMachine pwm=1 nt {pc['nts']}: Flag_PWM on {len(nested)} "
+              f"nested-iteration -restart calls {sorted(set(pwm_nested))}, on {len(cycle)} cycle "
+              f"calls {sorted(set(pwm_cycle))}, restored {restored} | setup {wall:.3f} s, solve "
+              f"{wall_solve:.3f} s | {'ok' if ok else 'FAIL'} | {card}")
+        check(ok, "machine: the PWM flag was not 0 in nested iteration and restored after")
+
+    from pymgrit_tpu_torch.models.induction_machine import GridTransferMachine
+    with tempfile.TemporaryDirectory() as tmp:
+        kws, path = two_mesh_env(tmp)
+        mg = two_mesh_machine(Mgrit, InductionMachine, GridTransferMachine, kws, path,
+                              TWO_MESH_JAX.size, device=DEVICE)
+        h, wall = synced_wall(lambda: mg.solve()["conv"])
+        shapes = {lvl: tuple(mg.u[lvl]["middle"].shape) for lvl in (0, 1)}
+        finite = all(bool(torch.isfinite(x).all()) for x in mg.u[0].values())
+    ok = h.shape == TWO_MESH_JAX.shape and bool(np.allclose(h, TWO_MESH_JAX, rtol=MAIN_RTOL,
+                                                            atol=0)) and finite
+    print(f"[machine] two meshes, GridTransferMachine between them (middle leaf {shapes}): "
+          f"history {h.tolist()} vs TWO_MESH_JAX (rtol {MAIN_RTOL:.0e}) | solve {wall:.3f} s | "
+          f"{'ok' if ok else 'FAIL'} | {card}")
+    check(ok, "machine: the two-mesh history is not the JAX package's, or the tube not finite")
+
+
 REPLACES = {
-    "interval_affine": ("cuda", "pymgrit_tpu_torch/ops/csrc/interval_affine.cu",
+    "interval_affine":("cuda", "pymgrit_tpu_torch/ops/csrc/interval_affine.cu",
                         "pymgrit_tpu/models/heat_2d.py:538"),
     "theta_chain": ("cuda", "pymgrit_tpu_torch/ops/csrc/theta_chain.cu",
                     "pymgrit_tpu/models/heat_2d.py:419"),
@@ -4729,6 +5232,12 @@ def main():
     counts_diffusion = phase_diffusion(card)
     counts_dd_toms, counts_dd65 = phase_dd(card)
     lap("bdf, diffusion, dd")
+    phase_observe(card)
+    lap("observe")
+    phase_callback(card)
+    lap("callback")
+    phase_machine(card)
+    lap("machine")
     # launches: each kernel's count on the main path it belongs to (K3, K4
     # run on both bases; the spectral run's count is reported; K8 and K9
     # from the TOMS-width prefix and AT runs; K10 from the Allen-Cahn bench

@@ -14,7 +14,13 @@ package's; the execution differs:
   ``step_chain`` (Heat2D: kernel K2 ``theta_chain``), or loops over the
   intra-interval position with a batched step.
 * ``solve_compiled`` is a Python loop over device tensors that reads one
-  scalar per iteration to decide whether to stop.
+  scalar per iteration to decide whether to stop; a subclass's
+  ``compiled_convergence_criterion`` takes the place of the residual or
+  jump criterion there, its aux carried across iterations as device
+  tensors.
+* ``profile_phases`` times each phase on a copy of the tubes, reset
+  before every call; ``solve_profiled`` runs ``solve()`` under
+  ``torch.profiler``.
 * With ``coarsest_prefix=True`` the coarsest level is not marched step by
   step: the application's ``affine_coeffs`` give every step as an
   elementwise affine map and kernel K8 ``affine_prefix`` computes all
@@ -70,6 +76,7 @@ import dataclasses
 import functools
 import inspect
 import logging
+import os
 import sys
 import time
 from typing import Callable, List
@@ -299,7 +306,8 @@ class Mgrit:
         # once after convergence.  Same decision and decline reasons as the
         # JAX package, logged as one INFO line. ----
         self._condensed0 = False
-        custom_criteria = type(self).convergence_criterion is not Mgrit.convergence_criterion
+        custom_criteria = (type(self).convergence_criterion is not Mgrit.convergence_criterion
+                           or type(self).compiled_convergence_criterion is not None)
         self._cnd_decline_reason = None
         if condensed and self.lvl_max > 1:
             if custom_criteria:
@@ -1008,8 +1016,7 @@ class Mgrit:
             self.solve_iter = iteration + 1
             time_it_start = time.time()
             self._iteration(lvl0_first_f=iteration == 0)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            self._sync_device()
             time_it_stop = time.time()
 
             self.convergence_criterion(iteration + 1)
@@ -1045,6 +1052,24 @@ class Mgrit:
         return {'conv': self.conv[np.where(self.conv != 0)], 'time_setup': self.runtime_setup,
                 'time_solve': self.runtime_solve}
 
+    # A subclass may set compiled_convergence_criterion to a function
+    # (self, state, aux) -> (conv, done, aux) of device tensors: state is
+    # (u, v, g) as the u, v and g properties give them, aux what
+    # compiled_conv_aux_init returns (a tensor or a pytree of them), carried
+    # from one iteration to the next.  solve_compiled then calls it after
+    # each iteration in place of the residual or jump criterion and reads
+    # only done on the host.
+    compiled_convergence_criterion = None
+
+    def compiled_conv_aux_init(self):
+        """Initial aux of compiled_convergence_criterion: a 0-d float64 zero
+        on the solver's device, made once."""
+        cached = getattr(self, "_conv_aux0_cache", None)
+        if cached is None:
+            cached = self._conv_aux0_cache = torch.zeros((), dtype=torch.float64,
+                                                         device=self.device)
+        return cached
+
     def solve_compiled(self) -> dict:
         """Solve with the iteration loop kept on the device: the history
         stays in device tensors and the loop reads one scalar (the stop
@@ -1052,24 +1077,32 @@ class Mgrit:
         self.log_info("Start solve (compiled loop)")
         self._sync_condensed0()
         use_jump = self.conv_crit in (1, 3)
+        custom = type(self).compiled_convergence_criterion
         u_save = self.save_values_last_iter
         runtime_solve_start = time.time()
+        aux = self.compiled_conv_aux_init()
         hist = []
         for it in range(self.iter_max):
             if it == 0:
                 self._f_relax(0, self._u[0], self._g[0])
             self._iteration(lvl0_first_f=False)
-            if use_jump:
-                conv, all_below, u_save = self._jump_conv_fn(u_save)
+            if custom is not None:
+                conv, done, aux = custom(self, (tuple(self.u), tuple(self.v), tuple(self.g)),
+                                         aux)
+                conv = torch.as_tensor(conv, dtype=torch.float64, device=self.device)
             else:
-                conv, all_below = self._residual_conv_fn()
+                if use_jump:
+                    conv, all_below, u_save = self._jump_conv_fn(u_save)
+                else:
+                    conv, all_below = self._residual_conv_fn()
+                done = conv < self.tol if self.global_conv_crit else all_below
             hist.append(conv)
-            done = conv < self.tol if self.global_conv_crit else all_below
             if bool(done):
                 break
         self._materialize_condensed0()
         hist = torch.stack(hist).cpu().numpy()
         it = hist.shape[0]
+        self._compiled_conv_aux = aux
         if use_jump:
             self.save_values_last_iter = u_save
         self.conv = np.zeros(self.iter_max + 1)
@@ -1085,6 +1118,80 @@ class Mgrit:
         self.ouput_run_information()
         return {'conv': self.conv[np.where(self.conv != 0)], 'time_setup': self.runtime_setup,
                 'time_solve': self.runtime_solve}
+
+    # ------------------------------------------------------------------
+    # observability: per-phase timings and a profiler trace of solve()
+    # ------------------------------------------------------------------
+
+    def _sync_device(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def profile_phases(self, repeats: int = 5) -> dict:
+        """Time each solver phase per level; returns {phase_name: seconds a
+        call} under the JAX package's keys and logs them at debug level.
+        The phases update the tubes in place, so they run on a copy of the
+        solver's state, reset to it before every call: one untimed call,
+        then ``repeats`` timed ones, each between two device
+        synchronisations.  The tubes, the condensed carry and ``conv`` are
+        left as they were found."""
+        found = (self._u, self._v, self._g)
+        self._u, self._v, self._g = (list(t) for t in found)
+        self._sync_condensed0()                 # the phases run on the condensed carry
+        start = (self._u, self._v, self._g)
+        self._u, self._v, self._g = work = tuple(
+            [None if x is None else x.clone() for x in t] for t in start)
+        results = {}
+
+        def reset():
+            for w, s in zip(work, start):
+                for a, b in zip(w, s):
+                    if a is not None:
+                        a.copy_(b)
+
+        def timed(tag, fn):
+            reset()
+            fn()
+            total = 0.0
+            for _ in range(repeats):
+                reset()
+                self._sync_device()
+                t0 = time.perf_counter()
+                fn()
+                self._sync_device()
+                total += time.perf_counter() - t0
+            results[tag] = total / repeats
+            logging.debug(f"{tag}: {results[tag]:.6f} s")
+
+        try:
+            top = self.lvl_max - 1
+            for lvl in range(top):
+                timed(f"f_relax[{lvl}]",
+                      lambda lvl=lvl: self._f_relax(lvl, self._u[lvl], self._g[lvl]))
+                timed(f"c_relax[{lvl}]",
+                      lambda lvl=lvl: self._c_relax(lvl, self._u[lvl], self._g[lvl]))
+                timed(f"fas_residual[{lvl}]", lambda lvl=lvl: self._fas_residual(lvl))
+            timed(f"forward_solve[{top}]",
+                  lambda: self._forward_solve(top, self._u[top], self._g[top]))
+            timed("convergence", self._residual_conv_fn)
+            timed("full_iteration", lambda: self._iteration(lvl0_first_f=False))
+        finally:
+            self._u, self._v, self._g = found
+        return results
+
+    def solve_profiled(self, trace_dir: str) -> dict:
+        """Run solve() under ``torch.profiler`` (CPU activity, and CUDA
+        activity on the card) and write its Chrome trace into ``trace_dir``
+        as ``solve.pt.trace.json`` (for TensorBoard or Perfetto)."""
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            info = self.solve()
+        os.makedirs(trace_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(trace_dir, "solve.pt.trace.json"))
+        return info
 
     # ------------------------------------------------------------------
     # checkpoint / resume: the JAX package's .npz layout (leaves u[0..L-1],

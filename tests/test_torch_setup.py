@@ -116,14 +116,20 @@ def test_unported_options_raise(kw, item):
 
 
 def test_import_leaves_jax_out():
-    """The port imports no jax module (checked in a fresh interpreter: this
-    test process has jax loaded already)."""
+    """The port and chip_smoke.py import no jax module and nothing of the
+    JAX package, and the plots module no matplotlib (checked in a fresh
+    interpreter: this test process has jax loaded already)."""
     code = ("import sys, torch; d = torch.get_default_dtype(); "
             "t32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32); "
             "import pymgrit_tpu_torch, pymgrit_tpu_torch.interop; "
             "import pymgrit_tpu_torch.ops.runge_kutta, pymgrit_tpu_torch.ops._build; "
-            "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'pymgrit_tpu.'))]; "
+            "import pymgrit_tpu_torch.core.partition, pymgrit_tpu_torch.coupling; "
+            "import pymgrit_tpu_torch.utils.plots, pymgrit_tpu_torch.models.induction_machine; "
+            "import chip_smoke; "
+            "bad = [m for m in sys.modules if m in ('jax', 'pymgrit_tpu') "
+            "or m.startswith(('jax.', 'jaxlib', 'pymgrit_tpu.'))]; "
             "assert not bad, bad; assert 'triton' not in sys.modules; "
+            "assert 'matplotlib' not in sys.modules; "
             "assert torch.get_default_dtype() == d; "
             "assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == t32; "
             "print('ok')")
