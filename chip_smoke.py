@@ -129,7 +129,19 @@ phases:
              ``MACHINE_JAX`` and the sequential march, ``MgritMachine``'s
              PWM flag on the mock's argv log, and the machine on the two
              fixture meshes through ``GridTransferMachine`` against
-             ``TWO_MESH_JAX``.
+             ``TWO_MESH_JAX``;
+23. shard    the time-sharded executor (``pymgrit_tpu_torch.parallel``): the
+             TOMS solve at P = 1 in an NCCL world of one (solve and
+             solve_compiled with kernels, once with the plain versions,
+             against the serial condensed history, fine_solution against
+             the serial tube), then two gloo processes on cuda:0 (the
+             collectives staged through pinned host buffers): TOMS against
+             P = 1, ShardedAtMgrit(64) on the TOMS width with two levels
+             against the serial AtMgrit(64), the varying-coarsening golden
+             (the general path) and dd_toms129 against the JAX history;
+             every rank's history equal to rank 0's bit for bit; walls,
+             launches per rank, collectives and bytes (moved, staged) per
+             iteration, peak memory per rank.
 
 ``python3 chip_smoke.py --kernels=interval_affine,interpolate_combine`` runs
 phases 1-3 (and ``[dd-kernels]``) for the named kernels alone (float64 and
@@ -5112,6 +5124,318 @@ def phase_machine(card):
     check(ok, "machine: the two-mesh history is not the JAX package's, or the tube not finite")
 
 
+
+# ---------------------------------------------------------------------------
+# [shard]: the time-sharded executor (pymgrit_tpu_torch/parallel/)
+# ---------------------------------------------------------------------------
+
+# the TOMS solve at P = 1 (an NCCL world of one in this process) and at
+# P = 2 (two gloo processes on cuda:0: the collectives stage CUDA tensors
+# through pinned host buffers); at P = 2 also ShardedAtMgrit(64) on TOMS2,
+# the varying-coarsening golden (the general path) and dd_toms129
+SHARD_P = 2
+SHARD_INIT_S, SHARD_JOIN_S = 60, 120      # rendezvous timeout, the P = 2 world's join limit
+# the reference's varying_coarsening history (tests/parallel/test_shard_nonuniform.py),
+# held at the JAX package's own rtol
+SHARD_VARYING_GOLDEN = np.array([0.037311841611405, 0.003124171062320715, 3.129166834664884e-05,
+                                 1.8514542798812671e-07, 4.995916285724713e-10,
+                                 4.82164655680165e-13])
+SHARD_GOLDEN_RTOL = 1e-6
+SHARD_TUBE_RTOL = 1e-12      # fine_solution() against the serial tube, of its largest entry
+
+
+def shard_env():
+    """Process-local bootstrap settings of the collectives (inherited by the
+    spawned ranks): the loopback interface, no InfiniBand probe."""
+    if os.path.exists("/sys/class/net/lo"):
+        for var in ("GLOO_SOCKET_IFNAME", "NCCL_SOCKET_IFNAME"):
+            os.environ.setdefault(var, "lo")
+    os.environ.setdefault("NCCL_IB_DISABLE", "1")
+
+
+def shard_cases(P):
+    """(label, problem builder, solver arguments) of the P = 2 world."""
+    from pymgrit_tpu_torch.ops import DISPATCH
+    return [
+        ("toms", lambda: build_problem(P, device=DEVICE, ops=DISPATCH, **TOMS),
+         dict(tol=MAIN_TOL, max_iter=MAIN_MAX_ITER)),
+        ("at64", lambda: build_problem(P, device=DEVICE, ops=DISPATCH, **TOMS2),
+         dict(k=TOMS2_AT_K, tol=1e-300, max_iter=TOMS2_AT_ITERS)),
+        ("varying", lambda: varying_problem(P, DISPATCH),
+         dict(tol=1e-10, nested_iteration=False)),
+        ("dd_toms129", lambda: build_problem(P, DD_TOMS["nx"], DD_TOMS["nt"], DD_TOMS["ms"], DEVICE,
+                                             DISPATCH, precision="dd"),
+         dict(tol=DD_TOMS["tol"], max_iter=DD_TOMS["max_iter"])),
+    ]
+
+
+def shard_run(mesh, build, entry="solve_compiled", k=None, **kw):
+    """One sharded solve on this rank: the solver, its history, setup and
+    solve walls, the launches of setup and solve, the communication per
+    iteration of the solve and the peak device memory of setup and solve
+    above what was allocated before (the problem's tables included)."""
+    import torch
+    import pymgrit_tpu_torch.parallel as PP
+    from pymgrit_tpu_torch.ops import launch_counts, reset_launch_counts
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    problem, built = synced_wall(build)
+    reset_launch_counts()
+    cls, args = (PP.ShardedAtMgrit, (k,)) if k else (PP.ShardedMgrit, ())
+    mg, setup = synced_wall(lambda: cls(*args, problem=problem, mesh=mesh, logging_lvl=30, **kw))
+    mg.comm.reset_counts()
+    _, wall = synced_wall(getattr(mg, entry))
+    it = mg.solve_iter
+    return dict(mg=mg, hist=mg.conv[1:it + 1].copy(), build=built, setup=setup, wall=wall,
+                launches=launch_counts(), comm={c: n / it for c, n in mg.comm.counts.items()},
+                staged=mg.comm.staged, backend=mg.comm.backend,
+                peak=(torch.cuda.max_memory_allocated() - mem0) / 2 ** 30)
+
+
+def comm_latency(group, reps=50):
+    """ms a call of three collectives on the card, each timed over ``reps``
+    calls between two synchronisations, with a communicator of their own
+    (every rank makes the same calls): an all_reduce of a 0-d float64, a
+    shift and a broadcast of one TOMS-width state (127^2 float64)."""
+    import torch
+    from pymgrit_tpu_torch.parallel.comm import Comm
+    comm = Comm(group, DEVICE)
+    x = torch.zeros((), dtype=torch.float64, device=DEVICE)
+    s = torch.zeros((TOMS["nx"] - 2,) * 2, dtype=torch.float64, device=DEVICE)
+    out = {}
+    for name, fn in (("all_reduce", lambda: comm.all_reduce(x)), ("shift", lambda: comm.shift(s)),
+                     ("broadcast", lambda: comm.broadcast(s, 0))):
+        fn()
+        _, wall = synced_wall(lambda: [fn() for _ in range(reps)])
+        out[name] = 1e3 * wall / reps
+    return out
+
+
+def fmt_latency(lat):
+    return ", ".join(f"{name} {ms:.4f}" for name, ms in lat.items())
+
+
+def shard_worker(rank, size, store, directory):
+    """A rank of the P = 2 world: the cases of ``shard_cases`` in order, its
+    results pickled into ``directory`` (a traceback there if it raised)."""
+    import datetime
+    import pickle
+    import traceback
+    import torch
+    import torch.distributed as dist
+    import pymgrit_tpu_torch as P
+    import pymgrit_tpu_torch.parallel as PP
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method="file://" + store, rank=rank, world_size=size,
+                            timeout=datetime.timedelta(seconds=SHARD_INIT_S))
+    try:
+        mesh = PP.make_time_space_mesh()
+        out = {}
+        for label, build, kw in shard_cases(P):
+            r = shard_run(mesh, build, **kw)
+            del r["mg"]
+            out[label] = r
+        out["latency"] = comm_latency(mesh.group)
+        tmp = os.path.join(directory, f".rank{rank}.tmp")
+        with open(tmp, "wb") as f:
+            pickle.dump(out, f)
+        os.replace(tmp, os.path.join(directory, f"rank{rank}.pkl"))
+    except BaseException:
+        with open(os.path.join(directory, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def shard_world(directory):
+    """Spawn the P = 2 world, join it within SHARD_JOIN_S, and return each
+    rank's results; a rank's exception or the time limit fails the run."""
+    import pickle
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(shard_worker, args=(SHARD_P, os.path.join(directory, "store"),
+                                                 directory),
+                             nprocs=SHARD_P, join=False, start_method="spawn")
+    deadline = time.monotonic() + SHARD_JOIN_S
+    try:
+        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+            check(time.monotonic() < deadline,
+                  f"shard: the P = {SHARD_P} world did not finish within {SHARD_JOIN_S} s")
+    except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+        errs = sorted(Path(directory).glob("rank*.err"))
+        fail(f"shard: a rank of the P = {SHARD_P} world failed: {e}\n"
+             + "".join(p.read_text() for p in errs))
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+                proc.join(10)
+    ranks = []
+    for r in range(SHARD_P):
+        with open(os.path.join(directory, f"rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    return ranks
+
+
+def fmt_counts(counts, names):
+    return ", ".join(f"{n} {counts[n]}" for n in names)
+
+
+def phase_shard(card):
+    """The time-sharded executor on the card: TOMS at P = 1 in an NCCL
+    world of one (solve and solve_compiled with kernels, once with the plain
+    versions; against the serial condensed solve's history and tube), then
+    a two-process gloo world on cuda:0 (TOMS against P = 1, ShardedAtMgrit(64)
+    against the serial AtMgrit(64), the varying-coarsening golden and
+    dd_toms129 against the JAX package's history), every rank's history
+    equal to rank 0's."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    import pymgrit_tpu_torch as P
+    import pymgrit_tpu_torch.parallel as PP
+    from pymgrit_tpu_torch.ops import DISPATCH, PLAIN
+    t_phase = time.perf_counter()
+    shard_env()
+
+    # serial references, in this run; one TOMS problem serves the serial
+    # solve and the P = 1 runs (the plain run sets its levels' ops)
+    problem = build_problem(P, device=DEVICE, ops=DISPATCH, **TOMS)
+    ms = P.Mgrit(problem=problem, tol=MAIN_TOL, max_iter=MAIN_MAX_ITER, logging_lvl=30)
+    _, wall_serial = synced_wall(ms.solve_compiled)
+    h_serial, tube_serial = ms.conv[1:ms.solve_iter + 1].copy(), ms.u[0]
+    floor = residual_floor(ms)
+    check(ms._condensed0, "shard: the serial TOMS solve declined the condensed carry")
+    del ms
+    ma = P.AtMgrit(TOMS2_AT_K, problem=build_problem(P, device=DEVICE, ops=DISPATCH, **TOMS2),
+                   tol=1e-300, max_iter=TOMS2_AT_ITERS, logging_lvl=30)
+    ma.solve_compiled()
+    h_at, floor_at = ma.conv[1:ma.solve_iter + 1].copy(), residual_floor(ma)
+    del ma
+    torch.cuda.empty_cache()
+
+    # P = 1: an NCCL world of one in this process
+    toms = dict(tol=MAIN_TOL, max_iter=MAIN_MAX_ITER)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=SHARD_INIT_S))
+        try:
+            mesh = PP.make_time_space_mesh()
+            one = {}
+            # the first run (untimed) pays the communicator's and the
+            # wrappers' first calls
+            for label, ops, entry in (("warm", DISPATCH, "solve_compiled"),
+                                      ("compiled", DISPATCH, "solve_compiled"),
+                                      ("solve", DISPATCH, "solve"),
+                                      ("plain", PLAIN, "solve_compiled")):
+                for p in problem:
+                    p.ops = ops
+                one[label] = shard_run(mesh, lambda: problem, entry=entry, **toms)
+                if label == "warm":
+                    lat1 = comm_latency(mesh.group)
+                if label == "compiled":
+                    tube = one[label]["mg"].fine_solution()
+                    check(tuple(tube.shape) == tuple(tube_serial.shape),
+                          f"shard: fine_solution {tuple(tube.shape)} against the serial "
+                          f"{tuple(tube_serial.shape)}")
+                    tube_err = float((tube - tube_serial).abs().max()) \
+                        / float(tube_serial.abs().max())
+                    del tube
+                del one[label]["mg"]
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    del tube_serial, problem
+    torch.cuda.empty_cache()
+    c1, s1, p1 = one["compiled"], one["solve"], one["plain"]
+    hk = c1["hist"]
+    ok_serial, err_serial = histories_agree(hk, h_serial, floor, MAIN_RTOL)
+    ok_plain, err_plain = histories_agree(hk, p1["hist"], floor, MAIN_RTOL)
+    ok_entry, err_entry = histories_agree(s1["hist"], hk, floor, MAIN_RTOL)
+    ok_tube = tube_err <= SHARD_TUBE_RTOL
+    ok1 = ok_serial and ok_plain and ok_entry and ok_tube
+    print(f"[shard] P = 1 ({c1['backend']}, staged {c1['staged']}) TOMS {TOMS['nx']}^2 "
+          f"nt={TOMS['nt']} ms={TOMS['ms']} ShardedMgrit: {hk.size} iterations, history "
+          f"{[float(f'{h:.6e}') for h in hk]} | vs the serial condensed history max diff "
+          f"{err_serial:.3e} (rtol {MAIN_RTOL:.0e}, atol floor {floor:.2e}); vs plain (GPU) "
+          f"{err_plain:.3e}; solve vs solve_compiled {err_entry:.3e}, bit for bit "
+          f"{np.array_equal(s1['hist'], hk)}; fine_solution vs the serial tube max rel "
+          f"{tube_err:.3e} (rtol {SHARD_TUBE_RTOL:.0e}) | {'ok' if ok1 else 'FAIL'}")
+    print(f"[shard] P = 1 walls: sharded solve_compiled {c1['wall']:.4f} s (setup {c1['setup']:.4f}), "
+          f"solve {s1['wall']:.4f} s, plain {p1['wall']:.4f} s; serial condensed solve_compiled "
+          f"{wall_serial:.4f} s | launches (setup + solve) {fmt_counts(c1['launches'], SPECTRAL_KERNELS)} "
+          f"| per iteration {c1['comm']['ops']:.1f} collectives, {c1['comm']['bytes']:.0f} bytes "
+          f"moved, {c1['comm']['staged']:.0f} staged | peak device memory {c1['peak']:.3f} GiB "
+          f"| {card}")
+    check(all(c1["launches"][k] > 0 for k in SPECTRAL_KERNELS),
+          f"shard: a kernel of the path never ran at P = 1: {c1['launches']}")
+    check(ok_serial, f"shard: P = 1 history {hk} against the serial {h_serial}")
+    check(ok_plain, f"shard: P = 1 kernel history {hk} against plain {p1['hist']}")
+    check(ok_entry, f"shard: solve {s1['hist']} against solve_compiled {hk}")
+    check(ok_tube, f"shard: fine_solution off the serial tube by {tube_err:.3e}")
+
+    # P = 2: two gloo processes on cuda:0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = shard_world(tmp)
+        world_s = time.perf_counter() - t0
+    refs = {"toms": (hk, floor, MAIN_RTOL, "P = 1"),
+            "at64": (h_at, floor_at, MAIN_RTOL, "the serial AtMgrit(64)"),
+            "varying": (SHARD_VARYING_GOLDEN, 1e-15, SHARD_GOLDEN_RTOL, "the reference golden")}
+    needed = {"toms": SPECTRAL_KERNELS, "at64": ("affine_windows",), "varying": ("cpoint_combine", "indexed_combine"),
+              "dd_toms129": ("dd_interval_affine", "dd_theta_chain", "dd_arith",
+                             "residual_row_norms")}
+    for label, _, _ in shard_cases(P):
+        rs = [r[label] for r in ranks]
+        h = rs[0]["hist"]
+        same = all(np.array_equal(r["hist"], h) for r in rs)
+        if label == "dd_toms129":
+            above = DD_TOMS_FLOOR_FROM
+            ok_r, err = histories_agree(h[:above], DD_TOMS_JAX[:above], DD_ATOL, DD_RTOL)
+            fl, fl_j = h[above:], DD_TOMS_JAX[above:]
+            ok_r = ok_r and h.size == DD_TOMS_JAX.size and bool(
+                np.all(fl >= DD_FLOOR_MIN) and np.all(fl <= DD_FLOOR_FACTOR * fl_j.max())
+                and np.all(fl >= fl_j.min() / DD_FLOOR_FACTOR))
+            vs = (f"vs DD_TOMS_JAX max diff {err:.3e} above the floor (rtol {DD_RTOL:.0e}, atol "
+                  f"{DD_ATOL:.1e}), floor {[float(f'{x:.4e}') for x in fl]}")
+            for r in rs:
+                check_dd_counts(f"shard dd_toms129 rank", r["launches"], needed[label])
+        else:
+            ref, atol, rtol, name = refs[label]
+            ok_r, err = histories_agree(h, ref, atol, rtol)
+            vs = f"vs {name} max diff {err:.3e} (rtol {rtol:.0e}, atol {atol:.2e})"
+        names = needed[label]
+        print(f"[shard] P = {SHARD_P} ({rs[0]['backend']}, staged {rs[0]['staged']}) {label}: "
+              f"{h.size} iterations, history {[float(f'{x:.6e}') for x in h]} | ranks equal bit for "
+              f"bit {same} | {vs} | walls (problem + setup + solve) "
+              + "; ".join(f"rank {i} {r['build']:.3f} + {r['setup']:.3f} + {r['wall']:.4f} s"
+                          for i, r in enumerate(rs))
+              + " | launches " + "; ".join(f"rank {i} {fmt_counts(r['launches'], names)}"
+                                          for i, r in enumerate(rs))
+              + " | per iteration " + "; ".join(
+                  f"rank {i} {r['comm']['ops']:.1f} collectives, {r['comm']['bytes']:.0f} bytes "
+                  f"moved, {r['comm']['staged']:.0f} staged" for i, r in enumerate(rs))
+              + " | peak device memory " + ", ".join(f"{r['peak']:.3f}" for r in rs)
+              + f" GiB | {'ok' if same and ok_r else 'FAIL'} | {card}")
+        check(same, f"shard {label}: the ranks' histories differ: {[r['hist'] for r in rs]}")
+        check(ok_r, f"shard {label}: history {h} {vs}")
+        check(all(all(r["launches"][k] > 0 for k in names) for r in rs),
+              f"shard {label}: a kernel of the path never ran on a rank: "
+              f"{[r['launches'] for r in rs]}")
+        check(all(r["staged"] and r["comm"]["staged"] > 0 for r in rs),
+              f"shard {label}: the gloo ranks on the card staged nothing")
+    print(f"[shard] collectives, ms a call (50 calls between synchronisations): P = 1 "
+          f"({c1['backend']}) {fmt_latency(lat1)}; P = {SHARD_P} ({ranks[0]['toms']['backend']}, "
+          f"staged {ranks[0]['toms']['staged']}) " + "; ".join(f"rank {i} {fmt_latency(r['latency'])}"
+                                  for i, r in enumerate(ranks)) + f" | {card}")
+    print(f"[shard] P = {SHARD_P} world (spawn, CUDA start, four cases) {world_s:.1f} s; "
+          f"phase {time.perf_counter() - t_phase:.1f} s | {card}")
+
+
 REPLACES = {
     "interval_affine":("cuda", "pymgrit_tpu_torch/ops/csrc/interval_affine.cu",
                         "pymgrit_tpu/models/heat_2d.py:538"),
@@ -5238,6 +5562,8 @@ def main():
     lap("callback")
     phase_machine(card)
     lap("machine")
+    phase_shard(card)
+    lap("shard")
     # launches: each kernel's count on the main path it belongs to (K3, K4
     # run on both bases; the spectral run's count is reported; K8 and K9
     # from the TOMS-width prefix and AT runs; K10 from the Allen-Cahn bench

@@ -124,14 +124,17 @@ def random_tube(seed: int, nt: int, shape, device=None) -> torch.Tensor:
     return random_leaves(seed, nt, [shape], device)[0]
 
 
-def random_leaves(seed: int, nt: int, shapes, device=None) -> list:
+def random_leaves(seed: int, nt: int, shapes, device=None, rows=None) -> list:
     """The JAX package's ``random_init_guess`` level-0 tube of a state with
     leaves of the given shapes (in its leaf order): one (nt, *shape)
     float64 tensor a leaf, leaf i of row r drawn with key i of the row key
-    split once a leaf (``vector.random_like``)."""
+    split once a leaf (``vector.random_like``).  ``rows`` (indices into
+    the nt rows) draws those rows alone, in their order."""
     _, sub = split(key(seed), 2)
     keys = split(split(sub, nt), len(shapes))
-    return [_draw_f64(keys[:, i], nt, shape, device) for i, shape in enumerate(shapes)]
+    if rows is not None:
+        keys = keys[np.asarray(rows, dtype=np.int64)]
+    return [_draw_f64(keys[:, i], keys.shape[0], shape, device) for i, shape in enumerate(shapes)]
 
 
 def _draw_f64(rows: np.ndarray, nt: int, shape, device) -> torch.Tensor:
@@ -151,16 +154,20 @@ def _draw_f64(rows: np.ndarray, nt: int, shape, device) -> torch.Tensor:
     return tube.view((nt,) + tuple(shape))
 
 
-def random_dd_tube(seed: int, nt: int, shape, device=None) -> torch.Tensor:
+def random_dd_tube(seed: int, nt: int, shape, device=None, rows=None) -> torch.Tensor:
     """The JAX package's ``random_init_guess`` level-0 tube of a DD state:
     each row's hi drawn as ``jax.random.uniform(k, shape, float32)`` with
     the row key of ``random_tube``, lo = 0; the packed (nt, 2, *shape)
-    float32 tube the solver stores (drawn on the host)."""
+    float32 tube the solver stores (drawn on the host).  ``rows`` draws
+    those rows alone, in their order."""
     _, sub = split(key(seed), 2)
-    rows = split(split(sub, nt), 1)[:, 0]
+    keys = split(split(sub, nt), 1)[:, 0]
+    if rows is not None:
+        keys = keys[np.asarray(rows, dtype=np.int64)]
+    nt = keys.shape[0]
     tube = torch.zeros((nt, 2) + tuple(shape), dtype=torch.float32, device=device)
     for r0 in range(0, nt, _CHUNK_ROWS):
-        hi = np.stack([uniform(k, shape, np.float32) for k in rows[r0:r0 + _CHUNK_ROWS]])
+        hi = np.stack([uniform(k, shape, np.float32) for k in keys[r0:r0 + _CHUNK_ROWS]])
         tube[r0:r0 + hi.shape[0], 0] = torch.as_tensor(hi, device=device)
     return tube
 

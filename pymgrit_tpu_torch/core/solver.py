@@ -66,8 +66,9 @@ package's; the execution differs:
   takes the place of K3's 2-norm in the residual and jump norms, applied
   to each row's difference in the application's structure.
 
-A multi-leaf state with a DD leaf, the device mesh and the lazy level-0
-F-relaxation are not ported and raise NotImplementedError.
+A multi-leaf state with a DD leaf and the lazy level-0 F-relaxation are
+not ported and raise NotImplementedError; so does ``mesh=``, whose
+time-sharded execution is ``pymgrit_tpu_torch.parallel.ShardedMgrit``.
 """
 
 from __future__ import annotations
@@ -175,7 +176,191 @@ class _RaggedLevel:
                    c_tc=times(cc.t_curr))
 
 
-class Mgrit:
+class RowRoutines:
+    """The row routines that the serial ``Mgrit`` and the time-sharded
+    ``parallel.ShardedMgrit`` share: states as tube rows (float64, packed DD
+    pairs, multi-leaf layouts), transfers over rows, steps and chains
+    (``step_chain``: K2, or K24 in DD), combines (K4, or K25 in DD), rows by
+    index (K21) and residual norms (K3, or ``state_norm``).
+
+    They read what ``_init_rows`` sets (problem, weight_c, step_fns, ops,
+    _dd, _layouts, _multi, state_norm, _norm_rows) and ``device``, which a
+    subclass sets once it has placed its first tube.
+    """
+
+    def _init_rows(self, problem: List[Application], weight_c: float) -> None:
+        self.problem = problem
+        self.weight_c = weight_c
+        self.step_fns: List[Callable] = [p.step for p in problem]
+        self.ops = getattr(problem[0], "ops", DISPATCH)
+        # precision='dd': float32-pair states, packed tubes
+        self._dd = vector.contains_dd(problem[0].vector_template)
+        # multi-leaf states: one row layout a level (None: a single tensor
+        # or DD pair, stored as it is)
+        self._layouts = [vector.layout(p.vector_template) for p in problem]
+        self._multi = any(lay is not None for lay in self._layouts)
+        # the JAX package's per-state norm hook; None: K3's 2-norm
+        self.state_norm = getattr(problem[0], "state_norm", None)
+        self._norm_rows = None
+
+    def _state(self, x, lvl: int) -> torch.Tensor:
+        """An application's state as a tube row of level lvl: float64, a DD
+        pair packed (2, ...) float32, or a multi-leaf state's leaves
+        concatenated."""
+        if self._dd:
+            return torch.stack([x.hi, x.lo])
+        lay = self._layouts[lvl]
+        return vector.as_f64(x) if lay is None else lay.flat(vector.as_f64(x))
+
+    def _tree(self, lvl: int, t):
+        """Tube rows of level lvl as the application's states: the rows
+        themselves, or views of them in a multi-leaf structure."""
+        lay = self._layouts[lvl]
+        return t if lay is None or t is None else lay.tree(t)
+
+    def _flat(self, lvl: int, x):
+        """The inverse of ``_tree``: states of level lvl as rows."""
+        lay = self._layouts[lvl]
+        return x if lay is None else lay.flat(x)
+
+    def _pair(self, t: torch.Tensor, axis: int = 1):
+        """The DD view of packed tube rows (the solver's kernel set)."""
+        return _dd.pair(t, self.ops, axis)
+
+    def _transfer_fn(self, transfer: GridTransfer, fn: Callable, src: int, dst: int) -> Callable:
+        """A transfer method from level src's tube rows to level dst's; in DD
+        the rows are handed over as a DD pair and the result packed again; a
+        multi-leaf state is handed over in the application's structure (each
+        state, under vmap, or the batch) and its result packed again."""
+        if self._layouts[src] is not None or self._layouts[dst] is not None:
+            if not getattr(transfer, "batched", False):
+                return torch.vmap(lambda row: self._flat(dst, fn(self._tree(src, row))))
+            batch_fn = _over_rows(transfer, fn, self.ops)
+            return lambda rows: self._flat(dst, batch_fn(self._tree(src, rows)))
+        rows_fn = _over_rows(transfer, fn, self.ops)
+        if not self._dd:
+            return rows_fn
+        return lambda rows: _dd.packed(rows_fn(self._pair(rows)))
+
+    def _vstep(self, lvl):
+        """Batched one-step map: the application's step_batched, else a
+        vmap of its step (on a multi-leaf level: of rows, handing the
+        application its structure)."""
+        batched = getattr(self.problem[lvl], "step_batched", None)
+        step = self.step_fns[lvl]
+        if self._layouts[lvl] is not None:
+            if batched is not None:
+                return lambda x, t0, t1: self._flat(lvl, batched(self._tree(lvl, x), t0, t1))
+            return torch.vmap(lambda x, t0, t1: self._flat(lvl, step(self._tree(lvl, x), t0, t1)))
+        if batched is not None:
+            return batched
+        return torch.vmap(step)
+
+    def _chain(self, lvl, seed, tp, tc, out, g=None):
+        """J chains of L steps: out[:, k] = [g[:, k] +] Phi(out[:, k-1]) with
+        out[:, -1] = seed; tp, tc: (L, J) numpy times; out, g: (J, L, ...)
+        views that must not overlap seed.  Uses the application's
+        step_chain (Heat2D: kernel K2) when it has one."""
+        chain = getattr(self.problem[lvl], "step_chain", None)
+        if chain is not None:
+            chain(self._tree(lvl, seed), tp, tc, self._tree(lvl, out), self._tree(lvl, g))
+            return
+        vstep = self._vstep(lvl)
+        x = seed
+        for k in range(tp.shape[0]):
+            if self._dd:
+                y = vstep(self._pair(x), self._t(tp[k]), self._t(tc[k]))
+                if g is not None:
+                    y = _dd.add(self._pair(g[:, k]), y)
+                out[:, k, 0].copy_(y.hi)
+                out[:, k, 1].copy_(y.lo)
+                x = out[:, k]
+                continue
+            x = vstep(x, self._t(tp[k]), self._t(tc[k]))
+            if g is not None:
+                x = g[:, k] + x
+            out[:, k] = x
+
+    def _t(self, a):
+        """Step times on the device: float64, or split exactly into DD
+        pairs (the JAX package's ``_as_t``)."""
+        if self._dd:
+            return _dd.from_f64(np.asarray(a, dtype=np.float64), self.device, self.ops)
+        return torch.as_tensor(np.asarray(a, dtype=np.float64), device=self.device)
+
+    def _step_rows(self, lvl, prev, t_prev, t_curr, g=None):
+        """One step of every row of prev over (t_prev[i], t_curr[i]) [+ g],
+        as a fresh tensor (one chain of length 1 a row)."""
+        out = torch.empty(prev.shape, dtype=prev.dtype, device=prev.device)
+        self._chain(lvl, prev, np.asarray(t_prev)[None], np.asarray(t_curr)[None], out[:, None],
+                    None if g is None else g[:, None])
+        return out
+
+    def _gather(self, tube, idx):
+        """Rows idx of a tube as a fresh contiguous tube (K21)."""
+        out = torch.empty((idx.shape[0],) + tuple(tube.shape[1:]), dtype=tube.dtype,
+                          device=tube.device)
+        self.ops.indexed_combine(_rows(out), [_rows(tube)], [1.0], idx=[idx])
+        return out
+
+    def _scatter(self, tube, idx, rows):
+        """tube[idx] = rows, dropping the slots whose index is the tube's
+        length (K21)."""
+        self.ops.indexed_combine(_rows(tube), [_rows(rows)], [1.0], io=idx)
+
+    def _combine(self, out, terms, coeffs):
+        """out = sum_k coeffs[k] * terms[k] over row views (kernel K4; in DD
+        the left-to-right DD sum, kernel K25)."""
+        if self._dd:
+            self.ops.dd_arith("combine", *[self._pair(t) for t in terms], coeffs=coeffs,
+                              out=self._pair(out))
+            return
+        self.ops.cpoint_combine(_rows(out), [_rows(t) for t in terms], coeffs)
+
+    def _row_norms(self, a, b):
+        """Per-row norm of a - b over two level-0 tube views: the
+        application's ``state_norm`` where it has one, else the 2-norm (K3;
+        in DD of the float32 value of the DD difference, which K25
+        writes)."""
+        if self.state_norm is not None:
+            return self._hook_norms(a, b)
+        if not self._dd:
+            return self.ops.residual_row_norms(_rows(a), _rows(b))
+        diff = torch.empty((a.shape[0],) + tuple(a.shape[2:]), dtype=a.dtype, device=a.device)
+        self.ops.dd_arith("resid", self._pair(a), self._pair(b), out=diff)
+        d = _rows(diff)
+        zero = torch.zeros(d.shape[1], dtype=d.dtype, device=d.device).expand(d.shape)
+        return self.ops.residual_row_norms(d, zero)
+
+    def _hook_norms(self, a, b):
+        """``state_norm`` of each row of a - b, the difference handed over in
+        the application's structure (a DD pair in DD), as the JAX package's
+        vmap of the hook: through ``torch.vmap``; where the hook cannot be
+        vmapped (it reads a value on the host, or branches on one: vmap
+        raises), one call a row, decided at the first call."""
+        d = _dd.sub(self._pair(a), self._pair(b)) if self._dd else self._tree(0, a - b)
+        if self._norm_rows is None:
+            try:
+                norms = torch.vmap(self.state_norm)(d)
+                self._norm_rows = False
+                return norms
+            except RuntimeError:
+                self._norm_rows = True
+        if not self._norm_rows:
+            return torch.vmap(self.state_norm)(d)
+        return torch.stack([torch.as_tensor(self.state_norm(vector._map(lambda x: x[r], d)),
+                                            dtype=torch.float64, device=self.device)
+                            for r in range(a.shape[0])])
+
+    def _weighted_into(self, dst, stepped):
+        """dst <- w*stepped + (1-w)*dst (weighted-Jacobi C update)."""
+        if self.weight_c == 1.0:
+            dst.copy_(stepped)
+        else:
+            self._combine(dst, [stepped, dst], [self.weight_c, 1.0 - self.weight_c])
+
+
+class Mgrit(RowRoutines):
     """MGRIT solver; constructor parameters mirror ``pymgrit_tpu.Mgrit``."""
 
     def __init__(self, problem: List[Application], transfer: List[GridTransfer] = None,
@@ -221,14 +406,16 @@ class Mgrit:
                 'Incorrect datatype cf_iter. '
                 'Specify a list of values for all but the coarsest level or an integer ( used for all levels).')
         if mesh is not None:
-            raise NotImplementedError("mesh= (time-sharded execution) is not ported yet (ROADMAP A7)")
+            raise NotImplementedError(
+                "mesh= is not taken by the port's Mgrit: time-sharded execution runs on "
+                "pymgrit_tpu_torch.parallel.ShardedMgrit (one process a time shard, "
+                "torch.distributed); the 'space' mesh axis is not ported (ROADMAP A7b)")
         if lazy_f_relax:
             raise NotImplementedError(
                 "lazy_f_relax=True is not ported (ROADMAP: not to port; the condensed carry replaces it)")
 
-        self.problem = problem
+        self._init_rows(problem, weight_c)
         self.transfer = transfer
-        self.weight_c = weight_c
         self.lvl_max = len(problem)
         self.tol = tol
         self.cf_iter = cf_iter
@@ -245,16 +432,6 @@ class Mgrit:
         self.solve_iter = 0
         self.runtime_solve = 0.0
         self.runtime_setup = 0.0
-        self.ops = getattr(problem[0], "ops", DISPATCH)
-        # precision='dd': float32-pair states, packed tubes (see above)
-        self._dd = vector.contains_dd(problem[0].vector_template)
-        # multi-leaf states: one row layout a level (None: a single tensor
-        # or DD pair, stored as it is)
-        self._layouts = [vector.layout(p.vector_template) for p in problem]
-        self._multi = any(lay is not None for lay in self._layouts)
-        # the JAX package's per-state norm hook; None: K3's 2-norm
-        self.state_norm = getattr(problem[0], "state_norm", None)
-        self._norm_rows = None
 
         # ---- static level structure ----
         runtime_setup_start = time.time()
@@ -267,7 +444,6 @@ class Mgrit:
             if d.size and not np.all(d == d[0]):
                 logging.warning('Non-uniform coarsening between level ' + str(lvl) + ' and ' + str(lvl + 1) +
                                 '. Poorly tested.')
-        self.step_fns: List[Callable] = [p.step for p in problem]
         # ---- parallel-prefix coarsest solve (ops/prefix.py, kernel K8):
         # opt-in; it requires the coarsest application to expose
         # affine_coeffs(t0, t1) -> (A, b) with step(u) == A*u + b ----
@@ -425,49 +601,6 @@ class Mgrit:
                                               for lvl, t in enumerate(tubes)]
 
     # ------------------------------------------------------------------
-    # states: float64 tensors, or packed DD pairs
-    # ------------------------------------------------------------------
-
-    def _state(self, x, lvl: int) -> torch.Tensor:
-        """An application's state as a tube row of level lvl: float64, a DD
-        pair packed (2, ...) float32, or a multi-leaf state's leaves
-        concatenated."""
-        if self._dd:
-            return torch.stack([x.hi, x.lo])
-        lay = self._layouts[lvl]
-        return vector.as_f64(x) if lay is None else lay.flat(vector.as_f64(x))
-
-    def _tree(self, lvl: int, t):
-        """Tube rows of level lvl as the application's states: the rows
-        themselves, or views of them in a multi-leaf structure."""
-        lay = self._layouts[lvl]
-        return t if lay is None or t is None else lay.tree(t)
-
-    def _flat(self, lvl: int, x):
-        """The inverse of ``_tree``: states of level lvl as rows."""
-        lay = self._layouts[lvl]
-        return x if lay is None else lay.flat(x)
-
-    def _pair(self, t: torch.Tensor, axis: int = 1):
-        """The DD view of packed tube rows (the solver's kernel set)."""
-        return _dd.pair(t, self.ops, axis)
-
-    def _transfer_fn(self, transfer: GridTransfer, fn: Callable, src: int, dst: int) -> Callable:
-        """A transfer method from level src's tube rows to level dst's; in DD
-        the rows are handed over as a DD pair and the result packed again; a
-        multi-leaf state is handed over in the application's structure (each
-        state, under vmap, or the batch) and its result packed again."""
-        if self._layouts[src] is not None or self._layouts[dst] is not None:
-            if not getattr(transfer, "batched", False):
-                return torch.vmap(lambda row: self._flat(dst, fn(self._tree(src, row))))
-            batch_fn = _over_rows(transfer, fn, self.ops)
-            return lambda rows: self._flat(dst, batch_fn(self._tree(src, rows)))
-        rows_fn = _over_rows(transfer, fn, self.ops)
-        if not self._dd:
-            return rows_fn
-        return lambda rows: _dd.packed(rows_fn(self._pair(rows)))
-
-    # ------------------------------------------------------------------
     # level-0 condensed structure
     # ------------------------------------------------------------------
 
@@ -561,72 +694,8 @@ class Mgrit:
             self._u[0] = self._cnd_materialize_expr(self._u[0])
 
     # ------------------------------------------------------------------
-    # batched steps and row views
+    # row views
     # ------------------------------------------------------------------
-
-    def _vstep(self, lvl):
-        """Batched one-step map: the application's step_batched, else a
-        vmap of its step (on a multi-leaf level: of rows, handing the
-        application its structure)."""
-        batched = getattr(self.problem[lvl], "step_batched", None)
-        step = self.step_fns[lvl]
-        if self._layouts[lvl] is not None:
-            if batched is not None:
-                return lambda x, t0, t1: self._flat(lvl, batched(self._tree(lvl, x), t0, t1))
-            return torch.vmap(lambda x, t0, t1: self._flat(lvl, step(self._tree(lvl, x), t0, t1)))
-        if batched is not None:
-            return batched
-        return torch.vmap(step)
-
-    def _chain(self, lvl, seed, tp, tc, out, g=None):
-        """J chains of L steps: out[:, k] = [g[:, k] +] Phi(out[:, k-1]) with
-        out[:, -1] = seed; tp, tc: (L, J) numpy times; out, g: (J, L, ...)
-        views that must not overlap seed.  Uses the application's
-        step_chain (Heat2D: kernel K2) when it has one."""
-        chain = getattr(self.problem[lvl], "step_chain", None)
-        if chain is not None:
-            chain(self._tree(lvl, seed), tp, tc, self._tree(lvl, out), self._tree(lvl, g))
-            return
-        vstep = self._vstep(lvl)
-        x = seed
-        for k in range(tp.shape[0]):
-            if self._dd:
-                y = vstep(self._pair(x), self._t(tp[k]), self._t(tc[k]))
-                if g is not None:
-                    y = _dd.add(self._pair(g[:, k]), y)
-                out[:, k, 0].copy_(y.hi)
-                out[:, k, 1].copy_(y.lo)
-                x = out[:, k]
-                continue
-            x = vstep(x, self._t(tp[k]), self._t(tc[k]))
-            if g is not None:
-                x = g[:, k] + x
-            out[:, k] = x
-
-    def _t(self, a):
-        """Step times on the device: float64, or split exactly into DD
-        pairs (the JAX package's ``_as_t``)."""
-        if self._dd:
-            return _dd.from_f64(np.asarray(a, dtype=np.float64), self.device, self.ops)
-        return torch.as_tensor(np.asarray(a, dtype=np.float64), device=self.device)
-
-    def _step_rows(self, lvl, prev, t_prev, t_curr):
-        """One step of every row of prev: a fresh tensor."""
-        out = torch.empty(prev.shape, dtype=prev.dtype, device=prev.device)
-        self._chain(lvl, prev, np.asarray(t_prev)[None], np.asarray(t_curr)[None], out[:, None])
-        return out
-
-    def _gather(self, tube, idx):
-        """Rows idx of a tube as a fresh contiguous tube (K21)."""
-        out = torch.empty((idx.shape[0],) + tuple(tube.shape[1:]), dtype=tube.dtype,
-                          device=tube.device)
-        self.ops.indexed_combine(_rows(out), [_rows(tube)], [1.0], idx=[idx])
-        return out
-
-    def _scatter(self, tube, idx, rows):
-        """tube[idx] = rows, dropping the slots whose index is the tube's
-        length (K21)."""
-        self.ops.indexed_combine(_rows(tube), [_rows(rows)], [1.0], io=idx)
 
     def _c_rows(self, lvl, tube):
         """View of the C-point rows 1..nc-1 of a level tube."""
@@ -644,15 +713,6 @@ class Mgrit:
         info = self.levels[0]
         return tube[0:info.nt:info.m].clone()
 
-    def _combine(self, out, terms, coeffs):
-        """out = sum_k coeffs[k] * terms[k] over row views (kernel K4; in DD
-        the left-to-right DD sum, kernel K25)."""
-        if self._dd:
-            self.ops.dd_arith("combine", *[self._pair(t) for t in terms], coeffs=coeffs,
-                              out=self._pair(out))
-            return
-        self.ops.cpoint_combine(_rows(out), [_rows(t) for t in terms], coeffs)
-
     def _icombine(self, out, terms, coeffs, io=None, idx=()):
         """out[io] = sum_k coeffs[k] * terms[k][idx[k]] over tube rows (K21;
         in DD the rows are gathered, combined by K25 and scattered)."""
@@ -667,48 +727,6 @@ class Mgrit:
         res = torch.empty(rows[0].shape, dtype=out.dtype, device=out.device)
         self._combine(res, rows, coeffs)
         self._scatter(out, io, res)
-
-    def _row_norms(self, a, b):
-        """Per-row norm of a - b over two level-0 tube views: the
-        application's ``state_norm`` where it has one, else the 2-norm (K3;
-        in DD of the float32 value of the DD difference, which K25
-        writes)."""
-        if self.state_norm is not None:
-            return self._hook_norms(a, b)
-        if not self._dd:
-            return self.ops.residual_row_norms(_rows(a), _rows(b))
-        diff = torch.empty((a.shape[0],) + tuple(a.shape[2:]), dtype=a.dtype, device=a.device)
-        self.ops.dd_arith("resid", self._pair(a), self._pair(b), out=diff)
-        d = _rows(diff)
-        zero = torch.zeros(d.shape[1], dtype=d.dtype, device=d.device).expand(d.shape)
-        return self.ops.residual_row_norms(d, zero)
-
-    def _hook_norms(self, a, b):
-        """``state_norm`` of each row of a - b, the difference handed over in
-        the application's structure (a DD pair in DD), as the JAX package's
-        vmap of the hook: through ``torch.vmap``; where the hook cannot be
-        vmapped (it reads a value on the host, or branches on one: vmap
-        raises), one call a row, decided at the first call."""
-        d = _dd.sub(self._pair(a), self._pair(b)) if self._dd else self._tree(0, a - b)
-        if self._norm_rows is None:
-            try:
-                norms = torch.vmap(self.state_norm)(d)
-                self._norm_rows = False
-                return norms
-            except RuntimeError:
-                self._norm_rows = True
-        if not self._norm_rows:
-            return torch.vmap(self.state_norm)(d)
-        return torch.stack([torch.as_tensor(self.state_norm(vector._map(lambda x: x[r], d)),
-                                            dtype=torch.float64, device=self.device)
-                            for r in range(a.shape[0])])
-
-    def _weighted_into(self, dst, stepped):
-        """dst <- w*stepped + (1-w)*dst (weighted-Jacobi C update)."""
-        if self.weight_c == 1.0:
-            dst.copy_(stepped)
-        else:
-            self._combine(dst, [stepped, dst], [self.weight_c, 1.0 - self.weight_c])
 
     # ------------------------------------------------------------------
     # relaxation, FAS, correction (in place on the tubes)

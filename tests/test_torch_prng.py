@@ -56,6 +56,20 @@ def test_random_tube_in_torch_equals_numpy_in_chunks(monkeypatch):
         np.testing.assert_array_equal(tube.numpy(), prng.random_tube_numpy(seed, 9, (4, 5)))
 
 
+@pytest.mark.parametrize("kind", ["leaves", "dd"])
+def test_rows_draws_the_rows_of_the_whole_tube(kind):
+    """``rows=`` (a time shard's rows, in any order, repeats allowed) draws
+    exactly those rows of the whole tube's draw."""
+    rows = np.array([7, 0, 3, 3, 12])
+    if kind == "dd":
+        whole = prng.random_dd_tube(5, 13, (2, 3), "cpu")
+        part = prng.random_dd_tube(5, 13, (2, 3), "cpu", rows=rows)
+    else:
+        whole = torch.cat(prng.random_leaves(5, 13, [(3,), (2,)], "cpu"), dim=1)
+        part = torch.cat(prng.random_leaves(5, 13, [(3,), (2,)], "cpu", rows=rows), dim=1)
+    assert torch.equal(part, whole[torch.as_tensor(rows)])
+
+
 def _rhs(mod):
     xp = jnp if mod is J else np
     return lambda x, y, t: xp.sin(xp.pi * x) * xp.sin(xp.pi * y) * xp.ones_like(t * x * y)

@@ -115,6 +115,16 @@ def test_unported_options_raise(kw, item):
         P.Mgrit(problem=problem, logging_lvl=30, **kw)
 
 
+def test_mesh_names_the_sharded_executor():
+    """``Mgrit(mesh=...)`` points at the port's time-sharded executor and at
+    the unported 'space' axis (ROADMAP A7b)."""
+    problem = P.simple_setup_problem(P.Dahlquist(t_start=0, t_stop=5, nt=101, device="cpu"), 2, 2)
+    with pytest.raises(NotImplementedError) as err:
+        P.Mgrit(problem=problem, logging_lvl=30, mesh=object())
+    assert "pymgrit_tpu_torch.parallel.ShardedMgrit" in str(err.value)
+    assert "A7b" in str(err.value)
+
+
 def test_import_leaves_jax_out():
     """The port and chip_smoke.py import no jax module and nothing of the
     JAX package, and the plots module no matplotlib (checked in a fresh
@@ -125,6 +135,8 @@ def test_import_leaves_jax_out():
             "import pymgrit_tpu_torch.ops.runge_kutta, pymgrit_tpu_torch.ops._build; "
             "import pymgrit_tpu_torch.core.partition, pymgrit_tpu_torch.coupling; "
             "import pymgrit_tpu_torch.utils.plots, pymgrit_tpu_torch.models.induction_machine; "
+            "import pymgrit_tpu_torch.parallel, pymgrit_tpu_torch.parallel.shard_solver; "
+            "sys.path.insert(0, 'tests'); import torch_shard_workers; "
             "import chip_smoke; "
             "bad = [m for m in sys.modules if m in ('jax', 'pymgrit_tpu') "
             "or m.startswith(('jax.', 'jaxlib', 'pymgrit_tpu.'))]; "
