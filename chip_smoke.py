@@ -541,7 +541,7 @@ PEAK_DMMA_OPS_PER_S = 67e12
 # cores could run: the sine transforms of K5, K6 and K20, K10's Hartley
 # transforms, K22's eigenbasis products and K26's DD products
 PRODUCT_KERNELS = ("sine_solve2d", "sine_affine2d", "periodic_solve2d", "sine_solve1d",
-                   "eig_step", "dd_matmul")
+                   "eig_step", "dd_matmul", "sine_solve1d_lam_table")
 DD_FP32_KERNELS = ("dd_interval_affine", "dd_theta_chain", "dd_arith")
 
 
@@ -1439,7 +1439,8 @@ def kernel_cases(dtype, dev, stash):
     return (cases + coarsest_cases(dtype, dev, rng, lam, stash)
             + nonlinear_cases(dtype, dev, rng, stash) + slice_cases(dtype, dev, rng, stash)
             + transfer_cases(dtype, dev, rng, stash) + heat1d_cases(dtype, dev, rng, stash)
-            + past_cap_cases(dtype, dev, rng, stash) + slice7_cases(dtype, dev, rng, stash))
+            + past_cap_cases(dtype, dev, rng, stash) + slice7_cases(dtype, dev, rng, stash)
+            + space_kernel_cases(dtype, dev, stash))
 
 
 def coarsest_work(kernel, nt, N, k, A, b, es=8, with_g=True):
@@ -1884,6 +1885,55 @@ def k16_case(seeds, dts, g, nu, dx, dtype, stash):
         stash[("burgers1d_newton", J, L)] = stash[("burgers1d_newton", J, L, n)] = int(iters.sum())
         return torch.cat([out.flatten(), iters.flatten().to(dtype)])
     return RowCase(prepare, launch, exact=False, view=view)
+
+
+def space_kernel_cases(dtype, dev, stash):
+    """The two kernel modes of the [space] phase at its (2, 2) shapes, from
+    a generator of their own: K3's squares mode on a rank's 256 level-0
+    C-rows of the spectral slab (64 x 128 coefficients), and K20's BE solve
+    with a lam table, the physical pencil's x-pass at the level-0 C-step (32
+    states x 64 columns = 2048 lanes of 128 points, a (64, 128) table of
+    Lam's columns); each a ``RowCase`` held at the kernel tolerance (a
+    second launch bit for bit) with the bytes and operations its function
+    needs.  Neither has a single PyTorch call that computes it."""
+    import torch
+    from pymgrit_tpu_torch.ops import heat_kernels
+    from pymgrit_tpu_torch.ops.dirichlet_spectral import sine_eigenbasis
+    rng = np.random.default_rng(SEED + 30)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+
+    n = SPACE_TOMS["nx"] - 2
+    J, N = (SPACE_TOMS["nt"] - 1) // SPACE_TOMS["ms"][0] // SPACE_MESH[0], n * n // SPACE_MESH[1]
+    a, b = (t(rng.uniform(-1, 1, (J + 1, N))) for _ in range(2))
+    case = f"squares C-rows J={J} N={N}"
+    cases = [("residual_row_norms_squares", case,
+              RowCase(lambda: None, lambda k, _: k.residual_row_norms(a[1:], b[:J], squares=True),
+                      exact=False))]
+    stash[("work", "residual_row_norms_squares", case)] = (8 * (2 * J * N + J), 3 * J * N)
+
+    S_np, lamx = sine_eigenbasis(n, (n + 1.0) ** 2)
+    D = n // SPACE_MESH[1]
+    Js = (SPACE_PHYS["nt"] - 1) // SPACE_PHYS["ms"][0] // SPACE_MESH[0]
+    B = Js * D
+    S = t(S_np)
+    table = t(lamx[None, :] + lamx[:D, None])            # Lam[:, j] of the first D columns
+    X = t(rng.uniform(-1, 1, (B, n)))
+    dt = t(np.full(B, 1.0 / (SPACE_PHYS["nt"] - 1)))
+
+    def x_pass(ops, out):
+        return ops.sine_solve1d(X, out, S, table, dt)
+
+    case = f"x-pass lam table B={B} n={n} D={D}"
+    cases.append(("sine_solve1d_lam_table", case,
+                  RowCase(lambda: torch.empty((B, n), dtype=dtype, device=dev), x_pass,
+                          exact=False)))
+    stash[("plan", "sine_solve1d_lam_table", case)] = ProductPlans(
+        heat_kernels.sine_solve1d_plans(X, S, table))
+    stash[("work", "sine_solve1d_lam_table", case)] = (8 * (2 * B * n + n * n + D * n + B),
+                                                       4 * B * n * n + 3 * B * n)
+    return cases
 
 
 class ProductPlans(tuple):
@@ -2733,7 +2783,8 @@ def headline_work(kernel, stash):
         case = ("FAS" if kernel == "restrict_combine" else "correction") + " spatial65 2D R=1024"
         return stash[("work", kernel, case)]
     if kernel in ("indexed_combine", "eig_step", "sine_solve1d", "affine_prefix",
-                  "affine_windows"):   # the headline's recorded work (K8, K9: coarsest_work)
+                  "affine_windows", "residual_row_norms_squares", "sine_solve1d_lam_table"):
+        # the headline's recorded work (K8, K9: coarsest_work)
         return next(w for k, w in stash.items()
                     if k[:2] == ("work", kernel) and k[2].startswith(HEADLINE[kernel]))
     raise KeyError(kernel)
@@ -2773,7 +2824,8 @@ HEADLINE = {"interval_affine": "materialize", "theta_chain": "level-1 F-relax",
             "interpolate_combine": "correction spatial65", "sine_solve1d": "BDF2 B=128",
             "indexed_combine": "drop-scatter", "eig_step": "128 lanes",
             "dd_interval_affine": "materialize", "dd_theta_chain": "level-1 F-relax BE",
-            "dd_arith": "FAS combine", "dd_matmul": "Heat2D physical"}
+            "dd_arith": "FAS combine", "dd_matmul": "Heat2D physical",
+            "residual_row_norms_squares": "squares", "sine_solve1d_lam_table": "x-pass"}
 
 
 def row_times(kernel, case, run, stash, f64=True):
@@ -5185,13 +5237,25 @@ def shard_run(mesh, build, entry="solve_compiled", k=None, **kw):
     reset_launch_counts()
     cls, args = (PP.ShardedAtMgrit, (k,)) if k else (PP.ShardedMgrit, ())
     mg, setup = synced_wall(lambda: cls(*args, problem=problem, mesh=mesh, logging_lvl=30, **kw))
-    mg.comm.reset_counts()
+    comms = [c for c in (mg.comm, mg.space_comm) if c is not None]
+    for c in comms:
+        c.reset_counts()
     _, wall = synced_wall(getattr(mg, entry))
     it = mg.solve_iter
+    per_it = [{c: n / it for c, n in comm.counts.items()} for comm in comms]
     return dict(mg=mg, hist=mg.conv[1:it + 1].copy(), build=built, setup=setup, wall=wall,
-                launches=launch_counts(), comm={c: n / it for c, n in mg.comm.counts.items()},
+                launches=launch_counts(), modes=mode_launches(), comm=per_it[0],
+                space_comm=per_it[1] if len(per_it) > 1 else None,
                 staged=mg.comm.staged, backend=mg.comm.backend,
                 peak=(torch.cuda.max_memory_allocated() - mem0) / 2 ** 30)
+
+
+def mode_launches():
+    """K3's and K20's launches by mode since the last reset."""
+    from pymgrit_tpu_torch.ops import heat_kernels, row_norms
+    return {**{f"residual_row_norms {k}": v
+               for k, v in row_norms.residual_row_norms.mode_launches.items()},
+            **{f"sine_solve1d {k}": v for k, v in heat_kernels.sine_solve1d.mode_launches.items()}}
 
 
 def comm_latency(group, reps=50):
@@ -5252,22 +5316,23 @@ def shard_worker(rank, size, store, directory):
         dist.destroy_process_group()
 
 
-def shard_world(directory):
-    """Spawn the P = 2 world, join it within SHARD_JOIN_S, and return each
-    rank's results; a rank's exception or the time limit fails the run."""
+def shard_world(directory, worker=None, size=SHARD_P, join_s=SHARD_JOIN_S, label="shard"):
+    """Spawn a world of ``size`` ranks running ``worker`` (the P = 2 world's
+    by default), join it within ``join_s``, and return each rank's results;
+    a rank's exception or the time limit fails the run."""
     import pickle
     import torch.multiprocessing as mp
-    ctx = mp.start_processes(shard_worker, args=(SHARD_P, os.path.join(directory, "store"),
-                                                 directory),
-                             nprocs=SHARD_P, join=False, start_method="spawn")
-    deadline = time.monotonic() + SHARD_JOIN_S
+    ctx = mp.start_processes(worker or shard_worker,
+                             args=(size, os.path.join(directory, "store"), directory),
+                             nprocs=size, join=False, start_method="spawn")
+    deadline = time.monotonic() + join_s
     try:
         while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
             check(time.monotonic() < deadline,
-                  f"shard: the P = {SHARD_P} world did not finish within {SHARD_JOIN_S} s")
+                  f"{label}: the world of {size} did not finish within {join_s} s")
     except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
         errs = sorted(Path(directory).glob("rank*.err"))
-        fail(f"shard: a rank of the P = {SHARD_P} world failed: {e}\n"
+        fail(f"{label}: a rank of the world of {size} failed: {e}\n"
              + "".join(p.read_text() for p in errs))
     finally:
         for proc in ctx.processes:
@@ -5275,7 +5340,7 @@ def shard_world(directory):
                 proc.kill()
                 proc.join(10)
     ranks = []
-    for r in range(SHARD_P):
+    for r in range(size):
         with open(os.path.join(directory, f"rank{r}.pkl"), "rb") as f:
             ranks.append(pickle.load(f))
     return ranks
@@ -5436,6 +5501,245 @@ def phase_shard(card):
           f"phase {time.perf_counter() - t_phase:.1f} s | {card}")
 
 
+# ---------------------------------------------------------------------------
+# [space]: the sharded executor on a ('time', 'space') mesh
+# ---------------------------------------------------------------------------
+
+# a four-process gloo world on cuda:0 at (2, 2); widths of 130 (interior
+# 128: two slabs of 64 coefficient rows, or of 65 field rows; the TOMS
+# width 129 does not split in two, as in the JAX package); each case also
+# at (2, 1) (ranks 0 and 1), with the plain versions at (2, 2), and
+# serially on rank 0
+SPACE_MESH = (2, 2)
+SPACE_TOMS = dict(nx=130, nt=2 ** 14 + 1, ms=(32, 16, 4, 4))
+SPACE_PHYS = dict(nx=130, nt=2 ** 11 + 1, ms=(32, 16, 4))         # CN_CFG's cut
+SPACE_AT = dict(nx=130, nt=2 ** 14 + 1, ms=(8,))                  # TOMS2 at width 130
+SPACE_INIT_S, SPACE_JOIN_S = 300, 600     # rendezvous and collective timeout, the world's limit
+SPACE_REPS = 50
+
+
+def space_cases():
+    """(label, problem configuration, solver arguments, AT window or None)."""
+    return [
+        ("toms", dict(basis="spectral", **SPACE_TOMS), dict(tol=MAIN_TOL, max_iter=MAIN_MAX_ITER),
+         None),
+        ("physical", dict(basis="physical", **SPACE_PHYS),
+         dict(tol=MAIN_TOL, max_iter=MAIN_MAX_ITER), None),
+        ("at64", dict(basis="spectral", **SPACE_AT),
+         dict(tol=1e-300, max_iter=TOMS2_AT_ITERS), TOMS2_AT_K),
+    ]
+
+
+def space_latency(mesh, reps=SPACE_REPS):
+    """ms a call of the space group's two operations on the card, each over
+    ``reps`` calls between two synchronisations: an all_to_all of one state's
+    pencil exchange at width 130 (64 x 64 values to and from the other rank)
+    and a row halo of one 130-point row each way."""
+    import torch
+    from pymgrit_tpu_torch.parallel.comm import Comm
+    comm = Comm(mesh.space_group, DEVICE)
+    half = (SPACE_TOMS["nx"] - 2) // mesh.n_space
+    x = torch.zeros(mesh.n_space * half * half, dtype=torch.float64, device=DEVICE)
+    sizes = [half * half] * mesh.n_space
+    row = torch.zeros(SPACE_TOMS["nx"], dtype=torch.float64, device=DEVICE)
+    out = {}
+    for name, fn in (("all_to_all", lambda: comm.all_to_all(x, sizes, sizes)),
+                     ("row_halo", lambda: comm.row_halo(row, row))):
+        fn()
+        _, wall = synced_wall(lambda: [fn() for _ in range(reps)])
+        out[name] = 1e3 * wall / reps
+    return out
+
+
+def space_worker(rank, size, store, directory):
+    """A rank of the [space] world: for each case of ``space_cases`` the
+    (2, 2) run with kernels (then ``fine_solution``, collective), the same
+    problem with the plain versions, the (2, 1) run on ranks 0 and 1 and,
+    on rank 0, the serial solve on the (2, 1) run's problem against which
+    its fine solution is held; its results pickled into ``directory`` (a
+    traceback there if it raised).  The problem's wall is the build of the
+    first run's problem (0 for a problem built before)."""
+    import datetime
+    import pickle
+    import traceback
+    import torch
+    import torch.distributed as dist
+    import pymgrit_tpu_torch as P
+    import pymgrit_tpu_torch.parallel as PP
+    from pymgrit_tpu_torch.ops import DISPATCH, PLAIN
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method="file://" + store, rank=rank, world_size=size,
+                            timeout=datetime.timedelta(seconds=SPACE_INIT_S))
+    try:
+        grid = PP.make_time_space_mesh(*SPACE_MESH)
+        time_only = PP.make_time_space_mesh(SPACE_MESH[0])
+        out = {"latency": space_latency(grid)}
+        for label, cfg, kw, k in space_cases():
+            res, built = {}, {}
+
+            def build(key, ops):
+                """The case's problem: one for the (2, 2) runs (the plain run
+                sets its levels' ops), one whole-state for (2, 1) and the
+                serial solve."""
+                if key not in built:
+                    built[key] = build_problem(P, device=DEVICE, ops=ops, **cfg)
+                for p in built[key]:
+                    p.ops = ops
+                return built[key]
+
+            dist.barrier()                  # the ranks start each case together
+            for run, mesh, key, ops in (("kernel", grid, "grid", DISPATCH),
+                                        ("plain", grid, "grid", PLAIN),
+                                        ("time", time_only, "whole", DISPATCH)):
+                if mesh is None:
+                    continue
+                r = shard_run(mesh, lambda: build(key, ops), k=k, **kw)
+                if run == "kernel":
+                    tube = r["mg"].fine_solution()
+                    res["tube_shape"] = tuple(tube.shape)
+                    if rank != 0:
+                        del tube
+                if run == "plain":
+                    del built["grid"]
+                del r["mg"]
+                torch.cuda.empty_cache()
+                res[run] = r
+            if rank == 0:
+                problem = built.pop("whole")
+                ms = (P.AtMgrit(k, problem=problem, logging_lvl=30, **kw) if k else
+                      P.Mgrit(problem=problem, logging_lvl=30, **kw))
+                _, wall = synced_wall(ms.solve_compiled)
+                ref = ms.u[0]
+                res["serial"] = dict(
+                    hist=ms.conv[1:ms.solve_iter + 1].copy(), wall=wall,
+                    floor=physical_floor(ms) if cfg["basis"] == "physical" else residual_floor(ms),
+                    tube_err=float((tube - ref).abs().max()) / float(ref.abs().max()),
+                    finite=bool(torch.isfinite(tube).all()))
+                del ms, problem, ref, tube
+                torch.cuda.empty_cache()
+            out[label] = res
+        tmp = os.path.join(directory, f".rank{rank}.tmp")
+        with open(tmp, "wb") as f:
+            pickle.dump(out, f)
+        os.replace(tmp, os.path.join(directory, f"rank{rank}.pkl"))
+    except BaseException:
+        with open(os.path.join(directory, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def fmt_comm(c):
+    return f"{c['ops']:.1f} ops, {c['bytes']:.0f} B moved, {c['staged']:.0f} B staged"
+
+
+SPACE_NEEDED = {
+    "toms": ("interval_affine", "theta_chain", "residual_row_norms", "cpoint_combine"),
+    "physical": ("theta_rhs2d", "sine_solve1d", "interval_affine", "residual_row_norms",
+                 "cpoint_combine"),
+    "at64": ("interval_affine", "affine_windows", "residual_row_norms", "cpoint_combine"),
+}
+# the launches [space] prints a rank: K1-K7, K9 and K20
+SPACE_PRINTED = ("interval_affine", "theta_chain", "residual_row_norms", "cpoint_combine",
+                 "sine_solve2d", "sine_affine2d", "theta_rhs2d", "affine_windows", "sine_solve1d")
+SPACE_MODES = {"toms": ("residual_row_norms squares",),
+               "physical": ("residual_row_norms squares", "sine_solve1d be lam table",
+                            "sine_solve1d transform"),
+               "at64": ("residual_row_norms squares",)}
+
+
+def phase_space(card):
+    """The sharded executor on a ('time', 'space') mesh: a four-process gloo
+    world on cuda:0 at (2, 2) runs spectral TOMS at width 130, the physical
+    basis (BE, the pencil route: K7 on ghost rows, K20 with its lam table,
+    all_to_all) at CN_CFG's depth and spectral ShardedAtMgrit(64); each held
+    against the same case at (2, 1), against the serial solve (history and
+    fine tube) and against the plain versions on the same world; every
+    rank's history equal to rank 0's; walls, peak memory at n_space 2 and 1,
+    launches and communication a rank.  Returns the launches of K3's
+    squares mode (toms) and K20's lam table (physical)."""
+    t_phase = time.perf_counter()
+    shard_env()
+    size = SPACE_MESH[0] * SPACE_MESH[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = shard_world(tmp, space_worker, size, SPACE_JOIN_S, "space")
+        world_s = time.perf_counter() - t0
+    grid = f"({SPACE_MESH[0]}, {SPACE_MESH[1]})"
+    for label, cfg, kw, k in space_cases():
+        rs = [r[label] for r in ranks]
+        kern = [r["kernel"] for r in rs]
+        h = kern[0]["hist"]
+        same = all(np.array_equal(r["hist"], h) for r in kern)
+        t_only = [r["time"] for r in rs if "time" in r]
+        same_t = all(np.array_equal(r["hist"], t_only[0]["hist"]) for r in t_only)
+        ser = rs[0]["serial"]
+        floor, rtol = ser["floor"], MAIN_RTOL
+        ok_t, err_t = histories_agree(h, t_only[0]["hist"], floor, rtol)
+        ok_s, err_s = histories_agree(h, ser["hist"], floor, rtol)
+        ok_p, err_p = histories_agree(h, rs[0]["plain"]["hist"], floor, rtol)
+        n = cfg["nx"]
+        want_shape = (cfg["nt"],) + ((n, n) if cfg["basis"] == "physical" else (n - 2, n - 2))
+        ok_tube = (ser["tube_err"] <= SHARD_TUBE_RTOL and ser["finite"]
+                   and all(r["tube_shape"] == want_shape for r in rs))
+        names, modes = SPACE_NEEDED[label], SPACE_MODES[label]
+        ok_launch = all(all(r["launches"][x] > 0 for x in names)
+                        and all(r["modes"][x] > 0 for x in modes)
+                        and r["launches"]["sine_solve2d"] == 0
+                        and r["launches"]["sine_affine2d"] == 0 for r in kern)
+        ok_plain = all(sum(r["plain"]["launches"].values()) == 0 for r in rs)
+        ok_stage = all(r["space_comm"]["staged"] > 0 and r["comm"]["staged"] > 0 for r in kern)
+        ok = same and same_t and ok_t and ok_s and ok_p and ok_tube and ok_launch and ok_plain \
+            and ok_stage
+        what = f"AtMgrit({k})" if k else "Mgrit"
+        print(f"[space] {label} {cfg} {grid} ({kern[0]['backend']}, staged {kern[0]['staged']}): "
+              f"{h.size} iterations, history "
+              f"{[float(f'{x:.6e}') for x in h]} | ranks equal bit for bit {same} ((2, 1): "
+              f"{same_t}) | vs (2, 1) max diff {err_t:.3e}, vs the serial {what} {err_s:.3e}, vs "
+              f"plain {grid} {err_p:.3e} (rtol {rtol:.0e}, atol floor {floor:.2e}) | "
+              f"fine_solution {rs[0]['tube_shape']} vs the serial tube max rel "
+              f"{ser['tube_err']:.3e} (rtol {SHARD_TUBE_RTOL:.0e}) | {'ok' if ok else 'FAIL'} "
+              f"| {card}")
+        print(f"[space] {label} walls (problem + setup + solve) {grid}: "
+              + "; ".join(f"rank {i} {r['build']:.3f} + {r['setup']:.3f} + {r['wall']:.4f} s"
+                          for i, r in enumerate(kern))
+              + f" | (2, 1): " + "; ".join(f"rank {i} {r['build']:.3f} + {r['setup']:.3f} + "
+                                           f"{r['wall']:.4f} s" for i, r in enumerate(t_only))
+              + f" | plain {grid} rank 0 {rs[0]['plain']['wall']:.4f} s | serial "
+              f"{ser['wall']:.4f} s | {card}")
+        print(f"[space] {label} peak device memory a rank (GiB, above the start): n_space 2 "
+              + ", ".join(f"{r['peak']:.3f}" for r in kern) + "; n_space 1 (2, 1) "
+              + ", ".join(f"{r['peak']:.3f}" for r in t_only)
+              + f" | launches (setup + solve) " + "; ".join(
+                  f"rank {i} {fmt_counts(r['launches'], SPACE_PRINTED)}"
+                  f", {fmt_counts(r['modes'], modes)}" for i, r in enumerate(kern))
+              + f" | per iteration, time group: " + "; ".join(
+                  f"rank {i} {fmt_comm(r['comm'])}" for i, r in enumerate(kern))
+              + "; space group: " + "; ".join(
+                  f"rank {i} {fmt_comm(r['space_comm'])}" for i, r in enumerate(kern))
+              + f" | {card}")
+        check(same and same_t, f"space {label}: the ranks' histories differ")
+        check(ok_t and ok_s and ok_p, f"space {label}: history {h} against (2, 1) "
+              f"{t_only[0]['hist']}, serial {ser['hist']}, plain {rs[0]['plain']['hist']}")
+        check(ok_tube, f"space {label}: fine_solution off the serial tube by {ser['tube_err']:.3e}")
+        check(ok_launch, f"space {label}: a kernel of the path never ran on a rank, or a "
+                         f"whole-state kernel ran: {[(r['launches'], r['modes']) for r in kern]}")
+        check(ok_plain, f"space {label}: the plain run launched a kernel")
+        check(ok_stage, f"space {label}: the gloo ranks on the card staged nothing")
+    print(f"[space] collectives, ms a call ({SPACE_REPS} calls between synchronisations), "
+          f"space group {grid}: " + "; ".join(
+              f"rank {i} {fmt_latency(r['latency'])}" for i, r in enumerate(ranks)) + f" | {card}")
+    print(f"[space] world of {size} (spawn, CUDA start, three cases) {world_s:.1f} s; phase "
+          f"{time.perf_counter() - t_phase:.1f} s | {card}")
+    return {"residual_row_norms_squares": ranks[0]["toms"]["kernel"]["modes"][
+                "residual_row_norms squares"],
+            "sine_solve1d_lam_table": ranks[0]["physical"]["kernel"]["modes"][
+                "sine_solve1d be lam table"]}
+
+
 REPLACES = {
     "interval_affine":("cuda", "pymgrit_tpu_torch/ops/csrc/interval_affine.cu",
                         "pymgrit_tpu/models/heat_2d.py:538"),
@@ -5488,6 +5792,13 @@ REPLACES = {
     "dd_arith": ("cuda", "pymgrit_tpu_torch/ops/csrc/dd_arith.cu", "pymgrit_tpu/ops/dd.py:270"),
     "dd_matmul": ("cuda", "pymgrit_tpu_torch/ops/csrc/dd_matmul.cu",
                   "pymgrit_tpu/ops/ozaki.py:129"),
+    # the [space] path's two kernel modes: K3 without its root (the sharded
+    # norm's sum, reduced over the space group before the root) and K20's
+    # solve with a lam table (the physical solve's x-pass, 1 + dt Lam[i, j])
+    "residual_row_norms_squares": ("cuda", "pymgrit_tpu_torch/ops/csrc/residual_row_norms.cu",
+                                   "pymgrit_tpu/parallel/shard_solver.py:1135"),
+    "sine_solve1d_lam_table": ("cuda", "pymgrit_tpu_torch/ops/csrc/sine_solve1d.cu",
+                               "pymgrit_tpu/models/heat_2d.py:372"),
 }
 
 
@@ -5564,6 +5875,8 @@ def main():
     lap("machine")
     phase_shard(card)
     lap("shard")
+    counts_space = phase_space(card)
+    lap("space")
     # launches: each kernel's count on the main path it belongs to (K3, K4
     # run on both bases; the spectral run's count is reported; K8 and K9
     # from the TOMS-width prefix and AT runs; K10 from the Allen-Cahn bench
@@ -5590,7 +5903,7 @@ def main():
                 "eig_step": counts_diffusion["eig_step"],
                 **{k: counts_dd_toms[k] for k in ("dd_interval_affine", "dd_theta_chain",
                                                   "dd_arith")},
-                "dd_matmul": counts_dd65["dd_matmul"]}
+                "dd_matmul": counts_dd65["dd_matmul"], **counts_space}
     kernels = [dict(name=name, route=route, source=source, replaces=replaces,
                     launches=launches[name], **rows[name])
                for name, (route, source, replaces) in REPLACES.items()]

@@ -25,6 +25,27 @@ Both bases share the closed-form tables (the physical BE/CN step is the
 spectral affine map conjugated by the orthogonal sine basis).  All tables
 are built in float64 on the host once and copied to the device.
 
+Under a ('time', 'space') mesh with n_space > 1 (``parallel.ShardedMgrit``)
+the solver hands each level its space shard (``_space_slab``) and the state
+becomes the shard's slab of rows of axis 0 (``space_sharding_axis``, as the
+JAX package declares it; JAX's GSPMD partitions the same axis):
+
+* spectral: coefficient rows [s R, (s + 1) R) of the (nx-2, ny-2) array;
+  every step is pointwise in the coefficients, so K1, K2 (and K8, K9
+  through ``affine_coeffs``) run unchanged on the slab's tables;
+* physical: field rows [s R, (s + 1) R) of the (nx, ny) state, the ring
+  only where the slab meets the grid's edge.  A BE/CN step is K7 on the
+  slab widened by one ghost row on each side (``Comm.row_halo``), then a
+  pencil solve (``_Pencil``): a y-transform of the slab's interior rows
+  (K20's transform mode, rows as lanes), ``all_to_all`` to column slabs,
+  the x-transform, the division by 1 + theta dt Lam[i, j] and the inverse
+  x-transform in one K20 solve with a (columns, nx-2) lam table, back to
+  row slabs and the inverse y-transform, written with the ring and g (K4).
+  ``relax_interval`` runs the same forward pencil on the seeds, K1 on the
+  column slab of coefficients (CN's ring correction through a second K1 and
+  K4) and the inverse pencil of the F-values.  FE has no space route
+  (ROADMAP A7c).
+
 ``precision='dd'`` (the JAX package's double-double mode, ``ops/dd.py``):
 the state and the tables are float32 pairs split exactly from float64, the
 rhs table is float32 (looked up at each time's float32 value), and every
@@ -52,6 +73,9 @@ from pymgrit_tpu_torch.ops import dd
 from pymgrit_tpu_torch.ops.dirichlet_spectral import sine_eigenbasis
 
 _RHS_CHUNK = 1024      # time samples per batched rhs evaluation on the host
+# values of the whole F-values a space shard's closed form moves at a time
+# (bounds its temporaries: a chunk of intervals at a time)
+_RELAX_CHUNK = 1 << 23
 
 
 class Heat2D(Application):
@@ -120,6 +144,11 @@ class Heat2D(Application):
 
         self.fx = a / self.dx ** 2
         self.fy = a / self.dy ** 2
+        # state axis 0 (x) may be split over the mesh's 'space' axis
+        self.space_sharding_axis = 0
+        self._pencil = None         # the physical space route (``_space_slab``)
+        self._slab_rows = slice(None)   # rows of the interior-shaped tables this state holds
+        self._space = None              # (s, n_space) once a space shard
         self._Sx_np, lamx = sine_eigenbasis(nx - 2, self.fx)
         self._Sy_np, lamy = sine_eigenbasis(ny - 2, self.fy)
         self._xi = self.x_2d[1:-1]       # (nx-2, 1)
@@ -145,6 +174,7 @@ class Heat2D(Application):
         ring[:, -1] = self.bc_right_arr
         ring[-1, :] = self.bc_bottom_arr
         ring[0, :] = self.bc_top_arr
+        self._lift_np, self._ring_np, self._init_np = lift, ring, init
         self._lift_hat_np = self._Sx_np @ lift @ self._Sy_np
         self._Lam_np = lamx[:, None] + lamy[None, :]
         self._lift = self._tensor(lift)
@@ -251,6 +281,7 @@ class Heat2D(Application):
             self._rhs_tbl0_hat_np = self._rhs_tbl[0]
         else:
             self._rhs_tbl = raw
+            self._rhs_tbl_raw0 = s0
             self._rhs_tbl0_hat_np = self._Sx_np @ s0 @ self._Sy_np
         rows = self._rhs_tbl.reshape(self._rhs_tbl.shape[0], -1)
         if self._dd:
@@ -278,9 +309,10 @@ class Heat2D(Application):
         if self._dd:
             t = np.float32(t)
         r = np.asarray(self.rhs(x=self._xi, y=self._yi, t=t), dtype=np.float64) \
-            * np.ones(self._int_shape)
+            * np.ones((self.nx - 2, self.ny - 2))
         if self._spectral:
             r = self._Sx_np @ r @ self._Sy_np
+        r = r[self._slab_rows]
         if self._dd:
             return torch.as_tensor(r.reshape(-1).astype(np.float32), device=self.device)
         return self._tensor(r.reshape(-1))
@@ -288,6 +320,67 @@ class Heat2D(Application):
     def _rhs_at(self, t) -> torch.Tensor:
         """The table row at time t as an interior-shaped tensor."""
         return self._rhs_rows(np.asarray(float(t))).reshape(self._int_shape)
+
+    # ------------------------------------------------------------------
+    # the 'space' mesh axis
+    # ------------------------------------------------------------------
+
+    def _space_slab(self, s: int, n_space: int, comm) -> None:
+        """Make this level the space shard s of n_space (``parallel``'s
+        ``ShardedMgrit`` calls it, with the space group's ``Comm``): the
+        state becomes rows [s R, (s + 1) R) of axis 0 and every table the
+        rows (spectral) or the row and column slabs (physical, ``_Pencil``)
+        that shard reads.  A level made a shard stays one: a later solver
+        may take it on the same shard of the same count."""
+        if self._space is not None:
+            if self._space != (s, n_space):
+                raise ValueError(f"this level is space shard {self._space[0]} of "
+                                 f"{self._space[1]}; build it anew for shard {s} of {n_space}")
+            if self._pencil is not None:
+                self._pencil.comm = comm
+            return
+        if self._dd:
+            raise NotImplementedError("precision='dd' has no space route (ROADMAP A7c)")
+        if self.theta == 0.0:
+            raise NotImplementedError("Heat2D FE has no space route (ROADMAP A7c)")
+        n = self._shape[0]
+        if n % n_space:
+            raise ValueError(f"the state's shape {self._shape} does not split over "
+                             f"n_space = {n_space} along axis {self.space_sharding_axis}")
+        R = n // n_space
+        rows = slice(s * R, (s + 1) * R)
+        for cache in (self._itbl_cache, self._itbl_dev, self._dt_dev, self._dscale_dev,
+                      self._affine_dev):
+            cache.clear()
+        if self._spectral:
+            self._slab_rows = rows
+            self._Lam_np, self._lift_hat_np = self._Lam_np[rows], self._lift_hat_np[rows]
+            self._rhs_tbl0_hat_np = self._rhs_tbl0_hat_np[rows]
+            self._Lam, self._lift_hat = self._tensor(self._Lam_np), self._tensor(self._lift_hat_np)
+            start = self.vector_t_start[rows].clone()
+        else:
+            if R < 2:
+                raise ValueError(f"{self.nx} rows over n_space = {n_space}: a space shard of the "
+                                 "physical state needs two rows")
+            pen = self._pencil = _Pencil(self, s, n_space, comm)
+            self._slab_rows = slice(pen.gi0 - 1, pen.gi1 - 1)
+            cols = slice(pen.c0[s], pen.c0[s + 1])
+            # the closed form's tables in the column slab's layout [column][x]
+            rhs0_hat = self._Sx_np @ self._rhs_tbl_raw0 @ self._Sy_np
+            self._Lam_np = np.ascontiguousarray(self._Lam_np[:, cols].T)
+            self._lift_hat_np = np.ascontiguousarray(self._lift_hat_np[:, cols].T)
+            self._rhs_tbl0_hat_np = np.ascontiguousarray(rhs0_hat[:, cols].T)
+            self._lift = self._tensor(self._lift_np[self._slab_rows])
+            self._ring = self._tensor(self._ring_np[rows])
+            start = self._tensor(self._init_np[rows])
+        self._rhs_tbl = self._rhs_tbl[:, self._slab_rows]
+        self._rhs_tbl_t = self._tensor(self._rhs_tbl.reshape(self._rhs_tbl.shape[0], -1))
+        self._int_shape = self._rhs_tbl.shape[1:]
+        self._N = int(np.prod(self._int_shape))
+        self._shape = (R,) + tuple(self._shape[1:])
+        self._space = (s, n_space)
+        self.vector_t_start = start
+        self.vector_template = torch.zeros(self._shape, dtype=torch.float64, device=self.device)
 
     def _interval_tables(self, dt, m1):
         """Closed-form relaxation tables: the spectral theta-step is the
@@ -431,6 +524,8 @@ class Heat2D(Application):
             return out
         if rhs1 is None:
             rhs1 = rhs0                     # FE reads the rhs at the step's start only
+        if self._pencil is not None:
+            return self._pencil.chain(seed, tp, tc, rhs1, rhs0, out, g)
         b = None if self.theta == 0.0 else torch.empty(
             (J,) + self._int_shape, dtype=seed.dtype, device=seed.device)
         x = seed
@@ -525,6 +620,8 @@ class Heat2D(Application):
             self.ops.interval_affine(seed.view(J, N), A_t, G_t, out.view(J, R, N), r0,
                                      None if seed_out is None else seed_out.view(J, N))
             return result
+        if self._pencil is not None:
+            return self._pencil.relax(seed, A_t, G_t, dt, r0, out, result, seed_out)
         xhat = torch.empty((J,) + self._int_shape, dtype=seed.dtype, device=seed.device)
         self.ops.sine_solve2d(seed[:, 1:-1, 1:-1], xhat, self._Sx, self._Sy)
         dhat = dscale = None
@@ -542,6 +639,8 @@ class Heat2D(Application):
         fields with the Dirichlet boundary ring (K5's transform mode); a DD
         state counts with its float32 value hi + lo, transformed in
         float64 (as the JAX package's einsum promotes it)."""
+        if self._space is not None:
+            raise NotImplementedError("to_physical transforms whole states, not a space slab")
         if isinstance(u_hat, dd.DD):
             u_hat = u_hat.to_float().double()
         lead = tuple(u_hat.shape[:-2])
@@ -632,3 +731,239 @@ class Heat2D(Application):
         ops.dd_matmul(ops.dd_matmul(Sx, x), Sy, out=out[:, 1:-1, 1:-1])
         return out
 
+
+
+class _Pencil:
+    """A physical Heat2D level's space shard s of n (``Heat2D._space_slab``):
+    field rows [r0, r1) = [s R, (s + 1) R) of the (nx, ny) state, of which
+    the interior rows [gi0, gi1) (all but a ring row at the grid's edge),
+    and, between the pencil transforms' passes, the column slab [c0[s],
+    c0[s + 1]) of the ny - 2 interior columns.  The x-pass's lam table
+    holds Lam[:, j] for the slab's columns j (a row each)."""
+
+    def __init__(self, model: Heat2D, s: int, n: int, comm):
+        self.model, self.s, self.comm = model, s, comm
+        nx, ny = model.nx, model.ny
+        R = self.R = nx // n
+        self.r0, self.r1 = s * R, (s + 1) * R
+        gi0 = [max(t * R, 1) for t in range(n)]
+        gi1 = [min((t + 1) * R, nx - 1) for t in range(n)]
+        # every shard's interior rows: their count and first x index
+        self.rows = [b - a for a, b in zip(gi0, gi1)]
+        self.roff = [a - 1 for a in gi0]
+        self.gi0, self.gi1 = gi0[s], gi1[s]
+        self.li0, self.li1 = self.gi0 - self.r0, self.gi1 - self.r0
+        nc = ny - 2
+        self.c0 = [nc * t // n for t in range(n + 1)]
+        self.cols = [self.c0[t + 1] - self.c0[t] for t in range(n)]
+        # the stencil's rows: the slab and a ghost row where a neighbour holds it
+        self.w0, self.w1 = max(self.r0 - 1, 0), min(self.r1 + 1, nx)
+        self.top, self.bottom = self.r0 == 0, self.r1 == nx
+        self.lam = model._tensor(model._Lam_np[:, self.c0[s]:self.c0[s + 1]].T)
+        self._shifts = {}           # theta dt by lane, per step size
+        self._corr = {}             # (dt, m1) -> CN's correction tables
+
+    # -- moving between row and column slabs ----------------------------
+
+    def to_cols(self, y, J):
+        """(J * rows, ny - 2) interior rows of J states -> (J * columns,
+        nx - 2): each state's columns of this shard's slab, whole in x."""
+        s, nt = self.s, len(self.cols)
+        rm, cm = self.rows[s], self.cols[s]
+        y3 = y.view(J, rm, -1)
+        send = torch.empty(y.numel(), dtype=y.dtype, device=y.device)
+        sizes, off = [], 0
+        for t in range(nt):
+            k = J * self.cols[t] * rm
+            send[off:off + k].view(J, self.cols[t], rm).copy_(
+                y3[:, :, self.c0[t]:self.c0[t + 1]].transpose(1, 2))
+            sizes.append(k)
+            off += k
+        recv = self.comm.all_to_all(send, sizes, [J * cm * self.rows[t] for t in range(nt)])
+        del send
+        X = torch.empty((J, cm, self.model.nx - 2), dtype=y.dtype, device=y.device)
+        off = 0
+        for t in range(nt):
+            k = J * cm * self.rows[t]
+            X[:, :, self.roff[t]:self.roff[t] + self.rows[t]] = recv[off:off + k].view(
+                J, cm, self.rows[t])
+            off += k
+        return X.view(J * cm, -1)
+
+    def to_rows(self, X, J):
+        """The inverse of ``to_cols``: (J * columns, nx - 2) -> (J * rows,
+        ny - 2)."""
+        s, nt = self.s, len(self.cols)
+        rm, cm = self.rows[s], self.cols[s]
+        X3 = X.view(J, cm, -1)
+        send = torch.empty(J * cm * sum(self.rows), dtype=X.dtype, device=X.device)
+        sizes, off = [], 0
+        for t in range(nt):
+            k = J * cm * self.rows[t]
+            send[off:off + k].view(J, cm, self.rows[t]).copy_(
+                X3[:, :, self.roff[t]:self.roff[t] + self.rows[t]])
+            sizes.append(k)
+            off += k
+        recv = self.comm.all_to_all(send, sizes, [J * self.cols[t] * rm for t in range(nt)])
+        del send
+        Y = torch.empty((J, rm, self.model.ny - 2), dtype=X.dtype, device=X.device)
+        off = 0
+        for t in range(nt):
+            k = J * self.cols[t] * rm
+            Y[:, :, self.c0[t]:self.c0[t + 1]] = recv[off:off + k].view(
+                J, self.cols[t], rm).transpose(1, 2)
+            off += k
+        return Y.view(J * rm, -1)
+
+    def forward(self, b, J):
+        """Sx b Sy of J states' interior rows b (J * rows, ny - 2), as the
+        column slab (J * columns, nx - 2) of coefficients (K20 twice)."""
+        m = self.model
+        yh = torch.empty_like(b)
+        m.ops.sine_solve1d(b, yh, m._Sy)
+        X = self.to_cols(yh, J)
+        xh = torch.empty_like(X)
+        m.ops.sine_solve1d(X, xh, m._Sx)
+        return xh
+
+    # -- the state's ring and ghost rows ----------------------------------
+
+    def widen(self, x, uw):
+        """uw <- the slab x with the neighbours' edge rows around it (the
+        rows K7's stencil reads)."""
+        o = self.r0 - self.w0
+        uw[:, o:o + self.R].copy_(x)
+        above, below = self.comm.row_halo(x[:, 0], x[:, self.R - 1])
+        if not self.top:
+            uw[:, 0].copy_(above)
+        if not self.bottom:
+            uw[:, -1].copy_(below)
+
+    def ring(self, dst):
+        """The Dirichlet ring's cells of the slab views dst (..., R, ny)."""
+        ring = self.model._ring
+        dst[..., 0].copy_(ring[:, 0].expand(dst[..., 0].shape))
+        dst[..., -1].copy_(ring[:, -1].expand(dst[..., -1].shape))
+        if self.top:
+            dst[..., 0, 1:-1].copy_(ring[0, 1:-1].expand(dst[..., 0, 1:-1].shape))
+        if self.bottom:
+            dst[..., -1, 1:-1].copy_(ring[-1, 1:-1].expand(dst[..., -1, 1:-1].shape))
+
+    def ring_lift(self, seed):
+        """``Heat2D._ring_lift`` of the slab's interior rows: lift(ring of
+        each seed) - lift(bc data), (J, rows, ny - 2)."""
+        m = self.model
+        si = seed[:, self.li0:self.li1]
+        dl = torch.zeros((seed.shape[0],) + tuple(m._lift.shape), dtype=seed.dtype,
+                         device=seed.device)
+        dl[:, :, 0] += m.fy * si[:, :, 0]
+        dl[:, :, -1] += m.fy * si[:, :, -1]
+        if self.top:
+            dl[:, 0, :] += m.fx * seed[:, 0, 1:-1]
+        if self.bottom:
+            dl[:, -1, :] += m.fx * seed[:, -1, 1:-1]
+        return dl - m._lift
+
+    # -- the step and the closed form ---------------------------------------
+
+    def lane_shifts(self, shift, J):
+        """theta dt of each of the x-pass's J * columns lanes (K20's dt)."""
+        cm = self.cols[self.s]
+        key = (shift.data_ptr(), J) if isinstance(shift, torch.Tensor) else (float(shift), J)
+        if key not in self._shifts:
+            m = self.model
+            self._shifts[key] = (shift.repeat_interleave(cm) if isinstance(shift, torch.Tensor)
+                                 else torch.full((J * cm,), float(shift), dtype=torch.float64,
+                                                 device=m.device))
+        return self._shifts[key]
+
+    def chain(self, seed, tp, tc, rhs1, rhs0, out, g):
+        """``Heat2D.step_chain`` on the slab: per step K7 on the widened
+        slab, the pencil solve (K20: y-transform, x-pass with the lam table,
+        inverse y-transform) and the ring, then g (K4)."""
+        m = self.model
+        ops = m.ops
+        L, J = tp.shape
+        rm, nc = self.rows[self.s], m.ny - 2
+        dtype, dev = seed.dtype, seed.device
+        uw = torch.empty((J, self.w1 - self.w0, m.ny), dtype=dtype, device=dev)
+        b = torch.empty((J * rm, nc), dtype=dtype, device=dev)
+        yh = torch.empty_like(b)
+        x = seed
+        for k in range(L):
+            dt, shift = m._step_sizes(tc[k] - tp[k])
+            self.widen(x, uw)
+            ops.theta_rhs2d(uw, b.view(J, rm, nc), dt, m.theta, m.fx, m.fy, rhs1[k], rhs0[k],
+                            lift=m._lift)
+            ops.sine_solve1d(b, yh, m._Sy)
+            X = self.to_cols(yh, J)
+            ops.sine_solve1d(X, X, m._Sx, self.lam, self.lane_shifts(shift, J))
+            dst = out[:, k]
+            ops.sine_solve1d(self.to_rows(X, J), dst[:, self.li0:self.li1, 1:-1], m._Sy)
+            self.ring(dst)
+            if g is not None:
+                ops.cpoint_combine(dst.view(J, -1), [g[:, k].view(J, -1), dst.view(J, -1)],
+                                   [1.0, 1.0])
+            x = dst
+        return out
+
+    def correction_tables(self, dt, m1):
+        """CN's ring correction as K1 tables: (dscale A^(k-1), zeros), (m1,
+        columns * (nx - 2)), dscale = theta dt / (1 + theta dt Lam)."""
+        key = (float(dt), int(m1))
+        if key not in self._corr:
+            m = self.model
+            A_k, _ = m._interval_tables(dt, m1)
+            shift = m.theta * dt
+            dscale = shift / (1.0 + shift * m._Lam_np)
+            A_km1 = np.concatenate([np.ones((1,) + A_k.shape[1:]), A_k[:-1]])
+            B = (dscale[None] * A_km1).reshape(m1, -1)
+            self._corr[key] = (m._tensor(B), torch.zeros(B.shape, dtype=torch.float64,
+                                                          device=m.device))
+        return self._corr[key]
+
+    def relax(self, seed, A_t, G_t, dt, r0, out, result, seed_out):
+        """``Heat2D.relax_interval`` on the slab, a chunk of intervals at a
+        time (``_RELAX_CHUNK`` values of the whole F-values at most; the
+        same chunks on every shard): the seeds' forward pencil, K1 on the
+        column slab of coefficients (CN: the ring correction by a second K1
+        and K4), the F-values' inverse x-transform, one all_to_all and the
+        inverse y-transform, with the ring."""
+        m = self.model
+        J, Rr = seed.shape[0], out.shape[1]
+        per = max(1, Rr * (m.nx - 2) * (m.ny - 2))
+        step = max(1, _RELAX_CHUNK // per)
+        for j0 in range(0, J, step):
+            j1 = min(J, j0 + step)
+            self._relax_chunk(seed[j0:j1], A_t, G_t, dt, r0, out[j0:j1])
+        self.ring(out)
+        if seed_out is not None:
+            seed_out.copy_(seed)
+        return result
+
+    def _relax_chunk(self, seed, A_t, G_t, dt, r0, out):
+        m = self.model
+        ops = m.ops
+        J, Rr = seed.shape[0], out.shape[1]
+        rm, nc, nx2 = self.rows[self.s], m.ny - 2, m.nx - 2
+        b = seed[:, self.li0:self.li1, 1:-1].contiguous().view(J * rm, nc)
+        xhat = self.forward(b, J)
+        Nc = xhat.numel() // J
+        yhat = torch.empty((J, Rr, Nc), dtype=seed.dtype, device=seed.device)
+        ops.interval_affine(xhat.view(J, Nc), A_t, G_t, yhat, r0)
+        if m.theta < 1.0:
+            dhat = self.forward(self.ring_lift(seed).view(J * rm, nc), J)
+            B_t, Z_t = self.correction_tables(dt, A_t.shape[0])
+            corr = torch.empty_like(yhat)
+            ops.interval_affine(dhat.view(J, Nc), B_t, Z_t, corr, r0)
+            ops.cpoint_combine(yhat.view(J * Rr, Nc), [yhat.view(J * Rr, Nc),
+                                                        corr.view(J * Rr, Nc)], [1.0, 1.0])
+            del corr
+        vals = torch.empty((J * Rr * self.cols[self.s], nx2), dtype=seed.dtype, device=seed.device)
+        ops.sine_solve1d(yhat.view(-1, nx2), vals, m._Sx)
+        del yhat
+        Y = self.to_rows(vals, J * Rr)
+        del vals
+        inner = torch.empty((J * Rr, rm, nc), dtype=seed.dtype, device=seed.device)
+        ops.sine_solve1d(Y, inner, m._Sy)
+        out[:, :, self.li0:self.li1, 1:-1].copy_(inner.view(J, Rr, rm, nc))

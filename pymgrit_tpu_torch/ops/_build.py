@@ -63,6 +63,8 @@ _SIGNATURES = {
     "pm_eig_step": [_P, _P],
     # the packed argument array, the stream
     "pm_sine_solve1d": [_P, _P],
+    # the packed argument array, the rows of a (D, n) lam table, the stream
+    "pm_sine_solve1d_lam_rows": [_P, _I, _P],
     # one packed int64 argument array, the coefficients by value, the stream
     "pm_restrict_combine": [_P, _D, _D, _D, _D, _D, _P],
     # the packed argument array, dst, a, b, the stream
@@ -71,6 +73,7 @@ _SIGNATURES = {
     "pm_cpoint_combine": [_P, _D, _D, _D, _P],
     # the packed argument array, s, u, out, the stream
     "pm_residual_row_norms": [_P, _P, _P, _P, _P],
+    "pm_residual_row_norms_squares": [_P, _P, _P, _P, _P],
     # the packed argument array, 1/eps^2, dx^2, the stream
     "pm_allen_cahn_pointwise": [_P, _D, _D, _P],
     # the packed argument array, du, dv, a, b, dx^2, the stream

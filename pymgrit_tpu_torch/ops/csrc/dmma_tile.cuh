@@ -88,9 +88,12 @@ struct Epilogue {
   const void* lam;
   int64_t dt_r, dt_c, lam_r, lam_c;   // dt[r dt_r + c dt_c], lam[r lam_r + c lam_c]
   // K20 (LaneOut): the scale 1 / (lam + shift) (BDF2); column (lane) c =
-  // hi D + lo goes to hi s_hi + lo sc; dt and shift by lane, lam by row
+  // hi D + lo goes to hi s_hi + lo sc; dt and shift by lane, lam by row:
+  // lam is one row, or with lam_rows > 1 a table of lam_rows rows at a
+  // stride of lam_ld, of which lane c reads row c % lam_rows
   const void* shift;
   int64_t D, s_hi;
+  int64_t lam_rows, lam_ld;
 };
 
 // K20's right-hand side, formed from B's components as they are staged
@@ -317,7 +320,9 @@ __device__ __forceinline__ void emit(const Epilogue& e, int64_t z, int64_t r, in
 // [slice][lane][row] (reduce_lanes sums them).
 // K20: lane b's divisor terms (rows from m0 on): of(r, v) = v / (1 + dt_b
 // lam_r), v / (lam_r + shift_b) or v, each operation rounded once as the
-// plain version rounds it.
+// plain version rounds it; lam_r from the table's row b % lam_rows where
+// lam is a table (the pencil solve's 1 + dt_b Lam[i, j], lane b a column
+// j of the state).
 template <typename Acc>
 struct Divisor {
   const Acc* lam;
@@ -325,6 +330,7 @@ struct Divisor {
   Acc db;
   __device__ __forceinline__ Divisor(const Epilogue& e, int64_t b, int64_t m0) {
     lam = e.lam != nullptr ? static_cast<const Acc*>(e.lam) + m0 : nullptr;
+    if (lam != nullptr && e.lam_rows > 1) lam += (b % e.lam_rows) * e.lam_ld;
     dt = static_cast<const Acc*>(e.dt);
     shift = static_cast<const Acc*>(e.shift);
     db = dt != nullptr ? dt[b] : shift != nullptr ? shift[b] : Acc(0);

@@ -2,7 +2,16 @@
 //
 //   out[i] = sqrt(sum_j (s[i, j] - u[i, j])^2)      for every row i < R,
 //
-// the per-C-point residual norm of the convergence check.
+// the per-C-point residual norm of the convergence check, or in the
+// squares mode the sum without its root:
+//
+//   out[i] = sum_j (s[i, j] - u[i, j])^2,
+//
+// each space shard's part of a C-point's norm when the state is split over
+// a 'space' mesh axis (the sharded executor adds the parts over the space
+// group and takes the root of the sum; the JAX package's GSPMD reduces the
+// norm's sum over the sharded axis the same way,
+// pymgrit_tpu/parallel/shard_solver.py _conv_body :1135-1195).
 //
 // Replaces: pymgrit_tpu/core/solver.py _point_residual_norms (:1056-1076)
 // with its default state_norm (the 2-norm, vector.batched_norm), which the
@@ -72,7 +81,8 @@ __device__ __forceinline__ float root(float x) { return sqrtf(x); }
 template <typename T>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     residual_row_norms_kernel(const T* __restrict__ s, const T* __restrict__ u,
-                              T* __restrict__ out, int64_t ss, int64_t su, int64_t N) {
+                              T* __restrict__ out, int64_t ss, int64_t su, int64_t N,
+                              bool squares) {
   using VT = typename Vec16<T>::type;
   constexpr int V = Vec16<T>::n;
   const int64_t row = blockIdx.x;
@@ -136,14 +146,15 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     T t = part[0];
 #pragma unroll
     for (int w = 1; w < kWarps; ++w) t += part[w];
-    out[row] = root(t);
+    out[row] = squares ? t : root(t);
   }
 }
 
 // args (int64): CUDA device, R, N, s's and u's row strides (elements)
-// (ops/row_norms.py::pack)
+// (ops/row_norms.py::pack); squares: leave the root out
 template <typename T>
-int launch(const int64_t* a, const void* s, const void* u, void* out, void* stream) {
+int launch(const int64_t* a, const void* s, const void* u, void* out, void* stream,
+           bool squares) {
   const int64_t R = a[1], N = a[2];
   if (R == 0) return 0;
   if (R < 0 || R > 0x7fffffff || N < 0) return (int)cudaErrorInvalidValue;
@@ -152,7 +163,7 @@ int launch(const int64_t* a, const void* s, const void* u, void* out, void* stre
   const int device = (int)a[0];
   if (device != current) cudaSetDevice(device);
   residual_row_norms_kernel<T><<<(unsigned)R, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(s), static_cast<const T*>(u), static_cast<T*>(out), a[3], a[4], N);
+      static_cast<const T*>(s), static_cast<const T*>(u), static_cast<T*>(out), a[3], a[4], N, squares);
   const cudaError_t e = cudaGetLastError();
   if (device != current) cudaSetDevice(current);
   return (int)e;
@@ -164,12 +175,22 @@ extern "C" {
 
 int pm_residual_row_norms_f64(const int64_t* args, const void* s, const void* u, void* out,
                               void* stream) {
-  return launch<double>(args, s, u, out, stream);
+  return launch<double>(args, s, u, out, stream, false);
 }
 
 int pm_residual_row_norms_f32(const int64_t* args, const void* s, const void* u, void* out,
                               void* stream) {
-  return launch<float>(args, s, u, out, stream);
+  return launch<float>(args, s, u, out, stream, false);
+}
+
+int pm_residual_row_norms_squares_f64(const int64_t* args, const void* s, const void* u,
+                                      void* out, void* stream) {
+  return launch<double>(args, s, u, out, stream, true);
+}
+
+int pm_residual_row_norms_squares_f32(const int64_t* args, const void* s, const void* u,
+                                      void* out, void* stream) {
+  return launch<float>(args, s, u, out, stream, true);
 }
 
 }  // extern "C"

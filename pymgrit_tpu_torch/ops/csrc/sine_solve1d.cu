@@ -3,6 +3,9 @@
 // n interior values,
 //
 //   BE:         y_b = ((x_b + dt_b r_b) S / (1 + dt_b lam)) S
+//               (lam one row, or a table of D rows of which lane b reads row
+//               b % D: the distributed Heat2D solve's x-pass, lane b a
+//               column of a state and its divisor 1 + dt Lam[:, j])
 //   BDF2:       y_b = (((r_b - c2_b x_b) + c1_b x2_b) S / (lam + coeff_b)) S
 //   transform:  y_b = x_b S
 //
@@ -93,8 +96,10 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// lam_rows: the rows of a lam table (lane b reads row b % lam_rows; 1 for
+// one row)
 template <typename T>
-int launch(const int64_t* args, void* stream) {
+int launch(const int64_t* args, void* stream, int64_t lam_rows) {
   auto ptr = [&](int i) { return reinterpret_cast<T*>(args[i]); };
   const int64_t B = args[19], n = args[20], mode = args[21];
   if (B == 0 || n == 0) return 0;
@@ -135,6 +140,8 @@ int launch(const int64_t* args, void* stream) {
     p.epi.s_hi = n;
     p.epi.lam = ptr(8);
     p.epi.lam_r = 1;
+    p.epi.lam_rows = lam_rows;
+    p.epi.lam_ld = n;
     p.epi.dt_c = 1;
     if (mode == 3)
       p.epi.shift = ptr(9);
@@ -187,8 +194,21 @@ int launch(const int64_t* args, void* stream) {
 
 extern "C" {
 
-int pm_sine_solve1d_f64(const int64_t* args, void* stream) { return launch<double>(args, stream); }
+int pm_sine_solve1d_f64(const int64_t* args, void* stream) {
+  return launch<double>(args, stream, 1);
+}
 
-int pm_sine_solve1d_f32(const int64_t* args, void* stream) { return launch<float>(args, stream); }
+int pm_sine_solve1d_f32(const int64_t* args, void* stream) {
+  return launch<float>(args, stream, 1);
+}
+
+// a solve with a (lam_rows, n) lam table
+int pm_sine_solve1d_lam_rows_f64(const int64_t* args, int64_t lam_rows, void* stream) {
+  return launch<double>(args, stream, lam_rows);
+}
+
+int pm_sine_solve1d_lam_rows_f32(const int64_t* args, int64_t lam_rows, void* stream) {
+  return launch<float>(args, stream, lam_rows);
+}
 
 }  // extern "C"

@@ -545,16 +545,19 @@ def sine_solve1d_plain(x, out, S, lam=None, dt=None, rhs=None, second=None, c2=N
                        coeff=None):
     """out = ((x + dt rhs) S / (1 + dt lam)) S row by row (BE), or
     (((rhs - c2 x) + c1 second) S / (lam + coeff)) S (BDF2), or x S without
-    lam (the expressions of Heat1D.step_batched, Heat1DBDF2.step)."""
+    lam (the expressions of Heat1D.step_batched, Heat1DBDF2.step); a (D, n)
+    lam table (BE) gives row b the table's row b % D."""
+    if lam is not None:
+        lam = lam[None] if lam.dim() == 1 else lam.repeat(x.shape[0] // lam.shape[0], 1)
     if lam is None:
         y = x @ S
     elif coeff is not None:
         b = (rhs - c2[:, None] * x) + c1[:, None] * second
-        y = ((b @ S) / (lam[None] + coeff[:, None])) @ S
+        y = ((b @ S) / (lam + coeff[:, None])) @ S
     else:
         d = dt[:, None]
         b = x if rhs is None else x + d * rhs
-        y = ((b @ S) / (1.0 + d * lam[None])) @ S
+        y = ((b @ S) / (1.0 + d * lam)) @ S
     out.copy_(y.view(out.shape))
     return out
 
@@ -669,8 +672,17 @@ def _solve1d_checked(facts, mods):
         _require(False, name, "lam and dt go together")
     if has("rhs") and not has("lam"):
         _require(False, name, "rhs needs lam and dt")
-    if has("lam") and not (tuple(f["lam"][2]) == (n,) and _contiguous(*f["lam"][2:])):
-        _require(False, name, f"lam must be a contiguous ({n},) vector")
+    lam_rows = 1
+    if has("lam"):
+        lshape = tuple(f["lam"][2])
+        if (len(lshape) == 2 and lshape[1] == n and lshape[0] >= 1 and B % lshape[0] == 0
+                and not bdf2):
+            lam_rows = lshape[0]
+        elif lshape != (n,):
+            _require(False, name, f"lam has shape {lshape}, expected ({n},) or, for BE, (D, {n}) "
+                                  f"with D dividing {B}")
+        if not _contiguous(*f["lam"][2:]):
+            _require(False, name, "lam must be contiguous")
     for key in ("dt", "c2", "c1", "coeff"):
         if has(key) and not (tuple(f[key][2]) == (B,) and _contiguous(*f[key][2:])):
             _require(False, name, f"{key} must be a contiguous ({B},) vector")
@@ -687,7 +699,12 @@ def _solve1d_checked(facts, mods):
                  else 1)                                          # work [, rhs] rows
     ws = work_rows * B * n + max(p.workspace for p in plans if p is not None)
     args = sine_solve1d_pack(device.index, strides, rows, B, n, mode, plans)
-    return False, (args, _launcher("pm_sine_solve1d", dtype), device.index, ws, _K20_MODES[mode])
+    if lam_rows == 1:
+        return False, (args, _launcher("pm_sine_solve1d", dtype), device.index, ws,
+                       _K20_MODES[mode])
+    table = _launcher("pm_sine_solve1d_lam_rows", dtype)
+    return False, (args, lambda addr, stream: table(addr, lam_rows, stream), device.index, ws,
+                   _K20_MODES[mode] + " lam table")
 
 
 _K20_WORK = {}   # (CUDA device index, stream, dtype) -> K20's work rows and partials
@@ -714,7 +731,11 @@ def sine_solve1d(x, out, S, lam=None, dt=None, rhs=None, second=None, c2=None, c
 
     x: (B, n) view; out: a (B, n) view, or an (H, D, n) view with H * D = B
     (row b at [b // D, b % D]); S: contiguous (n, n) symmetric basis; lam:
-    contiguous (n,) eigenvalues; dt: contiguous (B,) step sizes; rhs:
+    contiguous (n,) eigenvalues, or for BE a contiguous (D, n) table of
+    which row b reads row b % D (D dividing B: the distributed Heat2D
+    solve's x-pass, row b a column of a state and lam its Lam[:, j]); dt:
+    contiguous (B,)
+    step sizes; rhs:
     (B, n) view (row stride 0 for one shared row), added as dt * rhs before
     the BE solve (optional there), or BDF2's right-hand side
     (rhs - c2 x) + c1 second with second a (B, n) view and c2, c1, coeff
@@ -753,7 +774,8 @@ def sine_solve1d(x, out, S, lam=None, dt=None, rhs=None, second=None, c2=None, c
 
 
 sine_solve1d.launches = 0
-sine_solve1d.mode_launches = {"be": 0, "bdf2": 0, "transform": 0}   # launches by mode
+sine_solve1d.mode_launches = {"be": 0, "bdf2": 0, "transform": 0,   # launches by mode
+                              "be lam table": 0}
 
 
 # ---------------------------------------------------------------------------

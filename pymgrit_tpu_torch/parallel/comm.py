@@ -1,5 +1,6 @@
-"""The time-sharded executor's four communicating operations, over one
-``torch.distributed`` process group.
+"""The sharded executor's communicating operations, over one
+``torch.distributed`` process group (one ``Comm`` a group: the time axis's,
+and the space axis's where the mesh has one).
 
 ``pymgrit_tpu``'s executor runs inside ``shard_map`` and communicates with
 ``ppermute``, masked ``psum`` broadcasts, ``psum`` / ``pmax`` and
@@ -16,19 +17,32 @@ same four operations:
 * ``all_gather(x)``: the ranks' slabs concatenated on axis 0 in rank order
   (``all_gather(tiled=True)``).
 
+The space axis has no ``shard_map`` counterpart (GSPMD inserts its
+collectives); its group takes ``all_reduce`` and ``all_gather`` and two
+operations of its own:
+
+* ``all_to_all(x, send, recv)``: rank r sends x's ``send[q]`` values after
+  the first ``sum(send[:q])`` to rank q and receives ``recv[q]`` values
+  from each rank q, in rank order (``all_to_all_single`` with uneven
+  splits; the pencil transforms' change between row and column slabs);
+* ``row_halo(first, last)``: rank r sends ``first`` to rank r - 1 and
+  ``last`` to rank r + 1 and receives rank r - 1's ``last`` and rank r + 1's
+  ``first`` (zeros at the ends: a stencil's ghost rows).
+
 The route is fixed when the ``Comm`` is built, from the group's backend and
 the tensors' device, never on an error: NCCL takes CUDA tensors as they
 are, gloo takes CPU tensors as they are, and gloo with CUDA tensors copies
 them into pinned host buffers, communicates and copies back (PyTorch's gloo
 moves CUDA tensors for ``broadcast`` and ``all_reduce`` only, so one staging
-route serves all four).  NCCL refuses two ranks on one GPU: a world of
+route serves them all).  NCCL refuses two ranks on one GPU: a world of
 several ranks on one card runs gloo with staging.
 
 ``counts`` holds the operations, the bytes moved and the bytes staged
 through the host by this rank.  The bytes moved are the payload this rank
 sends and receives: ``shift`` the state sent plus the state received,
 ``broadcast`` and ``all_reduce`` the tensor, ``all_gather`` the gathered
-tensor.  The bytes staged are the device-to-host plus host-to-device
+tensor, ``all_to_all`` and ``row_halo`` what goes to and comes from the
+other ranks.  The bytes staged are the device-to-host plus host-to-device
 copies.  A world of one moves nothing (its collectives still run).
 """
 
@@ -41,8 +55,8 @@ _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
 class Comm:
-    """The shift, broadcast, all-reduce and all-gather of one process group
-    (the default group where ``group`` is None) for tensors on ``device``."""
+    """The collectives of one process group (the default group where
+    ``group`` is None) for tensors on ``device``."""
 
     def __init__(self, group, device):
         self.group = group if group is not None else dist.group.WORLD
@@ -138,3 +152,44 @@ class Comm:
             out = out.to(self.device)
         self._count(nb, nb + self._nbytes(x))
         return out
+
+    def all_to_all(self, x: torch.Tensor, send, recv) -> torch.Tensor:
+        """The 1-D concatenation, in rank order, of the ``recv[q]`` values
+        each rank q sends this rank; x is the 1-D concatenation of the
+        ``send[q]`` values for each rank q (split sizes in values, the same
+        on both sides of each pair)."""
+        send, recv = [int(n) for n in send], [int(n) for n in recv]
+        buf = self._buffer(x)
+        out = torch.empty(sum(recv), dtype=x.dtype, device=buf.device, pin_memory=self.staged)
+        dist.all_to_all_single(out, buf, recv, send, group=self.group)
+        if self.staged:
+            out = out.to(self.device)
+        es = x.element_size()
+        moved = es * (sum(send) - send[self.rank] + sum(recv) - recv[self.rank])
+        self._count(moved, es * (sum(send) + sum(recv)))
+        return out
+
+    def row_halo(self, first: torch.Tensor, last: torch.Tensor):
+        """(rank r - 1's ``last``, rank r + 1's ``first``) as fresh tensors,
+        zeros where rank r has no such neighbour; ``first`` goes to rank
+        r - 1 and ``last`` to rank r + 1."""
+        above = torch.zeros(last.shape, dtype=last.dtype, device=last.device)
+        below = torch.zeros(first.shape, dtype=first.dtype, device=first.device)
+        ops, recvs = [], []
+        if self._prev is not None:
+            ops.append(dist.P2POp(dist.isend, self._buffer(first), self._prev, self.group))
+            recvs.append((above, self._buffer(above, fill=False)))
+            ops.append(dist.P2POp(dist.irecv, recvs[-1][1], self._prev, self.group))
+        if self._next is not None:
+            ops.append(dist.P2POp(dist.isend, self._buffer(last), self._next, self.group))
+            recvs.append((below, self._buffer(below, fill=False)))
+            ops.append(dist.P2POp(dist.irecv, recvs[-1][1], self._next, self.group))
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        for dst, buf in recvs:
+            if buf is not dst:
+                dst.copy_(buf)
+        moved = self._nbytes(first) * len(ops)
+        self._count(moved, moved)
+        return above, below

@@ -1,4 +1,5 @@
-"""MGRIT over a 1-D 'time' mesh of processes, with explicit halo exchanges.
+"""MGRIT over a ('time', 'space') mesh of processes, with explicit halo
+exchanges.
 
 Counterpart of ``pymgrit_tpu/parallel/shard_solver.py``: each process runs
 what JAX's ``shard_map`` body runs on one device, on its own slab of every
@@ -41,8 +42,21 @@ The row routines it shares with the serial solver do the arithmetic
 ``_gather`` = K21, ``_row_norms``, the transfers over rows, the multi-leaf
 ``vector.Layout`` and the DD packing), so both executors run the same
 operations and kernels; on the general path rows move by index through K21,
-as on the serial solver's ragged levels.  The 'space' mesh axis is not ported
-(ROADMAP A7b).
+as on the serial solver's ragged levels.
+
+A mesh with n_space > 1 splits every state's ``space_sharding_axis`` over
+the space group: each process holds the slab [s R, (s + 1) R) of that axis
+(R = its length / n_space) in every tube, and the application's space route
+(``_space_slab``: Heat2D, spectral and physical) does the arithmetic on the
+slab and its own communication over the space group (JAX's GSPMD inserts
+the collectives of the same splits).  The time collectives stay on the time
+group.  Each C-point's norm is the root (``sqrt_rn``) of its slabs' sums of
+squares (K3's squares mode) added over the space group; then the time
+reduction runs as with one slab.  ``random_init_guess`` draws the whole
+states and keeps the slab, so the history does not depend on n_space;
+``fine_solution`` gathers over time, then over space.  An application
+without a space route, ``precision='dd'`` and spatial coarsening raise on
+n_space > 1 (ROADMAP A7c).
 """
 
 from __future__ import annotations
@@ -81,8 +95,8 @@ def _pad_times(t: np.ndarray, n_points: int) -> np.ndarray:
 
 
 class ShardedMgrit(RowRoutines):
-    """MGRIT over a 1-D 'time' mesh (``parallel.make_time_space_mesh``),
-    one process a shard.  Every rank constructs the solver with the same
+    """MGRIT over a ('time', 'space') mesh (``parallel.make_time_space_mesh``),
+    one process a cell.  Every rank constructs the solver with the same
     arguments and calls the same methods."""
 
     def __init__(self, problem: List, mesh, transfer: List = None,
@@ -100,10 +114,14 @@ class ShardedMgrit(RowRoutines):
             raise Exception("Convergence criterion must be 0, 1, 2 or 3")
         if output_lvl not in (0, 1, 2):
             raise Exception("Unknown output level. Choose 0, 1 or 2.")
-        self._init_rows(problem, weight_c)
         self.mesh = mesh
         self.n_shards = mesh.shape["time"]
         self.rank = mesh.rank
+        self.n_space = mesh.shape["space"]
+        self.space_comm = None
+        if self.n_space > 1:
+            self._space_route(problem, transfer, mesh)
+        self._init_rows(problem, weight_c)
         self.output_fcn = output_fcn if (output_fcn is not None and callable(output_fcn)) else None
         self.output_lvl = output_lvl
         self.random_init_guess = random_init_guess
@@ -162,6 +180,50 @@ class ShardedMgrit(RowRoutines):
         self.runtime_setup = time.time() - t0
         if self.output_lvl == 2:
             self._call_output()
+
+    def _space_route(self, problem, transfer, mesh):
+        """Hand every level its space shard (the application's
+        ``_space_slab``), after the refusals: every rank raises alike,
+        before any collective."""
+        for p in problem:
+            if vector.contains_dd(p.vector_template):
+                raise NotImplementedError(
+                    "precision='dd' has no space route: n_space > 1 (ROADMAP A7c)")
+            if getattr(p, "_space_slab", None) is None:
+                raise NotImplementedError(
+                    f"{type(p).__name__} has no space route: n_space > 1 (ROADMAP A7c)")
+        if transfer is not None and not all(type(tr) is GridTransferCopy for tr in transfer):
+            raise NotImplementedError("spatial coarsening under a space axis (n_space > 1) is not "
+                                      "ported (ROADMAP A7c)")
+        self.space_axis = problem[0].space_sharding_axis
+        self.space_comm = Comm(mesh.space_group, problem[0].vector_template.device)
+        for p in problem:
+            p._space_slab(mesh.space_rank, self.n_space, self.space_comm)
+
+    def _row_norms(self, a, b):
+        """The serial solver's per-row norms; on a space slab the root of the
+        sums of squares (K3's squares mode) added over the space group."""
+        if self.space_comm is None:
+            return super()._row_norms(a, b)
+        sq = self.ops.residual_row_norms(_rows(a), _rows(b), squares=True)
+        return sqrt_rn(self.space_comm.all_reduce(sq))
+
+    def _keep_slab(self, rows):
+        """This shard's slab of whole states (R, ...) along the space axis."""
+        if self.space_comm is None:
+            return rows
+        ax = 1 + self.space_axis
+        R = rows.shape[ax] // self.n_space
+        return rows.narrow(ax, self.mesh.space_rank * R, R)
+
+    def _space_gather(self, tube):
+        """The whole states of a (nt, ...) tube of slabs (collective over the
+        space group)."""
+        if self.space_comm is None:
+            return tube
+        ax = 1 + self.space_axis
+        return self.space_comm.all_gather(tube.movedim(ax, 0).contiguous()).movedim(0, ax) \
+            .contiguous()
 
     # ------------------------------------------------------------------
     # general (non-uniform) static structure (JAX's, in numpy)
@@ -285,8 +347,13 @@ class ShardedMgrit(RowRoutines):
                         [x.reshape(part.size, -1) for x in prng.random_leaves(
                             self.rng_seed, nt, lay.shapes, rows.device, rows=part)], dim=1)
                 else:
-                    rows[c:c + part.size] = prng.random_leaves(self.rng_seed, nt, [shape],
-                                                               rows.device, rows=part)[0]
+                    # the whole states' draw (the history does not depend on
+                    # n_space), this shard's slab kept
+                    whole = list(shape)
+                    if self.space_comm is not None:
+                        whole[self.space_axis] *= self.n_space
+                    rows[c:c + part.size] = self._keep_slab(prng.random_leaves(
+                        self.rng_seed, nt, [tuple(whole)], rows.device, rows=part)[0])
         start = np.nonzero(idx == 0)[0]
         if start.size:
             rows[torch.as_tensor(start, device=rows.device)] = self._state(p.vector_t_start, lvl)
@@ -864,15 +931,17 @@ class ShardedMgrit(RowRoutines):
     # ------------------------------------------------------------------
 
     def fine_solution(self):
-        """The fine level's (nt, ...) tube on every rank (collective: every
-        rank calls it): one all_gather of the level-0 blocks; in the
+        """The fine level's (nt, ...) tube of whole states on every rank
+        (collective: every rank calls it): one all_gather of the level-0
+        blocks over time, then one of the slabs over space; in the
         application's structure for a multi-leaf state."""
         if self._general:
-            return self._tree(0, self._coarse_tube_g(0))
+            return self._tree(0, self._space_gather(self._coarse_tube_g(0)))
         st = self.state[0]
         gathered = self.comm.all_gather(st["blocks"])
         flat = gathered.view((-1,) + tuple(gathered.shape[2:]))
-        return self._tree(0, torch.cat([flat[:self.J_real[0] * self.m_eff[0]], st["last"][None]]))
+        return self._tree(0, self._space_gather(
+            torch.cat([flat[:self.J_real[0] * self.m_eff[0]], st["last"][None]])))
 
     def _call_output(self):
         """The user's output hook with the reference's views (self.t,

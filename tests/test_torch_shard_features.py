@@ -87,13 +87,21 @@ def test_output_fcn_levels(world, lvl):
 
 
 def test_mesh_refusals(world):
-    """A mesh larger than the world raises with JAX's message; a 'space'
-    axis raises naming ROADMAP A7b."""
+    """A mesh larger than the world raises with JAX's message; a (2, 2)
+    mesh has JAX's shape, and on it the solver refuses a width that
+    n_space does not divide (naming the shape and n_space), and, naming
+    ROADMAP A7c, an application without a space route, double-double
+    states, Heat2D FE and spatial coarsening."""
     for r in world.result("mesh_errors"):
         kind, msg = r["too_big"]
         assert msg == "Mesh 64x4 needs more than the 4 available devices"
-        kind, msg = r["space"]
-        assert kind == "NotImplementedError" and "A7b" in msg
+        assert r["space"] == {"time": 2, "space": 2}
+        kind, msg = r["indivisible"]
+        assert kind == "ValueError" and "(9, 12)" in msg and "n_space = 2" in msg
+        for key, name in (("no_route", "Dahlquist"), ("dd", "precision='dd'"), ("fe", "FE"),
+                          ("spatial", "spatial coarsening")):
+            kind, msg = r[key]
+            assert kind == "NotImplementedError" and "A7c" in msg and name in msg, (key, msg)
         assert r["shape"] == {"time": 4, "space": 1}
 
 

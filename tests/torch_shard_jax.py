@@ -22,6 +22,7 @@ from jax.sharding import Mesh, PartitionSpec as PS
 
 import pymgrit_tpu as J
 import pymgrit_tpu.parallel.shard_solver as JS
+from pymgrit_tpu.parallel.sharding import make_time_space_mesh
 import pymgrit_tpu_torch as P
 from pymgrit_tpu.ops import dd as jdd
 
@@ -83,9 +84,24 @@ def jax_max_jump(base):
 JAX_SUBCLASSES = {**W.SUBCLASSES, "max_jump": jax_max_jump}
 
 
+_JAX_RUNS = {}      # repr(case) -> JAX's result (two tests may check one case)
+
+
 def jax_run(case):
-    mesh = Mesh(np.array(jax.devices()[:case["P"]]), ("time",))
-    return W.run_case(J, JAX, JS, case, mesh, jax_value, JAX_SUBCLASSES)
+    """JAX's sharded run of the case on its mesh: ('time',) with P devices,
+    or JAX's ('time', 'space') mesh of P x S devices, or the case's
+    ``jax_mesh`` (n_time, n_space) where JAX cannot run the port's (XLA's
+    SPMD partitioner refuses a mesh of one time shard and a space axis)."""
+    key = repr(case)
+    if key in _JAX_RUNS:
+        return _JAX_RUNS[key]
+    P, S_ = case.get("jax_mesh", (case["P"], case.get("S", 1)))
+    if S_ > 1:
+        mesh = make_time_space_mesh(n_time=P, n_space=S_)
+    else:
+        mesh = Mesh(np.array(jax.devices()[:P]), ("time",))
+    _JAX_RUNS[key] = W.run_case(J, JAX, JS, case, mesh, jax_value, JAX_SUBCLASSES)
+    return _JAX_RUNS[key]
 
 
 def serial_run(case):
@@ -141,7 +157,7 @@ def check(world, case, serial=True):
     run and (``serial``) against the port's serial run; returns (rank
     results, JAX's result)."""
     ranks = world.result(case["name"])
-    assert len(ranks) == case["P"]
+    assert len(ranks) == case["P"] * case.get("S", 1)
     r0 = ranks[0]
     for r in ranks[1:]:
         assert r["solve_iter"] == r0["solve_iter"]

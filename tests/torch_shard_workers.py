@@ -7,7 +7,8 @@ in every child, and a child must not import jax.
 A case is plain data (picklable): a problem builder and its arguments, the
 solver (``ShardedMgrit`` / ``ShardedAtMgrit`` or one of the subclasses
 below) with its arguments, the entry point (``solve`` or
-``solve_compiled``) and the shard count.  ``run_case`` runs a case with
+``solve_compiled``) and the mesh: ``P`` time shards and ``S`` space shards
+(1 where absent).  ``run_case`` runs a case with
 either package: the builders take the package (``mod``) and a ``Side``
 (the array module of its callables), so the JAX side (in the pytest
 process) and the port's worlds build the same problem.
@@ -15,9 +16,9 @@ process) and the port's worlds build the same problem.
 ``start_world(size, cases, directory)`` spawns ``size`` processes in a gloo
 world (or ``backend="nccl"``) with a file rendezvous in ``directory`` (60 s
 timeout), each running
-every case whose shard count it belongs to (a P-rank case runs on ranks
-0..P-1 of a sub-group), in order, and writing each rank's result as a
-pickle.  ``World.result(name)`` waits for a case's pickles, and fails at
+every case whose mesh it belongs to (a (P, S) case runs on ranks
+0..P*S-1, cell (t, s) on rank t * S + s), in order, and writing each rank's
+result as a pickle.  ``World.result(name)`` waits for a case's pickles, and fails at
 once if a worker raised or died, or at the world's deadline (120 s after
 its start).
 """
@@ -233,11 +234,12 @@ def run_case(mod, side, mod_parallel, case, mesh, value, subclasses=SUBCLASSES, 
     problem, transfer = BUILDERS[case["build"]](mod, side, **case.get("build_kw", {}))
     counted = prepare(problem) if prepare is not None else None
     kw = dict(case.get("solver_kw", {}), logging_lvl=30)
-    calls = []
+    calls, shapes = [], []
     if case.get("output_lvl") is not None:
         def hook(solver):
             leaves = value(solver.u[0])
             calls.append((solver.solve_iter, leaves[0].shape[0], len(solver.t[0])))
+            shapes.append(leaves[0].shape)
         kw.update(output_fcn=hook, output_lvl=case["output_lvl"])
     if transfer is not None:
         kw["transfer"] = transfer
@@ -248,7 +250,8 @@ def run_case(mod, side, mod_parallel, case, mesh, value, subclasses=SUBCLASSES, 
     info = getattr(solver, case.get("entry", "solve"))()
     out = {"conv": np.asarray(solver.conv, dtype=np.float64), "solve_iter": solver.solve_iter,
            "returned": np.asarray(info["conv"], dtype=np.float64),
-           "tube": value(solver.fine_solution()), "calls": calls, "setup_calls": setup_calls,
+           "tube": value(solver.fine_solution()), "calls": calls, "shapes": shapes,
+           "setup_calls": setup_calls,
            "general": bool(solver._general), "cpts": np.asarray(solver.levels[0].cpts)}
     if counted is not None:
         out["calls_by_op"] = dict(counted)
@@ -261,16 +264,36 @@ def run_case(mod, side, mod_parallel, case, mesh, value, subclasses=SUBCLASSES, 
     return out
 
 
+def _error(fn):
+    """(type name, message) of what fn raises, or None."""
+    try:
+        fn()
+    except Exception as e:              # the JAX package raises a bare Exception
+        return type(e).__name__, str(e)
+    return None
+
+
 def mesh_errors(mesh):
-    """The mesh factory's refusals, with their messages."""
+    """The mesh factory's refusal and a (2, 2) mesh's shape; then the
+    solver's refusals on that mesh: a width n_space does not divide, an
+    application without a space route, double-double states, spatial
+    coarsening."""
+    import pymgrit_tpu_torch as P
     import pymgrit_tpu_torch.parallel as PP
-    out = {}
-    for key, kw in (("too_big", dict(n_time=64, n_space=4)), ("space", dict(n_space=2))):
-        try:
-            PP.make_time_space_mesh(**kw)
-            out[key] = None
-        except Exception as e:          # the JAX package raises a bare Exception
-            out[key] = (type(e).__name__, str(e))
+    out = {"too_big": _error(lambda: PP.make_time_space_mesh(n_time=64, n_space=4))}
+    grid = PP.make_time_space_mesh(n_time=2, n_space=2)
+    out["space"] = grid.shape
+
+    def solver(build, transfer=None, **kw):
+        problem, _ = BUILDERS[build](P, PORT, **kw)
+        return PP.ShardedMgrit(problem=problem, mesh=grid, transfer=transfer, logging_lvl=30)
+
+    out["indivisible"] = _error(lambda: solver("heat2d", nts=(17, 5), nx=9))
+    out["no_route"] = _error(lambda: solver("dahlquist", nts=(17, 5)))
+    out["dd"] = _error(lambda: solver("heat2d", nts=(17, 5), basis="spectral", precision="dd"))
+    out["fe"] = _error(lambda: solver("heat2d", nts=(17, 5), method="FE"))
+    out["spatial"] = _error(lambda: solver("heat2d", nts=(17, 5),
+                                           transfer=[P.GridTransferHeat2D(9, 9)]))
     out["shape"] = mesh.shape
     return out
 
@@ -292,7 +315,66 @@ def comm_ops(mesh, device="cpu"):
     return out
 
 
-PROBES = {f.__name__: f for f in (mesh_errors, comm_ops)}
+def space_comm_ops(mesh):
+    """The space group's all_to_all (uneven splits) and row halo, their
+    counts, and the time group's size beside it."""
+    from pymgrit_tpu_torch.parallel.comm import Comm
+    c = Comm(mesh.space_group, "cpu")
+    s, n = mesh.space_rank, mesh.n_space
+    # rank s sends q + 1 values of 10 s + q to each rank q
+    x = torch.cat([torch.full((q + 1,), 10.0 * s + q, dtype=torch.float64) for q in range(n)])
+    got = c.all_to_all(x, [q + 1 for q in range(n)], [s + 1] * n)
+    first = torch.full((2, 3), 100.0 + s, dtype=torch.float64)
+    above, below = c.row_halo(first, first + 0.5)
+    return {"a2a": got.numpy(), "above": above.numpy(), "below": below.numpy(),
+            "counts": dict(c.counts), "time": mesh.size}
+
+
+def pencil(mesh):
+    """The physical Heat2D step (BE and CN, with g, and a ring off the
+    Dirichlet data) and closed form (CN's a chunk of one interval at a
+    time) of this rank's space slab, and of the whole states on the same
+    rank (``Heat2D`` as it is built): this rank's rows of both, per
+    method."""
+    import pymgrit_tpu_torch as P
+    from pymgrit_tpu_torch.models import heat_2d
+    from pymgrit_tpu_torch.parallel.comm import Comm
+    comm = Comm(mesh.space_group, "cpu")
+    rng = np.random.default_rng(11)
+    chunk = heat_2d._RELAX_CHUNK
+    J, L, m = 3, 2, 5
+    t = np.linspace(0.0, 0.1, J * (m - 1) + 1)
+    tp = t[:-1][:J * L].reshape(J, L).T.copy()
+    tc = t[1:][:J * L].reshape(J, L).T.copy()
+    out = {}
+    for method in ("BE", "CN"):
+        (whole,), _ = heat2d(P, PORT, nts=(33,), method=method)
+        (slab,), _ = heat2d(P, PORT, nts=(33,), method=method)
+        slab._space_slab(mesh.space_rank, mesh.n_space, comm)
+        R = slab.vector_template.shape[0]
+        rows = slice(mesh.space_rank * R, (mesh.space_rank + 1) * R)
+        x = torch.as_tensor(rng.uniform(-1, 1, (J, whole.nx, whole.ny)))
+        g = torch.as_tensor(rng.uniform(-1, 1, (J, L, whole.nx, whole.ny)))
+        ow = whole.step_chain(x, tp, tc, torch.empty_like(g), g)
+        os_ = slab.step_chain(x[:, rows].clone(), tp, tc, torch.empty_like(g[:, :, rows]),
+                              g[:, :, rows].clone())
+        t0 = np.tile(t[:m - 1][:, None], (1, J))
+        t1 = np.tile(t[1:m][:, None], (1, J))
+        shape = (J, m - 1) + tuple(x.shape[1:])
+        rw = whole.relax_interval(x, t0, t1, out=torch.empty(shape, dtype=torch.float64))
+        # CN's closed form a interval at a time (its chunks), BE's at once
+        heat_2d._RELAX_CHUNK = 1 if method == "CN" else chunk
+        try:
+            rs = slab.relax_interval(x[:, rows].clone(), t0, t1,
+                                     out=torch.empty((J, m - 1, R, whole.ny), dtype=torch.float64))
+        finally:
+            heat_2d._RELAX_CHUNK = chunk
+        out[method] = {"step": (os_.numpy(), ow[:, :, rows].numpy()),
+                       "relax": (rs.numpy(), rw[:, :, rows].numpy())}
+    return out
+
+
+PROBES = {f.__name__: f for f in (mesh_errors, comm_ops, space_comm_ops, pencil)}
 
 
 def port_value(x):
@@ -339,9 +421,10 @@ def _worker(rank, size, store, cases, directory, backend):
     dist.init_process_group(backend, init_method="file://" + store, rank=rank, world_size=size,
                             timeout=INIT_TIMEOUT)
     try:
-        meshes = {n: PP.make_time_space_mesh(n_time=n) for n in sorted({c["P"] for c in cases})}
+        meshes = {(n, s): PP.make_time_space_mesh(n_time=n, n_space=s)
+                  for n, s in sorted({(c["P"], c.get("S", 1)) for c in cases})}
         for case in cases:
-            mesh = meshes[case["P"]]
+            mesh = meshes[case["P"], case.get("S", 1)]
             if mesh is None:
                 continue
             try:
@@ -420,4 +503,4 @@ def start_world(size, cases, directory, backend="gloo"):
     store = os.path.join(str(directory), "rendezvous")
     ctx = mp.start_processes(_worker, args=(size, store, cases, str(directory), backend),
                              nprocs=size, join=False, start_method="spawn")
-    return World(ctx, str(directory), {c["name"]: c["P"] for c in cases})
+    return World(ctx, str(directory), {c["name"]: c["P"] * c.get("S", 1) for c in cases})
