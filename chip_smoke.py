@@ -141,7 +141,19 @@ phases:
              (the general path) and dd_toms129 against the JAX history;
              every rank's history equal to rank 0's bit for bit; walls,
              launches per rank, collectives and bytes (moved, staged) per
-             iteration, peak memory per rank.
+             iteration, peak memory per rank;
+24. space    a ('time', 'space') grid: four gloo processes on cuda:0 at
+             (2, 2), each cell also at (2, 1) and serially: Heat2D
+             (spectral TOMS at width 130, the physical pencil, spectral
+             AtMgrit(64)), then the periodic models on row slabs
+             (Allen-Cahn IMEX at bench.py's row and CN, Gray-Scott
+             AtMgrit(8) IMEX and IMPL at 128^2, Burgers2D at 64^2; nt
+             and iterations cut, ``SPACE_AC`` ...): the Hartley pencil
+             on K20, K11/K14/K15 in their halo and prologue modes; every
+             rank equal to rank 0, the histories within the floor of
+             (2, 1) and of the serial solve, every rank's Newton and
+             Krylov counts those of (2, 1); walls, peak memory,
+             launches by mode, collectives a rank an iteration.
 
 ``python3 chip_smoke.py --kernels=interval_affine,interpolate_combine`` runs
 phases 1-3 (and ``[dd-kernels]``) for the named kernels alone (float64 and
@@ -541,7 +553,8 @@ PEAK_DMMA_OPS_PER_S = 67e12
 # cores could run: the sine transforms of K5, K6 and K20, K10's Hartley
 # transforms, K22's eigenbasis products and K26's DD products
 PRODUCT_KERNELS = ("sine_solve2d", "sine_affine2d", "periodic_solve2d", "sine_solve1d",
-                   "eig_step", "dd_matmul", "sine_solve1d_lam_table")
+                   "eig_step", "dd_matmul", "sine_solve1d_lam_table", "sine_solve1d_hartley",
+                   "sine_solve1d_hartley_lam_table")
 DD_FP32_KERNELS = ("dd_interval_affine", "dd_theta_chain", "dd_arith")
 
 
@@ -660,8 +673,9 @@ def phase_build():
                        for name, (regs, st, ld, _) in k1011.items()))
     # K10's eight f64 one-tile kernels (T = 16-128, prologue by cp.async or
     # formed), its rhs pass (three prologues) and its f32 FFMA kernel;
-    # K11's twelve (f64 / f32 x three modes x vectors or scalars)
-    for prefix, n in {"K10 f64": 11, "K10 f32": 1, "K11": 12}.items():
+    # K11's sixteen (f64 / f32 x four modes x vectors or scalars; the halo
+    # modes are the whole-state kernels with halo pointers)
+    for prefix, n in {"K10 f64": 11, "K10 f32": 1, "K11": 16}.items():
         ks = [k for k in k1011 if k.startswith(prefix)]
         check(len(ks) == n and all(k1011[k][1] == 0 and k1011[k][2] == 0 for k in ks),
               f"build: {n} {prefix} kernels must compile without spills: {k1011}")
@@ -670,9 +684,10 @@ def phase_build():
           "periodic_pointwise.cuh), ptxas: "
           + " ; ".join(f"{name}: {regs} registers, spill stores/loads {st}/{ld} B"
                        for name, (regs, st, ld, _) in k1415.items()))
-    # K14's sixteen (f64 / f32 x EXPL, EXPL + g, residual, jacobian x vectors
-    # or scalars) and K15's eight (f64 / f32 x two modes x vectors or scalars)
-    for prefix, n in {"K14": 16, "K15": 8}.items():
+    # K14's twenty (f64 / f32 x EXPL, EXPL + g, residual, jacobian, prologue
+    # x vectors or scalars) and K15's eight (f64 / f32 x two modes x vectors
+    # or scalars)
+    for prefix, n in {"K14": 20, "K15": 8}.items():
         ks = [k for k in k1415 if k.startswith(prefix)]
         check(len(ks) == n and all(k1415[k][1] == 0 and k1415[k][2] == 0 for k in ks),
               f"build: {n} {prefix} kernels must compile without spills: {k1415}")
@@ -862,8 +877,8 @@ def k10_k11_label(m, ln):
         return f"K10 f64 rhs pass {('copy', 'Allen-Cahn', 'Gray-Scott')[int(rhs)]}"
     if f32 is not None:
         return "K10 f32 FFMA"
-    return (f"K11 {'f64' if e11 == 'd' else 'f32'} {('rhs', 'residual', 'jacobian')[int(mode)]} "
-            f"V={vec}")
+    return (f"K11 {'f64' if e11 == 'd' else 'f32'} "
+            f"{('rhs', 'residual', 'jacobian', 'prologue')[int(mode)]} V={vec}")
 
 
 # gray_scott_pointwise_kernel<T, MODE, G, V> (K14) /
@@ -876,7 +891,7 @@ def k14_k15_label(m, ln):
     name, e, mode, g, vec = m.groups()
     dt = "f64" if e == "d" else "f32"
     if name == "gray_scott":
-        mode = ("EXPL + g" if g == "1" else "EXPL", "residual", "jacobian")[int(mode)]
+        mode = ("EXPL + g" if g == "1" else "EXPL", "residual", "jacobian", "prologue")[int(mode)]
         return f"K14 {dt} {mode} V={vec}"
     return f"K15 {dt} {('residual', 'jacobian')[int(mode)]} V={vec}"
 
@@ -1440,7 +1455,8 @@ def kernel_cases(dtype, dev, stash):
             + nonlinear_cases(dtype, dev, rng, stash) + slice_cases(dtype, dev, rng, stash)
             + transfer_cases(dtype, dev, rng, stash) + heat1d_cases(dtype, dev, rng, stash)
             + past_cap_cases(dtype, dev, rng, stash) + slice7_cases(dtype, dev, rng, stash)
-            + space_kernel_cases(dtype, dev, stash))
+            + space_kernel_cases(dtype, dev, stash)
+            + periodic_space_kernel_cases(dtype, dev, stash))
 
 
 def coarsest_work(kernel, nt, N, k, A, b, es=8, with_g=True):
@@ -1933,6 +1949,198 @@ def space_kernel_cases(dtype, dev, stash):
         heat_kernels.sine_solve1d_plans(X, S, table))
     stash[("work", "sine_solve1d_lam_table", case)] = (8 * (2 * B * n + n * n + D * n + B),
                                                        4 * B * n * n + 3 * B * n)
+    return cases
+
+
+def slab_work(kernel, mode, B, R, n, with_g=False):
+    """(bytes, operations) of a halo call on B lanes' slabs of R of n rows
+    (K11: one plane a lane; K14, K15: two): the whole-state call's on R
+    rows, plus the halo rows read (K15's Jacobian two pairs of them)."""
+    if kernel == "allen_cahn_pointwise":
+        nbytes, ops = k11_work(mode, B, n)
+        planes, halos = 1, 1
+    elif kernel == "gray_scott_pointwise":
+        nbytes, ops = k14_work(mode, B, n, with_g)
+        planes, halos = 2, 1
+    else:
+        nbytes, ops = k15_work(mode, B, n)
+        planes, halos = 2, 2 if mode == "jacobian" else 1
+    lanes = 8 * B * (2 if mode == "residual" else 1)
+    return ((nbytes - lanes) * R // n + lanes + 8 * 2 * halos * planes * B * n,
+            ops * R // n)
+
+
+def prologue_work(kernel, B, R, n):
+    """(bytes, operations) of a prologue call on B lanes' R x n rows: the
+    state read and written and dt read; operations a point: Allen-Cahn's
+    u^2, inv_eps2 u, 1 - u^2, the product, dt times it and the add (6);
+    Gray-Scott's two species: v v, u v^2, 1 - u, a (1 - u), the sum, dt
+    times it, the add; b v, the difference, dt times it, the add (11)."""
+    planes, ops = (1, 6) if kernel == "allen_cahn_pointwise" else (2, 11)
+    return 8 * (2 * planes * B * R * n + B), ops * B * R * n
+
+
+def periodic_space_kernel_cases(dtype, dev, stash):
+    """The kernel modes of the periodic models' space slabs at a (2, 2)
+    rank's shapes of the [space] cells, from a generator of their own:
+    K11's and K14's halo modes on the Newton-Krylov lanes (Allen-Cahn CN:
+    2 lanes, Gray-Scott IMPL: 2 pairs, slabs of 64 of 128 rows), K15's on
+    Burgers2D's (1 pair, 32 of 64 rows), each with its two halo rows; the
+    prologue modes on the IMEX level-0 lanes (Allen-Cahn's bench row at
+    [space]'s cut, the Gray-Scott AT run's); K20 on the Hartley basis: the
+    y-transform of the Allen-Cahn IMEX lanes' slab rows (the library call
+    ``x @ H`` beside it) and the x-pass with the species-scaled lam table
+    at the Allen-Cahn and Gray-Scott pencil shapes (lanes (lane, species,
+    column)).  The halo and prologue modes bit for bit ``RowCase``s, K20's
+    at the kernel tolerance."""
+    import torch
+    from pymgrit_tpu_torch.ops import heat_kernels
+    from pymgrit_tpu_torch.ops.periodic import hartley_basis, periodic_lap_eigs
+    rng = np.random.default_rng(SEED + 40)
+    S = SPACE_MESH[1]
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+
+    def residual_view(mode):
+        def view(r):                    # the residual and its per-lane max as one tensor
+            return torch.cat([r[0].flatten(), r[1]]) if mode == "residual" else r
+        return view
+
+    cases = []
+    n = SPACE_AC_CN["nx"]
+    R = n // S
+    B = (SPACE_AC_CN["nt"] - 1) // SPACE_AC_CN["ms"][0] // SPACE_MESH[0]   # level-0 lanes a rank
+    dt_cn = SPACE_AC_CN["t_stop"] / (SPACE_AC_CN["nt"] - 1)
+    eps = 0.04
+
+    def k11(mode, B, R, n):
+        u = t(rng.uniform(-1, 1, (B, R, n)))
+        x = t(rng.uniform(-1, 1, (B, R, n)))
+        above, below = (t(rng.uniform(-1, 1, (B, n))) for _ in range(2))
+        fac = t(np.full(B, 0.5 * dt_cn))
+
+        def launch(ops, out):
+            return ops.allen_cahn_pointwise(mode, u, out, fac, 1.0 / eps ** 2, 1.0 / n ** 2, 2,
+                                            x=x, rhs=x, halo=(above, below))
+        return RowCase(lambda: torch.empty((B, R, n), dtype=dtype, device=dev), launch,
+                       view=residual_view(mode))
+
+    for mode in ("jacobian", "residual", "rhs"):
+        case = f"{mode} B={B} R={R} n={n} halo"
+        cases.append(("allen_cahn_pointwise_halo", case, k11(mode, B, R, n)))
+        stash[("work", "allen_cahn_pointwise_halo", case)] = slab_work(
+            "allen_cahn_pointwise", mode, B, R, n)
+
+    gs = GS_COEF
+    ng = SPACE_GS_IMPL["nx"]
+    Rg = ng // S
+    Bg = (SPACE_GS_IMPL["nt"] - 1) // SPACE_GS_IMPL["ms"][0] // SPACE_MESH[0]
+    dt_gs = SPACE_GS_IMPL["t_stop"] / (SPACE_GS_IMPL["nt"] - 1)
+
+    def k14(mode, B, R, n, dt):
+        s_ = t(rng.uniform(0, 1, (B, 2, R, n)))
+        w = t(rng.uniform(-1, 1, (B, 2, R, n)))
+        above, below = (t(rng.uniform(0, 1, (B, 2, n))) for _ in range(2))
+        steps = t(np.full(B, dt))
+
+        def launch(ops, out):
+            return ops.gray_scott_pointwise(mode, s_, out, steps, gs["du"], gs["dv"], gs["a"],
+                                            gs["b"], (2.0 / n) ** 2, w=w,
+                                            r=w if mode == "residual" else None,
+                                            halo=None if mode == "prologue" else (above, below))
+        return RowCase(lambda: torch.empty((B, 2, R, n), dtype=dtype, device=dev), launch,
+                       view=residual_view(mode))
+
+    for mode in ("jacobian", "residual", "expl"):
+        case = f"{mode} B={Bg} R={Rg} n={ng} halo"
+        cases.append(("gray_scott_pointwise_halo", case, k14(mode, Bg, Rg, ng, dt_gs)))
+        stash[("work", "gray_scott_pointwise_halo", case)] = slab_work(
+            "gray_scott_pointwise", mode, Bg, Rg, ng)
+
+    nb = SPACE_B2["nx"]
+    Rb = nb // S
+    Bb = (SPACE_B2["nt"] - 1) // SPACE_B2["ms"][0] // SPACE_MESH[0]
+    dt_b = SPACE_B2["t_stop"] / (SPACE_B2["nt"] - 1)
+
+    def k15(mode):
+        s_ = t(rng.uniform(-1, 1, (Bb, 2, Rb, nb)))
+        w = t(rng.uniform(-1, 1, (Bb, 2, Rb, nb)))
+        rows = [t(rng.uniform(-1, 1, (Bb, 2, nb))) for _ in range(4)]
+        steps = t(np.full(Bb, dt_b))
+
+        def launch(ops, out):
+            return ops.burgers2d_pointwise(mode, s_, out, steps, BURGERS_2D["nu"], 1.0 / nb,
+                                           w=w, r=w if mode == "residual" else None,
+                                           halo=tuple(rows[:2]),
+                                           w_halo=tuple(rows[2:]) if mode == "jacobian" else None)
+        return RowCase(lambda: torch.empty((Bb, 2, Rb, nb), dtype=dtype, device=dev), launch,
+                       view=residual_view(mode))
+
+    for mode in ("jacobian", "residual"):
+        case = f"{mode} B={Bb} R={Rb} n={nb} halo"
+        cases.append(("burgers2d_pointwise_halo", case, k15(mode)))
+        stash[("work", "burgers2d_pointwise_halo", case)] = slab_work(
+            "burgers2d_pointwise", mode, Bb, Rb, nb)
+
+    # the IMEX prologues on the level-0 lanes of a (2, 2) rank
+    n_ac = SPACE_AC["nx"]
+    J_ac = (SPACE_AC["nt"] - 1) // SPACE_AC["ms"][0] // SPACE_MESH[0]
+    dt_ac = SPACE_AC["t_stop"] / (SPACE_AC["nt"] - 1)
+    u_ac = t(rng.uniform(-1, 1, (J_ac, n_ac // S, n_ac)))
+    step_ac = t(np.full(J_ac, dt_ac))
+    case = f"IMEX prologue B={J_ac} R={n_ac // S} n={n_ac}"
+    cases.append(("allen_cahn_pointwise_prologue", case, RowCase(
+        lambda: torch.empty_like(u_ac),
+        lambda ops, out: ops.allen_cahn_pointwise("prologue", u_ac, out, step_ac,
+                                                  1.0 / eps ** 2, 1.0 / n_ac ** 2, 2))))
+    stash[("work", "allen_cahn_pointwise_prologue", case)] = prologue_work(
+        "allen_cahn_pointwise", J_ac, n_ac // S, n_ac)
+    n_at = SPACE_GS_AT["nx"]
+    J_at = (SPACE_GS_AT["nt"] - 1) // SPACE_GS_AT["ms"][0] // SPACE_MESH[0]
+    dt_at = SPACE_GS_AT["t_stop"] / (SPACE_GS_AT["nt"] - 1)
+    case = f"IMEX prologue B={J_at} R={n_at // S} n={n_at}"
+    cases.append(("gray_scott_pointwise_prologue", case, k14("prologue", J_at, n_at // S, n_at,
+                                                            dt_at)))
+    stash[("work", "gray_scott_pointwise_prologue", case)] = prologue_work(
+        "gray_scott_pointwise", J_at, n_at // S, n_at)
+
+    # K20 on H: the y-transform of the Allen-Cahn IMEX slab rows, and the
+    # x-pass at the Allen-Cahn and Gray-Scott pencil shapes
+    H = t(hartley_basis(n_ac))
+    rows_ac = t(rng.uniform(-1, 1, (J_ac * (n_ac // S), n_ac)))
+    case = f"transform B={rows_ac.shape[0]} n={n_ac}"
+    cases.append(("sine_solve1d_hartley", case, RowCase(
+        lambda: torch.empty_like(rows_ac),
+        lambda ops, out: ops.sine_solve1d(rows_ac, out, H), exact=False)))
+    stash[("plan", "sine_solve1d_hartley", case)] = ProductPlans(
+        heat_kernels.sine_solve1d_plans(rows_ac, H))
+    stash[("work", "sine_solve1d_hartley", case)] = (
+        8 * (2 * rows_ac.numel() + n_ac * n_ac), 2 * rows_ac.shape[0] * n_ac * n_ac)
+    stash[("library", "sine_solve1d_hartley")] = stash[("library", "sine_solve1d_hartley", case)] \
+        = lambda: torch.matmul(rows_ac, H)
+    for label, cfg, J, coef in (("Allen-Cahn", SPACE_AC, J_ac, [1.0]),
+                                ("Gray-Scott", SPACE_GS_AT, J_at, [gs["du"], gs["dv"]])):
+        nn = cfg["nx"]
+        D = nn // S
+        dx = 1.0 / nn if cfg["model"] == "AllenCahn" else 2.0 / nn
+        table = t(-periodic_lap_eigs(nn, dx)[:, :D].T)       # the first shard's columns
+        lanes = J * len(coef) * D
+        X = t(rng.uniform(-1, 1, (lanes, nn)))
+        dt = cfg["t_stop"] / (cfg["nt"] - 1)
+        lane_dt = t(np.repeat((dt * np.asarray(coef))[None].repeat(J, 0).reshape(-1), D))
+        Hx = t(hartley_basis(nn))
+
+        def x_pass(ops, out, X=X, Hx=Hx, table=table, lane_dt=lane_dt):
+            return ops.sine_solve1d(X, out, Hx, table, lane_dt)
+
+        case = f"x-pass {label} B={lanes} n={nn} D={D} S={len(coef)}"
+        cases.append(("sine_solve1d_hartley_lam_table", case, RowCase(
+            lambda X=X: torch.empty_like(X), x_pass, exact=False)))
+        stash[("plan", "sine_solve1d_hartley_lam_table", case)] = ProductPlans(
+            heat_kernels.sine_solve1d_plans(X, Hx, table))
+        stash[("work", "sine_solve1d_hartley_lam_table", case)] = (
+            8 * (2 * lanes * nn + nn * nn + D * nn + lanes), 4 * lanes * nn * nn + 3 * lanes * nn)
     return cases
 
 
@@ -2783,7 +2991,8 @@ def headline_work(kernel, stash):
         case = ("FAS" if kernel == "restrict_combine" else "correction") + " spatial65 2D R=1024"
         return stash[("work", kernel, case)]
     if kernel in ("indexed_combine", "eig_step", "sine_solve1d", "affine_prefix",
-                  "affine_windows", "residual_row_norms_squares", "sine_solve1d_lam_table"):
+                  "affine_windows", "residual_row_norms_squares", "sine_solve1d_lam_table",
+                  *PERIODIC_SPACE_ROWS):
         # the headline's recorded work (K8, K9: coarsest_work)
         return next(w for k, w in stash.items()
                     if k[:2] == ("work", kernel) and k[2].startswith(HEADLINE[kernel]))
@@ -2825,7 +3034,19 @@ HEADLINE = {"interval_affine": "materialize", "theta_chain": "level-1 F-relax",
             "indexed_combine": "drop-scatter", "eig_step": "128 lanes",
             "dd_interval_affine": "materialize", "dd_theta_chain": "level-1 F-relax BE",
             "dd_arith": "FAS combine", "dd_matmul": "Heat2D physical",
-            "residual_row_norms_squares": "squares", "sine_solve1d_lam_table": "x-pass"}
+            "residual_row_norms_squares": "squares", "sine_solve1d_lam_table": "x-pass",
+            "allen_cahn_pointwise_halo": "jacobian", "gray_scott_pointwise_halo": "jacobian",
+            "burgers2d_pointwise_halo": "jacobian",
+            "allen_cahn_pointwise_prologue": "IMEX prologue",
+            "gray_scott_pointwise_prologue": "IMEX prologue",
+            "sine_solve1d_hartley": "transform",
+            "sine_solve1d_hartley_lam_table": "x-pass Gray-Scott"}
+# the summary's rows of the periodic slabs' kernel modes (phase 3's
+# ``periodic_space_kernel_cases``; launches from the [space] cells)
+PERIODIC_SPACE_ROWS = ("allen_cahn_pointwise_halo", "gray_scott_pointwise_halo",
+                       "burgers2d_pointwise_halo", "allen_cahn_pointwise_prologue",
+                       "gray_scott_pointwise_prologue", "sine_solve1d_hartley",
+                       "sine_solve1d_hartley_lam_table")
 
 
 def row_times(kernel, case, run, stash, f64=True):
@@ -5245,17 +5466,21 @@ def shard_run(mesh, build, entry="solve_compiled", k=None, **kw):
     per_it = [{c: n / it for c, n in comm.counts.items()} for comm in comms]
     return dict(mg=mg, hist=mg.conv[1:it + 1].copy(), build=built, setup=setup, wall=wall,
                 launches=launch_counts(), modes=mode_launches(), comm=per_it[0],
+                stats=[dict(p.stats) for p in problem if hasattr(p, "stats")],
                 space_comm=per_it[1] if len(per_it) > 1 else None,
                 staged=mg.comm.staged, backend=mg.comm.backend,
                 peak=(torch.cuda.max_memory_allocated() - mem0) / 2 ** 30)
 
 
 def mode_launches():
-    """K3's and K20's launches by mode since the last reset."""
-    from pymgrit_tpu_torch.ops import heat_kernels, row_norms
-    return {**{f"residual_row_norms {k}": v
-               for k, v in row_norms.residual_row_norms.mode_launches.items()},
-            **{f"sine_solve1d {k}": v for k, v in heat_kernels.sine_solve1d.mode_launches.items()}}
+    """K3's, K11's, K14's, K15's and K20's launches by mode since the last
+    reset."""
+    from pymgrit_tpu_torch.ops import heat_kernels, pointwise, row_norms
+    return {f"{fn.__name__} {k}": v
+            for fn in (row_norms.residual_row_norms, heat_kernels.sine_solve1d,
+                       pointwise.allen_cahn_pointwise, pointwise.gray_scott_pointwise,
+                       pointwise.burgers2d_pointwise)
+            for k, v in fn.mode_launches.items()}
 
 
 def comm_latency(group, reps=50):
@@ -5514,20 +5739,55 @@ SPACE_MESH = (2, 2)
 SPACE_TOMS = dict(nx=130, nt=2 ** 14 + 1, ms=(32, 16, 4, 4))
 SPACE_PHYS = dict(nx=130, nt=2 ** 11 + 1, ms=(32, 16, 4))         # CN_CFG's cut
 SPACE_AT = dict(nx=130, nt=2 ** 14 + 1, ms=(8,))                  # TOMS2 at width 130
-SPACE_INIT_S, SPACE_JOIN_S = 300, 600     # rendezvous and collective timeout, the world's limit
+# the periodic models' cells (each at (2, 2) and (2, 1), and serially on
+# rank 0), at full width, cut in nt with the step size kept and in
+# iterations: Allen-Cahn IMEX (bench.py's row, AC_BENCH: 8/8, nt 4097 ->
+# 1025, five iterations -> 3; also with the plain versions at (2, 2)),
+# Gray-Scott AtMgrit(8) IMEX (GS_AT: 16/4, nt 16385 -> 4097, 12 iterations
+# -> 2), Gray-Scott IMPL (GS_IMPL: nt 33 -> 17, 10 iterations -> 2),
+# Burgers2D 64^2 (BURGERS_2D: 10 iterations -> 2) and Allen-Cahn CN
+# (AC_CN: nt 33 -> 17, 10 iterations -> 2).  Two iterations, so that each
+# cell runs a correction cycle after the first (at nt 9 Burgers2D's two
+# coarse intervals are exact after one).  The three Newton-Krylov cells
+# stage 4500-7500 collectives an iteration through the host and took 12-50
+# s a rank each at (2, 2): cut so that the script stays inside its time
+# limit
+SPACE_AC = dict(AC_BENCH, model="AllenCahn", nt=1025, t_stop=AC_BENCH["t_stop"] / 4, max_iter=3)
+SPACE_GS_AT = dict(GS_AT, model="GrayScott2D", nt=2 ** 12 + 1, t_stop=GS_AT["t_stop"] / 4,
+                   max_iter=2)
+SPACE_GS_IMPL = dict(GS_IMPL, model="GrayScott2D", nt=17, t_stop=GS_IMPL["t_stop"] / 2,
+                     max_iter=2)
+SPACE_B2 = dict(BURGERS_2D, model="Burgers2D", max_iter=2)
+SPACE_AC_CN = dict(AC_CN, model="AllenCahn", nt=17, t_stop=AC_CN["t_stop"] / 2, max_iter=2)
+SPACE_INIT_S, SPACE_JOIN_S = 300, 900     # rendezvous and collective timeout, the world's limit
 SPACE_REPS = 50
 
 
 def space_cases():
-    """(label, problem configuration, solver arguments, AT window or None)."""
-    return [
+    """(label, problem configuration, solver arguments, AT window or None,
+    whether the plain versions run at (2, 2) too)."""
+    heat = [
         ("toms", dict(basis="spectral", **SPACE_TOMS), dict(tol=MAIN_TOL, max_iter=MAIN_MAX_ITER),
-         None),
+         None, True),
         ("physical", dict(basis="physical", **SPACE_PHYS),
-         dict(tol=MAIN_TOL, max_iter=MAIN_MAX_ITER), None),
+         dict(tol=MAIN_TOL, max_iter=MAIN_MAX_ITER), None, True),
         ("at64", dict(basis="spectral", **SPACE_AT),
-         dict(tol=1e-300, max_iter=TOMS2_AT_ITERS), TOMS2_AT_K),
+         dict(tol=1e-300, max_iter=TOMS2_AT_ITERS), TOMS2_AT_K, True),
     ]
+    periodic = [("ac_imex", SPACE_AC, True), ("gs_at8", SPACE_GS_AT, False),
+                ("gs_impl", SPACE_GS_IMPL, False), ("burgers2d", SPACE_B2, False),
+                ("ac_cn", SPACE_AC_CN, False)]
+    return heat + [(label, cfg, dict(tol=cfg["tol"], max_iter=cfg["max_iter"]), cfg.get("k"),
+                    plain) for label, cfg, plain in periodic]
+
+
+def space_problem(P, cfg, ops):
+    """A [space] cell's problem: Heat2D (``build_problem``) or a periodic
+    model's hierarchy (``level_problems``)."""
+    if "model" not in cfg:
+        return build_problem(P, device=DEVICE, ops=ops, **cfg)
+    return level_problems(P, cfg["model"], cfg, ops,
+                          **{k: cfg[k] for k in ("nx", "method", "nu") if k in cfg})
 
 
 def space_latency(mesh, reps=SPACE_REPS):
@@ -5576,7 +5836,7 @@ def space_worker(rank, size, store, directory):
         grid = PP.make_time_space_mesh(*SPACE_MESH)
         time_only = PP.make_time_space_mesh(SPACE_MESH[0])
         out = {"latency": space_latency(grid)}
-        for label, cfg, kw, k in space_cases():
+        for label, cfg, kw, k, with_plain in space_cases():
             res, built = {}, {}
 
             def build(key, ops):
@@ -5584,7 +5844,7 @@ def space_worker(rank, size, store, directory):
                 sets its levels' ops), one whole-state for (2, 1) and the
                 serial solve."""
                 if key not in built:
-                    built[key] = build_problem(P, device=DEVICE, ops=ops, **cfg)
+                    built[key] = space_problem(P, cfg, ops)
                 for p in built[key]:
                     p.ops = ops
                 return built[key]
@@ -5593,7 +5853,7 @@ def space_worker(rank, size, store, directory):
             for run, mesh, key, ops in (("kernel", grid, "grid", DISPATCH),
                                         ("plain", grid, "grid", PLAIN),
                                         ("time", time_only, "whole", DISPATCH)):
-                if mesh is None:
+                if mesh is None or (run == "plain" and not with_plain):
                     continue
                 r = shard_run(mesh, lambda: build(key, ops), k=k, **kw)
                 if run == "kernel":
@@ -5601,7 +5861,7 @@ def space_worker(rank, size, store, directory):
                     res["tube_shape"] = tuple(tube.shape)
                     if rank != 0:
                         del tube
-                if run == "plain":
+                if run == "plain" or (run == "kernel" and not with_plain):
                     del built["grid"]
                 del r["mg"]
                 torch.cuda.empty_cache()
@@ -5612,9 +5872,11 @@ def space_worker(rank, size, store, directory):
                       P.Mgrit(problem=problem, logging_lvl=30, **kw))
                 _, wall = synced_wall(ms.solve_compiled)
                 ref = ms.u[0]
+                floor = (residual_floor(ms, 4 * math.sqrt(cfg["nx"]) + FLOOR_OPS)
+                         if "model" in cfg else physical_floor(ms)
+                         if cfg["basis"] == "physical" else residual_floor(ms))
                 res["serial"] = dict(
-                    hist=ms.conv[1:ms.solve_iter + 1].copy(), wall=wall,
-                    floor=physical_floor(ms) if cfg["basis"] == "physical" else residual_floor(ms),
+                    hist=ms.conv[1:ms.solve_iter + 1].copy(), wall=wall, floor=floor,
                     tube_err=float((tube - ref).abs().max()) / float(ref.abs().max()),
                     finite=bool(torch.isfinite(tube).all()))
                 del ms, problem, ref, tube
@@ -5636,19 +5898,56 @@ def fmt_comm(c):
     return f"{c['ops']:.1f} ops, {c['bytes']:.0f} B moved, {c['staged']:.0f} B staged"
 
 
+_PENCIL = ("sine_solve1d transform", "sine_solve1d be lam table")
 SPACE_NEEDED = {
     "toms": ("interval_affine", "theta_chain", "residual_row_norms", "cpoint_combine"),
     "physical": ("theta_rhs2d", "sine_solve1d", "interval_affine", "residual_row_norms",
                  "cpoint_combine"),
     "at64": ("interval_affine", "affine_windows", "residual_row_norms", "cpoint_combine"),
+    "ac_imex": ("allen_cahn_pointwise", "sine_solve1d", "residual_row_norms", "cpoint_combine"),
+    "gs_at8": ("gray_scott_pointwise", "sine_solve1d", "residual_row_norms", "cpoint_combine"),
+    "gs_impl": ("gray_scott_pointwise", "sine_solve1d", "residual_row_norms"),
+    "burgers2d": ("burgers2d_pointwise", "sine_solve1d", "residual_row_norms"),
+    "ac_cn": ("allen_cahn_pointwise", "sine_solve1d", "residual_row_norms"),
 }
-# the launches [space] prints a rank: K1-K7, K9 and K20
+# the launches [space] prints a rank: K1-K7, K9, K10, K11, K14, K15 and K20
 SPACE_PRINTED = ("interval_affine", "theta_chain", "residual_row_norms", "cpoint_combine",
-                 "sine_solve2d", "sine_affine2d", "theta_rhs2d", "affine_windows", "sine_solve1d")
+                 "sine_solve2d", "sine_affine2d", "theta_rhs2d", "affine_windows", "sine_solve1d",
+                 "periodic_solve2d", "allen_cahn_pointwise", "gray_scott_pointwise",
+                 "burgers2d_pointwise")
 SPACE_MODES = {"toms": ("residual_row_norms squares",),
-               "physical": ("residual_row_norms squares", "sine_solve1d be lam table",
-                            "sine_solve1d transform"),
-               "at64": ("residual_row_norms squares",)}
+               "physical": ("residual_row_norms squares", *_PENCIL),
+               "at64": ("residual_row_norms squares",),
+               "ac_imex": ("residual_row_norms squares", "allen_cahn_pointwise prologue", *_PENCIL),
+               "gs_at8": ("residual_row_norms squares", "gray_scott_pointwise prologue", *_PENCIL),
+               "gs_impl": ("residual_row_norms squares", "gray_scott_pointwise halo", *_PENCIL),
+               "burgers2d": ("residual_row_norms squares", "burgers2d_pointwise halo", *_PENCIL),
+               "ac_cn": ("residual_row_norms squares", "allen_cahn_pointwise halo", *_PENCIL)}
+# what a space shard must never launch: the whole-state kernels and modes
+SPACE_WHOLE = ("sine_solve2d", "sine_affine2d", "periodic_solve2d")
+SPACE_WHOLE_MODES = ("allen_cahn_pointwise whole", "gray_scott_pointwise whole",
+                     "burgers2d_pointwise whole")
+# the summary's launches of the periodic slabs' kernel modes: (row, [space]
+# cell, mode) on rank 0
+SPACE_ROW_LAUNCHES = (("allen_cahn_pointwise_halo", "ac_cn", "allen_cahn_pointwise halo"),
+                      ("allen_cahn_pointwise_prologue", "ac_imex", "allen_cahn_pointwise prologue"),
+                      ("gray_scott_pointwise_halo", "gs_impl", "gray_scott_pointwise halo"),
+                      ("gray_scott_pointwise_prologue", "gs_at8", "gray_scott_pointwise prologue"),
+                      ("burgers2d_pointwise_halo", "burgers2d", "burgers2d_pointwise halo"),
+                      ("sine_solve1d_hartley", "ac_imex", "sine_solve1d transform"),
+                      ("sine_solve1d_hartley_lam_table", "gs_at8", "sine_solve1d be lam table"))
+
+
+def fmt_stats(stats, iters):
+    """Newton and Krylov totals of level 0 and of all levels, and per
+    iteration."""
+    if not stats:
+        return "no Newton"
+    kry = next(k for k in stats[0] if k not in ("steps", "newton") and not k.endswith("_max"))
+    tot = {k: sum(s[k] for s in stats) for k in ("steps", "newton", kry)}
+    return (f"steps {tot['steps']}, Newton {tot['newton']} ({tot['newton'] / iters:.1f} an "
+            f"iteration), {kry} {tot[kry]} ({tot[kry] / iters:.1f} an iteration; level 0 "
+            f"{stats[0][kry]}, max a step {max(s[kry + '_max'] for s in stats)})")
 
 
 def phase_space(card):
@@ -5659,8 +5958,15 @@ def phase_space(card):
     against the same case at (2, 1), against the serial solve (history and
     fine tube) and against the plain versions on the same world; every
     rank's history equal to rank 0's; walls, peak memory at n_space 2 and 1,
-    launches and communication a rank.  Returns the launches of K3's
-    squares mode (toms) and K20's lam table (physical)."""
+    launches and communication a rank.  Then the periodic models' cells
+    (``space_cases``: Allen-Cahn IMEX and CN, Gray-Scott AtMgrit(8) IMEX and
+    IMPL, Burgers2D; the Hartley pencil on K20, K11/K14/K15 in their halo
+    and prologue modes), each against (2, 1) (history and every rank's
+    Newton and Krylov counts) and the serial solve, Allen-Cahn IMEX also
+    against the plain versions at (2, 2), with the Newton-Krylov counts and
+    the collectives per iteration.  Returns the launches of K3's squares
+    mode (toms), K20's lam table (physical) and the periodic slabs' modes
+    (``SPACE_ROW_LAUNCHES``)."""
     t_phase = time.perf_counter()
     shard_env()
     size = SPACE_MESH[0] * SPACE_MESH[1]
@@ -5669,7 +5975,7 @@ def phase_space(card):
         ranks = shard_world(tmp, space_worker, size, SPACE_JOIN_S, "space")
         world_s = time.perf_counter() - t0
     grid = f"({SPACE_MESH[0]}, {SPACE_MESH[1]})"
-    for label, cfg, kw, k in space_cases():
+    for label, cfg, kw, k, with_plain in space_cases():
         rs = [r[label] for r in ranks]
         kern = [r["kernel"] for r in rs]
         h = kern[0]["hist"]
@@ -5680,26 +5986,36 @@ def phase_space(card):
         floor, rtol = ser["floor"], MAIN_RTOL
         ok_t, err_t = histories_agree(h, t_only[0]["hist"], floor, rtol)
         ok_s, err_s = histories_agree(h, ser["hist"], floor, rtol)
-        ok_p, err_p = histories_agree(h, rs[0]["plain"]["hist"], floor, rtol)
+        ok_p, err_p = (histories_agree(h, rs[0]["plain"]["hist"], floor, rtol) if with_plain
+                       else (True, float("nan")))
         n = cfg["nx"]
-        want_shape = (cfg["nt"],) + ((n, n) if cfg["basis"] == "physical" else (n - 2, n - 2))
+        if "model" in cfg:
+            want_shape = (cfg["nt"],) + ((n, n) if cfg["model"] == "AllenCahn" else (2, n, n))
+        else:
+            want_shape = (cfg["nt"],) + ((n, n) if cfg["basis"] == "physical" else (n - 2, n - 2))
         ok_tube = (ser["tube_err"] <= SHARD_TUBE_RTOL and ser["finite"]
                    and all(r["tube_shape"] == want_shape for r in rs))
         names, modes = SPACE_NEEDED[label], SPACE_MODES[label]
         ok_launch = all(all(r["launches"][x] > 0 for x in names)
                         and all(r["modes"][x] > 0 for x in modes)
-                        and r["launches"]["sine_solve2d"] == 0
-                        and r["launches"]["sine_affine2d"] == 0 for r in kern)
-        ok_plain = all(sum(r["plain"]["launches"].values()) == 0 for r in rs)
+                        and all(r["launches"][x] == 0 for x in SPACE_WHOLE)
+                        and all(r["modes"][x] == 0 for x in SPACE_WHOLE_MODES) for r in kern)
+        ok_plain = all(sum(r["plain"]["launches"].values()) == 0 for r in rs if "plain" in r)
+        # every shard of a time shard takes its lanes' Newton and Krylov
+        # iterations, those of the (2, 1) run's time shard
+        ok_stats = all(r["stats"] == t_only[i // SPACE_MESH[1]]["stats"]
+                       for i, r in enumerate(kern))
         ok_stage = all(r["space_comm"]["staged"] > 0 and r["comm"]["staged"] > 0 for r in kern)
         ok = same and same_t and ok_t and ok_s and ok_p and ok_tube and ok_launch and ok_plain \
-            and ok_stage
+            and ok_stage and ok_stats
         what = f"AtMgrit({k})" if k else "Mgrit"
         print(f"[space] {label} {cfg} {grid} ({kern[0]['backend']}, staged {kern[0]['staged']}): "
               f"{h.size} iterations, history "
               f"{[float(f'{x:.6e}') for x in h]} | ranks equal bit for bit {same} ((2, 1): "
               f"{same_t}) | vs (2, 1) max diff {err_t:.3e}, vs the serial {what} {err_s:.3e}, vs "
-              f"plain {grid} {err_p:.3e} (rtol {rtol:.0e}, atol floor {floor:.2e}) | "
+              f"plain {grid} " + (f"{err_p:.3e}" if with_plain else "not run") +
+              f" (rtol {rtol:.0e}, atol floor {floor:.2e}) | Newton/Krylov counts equal to "
+              f"(2, 1)'s: {ok_stats} | "
               f"fine_solution {rs[0]['tube_shape']} vs the serial tube max rel "
               f"{ser['tube_err']:.3e} (rtol {SHARD_TUBE_RTOL:.0e}) | {'ok' if ok else 'FAIL'} "
               f"| {card}")
@@ -5708,8 +6024,8 @@ def phase_space(card):
                           for i, r in enumerate(kern))
               + f" | (2, 1): " + "; ".join(f"rank {i} {r['build']:.3f} + {r['setup']:.3f} + "
                                            f"{r['wall']:.4f} s" for i, r in enumerate(t_only))
-              + f" | plain {grid} rank 0 {rs[0]['plain']['wall']:.4f} s | serial "
-              f"{ser['wall']:.4f} s | {card}")
+              + (f" | plain {grid} rank 0 {rs[0]['plain']['wall']:.4f} s" if with_plain else "")
+              + f" | serial {ser['wall']:.4f} s | {card}")
         print(f"[space] {label} peak device memory a rank (GiB, above the start): n_space 2 "
               + ", ".join(f"{r['peak']:.3f}" for r in kern) + "; n_space 1 (2, 1) "
               + ", ".join(f"{r['peak']:.3f}" for r in t_only)
@@ -5721,23 +6037,36 @@ def phase_space(card):
               + "; space group: " + "; ".join(
                   f"rank {i} {fmt_comm(r['space_comm'])}" for i, r in enumerate(kern))
               + f" | {card}")
+        if "model" in cfg:
+            print(f"[space] {label} Newton-Krylov a rank {grid}: " + "; ".join(
+                f"rank {i} {fmt_stats(r['stats'], h.size)}" for i, r in enumerate(kern))
+                + f" | (2, 1): " + "; ".join(f"rank {i} {fmt_stats(r['stats'], h.size)}"
+                                           for i, r in enumerate(t_only)) + f" | {card}")
         check(same and same_t, f"space {label}: the ranks' histories differ")
+        # a periodic cell runs a correction cycle after its first
+        check("model" not in cfg or h.size == cfg["max_iter"],
+              f"space {label}: {h.size} iterations of {cfg.get('max_iter')}")
         check(ok_t and ok_s and ok_p, f"space {label}: history {h} against (2, 1) "
-              f"{t_only[0]['hist']}, serial {ser['hist']}, plain {rs[0]['plain']['hist']}")
+              f"{t_only[0]['hist']}, serial {ser['hist']}, plain "
+              f"{rs[0]['plain']['hist'] if with_plain else 'not run'}")
         check(ok_tube, f"space {label}: fine_solution off the serial tube by {ser['tube_err']:.3e}")
         check(ok_launch, f"space {label}: a kernel of the path never ran on a rank, or a "
                          f"whole-state kernel ran: {[(r['launches'], r['modes']) for r in kern]}")
         check(ok_plain, f"space {label}: the plain run launched a kernel")
+        check(ok_stats, f"space {label}: Newton/Krylov counts differ from (2, 1)'s: "
+                        f"{[r['stats'] for r in kern]} vs {[r['stats'] for r in t_only]}")
         check(ok_stage, f"space {label}: the gloo ranks on the card staged nothing")
     print(f"[space] collectives, ms a call ({SPACE_REPS} calls between synchronisations), "
           f"space group {grid}: " + "; ".join(
               f"rank {i} {fmt_latency(r['latency'])}" for i, r in enumerate(ranks)) + f" | {card}")
-    print(f"[space] world of {size} (spawn, CUDA start, three cases) {world_s:.1f} s; phase "
-          f"{time.perf_counter() - t_phase:.1f} s | {card}")
+    print(f"[space] world of {size} (spawn, CUDA start, {len(space_cases())} cases) "
+          f"{world_s:.1f} s; phase {time.perf_counter() - t_phase:.1f} s | {card}")
     return {"residual_row_norms_squares": ranks[0]["toms"]["kernel"]["modes"][
                 "residual_row_norms squares"],
             "sine_solve1d_lam_table": ranks[0]["physical"]["kernel"]["modes"][
-                "sine_solve1d be lam table"]}
+                "sine_solve1d be lam table"],
+            **{row: ranks[0][cell]["kernel"]["modes"][mode]
+               for row, cell, mode in SPACE_ROW_LAUNCHES}}
 
 
 REPLACES = {
@@ -5799,6 +6128,25 @@ REPLACES = {
                                    "pymgrit_tpu/parallel/shard_solver.py:1135"),
     "sine_solve1d_lam_table": ("cuda", "pymgrit_tpu_torch/ops/csrc/sine_solve1d.cu",
                                "pymgrit_tpu/models/heat_2d.py:372"),
+    # the periodic models' space slabs: K11, K14, K15 in their halo modes
+    # (the stencils of a state split over 'space'), K11's and K14's IMEX
+    # prologues and K20 on the Hartley basis (the pencil of the FFT solves)
+    "allen_cahn_pointwise_halo": ("cuda", "pymgrit_tpu_torch/ops/csrc/allen_cahn_pointwise.cu",
+                                  "pymgrit_tpu/models/allen_cahn.py:76"),
+    "gray_scott_pointwise_halo": ("cuda", "pymgrit_tpu_torch/ops/csrc/gray_scott_pointwise.cu",
+                                  "pymgrit_tpu/models/gray_scott_2d.py:71"),
+    "burgers2d_pointwise_halo": ("cuda", "pymgrit_tpu_torch/ops/csrc/burgers2d_pointwise.cu",
+                                 "pymgrit_tpu/models/burgers.py:102"),
+    "allen_cahn_pointwise_prologue": ("cuda",
+                                      "pymgrit_tpu_torch/ops/csrc/allen_cahn_pointwise.cu",
+                                      "pymgrit_tpu/models/allen_cahn.py:126"),
+    "gray_scott_pointwise_prologue": ("cuda",
+                                      "pymgrit_tpu_torch/ops/csrc/gray_scott_pointwise.cu",
+                                      "pymgrit_tpu/models/gray_scott_2d.py:96"),
+    "sine_solve1d_hartley": ("cuda", "pymgrit_tpu_torch/ops/csrc/sine_solve1d.cu",
+                             "pymgrit_tpu/models/allen_cahn.py:82"),
+    "sine_solve1d_hartley_lam_table": ("cuda", "pymgrit_tpu_torch/ops/csrc/sine_solve1d.cu",
+                                       "pymgrit_tpu/models/gray_scott_2d.py:83"),
 }
 
 

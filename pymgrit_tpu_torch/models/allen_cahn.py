@@ -18,7 +18,10 @@ a tanh circle as initial condition, and three steppers:
 The JAX package solves with complex dense DFT products; K10 uses the real
 Hartley basis (``ops/periodic.py``), so the two agree to rounding.  States
 are (nx, nx) tensors; the solver reaches the steppers through
-``step_chain`` and ``step_batched``.
+``step_chain`` and ``step_batched``.  Axis 0 may be split over a mesh's
+'space' axis (``space_sharding_axis``; ``periodic_newton``'s slab route:
+IMEX through K11's prologue mode and the Hartley pencil, the stencils in
+K11's halo mode).
 """
 
 from __future__ import annotations
@@ -70,6 +73,8 @@ class AllenCahn(PeriodicNewtonKrylov, Application):
         self._periodic_tables(nx, self.dx)
         self._inv_eps2 = 1.0 / eps ** 2
         self._dx2 = self.dx ** 2
+        # state axis 0 (x) may be split over the mesh's 'space' axis
+        self.space_sharding_axis = 0
 
         self.vector_template = torch.zeros((nx, nx), dtype=torch.float64, device=self.device)
         r2 = self.x[:, None] ** 2 + self.x[None, :] ** 2
@@ -92,24 +97,32 @@ class AllenCahn(PeriodicNewtonKrylov, Application):
         """Newton residual u - fac (L u + f(u)) - rhs and its per-lane max
         |.| (K11)."""
         return self.ops.allen_cahn_pointwise("residual", u, torch.empty_like(u), fac,
-                                             self._inv_eps2, self._dx2, self.nu, rhs=rhs)
+                                             self._inv_eps2, self._dx2, self.nu, rhs=rhs,
+                                             halo=self._halo(u))
 
     def jac_mv(self, u, v, fac):
         """Jacobian of g at u applied to v (K11)."""
         return self.ops.allen_cahn_pointwise("jacobian", u, torch.empty_like(u), fac,
-                                             self._inv_eps2, self._dx2, self.nu, x=v)
+                                             self._inv_eps2, self._dx2, self.nu, x=v,
+                                             halo=self._halo(v))
 
     def _step_into(self, u, dt, out, g=None):
         """One step of every state of u with (B,) step sizes dt into out
         [+ g]."""
         if self.method == 'IMEX':
-            self.ops.periodic_solve2d(u, out, self._H, self._lam, dt, nu=self.nu,
-                                      inv_eps2=self._inv_eps2, g=g)
+            if self._slab is None:
+                self.ops.periodic_solve2d(u, out, self._H, self._lam, dt, nu=self.nu,
+                                          inv_eps2=self._inv_eps2, g=g)
+            else:
+                r = self.ops.allen_cahn_pointwise("prologue", u, torch.empty_like(u), dt,
+                                                  self._inv_eps2, self._dx2, self.nu)
+                self._imex_into(r, dt, out, g)
             return
         if self.method == 'CN':
             fac = dt * 0.5
             rhs = self.ops.allen_cahn_pointwise("rhs", u, torch.empty_like(u), fac,
-                                                self._inv_eps2, self._dx2, self.nu)
+                                                self._inv_eps2, self._dx2, self.nu,
+                                                halo=self._halo(u))
         else:
             fac, rhs = dt, u
         self._newton_into(rhs, fac, u, out, g)
@@ -122,4 +135,7 @@ class AllenCahn(PeriodicNewtonKrylov, Application):
         return np.sqrt(max(self.radius ** 2 - 2.0 * t, 0))
 
     def compute_radius(self, u):
+        if self._slab is not None:
+            raise NotImplementedError("compute_radius counts over the whole state, not a space "
+                                      "slab")
         return np.sqrt(int(torch.count_nonzero(torch.as_tensor(u) >= 0.0)) / np.pi) * self.dx

@@ -10,7 +10,9 @@ Counterpart of ``pymgrit_tpu/models/burgers.py``:
   (sin(pi x), 0); Newton with BiCGStab (``ops/cg.py``), the residual and
   the linearised-convection matvec from K15 ``burgers2d_pointwise`` and K10
   ``periodic_solve2d`` (coefficient nu on both components) as the
-  preconditioner.
+  preconditioner.  Axis 1 (x) may be split over a mesh's 'space' axis
+  (``space_sharding_axis``; ``periodic_newton``'s slab route: K15's halo
+  mode, the Hartley pencil as the preconditioner).
 """
 
 from __future__ import annotations
@@ -91,6 +93,7 @@ class Burgers2D(PeriodicNewtonKrylov, Application):
         self.ops = ops
 
         self._periodic_tables(nx, self.dx, coef=[nu, nu])
+        self.space_sharding_axis = 1
 
         x = np.linspace(0, 1, nx, endpoint=False)
         X, _ = np.meshgrid(x, x, indexing='ij')
@@ -102,12 +105,21 @@ class Burgers2D(PeriodicNewtonKrylov, Application):
         """Newton residual s - s0 + dt (C(s) - nu Lap s) and its per-lane
         max |.| (K15)."""
         return self.ops.burgers2d_pointwise("residual", s, torch.empty_like(s), dt, self.nu,
-                                            self.dx, r=s0)
+                                            self.dx, r=s0, halo=self._halo(s))
 
-    def jac_mv(self, s, w, dt):
-        """Jacobian of g at s applied to w (K15)."""
+    def jac_mv(self, s, w, dt, s_halo=None):
+        """Jacobian of g at s applied to w (K15); on a space shard s's halo
+        rows (exchanged here unless given) and w's."""
+        if self._slab is not None and s_halo is None:
+            s_halo = self._halo(s)
         return self.ops.burgers2d_pointwise("jacobian", s, torch.empty_like(s), dt, self.nu,
-                                            self.dx, w=w)
+                                            self.dx, w=w, halo=s_halo, w_halo=self._halo(w))
+
+    def _jacobian(self, s, dt):
+        """v -> the Jacobian at s applied to v, s's halo rows exchanged once
+        a Newton iteration."""
+        s_halo = self._halo(s)
+        return lambda w: self.jac_mv(s, w, dt, s_halo)
 
     def _step_into(self, s, dt, out, g=None):
         """One backward-Euler Newton-BiCGStab step of every state of s with

@@ -18,7 +18,10 @@ and three steppers:
 The JAX package solves the diffusion with complex FFTs; K10 uses the real
 Hartley basis (``ops/periodic.py``), so the two agree to rounding.  States
 are (2, nx, nx) tensors; the solver reaches the steppers through
-``step_chain`` and ``step_batched``.
+``step_chain`` and ``step_batched``.  Axis 1 (x) may be split over a
+mesh's 'space' axis (``space_sharding_axis``; ``periodic_newton``'s slab
+route: IMEX through K14's prologue mode and the Hartley pencil, EXPL and
+the Newton stencils in K14's halo mode).
 """
 
 from __future__ import annotations
@@ -65,6 +68,8 @@ class GrayScott2D(PeriodicNewtonKrylov, Application):
         self.ops = ops
 
         self._periodic_tables(nx, self.dx, coef=[du, dv])
+        # spatial state axes may shard over 'space' (axis 1 = x)
+        self.space_sharding_axis = 1
 
         self.vector_template = torch.zeros((2, nx, nx), dtype=torch.float64, device=self.device)
         x = np.linspace(-L / 2, L / 2, nx, endpoint=False)
@@ -88,11 +93,11 @@ class GrayScott2D(PeriodicNewtonKrylov, Application):
     def g_of(self, s, s0, dt):
         """Newton residual s - dt (D Lap s + R(s)) - s0 and its per-lane
         max |.| (K14)."""
-        return self._pointwise("residual", s, dt, r=s0)
+        return self._pointwise("residual", s, dt, r=s0, halo=self._halo(s))
 
     def jac_mv(self, s, w, dt):
         """Jacobian of g at s applied to w (K14)."""
-        return self._pointwise("jacobian", s, dt, w=w)
+        return self._pointwise("jacobian", s, dt, w=w, halo=self._halo(w))
 
     def _newton_tols(self):
         return self.nlsol_tol, self.nlsol_maxiter, self.lsol_tol, self.lsol_maxiter
@@ -102,10 +107,13 @@ class GrayScott2D(PeriodicNewtonKrylov, Application):
         [+ g]."""
         if self.method == 'EXPL':
             self.ops.gray_scott_pointwise("expl", s, out, dt, self.du, self.dv, self.a, self.b,
-                                          self.dx ** 2, g=g)
+                                          self.dx ** 2, g=g, halo=self._halo(s))
             return
         if self.method == 'IMEX':
-            self.ops.periodic_solve2d(s, out, self._H, self._lam, dt, g=g, coef=self._coef,
-                                      gray_scott=(self.a, self.b))
+            if self._slab is None:
+                self.ops.periodic_solve2d(s, out, self._H, self._lam, dt, g=g, coef=self._coef,
+                                          gray_scott=(self.a, self.b))
+            else:
+                self._imex_into(self._pointwise("prologue", s, dt), dt, out, g)
             return
         self._newton_into(s, dt, s, out, g)

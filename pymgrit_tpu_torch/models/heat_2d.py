@@ -71,6 +71,7 @@ from pymgrit_tpu_torch.models.step_times import StepTimes
 from pymgrit_tpu_torch.ops import DISPATCH, Ops
 from pymgrit_tpu_torch.ops import dd
 from pymgrit_tpu_torch.ops.dirichlet_spectral import sine_eigenbasis
+from pymgrit_tpu_torch.parallel.pencil import PencilExchange
 
 _RHS_CHUNK = 1024      # time samples per batched rhs evaluation on the host
 # values of the whole F-values a space shard's closed form moves at a time
@@ -733,87 +734,34 @@ class Heat2D(Application):
 
 
 
-class _Pencil:
+class _Pencil(PencilExchange):
     """A physical Heat2D level's space shard s of n (``Heat2D._space_slab``):
     field rows [r0, r1) = [s R, (s + 1) R) of the (nx, ny) state, of which
     the interior rows [gi0, gi1) (all but a ring row at the grid's edge),
     and, between the pencil transforms' passes, the column slab [c0[s],
-    c0[s + 1]) of the ny - 2 interior columns.  The x-pass's lam table
+    c0[s + 1]) of the ny - 2 interior columns (``PencilExchange``: the
+    interior rows and columns change slabs).  The x-pass's lam table
     holds Lam[:, j] for the slab's columns j (a row each)."""
 
     def __init__(self, model: Heat2D, s: int, n: int, comm):
-        self.model, self.s, self.comm = model, s, comm
+        self.model = model
         nx, ny = model.nx, model.ny
         R = self.R = nx // n
         self.r0, self.r1 = s * R, (s + 1) * R
         gi0 = [max(t * R, 1) for t in range(n)]
         gi1 = [min((t + 1) * R, nx - 1) for t in range(n)]
-        # every shard's interior rows: their count and first x index
-        self.rows = [b - a for a, b in zip(gi0, gi1)]
-        self.roff = [a - 1 for a in gi0]
         self.gi0, self.gi1 = gi0[s], gi1[s]
         self.li0, self.li1 = self.gi0 - self.r0, self.gi1 - self.r0
         nc = ny - 2
-        self.c0 = [nc * t // n for t in range(n + 1)]
-        self.cols = [self.c0[t + 1] - self.c0[t] for t in range(n)]
+        # every shard's interior rows (their count and first x index) and columns
+        super().__init__(comm, s, [b - a for a, b in zip(gi0, gi1)], [a - 1 for a in gi0],
+                         [nc * t // n for t in range(n + 1)])
         # the stencil's rows: the slab and a ghost row where a neighbour holds it
         self.w0, self.w1 = max(self.r0 - 1, 0), min(self.r1 + 1, nx)
         self.top, self.bottom = self.r0 == 0, self.r1 == nx
         self.lam = model._tensor(model._Lam_np[:, self.c0[s]:self.c0[s + 1]].T)
         self._shifts = {}           # theta dt by lane, per step size
         self._corr = {}             # (dt, m1) -> CN's correction tables
-
-    # -- moving between row and column slabs ----------------------------
-
-    def to_cols(self, y, J):
-        """(J * rows, ny - 2) interior rows of J states -> (J * columns,
-        nx - 2): each state's columns of this shard's slab, whole in x."""
-        s, nt = self.s, len(self.cols)
-        rm, cm = self.rows[s], self.cols[s]
-        y3 = y.view(J, rm, -1)
-        send = torch.empty(y.numel(), dtype=y.dtype, device=y.device)
-        sizes, off = [], 0
-        for t in range(nt):
-            k = J * self.cols[t] * rm
-            send[off:off + k].view(J, self.cols[t], rm).copy_(
-                y3[:, :, self.c0[t]:self.c0[t + 1]].transpose(1, 2))
-            sizes.append(k)
-            off += k
-        recv = self.comm.all_to_all(send, sizes, [J * cm * self.rows[t] for t in range(nt)])
-        del send
-        X = torch.empty((J, cm, self.model.nx - 2), dtype=y.dtype, device=y.device)
-        off = 0
-        for t in range(nt):
-            k = J * cm * self.rows[t]
-            X[:, :, self.roff[t]:self.roff[t] + self.rows[t]] = recv[off:off + k].view(
-                J, cm, self.rows[t])
-            off += k
-        return X.view(J * cm, -1)
-
-    def to_rows(self, X, J):
-        """The inverse of ``to_cols``: (J * columns, nx - 2) -> (J * rows,
-        ny - 2)."""
-        s, nt = self.s, len(self.cols)
-        rm, cm = self.rows[s], self.cols[s]
-        X3 = X.view(J, cm, -1)
-        send = torch.empty(J * cm * sum(self.rows), dtype=X.dtype, device=X.device)
-        sizes, off = [], 0
-        for t in range(nt):
-            k = J * cm * self.rows[t]
-            send[off:off + k].view(J, cm, self.rows[t]).copy_(
-                X3[:, :, self.roff[t]:self.roff[t] + self.rows[t]])
-            sizes.append(k)
-            off += k
-        recv = self.comm.all_to_all(send, sizes, [J * self.cols[t] * rm for t in range(nt)])
-        del send
-        Y = torch.empty((J, rm, self.model.ny - 2), dtype=X.dtype, device=X.device)
-        off = 0
-        for t in range(nt):
-            k = J * self.cols[t] * rm
-            Y[:, :, self.c0[t]:self.c0[t + 1]] = recv[off:off + k].view(
-                J, self.cols[t], rm).transpose(1, 2)
-            off += k
-        return Y.view(J * rm, -1)
 
     def forward(self, b, J):
         """Sx b Sy of J states' interior rows b (J * rows, ny - 2), as the

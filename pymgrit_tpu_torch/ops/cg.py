@@ -16,6 +16,17 @@ iteration).  Inner products sum over the whole state of a lane (both
 species of a two-species state).  The operators are the caller's: on the
 card the matvecs and residuals are K11, K14 or K15 and the preconditioner
 K10.
+
+On a space shard each lane's state is a slab, and the loops take the space
+group's ``Comm`` (``red``): every inner product is the slab's partial sum,
+added over the group, and Newton's max |g| the slab's, reduced with NaN
+kept (``Comm.nan_max``).  Inner products that the loop needs at the same
+point go in one collective (``_dots``: pcg's <r, z> and <r, r>, BiCGStab's
+<s, s>, <t, s> and <t, t>, and its <r, r> with the next iteration's
+<rhat, r>), so pcg makes two collectives an iteration and BiCGStab three.
+Every rank then reads the same values and takes the same branches.
+Without ``red`` (one process holds the whole state) the same products are
+the lanes' own and no collective runs.
 """
 
 from __future__ import annotations
@@ -28,45 +39,55 @@ def _dot(a, b):
     return (a * b).flatten(1).sum(dim=1)
 
 
+def _dots(red, *pairs):
+    """The per-lane inner products of the (a, b) pairs: each a (B,) tensor;
+    with ``red``, the slab's sums added over its group in one collective."""
+    if red is None:
+        return [_dot(a, b) for a, b in pairs]
+    return list(red.all_reduce(torch.stack([_dot(a, b) for a, b in pairs])).unbind(0))
+
+
 def _lanes(s, like):
     return s.view((-1,) + (1,) * (like.dim() - 1))
 
 
-def pcg(A, b, M, tol, maxiter):
+def pcg(A, b, M, tol, maxiter, red=None):
     """Solve A x = b per lane (JAX's default atol = 0, so the threshold is
-    tol^2 <b, b>); returns (x, iterations (B,) int64)."""
-    atol2 = tol ** 2 * _dot(b, b)
+    tol^2 <b, b>); returns (x, iterations (B,) int64).  red: the space
+    group's ``Comm`` of a slab (module docstring)."""
     x = torch.zeros_like(b)
     r = b - A(x)
     p = z = M(r)
-    gamma = _dot(r, z)
+    bb, gamma, rr = _dots(red, (b, b), (r, z), (r, r))
+    atol2 = tol ** 2 * bb
     k = torch.zeros(b.shape[:1], dtype=torch.int64, device=b.device)
-    active = (_dot(r, r) > atol2) & (k < maxiter)
+    active = (rr > atol2) & (k < maxiter)
     while bool(active.any()):
         Ap = A(p)
-        alpha = _lanes(gamma / _dot(p, Ap), b)
+        pAp, = _dots(red, (p, Ap))
+        alpha = _lanes(gamma / pAp, b)
         m = _lanes(active, b)
         x = torch.where(m, x + alpha * p, x)
         r_ = r - alpha * Ap
         r = torch.where(m, r_, r)
         z = M(r)
-        gamma_ = _dot(r, z)
+        gamma_, rr = _dots(red, (r, z), (r, r))
         p = torch.where(m, z + _lanes(gamma_ / gamma, b) * p, p)
         gamma = torch.where(active, gamma_, gamma)
         k = k + active
-        active = (_dot(r, r) > atol2) & (k < maxiter)
+        active = (rr > atol2) & (k < maxiter)
     return x, k
 
 
-def bicgstab(A, b, M, tol, maxiter):
+def bicgstab(A, b, M, tol, maxiter, red=None):
     """Solve A x = b per lane by right-preconditioned BiCGStab, as JAX's
     ``_bicgstab_solve``: the stop test <r, r> > atol2 & k < maxiter & k >= 0;
     a lane whose <s, s> falls below atol2 takes x + alpha M(p) and r = s
     (the early exit); omega = 0 or alpha = 0 sets k = -11 and rho = 0 sets
     k = -10, each after that iteration's update, which ends the lane.
     Returns (x, iterations per lane (B,) int64): the iterations each lane
-    ran, breakdowns included."""
-    atol2 = torch.clamp_min(tol ** 2 * _dot(b, b), 0.0)
+    ran, breakdowns included.  red: the space group's ``Comm`` of a slab
+    (module docstring)."""
     x = torch.zeros_like(b)
     r = b - A(x)
     rhat, p, q = r, r, r
@@ -74,19 +95,22 @@ def bicgstab(A, b, M, tol, maxiter):
     alpha, omega, rho = one, one, one
     k = torch.zeros(b.shape[:1], dtype=torch.int64, device=b.device)
     its = torch.zeros_like(k)
-    active = (_dot(r, r) > atol2) & (k < maxiter) & (k >= 0)
+    bb, rr, rho_ = _dots(red, (b, b), (r, r), (rhat, r))
+    atol2 = torch.clamp_min(tol ** 2 * bb, 0.0)
+    active = (rr > atol2) & (k < maxiter) & (k >= 0)
     while bool(active.any()):
-        rho_ = _dot(rhat, r)
         beta = _lanes(rho_ / rho * alpha / omega, b)
         p_ = r + beta * (p - _lanes(omega, b) * q)
         phat = M(p_)
         q_ = A(phat)
-        alpha_ = rho_ / _dot(rhat, q_)
+        rq, = _dots(red, (rhat, q_))
+        alpha_ = rho_ / rq
         s = r - _lanes(alpha_, b) * q_
-        exit_early = _lanes(_dot(s, s) < atol2, b)
         shat = M(s)
         t = A(shat)
-        omega_ = _dot(t, s) / _dot(t, t)
+        ss, ts, tt = _dots(red, (s, s), (t, s), (t, t))
+        exit_early = _lanes(ss < atol2, b)
+        omega_ = ts / tt
         a_, o_ = _lanes(alpha_, b), _lanes(omega_, b)
         x_ = torch.where(exit_early, x + a_ * phat, x + (a_ * phat + o_ * shat))
         r_ = torch.where(exit_early, s, s - o_ * t)
@@ -100,30 +124,37 @@ def bicgstab(A, b, M, tol, maxiter):
         rho = torch.where(active, rho_, rho)
         k = torch.where(active, k_, k)
         its = its + active
-        active = (_dot(r, r) > atol2) & (k < maxiter) & (k >= 0)
+        rr, rho_ = _dots(red, (r, r), (rhat, r))      # the next trip's <rhat, r>
+        active = (rr > atol2) & (k < maxiter) & (k >= 0)
     return x, its
 
 
-def newton(residual, linear_solve, u0, tol, maxiter):
+def newton(residual, linear_solve, u0, tol, maxiter, red=None):
     """Newton's method per lane: u <- u - J(u)^-1 g(u) while
     max|g(u)| >= tol and fewer than maxiter iterations (a NaN in g stops a
     lane, as in JAX).
 
     residual(u) -> (g, max|g| per lane); linear_solve(u, g) -> (du, linear
     iterations per lane).  Returns (u, Newton iterations, linear iterations
-    summed over the lane's Newton iterations), the counts (B,) int64.
+    summed over the lane's Newton iterations), the counts (B,) int64.  red:
+    the space group's ``Comm`` of a slab: each max |g| is the slab's,
+    reduced over the group with NaN kept.
     """
+    def gmax_of(u):
+        g, gmax = residual(u)
+        return g, (gmax if red is None else red.nan_max(gmax))
+
     u = u0.clone()
     n = torch.zeros(u.shape[:1], dtype=torch.int64, device=u.device)
     lin = torch.zeros_like(n)
-    g, gmax = residual(u)
+    g, gmax = gmax_of(u)
     active = (gmax >= tol) & (n < maxiter)
     while bool(active.any()):
         du, k = linear_solve(u, g)
         u = torch.where(_lanes(active, u), u - du, u)
         lin = lin + torch.where(active, k, 0)
         n = n + active
-        g, gmax = residual(u)
+        g, gmax = gmax_of(u)
         active = (gmax >= tol) & (n < maxiter)
     return u, n, lin
 

@@ -1,15 +1,23 @@
 // K11 allen_cahn_pointwise: one fused stencil and reaction pass over B
-// periodic n x n states of the Allen-Cahn equation, three modes:
+// periodic n x n states of the Allen-Cahn equation, four modes:
 //   0 rhs:       out = u + fac (L u + f(u))                  (CN right-hand side)
 //   1 residual:  out = (u - fac (L u + f(u))) - rhs, and gmax[b] = max |out_b|
 //   2 jacobian:  out = x - fac (L x + (inv_eps2 (1 - (nu + 1) u^nu)) x)
+//   3 prologue:  out = u + fac f(u)                   (the IMEX right-hand side)
 // with f(u) = (inv_eps2 u)(1 - u^nu), fac one value a state, and L the
 // periodic 5-point Laplacian
 //   (L x)_ij = ((((x_i-1,j + x_i+1,j) + x_i,j-1) + x_i,j+1) - 4 x_ij) / dx^2.
+// Modes 0-2 also take a space shard's slab of R rows of each state and the
+// two halo rows of L's operand (u, or x in the Jacobian; the rows above
+// and below the slab, from the neighbouring shards): the halo mode, which
+// wraps in y only and writes the slab's R rows.  Mode 3 is pointwise (any
+// R): K10's fused prologue (ops/periodic.py imex_prologue_plain), written
+// out for the pencil solve of a slab, whose K20 passes have none.
 //
 // Replaces: pymgrit_tpu/models/allen_cahn.py AllenCahn._lap, _nonlin and
 // the residual and Jacobian of _newton_solve (:76-122), and the CN
-// right-hand side of AllenCahn.step.  The operations are the plain
+// right-hand side and IMEX reaction of AllenCahn.step (on a slab: the
+// partitions of them GSPMD makes).  The operations are the plain
 // version's (ops/pointwise.py allen_cahn_pointwise_plain and
 // periodic_lap_plain), in its order, each rounded once (__dadd_rn,
 // __dsub_rn, __dmul_rn, __ddiv_rn and their float32 forms: no FMA
@@ -56,11 +64,12 @@ using namespace pm_pointwise;
 template <typename T>
 struct Args {
   const T *u, *x, *rhs, *fac;
+  const T *above, *below;     // halo mode: (B, n) rows of L's operand; else null
   T *out, *gmax;
   unsigned long long* ws;     // residual: B max slots, then B counters
   int64_t u_sb, u_sr, x_sb, x_sr, r_sb, r_sr, o_sb, o_sr;
-  Walk walk;
-  int nu;
+  Walk walk;                  // B lanes of R rows
+  int n, nu;                  // columns; the power
   T inv_eps2, dx2, nu1;       // the scalars in the working type; nu1 = nu + 1
 };
 
@@ -71,7 +80,9 @@ template <typename T, int MODE>
 __device__ __forceinline__ T point(const Args<T>& a, T f, T uc, T lap, T c, T r) {
   T p = uc;
   for (int k = 1; k < a.nu; ++k) p = mul(p, uc);
-  if constexpr (MODE == 2) {
+  if constexpr (MODE == 3) {
+    return add(uc, mul(f, mul(mul(a.inv_eps2, uc), sub(T(1), p))));
+  } else if constexpr (MODE == 2) {
     return sub(c, mul(f, add(lap, mul(mul(a.inv_eps2, sub(T(1), mul(a.nu1, p))), c))));
   } else {
     const T lap_f = add(lap, mul(mul(a.inv_eps2, uc), sub(T(1), p)));
@@ -82,35 +93,46 @@ __device__ __forceinline__ T point(const Args<T>& a, T f, T uc, T lap, T c, T r)
 
 template <typename T, int MODE, int V>
 __global__ void __launch_bounds__(kThreads) allen_cahn_pointwise_kernel(const Args<T> a) {
-  const int n = a.walk.n;
+  const int n = a.n, R = a.walk.n;
   T m = T(0);   // the residual's max |g| over this thread's points since a fold
   walk_units(
       a.walk,
       [&](int64_t b, int i) {
-        const Rows r = rows(n, i);
         const T f = a.fac[b];
         const T* __restrict__ u = a.u + b * a.u_sb;
-        const T* __restrict__ x = MODE == 2 ? a.x + b * a.x_sb : u;
-        const int64_t xs = MODE == 2 ? a.x_sr : a.u_sr;
         T* __restrict__ o = a.out + b * a.o_sb + i * a.o_sr;
-        for (int j = (int)threadIdx.x * V; j < n; j += (int)blockDim.x * V) {
-          Cross<T, V> c;
-          T uc[V], rv[V];
-          c.load_at(x, xs, r, j);
-          if constexpr (MODE == 2) {
+        if constexpr (MODE == 3) {
+          for (int j = (int)threadIdx.x * V; j < n; j += (int)blockDim.x * V) {
+            T uc[V], v[V];
             load<T, V>(uc, u + i * a.u_sr + j);
-          }
-          if constexpr (MODE == 1) {
-            load<T, V>(rv, a.rhs + b * a.r_sb + i * a.r_sr + j);
-          }
-          T v[V];
 #pragma unroll
-          for (int k = 0; k < V; ++k) {
-            v[k] = point<T, MODE>(a, f, MODE == 2 ? uc[k] : c.c[k], lap(c, k, a.dx2), c.c[k],
-                                  MODE == 1 ? rv[k] : T(0));
-            if constexpr (MODE == 1) m = nanmax(m, fabs(v[k]));   // sign bit cleared
+            for (int k = 0; k < V; ++k) v[k] = point<T, 3>(a, f, uc[k], T(0), T(0), T(0));
+            store<T, V>(o + j, v);
           }
-          store<T, V>(o + j, v);
+        } else {
+          const T* __restrict__ x = MODE == 2 ? a.x + b * a.x_sb : u;
+          const Nbr<T> r = nbr(x, MODE == 2 ? a.x_sr : a.u_sr, i, R,
+                               a.above != nullptr ? a.above + b * n : nullptr,
+                               a.below != nullptr ? a.below + b * n : nullptr);
+          for (int j = (int)threadIdx.x * V; j < n; j += (int)blockDim.x * V) {
+            Cross<T, V> c;
+            T uc[V], rv[V];
+            c.load_at(r, n, j);
+            if constexpr (MODE == 2) {
+              load<T, V>(uc, u + i * a.u_sr + j);
+            }
+            if constexpr (MODE == 1) {
+              load<T, V>(rv, a.rhs + b * a.r_sb + i * a.r_sr + j);
+            }
+            T v[V];
+#pragma unroll
+            for (int k = 0; k < V; ++k) {
+              v[k] = point<T, MODE>(a, f, MODE == 2 ? uc[k] : c.c[k], lap(c, k, a.dx2), c.c[k],
+                                    MODE == 1 ? rv[k] : T(0));
+              if constexpr (MODE == 1) m = nanmax(m, fabs(v[k]));   // sign bit cleared
+            }
+            store<T, V>(o + j, v);
+          }
         }
       },
       [&](int64_t b, int k) {
@@ -132,9 +154,10 @@ cudaError_t run(const Args<T>& a, int vec, dim3 block, unsigned grid, cudaStream
 
 // args (int64): CUDA device, then the pointers u, x, rhs, fac, out, gmax,
 // workspace (0: none), u's, x's, rhs's and out's batch and row strides, B,
-// n, nu, the mode (0 rhs, 1 residual, 2 jacobian), then the plan: the
-// vector width (1, or 16 bytes), TX, TY, units a block, grid
-// (ops/pointwise.py::pack)
+// n (columns), nu, the mode (0 rhs, 1 residual, 2 jacobian, 3 prologue),
+// then the plan: the vector width (1, or 16 bytes), TX, TY, units a block,
+// grid; then R (the rows of a state: n, or a slab's) and the halo rows'
+// pointers above, below (0: none, the periodic wrap) (ops/pointwise.py::pack)
 template <typename T>
 int launch(const int64_t* g, double inv_eps2, double dx2, void* stream) {
   Args<T> a{};
@@ -155,15 +178,22 @@ int launch(const int64_t* g, double inv_eps2, double dx2, void* stream) {
   a.o_sr = g[15];
   const int64_t B = g[16], n = g[17], nu = g[18], mode = g[19];
   int64_t vec = g[20];
-  const int64_t tx = g[21], ty = g[22], per = g[23], grid = g[24];
-  if (B == 0 || n == 0) return 0;
-  if (!walk_of(a.walk, B, n, tx, ty, per, grid) || nu < 1 || nu > 64 || mode < 0 ||
-      mode > 2 || (mode == 1 && (a.ws == nullptr || a.gmax == nullptr)))
+  const int64_t tx = g[21], ty = g[22], per = g[23], grid = g[24], R = g[25];
+  a.above = reinterpret_cast<const T*>(g[26]);
+  a.below = reinterpret_cast<const T*>(g[27]);
+  if (B == 0 || n == 0 || R == 0) return 0;
+  const bool halo = a.above != nullptr || a.below != nullptr;
+  if (!walk_of(a.walk, B, R, tx, ty, per, grid) || n > 0x3fffffff || nu < 1 || nu > 64 ||
+      mode < 0 || mode > 3 || (mode == 1 && (a.ws == nullptr || a.gmax == nullptr)) ||
+      (halo && (a.above == nullptr || a.below == nullptr || mode == 3)) ||
+      (!halo && mode != 3 && R != n))
     return (int)cudaErrorInvalidValue;
   // 16-byte vectors only where every row the call reads or writes starts
   // on 16 bytes (the plan checked the side and the strides)
-  if (vec > 1 && !aligned16({a.u, a.out, mode == 2 ? a.x : nullptr, mode == 1 ? a.rhs : nullptr}))
+  if (vec > 1 && !aligned16({a.u, a.out, mode == 2 ? a.x : nullptr, mode == 1 ? a.rhs : nullptr,
+                             a.above, a.below}))
     vec = 1;
+  a.n = (int)n;
   a.nu = (int)nu;
   a.inv_eps2 = (T)inv_eps2;
   a.dx2 = (T)dx2;
@@ -173,7 +203,8 @@ int launch(const int64_t* g, double inv_eps2, double dx2, void* stream) {
   const dim3 block((unsigned)tx, (unsigned)ty);
   if (mode == 0) return (int)run<T, 0>(a, (int)vec, block, (unsigned)grid, st);
   if (mode == 1) return (int)run<T, 1>(a, (int)vec, block, (unsigned)grid, st);
-  return (int)run<T, 2>(a, (int)vec, block, (unsigned)grid, st);
+  if (mode == 2) return (int)run<T, 2>(a, (int)vec, block, (unsigned)grid, st);
+  return (int)run<T, 3>(a, (int)vec, block, (unsigned)grid, st);
 }
 
 }  // namespace

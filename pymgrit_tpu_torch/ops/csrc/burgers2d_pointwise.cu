@@ -10,9 +10,15 @@
 // (Dy x)_ij = (x_i,j+1 - x_i,j-1) / (2 dx), dt one value a lane, and L the
 // periodic 5-point Laplacian of each component
 //   (L x)_ij = ((((x_i-1,j + x_i+1,j) + x_i,j-1) + x_i,j+1) - 4 x_ij) / dx^2.
+// Both modes also take a space shard's slab of R rows of each component
+// and the halo rows (the rows above and below the slab, from the
+// neighbouring shards; (B, 2, n) each) of s, and in the Jacobian of w too
+// (its convection differences s as well as w in x): the halo mode, which
+// wraps in y only and writes the slab's R rows (K11's design).
 //
 // Replaces: pymgrit_tpu/models/burgers.py Burgers2D._ddx, _ddy, _lap, _conv
-// and the step's g_of and jac_mv (:102-132).  The operations are the plain
+// and the step's g_of and jac_mv (:102-132) (on a slab: the partitions of
+// them GSPMD makes).  The operations are the plain
 // version's (ops/pointwise.py burgers2d_pointwise_plain, _ddx, _ddy and
 // periodic_lap_plain), in its order, each rounded once
 // (csrc/periodic_pointwise.cuh: no FMA contraction, and true divisions by
@@ -50,13 +56,22 @@ using namespace pm_pointwise;
 template <typename T>
 struct Args {
   const T *s, *w, *r, *dt;
+  // halo mode: (B, 2, n) rows above and below the slab of s (and w); else null
+  const T *s_above, *s_below, *w_above, *w_below;
   T *out, *gmax;
   unsigned long long* ws;     // residual: B max slots, then B counters
   // batch, species and row strides
   int64_t s_sb, s_ss, s_sr, w_sb, w_ss, w_sr, r_sb, r_ss, r_sr, o_sb, o_ss, o_sr;
-  Walk walk;
+  Walk walk;                  // B lanes of R rows
+  int n;                      // columns
   T nu, two_dx, dx2;          // the scalars in the working type
 };
+
+// the rows of a (B, 2, n) halo (null: none) of lane b's species p
+template <typename T>
+__device__ __forceinline__ const T* halo_row(const T* h, int64_t b, int p, int n) {
+  return h != nullptr ? h + (2 * b + p) * n : nullptr;
+}
 
 // the central differences at point k: (x_i+1,j - x_i-1,j) / (2 dx) and
 // (x_i,j+1 - x_i,j-1) / (2 dx)
@@ -72,21 +87,24 @@ __device__ __forceinline__ T ddy(const Cross<T, V>& x, int k, T two_dx) {
 
 template <typename T, int MODE, int V>
 __global__ void __launch_bounds__(kThreads) burgers2d_pointwise_kernel(const Args<T> a) {
-  const int n = a.walk.n;
+  const int n = a.n, R = a.walk.n;
   const T h = a.two_dx;
   T m = T(0);   // the residual's max |g| over this thread's points since a fold
   walk_units(
       a.walk,
       [&](int64_t b, int i) {
-        const Rows rw = rows(n, i);
         const T d = a.dt[b];
         const T* __restrict__ su = a.s + b * a.s_sb;
         T* __restrict__ ou = a.out + b * a.o_sb + i * a.o_sr;
+        const Nbr<T> su_rows = nbr(su, a.s_sr, i, R, halo_row(a.s_above, b, 0, n),
+                                   halo_row(a.s_below, b, 0, n));
+        const Nbr<T> sv_rows = nbr(su + a.s_ss, a.s_sr, i, R, halo_row(a.s_above, b, 1, n),
+                                   halo_row(a.s_below, b, 1, n));
         for (int j = (int)threadIdx.x * V; j < n; j += (int)blockDim.x * V) {
           Cross<T, V> xu, xv;
           T uo[V], vo[V];
-          xu.load_at(su, a.s_sr, rw, j);
-          xv.load_at(su + a.s_ss, a.s_sr, rw, j);
+          xu.load_at(su_rows, n, j);
+          xv.load_at(sv_rows, n, j);
           if constexpr (MODE == 0) {
             T pu[V], pv[V];
             const T* rp = a.r + b * a.r_sb + i * a.r_sr + j;
@@ -104,8 +122,10 @@ __global__ void __launch_bounds__(kThreads) burgers2d_pointwise_kernel(const Arg
           } else {
             const T* __restrict__ wp = a.w + b * a.w_sb;
             Cross<T, V> yu, yv;
-            yu.load_at(wp, a.w_sr, rw, j);
-            yv.load_at(wp + a.w_ss, a.w_sr, rw, j);
+            yu.load_at(nbr(wp, a.w_sr, i, R, halo_row(a.w_above, b, 0, n),
+                           halo_row(a.w_below, b, 0, n)), n, j);
+            yv.load_at(nbr(wp + a.w_ss, a.w_sr, i, R, halo_row(a.w_above, b, 1, n),
+                           halo_row(a.w_below, b, 1, n)), n, j);
 #pragma unroll
             for (int k = 0; k < V; ++k) {
               const T u = xu.c[k], v = xv.c[k], wu = yu.c[k], wv = yv.c[k];
@@ -143,8 +163,10 @@ cudaError_t run(const Args<T>& a, int vec, dim3 block, unsigned grid, cudaStream
 // args (int64): K14's layout (ops/pointwise.py pair_pack): CUDA device,
 // then the pointers s, w, r, g (unused: 0), dt, out, gmax, workspace (0:
 // none), the batch, species and row strides of s, w, r, g (0) and out, B,
-// n, the mode (0 residual, 1 jacobian), then the plan: the vector width
-// (1, or 16 bytes), TX, TY, units a block, grid
+// n (columns), the mode (0 residual, 1 jacobian), then the plan: the
+// vector width (1, or 16 bytes), TX, TY, units a block, grid; then R (the
+// rows of a state: n, or a slab's), the halo rows' pointers of s above
+// and below and of w above and below (0: none, the periodic wrap)
 template <typename T>
 int launch(const int64_t* g, double nu, double two_dx, double dx2, void* stream) {
   Args<T> a{};
@@ -169,16 +191,26 @@ int launch(const int64_t* g, double nu, double two_dx, double dx2, void* stream)
   a.o_sr = g[23];
   const int64_t B = g[24], n = g[25], mode = g[26];
   int64_t vec = g[27];
-  const int64_t tx = g[28], ty = g[29], per = g[30], grid = g[31];
-  if (B == 0 || n == 0) return 0;
-  if (!walk_of(a.walk, B, n, tx, ty, per, grid) || mode < 0 || mode > 1 ||
+  const int64_t tx = g[28], ty = g[29], per = g[30], grid = g[31], R = g[32];
+  a.s_above = reinterpret_cast<const T*>(g[33]);
+  a.s_below = reinterpret_cast<const T*>(g[34]);
+  a.w_above = reinterpret_cast<const T*>(g[35]);
+  a.w_below = reinterpret_cast<const T*>(g[36]);
+  if (B == 0 || n == 0 || R == 0) return 0;
+  const bool halo = a.s_above != nullptr;
+  const bool w_halo = mode == 1 && halo;
+  if (!walk_of(a.walk, B, R, tx, ty, per, grid) || n > 0x3fffffff || mode < 0 || mode > 1 ||
       (mode == 0 && (a.ws == nullptr || a.gmax == nullptr || a.r == nullptr)) ||
-      (mode == 1 && a.w == nullptr))
+      (mode == 1 && a.w == nullptr) || (halo != (a.s_below != nullptr)) ||
+      (w_halo != (a.w_above != nullptr && a.w_below != nullptr)) ||
+      (!w_halo && (a.w_above != nullptr || a.w_below != nullptr)) || (!halo && R != n))
     return (int)cudaErrorInvalidValue;
   // 16-byte vectors only where every row the call reads or writes starts
   // on 16 bytes (the plan checked the side and the strides)
-  if (vec > 1 && !aligned16({a.s, a.out, mode == 1 ? a.w : nullptr, mode == 0 ? a.r : nullptr}))
+  if (vec > 1 && !aligned16({a.s, a.out, mode == 1 ? a.w : nullptr, mode == 0 ? a.r : nullptr,
+                             a.s_above, a.s_below, a.w_above, a.w_below}))
     vec = 1;
+  a.n = (int)n;
   a.nu = (T)nu;
   a.two_dx = (T)two_dx;
   a.dx2 = (T)dx2;

@@ -17,7 +17,13 @@
 // * A Cross holds a thread's V points of one plane and their neighbours:
 //   north and south are the same columns of rows i - 1 and i + 1, west
 //   and east one scalar each beyond the vector; the periodic wraps are a
-//   compare each, never a division.
+//   compare each, never a division.  A call covers B lanes of R rows of n
+//   columns: whole states (R = n, wrapped in both axes) or, in a halo
+//   mode, a space shard's slab of R rows of each state (wrapped in y
+//   only), whose first row's north and last row's south neighbours are
+//   the halo rows the call takes as operands (the neighbouring shards'
+//   edge rows: parallel/comm.py row_halo), one (B, [2,] n) contiguous
+//   tensor each (Nbr).
 // * lane_max folds a thread's max |g| of its units into its lane's max:
 //   NaN-propagating within the block (a NaN anywhere gives NaN, as
 //   jnp.max), then an atomic max on the bit pattern into the lane's slot
@@ -95,28 +101,34 @@ __device__ __forceinline__ void store(T* p, const T (&v)[V]) {
   }
 }
 
-// A thread's row i of a side n and its wrapped neighbours im = i - 1 and
-// ip = i + 1
-struct Rows {
-  int n, i, im, ip;
+// The rows a thread's row i reads: its own (c), north (i - 1) and south
+// (i + 1).  Within a state or slab of R rows at row stride rs; past its
+// edge the halo row (above, below) where the call gives one, else the
+// state's other edge (the periodic wrap)
+template <typename T>
+struct Nbr {
+  const T *c, *n, *s;
 };
 
-__device__ __forceinline__ Rows rows(int n, int i) {
-  return {n, i, i == 0 ? n - 1 : i - 1, i == n - 1 ? 0 : i + 1};
+template <typename T>
+__device__ __forceinline__ Nbr<T> nbr(const T* plane, int64_t rs, int i, int R, const T* above,
+                                      const T* below) {
+  const T* c = plane + i * rs;
+  return {c, i > 0 ? c - rs : above != nullptr ? above : plane + (int64_t)(R - 1) * rs,
+          i + 1 < R ? c + rs : below != nullptr ? below : plane};
 }
 
-// V points of one plane (row stride rs) and their four neighbours
+// V points of one plane's row (n columns, wrapped) and their four neighbours
 template <typename T, int V>
 struct Cross {
   T c[V], n[V], s[V], w0, e0;
 
-  __device__ __forceinline__ void load_at(const T* plane, int64_t rs, const Rows& r, int j) {
-    const T* row = plane + r.i * rs;
-    load<T, V>(c, row + j);
-    load<T, V>(n, plane + r.im * rs + j);
-    load<T, V>(s, plane + r.ip * rs + j);
-    w0 = row[j == 0 ? r.n - 1 : j - 1];
-    e0 = row[j + V == r.n ? 0 : j + V];
+  __device__ __forceinline__ void load_at(const Nbr<T>& r, int ncols, int j) {
+    load<T, V>(c, r.c + j);
+    load<T, V>(n, r.n + j);
+    load<T, V>(s, r.s + j);
+    w0 = r.c[j == 0 ? ncols - 1 : j - 1];
+    e0 = r.c[j + V == ncols ? 0 : j + V];
   }
   __device__ __forceinline__ T west(int k) const { return k == 0 ? w0 : c[k - 1]; }
   __device__ __forceinline__ T east(int k) const { return k == V - 1 ? e0 : c[k + 1]; }
@@ -129,9 +141,10 @@ __device__ __forceinline__ T lap(const Cross<T, V>& x, int k, T dx2) {
   return dvd(sub(add(add(add(x.n[k], x.s[k]), x.west(k)), x.east(k)), mul(T(4), x.c[k])), dx2);
 }
 
-// The units of a call: B lanes of side n, each cut into blocks of TY rows
-// (unit q: lane q / blocks, its rows (q % blocks) TY + y); CUDA block k
-// walks the per consecutive units from k per on
+// The units of a call: B lanes of n rows (a state's side, or a slab's R),
+// each cut into blocks of TY rows (unit q: lane q / blocks, its rows
+// (q % blocks) TY + y); CUDA block k walks the per consecutive units from
+// k per on
 struct Walk {
   int64_t total;              // B blocks
   int B, n, blocks, per;
@@ -193,7 +206,7 @@ __device__ __forceinline__ void lane_max(T m, int64_t b, int k, const Walk& w,
 }
 
 // Checks a launch's shape (the plan's TX, TY, units a block and grid for
-// B lanes of side n) and fills the walk; false if the kernel cannot take it
+// B lanes of n rows) and fills the walk; false if the kernel cannot take it
 inline bool walk_of(Walk& w, int64_t B, int64_t n, int64_t tx, int64_t ty, int64_t per,
                     int64_t grid) {
   if (n < 1 || n > 0x3fffffff || B < 1 || B > 0x7fffffff || tx < 1 || ty < 1 ||

@@ -81,22 +81,34 @@ def _species(t):
     return t if t is None or t.dim() == 4 else t[:, None]
 
 
+def imex_prologue_plain(b4, dt, nu=0, inv_eps2=0.0, gray_scott=None):
+    """The IMEX right-hand side K10 forms before its solve, on (B, S, ...)
+    lanes with (B, 1, 1, 1) steps dt: b + dt R(b) with Allen-Cahn's R(u) =
+    (inv_eps2 u)(1 - u^nu) (nu > 0) or Gray-Scott's (gray_scott = (a, b):
+    R(u, v) = (-u v^2 + a (1 - u), u v^2 - b v)); b itself with neither.
+    K11's and K14's prologue modes compute it (a space shard's IMEX step,
+    whose pencil solve has no fused prologue)."""
+    if nu:
+        return b4 + dt * ((inv_eps2 * b4) * (1.0 - ipow(b4, nu)))
+    if gray_scott is not None:
+        a, bb = gray_scott
+        u, v = b4[:, 0], b4[:, 1]
+        uv2 = u * (v * v)
+        return b4 + dt * torch.stack([-uv2 + a * (1 - u), uv2 - bb * v], 1)
+    return b4
+
+
 def periodic_solve2d_plain(b, out, H, lam, shift, nu=0, inv_eps2=0.0, g=None, coef=None,
                            gray_scott=None):
     """out = [g +] H ((H r H) / (1 + shift coef_s lam)) H per lane and
     species, with r = b, or the IMEX right-hand side r = b + shift R(b) of
     Allen-Cahn (nu > 0: R(u) = (inv_eps2 u)(1 - u^nu)) or of Gray-Scott
-    (gray_scott = (a, b): R(u, v) = (-u v^2 + a (1 - u), u v^2 - b v))."""
+    (gray_scott = (a, b): R(u, v) = (-u v^2 + a (1 - u), u v^2 - b v)):
+    ``imex_prologue_plain``."""
     b4, out4, g4 = _species(b), _species(out), _species(g)
     dt = shift.view(-1, 1, 1, 1)
     s = dt if coef is None else dt * coef.view(1, -1, 1, 1)
-    if nu:
-        b4 = b4 + dt * ((inv_eps2 * b4) * (1.0 - ipow(b4, nu)))
-    elif gray_scott is not None:
-        a, bb = gray_scott
-        u, v = b4[:, 0], b4[:, 1]
-        uv2 = u * (v * v)
-        b4 = b4 + dt * torch.stack([-uv2 + a * (1 - u), uv2 - bb * v], 1)
+    b4 = imex_prologue_plain(b4, dt, nu, inv_eps2, gray_scott)
     x = torch.matmul(torch.matmul(H, b4), H)
     x = torch.matmul(torch.matmul(H, x / (1.0 + s * lam)), H)
     out4.copy_(x if g4 is None else g4 + x)

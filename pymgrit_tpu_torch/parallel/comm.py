@@ -25,9 +25,19 @@ operations of its own:
   the first ``sum(send[:q])`` to rank q and receives ``recv[q]`` values
   from each rank q, in rank order (``all_to_all_single`` with uneven
   splits; the pencil transforms' change between row and column slabs);
-* ``row_halo(first, last)``: rank r sends ``first`` to rank r - 1 and
-  ``last`` to rank r + 1 and receives rank r - 1's ``last`` and rank r + 1's
-  ``first`` (zeros at the ends: a stencil's ghost rows).
+* ``row_halo(first, last, periodic=False)``: rank r sends ``first`` to rank
+  r - 1 and ``last`` to rank r + 1 and receives rank r - 1's ``last`` and
+  rank r + 1's ``first`` (a stencil's ghost rows): zeros at the ends, or,
+  ``periodic``, around the ring (rank 0's r - 1 is the last rank).  At two
+  ranks both neighbours are one process: each direction has its own tag,
+  and the operations are issued so that a backend that matches a pair's
+  messages in order (NCCL) pairs them alike.
+
+Two reductions serve a space shard's Krylov loops: ``all_reduce`` of
+several per-lane values stacked into one tensor (one collective for all),
+and ``nan_max(x)``, the largest of non-negative values over ranks with a
+NaN on any rank giving NaN, as ``jnp.max`` does: the values' bit patterns
+reduce as integers under MAX (a float MAX does not promise to keep NaN).
 
 The route is fixed when the ``Comm`` is built, from the group's backend and
 the tensors' device, never on an error: NCCL takes CUDA tensors as they
@@ -52,6 +62,8 @@ import torch
 import torch.distributed as dist
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+# row_halo's tags: the row sent towards rank r - 1, and towards r + 1
+_TAG_UP, _TAG_DOWN = 1, 2
 
 
 class Comm:
@@ -75,6 +87,9 @@ class Comm:
         self._ranks = list(dist.get_process_group_ranks(self.group))
         self._prev = self._ranks[self.rank - 1] if self.rank > 0 else None
         self._next = self._ranks[self.rank + 1] if self.rank + 1 < self.size else None
+        # the ring's neighbours (the periodic row halo)
+        self._ring = (self._ranks[(self.rank - 1) % self.size],
+                      self._ranks[(self.rank + 1) % self.size])
         self.reset_counts()
 
     def reset_counts(self) -> None:
@@ -169,25 +184,40 @@ class Comm:
         self._count(moved, es * (sum(send) + sum(recv)))
         return out
 
-    def row_halo(self, first: torch.Tensor, last: torch.Tensor):
-        """(rank r - 1's ``last``, rank r + 1's ``first``) as fresh tensors,
-        zeros where rank r has no such neighbour; ``first`` goes to rank
-        r - 1 and ``last`` to rank r + 1."""
+    def nan_max(self, x: torch.Tensor) -> torch.Tensor:
+        """The largest |x| over ranks, elementwise, as a fresh tensor: NaN
+        where any rank's x holds a NaN (float64 or float32)."""
+        bits = x.abs()             # clears the sign bit: the bit patterns order as the values
+        wide = (bits.view(torch.int64) if x.dtype == torch.float64
+                else bits.view(torch.int32).to(torch.int64))
+        self.all_reduce(wide, "max")
+        return (wide.view(torch.float64) if x.dtype == torch.float64
+                else wide.to(torch.int32).view(torch.float32))
+
+    def row_halo(self, first: torch.Tensor, last: torch.Tensor, periodic: bool = False):
+        """(rank r - 1's ``last``, rank r + 1's ``first``) as fresh tensors;
+        ``first`` goes to rank r - 1 and ``last`` to rank r + 1.  Past the
+        ends: zeros, or, ``periodic``, the ring's other end."""
         above = torch.zeros(last.shape, dtype=last.dtype, device=last.device)
         below = torch.zeros(first.shape, dtype=first.dtype, device=first.device)
-        ops, recvs = [], []
-        if self._prev is not None:
-            ops.append(dist.P2POp(dist.isend, self._buffer(first), self._prev, self.group))
-            recvs.append((above, self._buffer(above, fill=False)))
-            ops.append(dist.P2POp(dist.irecv, recvs[-1][1], self._prev, self.group))
-        if self._next is not None:
-            ops.append(dist.P2POp(dist.isend, self._buffer(last), self._next, self.group))
-            recvs.append((below, self._buffer(below, fill=False)))
-            ops.append(dist.P2POp(dist.irecv, recvs[-1][1], self._next, self.group))
+        prev, nxt = self._ring if periodic else (self._prev, self._next)
+        sends, recvs = [], []
+        # sends towards r + 1 before those towards r - 1, receives from r - 1
+        # before those from r + 1: where one process is both neighbours,
+        # in-order matching pairs last with above and first with below
+        if nxt is not None:
+            sends.append(dist.P2POp(dist.isend, self._buffer(last), nxt, self.group, _TAG_DOWN))
+        if prev is not None:
+            sends.append(dist.P2POp(dist.isend, self._buffer(first), prev, self.group, _TAG_UP))
+            recvs.append((above, self._buffer(above, fill=False), prev, _TAG_DOWN))
+        if nxt is not None:
+            recvs.append((below, self._buffer(below, fill=False), nxt, _TAG_UP))
+        ops = sends + [dist.P2POp(dist.irecv, buf, src, self.group, tag)
+                       for _, buf, src, tag in recvs]
         if ops:
             for work in dist.batch_isend_irecv(ops):
                 work.wait()
-        for dst, buf in recvs:
+        for dst, buf, _, _ in recvs:
             if buf is not dst:
                 dst.copy_(buf)
         moved = self._nbytes(first) * len(ops)

@@ -47,16 +47,20 @@ as on the serial solver's ragged levels.
 A mesh with n_space > 1 splits every state's ``space_sharding_axis`` over
 the space group: each process holds the slab [s R, (s + 1) R) of that axis
 (R = its length / n_space) in every tube, and the application's space route
-(``_space_slab``: Heat2D, spectral and physical) does the arithmetic on the
-slab and its own communication over the space group (JAX's GSPMD inserts
-the collectives of the same splits).  The time collectives stay on the time
+(``_space_slab``: Heat2D BE/CN, spectral and physical; the periodic
+Newton-Krylov models Allen-Cahn, Gray-Scott 2D and Burgers 2D, whose slabs
+take a Hartley pencil on K20, the halo modes of K11, K14 and K15 and
+Krylov reductions over the space group) does the arithmetic on the slab and
+its own communication over the space group (JAX's GSPMD inserts the
+collectives of the same splits).  The time collectives stay on the time
 group.  Each C-point's norm is the root (``sqrt_rn``) of its slabs' sums of
 squares (K3's squares mode) added over the space group; then the time
 reduction runs as with one slab.  ``random_init_guess`` draws the whole
 states and keeps the slab, so the history does not depend on n_space;
 ``fine_solution`` gathers over time, then over space.  An application
-without a space route, ``precision='dd'`` and spatial coarsening raise on
-n_space > 1 (ROADMAP A7c).
+without a space route, Heat2D FE, ``precision='dd'`` and spatial
+coarsening raise on n_space > 1 (ROADMAP A7c), as does a state width that
+n_space does not divide.
 """
 
 from __future__ import annotations

@@ -491,9 +491,10 @@ def test_k11_plan(B, n, itemsize, strides, want):
 
 def test_k11_pack_layout():
     args = pointwise.pack(2, (32768, 128, 16384, 128, 0, 0, 16384, 128), 8, 128, 2, 2,
-                          (2, 64, 4, 1, 256))
+                          (2, 64, 4, 1, 256), 128)
+    # then the rows a lane (a whole state's 128) and the two halo pointers
     assert list(args) == [2] + [0] * 7 + [32768, 128, 16384, 128, 0, 0, 16384, 128, 8, 128, 2,
-                                          2, 2, 64, 4, 1, 256]
+                                          2, 2, 64, 4, 1, 256, 128, 0, 0]
 
 
 @pytest.mark.parametrize("mode", ["rhs", "residual", "jacobian"])
@@ -517,6 +518,6 @@ def test_k11_launch_the_checks_would_make(monkeypatch, mode):
         xs = (n * n, n) if mode == "jacobian" else (0, 0)
         rs = (n * n, n) if mode == "residual" else (0, 0)
         assert list(args[8:]) == [2 * n * n, n, *xs, *rs, n * n, n, B, n, 2,
-                                  pointwise.AC_MODES.index(mode), 2, 64, 4, 1, 256]
+                                  pointwise.AC_MODES.index(mode), 2, 64, 4, 1, 256, n, 0, 0]
     finally:
         pointwise._checked.cache_clear()

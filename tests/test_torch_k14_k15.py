@@ -354,8 +354,10 @@ def test_pair_plan(B, n, itemsize, strides, want):
 def test_pair_pack_layout():
     strides = (*_tube_strides(8, 128, 2), *_tube_strides(8, 128), 0, 0, 0, 0, 0, 0,
                *_tube_strides(8, 128))
-    args = pointwise.pair_pack(3, strides, 8, 128, 2, (2, 64, 4, 1, 256))
-    assert list(args) == [3] + [0] * 8 + list(strides) + [8, 128, 2, 2, 64, 4, 1, 256]
+    args = pointwise.pair_pack(3, strides, 8, 128, 2, (2, 64, 4, 1, 256), 128)
+    # then the rows a lane (a whole state's 128) and the four halo pointers
+    assert list(args) == [3] + [0] * 8 + list(strides) + [8, 128, 2, 2, 64, 4, 1, 256,
+                                                          128, 0, 0, 0, 0]
 
 
 class _Launcher:
@@ -366,7 +368,7 @@ class _Launcher:
         self.calls = []
 
     def __call__(self, address, *rest):
-        self.calls.append((list((ctypes.c_int64 * 32).from_address(address)), rest))
+        self.calls.append((list((ctypes.c_int64 * 37).from_address(address)), rest))
         return 0
 
 
@@ -408,7 +410,8 @@ def test_pair_launch_the_checks_would_make(monkeypatch, kernel, mode, with_g):
         for key in ("w", "r", "g"):
             want += list(_tube_strides(B, n)) if key == reads else [0, 0, 0]
         plan = (2, 64, 4, 1, 256) if kernel == "gs" else (2, 32, 8, 1, 32)
-        assert list(args[9:]) == [*want, *_tube_strides(B, n), B, n, modes.index(mode), *plan]
+        assert list(args[9:]) == [*want, *_tube_strides(B, n), B, n, modes.index(mode), *plan,
+                                  n, 0, 0, 0, 0]
 
         # the wrapper's call with that launch (its residual max made on the CPU)
         launch = (args, fn, index, (B, torch.float64, torch.device("cpu")))

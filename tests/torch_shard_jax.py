@@ -35,12 +35,13 @@ JAX = W.Side(np=jnp, arr=lambda a: jnp.asarray(a, dtype=jnp.float64), sum=jnp.su
              maximum=jnp.maximum, kw={})
 
 
-def world_fixture(cases, size=4):
-    """A module-scoped fixture: the file's gloo world, started once."""
+def world_fixture(cases, size=4, join_s=W.JOIN_SECONDS):
+    """A module-scoped fixture: the file's gloo world, started once, its
+    cases due within ``join_s`` seconds."""
 
     @pytest.fixture(scope="module")
     def world(tmp_path_factory):
-        w = W.start_world(size, cases, tmp_path_factory.mktemp("world"))
+        w = W.start_world(size, cases, tmp_path_factory.mktemp("world"), join_s=join_s)
         yield w
         w.close()
 
@@ -104,6 +105,25 @@ def jax_run(case):
     return _JAX_RUNS[key]
 
 
+def jax_serial_run(case):
+    """The JAX package's serial ``Mgrit`` / ``AtMgrit`` on the case's
+    problem (the reference where JAX's sharded run cannot run the case),
+    cached by the case."""
+    key = ("serial", repr(case))
+    if key in _JAX_RUNS:
+        return _JAX_RUNS[key]
+    problem, transfer = W.BUILDERS[case["build"]](J, JAX, **case.get("build_kw", {}))
+    kw = dict(case.get("solver_kw", {}), logging_lvl=30)
+    if transfer is not None:
+        kw["transfer"] = transfer
+    m = (J.AtMgrit(case["k"], problem=problem, **kw) if case.get("solver") == "ShardedAtMgrit"
+         else J.Mgrit(problem=problem, **kw))
+    getattr(m, case.get("entry", "solve"))()
+    _JAX_RUNS[key] = {"conv": np.asarray(m.conv, dtype=np.float64), "solve_iter": m.solve_iter,
+                      "tube": jax_value(m.u[0])}
+    return _JAX_RUNS[key]
+
+
 def serial_run(case):
     """The port's serial solver on the case's problem."""
     problem, transfer = W.BUILDERS[case["build"]](P, W.PORT, **case.get("build_kw", {}))
@@ -152,10 +172,10 @@ def agree(port, ref, case, what):
                                    err_msg=what)
 
 
-def check(world, case, serial=True):
+def check(world, case, serial=True, jax_serial=False):
     """The case's ranks against rank 0 bit for bit, against JAX's sharded
-    run and (``serial``) against the port's serial run; returns (rank
-    results, JAX's result)."""
+    run (``jax_serial``: JAX's serial run) and (``serial``) against the
+    port's serial run; returns (rank results, JAX's result)."""
     ranks = world.result(case["name"])
     assert len(ranks) == case["P"] * case.get("S", 1)
     r0 = ranks[0]
@@ -164,9 +184,13 @@ def check(world, case, serial=True):
         assert np.array_equal(r["conv"], r0["conv"])
         for a, b in zip(r["tube"], r0["tube"]):
             assert np.array_equal(a, b)
-    jx = jax_run(case)
-    assert jx["general"] == r0["general"]
-    agree(r0, jx, case, "port vs JAX sharded")
+    if jax_serial:
+        jx = jax_serial_run(case)
+        agree(r0, jx, case, "port vs JAX serial")
+    else:
+        jx = jax_run(case)
+        assert jx["general"] == r0["general"]
+        agree(r0, jx, case, "port vs JAX sharded")
     if serial:
         agree(r0, serial_run(case), case, "port sharded vs port serial")
     return ranks, jx

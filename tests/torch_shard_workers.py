@@ -20,13 +20,14 @@ every case whose mesh it belongs to (a (P, S) case runs on ranks
 0..P*S-1, cell (t, s) on rank t * S + s), in order, and writing each rank's
 result as a pickle.  ``World.result(name)`` waits for a case's pickles, and fails at
 once if a worker raised or died, or at the world's deadline (120 s after
-its start).
+its start unless the file gives another).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import importlib
 import os
 import pickle
 import time
@@ -164,8 +165,27 @@ def two_leaf(mod, side, kind="dict", nts=(33, 9), norm=False):
     return [TwoLeaf(t_interval=t[::(nts[0] - 1) // (nt - 1)]) for nt in nts], None
 
 
+PERIODIC_T_STOP = {"AllenCahn": 0.024, "GrayScott2D": 8.0, "Burgers2D": 0.5}
+
+
+def periodic(mod, side, model, nts, nx=16, t_stop=None, **kw):
+    """One of the periodic Newton-Krylov models (``model``: AllenCahn,
+    GrayScott2D or Burgers2D) at width nx on levels nts, over t_stop or the
+    horizon chip_smoke runs it on (Allen-Cahn's IMPL/CN example, the
+    Gray-Scott demo's, Burgers2D's with nu = 0.05 unless kw sets it)."""
+    if model == "Burgers2D":
+        kw.setdefault("nu", 0.05)
+    t = np.linspace(0, PERIODIC_T_STOP[model] if t_stop is None else t_stop, nts[0])
+    cls = getattr(mod, model, None)
+    if cls is None:         # the JAX package exports Allen-Cahn alone at its top
+        module = "gray_scott_2d" if model == "GrayScott2D" else "burgers"
+        cls = getattr(importlib.import_module(f"{mod.__name__}.models.{module}"), model)
+    return [cls(nx=nx, t_interval=t[::(nts[0] - 1) // (nt - 1)], **kw, **side.kw)
+            for nt in nts], None
+
+
 BUILDERS = {f.__name__: f for f in (dahlquist, dahlquist_grid, heat2d, heat2d_serial, heat1d,
-                                    two_leaf)}
+                                    two_leaf, periodic)}
 
 
 # ---------------------------------------------------------------------------
@@ -259,6 +279,10 @@ def run_case(mod, side, mod_parallel, case, mesh, value, subclasses=SUBCLASSES, 
         out["history"] = np.asarray(solver._history, dtype=np.float64)
     if hasattr(solver, "comm"):
         out["comm"] = dict(solver.comm.counts)
+    if getattr(solver, "space_comm", None) is not None:
+        out["space_comm"] = dict(solver.space_comm.counts)
+    if all(hasattr(p, "stats") for p in problem):
+        out["stats"] = [dict(p.stats) for p in problem]
     if getattr(solver, "_compiled_conv_aux", None) is not None and case.get("aux"):
         out["aux"] = value(solver._compiled_conv_aux["c"])
     return out
@@ -374,7 +398,122 @@ def pencil(mesh):
     return out
 
 
-PROBES = {f.__name__: f for f in (mesh_errors, comm_ops, space_comm_ops, pencil)}
+def periodic_halo(mesh):
+    """The space group's periodic row halo (rank s sends first = 100 + s
+    and last = 100.5 + s), the non-periodic one beside it, and the
+    counts."""
+    from pymgrit_tpu_torch.parallel.comm import Comm
+    c = Comm(mesh.space_group, "cpu")
+    first = torch.full((2, 3), 100.0 + mesh.space_rank, dtype=torch.float64)
+    above, below = c.row_halo(first, first + 0.5, periodic=True)
+    counts = dict(c.counts)
+    ends = c.row_halo(first, first + 0.5)
+    return {"above": above.numpy(), "below": below.numpy(), "counts": counts,
+            "ends": [e.numpy() for e in ends], "n": mesh.n_space, "s": mesh.space_rank}
+
+
+def nan_max(mesh):
+    """``Comm.nan_max`` of three lanes (rank s: lane 0 holds s + 0.5, lane
+    1 a NaN on space rank 1 only, lane 2 -inf on rank 0 and s elsewhere),
+    float64 and float32; then Newton (``ops.cg.newton``) on three lanes
+    whose residual holds a NaN in lane 1 on space rank 1 only, with and
+    without the space reduction."""
+    from pymgrit_tpu_torch.ops.cg import newton
+    from pymgrit_tpu_torch.parallel.comm import Comm
+    c = Comm(mesh.space_group, "cpu")
+    s = mesh.space_rank
+    x = torch.tensor([s + 0.5, float("nan") if s == 1 else 1.0,
+                      -float("inf") if s == 0 else float(s)], dtype=torch.float64)
+    out = {"f64": c.nan_max(x).numpy(), "f32": c.nan_max(x.float()).numpy(), "s": s}
+
+    def residual(u):
+        g = 0.5 * u
+        if s == 1:
+            g[1] = float("nan")
+        return g, g.abs().amax(dim=1)
+
+    def linear_solve(u, g):
+        return g, torch.ones(u.shape[0], dtype=torch.int64)
+
+    u0 = torch.ones((3, 4), dtype=torch.float64)
+    for key, red in (("reduced", c), ("alone", None)):
+        _, n, _ = newton(residual, linear_solve, u0, 1e-3, 50, red)
+        out[key] = n.numpy()
+    return out
+
+
+def periodic_slab(mesh):
+    """The slab routes of the three periodic models against their whole
+    states (this rank's rows): the Hartley pencil solve of random states
+    (one and two species: Allen-Cahn, Gray-Scott) against K10's plain
+    version, and a chain of two steps with g of each method (the halo
+    modes, the IMEX prologue and pencil, the Newton-Krylov loops with the
+    space reductions) against the whole-state chain."""
+    import pymgrit_tpu_torch as P
+    from pymgrit_tpu_torch.ops import periodic as per
+    from pymgrit_tpu_torch.parallel.comm import Comm
+    comm = Comm(mesh.space_group, "cpu")
+    s, n = mesh.space_rank, mesh.n_space
+    rng = np.random.default_rng(17)
+    out = {}
+    J, L, nx = 3, 2, 16
+    R = nx // n
+    rows = slice(s * R, (s + 1) * R)
+    t = np.linspace(0.0, 0.004, J * L + 1)
+    tp = t[:-1].reshape(J, L).T.copy()
+    tc = t[1:].reshape(J, L).T.copy()
+    for model, methods in (("AllenCahn", ("IMEX", "IMPL", "CN")),
+                           ("GrayScott2D", ("IMEX", "IMPL", "EXPL")), ("Burgers2D", (None,))):
+        for method in methods:
+            kw = {} if method is None else {"method": method}
+            (whole,), _ = periodic(P, PORT, model, (3,), nx=nx, **kw)
+            (slab,), _ = periodic(P, PORT, model, (3,), nx=nx, **kw)
+            slab._space_slab(s, n, comm)
+            ax = 1 + slab.space_sharding_axis
+            x = whole.vector_t_start[None].repeat((J,) + (1,) * whole.vector_t_start.dim())
+            x = x + torch.as_tensor(rng.uniform(-0.05, 0.05, x.shape))
+            g = torch.as_tensor(rng.uniform(-1e-3, 1e-3, (J, L) + tuple(x.shape[1:])))
+            scale = 1e2 if model == "GrayScott2D" else 1.0      # Gray-Scott's slower time
+            ow = whole.step_chain(x, tp * scale, tc * scale, torch.empty_like(g), g)
+            xs = x.narrow(ax, s * R, R).clone()
+            gs = g.narrow(ax + 1, s * R, R).clone()
+            os_ = slab.step_chain(xs, tp * scale, tc * scale, torch.empty_like(gs), gs)
+            out[f"{model} {method}"] = (os_.numpy(), ow.narrow(ax + 1, s * R, R).numpy())
+        if model != "Burgers2D":
+            b = torch.as_tensor(rng.uniform(-1, 1, (J,) + tuple(whole.vector_template.shape)))
+            fac = torch.as_tensor(rng.uniform(0.001, 0.01, J))
+            want = per.periodic_solve2d_plain(b, torch.empty_like(b), whole._H, whole._lam, fac,
+                                              coef=whole._coef)
+            got = slab._diffusion_solve(fac, b.narrow(ax, s * R, R).contiguous())
+            out[f"{model} solve"] = (got.numpy(), want.narrow(ax, s * R, R).numpy())
+    return out
+
+
+def periodic_errors(mesh):
+    """On a (2, 2) mesh: a periodic model whose width n_space does not
+    divide, Burgers1D (no space route), spatial coarsening of a periodic
+    model, and a slab's ``compute_radius``."""
+    import pymgrit_tpu_torch as P
+    import pymgrit_tpu_torch.parallel as PP
+    from pymgrit_tpu_torch.parallel.comm import Comm
+
+    def solver(problem, transfer=None):
+        return PP.ShardedMgrit(problem=problem, mesh=mesh, transfer=transfer, logging_lvl=30)
+
+    out = {"indivisible": _error(lambda: solver(periodic(P, PORT, "GrayScott2D", (17, 5),
+                                                         nx=9)[0])),
+           "no_route": _error(lambda: solver([P.Burgers1D(nx=16, t_interval=np.linspace(0, 1, n),
+                                                          **PORT.kw) for n in (17, 5)])),
+           "spatial": _error(lambda: solver(periodic(P, PORT, "AllenCahn", (17, 5))[0],
+                                            [P.GridTransferHeat2D(9, 9)]))}
+    (ac,), _ = periodic(P, PORT, "AllenCahn", (3,))
+    ac._space_slab(mesh.space_rank, mesh.n_space, Comm(mesh.space_group, "cpu"))
+    out["radius"] = _error(lambda: ac.compute_radius(ac.vector_t_start))
+    return out
+
+
+PROBES = {f.__name__: f for f in (mesh_errors, comm_ops, space_comm_ops, pencil, periodic_halo,
+                                  nan_max, periodic_slab, periodic_errors)}
 
 
 def port_value(x):
@@ -452,9 +591,10 @@ def _worker(rank, size, store, cases, directory, backend):
 class World:
     """A running world: results by case name, and its teardown."""
 
-    def __init__(self, ctx, directory, sizes):
+    def __init__(self, ctx, directory, sizes, join_s=JOIN_SECONDS):
         self.ctx, self.directory, self.sizes = ctx, directory, sizes
-        self.deadline = time.monotonic() + JOIN_SECONDS
+        self.join_s = join_s
+        self.deadline = time.monotonic() + join_s
 
     def _errors(self):
         return [n for n in os.listdir(self.directory) if n.endswith(".err")]
@@ -473,7 +613,7 @@ class World:
                 raise RuntimeError(f"a worker died (exit codes {dead}) before case {name}")
             if time.monotonic() > self.deadline:
                 raise TimeoutError(f"case {name}: no result within the world's "
-                                   f"{JOIN_SECONDS} s")
+                                   f"{self.join_s} s")
             time.sleep(0.05)
         out = []
         for p in paths:
@@ -495,12 +635,13 @@ class World:
                 p.join(5)
 
 
-def start_world(size, cases, directory, backend="gloo"):
+def start_world(size, cases, directory, backend="gloo", join_s=JOIN_SECONDS):
     """Spawn the world of ``size`` ranks (gloo, or NCCL on one GPU a rank)
-    that runs ``cases``."""
+    that runs ``cases``, all within ``join_s`` seconds of its start."""
     import torch.multiprocessing as mp
 
     store = os.path.join(str(directory), "rendezvous")
     ctx = mp.start_processes(_worker, args=(size, store, cases, str(directory), backend),
                              nprocs=size, join=False, start_method="spawn")
-    return World(ctx, str(directory), {c["name"]: c["P"] * c.get("S", 1) for c in cases})
+    return World(ctx, str(directory), {c["name"]: c["P"] * c.get("S", 1) for c in cases},
+                 join_s)
