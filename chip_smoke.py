@@ -542,11 +542,14 @@ HBM_BYTES_PER_S = 3.35e12
 # launch, so that the launch finds none of its operands there
 L2_FLUSH_BYTES = 3 * 50 * 2 ** 20
 _FLUSH = []
-# phase 3 times each K18 / K21 case in this many rounds
-ROW_ROUNDS = 5
-# the cells K5 carries ([physical], [ragged], [spatial], [c2]) time their
-# solve walls in six alternating plain / kernel pairs
-E2E_ORDER = ("plain", "kernel", "kernel", "plain") * 3
+# phase 3 times each row case in this many rounds (5 until the script
+# neared its time limit; the cold-L2 device time is taken apart)
+ROW_ROUNDS = 2
+# the solve walls: one fresh kernel solve, then one plain (no check reads
+# them; until the script neared its time limit, plain, kernel, kernel,
+# plain, and six such pairs in the cells K5 carries)
+WALL_ORDER = ("kernel", "plain")
+E2E_ORDER = WALL_ORDER
 PEAK_OPS_PER_S = {"float64": 34e12, "float32": 67e12}
 PEAK_DMMA_OPS_PER_S = 67e12
 # the kernels whose operations are dense FP64 products, which the tensor
@@ -1456,7 +1459,8 @@ def kernel_cases(dtype, dev, stash):
             + transfer_cases(dtype, dev, rng, stash) + heat1d_cases(dtype, dev, rng, stash)
             + past_cap_cases(dtype, dev, rng, stash) + slice7_cases(dtype, dev, rng, stash)
             + space_kernel_cases(dtype, dev, stash)
-            + periodic_space_kernel_cases(dtype, dev, stash))
+            + periodic_space_kernel_cases(dtype, dev, stash)
+            + slab_mode_cases(dtype, dev, stash))
 
 
 def coarsest_work(kernel, nt, N, k, A, b, es=8, with_g=True):
@@ -1949,6 +1953,89 @@ def space_kernel_cases(dtype, dev, stash):
         heat_kernels.sine_solve1d_plans(X, S, table))
     stash[("work", "sine_solve1d_lam_table", case)] = (8 * (2 * B * n + n * n + D * n + B),
                                                        4 * B * n * n + 3 * B * n)
+    return cases
+
+
+def halo_fe_work(B, R, Q, n_in):
+    """(bytes, operations) of K7's FE halo call on B slabs of R rows of Q
+    points, n_in of them off the grid's ring, with g: the slabs, one halo
+    row each, g and the slab's rows of the ring read, one rhs row (stride
+    0) read once, the slabs written; 13 operations an interior point, as
+    ``k7_work`` counts FE."""
+    return 8 * (3 * B * R * Q + B * Q + R * Q + n_in * (Q - 2)), 13 * B * n_in * (Q - 2)
+
+
+def slab_mode_cases(dtype, dev, stash):
+    """The modes the Heat2D FE and spectral DD space slabs add, at a (2, 2)
+    rank's shapes of the [space] cells, from a generator of their own:
+    K7's halo mode, FE with g, on 512 states of slab 1 of 2 (rows 65-129 of
+    130: the row above from the halo operand, the last row the grid's
+    ring), held bit for bit against its plain version, after both slabs of
+    the same states are held bit for bit against the kernel's whole-state
+    FE mode; in float32, K3's squares mode on the dd_spectral cell's
+    C-rows of a slab (K25's float32 resid rows against a zero row)."""
+    import torch
+    from pymgrit_tpu_torch.ops import DISPATCH
+    rng = np.random.default_rng(SEED + 26)
+    dname = str(dtype).split(".")[-1]
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+
+    B, P_, S_ = 512, SPACE_FE["nx"], SPACE_MESH[1]
+    Q, R = P_, P_ // S_
+    fx = fy = (P_ - 1.0) ** 2
+    dt = SPACE_FE["t_end"] / (SPACE_FE["nt"] - 1)
+    u = t(rng.uniform(-1, 1, (B, P_, Q)))
+    ring = t(rng.uniform(-1, 1, (P_, Q)))
+    ring[1:-1, 1:-1] = 0.0
+    r0 = t(rng.uniform(-1, 1, (P_ - 2) * (Q - 2)))
+    g = t(rng.uniform(-1e-3, 1e-3, (B, P_, Q)))
+
+    def slab(s):
+        """Slab s's operands: rows, halo rows (None at the ring), the rhs
+        rows of its rows off the ring (stride 0), its rows of the ring."""
+        rows = slice(s * R, (s + 1) * R)
+        i0, i1 = max(rows.start, 1) - 1, min(rows.stop, P_ - 1) - 1
+        rr = r0[i0 * (Q - 2):i1 * (Q - 2)].expand(B, (i1 - i0) * (Q - 2))
+        return (rows, (None if s == 0 else u[:, rows.start - 1],
+                       None if s == S_ - 1 else u[:, rows.stop]), rr, ring[rows].contiguous())
+
+    whole = DISPATCH.theta_rhs2d(u, torch.empty_like(u), dt, 0.0, fx, fy,
+                                 r0.expand(B, r0.numel()), r0.expand(B, r0.numel()), ring=ring,
+                                 g=g)
+    for s in range(S_):
+        rows, halo, rr, ring_s = slab(s)
+        got = DISPATCH.theta_rhs2d(u[:, rows], torch.empty((B, R, Q), dtype=dtype, device=dev),
+                                   dt, 0.0, fx, fy, rr, rr, ring=ring_s, g=g[:, rows], halo=halo)
+        torch.cuda.synchronize()
+        same = torch.equal(got, whole[:, rows])
+        print(f"[kernels] theta_rhs2d_halo_fe slab {s} of {S_} ({R} of {P_} rows) {dname}: bit "
+              f"for bit with the whole-state FE mode's rows: {same}")
+        check(same, f"theta_rhs2d halo FE slab {s} {dname}: differs from the whole-state mode")
+    del whole
+    rows, halo, rr, ring_s = slab(S_ - 1)
+    u_s, g_s = u[:, rows], g[:, rows]
+    n_in = R - 1
+    case = f"FE halo B={B} R={R} of {P_} +g"
+
+    def launch(ops, out):
+        return ops.theta_rhs2d(u_s, out, dt, 0.0, fx, fy, rr, rr, ring=ring_s, g=g_s, halo=halo)
+
+    cases = [("theta_rhs2d_halo_fe", case,
+              RowCase(lambda: torch.empty((B, R, Q), dtype=dtype, device=dev), launch))]
+    stash[("work", "theta_rhs2d_halo_fe", case)] = halo_fe_work(B, R, Q, n_in)
+    if dtype == torch.float32:
+        n = SPACE_DD["nx"] - 2
+        J, N = (SPACE_DD["nt"] - 1) // SPACE_DD["ms"][0] // SPACE_MESH[0], n * (n // S_)
+        d = t(rng.uniform(-1, 1, (J, N)))
+        zero = torch.zeros(N, dtype=dtype, device=dev).expand(J, N)
+        case = f"squares DD C-rows J={J} N={N}"
+        cases.append(("residual_row_norms_squares", case,
+                      RowCase(lambda: None,
+                              lambda k, _: k.residual_row_norms(d, zero, squares=True),
+                              exact=False)))
+        stash[("work32", "residual_row_norms_squares", case)] = (4 * (J * N + N + J), 3 * J * N)
     return cases
 
 
@@ -2676,6 +2763,50 @@ def dd_cases(dev, rng, stash):
         stash[("bound_scale", "dd_matmul", case)] = lambda x64=x64: float(
             (x64.abs() @ W64.abs().T).max())
         stash[("plan", "dd_matmul", case)] = dd_matmul_mod.plan(xe[None], W.T[None])
+
+    # the dd_spectral [space] cell's slabs (a (2, 2) rank: 64 level-0
+    # intervals and 4 level-1 chains of 15 steps, each state 64 of 128 rows
+    # of 128 coefficients): K23's C-step and K24's level-1 F-relaxation
+    # with g on the slab's rows of the tables (a generator of their own:
+    # the cases above keep their draws)
+    rng26 = np.random.default_rng(26)
+    ns = SPACE_DD["nx"] - 2
+    Rs = ns // SPACE_MESH[1]
+    Ns, m0s, m1s = Rs * ns, SPACE_DD["ms"][0], SPACE_DD["ms"][1]
+    Js = (SPACE_DD["nt"] - 1) // m0s // SPACE_MESH[0]
+    J1s, L1s = Js // m1s, m1s - 1
+    seeds_s = packed(rng26.uniform(-1, 1, (Js, Ns)))
+    A_s, G_s = pair(rng26.uniform(0, 1, (m0s, Ns))), pair(rng26.uniform(-1, 1, (m0s, Ns)))
+
+    def c_step_slab(ops, out):
+        ops.dd_interval_affine(dd.pair(seeds_s, ops), A_s, G_s, dd.pair(out, ops, 2), m0s - 1)
+        return dd.pair(out[:, 0], ops)
+
+    case = f"slab C-step J={Js} N={Ns}"
+    cases.append(("dd_interval_affine", case, RowCase(
+        lambda: torch.empty((Js, 1, 2, Ns), dtype=torch.float32, device=dev), c_step_slab)))
+    stash[("work", "dd_interval_affine", case)] = (8 * (2 * Js * Ns + 2 * Ns),
+                                                   (F["mul"] + F[A_]) * Js * Ns)
+    _, lam_x = sine_eigenbasis(ns, (ns + 1.0) ** 2)
+    lam_s = pair((lam_x[:Rs, None] + lam_x[None, :]).reshape(-1))
+    lift_s = pair(rng26.uniform(-1, 1, Ns))
+    x0_s = packed(rng26.uniform(-1, 1, (J1s, Ns)))
+    g_s = packed(rng26.uniform(-1e-3, 1e-3, (J1s * L1s, Ns))).view(J1s, L1s, 2, Ns)
+    dt_s = pair(np.full((L1s, J1s), m0s / (SPACE_DD["nt"] - 1)))
+    r1_s = torch.as_tensor(rng26.uniform(-1, 1, Ns).astype(np.float32),
+                           device=dev).expand(L1s, J1s, Ns)
+
+    def f_relax_slab(ops, out):
+        ops.dd_theta_chain(dd.pair(x0_s, ops), dd.pair(out, ops, 2), dt_s, lam_s, lift_s, r1_s,
+                           r1_s, 1.0, dd.pair(g_s, ops, 2))
+        return dd.pair(out, ops, 2)
+
+    case = f"slab level-1 F-relax BE J={J1s} L={L1s} N={Ns}"
+    cases.append(("dd_theta_chain", case, RowCase(
+        lambda: torch.empty((J1s, L1s, 2, Ns), dtype=torch.float32, device=dev), f_relax_slab)))
+    per = 4 * F["mul"] + 3 * F[A_] + F["div"] + F[A_]
+    stash[("work", "dd_theta_chain", case)] = (
+        8 * (J1s * Ns + 2 * J1s * L1s * Ns + 2 * Ns + L1s * J1s) + 4 * Ns, per * J1s * L1s * Ns)
     return cases
 
 
@@ -2992,7 +3123,7 @@ def headline_work(kernel, stash):
         return stash[("work", kernel, case)]
     if kernel in ("indexed_combine", "eig_step", "sine_solve1d", "affine_prefix",
                   "affine_windows", "residual_row_norms_squares", "sine_solve1d_lam_table",
-                  *PERIODIC_SPACE_ROWS):
+                  "theta_rhs2d_halo_fe", *PERIODIC_SPACE_ROWS):
         # the headline's recorded work (K8, K9: coarsest_work)
         return next(w for k, w in stash.items()
                     if k[:2] == ("work", kernel) and k[2].startswith(HEADLINE[kernel]))
@@ -3009,13 +3140,14 @@ def op_peak(kernel):
     return PEAK_OPS_PER_S["float32" if kernel in DD_FP32_KERNELS else "float64"]
 
 
-def bound_ms(kernel, stash, work=None):
+def bound_ms(kernel, stash, work=None, peak=None):
     """The least time the card could take for the headline case (or for
     ``work`` = (bytes, operations)): the larger of its bytes over the HBM
     rate and its operations over the FP64 peak of the units that could do
-    them (``op_peak``); (ms, which)."""
+    them (``op_peak``; or ``peak`` operations a second); (ms, which)."""
     nbytes, ops = work if work is not None else headline_work(kernel, stash)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / op_peak(kernel) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / (peak if peak is not None else op_peak(kernel)) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -3040,7 +3172,8 @@ HEADLINE = {"interval_affine": "materialize", "theta_chain": "level-1 F-relax",
             "allen_cahn_pointwise_prologue": "IMEX prologue",
             "gray_scott_pointwise_prologue": "IMEX prologue",
             "sine_solve1d_hartley": "transform",
-            "sine_solve1d_hartley_lam_table": "x-pass Gray-Scott"}
+            "sine_solve1d_hartley_lam_table": "x-pass Gray-Scott",
+            "theta_rhs2d_halo_fe": "FE halo"}
 # the summary's rows of the periodic slabs' kernel modes (phase 3's
 # ``periodic_space_kernel_cases``; launches from the [space] cells)
 PERIODIC_SPACE_ROWS = ("allen_cahn_pointwise_halo", "gray_scott_pointwise_halo",
@@ -3168,14 +3301,16 @@ def phase_kernels(only=None):
                        "the slowest warp (device time)" if len(floor) > 2 else "")
                 print(f"[kernels] {kernel:<20} {case}: latency floor {floor[0]:.4f} ms ({floor[1]}); "
                       f"device {dev_ms:.4f} ms, {dev_ms / floor[0]:.2f}x the floor{per}")
-            work = stash.get(("work", kernel, case))
-            if dtype == torch.float64 and work is not None:
+            # the bound of each float64 case, and of a float32 case that
+            # records its own work (a float32 path's case)
+            work = stash.get(("work" if dtype == torch.float64 else "work32", kernel, case))
+            if work is not None:
                 work = work() if callable(work) else work
-                c_ms, c_by = bound_ms(kernel, stash, work)
+                peak = op_peak(kernel) if dtype == torch.float64 else PEAK_OPS_PER_S["float32"]
+                c_ms, c_by = bound_ms(kernel, stash, work, peak)
                 lib = stash.get(("library", kernel, case))
                 lib_ms = (float(np.median(lib_rounds)) if lib_rounds is not None
                           else cuda_ms(lib) if lib is not None else None)
-                peak = op_peak(kernel)
                 print(f"[kernels] {kernel:<20} {case}: bound {c_ms:.4f} ms ({c_by}): bytes "
                       f"{work[0] / 1e6:.3f} MB / 3.35 TB/s = {work[0] / HBM_BYTES_PER_S * 1e3:.4f} ms, "
                       f"{work[1] / 1e9:.4f} GFLOP / {peak / 1e12:.0f} TFLOP/s = "
@@ -3393,9 +3528,9 @@ def phase_main(card):
     return counts, hk, tube
 
 
-def timed_runs(P, device, order=("plain", "kernel", "kernel", "plain"), **cfg):
-    """Wall times of fresh solves (setup excluded), in turns plain, kernel,
-    kernel, plain (or ``order``); returns ({path: [s, ...]}, fine steps of
+def timed_runs(P, device, order=WALL_ORDER, **cfg):
+    """Wall times of fresh solves (setup excluded), in turns kernel, plain
+    (or ``order``); returns ({path: [s, ...]}, fine steps of
     one solve)."""
     walls, hists, _, _, mg = strategy_runs(
         P, lambda ops: build_problem(P, device=device, ops=ops, **cfg), "scan", 0, order=order,
@@ -3552,10 +3687,10 @@ def strategy(P, name, problem, k, **kw):
     return P.Mgrit(problem=problem, logging_lvl=30, coarsest_prefix=name == "prefix", **kw)
 
 
-def strategy_runs(P, build, name, k, warm=False, order=("plain", "kernel", "kernel", "plain"),
+def strategy_runs(P, build, name, k, warm=False, order=WALL_ORDER,
                   **kw):
-    """Fresh solves of one strategy in turns plain, kernel, kernel, plain
-    (or the given order; setup excluded from the walls), after one untimed
+    """Fresh solves of one strategy in turns kernel, plain (or the given
+    order; setup excluded from the walls), after one untimed
     kernel solve if warm (the first solve pays the one-time costs: the
     kernel library's load, the models' device tables).
     The first timed kernel run is the path's run: the launch counts are set
@@ -3771,7 +3906,7 @@ def allen_cahn_problem(P, ops, nx, method, t_stop, nt, ms, device=None, **_):
 
 
 def allen_cahn_run(P, card, cfg, label):
-    """One Allen-Cahn configuration in turns plain, kernel, kernel, plain:
+    """One Allen-Cahn configuration in turns kernel, plain:
     launches of the first kernel run, history against the plain path at
     rtol 1e-9 with the floor of four length-n products per step, walls,
     fine steps/s, peak memory, Newton and CG counts, the final radius."""
@@ -3850,13 +3985,13 @@ def phase_ode(card):
     cfg = ARENSTORF
     kw = dict(cf_iter=cfg["cf_iter"], tol=cfg["tol"], logging_lvl=30)
 
-    # CPU plain reference, an untimed kernel solve, then in turns plain,
-    # kernel, kernel, plain (solve())
+    # CPU plain reference, an untimed kernel solve, then in turns kernel,
+    # plain (solve())
     mc = P.Mgrit(problem=ode_problem(P, "ArenstorfOrbit", DISPATCH, device="cpu", **cfg), **kw)
     hc = mc.solve()["conv"]
     P.Mgrit(problem=ode_problem(P, "ArenstorfOrbit", DISPATCH, **cfg), **kw).solve()
     runs, walls = {}, {"plain": [], "kernel": []}
-    for path in ("plain", "kernel", "kernel", "plain"):
+    for path in WALL_ORDER:
         first = path == "kernel" and "kernel" not in runs
         torch.cuda.synchronize()
         if first:
@@ -3964,7 +4099,7 @@ def slice_run(P, card, label, model, cfg, want, name="scan", k=0, order=None, so
     kw = dict(tol=cfg["tol"], max_iter=cfg["max_iter"], **(solver_kw or {}))
     walls, hists, counts, peak, mg = strategy_runs(
         P, lambda ops: level_problems(P, model, cfg, ops, **model_kw), name, k,
-        order=order or ("plain", "kernel", "kernel", "plain"), **kw)
+        order=order or WALL_ORDER, **kw)
     hk, hp = hists["kernel"], hists["plain"]
     floor = residual_floor(mg, 4 * math.sqrt(cfg.get("nx", 128)) + FLOOR_OPS)
     ok, err = histories_agree(hk, hp, floor, MAIN_RTOL)
@@ -4627,7 +4762,7 @@ def phase_diffusion(card):
     kw = dict(tol=cfg["tol"], max_iter=cfg["max_iter"])
     walls = {"kernel": [], "plain": []}
     hists, counts_deep = {}, None
-    for path in ("plain", "kernel", "kernel", "plain"):
+    for path in WALL_ORDER:
         mg, h, wall, *c = solve(problem, DISPATCH if path == "kernel" else PLAIN,
                                 first=path == "kernel" and counts_deep is None, **kw)
         if path == "kernel" and counts_deep is None:
@@ -4660,7 +4795,7 @@ def phase_diffusion(card):
 
 
 def dd_runs(P, build, max_iter, tol, warm=True):
-    """Fresh DD solves in turns plain, kernel, kernel, plain after one
+    """Fresh DD solves in turns kernel, plain after one
     untimed kernel solve: walls (setup excluded), the first history and
     level-0 tube of each path, the kernel run's launch counts and peak
     device memory (as strategy_runs)."""
@@ -4670,7 +4805,7 @@ def dd_runs(P, build, max_iter, tol, warm=True):
     if warm:
         P.Mgrit(problem=build(DISPATCH), tol=tol, max_iter=max_iter, logging_lvl=30).solve()
         torch.cuda.empty_cache()
-    for path in ("plain", "kernel", "kernel", "plain"):
+    for path in WALL_ORDER:
         first = path == "kernel" and counts is None
         torch.cuda.synchronize()
         if first:
@@ -5473,13 +5608,13 @@ def shard_run(mesh, build, entry="solve_compiled", k=None, **kw):
 
 
 def mode_launches():
-    """K3's, K11's, K14's, K15's and K20's launches by mode since the last
-    reset."""
-    from pymgrit_tpu_torch.ops import heat_kernels, pointwise, row_norms
+    """K3's, K7's, K11's, K14's, K15's and K20's launches by mode since the
+    last reset."""
+    from pymgrit_tpu_torch.ops import heat_kernels, pointwise, row_norms, theta_rhs
     return {f"{fn.__name__} {k}": v
-            for fn in (row_norms.residual_row_norms, heat_kernels.sine_solve1d,
-                       pointwise.allen_cahn_pointwise, pointwise.gray_scott_pointwise,
-                       pointwise.burgers2d_pointwise)
+            for fn in (row_norms.residual_row_norms, theta_rhs.theta_rhs2d,
+                       heat_kernels.sine_solve1d, pointwise.allen_cahn_pointwise,
+                       pointwise.gray_scott_pointwise, pointwise.burgers2d_pointwise)
             for k, v in fn.mode_launches.items()}
 
 
@@ -5739,6 +5874,30 @@ SPACE_MESH = (2, 2)
 SPACE_TOMS = dict(nx=130, nt=2 ** 14 + 1, ms=(32, 16, 4, 4))
 SPACE_PHYS = dict(nx=130, nt=2 ** 11 + 1, ms=(32, 16, 4))         # CN_CFG's cut
 SPACE_AT = dict(nx=130, nt=2 ** 14 + 1, ms=(8,))                  # TOMS2 at width 130
+# Heat2D FE at width 130 (K7's halo mode): t_end 2^-13, so that the
+# coarsest dt (16 fine steps, 7.6e-6) is half FE's bound dx^2 / (4 a) =
+# 1.50e-5; no nested iteration, to MAIN_TOL (two iterations on the CPU)
+SPACE_FE = dict(basis="physical", method="FE", nx=130, nt=257, ms=(4, 4), t_end=2.0 ** -13)
+SPACE_FE_MAX_ITER = 4
+# spectral DD at width 130 (K23 / K24 on the slabs' DD tables, K3's squares
+# mode on K25's float32 resid rows): dd_toms129's hierarchy cut in nt
+# (16385 -> 4097, three levels) and iterations (14 -> 4, tol 0)
+SPACE_DD = dict(basis="spectral", precision="dd", nx=130, nt=2 ** 12 + 1, ms=(32, 16, 4))
+SPACE_DD_ITERS = 4
+# an application without a space axis, run whole on every space rank:
+# the [spatial1d] example (Heat1D 17 / 9 / 5 / 5, GridTransferHeat)
+SPACE_REPLICATED = dict(build="spatial1d", nx=17, nt=129)
+# the physical cell's history at (2, 2) with kernels as the pencil route
+# gave it when K7 ran on the slab widened by ghost rows; K7's halo mode
+# takes the same operations on the same values, so it stays bit for bit
+SPACE_PHYSICAL_HISTORY = tuple(float.fromhex(x) for x in (
+    "0x1.61d8adb17bcf3p-3", "0x1.b44e6c1f7c7edp-7", "0x1.1c2e837a1c667p-10",
+    "0x1.7b83c9dff500ep-14", "0x1.011928b0d893cp-17", "0x1.5f8948c13ef87p-21",
+    "0x1.e34880f999680p-25", "0x1.4c6e658d81e66p-28", "0x1.c5338ae702c1bp-32",
+    "0x1.2ca2ecdea3cf9p-35"))
+# the cells whose fine tube is compared with the (2, 1) run's, bit for bit
+# (a SHA-1 of each rank's tube)
+SPACE_DIGEST = ("fe", "dd_spectral", "replicated")
 # the periodic models' cells (each at (2, 2) and (2, 1), and serially on
 # rank 0), at full width, cut in nt with the step size kept and in
 # iterations: Allen-Cahn IMEX (bench.py's row, AC_BENCH: 8/8, nt 4097 ->
@@ -5773,6 +5932,10 @@ def space_cases():
          dict(tol=MAIN_TOL, max_iter=MAIN_MAX_ITER), None, True),
         ("at64", dict(basis="spectral", **SPACE_AT),
          dict(tol=1e-300, max_iter=TOMS2_AT_ITERS), TOMS2_AT_K, True),
+        ("fe", SPACE_FE, dict(tol=MAIN_TOL, max_iter=SPACE_FE_MAX_ITER, nested_iteration=False),
+         None, True),
+        ("dd_spectral", SPACE_DD, dict(tol=0.0, max_iter=SPACE_DD_ITERS), None, False),
+        ("replicated", SPACE_REPLICATED, {}, None, False),
     ]
     periodic = [("ac_imex", SPACE_AC, True), ("gs_at8", SPACE_GS_AT, False),
                 ("gs_impl", SPACE_GS_IMPL, False), ("burgers2d", SPACE_B2, False),
@@ -5782,12 +5945,36 @@ def space_cases():
 
 
 def space_problem(P, cfg, ops):
-    """A [space] cell's problem: Heat2D (``build_problem``) or a periodic
-    model's hierarchy (``level_problems``)."""
+    """A [space] cell's problem: Heat2D (``build_problem``), a periodic
+    model's hierarchy (``level_problems``) or the [spatial1d] example's."""
+    if cfg.get("build") == "spatial1d":
+        return heat1d_spatial_problem(P, ops)
     if "model" not in cfg:
         return build_problem(P, device=DEVICE, ops=ops, **cfg)
     return level_problems(P, cfg["model"], cfg, ops,
                           **{k: cfg[k] for k in ("nx", "method", "nu") if k in cfg})
+
+
+def space_transfer(P, cfg):
+    """A [space] cell's transfer arguments: the [spatial1d] example's
+    GridTransferHeat, else none (a transfer object a solve)."""
+    if cfg.get("build") != "spatial1d":
+        return {}
+    return {"transfer": [P.GridTransferHeat(), P.GridTransferHeat(), P.GridTransferCopy()]}
+
+
+def tube_digest(tube):
+    """The SHA-1 of a tube's bytes (two tubes compared bit for bit)."""
+    import hashlib
+    return hashlib.sha1(tube.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def tube_values(tube):
+    """A tube's values in float64: a packed DD tube (nt, 2, ...) as hi + lo."""
+    import torch
+    if tube.dtype == torch.float32 and tube.dim() > 1 and tube.shape[1] == 2:
+        return tube[:, 0].double() + tube[:, 1].double()
+    return tube
 
 
 def space_latency(mesh, reps=SPACE_REPS):
@@ -5855,12 +6042,17 @@ def space_worker(rank, size, store, directory):
                                         ("time", time_only, "whole", DISPATCH)):
                 if mesh is None or (run == "plain" and not with_plain):
                     continue
-                r = shard_run(mesh, lambda: build(key, ops), k=k, **kw)
+                r = shard_run(mesh, lambda: build(key, ops), k=k, **kw,
+                              **space_transfer(P, cfg))
                 if run == "kernel":
                     tube = r["mg"].fine_solution()
                     res["tube_shape"] = tuple(tube.shape)
+                    if label in SPACE_DIGEST:
+                        r["digest"] = tube_digest(tube)
                     if rank != 0:
                         del tube
+                elif run == "time" and label in SPACE_DIGEST:
+                    r["digest"] = tube_digest(r["mg"].fine_solution())
                 if run == "plain" or (run == "kernel" and not with_plain):
                     del built["grid"]
                 del r["mg"]
@@ -5868,17 +6060,21 @@ def space_worker(rank, size, store, directory):
                 res[run] = r
             if rank == 0:
                 problem = built.pop("whole")
+                tkw = space_transfer(P, cfg)
                 ms = (P.AtMgrit(k, problem=problem, logging_lvl=30, **kw) if k else
-                      P.Mgrit(problem=problem, logging_lvl=30, **kw))
+                      P.Mgrit(problem=problem, logging_lvl=30, **kw, **tkw))
                 _, wall = synced_wall(ms.solve_compiled)
                 ref = ms.u[0]
-                floor = (residual_floor(ms, 4 * math.sqrt(cfg["nx"]) + FLOOR_OPS)
+                floor = (DD_ATOL if cfg.get("precision") == "dd"
+                         else residual_floor(ms, 4 * math.sqrt(cfg["nx"]) + FLOOR_OPS)
                          if "model" in cfg else physical_floor(ms)
-                         if cfg["basis"] == "physical" else residual_floor(ms))
+                         if cfg.get("basis") == "physical" else residual_floor(ms))
+                val, ref = tube_values(tube), tube_values(ref)
                 res["serial"] = dict(
                     hist=ms.conv[1:ms.solve_iter + 1].copy(), wall=wall, floor=floor,
-                    tube_err=float((tube - ref).abs().max()) / float(ref.abs().max()),
-                    finite=bool(torch.isfinite(tube).all()))
+                    tube_err=float((val - ref).abs().max()) / float(ref.abs().max()),
+                    finite=bool(torch.isfinite(val).all()))
+                del val
                 del ms, problem, ref, tube
                 torch.cuda.empty_cache()
             out[label] = res
@@ -5895,6 +6091,8 @@ def space_worker(rank, size, store, directory):
 
 
 def fmt_comm(c):
+    if c is None:
+        return "no group (replicated)"
     return f"{c['ops']:.1f} ops, {c['bytes']:.0f} B moved, {c['staged']:.0f} B staged"
 
 
@@ -5909,24 +6107,31 @@ SPACE_NEEDED = {
     "gs_impl": ("gray_scott_pointwise", "sine_solve1d", "residual_row_norms"),
     "burgers2d": ("burgers2d_pointwise", "sine_solve1d", "residual_row_norms"),
     "ac_cn": ("allen_cahn_pointwise", "sine_solve1d", "residual_row_norms"),
+    "fe": ("theta_rhs2d", "residual_row_norms", "cpoint_combine"),
+    "dd_spectral": ("dd_interval_affine", "dd_theta_chain", "dd_arith", "residual_row_norms"),
+    "replicated": SPATIAL1D_KERNELS,
 }
-# the launches [space] prints a rank: K1-K7, K9, K10, K11, K14, K15 and K20
+# the launches [space] prints a rank: K1-K7, K9-K11, K14, K15, K18-K20, K23-K25
 SPACE_PRINTED = ("interval_affine", "theta_chain", "residual_row_norms", "cpoint_combine",
                  "sine_solve2d", "sine_affine2d", "theta_rhs2d", "affine_windows", "sine_solve1d",
                  "periodic_solve2d", "allen_cahn_pointwise", "gray_scott_pointwise",
-                 "burgers2d_pointwise")
+                 "burgers2d_pointwise", "restrict_combine", "interpolate_combine",
+                 "dd_interval_affine", "dd_theta_chain", "dd_arith")
 SPACE_MODES = {"toms": ("residual_row_norms squares",),
-               "physical": ("residual_row_norms squares", *_PENCIL),
+               "physical": ("residual_row_norms squares", "theta_rhs2d halo", *_PENCIL),
                "at64": ("residual_row_norms squares",),
                "ac_imex": ("residual_row_norms squares", "allen_cahn_pointwise prologue", *_PENCIL),
                "gs_at8": ("residual_row_norms squares", "gray_scott_pointwise prologue", *_PENCIL),
                "gs_impl": ("residual_row_norms squares", "gray_scott_pointwise halo", *_PENCIL),
                "burgers2d": ("residual_row_norms squares", "burgers2d_pointwise halo", *_PENCIL),
-               "ac_cn": ("residual_row_norms squares", "allen_cahn_pointwise halo", *_PENCIL)}
+               "ac_cn": ("residual_row_norms squares", "allen_cahn_pointwise halo", *_PENCIL),
+               "fe": ("residual_row_norms squares", "theta_rhs2d halo"),
+               "dd_spectral": ("residual_row_norms squares float32",),
+               "replicated": ()}
 # what a space shard must never launch: the whole-state kernels and modes
 SPACE_WHOLE = ("sine_solve2d", "sine_affine2d", "periodic_solve2d")
 SPACE_WHOLE_MODES = ("allen_cahn_pointwise whole", "gray_scott_pointwise whole",
-                     "burgers2d_pointwise whole")
+                     "burgers2d_pointwise whole", "theta_rhs2d whole")
 # the summary's launches of the periodic slabs' kernel modes: (row, [space]
 # cell, mode) on rank 0
 SPACE_ROW_LAUNCHES = (("allen_cahn_pointwise_halo", "ac_cn", "allen_cahn_pointwise halo"),
@@ -5935,7 +6140,8 @@ SPACE_ROW_LAUNCHES = (("allen_cahn_pointwise_halo", "ac_cn", "allen_cahn_pointwi
                       ("gray_scott_pointwise_prologue", "gs_at8", "gray_scott_pointwise prologue"),
                       ("burgers2d_pointwise_halo", "burgers2d", "burgers2d_pointwise halo"),
                       ("sine_solve1d_hartley", "ac_imex", "sine_solve1d transform"),
-                      ("sine_solve1d_hartley_lam_table", "gs_at8", "sine_solve1d be lam table"))
+                      ("sine_solve1d_hartley_lam_table", "gs_at8", "sine_solve1d be lam table"),
+                      ("theta_rhs2d_halo_fe", "fe", "theta_rhs2d halo"))
 
 
 def fmt_stats(stats, iters):
@@ -5964,9 +6170,16 @@ def phase_space(card):
     and prologue modes), each against (2, 1) (history and every rank's
     Newton and Krylov counts) and the serial solve, Allen-Cahn IMEX also
     against the plain versions at (2, 2), with the Newton-Krylov counts and
-    the collectives per iteration.  Returns the launches of K3's squares
-    mode (toms), K20's lam table (physical) and the periodic slabs' modes
-    (``SPACE_ROW_LAUNCHES``)."""
+    the collectives per iteration.  Then Heat2D FE (K7's halo mode; plain
+    at (2, 2) too; below MAIN_TOL within 4 iterations), spectral DD (K23,
+    K24, K25 and K3's float32 squares mode; no float64 kernel) and an
+    application without a space axis, run replicated (the [spatial1d]
+    example: every rank its (2, 1) time shard's history and time-group
+    collectives, bit for bit, and no space group); the fine tubes of these
+    three equal to the (2, 1) tubes bit for bit, and the physical cell's
+    history bit for bit that of the widened-slab route it had before K7's
+    halo mode.  Returns the launches of K3's squares mode (toms), K20's lam
+    table (physical) and the slabs' kernel modes (``SPACE_ROW_LAUNCHES``)."""
     t_phase = time.perf_counter()
     shard_env()
     size = SPACE_MESH[0] * SPACE_MESH[1]
@@ -5975,6 +6188,7 @@ def phase_space(card):
         ranks = shard_world(tmp, space_worker, size, SPACE_JOIN_S, "space")
         world_s = time.perf_counter() - t0
     grid = f"({SPACE_MESH[0]}, {SPACE_MESH[1]})"
+    S_ = SPACE_MESH[1]
     for label, cfg, kw, k, with_plain in space_cases():
         rs = [r[label] for r in ranks]
         kern = [r["kernel"] for r in rs]
@@ -5983,31 +6197,69 @@ def phase_space(card):
         t_only = [r["time"] for r in rs if "time" in r]
         same_t = all(np.array_equal(r["hist"], t_only[0]["hist"]) for r in t_only)
         ser = rs[0]["serial"]
-        floor, rtol = ser["floor"], MAIN_RTOL
+        dd_cell = cfg.get("precision") == "dd"
+        replicated = label == "replicated"
+        floor, rtol = (DD_ATOL, DD_RTOL) if dd_cell else (ser["floor"], MAIN_RTOL)
         ok_t, err_t = histories_agree(h, t_only[0]["hist"], floor, rtol)
         ok_s, err_s = histories_agree(h, ser["hist"], floor, rtol)
         ok_p, err_p = (histories_agree(h, rs[0]["plain"]["hist"], floor, rtol) if with_plain
                        else (True, float("nan")))
         n = cfg["nx"]
-        if "model" in cfg:
+        if replicated:
+            want_shape = (cfg["nt"], n - 2)
+        elif "model" in cfg:
             want_shape = (cfg["nt"],) + ((n, n) if cfg["model"] == "AllenCahn" else (2, n, n))
         else:
-            want_shape = (cfg["nt"],) + ((n, n) if cfg["basis"] == "physical" else (n - 2, n - 2))
-        ok_tube = (ser["tube_err"] <= SHARD_TUBE_RTOL and ser["finite"]
+            want_shape = (cfg["nt"],) + ((n, n) if cfg["basis"] == "physical" else
+                                         (2, n - 2, n - 2) if dd_cell else (n - 2, n - 2))
+        tube_rtol = DD_RTOL if dd_cell else SHARD_TUBE_RTOL
+        ok_tube = (ser["tube_err"] <= tube_rtol and ser["finite"]
                    and all(r["tube_shape"] == want_shape for r in rs))
         names, modes = SPACE_NEEDED[label], SPACE_MODES[label]
         ok_launch = all(all(r["launches"][x] > 0 for x in names)
                         and all(r["modes"][x] > 0 for x in modes)
                         and all(r["launches"][x] == 0 for x in SPACE_WHOLE)
-                        and all(r["modes"][x] == 0 for x in SPACE_WHOLE_MODES) for r in kern)
+                        and all(r["modes"][x] == 0 for x in SPACE_WHOLE_MODES)
+                        and not (dd_cell and any(r["launches"][x] for x in DD_FORBIDDEN))
+                        for r in kern)
         ok_plain = all(sum(r["plain"]["launches"].values()) == 0 for r in rs if "plain" in r)
         # every shard of a time shard takes its lanes' Newton and Krylov
         # iterations, those of the (2, 1) run's time shard
-        ok_stats = all(r["stats"] == t_only[i // SPACE_MESH[1]]["stats"]
-                       for i, r in enumerate(kern))
-        ok_stage = all(r["space_comm"]["staged"] > 0 and r["comm"]["staged"] > 0 for r in kern)
+        ok_stats = all(r["stats"] == t_only[i // S_]["stats"] for i, r in enumerate(kern))
+        ok_stage = all((r["space_comm"] is None if replicated else r["space_comm"]["staged"] > 0)
+                       and r["comm"]["staged"] > 0 for r in kern)
+        # the slice's own checks: a replicated run is its time shard's, bit
+        # for bit, with its collectives (none on the space group); the FE,
+        # DD and replicated tubes are the (2, 1) tube bit for bit; the
+        # physical cell keeps its history; FE converges within its cut
+        ok_own, own = True, []
+        if replicated:
+            ok_rep = all(np.array_equal(r["hist"], t_only[i // S_]["hist"])
+                         and r["comm"] == t_only[i // S_]["comm"] for i, r in enumerate(kern))
+            ok_own &= ok_rep
+            own.append(f"every rank's history and time-group collectives its (2, 1) time "
+                       f"shard's, bit for bit: {ok_rep}; space group: no collective "
+                       f"(no space Comm on any rank: {all(r['space_comm'] is None for r in kern)})")
+        if label in SPACE_DIGEST:
+            ok_dig = len({r["digest"] for r in kern + t_only}) == 1
+            ok_own &= ok_dig
+            own.append(f"fine tube equal to the (2, 1) tube bit for bit (SHA-1, every rank): "
+                       f"{ok_dig}")
+        if label == "physical":
+            ok_hist = h.shape == (len(SPACE_PHYSICAL_HISTORY),) and all(
+                a == b for a, b in zip(h, SPACE_PHYSICAL_HISTORY))
+            ok_own &= ok_hist
+            own.append(f"history equal bit for bit to the widened-slab route's: {ok_hist}")
+        if label == "fe":
+            ok_conv = h.size <= SPACE_FE_MAX_ITER and h[-1] < kw["tol"]
+            ok_own &= ok_conv
+            own.append(f"below tol {kw['tol']:.0e} within {SPACE_FE_MAX_ITER} iterations: "
+                       f"{ok_conv}")
+        if dd_cell:
+            own.append("no float64 kernel launched (" + ", ".join(DD_FORBIDDEN) + "): "
+                       + str(not any(r["launches"][x] for r in kern for x in DD_FORBIDDEN)))
         ok = same and same_t and ok_t and ok_s and ok_p and ok_tube and ok_launch and ok_plain \
-            and ok_stage and ok_stats
+            and ok_stage and ok_stats and ok_own
         what = f"AtMgrit({k})" if k else "Mgrit"
         print(f"[space] {label} {cfg} {grid} ({kern[0]['backend']}, staged {kern[0]['staged']}): "
               f"{h.size} iterations, history "
@@ -6017,8 +6269,10 @@ def phase_space(card):
               f" (rtol {rtol:.0e}, atol floor {floor:.2e}) | Newton/Krylov counts equal to "
               f"(2, 1)'s: {ok_stats} | "
               f"fine_solution {rs[0]['tube_shape']} vs the serial tube max rel "
-              f"{ser['tube_err']:.3e} (rtol {SHARD_TUBE_RTOL:.0e}) | {'ok' if ok else 'FAIL'} "
+              f"{ser['tube_err']:.3e} (rtol {tube_rtol:.0e}) | {'ok' if ok else 'FAIL'} "
               f"| {card}")
+        if own:
+            print(f"[space] {label} {grid}: " + "; ".join(own) + f" | {card}")
         print(f"[space] {label} walls (problem + setup + solve) {grid}: "
               + "; ".join(f"rank {i} {r['build']:.3f} + {r['setup']:.3f} + {r['wall']:.4f} s"
                           for i, r in enumerate(kern))
@@ -6055,7 +6309,9 @@ def phase_space(card):
         check(ok_plain, f"space {label}: the plain run launched a kernel")
         check(ok_stats, f"space {label}: Newton/Krylov counts differ from (2, 1)'s: "
                         f"{[r['stats'] for r in kern]} vs {[r['stats'] for r in t_only]}")
-        check(ok_stage, f"space {label}: the gloo ranks on the card staged nothing")
+        check(ok_stage, f"space {label}: the gloo ranks on the card staged nothing, or a "
+                        "replicated run made a space group")
+        check(ok_own, f"space {label}: " + "; ".join(own))
     print(f"[space] collectives, ms a call ({SPACE_REPS} calls between synchronisations), "
           f"space group {grid}: " + "; ".join(
               f"rank {i} {fmt_latency(r['latency'])}" for i, r in enumerate(ranks)) + f" | {card}")
@@ -6147,6 +6403,10 @@ REPLACES = {
                              "pymgrit_tpu/models/allen_cahn.py:82"),
     "sine_solve1d_hartley_lam_table": ("cuda", "pymgrit_tpu_torch/ops/csrc/sine_solve1d.cu",
                                        "pymgrit_tpu/models/gray_scott_2d.py:83"),
+    # Heat2D FE's space slabs: K7 in its halo mode (the neighbours' edge
+    # rows as operands, the ring rows only at the grid's edge)
+    "theta_rhs2d_halo_fe": ("cuda", "pymgrit_tpu_torch/ops/csrc/theta_rhs2d.cu",
+                            "pymgrit_tpu/models/heat_2d.py:629"),
 }
 
 

@@ -324,13 +324,18 @@ class RowRoutines:
         writes)."""
         if self.state_norm is not None:
             return self._hook_norms(a, b)
+        return self.ops.residual_row_norms(*self._norm_operands(a, b))
+
+    def _norm_operands(self, a, b):
+        """(s, u): row views whose row-wise difference K3 reduces, the rows
+        of a and b, or in DD the float32 value of the DD difference (K25's
+        resid) and a zero row."""
         if not self._dd:
-            return self.ops.residual_row_norms(_rows(a), _rows(b))
+            return _rows(a), _rows(b)
         diff = torch.empty((a.shape[0],) + tuple(a.shape[2:]), dtype=a.dtype, device=a.device)
         self.ops.dd_arith("resid", self._pair(a), self._pair(b), out=diff)
         d = _rows(diff)
-        zero = torch.zeros(d.shape[1], dtype=d.dtype, device=d.device).expand(d.shape)
-        return self.ops.residual_row_norms(d, zero)
+        return d, torch.zeros(d.shape[1], dtype=d.dtype, device=d.device).expand(d.shape)
 
     def _hook_norms(self, a, b):
         """``state_norm`` of each row of a - b, the difference handed over in
@@ -407,9 +412,9 @@ class Mgrit(RowRoutines):
                 'Specify a list of values for all but the coarsest level or an integer ( used for all levels).')
         if mesh is not None:
             raise NotImplementedError(
-                "mesh= is not taken by the port's Mgrit: time-sharded execution runs on "
-                "pymgrit_tpu_torch.parallel.ShardedMgrit (one process a time shard, "
-                "torch.distributed); the 'space' mesh axis is not ported (ROADMAP A7b)")
+                "mesh= is not taken by the port's Mgrit: sharded execution runs on "
+                "pymgrit_tpu_torch.parallel.ShardedMgrit (ROADMAP A7; one process a cell of a "
+                "('time', 'space') mesh from parallel.make_time_space_mesh, torch.distributed)")
         if lazy_f_relax:
             raise NotImplementedError(
                 "lazy_f_relax=True is not ported (ROADMAP: not to port; the condensed carry replaces it)")

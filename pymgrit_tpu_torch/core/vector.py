@@ -245,7 +245,7 @@ class Layout:
         leaves_t, self.spec = _flatten(template)
         if any(_is_dd(x) for x in leaves_t):
             raise NotImplementedError(
-                "a multi-leaf state with a double-double leaf is not ported (ROADMAP C4: "
+                "a multi-leaf state with a double-double leaf is not ported (ROADMAP A9: "
                 "precision='dd' takes one DD pair a state)")
         self.shapes = [tuple(torch.as_tensor(x).shape) for x in leaves_t]
         self.sizes = [int(np.prod(sh, dtype=np.int64)) for sh in self.shapes]

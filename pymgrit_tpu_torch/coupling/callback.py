@@ -85,6 +85,10 @@ class CallbackApplication(Application):
         ``"cpu"`` is asked for)
     """
 
+    # its steps run on the host: a 'space' mesh axis would repeat them on
+    # every space rank, so ``ShardedMgrit`` refuses n_space > 1
+    host_coupled = True
+
     def __init__(self, host_step: Callable, vector_template, vector_t_start,
                  *args, device=None, **kwargs):
         super().__init__(*args, **kwargs)

@@ -32,19 +32,22 @@ JAX package declares it; JAX's GSPMD partitions the same axis):
 
 * spectral: coefficient rows [s R, (s + 1) R) of the (nx-2, ny-2) array;
   every step is pointwise in the coefficients, so K1, K2 (and K8, K9
-  through ``affine_coeffs``) run unchanged on the slab's tables;
+  through ``affine_coeffs``) run unchanged on the slab's tables, and in
+  DD K23, K24 (and K25) on the slab's DD tables;
 * physical: field rows [s R, (s + 1) R) of the (nx, ny) state, the ring
-  only where the slab meets the grid's edge.  A BE/CN step is K7 on the
-  slab widened by one ghost row on each side (``Comm.row_halo``), then a
-  pencil solve (``_Pencil``): a y-transform of the slab's interior rows
-  (K20's transform mode, rows as lanes), ``all_to_all`` to column slabs,
-  the x-transform, the division by 1 + theta dt Lam[i, j] and the inverse
-  x-transform in one K20 solve with a (columns, nx-2) lam table, back to
-  row slabs and the inverse y-transform, written with the ring and g (K4).
-  ``relax_interval`` runs the same forward pencil on the seeds, K1 on the
-  column slab of coefficients (CN's ring correction through a second K1 and
-  K4) and the inverse pencil of the F-values.  FE has no space route
-  (ROADMAP A7c).
+  only where the slab meets the grid's edge (``_Slab``).  An FE step is K7's
+  halo mode on the slab, its ghost rows from one ``Comm.row_halo``, the
+  ring rows written only on the first and last shard.  A BE/CN step is K7's
+  halo mode (CN's ghost rows from one ``Comm.row_halo``; BE reads none),
+  then a pencil solve (``_Pencil``): a y-transform of the slab's interior
+  rows (K20's transform mode, rows as lanes), ``all_to_all`` to column
+  slabs, the x-transform, the division by 1 + theta dt Lam[i, j] and the
+  inverse x-transform in one K20 solve with a (columns, nx-2) lam table,
+  back to row slabs and the inverse y-transform, written with the ring and
+  g (K4).  ``relax_interval`` runs the same forward pencil on the seeds, K1
+  on the column slab of coefficients (CN's ring correction through a
+  second K1 and K4) and the inverse pencil of the F-values.  Physical DD
+  has no space route (ROADMAP A7c: its K26 products need a pencil).
 
 ``precision='dd'`` (the JAX package's double-double mode, ``ops/dd.py``):
 the state and the tables are float32 pairs split exactly from float64, the
@@ -147,7 +150,7 @@ class Heat2D(Application):
         self.fy = a / self.dy ** 2
         # state axis 0 (x) may be split over the mesh's 'space' axis
         self.space_sharding_axis = 0
-        self._pencil = None         # the physical space route (``_space_slab``)
+        self._slab = None           # the physical space route (``_space_slab``)
         self._slab_rows = slice(None)   # rows of the interior-shaped tables this state holds
         self._space = None              # (s, n_space) once a space shard
         self._Sx_np, lamx = sine_eigenbasis(nx - 2, self.fx)
@@ -337,13 +340,12 @@ class Heat2D(Application):
             if self._space != (s, n_space):
                 raise ValueError(f"this level is space shard {self._space[0]} of "
                                  f"{self._space[1]}; build it anew for shard {s} of {n_space}")
-            if self._pencil is not None:
-                self._pencil.comm = comm
+            if self._slab is not None:
+                self._slab.comm = comm
             return
-        if self._dd:
-            raise NotImplementedError("precision='dd' has no space route (ROADMAP A7c)")
-        if self.theta == 0.0:
-            raise NotImplementedError("Heat2D FE has no space route (ROADMAP A7c)")
+        if self._dd and not self._spectral:
+            raise NotImplementedError("precision='dd' in the physical basis has no space route: "
+                                      "its sine products (K26) need a pencil (ROADMAP A7c)")
         n = self._shape[0]
         if n % n_space:
             raise ValueError(f"the state's shape {self._shape} does not split over "
@@ -357,31 +359,43 @@ class Heat2D(Application):
             self._slab_rows = rows
             self._Lam_np, self._lift_hat_np = self._Lam_np[rows], self._lift_hat_np[rows]
             self._rhs_tbl0_hat_np = self._rhs_tbl0_hat_np[rows]
-            self._Lam, self._lift_hat = self._tensor(self._Lam_np), self._tensor(self._lift_hat_np)
-            start = self.vector_t_start[rows].clone()
+            x0 = self.vector_t_start
+            if self._dd:
+                self._Lam_dd = self._split(self._Lam_np.reshape(-1))
+                self._lift_hat_dd = self._split(self._lift_hat_np.reshape(-1))
+                start = dd.DD(x0.hi[rows].clone(), x0.lo[rows].clone(), self.ops)
+            else:
+                self._Lam = self._tensor(self._Lam_np)
+                self._lift_hat = self._tensor(self._lift_hat_np)
+                start = x0[rows].clone()
         else:
             if R < 2:
                 raise ValueError(f"{self.nx} rows over n_space = {n_space}: a space shard of the "
                                  "physical state needs two rows")
-            pen = self._pencil = _Pencil(self, s, n_space, comm)
-            self._slab_rows = slice(pen.gi0 - 1, pen.gi1 - 1)
-            cols = slice(pen.c0[s], pen.c0[s + 1])
-            # the closed form's tables in the column slab's layout [column][x]
-            rhs0_hat = self._Sx_np @ self._rhs_tbl_raw0 @ self._Sy_np
-            self._Lam_np = np.ascontiguousarray(self._Lam_np[:, cols].T)
-            self._lift_hat_np = np.ascontiguousarray(self._lift_hat_np[:, cols].T)
-            self._rhs_tbl0_hat_np = np.ascontiguousarray(rhs0_hat[:, cols].T)
-            self._lift = self._tensor(self._lift_np[self._slab_rows])
+            # FE has no solve: its slab needs the rows alone, not the pencil
+            slab = self._slab = (_Slab if self.theta == 0.0 else _Pencil)(self, s, n_space, comm)
+            self._slab_rows = slice(slab.gi0 - 1, slab.gi1 - 1)
+            if self.theta > 0.0:
+                cols = slice(slab.c0[s], slab.c0[s + 1])
+                # the closed form's tables in the column slab's layout [column][x]
+                rhs0_hat = self._Sx_np @ self._rhs_tbl_raw0 @ self._Sy_np
+                self._Lam_np = np.ascontiguousarray(self._Lam_np[:, cols].T)
+                self._lift_hat_np = np.ascontiguousarray(self._lift_hat_np[:, cols].T)
+                self._rhs_tbl0_hat_np = np.ascontiguousarray(rhs0_hat[:, cols].T)
+                self._lift = self._tensor(self._lift_np[self._slab_rows])
             self._ring = self._tensor(self._ring_np[rows])
             start = self._tensor(self._init_np[rows])
         self._rhs_tbl = self._rhs_tbl[:, self._slab_rows]
-        self._rhs_tbl_t = self._tensor(self._rhs_tbl.reshape(self._rhs_tbl.shape[0], -1))
+        tbl = self._rhs_tbl.reshape(self._rhs_tbl.shape[0], -1)
+        self._rhs_tbl_t = (torch.as_tensor(tbl, device=self.device) if self._dd
+                           else self._tensor(tbl))
         self._int_shape = self._rhs_tbl.shape[1:]
         self._N = int(np.prod(self._int_shape))
         self._shape = (R,) + tuple(self._shape[1:])
         self._space = (s, n_space)
         self.vector_t_start = start
-        self.vector_template = torch.zeros(self._shape, dtype=torch.float64, device=self.device)
+        self.vector_template = (self._split(np.zeros(self._shape)) if self._dd else
+                                torch.zeros(self._shape, dtype=torch.float64, device=self.device))
 
     def _interval_tables(self, dt, m1):
         """Closed-form relaxation tables: the spectral theta-step is the
@@ -525,8 +539,8 @@ class Heat2D(Application):
             return out
         if rhs1 is None:
             rhs1 = rhs0                     # FE reads the rhs at the step's start only
-        if self._pencil is not None:
-            return self._pencil.chain(seed, tp, tc, rhs1, rhs0, out, g)
+        if self._slab is not None and self.theta > 0.0:
+            return self._slab.chain(seed, tp, tc, rhs1, rhs0, out, g)
         b = None if self.theta == 0.0 else torch.empty(
             (J,) + self._int_shape, dtype=seed.dtype, device=seed.device)
         x = seed
@@ -534,8 +548,10 @@ class Heat2D(Application):
             dt, shift = self._step_sizes(tc[k] - tp[k])
             gk = None if g is None else g[:, k]
             if b is None:
+                # FE: on a slab, K7's halo mode with the neighbours' edge rows
                 self.ops.theta_rhs2d(x, out[:, k], dt, 0.0, self.fx, self.fy, rhs1[k],
-                                     rhs0[k], ring=self._ring, g=gk)
+                                     rhs0[k], ring=self._ring, g=gk,
+                                     halo=None if self._slab is None else self._slab.halo(x))
             else:
                 self.ops.theta_rhs2d(x, b, dt, self.theta, self.fx, self.fy, rhs1[k],
                                      rhs0[k], lift=self._lift)
@@ -621,8 +637,8 @@ class Heat2D(Application):
             self.ops.interval_affine(seed.view(J, N), A_t, G_t, out.view(J, R, N), r0,
                                      None if seed_out is None else seed_out.view(J, N))
             return result
-        if self._pencil is not None:
-            return self._pencil.relax(seed, A_t, G_t, dt, r0, out, result, seed_out)
+        if self._slab is not None:
+            return self._slab.relax(seed, A_t, G_t, dt, r0, out, result, seed_out)
         xhat = torch.empty((J,) + self._int_shape, dtype=seed.dtype, device=seed.device)
         self.ops.sine_solve2d(seed[:, 1:-1, 1:-1], xhat, self._Sx, self._Sy)
         dhat = dscale = None
@@ -734,31 +750,58 @@ class Heat2D(Application):
 
 
 
-class _Pencil(PencilExchange):
+class _Slab:
     """A physical Heat2D level's space shard s of n (``Heat2D._space_slab``):
     field rows [r0, r1) = [s R, (s + 1) R) of the (nx, ny) state, of which
     the interior rows [gi0, gi1) (all but a ring row at the grid's edge),
-    and, between the pencil transforms' passes, the column slab [c0[s],
-    c0[s + 1]) of the ny - 2 interior columns (``PencilExchange``: the
-    interior rows and columns change slabs).  The x-pass's lam table
-    holds Lam[:, j] for the slab's columns j (a row each)."""
+    rows [li0, li1) of the slab.  An FE level needs no more: its step is
+    K7's halo mode."""
 
     def __init__(self, model: Heat2D, s: int, n: int, comm):
-        self.model = model
-        nx, ny = model.nx, model.ny
+        self.model, self.comm = model, comm
+        nx = model.nx
         R = self.R = nx // n
         self.r0, self.r1 = s * R, (s + 1) * R
-        gi0 = [max(t * R, 1) for t in range(n)]
-        gi1 = [min((t + 1) * R, nx - 1) for t in range(n)]
-        self.gi0, self.gi1 = gi0[s], gi1[s]
+        # every shard's interior rows
+        self.gi0_all = [max(t * R, 1) for t in range(n)]
+        self.gi1_all = [min((t + 1) * R, nx - 1) for t in range(n)]
+        self.gi0, self.gi1 = self.gi0_all[s], self.gi1_all[s]
         self.li0, self.li1 = self.gi0 - self.r0, self.gi1 - self.r0
-        nc = ny - 2
-        # every shard's interior rows (their count and first x index) and columns
-        super().__init__(comm, s, [b - a for a, b in zip(gi0, gi1)], [a - 1 for a in gi0],
-                         [nc * t // n for t in range(n + 1)])
-        # the stencil's rows: the slab and a ghost row where a neighbour holds it
-        self.w0, self.w1 = max(self.r0 - 1, 0), min(self.r1 + 1, nx)
         self.top, self.bottom = self.r0 == 0, self.r1 == nx
+
+    def halo(self, x, exchange=True):
+        """K7's halo operands for the slabs x (J, R, ny): the neighbours'
+        edge rows (one ``Comm.row_halo``), None where the slab's edge is
+        the grid's ring.  Without ``exchange`` (a stencil that reads no
+        neighbour row: BE) the slab's own edge rows stand in, never read."""
+        above, below = (self.comm.row_halo(x[:, 0], x[:, self.R - 1]) if exchange
+                        else (x[:, 0], x[:, self.R - 1]))
+        return None if self.top else above, None if self.bottom else below
+
+    def ring(self, dst):
+        """The Dirichlet ring's cells of the slab views dst (..., R, ny)."""
+        ring = self.model._ring
+        dst[..., 0].copy_(ring[:, 0].expand(dst[..., 0].shape))
+        dst[..., -1].copy_(ring[:, -1].expand(dst[..., -1].shape))
+        if self.top:
+            dst[..., 0, 1:-1].copy_(ring[0, 1:-1].expand(dst[..., 0, 1:-1].shape))
+        if self.bottom:
+            dst[..., -1, 1:-1].copy_(ring[-1, 1:-1].expand(dst[..., -1, 1:-1].shape))
+
+
+class _Pencil(_Slab, PencilExchange):
+    """A physical BE/CN level's space shard (``_Slab``) and, between the
+    pencil transforms' passes, the column slab [c0[s], c0[s + 1]) of the
+    ny - 2 interior columns (``PencilExchange``: the interior rows and
+    columns change slabs).  The x-pass's lam table holds Lam[:, j] for the
+    slab's columns j (a row each)."""
+
+    def __init__(self, model: Heat2D, s: int, n: int, comm):
+        _Slab.__init__(self, model, s, n, comm)
+        nc = model.ny - 2
+        # every shard's interior rows (their count and first x index) and columns
+        PencilExchange.__init__(self, comm, s, [b - a for a, b in zip(self.gi0_all, self.gi1_all)],
+                                [a - 1 for a in self.gi0_all], [nc * t // n for t in range(n + 1)])
         self.lam = model._tensor(model._Lam_np[:, self.c0[s]:self.c0[s + 1]].T)
         self._shifts = {}           # theta dt by lane, per step size
         self._corr = {}             # (dt, m1) -> CN's correction tables
@@ -773,29 +816,6 @@ class _Pencil(PencilExchange):
         xh = torch.empty_like(X)
         m.ops.sine_solve1d(X, xh, m._Sx)
         return xh
-
-    # -- the state's ring and ghost rows ----------------------------------
-
-    def widen(self, x, uw):
-        """uw <- the slab x with the neighbours' edge rows around it (the
-        rows K7's stencil reads)."""
-        o = self.r0 - self.w0
-        uw[:, o:o + self.R].copy_(x)
-        above, below = self.comm.row_halo(x[:, 0], x[:, self.R - 1])
-        if not self.top:
-            uw[:, 0].copy_(above)
-        if not self.bottom:
-            uw[:, -1].copy_(below)
-
-    def ring(self, dst):
-        """The Dirichlet ring's cells of the slab views dst (..., R, ny)."""
-        ring = self.model._ring
-        dst[..., 0].copy_(ring[:, 0].expand(dst[..., 0].shape))
-        dst[..., -1].copy_(ring[:, -1].expand(dst[..., -1].shape))
-        if self.top:
-            dst[..., 0, 1:-1].copy_(ring[0, 1:-1].expand(dst[..., 0, 1:-1].shape))
-        if self.bottom:
-            dst[..., -1, 1:-1].copy_(ring[-1, 1:-1].expand(dst[..., -1, 1:-1].shape))
 
     def ring_lift(self, seed):
         """``Heat2D._ring_lift`` of the slab's interior rows: lift(ring of
@@ -826,23 +846,21 @@ class _Pencil(PencilExchange):
         return self._shifts[key]
 
     def chain(self, seed, tp, tc, rhs1, rhs0, out, g):
-        """``Heat2D.step_chain`` on the slab: per step K7 on the widened
-        slab, the pencil solve (K20: y-transform, x-pass with the lam table,
-        inverse y-transform) and the ring, then g (K4)."""
+        """``Heat2D.step_chain`` on the slab: per step K7's halo mode, the
+        pencil solve (K20: y-transform, x-pass with the lam table, inverse
+        y-transform) and the ring, then g (K4)."""
         m = self.model
         ops = m.ops
         L, J = tp.shape
         rm, nc = self.rows[self.s], m.ny - 2
         dtype, dev = seed.dtype, seed.device
-        uw = torch.empty((J, self.w1 - self.w0, m.ny), dtype=dtype, device=dev)
         b = torch.empty((J * rm, nc), dtype=dtype, device=dev)
         yh = torch.empty_like(b)
         x = seed
         for k in range(L):
             dt, shift = m._step_sizes(tc[k] - tp[k])
-            self.widen(x, uw)
-            ops.theta_rhs2d(uw, b.view(J, rm, nc), dt, m.theta, m.fx, m.fy, rhs1[k], rhs0[k],
-                            lift=m._lift)
+            ops.theta_rhs2d(x, b.view(J, rm, nc), dt, m.theta, m.fx, m.fy, rhs1[k], rhs0[k],
+                            lift=m._lift, halo=self.halo(x, exchange=m.theta < 1.0))
             ops.sine_solve1d(b, yh, m._Sy)
             X = self.to_cols(yh, J)
             ops.sine_solve1d(X, X, m._Sx, self.lam, self.lane_shifts(shift, J))

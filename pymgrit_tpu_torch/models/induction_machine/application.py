@@ -48,6 +48,11 @@ class InductionMachine(Application):
     ``device`` (the CUDA card unless ``"cpu"`` is asked for) places the
     solver's states; every GetDP round trip runs on the host."""
 
+    # GetDP runs on the host in one directory: a 'space' mesh axis would
+    # repeat each run on every space rank, so ``ShardedMgrit`` refuses
+    # n_space > 1
+    host_coupled = True
+
     def __init__(self, grid: str, path_im3kw: str, path_getdp: str,
                  imposed_speed: int = 1, nb_trelax: int = 2, analysis_type: int = 1,
                  nb_max_iter: int = 60, relaxation_factor: float = 0.5,

@@ -8,6 +8,18 @@
 //   (L u)_ij = 2 (fx + fy) u_ij - fy u_i,j-1 - fy u_i,j+1 - fx u_i-1,j - fx u_i+1,j
 // on the interior (0 on the ring in FE), plus g where given (FE).
 //
+// Halo mode (a space shard of the state: P rows of the grid, every column):
+// the rows past the slab's edges come as operands, `above` and `below`
+// (one row a state, B x Q, rows contiguous), or a null pointer where that edge
+// row is the grid's ring (the first shard's top, the last one's bottom).
+// The rows off the ring are all rows but such edge rows; BE/CN write
+// those (out, lift and the rhs rows have that many rows), FE writes every
+// row and the ring's arithmetic only on the ring rows.  No buffer is
+// widened: each row's north and south neighbour is picked by pointer.
+// With both pointers null the slab is the whole state (modes 0-2 above),
+// and a slab's points take the whole state's operations, so the two agree
+// bit for bit.
+//
 // Replaces: pymgrit_tpu/models/heat_2d.py Heat2D.step_batched (:382-410):
 // the right-hand side of the implicit solve (BE, CN) and FE's whole
 // explicit step with the reference's `ring + u` on the boundary.  The
@@ -19,6 +31,11 @@
 // 1 - theta, 2 (fx + fy)) are formed in double here too, then rounded to
 // the working type.  With a dt tensor, shift = dt_b * theta in the working
 // type, as the plain version's tensor product.
+//
+// Replaces in halo mode: the same function on a state split over the
+// mesh's 'space' axis (pymgrit_tpu/models/heat_2d.py Heat2D.step, FE
+// branch, :629-641, and the BE/CN right-hand side, whose neighbour rows
+// GSPMD exchanges across the split).
 //
 // Bound: bytes.  BE reads u's interior, one rhs row and the lift and
 // writes the interior: at the main path's 512 states of 129^2, 134 MB,
@@ -63,9 +80,11 @@ __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b);
 template <typename T>
 struct Args {
   const T *u, *r1, *r0, *lift, *ring, *g, *dt;
+  const T *above, *below;   // halo rows (B x Q); null: that edge row is the ring
   T* out;
-  int64_t u_sb, u_sr, o_sb, o_sr, r_sb, g_sb, g_sr;
+  int64_t u_sb, u_sr, o_sb, o_sr, r_sb, g_sb, g_sr, h_sb;
   int B, P, Q, bands;
+  int top, bottom;          // 1 where u's first / last row is the grid's ring
   // the scalars in the working type: dt (without a dt tensor), theta dt,
   // theta, 1 - theta, 2 (fx + fy), fx, fy
   T dt0, shift0, theta, omt, c2, fx, fy;
@@ -78,13 +97,25 @@ __device__ __forceinline__ T stencil(const Args<T>& a, T c, T w, T e, T n, T s) 
   return sub(sub(sub(sub(mul(a.c2, c), mul(a.fy, w)), mul(a.fy, e)), mul(a.fx, n)), mul(a.fx, s));
 }
 
+// Row r of state b's u: past the slab's edges (r = -1, r = P) the halo
+// row, null where that edge is the ring (never read there)
+template <typename T>
+struct Rows {
+  const T *u, *above, *below;
+  int64_t us;
+  int P;
+  __device__ __forceinline__ const T* operator()(int r) const {
+    return r < 0 ? above : r >= P ? below : u + r * us;
+  }
+};
+
 // A thread's column of the band: every value it reads is loaded first (the
 // band's rows of each operand, in registers), then combined and stored.
 template <typename T, int MODE>
 __global__ void __launch_bounds__(kMaxThreads) theta_rhs2d_kernel(const Args<T> a) {
   const int64_t b = blockIdx.x / a.bands;
   const int band = (int)(blockIdx.x - b * a.bands);
-  const int rows = MODE == 2 ? a.P : a.P - 2;
+  const int rows = MODE == 2 ? a.P : a.P - a.top - a.bottom;
   const int cols = MODE == 2 ? a.Q : a.Q - 2;
   const int i0 = band * kRows;
   const int n = rows - i0 < kRows ? rows - i0 : kRows;     // rows of this band
@@ -99,6 +130,8 @@ __global__ void __launch_bounds__(kMaxThreads) theta_rhs2d_kernel(const Args<T> 
   const T* __restrict__ g = a.g != nullptr ? a.g + b * a.g_sb : nullptr;
   T* __restrict__ o = a.out + b * a.o_sb;
   const int64_t us = a.u_sr;
+  const Rows<T> row{u, a.above != nullptr ? a.above + b * a.h_sb : nullptr,
+                    a.below != nullptr ? a.below + b * a.h_sb : nullptr, us, a.P};
   for (int col = threadIdx.x; col < cols; col += blockDim.x) {
     if constexpr (MODE == 0) {
       T uc[kRows], rv[kRows], lv[kRows];
@@ -106,7 +139,7 @@ __global__ void __launch_bounds__(kMaxThreads) theta_rhs2d_kernel(const Args<T> 
       for (int k = 0; k < kRows; ++k) {
         if (k < n) {
           const int64_t i = i0 + k, f = i * cols + col;
-          uc[k] = u[(i + 1) * us + col + 1];
+          uc[k] = u[(i + a.top) * us + col + 1];
           rv[k] = r1[f];
           lv[k] = a.lift[f];
         }
@@ -121,19 +154,21 @@ __global__ void __launch_bounds__(kMaxThreads) theta_rhs2d_kernel(const Args<T> 
         }
       }
     } else if constexpr (MODE == 1) {
-      // the column's u rows i0 .. i0 + n + 1 (interior rows i0 .. i0 + n - 1
-      // and one halo row each side), each row's west and east neighbours
+      // the column's u rows of out rows i0 .. i0 + n - 1 and one neighbour
+      // row each side (u row i0 + top - 1 + k: a halo row past the slab),
+      // each row's west and east neighbours
       T uc[kRows + 2], uw[kRows], ue[kRows], rv1[kRows], rv0[kRows], lv[kRows];
-      const T* __restrict__ ucol = u + i0 * us + col + 1;
+      const int ur = i0 + a.top - 1;     // u row of the band's north neighbour
 #pragma unroll
       for (int k = 0; k < kRows + 2; ++k)
-        if (k < n + 2) uc[k] = ucol[k * us];
+        if (k < n + 2) uc[k] = row(ur + k)[col + 1];
 #pragma unroll
       for (int k = 0; k < kRows; ++k) {
         if (k < n) {
           const int64_t f = (int64_t)(i0 + k) * cols + col;
-          uw[k] = ucol[(k + 1) * us - 1];
-          ue[k] = ucol[(k + 1) * us + 1];
+          const T* __restrict__ uk = u + (ur + k + 1) * us + col + 1;
+          uw[k] = uk[-1];
+          ue[k] = uk[1];
           rv1[k] = r1[f];
           rv0[k] = r0[f];
           lv[k] = a.lift[f];
@@ -152,24 +187,24 @@ __global__ void __launch_bounds__(kMaxThreads) theta_rhs2d_kernel(const Args<T> 
         }
       }
     } else {
-      // FE: the whole state; the ring's points keep ring + u
+      // FE: every row of the state or slab; the ring's points keep ring + u
       T uc[kRows + 2], uw[kRows], ue[kRows], rg[kRows], rv0[kRows];
       const bool inner_col = col > 0 && col < cols - 1;
-      const T* __restrict__ ucol = u + col;
+      const int i_lo = a.top, i_hi = rows - a.bottom;   // the rows off the ring
 #pragma unroll
       for (int k = 0; k < kRows + 2; ++k) {
-        const int i = i0 + k - 1;
-        if (k < n + 2 && i >= 0 && i < rows) uc[k] = ucol[i * us];
+        const T* __restrict__ rk = row(i0 + k - 1);
+        if (k < n + 2 && rk != nullptr) uc[k] = rk[col];
       }
 #pragma unroll
       for (int k = 0; k < kRows; ++k) {
         const int i = i0 + k;
         if (k < n) {
           rg[k] = a.ring[(int64_t)i * cols + col];
-          if (inner_col && i > 0 && i < rows - 1) {
-            uw[k] = ucol[i * us - 1];
-            ue[k] = ucol[i * us + 1];
-            rv0[k] = r0[(int64_t)(i - 1) * (cols - 2) + col - 1];
+          if (inner_col && i >= i_lo && i < i_hi) {
+            uw[k] = u[i * us + col - 1];
+            ue[k] = u[i * us + col + 1];
+            rv0[k] = r0[(int64_t)(i - i_lo) * (cols - 2) + col - 1];
           }
         }
       }
@@ -178,7 +213,7 @@ __global__ void __launch_bounds__(kMaxThreads) theta_rhs2d_kernel(const Args<T> 
         const int i = i0 + k;
         if (k < n) {
           T v = add(rg[k], uc[k + 1]);
-          if (inner_col && i > 0 && i < rows - 1) {
+          if (inner_col && i >= i_lo && i < i_hi) {
             const T lu = stencil(a, uc[k + 1], uw[k], ue[k], uc[k], uc[k + 2]);
             v = add(sub(v, mul(d, lu)), mul(d, rv0[k]));
           }
@@ -192,8 +227,9 @@ __global__ void __launch_bounds__(kMaxThreads) theta_rhs2d_kernel(const Args<T> 
 
 // args (int64): CUDA device, then the pointers u, out, r1, r0, lift, ring,
 // g, dt (0: none), u's batch and row strides, out's, the rhs rows' batch
-// stride, g's batch and row strides, B, P, Q, the mode (0 BE, 1 CN, 2 FE)
-// (ops/theta_rhs.py::pack)
+// stride, g's batch and row strides, B, P (u's rows), Q, the mode (0 BE,
+// 1 CN, 2 FE), the halo rows above and below (0: that edge row is the
+// grid's ring) and their batch stride (ops/theta_rhs.py::pack)
 template <typename T>
 int launch(const int64_t* g, double dt, double theta, double fx, double fy, void* stream) {
   Args<T> a{};
@@ -212,14 +248,20 @@ int launch(const int64_t* g, double dt, double theta, double fx, double fy, void
   a.r_sb = g[13];
   a.g_sb = g[14];
   a.g_sr = g[15];
+  a.above = reinterpret_cast<const T*>(g[20]);
+  a.below = reinterpret_cast<const T*>(g[21]);
+  a.h_sb = g[22];
+  a.top = a.above == nullptr;
+  a.bottom = a.below == nullptr;
   const int64_t B = g[16], P = g[17], Q = g[18], mode = g[19];
   if (B == 0) return 0;
-  if (P < 3 || Q < 3 || B > 0x7fffffff || P * Q > 0x7fffffff || mode < 0 || mode > 2)
+  const int64_t inner = P - a.top - a.bottom;     // the rows off the ring
+  if (inner < 1 || Q < 3 || B > 0x7fffffff || P * Q > 0x7fffffff || mode < 0 || mode > 2)
     return (int)cudaErrorInvalidValue;
   a.B = (int)B;
   a.P = (int)P;
   a.Q = (int)Q;
-  const int64_t rows = mode == 2 ? P : P - 2, cols = mode == 2 ? Q : Q - 2;
+  const int64_t rows = mode == 2 ? P : inner, cols = mode == 2 ? Q : Q - 2;
   a.bands = (int)((rows + kRows - 1) / kRows);
   if (B * a.bands > 0x7fffffff) return (int)cudaErrorInvalidValue;
   // the plain version's Python products of scalars, in double

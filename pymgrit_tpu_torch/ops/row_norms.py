@@ -77,8 +77,12 @@ def residual_row_norms(s, u, squares=False):
                      "residual_row_norms")
         residual_row_norms.launches += 1
         residual_row_norms.mode_launches["squares" if squares else "norms"] += 1
+        if squares and s.dtype == torch.float32:
+            residual_row_norms.mode_launches["squares float32"] += 1
     return out
 
 
 residual_row_norms.launches = 0
-residual_row_norms.mode_launches = {"norms": 0, "squares": 0}   # launches by mode
+# launches by mode; "squares float32" counts the squares mode's float32
+# launches again (a DD slab's norms: K25's float32 resid rows)
+residual_row_norms.mode_launches = {"norms": 0, "squares": 0, "squares float32": 0}

@@ -47,20 +47,25 @@ as on the serial solver's ragged levels.
 A mesh with n_space > 1 splits every state's ``space_sharding_axis`` over
 the space group: each process holds the slab [s R, (s + 1) R) of that axis
 (R = its length / n_space) in every tube, and the application's space route
-(``_space_slab``: Heat2D BE/CN, spectral and physical; the periodic
-Newton-Krylov models Allen-Cahn, Gray-Scott 2D and Burgers 2D, whose slabs
-take a Hartley pencil on K20, the halo modes of K11, K14 and K15 and
-Krylov reductions over the space group) does the arithmetic on the slab and
-its own communication over the space group (JAX's GSPMD inserts the
-collectives of the same splits).  The time collectives stay on the time
-group.  Each C-point's norm is the root (``sqrt_rn``) of its slabs' sums of
-squares (K3's squares mode) added over the space group; then the time
-reduction runs as with one slab.  ``random_init_guess`` draws the whole
-states and keeps the slab, so the history does not depend on n_space;
-``fine_solution`` gathers over time, then over space.  An application
-without a space route, Heat2D FE, ``precision='dd'`` and spatial
-coarsening raise on n_space > 1 (ROADMAP A7c), as does a state width that
-n_space does not divide.
+(``_space_slab``: Heat2D BE/CN, spectral and physical, FE on K7's halo mode
+and spectral DD on the slabs' DD tables; the periodic Newton-Krylov models
+Allen-Cahn, Gray-Scott 2D and Burgers 2D, whose slabs take a Hartley pencil
+on K20, the halo modes of K11, K14 and K15 and Krylov reductions over the
+space group) does the arithmetic on the slab and its own communication
+over the space group (JAX's GSPMD inserts the collectives of the same
+splits).  The time collectives stay on the time group.  Each C-point's norm
+is the root (``sqrt_rn``) of its slabs' sums of squares (K3's squares mode;
+in DD of K25's float32 resid rows, in float32) added over the space group;
+then the time reduction runs as with one slab.  ``random_init_guess`` draws
+the whole states and keeps the slab, so the history does not depend on
+n_space; ``fine_solution`` gathers over time, then over space.  An
+application without a space axis (no ``_space_slab``) runs whole on every
+space rank, as JAX's ``_put_spec`` leaves it: no space group, so every
+space rank of a time shard computes the same bits.  Physical DD (ROADMAP
+A7c), spatial coarsening (no slab split fits a fine width 2c - 1 and a
+coarse width c) and applications that step on the host (``host_coupled``:
+``CallbackApplication``, the induction machine; ROADMAP A7c) raise on
+n_space > 1, as does a state width that n_space does not divide.
 """
 
 from __future__ import annotations
@@ -188,35 +193,51 @@ class ShardedMgrit(RowRoutines):
     def _space_route(self, problem, transfer, mesh):
         """Hand every level its space shard (the application's
         ``_space_slab``), after the refusals: every rank raises alike,
-        before any collective."""
+        before any collective.  An application without a space axis (no
+        ``_space_slab`` on level 0) runs whole on every space rank, as
+        JAX's ``_put_spec`` leaves it unsharded: ``space_comm`` stays None,
+        so its norms, slabs and gathers are those of n_space = 1, only the
+        time group communicates and every space rank of a time shard
+        computes the same bits."""
         for p in problem:
-            if vector.contains_dd(p.vector_template):
+            if getattr(p, "host_coupled", False):
                 raise NotImplementedError(
-                    "precision='dd' has no space route: n_space > 1 (ROADMAP A7c)")
+                    f"{type(p).__name__} steps on the host: replicated over n_space > 1 space "
+                    "ranks each host call would run n_space times (ROADMAP A7c)")
+        if getattr(problem[0], "_space_slab", None) is None:
+            return
+        for p in problem:
             if getattr(p, "_space_slab", None) is None:
                 raise NotImplementedError(
-                    f"{type(p).__name__} has no space route: n_space > 1 (ROADMAP A7c)")
+                    f"{type(p).__name__} has no space route under a split level 0: "
+                    "n_space > 1 (ROADMAP A7c)")
         if transfer is not None and not all(type(tr) is GridTransferCopy for tr in transfer):
-            raise NotImplementedError("spatial coarsening under a space axis (n_space > 1) is not "
-                                      "ported (ROADMAP A7c)")
+            raise NotImplementedError(
+                "spatial coarsening under a space axis (n_space > 1): a vertex grid's fine "
+                "width 2c - 1 and coarse width c have no common divisor n_space > 1, so no "
+                "split into slabs fits both levels (JAX's executor cannot place them either)")
         self.space_axis = problem[0].space_sharding_axis
+        # the space axis's place in a tube row: after the pair axis of a DD row
+        self._space_dim = 1 + self.space_axis + int(vector.contains_dd(problem[0].vector_template))
         self.space_comm = Comm(mesh.space_group, problem[0].vector_template.device)
         for p in problem:
             p._space_slab(mesh.space_rank, self.n_space, self.space_comm)
 
     def _row_norms(self, a, b):
         """The serial solver's per-row norms; on a space slab the root of the
-        sums of squares (K3's squares mode) added over the space group."""
+        sums of squares (K3's squares mode; in DD of K25's float32 resid
+        rows, in float32, as the serial recipe) added over the space
+        group."""
         if self.space_comm is None:
             return super()._row_norms(a, b)
-        sq = self.ops.residual_row_norms(_rows(a), _rows(b), squares=True)
+        sq = self.ops.residual_row_norms(*self._norm_operands(a, b), squares=True)
         return sqrt_rn(self.space_comm.all_reduce(sq))
 
     def _keep_slab(self, rows):
         """This shard's slab of whole states (R, ...) along the space axis."""
         if self.space_comm is None:
             return rows
-        ax = 1 + self.space_axis
+        ax = self._space_dim
         R = rows.shape[ax] // self.n_space
         return rows.narrow(ax, self.mesh.space_rank * R, R)
 
@@ -225,7 +246,7 @@ class ShardedMgrit(RowRoutines):
         space group)."""
         if self.space_comm is None:
             return tube
-        ax = 1 + self.space_axis
+        ax = self._space_dim
         return self.space_comm.all_gather(tube.movedim(ax, 0).contiguous()).movedim(0, ax) \
             .contiguous()
 
@@ -343,21 +364,20 @@ class ShardedMgrit(RowRoutines):
             lay, shape = self._layouts[lvl], tuple(rows.shape[1:])
             for c in range(0, idx.size, _DRAW_ROWS):
                 part = idx[c:c + _DRAW_ROWS]
-                if self._dd:
-                    rows[c:c + part.size] = prng.random_dd_tube(
-                        self.rng_seed, nt, shape[1:], rows.device, rows=part)
-                elif lay is not None:
+                if lay is not None:
                     rows[c:c + part.size] = torch.cat(
                         [x.reshape(part.size, -1) for x in prng.random_leaves(
                             self.rng_seed, nt, lay.shapes, rows.device, rows=part)], dim=1)
-                else:
-                    # the whole states' draw (the history does not depend on
-                    # n_space), this shard's slab kept
-                    whole = list(shape)
-                    if self.space_comm is not None:
-                        whole[self.space_axis] *= self.n_space
-                    rows[c:c + part.size] = self._keep_slab(prng.random_leaves(
-                        self.rng_seed, nt, [tuple(whole)], rows.device, rows=part)[0])
+                    continue
+                # the whole states' draw (the history does not depend on
+                # n_space), this shard's slab kept
+                whole = list(shape[1:] if self._dd else shape)
+                if self.space_comm is not None:
+                    whole[self.space_axis] *= self.n_space
+                draw = (prng.random_dd_tube(self.rng_seed, nt, tuple(whole), rows.device, rows=part)
+                        if self._dd else prng.random_leaves(self.rng_seed, nt, [tuple(whole)],
+                                                            rows.device, rows=part)[0])
+                rows[c:c + part.size] = self._keep_slab(draw)
         start = np.nonzero(idx == 0)[0]
         if start.size:
             rows[torch.as_tensor(start, device=rows.device)] = self._state(p.vector_t_start, lvl)

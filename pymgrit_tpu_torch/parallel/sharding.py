@@ -21,8 +21,9 @@ mesh)`` in each.
 JAX gives the 'space' axis to GSPMD, which partitions each application's
 dense linear algebra; the port partitions the state's
 ``space_sharding_axis`` into slabs itself, through the application's space
-route (``Heat2D``, ROADMAP A7b; ``AllenCahn``, ``GrayScott2D`` and
-``Burgers2D``, A7c).  The GSPMD helpers ``leaf_spec``,
+route (``Heat2D``, ``AllenCahn``, ``GrayScott2D`` and ``Burgers2D``); an
+application without one runs whole on every space rank, as GSPMD leaves an
+unsharded state.  The GSPMD helpers ``leaf_spec``,
 ``state_shardings`` and ``shard_state`` serve only ``Mgrit(mesh=...)``,
 which the port routes to ``ShardedMgrit``; they are not ported.
 """

@@ -396,7 +396,9 @@ def test_k7_cached_checks_raise_on_every_call(over, match):
 
 def test_k7_pack_layout():
     args = theta_rhs.pack(3, (16641, 129), (16129, 127), 0, (0, 0), 512, 129, 129, 1)
-    assert list(args) == [3] + [0] * 8 + [16641, 129, 16129, 127, 0, 0, 0, 512, 129, 129, 1]
+    # the halo rows' pointer slots and batch stride last
+    assert list(args) == [3] + [0] * 8 + [16641, 129, 16129, 127, 0, 0, 0, 512, 129, 129, 1,
+                                          0, 0, 0]
 
 
 def test_k7_cpu_checks_carry_no_launch():
@@ -430,6 +432,6 @@ def test_k7_launch_the_checks_would_make(monkeypatch, theta, mode):
         assert not on_cpu and fn == ("pm_theta_rhs2d", torch.float64) and index == 1
         o_sb, o_sr = out.stride()[:2]
         assert list(args[9:]) == [2 * P * Q, Q, o_sb, o_sr, 2 * N,
-                                  2 * P * Q if fe else 0, Q if fe else 0, B, P, Q, mode]
+                                  2 * P * Q if fe else 0, Q if fe else 0, B, P, Q, mode, 0, 0, 0]
     finally:
         theta_rhs._checked.cache_clear()

@@ -222,7 +222,7 @@ def test_single_tensor_states_take_the_unpacked_path():
 def test_dd_leaf_in_a_multi_leaf_state_raises():
     from pymgrit_tpu_torch.ops import dd
     x = dd.from_f64(np.zeros(3), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP C4"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         pvector.layout((x, torch.zeros(2, dtype=torch.float64)))
 
 

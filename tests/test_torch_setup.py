@@ -116,13 +116,14 @@ def test_unported_options_raise(kw, item):
 
 
 def test_mesh_names_the_sharded_executor():
-    """``Mgrit(mesh=...)`` points at the port's time-sharded executor and at
-    the unported 'space' axis (ROADMAP A7b)."""
+    """``Mgrit(mesh=...)`` points at the port's sharded executor and its
+    ('time', 'space') mesh, and no longer calls the space axis unported."""
     problem = P.simple_setup_problem(P.Dahlquist(t_start=0, t_stop=5, nt=101, device="cpu"), 2, 2)
     with pytest.raises(NotImplementedError) as err:
         P.Mgrit(problem=problem, logging_lvl=30, mesh=object())
     assert "pymgrit_tpu_torch.parallel.ShardedMgrit" in str(err.value)
-    assert "A7b" in str(err.value)
+    assert "make_time_space_mesh" in str(err.value)
+    assert "not ported" not in str(err.value) and "A7b" not in str(err.value)
 
 
 def test_import_leaves_jax_out():

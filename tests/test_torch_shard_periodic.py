@@ -134,14 +134,15 @@ def test_slab_steps_and_pencil_match_whole_states(world, name):
 
 def test_periodic_refusals(world):
     """On a (2, 2) mesh: a width that n_space does not divide raises naming
-    the state's shape; Burgers1D (no space route) and spatial coarsening
-    raise naming ROADMAP A7c; a slab's radius (a count over the whole
-    state) raises."""
+    the state's shape; Burgers1D (no space axis) runs replicated; spatial
+    coarsening raises naming why no split fits it; a slab's radius (a
+    count over the whole state) raises."""
     for r in world.result("periodic_errors"):
         kind, msg = r["indivisible"]
         assert kind == "ValueError" and "(2, 9, 9)" in msg and "n_space = 2" in msg, msg
-        for key, name in (("no_route", "Burgers1D"), ("spatial", "spatial coarsening")):
-            kind, msg = r[key]
-            assert kind == "NotImplementedError" and "A7c" in msg and name in msg, (key, msg)
+        assert r["replicated"] is None, r["replicated"]
+        kind, msg = r["spatial"]
+        assert kind == "NotImplementedError" and "spatial coarsening" in msg \
+            and "common divisor" in msg, msg
         kind, msg = r["radius"]
         assert kind == "NotImplementedError" and "slab" in msg

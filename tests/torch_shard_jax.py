@@ -101,8 +101,13 @@ def jax_run(case):
         mesh = make_time_space_mesh(n_time=P, n_space=S_)
     else:
         mesh = Mesh(np.array(jax.devices()[:P]), ("time",))
-    _JAX_RUNS[key] = W.run_case(J, JAX, JS, case, mesh, jax_value, JAX_SUBCLASSES)
-    return _JAX_RUNS[key]
+    res = W.run_case(J, JAX, JS, case, mesh, jax_value, JAX_SUBCLASSES)
+    if case.get("pair"):
+        # JAX's pair state is the dict {first, second}; the port's one (2, n)
+        # tensor (first, second)
+        res["tube"] = [np.stack(res["tube"], axis=1)]
+    _JAX_RUNS[key] = res
+    return res
 
 
 def jax_serial_run(case):

@@ -72,9 +72,9 @@ def dahlquist_grid(mod, side, grids, **kw):
             for g in grids], None
 
 
-def heat2d(mod, side, nts, nx=10, ny=12, **kw):
+def heat2d(mod, side, nts, nx=10, ny=12, t_stop=1.0, **kw):
     """Heat2D on the unit square with rhs sin(pi x) sin(pi y) and the same
-    initial condition (JAX's ``test_shard_features.py``)."""
+    initial condition (JAX's ``test_shard_features.py``), over [0, t_stop]."""
     xp = side.np
 
     def rhs(x, y, t):
@@ -83,7 +83,7 @@ def heat2d(mod, side, nts, nx=10, ny=12, **kw):
     def ic(x, y):
         return np.sin(np.pi * x) * np.sin(np.pi * y)
 
-    t = np.linspace(0, 1, nts[0])
+    t = np.linspace(0, t_stop, nts[0])
     problem = []
     for nt in nts:
         stride = (nts[0] - 1) // (nt - 1)
@@ -165,6 +165,33 @@ def two_leaf(mod, side, kind="dict", nts=(33, 9), norm=False):
     return [TwoLeaf(t_interval=t[::(nts[0] - 1) // (nt - 1)]) for nt in nts], None
 
 
+def bdf(mod, side, nts, nx=17, t_stop=2.0):
+    """The BDF pair-state heat models (``tests/test_torch_heat1d_2pts.py``'s
+    hierarchy): Heat1DBDF2 on level 0, Heat1DBDF1 on the levels below, on
+    levels nts over [0, t_stop]."""
+    xp = side.np
+
+    def rhs(x, t):
+        return -xp.sin(xp.pi * x) * (xp.sin(t) - xp.pi ** 2 * xp.cos(t))
+
+    t = np.linspace(0, t_stop, nts[0])
+    kw = dict(x_start=0, x_end=1, nx=nx, a=1, dtau=(t[1] - t[0]) / 2, rhs=rhs,
+              init_cond=lambda x: np.sin(np.pi * x), **side.kw)
+    return [(mod.Heat1DBDF2 if lvl == 0 else mod.Heat1DBDF1)(
+        t_interval=t[::(nts[0] - 1) // (nt - 1)], **kw) for lvl, nt in enumerate(nts)], None
+
+
+def zoo(mod, side, model, nts, t_stop, module=None, **kw):
+    """A model of the zoo by class name (from its submodule ``module`` of
+    the package where the package does not export it at its top) on
+    levels nts over [0, t_stop], with the constructor's kw."""
+    cls = getattr(mod, model, None)
+    if cls is None:
+        cls = getattr(importlib.import_module(f"{mod.__name__}.models.{module}"), model)
+    t = np.linspace(0, t_stop, nts[0])
+    return [cls(t_interval=t[::(nts[0] - 1) // (nt - 1)], **kw, **side.kw) for nt in nts], None
+
+
 PERIODIC_T_STOP = {"AllenCahn": 0.024, "GrayScott2D": 8.0, "Burgers2D": 0.5}
 
 
@@ -185,7 +212,7 @@ def periodic(mod, side, model, nts, nx=16, t_stop=None, **kw):
 
 
 BUILDERS = {f.__name__: f for f in (dahlquist, dahlquist_grid, heat2d, heat2d_serial, heat1d,
-                                    two_leaf, periodic)}
+                                    two_leaf, periodic, bdf, zoo)}
 
 
 # ---------------------------------------------------------------------------
@@ -298,10 +325,11 @@ def _error(fn):
 
 
 def mesh_errors(mesh):
-    """The mesh factory's refusal and a (2, 2) mesh's shape; then the
-    solver's refusals on that mesh: a width n_space does not divide, an
-    application without a space route, double-double states, spatial
-    coarsening."""
+    """The mesh factory's refusal and a (2, 2) mesh's shape; then on that
+    mesh: a width n_space does not divide raises; an application without a
+    space axis (Dahlquist, run replicated), Heat2D FE and spectral DD
+    construct; physical DD, spatial coarsening and a host-coupled
+    application raise."""
     import pymgrit_tpu_torch as P
     import pymgrit_tpu_torch.parallel as PP
     out = {"too_big": _error(lambda: PP.make_time_space_mesh(n_time=64, n_space=4))}
@@ -312,12 +340,22 @@ def mesh_errors(mesh):
         problem, _ = BUILDERS[build](P, PORT, **kw)
         return PP.ShardedMgrit(problem=problem, mesh=grid, transfer=transfer, logging_lvl=30)
 
+    def callback():
+        from pymgrit_tpu_torch.coupling import CallbackApplication
+        t = np.linspace(0, 1, 17)
+        zero = np.zeros(3)
+        return [CallbackApplication(lambda u, t0, t1: u, zero, zero, t_interval=t[::m],
+                                    **PORT.kw) for m in (1, 4)]
+
     out["indivisible"] = _error(lambda: solver("heat2d", nts=(17, 5), nx=9))
-    out["no_route"] = _error(lambda: solver("dahlquist", nts=(17, 5)))
-    out["dd"] = _error(lambda: solver("heat2d", nts=(17, 5), basis="spectral", precision="dd"))
-    out["fe"] = _error(lambda: solver("heat2d", nts=(17, 5), method="FE"))
+    out["replicated"] = _error(lambda: solver("dahlquist", nts=(17, 5)))
+    out["fe"] = _error(lambda: solver("heat2d", nts=(17, 5), method="FE", t_stop=1e-3))
+    out["dd_spectral"] = _error(lambda: solver("heat2d", nts=(17, 5), basis="spectral",
+                                               precision="dd"))
+    out["dd_physical"] = _error(lambda: solver("heat2d", nts=(17, 5), precision="dd"))
     out["spatial"] = _error(lambda: solver("heat2d", nts=(17, 5),
                                            transfer=[P.GridTransferHeat2D(9, 9)]))
+    out["host"] = _error(lambda: PP.ShardedMgrit(problem=callback(), mesh=grid, logging_lvl=30))
     out["shape"] = mesh.shape
     return out
 
@@ -491,8 +529,8 @@ def periodic_slab(mesh):
 
 def periodic_errors(mesh):
     """On a (2, 2) mesh: a periodic model whose width n_space does not
-    divide, Burgers1D (no space route), spatial coarsening of a periodic
-    model, and a slab's ``compute_radius``."""
+    divide, Burgers1D (no space axis: replicated), spatial coarsening of a
+    periodic model, and a slab's ``compute_radius``."""
     import pymgrit_tpu_torch as P
     import pymgrit_tpu_torch.parallel as PP
     from pymgrit_tpu_torch.parallel.comm import Comm
@@ -502,8 +540,9 @@ def periodic_errors(mesh):
 
     out = {"indivisible": _error(lambda: solver(periodic(P, PORT, "GrayScott2D", (17, 5),
                                                          nx=9)[0])),
-           "no_route": _error(lambda: solver([P.Burgers1D(nx=16, t_interval=np.linspace(0, 1, n),
-                                                          **PORT.kw) for n in (17, 5)])),
+           "replicated": _error(lambda: solver([P.Burgers1D(nx=16,
+                                                            t_interval=np.linspace(0, 1, n),
+                                                            **PORT.kw) for n in (17, 5)])),
            "spatial": _error(lambda: solver(periodic(P, PORT, "AllenCahn", (17, 5))[0],
                                             [P.GridTransferHeat2D(9, 9)]))}
     (ac,), _ = periodic(P, PORT, "AllenCahn", (3,))
